@@ -1,0 +1,23 @@
+from quantizedattention_tpu_torch.ops.api import flash_attention_bf16
+from quantizedattention_tpu_torch.ops.common import (
+    LOG2_E,
+    MASK_VALUE,
+    pad_tokens,
+    qk_scales,
+    tile_mask,
+)
+from quantizedattention_tpu_torch.ops.flash_fwd import (
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
+)
+
+__all__ = [
+    "flash_attention_bf16",
+    "flash_attention_fwd",
+    "flash_attention_fwd_plain",
+    "LOG2_E",
+    "MASK_VALUE",
+    "pad_tokens",
+    "qk_scales",
+    "tile_mask",
+]

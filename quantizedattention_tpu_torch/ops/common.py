@@ -1,0 +1,59 @@
+"""Shared kernel helpers: masks, scaling constants, padding."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+# Large-negative fill for masked logits: finite, so exp2(mask - mask) never
+# gives NaN, and far enough below any real scaled logit that exp2 underflows
+# to exactly 0 in f32.
+MASK_VALUE = -30000.0
+
+# 1/ln(2): converts natural-log-domain softmax to the exp2 domain.
+LOG2_E = 1.44269504
+
+
+def qk_scales(head_dim: int, sm_scale: float | None):
+    """(sm_scale, qk_scale): natural-domain and exp2-domain logit scales."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(head_dim)
+    return sm_scale, sm_scale * LOG2_E
+
+
+def tile_mask(
+    q_start: int,
+    k_start: int,
+    block_q: int,
+    block_kv: int,
+    kv_len: int,
+    causal: bool,
+    k_local_start: int | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Boolean [block_q, block_kv] mask: True where the logit is valid.
+
+    Causal is `k <= q` on global token positions (q_start/k_start include any
+    sequence-shard offset), combined with a kv-length mask for padded keys
+    taken against the local position `k_local_start` (defaults to k_start).
+    """
+    col = torch.arange(block_kv, device=device)[None, :]
+    if k_local_start is None:
+        k_local_start = k_start
+    mask = (k_local_start + col) < kv_len
+    if causal:
+        row = q_start + torch.arange(block_q, device=device)[:, None]
+        mask = mask & ((k_start + col) <= row)
+    return mask.expand(block_q, block_kv)
+
+
+def pad_tokens(x: torch.Tensor, block: int, axis: int) -> torch.Tensor:
+    """Zero-pad `axis` up to a multiple of `block`."""
+    pad = (-x.shape[axis]) % block
+    if pad == 0:
+        return x
+    axis = axis % x.ndim
+    widths = [0, 0] * (x.ndim - 1 - axis) + [0, pad]
+    return F.pad(x, widths)

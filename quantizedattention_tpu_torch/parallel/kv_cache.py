@@ -1,0 +1,204 @@
+"""int8 KV cache and decode attention (serving path).
+
+Counterpart of quantizedattention_tpu/parallel/kv_cache.py. The cache stores
+int8 K/V payloads [b, h_kv, max_len, d] with per-token symmetric scales
+[b, h_kv, max_len] and a per-row live length [b] (int32). The cache writes
+are plain tensor code, as they are plain jnp in the JAX package; unlike it,
+they update the cache tensors IN PLACE (a decode step would otherwise copy
+the whole cache) and return the cache for the JAX package's call form
+`cache = append_kv(cache, ...)`.
+
+`decode_attention` launches the hand-written Hopper kernel (csrc/decode.cu)
+for CUDA tensors and runs `decode_attention_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from quantizedattention_tpu_torch._build import load_kernel
+from quantizedattention_tpu_torch.ops.common import qk_scales
+from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
+
+_HEAD_DIM = 64  # the kernel's compiled head dim
+_MAX_GROUP = 128  # q heads per kv head that the kernel's shared memory holds
+
+
+class QuantizedKVCache(NamedTuple):
+    """int8 KV cache: payload [b, h_kv, max_len, d], scales [b, h_kv, max_len]."""
+
+    k_i8: torch.Tensor
+    sk: torch.Tensor
+    v_i8: torch.Tensor
+    sv: torch.Tensor
+    length: torch.Tensor  # [b] int32, tokens filled per batch row
+
+    @property
+    def max_len(self) -> int:
+        return self.k_i8.shape[2]
+
+
+def init_kv_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,
+                  device) -> QuantizedKVCache:
+    payload = (batch, n_kv_heads, max_len, head_dim)
+    return QuantizedKVCache(
+        k_i8=torch.zeros(payload, dtype=torch.int8, device=device),
+        sk=torch.zeros(payload[:3], dtype=torch.float32, device=device),
+        v_i8=torch.zeros(payload, dtype=torch.int8, device=device),
+        sv=torch.zeros(payload[:3], dtype=torch.float32, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _row_quant(x: torch.Tensor):
+    """Per-token symmetric int8: returns (x_i8 [..., t, d], scales [..., t])."""
+    s = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-12) / 127.0
+    x_i8 = torch.clamp(torch.round(x / s), -127.0, 127.0).to(torch.int8)
+    return x_i8, s[..., 0].float()
+
+
+def append_kv(cache: QuantizedKVCache, k_new, v_new, active=None) -> QuantizedKVCache:
+    """Quantize and append [b, h_kv, t_new, d] keys/values at each row's length.
+
+    active: optional [b] bool; rows where it is False do not advance `length`
+    (their write lands at the stale length, past the row's logical end). As
+    in the JAX package's dynamic_update_slice, a write that would overflow
+    max_len is shifted left to end at max_len.
+    """
+    k_i8, sk = _row_quant(k_new.float())
+    v_i8, sv = _row_quant(v_new.float())
+    b, _, t_new, _ = k_new.shape
+    dev = cache.k_i8.device
+    start = cache.length.long().clamp(0, cache.max_len - t_new)
+    idx = start[:, None] + torch.arange(t_new, device=dev)  # [b, t_new]
+    rows = torch.arange(b, device=dev)[:, None]
+    # advanced indices around a slice put [b, t_new] first: [b, t_new, h, (d)]
+    cache.k_i8[rows, :, idx] = k_i8.transpose(1, 2)
+    cache.sk[rows, :, idx] = sk.transpose(1, 2)
+    cache.v_i8[rows, :, idx] = v_i8.transpose(1, 2)
+    cache.sv[rows, :, idx] = sv.transpose(1, 2)
+    adv = t_new if active is None else t_new * active.to(torch.int32)
+    cache.length.add_(adv)
+    return cache
+
+
+def write_kv_slot(cache: QuantizedKVCache, slot, k_new, v_new, true_len) -> QuantizedKVCache:
+    """Fused-prefill write: quantize [h_kv, t, d] K/V and install them at
+    batch row `slot`, resetting the row's length to `true_len` (<= t; the
+    tail beyond it is prompt padding, masked out by decode). The whole row
+    is rewritten: the prompt, then zeros to max_len.
+
+    slot/true_len: Python ints or one-element tensors on the cache's device
+    (neither form makes a blocking host-to-device copy)."""
+    k_i8, sk = _row_quant(k_new.float())
+    v_i8, sv = _row_quant(v_new.float())
+    dev = cache.k_i8.device
+
+    def one(x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.reshape(1).to(dtype)
+        return torch.full((1,), x, dtype=dtype, device=dev)
+
+    idx = one(slot, torch.long)
+
+    def fit(val):
+        t = val.shape[1]
+        if t < cache.max_len:
+            widths = [0, 0] * (val.ndim - 2) + [0, cache.max_len - t]
+            val = F.pad(val, widths)
+        return val[None, :, : cache.max_len]
+
+    cache.k_i8.index_copy_(0, idx, fit(k_i8))
+    cache.sk.index_copy_(0, idx, fit(sk))
+    cache.v_i8.index_copy_(0, idx, fit(v_i8))
+    cache.sv.index_copy_(0, idx, fit(sv))
+    cache.length.index_copy_(0, idx, one(true_len, torch.int32))
+    return cache
+
+
+def _check_decode_args(q, cache):
+    if q.ndim != 3 or q.shape[0] != cache.k_i8.shape[0] or q.shape[2] != cache.k_i8.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit cache {tuple(cache.k_i8.shape)}")
+    n_kv = cache.k_i8.shape[1]
+    if q.shape[1] % n_kv != 0:
+        raise ValueError(f"{q.shape[1]} q heads not a multiple of {n_kv} kv heads")
+
+
+def decode_attention_plain(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False):
+    """Decode attention's arithmetic in plain PyTorch, one softmax per row.
+
+    Positions at or past a row's length are masked out of BOTH products with
+    `where`, never by multiplying with 0: stale scales there may be
+    non-finite."""
+    _check_decode_args(q, cache)
+    b, n_q, d = q.shape
+    n_kv, max_len = cache.k_i8.shape[1], cache.max_len
+    _, qk_scale = qk_scales(d, sm_scale)
+    qg = q.to(torch.bfloat16).float().reshape(b, n_kv, n_q // n_kv, d)
+    s = (qg @ cache.k_i8.float().transpose(-1, -2)) * (cache.sk[:, :, None, :] * qk_scale)
+    cols = torch.arange(max_len, device=q.device)
+    mask = (cols < cache.length.long()[:, None])[:, None, None, :]  # [b, 1, 1, L]
+    s = torch.where(mask, s, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp2(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    pw = torch.where(mask, p * cache.sv[:, :, None, :], 0.0).to(torch.bfloat16).float()
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = ((pw @ cache.v_i8.float()) / l_safe).reshape(b, n_q, d)
+    if not return_lse:
+        return o
+    lse = torch.where(l == 0.0, -torch.inf, m + torch.log2(l_safe))
+    return o, lse.reshape(b, n_q)
+
+
+@functools.cache
+def _kernel():
+    fn = load_kernel("decode").qa_decode
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False):
+    """Single-token decode: q [b, n_q_heads, d] against the int8 cache.
+
+    GQA: n_q_heads a multiple of the cache's kv heads, q head kv_head * group
+    + g. Returns O [b, n_q_heads, d] f32, and with return_lse=True also the
+    exp2-domain lse [b, n_q_heads] (-inf for rows with no live tokens).
+    CUDA tensors launch the kernel (head_dim 64) or raise; CPU tensors take
+    `decode_attention_plain`. `decode_attention.launches` counts launches.
+    """
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, cache, sm_scale, return_lse)
+    _check_decode_args(q, cache)
+    b, n_q, d = q.shape
+    n_kv, max_len = cache.k_i8.shape[1], cache.max_len
+    group = n_q // n_kv
+    if d != _HEAD_DIM or group > _MAX_GROUP or n_kv > 65535 or b > 65535:
+        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, group <= {_MAX_GROUP}; "
+                         f"got d={d}, group={group}")
+    if (cache.k_i8.dtype, cache.v_i8.dtype, cache.sk.dtype, cache.sv.dtype,
+            cache.length.dtype) != (torch.int8, torch.int8, torch.float32, torch.float32,
+                                    torch.int32):
+        raise TypeError("cache must be int8 payloads, f32 scales and int32 lengths")
+    _, qk_scale = qk_scales(d, sm_scale)
+    qb = q.to(torch.bfloat16).contiguous()
+    dev = require_cuda(qb, cache.k_i8, cache.sk, cache.v_i8, cache.sv, cache.length)
+    o = torch.empty((b, n_q, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, n_q), dtype=torch.float32, device=dev)
+    status = _kernel()(
+        qb.data_ptr(), cache.k_i8.data_ptr(), cache.sk.data_ptr(), cache.v_i8.data_ptr(),
+        cache.sv.data_ptr(), cache.length.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, n_kv, group, max_len, qk_scale, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_status(status, "decode")
+    decode_attention.launches += 1
+    return (o, lse) if return_lse else o
+
+
+decode_attention.launches = 0
