@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the checks below
+    python3 chip_smoke.py --profile   # also: torch.profiler over one train step
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
-     checkout's sources (quantizedattention_tpu_torch/_build.py);
+     checkout's sources, all at once (quantizedattention_tpu_torch/_build.py);
   3. flash_fwd kernel vs its plain PyTorch version (O and lse);
   4. decode kernel vs its plain version, with stale non-finite scales and
      junk payloads written past every row's length;
@@ -15,12 +16,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      horizon 32), after a warm-up run. The timed run must launch both
      kernels, repeat the warm-up's tokens, and match `generate` on the same
      8 prompts as one batch; prefill logits must agree with the plain path
-     on the CPU.
-Then one JSON line with per-kernel launches, errors and times, and, last,
-{"ok": true, "device": {...}}. Weights and inputs are random from fixed
+     on the CPU;
+  6. flash_bwd: the dK/dV (B2) and dQ (B3) kernels vs their plain versions in
+     fast and exact mode (O and lse from the B1 kernel), on the forward's
+     cases and a few edge shapes, and autograd through
+     flash_attention_bf16 against the fp32 oracle within the JAX package's
+     envelope;
+  7. attention timing at the training shape (4, 16, 2048, 64), causal: B1,
+     B2, B3 and their plain versions, beside F.scaled_dot_product_attention
+     (a yardstick only; the port never calls it);
+  8. train at full width: the bench LM's widths at max_seq 2048 with f32
+     params, 4 x 2048 tokens, 1 warm-up + 10 timed AdamW steps through
+     make_train_step; losses finite and falling, B1/B2/B3 launched n_layers
+     times per step; lm_loss gradients on the card vs the CPU plain path;
+  9. train GQA: the entry() config (4 q / 2 kv heads), 8 x 512 tokens, 10
+     steps; losses finite and falling, B2 run with rep 2.
+Then one JSON line with per-kernel launches, errors, times and bounds, and,
+last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
-allocation), from CUDA events around CUDA-graph replays; serving times are
-host wall clock around synchronised work. They are records, not claims.
+allocation), from CUDA events around CUDA-graph replays; serving and train
+step times are CUDA events or host wall clock around synchronised work. They
+are records, not claims.
 """
 
 from __future__ import annotations
@@ -33,10 +49,27 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from quantizedattention_tpu_torch import _build
-from quantizedattention_tpu_torch.models import TransformerConfig, generate, init_transformer
-from quantizedattention_tpu_torch.models import transformer_forward
+from quantizedattention_tpu_torch.models import (
+    TransformerConfig,
+    generate,
+    init_transformer,
+    lm_loss,
+    make_train_step,
+    param_leaves,
+    transformer_forward,
+)
+from quantizedattention_tpu_torch.ops import flash_bwd as fb
+from quantizedattention_tpu_torch.ops import (
+    bwd_operands,
+    flash_attention_bf16,
+    flash_bwd_dkv,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq,
+    flash_bwd_dq_plain,
+)
 from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
@@ -46,7 +79,9 @@ from quantizedattention_tpu_torch.parallel.kv_cache import (
     decode_attention,
     decode_attention_plain,
 )
+from quantizedattention_tpu_torch.reference import reference_attention_vjp
 from quantizedattention_tpu_torch.serve import ServingEngine
+from quantizedattention_tpu_torch.utils.testing import GRAD_MISMATCH_RATE, mismatch_report
 
 # kernel vs plain, unit-normal inputs: only the summation order and where P
 # is rounded to bf16 differ. The kernel rounds each 64-key tile's P against
@@ -59,10 +94,35 @@ DECODE_TOL = 5e-3
 # bf16 model on the card vs the same bf16 model through the plain path on
 # the CPU: relative L2 distance of the prefill logits
 LOGITS_REL_TOL = 5e-2
+# Backward kernel vs plain, as max|diff| / max|plain| per tensor, with O and
+# lse from the same B1 run handed to both. Fast: both round the same
+# operands at the same points, so only the f32 summation order differs, and
+# it can tip a P or dS entry across a bf16 rounding boundary (one ulp, 2^-8
+# relative, of one term of a sum over up to s terms): a few 1e-3 at most.
+# Exact: fp32 throughout, only the summation order: ~1e-6.
+BWD_FAST_TOL, BWD_EXACT_TOL = 1e-2, 1e-4
+# lm_loss on the card vs the CPU plain path, same f32 params: the two differ
+# where B1 rounds P (per 64-key tile on the card, per row on the CPU; a few
+# 1e-3 in O, as the flash_fwd phase shows) and in summation order. Loss and
+# gradients are smooth in O, so they move by the same order; the loss
+# averages it away.
+TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-3, 5e-2
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): a kernel's
+# bound is the larger of its operations over the peak of their type and its
+# bytes (each input read once, each output written once) over HBM bandwidth.
+PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 
 BENCH_CFG = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=16, n_kv_heads=16,
                               head_dim=64, n_layers=4, max_seq=1280)
 N_SLOTS, PROMPT_LEN, NEW_TOKENS, HORIZON = 8, 256, 96, 32
+# training: BASELINE config 2's attention shape (4, 16, 2048, 64) in every layer
+TRAIN_CFG = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=16, n_kv_heads=16,
+                              head_dim=64, n_layers=4, max_seq=2048)
+TRAIN_BATCH, TRAIN_STEPS, PARITY_LEN = 4, 10, 256
+GQA_CFG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4, n_kv_heads=2,
+                            head_dim=64, n_layers=2, max_seq=512)
+GQA_BATCH = 8
 
 
 def log(msg: str) -> None:
@@ -97,6 +157,39 @@ def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def eager_ms(fn, calls: int = 20) -> float:
+    """Mean time of one `fn()` from CUDA events around an eager loop of
+    `calls` calls, after one warm-up call. For work of 0.1 ms and more per
+    call, which the host enqueues faster than the card runs it."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def visible_pairs(t: int, s: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: causal keeps k <= q."""
+    if not causal:
+        return t * s
+    n = min(t, s)
+    return n * (n + 1) // 2 + (t - n) * s
+
+
+def bound(flops: float, n_bytes: float, peak: float) -> dict:
+    t_ops, t_bytes = flops / peak, n_bytes / HBM_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -122,14 +215,16 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
 
+FLASH_CASES = [  # (b, h, h_kv, t, s, causal)
+    (2, 16, 16, 256, 256, True),
+    (2, 16, 4, 1000, 1000, True),
+    (1, 4, 2, 77, 201, False),
+]
+
+
 def phase_flash(dev, gen) -> dict:
-    cases = [  # (b, h, h_kv, t, s, causal)
-        (2, 16, 16, 256, 256, True),
-        (2, 16, 4, 1000, 1000, True),
-        (1, 4, 2, 77, 201, False),
-    ]
     worst = 0.0
-    for b, h, h_kv, t, s, causal in cases:
+    for b, h, h_kv, t, s, causal in FLASH_CASES:
         q = torch.randn((b, h, t, 64), generator=gen, device=dev)
         k = torch.randn((b, h_kv, s, 64), generator=gen, device=dev)
         v = torch.randn((b, h_kv, s, 64), generator=gen, device=dev)
@@ -148,8 +243,14 @@ def phase_flash(dev, gen) -> dict:
                            dtype=torch.bfloat16) for _ in range(3))
     ms = device_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
     plain_ms = device_ms(lambda: flash_attention_fwd_plain(q, k, v, causal=True))
-    log(f"[flash_fwd] (8,16,256,64) causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    flops = 2 * 2 * N_SLOTS * 16 * visible_pairs(PROMPT_LEN, PROMPT_LEN, True) * 64
+    bnd = bound(flops, nbytes(q, k, v, o, lse), PEAK_BF16)
+    log(f"[flash_fwd] (8,16,256,64) causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": lib_ms,
+            "library_call": "F.scaled_dot_product_attention(is_causal=True), bf16"}
 
 
 def _decode_case(dev, gen, n_q, n_kv, lengths, stale):
@@ -188,13 +289,19 @@ def phase_decode(dev, gen) -> dict:
             raise AssertionError("decode kernel disagrees with its plain version")
         worst = max(worst, err_o)
     # time at the serving decode's shape: 8 slots x 16 heads, mid-generation
-    q, cache = _decode_case(dev, gen, 16, 16, [PROMPT_LEN + NEW_TOKENS // 2] * N_SLOTS,
-                            stale=False)
+    length = PROMPT_LEN + NEW_TOKENS // 2
+    q, cache = _decode_case(dev, gen, 16, 16, [length] * N_SLOTS, stale=False)
     ms = device_ms(lambda: decode_attention(q, cache))
     plain_ms = device_ms(lambda: decode_attention_plain(q, cache))
-    log(f"[decode] 8 slots x 16 heads, length {PROMPT_LEN + NEW_TOKENS // 2} of "
-        f"{BENCH_CFG.max_seq}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    o = decode_attention(q, cache)
+    # the data needs each slot's K/V payloads and scales below its length only
+    live_tokens = int(cache.length.sum()) * cache.k_i8.shape[1]
+    kv_bytes = live_tokens * 2 * (64 * cache.k_i8.element_size() + cache.sk.element_size())
+    flops = 2 * 2 * int(cache.length.sum()) * q.shape[1] * 64
+    bnd = bound(flops, kv_bytes + nbytes(q, o, cache.length), PEAK_BF16)
+    log(f"[decode] 8 slots x 16 heads, length {length} of {BENCH_CFG.max_seq}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
 def phase_serving(dev, smi) -> dict:
@@ -238,9 +345,7 @@ def phase_serving(dev, smi) -> dict:
     # the full model on the card vs the plain path on the CPU, same weights
     probe = torch.tensor([prompts[0][:64]], device=dev)
     logits = transformer_forward(eng.params, probe, cfg).float().cpu()
-    cpu_params = {k: v.cpu() for k, v in eng.params.items() if k != "layers"}
-    cpu_params["layers"] = [{k: v.cpu() for k, v in lay.items()} for lay in eng.params["layers"]]
-    ref = transformer_forward(cpu_params, probe.cpu(), cfg).float()
+    ref = transformer_forward(_to(eng.params, "cpu"), probe.cpu(), cfg).float()
     rel = ((logits - ref).norm() / ref.norm()).item()
     agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
     log(f"[serve] prefill logits vs CPU plain path ({probe.shape[1]} tokens): rel L2 {rel:.3e} "
@@ -259,24 +364,316 @@ def phase_serving(dev, smi) -> dict:
     return launches
 
 
+def _to(params, device):
+    """A detached copy of an LM params dict on `device`."""
+    out = {k: v.detach().to(device) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: v.detach().to(device) for k, v in lay.items()}
+                     for lay in params["layers"]]
+    return out
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+# The oracle envelope is held on per-head gradients (rep 1) at half a
+# million elements a tensor, where a mismatch rate is stable (at 3e4
+# elements, as in the JAX package's CPU test, one seed's count swings
+# between 2 and 12), and on the cross case; see phase_flash_bwd for rep 4.
+ORACLE_CASES = [(2, 16, 16, 256, 256, True), (2, 16, 16, 256, 256, False),
+                (1, 4, 2, 77, 201, False)]
+
+
+def _qkvdo(gen, dev, b, h, h_kv, t, s):
+    return (torch.randn((b, h, t, 64), generator=gen, device=dev),
+            torch.randn((b, h_kv, s, 64), generator=gen, device=dev),
+            torch.randn((b, h_kv, s, 64), generator=gen, device=dev),
+            torch.randn((b, h, t, 64), generator=gen, device=dev))
+
+
+# shapes the forward cases do not reach: a rep that does not divide 64, rep 64
+# (one row per group in a dQ block), a single token, causal with t < s
+BWD_EDGE_CASES = [(2, 6, 2, 33, 130, True), (1, 64, 1, 70, 70, True), (1, 3, 1, 1, 1, True)]
+
+
+def phase_flash_bwd(dev, gen) -> dict:
+    worst = {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0}
+    for b, h, h_kv, t, s, causal in FLASH_CASES + BWD_EDGE_CASES:
+        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        for fast, tol in ((True, BWD_FAST_TOL), (False, BWD_EXACT_TOL)):
+            ops = bwd_operands(q, k, v, o, lse, do, causal=causal, fast=fast)
+            dk, dv = flash_bwd_dkv(ops)
+            dq = flash_bwd_dq(ops)
+            torch.cuda.synchronize()
+            dk_p, dv_p = flash_bwd_dkv_plain(ops)
+            dq_p = flash_bwd_dq_plain(ops)
+            rel = {}
+            for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"flash_bwd {name} is not finite")
+                err = (got - want).abs().max().item()
+                rel[name] = err / want.abs().max().item()
+                kernel = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+                worst[kernel] = max(worst[kernel], err)
+            log(f"[flash_bwd] b={b} h={h} h_kv={h_kv} t={t} s={s} causal={causal} "
+                f"{'fast' if fast else 'exact'}: max|diff|/max|plain| dq {rel['dq']:.3e} "
+                f"dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol {tol})")
+            if max(rel.values()) > tol:
+                raise AssertionError("flash_bwd kernels disagree with their plain versions")
+
+    # autograd through flash_attention_bf16 vs the fp32 oracle: the JAX
+    # package's envelope (atol 1e-2, mismatch rate <= 3.5e-4) on per-head
+    # gradients. GQA dk/dv are sums over the group, up to rep times larger,
+    # so a fixed atol is a stricter test there: the rep-4 case is reported,
+    # and held against its plain version above.
+    for case in ORACLE_CASES + [FLASH_CASES[1]]:
+        b, h, h_kv, t, s, causal = case
+        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s)
+        want = reference_attention_vjp(q, k, v, do, causal=causal)
+        for exact in (False, True):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            got = torch.autograd.grad(
+                flash_attention_bf16(*leaves, causal=causal, bwd_exact=exact), leaves, do)
+            reps = [mismatch_report(n, g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+            held = case in ORACLE_CASES
+            log(f"[flash_bwd] autograd vs fp32 oracle {case} bwd_exact={exact} "
+                f"({'held' if held else 'reported'}): " + "; ".join(map(str, reps)))
+            if held and max(r.mismatch_rate for r in reps) > GRAD_MISMATCH_RATE:
+                raise AssertionError("flash_attention_bf16 gradients outside the envelope")
+    return worst
+
+
+def phase_train_timing(dev, gen) -> dict:
+    """Device time per call at the training shape, causal, f32 inputs as the
+    model hands them in; bf16 for the library call."""
+    b, h, t, d = TRAIN_BATCH, 16, TRAIN_CFG.max_seq, 64
+    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t)
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    fast = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True)
+    exact = bwd_operands(q, k, v, o, lse, do, causal=True, fast=False)
+    dk, dv = flash_bwd_dkv(fast)
+    dq = flash_bwd_dq(fast)
+    pairs = b * h * visible_pairs(t, t, True)
+    out = {
+        "flash_fwd": {"ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
+                      "plain_ms": device_ms(lambda: flash_attention_fwd_plain(q, k, v, True),
+                                            calls=4, replays=5),
+                      **bound(2 * 2 * pairs * d, nbytes(q, k, v, o, lse), PEAK_BF16)},
+        "flash_bwd_dkv": {
+            "ms": device_ms(lambda: flash_bwd_dkv(fast)),
+            "plain_ms": device_ms(lambda: flash_bwd_dkv_plain(fast), calls=4, replays=5),
+            "exact_ms": device_ms(lambda: flash_bwd_dkv(exact), calls=4, replays=5),
+            **bound(4 * 2 * pairs * d, nbytes(*fast[:6], dk, dv), PEAK_BF16),
+            "exact_bound_ms": bound(4 * 2 * pairs * d, nbytes(*exact[:6], dk, dv),
+                                    PEAK_FP32)["bound_ms"]},
+        "flash_bwd_dq": {
+            "ms": device_ms(lambda: flash_bwd_dq(fast)),
+            "plain_ms": device_ms(lambda: flash_bwd_dq_plain(fast), calls=4, replays=5),
+            "exact_ms": device_ms(lambda: flash_bwd_dq(exact), calls=4, replays=5),
+            **bound(3 * 2 * pairs * d, nbytes(*fast[:6], dq), PEAK_BF16),
+            "exact_bound_ms": bound(3 * 2 * pairs * d, nbytes(*exact[:6], dq),
+                                    PEAK_FP32)["bound_ms"]},
+    }
+    # the library yardstick on bf16 inputs: forward by graph replays; the
+    # backward alone as (forward + backward) - forward, both from CUDA events
+    # around an eager loop
+    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    dob = do.to(torch.bfloat16)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qb, kb, vb, is_causal=True),
+                            (qb, kb, vb), dob)
+
+    def ours_fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        torch.autograd.grad(flash_attention_bf16(*leaves, causal=True), leaves, do)
+
+    sdpa_fwd_ms = device_ms(sdpa_fwd)
+    sdpa_bwd_ms = eager_ms(sdpa_fwd_bwd) - eager_ms(sdpa_fwd)
+    ours_fb_ms = eager_ms(ours_fwd_bwd)
+    out["flash_fwd"]["library_ms"] = sdpa_fwd_ms
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        out[name]["library_ms"] = sdpa_bwd_ms
+        out[name]["library_call"] = ("backward of F.scaled_dot_product_attention(is_causal="
+                                     "True), bf16: dq, dk, dv together")
+    for name, r in out.items():
+        log(f"[timing] {name} at ({b},{h},{t},{d}) causal: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f", exact mode {r['exact_ms']:.4f} ms (bound {r['exact_bound_ms']:.4f} ms "
+               "at the fp32 peak)" if "exact_ms" in r else ""))
+    log(f"[timing] sdpa bf16 forward {sdpa_fwd_ms:.4f} ms, backward {sdpa_bwd_ms:.4f} ms; "
+        f"flash_attention_bf16 forward + backward {ours_fb_ms:.4f} ms (eager, CUDA events)")
+    out["flash_fwd"]["fwd_bwd_ms"] = ours_fb_ms
+    return out
+
+
+def _grads(params, tokens, targets, cfg):
+    """(loss, gradients in param_leaves order) on the tokens' device."""
+    copy = _to(params, tokens.device)
+    leaves = [x.requires_grad_(True) for x in param_leaves(copy)]
+    loss = lm_loss(copy, tokens, targets, cfg)
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def _launch_counts():
+    return {"flash_fwd": flash_attention_fwd.launches, "flash_bwd_dkv": flash_bwd_dkv.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches}
+
+
+def _reset_counts():
+    flash_attention_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+
+
+def _train(cfg, params, tokens, targets, steps):
+    """1 warm-up + `steps` timed steps; returns (losses, step ms, launches per step)."""
+    _, step = make_train_step(cfg, params)
+    losses = [step(tokens, targets)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    per_step, times = [], []
+    for _ in range(steps):
+        before = _launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(tokens, targets))
+        end.record()
+        times.append((start, end))
+        per_step.append({k: v - before[k] for k, v in _launch_counts().items()})
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).tolist()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    want = {k: cfg.n_layers for k in per_step[0]}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"kernel launches per step {per_step}, want {want}")
+    return losses, [s.elapsed_time(e) for s, e in times], per_step
+
+
+def phase_train(dev, smi, profile: bool) -> dict:
+    cfg = TRAIN_CFG
+    params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_seq))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+
+    # gradient parity on one 256-token sequence: the card vs the CPU plain path
+    tok, tgt = tokens[:1, :PARITY_LEN], targets[:1, :PARITY_LEN]
+    loss_c, grads_c = _grads(params, tok, tgt, cfg)
+    loss_p, grads_p = _grads(_to(params, "cpu"), tok.cpu(), tgt.cpu(), cfg)
+    rels = [((g.cpu() - w).norm() / w.norm()).item() for g, w in zip(grads_c, grads_p)]
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    log(f"[train] lm_loss on the card vs CPU plain path (1 x {PARITY_LEN} tokens): loss "
+        f"{loss_c:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_REL}); grad rel L2 "
+        f"max {max(rels):.3e} median {statistics.median(rels):.3e} over {len(rels)} tensors "
+        f"(tol {TRAIN_GRAD_REL_L2})")
+    if not (loss_rel <= TRAIN_LOSS_REL and max(rels) <= TRAIN_GRAD_REL_L2):
+        raise AssertionError("lm_loss gradients on the card disagree with the CPU plain path")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms, per_step = _train(cfg, params, tokens, targets, TRAIN_STEPS)
+    launches = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    med = statistics.median(step_ms)
+    n_tok = tokens.numel()
+    log(f"[train] {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+        f"{cfg.vocab_size}, f32 params, {TRAIN_BATCH} x {cfg.max_seq} tokens on {smi}: "
+        f"median step {med:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}; CUDA "
+        f"events), {n_tok / med * 1e3:.0f} tokens/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches} over "
+        f"{TRAIN_STEPS} steps; losses {[round(x, 4) for x in losses]}")
+    if profile:
+        _profile_step(cfg, params, tokens, targets)
+    return launches
+
+
+def _profile_step(cfg, params, tokens, targets):
+    """torch.profiler over one train step: device time by kernel, and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, step = make_train_step(cfg, params)
+    step(tokens, targets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tokens, targets)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total_us = sum(e.self_device_time_total for e in events)
+    log(f"[profile] one train step: wall {wall_ms:.2f} ms (profiled), device busy "
+        f"{total_us / 1e3:.2f} ms ({total_us / 1e3 / wall_ms:.1%} of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} calls  "
+            f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
+
+
+def phase_train_gqa(dev) -> None:
+    cfg = GQA_CFG
+    params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (GQA_BATCH, cfg.max_seq))).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    reps = []
+    inner = fb.bwd_operands
+
+    def spy(*args, **kwargs):  # records the GQA group the backward kernels are handed
+        ops = inner(*args, **kwargs)
+        reps.append(ops.q.shape[1])
+        return ops
+
+    fb.bwd_operands = spy
+    try:
+        losses, step_ms, _ = _train(cfg, params, tokens, targets, TRAIN_STEPS)
+    finally:
+        fb.bwd_operands = inner
+    if set(reps) != {cfg.n_heads // cfg.n_kv_heads}:
+        raise AssertionError(f"B2 ran with rep {sorted(set(reps))}")
+    log(f"[train_gqa] {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, d_model {cfg.d_model}, "
+        f"{GQA_BATCH} x {cfg.max_seq} tokens: {TRAIN_STEPS} steps, median "
+        f"{statistics.median(step_ms):.2f} ms, B2 rep {reps[0]}; losses "
+        f"{[round(x, 4) for x in losses]}")
+
+
 def main() -> None:
+    profile = "--profile" in sys.argv[1:]
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     gen = torch.Generator(device=dev).manual_seed(0)
     flash = phase_flash(dev, gen)
     decode = phase_decode(dev, gen)
-    launches = phase_serving(dev, smi)
+    serve_launches = phase_serving(dev, smi)
+    bwd_err = phase_flash_bwd(dev, gen)
+    timing = phase_train_timing(dev, gen)
+    train_launches = phase_train(dev, smi, profile)
+    phase_train_gqa(dev)
+
+    def at_train(name):
+        return {f"train_{k}": v for k, v in timing[name].items()}
+
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "quantizedattention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "quantizedattention_tpu/ops/flash_fwd.py:47",
-         "launches": launches["flash_fwd"], **flash},
+         "launches": serve_launches["flash_fwd"] + train_launches["flash_fwd"],
+         "launches_by_path": {"serve": serve_launches["flash_fwd"],
+                              "train": train_launches["flash_fwd"]},
+         **flash, **at_train("flash_fwd")},
         {"name": "decode", "route": "cuda",
          "source": "quantizedattention_tpu_torch/csrc/decode.cu",
          "replaces": "quantizedattention_tpu/parallel/kv_cache.py:172",
-         "launches": launches["decode"], **decode},
+         "launches": serve_launches["decode"], **decode},
     ]
+    for kname, replaces in (("flash_bwd_dkv", "quantizedattention_tpu/ops/flash_bwd.py:66"),
+                            ("flash_bwd_dq", "quantizedattention_tpu/ops/flash_bwd.py:132")):
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": "quantizedattention_tpu_torch/csrc/flash_bwd.cu",
+                        "replaces": replaces, "launches": train_launches[kname],
+                        "max_abs_err": bwd_err[kname], **timing[kname]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,16 @@
 """quantizedattention_tpu_torch: the PyTorch + CUDA port of quantizedattention_tpu.
 
-The serving path runs on hand-written Hopper (sm_90a) kernels: the
-corrected-bf16 flash-attention forward (prefill) and int8-KV-cache decode
-attention, each beside a plain PyTorch version that CPU tensors take. The
-kernels are built from `csrc/` with nvcc on first use (`_build.py`).
+The serving and training paths run on hand-written Hopper (sm_90a)
+kernels: the corrected-bf16 flash-attention forward (prefill, training) and
+its backward (dK/dV and dQ), and int8-KV-cache decode attention, each beside
+a plain PyTorch version that CPU tensors take. The kernels are built from
+`csrc/` with nvcc on first use (`_build.py`).
 
 Public surface:
-  flash_attention_bf16(q, k, v, causal)      forward only (no backward yet)
-  flash_attention_fwd / decode_attention     the kernel wrappers
+  flash_attention_bf16(q, k, v, causal)      differentiable (torch.autograd.Function)
+  flash_attention_fwd / flash_attention_bwd / decode_attention   the kernel wrappers
   models.TransformerConfig, init_transformer, generate, params_from_jax
+  models.lm_loss, make_train_step            training, AdamW
   serve.ServingEngine                        continuous batching, one device
 """
 
@@ -16,6 +18,8 @@ __version__ = "0.1.0"
 
 from quantizedattention_tpu_torch.ops import (
     flash_attention_bf16,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
@@ -23,6 +27,8 @@ from quantizedattention_tpu_torch.parallel import decode_attention, decode_atten
 
 __all__ = [
     "flash_attention_bf16",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
     "decode_attention",

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_PKG_DIR)
@@ -28,15 +29,21 @@ BUILD_DIR = os.path.join(_ROOT, "build")
 KERNEL_DIR = os.path.join(BUILD_DIR, "kernels")
 _SCHED_SRC = os.path.join(_ROOT, "native", "scheduler.cpp")
 
-KERNELS = ("flash_fwd", "decode")
+KERNELS = ("flash_fwd", "flash_bwd", "decode")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}  # one per library: builds of different ones overlap
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def _lib_lock(name: str) -> threading.Lock:
+    with _lock:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -66,7 +73,7 @@ def _compile(cmd: list[str], out: str) -> None:
 
 def load_kernel(name: str) -> ctypes.CDLL:
     """Build (if stale) and load `csrc/<name>.cu`; raises on failure."""
-    with _lock:
+    with _lib_lock(name):
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
@@ -79,7 +86,7 @@ def load_kernel(name: str) -> ctypes.CDLL:
 
 def load_scheduler() -> ctypes.CDLL:
     """Build (if stale) and load the native scheduler core; raises on failure."""
-    with _lock:
+    with _lib_lock("scheduler"):
         if "scheduler" in _libs:
             return _libs["scheduler"]
         lib = os.path.join(BUILD_DIR, "libscheduler.so")
@@ -90,11 +97,14 @@ def load_scheduler() -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build every kernel and the scheduler; returns the seconds it took."""
+    """Build every kernel and the scheduler, all compilers at once; returns
+    the seconds it took."""
     t0 = time.perf_counter()
-    for name in KERNELS:
-        load_kernel(name)
-    load_scheduler()
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        jobs = [pool.submit(load_kernel, name) for name in KERNELS]
+        jobs.append(pool.submit(load_scheduler))
+        for job in jobs:
+            job.result()
     return time.perf_counter() - t0
 
 

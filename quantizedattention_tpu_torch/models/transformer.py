@@ -1,14 +1,15 @@
-"""Decoder-only transformer LM on the ported kernels (inference).
+"""Decoder-only transformer LM on the ported kernels.
 
 Counterpart of quantizedattention_tpu/models/transformer.py: RMSNorm pre-norm
 blocks, interleaved-pair RoPE, GQA projections, tanh-form GELU MLP. Params are
 a plain dict of tensors with the JAX package's names and shapes (weights
 [in, out], projections `x @ w`), so `models.convert.params_from_jax` carries
-them over unchanged. Prefill runs the corrected-bf16 flash forward; decode
+them over unchanged. Training (`lm_loss`, `make_train_step`) and prefill run
+the corrected-bf16 flash attention (forward B1, backward B2 + B3); decode
 appends to the int8 KV cache and runs the int8 decode kernel.
 
-The JAX package's training step, int8 attention, speculative verify,
-chunked prefill and top-k/top-p sampling are not ported yet.
+The JAX package's int8 attention, speculative verify, chunked prefill and
+top-k/top-p sampling are not ported yet.
 """
 
 from __future__ import annotations
@@ -140,15 +141,61 @@ def _block(layer, x, cfg: TransformerConfig, positions):
     return _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
 
 
-@torch.no_grad()
 def transformer_forward(params, tokens, cfg: TransformerConfig):
-    """tokens [B, T] -> logits [B, T, vocab] (the params' dtype)."""
+    """tokens [B, T] -> logits [B, T, vocab] (the params' dtype).
+    Differentiable: gradients flow to every param that requires them."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embedding_lookup(params["embed"], tokens)
     for layer in params["layers"]:
         x = _block(layer, x, cfg, positions)
     x = rmsnorm(x, params["final_norm"])
     return mm(x, params["unembed"])
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+def lm_loss(params, tokens, targets, cfg: TransformerConfig):
+    """Mean next-token cross entropy of an f32 log-softmax; targets are the
+    pre-shifted labels [B, T]."""
+    logits = transformer_forward(params, tokens, cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
+def param_leaves(params) -> list[torch.Tensor]:
+    """The params dict's tensors in a fixed order (top level, then layers)."""
+    top = [params[key] for key in ("embed", "unembed", "final_norm")]
+    return top + [t for layer in params["layers"] for t in layer.values()]
+
+
+def make_train_step(cfg: TransformerConfig, params, optimizer=None):
+    """(optimizer, step) with step(tokens, targets) -> loss, a 0-d tensor.
+
+    The JAX step is pure: it returns new params and optimizer state. Here,
+    in PyTorch's idiom, `params` are the model's state: every tensor is made
+    a leaf that requires grad, and `step` updates them in place through the
+    optimizer. It returns the loss without waiting for the device. The
+    default optimizer matches `optax.adamw(3e-4)`: AdamW with betas
+    (0.9, 0.999), eps 1e-8 and weight decay 1e-4 (torch's default decay is
+    1e-2). A caller's optimizer must be built over `param_leaves(params)`.
+    """
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    if optimizer is None:
+        optimizer = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=1e-4)
+
+    def step(tokens, targets):
+        optimizer.zero_grad(set_to_none=True)
+        loss = lm_loss(params, tokens, targets, cfg)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return optimizer, step
 
 
 # --------------------------------------------------------------------------

@@ -77,10 +77,16 @@ def test_flash_wrapper_cpu_uses_plain_and_counts_nothing():
         flash_attention_fwd(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
 
 
-def test_flash_bf16_rejects_requires_grad():
-    q = torch.zeros((1, 1, 8, 64), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention_bf16(q, q.detach(), q.detach())
+def test_flash_bf16_gradients_flow():
+    rng = np.random.default_rng(2)
+    q, k, v = (_t(rng.standard_normal((1, 2, 8, 64), np.float32)).requires_grad_(True)
+               for _ in range(3))
+    o = flash_attention_bf16(q, k, v, causal=True)
+    assert o.requires_grad
+    o.square().sum().backward()
+    for x in (q, k, v):
+        assert x.grad is not None and x.grad.shape == x.shape and x.grad.dtype == x.dtype
+        assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
 
 
 @pytest.mark.parametrize("causal", [True, False])
