@@ -28,6 +28,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build")
 KERNEL_DIR = os.path.join(BUILD_DIR, "kernels")
 _SCHED_SRC = os.path.join(_ROOT, "native", "scheduler.cpp")
+_SCHED_LIB = os.path.join(BUILD_DIR, "libscheduler.so")
 
 KERNELS = ("flash_fwd", "flash_bwd", "decode")
 
@@ -36,14 +37,8 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()  # guards _locks
-_locks: dict[str, threading.Lock] = {}  # one per library: builds of different ones overlap
+_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-
-
-def _lib_lock(name: str) -> threading.Lock:
-    with _lock:
-        return _locks.setdefault(name, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -55,6 +50,18 @@ def _nvcc() -> str:
 
 def _stale(lib: str, src: str) -> bool:
     return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+
+
+def _kernel_paths(name: str) -> tuple[str, str]:
+    return os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(KERNEL_DIR, f"lib{name}.so")
+
+
+def _kernel_job(src: str, lib: str) -> tuple[list[str], str]:
+    return [_nvcc(), *NVCC_FLAGS, src], lib
+
+
+def _scheduler_job() -> tuple[list[str], str]:
+    return ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SCHED_SRC], _SCHED_LIB
 
 
 def _compile(cmd: list[str], out: str) -> None:
@@ -73,42 +80,43 @@ def _compile(cmd: list[str], out: str) -> None:
 
 def load_kernel(name: str) -> ctypes.CDLL:
     """Build (if stale) and load `csrc/<name>.cu`; raises on failure."""
-    with _lib_lock(name):
+    with _lock:
         if name in _libs:
             return _libs[name]
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        lib = os.path.join(KERNEL_DIR, f"lib{name}.so")
+        src, lib = _kernel_paths(name)
         if _stale(lib, src):
-            _compile([_nvcc(), *NVCC_FLAGS, src], lib)
+            _compile(*_kernel_job(src, lib))
         _libs[name] = ctypes.CDLL(lib)
         return _libs[name]
 
 
 def load_scheduler() -> ctypes.CDLL:
     """Build (if stale) and load the native scheduler core; raises on failure."""
-    with _lib_lock("scheduler"):
+    with _lock:
         if "scheduler" in _libs:
             return _libs["scheduler"]
-        lib = os.path.join(BUILD_DIR, "libscheduler.so")
-        if _stale(lib, _SCHED_SRC):
-            _compile(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SCHED_SRC], lib)
-        _libs["scheduler"] = ctypes.CDLL(lib)
+        if _stale(_SCHED_LIB, _SCHED_SRC):
+            _compile(*_scheduler_job())
+        _libs["scheduler"] = ctypes.CDLL(_SCHED_LIB)
         return _libs["scheduler"]
 
 
 def build_all() -> float:
-    """Build every kernel and the scheduler, all compilers at once; returns
-    the seconds it took."""
+    """Build every kernel and the scheduler, one compiler process per stale
+    source, all started together; load them. Returns the seconds it took."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
-        jobs = [pool.submit(load_kernel, name) for name in KERNELS]
-        jobs.append(pool.submit(load_scheduler))
-        for job in jobs:
-            job.result()
+    jobs = [_kernel_job(src, lib) for src, lib in map(_kernel_paths, KERNELS) if _stale(lib, src)]
+    if _stale(_SCHED_LIB, _SCHED_SRC):
+        jobs.append(_scheduler_job())
+    with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        list(pool.map(lambda job: _compile(*job), jobs))
+    for name in KERNELS:
+        load_kernel(name)
+    load_scheduler()
     return time.perf_counter() - t0
 
 
 def build_log(name: str) -> str:
     """The compiler output of the last build of kernel `name` (ptxas -v)."""
-    with open(os.path.join(KERNEL_DIR, f"lib{name}.so.log")) as f:
+    with open(_kernel_paths(name)[1] + ".log") as f:
         return f.read()
