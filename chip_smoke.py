@@ -25,13 +25,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      modes) held against their plain versions, then timed beside them and
      beside F.scaled_dot_product_attention (a yardstick only; the port never
      calls it);
-  8. train at full width: the bench LM's widths at max_seq 2048 with f32
-     params, 4 x 2048 tokens, 1 warm-up + 10 timed AdamW steps through
-     make_train_step; losses finite and falling, B1/B2/B3 launched n_layers
-     times per step; lm_loss gradients on the card vs the CPU plain path;
-     torch.profiler over one more step (device time by kernel, busy share);
-  9. train GQA: the entry() config (4 q / 2 kv heads), 8 x 512 tokens, 10
-     steps; losses finite and falling, B2 run with rep 2.
+  8. int8 kernels: B4 (quantize, byte-equal), B5 (forward), B7 (dK/dV) and
+     B8 (dQ) against their plain versions at the training shape, a ragged
+     length with a large K mean, GQA rep 4 and an odd cross length; then
+     each timed at (4, 16, 2048, 64) causal beside its plain version;
+  9. sage_attention_int8 at (4, 16, 2048, 64) causal against the fp32
+     oracle by the JAX package's criteria, with the tiny-magnitude causal
+     case and K-smoothing against the raw int8 path;
+ 10. train at full width, with bf16 and then with int8 attention from the
+     same init: the bench LM's widths at max_seq 2048 with f32 params,
+     4 x 2048 tokens, 1 warm-up + 10 timed AdamW steps through
+     make_train_step; losses finite and falling; each step launches its
+     attention kind's kernels (B1/B2/B3, or B4/B5/B7/B8) n_layers times and
+     the other kind's never; lm_loss gradients on the card vs the CPU plain
+     path; torch.profiler over one more step (device time by kernel, busy
+     share); the int8 run's global gradient norm within 2x of the bf16
+     run's at every step (BASELINE config 4);
+ 11. train GQA: the entry() config (4 q / 2 kv heads), 8 x 512 tokens, 10
+     steps, with bf16 and with int8 attention; losses finite and falling,
+     the dK/dV kernels run with rep 2.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -42,6 +54,7 @@ are records, not claims.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -69,6 +82,17 @@ from quantizedattention_tpu_torch.ops import (
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
+    int8_attention_fwd,
+    int8_attention_fwd_from_quantized,
+    int8_attention_fwd_from_quantized_plain,
+    int8_bwd_dkv,
+    int8_bwd_dkv_plain,
+    int8_bwd_dq,
+    int8_bwd_dq_plain,
+    int8_bwd_operands,
+    quantize_qkv,
+    quantize_qkv_plain,
+    sage_attention_int8,
 )
 from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
@@ -79,7 +103,8 @@ from quantizedattention_tpu_torch.parallel.kv_cache import (
     decode_attention,
     decode_attention_plain,
 )
-from quantizedattention_tpu_torch.reference import reference_attention_vjp
+from quantizedattention_tpu_torch.quantize.int8 import quant_int8
+from quantizedattention_tpu_torch.reference import reference_attention, reference_attention_vjp
 from quantizedattention_tpu_torch.serve import ServingEngine
 from quantizedattention_tpu_torch.utils.testing import ATOL, GRAD_MISMATCH_RATE, mismatch_report
 
@@ -107,11 +132,19 @@ BWD_FAST_TOL, BWD_EXACT_TOL = 1e-2, 1e-4
 # gradients are smooth in O, so they move by the same order; the loss
 # averages it away.
 TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-3, 5e-2
+# The int8 path against the fp32 oracle: the JAX package's own criteria
+# (tests/test_int8_attention.py): forward mismatch rate <= 2e-3 at atol 5e-2
+# (also for tiny-magnitude causal inputs, whose dequant scale is ~1e-9), and
+# gradients within relative L2 0.06.
+INT8_ATOL, INT8_FWD_RATE, INT8_GRAD_REL_L2 = 5e-2, 2e-3, 0.06
+# BASELINE config 4: the int8 run's global gradient norm stays below twice
+# the bf16 run's at every step (tests/test_baseline_configs.py:96-98).
+GRAD_NORM_RATIO = 2.0
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): a kernel's
 # bound is the larger of its operations over the peak of their type and its
 # bytes (each input read once, each output written once) over HBM bandwidth.
-PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+PEAK_BF16, PEAK_INT8, PEAK_FP32, HBM_BYTES_S = 989e12, 1979e12, 67e12, 3.35e12
 
 BENCH_CFG = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=16, n_kv_heads=16,
                               head_dim=64, n_layers=4, max_seq=1280)
@@ -184,8 +217,10 @@ def visible_pairs(t: int, s: int, causal: bool) -> int:
     return n * (n + 1) // 2 + (t - n) * s
 
 
-def bound(flops: float, n_bytes: float, peak: float) -> dict:
-    t_ops, t_bytes = flops / peak, n_bytes / HBM_BYTES_S
+def bound(n_bytes: float, *work: tuple[float, float]) -> dict:
+    """The least time for `n_bytes` of traffic and the operations of `work`,
+    given as (operations, peak rate of their type) pairs whose times add."""
+    t_ops, t_bytes = sum(ops / peak for ops, peak in work), n_bytes / HBM_BYTES_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -246,7 +281,7 @@ def phase_flash(dev, gen) -> dict:
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     o, lse = flash_attention_fwd(q, k, v, causal=True)
     flops = 2 * 2 * N_SLOTS * 16 * visible_pairs(PROMPT_LEN, PROMPT_LEN, True) * 64
-    bnd = bound(flops, nbytes(q, k, v, o, lse), PEAK_BF16)
+    bnd = bound(nbytes(q, k, v, o, lse), (flops, PEAK_BF16))
     log(f"[flash_fwd] (8,16,256,64) causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": lib_ms,
@@ -298,7 +333,7 @@ def phase_decode(dev, gen) -> dict:
     live_tokens = int(cache.length.sum()) * cache.k_i8.shape[1]
     kv_bytes = live_tokens * 2 * (64 * cache.k_i8.element_size() + cache.sk.element_size())
     flops = 2 * 2 * int(cache.length.sum()) * q.shape[1] * 64
-    bnd = bound(flops, kv_bytes + nbytes(q, o, cache.length), PEAK_BF16)
+    bnd = bound(kv_bytes + nbytes(q, o, cache.length), (flops, PEAK_BF16))
     log(f"[decode] 8 slots x 16 heads, length {length} of {BENCH_CFG.max_seq}: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
@@ -486,21 +521,21 @@ def phase_train_timing(dev, gen) -> tuple[dict, dict]:
         "flash_fwd": {"ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
                       "plain_ms": device_ms(lambda: flash_attention_fwd_plain(q, k, v, True),
                                             calls=4, replays=5),
-                      **bound(2 * 2 * pairs * d, nbytes(q, k, v, o, lse), PEAK_BF16)},
+                      **bound(nbytes(q, k, v, o, lse), (2 * 2 * pairs * d, PEAK_BF16))},
         "flash_bwd_dkv": {
             "ms": device_ms(lambda: flash_bwd_dkv(fast)),
             "plain_ms": device_ms(lambda: flash_bwd_dkv_plain(fast), calls=4, replays=5),
             "exact_ms": device_ms(lambda: flash_bwd_dkv(exact), calls=4, replays=5),
-            **bound(4 * 2 * pairs * d, nbytes(*fast[:6], dk, dv), PEAK_BF16),
-            "exact_bound_ms": bound(4 * 2 * pairs * d, nbytes(*exact[:6], dk, dv),
-                                    PEAK_FP32)["bound_ms"]},
+            **bound(nbytes(*fast[:6], dk, dv), (4 * 2 * pairs * d, PEAK_BF16)),
+            "exact_bound_ms": bound(nbytes(*exact[:6], dk, dv),
+                                    (4 * 2 * pairs * d, PEAK_FP32))["bound_ms"]},
         "flash_bwd_dq": {
             "ms": device_ms(lambda: flash_bwd_dq(fast)),
             "plain_ms": device_ms(lambda: flash_bwd_dq_plain(fast), calls=4, replays=5),
             "exact_ms": device_ms(lambda: flash_bwd_dq(exact), calls=4, replays=5),
-            **bound(3 * 2 * pairs * d, nbytes(*fast[:6], dq), PEAK_BF16),
-            "exact_bound_ms": bound(3 * 2 * pairs * d, nbytes(*exact[:6], dq),
-                                    PEAK_FP32)["bound_ms"]},
+            **bound(nbytes(*fast[:6], dq), (3 * 2 * pairs * d, PEAK_BF16)),
+            "exact_bound_ms": bound(nbytes(*exact[:6], dq),
+                                    (3 * 2 * pairs * d, PEAK_FP32))["bound_ms"]},
     }
     # the library yardstick on bf16 inputs: forward by graph replays; the
     # backward alone as (forward + backward) - forward, both from CUDA events
@@ -547,19 +582,37 @@ def _grads(params, tokens, targets, cfg):
     return loss.item(), torch.autograd.grad(loss, leaves)
 
 
+# the wrappers a train step may launch, by attention kind
+TRAIN_KERNELS = {"bf16": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+                 "int8": ("quant_int8", "int8_fwd", "int8_bwd_dkv", "int8_bwd_dq")}
+_COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_dkv": flash_bwd_dkv,
+            "flash_bwd_dq": flash_bwd_dq, "quant_int8": quant_int8,
+            "int8_fwd": int8_attention_fwd_from_quantized, "int8_bwd_dkv": int8_bwd_dkv,
+            "int8_bwd_dq": int8_bwd_dq}
+
+
 def _launch_counts():
-    return {"flash_fwd": flash_attention_fwd.launches, "flash_bwd_dkv": flash_bwd_dkv.launches,
-            "flash_bwd_dq": flash_bwd_dq.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def _reset_counts():
-    flash_attention_fwd.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0
+
+
+def _grad_norm(leaves):
+    """Global L2 norm of the leaves' gradients (optax.global_norm), on device."""
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.grad) for t in leaves]))
 
 
 def _train(cfg, params, tokens, targets, steps):
-    """1 warm-up + `steps` timed steps; returns (losses, step ms, launches per step)."""
+    """1 warm-up + `steps` timed steps; returns (losses, step ms, launches per
+    step, the global gradient norm of every step). Each step must launch
+    each kernel of its attention kind n_layers times and no other."""
     _, step = make_train_step(cfg, params)
+    leaves = param_leaves(params)
     losses = [step(tokens, targets)]
+    norms = [_grad_norm(leaves)]
     torch.cuda.synchronize()
     _reset_counts()
     per_step, times = [], []
@@ -571,18 +624,18 @@ def _train(cfg, params, tokens, targets, steps):
         end.record()
         times.append((start, end))
         per_step.append({k: v - before[k] for k, v in _launch_counts().items()})
+        norms.append(_grad_norm(leaves))
     torch.cuda.synchronize()
     losses = torch.stack(losses).tolist()
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"losses not finite and falling: {losses}")
-    want = {k: cfg.n_layers for k in per_step[0]}
+    want = {k: cfg.n_layers if k in TRAIN_KERNELS[cfg.attention] else 0 for k in _COUNTED}
     if any(c != want for c in per_step):
         raise AssertionError(f"kernel launches per step {per_step}, want {want}")
-    return losses, [s.elapsed_time(e) for s, e in times], per_step
+    return losses, [s.elapsed_time(e) for s, e in times], per_step, torch.stack(norms).tolist()
 
 
-def phase_train(dev, smi) -> dict:
-    cfg = TRAIN_CFG
+def phase_train(dev, smi, cfg) -> tuple[dict, dict]:
     params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_seq))).to(dev)
@@ -602,18 +655,18 @@ def phase_train(dev, smi) -> dict:
         raise AssertionError("lm_loss gradients on the card disagree with the CPU plain path")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, step_ms, per_step = _train(cfg, params, tokens, targets, TRAIN_STEPS)
-    launches = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    losses, step_ms, per_step, norms = _train(cfg, params, tokens, targets, TRAIN_STEPS)
+    launches = {k: sum(c[k] for c in per_step) for k in TRAIN_KERNELS[cfg.attention]}
     med = statistics.median(step_ms)
-    n_tok = tokens.numel()
-    log(f"[train] {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
-        f"{cfg.vocab_size}, f32 params, {TRAIN_BATCH} x {cfg.max_seq} tokens on {smi}: "
-        f"median step {med:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}; CUDA "
-        f"events), {n_tok / med * 1e3:.0f} tokens/s, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches} over "
-        f"{TRAIN_STEPS} steps; losses {[round(x, 4) for x in losses]}")
+    mem = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[train] {cfg.attention} attention, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, f32 params, {TRAIN_BATCH} x "
+        f"{cfg.max_seq} tokens on {smi}: median step {med:.2f} ms (min {min(step_ms):.2f}, "
+        f"max {max(step_ms):.2f}; CUDA events), {tokens.numel() / med * 1e3:.0f} tokens/s, "
+        f"max_memory_allocated {mem:.2f} GiB, launches {launches} over {TRAIN_STEPS} steps; "
+        f"losses {[round(x, 4) for x in losses]}; grad norms {[round(x, 4) for x in norms]}")
     _profile_step(cfg, params, tokens, targets)
-    return launches
+    return launches, {"median_ms": med, "max_memory_gib": mem, "grad_norms": norms}
 
 
 def _profile_step(cfg, params, tokens, targets):
@@ -637,22 +690,175 @@ def _profile_step(cfg, params, tokens, targets):
             f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
 
 
-def phase_train_gqa(dev) -> None:
-    cfg = GQA_CFG
+def phase_train_gqa(dev, cfg) -> None:
     params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (GQA_BATCH, cfg.max_seq))).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
-    losses, step_ms, _ = _train(cfg, params, tokens, targets, TRAIN_STEPS)
-    # attention is GQA-native (k/v keep their kv heads), so each B2 launch
+    losses, step_ms, _, _ = _train(cfg, params, tokens, targets, TRAIN_STEPS)
+    # attention is GQA-native (k/v keep their kv heads), so each dK/dV launch
     # that _train counted sums a group of n_heads // n_kv_heads q heads
     rep = cfg.n_heads // cfg.n_kv_heads
     if rep != 2:
-        raise AssertionError(f"B2 runs with rep {rep} at the GQA config, want 2")
-    log(f"[train_gqa] {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, d_model {cfg.d_model}, "
-        f"{GQA_BATCH} x {cfg.max_seq} tokens: {TRAIN_STEPS} steps, median "
-        f"{statistics.median(step_ms):.2f} ms, B2 rep {rep}; losses "
+        raise AssertionError(f"the dK/dV kernel runs with rep {rep} at the GQA config, want 2")
+    log(f"[train_gqa] {cfg.attention} attention, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, "
+        f"d_model {cfg.d_model}, {GQA_BATCH} x {cfg.max_seq} tokens: {TRAIN_STEPS} steps, median "
+        f"{statistics.median(step_ms):.2f} ms, dK/dV kernel rep {rep}; losses "
         f"{[round(x, 4) for x in losses]}")
+
+
+# --------------------------------------------------------------------------
+# The int8 (SageAttention) path
+# --------------------------------------------------------------------------
+
+INT8_TRAIN_CFG = dataclasses.replace(TRAIN_CFG, attention="int8")
+INT8_GQA_CFG = dataclasses.replace(GQA_CFG, attention="int8")
+
+# (b, h, h_kv, t, s, causal, K offset): the training shape; a ragged length
+# whose padded K rows, smoothed to -k_mean, set the last K grain's scale (a
+# large K mean makes that visible); GQA rep 4, where the Q grain is 512; an
+# odd cross length, non-causal (grains 128 and 256).
+INT8_CASES = [(4, 16, 16, 2048, 2048, True, 0.0), (2, 16, 16, 1000, 1000, True, 4.0),
+              (2, 16, 4, 2048, 2048, True, 0.0), (1, 4, 2, 77, 201, False, 4.0)]
+
+
+def _check_int8(q, k, v, do, causal, label) -> dict:
+    """B4 (byte for byte), B5, B7 and B8 against their plain versions on one
+    case, raising outside the tolerances; returns each kernel's max|diff|."""
+    k_mean = k.mean(dim=-2, keepdim=True)
+    res = quantize_qkv(q, k, v, k_sub=k_mean)
+    torch.cuda.synchronize()
+    res_p = quantize_qkv_plain(q, k, v, k_sub=k_mean)
+    if not all(torch.equal(a, b) for pair, pair_p in zip(res, res_p) for a, b in zip(pair, pair_p)):
+        raise AssertionError(f"quant_int8 is not byte-equal to its plain version at {label}")
+    dims = (*q.shape[:3], k.shape[2], q.shape[3])
+    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=causal)
+    torch.cuda.synchronize()
+    o_p, lse_p = int8_attention_fwd_from_quantized_plain(res, dims, causal=causal)
+    err = {"quant_int8": 0.0, "int8_fwd": (o - o_p).abs().max().item()}
+    err_l = (lse - lse_p).abs().max().item()
+    del o_p, lse_p
+    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=causal)
+    dk, dv = int8_bwd_dkv(ops)
+    dq = int8_bwd_dq(ops)
+    torch.cuda.synchronize()
+    dk_p, dv_p = int8_bwd_dkv_plain(ops)
+    dq_p = int8_bwd_dq_plain(ops)
+    rel = {}
+    for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"int8 backward {name} is not finite at {label}")
+        diff = (got - want).abs().max().item()
+        rel[name] = diff / want.abs().max().item()
+        kernel = "int8_bwd_dq" if name == "dq" else "int8_bwd_dkv"
+        err[kernel] = max(err.get(kernel, 0.0), diff)
+    log(f"[int8] {label}: quant_int8 byte-equal; int8_fwd max|dO|={err['int8_fwd']:.3e} (tol "
+        f"{FLASH_O_TOL}) max|dlse|={err_l:.3e} (tol {FLASH_LSE_TOL}); backward max|diff|/"
+        f"max|plain| dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol {BWD_FAST_TOL})")
+    if not (err["int8_fwd"] <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
+        raise AssertionError("int8_fwd kernel disagrees with its plain version")
+    if max(rel.values()) > BWD_FAST_TOL:
+        raise AssertionError("int8 backward kernels disagree with their plain versions")
+    return err
+
+
+def phase_int8_kernels(dev, gen) -> dict:
+    errs = []
+    for b, h, h_kv, t, s, causal, shift in INT8_CASES:
+        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s)
+        errs.append(_check_int8(q, k + shift, v, do, causal, f"b={b} h={h} h_kv={h_kv} t={t} "
+                                f"s={s} causal={causal} K mean {shift}"))
+    return _worst(*errs)
+
+
+def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
+    """Device time per call of B4, B5, B7 and B8 at the training shape,
+    causal, beside their plain versions and their bounds. No single PyTorch
+    call computes int8 attention; SDPA's bf16 times ride along for scale."""
+    b, h, t, d = TRAIN_BATCH, 16, TRAIN_CFG.max_seq, 64
+    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t)
+    k_mean = k.mean(dim=-2, keepdim=True)
+    res = quantize_qkv(q, k, v, k_sub=k_mean)
+    dims = (b, h, t, t, d)
+    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=True)
+    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=True)
+    dk, dv = int8_bwd_dkv(ops)
+    dq = int8_bwd_dq(ops)
+    prod = 2 * b * h * visible_pairs(t, t, True) * d  # one product over the visible pairs
+    payload = nbytes(*(x for pair in res for x in pair))
+    rows_in = nbytes(ops.do, ops.lse, ops.di)
+
+    def plain_ms(fn):
+        return device_ms(fn, calls=4, replays=5)
+
+    out = {
+        "quant_int8": {
+            "ms": device_ms(lambda: quantize_qkv(q, k, v, k_sub=k_mean)),
+            "plain_ms": plain_ms(lambda: quantize_qkv_plain(q, k, v, k_sub=k_mean)),
+            **bound(nbytes(q, k, v, k_mean) + payload, (2 * (q.numel() + 2 * k.numel()), PEAK_FP32))},
+        "int8_fwd": {
+            "ms": device_ms(lambda: int8_attention_fwd_from_quantized(res, dims, causal=True)),
+            "plain_ms": plain_ms(lambda: int8_attention_fwd_from_quantized_plain(res, dims, True)),
+            **bound(payload + nbytes(o, lse), (prod, PEAK_INT8), (prod, PEAK_BF16)),
+            "sdpa_bf16_ms": sdpa["fwd"]},
+        "int8_bwd_dkv": {
+            "ms": device_ms(lambda: int8_bwd_dkv(ops)),
+            "plain_ms": plain_ms(lambda: int8_bwd_dkv_plain(ops)),
+            **bound(payload + rows_in + nbytes(dk, dv), (prod, PEAK_INT8), (3 * prod, PEAK_BF16)),
+            "sdpa_bf16_ms": sdpa["bwd"]},
+        "int8_bwd_dq": {
+            "ms": device_ms(lambda: int8_bwd_dq(ops)),
+            "plain_ms": plain_ms(lambda: int8_bwd_dq_plain(ops)),
+            **bound(payload + rows_in + nbytes(ops.k_mean, dq), (prod, PEAK_INT8),
+                    (2 * prod, PEAK_BF16)),
+            "sdpa_bf16_ms": sdpa["bwd"]},
+    }
+
+    def fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        torch.autograd.grad(sage_attention_int8(*leaves, causal=True), leaves, do)
+
+    fb_ms = eager_ms(fwd_bwd)
+    for name, r in out.items():
+        r["library_ms"] = None
+        log(f"[timing] {name} at ({b},{h},{t},{d}) causal: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"[timing] sage_attention_int8 forward + backward {fb_ms:.4f} ms (eager, CUDA events); "
+        f"sdpa bf16 forward {sdpa['fwd']:.4f} ms, backward {sdpa['bwd']:.4f} ms")
+    out["int8_fwd"]["fwd_bwd_ms"] = fb_ms
+    return out
+
+
+def phase_int8_oracle(dev, gen) -> None:
+    """sage_attention_int8 at the training shape against the fp32 oracle, by
+    the JAX package's own criteria (tests/test_int8_attention.py)."""
+    b, h, t, d = TRAIN_BATCH, 16, TRAIN_CFG.max_seq, 64
+    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = sage_attention_int8(*leaves, causal=True)
+    got = torch.autograd.grad(o, leaves, do)
+    fwd = mismatch_report("int8 fwd", o.detach(), reference_attention(q, k, v, causal=True),
+                          INT8_ATOL)
+    want = reference_attention_vjp(q, k, v, do, causal=True)
+    rels = {n: ((g - w).norm() / w.norm()).item() for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    del got, want
+    # tiny magnitudes: the dequant scale c is ~1e-9, and the mask sentinel
+    # 30000 / -c must still keep the future out
+    qs, ks = q * 0.01, k * 0.01
+    tiny = mismatch_report("tiny-scale causal int8", int8_attention_fwd(qs, ks, v, causal=True)[0],
+                           reference_attention(qs, ks, v, causal=True), INT8_ATOL)
+    # a large common K component: K-smoothing must beat the raw int8 path
+    k6 = k + 6.0
+    want6 = reference_attention(q, k6, v)
+    mse_s = (sage_attention_int8(q, k6, v) - want6).square().mean().item()
+    mse_r = (int8_attention_fwd(q, k6, v)[0] - want6).square().mean().item()
+    log(f"[int8] sage_attention_int8 vs fp32 oracle ({b},{h},{t},{d}) causal: {fwd}; grad rel L2 "
+        + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+        + f" (tol {INT8_GRAD_REL_L2}); {tiny}; K + 6 non-causal: MSE smoothed {mse_s:.3e} vs raw "
+        f"{mse_r:.3e}")
+    if not (fwd.mismatch_rate <= INT8_FWD_RATE and tiny.mismatch_rate <= INT8_FWD_RATE
+            and max(rels.values()) <= INT8_GRAD_REL_L2 and mse_s < mse_r):
+        raise AssertionError("sage_attention_int8 outside the JAX package's oracle criteria")
 
 
 def main() -> None:
@@ -665,8 +871,21 @@ def main() -> None:
     serve_launches = phase_serving(dev, smi)
     bwd_err = phase_flash_bwd(dev, gen)
     timing, train_err = phase_train_timing(dev, gen)
-    train_launches = phase_train(dev, smi)
-    phase_train_gqa(dev)
+    int8_err = phase_int8_kernels(dev, gen)
+    sdpa = {"fwd": timing["flash_fwd"]["library_ms"], "bwd": timing["flash_bwd_dq"]["library_ms"]}
+    int8_timing = phase_int8_timing(dev, gen, sdpa)
+    phase_int8_oracle(dev, gen)
+    train_launches, bf16_run = phase_train(dev, smi, TRAIN_CFG)
+    int8_launches, int8_run = phase_train(dev, smi, INT8_TRAIN_CFG)
+    ratios = [a / b for a, b in zip(int8_run["grad_norms"], bf16_run["grad_norms"])]
+    log(f"[train_int8] global grad norm int8 / bf16 per step: {[round(r, 4) for r in ratios]} "
+        f"(limit {GRAD_NORM_RATIO}); median step {int8_run['median_ms']:.2f} ms vs "
+        f"{bf16_run['median_ms']:.2f} ms; max_memory_allocated {int8_run['max_memory_gib']:.2f} "
+        f"vs {bf16_run['max_memory_gib']:.2f} GiB")
+    if not all(np.isfinite(ratios)) or max(ratios) >= GRAD_NORM_RATIO:
+        raise AssertionError("int8 gradient norms left 2x the bf16 run's (BASELINE config 4)")
+    phase_train_gqa(dev, GQA_CFG)
+    phase_train_gqa(dev, INT8_GQA_CFG)
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -683,15 +902,29 @@ def main() -> None:
         {"name": "decode", "route": "cuda",
          "source": "quantizedattention_tpu_torch/csrc/decode.cu",
          "replaces": "quantizedattention_tpu/parallel/kv_cache.py:172",
-         "launches": serve_launches["decode"], **decode},
+         "launches": serve_launches["decode"],
+         "launches_by_path": {"serve": serve_launches["decode"]}, **decode},
     ]
     for kname, replaces in (("flash_bwd_dkv", "quantizedattention_tpu/ops/flash_bwd.py:66"),
                             ("flash_bwd_dq", "quantizedattention_tpu/ops/flash_bwd.py:132")):
         kernels.append({"name": kname, "route": "cuda",
                         "source": "quantizedattention_tpu_torch/csrc/flash_bwd.cu",
                         "replaces": replaces, "launches": train_launches[kname],
+                        "launches_by_path": {"train": train_launches[kname]},
                         "max_abs_err": max(bwd_err[kname], train_err[kname]),
                         **timing[kname]})
+    for kname, source, replaces in (
+            ("quant_int8", "quant_int8.cu", "quantizedattention_tpu/quantize/int8.py:66"),
+            ("int8_fwd", "int8_fwd.cu", "quantizedattention_tpu/ops/int8_fwd.py:68"),
+            ("int8_bwd_dkv", "int8_bwd.cu", "quantizedattention_tpu/ops/int8_bwd.py:62"),
+            ("int8_bwd_dq", "int8_bwd.cu", "quantizedattention_tpu/ops/int8_bwd.py:123")):
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": f"quantizedattention_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": int8_launches[kname],
+                        "launches_by_path": {"train_int8": int8_launches[kname]},
+                        "max_abs_err": int8_err[kname], **int8_timing[kname]})
+    kernels[-4]["also_replaces"] = ["quantizedattention_tpu/quantize/int8.py:74",
+                                    "quantizedattention_tpu/quantize/int8.py:85"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

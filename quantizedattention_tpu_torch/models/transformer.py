@@ -4,11 +4,13 @@ Counterpart of quantizedattention_tpu/models/transformer.py: RMSNorm pre-norm
 blocks, interleaved-pair RoPE, GQA projections, tanh-form GELU MLP. Params are
 a plain dict of tensors with the JAX package's names and shapes (weights
 [in, out], projections `x @ w`), so `models.convert.params_from_jax` carries
-them over unchanged. Training (`lm_loss`, `make_train_step`) and prefill run
-the corrected-bf16 flash attention (forward B1, backward B2 + B3); decode
-appends to the int8 KV cache and runs the int8 decode kernel.
+them over unchanged. Training (`lm_loss`, `make_train_step`) runs the
+corrected-bf16 flash attention (forward B1, backward B2 + B3) or, with
+`attention="int8"`, the int8 SageAttention path (B4, B5; backward B7 + B8).
+Prefill runs B1; decode appends to the int8 KV cache and runs the int8
+decode kernel.
 
-The JAX package's int8 attention, speculative verify, chunked prefill and
+Int8 prefill (and so int8 serving), speculative verify, chunked prefill and
 top-k/top-p sampling are not ported yet.
 """
 
@@ -20,7 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from quantizedattention_tpu_torch.ops.api import flash_attention_bf16
+from quantizedattention_tpu_torch.ops.api import flash_attention_bf16, sage_attention_int8
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     append_kv,
     decode_attention,
@@ -40,7 +42,7 @@ class TransformerConfig:
     n_layers: int = 2
     mlp_ratio: int = 4
     max_seq: int = 512
-    attention: str = "bf16"  # "bf16" (ported) | "int8" (not yet)
+    attention: str = "bf16"  # "bf16" | "int8" (training only: int8 prefill is not ported)
     rope_base: float = 10000.0
 
     @property
@@ -110,9 +112,18 @@ def rope(x, positions, base: float):
 
 
 def _attention(q, k, v, cfg: TransformerConfig):
-    """Causal prefill attention; GQA-native (k/v keep their kv heads)."""
+    """Causal attention of the differentiable forward; GQA-native (k/v keep
+    their kv heads), as the JAX model's `_attention` (transformer.py:129-142)."""
+    if cfg.attention == "int8":
+        return sage_attention_int8(q, k, v, causal=True)
+    return flash_attention_bf16(q, k, v, causal=True)
+
+
+def _prefill_attention(q, k, v, cfg: TransformerConfig):
+    """Causal attention of the prefill paths, which run B1 only."""
     if cfg.attention != "bf16":
-        raise NotImplementedError(f"attention={cfg.attention!r}: only 'bf16' is ported")
+        raise NotImplementedError(
+            f"prefill with attention={cfg.attention!r} is not ported: only 'bf16' prefills")
     return flash_attention_bf16(q, k, v, causal=True)
 
 
@@ -277,7 +288,7 @@ def prefill_slot(params, caches, tokens, true_len: int, slot: int, cfg: Transfor
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
         cache = write_kv_slot(cache, slot, k[0], v[0], true_len)
-        o = _attention(q, k, v, cfg)
+        o = _prefill_attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
     # final norm on the sampled rows only (it is per row)
@@ -300,7 +311,7 @@ def prefill_slots(params, caches, tokens, true_lens, slots, cfg: TransformerConf
         q, k, v = _project_qkv(layer, h, cfg, positions)
         for i in range(B):
             cache = write_kv_slot(cache, slots[i:i + 1], k[i], v[i], true_lens[i:i + 1])
-        o = _attention(q, k, v, cfg)
+        o = _prefill_attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
     last = x[torch.arange(B, device=tokens.device), true_lens.long() - 1]
@@ -320,7 +331,7 @@ def prefill_batched(params, caches, prompt, cfg: TransformerConfig,
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
         cache = append_kv(cache, k, v)
-        o = _attention(q, k, v, cfg)
+        o = _prefill_attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
     logits = mm(rmsnorm(x[:, -1], params["final_norm"]), params["unembed"])

@@ -19,9 +19,9 @@ a slot that finished inside a bank keeps decoding into its own cache until
 the host sees it, and the surplus tokens are discarded.
 
 The JAX engine's mesh serving, paged/int4 caches, weight quantization,
-speculative decoding, prefix cache, chunked prefill, adaptive horizon and
-top-k/top-p sampling are not ported yet; asking for any of them raises
-NotImplementedError.
+speculative decoding, prefix cache, chunked prefill, adaptive horizon,
+top-k/top-p sampling and int8 attention are not ported yet; asking for any
+of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -96,6 +96,10 @@ class ServingEngine:
             if value != _UNPORTED[name]:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported to the PyTorch package yet")
+        if cfg.attention != "bf16":
+            raise NotImplementedError(
+                f"ServingEngine with attention={cfg.attention!r} is not ported: int8 prefill "
+                "is not ported yet")
         if decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         if temperature < 0.0:

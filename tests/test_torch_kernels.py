@@ -231,6 +231,9 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT_DIR.rglob("*.py"))
     assert len(files) >= 10
+    names = {str(f.relative_to(PORT_DIR)) for f in files}
+    assert {"ops/int8_fwd.py", "ops/int8_bwd.py", "quantize/int8.py", "quantize/smoothing.py",
+            "tune/config.py"} <= names
     bad = {str(f): sorted(_imported_roots(f) & {"jax", "jaxlib", "quantizedattention_tpu"})
            for f in files}
     assert not {f: r for f, r in bad.items() if r}

@@ -332,9 +332,13 @@ def test_unported_model_paths_raise(lm):
     _, _, cfg, tparams = lm
     with pytest.raises(TypeError, match="unexpected"):
         ServingEngine(tparams, cfg, "cpu", page_size=64)
+    # int8 attention trains (tests/test_torch_int8.py) but neither prefills
+    # nor serves yet
     int8_cfg = TransformerConfig(**{**CFG, "attention": "int8"})
     with pytest.raises(NotImplementedError, match="int8"):
-        transformer_forward(tparams, torch.zeros((1, 4), dtype=torch.long), int8_cfg)
+        ServingEngine(tparams, int8_cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        generate(tparams, torch.zeros((1, 4), dtype=torch.long), int8_cfg, 2)
 
 
 def test_sample_token():
