@@ -717,9 +717,11 @@ INT8_GQA_CFG = dataclasses.replace(GQA_CFG, attention="int8")
 # (b, h, h_kv, t, s, causal, K offset): the training shape; a ragged length
 # whose padded K rows, smoothed to -k_mean, set the last K grain's scale (a
 # large K mean makes that visible); GQA rep 4, where the Q grain is 512; an
-# odd cross length, non-causal (grains 128 and 256).
+# odd cross length, non-causal (grains 128 and 256); then the backward's
+# edge shapes: a rep that does not divide 64 with t < s, and one token.
 INT8_CASES = [(4, 16, 16, 2048, 2048, True, 0.0), (2, 16, 16, 1000, 1000, True, 4.0),
-              (2, 16, 4, 2048, 2048, True, 0.0), (1, 4, 2, 77, 201, False, 4.0)]
+              (2, 16, 4, 2048, 2048, True, 0.0), (1, 4, 2, 77, 201, False, 4.0),
+              (2, 6, 2, 33, 130, True, 4.0), (1, 3, 1, 1, 1, True, 0.0)]
 
 
 def _check_int8(q, k, v, do, causal, label) -> dict:
