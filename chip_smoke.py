@@ -27,8 +27,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      calls it);
   8. int8 kernels: B4 (quantize, byte-equal), B5 (forward), B7 (dK/dV) and
      B8 (dQ) against their plain versions at the training shape, a ragged
-     length with a large K mean, GQA rep 4 and an odd cross length; then
-     each timed at (4, 16, 2048, 64) causal beside its plain version;
+     length with a large K mean, GQA rep 4, the GQA train shape (rep 2) and
+     an odd cross length, with B8's K-smoothing term held on its own where
+     the K mean is large; then each timed at (4, 16, 2048, 64) causal beside
+     its plain version;
   9. sage_attention_int8 at (4, 16, 2048, 64) causal against the fp32
      oracle by the JAX package's criteria, with the tiny-magnitude causal
      case and K-smoothing against the raw int8 path;
@@ -126,6 +128,11 @@ LOGITS_REL_TOL = 5e-2
 # relative, of one term of a sum over up to s terms): a few 1e-3 at most.
 # Exact: fp32 throughout, only the summation order: ~1e-6.
 BWD_FAST_TOL, BWD_EXACT_TOL = 1e-2, 1e-4
+# Int8 backward kernels (B7, B8) vs plain, the same measure: both take the
+# same int8 payloads, scales, O and lse and round P, dO and dS to bf16 at the
+# same points, so only the f32 summation order differs (1.1e-4 at most on an
+# H100 at the training shape). 1e-3 is the CPU tests' BWD_REL.
+INT8_BWD_TOL = 1e-3
 # lm_loss on the card vs the CPU plain path, same f32 params: the two differ
 # where B1 rounds P (per 64-key tile on the card, per row on the CPU; a few
 # 1e-3 in O, as the flash_fwd phase shows) and in summation order. Loss and
@@ -690,12 +697,15 @@ def _profile_step(cfg, params, tokens, targets):
             f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
 
 
-def phase_train_gqa(dev, cfg) -> None:
+def phase_train_gqa(dev, cfg) -> dict:
+    """Returns the launches of each of the run's attention kernels over its
+    timed steps."""
     params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (GQA_BATCH, cfg.max_seq))).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
-    losses, step_ms, _, _ = _train(cfg, params, tokens, targets, TRAIN_STEPS)
+    losses, step_ms, per_step, _ = _train(cfg, params, tokens, targets, TRAIN_STEPS)
+    launches = {k: sum(c[k] for c in per_step) for k in TRAIN_KERNELS[cfg.attention]}
     # attention is GQA-native (k/v keep their kv heads), so each dK/dV launch
     # that _train counted sums a group of n_heads // n_kv_heads q heads
     rep = cfg.n_heads // cfg.n_kv_heads
@@ -703,8 +713,9 @@ def phase_train_gqa(dev, cfg) -> None:
         raise AssertionError(f"the dK/dV kernel runs with rep {rep} at the GQA config, want 2")
     log(f"[train_gqa] {cfg.attention} attention, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, "
         f"d_model {cfg.d_model}, {GQA_BATCH} x {cfg.max_seq} tokens: {TRAIN_STEPS} steps, median "
-        f"{statistics.median(step_ms):.2f} ms, dK/dV kernel rep {rep}; losses "
-        f"{[round(x, 4) for x in losses]}")
+        f"{statistics.median(step_ms):.2f} ms, dK/dV kernel rep {rep}, launches {launches}; "
+        f"losses {[round(x, 4) for x in losses]}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -716,12 +727,16 @@ INT8_GQA_CFG = dataclasses.replace(GQA_CFG, attention="int8")
 
 # (b, h, h_kv, t, s, causal, K offset): the training shape; a ragged length
 # whose padded K rows, smoothed to -k_mean, set the last K grain's scale (a
-# large K mean makes that visible); GQA rep 4, where the Q grain is 512; an
-# odd cross length, non-causal (grains 128 and 256); then the backward's
-# edge shapes: a rep that does not divide 64 with t < s, and one token.
+# large K mean makes that visible); GQA rep 4, where the Q grain is 512; the
+# GQA train phase's attention shape (rep 2, grains 512); an odd cross length,
+# non-causal (grains 128 and 256); then the backward's edge shapes: a rep
+# that does not divide 64 with t < s, and one token.
 INT8_CASES = [(4, 16, 16, 2048, 2048, True, 0.0), (2, 16, 16, 1000, 1000, True, 4.0),
-              (2, 16, 4, 2048, 2048, True, 0.0), (1, 4, 2, 77, 201, False, 4.0),
-              (2, 6, 2, 33, 130, True, 4.0), (1, 3, 1, 1, 1, True, 0.0)]
+              (2, 16, 4, 2048, 2048, True, 0.0),
+              (GQA_BATCH, GQA_CFG.n_heads, GQA_CFG.n_kv_heads, GQA_CFG.max_seq, GQA_CFG.max_seq,
+               True, 0.0),
+              (1, 4, 2, 77, 201, False, 4.0), (2, 6, 2, 33, 130, True, 4.0),
+              (1, 3, 1, 1, 1, True, 0.0)]
 
 
 def _check_int8(q, k, v, do, causal, label) -> dict:
@@ -756,12 +771,33 @@ def _check_int8(q, k, v, do, causal, label) -> dict:
         err[kernel] = max(err.get(kernel, 0.0), diff)
     log(f"[int8] {label}: quant_int8 byte-equal; int8_fwd max|dO|={err['int8_fwd']:.3e} (tol "
         f"{FLASH_O_TOL}) max|dlse|={err_l:.3e} (tol {FLASH_LSE_TOL}); backward max|diff|/"
-        f"max|plain| dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol {BWD_FAST_TOL})")
+        f"max|plain| dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol {INT8_BWD_TOL})")
     if not (err["int8_fwd"] <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
         raise AssertionError("int8_fwd kernel disagrees with its plain version")
-    if max(rel.values()) > BWD_FAST_TOL:
+    if max(rel.values()) > INT8_BWD_TOL:
         raise AssertionError("int8 backward kernels disagree with their plain versions")
+    if k_mean.abs().max().item() > 1.0:
+        _check_k_mean_term(ops, label)
     return err
+
+
+def _check_k_mean_term(ops, label) -> None:
+    """B8's K-smoothing term rowsum(dS)·k_mean on its own. With D = rowsum(dO·O)
+    the rowsum of dS cancels to ~0, so the term hides in the dQ check above;
+    halving D makes it rowsum(P·dP)/2·sm_scale per row. B8 must then still
+    match its plain version, and the term must be large enough that a kernel
+    without it would not."""
+    ops = ops._replace(di=ops.di * 0.5)
+    dq = int8_bwd_dq(ops)
+    torch.cuda.synchronize()
+    dq_p = int8_bwd_dq_plain(ops)
+    term = int8_bwd_dq_plain(ops._replace(k_mean=torch.zeros_like(ops.k_mean))) - dq_p
+    scale = dq_p.abs().max().item()
+    rel, rel_term = (dq - dq_p).abs().max().item() / scale, term.abs().max().item() / scale
+    log(f"[int8] {label}, D halved: dq max|diff|/max|plain| {rel:.3e} (tol {INT8_BWD_TOL}); "
+        f"k_mean term max|term|/max|plain| {rel_term:.3e} (want > {10 * INT8_BWD_TOL})")
+    if not (rel <= INT8_BWD_TOL and rel_term > 10 * INT8_BWD_TOL):
+        raise AssertionError("int8_bwd_dq's K-smoothing term disagrees with its plain version")
 
 
 def phase_int8_kernels(dev, gen) -> dict:
@@ -886,8 +922,8 @@ def main() -> None:
         f"vs {bf16_run['max_memory_gib']:.2f} GiB")
     if not all(np.isfinite(ratios)) or max(ratios) >= GRAD_NORM_RATIO:
         raise AssertionError("int8 gradient norms left 2x the bf16 run's (BASELINE config 4)")
-    phase_train_gqa(dev, GQA_CFG)
-    phase_train_gqa(dev, INT8_GQA_CFG)
+    gqa_launches = phase_train_gqa(dev, GQA_CFG)
+    int8_gqa_launches = phase_train_gqa(dev, INT8_GQA_CFG)
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -896,23 +932,23 @@ def main() -> None:
         {"name": "flash_fwd", "route": "cuda",
          "source": "quantizedattention_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "quantizedattention_tpu/ops/flash_fwd.py:47",
-         "launches": serve_launches["flash_fwd"] + train_launches["flash_fwd"],
          "launches_by_path": {"serve": serve_launches["flash_fwd"],
-                              "train": train_launches["flash_fwd"]},
+                              "train": train_launches["flash_fwd"],
+                              "train_gqa": gqa_launches["flash_fwd"]},
          **flash, "max_abs_err": max(flash["max_abs_err"], train_err["flash_fwd"]),
          **at_train("flash_fwd")},
         {"name": "decode", "route": "cuda",
          "source": "quantizedattention_tpu_torch/csrc/decode.cu",
          "replaces": "quantizedattention_tpu/parallel/kv_cache.py:172",
-         "launches": serve_launches["decode"],
          "launches_by_path": {"serve": serve_launches["decode"]}, **decode},
     ]
     for kname, replaces in (("flash_bwd_dkv", "quantizedattention_tpu/ops/flash_bwd.py:66"),
                             ("flash_bwd_dq", "quantizedattention_tpu/ops/flash_bwd.py:132")):
         kernels.append({"name": kname, "route": "cuda",
                         "source": "quantizedattention_tpu_torch/csrc/flash_bwd.cu",
-                        "replaces": replaces, "launches": train_launches[kname],
-                        "launches_by_path": {"train": train_launches[kname]},
+                        "replaces": replaces,
+                        "launches_by_path": {"train": train_launches[kname],
+                                             "train_gqa": gqa_launches[kname]},
                         "max_abs_err": max(bwd_err[kname], train_err[kname]),
                         **timing[kname]})
     for kname, source, replaces in (
@@ -922,11 +958,14 @@ def main() -> None:
             ("int8_bwd_dq", "int8_bwd.cu", "quantizedattention_tpu/ops/int8_bwd.py:123")):
         kernels.append({"name": kname, "route": "cuda",
                         "source": f"quantizedattention_tpu_torch/csrc/{source}",
-                        "replaces": replaces, "launches": int8_launches[kname],
-                        "launches_by_path": {"train_int8": int8_launches[kname]},
+                        "replaces": replaces,
+                        "launches_by_path": {"train_int8": int8_launches[kname],
+                                             "train_gqa_int8": int8_gqa_launches[kname]},
                         "max_abs_err": int8_err[kname], **int8_timing[kname]})
     kernels[-4]["also_replaces"] = ["quantizedattention_tpu/quantize/int8.py:74",
                                     "quantizedattention_tpu/quantize/int8.py:85"]
+    for k in kernels:  # launches: every path's run together
+        k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

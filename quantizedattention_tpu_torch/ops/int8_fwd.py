@@ -46,7 +46,7 @@ def _qkv_jobs(q, k, v, k_sub):
     h_kv, s = k.shape[1], k.shape[2]
     if h % h_kv != 0:
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({h_kv})")
-    q_grain, kv_grain, q_pad, kv_pad = int8_grain(t, s, d, h // h_kv)
+    q_grain, kv_grain, q_pad, kv_pad = int8_grain(t, s, h // h_kv)
 
     def rows(x):
         return x.float().reshape(-1, x.shape[2], d).contiguous()

@@ -18,6 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 
+# The JAX package's limits on a GQA group's tiles (clamp_rep): rows of a q
+# block times rep, and elements of the forward's and the backward's tile.
+MAX_ROWS = 2048
+MAX_TILE_ELEMS = 2 * 1024 * 1024
+MAX_TILE_ELEMS_BWD = 1024 * 1024
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockConfig:
@@ -48,30 +54,31 @@ class BlockConfig:
     def kv_compute(self) -> int:
         return self.block_kv_compute or self.block_kv
 
-    def clamp_rep(self, rep: int, max_rows: int = 2048, max_tile_elems: int = 2 * 1024 * 1024,
-                  max_tile_elems_bwd: int = 1024 * 1024) -> "BlockConfig":
+    def clamp_rep(self, rep: int) -> "BlockConfig":
         """Shrink the blocks for a GQA group of `rep` q heads, exactly as the
-        JAX package does (rep * block_q <= 2048 rows, rep * block_q *
-        kv_compute <= 2M elements, the backward's tile <= 1M). rep <= 1 is
-        untouched. Deterministic and idempotent."""
+        JAX package does (rep * block_q <= MAX_ROWS, rep * block_q *
+        kv_compute <= MAX_TILE_ELEMS, the backward's tile <= MAX_TILE_ELEMS_BWD).
+        rep <= 1 is untouched. Deterministic and idempotent. The bwd fields
+        are shrunk too, for fidelity to the JAX config; the grain does not
+        depend on them."""
         if rep <= 1:
             return self
 
         def floor128(x: int) -> int:
             return max(128, x // 128 * 128)
 
-        row_cap = floor128(max_rows // rep)
-        block_q = min(self.block_q, row_cap, floor128(max_tile_elems // (rep * 128)))
-        sub_cap = floor128(max_tile_elems // (rep * block_q))
+        row_cap = floor128(MAX_ROWS // rep)
+        block_q = min(self.block_q, row_cap, floor128(MAX_TILE_ELEMS // (rep * 128)))
+        sub_cap = floor128(MAX_TILE_ELEMS // (rep * block_q))
         want = min(self.kv_compute, sub_cap, self.block_kv)
         sub = 128
         for cand in range(128, want + 1, 128):
             if self.block_kv % cand == 0:
                 sub = cand
         block_q_bwd = min(self.block_q_bwd, row_cap,
-                          floor128(max_tile_elems_bwd // (rep * self.block_kv_bwd)))
+                          floor128(MAX_TILE_ELEMS_BWD // (rep * self.block_kv_bwd)))
         block_kv_bwd = min(self.block_kv_bwd,
-                           floor128(max_tile_elems_bwd // (rep * block_q_bwd)))
+                           floor128(MAX_TILE_ELEMS_BWD // (rep * block_q_bwd)))
         return dataclasses.replace(
             self, block_q=block_q, block_q_bwd=block_q_bwd, block_kv_bwd=block_kv_bwd,
             block_kv_compute=0 if sub == self.block_kv else sub,
@@ -103,13 +110,12 @@ INT8_DEFAULT = BlockConfig(block_q=1024, block_kv=8192, block_q_bwd=1024, block_
                            block_kv_compute=1024)
 
 
-def int8_grain(t: int, s: int, d: int, rep: int = 1) -> tuple[int, int, int, int]:
+def int8_grain(t: int, s: int, rep: int = 1) -> tuple[int, int, int, int]:
     """(q_grain, kv_grain, q_pad, kv_pad) of int8 attention on t queries and
     s keys with GQA rep: Q gets one scale per q_grain tokens and is padded to
     q_pad; K and V get one per kv_grain tokens and are padded to kv_pad (the
-    JAX package's block_kv, a multiple of kv_grain). `d` does not enter the
-    rule; it is taken for the JAX signature's sake."""
-    del d
+    JAX package's block_kv, a multiple of kv_grain). The head dim does not
+    enter the rule."""
     # the default fitted to the lengths, then shrunk for the GQA group
     cfg = INT8_DEFAULT.clamp(t, s).clamp_rep(rep)
     q_pad = -(-t // cfg.block_q) * cfg.block_q

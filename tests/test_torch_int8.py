@@ -121,7 +121,7 @@ def test_int8_grain_matches_jax_block_config(rep):
             q_pad = -(-t // cfg.block_q) * cfg.block_q
             kv_pad = -(-s // cfg.block_kv) * cfg.block_kv
             want = (cfg.block_q, min(cfg.kv_compute, kv_pad), q_pad, kv_pad)
-            assert int8_grain(t, s, 64, rep) == want, (t, s, rep)
+            assert int8_grain(t, s, rep) == want, (t, s, rep)
 
 
 @pytest.mark.parametrize("t,rep,want", [
@@ -134,7 +134,7 @@ def test_int8_grain_matches_jax_block_config(rep):
     (1100, 4, (512, 384, 1536, 1152)),
 ])
 def test_int8_grain_table(t, rep, want):
-    assert int8_grain(t, t, 64, rep) == want
+    assert int8_grain(t, t, rep) == want
 
 
 # --------------------------------------------------------------------------
