@@ -27,8 +27,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      calls it);
   8. int8 kernels: B4 (quantize, byte-equal), B5 (forward), B7 (dK/dV) and
      B8 (dQ) against their plain versions at the training shape, a ragged
-     length with a large K mean, GQA rep 4, the GQA train shape (rep 2) and
-     an odd cross length, with B8's K-smoothing term held on its own where
+     length with a large K mean, GQA rep 4, the GQA train shape (rep 2), the
+     int8 serving prefill's shape (8, 16, 256, 64) and an odd cross length, with B8's K-smoothing term held on its own where
      the K mean is large; then each timed at (4, 16, 2048, 64) causal beside
      its plain version;
   9. sage_attention_int8 at (4, 16, 2048, 64) causal against the fp32
@@ -45,7 +45,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      run's at every step (BASELINE config 4);
  11. train GQA: the entry() config (4 q / 2 kv heads), 8 x 512 tokens, 10
      steps, with bf16 and with int8 attention; losses finite and falling,
-     the dK/dV kernels run with rep 2.
+     the dK/dV kernels run with rep 2;
+ 12. the fused int8 inference kernel (B6) against its plain version (bf16
+     and f32 inputs at (4, 16, 2048, 64) causal, a ragged length with a
+     large K mean, GQA rep 4, an odd cross length, rep 3 and one token), and
+     against B4 then B5 on the same inputs up to 8192 tokens (lse equal);
+ 13. sage_attention_int8_inference at (4, 16, 2048, 64) against the fp32
+     oracle with bench.py's gate, and with a K offset of 8 (smoothing);
+ 14. BASELINE config 3: sage_attention_int8_inference at (4, 16, {2048,
+     4096, 8192}, 64) causal on bf16 inputs (the path run whose B6 launches
+     are counted), then B6 timed beside SDPA bf16, B4 -> B5 and B1 on the
+     same inputs, and at the GQA shape (4, 16 q / 4 kv, 4096, 64);
+ 15. the weight-only int8 (B17) and int4 (B18) matmuls against their plain
+     versions at decode (m = 8) and prefill (m = 2048) rows of the bench
+     widths and an odd shape, then timed beside the bf16 GEMM they replace;
+ 16. quantized serving at full width, as phase 5, with attention="int8"
+     (prefill through B4 + B5, never B1), with weight_quant="int8" (every
+     projection and the unembedding through B17) and with
+     weight_quant="int4" (B18); each repeats its warm-up, matches
+     `generate` on its own params and the CPU plain path's prefill logits;
+     two bf16 runs bracket them, and each is compared with their mean.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -80,6 +99,13 @@ from quantizedattention_tpu_torch.models import (
 from quantizedattention_tpu_torch.ops import (
     bwd_operands,
     flash_attention_bf16,
+    int4_weight_matmul,
+    int4_weight_matmul_plain,
+    int8_attention_fwd_fused,
+    int8_attention_fwd_fused_plain,
+    int8_weight_matmul,
+    int8_weight_matmul_plain,
+    sage_attention_int8_inference,
     flash_bwd_dkv,
     flash_bwd_dkv_plain,
     flash_bwd_dq,
@@ -106,6 +132,12 @@ from quantizedattention_tpu_torch.parallel.kv_cache import (
     decode_attention_plain,
 )
 from quantizedattention_tpu_torch.quantize.int8 import quant_int8
+from quantizedattention_tpu_torch.quantize.weights import (
+    QuantizedWeight,
+    QuantizedWeight4,
+    quantize_weight,
+    quantize_weight_int4,
+)
 from quantizedattention_tpu_torch.reference import reference_attention, reference_attention_vjp
 from quantizedattention_tpu_torch.serve import ServingEngine
 from quantizedattention_tpu_torch.utils.testing import ATOL, GRAD_MISMATCH_RATE, mismatch_report
@@ -147,6 +179,16 @@ INT8_ATOL, INT8_FWD_RATE, INT8_GRAD_REL_L2 = 5e-2, 2e-3, 0.06
 # BASELINE config 4: the int8 run's global gradient norm stays below twice
 # the bf16 run's at every step (tests/test_baseline_configs.py:96-98).
 GRAD_NORM_RATIO = 2.0
+# B6 against B4 then B5 on the same inputs: the same payloads and scales and
+# B5's tile order, so lse must be equal and O within the JAX package's
+# fused-vs-materialized criterion (tests/test_int8_attention.py:95-108).
+FUSED_O_TOL = 1e-6
+# B17/B18 against their plain versions: with an f32 output only the f32
+# summation order differs (2e-4 of max|plain|, the JAX package's kernel test,
+# tests/test_int8_weights.py:54); a bf16 output rounds that once more, so it
+# may land one bf16 ulp away (on top of the f32 difference, which matters
+# only for results near 0).
+WEIGHT_F32_REL = 2e-4
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): a kernel's
 # bound is the larger of its operations over the peak of their type and its
@@ -346,14 +388,22 @@ def phase_decode(dev, gen) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
-def phase_serving(dev, smi) -> dict:
-    cfg = BENCH_CFG
+def _serve(dev, smi, cfg, weight_quant=None) -> tuple[list, dict, float]:
+    """One full-width serving run of `cfg` (bf16 params, `weight_quant`):
+    a warm-up run, every launch count set to 0, the timed run. It must give
+    every request its budget of in-vocab tokens, repeat the warm-up's tokens,
+    match `generate` on the engine's own params and the same 8 prompts, and
+    keep prefill logits within LOGITS_REL_TOL of the plain path on the CPU.
+    Returns (each request's tokens, the timed run's launches by kernel, its
+    tokens/s)."""
     params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev,
                               torch.bfloat16)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=PROMPT_LEN).tolist() for _ in range(N_SLOTS)]
     eng = ServingEngine(params, cfg, dev, n_slots=N_SLOTS, scheduler="native",
-                        param_dtype=torch.bfloat16, decode_horizon=HORIZON)
+                        param_dtype=torch.bfloat16, decode_horizon=HORIZON,
+                        weight_quant=weight_quant)
+    label = f"attention={cfg.attention} weight_quant={weight_quant}"
 
     def serve():
         rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
@@ -364,53 +414,112 @@ def phase_serving(dev, smi) -> dict:
         return [out[r] for r in rids], time.perf_counter() - t0
 
     warm, _ = serve()
-    flash_attention_fwd.launches = 0
-    decode_attention.launches = 0
+    _reset_counts()
     results, wall = serve()
-    launches = {"flash_fwd": flash_attention_fwd.launches, "decode": decode_attention.launches}
+    launches = _launch_counts()
 
     for r in results:
         if r.finish_reason != "length" or len(r.tokens) != NEW_TOKENS:
-            raise AssertionError(f"request {r.request_id}: {r.finish_reason}, {len(r.tokens)} tokens")
+            raise AssertionError(f"request {r.request_id}: {r.finish_reason}, "
+                                 f"{len(r.tokens)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.request_id}: token out of vocab")
-    if not all(launches.values()):
-        raise AssertionError(f"the served run skipped a kernel: launches {launches}")
     if [r.tokens for r in results] != [r.tokens for r in warm]:
-        raise AssertionError("a second run gave different tokens")
+        raise AssertionError(f"{label}: a second run gave different tokens")
     want = generate(eng.params, torch.tensor(prompts, device=dev), cfg, NEW_TOKENS)
     want = want[:, PROMPT_LEN:].tolist()
     same = sum(r.tokens == w for r, w in zip(results, want))
     if same != N_SLOTS:
-        raise AssertionError(f"engine tokens equal generate's for only {same}/{N_SLOTS} requests")
+        raise AssertionError(f"{label}: engine tokens equal generate's for only {same}/{N_SLOTS} "
+                             "requests")
 
     # the full model on the card vs the plain path on the CPU, same weights
     probe = torch.tensor([prompts[0][:64]], device=dev)
-    logits = transformer_forward(eng.params, probe, cfg).float().cpu()
-    ref = transformer_forward(_to(eng.params, "cpu"), probe.cpu(), cfg).float()
+    with torch.no_grad():
+        logits = transformer_forward(eng.params, probe, cfg).float().cpu()
+        ref = transformer_forward(_to(eng.params, "cpu"), probe.cpu(), cfg).float()
     rel = ((logits - ref).norm() / ref.norm()).item()
     agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"[serve] prefill logits vs CPU plain path ({probe.shape[1]} tokens): rel L2 {rel:.3e} "
-        f"(tol {LOGITS_REL_TOL}), argmax agreement {agree:.3f}")
+    log(f"[serve] {label}: prefill logits vs CPU plain path ({probe.shape[1]} tokens): rel L2 "
+        f"{rel:.3e} (tol {LOGITS_REL_TOL}), argmax agreement {agree:.3f}")
     if not (torch.isfinite(logits).all() and rel <= LOGITS_REL_TOL):
-        raise AssertionError("prefill logits disagree with the plain CPU path")
+        raise AssertionError(f"{label}: prefill logits disagree with the plain CPU path")
 
     n_tok = sum(len(r.tokens) for r in results)
     ttft_ms = statistics.median(r.ttft_s for r in results) * 1e3
     led = eng.ledger()
-    log(f"[serve] {N_SLOTS} requests x {NEW_TOKENS} tokens (prompt {PROMPT_LEN}, horizon "
-        f"{HORIZON}) on {smi}: {n_tok / wall:.1f} tokens/s, wall {wall:.3f} s, median TTFT "
-        f"{ttft_ms:.2f} ms, launches {launches}, dispatches {led['dispatches']}, "
-        f"fetch_s {led['fetch_s']:.3f}; tokens == generate for {same}/{N_SLOTS}; "
-        f"repeat run identical")
-    return launches
+    log(f"[serve] {label}: {N_SLOTS} requests x {NEW_TOKENS} tokens (prompt {PROMPT_LEN}, "
+        f"horizon {HORIZON}) on {smi}: {n_tok / wall:.1f} tokens/s, wall {wall:.3f} s, median "
+        f"TTFT {ttft_ms:.2f} ms, launches { {k: v for k, v in launches.items() if v} }, "
+        f"dispatches {led['dispatches']}, fetch_s {led['fetch_s']:.3f}; tokens == generate "
+        f"for {same}/{N_SLOTS}; repeat run identical")
+    return [r.tokens for r in results], launches, n_tok / wall
+
+
+def phase_serving(dev, smi) -> tuple[list, dict]:
+    """Phase 5: bf16 serving through B1 (prefill) and B13 (decode) only."""
+    tokens, launches, _ = _serve(dev, smi, BENCH_CFG)
+    used = {k for k, v in launches.items() if v}
+    if used != {"flash_fwd", "decode"}:
+        raise AssertionError(f"the served run launched {launches}, want flash_fwd and decode only")
+    return tokens, launches
+
+
+def phase_serving_quantized(dev, smi, bf16_tokens, bf16_launches) -> dict:
+    """Phase 16: the bench LM served with int8 attention, then with int8 and
+    int4 weights, between two bf16 runs of phase 5's (the engine is
+    host-bound, so its speed drifts over a process's life: each quantized
+    run is compared with bf16 runs made beside it). Returns each quantized
+    run's launches of the kernels it ran, by path."""
+    n_layers = BENCH_CFG.n_layers
+    per_pass = 6 * n_layers + 1  # projections and the unembedding of one forward
+    runs, speed = {}, {}
+    for path, cfg, wq in (("bf16_before", BENCH_CFG, None),
+                          ("serve_int8", dataclasses.replace(BENCH_CFG, attention="int8"), None),
+                          ("serve_w8", BENCH_CFG, "int8"), ("serve_w4", BENCH_CFG, "int4"),
+                          ("bf16_after", BENCH_CFG, None)):
+        tokens, launches, speed[path] = _serve(dev, smi, cfg, wq)
+        used = {k for k, v in launches.items() if v}
+        if path.startswith("bf16"):
+            if tokens != bf16_tokens or launches != bf16_launches:
+                raise AssertionError(f"{path}: the bf16 run differs from phase 5's")
+            continue
+        if path == "serve_int8":
+            # prefill through B4 + B5, n_layers launches per prefill dispatch
+            ok = (used == {"quant_int8", "int8_fwd", "decode"}
+                  and launches["quant_int8"] == launches["int8_fwd"]
+                  and launches["int8_fwd"] % n_layers == 0)
+        else:
+            kernel = "int8_linear" if wq == "int8" else "int4_linear"
+            passes = (launches["flash_fwd"] + launches["decode"]) // n_layers
+            ok = (used == {"flash_fwd", "decode", kernel}
+                  and launches[kernel] == passes * per_pass)
+        if not ok:
+            raise AssertionError(f"{path}: launches {launches}")
+        flat = [t for toks in tokens for t in toks]
+        ref = [t for toks in bf16_tokens for t in toks]
+        share = sum(a == b for a, b in zip(flat, ref)) / len(ref)
+        log(f"[serve] {path}: {share:.3f} of the tokens equal the bf16 run's")
+        runs[path] = {k: v for k, v in launches.items() if v}
+    if bf16_launches["decode"] != runs["serve_w8"]["decode"]:
+        raise AssertionError("the quantized runs decoded another number of steps")
+    bf16 = (speed["bf16_before"] + speed["bf16_after"]) / 2
+    log("[serve] tokens/s against the mean of the bf16 runs beside them ("
+        f"{speed['bf16_before']:.1f}, {speed['bf16_after']:.1f}): "
+        + ", ".join(f"{path} {speed[path] / bf16:.3f}" for path in runs))
+    return runs
 
 
 def _to(params, device):
-    """A detached copy of an LM params dict on `device`."""
-    out = {k: v.detach().to(device) for k, v in params.items() if k != "layers"}
-    out["layers"] = [{k: v.detach().to(device) for k, v in lay.items()}
-                     for lay in params["layers"]]
+    """A detached copy of an LM params dict on `device` (quantized weights
+    move with their payloads and scales as they are)."""
+
+    def move(v):
+        return v.to(device) if isinstance(v, (QuantizedWeight, QuantizedWeight4)) \
+            else v.detach().to(device)
+
+    out = {k: move(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: move(v) for k, v in lay.items()} for lay in params["layers"]]
     return out
 
 
@@ -595,7 +704,9 @@ TRAIN_KERNELS = {"bf16": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
 _COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_dkv": flash_bwd_dkv,
             "flash_bwd_dq": flash_bwd_dq, "quant_int8": quant_int8,
             "int8_fwd": int8_attention_fwd_from_quantized, "int8_bwd_dkv": int8_bwd_dkv,
-            "int8_bwd_dq": int8_bwd_dq}
+            "int8_bwd_dq": int8_bwd_dq, "decode": decode_attention,
+            "int8_fused": int8_attention_fwd_fused, "int8_linear": int8_weight_matmul,
+            "int4_linear": int4_weight_matmul}
 
 
 def _launch_counts():
@@ -728,13 +839,15 @@ INT8_GQA_CFG = dataclasses.replace(GQA_CFG, attention="int8")
 # (b, h, h_kv, t, s, causal, K offset): the training shape; a ragged length
 # whose padded K rows, smoothed to -k_mean, set the last K grain's scale (a
 # large K mean makes that visible); GQA rep 4, where the Q grain is 512; the
-# GQA train phase's attention shape (rep 2, grains 512); an odd cross length,
-# non-causal (grains 128 and 256); then the backward's edge shapes: a rep
-# that does not divide 64 with t < s, and one token.
+# GQA train phase's attention shape (rep 2, grains 512); the int8 serving
+# run's prefill (all 8 prompts in one dispatch, grains 256); an odd cross
+# length, non-causal (grains 128 and 256); then the backward's edge shapes: a
+# rep that does not divide 64 with t < s, and one token.
 INT8_CASES = [(4, 16, 16, 2048, 2048, True, 0.0), (2, 16, 16, 1000, 1000, True, 4.0),
               (2, 16, 4, 2048, 2048, True, 0.0),
               (GQA_BATCH, GQA_CFG.n_heads, GQA_CFG.n_kv_heads, GQA_CFG.max_seq, GQA_CFG.max_seq,
                True, 0.0),
+              (N_SLOTS, BENCH_CFG.n_heads, BENCH_CFG.n_kv_heads, PROMPT_LEN, PROMPT_LEN, True, 0.0),
               (1, 4, 2, 77, 201, False, 4.0), (2, 6, 2, 33, 130, True, 4.0),
               (1, 3, 1, 1, 1, True, 0.0)]
 
@@ -899,6 +1012,230 @@ def phase_int8_oracle(dev, gen) -> None:
         raise AssertionError("sage_attention_int8 outside the JAX package's oracle criteria")
 
 
+# --------------------------------------------------------------------------
+# Int8 inference (B6) and weight-only quantization (B17, B18)
+# --------------------------------------------------------------------------
+
+# (b, h, h_kv, t, s, causal, K offset, dtype): BASELINE config 3's shape in
+# bf16 (the serving dtype) and f32; a ragged length whose padded K rows,
+# smoothed to -k_mean, set the last K grain's scale; GQA rep 4 (Q grain 512);
+# an odd cross length, non-causal; rep 3 with t < s; one token.
+FUSED_CASES = [(4, 16, 16, 2048, 2048, True, 0.0, torch.bfloat16),
+               (4, 16, 16, 2048, 2048, True, 0.0, torch.float32),
+               (2, 16, 16, 1000, 1000, True, 4.0, torch.bfloat16),
+               (4, 16, 4, 1024, 1024, True, 0.0, torch.bfloat16),
+               (1, 4, 2, 77, 201, False, 4.0, torch.float32),
+               (2, 6, 2, 33, 130, True, 4.0, torch.float32),
+               (1, 3, 1, 1, 1, True, 0.0, torch.float32)]
+CONFIG3_SEQS = (2048, 4096, 8192)
+
+
+def _qkv(gen, dev, b, h, h_kv, t, s, dtype=torch.float32, shift=0.0):
+    q = torch.randn((b, h, t, 64), generator=gen, device=dev)
+    k = torch.randn((b, h_kv, s, 64), generator=gen, device=dev) + shift
+    v = torch.randn((b, h_kv, s, 64), generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _check_fused(q, k, v, causal, label, plain=True) -> float:
+    """B6 on one case, with the K shift the inference entry point takes (the
+    K mean in k's dtype): against B4 then B5 on the same inputs (lse equal,
+    O within FUSED_O_TOL) and, where it fits in memory, against its plain
+    version (B5's tolerances). Returns max|dO| against the plain version."""
+    k_sub = k.float().mean(-2, keepdim=True).to(k.dtype)
+    o, lse = int8_attention_fwd_fused(q, k, v, causal=causal, k_sub=k_sub)
+    res = quantize_qkv(q, k, v, k_sub=k_sub)
+    o_m, lse_m = int8_attention_fwd_from_quantized(res, (*q.shape[:3], k.shape[2], 64), causal)
+    torch.cuda.synchronize()
+    d_o, d_l = (o - o_m).abs().max().item(), (lse - lse_m).abs().max().item()
+    del res, o_m, lse_m
+    msg = (f"[int8_fused] {label}: vs B4 -> B5 max|dO|={d_o:.3e} (tol {FUSED_O_TOL}) "
+           f"max|dlse|={d_l:.3e} (want 0)")
+    if not (torch.isfinite(o).all() and d_o <= FUSED_O_TOL and d_l == 0.0):
+        raise AssertionError(msg + ": B6 disagrees with B4 then B5")
+    err = 0.0
+    if plain:
+        o_p, lse_p = int8_attention_fwd_fused_plain(q, k, v, causal, k_sub=k_sub)
+        err, err_l = (o - o_p).abs().max().item(), (lse - lse_p).abs().max().item()
+        msg += (f"; vs plain max|dO|={err:.3e} (tol {FLASH_O_TOL}) max|dlse|={err_l:.3e} "
+                f"(tol {FLASH_LSE_TOL})")
+        if not (err <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
+            raise AssertionError(msg + ": B6 disagrees with its plain version")
+    log(msg)
+    return err
+
+
+def phase_int8_fused(dev, gen) -> float:
+    """Phase 12. Returns B6's worst max|dO| against its plain version."""
+    worst = 0.0
+    for b, h, h_kv, t, s, causal, shift, dtype in FUSED_CASES:
+        q, k, v = _qkv(gen, dev, b, h, h_kv, t, s, dtype, shift)
+        worst = max(worst, _check_fused(q, k, v, causal, f"b={b} h={h} h_kv={h_kv} t={t} s={s} "
+                                        f"causal={causal} K mean {shift} {dtype}"))
+    # the plain version of (4,16,8192,64) would need tens of GB: B4 -> B5 only
+    for t in CONFIG3_SEQS[1:]:
+        q, k, v = _qkv(gen, dev, 4, 16, 16, t, t, torch.bfloat16)
+        _check_fused(q, k, v, True, f"(4,16,{t},64) causal bf16", plain=False)
+    return worst
+
+
+def phase_int8_infer_oracle(dev, gen) -> None:
+    """Phase 13: sage_attention_int8_inference against the fp32 oracle with
+    bench.py's gate (f32 inputs), and with a common K offset of 8."""
+    b, h, t = 4, 16, CONFIG3_SEQS[0]
+    q, k, v = _qkv(gen, dev, b, h, h, t, t)
+    rep = mismatch_report("int8 inference fwd", sage_attention_int8_inference(q, k, v, True),
+                          reference_attention(q, k, v, causal=True), INT8_ATOL)
+    k8 = k + 8.0
+    rep8 = mismatch_report("int8 inference fwd, K + 8", sage_attention_int8_inference(q, k8, v),
+                           reference_attention(q, k8, v), INT8_ATOL)
+    log(f"[int8_fused] sage_attention_int8_inference vs fp32 oracle ({b},{h},{t},64) causal: "
+        f"{rep}; non-causal {rep8} (gate: rate <= {INT8_FWD_RATE} at atol {INT8_ATOL})")
+    if not (rep.mismatch_rate <= INT8_FWD_RATE and rep8.mismatch_rate <= INT8_FWD_RATE):
+        raise AssertionError("sage_attention_int8_inference outside bench.py's gate")
+
+
+def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
+    """Phase 14, BASELINE config 3. The path run: sage_attention_int8_inference
+    once at each sequence length on bf16 inputs, counts from 0. Then device
+    time per call of B6 (with the K shift precomputed), SDPA bf16, B4 -> B5
+    (`int8_attention_fwd`, which also casts to f32) and B1 on the same
+    inputs. Returns (B6's numbers at (4,16,2048,64), the path's launches)."""
+    inputs = {t: _qkv(gen, dev, 4, 16, 16, t, t, torch.bfloat16) for t in CONFIG3_SEQS}
+    _reset_counts()
+    for t, (q, k, v) in inputs.items():
+        o = sage_attention_int8_inference(q, k, v, causal=True)
+        if o.shape != q.shape or not torch.isfinite(o).all():
+            raise AssertionError(f"sage_attention_int8_inference at {t} tokens: not finite")
+    launches = _launch_counts()
+    if {k for k, n in launches.items() if n} != {"int8_fused"}:
+        raise AssertionError(f"the inference path launched {launches}, want int8_fused only")
+
+    def plain_ms(fn):
+        return device_ms(fn, calls=4, replays=5)
+
+    rows, out = {}, None
+    for t, (q, k, v) in inputs.items():
+        k_sub = k.float().mean(-2, keepdim=True).to(k.dtype)
+        o, lse = int8_attention_fwd_fused(q, k, v, causal=True, k_sub=k_sub)
+        pairs = 4 * 16 * visible_pairs(t, t, True)
+        flops = 4 * 4 * 16 * t * t * 64 * 0.5  # bench.py's count
+        r = {"ms": device_ms(lambda: int8_attention_fwd_fused(q, k, v, True, k_sub=k_sub)),
+             "entry_ms": device_ms(lambda: sage_attention_int8_inference(q, k, v, True)),
+             "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+             "b4_b5_ms": device_ms(lambda: int8_attention_fwd(q, k, v, True, k_sub=k_sub)),
+             "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
+             **bound(nbytes(q, k, v, k_sub, o, lse), (2 * pairs * 64, PEAK_INT8),
+                     (2 * pairs * 64, PEAK_BF16), (2 * (q.numel() + 2 * k.numel()), PEAK_FP32))}
+        r["tflops"] = {name: flops / (r[key] * 1e-3) / 1e12 for name, key in (
+            ("int8_fused", "ms"), ("sdpa", "sdpa_ms"), ("b4_b5", "b4_b5_ms"), ("b1", "b1_ms"))}
+        if t == CONFIG3_SEQS[0]:
+            r["plain_ms"] = plain_ms(lambda: int8_attention_fwd_fused_plain(q, k, v, True,
+                                                                           k_sub=k_sub))
+            out = r
+        rows[t] = r
+        log(f"[timing] config 3 (4,16,{t},64) causal bf16: B6 {r['ms']:.4f} ms "
+            f"({r['tflops']['int8_fused']:.1f} TFLOP/s; entry point {r['entry_ms']:.4f} ms), "
+            f"sdpa {r['sdpa_ms']:.4f} ms ({r['tflops']['sdpa']:.1f}), B4 -> B5 "
+            f"{r['b4_b5_ms']:.4f} ms ({r['tflops']['b4_b5']:.1f}), B1 {r['b1_ms']:.4f} ms "
+            f"({r['tflops']['b1']:.1f}); bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f"; B6 plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""))
+    del inputs
+    # the GQA A/B shape (bench.py:250)
+    t = CONFIG3_SEQS[1]
+    q, k, v = _qkv(gen, dev, 4, 16, 4, t, t, torch.bfloat16)
+    k_sub = k.float().mean(-2, keepdim=True).to(k.dtype)
+    gqa = {"ms": device_ms(lambda: int8_attention_fwd_fused(q, k, v, True, k_sub=k_sub)),
+           "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)),
+           "b4_b5_ms": device_ms(lambda: int8_attention_fwd(q, k, v, True, k_sub=k_sub)),
+           "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True))}
+    log(f"[timing] GQA (4,16q/4kv,{t},64) causal bf16: B6 {gqa['ms']:.4f} ms, sdpa "
+        f"{gqa['sdpa_ms']:.4f} ms, B4 -> B5 {gqa['b4_b5_ms']:.4f} ms, B1 {gqa['b1_ms']:.4f} ms")
+    out.update(library_ms=out["sdpa_ms"],
+               library_call="F.scaled_dot_product_attention(is_causal=True), bf16",
+               by_seq={str(t): {k: v for k, v in r.items() if k != "bound_by"}
+                       for t, r in rows.items()},
+               gqa=gqa)
+    return out, launches
+
+
+# (m, k, n): decode (the engine's 8 slots) and prefill (8 x 256 tokens) rows
+# against the bench widths' weights, and an odd shape
+WEIGHT_SHAPES = [(m, k, n) for m in (N_SLOTS, N_SLOTS * PROMPT_LEN)
+                 for k, n in ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 8192))]
+WEIGHT_ODD = (5, 1000, 300)
+WEIGHT_HEADLINE = (N_SLOTS, 1024, 4096)  # decode through w1
+
+
+def _check_weight(name, fn, plain, label) -> float:
+    """A weight kernel against its plain version: the f32 output within
+    WEIGHT_F32_REL of max|plain|, the bf16 output within one bf16 ulp plus
+    that. Returns the f32 output's max|diff|."""
+    got, want = fn(torch.float32), plain(torch.float32)
+    got_b, want_b = fn(None).float(), plain(None).float()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ulp = torch.exp2(torch.floor(torch.log2(want_b.abs().clamp_min(1e-30))) - 7)
+    over = ((got_b - want_b).abs() - ulp).max().item()
+    bf16_ok = over <= WEIGHT_F32_REL * scale
+    log(f"[{name}] {label}: f32 out max|diff|/max|plain| {err / scale:.3e} (tol {WEIGHT_F32_REL}); "
+        f"bf16 out max(|diff| - ulp)/max|plain| {max(over, 0.0) / scale:.3e} "
+        f"(tol {WEIGHT_F32_REL})")
+    rel = err / scale
+    if not (torch.isfinite(got).all() and rel <= WEIGHT_F32_REL and bf16_ok):
+        raise AssertionError(f"{name} disagrees with its plain version at {label}")
+    return err
+
+
+def phase_weight_kernels(dev, gen) -> dict:
+    """Phase 15: B17 and B18 against their plain versions, then timed beside
+    torch.matmul of the bf16 weight they replace (a yardstick only). Returns
+    each kernel's numbers at WEIGHT_HEADLINE with every shape's by shape."""
+    out = {"int8_linear": {"max_abs_err": 0.0, "by_shape": {}},
+           "int4_linear": {"max_abs_err": 0.0, "by_shape": {}}}
+    for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        q8, q4 = quantize_weight(w), quantize_weight_int4(w)
+        x4 = F.pad(x, (0, 2 * q4.packed.shape[0] - k))  # mm's padded contraction
+        label = f"m={m} k={k} n={n}"
+        e8 = _check_weight("int8_linear",
+                           lambda dt: int8_weight_matmul(x, q8.w_i8, q8.scale, out_dtype=dt),
+                           lambda dt: int8_weight_matmul_plain(x, q8.w_i8, q8.scale, dt), label)
+        e4 = _check_weight(
+            "int4_linear",
+            lambda dt: int4_weight_matmul(x4, q4.packed, q4.scale, q4.group, out_dtype=dt),
+            lambda dt: int4_weight_matmul_plain(x4, q4.packed, q4.scale, q4.group, dt), label)
+        out["int8_linear"]["max_abs_err"] = max(out["int8_linear"]["max_abs_err"], e8)
+        out["int4_linear"]["max_abs_err"] = max(out["int4_linear"]["max_abs_err"], e4)
+        if (m, k, n) == WEIGHT_ODD:
+            continue
+        wb = w.to(torch.bfloat16)
+        lib_ms = device_ms(lambda: torch.matmul(x, wb))
+        y = torch.matmul(x, wb)
+        for name, fn, plain, w_bytes in (
+                ("int8_linear", lambda: int8_weight_matmul(x, q8.w_i8, q8.scale),
+                 lambda: int8_weight_matmul_plain(x, q8.w_i8, q8.scale), nbytes(q8.w_i8, q8.scale)),
+                ("int4_linear", lambda: int4_weight_matmul(x4, q4.packed, q4.scale, q4.group),
+                 lambda: int4_weight_matmul_plain(x4, q4.packed, q4.scale, q4.group),
+                 nbytes(q4.packed, q4.scale))):
+            r = {"ms": device_ms(fn), "plain_ms": device_ms(plain, calls=4, replays=5),
+                 "library_ms": lib_ms,
+                 **bound(nbytes(x, y) + w_bytes, (2 * m * k * n, PEAK_BF16))}
+            out[name]["by_shape"][label] = r
+            log(f"[timing] {name} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"bf16 torch.matmul {lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    head = "m={} k={} n={}".format(*WEIGHT_HEADLINE)
+    for name in out:
+        out[name].update(out[name]["by_shape"][head])
+        out[name]["library_call"] = "torch.matmul(x, w) with the weight in bf16"
+        out[name]["headline_shape"] = head
+    return out
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -906,7 +1243,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     flash = phase_flash(dev, gen)
     decode = phase_decode(dev, gen)
-    serve_launches = phase_serving(dev, smi)
+    serve_tokens, serve_launches = phase_serving(dev, smi)
     bwd_err = phase_flash_bwd(dev, gen)
     timing, train_err = phase_train_timing(dev, gen)
     int8_err = phase_int8_kernels(dev, gen)
@@ -924,6 +1261,11 @@ def main() -> None:
         raise AssertionError("int8 gradient norms left 2x the bf16 run's (BASELINE config 4)")
     gqa_launches = phase_train_gqa(dev, GQA_CFG)
     int8_gqa_launches = phase_train_gqa(dev, INT8_GQA_CFG)
+    fused_err = phase_int8_fused(dev, gen)
+    phase_int8_infer_oracle(dev, gen)
+    fused, infer_launches = phase_int8_infer_timing(dev, gen)
+    weights = phase_weight_kernels(dev, gen)
+    quant_runs = phase_serving_quantized(dev, smi, serve_tokens, serve_launches)
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -964,6 +1306,22 @@ def main() -> None:
                         "max_abs_err": int8_err[kname], **int8_timing[kname]})
     kernels[-4]["also_replaces"] = ["quantizedattention_tpu/quantize/int8.py:74",
                                     "quantizedattention_tpu/quantize/int8.py:85"]
+    kernels.append({"name": "int8_fused", "route": "cuda",
+                    "source": "quantizedattention_tpu_torch/csrc/int8_fwd.cu",
+                    "also_runs": "quantizedattention_tpu_torch/csrc/quant_int8.cu (absmax pass "
+                                 "only: the scale tables)",
+                    "replaces": "quantizedattention_tpu/ops/int8_fwd.py:197",
+                    "launches_by_path": {"infer_int8": infer_launches["int8_fused"]},
+                    "max_abs_err": fused_err, **fused})
+    for kname, replaces in (("int8_linear", "quantizedattention_tpu/ops/int8_linear.py:42"),
+                            ("int4_linear", "quantizedattention_tpu/ops/int4_linear.py:64")):
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": f"quantizedattention_tpu_torch/csrc/{kname}.cu",
+                        "replaces": replaces, "launches_by_path": {}, **weights[kname]})
+    for k in kernels:  # the quantized serving runs' launches of each kernel they ran
+        for path, counts in quant_runs.items():
+            if k["name"] in counts:
+                k["launches_by_path"][path] = counts[k["name"]]
     for k in kernels:  # launches: every path's run together
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))

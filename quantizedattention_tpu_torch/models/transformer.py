@@ -4,14 +4,17 @@ Counterpart of quantizedattention_tpu/models/transformer.py: RMSNorm pre-norm
 blocks, interleaved-pair RoPE, GQA projections, tanh-form GELU MLP. Params are
 a plain dict of tensors with the JAX package's names and shapes (weights
 [in, out], projections `x @ w`), so `models.convert.params_from_jax` carries
-them over unchanged. Training (`lm_loss`, `make_train_step`) runs the
-corrected-bf16 flash attention (forward B1, backward B2 + B3) or, with
-`attention="int8"`, the int8 SageAttention path (B4, B5; backward B7 + B8).
-Prefill runs B1; decode appends to the int8 KV cache and runs the int8
-decode kernel.
+them over unchanged. Every forward, training and prefill alike, runs the
+configured attention through `_attention`: the corrected-bf16 flash
+attention (forward B1, backward B2 + B3) or, with `attention="int8"`, the
+int8 SageAttention path (B4 quantizes, B5 attends; backward B7 + B8; under
+no_grad, as in prefill, the forward alone). Decode appends to the int8 KV
+cache and runs the int8 decode kernel. Matmuls go through
+`quantize.weights.mm` and gathers through `embedding_lookup`, so params
+with weight-only int8/int4 leaves (`quantize_lm_weights`) run B17/B18.
 
-Int8 prefill (and so int8 serving), speculative verify, chunked prefill and
-top-k/top-p sampling are not ported yet.
+Speculative verify, chunked prefill and top-k/top-p sampling are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ class TransformerConfig:
     n_layers: int = 2
     mlp_ratio: int = 4
     max_seq: int = 512
-    attention: str = "bf16"  # "bf16" | "int8" (training only: int8 prefill is not ported)
+    attention: str = "bf16"  # "bf16" | "int8"
     rope_base: float = 10000.0
 
     @property
@@ -112,18 +115,10 @@ def rope(x, positions, base: float):
 
 
 def _attention(q, k, v, cfg: TransformerConfig):
-    """Causal attention of the differentiable forward; GQA-native (k/v keep
-    their kv heads), as the JAX model's `_attention` (transformer.py:129-142)."""
+    """Causal attention of every forward; GQA-native (k/v keep their kv
+    heads), as the JAX model's `_attention` (transformer.py:129-142)."""
     if cfg.attention == "int8":
         return sage_attention_int8(q, k, v, causal=True)
-    return flash_attention_bf16(q, k, v, causal=True)
-
-
-def _prefill_attention(q, k, v, cfg: TransformerConfig):
-    """Causal attention of the prefill paths, which run B1 only."""
-    if cfg.attention != "bf16":
-        raise NotImplementedError(
-            f"prefill with attention={cfg.attention!r} is not ported: only 'bf16' prefills")
     return flash_attention_bf16(q, k, v, causal=True)
 
 
@@ -288,7 +283,7 @@ def prefill_slot(params, caches, tokens, true_len: int, slot: int, cfg: Transfor
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
         cache = write_kv_slot(cache, slot, k[0], v[0], true_len)
-        o = _prefill_attention(q, k, v, cfg)
+        o = _attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
     # final norm on the sampled rows only (it is per row)
@@ -311,7 +306,7 @@ def prefill_slots(params, caches, tokens, true_lens, slots, cfg: TransformerConf
         q, k, v = _project_qkv(layer, h, cfg, positions)
         for i in range(B):
             cache = write_kv_slot(cache, slots[i:i + 1], k[i], v[i], true_lens[i:i + 1])
-        o = _prefill_attention(q, k, v, cfg)
+        o = _attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
     last = x[torch.arange(B, device=tokens.device), true_lens.long() - 1]
@@ -331,7 +326,7 @@ def prefill_batched(params, caches, prompt, cfg: TransformerConfig,
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
         cache = append_kv(cache, k, v)
-        o = _prefill_attention(q, k, v, cfg)
+        o = _attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
     logits = mm(rmsnorm(x[:, -1], params["final_norm"]), params["unembed"])

@@ -8,7 +8,11 @@ torch.autograd.Function, as the JAX package's custom_vjp:
 - `sage_attention_int8` (ops/api.py:111-167): K-smoothing, then the int8
   forward (B4 quantizes, B5 attends); it saves only what the JAX package
   saves, the int8 payloads and scales, k_mean, O and lse, and the backward
-  runs the int8 dK/dV and dQ kernels (B7, B8) from them.
+  runs the int8 dK/dV and dQ kernels (B7, B8) from them. Where no gradient
+  is wanted (under torch.no_grad, as prefill runs) autograd records no
+  graph, and the residuals are freed when the call returns.
+- `sage_attention_int8_inference` (ops/api.py:170-196): forward only, the
+  fused int8 kernel (B6), which quantizes inside the kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 from quantizedattention_tpu_torch.ops.flash_bwd import flash_attention_bwd
 from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
 from quantizedattention_tpu_torch.ops.int8_bwd import int8_attention_bwd
-from quantizedattention_tpu_torch.ops.int8_fwd import int8_attention_fwd
+from quantizedattention_tpu_torch.ops.int8_fwd import int8_attention_fwd, int8_attention_fwd_fused
 
 
 class _FlashAttentionBF16(torch.autograd.Function):
@@ -87,3 +91,17 @@ def sage_attention_int8(q, k, v, causal: bool = False,
     in the inputs' dtypes through the casts. Returns O f32 [b, h, t, d].
     """
     return _SageAttentionInt8.apply(q.float(), k.float(), v.float(), causal, sm_scale)
+
+
+def sage_attention_int8_inference(q, k, v, causal: bool = False, sm_scale: float | None = None,
+                                  smooth_k: bool = True) -> torch.Tensor:
+    """Forward-only int8 attention with the quantization inside the kernel
+    (B6): no int8 payload or scale table is kept, and nothing is
+    differentiable. Same numerics as `sage_attention_int8`'s forward at the
+    same grain, except for the K mean: smooth_k=True subtracts the per-head K
+    token mean taken, as the JAX package's `jnp.mean` gives it, in k's own
+    dtype (bf16 inputs give a bf16 mean), where `sage_attention_int8` takes
+    it in f32. Returns O f32 [b, h, t, d].
+    """
+    k_mean = k.float().mean(dim=-2, keepdim=True).to(k.dtype) if smooth_k else None
+    return int8_attention_fwd_fused(q, k, v, causal=causal, sm_scale=sm_scale, k_sub=k_mean)[0]

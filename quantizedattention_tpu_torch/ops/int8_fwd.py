@@ -1,7 +1,9 @@
 """SageAttention3-style int8 flash-attention forward: quantize, then attend.
 
-Counterpart of quantizedattention_tpu/ops/int8_fwd.py (the materialized
-training forward; the fused inference kernel B6 is not ported yet).
+Counterpart of quantizedattention_tpu/ops/int8_fwd.py: the materialized
+training forward (B4 quantizes, B5 attends) and the fused inference forward
+(B6, `int8_attention_fwd_fused`), which quantizes inside the kernel and
+writes no int8 payload to memory.
 
 `quantize_qkv` quantizes Q, K (minus the K-smoothing shift) and V with one
 launch of B4 (`quantize.int8.quant_int8`) at the JAX package's scale grain
@@ -20,6 +22,13 @@ the PV product; each kv grain's P V_i8 is scaled by its sv; rows with l == 0
 give 0 and lse = m + log2(l) (exp2 domain). The kernel runs the online
 softmax per 64-key tile, the plain version over whole rows, so the two
 differ only in where P is rounded (as B1 and its plain version do).
+
+`int8_attention_fwd_fused` runs B6 on f32 or bf16 CUDA inputs: B4's absmax
+pass alone (`quant_int8_scales`) writes the f32 scale tables at the same
+grain, then B5's kernel body (csrc/int8_fwd.cu, instantiated for the input
+type) quantizes each Q, K and V tile in registers, as B4 does, and attends.
+No int8 payload reaches device memory, and O and lse equal B4 then B5 on the
+same inputs. Its plain version is exactly that composition.
 """
 
 from __future__ import annotations
@@ -32,7 +41,13 @@ import torch
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.common import qk_scales, tile_mask
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
-from quantizedattention_tpu_torch.quantize.int8 import QuantJob, quant_int8, quant_int8_plain
+from quantizedattention_tpu_torch.quantize.int8 import (
+    IN_TYPES,
+    QuantJob,
+    quant_int8,
+    quant_int8_plain,
+    quant_int8_scales,
+)
 from quantizedattention_tpu_torch.tune.config import int8_grain
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
@@ -187,6 +202,15 @@ def int8_attention_fwd_from_quantized(residuals, dims, causal=False, sm_scale=No
 int8_attention_fwd_from_quantized.launches = 0
 
 
+def _qkv_dims(q, k, v):
+    """(b, h, t, s, d) of q [b, h, t, d], k/v [b, h_kv, s, d]; raises on others."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"want q [b,h,t,d], k/v [b,h_kv,s,d]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+
+
 def int8_attention_fwd(q, k, v, causal=False, sm_scale=None, k_sub=None):
     """Int8 attention forward on q [b, h, t, d], k/v [b, h_kv, s, d].
 
@@ -194,11 +218,92 @@ def int8_attention_fwd(q, k, v, causal=False, sm_scale=None, k_sub=None):
     quantization pass. Returns (o f32 [b, h, t, d], lse [b, h, t], residuals)
     with the residuals of `quantize_qkv` for the int8 backward.
     """
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or k.shape[0] != q.shape[0] \
-            or k.shape[3] != q.shape[3]:
-        raise ValueError(f"want q [b,h,t,d], k/v [b,h_kv,s,d]; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    dims = _qkv_dims(q, k, v)
     residuals = quantize_qkv(q, k, v, k_sub=k_sub)
-    dims = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3])
     o, lse = int8_attention_fwd_from_quantized(residuals, dims, causal=causal, sm_scale=sm_scale)
     return o, lse, residuals
+
+
+# ---------------------------------------------------------------------------
+# B6: the fused inference forward
+# ---------------------------------------------------------------------------
+
+def int8_attention_fwd_fused_plain(q, k, v, causal=False, sm_scale=None, k_sub=None):
+    """B6's arithmetic in plain PyTorch: B4's plain version quantizes at the
+    JAX grain, then B5's attends. Returns (o [b, h, t, d] f32, lse [b, h, t])."""
+    dims = _qkv_dims(q, k, v)
+    residuals = quantize_qkv_plain(q, k, v, k_sub=k_sub)
+    return int8_attention_fwd_from_quantized_plain(residuals, dims, causal, sm_scale)
+
+
+@functools.cache
+def _fused_kernel():
+    fn = load_kernel("int8_fwd").qa_int8_fused
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fused_launch_args(q, k, v, k_sub):
+    """Check what B6 takes; returns (device, contiguous q, k, v, the f32
+    [b*h_kv, d] shift or None, rep, (q_grain, kv_grain, q_pad, kv_pad))."""
+    b, h, t, s, d = _qkv_dims(q, k, v)
+    h_kv = k.shape[1]
+    if h % h_kv != 0:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({h_kv})")
+    rep = h // h_kv
+    grain = int8_grain(t, s, rep)
+    if d != _HEAD_DIM or rep > _BLOCK_ROWS or grain[1] % _TILE or b * h_kv > 65535:
+        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, rep <= {_BLOCK_ROWS}, kv grain "
+                         f"a multiple of {_TILE}, b*h_kv <= 65535; got d={d}, rep={rep}, "
+                         f"kv grain {grain[1]}, b*h_kv={b * h_kv}")
+    if q.dtype not in IN_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"kernel takes q, k, v of one type among {list(IN_TYPES)}; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    sub = None
+    if k_sub is not None:
+        if tuple(k_sub.shape) != (b, h_kv, 1, d):
+            raise ValueError(f"k_sub must be {(b, h_kv, 1, d)}, got {tuple(k_sub.shape)}")
+        sub = k_sub.float().reshape(b * h_kv, d).contiguous()
+    dev = require_cuda(q, k, v, *([] if sub is None else [sub]))
+    return dev, q, k, v, sub, rep, grain
+
+
+def int8_attention_fwd_fused(q, k, v, causal=False, sm_scale=None, k_sub=None):
+    """B6: int8 attention forward with the quantization inside the kernel.
+
+    q [b, h, t, d], k/v [b, h_kv, s, d] in their own floating type (f32 or
+    bf16 on the kernel path); k_sub: optional [b, h_kv, 1, d]
+    K-smoothing shift. Numerics of `int8_attention_fwd` on the same inputs
+    (the same grain, payloads and scales), with no residuals kept. CUDA
+    tensors launch the kernel (head_dim 64, rep <= 64) or raise; CPU tensors
+    take `int8_attention_fwd_fused_plain`. Returns (o [b, h, t, d] f32, lse
+    [b, h, t]). `.launches` counts kernel launches (B4's absmax pass and the
+    attention kernel together count one).
+    """
+    if q.device.type == "cpu":
+        return int8_attention_fwd_fused_plain(q, k, v, causal, sm_scale, k_sub)
+    dev, q, k, v, sub, rep, (q_grain, kv_grain, q_pad, kv_pad) = \
+        _fused_launch_args(q, k, v, k_sub)
+    b, h, t, d = q.shape
+    h_kv, s = k.shape[1], k.shape[2]
+    _, qk_scale = qk_scales(d, sm_scale)
+    sq, sk, sv = quant_int8_scales([
+        QuantJob(q.view(b * h, t, d), q_pad, q_grain),
+        QuantJob(k.view(b * h_kv, s, d), kv_pad, kv_grain, sub),
+        QuantJob(v.view(b * h_kv, s, d), kv_pad, kv_grain)])
+    o = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    status = _fused_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if sub is None else sub.data_ptr(),
+        sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        IN_TYPES[q.dtype], b * h_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain, int(causal),
+        qk_scale, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_status(status, "int8_fwd (fused)")
+    int8_attention_fwd_fused.launches += 1
+    return o, lse
+
+
+int8_attention_fwd_fused.launches = 0

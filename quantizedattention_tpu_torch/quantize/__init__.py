@@ -9,11 +9,21 @@ from quantizedattention_tpu_torch.quantize.int8 import (
     quantize_int8_blocks,
 )
 from quantizedattention_tpu_torch.quantize.smoothing import k_smooth
-from quantizedattention_tpu_torch.quantize.weights import embedding_lookup, mm
+from quantizedattention_tpu_torch.quantize.weights import (
+    QuantizedWeight,
+    QuantizedWeight4,
+    embedding_lookup,
+    mm,
+    quantize_lm_weights,
+    quantize_weight,
+    quantize_weight_int4,
+)
 
 __all__ = [
     "EPS_BIAS",
     "QuantJob",
+    "QuantizedWeight",
+    "QuantizedWeight4",
     "absmax_scale",
     "dequantize_int8",
     "embedding_lookup",
@@ -23,4 +33,7 @@ __all__ = [
     "quant_int8_plain",
     "quantize_int8",
     "quantize_int8_blocks",
+    "quantize_lm_weights",
+    "quantize_weight",
+    "quantize_weight_int4",
 ]

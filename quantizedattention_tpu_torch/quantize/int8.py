@@ -14,6 +14,8 @@ clamp(round_half_even(x / s), -128, 127) with an IEEE division.
 launch quantizes up to three tensors (Q, K and V of one attention call), each
 a `QuantJob` with its own padded length, grain and optional K-smoothing shift.
 CPU tensors take `quant_int8_plain`; the two agree byte for byte.
+`quant_int8_scales` runs the same kernel's absmax pass alone, on f32 or bf16
+rows: the scale tables the fused inference forward (B6) quantizes with.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ _EPS = 1e-12
 
 _HEAD_DIM = 64  # the kernel's compiled row width
 _MAX_JOBS = 3
+# input dtype -> the kernel's type code
+IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def absmax_scale(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
@@ -106,23 +110,53 @@ def quant_int8_plain(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
 def _kernel():
     fn = load_kernel("quant_int8").qa_quant_int8
     ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ptrs] * 4 + [ints] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ptrs] * 4 + [ints] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_args(jobs) -> torch.device:
-    """Check what the kernel takes; returns the jobs' device."""
+def _launch_args(jobs, dtypes=(torch.float32,)) -> torch.device:
+    """Check what the kernel takes (rows of one of `dtypes`); returns the
+    jobs' device."""
+    if not 1 <= len(jobs) <= _MAX_JOBS:
+        raise ValueError(f"the kernel takes 1 to {_MAX_JOBS} jobs, got {len(jobs)}")
     for job in jobs:
         _check_job(job)
-        if job.x.shape[2] != _HEAD_DIM or job.x.dtype != torch.float32:
-            raise ValueError(f"kernel takes f32 rows of width (head_dim) {_HEAD_DIM}; got "
-                             f"{job.x.dtype} width {job.x.shape[2]}")
+        if job.x.shape[2] != _HEAD_DIM or job.x.dtype not in dtypes \
+                or job.x.dtype != jobs[0].x.dtype:
+            raise ValueError(f"kernel takes rows of width (head_dim) {_HEAD_DIM} and one type "
+                             f"among {list(dtypes)}; got {job.x.dtype} width {job.x.shape[2]}")
         if job.sub is not None and job.sub.dtype != torch.float32:
             raise ValueError("sub must be float32")
         if job.grain % 16 != 0:
             raise ValueError(f"kernel takes grains that are multiples of 16, got {job.grain}")
     return require_cuda(*(j.x for j in jobs), *(j.sub for j in jobs if j.sub is not None))
+
+
+def _launch(jobs, out, dev) -> None:
+    """One launch over `jobs`; `out` holds each job's (payload or None, scales)."""
+    n = len(jobs)
+
+    def ptrs(values):
+        return (ctypes.c_void_p * n)(*values)
+
+    def ints(values):
+        return (ctypes.c_int * n)(*values)
+
+    status = _kernel()(
+        ptrs(j.x.data_ptr() for j in jobs),
+        ptrs(None if j.sub is None else j.sub.data_ptr() for j in jobs),
+        ptrs(None if x_i8 is None else x_i8.data_ptr() for x_i8, _ in out),
+        ptrs(s.data_ptr() for _, s in out),
+        ints(j.x.shape[0] for j in jobs), ints(j.x.shape[1] for j in jobs),
+        ints(j.pad for j in jobs), ints(j.grain for j in jobs),
+        n, IN_TYPES[jobs[0].x.dtype], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_status(status, "quant_int8")
+
+
+def _scales(job, dev) -> torch.Tensor:
+    return torch.empty((job.x.shape[0], job.pad // job.grain), dtype=torch.float32, device=dev)
 
 
 def quant_int8(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -137,30 +171,25 @@ def quant_int8(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
     if jobs[0].x.device.type == "cpu":
         return quant_int8_plain(jobs)
     dev = _launch_args(jobs)
-    out = []
-    for job in jobs:
-        rows = job.x.shape[0]
-        out.append((torch.empty((rows, job.pad, _HEAD_DIM), dtype=torch.int8, device=dev),
-                    torch.empty((rows, job.pad // job.grain), dtype=torch.float32, device=dev)))
-    n = len(jobs)
-
-    def ptrs(values):
-        return (ctypes.c_void_p * n)(*values)
-
-    def ints(values):
-        return (ctypes.c_int * n)(*values)
-
-    status = _kernel()(
-        ptrs(j.x.data_ptr() for j in jobs),
-        ptrs(None if j.sub is None else j.sub.data_ptr() for j in jobs),
-        ptrs(x_i8.data_ptr() for x_i8, _ in out), ptrs(s.data_ptr() for _, s in out),
-        ints(j.x.shape[0] for j in jobs), ints(j.x.shape[1] for j in jobs),
-        ints(j.pad for j in jobs), ints(j.grain for j in jobs),
-        n, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_status(status, "quant_int8")
+    out = [(torch.empty((j.x.shape[0], j.pad, _HEAD_DIM), dtype=torch.int8, device=dev),
+            _scales(j, dev)) for j in jobs]
+    _launch(jobs, out, dev)
     quant_int8.launches += 1
     return out
 
 
 quant_int8.launches = 0
+
+
+def quant_int8_scales(jobs) -> list[torch.Tensor]:
+    """B4's absmax pass alone: the scale table [rows, pad // grain] f32 of
+    each of 1 to 3 `QuantJob`s (contiguous f32 or bf16 CUDA rows, head_dim
+    64), equal to the scales `quant_int8` gives for the same rows in f32; no
+    payload is written. One launch, made as part of the fused inference
+    forward, whose wrapper counts it; CPU tensors raise (B6's plain version
+    quantizes with `quant_int8_plain`)."""
+    jobs = list(jobs)
+    dev = _launch_args(jobs, tuple(IN_TYPES))
+    out = [(None, _scales(j, dev)) for j in jobs]
+    _launch(jobs, out, dev)
+    return [s for _, s in out]

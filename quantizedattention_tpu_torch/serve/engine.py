@@ -18,10 +18,15 @@ the `.cpu()` of a token batch waits. Bookkeeping therefore lags one action:
 a slot that finished inside a bank keeps decoding into its own cache until
 the host sees it, and the surplus tokens are discarded.
 
-The JAX engine's mesh serving, paged/int4 caches, weight quantization,
-speculative decoding, prefix cache, chunked prefill, adaptive horizon,
-top-k/top-p sampling and int8 attention are not ported yet; asking for any
-of them raises NotImplementedError.
+Prefill runs the config's attention: B1, or with attention="int8" the int8
+SageAttention forward (B4 quantizes, B5 attends), as the JAX engine's
+prefill does; decode runs B13 either way. `weight_quant="int8"` / `"int4"`
+quantizes the params after the `param_dtype` cast (`quantize_lm_weights`,
+scales kept f32), so every projection and the unembedding run B17 / B18.
+
+The JAX engine's mesh serving, paged/int4 caches, speculative decoding,
+prefix cache, chunked prefill, adaptive horizon and top-k/top-p sampling are
+not ported yet; asking for any of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,12 +43,17 @@ from quantizedattention_tpu_torch.models.transformer import (
     prefill_slots,
 )
 from quantizedattention_tpu_torch.parallel.kv_cache import init_kv_cache
+from quantizedattention_tpu_torch.quantize.weights import (
+    QuantizedWeight,
+    QuantizedWeight4,
+    quantize_lm_weights,
+)
 from quantizedattention_tpu_torch.serve.scheduler import DECODE, IDLE, PREFILL, make_scheduler
 
 # option -> the value that leaves it off; any other value is not ported yet
 _UNPORTED = {
-    "mesh": None, "cache": "slotted", "kv_quant": None, "weight_quant": None,
-    "spec_decode": None, "prefix_cache": False, "prefill_chunk": None,
+    "mesh": None, "cache": "slotted", "kv_quant": None, "spec_decode": None,
+    "prefix_cache": False, "prefill_chunk": None,
     "adaptive_horizon": None, "top_k": 0, "top_p": 1.0,
 }
 
@@ -66,11 +76,15 @@ def _bucket(n: int, minimum: int = 16) -> int:
 
 
 def _move(params, device, dtype=None):
-    """The params tree on `device`, floating tensors cast to `dtype` if given."""
+    """The params tree on `device`, floating tensors cast to `dtype` if given;
+    quantized weights move with their int8 payloads and f32 scales as they
+    are."""
     if isinstance(params, dict):
         return {k: _move(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):
         return [_move(v, device, dtype) for v in params]
+    if isinstance(params, (QuantizedWeight, QuantizedWeight4)):
+        return params.to(device)
     if dtype is not None and params.is_floating_point():
         return params.to(device=device, dtype=dtype)
     return params.to(device)
@@ -80,32 +94,36 @@ class ServingEngine:
     """Continuous-batching engine over `n_slots` KV-cache rows on `device`.
 
     params/cfg: a models.transformer LM (moved to `device`; `param_dtype`,
-    e.g. torch.bfloat16, casts the floating weights first). eos_id: optional
-    stop token. scheduler: "native" (the C++ core) or "python" (its twin).
-    decode_horizon: decode steps per dispatched bank (one token fetch per
-    bank). temperature > 0 samples with a torch.Generator seeded by `seed`.
+    e.g. torch.bfloat16, casts the floating weights first). weight_quant:
+    None, "int8" or "int4" quantizes the (cast) weights for serving; params
+    that already hold quantized weights are served as they are. eos_id:
+    optional stop token. scheduler: "native" (the C++ core) or "python" (its
+    twin). decode_horizon: decode steps per dispatched bank (one token fetch
+    per bank). temperature > 0 samples with a torch.Generator seeded by
+    `seed`.
     """
 
     def __init__(self, params, cfg: TransformerConfig, device, n_slots: int = 4,
                  eos_id: int | None = None, scheduler: str = "native",
                  temperature: float = 0.0, seed: int = 0, param_dtype=None,
-                 decode_horizon: int = 1, **unported):
+                 weight_quant: str | None = None, decode_horizon: int = 1, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected argument {name!r}")
             if value != _UNPORTED[name]:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported to the PyTorch package yet")
-        if cfg.attention != "bf16":
-            raise NotImplementedError(
-                f"ServingEngine with attention={cfg.attention!r} is not ported: int8 prefill "
-                "is not ported yet")
+        if weight_quant not in (None, "int8", "int4"):
+            raise ValueError("weight_quant must be 'int8', 'int4', or None")
         if decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         if temperature < 0.0:
             raise ValueError("temperature must be >= 0")
         self.device = torch.device(device)
         self.params = _move(params, self.device, param_dtype)
+        if weight_quant is not None:
+            # after the param_dtype cast, so the scales stay f32
+            self.params = quantize_lm_weights(self.params, bits=4 if weight_quant == "int4" else 8)
         self.cfg = cfg
         self.n_slots = n_slots
         self.eos_id = eos_id

@@ -233,7 +233,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) >= 10
     names = {str(f.relative_to(PORT_DIR)) for f in files}
     assert {"ops/int8_fwd.py", "ops/int8_bwd.py", "quantize/int8.py", "quantize/smoothing.py",
-            "tune/config.py"} <= names
+            "tune/config.py", "ops/int8_linear.py", "ops/int4_linear.py",
+            "quantize/weights.py"} <= names
+    # the smoke run on the card stands alone too
+    files.append(PORT_DIR.parent / "chip_smoke.py")
     bad = {str(f): sorted(_imported_roots(f) & {"jax", "jaxlib", "quantizedattention_tpu"})
            for f in files}
     assert not {f: r for f, r in bad.items() if r}

@@ -38,6 +38,7 @@ from quantizedattention_tpu_torch.models import (
 )
 from quantizedattention_tpu_torch.models.transformer import _decode_logits
 from quantizedattention_tpu_torch.parallel.kv_cache import QuantizedKVCache, init_kv_cache
+from quantizedattention_tpu_torch.quantize.weights import QuantizedWeight, QuantizedWeight4
 from quantizedattention_tpu_torch.serve import PyScheduler, ServingEngine
 from quantizedattention_tpu_torch.serve.scheduler import (
     DECODE,
@@ -318,7 +319,7 @@ def test_engine_rejects_bad_requests(lm):
 
 @pytest.mark.parametrize(
     "option,value",
-    [("mesh", object()), ("cache", "paged"), ("kv_quant", "int4"), ("weight_quant", "int8"),
+    [("mesh", object()), ("cache", "paged"), ("kv_quant", "int4"),
      ("spec_decode", 2), ("prefix_cache", True), ("prefill_chunk", 128),
      ("adaptive_horizon", 8), ("top_k", 5), ("top_p", 0.9)],
 )
@@ -328,17 +329,32 @@ def test_engine_unported_options_raise(lm, option, value):
         ServingEngine(tparams, cfg, "cpu", **{option: value})
 
 
+@pytest.mark.parametrize("weight_quant", ["int8", "int4"])
+def test_engine_weight_quant_is_ported(lm, weight_quant):
+    """weight_quant quantizes every projection and the unembedding (and the
+    embedding, per row in int8); formats the JAX engine rejects raise."""
+    _, _, cfg, tparams = lm
+    eng = ServingEngine(tparams, cfg, "cpu", weight_quant=weight_quant)
+    want = QuantizedWeight4 if weight_quant == "int4" else QuantizedWeight
+    assert all(isinstance(layer[key], want) for layer in eng.params["layers"]
+               for key in ("wq", "wk", "wv", "wo", "w1", "w2"))
+    assert isinstance(eng.params["unembed"], want)
+    assert isinstance(eng.params["embed"], QuantizedWeight) and eng.params["embed"].axis == 0
+    with pytest.raises(ValueError, match="weight_quant"):
+        ServingEngine(tparams, cfg, "cpu", weight_quant="fp4")
+
+
 def test_unported_model_paths_raise(lm):
     _, _, cfg, tparams = lm
     with pytest.raises(TypeError, match="unexpected"):
         ServingEngine(tparams, cfg, "cpu", page_size=64)
-    # int8 attention trains (tests/test_torch_int8.py) but neither prefills
-    # nor serves yet
+    # int8 attention prefills, generates and serves
+    # (tests/test_torch_int8_inference.py holds them against the JAX package)
     int8_cfg = TransformerConfig(**{**CFG, "attention": "int8"})
-    with pytest.raises(NotImplementedError, match="int8"):
-        ServingEngine(tparams, int8_cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        generate(tparams, torch.zeros((1, 4), dtype=torch.long), int8_cfg, 2)
+    eng = ServingEngine(tparams, int8_cfg, "cpu", n_slots=1, scheduler="python")
+    rid = eng.submit([1, 2, 3, 4], max_new_tokens=2)
+    want = generate(tparams, torch.tensor([[1, 2, 3, 4]]), int8_cfg, 2)
+    assert eng.run()[rid].tokens == want[0, 4:].tolist()
 
 
 def test_sample_token():
