@@ -64,7 +64,31 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      projection and the unembedding through B17) and with
      weight_quant="int4" (B18); each repeats its warm-up, matches
      `generate` on its own params and the CPU plain path's prefill logits;
-     two bf16 runs bracket them, and each is compared with their mean.
+     two bf16 runs bracket them, and each is compared with their mean;
+ 17. the JVP family against its plain versions: B1's fp32 mode, B9 (O, tO,
+     lse, mu), B10 (tO given O and lse), B11 (dK, dV, dtK, dtV) and B12
+     (dQ, dtQ), B9-B12 in fast and exact mode, at (2, 4, 1024, 64) causal
+     and not, the DiT's attention shape (4, 4, 4096, 64), 77x201 causal and
+     not, (1, 3, 33, 130) causal and not, and one token;
+ 18. BASELINE config 5's gate: attention_value_and_jvp (exact) and
+     torch.func.jvp of attention_jvp at (1, 2, 4096, 64) against the fp32
+     oracle's (O, tO), 0 mismatches at atol 1e-2; at (1, 2, 256, 64),
+     causal and not, the gradients of a loss over (O, tO) and of
+     attention_jvp against autograd through the oracle; fast against
+     exact;
+ 19. timing of B1 fp32 (beside F.scaled_dot_product_attention on the same
+     f32 inputs) and B9-B12 in both modes, at the DiT's attention shape
+     (4, 4, 4096, 64) beside their plain versions and at bench.py's
+     bench_jvp shape (4, 16, 4096, 64), non-causal;
+ 20. the rCM distillation step of the DiT at BASELINE config 5
+     (DiTConfig(seq_len=4096): d_model 256, 4 heads, 2 layers; batch 4;
+     `ada` and `out` drawn at 1/sqrt(fan_in), so attention reaches the
+     loss), fast=True: 1 warm-up + 5 AdamW steps through make_dit_rcm_step,
+     losses finite and falling, each step launching B1 fp32, B9, B11 and
+     B12 n_layers times and no other kernel; step time, tokens/s and peak
+     memory; torch.profiler over one more step; at seq 512 the loss and
+     every gradient against the CPU plain path, (u, du/dt) against finite
+     differences, and torch.func.jvp of dit_forward through B10.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -88,7 +112,14 @@ import torch.nn.functional as F
 
 from quantizedattention_tpu_torch import _build
 from quantizedattention_tpu_torch.models import (
+    DiTConfig,
     TransformerConfig,
+    dit_forward,
+    dit_jvp_step,
+    dit_param_leaves,
+    init_dit,
+    make_dit_rcm_step,
+    rcm_loss,
     generate,
     init_transformer,
     lm_loss,
@@ -97,6 +128,17 @@ from quantizedattention_tpu_torch.models import (
     transformer_forward,
 )
 from quantizedattention_tpu_torch.ops import (
+    attention_jvp,
+    attention_jvp_fwd,
+    attention_jvp_fwd_plain,
+    attention_tangent_fwd,
+    attention_tangent_fwd_plain,
+    attention_value_and_jvp,
+    jvp_bwd_dkv,
+    jvp_bwd_dkv_plain,
+    jvp_bwd_dq,
+    jvp_bwd_dq_plain,
+    jvp_bwd_operands,
     bwd_operands,
     flash_attention_bf16,
     int4_weight_matmul,
@@ -124,6 +166,7 @@ from quantizedattention_tpu_torch.ops import (
 )
 from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
+    flash_attention_fwd_fp32,
     flash_attention_fwd_plain,
 )
 from quantizedattention_tpu_torch.parallel.kv_cache import (
@@ -138,7 +181,11 @@ from quantizedattention_tpu_torch.quantize.weights import (
     quantize_weight,
     quantize_weight_int4,
 )
-from quantizedattention_tpu_torch.reference import reference_attention, reference_attention_vjp
+from quantizedattention_tpu_torch.reference import (
+    reference_attention,
+    reference_attention_jvp,
+    reference_attention_vjp,
+)
 from quantizedattention_tpu_torch.serve import ServingEngine
 from quantizedattention_tpu_torch.utils.testing import ATOL, GRAD_MISMATCH_RATE, mismatch_report
 
@@ -189,6 +236,34 @@ FUSED_O_TOL = 1e-6
 # may land one bf16 ulp away (on top of the f32 difference, which matters
 # only for results near 0).
 WEIGHT_F32_REL = 2e-4
+# The JVP family (B1 fp32, B9-B12) against its plain versions, as
+# max|diff| / max|plain| per tensor (lse: max|diff|), as B2/B3 are held.
+# Where a tensor is 0 in exact arithmetic (one key: the softmax is constant,
+# so dS = 0 and dK, dtK, dQ, dtQ vanish) both sides hold rounding noise, so
+# it is held by max|diff| alone, against the unit-normal inputs' scale.
+# Exact: fp32 throughout, only the summation order differs (3e-6 at 4096
+# keys on an H100). B9 fast: the kernel rounds P to bf16 against the running max of each
+# 32-key tile, the plain version against the row's final max, so an entry can
+# differ by one bf16 ulp: compared as B1 bf16 is, 5e-3. B10-B12 fast: both
+# round the same operands at the same points, so only the summation order
+# differs, and it can tip an entry across a bf16 rounding boundary:
+# BWD_FAST_TOL, as B2/B3.
+JVP_EXACT_TOL, JVP_FWD_FAST_TOL = 1e-4, 5e-3
+# BASELINE config 5's gate (tests/test_baseline_configs.py:101-116): 0
+# mismatches at atol 1e-2 against the fp32 oracle; the JAX package's
+# second-order gradient envelope (tests/test_jvp_grad.py), rtol and atol
+# 5e-4; and its fast-vs-exact envelope, O 2e-2 and tO 5e-2.
+CONFIG5_ATOL, JVP_GRAD_TOL, JVP_FAST_O, JVP_FAST_TO = 1e-2, 5e-4, 2e-2, 5e-2
+# The rCM loss and gradients on the card vs the CPU plain path with the same
+# params, both fast: the kernels' summation order against the plain
+# versions' flips bf16 rounding of single products (1e-2 at most per kernel
+# output, phase 17), and the loss and gradients are smooth in them.
+DIT_GRAD_REL_L2 = 5e-2
+# du/dt through torch.func.jvp of dit_forward (fp32 B1, exact B10) against
+# the rCM pair path (fast B9): the same function, the pair path rounding each
+# product's operands to bf16 (2^-8 relative), which the relative L2 distance
+# averages over the output (1.0e-4 on an H100 at seq 512).
+DIT_JVP_REL_L2 = 1e-2
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): a kernel's
 # bound is the larger of its operations over the peak of their type and its
@@ -205,6 +280,11 @@ TRAIN_BATCH, TRAIN_STEPS, PARITY_LEN = 4, 10, 256
 GQA_CFG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4, n_kv_heads=2,
                             head_dim=64, n_layers=2, max_seq=512)
 GQA_BATCH = 8
+# BASELINE config 5: the DiT's own defaults at seq 4096 (models/dit.py:43-50),
+# batch 4; its attention shape is (4, 4, 4096, 64), non-causal
+DIT_CFG = DiTConfig(seq_len=4096)
+DIT_BATCH, DIT_STEPS, DIT_PARITY_LEN = 4, 5, 512
+JVP_BENCH_SHAPE = (4, 16, 4096)  # bench.py:bench_jvp's (b, h, t), head_dim 64
 
 
 def log(msg: str) -> None:
@@ -706,7 +786,9 @@ _COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_dkv": flash_bwd_dkv,
             "int8_fwd": int8_attention_fwd_from_quantized, "int8_bwd_dkv": int8_bwd_dkv,
             "int8_bwd_dq": int8_bwd_dq, "decode": decode_attention,
             "int8_fused": int8_attention_fwd_fused, "int8_linear": int8_weight_matmul,
-            "int4_linear": int4_weight_matmul}
+            "int4_linear": int4_weight_matmul, "flash_fwd_fp32": flash_attention_fwd_fp32,
+            "jvp_fwd": attention_jvp_fwd, "jvp_tangent": attention_tangent_fwd,
+            "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq}
 
 
 def _launch_counts():
@@ -1235,6 +1317,376 @@ def phase_weight_kernels(dev, gen) -> dict:
         out[name]["headline_shape"] = head
     return out
 
+# --------------------------------------------------------------------------
+# The JVP family (B1 fp32, B9-B12) and the rCM DiT step
+# --------------------------------------------------------------------------
+
+JVP_KERNELS = ("flash_fwd_fp32", "jvp_fwd", "jvp_tangent", "jvp_bwd_dkv", "jvp_bwd_dq")
+# (b, h, t, s, causal): a square pair; the DiT's attention shape (the rCM
+# step's); odd cross lengths; a ragged t < s; one token
+JVP_CASES = [(2, 4, 1024, 1024, True), (2, 4, 1024, 1024, False),
+             (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len, DIT_CFG.seq_len, False),
+             (1, 4, 77, 201, True), (1, 4, 77, 201, False), (1, 3, 33, 130, True),
+             (1, 3, 33, 130, False), (1, 2, 1, 1, True)]
+
+
+def _jvp_inputs(gen, dev, b, h, t, s):
+    """q, k, v, tq, tk, tv, do, dto: unit normal f32."""
+    q, tq, do, dto = (torch.randn((b, h, t, 64), generator=gen, device=dev) for _ in range(4))
+    k, v, tk, tv = (torch.randn((b, h, s, 64), generator=gen, device=dev) for _ in range(4))
+    return q, k, v, tq, tk, tv, do, dto
+
+
+def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
+    """B1 fp32 and B9-B12 in both modes against their plain versions on one
+    case, by max|diff| / max|plain| per tensor (lse, and the gradients that
+    vanish at one key: max|diff|), raising outside the tolerances. Returns
+    each kernel's max|diff|."""
+    err, msgs = dict.fromkeys(JVP_KERNELS, 0.0), []
+    absolute = {"lse"} | ({"dk", "dtk", "dq", "dtq"} if k.shape[2] == 1 else set())
+
+    def hold(kernel, mode, tol, names, got, want):
+        torch.cuda.synchronize()
+        rel = {}
+        for name, g, w in zip(names, got, want):
+            diff = (g - w).abs().max().item()
+            err[kernel] = max(err[kernel], diff)
+            rel[name] = diff if name in absolute else diff / w.abs().max().item()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"[jvp] {label}: {kernel} {mode} {name} is not finite")
+        msgs.append(f"{kernel} {mode} " + " ".join(f"{n} {x:.2e}" for n, x in rel.items()))
+        if max(rel.values()) > tol:
+            raise AssertionError(f"[jvp] {label}: {msgs[-1]} (tol {tol}): the kernel disagrees "
+                                 "with its plain version")
+
+    hold("flash_fwd_fp32", "fp32", JVP_EXACT_TOL, ("o", "lse"),
+         flash_attention_fwd_fp32(q, k, v, causal=causal),
+         flash_attention_fwd_plain(q, k, v, causal=causal, precision="fp32"))
+    for fast in (False, True):
+        mode, tol = ("fast", BWD_FAST_TOL) if fast else ("exact", JVP_EXACT_TOL)
+        fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, causal=causal, fast=fast)
+        hold("jvp_fwd", mode, JVP_FWD_FAST_TOL if fast else JVP_EXACT_TOL,
+             ("o", "to", "lse", "mu"), fwd,
+             attention_jvp_fwd_plain(q, k, v, tq, tk, tv, causal=causal, fast=fast))
+        o, to, lse, mu = fwd  # the kernel's residuals, as the entry points hand them on
+        hold("jvp_tangent", mode, tol, ("to",),
+             [attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)],
+             [attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)])
+        ops = jvp_bwd_operands(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal=causal,
+                               fast=fast)
+        hold("jvp_bwd_dkv", mode, tol, ("dk", "dv", "dtk", "dtv"), jvp_bwd_dkv(ops),
+             jvp_bwd_dkv_plain(ops))
+        hold("jvp_bwd_dq", mode, tol, ("dq", "dtq"), jvp_bwd_dq(ops), jvp_bwd_dq_plain(ops))
+    log(f"[jvp] {label} (tol exact {JVP_EXACT_TOL}, fast B9 {JVP_FWD_FAST_TOL}, fast B10-B12 "
+        f"{BWD_FAST_TOL}): " + "; ".join(msgs))
+    return err
+
+
+def phase_jvp_kernels(dev, gen) -> dict:
+    """Phase 17. Returns each kernel's worst max|diff| against its plain version."""
+    errs = []
+    for b, h, t, s, causal in JVP_CASES:
+        errs.append(_check_jvp(*_jvp_inputs(gen, dev, b, h, t, s), causal,
+                               f"b={b} h={h} t={t} s={s} causal={causal}"))
+    # B1's fp32 mode is GQA-native, as its bf16 mode: rep 4, a ragged length
+    q, k, v, _ = _qkvdo(gen, dev, 2, 8, 2, 300, 300)
+    o, lse = flash_attention_fwd_fp32(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=True, precision="fp32")
+    err_o = (o - o_p).abs().max().item()
+    err_l = (lse - lse_p).abs().max().item()
+    rel_o = err_o / o_p.abs().max().item()
+    log(f"[jvp] flash_fwd_fp32 GQA (2,8q/2kv,300,64) causal: max|dO|/max|plain| {rel_o:.2e}, "
+        f"max|dlse| {err_l:.2e} (tol {JVP_EXACT_TOL})")
+    if max(rel_o, err_l) > JVP_EXACT_TOL:
+        raise AssertionError("flash_fwd_fp32 disagrees with its plain version under GQA")
+    errs.append({**dict.fromkeys(JVP_KERNELS, 0.0), "flash_fwd_fp32": err_o})
+    return _worst(*errs)
+
+
+def _jvp_launches() -> dict:
+    counts = _launch_counts()
+    return {k: counts[k] for k in (*JVP_KERNELS, "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd")}
+
+
+def _within(got, want, tol) -> tuple[bool, float]:
+    """|got - want| <= tol + tol |want| everywhere (rtol = atol = tol), and max|diff|."""
+    diff = (got - want).abs()
+    return bool((diff <= tol + tol * want.abs()).all()), diff.max().item()
+
+
+def phase_jvp_oracle(dev, gen) -> dict:
+    """Phase 18, BASELINE config 5's gate and the JVP family's AD against the
+    fp32 oracle. The path run: every launch count from 0; returns the JVP
+    kernels' (and B2/B3's) launches over the phase."""
+    _reset_counts()
+    b, h, t = 1, 2, DIT_CFG.seq_len
+    q, k, v, tq, tk, tv, _, _ = _jvp_inputs(gen, dev, b, h, t, t)
+    o_w, to_w = reference_attention_jvp((q, k, v), (tq, tk, tv))
+    o, to = attention_value_and_jvp(q, k, v, tq, tk, tv)
+    o_j, to_j = torch.func.jvp(attention_jvp, (q, k, v), (tq, tk, tv))
+    o_f, to_f = attention_value_and_jvp(q, k, v, tq, tk, tv, fast=True)
+    reps = [mismatch_report(n, g, w, CONFIG5_ATOL) for n, g, w in (
+        ("value_and_jvp O", o, o_w), ("value_and_jvp tO", to, to_w),
+        ("func.jvp(attention_jvp) O", o_j, o_w), ("func.jvp(attention_jvp) tO", to_j, to_w))]
+    fast_ok_o, fast_o = _within(o_f, o, JVP_FAST_O)
+    fast_ok_t, fast_t = _within(to_f, to, JVP_FAST_TO)
+    log(f"[jvp_oracle] config 5 ({b},{h},{t},64) vs the fp32 oracle: " + "; ".join(map(str, reps))
+        + f"; fast vs exact max|dO| {fast_o:.3e} (tol {JVP_FAST_O}), max|dtO| {fast_t:.3e} "
+        f"(tol {JVP_FAST_TO})")
+    if any(r.mismatches for r in reps) or not (fast_ok_o and fast_ok_t):
+        raise AssertionError("the JVP entry points fail BASELINE config 5's gate")
+    del q, k, v, tq, tk, tv, o_w, to_w, o, to, o_j, to_j, o_f, to_f
+
+    for causal in (False, True):
+        q, k, v, tq, tk, tv, wo, wt = _jvp_inputs(gen, dev, 1, 2, 256, 256)
+
+        def loss(pair):
+            return (torch.sin(pair[0]) * wo).sum() + (pair[1] * wt).sum() + pair[1].square().sum()
+
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v, tq, tk, tv)]
+        got = torch.autograd.grad(loss(attention_value_and_jvp(*leaves, causal=causal)), leaves)
+        ref = [x.clone().requires_grad_(True) for x in (q, k, v, tq, tk, tv)]
+        want = torch.autograd.grad(loss(reference_attention_jvp(ref[:3], ref[3:], causal)), ref)
+        res = [_within(g, w, JVP_GRAD_TOL) for g, w in zip(got, want)]
+        leaves = leaves[:3]
+        got_j = torch.autograd.grad(attention_jvp(*leaves, causal=causal), leaves, wo)
+        want_j = reference_attention_vjp(q, k, v, wo, causal=causal)
+        res_j = [_within(g, w, JVP_GRAD_TOL) for g, w in zip(got_j, want_j)]
+        log(f"[jvp_oracle] (1,2,256,64) causal={causal}: value_and_jvp grads vs autograd through "
+            "torch.func.jvp of the oracle, max|diff| "
+            + " ".join(f"d{n} {r[1]:.2e}" for n, r in zip(("q", "k", "v", "tq", "tk", "tv"), res))
+            + "; attention_jvp grads vs the oracle's "
+            + " ".join(f"d{n} {r[1]:.2e}" for n, r in zip("qkv", res_j))
+            + f" (rtol = atol = {JVP_GRAD_TOL})")
+        if not all(r[0] for r in res + res_j):
+            raise AssertionError("JVP gradients outside the JAX package's envelope")
+    launches = _jvp_launches()
+    if not all(launches[k] for k in (*JVP_KERNELS, "flash_bwd_dkv", "flash_bwd_dq")) \
+            or launches["flash_fwd"]:
+        raise AssertionError(f"the oracle phase launched {launches}")
+    return launches
+
+
+def phase_jvp_timing(dev, gen) -> dict:
+    """Phase 19: device time per call of B1 fp32 and B9-B12 (both modes) at
+    the DiT's attention shape beside their plain versions, and at bench.py's
+    bench_jvp shape; B1 fp32 beside SDPA on the same f32 inputs. The row's
+    `ms`, `plain_ms` and `bound_ms` are at the DiT shape in the mode its main
+    path runs (B9, B11, B12 fast as the rCM step; B10 exact as attention_jvp;
+    B1 fp32); `other_ms` is the other mode's."""
+    out = {k: {} for k in JVP_KERNELS}
+
+    def few(fn):  # exact-mode calls take tens of ms: one call a graph, two replays
+        return device_ms(fn, calls=1, replays=2)
+
+    for tag, (b, h, t) in (("", (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len)),
+                           ("bench_", JVP_BENCH_SHAPE)):
+        q, k, v, tq, tk, tv, do, dto = _jvp_inputs(gen, dev, b, h, t, t)
+        prod = 2 * b * h * t * t * 64  # one product over every (q, k) pair
+        o, lse = flash_attention_fwd_fp32(q, k, v)
+        fwd = {m: attention_jvp_fwd(q, k, v, tq, tk, tv, fast=m) for m in (True, False)}
+        ops = {m: jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd[m], do, dto, fast=m)
+               for m in (True, False)}
+        dkv, dq = jvp_bwd_dkv(ops[True]), jvp_bwd_dq(ops[True])
+        io = {"jvp_fwd": nbytes(q, k, v, tq, tk, tv, *fwd[True]),
+              "jvp_tangent": nbytes(q, k, v, tq, tk, tv, o, lse, fwd[True][1]),
+              "jvp_bwd_dkv": nbytes(*ops[True][:12], *dkv),
+              "jvp_bwd_dq": nbytes(*ops[True][:12], *dq)}
+        dots = {"jvp_fwd": 6, "jvp_tangent": 5, "jvp_bwd_dkv": 12, "jvp_bwd_dq": 9}
+        calls = {"jvp_fwd": lambda m: attention_jvp_fwd(q, k, v, tq, tk, tv, fast=m),
+                 "jvp_tangent": lambda m: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv,
+                                                                fast=m),
+                 "jvp_bwd_dkv": lambda m: jvp_bwd_dkv(ops[m]),
+                 "jvp_bwd_dq": lambda m: jvp_bwd_dq(ops[m])}
+        plains = {"jvp_fwd": lambda m: attention_jvp_fwd_plain(q, k, v, tq, tk, tv, fast=m),
+                  "jvp_tangent": lambda m: attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk,
+                                                                       tv, fast=m),
+                  "jvp_bwd_dkv": lambda m: jvp_bwd_dkv_plain(ops[m]),
+                  "jvp_bwd_dq": lambda m: jvp_bwd_dq_plain(ops[m])}
+        r = out["flash_fwd_fp32"]
+        r[f"{tag}ms"] = few(lambda: flash_attention_fwd_fp32(q, k, v))
+        r[f"{tag}library_ms"] = few(lambda: F.scaled_dot_product_attention(q, k, v))
+        b1 = bound(nbytes(q, k, v, o, lse), (2 * prod, PEAK_FP32))
+        r.update({f"{tag}{key}": val for key, val in b1.items()})
+        if not tag:
+            r["plain_ms"] = few(lambda: flash_attention_fwd_plain(q, k, v, precision="fp32"))
+        for name in dots:
+            main = name != "jvp_tangent"  # fast for the rCM step's kernels
+            r = out[name]
+            r[f"{tag}ms"] = few(lambda: calls[name](main))
+            r[f"{tag}other_ms"] = few(lambda: calls[name](not main))
+            for mode, peak in ((main, PEAK_BF16 if main else PEAK_FP32),
+                               (not main, PEAK_BF16 if not main else PEAK_FP32)):
+                key = "" if mode == main else "other_"
+                bnd = bound(io[name], (dots[name] * prod, peak))
+                r[f"{tag}{key}bound_ms"] = bnd["bound_ms"]
+                r[f"{tag}{key}bound_by"] = bnd["bound_by"]
+            if not tag:
+                r["plain_ms"] = few(lambda: plains[name](main))
+        del q, k, v, tq, tk, tv, do, dto, o, lse, fwd, ops, dkv, dq
+    for name, r in out.items():
+        r["mode"] = {"flash_fwd_fp32": "fp32", "jvp_tangent": "exact"}.get(name, "fast")
+        r["shape"] = f"({DIT_BATCH},{DIT_CFG.n_heads},{DIT_CFG.seq_len},64)"
+        r["bench_shape"] = "({},{},{},64)".format(*JVP_BENCH_SHAPE)
+        if name == "flash_fwd_fp32":
+            r["library_call"] = "F.scaled_dot_product_attention, f32 inputs"
+            log(f"[timing] flash_fwd_fp32 {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, sdpa f32 {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms; {r['bench_shape']}: kernel {r['bench_ms']:.4f} ms, sdpa f32 "
+                f"{r['bench_library_ms']:.4f} ms, bound {r['bench_bound_ms']:.4f} ms")
+            continue
+        r["library_ms"] = None
+        r["library_call"] = "none (no single call)"
+        other = "fast" if r["mode"] == "exact" else "exact"
+        log(f"[timing] {name} {r['shape']}: {r['mode']} {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f}), {other} {r['other_ms']:.4f} ms (bound "
+            f"{r['other_bound_ms']:.4f}), plain {r['mode']} {r['plain_ms']:.4f} ms; {r['bench_shape']}: "
+            f"{r['mode']} {r['bench_ms']:.4f} ms (bound {r['bench_bound_ms']:.4f}), {other} "
+            f"{r['bench_other_ms']:.4f} ms (bound {r['bench_other_bound_ms']:.4f})")
+    return out
+
+
+def _dit_params(dev, cfg, seed=0):
+    """init_dit's params with `ada` and `out` drawn at 1/sqrt(fan_in): at the
+    JAX init (both zero) attention would not reach the loss at all."""
+    params = init_dit(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    d = cfg.d_model
+    params["out"] = torch.randn((d, d), generator=gen, device=dev) / d ** 0.5
+    for layer in params["layers"]:
+        layer["ada"] = torch.randn((d, 6 * d), generator=gen, device=dev) / d ** 0.5
+    return params
+
+
+def _dit_copy(params, device):
+    """A detached copy of DiT params on `device`, every tensor a leaf that
+    requires grad."""
+    def leaf(x):
+        return x.detach().to(device).requires_grad_(True)
+
+    out = {k: leaf(params[k]) for k in ("t_mlp1", "t_mlp2", "out")}
+    out["layers"] = [{k: leaf(x) for k, x in layer.items()} for layer in params["layers"]]
+    return out
+
+
+def _dit_checks(dev, params, x, t) -> dict:
+    """At seq DIT_PARITY_LEN: the rCM loss and every gradient on the card
+    against the CPU plain path (both fast), (u, du/dt) against finite
+    differences (central), and torch.func.jvp of dit_forward (default attention) through
+    B10 once a layer. Returns that jvp run's launches."""
+    cfg = dataclasses.replace(DIT_CFG, seq_len=DIT_PARITY_LEN)
+    xs, ts = x[:2, :DIT_PARITY_LEN].contiguous(), t[:2].contiguous()
+    res = {}
+    for device in (dev, "cpu"):
+        copy = _dit_copy(params, device)
+        loss = rcm_loss(copy, xs.to(device), ts.to(device), cfg, fast=True)
+        res[str(device)] = (loss.item(), torch.autograd.grad(loss, dit_param_leaves(copy)))
+    (loss_c, grads_c), (loss_p, grads_p) = res[str(dev)], res["cpu"]
+    rels = [((g.cpu() - w).norm() / w.norm()).item() for g, w in zip(grads_c, grads_p)]
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    zero = [i for i, g in enumerate(grads_c) if not g.abs().max() > 0]
+    log(f"[dit] rCM loss on the card vs CPU plain path (2 x {DIT_PARITY_LEN} tokens, fast): "
+        f"{loss_c:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}); grad rel L2 max {max(rels):.3e} "
+        f"median {statistics.median(rels):.3e} over {len(rels)} tensors (tol {DIT_GRAD_REL_L2}); "
+        f"zero gradients: {zero}")
+    if not (loss_rel <= DIT_GRAD_REL_L2 and max(rels) <= DIT_GRAD_REL_L2 and not zero):
+        raise AssertionError("rCM gradients on the card disagree with the CPU plain path")
+
+    with torch.no_grad():
+        p = _dit_copy(params, dev)
+        u, du = dit_jvp_step(p, xs, ts, cfg, fast=True)
+        v = dit_forward(p, xs, ts, cfg)
+        eps = 1e-3  # central differences: with `ada` and `out` nonzero the DiT
+        # curves enough that a one-sided difference is off by ~1e-1 at this eps
+        fd = (dit_forward(p, xs + eps * v, ts + eps, cfg)
+              - dit_forward(p, xs - eps * v, ts - eps, cfg)) / (2 * eps)
+        rel_fd = ((fd - du).norm() / du.norm()).item()
+        _reset_counts()
+        _, du_j = torch.func.jvp(lambda x_, t_: dit_forward(p, x_, t_, cfg), (xs, ts),
+                                 (v, torch.ones_like(ts)))
+        torch.cuda.synchronize()
+        launches = _jvp_launches()
+    rel_j = ((du_j - du).norm() / du_j.norm()).item()
+    log(f"[dit] (u, du/dt) at seq {DIT_PARITY_LEN}: du/dt vs central differences rel L2 "
+        f"{rel_fd:.3e} (tol 0.05); torch.func.jvp(dit_forward) (exact, B10) vs the fast pair "
+        f"path rel L2 {rel_j:.3e} (tol {DIT_JVP_REL_L2}); its launches {launches}")
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd_fp32=cfg.n_layers, jvp_tangent=cfg.n_layers)
+    if not (rel_fd < 0.05 and rel_j <= DIT_JVP_REL_L2 and launches == want):
+        raise AssertionError("dit_jvp_step disagrees with finite differences or with "
+                             "torch.func.jvp of dit_forward, or the forward-mode DiT did not "
+                             "run B10 once a layer")
+    return launches
+
+
+# each rCM step runs the fp32 prepass (B1 fp32), B9 forward, B11 + B12 backward
+DIT_STEP_KERNELS = ("flash_fwd_fp32", "jvp_fwd", "jvp_bwd_dkv", "jvp_bwd_dq")
+
+
+def phase_dit(dev, smi) -> tuple[dict, dict, dict]:
+    """Phase 20, BASELINE config 5. Returns (the 5 timed steps' launches of
+    the JVP kernels, the seq-512 jvp run's, step numbers)."""
+    cfg = DIT_CFG
+    params = _dit_params(dev, cfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((DIT_BATCH, cfg.seq_len, cfg.d_model), generator=gen, device=dev)
+    t = torch.rand((DIT_BATCH,), generator=gen, device=dev)
+    jvp_launches = _dit_checks(dev, params, x, t)
+
+    _, step = make_dit_rcm_step(cfg, params, fast=True)
+    losses = [step(x, t)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    per_step, times = [], []
+    for _ in range(DIT_STEPS):
+        before = _launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(x, t))
+        end.record()
+        times.append((start, end))
+        per_step.append({k: n - before[k] for k, n in _launch_counts().items()})
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).tolist()
+    step_ms = [s.elapsed_time(e) for s, e in times]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"rCM losses not finite and falling: {losses}")
+    want = {k: cfg.n_layers if k in DIT_STEP_KERNELS else 0 for k in _COUNTED}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"kernel launches per rCM step {per_step}, want {want}")
+    med = statistics.median(step_ms)
+    mem = torch.cuda.max_memory_allocated(dev) / 2**30
+    tokens = DIT_BATCH * cfg.seq_len
+    log(f"[dit] rCM step, fast, DiT d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_layers} "
+        f"layers, {DIT_BATCH} x {cfg.seq_len} tokens on {smi}: median step {med:.2f} ms (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}; CUDA events), {tokens / med * 1e3:.0f} "
+        f"tokens/s, max_memory_allocated {mem:.2f} GiB, launches per step "
+        f"{ {k: n for k, n in per_step[0].items() if n} }; losses {[round(v, 6) for v in losses]}")
+    _profile_dit_step(step, x, t)
+    launches = {k: sum(c[k] for c in per_step) for k in JVP_KERNELS}
+    return launches, jvp_launches, {"median_ms": med, "max_memory_gib": mem,
+                                    "tokens_per_s": tokens / med * 1e3, "losses": losses}
+
+
+def _profile_dit_step(step, x, t):
+    """torch.profiler over one rCM step: device time by kernel, and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total_us = sum(e.self_device_time_total for e in events)
+    log(f"[profile] one rCM step: wall {wall_ms:.2f} ms (profiled), device busy "
+        f"{total_us / 1e3:.2f} ms ({total_us / 1e3 / wall_ms:.1%} of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} calls  "
+            f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
+
 
 def main() -> None:
     name, smi = phase_device()
@@ -1266,6 +1718,10 @@ def main() -> None:
     fused, infer_launches = phase_int8_infer_timing(dev, gen)
     weights = phase_weight_kernels(dev, gen)
     quant_runs = phase_serving_quantized(dev, smi, serve_tokens, serve_launches)
+    jvp_err = phase_jvp_kernels(dev, gen)
+    oracle_launches = phase_jvp_oracle(dev, gen)
+    jvp_timing = phase_jvp_timing(dev, gen)
+    dit_launches, dit_jvp_launches, _ = phase_dit(dev, smi)
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -1290,7 +1746,8 @@ def main() -> None:
                         "source": "quantizedattention_tpu_torch/csrc/flash_bwd.cu",
                         "replaces": replaces,
                         "launches_by_path": {"train": train_launches[kname],
-                                             "train_gqa": gqa_launches[kname]},
+                                             "train_gqa": gqa_launches[kname],
+                                             "jvp_oracle": oracle_launches[kname]},
                         "max_abs_err": max(bwd_err[kname], train_err[kname]),
                         **timing[kname]})
     for kname, source, replaces in (
@@ -1318,6 +1775,20 @@ def main() -> None:
         kernels.append({"name": kname, "route": "cuda",
                         "source": f"quantizedattention_tpu_torch/csrc/{kname}.cu",
                         "replaces": replaces, "launches_by_path": {}, **weights[kname]})
+    for kname, source, replaces in (
+            ("flash_fwd_fp32", "flash_fwd.cu", "quantizedattention_tpu/ops/flash_fwd.py:47"),
+            ("jvp_fwd", "jvp.cu", "quantizedattention_tpu/ops/jvp_fwd.py:39"),
+            ("jvp_tangent", "jvp.cu", "quantizedattention_tpu/ops/jvp_tangent.py:44"),
+            ("jvp_bwd_dkv", "jvp.cu", "quantizedattention_tpu/ops/jvp_bwd.py:105"),
+            ("jvp_bwd_dq", "jvp.cu", "quantizedattention_tpu/ops/jvp_bwd.py:155")):
+        by_path = {"dit_rcm": dit_launches[kname], "jvp_oracle": oracle_launches[kname]}
+        if dit_jvp_launches[kname]:
+            by_path["dit_jvp"] = dit_jvp_launches[kname]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": f"quantizedattention_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches_by_path": by_path,
+                        "max_abs_err": jvp_err[kname], **jvp_timing[kname]})
+    kernels[-5]["mode_of"] = "precision='fp32' of the B1 kernel"
     for k in kernels:  # the quantized serving runs' launches of each kernel they ran
         for path, counts in quant_runs.items():
             if k["name"] in counts:

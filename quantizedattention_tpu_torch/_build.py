@@ -31,7 +31,7 @@ _SCHED_SRC = os.path.join(_ROOT, "native", "scheduler.cpp")
 _SCHED_LIB = os.path.join(BUILD_DIR, "libscheduler.so")
 
 KERNELS = ("flash_fwd", "flash_bwd", "decode", "quant_int8", "int8_fwd", "int8_bwd",
-           "int8_linear", "int4_linear")
+           "int8_linear", "int4_linear", "jvp")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -23,6 +23,16 @@
 // owners reduce with quad shuffles), so P never touches shared memory. Causal
 // blocks stop at the tile that holds their last query position. No
 // cp.async/TMA pipelining and no wgmma yet: both are later work.
+//
+// precision="fp32" (flash_fwd_f32_kernel, entry qa_flash_fwd_f32): the same
+// TPU kernel's fp32 mode (flash_fwd.py:255-260, Precision.HIGHEST), the
+// primal of attention_jvp and the rCM prepass. Q arrives pre-scaled in f32,
+// nothing is rounded, masked P is 0, the row max still carries +EPS_BIAS.
+// Bound: fp32 products, 2 over every visible (q, k) pair against the 67
+// TFLOP/s of the CUDA cores (the TPU's HIGHEST dots have no tensor-core
+// counterpart short of 3xTF32). Design: FFMA in 4x4 register tiles, one
+// block of 256 threads per (q head, 64-row q tile) over 64-key tiles (see the
+// kernel). GQA reads kv head head / rep. No pipelining yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,7 +247,191 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,  // [bh_kv, rep, t, D], pr
   }
 }
 
+// ---------------------------------------------------------------------------
+// precision="fp32": FFMA on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int TF = 64;            // q rows per block and keys per tile
+constexpr int LDF = TF + 4;       // padded row of an f32 tile (float4-aligned)
+constexpr int THREADS_F = 256;    // thread = (row group tid / 16, column group tid % 16)
+
+// max / sum over the sixteen threads of a row group (one half-warp)
+__device__ __forceinline__ float group_max16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float group_sum16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Rows row0 .. row0+TF-1 of a row-major [n, D] f32 matrix into shared
+// memory, transposed (dst[d * LDF + row]); rows at or past n are zero.
+// Consecutive threads take consecutive rows, so the transposed stores hit
+// consecutive banks.
+__device__ __forceinline__ void load_transposed(float* dst, const float* src, int row0, int n) {
+  for (int c = threadIdx.x; c < TF * (D / 4); c += THREADS_F) {
+    const int r = c % TF;
+    const int col = (c / TF) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + col);
+    dst[(col + 0) * LDF + r] = val.x;
+    dst[(col + 1) * LDF + r] = val.y;
+    dst[(col + 2) * LDF + r] = val.z;
+    dst[(col + 3) * LDF + r] = val.w;
+  }
+}
+
+// Rows row0 .. row0+TF-1 of a row-major [n, D] f32 matrix into a padded
+// shared tile as they are; rows at or past n are zero.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int n) {
+  for (int c = threadIdx.x; c < TF * (D / 4); c += THREADS_F) {
+    const int r = c / (D / 4);
+    const int col = (c % (D / 4)) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + col);
+    *reinterpret_cast<float4*>(&dst[r * LDF + col]) = val;
+  }
+}
+
+// acc[4][4] += a^T b over TF (or D) steps: a, b [steps][LDF], columns
+// a0 .. a0+3 of a and b0 .. b0+3 of b, read as float4.
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float* a, const float* b, int a0,
+                                       int b0, int steps) {
+  for (int d = 0; d < steps; ++d) {
+    const float4 x = *reinterpret_cast<const float4*>(&a[d * LDF + a0]);
+    const float4 y = *reinterpret_cast<const float4*>(&b[d * LDF + b0]);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const float ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
+  }
+}
+
+// One block of 256 threads per (q head, 64-row q tile). Thread (g, c) =
+// (tid / 16, tid % 16) owns rows 4g .. 4g+3 and, per 64-key tile, keys
+// 4c .. 4c+3 of S and columns 4c .. 4c+3 of O: a 4x4 register tile per
+// product from two float4 shared loads per step (Q and K stored transposed,
+// P transposed, V as it is). A row group's sixteen owners are one
+// half-warp: row max and sums reduce by shuffles, and its P rows pass to
+// P V behind a __syncwarp.
+__global__ void __launch_bounds__(THREADS_F)
+flash_fwd_f32_kernel(const float* __restrict__ q,  // [b*h, t, D], pre-scaled by qk_scale
+                     const float* __restrict__ k,  // [b*h_kv, s, D]
+                     const float* __restrict__ v,  // [b*h_kv, s, D]
+                     float* __restrict__ o,        // [b*h, t, D]
+                     float* __restrict__ lse,      // [b*h, t]
+                     int rep, int t, int s, int causal) {
+  extern __shared__ __align__(16) float smem_f[];
+  float* qt_s = smem_f;           // [D][LDF]: Q^T
+  float* kt_s = qt_s + D * LDF;   // [D][LDF]: K^T
+  float* v_s = kt_s + D * LDF;    // [TF][LDF]: V
+  float* pt_s = v_s + TF * LDF;   // [TF][LDF]: P^T
+
+  const int tid = threadIdx.x;
+  const int g4 = (tid / 16) * 4;
+  const int c4 = (tid % 16) * 4;
+  const size_t head = blockIdx.y;
+  const size_t kvh = head / rep;
+  const int q0 = blockIdx.x * TF;
+
+  load_transposed(qt_s, q + head * t * D, q0, t);
+
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  const int kv_hi = causal ? min(s, q0 + TF) : s;
+  const int n_tiles = (kv_hi + TF - 1) / TF;
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * TF;
+    __syncthreads();  // every thread is done with the previous K/V tile
+    load_transposed(kt_s, k + kvh * s * D, k0, s);
+    load_rows(v_s, v + kvh * s * D, k0, s);
+    __syncthreads();
+
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    outer4(sc, qt_s, kt_s, g4, c4, D);
+
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pos = q0 + g4 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + c4 + j;
+        if (!(col < s && (!causal || col <= pos))) sc[i][j] = MASK_VALUE;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float next_m = fmaxf(m[i], group_max16(mx) + EPS_BIAS);
+      alpha[i] = exp2f(m[i] - next_m);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + c4 + j;
+        sc[i][j] = (col < s && (!causal || col <= pos)) ? exp2f(sc[i][j] - next_m) : 0.f;
+        psum += sc[i][j];
+      }
+      l[i] = l[i] * alpha[i] + group_sum16(psum);
+      m[i] = next_m;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&pt_s[(c4 + j) * LDF + g4]) =
+          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+    __syncwarp();  // a row group's P is written by its sixteen owners, all in this half-warp
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha[i];
+    outer4(acc, pt_s, v_s, g4, c4, TF);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int pos = q0 + g4 + i;
+    if (pos >= t) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const size_t row = head * t + pos;
+    *reinterpret_cast<float4*>(o + row * D + c4) =
+        make_float4(acc[i][0] / l_safe, acc[i][1] / l_safe, acc[i][2] / l_safe,
+                    acc[i][3] / l_safe);
+    if (c4 == 0) lse[row] = m[i] + log2f(l_safe);
+  }
+}
+
 }  // namespace
+
+// precision="fp32": q [b*h, t, D] f32 pre-scaled by qk_scale, k/v
+// [b*h_kv, s, D] f32 (h = h_kv * rep) -> O [b*h, t, D], lse [b*h, t] f32.
+extern "C" int qa_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                                int bh, int rep, int t, int s, int causal, void* stream) {
+  const int smem = (2 * D + 2 * TF) * LDF * sizeof(float);  // 69,632 bytes
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t + TF - 1) / TF, bh);
+  flash_fwd_f32_kernel<<<grid, THREADS_F, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), rep, t, s, causal);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int qa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int bh_kv, int rep, int t, int s, int causal, void* stream) {

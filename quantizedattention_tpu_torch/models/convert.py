@@ -1,4 +1,4 @@
-"""Carry the JAX package's LM params over to this package.
+"""Carry the JAX package's LM and DiT params over to this package.
 
 Both packages store weights [in, out] and project with `x @ w`, so the
 conversion is a dtype/device move with no transpose. The input is the JAX
@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quantizedattention_tpu_torch.models.dit import DIT_LAYER_KEYS
 from quantizedattention_tpu_torch.quantize.weights import QuantizedWeight, QuantizedWeight4
 
 _LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")
@@ -44,4 +45,21 @@ def params_from_jax(tree, device, dtype=torch.float32):
         "unembed": conv(tree["unembed"]),
         "final_norm": conv(tree["final_norm"]),
         "layers": [{key: conv(layer[key]) for key in _LAYER_KEYS} for layer in tree["layers"]],
+    }
+
+
+
+def dit_params_from_jax(tree, device, dtype=torch.float32):
+    """{"t_mlp1", "t_mlp2", "out", "layers": [{ada, wq, wk, wv, wo, w1, w2}]}
+    of array-likes (the JAX `init_dit` tree) -> the same dict of tensors on
+    `device` as `dtype`, with no transpose: both packages store [in, out]."""
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    return {
+        "t_mlp1": conv(tree["t_mlp1"]),
+        "t_mlp2": conv(tree["t_mlp2"]),
+        "out": conv(tree["out"]),
+        "layers": [{key: conv(layer[key]) for key in DIT_LAYER_KEYS} for layer in tree["layers"]],
     }

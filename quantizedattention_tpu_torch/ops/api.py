@@ -13,6 +13,16 @@ torch.autograd.Function, as the JAX package's custom_vjp:
   graph, and the residuals are freed when the call returns.
 - `sage_attention_int8_inference` (ops/api.py:170-196): forward only, the
   fused int8 kernel (B6), which quantizes inside the kernel.
+- `attention_jvp` (ops/api.py:199-300): fp32 attention with both AD modes.
+  The forward is B1's fp32 mode and saves (q, k, v, O, lse); `backward` runs
+  the exact flash backward (B2, B3); `jvp`, the forward-mode rule, runs the
+  tangent kernel (B10). One new-style Function (`setup_context`,
+  `save_for_forward`) gives both, so torch.func.jvp and
+  torch.autograd.forward_ad work on it; the JAX package's custom_transpose
+  detour is not needed.
+- `attention_value_and_jvp` (ops/api.py:303-364): (O, tO) of six inputs in
+  one pass (B9), differentiable in reverse mode through the second-order
+  backward (B11, B12): the rCM distillation primitive.
 """
 
 from __future__ import annotations
@@ -20,9 +30,12 @@ from __future__ import annotations
 import torch
 
 from quantizedattention_tpu_torch.ops.flash_bwd import flash_attention_bwd
-from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
+from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd, flash_attention_fwd_fp32
 from quantizedattention_tpu_torch.ops.int8_bwd import int8_attention_bwd
 from quantizedattention_tpu_torch.ops.int8_fwd import int8_attention_fwd, int8_attention_fwd_fused
+from quantizedattention_tpu_torch.ops.jvp_bwd import attention_jvp_bwd
+from quantizedattention_tpu_torch.ops.jvp_fwd import attention_jvp_fwd, check_jvp_args
+from quantizedattention_tpu_torch.ops.jvp_tangent import attention_tangent_fwd
 
 
 class _FlashAttentionBF16(torch.autograd.Function):
@@ -105,3 +118,85 @@ def sage_attention_int8_inference(q, k, v, causal: bool = False, sm_scale: float
     """
     k_mean = k.float().mean(dim=-2, keepdim=True).to(k.dtype) if smooth_k else None
     return int8_attention_fwd_fused(q, k, v, causal=causal, sm_scale=sm_scale, k_sub=k_mean)[0]
+
+
+class _AttentionJVP(torch.autograd.Function):
+
+    @staticmethod
+    def forward(q, k, v, causal, sm_scale):
+        return flash_attention_fwd_fp32(q, k, v, causal=causal, sm_scale=sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, sm_scale = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.save_for_forward(q, k, v, o, lse)
+        ctx.args = (causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, sm_scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,
+                                         fast=False)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, _tcausal, _tscale):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, sm_scale = ctx.args
+        tq, tk, tv = (torch.zeros_like(x) if tx is None else tx
+                      for x, tx in ((q, tq), (k, tk), (v, tv)))
+        to = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=causal, sm_scale=sm_scale)
+        return to, None
+
+
+def attention_jvp(q, k, v, causal: bool = False, sm_scale: float | None = None) -> torch.Tensor:
+    """fp32 attention with forward-mode AD (the tangent kernel, B10) and
+    reverse-mode AD (the exact flash backward, B2 + B3).
+
+    q/k/v [b, h, t|s, d], one head count (GQA raises ValueError, as the
+    tangent kernel is single-head-count). Returns O f32 [b, h, t, d].
+    torch.func.jvp(attention_jvp, (q, k, v), (tq, tk, tv)) gives (O, tO).
+    Gradients of losses over tO need `attention_value_and_jvp`: autograd
+    does not differentiate a Function's jvp rule.
+    """
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"attention_jvp is single-head-count only: q has {q.shape[1]} heads "
+                         f"but k/v have {k.shape[1]}; repeat k/v first")
+    return _AttentionJVP.apply(q, k, v, causal, sm_scale)[0]
+
+
+class _AttentionValueAndJVP(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, tq, tk, tv, causal, sm_scale, fast):
+        o, to, lse, mu = attention_jvp_fwd(q, k, v, tq, tk, tv, causal=causal,
+                                           sm_scale=sm_scale, fast=fast)
+        ctx.save_for_backward(q, k, v, tq, tk, tv, o, to, lse, mu)
+        ctx.args = (causal, sm_scale, fast)
+        return o, to
+
+    @staticmethod
+    def backward(ctx, do, dto):
+        causal, sm_scale, fast = ctx.args
+        grads = attention_jvp_bwd(*ctx.saved_tensors, do, dto, causal=causal, sm_scale=sm_scale,
+                                  fast=fast)
+        return (*grads, None, None, None)
+
+
+def attention_value_and_jvp(q, k, v, tq, tk, tv, causal: bool = False,
+                            sm_scale: float | None = None, fast: bool = False):
+    """(O, tO) in one streaming pass (B9), differentiable in reverse mode with
+    respect to all six inputs through the second-order backward (B11, B12).
+
+    Inputs [b, h, t|s, d], one head count, cast to f32 first, so gradients
+    come back in the inputs' dtypes. `fast=True` rounds every product's
+    operands to bf16 with f32 accumulation, forward and backward; the
+    default is fp32 throughout. Returns (O, tO) f32 [b, h, t, d].
+    """
+    check_jvp_args(q, k, v, tq, tk, tv)
+    return _AttentionValueAndJVP.apply(*(x.float() for x in (q, k, v, tq, tk, tv)), causal,
+                                       sm_scale, fast)

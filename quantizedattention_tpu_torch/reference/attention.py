@@ -1,4 +1,5 @@
-"""fp32 softmax-attention oracle, with torch.autograd as the gradient oracle.
+"""fp32 softmax-attention oracle, with torch.autograd as the gradient oracle
+and torch.func.jvp as the tangent oracle.
 
 Counterpart of quantizedattention_tpu/reference/attention.py. Causal means
 k <= q (the kernels' convention, not the strict k < q of the original
@@ -49,3 +50,13 @@ def reference_attention_vjp(q, k, v, do, causal: bool = False):
     with torch.enable_grad(), _no_tf32():
         o = reference_attention(*leaves, causal=causal)
         return torch.autograd.grad(o, leaves, do.float())
+
+
+def reference_attention_jvp(primals, tangents, causal: bool = False):
+    """Oracle (O, tO) in f32 via torch.func.jvp, TF32 off; differentiable in
+    reverse mode (the oracle of `attention_value_and_jvp`'s gradients)."""
+    primals = tuple(x.float() for x in primals)
+    tangents = tuple(x.float() for x in tangents)
+    with _no_tf32():
+        return torch.func.jvp(lambda q, k, v: reference_attention(q, k, v, causal), primals,
+                              tangents)
