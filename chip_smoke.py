@@ -89,6 +89,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      memory; torch.profiler over one more step; at seq 512 the loss and
      every gradient against the CPU plain path, (u, du/dt) against finite
      differences, and torch.func.jvp of dit_forward through B10.
+ 21. the cache-kind decode kernels: B14 (paged int8), B15 (slotted int4) and
+     B16 (paged int4) against their plain versions at the bench widths (16/16
+     and 16/4 heads, pages of 128, 10 per sequence) with lengths [0, 1, 127,
+     128, 1000, 1280, 300, 640], pages shuffled across the pool, page 0 and
+     every page past a row's length holding junk payloads and NaN/inf
+     scales; B14 against B13 and B16 against B15 on the same K/V; then each
+     timed at the serving decode shape (8 slots x 16 heads, length 304 of
+     1280) beside B13 and its plain version;
+ 22. cache-kind serving at full width: phase 5's run with cache="paged"
+     (tokens equal phase 5's; B1 and B14 only), kv_quant="int4" (B1 and
+     B15), both (tokens equal the slotted int4 run's; B1 and B16), and the
+     paged pool cut to 13 pages, so four requests fit at once: admission
+     requeues, pages are recycled while banks are in flight, the tokens
+     still equal phase 5's and every page is free at the end. Two bf16
+     slotted runs bracket them for tokens/s. Every serving run (phases 5,
+     16, 22) also holds one decode step's logits on its final cache state
+     against the plain path on the CPU.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -169,10 +186,29 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd_fp32,
     flash_attention_fwd_plain,
 )
+from quantizedattention_tpu_torch.models.transformer import _decode_logits
+from quantizedattention_tpu_torch.parallel.kv4_cache import (
+    PACK,
+    Int4KVCache,
+    _pack_halves,
+    decode_attention_int4,
+    decode_attention_int4_plain,
+    unpack_tokens,
+)
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     QuantizedKVCache,
     decode_attention,
     decode_attention_plain,
+)
+from quantizedattention_tpu_torch.parallel.paged4_cache import (
+    Paged4KVCache,
+    paged4_decode_attention,
+    paged4_decode_attention_plain,
+)
+from quantizedattention_tpu_torch.parallel.paged_cache import (
+    PagedKVCache,
+    paged_decode_attention,
+    paged_decode_attention_plain,
 )
 from quantizedattention_tpu_torch.quantize.int8 import quant_int8
 from quantizedattention_tpu_torch.quantize.weights import (
@@ -468,22 +504,33 @@ def phase_decode(dev, gen) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
 
 
-def _serve(dev, smi, cfg, weight_quant=None) -> tuple[list, dict, float]:
-    """One full-width serving run of `cfg` (bf16 params, `weight_quant`):
-    a warm-up run, every launch count set to 0, the timed run. It must give
-    every request its budget of in-vocab tokens, repeat the warm-up's tokens,
-    match `generate` on the engine's own params and the same 8 prompts, and
-    keep prefill logits within LOGITS_REL_TOL of the plain path on the CPU.
-    Returns (each request's tokens, the timed run's launches by kernel, its
-    tokens/s)."""
+def _serve(dev, smi, cfg, weight_quant=None, **cache_kw) -> tuple[list, dict, float, dict]:
+    """One full-width serving run of `cfg` (bf16 params, `weight_quant`, the
+    engine's cache options `cache_kw`): a warm-up run, every launch count set
+    to 0, the timed run. It must give every request its budget of in-vocab
+    tokens, repeat the warm-up's tokens, match `generate` on the engine's own
+    params and the same 8 prompts (int8 KV caches only: `generate` decodes
+    the slotted int8 cache), and keep prefill logits and one decode step's
+    logits on the final cache state within LOGITS_REL_TOL of the plain path
+    on the CPU. Returns (each request's tokens, the timed run's launches by
+    kernel, its tokens/s, the engine's stats() with the requeues counted)."""
     params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev,
                               torch.bfloat16)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=PROMPT_LEN).tolist() for _ in range(N_SLOTS)]
     eng = ServingEngine(params, cfg, dev, n_slots=N_SLOTS, scheduler="native",
                         param_dtype=torch.bfloat16, decode_horizon=HORIZON,
-                        weight_quant=weight_quant)
-    label = f"attention={cfg.attention} weight_quant={weight_quant}"
+                        weight_quant=weight_quant, **cache_kw)
+    requeues = [0]
+    requeue = eng.sched.requeue
+
+    def counted_requeue(slot):
+        requeues[0] += 1
+        requeue(slot)
+
+    eng.sched.requeue = counted_requeue
+    label = f"attention={cfg.attention} weight_quant={weight_quant}" + "".join(
+        f" {k}={v}" for k, v in cache_kw.items())
 
     def serve():
         rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
@@ -506,12 +553,14 @@ def _serve(dev, smi, cfg, weight_quant=None) -> tuple[list, dict, float]:
             raise AssertionError(f"request {r.request_id}: token out of vocab")
     if [r.tokens for r in results] != [r.tokens for r in warm]:
         raise AssertionError(f"{label}: a second run gave different tokens")
-    want = generate(eng.params, torch.tensor(prompts, device=dev), cfg, NEW_TOKENS)
-    want = want[:, PROMPT_LEN:].tolist()
-    same = sum(r.tokens == w for r, w in zip(results, want))
-    if same != N_SLOTS:
-        raise AssertionError(f"{label}: engine tokens equal generate's for only {same}/{N_SLOTS} "
-                             "requests")
+    same = None
+    if cache_kw.get("kv_quant") is None:
+        want = generate(eng.params, torch.tensor(prompts, device=dev), cfg, NEW_TOKENS)
+        want = want[:, PROMPT_LEN:].tolist()
+        same = sum(r.tokens == w for r, w in zip(results, want))
+        if same != N_SLOTS:
+            raise AssertionError(f"{label}: engine tokens equal generate's for only "
+                                 f"{same}/{N_SLOTS} requests")
 
     # the full model on the card vs the plain path on the CPU, same weights
     probe = torch.tensor([prompts[0][:64]], device=dev)
@@ -524,21 +573,44 @@ def _serve(dev, smi, cfg, weight_quant=None) -> tuple[list, dict, float]:
         f"{rel:.3e} (tol {LOGITS_REL_TOL}), argmax agreement {agree:.3f}")
     if not (torch.isfinite(logits).all() and rel <= LOGITS_REL_TOL):
         raise AssertionError(f"{label}: prefill logits disagree with the plain CPU path")
+    dec_rel = _decode_parity(eng, label)
 
     n_tok = sum(len(r.tokens) for r in results)
     ttft_ms = statistics.median(r.ttft_s for r in results) * 1e3
     led = eng.ledger()
+    stats = {**eng.stats(), "requeues": requeues[0], "decode_rel_l2": dec_rel}
     log(f"[serve] {label}: {N_SLOTS} requests x {NEW_TOKENS} tokens (prompt {PROMPT_LEN}, "
         f"horizon {HORIZON}) on {smi}: {n_tok / wall:.1f} tokens/s, wall {wall:.3f} s, median "
         f"TTFT {ttft_ms:.2f} ms, launches { {k: v for k, v in launches.items() if v} }, "
-        f"dispatches {led['dispatches']}, fetch_s {led['fetch_s']:.3f}; tokens == generate "
-        f"for {same}/{N_SLOTS}; repeat run identical")
-    return [r.tokens for r in results], launches, n_tok / wall
+        f"dispatches {led['dispatches']}, fetch_s {led['fetch_s']:.3f}, requeues "
+        f"{requeues[0]}, pages_free {stats.get('pages_free')}; tokens == generate for "
+        f"{same}/{N_SLOTS}; repeat run identical")
+    return [r.tokens for r in results], launches, n_tok / wall, stats
+
+
+def _decode_parity(eng, label) -> float:
+    """One decode step's logits from the engine's final cache state (every
+    slot inactive, so nothing new is written) on the card against the plain
+    path on a CPU copy of the same state; returns their relative L2."""
+    cpu_caches = [type(c)(*(x.cpu() for x in c)) for c in eng.caches]
+    card_caches = [type(c)(*(x.clone() for x in c)) for c in eng.caches]
+    idle = torch.zeros_like(eng.active)
+    with torch.no_grad():
+        got, _ = _decode_logits(eng.params, card_caches, eng.last_tok, eng.pos, idle, eng.cfg)
+        ref, _ = _decode_logits(_to(eng.params, "cpu"), cpu_caches, eng.last_tok.cpu(),
+                                eng.pos.cpu(), idle.cpu(), eng.cfg)
+    got, ref = got.float().cpu(), ref.float()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"[serve] {label}: decode logits vs CPU plain path on the final cache state: rel L2 "
+        f"{rel:.3e} (tol {LOGITS_REL_TOL})")
+    if not (torch.isfinite(got).all() and rel <= LOGITS_REL_TOL):
+        raise AssertionError(f"{label}: decode logits disagree with the plain CPU path")
+    return rel
 
 
 def phase_serving(dev, smi) -> tuple[list, dict]:
     """Phase 5: bf16 serving through B1 (prefill) and B13 (decode) only."""
-    tokens, launches, _ = _serve(dev, smi, BENCH_CFG)
+    tokens, launches, _, _ = _serve(dev, smi, BENCH_CFG)
     used = {k for k, v in launches.items() if v}
     if used != {"flash_fwd", "decode"}:
         raise AssertionError(f"the served run launched {launches}, want flash_fwd and decode only")
@@ -558,7 +630,7 @@ def phase_serving_quantized(dev, smi, bf16_tokens, bf16_launches) -> dict:
                           ("serve_int8", dataclasses.replace(BENCH_CFG, attention="int8"), None),
                           ("serve_w8", BENCH_CFG, "int8"), ("serve_w4", BENCH_CFG, "int4"),
                           ("bf16_after", BENCH_CFG, None)):
-        tokens, launches, speed[path] = _serve(dev, smi, cfg, wq)
+        tokens, launches, speed[path], _ = _serve(dev, smi, cfg, wq)
         used = {k for k, v in launches.items() if v}
         if path.startswith("bf16"):
             if tokens != bf16_tokens or launches != bf16_launches:
@@ -587,6 +659,227 @@ def phase_serving_quantized(dev, smi, bf16_tokens, bf16_launches) -> dict:
     log("[serve] tokens/s against the mean of the bf16 runs beside them ("
         f"{speed['bf16_before']:.1f}, {speed['bf16_after']:.1f}): "
         + ", ".join(f"{path} {speed[path] / bf16:.3f}" for path in runs))
+    return runs
+
+
+# --------------------------------------------------------------------------
+# Cache kinds: paged int8 (B14), slotted int4 (B15), paged int4 (B16)
+# --------------------------------------------------------------------------
+
+CACHE_LENGTHS = [0, 1, 127, 128, 1000, 1280, 300, 640]
+PAGE = 128
+MAX_PAGES = BENCH_CFG.max_seq // PAGE  # 10
+
+
+def _page_table(lengths, n_pages, seed):
+    """[n, MAX_PAGES] int32: row s owns ceil(len / PAGE) + 1 pages (at most
+    MAX_PAGES, as an engine row owns prompt + budget), drawn from a shuffled
+    pool without page 0; the rest of the row is 0, the garbage page."""
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = torch.zeros((len(lengths), MAX_PAGES), dtype=torch.int32)
+    for s, length in enumerate(lengths):
+        owned = min(MAX_PAGES, -(-length // PAGE) + 1)
+        table[s, :owned] = perm[s * MAX_PAGES: s * MAX_PAGES + owned]
+    return table
+
+
+def _to_pages(dense, scales, table, n_pages, gen):
+    """Dense rows [n, h, MAX_PAGES * rows, d] and token scales [n, h,
+    MAX_PAGES * PAGE] into a pool through `table`: the pages a row owns get
+    its rows in order, every other page (page 0 included) junk payloads and
+    NaN scales. Returns (payload pool [h, n_pages, rows, d], scales
+    [n_pages, h, PAGE])."""
+    n, h, total, d = dense.shape
+    rows = total // MAX_PAGES
+    pool = torch.randint(-128, 128, (h, n_pages, rows, d), generator=gen, device=dense.device,
+                         dtype=torch.int8)
+    pool_s = torch.full((n_pages, h, PAGE), torch.nan, device=dense.device)
+    table = table.to(dense.device)
+    owned = table > 0
+    pool[:, table[owned].long()] = dense.reshape(n, h, MAX_PAGES, rows, d).transpose(0, 1)[:, owned]
+    pool_s[table[owned].long()] = scales.reshape(n, h, MAX_PAGES, PAGE).transpose(1, 2)[owned]
+    return pool, pool_s
+
+
+def _cache_kinds(dev, gen, n_q, n_kv, lengths, stale):
+    """The same attention problem in all four cache kinds: q, the slotted
+    int8 cache of `_decode_case`, its paged twin through shuffled pages, a
+    slotted int4 cache of random nibbles (stale: NaN/inf scales past each
+    length, in both halves of a half-live byte row) and its paged int4 twin
+    (the same token values repacked split-half per page)."""
+    q, dense8 = _decode_case(dev, gen, n_q, n_kv, lengths, stale)
+    n, max_len = len(lengths), BENCH_CFG.max_seq
+    length = dense8.length
+    n_pages = 1 + n * MAX_PAGES
+    table = _page_table(lengths, n_pages, seed=len(lengths) + n_kv).to(dev)
+    k_pages, sk_pages = _to_pages(dense8.k_i8, dense8.sk, table, n_pages, gen)
+    v_pages, sv_pages = _to_pages(dense8.v_i8, dense8.sv, table, n_pages, gen)
+    if stale:
+        sv_pages = torch.where(torch.isnan(sv_pages), torch.inf, sv_pages)
+    paged8 = PagedKVCache(k_pages, sk_pages, v_pages, sv_pages, table, length)
+
+    shape4 = (n, n_kv, max_len // 2, 64)
+    k4 = torch.randint(-128, 128, shape4, generator=gen, device=dev, dtype=torch.int8)
+    v4 = torch.randint(-128, 128, shape4, generator=gen, device=dev, dtype=torch.int8)
+    sk4 = torch.rand(shape4[:2] + (max_len,), generator=gen, device=dev) * 0.28 + 0.02
+    sv4 = torch.rand(shape4[:2] + (max_len,), generator=gen, device=dev) * 0.28 + 0.02
+    if stale:
+        dead = torch.arange(max_len, device=dev)[None, None, :] >= length.long()[:, None, None]
+        sk4 = torch.where(dead, torch.nan, sk4)
+        sv4 = torch.where(dead, torch.inf, sv4)
+    dense4 = Int4KVCache(k4, sk4, v4, sv4, length)
+
+    def repack(p):  # pack-block order -> split-half per page of PAGE tokens
+        nib = (unpack_tokens(p, PACK) & 0x0F).to(torch.int8)
+        return _pack_halves(nib, PAGE)
+
+    k4_pages, sk4_pages = _to_pages(repack(k4), sk4, table, n_pages, gen)
+    v4_pages, sv4_pages = _to_pages(repack(v4), sv4, table, n_pages, gen)
+    if stale:
+        sv4_pages = torch.where(torch.isnan(sv4_pages), torch.inf, sv4_pages)
+    paged4 = Paged4KVCache(k4_pages, sk4_pages, v4_pages, sv4_pages, table, length)
+    return q, dense8, paged8, dense4, paged4
+
+
+def _check_decode_kernel(name, fn, plain, q, cache, label) -> float:
+    """A decode kernel against its plain version on the same inputs: O and
+    lse within DECODE_TOL, O finite, empty rows O = 0 and lse = -inf."""
+    o, lse = fn(q, cache, return_lse=True)
+    torch.cuda.synchronize()
+    o_p, lse_p = plain(q, cache, return_lse=True)
+    live = cache[-1] > 0
+    err_o = (o - o_p).abs().max().item()
+    err_l = (lse[live] - lse_p[live]).abs().max().item()
+    empty_ok = bool((o[~live] == 0).all() and torch.isneginf(lse[~live]).all())
+    finite = bool(torch.isfinite(o).all())
+    log(f"[{name}] {label}: finite={finite} max|dO|={err_o:.3e} max|dlse|={err_l:.3e} "
+        f"(tol {DECODE_TOL}) empty_rows_ok={empty_ok}")
+    if not (finite and err_o <= DECODE_TOL and err_l <= DECODE_TOL and empty_ok):
+        raise AssertionError(f"{name} kernel disagrees with its plain version")
+    return err_o
+
+
+def _check_twins(name, got, want, label) -> float:
+    """Two kernels on the same K/V: (O, lse) within DECODE_TOL (the two walk
+    their tokens in another order, which moves where P is rounded to bf16)."""
+    d_o = (got[0] - want[0]).abs().max().item()
+    live = torch.isfinite(want[1])
+    d_l = (got[1][live] - want[1][live]).abs().max().item()
+    same_empty = bool(torch.equal(torch.isfinite(got[1]), live))
+    log(f"[{name}] {label}: max|dO|={d_o:.3e} max|dlse|={d_l:.3e} (tol {DECODE_TOL}) "
+        f"same empty rows={same_empty}")
+    if not (d_o <= DECODE_TOL and d_l <= DECODE_TOL and same_empty):
+        raise AssertionError(f"{name}: {label} disagree")
+    return d_o
+
+
+def phase_cache_kernels(dev, gen) -> dict:
+    """Phase 21: B14, B15 and B16 against their plain versions at the bench
+    widths (16/16 and 16/4 heads), with shuffled pages, junk pages and
+    non-finite stale scales; B14 against B13 and B16 against B15 on the same
+    K/V; then each timed at the serving decode shape beside B13 and its
+    plain version."""
+    kernels = {"paged_decode": (paged_decode_attention, paged_decode_attention_plain),
+               "decode4": (decode_attention_int4, decode_attention_int4_plain),
+               "paged4_decode": (paged4_decode_attention, paged4_decode_attention_plain)}
+    err = dict.fromkeys(kernels, 0.0)
+    twins = {}
+    for n_q, n_kv in ((16, 16), (16, 4)):
+        q, dense8, paged8, dense4, paged4 = _cache_kinds(dev, gen, n_q, n_kv, CACHE_LENGTHS, True)
+        label = (f"8 seqs, {n_q} q / {n_kv} kv heads, page {PAGE} x {MAX_PAGES}, lengths "
+                 f"{CACHE_LENGTHS}, shuffled pages, junk pages, non-finite stale scales")
+        for name, cache in (("paged_decode", paged8), ("decode4", dense4),
+                            ("paged4_decode", paged4)):
+            err[name] = max(err[name], _check_decode_kernel(name, *kernels[name], q, cache, label))
+        b13 = decode_attention(q, dense8, return_lse=True)
+        b14 = paged_decode_attention(q, paged8, return_lse=True)
+        twins[f"paged_decode_vs_decode_{n_kv}"] = _check_twins(
+            "paged_decode", b14, b13, f"B14 on shuffled pages vs B13 dense, {n_q}/{n_kv} heads")
+        b15 = decode_attention_int4(q, dense4, return_lse=True)
+        b16 = paged4_decode_attention(q, paged4, return_lse=True)
+        twins[f"paged4_decode_vs_decode4_{n_kv}"] = _check_twins(
+            "paged4_decode", b16, b15, f"B16 on shuffled pages vs B15 dense, {n_q}/{n_kv} heads")
+
+    # time at the serving decode's shape: 8 slots x 16 heads, mid-generation
+    length = PROMPT_LEN + NEW_TOKENS // 2
+    q, dense8, paged8, dense4, paged4 = _cache_kinds(dev, gen, 16, 16, [length] * N_SLOTS, False)
+    n_tok = length * N_SLOTS
+    live_pages = N_SLOTS * -(-length // PAGE)
+    flops = 2 * 2 * n_tok * q.shape[1] * 64
+    b13_ms = device_ms(lambda: decode_attention(q, dense8))
+    out = {}
+    for name, cache, per_tok, table_bytes in (
+            ("paged_decode", paged8, 136, 4 * live_pages), ("decode4", dense4, 72, 0),
+            ("paged4_decode", paged4, 72, 4 * live_pages)):
+        fn, plain = kernels[name]
+        ms = device_ms(lambda: fn(q, cache))
+        plain_ms = device_ms(lambda: plain(q, cache), calls=4, replays=5)
+        o = fn(q, cache)
+        # the live tokens' K/V payloads and scales per kv head, the table
+        # entries of the live pages, q, O and the lengths
+        n_bytes = n_tok * cache[0].shape[0 if name != "decode4" else 1] * per_tok + table_bytes
+        bnd = bound(n_bytes + nbytes(q, o, cache[-1]), (flops, PEAK_BF16))
+        log(f"[{name}] 8 slots x 16 heads, length {length} of {BENCH_CFG.max_seq}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, B13 {b13_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, **bnd,
+                     "library_ms": None, "decode_ms_beside": b13_ms}
+    out["paged_decode"]["max_abs_diff_vs_decode"] = max(
+        v for k, v in twins.items() if k.startswith("paged_decode_"))
+    out["paged4_decode"]["max_abs_diff_vs_decode4"] = max(
+        v for k, v in twins.items() if k.startswith("paged4_decode_"))
+    return out
+
+
+CACHE_KERNELS = {"serve_paged": "paged_decode", "serve_kv4": "decode4",
+                 "serve_paged4": "paged4_decode", "serve_paged_pressure": "paged_decode"}
+
+
+def phase_serving_caches(dev, smi, bf16_tokens, bf16_launches) -> dict:
+    """Phase 22: phase 5's run on the paged int8 pool, the slotted int4
+    cache, the paged int4 pool, and the paged pool with 13 pages (four
+    requests at a time: admission requeues and pages are recycled while
+    banks are in flight), between two bf16 slotted runs. Paged tokens equal
+    phase 5's, paged int4 tokens equal slotted int4's; each run launches B1
+    and its cache's decode kernel only. Returns each run's launches."""
+    n_need = -(-(PROMPT_LEN + NEW_TOKENS) // PAGE)
+    pressure_pages = 1 + 4 * n_need
+    runs, speed, tokens = {}, {}, {}
+    for path, kw in (("bf16_before", {}), ("serve_paged", {"cache": "paged"}),
+                     ("serve_kv4", {"kv_quant": "int4"}),
+                     ("serve_paged4", {"cache": "paged", "kv_quant": "int4"}),
+                     ("serve_paged_pressure", {"cache": "paged", "n_pages": pressure_pages}),
+                     ("bf16_after", {})):
+        tokens[path], launches, speed[path], stats = _serve(dev, smi, BENCH_CFG, **kw)
+        used = {k for k, v in launches.items() if v}
+        if path.startswith("bf16"):
+            if tokens[path] != bf16_tokens or launches != bf16_launches:
+                raise AssertionError(f"{path}: the bf16 run differs from phase 5's")
+            continue
+        if used != {"flash_fwd", CACHE_KERNELS[path]}:
+            raise AssertionError(f"{path}: launches {launches}, want flash_fwd and "
+                                 f"{CACHE_KERNELS[path]} only")
+        same_steps = launches[CACHE_KERNELS[path]] == bf16_launches["decode"]
+        if not same_steps and path != "serve_paged_pressure":
+            raise AssertionError(f"{path} decoded another number of steps than phase 5")
+        if path in ("serve_paged", "serve_paged_pressure") and tokens[path] != bf16_tokens:
+            raise AssertionError(f"{path}: tokens differ from the slotted engine's")
+        if path == "serve_paged4" and tokens[path] != tokens["serve_kv4"]:
+            raise AssertionError("serve_paged4: tokens differ from the slotted int4 engine's")
+        if path == "serve_paged_pressure" and not (
+                stats["requeues"] > 0 and stats["pages_free"] == pressure_pages - 1):
+            raise AssertionError(f"serve_paged_pressure: requeues {stats['requeues']}, "
+                                 f"pages_free {stats['pages_free']}")
+        flat = [t for toks in tokens[path] for t in toks]
+        ref = [t for toks in bf16_tokens for t in toks]
+        share = sum(a == b for a, b in zip(flat, ref)) / len(ref)
+        log(f"[serve] {path}: {share:.3f} of the tokens equal the slotted int8 run's; "
+            f"requeues {stats['requeues']}, pages_free {stats.get('pages_free')}")
+        runs[path] = {k: v for k, v in launches.items() if v}
+    bf16 = (speed["bf16_before"] + speed["bf16_after"]) / 2
+    log("[serve] cache kinds, tokens/s against the mean of the bf16 slotted runs beside them ("
+        f"{speed['bf16_before']:.1f}, {speed['bf16_after']:.1f}): "
+        + ", ".join(f"{path} {speed[path]:.1f} ({speed[path] / bf16:.3f})" for path in runs))
     return runs
 
 
@@ -788,7 +1081,9 @@ _COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_dkv": flash_bwd_dkv,
             "int8_fused": int8_attention_fwd_fused, "int8_linear": int8_weight_matmul,
             "int4_linear": int4_weight_matmul, "flash_fwd_fp32": flash_attention_fwd_fp32,
             "jvp_fwd": attention_jvp_fwd, "jvp_tangent": attention_tangent_fwd,
-            "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq}
+            "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq,
+            "paged_decode": paged_decode_attention, "decode4": decode_attention_int4,
+            "paged4_decode": paged4_decode_attention}
 
 
 def _launch_counts():
@@ -1722,6 +2017,8 @@ def main() -> None:
     oracle_launches = phase_jvp_oracle(dev, gen)
     jvp_timing = phase_jvp_timing(dev, gen)
     dit_launches, dit_jvp_launches, _ = phase_dit(dev, smi)
+    caches = phase_cache_kernels(dev, gen)
+    cache_runs = phase_serving_caches(dev, smi, serve_tokens, serve_launches)
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -1789,8 +2086,15 @@ def main() -> None:
                         "replaces": replaces, "launches_by_path": by_path,
                         "max_abs_err": jvp_err[kname], **jvp_timing[kname]})
     kernels[-5]["mode_of"] = "precision='fp32' of the B1 kernel"
-    for k in kernels:  # the quantized serving runs' launches of each kernel they ran
-        for path, counts in quant_runs.items():
+    for kname, replaces in (("paged_decode", "quantizedattention_tpu/parallel/paged_cache.py:252"),
+                            ("decode4", "quantizedattention_tpu/parallel/kv4_cache.py:341"),
+                            ("paged4_decode",
+                             "quantizedattention_tpu/parallel/paged4_cache.py:246")):
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": "quantizedattention_tpu_torch/csrc/cache_decode.cu",
+                        "replaces": replaces, "launches_by_path": {}, **caches[kname]})
+    for k in kernels:  # the quantized and cache-kind serving runs' launches
+        for path, counts in {**quant_runs, **cache_runs}.items():
             if k["name"] in counts:
                 k["launches_by_path"][path] = counts[k["name"]]
     for k in kernels:  # launches: every path's run together

@@ -8,8 +8,11 @@ them over unchanged. Every forward, training and prefill alike, runs the
 configured attention through `_attention`: the corrected-bf16 flash
 attention (forward B1, backward B2 + B3) or, with `attention="int8"`, the
 int8 SageAttention path (B4 quantizes, B5 attends; backward B7 + B8; under
-no_grad, as in prefill, the forward alone). Decode appends to the int8 KV
-cache and runs the int8 decode kernel. Matmuls go through
+no_grad, as in prefill, the forward alone). Decode appends to the KV cache
+and attends through its kind's kernel: the slotted int8 cache (B13), the
+slotted int4 cache (B15), the paged int8 pool (B14) or the paged int4 pool
+(B16), dispatched by the cache's type as the JAX model does
+(`_cache_append`, `_cache_decode`, `_cache_write_slot`). Matmuls go through
 `quantize.weights.mm` and gathers through `embedding_lookup`, so params
 with weight-only int8/int4 leaves (`quantize_lm_weights`) run B17/B18.
 
@@ -26,11 +29,30 @@ import torch
 import torch.nn.functional as F
 
 from quantizedattention_tpu_torch.ops.api import flash_attention_bf16, sage_attention_int8
+from quantizedattention_tpu_torch.parallel.kv4_cache import (
+    Int4KVCache,
+    append_kv4,
+    decode_attention_int4,
+    install_kv4_batched,
+    write_kv4_slot,
+)
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     append_kv,
     decode_attention,
     init_kv_cache,
     write_kv_slot,
+)
+from quantizedattention_tpu_torch.parallel.paged4_cache import (
+    Paged4KVCache,
+    append_tokens_paged4,
+    paged4_decode_attention,
+    write_prompt_paged4,
+)
+from quantizedattention_tpu_torch.parallel.paged_cache import (
+    PagedKVCache,
+    append_tokens_paged,
+    paged_decode_attention,
+    write_prompt_paged,
 )
 from quantizedattention_tpu_torch.quantize.weights import embedding_lookup, mm
 
@@ -208,6 +230,49 @@ def make_train_step(cfg: TransformerConfig, params, optimizer=None):
 # Sampling and KV-cache decoding
 # --------------------------------------------------------------------------
 
+# Cache-kind dispatch (the JAX model's, transformer.py:218-254): slotted
+# int8 (QuantizedKVCache), slotted int4 (Int4KVCache), paged int8
+# (PagedKVCache), paged int4 (Paged4KVCache). A paged cache's sequence id is
+# the engine's slot.
+
+def _cache_append(cache, k, v, active=None):
+    if isinstance(cache, PagedKVCache):
+        return append_tokens_paged(cache, k, v, active)
+    if isinstance(cache, Paged4KVCache):
+        return append_tokens_paged4(cache, k, v, active)
+    if isinstance(cache, Int4KVCache):
+        return append_kv4(cache, k, v, active=active)
+    return append_kv(cache, k, v, active=active)
+
+
+def _cache_install_batch(cache, k, v):
+    """Whole-batch prompt install into all-fresh rows (prefill_batched's
+    contract: every row at length 0); int4 packs whole blocks at once."""
+    if isinstance(cache, Int4KVCache):
+        return install_kv4_batched(cache, k, v)
+    return _cache_append(cache, k, v)
+
+
+def _cache_decode(q, cache):
+    if isinstance(cache, PagedKVCache):
+        return paged_decode_attention(q, cache)
+    if isinstance(cache, Paged4KVCache):
+        return paged4_decode_attention(q, cache)
+    if isinstance(cache, Int4KVCache):
+        return decode_attention_int4(q, cache)
+    return decode_attention(q, cache)
+
+
+def _cache_write_slot(cache, slot, k, v, true_len):
+    if isinstance(cache, PagedKVCache):
+        return write_prompt_paged(cache, slot, k, v, true_len)
+    if isinstance(cache, Paged4KVCache):
+        return write_prompt_paged4(cache, slot, k, v, true_len)
+    if isinstance(cache, Int4KVCache):
+        return write_kv4_slot(cache, slot, k, v, true_len)
+    return write_kv_slot(cache, slot, k, v, true_len)
+
+
 def sample_token(logits, temperature: float = 0.0, generator: torch.Generator | None = None):
     """Greedy (temperature 0 or no generator) or temperature-scaled
     categorical sampling. Accepts [vocab] or [batch, vocab] logits; returns
@@ -231,8 +296,8 @@ def _decode_logits(params, caches, last_tok, pos, active, cfg: TransformerConfig
     for layer, cache in zip(params["layers"], caches):
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
-        cache = append_kv(cache, k, v, active=active)
-        o = decode_attention(q[:, :, 0, :], cache)  # GQA-native
+        cache = _cache_append(cache, k, v, active=active)
+        o = _cache_decode(q[:, :, 0, :], cache)  # GQA-native
         o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
         x = _mlp_residual(layer, x + mm(o, layer["wo"]))
         new_caches.append(cache)
@@ -282,7 +347,8 @@ def prefill_slot(params, caches, tokens, true_len: int, slot: int, cfg: Transfor
     for layer, cache in zip(params["layers"], caches):
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
-        cache = write_kv_slot(cache, slot, k[0], v[0], true_len)
+        # a paged prompt is padded to a page multiple by the engine
+        cache = _cache_write_slot(cache, slot, k[0], v[0], true_len)
         o = _attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
@@ -305,7 +371,7 @@ def prefill_slots(params, caches, tokens, true_lens, slots, cfg: TransformerConf
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
         for i in range(B):
-            cache = write_kv_slot(cache, slots[i:i + 1], k[i], v[i], true_lens[i:i + 1])
+            cache = _cache_write_slot(cache, slots[i:i + 1], k[i], v[i], true_lens[i:i + 1])
         o = _attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
@@ -317,15 +383,16 @@ def prefill_slots(params, caches, tokens, true_lens, slots, cfg: TransformerConf
 @torch.no_grad()
 def prefill_batched(params, caches, prompt, cfg: TransformerConfig,
                     temperature: float = 0.0, generator=None):
-    """Fused prefill of a same-length batch prompt [B, T0], K/V appended to
-    every cache row (all rows at length 0). Returns (next_tok [B], caches)."""
+    """Fused prefill of a same-length batch prompt [B, T0], K/V installed in
+    every cache row (all rows at length 0; a paged cache's rows must own
+    their pages). Returns (next_tok [B], caches)."""
     positions = torch.arange(prompt.shape[1], device=prompt.device)
     x = embedding_lookup(params["embed"], prompt)
     new_caches = []
     for layer, cache in zip(params["layers"], caches):
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
-        cache = append_kv(cache, k, v)
+        cache = _cache_install_batch(cache, k, v)
         o = _attention(q, k, v, cfg)
         x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)

@@ -1,0 +1,269 @@
+"""int4 KV cache and decode attention over it (B15).
+
+Counterpart of quantizedattention_tpu/parallel/kv4_cache.py: payloads
+[b, h_kv, max_len / 2, d] int8 holding two tokens per byte, per-token f32
+scales [b, h_kv, max_len] and lengths [b] int32. The scale is
+max(absmax, 1e-12) * f32(1/7), the product jitted JAX computes for its
+division by 7, and the values are clip(round(x / s), -8, 7) stored as
+two's-complement nibbles.
+
+Packing is the JAX package's storage layout, SPLIT-HALF PER 256-TOKEN PACK
+BLOCK: byte row r of pack block B (buffer row 128 B + r) holds token
+256 B + r in its low nibble and token 256 B + 128 + r in its high nibble,
+so max_len must be a multiple of 256. Any <= 128 consecutive tokens touch
+distinct byte rows, so the read-modify-write appends go in pieces of at
+most 128 tokens and never write one byte row twice in a piece.
+
+The writes update the cache IN PLACE and return it, as kv_cache.py's do.
+Where the JAX append drops a write past max_len, the port rewrites what the
+byte row already holds (or, for the one row the last in-range token
+shares, that token's own bytes), so the cache ends as JAX's does.
+
+`decode_attention_int4` launches the Hopper kernel (csrc/cache_decode.cu,
+entry qa_decode4) for CUDA tensors and runs `decode_attention_int4_plain`
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from quantizedattention_tpu_torch._build import load_kernel
+from quantizedattention_tpu_torch.ops.common import qk_scales
+from quantizedattention_tpu_torch.ops.int4_linear import unpack_int4
+from quantizedattention_tpu_torch.parallel.kv_cache import (
+    _HEAD_DIM,
+    _MAX_GROUP,
+    QuantizedKVCache,
+    _one,
+    decode_attention_plain,
+)
+from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
+
+PACK = 256  # tokens per pack block (128 byte rows)
+_HALF = PACK // 2
+# f32(1/7): the scale is absmax times it, as jitted JAX computes absmax / 7
+INV_INT4_MAX = 1.0 / 7.0
+
+
+class Int4KVCache(NamedTuple):
+    """int4 KV cache: packed payloads [b, h_kv, max_len/2, d], scales
+    [b, h_kv, max_len] f32, lengths [b] int32."""
+
+    k_p: torch.Tensor
+    sk: torch.Tensor
+    v_p: torch.Tensor
+    sv: torch.Tensor
+    length: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return 2 * self.k_p.shape[2]
+
+
+def init_kv4_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,
+                   device=None) -> Int4KVCache:
+    if max_len % PACK != 0:
+        raise ValueError(f"max_len={max_len} must be a multiple of {PACK} (int4 pack blocks)")
+    payload = (batch, n_kv_heads, max_len // 2, head_dim)
+    return Int4KVCache(
+        k_p=torch.zeros(payload, dtype=torch.int8, device=device),
+        sk=torch.zeros(payload[:2] + (max_len,), dtype=torch.float32, device=device),
+        v_p=torch.zeros(payload, dtype=torch.int8, device=device),
+        sv=torch.zeros(payload[:2] + (max_len,), dtype=torch.float32, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _quant4_rows(x: torch.Tensor):
+    """Per-token symmetric int4: (low nibbles [..., t, d] int8 in [0, 15],
+    scales [..., t] f32)."""
+    s = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-12) * INV_INT4_MAX
+    v = torch.clamp(torch.round(x / s), -8.0, 7.0).to(torch.int8)
+    return v & 0x0F, s[..., 0].float()
+
+
+def _rows_nibbles(positions: torch.Tensor):
+    """Token positions -> (byte rows, nibble index: 0 = low, 1 = high)."""
+    blk, r = positions // PACK, positions % PACK
+    return blk * _HALF + r % _HALF, r // _HALF
+
+
+def _combine(cur: torch.Tensor, vals4: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Byte rows `cur` (int8) with the nibble selected by `hi` replaced by
+    the low nibbles `vals4`; bitwise, in uint8."""
+    c, v = cur.view(torch.uint8), vals4.view(torch.uint8)
+    out = torch.where(hi, (c & 0x0F) | (v << 4), (c & 0xF0) | v)
+    return out.view(torch.int8)
+
+
+def _pack_halves(v4: torch.Tensor, block: int) -> torch.Tensor:
+    """[..., t, d] nibbles (t a multiple of `block`) -> [..., t/2, d] bytes:
+    in each block of `block` tokens, byte row r = token r | token r + block/2."""
+    *lead, t, d = v4.shape
+    g = v4.view(torch.uint8).reshape(*lead, t // block, block, d)
+    packed = g[..., : block // 2, :] | (g[..., block // 2:, :] << 4)
+    return packed.reshape(*lead, t // 2, d).view(torch.int8)
+
+
+def _write_tokens(pairs, start):
+    """Write one piece of <= 128 tokens per row into each (buf, sbuf, vals4,
+    s) of `pairs` (K, then V): nibbles vals4 [b, h, c, d] and scales
+    s [b, h, c] at positions start[b] + 0 .. c-1 of buf [b, h, L/2, d] and
+    sbuf [b, h, L], reading each byte row first.
+
+    A token past max_len is written to the last position's byte row with the
+    bytes that row gets anyway: the last token's own new bytes when it is in
+    the piece (the same value twice), else the row's current bytes."""
+    buf, sbuf, vals4, _ = pairs[0]
+    b, _, c, _ = vals4.shape
+    dev = buf.device
+    positions = start[:, None] + torch.arange(c, device=dev)[None]  # [b, c]
+    clamped = positions.clamp(max=sbuf.shape[2] - 1)
+    src = clamped - start[:, None]  # the piece's token that lands there, < 0 if none
+    write = src >= 0
+    src = src.clamp(min=0)
+    rows, nib = _rows_nibbles(clamped)
+    hi = nib.bool()[:, :, None, None]
+    bi = torch.arange(b, device=dev)[:, None]
+    for buf, sbuf, vals4, s in pairs:
+        # advanced indices at dims 0 and 2 go first: [b, c, h(, d)]
+        vals = torch.gather(vals4, 2, src[:, None, :, None].expand_as(vals4)).transpose(1, 2)
+        cur = buf[bi, :, rows]
+        buf[bi, :, rows] = torch.where(write[:, :, None, None], _combine(cur, vals, hi), cur)
+        s_new = torch.gather(s, 2, src[:, None, :].expand_as(s)).transpose(1, 2)
+        sbuf[bi, :, clamped] = torch.where(write[:, :, None], s_new, sbuf[bi, :, clamped])
+
+
+def append_kv4(cache: Int4KVCache, k_new, v_new, active=None) -> Int4KVCache:
+    """Quantize and append [b, h_kv, t_new, d] K/V at each row's length: the
+    int4 twin of kv_cache.append_kv (same active contract: inactive rows
+    write at their stale length and do not advance). In pieces of <= 128
+    tokens, so no byte row is written twice in a piece."""
+    t_new = k_new.shape[2]
+    k4, sk = _quant4_rows(k_new.float())
+    v4, sv = _quant4_rows(v_new.float())
+    length = cache.length.long()
+    for c0 in range(0, t_new, _HALF):
+        c1 = min(c0 + _HALF, t_new)
+        _write_tokens([(cache.k_p, cache.sk, k4[:, :, c0:c1], sk[:, :, c0:c1]),
+                       (cache.v_p, cache.sv, v4[:, :, c0:c1], sv[:, :, c0:c1])], length + c0)
+    adv = t_new if active is None else t_new * active.to(torch.int32)
+    cache.length.add_(adv)
+    return cache
+
+
+def _padded_quant4(x: torch.Tensor):
+    """Quantize [..., t, d] after zero-padding t to a PACK multiple."""
+    pad = (-x.shape[-2]) % PACK
+    return _quant4_rows(torch.nn.functional.pad(x.float(), (0, 0, 0, pad)))
+
+
+def install_kv4_batched(cache: Int4KVCache, k_new, v_new) -> Int4KVCache:
+    """Whole-prompt install into ALL-FRESH rows (every row at length 0, as
+    prefill_batched requires): one arithmetic lo | hi << 4 pack per pack
+    block. k_new/v_new [b, h_kv, t, d]; every row's length becomes t."""
+    t = k_new.shape[2]
+    for buf, sbuf, x in ((cache.k_p, cache.sk, k_new), (cache.v_p, cache.sv, v_new)):
+        x4, s = _padded_quant4(x)
+        tp = s.shape[-1]
+        buf[:, :, : tp // 2] = _pack_halves(x4, PACK)
+        sbuf[:, :, :tp] = s
+    cache.length.fill_(t)
+    return cache
+
+
+def write_kv4_slot(cache: Int4KVCache, slot, k_new, v_new, true_len) -> Int4KVCache:
+    """Fused-prefill install of [h_kv, t, d] K/V at batch row `slot` from
+    position 0 (the int4 twin of kv_cache.write_kv_slot). t is padded to a
+    PACK multiple and packed arithmetically; the payload past it is left as
+    it is, the scales are rewritten to max_len (zeros past t), as JAX does.
+    slot/true_len: Python ints or one-element tensors."""
+    dev = cache.k_p.device
+    idx = _one(slot, torch.long, dev)
+    for buf, sbuf, x in ((cache.k_p, cache.sk, k_new), (cache.v_p, cache.sv, v_new)):
+        x4, s = _padded_quant4(x)
+        rows = min(s.shape[-1] // 2, buf.shape[2])
+        buf[:, :, :rows].index_copy_(0, idx, _pack_halves(x4, PACK)[None, :, :rows])
+        s = torch.nn.functional.pad(s, (0, max(0, cache.max_len - s.shape[-1])))
+        sbuf.index_copy_(0, idx, s[None, :, : cache.max_len])
+    cache.length.index_copy_(0, idx, _one(true_len, torch.int32, dev))
+    return cache
+
+
+def unpack_tokens(p: torch.Tensor, block: int) -> torch.Tensor:
+    """[..., rows, d] packed bytes -> [..., 2 rows, d] int32 values in token
+    order, for split-half blocks of `block` tokens."""
+    *lead, rows, d = p.shape
+    lo, hi = unpack_int4(p)  # the shared nibble decode (ops/int4_linear.py)
+    lo = lo.reshape(*lead, rows // (block // 2), block // 2, d)
+    hi = hi.reshape(*lead, rows // (block // 2), block // 2, d)
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, 2 * rows, d)
+
+
+def dequantize_kv4(cache: Int4KVCache):
+    """Unpack to f32 K/V [b, h, max_len, d]: the tests' view."""
+    k = unpack_tokens(cache.k_p, PACK).float() * cache.sk[..., None]
+    v = unpack_tokens(cache.v_p, PACK).float() * cache.sv[..., None]
+    return k, v
+
+
+def decode_attention_int4_plain(q, cache: Int4KVCache, sm_scale=None, return_lse=False):
+    """B15's arithmetic in plain PyTorch: the nibbles unpacked to token
+    order, then `decode_attention_plain` (q and the int4 values as bf16,
+    tokens at or past a row's length masked with `where`)."""
+    dense = QuantizedKVCache(unpack_tokens(cache.k_p, PACK), cache.sk,
+                             unpack_tokens(cache.v_p, PACK), cache.sv, cache.length)
+    return decode_attention_plain(q, dense, sm_scale, return_lse)
+
+
+@functools.cache
+def _kernel():
+    fn = load_kernel("cache_decode").qa_decode4
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention_int4(q, cache: Int4KVCache, sm_scale=None, return_lse=False):
+    """Single-token decode against the int4 cache: q [b, H, d], GQA as in
+    kv_cache.decode_attention. Returns O [b, H, d] f32 (and the exp2 lse
+    [b, H] with return_lse=True). CUDA tensors launch B15 (head_dim 64) or
+    raise; CPU tensors take `decode_attention_int4_plain`. `.launches`
+    counts kernel launches."""
+    if q.device.type == "cpu":
+        return decode_attention_int4_plain(q, cache, sm_scale, return_lse)
+    b, n_q, d = q.shape
+    if q.ndim != 3 or b != cache.k_p.shape[0] or d != cache.k_p.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit cache {tuple(cache.k_p.shape)}")
+    n_kv = cache.k_p.shape[1]
+    if n_q % n_kv != 0:
+        raise ValueError(f"{n_q} q heads not a multiple of {n_kv} kv heads")
+    group = n_q // n_kv
+    if d != _HEAD_DIM or group > _MAX_GROUP or n_kv > 65535 or b > 65535:
+        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, group <= {_MAX_GROUP}; "
+                         f"got d={d}, group={group}")
+    if (cache.k_p.dtype, cache.v_p.dtype, cache.sk.dtype, cache.sv.dtype,
+            cache.length.dtype) != (torch.int8, torch.int8, torch.float32, torch.float32,
+                                    torch.int32):
+        raise TypeError("cache must be int8 payloads, f32 scales and int32 lengths")
+    _, qk_scale = qk_scales(d, sm_scale)
+    qb = q.to(torch.bfloat16).contiguous()
+    dev = require_cuda(qb, cache.k_p, cache.sk, cache.v_p, cache.sv, cache.length)
+    o = torch.empty((b, n_q, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, n_q), dtype=torch.float32, device=dev)
+    status = _kernel()(
+        qb.data_ptr(), cache.k_p.data_ptr(), cache.sk.data_ptr(), cache.v_p.data_ptr(),
+        cache.sv.data_ptr(), cache.length.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, n_kv, group, cache.max_len, qk_scale, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_status(status, "decode4")
+    decode_attention_int4.launches += 1
+    return (o, lse) if return_lse else o
+
+
+decode_attention_int4.launches = 0

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.common import qk_scales
+from quantizedattention_tpu_torch.quantize.int8 import INV_INT8_MAX
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 _HEAD_DIM = 64  # the kernel's compiled head dim
@@ -56,8 +57,13 @@ def init_kv_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,
 
 
 def _row_quant(x: torch.Tensor):
-    """Per-token symmetric int8: returns (x_i8 [..., t, d], scales [..., t])."""
-    s = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-12) / 127.0
+    """Per-token symmetric int8: returns (x_i8 [..., t, d], scales [..., t]).
+
+    The scale is max(absmax, 1e-12) * f32(1/127): the JAX cache writers run
+    only under jit, where XLA turns the division by 127 into that product
+    (an IEEE division sits one ulp away for about 4% of rows). The payload
+    divides by the scale, as jitted JAX does."""
+    s = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-12) * INV_INT8_MAX
     x_i8 = torch.clamp(torch.round(x / s), -127.0, 127.0).to(torch.int8)
     return x_i8, s[..., 0].float()
 
@@ -87,6 +93,14 @@ def append_kv(cache: QuantizedKVCache, k_new, v_new, active=None) -> QuantizedKV
     return cache
 
 
+def _one(x, dtype, device) -> torch.Tensor:
+    """A Python int or a one-element tensor as a [1] tensor of `dtype` on
+    `device`; the cache writers take slots and lengths in either form."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1).to(device=device, dtype=dtype)
+    return torch.full((1,), x, dtype=dtype, device=device)
+
+
 def write_kv_slot(cache: QuantizedKVCache, slot, k_new, v_new, true_len) -> QuantizedKVCache:
     """Fused-prefill write: quantize [h_kv, t, d] K/V and install them at
     batch row `slot`, resetting the row's length to `true_len` (<= t; the
@@ -98,13 +112,7 @@ def write_kv_slot(cache: QuantizedKVCache, slot, k_new, v_new, true_len) -> Quan
     k_i8, sk = _row_quant(k_new.float())
     v_i8, sv = _row_quant(v_new.float())
     dev = cache.k_i8.device
-
-    def one(x, dtype):
-        if isinstance(x, torch.Tensor):
-            return x.reshape(1).to(dtype)
-        return torch.full((1,), x, dtype=dtype, device=dev)
-
-    idx = one(slot, torch.long)
+    idx = _one(slot, torch.long, dev)
 
     def fit(val):
         t = val.shape[1]
@@ -117,7 +125,7 @@ def write_kv_slot(cache: QuantizedKVCache, slot, k_new, v_new, true_len) -> Quan
     cache.sk.index_copy_(0, idx, fit(sk))
     cache.v_i8.index_copy_(0, idx, fit(v_i8))
     cache.sv.index_copy_(0, idx, fit(sv))
-    cache.length.index_copy_(0, idx, one(true_len, torch.int32))
+    cache.length.index_copy_(0, idx, _one(true_len, torch.int32, dev))
     return cache
 
 

@@ -1,7 +1,6 @@
-"""Continuous-batching serving engine on the int8 KV cache (one device).
+"""Continuous-batching serving engine on a quantized KV cache (one device).
 
-Counterpart of quantizedattention_tpu/serve/engine.py's single-device path
-with the slotted int8 cache:
+Counterpart of quantizedattention_tpu/serve/engine.py's single-device path:
   * requests join an FCFS queue (`submit`) owned by the scheduler
     (serve/scheduler.py);
   * each `step` runs ONE action: admit waiting requests into free cache
@@ -18,15 +17,26 @@ the `.cpu()` of a token batch waits. Bookkeeping therefore lags one action:
 a slot that finished inside a bank keeps decoding into its own cache until
 the host sees it, and the surplus tokens are discarded.
 
+Cache kinds (`cache`, `kv_quant`), as in the JAX engine: the slotted int8
+cache (one max_seq row per slot; decode B13), the slotted int4 cache
+(`kv_quant="int4"`; B15), the paged int8 pool (`cache="paged"`; B14) and
+the paged int4 pool (both; B16). A paged request gets the pages of its whole
+prompt + budget at admission, all or nothing, from the host's allocator;
+when the pool is short it goes back to the front of the queue and the
+engine decodes meanwhile; its pages are freed when the host records its
+last token. A bank still in flight for a finished request runs before the
+next prefill on the same stream, and after the host records the finish
+the slot is inactive, so its appends never reach the recycled pages.
+
 Prefill runs the config's attention: B1, or with attention="int8" the int8
 SageAttention forward (B4 quantizes, B5 attends), as the JAX engine's
-prefill does; decode runs B13 either way. `weight_quant="int8"` / `"int4"`
+prefill does. `weight_quant="int8"` / `"int4"`
 quantizes the params after the `param_dtype` cast (`quantize_lm_weights`,
 scales kept f32), so every projection and the unembedding run B17 / B18.
 
-The JAX engine's mesh serving, paged/int4 caches, speculative decoding,
-prefix cache, chunked prefill, adaptive horizon and top-k/top-p sampling are
-not ported yet; asking for any of them raises NotImplementedError.
+The JAX engine's mesh serving, speculative decoding, prefix cache, chunked
+prefill, adaptive horizon and top-k/top-p sampling are not ported yet;
+asking for any of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,18 +52,26 @@ from quantizedattention_tpu_torch.models.transformer import (
     prefill_slot,
     prefill_slots,
 )
+from quantizedattention_tpu_torch.parallel.kv4_cache import init_kv4_cache
 from quantizedattention_tpu_torch.parallel.kv_cache import init_kv_cache
+from quantizedattention_tpu_torch.parallel.paged4_cache import init_paged4_cache
+from quantizedattention_tpu_torch.parallel.paged_cache import assign_pages, init_paged_cache
 from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
     quantize_lm_weights,
 )
-from quantizedattention_tpu_torch.serve.scheduler import DECODE, IDLE, PREFILL, make_scheduler
+from quantizedattention_tpu_torch.serve.scheduler import (
+    DECODE,
+    IDLE,
+    PREFILL,
+    make_pager,
+    make_scheduler,
+)
 
 # option -> the value that leaves it off; any other value is not ported yet
 _UNPORTED = {
-    "mesh": None, "cache": "slotted", "kv_quant": None, "spec_decode": None,
-    "prefix_cache": False, "prefill_chunk": None,
+    "mesh": None, "spec_decode": None, "prefix_cache": False, "prefill_chunk": None,
     "adaptive_horizon": None, "top_k": 0, "top_p": 1.0,
 }
 
@@ -97,16 +115,22 @@ class ServingEngine:
     e.g. torch.bfloat16, casts the floating weights first). weight_quant:
     None, "int8" or "int4" quantizes the (cast) weights for serving; params
     that already hold quantized weights are served as they are. eos_id:
-    optional stop token. scheduler: "native" (the C++ core) or "python" (its
-    twin). decode_horizon: decode steps per dispatched bank (one token fetch
-    per bank). temperature > 0 samples with a torch.Generator seeded by
-    `seed`.
+    optional stop token. scheduler: "native" (the C++ core and page
+    allocator) or "python" (their twins). decode_horizon: decode steps per
+    dispatched bank (one token fetch per bank). temperature > 0 samples with
+    a torch.Generator seeded by `seed`. cache: "slotted" or "paged";
+    page_size (any positive even number) and n_pages (default
+    1 + n_slots * ceil(max_seq / page_size), page 0 reserved) size the paged
+    pool. kv_quant: None (int8) or "int4"; the slotted int4 cache needs
+    max_seq a multiple of 256.
     """
 
     def __init__(self, params, cfg: TransformerConfig, device, n_slots: int = 4,
                  eos_id: int | None = None, scheduler: str = "native",
                  temperature: float = 0.0, seed: int = 0, param_dtype=None,
-                 weight_quant: str | None = None, decode_horizon: int = 1, **unported):
+                 weight_quant: str | None = None, decode_horizon: int = 1,
+                 cache: str = "slotted", page_size: int = 128, n_pages: int | None = None,
+                 kv_quant: str | None = None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -115,6 +139,10 @@ class ServingEngine:
                     f"ServingEngine({name}=...) is not ported to the PyTorch package yet")
         if weight_quant not in (None, "int8", "int4"):
             raise ValueError("weight_quant must be 'int8', 'int4', or None")
+        if kv_quant not in (None, "int4"):
+            raise ValueError("kv_quant must be 'int4' or None")
+        if cache not in ("slotted", "paged"):
+            raise ValueError(f"unknown cache kind {cache!r}")
         if decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         if temperature < 0.0:
@@ -133,8 +161,25 @@ class ServingEngine:
         if temperature > 0.0:
             self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.sched = make_scheduler(scheduler, n_slots, cfg.max_seq)
-        self.caches = [init_kv_cache(n_slots, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim,
-                                     self.device) for _ in range(cfg.n_layers)]
+        self.cache_kind = cache
+        self._pager = None
+        # the pages each slot owns, returned to the pager when it finishes
+        self._slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
+        if cache == "paged":
+            # one allocator; the same page ids index every layer's pool, and
+            # each layer's cache keeps its own copy of the table and lengths
+            self._page_size = page_size
+            self._max_pages = -(-cfg.max_seq // page_size)
+            if n_pages is None:
+                n_pages = 1 + n_slots * self._max_pages  # page 0 reserved
+            self._pager = make_pager(scheduler, n_pages)
+            init = init_paged4_cache if kv_quant == "int4" else init_paged_cache
+            self.caches = [init(cfg.n_kv_heads, n_pages, n_slots, self._max_pages, cfg.head_dim,
+                                page_size, self.device) for _ in range(cfg.n_layers)]
+        else:
+            init = init_kv4_cache if kv_quant == "int4" else init_kv_cache
+            self.caches = [init(n_slots, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim, self.device)
+                           for _ in range(cfg.n_layers)]
         self.last_tok = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
         self.pos = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
         self.active = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
@@ -161,13 +206,18 @@ class ServingEngine:
 
         on_token: optional streaming callback `fn(request_id, token, done)`,
         invoked as tokens are recorded host-side. Raises ValueError if
-        prompt + budget can never fit the KV capacity.
+        prompt + budget can never fit the KV capacity (or the page pool).
         """
         prompt = [int(t) for t in prompt]
         if any(t < 0 or t >= self.cfg.vocab_size for t in prompt):
             raise ValueError(f"prompt token out of range [0, {self.cfg.vocab_size})")
         rid = self._next_id
         self._next_id += 1
+        if self._pager is not None:
+            n_need = -(-(len(prompt) + max_new_tokens) // self._page_size)
+            usable = self.caches[0].n_pages - 1
+            if n_need > usable:
+                raise ValueError(f"request rejected: needs {n_need} pages > pool of {usable}")
         if not self.sched.submit(rid, len(prompt), max_new_tokens):
             raise ValueError(
                 f"request rejected: prompt {len(prompt)} + budget {max_new_tokens} "
@@ -205,17 +255,20 @@ class ServingEngine:
         return dict(self._ledger)
 
     def stats(self) -> dict:
-        """Serving observability: queue/slot occupancy and token counts."""
-        return {
+        """Serving observability: queue/slot occupancy, token and page counts."""
+        s = {
             "active": self.sched.num_active,
             "waiting": self.sched.num_waiting,
             "completed": self.sched.num_completed,
             "tokens_generated": self._tokens_generated,
             "last_run_tokens_per_s": self._last_run_tokens_per_s,
-            "cache": "slotted",
+            "cache": self.cache_kind,
             "decode_horizon": self.decode_horizon,
-            "ledger": dict(self._ledger),
         }
+        if self._pager is not None:
+            s["pages_free"] = self._pager.num_free
+        s["ledger"] = dict(self._ledger)
+        return s
 
     # -- engine side ---------------------------------------------------------
 
@@ -258,12 +311,37 @@ class ServingEngine:
             self._budgets.pop(rid, None)
             self._slot_req[slot] = -1
             self.active[slot] = False
+            if self._slot_pages[slot]:
+                self._pager.free(self._slot_pages[slot])
+                self._slot_pages[slot] = []
 
     def _pad_len(self, prompt) -> int:
+        if self._pager is not None:  # paged prompts fill whole pages
+            return -(-max(len(prompt), 1) // self._page_size) * self._page_size
         # power-of-two bucket, clamped at the 128-rounded cache capacity
         return min(_bucket(len(prompt)), -(-self.cfg.max_seq // 128) * 128)
 
+    def _admit_pages(self, rid: int, slot: int) -> bool:
+        """Paged admission: the pages of the whole prompt + budget, all or
+        nothing. False, with the request requeued at the queue's front, when
+        the pool is short: completions free pages, and submit() guarantees
+        the request fits an empty pool."""
+        n_need = -(-(len(self._prompts[rid]) + self._budgets[rid]) // self._page_size)
+        pages = self._pager.alloc(n_need)
+        if pages is None:
+            self.sched.requeue(slot)
+            return False
+        self._slot_pages[slot] = pages
+        row = self._to_device(pages + [0] * (self._max_pages - len(pages)), torch.int32)
+        for c in self.caches:
+            assign_pages(c, slot, row)
+        return True
+
     def _do_prefill(self, rid: int, slot: int):
+        if self._pager is not None and not self._admit_pages(rid, slot):
+            if self.sched.num_active > 0:
+                self._do_decode()
+            return
         # batched admission: while requests wait and slots are free the
         # scheduler keeps answering PREFILL; drain them into ONE prefill
         batch = [(rid, slot, self._prompts[rid])]
@@ -271,14 +349,16 @@ class ServingEngine:
             action, rid2, slot2 = self.sched.next_action()
             if action != PREFILL:
                 break
+            if self._pager is not None and not self._admit_pages(rid2, slot2):
+                break  # rid2 requeued; serve what we have
             batch.append((rid2, slot2, self._prompts[rid2]))
         self._dispatch_prefills(batch)
 
-    def _to_device(self, data) -> torch.Tensor:
+    def _to_device(self, data, dtype=None) -> torch.Tensor:
         """A host list as a device tensor. A blocking host-to-device copy
         would wait for all enqueued work (it synchronises the stream), so
         CUDA copies go through pinned memory without blocking."""
-        t = torch.tensor(data)
+        t = torch.tensor(data, dtype=dtype)
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)

@@ -9,6 +9,11 @@ Policy (both): FCFS; a waiting request is admitted the moment a slot is free
 (prefill preferred over decode, keeping the decode batch full); a request
 whose prompt_len + max_new_tokens exceeds the KV capacity is rejected at
 submit.
+
+The page allocator of the paged KV caches lives in the same C++ source
+(`qa_pager_*`), again with a Python twin: a LIFO free list of pages in
+which page 0 is reserved (page tables point unused entries at it) and an
+allocation is all-or-nothing.
 """
 
 from __future__ import annotations
@@ -43,6 +48,14 @@ def _native_lib():
     lib.qa_sched_num_completed.argtypes = [ctypes.c_void_p]
     lib.qa_sched_slot_request.restype = ctypes.c_int32
     lib.qa_sched_slot_request.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.qa_pager_create.restype = ctypes.c_void_p
+    lib.qa_pager_create.argtypes = [ctypes.c_int32]
+    lib.qa_pager_destroy.argtypes = [ctypes.c_void_p]
+    lib.qa_pager_alloc.restype = ctypes.c_int32
+    lib.qa_pager_alloc.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)]
+    lib.qa_pager_free.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)]
+    lib.qa_pager_num_free.restype = ctypes.c_int32
+    lib.qa_pager_num_free.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -166,6 +179,81 @@ class PyScheduler:
 
     def slot_request(self, slot: int) -> int:
         return self._slots[slot].request_id
+
+
+class NativePager:
+    """ctypes handle to the C++ page allocator of the paged KV caches."""
+
+    def __init__(self, n_pages: int):
+        self._lib = _native_lib()
+        self._h = self._lib.qa_pager_create(n_pages)
+        if not self._h:
+            raise ValueError(f"bad pager args: n_pages={n_pages}")
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.qa_pager_destroy(self._h)
+            self._h = None
+
+    __del__ = close
+
+    def alloc(self, n: int) -> list[int] | None:
+        """n page ids, or None if fewer than n are free (all-or-nothing)."""
+        if n <= 0:
+            return None
+        out = (ctypes.c_int32 * n)()
+        if self._lib.qa_pager_alloc(self._h, n, out) != n:
+            return None
+        return list(out)
+
+    def free(self, pages) -> None:
+        """Return pages to the pool; page 0, ids out of range and pages
+        already free are ignored."""
+        arr = (ctypes.c_int32 * len(pages))(*pages)
+        self._lib.qa_pager_free(self._h, len(pages), arr)
+
+    @property
+    def num_free(self) -> int:
+        return self._lib.qa_pager_num_free(self._h)
+
+
+class PyPager:
+    """Pure-Python twin of the native page allocator (same LIFO policy)."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise ValueError(f"bad pager args: n_pages={n_pages}")
+        self.n_pages = n_pages
+        self._free = list(range(n_pages - 1, 0, -1))  # page 0 reserved
+        self._is_free = [False] + [True] * (n_pages - 1)
+
+    def alloc(self, n: int) -> list[int] | None:
+        if n <= 0 or n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._is_free[p] = False
+        return pages
+
+    def free(self, pages) -> None:
+        # a double free would alias one page to two requests on the next alloc
+        for p in pages:
+            if 1 <= p < self.n_pages and not self._is_free[p]:
+                self._free.append(p)
+                self._is_free[p] = True
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+
+def make_pager(kind: str, n_pages: int):
+    """"native" (the C++ allocator; raises if it cannot be built) or "python"."""
+    if kind == "native":
+        return NativePager(n_pages)
+    if kind == "python":
+        return PyPager(n_pages)
+    raise ValueError(f"unknown pager {kind!r}")
 
 
 def make_scheduler(kind: str, n_slots: int, max_len: int):

@@ -37,7 +37,13 @@ from quantizedattention_tpu_torch.models import (
     transformer_forward,
 )
 from quantizedattention_tpu_torch.models.transformer import _decode_logits
-from quantizedattention_tpu_torch.parallel.kv_cache import QuantizedKVCache, init_kv_cache
+from quantizedattention_tpu_torch.parallel import (
+    Int4KVCache,
+    Paged4KVCache,
+    PagedKVCache,
+    QuantizedKVCache,
+    init_kv_cache,
+)
 from quantizedattention_tpu_torch.quantize.weights import QuantizedWeight, QuantizedWeight4
 from quantizedattention_tpu_torch.serve import PyScheduler, ServingEngine
 from quantizedattention_tpu_torch.serve.scheduler import (
@@ -319,14 +325,45 @@ def test_engine_rejects_bad_requests(lm):
 
 @pytest.mark.parametrize(
     "option,value",
-    [("mesh", object()), ("cache", "paged"), ("kv_quant", "int4"),
-     ("spec_decode", 2), ("prefix_cache", True), ("prefill_chunk", 128),
+    [("mesh", object()), ("spec_decode", 2), ("prefix_cache", True), ("prefill_chunk", 128),
      ("adaptive_horizon", 8), ("top_k", 5), ("top_p", 0.9)],
 )
 def test_engine_unported_options_raise(lm, option, value):
     _, _, cfg, tparams = lm
     with pytest.raises(NotImplementedError, match=option):
         ServingEngine(tparams, cfg, "cpu", **{option: value})
+
+
+@pytest.mark.parametrize(
+    "options,cache_type",
+    [({}, QuantizedKVCache), ({"cache": "paged"}, PagedKVCache),
+     ({"cache": "paged", "page_size": 64}, PagedKVCache),
+     ({"kv_quant": "int4"}, Int4KVCache), ({"cache": "paged", "kv_quant": "int4"}, Paged4KVCache)],
+)
+def test_engine_cache_options_build_their_cache(lm, options, cache_type):
+    _, _, cfg, tparams = lm
+    if options.get("kv_quant") == "int4" and options.get("cache") != "paged":
+        cfg = TransformerConfig(**{**CFG, "max_seq": 256})  # whole int4 pack blocks
+    eng = ServingEngine(tparams, cfg, "cpu", n_slots=3, **options)
+    assert all(type(c) is cache_type for c in eng.caches) and len(eng.caches) == cfg.n_layers
+    stats = eng.stats()
+    assert stats["cache"] == options.get("cache", "slotted")
+    if options.get("cache") == "paged":
+        ps = options.get("page_size", 128)
+        max_pages = -(-cfg.max_seq // ps)
+        assert eng.caches[0].page_size == ps and eng.caches[0].page_table.shape == (3, max_pages)
+        assert eng.caches[0].n_pages == 1 + 3 * max_pages
+        assert stats["pages_free"] == 3 * max_pages  # page 0 is reserved
+    else:
+        assert "pages_free" not in stats
+
+
+@pytest.mark.parametrize("options", [{"kv_quant": "int8"}, {"cache": "bogus"},
+                                     {"cache": "paged", "page_size": 7}])
+def test_engine_bad_cache_options_raise(lm, options):
+    _, _, cfg, tparams = lm
+    with pytest.raises(ValueError):
+        ServingEngine(tparams, cfg, "cpu", **options)
 
 
 @pytest.mark.parametrize("weight_quant", ["int8", "int4"])
@@ -347,7 +384,9 @@ def test_engine_weight_quant_is_ported(lm, weight_quant):
 def test_unported_model_paths_raise(lm):
     _, _, cfg, tparams = lm
     with pytest.raises(TypeError, match="unexpected"):
-        ServingEngine(tparams, cfg, "cpu", page_size=64)
+        ServingEngine(tparams, cfg, "cpu", page_sz=64)
+    with pytest.raises(ValueError, match="multiple of 256"):  # the int4 pack block
+        ServingEngine(tparams, cfg, "cpu", kv_quant="int4")
     # int8 attention prefills, generates and serves
     # (tests/test_torch_int8_inference.py holds them against the JAX package)
     int8_cfg = TransformerConfig(**{**CFG, "attention": "int8"})
