@@ -106,6 +106,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      slotted runs bracket them for tokens/s. Every serving run (phases 5,
      16, 22) also holds one decode step's logits on its final cache state
      against the plain path on the CPU.
+ 23. the verify staircase (spec > 1) of B13-B16 against the plain versions,
+     spec 2 and 5, at 16/16 and 16/4 heads, phase 21's shuffled pages, junk
+     pages and NaN/inf scales, with lengths [0, 1, 3, 129, 257, 1000, 1280,
+     640] (rows shorter than spec, len % 128 < spec, full capacity); every
+     query row j bit-equal to the spec = 1 launch at its own length
+     len - spec + 1 + j; then each timed at 8 slots x 16 heads x spec 5,
+     length 304 of 1280, beside its spec = 1 time and its plain version;
+ 24. speculative serving at bench.py:bench_spec_decode's widths (the bench
+     LM at max_seq 512, bf16; 8 periodic prompts of 256 tokens, 16-token
+     motifs, 96 new tokens each): the plain engine at decode horizon 32 and
+     spec_decode=4 on each cache kind (slotted int8, paged int8, slotted
+     int4, paged int4), each a warm-up and a timed run that repeats it. Spec
+     tokens equal the plain engine's (a difference is printed, and fails
+     unless the plain run's top-2 logit gap there, read in f32 from an exact
+     replay of that run, is below 1e-2 or one bf16 ulp of its top logit,
+     whichever is larger); drafts are
+     accepted; a spec run launches B1 and its kind's verify kernel, n_layers
+     times per spec step, and no other decode kernel; one verify step's
+     logits on the final cache state agree with the CPU plain path.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -118,6 +137,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -186,29 +206,43 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd_fp32,
     flash_attention_fwd_plain,
 )
-from quantizedattention_tpu_torch.models.transformer import _decode_logits
+from quantizedattention_tpu_torch.models.transformer import (
+    _decode_logits,
+    _verify_logits,
+    prefill_slots,
+)
 from quantizedattention_tpu_torch.parallel.kv4_cache import (
     PACK,
     Int4KVCache,
     _pack_halves,
     decode_attention_int4,
     decode_attention_int4_plain,
+    init_kv4_cache,
     unpack_tokens,
+    verify_decode_attention_int4,
+    verify_decode_attention_int4_plain,
 )
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     QuantizedKVCache,
     decode_attention,
     decode_attention_plain,
+    init_kv_cache,
+    verify_decode_attention,
+    verify_decode_attention_plain,
 )
 from quantizedattention_tpu_torch.parallel.paged4_cache import (
     Paged4KVCache,
     paged4_decode_attention,
     paged4_decode_attention_plain,
+    paged4_verify_attention,
+    paged4_verify_attention_plain,
 )
 from quantizedattention_tpu_torch.parallel.paged_cache import (
     PagedKVCache,
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_verify_attention,
+    paged_verify_attention_plain,
 )
 from quantizedattention_tpu_torch.quantize.int8 import quant_int8
 from quantizedattention_tpu_torch.quantize.weights import (
@@ -883,6 +917,279 @@ def phase_serving_caches(dev, smi, bf16_tokens, bf16_launches) -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------
+# Speculative decoding: the verify staircase of B13-B16 and spec serving
+# --------------------------------------------------------------------------
+
+# rows shorter than spec (0, 1, 3), len % 128 below spec (129, 257, 640,
+# and 1280, the full capacity), and a long row
+SPEC_LENGTHS = [0, 1, 3, 129, 257, 1000, 1280, 640]
+SPECS = (2, 5)
+# kernel row -> (verify wrapper and its counter name, plain version, spec = 1 wrapper)
+VERIFY = {
+    "decode": (verify_decode_attention, "verify", verify_decode_attention_plain,
+               decode_attention),
+    "paged_decode": (paged_verify_attention, "paged_verify", paged_verify_attention_plain,
+                     paged_decode_attention),
+    "decode4": (verify_decode_attention_int4, "verify4", verify_decode_attention_int4_plain,
+                decode_attention_int4),
+    "paged4_decode": (paged4_verify_attention, "paged4_verify", paged4_verify_attention_plain,
+                      paged4_decode_attention),
+}
+
+
+def _with_length(cache, length):
+    return type(cache)(*cache[:-1], length)
+
+
+def _check_verify(name, q, cache, label) -> float:
+    """A verify kernel against its plain version (O within DECODE_TOL, finite,
+    0 where a query sees no token), and each query row j bit-equal to the
+    spec = 1 launch of the same kernel at length len - spec + 1 + j."""
+    fn, _, plain, one = VERIFY[name]
+    spec = q.shape[2]
+    o = fn(q, cache)
+    torch.cuda.synchronize()
+    o_p = plain(q, cache)
+    lim = cache[-1].long()[:, None] - spec + 1 + torch.arange(spec, device=q.device)  # [n, s]
+    empty = (lim <= 0)[:, None, :].expand(-1, q.shape[1], -1)
+    err = (o - o_p).abs().max().item()
+    finite = bool(torch.isfinite(o).all())
+    empty_ok = bool((o[empty] == 0).all())
+    unequal = [j for j in range(spec) if not torch.equal(
+        o[:, :, j], one(q[:, :, j], _with_length(cache, lim[:, j].clamp(min=0).int())))]
+    log(f"[{name}] verify spec={spec}, {label}: finite={finite} max|dO|={err:.3e} (tol "
+        f"{DECODE_TOL}) empty_rows_ok={empty_ok} rows bit-equal to spec=1 at their length: "
+        f"{spec - len(unequal)}/{spec}")
+    if not (finite and err <= DECODE_TOL and empty_ok and not unequal):
+        raise AssertionError(f"{name}: the verify kernel disagrees (rows {unequal})")
+    return err
+
+
+def phase_verify_kernels(dev, gen) -> dict:
+    """Phase 23: the verify staircase of B13-B16 against the plain versions
+    and against their own spec = 1 launches, then timed at the spec serving
+    shape beside the spec = 1 launch."""
+    err = dict.fromkeys(VERIFY, 0.0)
+    for n_q, n_kv in ((16, 16), (16, 4)):
+        _, dense8, paged8, dense4, paged4 = _cache_kinds(dev, gen, n_q, n_kv, SPEC_LENGTHS, True)
+        caches = {"decode": dense8, "paged_decode": paged8, "decode4": dense4,
+                  "paged4_decode": paged4}
+        for spec in SPECS:
+            q = torch.randn((len(SPEC_LENGTHS), n_q, spec, 64), generator=gen, device=dev)
+            label = (f"8 seqs, {n_q} q / {n_kv} kv heads, lengths {SPEC_LENGTHS}, shuffled "
+                     f"pages, junk pages, non-finite stale scales")
+            for name, cache in caches.items():
+                err[name] = max(err[name], _check_verify(name, q, cache, label))
+
+    spec, length = SPEC_K + 1, PROMPT_LEN + NEW_TOKENS // 2
+    q1, dense8, paged8, dense4, paged4 = _cache_kinds(dev, gen, 16, 16, [length] * N_SLOTS,
+                                                      False)
+    q = torch.randn((N_SLOTS, 16, spec, 64), generator=gen, device=dev)
+    live_pages = N_SLOTS * -(-length // PAGE)
+    # each query row sees its own prefix: row j, length - spec + 1 + j tokens
+    pairs = N_SLOTS * sum(length - spec + 1 + j for j in range(spec))
+    flops = 2 * 2 * pairs * q.shape[1] * 64
+    out = {}
+    for name, cache, per_tok, table_bytes in (
+            ("decode", dense8, 136, 0), ("paged_decode", paged8, 136, 4 * live_pages),
+            ("decode4", dense4, 72, 0), ("paged4_decode", paged4, 72, 4 * live_pages)):
+        fn, _, plain, one = VERIFY[name]
+        ms = device_ms(lambda: fn(q, cache))
+        one_ms = device_ms(lambda: one(q1, cache))
+        plain_ms = device_ms(lambda: plain(q, cache), calls=4, replays=5)
+        o = fn(q, cache)
+        # the live tokens' K/V payloads and scales per kv head (16), the
+        # table entries of the live pages, q, O and the lengths
+        n_bytes = length * N_SLOTS * 16 * per_tok + table_bytes + nbytes(q, o, cache[-1])
+        bnd = bound(n_bytes, (flops, PEAK_BF16))
+        log(f"[{name}] verify 8 slots x 16 heads x spec {spec}, length {length} of "
+            f"{BENCH_CFG.max_seq}: kernel {ms:.4f} ms, spec=1 {one_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        out[name] = {"verify_max_abs_err": err[name], "verify_ms": ms, "verify_plain_ms": plain_ms,
+                     "verify_bound_ms": bnd["bound_ms"], "verify_bound_by": bnd["bound_by"],
+                     "verify_spec1_ms": one_ms, "verify_shape": f"8 x 16 heads x spec {spec}, "
+                                                               f"length {length}"}
+    return out
+
+
+# bench.py:bench_spec_decode: the bench LM at max_seq ceil((256 + 256) / 128)
+# * 128 = 512, 8 periodic prompts of 256 tokens (16-token motifs), 96 new
+# tokens, spec_decode=4 beside the plain engine at horizon 32
+SPEC_CFG = dataclasses.replace(BENCH_CFG, max_seq=512)
+SPEC_K = 4
+# near-tie floor: a spec token that differs from the plain run's is a fault
+# unless the plain run's top-2 logit gap there (in f32, before the bf16
+# rounding of the logits) is below this, or below one bf16 ulp of its top
+# logit: the engine argmaxes bf16 logits, which cannot resolve a smaller
+# gap (one ulp is 0.0156 for logits in [2, 4)), and the verify pass rounds
+# its bf16 projections at other points than the one-row decode pass
+SPEC_TIE_GAP = 1e-2
+SPEC_KINDS = {"": {}, "_paged": {"cache": "paged"}, "_kv4": {"kv_quant": "int4"},
+              "_paged4": {"cache": "paged", "kv_quant": "int4"}}
+DECODE_ROW = {"": "decode", "_paged": "paged_decode", "_kv4": "decode4",
+              "_paged4": "paged4_decode"}
+
+
+def _spec_prompts():
+    return [(list(range(100 + 16 * i, 116 + 16 * i)) * (PROMPT_LEN // 16 + 1))[:PROMPT_LEN]
+            for i in range(N_SLOTS)]
+
+
+def _spec_serve(dev, params, prompts, label, **kw):
+    """A warm-up run and a timed run of one engine (counts set to 0 between
+    them); the timed run must repeat the warm-up's tokens, all in vocab and
+    at the budget. Returns (engine, tokens, launches, wall seconds)."""
+    eng = ServingEngine(params, SPEC_CFG, dev, n_slots=N_SLOTS, scheduler="native",
+                        param_dtype=torch.bfloat16, **kw)
+
+    def serve():
+        rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        return [out[r].tokens for r in rids], time.perf_counter() - t0
+
+    warm, _ = serve()
+    _reset_counts()
+    tokens, wall = serve()
+    launches = _launch_counts()
+    if tokens != warm:
+        raise AssertionError(f"{label}: a second run gave different tokens")
+    if not all(len(t) == NEW_TOKENS and all(0 <= x < SPEC_CFG.vocab_size for x in t)
+               for t in tokens):
+        raise AssertionError(f"{label}: a request's tokens are short or out of vocab")
+    return eng, tokens, launches, wall
+
+
+def _plain_gaps(params, prompts, plain, firsts, kv_quant) -> dict:
+    """The plain run's top-2 logit gaps where request i first chose
+    plain[i][firsts[i]]: its computation replayed exactly, the 8 prompts
+    prefilled in one batch into slotted rows of its payload type (a paged
+    row computes the slotted row's logits bit for bit), then its tokens
+    teacher-forced through the same batched decode steps its banks ran.
+    The final hidden state comes out through an identity unembedding (exact
+    in bf16), so the gap is read in f32 as well as in the bf16 logits the
+    engine argmaxes; the replay's own argmax tokens are checked against the
+    plain run's. Returns {i: (f32 gap, bf16 gap, top logit)}."""
+    dev = params["embed"].device
+    n = len(prompts)
+    init = init_kv4_cache if kv_quant else init_kv_cache
+    caches = [init(n, SPEC_CFG.n_kv_heads, SPEC_CFG.max_seq, SPEC_CFG.head_dim, dev)
+              for _ in range(SPEC_CFG.n_layers)]
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    slots = torch.arange(n, device=dev)
+    hidden_params = dict(params, unembed=torch.eye(SPEC_CFG.d_model, dtype=torch.bfloat16,
+                                                   device=dev))
+    toks = torch.tensor(plain, device=dev)  # [n, NEW_TOKENS]
+    on = torch.ones((n,), dtype=torch.bool, device=dev)
+    out, preds = {}, []
+    last = max(firsts.values())
+    with torch.no_grad():
+        _, caches = prefill_slots(params, caches, torch.tensor(prompts, device=dev), lens,
+                                  slots, SPEC_CFG)
+        for step in range(last):
+            # step s feeds token s and gives the logits of token s + 1
+            h, caches = _decode_logits(hidden_params, caches, toks[:, step], lens + step, on,
+                                       SPEC_CFG)
+            logits = h @ params["unembed"]  # the engine's own [n, V] product
+            preds.append(logits.argmax(-1))
+            for i, t in firsts.items():
+                if t == step + 1:
+                    lg16 = logits[i].float()
+                    lg32 = h[i].float() @ params["unembed"].float()
+                    top16, top32 = torch.topk(lg16, 2).values, torch.topk(lg32, 2).values
+                    out[i] = ((top32[0] - top32[1]).item(), (top16[0] - top16[1]).item(),
+                              top16[0].item())
+    off = (torch.stack(preds, 1) != toks[:, 1:last + 1]).sum().item()
+    log(f"[spec] the plain run replayed to token {last}: {off} of its tokens differ from the "
+        f"replay's argmax")
+    return out
+
+
+def _verify_parity(eng, label) -> float:
+    """One verify pass's logits (every slot active, drafts of the slots' next
+    token ids) on copies of the engine's final cache state, on the card
+    against the plain path on the CPU; returns their relative L2."""
+    cpu_caches = [type(c)(*(x.cpu() for x in c)) for c in eng.caches]
+    card_caches = [type(c)(*(x.clone() for x in c)) for c in eng.caches]
+    on = torch.ones_like(eng.active)
+    draft = (eng.last_tok[:, None] + torch.arange(1, SPEC_K + 1, device=eng.device)) \
+        % SPEC_CFG.vocab_size
+    with torch.no_grad():
+        got, _ = _verify_logits(eng.params, card_caches, eng.last_tok, draft, eng.pos, on,
+                                SPEC_CFG)
+        ref, _ = _verify_logits(_to(eng.params, "cpu"), cpu_caches, eng.last_tok.cpu(),
+                                draft.cpu(), eng.pos.cpu(), on.cpu(), SPEC_CFG)
+    got, ref = got.float().cpu(), ref.float()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"[spec] {label}: verify logits vs CPU plain path on the final cache state: rel L2 "
+        f"{rel:.3e} (tol {LOGITS_REL_TOL})")
+    if not (torch.isfinite(got).all() and rel <= LOGITS_REL_TOL):
+        raise AssertionError(f"{label}: verify logits disagree with the plain CPU path")
+    return rel
+
+
+def phase_spec_serving(dev, smi) -> dict:
+    """Phase 24: the plain engine and spec_decode=SPEC_K on each cache kind.
+    Returns each run's launches, keyed by path, the verify wrappers' counts
+    under their kernel's row name."""
+    params = init_transformer(SPEC_CFG, torch.Generator(device=dev).manual_seed(0), dev,
+                              torch.bfloat16)
+    prompts = _spec_prompts()
+    runs = {}
+    for suffix, kw in SPEC_KINDS.items():
+        row = DECODE_ROW[suffix]
+        counter = VERIFY[row][1]
+        label = "spec" + "".join(f" {k}={v}" for k, v in kw.items())
+        plain_eng, plain, plain_l, plain_wall = _spec_serve(
+            dev, params, prompts, label + " plain", decode_horizon=HORIZON, **kw)
+        eng, spec, spec_l, spec_wall = _spec_serve(dev, params, prompts, label,
+                                                   spec_decode=SPEC_K, **kw)
+        st = eng.stats()["spec"]
+        used_plain = {k for k, v in plain_l.items() if v}
+        used_spec = {k for k, v in spec_l.items() if v}
+        if used_plain != {"flash_fwd", row}:
+            raise AssertionError(f"{label} plain: launches {plain_l}")
+        if used_spec != {"flash_fwd", counter} or \
+                spec_l[counter] != SPEC_CFG.n_layers * st["steps"]:
+            raise AssertionError(f"{label}: launches {spec_l}, {st['steps']} spec steps")
+        if st["accepted"] <= 0:
+            raise AssertionError(f"{label}: no draft was accepted")
+        same = sum(a == b for a, b in zip(spec, plain))
+        firsts = {i: next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+                  for i, (a, b) in enumerate(zip(spec, plain)) if a != b}
+        if 0 in firsts.values():
+            raise AssertionError(f"{label}: a prefill token differs from the plain engine's")
+        gaps = _plain_gaps(eng.params, prompts, plain, firsts, kw.get("kv_quant")) \
+            if firsts else {}
+        for i, t in firsts.items():
+            gap32, gap16, top = gaps[i]
+            ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+            floor = max(SPEC_TIE_GAP, ulp)
+            log(f"[spec] {label}: request {i} first differs at token {t} (spec {spec[i][t]}, "
+                f"plain {plain[i][t]}); the plain run's top-2 logit gap there {gap32:.4e} "
+                f"(f32; bf16 logits {gap16:.4e}, top logit {top:.4f}, one bf16 ulp {ulp:.4e}); "
+                f"near-tie floor {floor:.4e}")
+            if gap32 >= floor:
+                raise AssertionError(f"{label}: spec tokens differ from the plain engine's "
+                                     f"away from a near-tie")
+        _verify_parity(eng, label)
+        n_tok = N_SLOTS * NEW_TOKENS
+        log(f"[spec] {label} on {smi}: plain (horizon {HORIZON}) {n_tok / plain_wall:.1f} "
+            f"tokens/s, spec (k={SPEC_K}) {n_tok / spec_wall:.1f} tokens/s "
+            f"({plain_wall / spec_wall:.3f}x); {st['tokens_per_pass']:.3f} tokens per model "
+            f"pass, {st['accepted']} drafts accepted in {st['steps']} steps; {same}/{N_SLOTS} "
+            f"requests token-equal to plain; spec launches "
+            f"{ {k: v for k, v in spec_l.items() if v} }; plain ledger {plain_eng.ledger()}; "
+            f"spec ledger {eng.ledger()}")
+        runs[f"spec_plain{suffix}"] = {k: v for k, v in plain_l.items() if v}
+        runs[f"serve_spec{suffix}"] = {("flash_fwd" if k == "flash_fwd" else row): v
+                                       for k, v in spec_l.items() if v}
+    return runs
+
+
 def _to(params, device):
     """A detached copy of an LM params dict on `device` (quantized weights
     move with their payloads and scales as they are)."""
@@ -1083,7 +1390,9 @@ _COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_dkv": flash_bwd_dkv,
             "jvp_fwd": attention_jvp_fwd, "jvp_tangent": attention_tangent_fwd,
             "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq,
             "paged_decode": paged_decode_attention, "decode4": decode_attention_int4,
-            "paged4_decode": paged4_decode_attention}
+            "paged4_decode": paged4_decode_attention, "verify": verify_decode_attention,
+            "paged_verify": paged_verify_attention, "verify4": verify_decode_attention_int4,
+            "paged4_verify": paged4_verify_attention}
 
 
 def _launch_counts():
@@ -2019,6 +2328,8 @@ def main() -> None:
     dit_launches, dit_jvp_launches, _ = phase_dit(dev, smi)
     caches = phase_cache_kernels(dev, gen)
     cache_runs = phase_serving_caches(dev, smi, serve_tokens, serve_launches)
+    verify = phase_verify_kernels(dev, gen)
+    spec_runs = phase_spec_serving(dev, smi)
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -2035,7 +2346,7 @@ def main() -> None:
         {"name": "decode", "route": "cuda",
          "source": "quantizedattention_tpu_torch/csrc/decode.cu",
          "replaces": "quantizedattention_tpu/parallel/kv_cache.py:172",
-         "launches_by_path": {"serve": serve_launches["decode"]}, **decode},
+         "launches_by_path": {"serve": serve_launches["decode"]}, **decode, **verify["decode"]},
     ]
     for kname, replaces in (("flash_bwd_dkv", "quantizedattention_tpu/ops/flash_bwd.py:66"),
                             ("flash_bwd_dq", "quantizedattention_tpu/ops/flash_bwd.py:132")):
@@ -2092,9 +2403,13 @@ def main() -> None:
                              "quantizedattention_tpu/parallel/paged4_cache.py:246")):
         kernels.append({"name": kname, "route": "cuda",
                         "source": "quantizedattention_tpu_torch/csrc/cache_decode.cu",
-                        "replaces": replaces, "launches_by_path": {}, **caches[kname]})
-    for k in kernels:  # the quantized and cache-kind serving runs' launches
-        for path, counts in {**quant_runs, **cache_runs}.items():
+                        "replaces": replaces, "launches_by_path": {}, **caches[kname],
+                        **verify[kname]})
+    for k in kernels:  # the decode rows' error: the spec = 1 and verify phases'
+        if "verify_max_abs_err" in k:
+            k["max_abs_err"] = max(k["max_abs_err"], k["verify_max_abs_err"])
+    for k in kernels:  # the quantized, cache-kind and spec serving runs' launches
+        for path, counts in {**quant_runs, **cache_runs, **spec_runs}.items():
             if k["name"] in counts:
                 k["launches_by_path"][path] = counts[k["name"]]
     for k in kernels:  # launches: every path's run together

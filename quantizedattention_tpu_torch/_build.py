@@ -2,10 +2,12 @@
 
 CUDA kernels: each `csrc/<name>.cu` has a plain C interface (no PyTorch
 headers, so nvcc takes seconds, not minutes) and is compiled for Hopper into
-`build/kernels/lib<name>.so` beside the package on first use. The
-continuous-batching scheduler core (`native/scheduler.cpp`, shared with the
-JAX package) is compiled with g++ into `build/libscheduler.so`; the tracked
-`native/` directory is never written.
+`build/kernels/lib<name>.so` beside the package on first use. The host's
+native helpers, shared with the JAX package, are compiled with g++ into
+`build/`: the continuous-batching scheduler core (`native/scheduler.cpp` ->
+`build/libscheduler.so`) and the n-gram draft proposer of speculative
+decoding (`native/ngram.cpp` -> `build/libngram.so`); the tracked `native/`
+directory is never written.
 
 A library is rebuilt when its source is newer than it. Builds write to a
 temporary file and rename it into place, so concurrent processes never load a
@@ -27,8 +29,7 @@ _ROOT = os.path.dirname(_PKG_DIR)
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build")
 KERNEL_DIR = os.path.join(BUILD_DIR, "kernels")
-_SCHED_SRC = os.path.join(_ROOT, "native", "scheduler.cpp")
-_SCHED_LIB = os.path.join(BUILD_DIR, "libscheduler.so")
+NATIVE = ("scheduler", "ngram")  # native/<name>.cpp -> build/lib<name>.so
 
 KERNELS = ("flash_fwd", "flash_bwd", "decode", "quant_int8", "int8_fwd", "int8_bwd",
            "int8_linear", "int4_linear", "jvp", "cache_decode")
@@ -61,8 +62,12 @@ def _kernel_job(src: str, lib: str) -> tuple[list[str], str]:
     return [_nvcc(), *NVCC_FLAGS, src], lib
 
 
-def _scheduler_job() -> tuple[list[str], str]:
-    return ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SCHED_SRC], _SCHED_LIB
+def _native_paths(name: str) -> tuple[str, str]:
+    return os.path.join(_ROOT, "native", f"{name}.cpp"), os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _native_job(src: str, lib: str) -> tuple[list[str], str]:
+    return ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src], lib
 
 
 def _compile(cmd: list[str], out: str) -> None:
@@ -91,29 +96,31 @@ def load_kernel(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def load_scheduler() -> ctypes.CDLL:
-    """Build (if stale) and load the native scheduler core; raises on failure."""
+def load_native(name: str) -> ctypes.CDLL:
+    """Build (if stale) and load `native/<name>.cpp` (one of NATIVE) with
+    g++; raises on failure."""
     with _lock:
-        if "scheduler" in _libs:
-            return _libs["scheduler"]
-        if _stale(_SCHED_LIB, _SCHED_SRC):
-            _compile(*_scheduler_job())
-        _libs["scheduler"] = ctypes.CDLL(_SCHED_LIB)
-        return _libs["scheduler"]
+        if name in _libs:
+            return _libs[name]
+        src, lib = _native_paths(name)
+        if _stale(lib, src):
+            _compile(*_native_job(src, lib))
+        _libs[name] = ctypes.CDLL(lib)
+        return _libs[name]
 
 
 def build_all() -> float:
-    """Build every kernel and the scheduler, one compiler process per stale
+    """Build every kernel and native helper, one compiler process per stale
     source, all started together; load them. Returns the seconds it took."""
     t0 = time.perf_counter()
     jobs = [_kernel_job(src, lib) for src, lib in map(_kernel_paths, KERNELS) if _stale(lib, src)]
-    if _stale(_SCHED_LIB, _SCHED_SRC):
-        jobs.append(_scheduler_job())
+    jobs += [_native_job(src, lib) for src, lib in map(_native_paths, NATIVE) if _stale(lib, src)]
     with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
         list(pool.map(lambda job: _compile(*job), jobs))
     for name in KERNELS:
         load_kernel(name)
-    load_scheduler()
+    for name in NATIVE:
+        load_native(name)
     return time.perf_counter() - t0
 
 

@@ -1,20 +1,23 @@
-// Single-token decode attention over the paged int8 cache (B14), the
-// slotted int4 cache (B15) and the paged int4 cache (B16), for Hopper
-// (sm_90a), plain C ABI. One kernel body, three entries:
+// Decode attention over the paged int8 cache (B14), the slotted int4 cache
+// (B15) and the paged int4 cache (B16), for Hopper (sm_90a), plain C ABI:
+// one query per sequence (spec == 1) or the speculative-verify staircase of
+// `spec` consecutive queries. One kernel body, three entries:
 //
 //   qa_paged_decode  replaces quantizedattention_tpu/parallel/paged_cache.py:
-//                    _paged_decode_kernel (spec == 1);
+//                    _paged_decode_kernel;
 //   qa_decode4       replaces quantizedattention_tpu/parallel/kv4_cache.py:
-//                    _decode4_kernel (spec == 1);
+//                    _decode4_kernel;
 //   qa_paged4_decode replaces quantizedattention_tpu/parallel/paged4_cache.py:
-//                    _paged4_decode_kernel (spec == 1).
+//                    _paged4_decode_kernel.
 //
 // Numerics are those of the slotted int8 kernel (decode.cu, B13): q and the
 // integer K/V are taken as bf16 (int8 and int4 values are exact in bf16),
-// s = (q . k) * (sk * qk_scale) in f32, tokens at or past the row's length
-// are masked, p = exp2(s - m) with the online running max, l sums the
-// UNROUNDED p, and the PV operand is bf16(p * sv) against the integer V.
-// length == 0 gives O = 0 and lse = -inf.
+// s = (q . k) * (sk * qk_scale) in f32, masked tokens get -inf, p =
+// exp2(s - m) with the online running max, l sums the UNROUNDED p, and the
+// PV operand is bf16(p * sv) against the integer V. The q rows of a kv head
+// fold (GQA group, spec) as r = g * spec + j; row r attends tokens
+// t < length - (spec - 1) + r % spec, the JAX kernels' staircase, and a row
+// with no live token gives O = 0 and lse = -inf.
 //
 // Layouts (the JAX package's). A sequence's tokens live in "pages" of ps
 // tokens; page j of sequence s is table[s, j] (paged) or j itself (slotted
@@ -46,9 +49,12 @@
 // of a tile, the other half of a half-live int4 row) is zero-filled, gets
 // p = 0 by select and a zero scale, never a stale scale times 0 (stale
 // scales may be non-finite). Scores use one thread per slot, the softmax
-// one warp per group row, PV one thread per (group row, channel). Reading
-// each int4 byte row once for both its tokens, splitting the kv axis across
-// blocks, TMA and wgmma are later work.
+// one warp per group row, PV one thread per (group row, channel). The
+// staircase is decode.cu's: a per-row limit where the scores are masked and
+// p is taken, p = 0 and alpha = 1 by select for a row with no live token in
+// a tile, so verify row j equals the spec == 1 launch at its own length bit
+// for bit. Reading each int4 byte row once for both its tokens, splitting
+// the kv axis across blocks, TMA and wgmma are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,7 +128,8 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
                     Pool c,
                     float* __restrict__ o,                 // [n_seqs, n_kv * G, D]
                     float* __restrict__ lse,               // [n_seqs, n_kv * G]
-                    int n_kv, int G, float qk_scale) {
+                    int n_kv, int G, int spec, float qk_scale) {
+  // G: q rows per kv head, the GQA group times spec (row r = g * spec + j)
   extern __shared__ __align__(16) float smem[];
   float* q_f = smem;
   float* w_s = q_f + G * D;       // scores, then bf16(p * sv)
@@ -201,7 +208,6 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
     {
       const int8_t* krow = k_s + tid * KROW;
       const float scale = sk_s[tid] * qk_scale;
-      const bool live = tid < n;
       for (int g = 0; g < G; ++g) {
         const float* qg = q_f + g * D;
         float dot = 0.f;
@@ -212,7 +218,9 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
 #pragma unroll
           for (int e = 0; e < 16; ++e) dot = fmaf(qg[cc + e], static_cast<float>(chunk.b[e]), dot);
         }
-        w_s[g * TILE + tid] = live ? dot * scale : -INFINITY;
+        // spec == 1: the limit is the length, and t0 + tid < len is tid < n
+        const int lim = len - (spec - 1) + g % spec;
+        w_s[g * TILE + tid] = t0 + tid < lim ? dot * scale : -INFINITY;
       }
     }
     __syncthreads();
@@ -228,17 +236,19 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
       }
       const float m_prev = m_s[g];
       const float next_m = fmaxf(m_prev, warp_max(mx));
+      const int live = len - (spec - 1) + g % spec - t0;  // this row's live slots
       float psum = 0.f;
 #pragma unroll
       for (int i = 0; i < TILE / 32; ++i) {
         const int r = lane + 32 * i;
-        const float p = r < n ? exp2f(x[i] - next_m) : 0.f;
+        const float p = r < live ? exp2f(x[i] - next_m) : 0.f;
         psum += p;
         w_s[g * TILE + r] = __bfloat162float(__float2bfloat16_rn(p * sv_s[r]));
       }
       psum = warp_sum(psum);
       if (lane == 0) {
-        const float alpha = exp2f(m_prev - next_m);
+        // no live token yet: m stays -inf, and exp2(-inf - -inf) would be NaN
+        const float alpha = next_m == -INFINITY ? 1.f : exp2f(m_prev - next_m);
         a_s[g] = alpha;
         l_s[g] = l_s[g] * alpha + psum;
         m_s[g] = next_m;
@@ -270,8 +280,10 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
 
 template <bool INT4>
 int launch(const void* q, const Pool& pool, void* o, void* lse, int n_seqs, int n_kv,
-           int group, float qk_scale, void* stream) {
-  const size_t bytes = smem_bytes(group);
+           int group, int spec, float qk_scale, void* stream) {
+  if (spec < 1 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = group * spec;
+  const size_t bytes = smem_bytes(rows);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         cache_decode_kernel<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -281,7 +293,7 @@ int launch(const void* q, const Pool& pool, void* o, void* lse, int n_seqs, int 
   cache_decode_kernel<INT4><<<dim3(n_kv, n_seqs), THREADS, bytes,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), pool, static_cast<float*>(o),
-      static_cast<float*>(lse), n_kv, group, qk_scale);
+      static_cast<float*>(lse), n_kv, rows, spec, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,32 +321,35 @@ Pool paged_pool(const void* k, const void* sk, const void* v, const void* sv,
 
 }  // namespace
 
+// Every entry takes q [n_seqs, n_kv * group * spec, D], row (kv head, g, j).
 extern "C" int qa_paged_decode(const void* q, const void* k_pages, const void* sk,
                                const void* v_pages, const void* sv, const void* table,
                                const void* lengths, void* o, void* lse, int n_seqs, int n_kv,
-                               int group, int n_pages, int page_size, int max_pages,
+                               int group, int spec, int n_pages, int page_size, int max_pages,
                                float qk_scale, void* stream) {
   if (page_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_pages, sk, v_pages, sv, table, lengths, n_kv, n_pages,
                                page_size, max_pages, page_size);
-  return launch<false>(q, pool, o, lse, n_seqs, n_kv, group, qk_scale, stream);
+  return launch<false>(q, pool, o, lse, n_seqs, n_kv, group, spec, qk_scale, stream);
 }
 
 extern "C" int qa_paged4_decode(const void* q, const void* k_p, const void* sk, const void* v_p,
                                 const void* sv, const void* table, const void* lengths, void* o,
-                                void* lse, int n_seqs, int n_kv, int group, int n_pages,
-                                int page_size, int max_pages, float qk_scale, void* stream) {
+                                void* lse, int n_seqs, int n_kv, int group, int spec,
+                                int n_pages, int page_size, int max_pages, float qk_scale,
+                                void* stream) {
   if (page_size <= 0 || page_size % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_p, sk, v_p, sv, table, lengths, n_kv, n_pages, page_size,
                                max_pages, page_size / 2);
-  return launch<true>(q, pool, o, lse, n_seqs, n_kv, group, qk_scale, stream);
+  return launch<true>(q, pool, o, lse, n_seqs, n_kv, group, spec, qk_scale, stream);
 }
 
 // Slotted int4: payload [b, n_kv, max_len/2, D], scales [b, n_kv, max_len];
 // the pages are the row's 256-token pack blocks, in order.
 extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const void* v_p,
                           const void* sv, const void* length, void* o, void* lse, int batch,
-                          int n_kv, int group, int max_len, float qk_scale, void* stream) {
+                          int n_kv, int group, int spec, int max_len, float qk_scale,
+                          void* stream) {
   constexpr int PACK = 256;
   if (max_len <= 0 || max_len % PACK != 0) return static_cast<int>(cudaErrorInvalidValue);
   Pool p;
@@ -352,5 +367,5 @@ extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const 
   p.sc_head = max_len;
   p.sc_seq = static_cast<long long>(max_len) * n_kv;
   p.sc_page = PACK;
-  return launch<true>(q, p, o, lse, batch, n_kv, group, qk_scale, stream);
+  return launch<true>(q, p, o, lse, batch, n_kv, group, spec, qk_scale, stream);
 }

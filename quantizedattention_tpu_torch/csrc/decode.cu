@@ -1,12 +1,17 @@
-// Single-token decode attention over the slotted int8 KV cache, for Hopper
-// (sm_90a), plain C ABI.
+// Decode attention over the slotted int8 KV cache, for Hopper (sm_90a),
+// plain C ABI: one query per row (spec == 1) or the speculative-verify
+// staircase of `spec` consecutive queries per row.
 //
 // Replaces the TPU kernel quantizedattention_tpu/parallel/kv_cache.py:
-// _decode_kernel (spec == 1). Same numerics: q and the int8 K/V are taken as
-// bf16 (int8 is exact in bf16), s = (q . k_i8) * (sk * qk_scale) accumulated
-// in f32, keys at or past the row's length are masked, p = exp2(s - m) with
-// the online running max, l sums the UNROUNDED p, and the PV operand is
-// bf16(p * sv) against v_i8. length == 0 gives O = 0 and lse = -inf.
+// _decode_kernel, both its forms. Same numerics: q and the int8 K/V are
+// taken as bf16 (int8 is exact in bf16), s = (q . k_i8) * (sk * qk_scale)
+// accumulated in f32, masked keys get -inf, p = exp2(s - m) with the online
+// running max, l sums the UNROUNDED p, and the PV operand is bf16(p * sv)
+// against v_i8. The q-row axis of a kv head folds (GQA group, spec) as
+// r = g * spec + j, and row r attends tokens t < len - (spec - 1) + r % spec
+// (the JAX fold, kv_cache.py:313-314): query j of a verify sits at position
+// len - spec + j and sees itself. A row with no live token (length 0, or a
+// length below spec) gives O = 0 and lse = -inf.
 //
 // What bounds it on this card: each decode step streams every live token's
 // K and V payload (2 * head_dim bytes) plus two f32 scales once per (slot,
@@ -15,14 +20,21 @@
 // short lengths, latency-bound).
 //
 // Design (simple first): one block of 128 threads per (kv head, slot) holds
-// the kv head's whole GQA group, so each K/V byte is read from HBM exactly
-// once per step. The block walks only the tiles below the row's length; a
+// the kv head's whole GQA group times spec, so each K/V byte is read from
+// HBM exactly once per step. The block walks only the tiles below the row's length; a
 // tile's K/V rows and scales are staged in shared memory with 16-byte loads,
 // and rows at or past the length are zero-filled there and never read from
 // HBM: stale payloads or scales past a row's end (which can turn 0 * sv into
 // NaN) cannot reach the sums. Scores use one thread per token, the softmax
 // one warp per group row, and PV one thread per (group row, channel).
-// Splitting the kv axis across blocks with an lse merge is later work.
+// The staircase is one per-row limit, applied where the scores are masked
+// and where p is taken: the tile loop still runs to the length, so a tile
+// holds tokens that one row sees and the next does not. A row with no live
+// token in a tile gets p = 0 and alpha = 1 by select (exp2(-inf - -inf) is
+// NaN), so row j is what the spec == 1 launch at length len - spec + 1 + j
+// computes, bit for bit: the same tiles in the same order, and the extra
+// tiles add exact zeros. Splitting the kv axis across blocks with an lse
+// merge is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,7 +72,8 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,  // [b, n_kv * G, D]
               const int* __restrict__ length,       // [b]
               float* __restrict__ o,                // [b, n_kv * G, D]
               float* __restrict__ lse,              // [b, n_kv * G]
-              int n_kv, int G, int L, float qk_scale) {
+              int n_kv, int G, int spec, int L, float qk_scale) {
+  // G: q rows per kv head, the GQA group times spec (row r = g * spec + j)
   extern __shared__ __align__(16) float smem[];
   float* q_f = smem;
   float* w_s = q_f + G * D;       // scores, then bf16(p * sv)
@@ -125,7 +138,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,  // [b, n_kv * G, D]
 #pragma unroll
           for (int e = 0; e < 16; ++e) dot = fmaf(qg[c + e], static_cast<float>(kb[e]), dot);
         }
-        w_s[g * TILE + tid] = tid < n ? dot * scale : -INFINITY;
+        // spec == 1: t0 + tid < len is tid < n
+        const int lim = len - (spec - 1) + g % spec;
+        w_s[g * TILE + tid] = t0 + tid < lim ? dot * scale : -INFINITY;
       }
     }
     __syncthreads();
@@ -141,17 +156,19 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,  // [b, n_kv * G, D]
       }
       const float m_prev = m_s[g];
       const float next_m = fmaxf(m_prev, warp_max(mx));
+      const int live = len - (spec - 1) + g % spec - t0;  // this row's live slots
       float psum = 0.f;
 #pragma unroll
       for (int i = 0; i < TILE / 32; ++i) {
         const int r = lane + 32 * i;
-        const float p = r < n ? exp2f(x[i] - next_m) : 0.f;
+        const float p = r < live ? exp2f(x[i] - next_m) : 0.f;
         psum += p;
         w_s[g * TILE + r] = __bfloat162float(__float2bfloat16_rn(p * sv_s[r]));
       }
       psum = warp_sum(psum);
       if (lane == 0) {
-        const float alpha = exp2f(m_prev - next_m);
+        // no live token yet: m stays -inf, and exp2(-inf - -inf) would be NaN
+        const float alpha = next_m == -INFINITY ? 1.f : exp2f(m_prev - next_m);
         a_s[g] = alpha;
         l_s[g] = l_s[g] * alpha + psum;
         m_s[g] = next_m;
@@ -183,10 +200,14 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,  // [b, n_kv * G, D]
 
 }  // namespace
 
+// q [batch, n_kv * group * spec, D] with row (kv head, g, j); spec >= 1.
 extern "C" int qa_decode(const void* q, const void* k, const void* sk, const void* v,
                          const void* sv, const void* length, void* o, void* lse, int batch,
-                         int n_kv, int group, int max_len, float qk_scale, void* stream) {
-  const size_t bytes = static_cast<size_t>(float_words(group)) * 4 + TILE * KROW + TILE * D;
+                         int n_kv, int group, int spec, int max_len, float qk_scale,
+                         void* stream) {
+  if (spec < 1 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = group * spec;
+  const size_t bytes = static_cast<size_t>(float_words(rows)) * 4 + TILE * KROW + TILE * D;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -196,6 +217,6 @@ extern "C" int qa_decode(const void* q, const void* k, const void* sk, const voi
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
       static_cast<const float*>(sk), static_cast<const int8_t*>(v),
       static_cast<const float*>(sv), static_cast<const int*>(length), static_cast<float*>(o),
-      static_cast<float*>(lse), n_kv, group, max_len, qk_scale);
+      static_cast<float*>(lse), n_kv, rows, spec, max_len, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,12 +12,14 @@ no_grad, as in prefill, the forward alone). Decode appends to the KV cache
 and attends through its kind's kernel: the slotted int8 cache (B13), the
 slotted int4 cache (B15), the paged int8 pool (B14) or the paged int4 pool
 (B16), dispatched by the cache's type as the JAX model does
-(`_cache_append`, `_cache_decode`, `_cache_write_slot`). Matmuls go through
-`quantize.weights.mm` and gathers through `embedding_lookup`, so params
-with weight-only int8/int4 leaves (`quantize_lm_weights`) run B17/B18.
+(`_cache_append`, `_cache_decode`, `_cache_write_slot`). Speculative
+verification (`verify_step_batched`) appends s tokens per row, attends
+through the same kernel's staircase (`_cache_verify`) and rolls rejected
+tokens back (`_cache_rollback`). Matmuls go through `quantize.weights.mm`
+and gathers through `embedding_lookup`, so params with weight-only
+int8/int4 leaves (`quantize_lm_weights`) run B17/B18.
 
-Speculative verify, chunked prefill and top-k/top-p sampling are not ported
-yet.
+Chunked prefill and top-k/top-p sampling are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,24 +36,28 @@ from quantizedattention_tpu_torch.parallel.kv4_cache import (
     append_kv4,
     decode_attention_int4,
     install_kv4_batched,
+    verify_decode_attention_int4,
     write_kv4_slot,
 )
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     append_kv,
     decode_attention,
     init_kv_cache,
+    verify_decode_attention,
     write_kv_slot,
 )
 from quantizedattention_tpu_torch.parallel.paged4_cache import (
     Paged4KVCache,
     append_tokens_paged4,
     paged4_decode_attention,
+    paged4_verify_attention,
     write_prompt_paged4,
 )
 from quantizedattention_tpu_torch.parallel.paged_cache import (
     PagedKVCache,
     append_tokens_paged,
     paged_decode_attention,
+    paged_verify_attention,
     write_prompt_paged,
 )
 from quantizedattention_tpu_torch.quantize.weights import embedding_lookup, mm
@@ -273,6 +279,24 @@ def _cache_write_slot(cache, slot, k, v, true_len):
     return write_kv_slot(cache, slot, k, v, true_len)
 
 
+def _cache_verify(q, cache):
+    if isinstance(cache, PagedKVCache):
+        return paged_verify_attention(q, cache)
+    if isinstance(cache, Paged4KVCache):
+        return paged4_verify_attention(q, cache)
+    if isinstance(cache, Int4KVCache):
+        return verify_decode_attention_int4(q, cache)
+    return verify_decode_attention(q, cache)
+
+
+def _cache_rollback(cache, drop):
+    """Shrink the live token counts by `drop` [b] IN PLACE (speculative
+    rejection: later appends overwrite the stale entries)."""
+    lengths = cache.lengths if isinstance(cache, (PagedKVCache, Paged4KVCache)) else cache.length
+    lengths.sub_(drop.to(lengths.dtype))
+    return cache
+
+
 def sample_token(logits, temperature: float = 0.0, generator: torch.Generator | None = None):
     """Greedy (temperature 0 or no generator) or temperature-scaled
     categorical sampling. Accepts [vocab] or [batch, vocab] logits; returns
@@ -315,6 +339,104 @@ def decode_step_batched(params, caches, last_tok, pos, active, cfg: TransformerC
     """
     logits, caches = _decode_logits(params, caches, last_tok, pos, active, cfg)
     return sample_token(logits, temperature, generator), caches
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (the lowbias32 finalizer's shifts, multipliers
+    below 2^31 so every product fits int64): values in [0, 2^32) -> [0, 2^32).
+    Works on Python ints and on int64 tensors alike."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _MASK32
+    return x ^ (x >> 16)
+
+
+def gumbel_draws(logits, temperature: float, seed: int, rows, positions):
+    """One categorical draw per (row, position) from softmax(logits / T),
+    by Gumbel-max: argmax(logits / T - log(-log u)). The uniform u of vocab
+    id v is a counter-based hash of (seed, row, position, v), computed on the
+    logits' device with int64 tensor ops: no generator state and no host
+    sync, and a draw depends only on where it lands, so the same seed
+    replays the same token at the same (row, position) however many drafts
+    were in flight. logits [n, s, V]; rows [n] and positions [n, s] integer
+    tensors. Returns int64 [n, s]."""
+    key = _mix32(_mix32(seed & _MASK32) ^ ((seed >> 32) & _MASK32))
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    h = _mix32(key ^ rows.long()[:, None])
+    h = _mix32(h ^ (positions.long() & _MASK32))  # [n, s]
+    h = _mix32(_mix32(h[..., None] ^ vocab) ^ (h[..., None] >> 5))  # [n, s, V]
+    u = (h.double() + 0.5) * 2.0 ** -32  # in (0, 1)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits.double() / temperature + gumbel, dim=-1)
+
+
+@torch.no_grad()
+def _verify_logits(params, caches, last_tok, draft, pos, active, cfg: TransformerConfig):
+    """One verify pass's logits [n_slots, s, vocab] over last_tok and the
+    s - 1 drafts of each slot (caches appended in place, not rolled back)."""
+    s = draft.shape[1] + 1
+    tokens = torch.cat([last_tok[:, None].long(), draft.long()], dim=1)  # [n, s]
+    x = embedding_lookup(params["embed"], tokens)
+    positions = pos.long()[:, None] + torch.arange(s, device=pos.device)  # per-row RoPE
+    new_caches = []
+    for layer, cache in zip(params["layers"], caches):
+        h = rmsnorm(x, layer["ln1"])
+        q, k, v = _project_qkv(layer, h, cfg, positions)
+        cache = _cache_append(cache, k, v, active=active)
+        o = _cache_verify(q, cache)  # [n, H, s, d], the causal staircase
+        x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+        new_caches.append(cache)
+    return mm(rmsnorm(x, params["final_norm"]), params["unembed"]), new_caches
+
+
+def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: TransformerConfig,
+                        temperature: float = 0.0, seed: int | None = None):
+    """Speculative-verification decode step: one pass scores the last
+    accepted token and s - 1 draft tokens per slot and emits between 1 and s
+    tokens per slot, token-exact with s plain decode steps, because every
+    draft token is checked against the model's own target before it counts
+    (the JAX package's verify_step_batched).
+
+    Greedy (temperature 0 or seed None): the target is the argmax. Sampled:
+    the target at each position is a draw from softmax(logits / T) keyed by
+    (seed, slot row, the absolute position it predicts) (`gumbel_draws`);
+    drafts are accepted while they equal the draws, and the first draw that
+    differs is the emitted token. For a deterministic drafter (the engine's
+    n-gram lookup) that is rejection sampling, exact in law, and the stream
+    equals a draft-free verify loop's under the same seed, draw for draw.
+
+    last_tok/pos/active: [n_slots] as in decode_step_batched (pos is
+    last_tok's position, the row's cache length). draft: [n_slots, s - 1]
+    integer tensor (s = 1: no drafts). All s tokens' K/V are appended; the
+    rejected ones are rolled back by shrinking the lengths in place.
+    Returns (emitted [n_slots, s] int64, n_emit [n_slots] int64, caches):
+    per row, emitted[:n_emit] are the accepted drafts followed by the
+    model's own next token, so n_emit >= 1.
+    """
+    n_slots, s = draft.shape[0], draft.shape[1] + 1
+    logits, new_caches = _verify_logits(params, caches, last_tok, draft, pos, active, cfg)
+    if temperature == 0.0 or seed is None:
+        targets = torch.argmax(logits, dim=-1)
+    else:
+        # target t predicts the token at position pos + t + 1
+        rows = torch.arange(n_slots, device=logits.device)
+        out_pos = pos.long()[:, None] + torch.arange(1, s + 1, device=pos.device)
+        targets = gumbel_draws(logits.float(), temperature, seed, rows, out_pos)
+    # accept the longest prefix of drafts that matches the targets
+    match = (draft.long() == targets[:, :-1]).long()
+    n_acc = torch.cumprod(match, dim=1).sum(1)  # [n] in [0, s - 1]
+    drafted = F.pad(draft.long(), (0, 1))
+    emitted = torch.where(torch.arange(s, device=targets.device)[None] < n_acc[:, None],
+                          drafted, targets)
+    drop = s - 1 - n_acc  # keep last_tok and the accepted drafts
+    if active is not None:
+        drop = drop * active.long()
+    new_caches = [_cache_rollback(c, drop) for c in new_caches]
+    return emitted, n_acc + 1, new_caches
 
 
 def decode_horizon_batched(params, caches, last_tok, pos, active, cfg: TransformerConfig,

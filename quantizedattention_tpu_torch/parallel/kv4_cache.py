@@ -21,7 +21,8 @@ shares, that token's own bytes), so the cache ends as JAX's does.
 
 `decode_attention_int4` launches the Hopper kernel (csrc/cache_decode.cu,
 entry qa_decode4) for CUDA tensors and runs `decode_attention_int4_plain`
-for CPU tensors.
+for CPU tensors; `verify_decode_attention_int4` runs the same entry's
+speculative-verify staircase, or `verify_decode_attention_int4_plain`.
 """
 
 from __future__ import annotations
@@ -36,11 +37,12 @@ from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.common import qk_scales
 from quantizedattention_tpu_torch.ops.int4_linear import unpack_int4
 from quantizedattention_tpu_torch.parallel.kv_cache import (
-    _HEAD_DIM,
-    _MAX_GROUP,
     QuantizedKVCache,
     _one,
+    check_kernel_rows,
     decode_attention_plain,
+    fold_verify,
+    unfold_verify,
 )
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
@@ -212,41 +214,34 @@ def dequantize_kv4(cache: Int4KVCache):
     return k, v
 
 
-def decode_attention_int4_plain(q, cache: Int4KVCache, sm_scale=None, return_lse=False):
+def decode_attention_int4_plain(q, cache: Int4KVCache, sm_scale=None, return_lse=False,
+                                spec: int = 1):
     """B15's arithmetic in plain PyTorch: the nibbles unpacked to token
     order, then `decode_attention_plain` (q and the int4 values as bf16,
-    tokens at or past a row's length masked with `where`)."""
+    tokens a row does not see masked with `where`; `spec` as there)."""
     dense = QuantizedKVCache(unpack_tokens(cache.k_p, PACK), cache.sk,
                              unpack_tokens(cache.v_p, PACK), cache.sv, cache.length)
-    return decode_attention_plain(q, dense, sm_scale, return_lse)
+    return decode_attention_plain(q, dense, sm_scale, return_lse, spec)
 
 
 @functools.cache
 def _kernel():
     fn = load_kernel("cache_decode").qa_decode4
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention_int4(q, cache: Int4KVCache, sm_scale=None, return_lse=False):
-    """Single-token decode against the int4 cache: q [b, H, d], GQA as in
-    kv_cache.decode_attention. Returns O [b, H, d] f32 (and the exp2 lse
-    [b, H] with return_lse=True). CUDA tensors launch B15 (head_dim 64) or
-    raise; CPU tensors take `decode_attention_int4_plain`. `.launches`
-    counts kernel launches."""
-    if q.device.type == "cpu":
-        return decode_attention_int4_plain(q, cache, sm_scale, return_lse)
-    b, n_q, d = q.shape
-    if q.ndim != 3 or b != cache.k_p.shape[0] or d != cache.k_p.shape[3]:
+def _launch(q, cache: Int4KVCache, sm_scale, return_lse, spec: int):
+    """Launch entry qa_decode4 on q [b, n_kv * group * spec, d] (folded)."""
+    if q.ndim != 3 or q.shape[0] != cache.k_p.shape[0] or q.shape[2] != cache.k_p.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache {tuple(cache.k_p.shape)}")
+    b, n_q, d = q.shape
     n_kv = cache.k_p.shape[1]
-    if n_q % n_kv != 0:
-        raise ValueError(f"{n_q} q heads not a multiple of {n_kv} kv heads")
-    group = n_q // n_kv
-    if d != _HEAD_DIM or group > _MAX_GROUP or n_kv > 65535 or b > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, group <= {_MAX_GROUP}; "
-                         f"got d={d}, group={group}")
+    if n_q % (n_kv * spec) != 0:
+        raise ValueError(f"{n_q} q rows not a multiple of {n_kv} kv heads x spec {spec}")
+    group = n_q // (n_kv * spec)
+    check_kernel_rows(d, n_q // n_kv, n_kv, b)
     if (cache.k_p.dtype, cache.v_p.dtype, cache.sk.dtype, cache.sv.dtype,
             cache.length.dtype) != (torch.int8, torch.int8, torch.float32, torch.float32,
                                     torch.int32):
@@ -259,11 +254,46 @@ def decode_attention_int4(q, cache: Int4KVCache, sm_scale=None, return_lse=False
     status = _kernel()(
         qb.data_ptr(), cache.k_p.data_ptr(), cache.sk.data_ptr(), cache.v_p.data_ptr(),
         cache.sv.data_ptr(), cache.length.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, n_kv, group, cache.max_len, qk_scale, torch.cuda.current_stream(dev).cuda_stream,
+        b, n_kv, group, spec, cache.max_len, qk_scale,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "decode4")
-    decode_attention_int4.launches += 1
     return (o, lse) if return_lse else o
 
 
+def decode_attention_int4(q, cache: Int4KVCache, sm_scale=None, return_lse=False):
+    """Single-token decode against the int4 cache: q [b, H, d], GQA as in
+    kv_cache.decode_attention. Returns O [b, H, d] f32 (and the exp2 lse
+    [b, H] with return_lse=True). CUDA tensors launch B15 (head_dim 64) or
+    raise; CPU tensors take `decode_attention_int4_plain`. `.launches`
+    counts kernel launches."""
+    if q.device.type == "cpu":
+        return decode_attention_int4_plain(q, cache, sm_scale, return_lse)
+    out = _launch(q, cache, sm_scale, return_lse, 1)
+    decode_attention_int4.launches += 1
+    return out
+
+
 decode_attention_int4.launches = 0
+
+
+def verify_decode_attention_int4_plain(q, cache: Int4KVCache, sm_scale=None):
+    """`verify_decode_attention_int4`'s arithmetic in plain PyTorch."""
+    qf, s = fold_verify(q)
+    return unfold_verify(decode_attention_int4_plain(qf, cache, sm_scale, spec=s), q.shape[1])
+
+
+def verify_decode_attention_int4(q, cache: Int4KVCache, sm_scale=None):
+    """Speculative staircase verify over the int4 cache: q [b, H, s, d]
+    (kv_cache.verify_decode_attention's contract). CUDA tensors launch B15
+    with spec = s or raise; CPU tensors take the plain version. `.launches`
+    counts launches."""
+    if q.device.type == "cpu":
+        return verify_decode_attention_int4_plain(q, cache, sm_scale)
+    qf, s = fold_verify(q)
+    o = _launch(qf, cache, sm_scale, False, s)
+    verify_decode_attention_int4.launches += 1
+    return unfold_verify(o, q.shape[1])
+
+
+verify_decode_attention_int4.launches = 0

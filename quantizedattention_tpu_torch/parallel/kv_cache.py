@@ -9,7 +9,9 @@ the whole cache) and return the cache for the JAX package's call form
 `cache = append_kv(cache, ...)`.
 
 `decode_attention` launches the hand-written Hopper kernel (csrc/decode.cu)
-for CUDA tensors and runs `decode_attention_plain` for CPU tensors.
+for CUDA tensors and runs `decode_attention_plain` for CPU tensors;
+`verify_decode_attention` runs the same kernel's speculative-verify
+staircase (`spec` queries per row), or `verify_decode_attention_plain`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from quantizedattention_tpu_torch.quantize.int8 import INV_INT8_MAX
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 _HEAD_DIM = 64  # the kernel's compiled head dim
-_MAX_GROUP = 128  # q heads per kv head that the kernel's shared memory holds
+_MAX_GROUP = 128  # q rows (GQA group x spec) per kv head the kernels' shared memory holds
 
 
 class QuantizedKVCache(NamedTuple):
@@ -129,28 +131,55 @@ def write_kv_slot(cache: QuantizedKVCache, slot, k_new, v_new, true_len) -> Quan
     return cache
 
 
-def _check_decode_args(q, cache):
+def _check_decode_args(q, cache, spec: int = 1):
     if q.ndim != 3 or q.shape[0] != cache.k_i8.shape[0] or q.shape[2] != cache.k_i8.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache {tuple(cache.k_i8.shape)}")
     n_kv = cache.k_i8.shape[1]
-    if q.shape[1] % n_kv != 0:
-        raise ValueError(f"{q.shape[1]} q heads not a multiple of {n_kv} kv heads")
+    if q.shape[1] % (n_kv * spec) != 0:
+        raise ValueError(f"{q.shape[1] // spec} q heads not a multiple of {n_kv} kv heads")
 
 
-def decode_attention_plain(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False):
+def fold_verify(q: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Verify queries [b, H, s, d] -> ([b, H * s, d], s): a kv head's q rows
+    run (g, j) as g * s + j, the JAX fold (kv_cache.py:313-314), which for
+    GQA head order kv_head * group + g is a plain reshape."""
+    if q.ndim != 4:
+        raise ValueError(f"verify q must be [b, H, s, d], got {tuple(q.shape)}")
+    b, h, s, d = q.shape
+    return q.reshape(b, h * s, d), s
+
+
+def unfold_verify(o: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[b, H * s, d] -> [b, H, s, d], the inverse of `fold_verify`."""
+    return o.reshape(o.shape[0], n_heads, -1, o.shape[-1])
+
+
+def staircase_mask(length: torch.Tensor, rows: int, spec: int, max_len: int) -> torch.Tensor:
+    """[b, 1, rows or 1, max_len] bool: the tokens each folded q row sees.
+    Row r = g * spec + j attends t < length - (spec - 1) + j (spec == 1: the
+    length itself, one mask row for the whole group)."""
+    cols = torch.arange(max_len, device=length.device)
+    lim = length.long()[:, None]  # [b, 1]
+    if spec > 1:
+        lim = lim - (spec - 1) + (torch.arange(rows, device=length.device) % spec)[None]
+    return (cols < lim[:, :, None])[:, None]
+
+
+def decode_attention_plain(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False,
+                           spec: int = 1):
     """Decode attention's arithmetic in plain PyTorch, one softmax per row.
 
-    Positions at or past a row's length are masked out of BOTH products with
+    Positions a row does not see (at or past its length; with spec > 1, past
+    its step of the verify staircase) are masked out of BOTH products with
     `where`, never by multiplying with 0: stale scales there may be
-    non-finite."""
-    _check_decode_args(q, cache)
+    non-finite. q's rows fold (GQA group, spec) as `fold_verify` does."""
+    _check_decode_args(q, cache, spec)
     b, n_q, d = q.shape
     n_kv, max_len = cache.k_i8.shape[1], cache.max_len
     _, qk_scale = qk_scales(d, sm_scale)
     qg = q.to(torch.bfloat16).float().reshape(b, n_kv, n_q // n_kv, d)
     s = (qg @ cache.k_i8.float().transpose(-1, -2)) * (cache.sk[:, :, None, :] * qk_scale)
-    cols = torch.arange(max_len, device=q.device)
-    mask = (cols < cache.length.long()[:, None])[:, None, None, :]  # [b, 1, 1, L]
+    mask = staircase_mask(cache.length, n_q // n_kv, spec, max_len)  # [b, 1, rows, L]
     s = torch.where(mask, s, -torch.inf)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp2(s - m), 0.0)
@@ -167,9 +196,42 @@ def decode_attention_plain(q, cache: QuantizedKVCache, sm_scale=None, return_lse
 @functools.cache
 def _kernel():
     fn = load_kernel("decode").qa_decode
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def check_kernel_rows(d: int, rows: int, n_kv: int, n: int) -> None:
+    """The decode kernels' limits: head_dim 64, at most _MAX_GROUP q rows
+    (GQA group times spec) per kv head, grid dims within 65535."""
+    if d != _HEAD_DIM or rows > _MAX_GROUP or n_kv > 65535 or n > 65535:
+        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, group * spec <= {_MAX_GROUP}; "
+                         f"got d={d}, group * spec={rows}")
+
+
+def _launch(q, cache: QuantizedKVCache, sm_scale, return_lse, spec: int):
+    """Launch csrc/decode.cu on q [b, n_kv * group * spec, d] (folded)."""
+    _check_decode_args(q, cache, spec)
+    b, n_q, d = q.shape
+    n_kv, max_len = cache.k_i8.shape[1], cache.max_len
+    group = n_q // (n_kv * spec)
+    check_kernel_rows(d, n_q // n_kv, n_kv, b)
+    if (cache.k_i8.dtype, cache.v_i8.dtype, cache.sk.dtype, cache.sv.dtype,
+            cache.length.dtype) != (torch.int8, torch.int8, torch.float32, torch.float32,
+                                    torch.int32):
+        raise TypeError("cache must be int8 payloads, f32 scales and int32 lengths")
+    _, qk_scale = qk_scales(d, sm_scale)
+    qb = q.to(torch.bfloat16).contiguous()
+    dev = require_cuda(qb, cache.k_i8, cache.sk, cache.v_i8, cache.sv, cache.length)
+    o = torch.empty((b, n_q, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, n_q), dtype=torch.float32, device=dev)
+    status = _kernel()(
+        qb.data_ptr(), cache.k_i8.data_ptr(), cache.sk.data_ptr(), cache.v_i8.data_ptr(),
+        cache.sv.data_ptr(), cache.length.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, n_kv, group, spec, max_len, qk_scale, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_status(status, "decode")
+    return (o, lse) if return_lse else o
 
 
 def decode_attention(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False):
@@ -183,30 +245,37 @@ def decode_attention(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache, sm_scale, return_lse)
-    _check_decode_args(q, cache)
-    b, n_q, d = q.shape
-    n_kv, max_len = cache.k_i8.shape[1], cache.max_len
-    group = n_q // n_kv
-    if d != _HEAD_DIM or group > _MAX_GROUP or n_kv > 65535 or b > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, group <= {_MAX_GROUP}; "
-                         f"got d={d}, group={group}")
-    if (cache.k_i8.dtype, cache.v_i8.dtype, cache.sk.dtype, cache.sv.dtype,
-            cache.length.dtype) != (torch.int8, torch.int8, torch.float32, torch.float32,
-                                    torch.int32):
-        raise TypeError("cache must be int8 payloads, f32 scales and int32 lengths")
-    _, qk_scale = qk_scales(d, sm_scale)
-    qb = q.to(torch.bfloat16).contiguous()
-    dev = require_cuda(qb, cache.k_i8, cache.sk, cache.v_i8, cache.sv, cache.length)
-    o = torch.empty((b, n_q, d), dtype=torch.float32, device=dev)
-    lse = torch.empty((b, n_q), dtype=torch.float32, device=dev)
-    status = _kernel()(
-        qb.data_ptr(), cache.k_i8.data_ptr(), cache.sk.data_ptr(), cache.v_i8.data_ptr(),
-        cache.sv.data_ptr(), cache.length.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, n_kv, group, max_len, qk_scale, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_status(status, "decode")
+    out = _launch(q, cache, sm_scale, return_lse, 1)
     decode_attention.launches += 1
-    return (o, lse) if return_lse else o
+    return out
 
 
 decode_attention.launches = 0
+
+
+def verify_decode_attention_plain(q, cache: QuantizedKVCache, sm_scale=None):
+    """`verify_decode_attention`'s arithmetic in plain PyTorch."""
+    qf, s = fold_verify(q)
+    return unfold_verify(decode_attention_plain(qf, cache, sm_scale, spec=s), q.shape[1])
+
+
+def verify_decode_attention(q, cache: QuantizedKVCache, sm_scale=None):
+    """Multi-position decode for speculative verification: q [b, H, s, d]
+    holds s consecutive query positions per row (the last accepted token and
+    s - 1 drafts) whose K/V are ALREADY appended (the row's length counts
+    all s). Query j sits at position length - s + j and attends the tokens
+    at or before it: the causal staircase, one launch for s positions.
+
+    Returns [b, H, s, d] f32; a query with no token to see (length < s - j)
+    gives 0. CUDA tensors launch csrc/decode.cu with spec = s or raise; CPU
+    tensors take `verify_decode_attention_plain`. `.launches` counts
+    launches."""
+    if q.device.type == "cpu":
+        return verify_decode_attention_plain(q, cache, sm_scale)
+    qf, s = fold_verify(q)
+    o = _launch(qf, cache, sm_scale, False, s)
+    verify_decode_attention.launches += 1
+    return unfold_verify(o, q.shape[1])
+
+
+verify_decode_attention.launches = 0

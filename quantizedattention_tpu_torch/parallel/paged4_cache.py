@@ -17,7 +17,9 @@ goes to the garbage page 0, never to a live page.
 
 `paged4_decode_attention` launches the Hopper kernel (csrc/cache_decode.cu,
 entry qa_paged4_decode) for CUDA tensors and runs
-`paged4_decode_attention_plain` for CPU tensors.
+`paged4_decode_attention_plain` for CPU tensors; `paged4_verify_attention`
+runs the same entry's speculative-verify staircase, or
+`paged4_verify_attention_plain`.
 """
 
 from __future__ import annotations
@@ -32,7 +34,12 @@ from quantizedattention_tpu_torch.parallel.kv4_cache import (
     _quant4_rows,
     unpack_tokens,
 )
-from quantizedattention_tpu_torch.parallel.kv_cache import QuantizedKVCache, decode_attention_plain
+from quantizedattention_tpu_torch.parallel.kv_cache import (
+    QuantizedKVCache,
+    decode_attention_plain,
+    fold_verify,
+    unfold_verify,
+)
 from quantizedattention_tpu_torch.parallel.paged_cache import (
     DEFAULT_PAGE_SIZE,
     _prompt_pages,
@@ -128,16 +135,17 @@ def append_tokens_paged4(cache: Paged4KVCache, k_new, v_new, active=None) -> Pag
     return cache
 
 
-def paged4_decode_attention_plain(q, cache: Paged4KVCache, sm_scale=None, return_lse=False):
+def paged4_decode_attention_plain(q, cache: Paged4KVCache, sm_scale=None, return_lse=False,
+                                  spec: int = 1):
     """B16's arithmetic in plain PyTorch: pages gathered through the table and
-    unpacked to token order, then `decode_attention_plain`."""
+    unpacked to token order, then `decode_attention_plain` (with `spec`)."""
     table = cache.page_table
     dense = QuantizedKVCache(
         unpack_tokens(gather_rows(cache.k_p, table), cache.page_size),
         gather_scales(cache.sk, table),
         unpack_tokens(gather_rows(cache.v_p, table), cache.page_size),
         gather_scales(cache.sv, table), cache.lengths)
-    return decode_attention_plain(q, dense, sm_scale, return_lse)
+    return decode_attention_plain(q, dense, sm_scale, return_lse, spec)
 
 
 def paged4_decode_attention(q, cache: Paged4KVCache, sm_scale=None, return_lse=False):
@@ -153,3 +161,25 @@ def paged4_decode_attention(q, cache: Paged4KVCache, sm_scale=None, return_lse=F
 
 
 paged4_decode_attention.launches = 0
+
+
+def paged4_verify_attention_plain(q, cache: Paged4KVCache, sm_scale=None):
+    """`paged4_verify_attention`'s arithmetic in plain PyTorch."""
+    qf, s = fold_verify(q)
+    return unfold_verify(paged4_decode_attention_plain(qf, cache, sm_scale, spec=s), q.shape[1])
+
+
+def paged4_verify_attention(q, cache: Paged4KVCache, sm_scale=None):
+    """Speculative staircase verify over the paged int4 cache: q [n, H, s, d]
+    (kv_cache.verify_decode_attention's contract). CUDA tensors launch B16
+    with spec = s or raise; CPU tensors take the plain version. `.launches`
+    counts launches."""
+    if q.device.type == "cpu":
+        return paged4_verify_attention_plain(q, cache, sm_scale)
+    qf, s = fold_verify(q)
+    o = launch_paged("qa_paged4_decode", qf, cache, sm_scale, False, s)
+    paged4_verify_attention.launches += 1
+    return unfold_verify(o, q.shape[1])
+
+
+paged4_verify_attention.launches = 0

@@ -25,7 +25,9 @@ and is not carried over.
 
 `paged_decode_attention` launches the Hopper kernel (csrc/cache_decode.cu,
 entry qa_paged_decode) for CUDA tensors and runs
-`paged_decode_attention_plain` for CPU tensors.
+`paged_decode_attention_plain` for CPU tensors; `paged_verify_attention`
+runs the same entry's speculative-verify staircase, or
+`paged_verify_attention_plain`.
 """
 
 from __future__ import annotations
@@ -39,12 +41,13 @@ import torch
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.common import qk_scales
 from quantizedattention_tpu_torch.parallel.kv_cache import (
-    _HEAD_DIM,
-    _MAX_GROUP,
     QuantizedKVCache,
     _one,
     _row_quant,
+    check_kernel_rows,
     decode_attention_plain,
+    fold_verify,
+    unfold_verify,
 )
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
@@ -180,45 +183,47 @@ def gather_scales(scales: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return g.transpose(1, 2).reshape(n, h, mp * ps)
 
 
-def _check_paged_args(q, cache, pool_heads: int):
+def _check_paged_args(q, cache, pool_heads: int, spec: int = 1):
     if q.ndim != 3 or q.shape[0] != cache.page_table.shape[0]:
         raise ValueError(f"q {tuple(q.shape)} does not fit {cache.page_table.shape[0]} sequences")
-    if q.shape[1] % pool_heads != 0:
-        raise ValueError(f"{q.shape[1]} q heads not a multiple of {pool_heads} kv heads")
+    if q.shape[1] % (pool_heads * spec) != 0:
+        raise ValueError(f"{q.shape[1] // spec} q heads not a multiple of {pool_heads} kv heads")
 
 
-def paged_decode_attention_plain(q, cache: PagedKVCache, sm_scale=None, return_lse=False):
+def paged_decode_attention_plain(q, cache: PagedKVCache, sm_scale=None, return_lse=False,
+                                 spec: int = 1):
     """B14's arithmetic in plain PyTorch: the pages gathered into one dense
-    row per sequence, then `decode_attention_plain` (tokens at or past a
-    row's length masked with `where`)."""
-    _check_paged_args(q, cache, cache.k_pages.shape[0])
+    row per sequence, then `decode_attention_plain` (tokens a row does not
+    see masked with `where`; q rows folded with `spec` as there)."""
+    _check_paged_args(q, cache, cache.k_pages.shape[0], spec)
     dense = QuantizedKVCache(
         gather_rows(cache.k_pages, cache.page_table), gather_scales(cache.sk, cache.page_table),
         gather_rows(cache.v_pages, cache.page_table), gather_scales(cache.sv, cache.page_table),
         cache.lengths)
-    return decode_attention_plain(q, dense, sm_scale, return_lse)
+    return decode_attention_plain(q, dense, sm_scale, return_lse, spec)
 
 
 @functools.cache
 def _entry(name: str):
     fn = getattr(load_kernel("cache_decode"), name)
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch_paged(entry: str, q, cache, sm_scale, return_lse):
+def launch_paged(entry: str, q, cache, sm_scale, return_lse, spec: int = 1):
     """Launch a paged decode entry of csrc/cache_decode.cu on `cache`'s
-    fields (k, sk, v, sv, page_table, lengths); the int8 and int4 pools
-    share this argument list."""
+    fields (k, sk, v, sv, page_table, lengths), q folded with `spec` queries
+    per row (`fold_verify`); the int8 and int4 pools share this argument
+    list."""
     k, sk, v, sv, table, lengths = cache
-    _check_paged_args(q, cache, k.shape[0])
+    _check_paged_args(q, cache, k.shape[0], spec)
     n, n_q, d = q.shape
     n_kv, n_pages = k.shape[0], k.shape[1]
-    group = n_q // n_kv
-    if d != _HEAD_DIM or k.shape[3] != d or group > _MAX_GROUP or n > 65535 or n_kv > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, group <= {_MAX_GROUP}; "
-                         f"got d={d}, group={group}")
+    group = n_q // (n_kv * spec)
+    if k.shape[3] != d:
+        raise ValueError(f"q head_dim {d} does not fit the pool's {k.shape[3]}")
+    check_kernel_rows(d, n_q // n_kv, n_kv, n)
     if (k.dtype, v.dtype, sk.dtype, sv.dtype, table.dtype, lengths.dtype) != (
             torch.int8, torch.int8, torch.float32, torch.float32, torch.int32, torch.int32):
         raise TypeError("paged cache must be int8 payloads, f32 scales, int32 table and lengths")
@@ -230,7 +235,7 @@ def launch_paged(entry: str, q, cache, sm_scale, return_lse):
     status = _entry(entry)(
         qb.data_ptr(), k.data_ptr(), sk.data_ptr(), v.data_ptr(), sv.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        n, n_kv, group, n_pages, cache.page_size, table.shape[1], qk_scale,
+        n, n_kv, group, spec, n_pages, cache.page_size, table.shape[1], qk_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, entry)
@@ -252,3 +257,26 @@ def paged_decode_attention(q, cache: PagedKVCache, sm_scale=None, return_lse=Fal
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_verify_attention_plain(q, cache: PagedKVCache, sm_scale=None):
+    """`paged_verify_attention`'s arithmetic in plain PyTorch."""
+    qf, s = fold_verify(q)
+    return unfold_verify(paged_decode_attention_plain(qf, cache, sm_scale, spec=s), q.shape[1])
+
+
+def paged_verify_attention(q, cache: PagedKVCache, sm_scale=None):
+    """Speculative staircase verify over the paged int8 cache: q [n, H, s, d]
+    (the contract of kv_cache.verify_decode_attention: the s tokens' K/V
+    already appended, query j attends the tokens up to length - s + j).
+    Returns [n, H, s, d] f32. CUDA tensors launch B14 with spec = s or raise;
+    CPU tensors take the plain version. `.launches` counts launches."""
+    if q.device.type == "cpu":
+        return paged_verify_attention_plain(q, cache, sm_scale)
+    qf, s = fold_verify(q)
+    o = launch_paged("qa_paged_decode", qf, cache, sm_scale, False, s)
+    paged_verify_attention.launches += 1
+    return unfold_verify(o, q.shape[1])
+
+
+paged_verify_attention.launches = 0

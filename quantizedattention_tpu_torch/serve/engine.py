@@ -34,9 +34,24 @@ prefill does. `weight_quant="int8"` / `"int4"`
 quantizes the params after the `param_dtype` cast (`quantize_lm_weights`,
 scales kept f32), so every projection and the unembedding run B17 / B18.
 
-The JAX engine's mesh serving, speculative decoding, prefix cache, chunked
-prefill, adaptive horizon and top-k/top-p sampling are not ported yet;
-asking for any of them raises NotImplementedError.
+Speculative decoding (`spec_decode=k`, the JAX engine's): each decode
+action drafts k tokens per slot on the host by n-gram lookup over the
+slot's own history (serve/spec.py), runs ONE verify pass over the last
+token and the drafts (models/transformer.py:verify_step_batched; the
+staircase of the cache kind's decode kernel) and records the 1..k+1 tokens
+each slot emits. Greedy spec decode is token-exact with the plain engine;
+sampled spec decode draws from the same distribution. Drafting needs each
+slot's current history, so this mode fetches after every dispatch. A
+verify appends k + 1 tokens before rolling the rejected ones back, so a
+slot near max_seq writes past it: slotted caches get slack rows (a 128-row
+block for int8, a 256-token pack block for int4) and a paged row's table
+gets ceil((max_seq + k) / page_size) entries, the ones past its pages
+pointing at the garbage page 0, where the overshoot lands and still
+advances the row's length, so the staircase stays aligned.
+
+The JAX engine's mesh serving, prefix cache, chunked prefill, adaptive
+horizon and top-k/top-p sampling are not ported yet; asking for any of them
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,6 +66,7 @@ from quantizedattention_tpu_torch.models.transformer import (
     decode_horizon_batched,
     prefill_slot,
     prefill_slots,
+    verify_step_batched,
 )
 from quantizedattention_tpu_torch.parallel.kv4_cache import init_kv4_cache
 from quantizedattention_tpu_torch.parallel.kv_cache import init_kv_cache
@@ -68,10 +84,11 @@ from quantizedattention_tpu_torch.serve.scheduler import (
     make_pager,
     make_scheduler,
 )
+from quantizedattention_tpu_torch.serve.spec import make_lookup
 
 # option -> the value that leaves it off; any other value is not ported yet
 _UNPORTED = {
-    "mesh": None, "spec_decode": None, "prefix_cache": False, "prefill_chunk": None,
+    "mesh": None, "prefix_cache": False, "prefill_chunk": None,
     "adaptive_horizon": None, "top_k": 0, "top_p": 1.0,
 }
 
@@ -122,7 +139,10 @@ class ServingEngine:
     page_size (any positive even number) and n_pages (default
     1 + n_slots * ceil(max_seq / page_size), page 0 reserved) size the paged
     pool. kv_quant: None (int8) or "int4"; the slotted int4 cache needs
-    max_seq a multiple of 256.
+    max_seq a multiple of 256. spec_decode: k >= 1 drafts per slot and
+    decode action (speculative decoding; needs decode_horizon 1), drafted
+    by n-gram lookup up to spec_ngram tokens long with the `scheduler`
+    kind's proposer ("native" builds native/ngram.cpp or raises).
     """
 
     def __init__(self, params, cfg: TransformerConfig, device, n_slots: int = 4,
@@ -130,7 +150,8 @@ class ServingEngine:
                  temperature: float = 0.0, seed: int = 0, param_dtype=None,
                  weight_quant: str | None = None, decode_horizon: int = 1,
                  cache: str = "slotted", page_size: int = 128, n_pages: int | None = None,
-                 kv_quant: str | None = None, **unported):
+                 kv_quant: str | None = None, spec_decode: int | None = None,
+                 spec_ngram: int = 3, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -147,6 +168,11 @@ class ServingEngine:
             raise ValueError("decode_horizon must be >= 1")
         if temperature < 0.0:
             raise ValueError("temperature must be >= 0")
+        if spec_decode is not None:
+            if spec_decode < 1:
+                raise ValueError("spec_decode must be >= 1")
+            if decode_horizon != 1:
+                raise ValueError("spec_decode replaces decode_horizon")
         self.device = torch.device(device)
         self.params = _move(params, self.device, param_dtype)
         if weight_quant is not None:
@@ -157,6 +183,15 @@ class ServingEngine:
         self.eos_id = eos_id
         self.decode_horizon = decode_horizon
         self.temperature = temperature
+        self.spec_decode = spec_decode
+        self.spec_ngram = spec_ngram
+        self._propose = make_lookup(scheduler) if spec_decode is not None else None
+        self._seed = seed
+        self._spec_dispatches = 0
+        self._spec_stats = {"steps": 0, "emitted": 0, "accepted": 0}
+        # a verify appends k + 1 tokens before its rollback: up to k past a
+        # row's last token, whose position is below max_seq
+        k = spec_decode or 0
         self._generator = None
         if temperature > 0.0:
             self._generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -169,16 +204,24 @@ class ServingEngine:
             # one allocator; the same page ids index every layer's pool, and
             # each layer's cache keeps its own copy of the table and lengths
             self._page_size = page_size
-            self._max_pages = -(-cfg.max_seq // page_size)
-            if n_pages is None:
-                n_pages = 1 + n_slots * self._max_pages  # page 0 reserved
+            if n_pages is None:  # page 0 reserved
+                n_pages = 1 + n_slots * -(-cfg.max_seq // page_size)
+            # the table entries past the row's pages hold page 0, so a
+            # verify's overshoot lands there and advances the length like any
+            # other token
+            self._table_pages = -(-(cfg.max_seq + k) // page_size)
             self._pager = make_pager(scheduler, n_pages)
             init = init_paged4_cache if kv_quant == "int4" else init_paged_cache
-            self.caches = [init(cfg.n_kv_heads, n_pages, n_slots, self._max_pages, cfg.head_dim,
-                                page_size, self.device) for _ in range(cfg.n_layers)]
+            self.caches = [init(cfg.n_kv_heads, n_pages, n_slots, self._table_pages,
+                                cfg.head_dim, page_size, self.device)
+                           for _ in range(cfg.n_layers)]
         else:
+            # slack rows for a verify's overshoot: append_kv would shift a
+            # write that overflows max_len left, onto live entries
+            grain = 256 if kv_quant == "int4" else 128
+            max_len = cfg.max_seq + (-(-(k + 1) // grain) * grain if k else 0)
             init = init_kv4_cache if kv_quant == "int4" else init_kv_cache
-            self.caches = [init(n_slots, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim, self.device)
+            self.caches = [init(n_slots, cfg.n_kv_heads, max_len, cfg.head_dim, self.device)
                            for _ in range(cfg.n_layers)]
         self.last_tok = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
         self.pos = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
@@ -235,6 +278,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         n0 = self._tokens_generated
         self._ledger = {"dispatches": 0, "fetches": 0, "dispatch_s": 0.0, "fetch_s": 0.0}
+        self._spec_stats = {"steps": 0, "emitted": 0, "accepted": 0}
         while self.step():
             pass
         dt = time.perf_counter() - t0
@@ -267,6 +311,12 @@ class ServingEngine:
         }
         if self._pager is not None:
             s["pages_free"] = self._pager.num_free
+        if self.spec_decode is not None:
+            sp = dict(self._spec_stats)
+            # each slot-step emits exactly one token that is not a draft, so
+            # slot-steps = emitted - accepted: tokens banked per model pass
+            sp["tokens_per_pass"] = sp["emitted"] / max(1, sp["emitted"] - sp["accepted"])
+            s["spec"] = sp
         s["ledger"] = dict(self._ledger)
         return s
 
@@ -332,7 +382,7 @@ class ServingEngine:
             self.sched.requeue(slot)
             return False
         self._slot_pages[slot] = pages
-        row = self._to_device(pages + [0] * (self._max_pages - len(pages)), torch.int32)
+        row = self._to_device(pages + [0] * (self._table_pages - len(pages)), torch.int32)
         for c in self.caches:
             assign_pages(c, slot, row)
         return True
@@ -433,7 +483,57 @@ class ServingEngine:
                 counts[pair] = counts.get(pair, 0) + n
         return counts
 
+    def _do_spec_decode(self):
+        """One speculative decode action: draft on the host by n-gram lookup,
+        dispatch one verify pass, fetch [n_slots, k + 2] (the emitted tokens
+        and n_emit) once, and record each slot's n_emit tokens, discarding
+        what a slot emits past its finish (EOS or budget).
+
+        Drafting needs every slot's current history, so pending fetches are
+        flushed first: this mode has no dispatch-before-fetch pipelining;
+        the accepted drafts amortize the round trip instead."""
+        self._flush_pending()
+        active = [i for i in range(self.n_slots) if self._slot_req[i] >= 0]
+        if not active:
+            return
+        k = self.spec_decode
+        drafts = [[0] * k for _ in range(self.n_slots)]
+        for s in active:
+            rid = self._slot_req[s]
+            prop = self._propose(self._prompts[rid] + self._outputs[rid], k,
+                                 max_ngram=self.spec_ngram)
+            drafts[s][:len(prop)] = prop
+        t0 = time.perf_counter()
+        seed = None
+        if self.temperature > 0.0:  # fresh draws for every dispatch
+            seed = (self._seed << 32) | self._spec_dispatches
+        self._spec_dispatches += 1
+        emitted, n_emit, self.caches = verify_step_batched(
+            self.params, self.caches, self.last_tok, self._to_device(drafts, torch.long),
+            self.pos, self.active, self.cfg, self.temperature, seed)
+        n = torch.arange(self.n_slots, device=self.device)
+        self.last_tok = torch.where(self.active, emitted[n, n_emit - 1], self.last_tok)
+        self.pos = self.pos + n_emit * self.active.long()
+        packed = torch.cat([emitted, n_emit[:, None]], dim=1)  # one fetch
+        self._ledger["dispatches"] += 1
+        self._ledger["dispatch_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = packed.cpu().tolist()
+        self._ledger["fetches"] += 1
+        self._ledger["fetch_s"] += time.perf_counter() - t0
+        self._spec_stats["steps"] += 1
+        for s in active:
+            rid, count = self._slot_req[s], rows[s][-1]
+            self._spec_stats["emitted"] += count
+            self._spec_stats["accepted"] += count - 1
+            for tok in rows[s][:count]:
+                if self._slot_req[s] != rid:
+                    break  # finished mid-emission: the rest is surplus
+                self._record(s, tok)
+
     def _do_decode(self):
+        if self.spec_decode is not None:
+            return self._do_spec_decode()
         active_before = [i for i in range(self.n_slots) if self._slot_req[i] >= 0]
         if active_before and self._pending_fetches:
             # if the pending fetches already cover every active slot's

@@ -22,13 +22,13 @@ import ctypes
 from collections import deque
 from dataclasses import dataclass
 
-from quantizedattention_tpu_torch._build import load_scheduler
+from quantizedattention_tpu_torch._build import load_native
 
 IDLE, PREFILL, DECODE = 0, 1, 2
 
 
 def _native_lib():
-    lib = load_scheduler()
+    lib = load_native("scheduler")
     lib.qa_sched_create.restype = ctypes.c_void_p
     lib.qa_sched_create.argtypes = [ctypes.c_int32, ctypes.c_int32]
     lib.qa_sched_destroy.argtypes = [ctypes.c_void_p]
