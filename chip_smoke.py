@@ -5,7 +5,8 @@
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
-     checkout's sources, all at once (quantizedattention_tpu_torch/_build.py);
+     checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
+     and holds the int8 forward's shared bytes against its launch geometry;
   3. flash_fwd kernel vs its plain PyTorch version (O and lse);
   4. decode kernel vs its plain version, with stale non-finite scales and
      junk payloads written past every row's length;
@@ -29,8 +30,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      B8 (dQ) against their plain versions at the training shape, a ragged
      length with a large K mean, GQA rep 4, the GQA train shape (rep 2), the
      int8 serving prefill's shape (8, 16, 256, 64) and an odd cross length, with B8's K-smoothing term held on its own where
-     the K mean is large; then each timed at (4, 16, 2048, 64) causal beside
-     its plain version;
+     the K mean is large, and the forward's tile edges (t and s off a
+     multiple of 128, causal t < s, rep 3 and 5, one 128-key tile, rows with
+     no visible key in a tile); then each timed at (4, 16, 2048, 64) causal
+     beside its plain version;
   9. sage_attention_int8 at (4, 16, 2048, 64) causal against the fp32
      oracle by the JAX package's criteria, with the tiny-magnitude causal
      case and K-smoothing against the raw int8 path;
@@ -48,14 +51,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the dK/dV kernels run with rep 2;
  12. the fused int8 inference kernel (B6) against its plain version (bf16
      and f32 inputs at (4, 16, 2048, 64) causal, a ragged length with a
-     large K mean, GQA rep 4, an odd cross length, rep 3 and one token), and
-     against B4 then B5 on the same inputs up to 8192 tokens (lse equal);
+     large K mean, GQA rep 4, an odd cross length, rep 3, one token and phase
+     8's tile edges), and against B4 then B5 on the same inputs up to 8192
+     tokens (lse equal);
  13. sage_attention_int8_inference at (4, 16, 2048, 64) against the fp32
      oracle with bench.py's gate, and with a K offset of 8 (smoothing);
  14. BASELINE config 3: sage_attention_int8_inference at (4, 16, {2048,
      4096, 8192}, 64) causal on bf16 inputs (the path run whose B6 launches
-     are counted), then B6 timed beside SDPA bf16, B4 -> B5 and B1 on the
-     same inputs, and at the GQA shape (4, 16 q / 4 kv, 4096, 64);
+     are counted), then B6 timed (and split into its Q/K/V quantize launch and
+     its mainloop) beside SDPA bf16, B4 -> B5 and B1 on the same inputs, and
+     at the GQA shape (4, 16 q / 4 kv, 4096, 64);
  15. the weight-only int8 (B17) and int4 (B18) matmuls against their plain
      versions at decode (m = 8) and prefill (m = 2048) rows of the bench
      widths and an odd shape, then timed beside the bf16 GEMM they replace;
@@ -201,6 +206,8 @@ from quantizedattention_tpu_torch.ops import (
     quantize_qkv_plain,
     sage_attention_int8,
 )
+from quantizedattention_tpu_torch.ops.int8_fwd import _attend, _fused_launch_args
+from quantizedattention_tpu_torch.ops.int8_tiling import shared_bytes as int8_fwd_shared_bytes
 from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_fp32,
@@ -244,7 +251,7 @@ from quantizedattention_tpu_torch.parallel.paged_cache import (
     paged_verify_attention,
     paged_verify_attention_plain,
 )
-from quantizedattention_tpu_torch.quantize.int8 import quant_int8
+from quantizedattention_tpu_torch.quantize.int8 import quant_int8, quant_int8_uncounted
 from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -443,6 +450,10 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     secs = _build.build_all()
     log(f"[build] kernels + scheduler built/loaded in {secs:.1f} s")
+    smem = _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes()
+    if smem != int8_fwd_shared_bytes():
+        raise AssertionError(f"int8_fwd.cu asks for {smem} shared bytes a block, its launch "
+                             f"geometry (ops/int8_tiling.py) says {int8_fwd_shared_bytes()}")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -1528,14 +1539,22 @@ INT8_GQA_CFG = dataclasses.replace(GQA_CFG, attention="int8")
 # GQA train phase's attention shape (rep 2, grains 512); the int8 serving
 # run's prefill (all 8 prompts in one dispatch, grains 256); an odd cross
 # length, non-causal (grains 128 and 256); then the backward's edge shapes: a
-# rep that does not divide 64 with t < s, and one token.
+# rep that does not divide 64 with t < s, and one token. Then the forward
+# kernel's tile edges (128-row blocks, 128-key tiles): t and s off a multiple
+# of 128, causal with t < s; rep 3 and rep 5, where 128 / rep is no integer
+# (rep 5 also with t > s, non-causal); a single 128-key tile; and rep 3 at
+# 170 tokens, whose block at q0 = 126 has two rows with no visible key in its
+# second tile (EDGE_CASES, shared with phase 12).
+EDGE_CASES = [(1, 8, 8, 200, 330, True, 4.0), (1, 6, 2, 300, 300, True, 4.0),
+              (1, 10, 2, 257, 257, True, 0.0), (1, 5, 1, 330, 200, False, 4.0),
+              (2, 4, 4, 128, 128, False, 0.0), (1, 3, 1, 170, 170, True, 0.0)]
 INT8_CASES = [(4, 16, 16, 2048, 2048, True, 0.0), (2, 16, 16, 1000, 1000, True, 4.0),
               (2, 16, 4, 2048, 2048, True, 0.0),
               (GQA_BATCH, GQA_CFG.n_heads, GQA_CFG.n_kv_heads, GQA_CFG.max_seq, GQA_CFG.max_seq,
                True, 0.0),
               (N_SLOTS, BENCH_CFG.n_heads, BENCH_CFG.n_kv_heads, PROMPT_LEN, PROMPT_LEN, True, 0.0),
               (1, 4, 2, 77, 201, False, 4.0), (2, 6, 2, 33, 130, True, 4.0),
-              (1, 3, 1, 1, 1, True, 0.0)]
+              (1, 3, 1, 1, 1, True, 0.0), *EDGE_CASES]
 
 
 def _check_int8(q, k, v, do, causal, label) -> dict:
@@ -1705,14 +1724,17 @@ def phase_int8_oracle(dev, gen) -> None:
 # (b, h, h_kv, t, s, causal, K offset, dtype): BASELINE config 3's shape in
 # bf16 (the serving dtype) and f32; a ragged length whose padded K rows,
 # smoothed to -k_mean, set the last K grain's scale; GQA rep 4 (Q grain 512);
-# an odd cross length, non-causal; rep 3 with t < s; one token.
+# an odd cross length, non-causal; rep 3 with t < s; one token; then phase
+# 8's tile edges (EDGE_CASES), in bf16 and f32 by turns.
 FUSED_CASES = [(4, 16, 16, 2048, 2048, True, 0.0, torch.bfloat16),
                (4, 16, 16, 2048, 2048, True, 0.0, torch.float32),
                (2, 16, 16, 1000, 1000, True, 4.0, torch.bfloat16),
                (4, 16, 4, 1024, 1024, True, 0.0, torch.bfloat16),
                (1, 4, 2, 77, 201, False, 4.0, torch.float32),
                (2, 6, 2, 33, 130, True, 4.0, torch.float32),
-               (1, 3, 1, 1, 1, True, 0.0, torch.float32)]
+               (1, 3, 1, 1, 1, True, 0.0, torch.float32),
+               *((*case, (torch.bfloat16, torch.float32)[i % 2])
+                 for i, case in enumerate(EDGE_CASES))]
 CONFIG3_SEQS = (2048, 4096, 8192)
 
 
@@ -1806,7 +1828,11 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
         o, lse = int8_attention_fwd_fused(q, k, v, causal=True, k_sub=k_sub)
         pairs = 4 * 16 * visible_pairs(t, t, True)
         flops = 4 * 4 * 16 * t * t * 64 * 0.5  # bench.py's count
+        dims, jobs = _fused_launch_args(q, k, v, k_sub)
+        scratch = quant_int8_uncounted(jobs)
         r = {"ms": device_ms(lambda: int8_attention_fwd_fused(q, k, v, True, k_sub=k_sub)),
+             "quantize_ms": device_ms(lambda: quant_int8_uncounted(jobs)),
+             "mainloop_ms": device_ms(lambda: _attend(scratch, dims, True, None)),
              "entry_ms": device_ms(lambda: sage_attention_int8_inference(q, k, v, True)),
              "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
              "b4_b5_ms": device_ms(lambda: int8_attention_fwd(q, k, v, True, k_sub=k_sub)),
@@ -1820,8 +1846,11 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
                                                                            k_sub=k_sub))
             out = r
         rows[t] = r
+        del scratch
         log(f"[timing] config 3 (4,16,{t},64) causal bf16: B6 {r['ms']:.4f} ms "
-            f"({r['tflops']['int8_fused']:.1f} TFLOP/s; entry point {r['entry_ms']:.4f} ms), "
+            f"({r['tflops']['int8_fused']:.1f} TFLOP/s; Q/K/V quantize launch "
+            f"{r['quantize_ms']:.4f} ms + mainloop {r['mainloop_ms']:.4f} ms; entry point "
+            f"{r['entry_ms']:.4f} ms), "
             f"sdpa {r['sdpa_ms']:.4f} ms ({r['tflops']['sdpa']:.1f}), B4 -> B5 "
             f"{r['b4_b5_ms']:.4f} ms ({r['tflops']['b4_b5']:.1f}), B1 {r['b1_ms']:.4f} ms "
             f"({r['tflops']['b1']:.1f}); bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
@@ -2373,8 +2402,8 @@ def main() -> None:
                                     "quantizedattention_tpu/quantize/int8.py:85"]
     kernels.append({"name": "int8_fused", "route": "cuda",
                     "source": "quantizedattention_tpu_torch/csrc/int8_fwd.cu",
-                    "also_runs": "quantizedattention_tpu_torch/csrc/quant_int8.cu (absmax pass "
-                                 "only: the scale tables)",
+                    "also_runs": "quantizedattention_tpu_torch/csrc/quant_int8.cu (the payloads "
+                                 "and scales of Q, K and V, once per call)",
                     "replaces": "quantizedattention_tpu/ops/int8_fwd.py:197",
                     "launches_by_path": {"infer_int8": infer_launches["int8_fused"]},
                     "max_abs_err": fused_err, **fused})

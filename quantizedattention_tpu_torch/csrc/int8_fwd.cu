@@ -1,104 +1,285 @@
-// Int8 flash-attention forward for Hopper (sm_90a), plain C ABI: on
-// pre-quantized Q/K/V (B5) and on Q/K/V in their floating type, quantized
-// inside the kernel (B6). One kernel body serves both.
+// Int8 flash-attention forward for Hopper (sm_90a), plain C ABI, on the int8
+// payloads and scale tables of B4. It is B5, and the second of the fused
+// inference forward's (B6) two launches.
 //
 // Replaces the TPU kernels quantizedattention_tpu/ops/int8_fwd.py:
 // _int8_fwd_kernel (B5) and _int8_fused_kernel (B6). Same numerics: S =
-// Q_i8 K_i8^T is an exact integer (int8 mma.sync, s8 x s8 -> s32, then f32:
-// |S| <= 64 * 127^2 < 2^24, the value the TPU gets from bf16 dots on the same
-// payloads); each row r and key tile scale it by c = (sq_r * sk) * qk_scale,
-// with sq per (q head, q grain) and sk per kv grain; masked raw logits
-// (causal k <= q, keys past s) become 30000 / -c, so that the scaled logit is
-// -30000 whatever the scale; the row max is max(raw) * c + EPS_BIAS; P =
-// bf16(exp2(raw * c - m)) feeds both the PV product and the row sum l; acc =
-// acc * alpha + (P V_i8) * sv with sv per kv grain; rows with l == 0 give
-// O = 0; lse = m + log2(l) (exp2 domain).
+// Q_i8 K_i8^T is an exact integer (s8 x s8 -> s32, then f32: |S| <= 64 *
+// 127^2 < 2^24, the value the TPU gets from bf16 dots on the same payloads);
+// each row r and key tile scale it by c = (sq_r * sk) * qk_scale, with sq per
+// (q head, q grain) and sk per kv grain; masked raw logits (causal k <= q,
+// keys past s) become 30000 / -c, so that the scaled logit is -30000 whatever
+// the scale; the row max is max(raw) * c + EPS_BIAS; P = bf16(exp2(raw * c -
+// m)) feeds both the PV product and the row sum l; acc = acc * alpha + (P
+// V_i8) * sv with sv per kv grain; rows with l == 0 give O = 0; lse = m +
+// log2(l) (exp2 domain).
 //
-// The kernel is templated on the type of its Q/K/V tiles; only the tile
-// loaders differ:
-//   - int8_t (B5): the payloads and scale tables of B4 (csrc/quant_int8.cu),
-//     rows padded to q_pad / kv_pad tokens;
-//   - float or bf16 (B6): the inputs themselves, t / s tokens a row. B4's
-//     absmax pass, run first with no payload output, writes the scale tables
-//     at the same grain; each tile is then quantized on its way into shared
-//     memory exactly as B4 quantizes (K minus the K-smoothing row ksub,
-//     payload = clamp(rint(x / s)) with an IEEE division), so no int8 payload
-//     is written to device memory and B6's O and lse equal B4 then B5 on the
-//     same inputs by construction.
+// B6 is B4 then B5: its wrapper runs one B4 launch on the f32 or bf16 inputs
+// that writes the payloads of Q, K (after the K-smoothing shift) and V and
+// their scale tables into scratch, so K and V are quantized once per call
+// (the Hopper counterpart of the TPU kernel's reuse_kv scratch), then this
+// kernel on that scratch: O and lse equal B4 then B5 by construction.
 //
 // What bounds it on this card: at (4,16,2048,64), causal, the two products
 // over 134 M visible pairs (17.2 G int8 operations for S, 17.2 G bf16 for
-// PV) against ~25 MB of payloads (B5) or ~50 MB of bf16 inputs (B6):
-// tensor-core bound. B6's own extra work is the re-quantization of every K/V
-// tile in every q block (an IEEE division per element, O(t^2 / 64)), which
-// the TPU kernel's reuse_kv scratch avoids by keeping the quantized K/V
-// resident; here that is left for later.
+// PV) against ~25 MB of payloads would take 0.026 ms on the tensor cores.
+// With head dim 64 the products are short and the softmax between them is
+// long: 128 x 128 exponentials a tile and block (1,024 cycles of the SM's
+// special-function units) plus ~6 other instructions an element, the S
+// product's latency, and the V widening. The kernel before this design spent
+// most of its time re-quantizing K and V in every q block (an IEEE division
+// per element, O(t^2 / 64)), loading tiles without overlap and building PV's
+// operands from scalar shared loads.
 //
-// Design (simple first), on B1's (csrc/flash_fwd.cu): one block of 4 warps
-// per (batch*kv_head, q tile) whose 64 rows hold the kv head's whole GQA
-// group (row r -> group r / bq, position q0 + r % bq, bq = 64 / rep), so a
-// K/V tile is read once for all rep q heads. K tiles stay int8 in shared
-// memory (the B operand of m16n8k32 s8 mma); V tiles are widened to bf16 on
-// their way into shared memory (exact) for the bf16 PV mma. The S
-// accumulators of two n-tiles are the A fragment of one PV k-step, so P
-// never touches shared memory. A 64-key tile never straddles a kv grain (a
-// grain is a multiple of 128 tokens), so PV of one tile is taken into its own
-// accumulator and folded in as (P V_i8) * sv: the rounding points of the
-// TPU kernel, whose online softmax runs per kv grain. The kernel's online
-// softmax runs per 64-key tile instead, so P is rounded against a different
-// running max (as in B1). No cp.async/TMA pipelining and no wgmma yet.
+// Design:
+//   - K and V are quantized once per call (B6: by B4 before this kernel),
+//     never in the mainloop.
+//   - One block of two warpgroups (256 threads, so each may hold up to 255
+//     registers) per (batch * kv head, q tile of bq positions). Its 128 rows
+//     hold the kv head's whole GQA group (row r -> group r / bq, position q0
+//     + r % bq, bq = 128 / rep rounded down), so each K/V tile is fetched
+//     once for all rep q heads; each warpgroup owns 64 rows.
+//   - Thread 0 keeps KV_STAGES tiles of 128 keys in flight with TMA
+//     (cp.async.bulk.tensor, 2-D maps over the [rows, 64] payloads) on
+//     "full" mbarriers, KV_STAGES - 1 tiles ahead of the tile being
+//     computed. All threads widen each V tile int8 -> bf16 (exact, by byte
+//     permutes and one f32 subtraction, off the conversion pipe) into a ring
+//     of VB_STAGES shared tiles laid out for wgmma, once per tile per block.
+//   - S runs on wgmma.m64n128k32.s32.s8.s8: Q [rows, 64] and K [keys, 64] are
+//     both K-major with a 64-byte swizzle (TMA writes K so; the threads
+//     write Q so themselves). PV runs on wgmma.m64n64k16.f32.bf16.bf16 with
+//     P as the A operand in registers (the S accumulator layout is the A
+//     fragment layout, after the bf16 rounding) and V as a transposed
+//     (MN-major) B from shared memory with the 128-byte swizzle. The row sums
+//     of the rounded P come from the same A fragments times a ones matrix
+//     (wgmma m64n8k16), not from the CUDA cores.
+//   - Software pipeline: tile j's S is issued with tile j - 1's PV, and tile
+//     j's V widening and softmax run while that PV is in flight; one barrier
+//     of both warpgroups a tile publishes the widened V and frees the ring
+//     stages of tile j - 1.
+//   - A kv grain is a multiple of 128 tokens, so a tile never straddles one:
+//     each tile's PV is taken into its own accumulator and folded in as
+//     (P V_i8) * sv. The online softmax runs per 128-key tile (the TPU kernel
+//     per kv grain, the plain version over whole rows), so P is rounded
+//     against a different running max, as in B1. raw * c - m is one fma.
+//   - Causal blocks stop at their last visible key tile. Masking (and its
+//     sentinel's division) is applied only on tiles that reach past s or past
+//     the block's first position; a row with no running max yet takes alpha
+//     = 0 by select. The next tile's kv grain scales load a tile ahead.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
-constexpr int D = 64;         // head dim
-constexpr int BM = 64;        // rows per block: 4 warps x 16
-constexpr int BN = 64;        // keys per kv tile
-constexpr int IROW = D + 16;  // padded shared row of an int8 tile (bytes)
-constexpr int SROW = D + 8;   // padded shared row of a bf16 tile (elements)
-constexpr int THREADS = 128;
-constexpr int CHUNKS = D / 8;  // 8-element chunks of a token row
-static_assert(THREADS % CHUNKS == 0, "a thread's chunks of a tile share one column");
+constexpr int D = 64;               // head dim (bytes of an int8 row)
+constexpr int BM = 128;             // rows per block: two warpgroups of 64
+constexpr int BN = 128;             // keys per K/V tile
+constexpr int KV_STAGES = 3;        // int8 K/V tiles in flight
+constexpr int VB_STAGES = 2;        // widened bf16 V tiles
+constexpr int THREADS = 256;        // two warpgroups, 8 warps: up to 255 registers a thread
+constexpr int TILE_I8 = BN * D;     // bytes of an int8 K or V tile
+constexpr int VB_ROW = D * 2;       // bytes of a bf16 V row
+constexpr int TILE_BF16 = BN * VB_ROW;
+constexpr int OFF_K = BM * D;       // Q tile first
+constexpr int OFF_V = OFF_K + KV_STAGES * TILE_I8;
+constexpr int OFF_VB = OFF_V + KV_STAGES * TILE_I8;
+constexpr int OFF_BAR = OFF_VB + VB_STAGES * TILE_BF16;
+constexpr int N_BARS = KV_STAGES;
+constexpr int OFF_ONES = OFF_BAR + 128;  // bf16 ones: the B operand of P's row sums
+constexpr int ONES_BYTES = 1024;
+constexpr int SMEM_BYTES = OFF_ONES + ONES_BYTES + 1024;  // + slack to align the base to 1024
+static_assert(N_BARS * 8 <= 128, "the barriers fit before the ones");
 constexpr float EPS_BIAS = 1.0f / 256.0f;
 
-enum InType { IN_F32 = 0, IN_BF16 = 1 };
-
-__device__ __forceinline__ uint32_t ld_u32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// --- mbarriers and TMA ---
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
+
+// Arrive once and expect `bytes` of TMA traffic on the barrier's phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of the given parity has completed (a stage's n-th
+// fill completes phase n - 1). A wait that never completes is a bug of the
+// pipeline: after ~2^30 tries the kernel traps (the launch fails) instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 30)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory writes of these threads become visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// --- wgmma ---
+
+// Shared-memory matrix descriptors (start address, LBO, SBO in 16-byte units;
+// layout type in bits 62-63). K-major, 64-byte swizzle: rows of 64 bytes,
+// 8-row groups 512 bytes apart (Q and K of S).
+__device__ __forceinline__ uint64_t desc_kmajor_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// MN-major, 128-byte swizzle: rows (keys) of 64 bf16 = 128 bytes, 8-key
+// groups 1024 bytes apart along K (V of PV).
+__device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// No swizzle, K-major (core matrices of 8 rows x 16 bytes, 128 bytes apart
+// along K and 256 along N): only the all-ones B of P's row sums uses it, and
+// reads 256 bytes from the start.
+__device__ __forceinline__ uint64_t desc_interleave(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to wgmma's registers across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void reg_fence(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+
+// d[64 x 128] (+)= A[64 x 32] B[128 x 32]^T, s8 x s8 -> s32, both from shared
+// memory; accumulate = 0 zeroes d first.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 -> f32; A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory,
+// transposed (MN-major).
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 8] (+)= A[64 x 16] B[16 x 8], bf16 -> f32; A from registers, B
+// K-major from shared memory.
+__device__ __forceinline__ void wgmma_bf16_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// --- element helpers ---
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D[16x8] += A[16x32] (row) * B[32x8] (col), s8 in, s32 accumulate.
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -106,135 +287,162 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// 16 int8 -> 16 bf16 (exact), stored at dst.
-__device__ __forceinline__ void widen16(__nv_bfloat16* dst, uint4 v) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-  uint32_t w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i] = pack2(__float2bfloat16_rn(static_cast<float>(b[2 * i])),
-                 __float2bfloat16_rn(static_cast<float>(b[2 * i + 1])));
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
-}
-
-// 8 consecutive elements as floats; p is 16-byte aligned.
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// B4's payload: clamp(rint(v / s), -128, 127), an IEEE division.
-__device__ __forceinline__ float quant1(float v, float s) {
-  return fminf(fmaxf(rintf(__fdiv_rn(v, s)), -128.f), 127.f);
-}
-
-// 8 values quantized by s, as 8 int8 bytes.
-__device__ __forceinline__ uint2 quant8(const float v[8], float s) {
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t byte = static_cast<uint8_t>(static_cast<int8_t>(quant1(v[i], s)));
-    w[i / 4] |= byte << (8 * (i % 4));
-  }
-  return make_uint2(w[0], w[1]);
-}
-
-// 8 values quantized by s and widened to bf16 (exact), as 16 bytes.
-__device__ __forceinline__ uint4 quant8_bf16(const float v[8], float s) {
-  uint32_t w[4];
+// 4 int8 (one word) -> 4 bf16 (exact), as two words, on the integer and FMA
+// pipes only (conversion instructions run at a quarter of their rate): each
+// byte, biased to unsigned, is spliced into the mantissa of 2^23 and 2^23 +
+// 128 is subtracted, which gives the integer b exactly in f32; |b| <= 128
+// has at most 8 significant bits, so its bf16 is the f32's upper half.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    w[i] = pack2(__float2bfloat16_rn(quant1(v[2 * i], s)),
-                 __float2bfloat16_rn(quant1(v[2 * i + 1], s)));
-  return make_uint4(w[0], w[1], w[2], w[3]);
+    f[i] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + i)) -
+                           8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632u), __byte_perm(f[2], f[3], 0x7632u));
 }
 
-// T = int8_t: q/k/v are payloads, rows q_len = q_pad and kv_len = kv_pad
-// tokens long (B5). T = float or bf16: q/k/v are the inputs, rows q_len = t
-// and kv_len = s tokens long, quantized here with the scales of B4's absmax
-// pass; ksub is the K-smoothing row or null (B6).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-int8_attn_kernel(const T* __restrict__ q,         // [bh_kv * rep, q_len, D]
-                 const T* __restrict__ k,         // [bh_kv, kv_len, D]
-                 const T* __restrict__ v,         // [bh_kv, kv_len, D]
-                 const float* __restrict__ ksub,  // [bh_kv, D] or null (B6 only)
-                 const float* __restrict__ sq,    // [bh_kv * rep, nq]
-                 const float* __restrict__ sk,    // [bh_kv, nk]
-                 const float* __restrict__ sv,    // [bh_kv, nk]
-                 float* __restrict__ o,           // [bh_kv * rep, t, D]
-                 float* __restrict__ lse,         // [bh_kv * rep, t]
-                 int rep, int t, int s, int q_len, int kv_len, int nq, int nk, int q_grain,
+// 8 int8 (two words) -> 8 bf16 (exact), as 16 bytes.
+__device__ __forceinline__ uint4 widen8(uint32_t w0, uint32_t w1) {
+  const uint2 a = widen4(w0), b = widen4(w1);
+  return make_uint4(a.x, a.y, b.x, b.y);
+}
+
+// An int32 of magnitude below 2^22 as f32, exactly, without a conversion
+// instruction: added to the bits of 1.5 * 2^23, then 1.5 * 2^23 subtracted.
+__device__ __forceinline__ float small_int_to_float(int x) {
+  return __int_as_float(x + 0x4B400000) - 12582912.f;
+}
+
+// 2^x, one MUFU.EX2 (flushes results below 2^-126 to 0: P is rounded to
+// bf16, whose normal range is f32's).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Masks one tile's raw S (only where the tile reaches past s or past the
+// block's first position) and converts it to f32; updates the running max m
+// (scaled, +EPS_BIAS) and gives each row's alpha; writes P = bf16(exp2(raw *
+// c - m)) as PV's A fragments (key tiles 2kk and 2kk + 1 of 8 keys are k-step
+// kk). si[4 n + e]: row h = e / 2, key k0 + 8 n + cq + (e & 1).
+__device__ __forceinline__ void softmax_tile(const int (&si)[64], uint32_t (&p)[8][4],
+                                             float (&m)[2], float (&alpha)[2],
+                                             const float (&c)[2], bool edge, int k0, int cq,
+                                             const int (&pos)[2], int s, int causal) {
+  float sc[64];
+  float mx[2] = {-INFINITY, -INFINITY};
+  float sentinel[2] = {0.f, 0.f};  // the masked raw logit 30000 / -c, on edge tiles only
+  if (edge) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sentinel[h] = __fdiv_rn(30000.f, -c[h]);
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int h = (i % 4) / 2;
+    sc[i] = small_int_to_float(si[i]);  // |S| <= 64 * 128^2 = 2^20
+    if (edge) {
+      const int col = k0 + (i / 4) * 8 + cq + (i & 1);
+      if (!(col < s && (!causal || col <= pos[h]))) sc[i] = sentinel[h];
+    }
+    mx[h] = fmaxf(mx[h], sc[i]);
+  }
+  float next_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    next_m[h] = fmaxf(m[h], __fadd_rn(__fmul_rn(quad_max(mx[h]), c[h]), EPS_BIAS));
+    // a row with no running max yet takes alpha = 0 by select
+    alpha[h] = m[h] == -INFINITY ? 0.f : exp2_ftz(m[h] - next_m[h]);
+    m[h] = next_m[h];
+  }
+  // raw * c - m with one rounding (fma), then exp2 and the bf16 rounding
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      p[n / 2][(n % 2) * 2 + h] =
+          as_u32(__floats2bfloat162_rn(exp2_ftz(fmaf(sc[4 * n + 2 * h], c[h], -next_m[h])),
+                                       exp2_ftz(fmaf(sc[4 * n + 2 * h + 1], c[h], -next_m[h]))));
+  }
+}
+
+// Q, K and V are B4's payloads: q read directly, K and V ([bh_kv * kv_pad,
+// 64] int8) through the TMA maps.
+__global__ void __launch_bounds__(THREADS, 1)
+int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
+                 const __grid_constant__ CUtensorMap v_map,  // no swizzle
+                 const int8_t* __restrict__ q,               // [bh_kv * rep, q_pad, D]
+                 const float* __restrict__ sq,               // [bh_kv * rep, nq]
+                 const float* __restrict__ sk,               // [bh_kv, nk]
+                 const float* __restrict__ sv,               // [bh_kv, nk]
+                 float* __restrict__ o,                      // [bh_kv * rep, t, D]
+                 float* __restrict__ lse,                    // [bh_kv * rep, t]
+                 int rep, int t, int s, int q_pad, int kv_pad, int nq, int nk, int q_grain,
                  int kv_grain, int bq, int causal, float qk_scale) {
-  constexpr bool kPayload = std::is_same_v<T, int8_t>;
-  __shared__ __align__(16) int8_t q_s[BM * IROW];
-  __shared__ __align__(16) int8_t k_s[BN * IROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BN * SROW];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + OFF_BAR;
+  auto kv_full = [&](int i) { return bars + 8 * i; };
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int cq = (lane % 4) * 2;  // accumulator column pair
-  const int c4 = (lane % 4) * 4;  // int8 fragment column quad
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * bq;
-  const int rows = rep * bq;  // live rows of the block (<= BM)
+  // Causal: keys past the block's last query position are never visible.
+  const int kv_hi = causal ? min(s, q0 + bq) : s;
+  const int n_tiles = (kv_hi + BN - 1) / BN;
 
-  // Q rows -> shared, int8 (zeros for dead rows and positions past t).
-  if constexpr (kPayload) {
-    for (int c = tid; c < BM * (D / 16); c += THREADS) {
-      const int r = c / (D / 16);
-      const int col = (c % (D / 16)) * 16;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && q0 + r % bq < t)
-        val = *reinterpret_cast<const uint4*>(
-            q + ((bh * rep + r / bq) * q_len + q0 + r % bq) * D + col);
-      *reinterpret_cast<uint4*>(&q_s[r * IROW + col]) = val;
-    }
-  } else {  // quantized with the row's (q head, q grain) scale
-    for (int c = tid; c < BM * CHUNKS; c += THREADS) {
-      const int r = c / CHUNKS;
-      const int col = (c % CHUNKS) * 8;
-      uint2 val = make_uint2(0u, 0u);
-      const int p = q0 + r % bq;
-      if (r < rows && p < t) {
-        const size_t qrow = bh * rep + r / bq;
-        float x[8];
-        load8(q + (qrow * q_len + p) * D + col, x);
-        val = quant8(x, sq[qrow * nq + p / q_grain]);
-      }
-      *reinterpret_cast<uint2*>(&q_s[r * IROW + col]) = val;
-    }
-  }
-  // B6: this thread's K/V chunks all sit at one column (THREADS % CHUNKS == 0)
-  float sub[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (!kPayload && ksub) {
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sub[i] = ksub[bh * D + (tid % CHUNKS) * 8 + i];
+    for (int i = 0; i < KV_STAGES; ++i) mbar_init(kv_full(i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // This thread's two rows (fragment rows lane/4 and lane/4 + 8 of its warp).
-  const int ra = warp * 16 + lane / 4;
+  // Thread 0 fills the K/V ring by TMA: tiles 0 .. KV_STAGES - 1 now, tile j +
+  // KV_STAGES - 1 at the start of tile j, into the stage of tile j - 1, which
+  // every thread released before the barrier that ended tile j - 1.
+  auto load_kv = [&](int j) {
+    if (tid == 0 && j < n_tiles) {
+      const int st = j % KV_STAGES;
+      mbar_expect_tx(kv_full(st), 2 * TILE_I8);
+      const int row = static_cast<int>(bh) * kv_pad + j * BN;
+      tma_load_2d(base + OFF_K + st * TILE_I8, &k_map, kv_full(st), 0, row);
+      tma_load_2d(base + OFF_V + st * TILE_I8, &v_map, kv_full(st), 0, row);
+    }
+  };
+  for (int j = 0; j < KV_STAGES; ++j) load_kv(j);
+
+  // The consumer warpgroups: wg owns block rows wg * 64 .. wg * 64 + 63.
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int cq = (lane % 4) * 2;  // accumulator column pair
+  const int rows = rep * bq;      // live rows of the block (<= BM)
+
+  // This warpgroup's Q rows -> shared, int8, K-major with the 64-byte
+  // swizzle (16-byte chunk c of row r at c ^ ((r >> 1) & 3)); zeros for dead
+  // rows and positions past t. Then the ones that sum each row of P.
+  for (int c = tid % 128; c < 64 * (D / 16); c += 128) {
+    const int r = wg * 64 + c / (D / 16), c16 = c % (D / 16);
+    const int p = q0 + r % bq;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows && p < t) {
+      const size_t qrow = bh * rep + r / bq;
+      val = *reinterpret_cast<const uint4*>(q + (qrow * q_pad + p) * D + c16 * 16);
+    }
+    *reinterpret_cast<uint4*>(smem + r * D + ((c16 ^ ((r >> 1) & 3)) << 4)) = val;
+  }
+  for (int c = tid; c < ONES_BYTES / 16; c += THREADS)
+    reinterpret_cast<uint4*>(smem + OFF_ONES)[c] =
+        make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);  // bf16 1.0
+  fence_proxy_async();
+  named_barrier(1, THREADS);
+
+  // This thread's two rows (accumulator rows lane/4 and lane/4 + 8 of its warp).
+  const int ra = wg * 64 + warp * 16 + lane / 4;
   bool live[2];
   int pos[2];
   float sq_r[2];
@@ -246,139 +454,122 @@ int8_attn_kernel(const T* __restrict__ q,         // [bh_kv * rep, q_len, D]
     sq_r[h] = live[h] ? sq[(bh * rep + r / bq) * nq + pos[h] / q_grain] : 1.f;
   }
 
-  uint32_t qa[D / 32][4];
+  // Tile j's scale c = (sq_r * sk) * qk_scale per row, from its kv grain's sk.
+  auto tile_scales = [&](float sk_t, float (&c)[2]) {
 #pragma unroll
-  for (int ks = 0; ks < D / 32; ++ks) {
-    qa[ks][0] = ld_u32(&q_s[ra * IROW + ks * 32 + c4]);
-    qa[ks][1] = ld_u32(&q_s[(ra + 8) * IROW + ks * 32 + c4]);
-    qa[ks][2] = ld_u32(&q_s[ra * IROW + ks * 32 + 16 + c4]);
-    qa[ks][3] = ld_u32(&q_s[(ra + 8) * IROW + ks * 32 + 16 + c4]);
-  }
+    for (int h = 0; h < 2; ++h) c[h] = __fmul_rn(__fmul_rn(sq_r[h], sk_t), qk_scale);
+  };
+  auto scale_at = [&](const float* table, int j) {
+    return table[bh * nk + min(j, n_tiles - 1) * BN / kv_grain];
+  };
+  auto edge = [&](int j) { return j * BN + BN > s || (causal && j * BN + BN - 1 > q0); };
 
+  const uint64_t desc_q = desc_kmajor_sw64(base + wg * 64 * D);
+  const uint64_t desc_ones = desc_interleave(base + OFF_ONES);
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[32];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
-  // Causal: keys past the block's last query position are never visible.
-  const int kv_hi = causal ? min(s, q0 + bq) : s;
-  const int n_tiles = (kv_hi + BN - 1) / BN;
+  // S of tile j, once its K/V stage has landed: issued and committed as one group.
+  auto issue_s = [&](int j, int (&si)[64]) {
+    const int st = j % KV_STAGES;
+    mbar_wait(kv_full(st), (j / KV_STAGES) & 1);
+    const uint64_t desc_k = desc_kmajor_sw64(base + OFF_K + st * TILE_I8);
+    wgmma_fence();
+    wgmma_s8_m64n128k32(si, desc_q, desc_k, 0);
+    wgmma_s8_m64n128k32(si, desc_q + 2, desc_k + 2, 1);  // the next 32 bytes of d
+    wgmma_commit();
+  };
+  // This thread's share of tile j's V, widened int8 -> bf16 into buffer j %
+  // 2 with the 128-byte swizzle (16-byte chunk c of key row r at c ^ (r & 7)).
+  auto widen_v = [&](int j) {
+    const uint8_t* vi = smem + OFF_V + (j % KV_STAGES) * TILE_I8;
+    uint8_t* vb = smem + OFF_VB + (j % VB_STAGES) * TILE_BF16;
+#pragma unroll
+    for (int i = 0; i < BN * (D / 16) / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      const int r = c / (D / 16), c16 = c % (D / 16);
+      const uint4 x = *reinterpret_cast<const uint4*>(vi + r * D + c16 * 16);
+      *reinterpret_cast<uint4*>(vb + r * VB_ROW + (((2 * c16) ^ (r & 7)) << 4)) = widen8(x.x, x.y);
+      *reinterpret_cast<uint4*>(vb + r * VB_ROW + (((2 * c16 + 1) ^ (r & 7)) << 4)) =
+          widen8(x.z, x.w);
+    }
+  };
+  // PV of tile j: 8 k-steps of 16 keys (32 bytes of P's rows, 16 rows =
+  // 2048 bytes of V), and the row sums; issued and committed as one group.
+  auto issue_pv = [&](int j, const uint32_t (&pa)[8][4], float (&pv)[32], float (&ls)[4]) {
+    const uint64_t desc_v = desc_mnmajor_sw128(base + OFF_VB + (j % VB_STAGES) * TILE_BF16);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_bf16_m64n64k16_rs(pv, pa[kk], desc_v + kk * (16 * VB_ROW >> 4), kk > 0);
+      wgmma_bf16_m64n8k16_rs(ls, pa[kk], desc_ones, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // Once tile j's PV is done: acc = acc * alpha + (P V_i8) * sv, l = l *
+  // alpha + rowsum(P); pv[4 n + e]: row e / 2, column 8 n + cq + (e & 1);
+  // ls[2 h]: row h.
+  auto fold_pv = [&](float (&pv)[32], float (&ls)[4], const float (&alpha_j)[2], float sv_j) {
+    reg_fence(pv);
+    reg_fence(ls);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha_j[(i % 4) / 2]), __fmul_rn(pv[i], sv_j));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha_j[h] + ls[2 * h];
+  };
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    const int grain = k0 / kv_grain;
-    const float sk_t = sk[bh * nk + grain];
-    const float sv_t = sv[bh * nk + grain];
-    __syncthreads();  // every warp is done with the previous K/V tile
-    if constexpr (kPayload) {
-      for (int c = tid; c < BN * (D / 16); c += THREADS) {
-        const int r = c / (D / 16);
-        const int col = (c % (D / 16)) * 16;
-        // rows past s hold the padded payload; they are masked below
-        const size_t off = (bh * kv_len + k0 + r) * D + col;
-        *reinterpret_cast<uint4*>(&k_s[r * IROW + col]) = *reinterpret_cast<const uint4*>(k + off);
-        widen16(&v_s[r * SROW + col], *reinterpret_cast<const uint4*>(v + off));
-      }
-    } else {  // quantized with the tile's kv grain scales, K after the shift
-      for (int c = tid; c < BN * CHUNKS; c += THREADS) {
-        const int r = c / CHUNKS;
-        const int col = (c % CHUNKS) * 8;
-        // keys past s are masked below: zeros (the padded V payload is zero too)
-        uint2 kq = make_uint2(0u, 0u);
-        uint4 vw = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < s) {
-          const size_t off = (bh * kv_len + k0 + r) * D + col;
-          float x[8];
-          load8(k + off, x);
-          if (ksub) {
+  // Software pipeline: tile j's S, V widening and softmax run while tile j -
+  // 1's PV is in flight. One barrier of both warpgroups a tile publishes
+  // tile j's widened V and P (and retires tile j - 1's buffers).
+  float alpha[2], c[2];
+  uint32_t pa[8][4];
+  float sk_next = scale_at(sk, 1), sv_prev = scale_at(sv, 0);
+  {
+    int si[64];
+    tile_scales(scale_at(sk, 0), c);
+    issue_s(0, si);
+    widen_v(0);
+    wgmma_wait<0>();
+    reg_fence(si);
+    softmax_tile(si, pa, m, alpha, c, edge(0), 0, cq, pos, s, causal);
+    fence_proxy_async();
+    named_barrier(1, THREADS);
+  }
+  for (int j = 1; j < n_tiles; ++j) {
+    load_kv(j + KV_STAGES - 1);
+    const float sv_j = scale_at(sv, j);
+    tile_scales(sk_next, c);
+    sk_next = scale_at(sk, j + 1);
+    int si[64];
+    float pv[32], ls[4];
+    issue_s(j, si);
+    issue_pv(j - 1, pa, pv, ls);
+    widen_v(j);
+    const float alpha_prev[2] = {alpha[0], alpha[1]};
+    wgmma_wait<1>();  // S of tile j is done; PV of tile j - 1 may still run
+    reg_fence(si);
+    uint32_t pb[8][4];
+    softmax_tile(si, pb, m, alpha, c, edge(j), j * BN, cq, pos, s, causal);
+    fence_proxy_async();
+    wgmma_wait<0>();
+    reg_fence(pa);
+    fold_pv(pv, ls, alpha_prev, sv_prev);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) x[i] -= sub[i];
-          }
-          kq = quant8(x, sk_t);
-          load8(v + off, x);
-          vw = quant8_bf16(x, sv_t);
-        }
-        *reinterpret_cast<uint2*>(&k_s[r * IROW + col]) = kq;
-        *reinterpret_cast<uint4*>(&v_s[r * SROW + col]) = vw;
-      }
-    }
-    __syncthreads();
-
-    float c[2], sentinel[2];
+    for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      c[h] = __fmul_rn(__fmul_rn(sq_r[h], sk_t), qk_scale);
-      sentinel[h] = __fdiv_rn(30000.f, -c[h]);
-    }
-
-    // Raw S = Q_i8 K_i8^T for this warp's 16 rows x 64 keys, exact.
-    float sc[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      int acc_i[4] = {0, 0, 0, 0};
-      const int8_t* krow = &k_s[(nt * 8 + lane / 4) * IROW + c4];
-#pragma unroll
-      for (int ks = 0; ks < D / 32; ++ks)
-        mma_s8(acc_i, qa[ks], ld_u32(krow + ks * 32), ld_u32(krow + ks * 32 + 16));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = static_cast<float>(acc_i[e]);
-    }
-
-    // Mask in the raw domain, row max (scaled, +EPS_BIAS), running-max update.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        const bool valid = col < s && (!causal || col <= pos[h]);
-        if (!valid) sc[nt][e] = sentinel[h];
-        mx[h] = fmaxf(mx[h], sc[nt][e]);
-      }
-    }
-    float next_m[2], alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      next_m[h] = fmaxf(m[h], __fadd_rn(__fmul_rn(quad_max(mx[h]), c[h]), EPS_BIAS));
-      alpha[h] = exp2f(m[h] - next_m[h]);
-      m[h] = next_m[h];
-    }
-
-    // P = bf16(exp2(raw * c - m)); l sums the ROUNDED P.
-    uint32_t pa[BN / 16][4];
-    float lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const __nv_bfloat162 p01 =
-          __floats2bfloat162_rn(exp2f(__fmul_rn(sc[nt][0], c[0]) - next_m[0]),
-                                exp2f(__fmul_rn(sc[nt][1], c[0]) - next_m[0]));
-      const __nv_bfloat162 p23 =
-          __floats2bfloat162_rn(exp2f(__fmul_rn(sc[nt][2], c[1]) - next_m[1]),
-                                exp2f(__fmul_rn(sc[nt][3], c[1]) - next_m[1]));
-      lsum[0] += __low2float(p01) + __high2float(p01);
-      lsum[1] += __low2float(p23) + __high2float(p23);
-      pa[nt / 2][(nt % 2) * 2 + 0] = as_u32(p01);
-      pa[nt / 2][(nt % 2) * 2 + 1] = as_u32(p23);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(lsum[h]);
-
-    // acc = acc * alpha + (P V_i8) * sv, the tile's PV in its own accumulator.
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      float pv[4] = {0.f, 0.f, 0.f, 0.f};
-      const int n = dt * 8 + lane / 4;
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const __nv_bfloat16* vcol = &v_s[(kk * 16 + cq) * SROW + n];
-        mma_bf16(pv, pa[kk], pack2(vcol[0], vcol[SROW]), pack2(vcol[8 * SROW], vcol[9 * SROW]));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[dt][e] = __fadd_rn(__fmul_rn(acc[dt][e], alpha[e / 2]), __fmul_rn(pv[e], sv_t));
-    }
+      for (int e = 0; e < 4; ++e) pa[kk][e] = pb[kk][e];
+    sv_prev = sv_j;
+    named_barrier(1, THREADS);
+  }
+  {
+    float pv[32], ls[4];
+    issue_pv(n_tiles - 1, pa, pv, ls);
+    wgmma_wait<0>();
+    fold_pv(pv, ls, alpha, sv_prev);
   }
 
   // Epilogue: O = acc / l (l == 0 -> 1), lse = m + log2(l).
@@ -389,65 +580,86 @@ int8_attn_kernel(const T* __restrict__ q,         // [bh_kv * rep, q_len, D]
     const float l_safe = l[h] == 0.f ? 1.f : l[h];
     const size_t row = (bh * rep + r / bq) * t + pos[h];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      float2 val = make_float2(acc[dt][2 * h] / l_safe, acc[dt][2 * h + 1] / l_safe);
-      *reinterpret_cast<float2*>(o + row * D + dt * 8 + cq) = val;
+    for (int n = 0; n < D / 8; ++n) {
+      const float2 val = make_float2(acc[4 * n + 2 * h] / l_safe, acc[4 * n + 2 * h + 1] / l_safe);
+      *reinterpret_cast<float2*>(o + row * D + n * 8 + cq) = val;
     }
     if (lane % 4 == 0) lse[row] = m[h] + log2f(l_safe);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* ksub, const void* sq,
-           const void* sk, const void* sv, void* o, void* lse, int bh_kv, int rep, int t, int s,
-           int q_len, int kv_len, int nq, int nk, int q_grain, int kv_grain, int causal,
-           float qk_scale, cudaStream_t stream) {
-  const int bq = BM / rep;
-  const dim3 grid((t + bq - 1) / bq, bh_kv);
-  int8_attn_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(ksub), static_cast<const float*>(sq),
-      static_cast<const float*>(sk), static_cast<const float*>(sv), static_cast<float*>(o),
-      static_cast<float*>(lse), rep, t, s, q_len, kv_len, nq, nk, q_grain, kv_grain, bq, causal,
-      qk_scale);
-  return static_cast<int>(cudaGetLastError());
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map over rows of 64 int8 bytes, boxes of 128 rows.
+bool payload_map(CUtensorMap* map, const void* ptr, int rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(D), static_cast<cuuint32_t>(BN)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
+// Shared bytes one block asks for (ops/int8_tiling.py's shared_bytes mirrors it).
+extern "C" int qa_int8_fwd_smem_bytes() { return SMEM_BYTES; }
+
 // B5: q [bh_kv * rep, q_pad, 64], k/v [bh_kv, kv_pad, 64] int8 payloads with
 // their scale tables sq [bh_kv * rep, q_pad / q_grain], sk/sv [bh_kv,
 // kv_pad / kv_grain] -> O [bh_kv * rep, t, 64], lse [bh_kv * rep, t] (f32).
+// bq query positions a block (rep * bq <= 128); kv_grain a multiple of 128.
 extern "C" int qa_int8_fwd(const void* q, const void* k, const void* v, const void* sq,
                            const void* sk, const void* sv, void* o, void* lse, int bh_kv, int rep,
-                           int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain,
+                           int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain, int bq,
                            int causal, float qk_scale, void* stream) {
-  return launch<int8_t>(q, k, v, nullptr, sq, sk, sv, o, lse, bh_kv, rep, t, s, q_pad, kv_pad,
-                        q_pad / q_grain, kv_pad / kv_grain, q_grain, kv_grain, causal, qk_scale,
-                        static_cast<cudaStream_t>(stream));
-}
-
-// B6's attention: q [bh_kv * rep, t, 64], k/v [bh_kv, s, 64] of in_type (0
-// f32, 1 bf16), ksub [bh_kv, 64] f32 or null, and the scale tables that B4's
-// absmax pass wrote for them at the same grain (sq [bh_kv * rep, q_pad /
-// q_grain], sk/sv [bh_kv, kv_pad / kv_grain], K's after the shift) -> O
-// [bh_kv * rep, t, 64], lse [bh_kv * rep, t] (f32). kv_grain is a multiple
-// of 64.
-extern "C" int qa_int8_fused(const void* q, const void* k, const void* v, const void* ksub,
-                             const void* sq, const void* sk, const void* sv, void* o, void* lse,
-                             int in_type, int bh_kv, int rep, int t, int s, int q_pad, int kv_pad,
-                             int q_grain, int kv_grain, int causal, float qk_scale,
-                             void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nq = q_pad / q_grain, nk = kv_pad / kv_grain;
-  switch (in_type) {
-    case IN_F32:
-      return launch<float>(q, k, v, ksub, sq, sk, sv, o, lse, bh_kv, rep, t, s, t, s, nq, nk,
-                           q_grain, kv_grain, causal, qk_scale, st);
-    case IN_BF16:
-      return launch<__nv_bfloat16>(q, k, v, ksub, sq, sk, sv, o, lse, bh_kv, rep, t, s, t, s, nq,
-                                   nk, q_grain, kv_grain, causal, qk_scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (bq < 1 || rep < 1 || rep * bq > BM || t < 1 || t > q_pad || s < 1 || s > kv_pad ||
+      kv_pad % BN || kv_grain % BN || kv_pad % kv_grain || q_pad % q_grain || bh_kv < 1 ||
+      bh_kv > 65535 ||
+      static_cast<long long>(bh_kv) * kv_pad > 0x7fffffffLL)  // TMA row coordinates are int32
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap k_map, v_map;
+  if (!payload_map(&k_map, k, bh_kv * kv_pad, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !payload_map(&v_map, v, bh_kv * kv_pad, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int8_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
   }
+  const dim3 grid((t + bq - 1) / bq, bh_kv);
+  int8_attn_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      k_map, v_map, static_cast<const int8_t*>(q), static_cast<const float*>(sq),
+      static_cast<const float*>(sk), static_cast<const float*>(sv), static_cast<float*>(o),
+      static_cast<float*>(lse), rep, t, s, q_pad, kv_pad, q_pad / q_grain, kv_pad / kv_grain,
+      q_grain, kv_grain, bq, causal, qk_scale);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -15,9 +15,7 @@
 // One launch covers up to three tensors (Q, K and V of one attention call),
 // each with its own rows, length, padded length, grain and optional sub row:
 // the grid is the concatenation of their (row, grain) blocks. The input is
-// f32 or bf16 (widened exactly). A job with no payload output writes its
-// scale table only: the fused inference forward (B6, csrc/int8_fwd.cu)
-// takes its scales from that pass and quantizes its tiles itself.
+// f32 or bf16 (widened exactly).
 //
 // What bounds it on this card: it reads each input once and writes a
 // quarter-width payload, so it is bytes-bound (the whole work is a max and a
@@ -47,7 +45,7 @@ enum InType { IN_F32 = 0, IN_BF16 = 1 };
 struct Job {
   const void* x;       // [rows, t, D] of the input type
   const float* sub;    // [rows, D] or null
-  int8_t* out;         // [rows, pad, D], or null: the scale table only
+  int8_t* out;         // [rows, pad, D]
   float* scale;        // [rows, pad / grain]
   int rows, t, pad, grain;
 };
@@ -120,7 +118,6 @@ __global__ void __launch_bounds__(THREADS) quant_int8_kernel(Jobs jobs) {
   for (int w = 1; w < THREADS / 32; ++w) amax = fmaxf(amax, warp_max[w]);
   const float s = __fmul_rn(fmaxf(amax, 1e-12f), INV_INT8_MAX);
   if (threadIdx.x == 0) jb.scale[(size_t)row * n_grains + blk % n_grains] = s;
-  if (!jb.out) return;
 
   int8_t* orow = jb.out + (size_t)row * jb.pad * D + c4 * 4;
   for (int tok = tok0 + r0; tok < tok0 + jb.grain; tok += ROWS_PER_STEP) {
@@ -138,8 +135,7 @@ __global__ void __launch_bounds__(THREADS) quant_int8_kernel(Jobs jobs) {
 
 // Quantize n_jobs (1..3) tensors in one launch. Job i: x [rows, t, D] of
 // in_type (0 f32, 1 bf16), sub [rows, D] f32 or null, out [rows, pad, D]
-// int8 or null (then only the scales are written), scale [rows, pad/grain]
-// f32; pad is a multiple of grain, pad >= t.
+// int8, scale [rows, pad/grain] f32; pad is a multiple of grain, pad >= t.
 extern "C" int qa_quant_int8(const void* const* x, const void* const* sub, void* const* out,
                              void* const* scale, const int* rows, const int* t, const int* pad,
                              const int* grain, int n_jobs, int in_type, void* stream) {

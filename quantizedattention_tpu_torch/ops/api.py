@@ -12,7 +12,8 @@ torch.autograd.Function, as the JAX package's custom_vjp:
   is wanted (under torch.no_grad, as prefill runs) autograd records no
   graph, and the residuals are freed when the call returns.
 - `sage_attention_int8_inference` (ops/api.py:170-196): forward only, the
-  fused int8 kernel (B6), which quantizes inside the kernel.
+  fused int8 path (B6): one B4 launch quantizes Q, K and V into scratch,
+  then B5's kernel attends.
 - `attention_jvp` (ops/api.py:199-300): fp32 attention with both AD modes.
   The forward is B1's fp32 mode and saves (q, k, v, O, lse); `backward` runs
   the exact flash backward (B2, B3); `jvp`, the forward-mode rule, runs the
@@ -108,10 +109,11 @@ def sage_attention_int8(q, k, v, causal: bool = False,
 
 def sage_attention_int8_inference(q, k, v, causal: bool = False, sm_scale: float | None = None,
                                   smooth_k: bool = True) -> torch.Tensor:
-    """Forward-only int8 attention with the quantization inside the kernel
-    (B6): no int8 payload or scale table is kept, and nothing is
-    differentiable. Same numerics as `sage_attention_int8`'s forward at the
-    same grain, except for the K mean: smooth_k=True subtracts the per-head K
+    """Forward-only int8 attention through the fused kernel path (B6: Q,
+    K and V quantized once per call into scratch, then B5's kernel): no
+    int8 payload or scale table is kept, and nothing is differentiable.
+    Same numerics as `sage_attention_int8`'s forward at the same grain,
+    except for the K mean: smooth_k=True subtracts the per-head K
     token mean taken, as the JAX package's `jnp.mean` gives it, in k's own
     dtype (bf16 inputs give a bf16 mean), where `sage_attention_int8` takes
     it in f32. Returns O f32 [b, h, t, d].

@@ -2,8 +2,7 @@
 
 Counterpart of quantizedattention_tpu/ops/int8_fwd.py: the materialized
 training forward (B4 quantizes, B5 attends) and the fused inference forward
-(B6, `int8_attention_fwd_fused`), which quantizes inside the kernel and
-writes no int8 payload to memory.
+(B6, `int8_attention_fwd_fused`), which keeps no int8 residual.
 
 `quantize_qkv` quantizes Q, K (minus the K-smoothing shift) and V with one
 launch of B4 (`quantize.int8.quant_int8`) at the JAX package's scale grain
@@ -20,43 +19,40 @@ grain); masked raw logits (causal k <= q) become 30000 / -c; the row max is
 max(raw) * c + EPS_BIAS; P = bf16(exp2(raw * c - m)) feeds the row sum and
 the PV product; each kv grain's P V_i8 is scaled by its sv; rows with l == 0
 give 0 and lse = m + log2(l) (exp2 domain). The kernel runs the online
-softmax per 64-key tile, the plain version over whole rows, so the two
+softmax per 128-key tile, the plain version over whole rows, so the two
 differ only in where P is rounded (as B1 and its plain version do).
 
-`int8_attention_fwd_fused` runs B6 on f32 or bf16 CUDA inputs: B4's absmax
-pass alone (`quant_int8_scales`) writes the f32 scale tables at the same
-grain, then B5's kernel body (csrc/int8_fwd.cu, instantiated for the input
-type) quantizes each Q, K and V tile in registers, as B4 does, and attends.
-No int8 payload reaches device memory, and O and lse equal B4 then B5 on the
-same inputs. Its plain version is exactly that composition.
+`int8_attention_fwd_fused` runs B6 on f32 or bf16 CUDA inputs: one B4 launch
+(`quant_int8_uncounted`, on the inputs in their own type) writes the
+payloads and scale tables of Q, K (after the shift) and V into scratch, so K
+and V are quantized once per call; then B5's kernel attends on that scratch.
+O and lse equal B4 then B5 on the same inputs by construction, and its plain
+version is exactly that composition. The block size of both is
+`ops.int8_tiling`'s.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.common import qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.int8_tiling import HEAD_DIM, block_positions, check_grain
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
 from quantizedattention_tpu_torch.quantize.int8 import (
     IN_TYPES,
     QuantJob,
     quant_int8,
     quant_int8_plain,
-    quant_int8_scales,
+    quant_int8_uncounted,
 )
 from quantizedattention_tpu_torch.tune.config import int8_grain
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
-_HEAD_DIM = 64  # the kernel's compiled head dim
-_BLOCK_ROWS = 64  # rows per kernel block; the GQA group must fit in it
-_TILE = 64  # keys per kernel tile; a kv grain must be a multiple of it
 
-
-def _qkv_jobs(q, k, v, k_sub):
+def _qkv_jobs(q, k, v, k_sub, to_f32=True):
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     if h % h_kv != 0:
@@ -64,7 +60,7 @@ def _qkv_jobs(q, k, v, k_sub):
     q_grain, kv_grain, q_pad, kv_pad = int8_grain(t, s, h // h_kv)
 
     def rows(x):
-        return x.float().reshape(-1, x.shape[2], d).contiguous()
+        return (x.float() if to_f32 else x).reshape(-1, x.shape[2], d).contiguous()
 
     sub = None if k_sub is None else k_sub.float().reshape(b * h_kv, d).contiguous()
     return [QuantJob(rows(q), q_pad, q_grain), QuantJob(rows(k), kv_pad, kv_grain, sub),
@@ -152,37 +148,30 @@ def int8_attention_fwd_from_quantized_plain(residuals, dims, causal=False, sm_sc
 @functools.cache
 def _kernel():
     fn = load_kernel("int8_fwd").qa_int8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_args(residuals, dims):
-    """Check what the kernel takes; returns (device, bh_kv, rep, q_grain, kv_grain)."""
+    """Check what the kernel takes; returns (device, bh_kv, rep, q_grain,
+    kv_grain, bq)."""
     bh_kv, rep, q_grain, kv_grain = _layout(residuals, dims)
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
     d = dims[4]
-    if d != _HEAD_DIM or rep > _BLOCK_ROWS or kv_grain % _TILE or bh_kv > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, rep <= {_BLOCK_ROWS}, kv grain "
-                         f"a multiple of {_TILE}, b*h_kv <= 65535; got d={d}, rep={rep}, "
-                         f"kv grain {kv_grain}, b*h_kv={bh_kv}")
+    if d != HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIM}; got d={d}")
+    bq = block_positions(bh_kv, rep)
+    check_grain(kv_grain, k_i8.shape[1])
     if any(x.dtype != torch.int8 for x in (q_i8, k_i8, v_i8)) or \
             any(x.dtype != torch.float32 for x in (sq, sk, sv)):
         raise ValueError("kernel takes int8 payloads and float32 scales")
-    return require_cuda(q_i8, k_i8, v_i8, sq, sk, sv), bh_kv, rep, q_grain, kv_grain
+    return require_cuda(q_i8, k_i8, v_i8, sq, sk, sv), bh_kv, rep, q_grain, kv_grain, bq
 
 
-def int8_attention_fwd_from_quantized(residuals, dims, causal=False, sm_scale=None):
-    """B5: the int8 forward from pre-quantized residuals (the layout of
-    `quantize_qkv`); dims = (batch, head, q_tokens, kv_len, head_dim).
-
-    CUDA residuals launch the kernel (head_dim 64, rep <= 64, kv grain a
-    multiple of 64) or raise; CPU residuals take the plain version. Returns
-    (o [b, h, t, d] f32, lse [b, h, t]). `.launches` counts kernel launches.
-    """
-    if residuals[0][0].device.type == "cpu":
-        return int8_attention_fwd_from_quantized_plain(residuals, dims, causal, sm_scale)
-    dev, bh_kv, rep, q_grain, kv_grain = _launch_args(residuals, dims)
+def _attend(residuals, dims, causal, sm_scale):
+    """One launch of B5's kernel on CUDA residuals, not counted here."""
+    dev, bh_kv, rep, q_grain, kv_grain, bq = _launch_args(residuals, dims)
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
     b, h, t, s, d = dims
     _, qk_scale = qk_scales(d, sm_scale)
@@ -191,12 +180,26 @@ def int8_attention_fwd_from_quantized(residuals, dims, causal=False, sm_scale=No
     status = _kernel()(
         q_i8.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), sq.data_ptr(), sk.data_ptr(),
         sv.data_ptr(), o.data_ptr(), lse.data_ptr(), bh_kv, rep, t, s, q_i8.shape[1],
-        k_i8.shape[1], q_grain, kv_grain, int(causal), qk_scale,
+        k_i8.shape[1], q_grain, kv_grain, bq, int(causal), qk_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_fwd")
-    int8_attention_fwd_from_quantized.launches += 1
     return o, lse
+
+
+def int8_attention_fwd_from_quantized(residuals, dims, causal=False, sm_scale=None):
+    """B5: the int8 forward from pre-quantized residuals (the layout of
+    `quantize_qkv`); dims = (batch, head, q_tokens, kv_len, head_dim).
+
+    CUDA residuals launch the kernel (head_dim 64, rep <= 128, kv grain a
+    multiple of 128) or raise; CPU residuals take the plain version. Returns
+    (o [b, h, t, d] f32, lse [b, h, t]). `.launches` counts kernel launches.
+    """
+    if residuals[0][0].device.type == "cpu":
+        return int8_attention_fwd_from_quantized_plain(residuals, dims, causal, sm_scale)
+    out = _attend(residuals, dims, causal, sm_scale)
+    int8_attention_fwd_from_quantized.launches += 1
+    return out
 
 
 int8_attention_fwd_from_quantized.launches = 0
@@ -236,74 +239,45 @@ def int8_attention_fwd_fused_plain(q, k, v, causal=False, sm_scale=None, k_sub=N
     return int8_attention_fwd_from_quantized_plain(residuals, dims, causal, sm_scale)
 
 
-@functools.cache
-def _fused_kernel():
-    fn = load_kernel("int8_fwd").qa_int8_fused
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _fused_launch_args(q, k, v, k_sub):
-    """Check what B6 takes; returns (device, contiguous q, k, v, the f32
-    [b*h_kv, d] shift or None, rep, (q_grain, kv_grain, q_pad, kv_pad))."""
-    b, h, t, s, d = _qkv_dims(q, k, v)
+    """Check what B6 takes, before any launch; returns (dims, B4's jobs on
+    the inputs in their own type)."""
+    dims = b, h, t, s, d = _qkv_dims(q, k, v)
     h_kv = k.shape[1]
     if h % h_kv != 0:
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({h_kv})")
-    rep = h // h_kv
-    grain = int8_grain(t, s, rep)
-    if d != _HEAD_DIM or rep > _BLOCK_ROWS or grain[1] % _TILE or b * h_kv > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, rep <= {_BLOCK_ROWS}, kv grain "
-                         f"a multiple of {_TILE}, b*h_kv <= 65535; got d={d}, rep={rep}, "
-                         f"kv grain {grain[1]}, b*h_kv={b * h_kv}")
+    if d != HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIM}; got d={d}")
+    block_positions(b * h_kv, h // h_kv)
+    _, kv_grain, _, kv_pad = int8_grain(t, s, h // h_kv)
+    check_grain(kv_grain, kv_pad)
     if q.dtype not in IN_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"kernel takes q, k, v of one type among {list(IN_TYPES)}; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    sub = None
-    if k_sub is not None:
-        if tuple(k_sub.shape) != (b, h_kv, 1, d):
-            raise ValueError(f"k_sub must be {(b, h_kv, 1, d)}, got {tuple(k_sub.shape)}")
-        sub = k_sub.float().reshape(b * h_kv, d).contiguous()
-    dev = require_cuda(q, k, v, *([] if sub is None else [sub]))
-    return dev, q, k, v, sub, rep, grain
+    if k_sub is not None and tuple(k_sub.shape) != (b, h_kv, 1, d):
+        raise ValueError(f"k_sub must be {(b, h_kv, 1, d)}, got {tuple(k_sub.shape)}")
+    jobs = _qkv_jobs(q, k, v, k_sub, to_f32=False)
+    require_cuda(*(j.x for j in jobs), *(j.sub for j in jobs if j.sub is not None))
+    return dims, jobs
 
 
 def int8_attention_fwd_fused(q, k, v, causal=False, sm_scale=None, k_sub=None):
-    """B6: int8 attention forward with the quantization inside the kernel.
+    """B6: int8 attention forward on inputs in their own floating type.
 
-    q [b, h, t, d], k/v [b, h_kv, s, d] in their own floating type (f32 or
-    bf16 on the kernel path); k_sub: optional [b, h_kv, 1, d]
-    K-smoothing shift. Numerics of `int8_attention_fwd` on the same inputs
-    (the same grain, payloads and scales), with no residuals kept. CUDA
-    tensors launch the kernel (head_dim 64, rep <= 64) or raise; CPU tensors
-    take `int8_attention_fwd_fused_plain`. Returns (o [b, h, t, d] f32, lse
-    [b, h, t]). `.launches` counts kernel launches (B4's absmax pass and the
-    attention kernel together count one).
+    q [b, h, t, d], k/v [b, h_kv, s, d] (f32 or bf16 on the kernel path);
+    k_sub: optional [b, h_kv, 1, d] K-smoothing shift. Numerics of
+    `int8_attention_fwd` on the same inputs (the same grain, payloads and
+    scales), with no residuals kept. CUDA tensors launch the kernels (head_dim
+    64, rep <= 128) or raise; CPU tensors take `int8_attention_fwd_fused_plain`.
+    Returns (o [b, h, t, d] f32, lse [b, h, t]). `.launches` counts calls on
+    the kernel path: B4's launch and B5's together count one.
     """
     if q.device.type == "cpu":
         return int8_attention_fwd_fused_plain(q, k, v, causal, sm_scale, k_sub)
-    dev, q, k, v, sub, rep, (q_grain, kv_grain, q_pad, kv_pad) = \
-        _fused_launch_args(q, k, v, k_sub)
-    b, h, t, d = q.shape
-    h_kv, s = k.shape[1], k.shape[2]
-    _, qk_scale = qk_scales(d, sm_scale)
-    sq, sk, sv = quant_int8_scales([
-        QuantJob(q.view(b * h, t, d), q_pad, q_grain),
-        QuantJob(k.view(b * h_kv, s, d), kv_pad, kv_grain, sub),
-        QuantJob(v.view(b * h_kv, s, d), kv_pad, kv_grain)])
-    o = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
-    status = _fused_kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if sub is None else sub.data_ptr(),
-        sq.data_ptr(), sk.data_ptr(), sv.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        IN_TYPES[q.dtype], b * h_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain, int(causal),
-        qk_scale, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_status(status, "int8_fwd (fused)")
+    dims, jobs = _fused_launch_args(q, k, v, k_sub)
+    out = _attend(quant_int8_uncounted(jobs), dims, causal, sm_scale)
     int8_attention_fwd_fused.launches += 1
-    return o, lse
+    return out
 
 
 int8_attention_fwd_fused.launches = 0

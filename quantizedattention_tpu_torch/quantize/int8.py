@@ -14,8 +14,9 @@ clamp(round_half_even(x / s), -128, 127) with an IEEE division.
 launch quantizes up to three tensors (Q, K and V of one attention call), each
 a `QuantJob` with its own padded length, grain and optional K-smoothing shift.
 CPU tensors take `quant_int8_plain`; the two agree byte for byte.
-`quant_int8_scales` runs the same kernel's absmax pass alone, on f32 or bf16
-rows: the scale tables the fused inference forward (B6) quantizes with.
+`quant_int8_uncounted` runs the same kernel on f32 or bf16 rows: the fused
+inference forward (B6) quantizes Q, K and V with it once per call, and counts
+the launch as its own.
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ def _launch_args(jobs, dtypes=(torch.float32,)) -> torch.device:
 
 
 def _launch(jobs, out, dev) -> None:
-    """One launch over `jobs`; `out` holds each job's (payload or None, scales)."""
+    """One launch over `jobs`; `out` holds each job's (payload, scales)."""
     n = len(jobs)
 
     def ptrs(values):
@@ -146,7 +147,7 @@ def _launch(jobs, out, dev) -> None:
     status = _kernel()(
         ptrs(j.x.data_ptr() for j in jobs),
         ptrs(None if j.sub is None else j.sub.data_ptr() for j in jobs),
-        ptrs(None if x_i8 is None else x_i8.data_ptr() for x_i8, _ in out),
+        ptrs(x_i8.data_ptr() for x_i8, _ in out),
         ptrs(s.data_ptr() for _, s in out),
         ints(j.x.shape[0] for j in jobs), ints(j.x.shape[1] for j in jobs),
         ints(j.pad for j in jobs), ints(j.grain for j in jobs),
@@ -155,8 +156,14 @@ def _launch(jobs, out, dev) -> None:
     check_status(status, "quant_int8")
 
 
-def _scales(job, dev) -> torch.Tensor:
-    return torch.empty((job.x.shape[0], job.pad // job.grain), dtype=torch.float32, device=dev)
+def _quant(jobs, dtypes):
+    """One launch over `jobs` of one of `dtypes`: each job's (payload, scales)."""
+    dev = _launch_args(jobs, dtypes)
+    out = [(torch.empty((j.x.shape[0], j.pad, _HEAD_DIM), dtype=torch.int8, device=dev),
+            torch.empty((j.x.shape[0], j.pad // j.grain), dtype=torch.float32, device=dev))
+           for j in jobs]
+    _launch(jobs, out, dev)
+    return out
 
 
 def quant_int8(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -170,10 +177,7 @@ def quant_int8(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
         raise ValueError(f"quant_int8 takes 1 to {_MAX_JOBS} jobs, got {len(jobs)}")
     if jobs[0].x.device.type == "cpu":
         return quant_int8_plain(jobs)
-    dev = _launch_args(jobs)
-    out = [(torch.empty((j.x.shape[0], j.pad, _HEAD_DIM), dtype=torch.int8, device=dev),
-            _scales(j, dev)) for j in jobs]
-    _launch(jobs, out, dev)
+    out = _quant(jobs, (torch.float32,))
     quant_int8.launches += 1
     return out
 
@@ -181,15 +185,11 @@ def quant_int8(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
 quant_int8.launches = 0
 
 
-def quant_int8_scales(jobs) -> list[torch.Tensor]:
-    """B4's absmax pass alone: the scale table [rows, pad // grain] f32 of
-    each of 1 to 3 `QuantJob`s (contiguous f32 or bf16 CUDA rows, head_dim
-    64), equal to the scales `quant_int8` gives for the same rows in f32; no
-    payload is written. One launch, made as part of the fused inference
-    forward, whose wrapper counts it; CPU tensors raise (B6's plain version
-    quantizes with `quant_int8_plain`)."""
-    jobs = list(jobs)
-    dev = _launch_args(jobs, tuple(IN_TYPES))
-    out = [(None, _scales(j, dev)) for j in jobs]
-    _launch(jobs, out, dev)
-    return [s for _, s in out]
+def quant_int8_uncounted(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """B4 as part of the fused inference forward: one launch over 1 to 3
+    `QuantJob`s (contiguous f32 or bf16 CUDA rows, head_dim 64) that writes
+    each job's payload [rows, pad, 64] int8 and scale table [rows, pad //
+    grain] f32, byte-equal to what `quant_int8` gives for the same rows in
+    f32. Not counted here: the fused forward's wrapper counts its call; CPU
+    tensors raise (B6's plain version quantizes with `quant_int8_plain`)."""
+    return _quant(list(jobs), tuple(IN_TYPES))

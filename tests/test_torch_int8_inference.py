@@ -197,12 +197,12 @@ def test_fused_wrapper_cpu_plain_no_launches_and_kernel_checks():
         tfwd._fused_launch_args(q, k.float(), v, None)
     with pytest.raises(ValueError, match="k_sub"):
         tfwd._fused_launch_args(q, k, v, k[:, :, :2])
-    # B6's scales come from B4's absmax pass, on f32 or bf16 rows, CUDA only
+    # B6 quantizes with one uncounted B4 launch, on f32 or bf16 rows, CUDA only
     rows = q.reshape(4, 70, 64)
     with pytest.raises(ValueError, match="CUDA"):
-        tq.quant_int8_scales([tq.QuantJob(rows, 128, 128)])
+        tq.quant_int8_uncounted([tq.QuantJob(rows, 128, 128)])
     with pytest.raises(ValueError, match="one type"):
-        tq.quant_int8_scales([tq.QuantJob(rows.half(), 128, 128)])
+        tq.quant_int8_uncounted([tq.QuantJob(rows.half(), 128, 128)])
     with pytest.raises(ValueError, match="multiple"):
         int8_attention_fwd_fused(q[:, :3], k, v)
 
