@@ -6,7 +6,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
-     and holds the int8 forward's shared bytes against its launch geometry;
+     and holds the int8 forward's and the weight matmuls' shared bytes against
+     their launch geometry (ops/int8_tiling.py, ops/linear_tiling.py);
   3. flash_fwd kernel vs its plain PyTorch version (O and lse);
   4. decode kernel vs its plain version, with stale non-finite scales and
      junk payloads written past every row's length;
@@ -62,8 +63,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      its mainloop) beside SDPA bf16, B4 -> B5 and B1 on the same inputs, and
      at the GQA shape (4, 16 q / 4 kv, 4096, 64);
  15. the weight-only int8 (B17) and int4 (B18) matmuls against their plain
-     versions at decode (m = 8) and prefill (m = 2048) rows of the bench
-     widths and an odd shape, then timed beside the bf16 GEMM they replace;
+     versions at decode (m = 8), spec verify (m = 40) and prefill (m = 2048)
+     rows of the bench widths and an odd shape, each called twice for the
+     same bits, then timed beside the bf16 GEMM they replace (GB/s and the
+     share of HBM's rate where they stream, TFLOP/s at prefill);
  16. quantized serving at full width, as phase 5, with attention="int8"
      (prefill through B4 + B5, never B1), with weight_quant="int8" (every
      projection and the unembedding through B17) and with
@@ -208,6 +211,7 @@ from quantizedattention_tpu_torch.ops import (
 )
 from quantizedattention_tpu_torch.ops.int8_fwd import _attend, _fused_launch_args
 from quantizedattention_tpu_torch.ops.int8_tiling import shared_bytes as int8_fwd_shared_bytes
+from quantizedattention_tpu_torch.ops.linear_tiling import STREAM_MAX_M, plan_int4, plan_int8
 from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_fp32,
@@ -454,6 +458,15 @@ def phase_build() -> None:
     if smem != int8_fwd_shared_bytes():
         raise AssertionError(f"int8_fwd.cu asks for {smem} shared bytes a block, its launch "
                              f"geometry (ops/int8_tiling.py) says {int8_fwd_shared_bytes()}")
+    for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phase 15 makes
+        half = -(-k // 256) * 128  # quantize_weight_int4's packed rows at group 128
+        for name, plan in (("int8_linear", plan_int8(m, k, n)),
+                           ("int4_linear", plan_int4(m, half, n, 128))):
+            smem = getattr(_build.load_kernel(name), f"qa_{name}_smem_bytes")(m, plan.bn)
+            if smem != plan.shared_bytes:
+                raise AssertionError(f"{name}.cu asks for {smem} shared bytes a block at m={m} "
+                                     f"bn={plan.bn}, ops/linear_tiling.py says "
+                                     f"{plan.shared_bytes}")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -1875,9 +1888,10 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
     return out, launches
 
 
-# (m, k, n): decode (the engine's 8 slots) and prefill (8 x 256 tokens) rows
-# against the bench widths' weights, and an odd shape
-WEIGHT_SHAPES = [(m, k, n) for m in (N_SLOTS, N_SLOTS * PROMPT_LEN)
+# (m, k, n): decode (the engine's 8 slots), a spec verify pass (8 slots x
+# SPEC_K + 1 tokens) and prefill (8 x 256 tokens) rows against the bench
+# widths' weights, and an odd shape
+WEIGHT_SHAPES = [(m, k, n) for m in (N_SLOTS, N_SLOTS * (SPEC_K + 1), N_SLOTS * PROMPT_LEN)
                  for k, n in ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 8192))]
 WEIGHT_ODD = (5, 1000, 300)
 WEIGHT_HEADLINE = (N_SLOTS, 1024, 4096)  # decode through w1
@@ -1886,10 +1900,15 @@ WEIGHT_HEADLINE = (N_SLOTS, 1024, 4096)  # decode through w1
 def _check_weight(name, fn, plain, label) -> float:
     """A weight kernel against its plain version: the f32 output within
     WEIGHT_F32_REL of max|plain|, the bf16 output within one bf16 ulp plus
-    that. Returns the f32 output's max|diff|."""
+    that; a second call on the same inputs must give the same bits (the
+    cluster's k-split sum runs in a fixed order, with no atomics). Returns
+    the f32 output's max|diff|."""
     got, want = fn(torch.float32), plain(torch.float32)
     got_b, want_b = fn(None).float(), plain(None).float()
+    again, again_b = fn(torch.float32), fn(None).float()
     torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(got_b, again_b)):
+        raise AssertionError(f"{name} gave other bits on a second call at {label}")
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
     ulp = torch.exp2(torch.floor(torch.log2(want_b.abs().clamp_min(1e-30))) - 7)
@@ -1936,13 +1955,20 @@ def phase_weight_kernels(dev, gen) -> dict:
                 ("int4_linear", lambda: int4_weight_matmul(x4, q4.packed, q4.scale, q4.group),
                  lambda: int4_weight_matmul_plain(x4, q4.packed, q4.scale, q4.group),
                  nbytes(q4.packed, q4.scale))):
+            n_bytes = nbytes(x, y) + w_bytes
             r = {"ms": device_ms(fn), "plain_ms": device_ms(plain, calls=4, replays=5),
-                 "library_ms": lib_ms,
-                 **bound(nbytes(x, y) + w_bytes, (2 * m * k * n, PEAK_BF16))}
+                 "library_ms": lib_ms, **bound(n_bytes, (2 * m * k * n, PEAK_BF16))}
+            if m <= STREAM_MAX_M:  # streaming: the bytes are the bound
+                r["gb_s"] = n_bytes / r["ms"] / 1e6
+                rate = (f"{r['gb_s']:.1f} GB/s = {r['gb_s'] / (HBM_BYTES_S / 1e9):.1%} of "
+                        f"{HBM_BYTES_S / 1e12:.2f} TB/s")
+            else:  # tensor cores: the operations are
+                r["tflop_s"] = 2 * m * k * n / r["ms"] / 1e9
+                rate = f"{r['tflop_s']:.1f} TFLOP/s"
             out[name]["by_shape"][label] = r
-            log(f"[timing] {name} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"bf16 torch.matmul {lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+            log(f"[timing] {name} {label}: kernel {r['ms']:.4f} ms ({rate}), plain "
+                f"{r['plain_ms']:.4f} ms, bf16 torch.matmul {lib_ms:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     head = "m={} k={} n={}".format(*WEIGHT_HEADLINE)
     for name in out:
         out[name].update(out[name]["by_shape"][head])

@@ -9,9 +9,9 @@ native helpers, shared with the JAX package, are compiled with g++ into
 decoding (`native/ngram.cpp` -> `build/libngram.so`); the tracked `native/`
 directory is never written.
 
-A library is rebuilt when its source is newer than it. Builds write to a
-temporary file and rename it into place, so concurrent processes never load a
-half-written library.
+A library is rebuilt when its source, or a header beside it, is newer than
+it. Builds write to a temporary file and rename it into place, so concurrent
+processes never load a half-written library.
 """
 
 from __future__ import annotations
@@ -51,7 +51,15 @@ def _nvcc() -> str:
 
 
 def _stale(lib: str, src: str) -> bool:
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    """True when `lib` is missing or older than its source or any header
+    beside the source (`*.cuh`, `*.h`): a header such as csrc/hopper.cuh may
+    be included by several sources."""
+    if not os.path.exists(lib):
+        return True
+    folder = os.path.dirname(src)
+    deps = [src] + [os.path.join(folder, f) for f in os.listdir(folder)
+                    if f.endswith((".cuh", ".h"))]
+    return os.path.getmtime(lib) < max(map(os.path.getmtime, deps))
 
 
 def _kernel_paths(name: str) -> tuple[str, str]:

@@ -1,0 +1,304 @@
+// Hopper (sm_90a) building blocks shared by the port's kernels: shared-memory
+// addresses, mbarriers, TMA, thread-block clusters and the k split's sum,
+// mma.sync, wgmma, and the exact int8 / int4 -> bf16 widening.
+// Each .cu that includes it is its own library, so everything here has
+// internal linkage.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum OutType { OUT_F32 = 0, OUT_BF16 = 1 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers and TMA ---
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive once and expect `bytes` of TMA traffic on the barrier's phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Arrive once (release: this thread's earlier shared-memory writes are seen
+// by the threads that wait on the phase).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of the given parity has completed (a stage's n-th
+// fill completes phase n - 1). A wait that never completes is a bug of the
+// pipeline: after ~2^30 tries the kernel traps (the launch fails) instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 30)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory writes of these threads become visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// --- thread-block clusters ---
+
+__device__ __forceinline__ int cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every block of the cluster arrives; shared-memory writes
+// before it are seen by the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Store an f32 at this block's shared address `addr` in the block of the
+// cluster with rank `rank`.
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, int rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+// Floats a block's receive buffer of cluster_reduce needs for partials of
+// `elems` floats, at most `max_split` blocks of T threads.
+__host__ __device__ constexpr int cluster_recv_floats(int elems, int max_split, int T) {
+  return elems + max_split * T;
+}
+
+// The k split's sum across a cluster of `split` blocks of T threads, one
+// cluster barrier: element e < elems of each block's partial red[] goes to
+// the block that owns it (rank (e / T) % split), which adds the split
+// partials in rank order and calls emit(e, sum). recv is this block's
+// receive buffer (cluster_recv_floats(elems, split, T) floats at least),
+// apart from anything a block still reads when the first block arrives.
+template <int T, class Emit>
+__device__ __forceinline__ void cluster_reduce(const float* red, float* recv, int elems, int split,
+                                               int rank, Emit emit) {
+  const int tid = threadIdx.x;
+  const int per = (elems + T * split - 1) / (T * split) * T;  // slots of one sender
+  for (int e = tid; e < elems; e += T)
+    st_cluster_f32(smem_addr(recv + rank * per + (e / (T * split)) * T + e % T), (e / T) % split,
+                   red[e]);
+  cluster_sync();
+  for (int li = tid; li < per; li += T) {
+    const int e = (li / T) * (T * split) + rank * T + li % T;
+    if (e >= elems) break;
+    float sum = recv[li];
+    for (int z = 1; z < split; ++z) sum = __fadd_rn(sum, recv[z * per + li]);
+    emit(e, sum);
+  }
+}
+
+// --- mma.sync ---
+
+// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// --- wgmma ---
+
+// Shared-memory matrix descriptor (start address, LBO, SBO in 16-byte units;
+// layout type in bits 62-63). K-major, 128-byte swizzle: rows of 64 bf16 =
+// 128 bytes, 8-row groups 1024 bytes apart. A k16 step further is 32 bytes
+// on (+2 in the address field).
+__device__ __forceinline__ uint64_t desc_kmajor_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to wgmma's registers across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 -> f32; A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B K-major from shared memory.
+// d[4 n + e]: row 16 * warp + lane / 4 + 8 * (e / 2) of the warpgroup's 64,
+// column 8 n + 2 * (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// --- exact widening to bf16, off the conversion pipe ---
+
+// Byte j of two int8 words -> one word of two bf16 (exact), wa's in the low
+// half, on the integer and FMA pipes only (conversion instructions run at a
+// quarter of their rate): each byte, biased to unsigned, is spliced into the
+// mantissa of 2^23 and 2^23 + 128 is subtracted, which gives the integer
+// exactly in f32; |b| <= 128 has at most 8 significant bits, so its bf16 is
+// the f32's upper half.
+__device__ __forceinline__ uint32_t widen_pair(uint32_t wa, uint32_t wb, int j) {
+  const uint32_t sel = 0x7540u + j;
+  const float fa = __uint_as_float(__byte_perm(wa ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.f;
+  const float fb = __uint_as_float(__byte_perm(wb ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.f;
+  return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632u);
+}
+
+// Two biased nibbles u0, u1 (0..15, one in bits 0-7 and one in bits 16-23 of
+// t; the other bits are ignored) -> two bf16 u - 8 (exact): 0x4300 | u is the
+// bf16 128 + u, and one bf16x2 fma subtracts 136.
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t t) {
+  const uint32_t biased = (t & 0x000F000Fu) | 0x43004300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// The int4 nibbles of a packed word (low nibbles: the lower half's rows; high
+// nibbles: the upper half's), biased by 8, one per byte.
+__device__ __forceinline__ uint32_t low_nibbles(uint32_t p) {
+  return (p ^ 0x88888888u) & 0x0F0F0F0Fu;
+}
+__device__ __forceinline__ uint32_t high_nibbles(uint32_t p) {
+  return ((p ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
+}
+
+__device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_type) {
+  if (out_type == OUT_F32)
+    static_cast<float*>(out)[i] = v;
+  else
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+}
+
+// Two neighbouring outputs i, i + 1 (i even, the row length even).
+__device__ __forceinline__ void store_out2(void* out, size_t i, float v0, float v1, int out_type) {
+  if (out_type == OUT_F32)
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = make_float2(v0, v1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + i) =
+        __floats2bfloat162_rn(v0, v1);
+}
+
+// --- host side ---
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map over a row-major [rows, cols] array of `elem_bytes`-byte elements
+// (row stride cols * elem_bytes, a multiple of 16), boxes of box_rows x
+// box_cols; reads outside the array fill with zeros.
+bool tensor_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem_bytes,
+                   int rows, int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+}  // namespace

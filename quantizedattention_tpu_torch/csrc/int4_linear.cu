@@ -5,267 +5,528 @@
 // holds row r of the weight in its low nibble and row r + Kp/2 in its high
 // nibble; scale [Kp/group, n] holds one f32 per (group of k rows, column),
 // the lower half's groups first. Same numerics as the TPU kernel: x [m, Kp]
-// in bf16 (the wrapper casts), each nibble sign-extended with shifts (exact in
-// bf16); for each group t, the lower half's sub-dot and the upper half's
-// sub-dot are each taken in f32 by bf16 mma.sync over the group's rows, each
-// is multiplied by its own scale row and added to the accumulator (lower
-// first), and the result is cast to the output type once. The scale never
-// meets a bf16 operand. Only the f32 summation order of a sub-dot, and the
-// order in which groups' terms are added (see the k split below), differ.
+// in bf16 (the wrapper casts), each nibble entering the product exactly as a
+// bf16 integer; for each group t the lower half's sub-dot is taken in f32,
+// multiplied by scale row t and added to the accumulator, then the upper
+// half's, multiplied by row n_groups + t; the scale never meets a bf16
+// operand, and the result is cast to the output type once. One launch a
+// call, no float atomics: the same inputs give the same bits.
 //
-// What bounds it on this card: at serving decode (m = 8) the packed weight
-// stream, a quarter of bf16's bytes: memory. At prefill the bf16 tensor cores.
+// What bounds it on this card, and the two regimes (ops/linear_tiling.py
+// chooses the launch and mirrors the constants below), as
+// csrc/int8_linear.cu:
 //
-// Design (simple first), as csrc/int8_linear.cu: one block per (m tile, n
-// tile); a stage holds, for WK groups at once, a 64-row chunk of each group:
-// the x columns of both halves (bf16) and the packed rows unpacked into a
-// lower and an upper bf16 tile in shared memory. Warp (wm, wn, wk) takes
-// group t0 + wk of the stage, keeps the two sub-dots in registers until the
-// group's last chunk and then folds them into its accumulator with the two
-// scale rows. Decode (m <= 16): 16 x 16 tiles, 4 warps on 4 groups at once,
-// their accumulators summed through shared memory in a fixed order (the
-// groups' terms are added per warp, then across warps); prefill: 64 x 64
-// tiles, 2 x 2 warps, groups in order. group is a multiple of 64. No
-// cp.async/TMA pipelining and no wgmma yet.
+// 1. Streaming (m <= 64: decode, spec verify): the packed weight stream, a
+//    quarter of bf16's bytes (Kp n / 2 / 3.35 TB/s: 0.63 us at 1024 x 4096).
+//    A block takes BN = 64 or 128 columns and a contiguous range of 64-row
+//    chunks of the packed rows, split over the blocks of a cluster (at most
+//    8) and summed through distributed shared memory in rank order. A ring
+//    stage (TMA, 4 stages) holds a packed chunk and the x columns of both
+//    halves it meets. A thread reads 4 contiguous bytes of 4 packed rows and
+//    turns each byte's nibbles into bf16 with masks, byte permutes and one
+//    bf16x2 fma (no conversion instruction); the weights are the mma.sync's
+//    A operand and x its B, as in int8_linear.cu. Each block takes the lower
+//    half's sub-dot of a chunk, multiplies it by the group's lower scale row
+//    and adds it to its accumulator, then the same for the upper half: a
+//    group's sub-dot is split into 64-row pieces (by chunk, and where the k
+//    split cuts a group, by block), each scaled on its own. That is only a
+//    different f32 rounding of the same sum.
+// 2. Tensor cores (m > 64: prefill): 2 m Kp n bf16 operations. A block of
+//    128 x 128 outputs, two warpgroups, thread 0 issuing TMA into a ring of
+//    4 stages. Stage j holds one 64-row chunk of one group's one half: the x
+//    tile [128, 64] bf16 at columns h half + t group + c0 and the packed
+//    tile [64, 128], both with the 128-byte swizzle; the stages walk group
+//    t's lower half, then its upper half (each packed chunk arrives twice,
+//    the second time mostly from L2). As in int8_linear.cu, the half's
+//    nibbles are widened in registers into the A operand of
+//    wgmma.m64n128k16 (x is B, from shared memory), chunk j + 1's while
+//    chunk j's products run. A half's chunks run into one sub-accumulator,
+//    zeroed by its first product; once its last products are done it is
+//    folded in as acc += sub * s: JAX's order within a group, with one
+//    sub-accumulator.
+//
+// group is a multiple of 64 and divides Kp/2. TMA needs 16-byte row strides
+// and bases (n % 16 == 0 for the packed rows); where a shape does not give
+// them, the same kernels fill the same shared layout with plain loads,
+// masked element by element.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BK = 64;  // byte rows of one warp's chunk
+constexpr int CHUNK = 64;        // packed rows a stage
+constexpr int STREAM_MAX_M = 64;
+constexpr int S_THREADS = 128;
+constexpr int S_STAGES = 4;
+constexpr int MAX_SPLIT = 8;
+constexpr int TC_BM = 128, TC_BN = 128;
+constexpr int TC_THREADS = 256;  // two warpgroups, 64 columns each
+constexpr int TC_STAGES = 4;
+constexpr int TC_X = TC_BM * CHUNK * 2;
+constexpr int TC_STAGE = TC_X + CHUNK * TC_BN;
+constexpr int TC_OFF_BAR = TC_STAGES * TC_STAGE;
+constexpr int TC_SMEM = TC_OFF_BAR + 128 + 1024;
 
-enum OutType { OUT_F32 = 0, OUT_BF16 = 1 };
-
-__device__ __forceinline__ uint32_t ld_u32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Streaming stage layout: the x boxes [8 nt, 64] bf16 of the lower and the
+// upper half (rows of 128 bytes, 128-byte swizzle), then the packed box
+// [64, bn] (64-byte swizzle at bn 64, 128-byte at bn 128), each a multiple
+// of 1024 bytes.
+__host__ __device__ constexpr int stream_stage(int nt, int bn) {
+  return 2 * nt * 8 * 128 + CHUNK * bn;
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// Dynamic shared bytes of a streaming block: the ring (which the block's own
+// partial reuses), the receive buffer of the cluster sum, the mbarriers, and
+// 1024 bytes to align the swizzled boxes.
+constexpr int stream_smem(int nt, int bn) {
+  return S_STAGES * stream_stage(nt, bn) +
+         4 * cluster_recv_floats(nt * 8 * bn, MAX_SPLIT, S_THREADS) + 128 + 1024;
 }
 
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Byte j of two words of biased nibbles -> one word of two bf16 (exact): nb0's
+// in the low half, nb1's in the high half.
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t nb0, uint32_t nb1, int j) {
+  return nibbles_to_bf16x2(__byte_perm(nb0, nb1, j | ((4 + j) << 8)));
 }
 
-// 16 packed bytes -> 16 low-nibble and 16 high-nibble weights, sign-extended
-// with shifts and widened to bf16 (exact), stored at lo and hi.
-__device__ __forceinline__ void unpack16(__nv_bfloat16* lo, __nv_bfloat16* hi, uint4 v) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-  uint32_t wl[8], wh[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int x0 = b[2 * i], x1 = b[2 * i + 1];  // sign-extended bytes
-    const int l0 = static_cast<int>(static_cast<uint32_t>(x0) << 28) >> 28;
-    const int l1 = static_cast<int>(static_cast<uint32_t>(x1) << 28) >> 28;
-    wl[i] = pack2(__float2bfloat16_rn(static_cast<float>(l0)),
-                  __float2bfloat16_rn(static_cast<float>(l1)));
-    wh[i] = pack2(__float2bfloat16_rn(static_cast<float>(x0 >> 4)),
-                  __float2bfloat16_rn(static_cast<float>(x1 >> 4)));
-  }
-  reinterpret_cast<uint4*>(lo)[0] = make_uint4(wl[0], wl[1], wl[2], wl[3]);
-  reinterpret_cast<uint4*>(lo)[1] = make_uint4(wl[4], wl[5], wl[6], wl[7]);
-  reinterpret_cast<uint4*>(hi)[0] = make_uint4(wh[0], wh[1], wh[2], wh[3]);
-  reinterpret_cast<uint4*>(hi)[1] = make_uint4(wh[4], wh[5], wh[6], wh[7]);
-}
+// --- streaming regime ---
 
-__device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_type) {
-  if (out_type == OUT_F32)
-    static_cast<float*>(out)[i] = v;
-  else
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
-}
+// As int8_linear.cu, the weights are the mma's A operand and x its B.
+template <int NT, int BN>
+__global__ void __launch_bounds__(S_THREADS, 1)
+int4_stream_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, box [8 NT, 64]
+                   const __grid_constant__ CUtensorMap w_map,  // [half, n] packed, box [64, BN]
+                   const __nv_bfloat16* __restrict__ x,        // [m, 2 * half]
+                   const int8_t* __restrict__ packed,          // [half, n]
+                   const float* __restrict__ scale,            // [2 * half / group, n]
+                   void* __restrict__ out,                     // [m, n] of out_type
+                   int m, int n, int half, int group, int out_type, int tma) {
+  constexpr int CW = BN / 32;
+  constexpr int WK = S_THREADS / 32 / CW;
+  constexpr int XB = NT * 8 * 128;  // bytes of one half's x box
+  constexpr int STAGE = stream_stage(NT, BN);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* recv = reinterpret_cast<float*>(smem + S_STAGES * STAGE);
+  const uint32_t bars =
+      base + S_STAGES * STAGE + 4 * cluster_recv_floats(NT * 8 * BN, MAX_SPLIT, S_THREADS);
+  auto full = [&](int st) { return bars + 8 * st; };
 
-template <int BM, int BN, int WM, int WN, int WK>
-__global__ void __launch_bounds__(32 * WM * WN * WK)
-int4_linear_kernel(const __nv_bfloat16* __restrict__ x,  // [m, 2 * half]
-                   const int8_t* __restrict__ packed,    // [half, n]
-                   const float* __restrict__ scale,      // [2 * half / group, n]
-                   void* __restrict__ out,               // [m, n] of out_type
-                   int m, int n, int half, int group, int out_type) {
-  constexpr int THREADS = 32 * WM * WN * WK;
-  constexpr int TM = BM / (16 * WM);  // m16 tiles of a warp
-  constexpr int TN = BN / (8 * WN);   // n8 tiles of a warp
-  constexpr int XROW = BK + 8;        // padded shared row of an x chunk (bf16)
-  constexpr int WROW = BN + 8;        // padded shared row of a weight chunk (bf16)
-  // [WK][half: 0 lower, 1 upper] chunks
-  __shared__ __align__(16) __nv_bfloat16 xs[WK * 2 * BM * XROW];
-  __shared__ __align__(16) __nv_bfloat16 ws[WK * 2 * BK * WROW];
-  __shared__ float red[WK > 1 ? WK * BM * BN : 1];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wk = warp / (WM * WN);
-  const int wm = (warp % (WM * WN)) / WN;
-  const int wn = warp % WN;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cw = warp % CW, wk = warp / CW;
+  const int g = lane / 4, q = lane % 4;
+  const int split = gridDim.x;
+  const int rank = cluster_ctarank();
+  const int n0 = blockIdx.y * BN;
   const int kp = 2 * half;
-  const int n_groups = half / group;  // groups per half
-  const bool w_vec = n % 16 == 0;
+  const int n_groups = half / group;
+  const int chunks = half / CHUNK;
+  const int c_lo = rank * chunks / split;
+  const int n_local = (rank + 1) * chunks / split - c_lo;
 
-  // this thread's columns, for the scale rows
-  int cols[TN][2];
+  if (tid == 0) {
 #pragma unroll
-  for (int tn = 0; tn < TN; ++tn)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) cols[tn][e] = n0 + (wn * TN + tn) * 8 + (lane % 4) * 2 + e;
+    for (int i = 0; i < S_STAGES; ++i) mbar_init(full(i), tma ? 1 : S_THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[TM][TN][4], sub[2][TM][TN][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = sub[0][i][j][e] = sub[1][i][j][e] = 0.f;
-
-  for (int t0 = 0; t0 < n_groups; t0 += WK) {
-    for (int c0 = 0; c0 < group; c0 += BK) {
-      __syncthreads();  // every warp is done with the previous stage
-      // x: both halves' columns of chunk c0 of groups t0 .. t0 + WK - 1
-      for (int c = tid; c < WK * 2 * BM * (BK / 8); c += THREADS) {
-        const int col = (c % (BK / 8)) * 8;
-        const int r = (c / (BK / 8)) % BM;
-        const int hz = c / (BM * (BK / 8));  // (group in stage) * 2 + half
-        const int t = t0 + hz / 2;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (t < n_groups && m0 + r < m)
-          val = *reinterpret_cast<const uint4*>(
-              x + (size_t)(m0 + r) * kp + (hz % 2) * half + t * group + c0 + col);
-        *reinterpret_cast<uint4*>(&xs[(hz * BM + r) * XROW + col]) = val;
+  auto w_piece = [](int r, int p) { return BN == 128 ? p ^ (r & 7) : p ^ ((r >> 1) & 3); };
+  // Local chunk i -> stage i % S_STAGES (packed row = lower-half x column),
+  // by TMA or by every thread with masked loads in the same layout.
+  auto load = [&](int i) {
+    if (i >= n_local) return;
+    const int st = i % S_STAGES, rb = (c_lo + i) * CHUNK;
+    if (tma) {
+      if (tid == 0) {
+        mbar_expect_tx(full(st), STAGE);
+        tma_load_2d(base + st * STAGE, &x_map, full(st), rb, 0);
+        tma_load_2d(base + st * STAGE + XB, &x_map, full(st), half + rb, 0);
+        tma_load_2d(base + st * STAGE + 2 * XB, &w_map, full(st), n0, rb);
       }
-      // packed rows of the same chunk, unpacked into a lower and an upper tile
-      for (int c = tid; c < WK * BK * (BN / 16); c += THREADS) {
-        const int col = (c % (BN / 16)) * 16;
-        const int r = (c / (BN / 16)) % BK;
-        const int z = c / (BK * (BN / 16));
-        const int t = t0 + z;
-        const int gn = n0 + col;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (t < n_groups) {
-          const int8_t* src = packed + (size_t)(t * group + c0 + r) * n + gn;
-          if (w_vec && gn + 16 <= n) {
-            val = *reinterpret_cast<const uint4*>(src);
-          } else {
-            int8_t* e = reinterpret_cast<int8_t*>(&val);
-#pragma unroll
-            for (int i = 0; i < 16; ++i) e[i] = gn + i < n ? src[i] : 0;
-          }
-        }
-        unpack16(&ws[((z * 2) * BK + r) * WROW + col], &ws[((z * 2 + 1) * BK + r) * WROW + col],
-                 val);
-      }
-      __syncthreads();
-
-      // this warp's group: both sub-dots over the chunk
-#pragma unroll
-      for (int hz = 0; hz < 2; ++hz) {
-        const __nv_bfloat16* xc = &xs[(wk * 2 + hz) * BM * XROW];
-        const __nv_bfloat16* wc = &ws[(wk * 2 + hz) * BK * WROW];
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          const int ck = kk + (lane % 4) * 2;
-          uint32_t a[TM][4];
-#pragma unroll
-          for (int tm = 0; tm < TM; ++tm) {
-            const int r = (wm * TM + tm) * 16 + lane / 4;
-            a[tm][0] = ld_u32(&xc[r * XROW + ck]);
-            a[tm][1] = ld_u32(&xc[(r + 8) * XROW + ck]);
-            a[tm][2] = ld_u32(&xc[r * XROW + ck + 8]);
-            a[tm][3] = ld_u32(&xc[(r + 8) * XROW + ck + 8]);
-          }
-#pragma unroll
-          for (int tn = 0; tn < TN; ++tn) {
-            const __nv_bfloat16* bcol = &wc[ck * WROW + (wn * TN + tn) * 8 + lane / 4];
-            const uint32_t b0 = pack2(bcol[0], bcol[WROW]);
-            const uint32_t b1 = pack2(bcol[8 * WROW], bcol[9 * WROW]);
-#pragma unroll
-            for (int tm = 0; tm < TM; ++tm) mma_bf16(sub[hz][tm][tn], a[tm], b0, b1);
-          }
-        }
-      }
+      return;
     }
-    // the group's last chunk is in: acc += sub_lo * s_lo; acc += sub_hi * s_hi
-    const int t = t0 + wk;
-    if (t < n_groups) {
+    uint8_t* xs = smem + st * STAGE;
+    for (int c = tid; c < 2 * m * 8; c += S_THREADS) {
+      const int hz = c / (m * 8), r = (c / 8) % m, p = c % 8;
+      const size_t src = (size_t)r * kp + hz * half + rb + p * 8;
+      *reinterpret_cast<uint4*>(xs + hz * XB + r * 128 + ((p ^ (r & 7)) << 4)) =
+          *reinterpret_cast<const uint4*>(x + src);  // 16-byte aligned: kp % 128 == 0
+    }
+    for (int c = tid; c < CHUNK * (BN / 16); c += S_THREADS) {
+      const int r = c / (BN / 16), p = c % (BN / 16), gn = n0 + p * 16;
+      int8_t e[16];
 #pragma unroll
-      for (int hz = 0; hz < 2; ++hz) {
-        const float* srow = scale + (size_t)(hz * n_groups + t) * n;
+      for (int u = 0; u < 16; ++u) e[u] = gn + u < n ? packed[(size_t)(rb + r) * n + gn + u] : 0;
+      *reinterpret_cast<uint4*>(xs + 2 * XB + r * BN + (w_piece(r, p) << 4)) =
+          *reinterpret_cast<const uint4*>(e);
+    }
+    mbar_arrive(full(st));
+  };
+
+  // acc and sub [t][nt][e]: weight column C + 2t + e / 2 of the block's, x
+  // row 8 nt + 2q + (e & 1), C = 32 cw + 4 g (as int8_linear.cu).
+  const int C = cw * 32 + 4 * g;
+  float acc[2][NT][4], sub[2][NT][4];
 #pragma unroll
-        for (int tn = 0; tn < TN; ++tn) {
-          const float s0 = cols[tn][0] < n ? srow[cols[tn][0]] : 0.f;
-          const float s1 = cols[tn][1] < n ? srow[cols[tn][1]] : 0.f;
+  for (int t = 0; t < 2; ++t)
 #pragma unroll
-          for (int tm = 0; tm < TM; ++tm)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[tm][tn][e] = __fadd_rn(acc[tm][tn][e],
-                                         __fmul_rn(sub[hz][tm][tn][e], (e & 1) ? s1 : s0));
-              sub[hz][tm][tn][e] = 0.f;
-            }
+      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
+
+  for (int i = 0; i < S_STAGES; ++i) load(i);
+  for (int i = 0; i < n_local; ++i) {
+    const int st = i % S_STAGES;
+    const int tg = (c_lo + i) * CHUNK / group;
+    mbar_wait(full(st), (i / S_STAGES) & 1);
+    const uint8_t* ws = smem + st * STAGE + 2 * XB;
+#pragma unroll(NT < 8 ? 2 : 1)  // at NT 8 both halves at once would spill
+    for (int hz = 0; hz < 2; ++hz) {  // lower half, then upper
+      const uint8_t* xs = smem + st * STAGE + hz * XB;
+      float s[4];  // the group's scale row of this half at columns C .. C + 3
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        s[c] = n0 + C + c < n ? scale[(size_t)(hz * n_groups + tg) * n + n0 + C + c] : 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sub[t][nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < CHUNK / 16 / WK; ++ks) {
+        const int kk = (ks * WK + wk) * 16;
+        uint32_t b[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint8_t* xr = xs + (nt * 8 + g) * 128 + 4 * q;
+          b[nt][0] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8) ^ g) << 4));
+          b[nt][1] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8 + 1) ^ g) << 4));
+        }
+        uint32_t p[4];  // packed rows kk + 2q, + 1, + 8, + 9: this half's nibbles
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const int r = kk + 2 * q + (d & 1) + 8 * (d / 2);
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(
+              ws + r * BN + (w_piece(r, C >> 4) << 4) + (C & 15));
+          p[d] = hz ? high_nibbles(v) : low_nibbles(v);
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const uint32_t a[4] = {
+              nibble_pair(p[0], p[1], 2 * t), nibble_pair(p[0], p[1], 2 * t + 1),
+              nibble_pair(p[2], p[3], 2 * t), nibble_pair(p[2], p[3], 2 * t + 1)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(sub[t][nt], a, b[nt][0], b[nt][1]);
         }
       }
+      // acc += sub * s, the scale in f32
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[t][nt][e] =
+                __fadd_rn(acc[t][nt][e], __fmul_rn(sub[t][nt][e], s[2 * t + e / 2]));
     }
+    __syncthreads();  // every warp is done with stage st
+    load(i + S_STAGES);
   }
 
-  // Epilogue: (sum over the group-split warps, in warp order), cast once.
+  float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int tm = 0; tm < TM; ++tm)
+  for (int z = 0; z < WK; ++z) {
+    if (wk == z) {
 #pragma unroll
-    for (int tn = 0; tn < TN; ++tn)
+      for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = (wm * TM + tm) * 16 + lane / 4 + 8 * (e / 2);
-        const int col = cols[tn][e & 1] - n0;
-        if (WK > 1)
-          red[(wk * BM + r) * BN + col] = acc[tm][tn][e];
-        else if (m0 + r < m && n0 + col < n)
-          store_out(out, (size_t)(m0 + r) * n + n0 + col, acc[tm][tn][e], out_type);
-      }
-  if (WK > 1) {
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int idx = (nt * 8 + 2 * q + (e & 1)) * BN + C + 2 * t + e / 2;
+            red[idx] = z == 0 ? acc[t][nt][e] : __fadd_rn(red[idx], acc[t][nt][e]);
+          }
+    }
     __syncthreads();
-    for (int i = tid; i < BM * BN; i += THREADS) {
-      const int r = i / BN, col = i % BN;
-      if (m0 + r >= m || n0 + col >= n) continue;
-      float sum = red[i];
-#pragma unroll
-      for (int z = 1; z < WK; ++z) sum = __fadd_rn(sum, red[z * BM * BN + i]);
-      store_out(out, (size_t)(m0 + r) * n + n0 + col, sum, out_type);
-    }
   }
+  cluster_reduce<S_THREADS>(red, recv, m * BN, split, rank, [&](int e, float sum) {
+    const int gn = n0 + e % BN;
+    if (gn < n) store_out(out, (size_t)(e / BN) * n + gn, sum, out_type);
+  });
 }
 
-template <int BM, int BN, int WM, int WN, int WK>
-int launch(const void* x, const void* packed, const void* scale, void* out, int m, int n,
-           int half, int group, int out_type, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  int4_linear_kernel<BM, BN, WM, WN, WK><<<grid, 32 * WM * WN * WK, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
-      static_cast<const float*>(scale), out, m, n, half, group, out_type);
+// --- tensor-core regime ---
+
+// One thread's A fragments of a chunk, one m16n8k16 fragment a k16 step.
+using AFrag = uint32_t[CHUNK / 16][4];
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+int4_tc_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, box [128, 64]
+               const __grid_constant__ CUtensorMap w_map,  // [half, n] packed, box [64, 128]
+               const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+               const float* __restrict__ scale, void* __restrict__ out, int m, int n, int half,
+               int group, int out_type, int tma) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  auto full = [&](int st) { return base + TC_OFF_BAR + 8 * st; };
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  const int kp = 2 * half;
+  const int n_groups = half / group;
+  const int cpg = group / CHUNK;    // chunks of a group's half: a run
+  const int nk = 2 * half / CHUNK;  // every packed chunk once per half
+  // chunk j: run j / cpg = 2 t + h (group t's half h), chunk j % cpg of it
+  auto x_col = [&](int j) {
+    const int run = j / cpg;
+    return (run % 2) * half + (run / 2) * group + (j % cpg) * CHUNK;
+  };
+  auto packed_row = [&](int j) { return (j / cpg / 2) * group + (j % cpg) * CHUNK; };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < TC_STAGES; ++i) mbar_init(full(i), tma ? 1 : TC_THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Chunk j -> stage j % TC_STAGES, both tiles with the 128-byte swizzle, by
+  // TMA or by every thread (as int8_linear.cu).
+  auto load = [&](int j) {
+    if (j >= nk) return;
+    const int st = j % TC_STAGES, xc = x_col(j), pr = packed_row(j);
+    if (tma) {
+      if (tid == 0) {
+        mbar_expect_tx(full(st), TC_STAGE);
+        tma_load_2d(base + st * TC_STAGE, &x_map, full(st), xc, m0);
+        tma_load_2d(base + st * TC_STAGE + TC_X, &w_map, full(st), n0, pr);
+      }
+      return;
+    }
+    uint8_t* xs = smem + st * TC_STAGE;
+    for (int c = tid; c < TC_BM * 8; c += TC_THREADS) {
+      const int r = c / 8, p = c % 8, gr = m0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < m) v = *reinterpret_cast<const uint4*>(x + (size_t)gr * kp + xc + p * 8);
+      *reinterpret_cast<uint4*>(xs + r * 128 + ((p ^ (r & 7)) << 4)) = v;
+    }
+    for (int c = tid; c < CHUNK * (TC_BN / 16); c += TC_THREADS) {
+      const int r = c / (TC_BN / 16), p = c % (TC_BN / 16), gn = n0 + p * 16;
+      int8_t e[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) e[u] = gn + u < n ? packed[(size_t)(pr + r) * n + gn + u] : 0;
+      *reinterpret_cast<uint4*>(xs + TC_X + r * TC_BN + ((p ^ (r & 7)) << 4)) =
+          *reinterpret_cast<const uint4*>(e);
+    }
+    fence_proxy_async();
+    mbar_arrive(full(st));
+  };
+
+  // The weights are the A operand, widened in registers from the chunk's
+  // half (as int8_linear.cu: M row g (g + 8) of warp w is column C (C + 1),
+  // C = 64 wg + 16 w + 2 g).
+  const int C = 64 * wg + 16 * warp + 2 * g;
+  auto widen = [&](int j, AFrag& a) {
+    const int st = j % TC_STAGES;
+    const bool upper = (j / cpg) % 2;
+    mbar_wait(full(st), (j / TC_STAGES) & 1);
+    const uint8_t* wt = smem + st * TC_STAGE + TC_X;
+#pragma unroll
+    for (int ks = 0; ks < CHUNK / 16; ++ks) {
+      uint32_t v[4];  // packed rows 16 ks + 2q, + 1, + 8, + 9: this half's nibbles
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int r = ks * 16 + 2 * q + (d & 1) + 8 * (d / 2);
+        const uint32_t p = *reinterpret_cast<const uint16_t*>(
+            wt + r * TC_BN + (((C >> 4) ^ (r & 7)) << 4) + (C & 15));
+        v[d] = upper ? high_nibbles(p) : low_nibbles(p);
+      }
+      a[ks][0] = nibble_pair(v[0], v[1], 0);
+      a[ks][1] = nibble_pair(v[0], v[1], 1);
+      a[ks][2] = nibble_pair(v[2], v[3], 0);
+      a[ks][3] = nibble_pair(v[2], v[3], 1);
+    }
+  };
+
+  float acc[64], sub[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sub[i] = 0.f;
+  // A run's first product zeroes sub.
+  auto issue = [&](int j, const AFrag& a) {
+    const uint64_t db = desc_kmajor_sw128(base + (j % TC_STAGES) * TC_STAGE);
+    const bool first = j % cpg == 0;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < CHUNK / 16; ++ks)
+      wgmma_bf16_m64n128k16_rs(sub, a[ks], db + 2 * ks, !(first && ks == 0));
+    wgmma_commit();
+  };
+  const int gc = n0 + C;
+  // Chunk j's products run while chunk j + 1 is widened into the other A
+  // set (free once chunk j - 1's products are done); once a run's last
+  // products are done, acc += sub * s (sub[4 nn + 2 h + b] is at column C +
+  // h) before the next run's first product zeroes sub. One barrier of both
+  // warpgroups a chunk frees the stage of chunk j - 1 for its refill.
+  auto step = [&](int j, const AFrag& cur, AFrag& next) {
+    issue(j, cur);
+    const bool run_end = j % cpg == cpg - 1;
+    float s[2];
+    if (run_end) {
+      const float* srow = scale + (size_t)((j / cpg % 2) * n_groups + j / cpg / 2) * n;
+      s[0] = gc < n ? srow[gc] : 0.f;
+      s[1] = gc + 1 < n ? srow[gc + 1] : 0.f;
+    }
+    wgmma_wait<1>();
+    if (j + 1 < nk) widen(j + 1, next);
+    if (run_end) {
+      wgmma_wait<0>();
+      reg_fence(sub);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(sub[i], s[(i % 4) / 2]));
+    }
+    named_barrier(1, TC_THREADS);
+    if (j >= 1) load(j - 1 + TC_STAGES);
+  };
+  for (int j = 0; j < TC_STAGES; ++j) load(j);
+  AFrag a0, a1;
+  widen(0, a0);
+  for (int j = 0; j < nk; j += 2) {
+    step(j, a0, a1);
+    if (j + 1 < nk) step(j + 1, a1, a0);
+  }
+
+  // Epilogue: cast once, masked. acc[4 nn + 2 h + b]: column C + h, x row
+  // 8 nn + 2 q + b.
+  const bool pairs = n % 2 == 0;
+#pragma unroll
+  for (int nn = 0; nn < TC_BM / 8; ++nn)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int gr = m0 + 8 * nn + 2 * q + b;
+      if (gr >= m) continue;
+      const size_t o = (size_t)gr * n + gc;
+      if (pairs && gc + 1 < n) {
+        store_out2(out, o, acc[4 * nn + b], acc[4 * nn + 2 + b], out_type);
+      } else {
+        if (gc < n) store_out(out, o, acc[4 * nn + b], out_type);
+        if (gc + 1 < n) store_out(out, o + 1, acc[4 * nn + 2 + b], out_type);
+      }
+    }
+}
+
+template <int NT, int BN>
+int launch_stream(const void* x, const void* packed, const void* scale, void* out, int m, int n,
+                  int half, int group, int out_type, int split, cudaStream_t stream) {
+  constexpr int smem = stream_smem(NT, BN);
+  const int tma = n % 16 == 0 && aligned16(x) && aligned16(packed);
+  CUtensorMap x_map = {}, w_map = {};
+  if (tma && (!tensor_map_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m, 2 * half, NT * 8,
+                             CHUNK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+              !tensor_map_2d(&w_map, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, n, CHUNK, BN,
+                             BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B)))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int4_stream_kernel<NT, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (n + BN - 1) / BN);
+  cfg.blockDim = dim3(S_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, int4_stream_kernel<NT, BN>, x_map, w_map, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const int8_t*>(packed), static_cast<const float*>(scale), out, m, n, half,
+      group, out_type, tma);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int BN>
+int launch_stream_m(const void* x, const void* packed, const void* scale, void* out, int m, int n,
+                    int half, int group, int out_type, int split, cudaStream_t st) {
+#define QA_LAUNCH(NT) \
+  return launch_stream<NT, BN>(x, packed, scale, out, m, n, half, group, out_type, split, st)
+  switch ((m + 7) / 8) {
+    case 1: QA_LAUNCH(1);
+    case 2: QA_LAUNCH(2);
+    case 3: QA_LAUNCH(3);
+    case 4: QA_LAUNCH(4);
+    case 5: QA_LAUNCH(5);
+    case 6: QA_LAUNCH(6);
+    case 7: QA_LAUNCH(7);
+    default: QA_LAUNCH(8);
+  }
+#undef QA_LAUNCH
+}
+
+int launch_tc(const void* x, const void* packed, const void* scale, void* out, int m, int n,
+              int half, int group, int out_type, cudaStream_t stream) {
+  const int tma = n % 16 == 0 && aligned16(x) && aligned16(packed);
+  CUtensorMap x_map = {}, w_map = {};
+  if (tma && (!tensor_map_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m, 2 * half, TC_BM,
+                             CHUNK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+              !tensor_map_2d(&w_map, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, n, CHUNK,
+                             TC_BN, CU_TENSOR_MAP_SWIZZLE_128B)))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int4_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM);
+  int4_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+      x_map, w_map, static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
+      static_cast<const float*>(scale), out, m, n, half, group, out_type, tma);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Shared bytes one block asks for at m rows and bn columns a block
+// (ops/linear_tiling.py's shared_bytes mirrors it).
+extern "C" int qa_int4_linear_smem_bytes(int m, int bn) {
+  return m <= STREAM_MAX_M ? stream_smem((m + 7) / 8, bn) : TC_SMEM;
+}
+
 // x [m, 2 * half] bf16, packed [half, n] int8, scale [2 * half / group, n]
-// f32 -> out [m, n] of out_type (0 f32, 1 bf16). group is a multiple
-// of 64 and divides half.
+// f32 -> out [m, n] of out_type (0 f32, 1 bf16). group is a multiple of 64
+// and divides half. bn and split come from ops/linear_tiling.py, as for
+// qa_int8_linear (the k chunks are 64-row chunks of the packed rows).
 extern "C" int qa_int4_linear(const void* x, const void* packed, const void* scale, void* out,
-                              int m, int n, int half, int group, int out_type, void* stream) {
-  if (out_type < OUT_F32 || out_type > OUT_BF16 || group <= 0 || group % BK != 0 ||
-      half % group != 0 || (m + 63) / 64 > 65535)
+                              int m, int n, int half, int group, int out_type, int bn, int split,
+                              void* stream) {
+  if (out_type < OUT_F32 || out_type > OUT_BF16 || m < 1 || n < 1 || group <= 0 ||
+      group % CHUNK != 0 || half < group || half % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 16) return launch<16, 16, 1, 1, 4>(x, packed, scale, out, m, n, half, group, out_type, st);
-  return launch<64, 64, 2, 2, 1>(x, packed, scale, out, m, n, half, group, out_type, st);
+  if (m <= STREAM_MAX_M) {
+    if ((bn != 64 && bn != 128) || split < 1 || split > MAX_SPLIT || split > half / CHUNK ||
+        (n + bn - 1) / bn > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return bn == 128
+               ? launch_stream_m<128>(x, packed, scale, out, m, n, half, group, out_type, split, st)
+               : launch_stream_m<64>(x, packed, scale, out, m, n, half, group, out_type, split, st);
+  }
+  if (bn != TC_BN || split != 1 || (m + TC_BM - 1) / TC_BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc(x, packed, scale, out, m, n, half, group, out_type, st);
 }

@@ -10,8 +10,10 @@ own scale row and added to the accumulator; the result is cast to
 `out_dtype` (default x's dtype) once.
 
 `int4_weight_matmul` launches the hand-written Hopper kernel
-(csrc/int4_linear.cu) for CUDA tensors and runs `int4_weight_matmul_plain`
-for CPU tensors; the two differ only in the order of the f32 sums.
+(csrc/int4_linear.cu) for CUDA tensors, with the launch geometry of
+`ops.linear_tiling.plan_int4`, and runs `int4_weight_matmul_plain` for CPU
+tensors; the two differ only in the order of the f32 sums (the kernel scales
+a group's sub-dot in pieces of 64 rows where it streams).
 """
 
 from __future__ import annotations
@@ -23,9 +25,8 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.int8_linear import OUT_TYPES
+from quantizedattention_tpu_torch.ops.linear_tiling import CHUNK, plan_int4
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
-
-_CHUNK = 64  # the kernel's k rows per step; a group must be a multiple of it
 
 
 def pack_int4(w4: torch.Tensor) -> torch.Tensor:
@@ -76,16 +77,16 @@ def int4_weight_matmul_plain(x, packed, scale, group: int = 128, out_dtype=None)
 @functools.cache
 def _kernel():
     fn = load_kernel("int4_linear").qa_int4_linear
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_args(x, packed, scale, group, out_dtype):
     """Check what the kernel takes; returns (device, bf16 x, f32 scale)."""
-    if packed.dtype != torch.int8 or out_dtype not in OUT_TYPES or group % _CHUNK != 0:
+    if packed.dtype != torch.int8 or out_dtype not in OUT_TYPES or group % CHUNK != 0:
         raise ValueError(f"kernel takes int8 packed weights, a group that is a multiple of "
-                         f"{_CHUNK} and an output in {list(OUT_TYPES)}; got {packed.dtype}, "
+                         f"{CHUNK} and an output in {list(OUT_TYPES)}; got {packed.dtype}, "
                          f"group {group}, {out_dtype}")
     xb = x.to(torch.bfloat16).contiguous()
     sf = scale.float().contiguous()
@@ -107,9 +108,11 @@ def int4_weight_matmul(x, packed, scale, group: int = 128, out_dtype=None):
     dev, xb, sf = _launch_args(x, packed, scale, group, out_dtype)
     m = xb.shape[0]
     half, n = packed.shape
+    plan = plan_int4(m, half, n, group)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     status = _kernel()(xb.data_ptr(), packed.data_ptr(), sf.data_ptr(), out.data_ptr(), m, n, half,
-                       group, OUT_TYPES[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+                       group, OUT_TYPES[out_dtype], plan.bn, plan.split,
+                       torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "int4_linear")
     int4_weight_matmul.launches += 1
     return out

@@ -7,9 +7,10 @@ over all of k, the f32 per-column scale is applied once at the end and the
 result is cast to `out_dtype` (default x's dtype).
 
 `int8_weight_matmul` launches the hand-written Hopper kernel
-(csrc/int8_linear.cu) for CUDA tensors and runs
-`int8_weight_matmul_plain`, the same arithmetic in plain PyTorch, for CPU
-tensors; the two differ only in the order of the f32 sums.
+(csrc/int8_linear.cu) for CUDA tensors, with the launch geometry of
+`ops.linear_tiling.plan_int8`, and runs `int8_weight_matmul_plain`, the same
+arithmetic in plain PyTorch, for CPU tensors; the two differ only in the
+order of the f32 sums.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import functools
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
+from quantizedattention_tpu_torch.ops.linear_tiling import plan_int8
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 # output dtype -> the kernel's type code
@@ -44,7 +46,7 @@ def int8_weight_matmul_plain(x, w_i8, scale, out_dtype=None):
 @functools.cache
 def _kernel():
     fn = load_kernel("int8_linear").qa_int8_linear
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,9 +72,11 @@ def int8_weight_matmul(x, w_i8, scale, out_dtype=None):
         return int8_weight_matmul_plain(x, w_i8, scale, out_dtype)
     dev, xb, sf = _launch_args(x, w_i8, scale, out_dtype)
     (m, k), n = xb.shape, w_i8.shape[1]
+    plan = plan_int8(m, k, n)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     status = _kernel()(xb.data_ptr(), w_i8.data_ptr(), sf.data_ptr(), out.data_ptr(), m, n, k,
-                       OUT_TYPES[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+                       OUT_TYPES[out_dtype], plan.bn, plan.split,
+                       torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "int8_linear")
     int8_weight_matmul.launches += 1
     return out

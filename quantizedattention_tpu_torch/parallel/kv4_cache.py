@@ -68,7 +68,7 @@ class Int4KVCache(NamedTuple):
 
 
 def init_kv4_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int,
-                   device=None) -> Int4KVCache:
+                   device="cuda") -> Int4KVCache:
     if max_len % PACK != 0:
         raise ValueError(f"max_len={max_len} must be a multiple of {PACK} (int4 pack blocks)")
     payload = (batch, n_kv_heads, max_len // 2, head_dim)

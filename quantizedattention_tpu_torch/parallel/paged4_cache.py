@@ -74,7 +74,7 @@ class Paged4KVCache(NamedTuple):
 
 def init_paged4_cache(n_kv_heads: int, n_pages: int, n_seqs: int, max_pages_per_seq: int,
                       head_dim: int, page_size: int = DEFAULT_PAGE_SIZE,
-                      device=None) -> Paged4KVCache:
+                      device="cuda") -> Paged4KVCache:
     check_page_size(page_size)
     payload = (n_kv_heads, n_pages, page_size // 2, head_dim)
     scales = (n_pages, n_kv_heads, page_size)

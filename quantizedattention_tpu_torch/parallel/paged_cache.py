@@ -78,7 +78,7 @@ def check_page_size(page_size: int) -> None:
 
 def init_paged_cache(n_kv_heads: int, n_pages: int, n_seqs: int, max_pages_per_seq: int,
                      head_dim: int, page_size: int = DEFAULT_PAGE_SIZE,
-                     device=None) -> PagedKVCache:
+                     device="cuda") -> PagedKVCache:
     check_page_size(page_size)
     payload = (n_kv_heads, n_pages, page_size, head_dim)
     scales = (n_pages, n_kv_heads, page_size)

@@ -14,6 +14,7 @@ gives the teacher-forced decode logits of every cache kind and the engine
 runs.
 """
 
+import inspect
 import random
 
 import jax
@@ -542,3 +543,13 @@ def test_native_pager_matches_python_step_for_step():
         make_pager("native", 1)
     with pytest.raises(ValueError):
         make_pager("cuda", 8)
+
+
+@pytest.mark.parametrize("init", [t4.init_kv4_cache, tpc.init_paged_cache, tp4.init_paged4_cache])
+def test_cache_constructors_default_to_the_card(init):
+    """A caller that names no device gets the cache on the card, as the
+    slotted int8 cache's constructor, which takes no default, makes the
+    caller say."""
+    assert inspect.signature(init).parameters["device"].default == "cuda"
+    slotted = inspect.signature(tkv.init_kv_cache).parameters["device"]
+    assert slotted.default is inspect.Parameter.empty
