@@ -6,8 +6,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
-     and holds the int8 forward's and the weight matmuls' shared bytes against
-     their launch geometry (ops/int8_tiling.py, ops/linear_tiling.py);
+     and holds the int8 forward's and backward's and the weight matmuls'
+     shared bytes against their launch geometry (ops/int8_tiling.py,
+     ops/linear_tiling.py);
   3. flash_fwd kernel vs its plain PyTorch version (O and lse);
   4. decode kernel vs its plain version, with stale non-finite scales and
      junk payloads written past every row's length;
@@ -33,8 +34,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      int8 serving prefill's shape (8, 16, 256, 64) and an odd cross length, with B8's K-smoothing term held on its own where
      the K mean is large, and the forward's tile edges (t and s off a
      multiple of 128, causal t < s, rep 3 and 5, one 128-key tile, rows with
-     no visible key in a tile); then each timed at (4, 16, 2048, 64) causal
-     beside its plain version;
+     no visible key in a tile); B7 and B8 called twice on each case's
+     operands for the same bits; then each timed at (4, 16, 2048, 64) causal
+     beside its plain version, and B7 and B8 also at GQA rep 4 (2, 16 q / 4
+     kv, 2048, 64), each with its bound and TFLOP/s (bf16-equivalent
+     products over time) and the pair beside SDPA's bf16 backward at the same
+     shape (K/V repeated over the group; a yardstick only);
   9. sage_attention_int8 at (4, 16, 2048, 64) causal against the fp32
      oracle by the JAX package's criteria, with the tiny-magnitude causal
      case and K-smoothing against the raw int8 path;
@@ -45,7 +50,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      attention kind's kernels (B1/B2/B3, or B4/B5/B7/B8) n_layers times and
      the other kind's never; lm_loss gradients on the card vs the CPU plain
      path; torch.profiler over one more step (device time by kernel, busy
-     share); the int8 run's global gradient norm within 2x of the bf16
+     share, the attention kernels' share); the int8 run's global gradient
+     norm within 2x of the bf16
      run's at every step (BASELINE config 4);
  11. train GQA: the entry() config (4 q / 2 kv heads), 8 x 512 tokens, 10
      steps, with bf16 and with int8 attention; losses finite and falling,
@@ -210,6 +216,7 @@ from quantizedattention_tpu_torch.ops import (
     sage_attention_int8,
 )
 from quantizedattention_tpu_torch.ops.int8_fwd import _attend, _fused_launch_args
+from quantizedattention_tpu_torch.ops.int8_tiling import dkv_shared_bytes, dq_shared_bytes
 from quantizedattention_tpu_torch.ops.int8_tiling import shared_bytes as int8_fwd_shared_bytes
 from quantizedattention_tpu_torch.ops.linear_tiling import STREAM_MAX_M, plan_int4, plan_int8
 from quantizedattention_tpu_torch.ops.flash_fwd import (
@@ -454,10 +461,15 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     secs = _build.build_all()
     log(f"[build] kernels + scheduler built/loaded in {secs:.1f} s")
-    smem = _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes()
-    if smem != int8_fwd_shared_bytes():
-        raise AssertionError(f"int8_fwd.cu asks for {smem} shared bytes a block, its launch "
-                             f"geometry (ops/int8_tiling.py) says {int8_fwd_shared_bytes()}")
+    int8_bwd = _build.load_kernel("int8_bwd")
+    for name, got, want in (
+            ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
+             int8_fwd_shared_bytes()),
+            ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
+            ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes())):
+        if got != want:
+            raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
+                                 f"geometry (ops/int8_tiling.py) says {want}")
     for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phase 15 makes
         half = -(-k // 256) * 128  # quantize_weight_int4's packed rows at group 128
         for name, plan in (("int8_linear", plan_int8(m, k, n)),
@@ -1357,26 +1369,19 @@ def phase_train_timing(dev, gen) -> tuple[dict, dict]:
             "exact_bound_ms": bound(nbytes(*exact[:6], dq),
                                     (3 * 2 * pairs * d, PEAK_FP32))["bound_ms"]},
     }
-    # the library yardstick on bf16 inputs: forward by graph replays; the
-    # backward alone as (forward + backward) - forward, both from CUDA events
-    # around an eager loop
-    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v))
-    dob = do.to(torch.bfloat16)
+    # the library yardstick on bf16 inputs: forward by graph replays, the
+    # backward alone by _sdpa_bwd_ms
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
 
     def sdpa_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(F.scaled_dot_product_attention(qb, kb, vb, is_causal=True),
-                            (qb, kb, vb), dob)
+        return F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
 
     def ours_fwd_bwd():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         torch.autograd.grad(flash_attention_bf16(*leaves, causal=True), leaves, do)
 
     sdpa_fwd_ms = device_ms(sdpa_fwd)
-    sdpa_bwd_ms = eager_ms(sdpa_fwd_bwd) - eager_ms(sdpa_fwd)
+    sdpa_bwd_ms = _sdpa_bwd_ms(q, k, v, do)
     ours_fb_ms = eager_ms(ours_fwd_bwd)
     out["flash_fwd"]["library_ms"] = sdpa_fwd_ms
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
@@ -1497,6 +1502,11 @@ def phase_train(dev, smi, cfg) -> tuple[dict, dict]:
     return launches, {"median_ms": med, "max_memory_gib": mem, "grad_norms": norms}
 
 
+# the CUDA functions of the train step's attention (B1-B3; B4, B5, B7, B8)
+ATTENTION_KERNELS = ("flash_fwd_kernel", "dkv_kernel_bf16", "dq_kernel_bf16", "quant_int8_kernel",
+                     "int8_attn_kernel", "int8_dkv_kernel", "int8_dq_kernel")
+
+
 def _profile_step(cfg, params, tokens, targets):
     """torch.profiler over one train step: device time by kernel, and busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -1516,6 +1526,10 @@ def _profile_step(cfg, params, tokens, targets):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} calls  "
             f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
+    attn_us = sum(e.self_device_time_total for e in events
+                  if any(f"{name}(" in e.key for name in ATTENTION_KERNELS))
+    log(f"[profile] attention kernels ({cfg.attention}): {attn_us / 1e3:.3f} ms, "
+        f"{attn_us / total_us:.1%} of device time")
 
 
 def phase_train_gqa(dev, cfg) -> dict:
@@ -1589,7 +1603,11 @@ def _check_int8(q, k, v, do, causal, label) -> dict:
     ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=causal)
     dk, dv = int8_bwd_dkv(ops)
     dq = int8_bwd_dq(ops)
+    again = (*int8_bwd_dkv(ops), int8_bwd_dq(ops))
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again)):
+        raise AssertionError(f"int8 backward kernels give other bits on a second call at {label}")
+    del again
     dk_p, dv_p = int8_bwd_dkv_plain(ops)
     dq_p = int8_bwd_dq_plain(ops)
     rel = {}
@@ -1602,7 +1620,8 @@ def _check_int8(q, k, v, do, causal, label) -> dict:
         err[kernel] = max(err.get(kernel, 0.0), diff)
     log(f"[int8] {label}: quant_int8 byte-equal; int8_fwd max|dO|={err['int8_fwd']:.3e} (tol "
         f"{FLASH_O_TOL}) max|dlse|={err_l:.3e} (tol {FLASH_LSE_TOL}); backward max|diff|/"
-        f"max|plain| dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol {INT8_BWD_TOL})")
+        f"max|plain| dq {rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol {INT8_BWD_TOL}), "
+        f"second call bit-equal")
     if not (err["int8_fwd"] <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
         raise AssertionError("int8_fwd kernel disagrees with its plain version")
     if max(rel.values()) > INT8_BWD_TOL:
@@ -1640,22 +1659,79 @@ def phase_int8_kernels(dev, gen) -> dict:
     return _worst(*errs)
 
 
+# B7 and B8 are also timed at GQA rep 4: (b, h, h_kv, t), causal
+INT8_BWD_GQA = (2, 16, 4, 2048)
+
+
+def _sdpa_bwd_ms(q, k, v, do) -> float:
+    """SDPA's backward alone on bf16 copies, causal, K/V repeated over the GQA
+    group: (forward + backward) - forward, from CUDA events around an eager
+    loop (phases 7 and 8)."""
+    rep = q.shape[1] // k.shape[1]
+    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_(True)
+                  for x in (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
+    dob = do.to(torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qb, kb, vb, is_causal=True),
+                            (qb, kb, vb), dob)
+
+    return eager_ms(fwd_bwd) - eager_ms(fwd)
+
+
+def _int8_bwd_times(q, k, v, do, sdpa_bwd_ms=None) -> tuple[dict, object]:
+    """B7 and B8 on q/do [b, h, t, 64], k/v [b, h_kv, t, 64], causal: device
+    time, bound and TFLOP/s of each, beside SDPA's bf16 backward (measured
+    here unless given). Returns (the times, the kernels' operands)."""
+    (b, h, t, _), h_kv = q.shape, k.shape[1]
+    k_mean = k.mean(dim=-2, keepdim=True)
+    res = quantize_qkv(q, k, v, k_sub=k_mean)
+    dims = (b, h, t, t, 64)
+    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=True)
+    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=True)
+    dk, dv = int8_bwd_dkv(ops)
+    dq = int8_bwd_dq(ops)
+    prod = 2 * b * h * visible_pairs(t, t, True) * 64  # one product over the visible pairs
+    payload = nbytes(*(x for pair in res for x in pair))
+    rows_in = nbytes(ops.do, ops.lse, ops.di)
+    lib_ms = _sdpa_bwd_ms(q, k, v, do) if sdpa_bwd_ms is None else sdpa_bwd_ms
+    out = {
+        "int8_bwd_dkv": {"ms": device_ms(lambda: int8_bwd_dkv(ops)), "products": 4,
+                         **bound(payload + rows_in + nbytes(dk, dv), (prod, PEAK_INT8),
+                                 (3 * prod, PEAK_BF16))},
+        "int8_bwd_dq": {"ms": device_ms(lambda: int8_bwd_dq(ops)), "products": 3,
+                        **bound(payload + rows_in + nbytes(ops.k_mean, dq), (prod, PEAK_INT8),
+                                (2 * prod, PEAK_BF16))},
+    }
+    pair_ms = out["int8_bwd_dkv"]["ms"] + out["int8_bwd_dq"]["ms"]
+    shape = f"({b},{h}q/{h_kv}kv,{t},64)" if h != h_kv else f"({b},{h},{t},64)"
+    for name, r in out.items():
+        r["tflops"] = r.pop("products") * prod / r["ms"] / 1e9
+        r["library_ms"] = lib_ms
+        log(f"[timing] {name} at {shape} causal: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} "
+            f"TFLOP/s, bf16-equivalent products), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"[timing] int8 backward at {shape} causal: B7 + B8 {pair_ms:.4f} ms, sdpa bf16 backward "
+        f"{lib_ms:.4f} ms, ratio {pair_ms / lib_ms:.3f}")
+    return out, ops
+
+
 def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
     """Device time per call of B4, B5, B7 and B8 at the training shape,
-    causal, beside their plain versions and their bounds. No single PyTorch
-    call computes int8 attention; SDPA's bf16 times ride along for scale."""
+    causal, beside their plain versions and their bounds; B7 and B8 also at
+    GQA rep 4. No single PyTorch call computes int8 attention; SDPA's bf16
+    times ride along for scale (its backward is B7 + B8's library_ms)."""
     b, h, t, d = TRAIN_BATCH, 16, TRAIN_CFG.max_seq, 64
     q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t)
     k_mean = k.mean(dim=-2, keepdim=True)
     res = quantize_qkv(q, k, v, k_sub=k_mean)
     dims = (b, h, t, t, d)
     o, lse = int8_attention_fwd_from_quantized(res, dims, causal=True)
-    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=True)
-    dk, dv = int8_bwd_dkv(ops)
-    dq = int8_bwd_dq(ops)
     prod = 2 * b * h * visible_pairs(t, t, True) * d  # one product over the visible pairs
     payload = nbytes(*(x for pair in res for x in pair))
-    rows_in = nbytes(ops.do, ops.lse, ops.di)
 
     def plain_ms(fn):
         return device_ms(fn, calls=4, replays=5)
@@ -1670,28 +1746,33 @@ def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
             "plain_ms": plain_ms(lambda: int8_attention_fwd_from_quantized_plain(res, dims, True)),
             **bound(payload + nbytes(o, lse), (prod, PEAK_INT8), (prod, PEAK_BF16)),
             "sdpa_bf16_ms": sdpa["fwd"]},
-        "int8_bwd_dkv": {
-            "ms": device_ms(lambda: int8_bwd_dkv(ops)),
-            "plain_ms": plain_ms(lambda: int8_bwd_dkv_plain(ops)),
-            **bound(payload + rows_in + nbytes(dk, dv), (prod, PEAK_INT8), (3 * prod, PEAK_BF16)),
-            "sdpa_bf16_ms": sdpa["bwd"]},
-        "int8_bwd_dq": {
-            "ms": device_ms(lambda: int8_bwd_dq(ops)),
-            "plain_ms": plain_ms(lambda: int8_bwd_dq_plain(ops)),
-            **bound(payload + rows_in + nbytes(ops.k_mean, dq), (prod, PEAK_INT8),
-                    (2 * prod, PEAK_BF16)),
-            "sdpa_bf16_ms": sdpa["bwd"]},
     }
+    for name, r in out.items():
+        r["library_ms"] = None
+        log(f"[timing] {name} at ({b},{h},{t},{d}) causal: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    bwd, ops = _int8_bwd_times(q, k, v, do, sdpa["bwd"])
+    bwd["int8_bwd_dkv"]["plain_ms"] = plain_ms(lambda: int8_bwd_dkv_plain(ops))
+    bwd["int8_bwd_dq"]["plain_ms"] = plain_ms(lambda: int8_bwd_dq_plain(ops))
+    del ops
+    # the GQA shape's inputs from a generator of their own (the phases after
+    # this one draw what they drew before it timed a second shape)
+    gqa, _ = _int8_bwd_times(*_qkvdo(torch.Generator(device=dev).manual_seed(8), dev,
+                                     *INT8_BWD_GQA[:3], INT8_BWD_GQA[3], INT8_BWD_GQA[3]))
+    for name, r in bwd.items():
+        r["library_call"] = ("backward of F.scaled_dot_product_attention(is_causal=True), bf16: "
+                             "dq, dk, dv together")
+        r.update({f"gqa_{key}": gqa[name][key] for key in ("ms", "bound_ms", "tflops",
+                                                             "library_ms")})
+        r["gqa_shape"] = "(2, 16 q / 4 kv heads, 2048, 64) causal"
+        log(f"[timing] {name} plain {r['plain_ms']:.4f} ms")
+    out.update(bwd)
 
     def fwd_bwd():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         torch.autograd.grad(sage_attention_int8(*leaves, causal=True), leaves, do)
 
     fb_ms = eager_ms(fwd_bwd)
-    for name, r in out.items():
-        r["library_ms"] = None
-        log(f"[timing] {name} at ({b},{h},{t},{d}) causal: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     log(f"[timing] sage_attention_int8 forward + backward {fb_ms:.4f} ms (eager, CUDA events); "
         f"sdpa bf16 forward {sdpa['fwd']:.4f} ms, backward {sdpa['bwd']:.4f} ms")
     out["int8_fwd"]["fwd_bwd_ms"] = fb_ms

@@ -1,0 +1,137 @@
+"""Time kernels of two checkouts of the PyTorch port on one GPU, in turns:
+the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, and
+the int8 backward (B7 dK/dV, B8 dQ).
+
+    python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd]
+
+(both parts without a third argument). Each checkout is timed in its own
+process (its own package and kernel build), in the order old, new, new, old:
+the weight matmuls at chip_smoke.py's WEIGHT_SHAPES, m = 8 (decode), 40 (a
+spec verify pass) and 2048 (prefill) rows against the bench LM's (k, n); B7
+and B8 at chip_smoke.py's phase-8 timing shapes, (4, 16, 2048, 64) and GQA
+rep 4 (2, 16 q / 4 kv, 2048, 64), causal, on the forward's residuals. A time
+is the mean device time of one wrapper call, from CUDA-graph replays as in
+chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
+checkouts see the same ones. Prints one JSON line a run and a summary line a
+shape (the mean of each checkout's two runs); exits non-zero without a GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+MS = (8, 40, 2048)
+KN = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 8192))
+BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048))  # (b, h, h_kv, t = s), causal
+PARTS = ("weights", "int8_bwd")
+
+
+def _device_ms(torch, fn, calls=20, replays=10) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def _weight_rows(torch, gen, dev) -> dict:
+    import torch.nn.functional as F
+
+    from quantizedattention_tpu_torch.ops import int4_weight_matmul, int8_weight_matmul
+    from quantizedattention_tpu_torch.quantize.weights import quantize_weight, quantize_weight_int4
+
+    rows = {}
+    for m in MS:
+        for k, n in KN:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            q8, q4 = quantize_weight(w), quantize_weight_int4(w)
+            x4 = F.pad(x, (0, 2 * q4.packed.shape[0] - k))
+            wb = w.to(torch.bfloat16)
+            rows[f"m={m} k={k} n={n}"] = {
+                "int8_ms": _device_ms(torch, lambda: int8_weight_matmul(x, q8.w_i8, q8.scale)),
+                "int4_ms": _device_ms(
+                    torch, lambda: int4_weight_matmul(x4, q4.packed, q4.scale, q4.group)),
+                "bf16_matmul_ms": _device_ms(torch, lambda: torch.matmul(x, wb))}
+    return rows
+
+
+def _int8_bwd_rows(torch, gen, dev) -> dict:
+    from quantizedattention_tpu_torch.ops import (int8_attention_fwd_from_quantized, int8_bwd_dkv,
+                                                  int8_bwd_dq, int8_bwd_operands, quantize_qkv)
+
+    rows = {}
+    for b, h, h_kv, t in BWD_SHAPES:
+        q, k, v, do = (torch.randn((b, n, t, 64), generator=gen, device=dev)
+                       for n in (h, h_kv, h_kv, h))
+        k_mean = k.mean(dim=-2, keepdim=True)
+        res = quantize_qkv(q, k, v, k_sub=k_mean)
+        dims = (b, h, t, t, 64)
+        o, lse = int8_attention_fwd_from_quantized(res, dims, causal=True)
+        ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=True)
+        rows[f"b={b} h={h} h_kv={h_kv} t={t} causal"] = {
+            "b7_ms": _device_ms(torch, lambda: int8_bwd_dkv(ops)),
+            "b8_ms": _device_ms(torch, lambda: int8_bwd_dq(ops))}
+    return rows
+
+
+def run_one(tree: str, parts) -> None:
+    """Time `tree`'s kernels; print one JSON object."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    if "weights" in parts:
+        rows.update(_weight_rows(torch, gen, dev))
+    if "int8_bwd" in parts:
+        rows.update(_int8_bwd_rows(torch, gen, dev))
+    print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
+
+
+def main() -> None:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
+        run_one(sys.argv[2], sys.argv[3:])
+        return
+    parts = sys.argv[3:] or list(PARTS)
+    if len(sys.argv) < 3 or set(parts) - set(PARTS):
+        sys.exit(__doc__)
+    old, new = sys.argv[1:3]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    runs = []
+    for tree in (old, new, new, old):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, *parts],
+                             capture_output=True, text=True)
+        if out.returncode:
+            sys.exit(f"timing {tree} failed:\n{out.stderr[-3000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    for shape, row in runs[0]["rows"].items():
+        mean = {label: {key: sum(runs[i]["rows"][shape][key] for i in idx) / 2 for key in row}
+                for label, idx in (("old", (0, 3)), ("new", (1, 2)))}
+        print(f"[ab] {shape}: " + ", ".join(
+            f"{key[:-3]} {mean['old'][key]:.4f} -> {mean['new'][key]:.4f} ms" for key in row)
+              + f" ({smi})", flush=True)
+
+
+if __name__ == "__main__":
+    main()

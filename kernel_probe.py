@@ -1,0 +1,446 @@
+"""Where the time of a kernel goes, on one GPU: the weight matmuls (B17
+csrc/int8_linear.cu, B18 csrc/int4_linear.cu) and the int8 backward (B7 and
+B8, csrc/int8_bwd.cu).
+
+    python3 kernel_probe.py [weights] [int8_bwd]    (both without arguments)
+
+Builds altered copies of a kernel source into build/probe/ (the checkout's
+csrc/ is not touched) and times each beside the unaltered build, as
+chip_smoke.py:device_ms does, on the same seeded inputs. The altered copies
+compute wrong results on purpose; they are timed, never used.
+
+weights:
+- stream_no_widen: the streaming regime feeds the raw weight bytes to the
+  mma (no widening);
+- stream_no_mma: the streaming regime widens but runs no mma.sync;
+- stream_no_sum: the streaming regime skips the cluster's k-split sum and
+  the output stores;
+- tc_no_widen: the tensor-core regime feeds the raw weight bytes to the
+  products as their A operand;
+- tc_no_refill: the tensor-core regime loads its first 4 stages only;
+- tc_products_only: both of the last two: the products and barriers alone.
+
+and of B18 at prefill, tc_no_fold: the products of a group's half are never
+folded into the accumulator (so they never wait to be done).
+
+Then a copy of B17's streaming kernel that stamps %globaltimer at 6 points
+of every block: start, all copies issued, first chunk landed, mainloop
+done, partial written, cluster sum and stores done. It prints each phase's
+median over the blocks.
+
+int8_bwd, at chip_smoke.py's timing shapes (4,16,2048,64) and GQA rep 4
+(2,16 q / 4 kv,2048,64), causal:
+- no_exp: P takes its exponent's argument (no MUFU.EX2);
+- no_elementwise: P and dS are never computed (the products run on stale
+  fragments);
+- no_late_products: B7 skips dV and dK_seg, B8 skips dQ_seg;
+- no_widen: the int8 tiles (B7's Q, B8's K and V) are not widened;
+- late_a_from_smem: dV, dK_seg (B7) and dQ_seg (B8) read their A operand
+  from a tile of the stage in shared memory instead of the P^T / dS
+  fragments in registers;
+and a copy that sums clock64 cycles by phase of the mainloop in each
+warpgroup (thread 0 of each, into shared memory), printed as cycles per
+mainloop tile over all blocks. Exits non-zero without a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from quantizedattention_tpu_torch import _build
+from quantizedattention_tpu_torch.ops import int8_bwd as tbwd
+from quantizedattention_tpu_torch.ops import (int8_attention_fwd_from_quantized, int8_bwd_operands,
+                                              quantize_qkv)
+from quantizedattention_tpu_torch.ops.linear_tiling import plan_int4, plan_int8
+from quantizedattention_tpu_torch.quantize.weights import quantize_weight, quantize_weight_int4
+
+SRC = os.path.join(_build.CSRC_DIR, "int8_linear.cu")
+SRC4 = os.path.join(_build.CSRC_DIR, "int4_linear.cu")
+SRC_BWD = os.path.join(_build.CSRC_DIR, "int8_bwd.cu")
+OUT_DIR = os.path.join(_build.BUILD_DIR, "probe")
+DECODE = [(8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024), (8, 1024, 8192)]
+PREFILL = [(2048, 1024, 4096), (2048, 4096, 1024)]
+
+_WIDEN_A = ("const uint32_t a[4] = {widen_pair(wv[0], wv[1], 0), widen_pair(wv[0], wv[1], 1),\n"
+            "                             "
+            "widen_pair(wv[2], wv[3], 0), widen_pair(wv[2], wv[3], 1)};")
+_MMA = "for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt], a, b[nt][0], b[nt][1]);"
+_SUM = "  cluster_reduce<T>(red, recv, m * BN, split, rank, [&](int e, float sum) {"
+_TC_WIDEN = """      a[ks][0] = widen_pair(v[0], v[1], 0);
+      a[ks][1] = widen_pair(v[0], v[1], 1);
+      a[ks][2] = widen_pair(v[2], v[3], 0);
+      a[ks][3] = widen_pair(v[2], v[3], 1);"""
+_TC_REFILL = "    if (j >= 1) load(j - 1 + TC_STAGES);"
+_TC_WAIT = "    mbar_wait(full(st), (j / TC_STAGES) & 1);"
+_TC_FIRST_WAITS = "    if (j < TC_STAGES) mbar_wait(full(st), 0);"
+_TC_RAW = "".join(f"      a[ks][{i}] = v[{i}];\n" for i in range(4))[:-1]
+VARIANTS = {
+    "as_is": [],
+    "stream_no_widen": [(_WIDEN_A, "const uint32_t a[4] = {wv[0], wv[1], wv[2], wv[3]};")],
+    "stream_no_mma": [(_MMA, "for (int nt = 0; nt < NT; ++nt) acc[nt][0] += "
+                             "__uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[nt][0] ^ b[nt][1]);")],
+    "stream_no_sum": [(_SUM, "  if (m < 0) cluster_reduce<T>(red, recv, m * BN, split, rank, "
+                             "[&](int e, float sum) {")],
+    "tc_no_widen": [(_TC_WIDEN, _TC_RAW)],
+    "tc_no_refill": [(_TC_REFILL, ""), (_TC_WAIT, _TC_FIRST_WAITS)],
+    "tc_products_only": [(_TC_WIDEN, _TC_RAW), (_TC_REFILL, ""), (_TC_WAIT, _TC_FIRST_WAITS)],
+}
+_FOLD = """    if (run_end) {
+      wgmma_wait<0>();
+      reg_fence(sub);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(sub[i], s[(i % 4) / 2]));
+    }"""
+VARIANTS4 = {"b18_as_is": [], "b18_tc_no_fold": [(_FOLD, "")]}
+STAMPS = ["start", "issued", "first chunk", "mainloop", "partial", "sum + stores"]
+
+
+def _altered(edits, path=SRC) -> str:
+    src = open(path).read()
+    for old, new in edits:
+        if old not in src:
+            raise SystemExit(f"kernel_probe: the kernel source changed; no anchor "
+                             f"{old[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def _stamped() -> str:
+    """The kernel with a %globaltimer stamp per phase of the streaming regime."""
+    src = open(SRC).read().replace(
+        '#include "hopper.cuh"',
+        '#include "hopper.cuh"\n__device__ unsigned long long g_t[4096][8];\n'
+        '#define STAMP(i) if (threadIdx.x == 0) { unsigned long long t_; '
+        'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
+        'g_t[blockIdx.y * gridDim.x + blockIdx.x][i] = t_; }')
+    k0 = src.index("int8_stream_kernel(")
+    for anchor, stamp in (("  if (tid == 0) {\n#pragma unroll\n    for (int i = 0; i < S_STAGES;",
+                           "STAMP(0)\n"),
+                          ("    const uint8_t* xs = smem + st * STAGE;\n    const uint8_t* ws",
+                           "if (i == 0) STAMP(2)\n"),
+                          ("  // This block's partial [8 NT, BN] f32", "STAMP(3)\n"),
+                          (_SUM, "STAMP(4)\n"),
+                          ("}\n\n// --- tensor-core regime ---", "STAMP(5)\n")):
+        i = src.index(anchor, k0)
+        src = src[:i] + stamp + src[i:]
+    issue = "  for (int i = 0; i < S_STAGES; ++i) load(i);\n"
+    i = src.index(issue, k0) + len(issue)
+    src = src[:i] + "STAMP(1)\n" + src[i:]
+    return src + ('\nextern "C" int qa_probe_stamps(void* host) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(host, g_t, sizeof(g_t));\n}\n')
+
+
+def _build_lib(name: str, src: str) -> ctypes.CDLL:
+    """Compile one altered source into build/probe/lib<name>.so and load it."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"{name}.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, path, "-o",
+           os.path.join(OUT_DIR, f"lib{name}.so")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"kernel_probe: build of {name} failed:\n{proc.stderr[-3000:]}")
+    lib = ctypes.CDLL(os.path.join(OUT_DIR, f"lib{name}.so"))
+    if name.startswith("bwd"):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
+        lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 10 + [f32, f32, ptr]
+        lib.qa_int8_bwd_dkv.restype = lib.qa_int8_bwd_dq.restype = ctypes.c_int
+    elif name.startswith("b18"):
+        lib.qa_int4_linear.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.qa_int4_linear.restype = ctypes.c_int
+    else:
+        lib.qa_int8_linear.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.qa_int8_linear.restype = ctypes.c_int
+    return lib
+
+
+def _device_us(fn, calls=20, replays=10) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays) * 1e3
+
+
+def _inputs(gen, m, k, n):
+    dev = torch.device("cuda", 0)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+    q8 = quantize_weight(w)
+    return x, q8, w.to(torch.bfloat16), torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+
+
+def _call(lib, x, q8, out):
+    (m, k), n = x.shape, q8.w_i8.shape[1]
+    plan = plan_int8(m, k, n)
+    status = lib.qa_int8_linear(x.data_ptr(), q8.w_i8.data_ptr(), q8.scale.data_ptr(),
+                                out.data_ptr(), m, n, k, 1, plan.bn, plan.split,
+                                torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def _call4(lib, x4, q4, out):
+    (m, kp), (half, n) = x4.shape, q4.packed.shape
+    plan = plan_int4(m, half, n, q4.group)
+    status = lib.qa_int4_linear(x4.data_ptr(), q4.packed.data_ptr(), q4.scale.data_ptr(),
+                                out.data_ptr(), m, n, half, q4.group, 1, plan.bn, plan.split,
+                                torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def probe_weights(smi) -> None:
+    jobs = {name: _altered(edits) for name, edits in VARIANTS.items()}
+    jobs.update({name: _altered(edits, SRC4) for name, edits in VARIANTS4.items()})
+    jobs["stamped"] = _stamped()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for m, k, n in DECODE + PREFILL:
+        x, q8, wb, out = _inputs(gen, m, k, n)
+        names = [v for v in VARIANTS if v == "as_is" or v.startswith("stream" if m <= 64 else "tc")]
+        times = {v: _device_us(lambda v=v: _call(libs[v], x, q8, out)) for v in names}
+        times["bf16 torch.matmul"] = _device_us(lambda: torch.matmul(x, wb))
+        print(f"[probe] m={m} k={k} n={n}: " + ", ".join(f"{v} {t:.2f}" for v, t in times.items())
+              + f" us ({smi})", flush=True)
+    for m, k, n in PREFILL:
+        x, q8, _, out = _inputs(gen, m, k, n)
+        q4 = quantize_weight_int4(torch.randn((k, n), generator=gen, device=x.device) * k ** -0.5)
+        x4 = F.pad(x, (0, 2 * q4.packed.shape[0] - k))
+        times = {v: _device_us(lambda v=v: _call4(libs[v], x4, q4, out)) for v in VARIANTS4}
+        print(f"[probe] m={m} k={k} n={n}: " + ", ".join(f"{v} {t:.2f}" for v, t in times.items())
+              + f" us ({smi})", flush=True)
+    lib = libs["stamped"]
+    for m, k, n in DECODE:
+        x, q8, _, out = _inputs(gen, m, k, n)
+        plan = plan_int8(m, k, n)
+        _call(lib, x, q8, out)  # warm: code and weights as a graph replay finds them
+        torch.cuda.synchronize()
+        _call(lib, x, q8, out)
+        torch.cuda.synchronize()
+        stamps = np.zeros((4096, 8), dtype=np.uint64)
+        lib.qa_probe_stamps(ctypes.c_void_p(stamps.ctypes.data))
+        t = stamps[:plan.ctas, :len(STAMPS)].astype(np.int64)
+        phases = np.diff(t, axis=1)  # per block, ns
+        span = (t[:, -1].max() - t[:, 0].min()) / 1e3
+        print(f"[split] m={m} k={k} n={n} (bn {plan.bn}, split {plan.split}, {plan.ctas} blocks): "
+              + ", ".join(f"{a} -> {b} {np.median(phases[:, i]) / 1e3:.2f}"
+                          for i, (a, b) in enumerate(zip(STAMPS, STAMPS[1:])))
+              + f" us (medians over blocks); first start to last end {span:.2f} us", flush=True)
+
+
+# --- the int8 backward (B7, B8) ---
+
+BWD_SHAPES = [(4, 16, 16, 2048), (2, 16, 4, 2048)]  # (b, h, h_kv, t = s), causal
+_B7_EXP = ("      p[e] = exp2_ftz(__fmul_rn(small_int_to_float(st[4 * n + e]), c) - "
+           "((e & 1) ? l2.y : l2.x));")
+_B8_EXP = "      float p = exp2_ftz(__fmul_rn(small_int_to_float(s_acc[4 * n + e]), c[h]) - lse_r[h]);"
+_B7_COMPUTE = "    if (q0 + TILE > t || kw0 + 64 > s"
+_B8_COMPUTE = "    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0))"
+_B7_LATE = "    {  // dV += P^T dO"
+_B8_LATE = "    {  // dQ_seg += dS K"
+_B7_WIDEN = "    widen_tile_64x64(smem + DKV_OFF_Q + st * I8_TILE"
+_B8_WIDEN = ("      widen_tile_64x64(smem + DQ_OFF_K + sn * I8_TILE,",
+             "      widen_tile_64x64(smem + DQ_OFF_V + sn * I8_TILE,")
+_SKIP = "    if (n_tiles < 0)\n"  # a condition that never holds, before the anchor
+# the late products with A from a shared tile of the stage (K-major) instead
+# of the P^T / dS fragments in registers
+_SS_HELPER = """#include "hopper.cuh"
+__device__ __forceinline__ void wgmma_ss_probe(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %34, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\\n}\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+"""
+BWD_VARIANTS = {
+    "bwd_as_is": [],
+    "bwd_no_exp": [(_B7_EXP, _B7_EXP.replace("exp2_ftz(", "(")),
+                   (_B8_EXP, _B8_EXP.replace("exp2_ftz(", "("))],
+    "bwd_no_elementwise": [(_B7_COMPUTE, _SKIP + _B7_COMPUTE), (_B8_COMPUTE, _SKIP + _B8_COMPUTE)],
+    "bwd_no_late_products": [(_B7_LATE, _SKIP + _B7_LATE), (_B8_LATE, _SKIP + _B8_LATE)],
+    "bwd_no_widen": [(_B7_WIDEN, _SKIP + _B7_WIDEN),
+                     *((a, "  " + _SKIP + a) for a in _B8_WIDEN)],
+    "bwd_late_a_from_smem": [
+        ('#include "hopper.cuh"\n', _SS_HELPER),
+        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, pa[kk], desc_dot + 128 * kk, 1)",
+         "wgmma_ss_probe(dv_acc, desc_kmajor_sw128(base + DKV_OFF_DO + st * BF_TILE) + 2 * kk, "
+         "desc_dot + 128 * kk)"),
+        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_seg, da[kk], desc_qw + 128 * kk, 1)",
+         "wgmma_ss_probe(dk_seg, desc_kmajor_sw128(base + DKV_OFF_DO + st * BF_TILE) + 2 * kk, "
+         "desc_qw + 128 * kk)"),
+        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_seg, dsa[kk], desc_kw + 128 * kk, 1)",
+         "wgmma_ss_probe(dq_seg, desc_kmajor_sw128(base + DQ_OFF_VW + (j % 2) * BF_TILE) + 2 * kk, "
+         "desc_kw + 128 * kk)")],
+}
+# (anchor, phase ended there, insert before the anchor?) of each kernel's mainloop
+B7_PHASES = [("    const float next_rows = fetch_rows(i + 1);\n", "refill + rows", False),
+             ("    mbar_wait(full(st), (i / DKV_STAGES) & 1);\n", "TMA wait", False),
+             (_B7_WIDEN, "issue S, dP", True),
+             ("    wgmma_wait<0>();  // this tile's S^T", "widen Q + rows", True),
+             ("    if (fold) {\n      fold_dk();", "wait products", True),
+             ("    fence_proxy_async();  // the widened Q tile", "fold + P, dS", True),
+             (_B7_LATE, "barrier", True),
+             ("    // the (q head, q grain) segment ends", "issue dV, dK", True)]
+B8_PHASES = [("    const int k0 = j * TILE;\n", "refill + loop top", False),
+             ("    if (j + 1 < n_tiles) {  // the next tile's K and V", "issue S, dP", True),
+             ("      mbar_wait(full(sn), ((j + 1) / DQ_STAGES) & 1);\n", "TMA wait", False),
+             ("    wgmma_wait<0>();  // this tile's S, dP", "widen K, V", True),
+             ("    if (fold) {\n      fold_dq();", "wait products", True),
+             ("    fence_proxy_async();  // the next tile's widened K and V", "fold + P, dS", True),
+             (_B8_LATE, "barrier", True),
+             ("    if (++seg == kv_tiles_per_grain || j + 1 == n_tiles) {", "issue dQ", True)]
+_SPLIT_HEAD = (
+    '#include "hopper.cuh"\n'
+    "__device__ long long g_cyc[2][8192][2][9];\n"
+    "__shared__ long long probe_cyc[2][9];\n"
+    "#define SPLIT(k) if ((threadIdx.x & 127) == 0) { const long long t_ = clock64(); "
+    "probe_cyc[threadIdx.x / 128][k] += t_ - probe_t0; probe_t0 = t_; }\n")
+
+
+def _split_kernel(src: str, start: str, loop: str, end: str, phases, which: int) -> str:
+    """Stamps one kernel's mainloop (between `start` and `end`)."""
+    k0 = src.index(start)
+    out = src[:k0]
+    body = src[k0:src.index(end, k0)]
+    rest = src[src.index(end, k0):]
+    for k, (anchor, _, before) in enumerate(phases):
+        i = body.index(anchor)
+        at = i if before else i + len(anchor)
+        body = body[:at] + f"SPLIT({k})\n" + body[at:]
+    i = body.index(loop)
+    body = (body[:i] + "  if (threadIdx.x < 18) probe_cyc[threadIdx.x / 9][threadIdx.x % 9] = 0;\n"
+            "  __syncthreads();\n  long long probe_t0 = clock64();\n" + body[i:])
+    done = (f"  if ((threadIdx.x & 127) == 0) {{\n    const int w_ = threadIdx.x / 128;\n"
+            f"    const int b_ = blockIdx.y * gridDim.x + blockIdx.x;\n"
+            f"    for (int k_ = 0; k_ < 8; ++k_) g_cyc[{which}][b_][w_][k_] = probe_cyc[w_][k_];\n"
+            f"    g_cyc[{which}][b_][w_][8] = n_tiles;\n  }}\n")
+    return out + body + done + rest
+
+
+def _bwd_split_source() -> str:
+    src = open(SRC_BWD).read().replace('#include "hopper.cuh"\n', _SPLIT_HEAD)
+    src = _split_kernel(src, "int8_dkv_kernel(", "  int j = j0;  // tile i's q tile",
+                        "#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    if (key[h] >= s)",
+                        B7_PHASES, 0)
+    src = _split_kernel(src, "int8_dq_kernel(", "  for (int j = 0; j < n_tiles; ++j) {",
+                        "#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    if (!live[h])",
+                        B8_PHASES, 1)
+    return src + ('\nextern "C" int qa_probe_cycles(void* host) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(host, g_cyc, sizeof(g_cyc));\n}\n'
+                  'extern "C" int qa_probe_reset() {\n  void* p = nullptr;\n'
+                  '  cudaGetSymbolAddress(&p, g_cyc);\n'
+                  '  return (int)cudaMemset(p, 0, sizeof(g_cyc));\n}\n')
+
+
+def _bwd_ops(gen, b, h, h_kv, t):
+    dev = torch.device("cuda", 0)
+    q, k, v, do = (torch.randn((b, n, t, 64), generator=gen, device=dev)
+                   for n in (h, h_kv, h_kv, h))
+    k_mean = k.mean(dim=-2, keepdim=True)
+    res = quantize_qkv(q, k, v, k_sub=k_mean)
+    dims = (b, h, t, t, 64)
+    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=True)
+    return int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=True)
+
+
+def _bwd_call(lib, ops, kernel):
+    """One launch of B7 (kernel "dkv") or B8 ("dq") from an altered build, as
+    ops/int8_bwd.py's wrappers launch it."""
+    dev, ints, bq = tbwd._launch_args(ops)
+    _, _, t, s, d = ops.dims
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "dkv":
+        dk = torch.empty((ops.k_i8.shape[0], s, d), dtype=torch.float32, device=dev)
+        dv = torch.empty_like(dk)
+        status = lib.qa_int8_bwd_dkv(*tbwd._inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints,
+                                     int(ops.causal), ops.qk_scale, ops.sm_scale, stream)
+    else:
+        dq = torch.empty((ops.k_i8.shape[0], ops.rep, t, d), dtype=torch.float32, device=dev)
+        status = lib.qa_int8_bwd_dq(*tbwd._inputs(ops), ops.k_mean.data_ptr(), dq.data_ptr(),
+                                    *ints, bq, int(ops.causal), ops.qk_scale, ops.sm_scale, stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def probe_int8_bwd(smi) -> None:
+    jobs = {name: _altered(edits, SRC_BWD) for name, edits in BWD_VARIANTS.items()}
+    jobs["bwd_split"] = _bwd_split_source()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, h_kv, t in BWD_SHAPES:
+        ops = _bwd_ops(gen, b, h, h_kv, t)
+        for kernel, name in (("dkv", "B7"), ("dq", "B8")):
+            times = {v: _device_us(lambda v=v: _bwd_call(libs[v], ops, kernel)) for v in BWD_VARIANTS}
+            print(f"[probe] {name} ({b},{h},{h_kv},{t},64) causal: "
+                  + ", ".join(f"{v[4:]} {us:.2f}" for v, us in times.items()) + f" us ({smi})",
+                  flush=True)
+        lib = libs["bwd_split"]
+        lib.qa_probe_reset()
+        _bwd_call(lib, ops, "dkv")
+        _bwd_call(lib, ops, "dq")
+        torch.cuda.synchronize()
+        cyc = np.zeros((2, 8192, 2, 9), dtype=np.int64)
+        lib.qa_probe_cycles(ctypes.c_void_p(cyc.ctypes.data))
+        for which, (name, phases) in enumerate((("B7", B7_PHASES), ("B8", B8_PHASES))):
+            for wg in (0, 1):  # thread 0 (which issues the TMA) and thread 128
+                c = cyc[which, :, wg]
+                tiles = c[:, 8].sum()
+                per = c[:, :8].sum(axis=0) / max(tiles, 1)
+                print(f"[split] {name} ({b},{h},{h_kv},{t},64) causal, warpgroup {wg}, cycles "
+                      f"per mainloop tile ({tiles} tiles): " + ", ".join(
+                          f"{label} {x:.0f}" for (_, label, _), x in zip(phases, per))
+                      + f"; all {per.sum():.0f}", flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("kernel_probe: no CUDA device")
+    parts = sys.argv[1:] or ["weights", "int8_bwd"]
+    if set(parts) - {"weights", "int8_bwd"}:
+        sys.exit(__doc__)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    if "weights" in parts:
+        probe_weights(smi)
+    if "int8_bwd" in parts:
+        probe_int8_bwd(smi)
+
+
+
+if __name__ == "__main__":
+    main()

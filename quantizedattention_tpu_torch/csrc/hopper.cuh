@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-memory
 // addresses, mbarriers, TMA, thread-block clusters and the k split's sum,
-// mma.sync, wgmma, and the exact int8 / int4 -> bf16 widening.
+// mma.sync, wgmma (descriptors, the int8 and bf16 forms), the exact int8 /
+// int4 -> bf16 widening, and the element helpers of the int8 attention
+// kernels (exp2, quad reductions, exact small integers as f32).
 // Each .cu that includes it is its own library, so everything here has
 // internal linkage.
 
@@ -63,6 +65,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -143,11 +154,31 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 // --- wgmma ---
 
-// Shared-memory matrix descriptor (start address, LBO, SBO in 16-byte units;
-// layout type in bits 62-63). K-major, 128-byte swizzle: rows of 64 bf16 =
-// 128 bytes, 8-row groups 1024 bytes apart. A k16 step further is 32 bytes
-// on (+2 in the address field).
+// Shared-memory matrix descriptors (start address, LBO, SBO in 16-byte
+// units; layout type in bits 62-63). The tiles they describe are the ones TMA
+// writes with the same swizzle (or threads write by the same rule), based at
+// a multiple of 1024 bytes.
+//
+// K-major, 128-byte swizzle: rows of 64 bf16 = 128 bytes (16-byte chunk c of
+// row r at c ^ (r & 7)), 8-row groups 1024 bytes apart. A k16 step further
+// is 32 bytes on (+2 in the address field).
 __device__ __forceinline__ uint64_t desc_kmajor_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// K-major, 64-byte swizzle: rows of 64 int8 bytes (16-byte chunk c of row r
+// at c ^ ((r >> 1) & 3)), 8-row groups 512 bytes apart. A k32 step further
+// is 32 bytes on (+2).
+__device__ __forceinline__ uint64_t desc_kmajor_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// MN-major, 128-byte swizzle: the same tile as desc_kmajor_sw128's, read
+// with its rows along K (64 bf16 of N a row), 8-row groups 1024 bytes apart
+// along K. A k16 step further is 16 rows = 2048 bytes on (+128).
+__device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
@@ -172,6 +203,71 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A register A operand's fragments, which a wgmma in flight still reads.
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// d[64 x 64] (+)= A[64 x 32] B[64 x 32]^T, s8 x s8 -> s32, both K-major from
+// shared memory; accumulate = 0 zeroes d first. d[4 n + e]: row 16 * warp +
+// lane / 4 + 8 * (e / 2), column 8 n + 2 * (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The layout of a wgmma's B operand in shared memory: K-major (K contiguous)
+// or MN-major (N contiguous). The transpose flag is an immediate of the
+// instruction, so each is its own form.
+enum BMajor { B_KMAJOR = 0, B_MNMAJOR = 1 };
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 -> f32; A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory, K-major
+// or MN-major. d's layout as wgmma_s8_m64n64k32's.
+template <int MAJOR>
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(MAJOR));
 }
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 -> f32; A from registers (the
@@ -206,17 +302,44 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_rs(float (&d)[64], const u
 
 // --- exact widening to bf16, off the conversion pipe ---
 
-// Byte j of two int8 words -> one word of two bf16 (exact), wa's in the low
-// half, on the integer and FMA pipes only (conversion instructions run at a
-// quarter of their rate): each byte, biased to unsigned, is spliced into the
-// mantissa of 2^23 and 2^23 + 128 is subtracted, which gives the integer
-// exactly in f32; |b| <= 128 has at most 8 significant bits, so its bf16 is
-// the f32's upper half.
+// Int8 -> bf16 (exact) on the integer and FMA pipes only (conversion
+// instructions run at a quarter of their rate): each byte, biased to unsigned
+// (x ^ 0x80), is spliced into the mantissa of 2^23 and 2^23 + 128 is
+// subtracted, which gives the integer exactly in f32; |b| <= 128 has at most
+// 8 significant bits, so its bf16 is the f32's upper half.
+__device__ __forceinline__ float biased_byte_f32(uint32_t biased, int j) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u + j)) - 8388736.f;
+}
+
+// Byte j of two int8 words -> one word of two bf16, wa's in the low half.
 __device__ __forceinline__ uint32_t widen_pair(uint32_t wa, uint32_t wb, int j) {
-  const uint32_t sel = 0x7540u + j;
-  const float fa = __uint_as_float(__byte_perm(wa ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.f;
-  const float fb = __uint_as_float(__byte_perm(wb ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.f;
-  return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632u);
+  return __byte_perm(__float_as_uint(biased_byte_f32(wa ^ 0x80808080u, j)),
+                     __float_as_uint(biased_byte_f32(wb ^ 0x80808080u, j)), 0x7632u);
+}
+
+// 4 int8 (one word) -> 4 bf16 in byte order, as two words.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __float_as_uint(biased_byte_f32(u, i));
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632u), __byte_perm(f[2], f[3], 0x7632u));
+}
+
+// 8 int8 (two words) -> 8 bf16, as 16 bytes.
+__device__ __forceinline__ uint4 widen8(uint32_t w0, uint32_t w1) {
+  const uint2 a = widen4(w0), b = widen4(w1);
+  return make_uint4(a.x, a.y, b.x, b.y);
+}
+
+// One 64 x 64 int8 tile in the 64-byte swizzle (desc_kmajor_sw64's layout)
+// -> bf16 rows of 128 bytes in the 128-byte swizzle (desc_kmajor_sw128's and
+// desc_mnmajor_sw128's layout). 256 threads, one 16-byte chunk each.
+__device__ __forceinline__ void widen_tile_64x64(const uint8_t* src, uint8_t* dst, int tid) {
+  const int r = tid / 4, c = tid % 4;
+  const uint4 x = *reinterpret_cast<const uint4*>(src + r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+  *reinterpret_cast<uint4*>(dst + r * 128 + (((2 * c) ^ (r & 7)) << 4)) = widen8(x.x, x.y);
+  *reinterpret_cast<uint4*>(dst + r * 128 + (((2 * c + 1) ^ (r & 7)) << 4)) = widen8(x.z, x.w);
 }
 
 // Two biased nibbles u0, u1 (0..15, one in bits 0-7 and one in bits 16-23 of
@@ -238,6 +361,36 @@ __device__ __forceinline__ uint32_t low_nibbles(uint32_t p) {
 }
 __device__ __forceinline__ uint32_t high_nibbles(uint32_t p) {
   return ((p ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
+}
+
+// --- element helpers of the int8 attention kernels ---
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// An int32 of magnitude below 2^22 as f32, exactly, without a conversion
+// instruction: added to the bits of 1.5 * 2^23, then 1.5 * 2^23 subtracted.
+__device__ __forceinline__ float small_int_to_float(int x) {
+  return __int_as_float(x + 0x4B400000) - 12582912.f;
+}
+
+// 2^x, one MUFU.EX2 (flushes results below 2^-126 to 0: what it feeds is
+// rounded to bf16, whose normal range is f32's, or scales such a value).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_type) {
@@ -295,6 +448,27 @@ bool tensor_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, 
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over a row-major [n, rows, cols] array (rows of cols *
+// elem_bytes bytes, a multiple of 16), boxes of 1 x box_rows x box_cols: a box
+// stays inside one of the n matrices, and its rows past `rows` fill with
+// zeros.
+bool tensor_map_3d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem_bytes,
+                   int n, int rows, int cols, int box_rows, int box_cols,
+                   CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * elem_bytes;
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * rows};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

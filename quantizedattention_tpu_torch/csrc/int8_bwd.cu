@@ -6,8 +6,8 @@
 // payloads, K smoothed, and their f32 scale tables; sq per (q head, q grain),
 // sk and sv per (kv head, kv grain)):
 //   P  = exp2(Q_i8 K_i8^T * c - lse), c = (sq * sk) * qk_scale, masked to 0,
-//        in f32 (the integer logits are exact: int8 mma.sync, s8 x s8 -> s32);
-//   dV += bf16(P)^T dO                     (bf16 mma, f32 accumulation)
+//        in f32 (the integer logits are exact: s8 x s8 -> s32);
+//   dV += bf16(P)^T dO                     (bf16 products, f32 accumulation)
 //   dP  = (dO V_i8^T) * sv                 (V widened to bf16, exact)
 //   dS  = P (dP - D) * sm_scale            (f32, the unrounded P; D from the wrapper)
 //   dK += (bf16(dS)^T Q_i8) * sq           per (q head, q grain)
@@ -16,202 +16,196 @@
 // dO arrives in bf16 (as the JAX kernels' bf16 dots round it) and is not
 // pre-scaled. The TPU kernel applies sq / sk after each grain's product, so
 // a product whose scale changes with the grain runs into its own accumulator
-// (dk_seg, dq_seg), folded into the main one with that grain's scale when
-// the grain ends; no scale is folded into a bf16 operand before it rounds.
-// Masked logits (causal k <= q, keys past s) and rows past t give P = 0.
+// (dK_seg, dQ_seg), folded into the main one with that grain's scale when the
+// grain ends; no scale is folded into a bf16 operand before it rounds.
+// Masked logits (causal k <= q, keys past s) and positions past t give P = 0.
 //
-// What bounds it on this card: at training shapes (seq 2048, head_dim 64)
-// the backward is tensor-core bound: B7 runs one int8 product (S) and three
-// bf16 products (dV, dP, dK) over every visible (q, k) pair, B8 one int8 (S)
-// and two bf16 (dP, dQ), against a few tens of MB of operands. Every product
-// runs on the tensor cores and every intermediate (S, P, dP, dS) stays in
-// registers: two n-tiles of a mma.sync accumulator are exactly the A operand
-// of the next product's k-step.
+// What bounds it on this card: at (4,16,2048,64), causal, B7 runs one int8
+// product (S) and three bf16 products (dV, dP, dK) over 134 M visible pairs,
+// B8 one int8 (S) and two bf16 (dP, dQ): 0.0608 and 0.0434 ms on the tensor
+// cores, against a few tens of MB of operands. Between the products, each
+// pair takes one exponential (the SM's 16 a cycle: about 35 us a kernel at
+// that shape across the card) and about 8 FMA-pipe operations, so the
+// elementwise work is of the order of the products' and has to overlap them.
 //
-// Design (simple first), on B2/B3's (csrc/flash_bwd.cu):
-//   B7: one block of 4 warps per (batch*kv_head, 64-key tile), each warp 16
-//       keys; it loops over the rep q heads and the q tiles that can see its
-//       keys, computing the transposed tiles S^T = K Q^T and dP^T = V dO^T so
-//       that P^T and dS^T come out in the A layout of dV += P^T dO and
-//       dK += dS^T Q. The block owns its dK/dV tile (no atomics) and sums the
-//       GQA group in registers. A 64-key tile lies inside one kv grain (sk,
-//       sv constant per block) and a 64-row q tile inside one q grain.
-//   B8: one block per (batch*kv_head, q tile) whose 64 rows hold the kv
-//       head's whole GQA group (row r -> group r / bq, position q0 + r % bq,
-//       bq = 64 / rep), so sq is per row; it loops over kv tiles up to the
-//       diagonal.
-//   int8 tiles stay int8 in shared memory for the s8 mma; tiles that enter a
-//   bf16 product (V, and Q in B7, K in B8) are widened to bf16 on their way
-//   in. Transposed B operands come through ldmatrix.trans. No cp.async/TMA
-//   pipelining and no wgmma yet.
+// Design (as B5's, csrc/int8_fwd.cu): blocks of two consumer warpgroups (256
+// threads, up to 255 registers each), thread 0 issuing the TMA, every product
+// on wgmma with f32 accumulators in registers, and int8 tiles widened to bf16
+// by byte permutes and one f32 subtraction (off the conversion pipe), once a
+// tile for both warpgroups.
+//   B7: one block per (batch * kv head, 128-key tile), each warpgroup 64 keys
+//       (the tile lies inside one kv grain: sk, sv one number a block). K
+//       sits in shared memory (int8, K-major, the A of S^T = K Q^T); V is
+//       widened once into each warpgroup's bf16 A fragments (registers), the
+//       A of dP^T = V dO^T. For each q head of the GQA group and each 64-row q
+//       tile that can see the block's keys, TMA streams the int8 Q tile
+//       (64-byte swizzle) and the bf16 dO tile (128-byte swizzle, a 3-D map,
+//       so rows past t arrive as zeros) through a ring of DKV_STAGES stages;
+//       the threads load lse and D a tile ahead and widen Q into a bf16 tile.
+//       A warpgroup issues S^T (s8) with dP^T (B = dO read K-major), widens
+//       while they run, turns them into P^T and dS^T (bf16 A fragments in
+//       registers), and issues dV += P^T dO (B = the same dO tile read
+//       MN-major) with dK_seg += dS^T Q (B = the widened Q, MN-major); they
+//       run while the next tile's S^T and dP^T are issued. dK itself sums in
+//       shared memory (each thread its own slots), folded once per (q head, q
+//       grain). Masking runs only on tiles at the causal diagonal or past t
+//       or s (a warpgroup whose keys all lie past a causal tile computes it
+//       masked: a branch around its products would serialize every wgmma).
+//       Key tile 0 (the most q tiles) starts first.
+//   B8: one block per (batch * kv head, 128 rows); the rows hold the kv head's
+//       whole GQA group (row r -> q head kv_head * rep + r / bq at position q0
+//       + r % bq, bq = 128 / rep rounded down), each warpgroup 64 of them. Q
+//       sits in shared memory (int8, the A of S); dO is the bf16 A fragments
+//       of dP = dO V^T; lse, D and sq are per row in registers. TMA streams
+//       int8 K and V tiles of 64 keys through a ring of DQ_STAGES stages; the
+//       threads widen each tile a step ahead (V into the K-major B of dP, K
+//       into the MN-major B of dQ_seg += dS K). Causal blocks stop at their
+//       last visible key tile; the blocks with the most key tiles start
+//       first.
+// Each block owns its output rows: no atomics, the same bits every run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int D = 64;         // head dim
-constexpr int BM = 64;        // q rows per tile: 4 warps x 16
-constexpr int BN = 64;        // keys per tile
-constexpr int IROW = D + 16;  // padded shared row of an int8 tile (bytes)
-constexpr int SROW = D + 8;   // padded shared row of a bf16 tile (elements)
-constexpr int THREADS = 128;
+constexpr int D = 64;                // head dim (bytes of an int8 row)
+constexpr int THREADS = 256;         // two warpgroups
+constexpr int TILE = 64;             // q positions (B7) or keys (B8) a streamed tile
+constexpr int I8_TILE = TILE * D;    // bytes of an int8 tile
+constexpr int BF_TILE = 2 * I8_TILE; // bytes of a bf16 tile (rows of 128 bytes)
+constexpr int ACC = 32;              // f32 accumulator registers a thread (m64n64)
 
-__device__ __forceinline__ uint32_t ld_u32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// B7: dK, dV. Shared layout (from a 1024-byte aligned base).
+constexpr int DKV_KEYS = 128;                 // keys a block: two warpgroups of 64
+constexpr int DKV_STAGES = 4;                 // Q / dO tiles in flight
+constexpr int ROW_FLOATS = 2 * TILE + 4;      // a q tile's lse[64], D[64], sq
+constexpr int DKV_OFF_Q = DKV_KEYS * D;       // after K [128, 64] int8
+constexpr int DKV_OFF_DO = DKV_OFF_Q + DKV_STAGES * I8_TILE;
+constexpr int DKV_OFF_QW = DKV_OFF_DO + DKV_STAGES * BF_TILE;  // two widened Q tiles
+constexpr int DKV_OFF_DK = DKV_OFF_QW + 2 * BF_TILE;           // dK sums, [ACC][THREADS] f32
+constexpr int DKV_OFF_ROWS = DKV_OFF_DK + ACC * THREADS * 4;   // two row buffers
+constexpr int DKV_OFF_BAR = DKV_OFF_ROWS + 2 * ROW_FLOATS * 4;
+constexpr int DKV_SMEM = DKV_OFF_BAR + 64 + 1024;  // + slack to align the base to 1024
+
+// B8: dQ.
+constexpr int DQ_ROWS = 128;                  // rows a block: two warpgroups of 64
+constexpr int DQ_STAGES = 3;                  // int8 K / V tiles in flight
+constexpr int DQ_KW = 3;                      // widened K tiles: one ahead, one read, one draining
+constexpr int DQ_OFF_K = DQ_ROWS * D;         // after Q [128, 64] int8
+constexpr int DQ_OFF_V = DQ_OFF_K + DQ_STAGES * I8_TILE;
+constexpr int DQ_OFF_KW = DQ_OFF_V + DQ_STAGES * I8_TILE;
+constexpr int DQ_OFF_VW = DQ_OFF_KW + DQ_KW * BF_TILE;
+constexpr int DQ_OFF_BAR = DQ_OFF_VW + 2 * BF_TILE;
+constexpr int DQ_SMEM = DQ_OFF_BAR + 64 + 1024;
+
+static_assert(DKV_OFF_Q % 1024 == 0 && DKV_OFF_DO % 1024 == 0 && DKV_OFF_QW % 1024 == 0,
+              "swizzled tiles start on 1024 bytes");
+static_assert(DQ_OFF_K % 512 == 0 && DQ_OFF_V % 512 == 0 && DQ_OFF_KW % 1024 == 0 &&
+                  DQ_OFF_VW % 1024 == 0,
+              "swizzled tiles start on their swizzle atom");
+static_assert(DKV_STAGES * 8 <= 64 && DQ_STAGES * 8 <= 64, "the barriers fit");
+static_assert(DKV_OFF_BAR % 8 == 0 && DQ_OFF_BAR % 8 == 0, "mbarriers are 8-byte aligned");
+
+__device__ __forceinline__ void init_barriers(uint32_t bars, int n) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[16x8] += A[16x16] (row) * B[16x8] (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D[16x8] += A[16x32] (row) * B[32x8] (col), s8 in, s32 accumulate.
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed on the way in.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// 16 int8 -> 16 bf16 (exact: |x| <= 128), stored at dst.
-__device__ __forceinline__ void widen16(__nv_bfloat16* dst, uint4 v) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-  uint32_t w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i] = pack_bf16(static_cast<float>(b[2 * i]), static_cast<float>(b[2 * i + 1]));
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
-}
-
-// A fragments (m16 x k16, four k-steps over D) of rows ra and ra + 8 of a
-// padded bf16 tile.
-__device__ __forceinline__ void load_a_bf16(uint32_t a[D / 16][4], const __nv_bfloat16* tile,
-                                            int ra, int cq) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    a[ks][0] = ld_u32(&tile[ra * SROW + ks * 16 + cq]);
-    a[ks][1] = ld_u32(&tile[(ra + 8) * SROW + ks * 16 + cq]);
-    a[ks][2] = ld_u32(&tile[ra * SROW + ks * 16 + cq + 8]);
-    a[ks][3] = ld_u32(&tile[(ra + 8) * SROW + ks * 16 + cq + 8]);
+// n rows of a [*, 64] int8 payload -> shared, K-major with the 64-byte
+// swizzle (16-byte chunk c of row r at c ^ ((r >> 1) & 3)); `row` maps a tile
+// row to its payload row, or -1 for a zero row.
+template <class RowOf>
+__device__ __forceinline__ void stage_rows_sw64(uint8_t* dst, const int8_t* src, int n, RowOf row) {
+  for (int c = threadIdx.x; c < n * (D / 16); c += THREADS) {
+    const int r = c / (D / 16), c16 = c % (D / 16);
+    const long long at = row(r);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (at >= 0) val = *reinterpret_cast<const uint4*>(src + at * D + c16 * 16);
+    *reinterpret_cast<uint4*>(dst + r * D + ((c16 ^ ((r >> 1) & 3)) << 4)) = val;
   }
 }
 
-// A fragments (m16 x k32, two k-steps over D) of rows ra and ra + 8 of a
-// padded int8 tile.
-__device__ __forceinline__ void load_a_s8(uint32_t a[D / 32][4], const int8_t* tile, int ra,
-                                          int c4) {
+__device__ __forceinline__ void zero(float (&x)[ACC]) {
 #pragma unroll
-  for (int ks = 0; ks < D / 32; ++ks) {
-    a[ks][0] = ld_u32(&tile[ra * IROW + ks * 32 + c4]);
-    a[ks][1] = ld_u32(&tile[(ra + 8) * IROW + ks * 32 + c4]);
-    a[ks][2] = ld_u32(&tile[ra * IROW + ks * 32 + 16 + c4]);
-    a[ks][3] = ld_u32(&tile[(ra + 8) * IROW + ks * 32 + 16 + c4]);
-  }
+  for (int i = 0; i < ACC; ++i) x[i] = 0.f;
 }
 
-// acc[16 x 64] = A[16 x D] * tile^T in exact integers, tile = 64 int8 rows
-// of D (the n axis), returned as f32.
-__device__ __forceinline__ void mma_abt_s8(float acc[8][4], const uint32_t a[D / 32][4],
-                                           const int8_t* tile, int lane) {
-  const int c4 = (lane % 4) * 4;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    int acc_i[4] = {0, 0, 0, 0};
-    const int8_t* row = &tile[(nt * 8 + lane / 4) * IROW + c4];
-#pragma unroll
-    for (int ks = 0; ks < D / 32; ++ks)
-      mma_s8(acc_i, a[ks], ld_u32(row + ks * 32), ld_u32(row + ks * 32 + 16));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = static_cast<float>(acc_i[e]);
-  }
-}
-
-// acc[16 x 64] = A[16 x D] * tile^T, tile = 64 bf16 rows of D (the n axis).
-__device__ __forceinline__ void mma_abt_bf16(float acc[8][4], const uint32_t a[D / 16][4],
-                                             const __nv_bfloat16* tile, int lane) {
-  const int cq = (lane % 4) * 2;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const __nv_bfloat16* row = &tile[(nt * 8 + lane / 4) * SROW + cq];
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      mma_bf16(acc[nt], a[ks], ld_u32(row + ks * 16), ld_u32(row + ks * 16 + 8));
-  }
-}
-
-// Accumulators of a 16 x 64 tile -> bf16 A fragments of its four k-steps:
-// n-tiles (2kk, 2kk+1) of the accumulator are k-step kk of the A operand.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4][4], const float x[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    a[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(x[nt][0], x[nt][1]);
-    a[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(x[nt][2], x[nt][3]);
-  }
-}
-
-// acc[16 x D] += A[16 x 64] * tile, tile = 64 bf16 rows (the k axis) of D
-// columns, read transposed through ldmatrix.
-__device__ __forceinline__ void mma_ab(float acc[D / 8][4], const uint32_t a[4][4],
-                                       const __nv_bfloat16* tile, int lane) {
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lcol = (lane >> 4) * 8;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; dt += 2) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, &tile[(kk * 16 + lrow) * SROW + dt * 8 + lcol]);
-      mma_bf16(acc[dt], a[kk], b[0], b[1]);
-      mma_bf16(acc[dt + 1], a[kk], b[2], b[3]);
+// Which tile of the (q head, q tile) walk a B7 block is at, without
+// divisions: q tiles j0 .. n_qt - 1 of head g, then of head g + 1.
+struct QTileCursor {
+  int g, j;
+  __device__ __forceinline__ void next(int j0, int n_qt) {
+    if (++j == n_qt) {
+      j = j0;
+      ++g;
     }
   }
-}
+};
 
-__device__ __forceinline__ void zero(float x[D / 8][4]) {
+// B7's P^T and dS^T of one tile, as the bf16 A fragments of dV and dK_seg:
+// P^T = exp2(raw * c - lse_q), 0 where masked; dS^T = P^T (dP^T * sv - D_q)
+// * sm_scale with the unrounded P. st[4 n + e], dpt[4 n + e]: key key[e / 2],
+// q column 8 n + cq + (e & 1), whose lse and D are rw[col], rw[64 + col].
+// MASK: the tile reaches past t or s or the causal diagonal.
+template <bool MASK>
+__device__ __forceinline__ void dkv_p_ds(const int (&st)[ACC], const float (&dpt)[ACC],
+                                         const float* rw, float c, float sv, float sm_scale,
+                                         int q0, int cq, const int (&key)[2], int s, int t,
+                                         int causal, uint32_t (&pa)[4][4], uint32_t (&da)[4][4]) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) x[dt][0] = x[dt][1] = x[dt][2] = x[dt][3] = 0.f;
+  for (int n = 0; n < 8; ++n) {
+    const float2 l2 = *reinterpret_cast<const float2*>(rw + 8 * n + cq);
+    const float2 d2 = *reinterpret_cast<const float2*>(rw + TILE + 8 * n + cq);
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = exp2_ftz(__fmul_rn(small_int_to_float(st[4 * n + e]), c) - ((e & 1) ? l2.y : l2.x));
+      if (MASK) {
+        const int pos = q0 + 8 * n + cq + (e & 1), k = key[e / 2];
+        p[e] = k < s && pos < t && (!causal || k <= pos) ? p[e] : 0.f;
+      }
+      ds[e] = __fmul_rn(__fmul_rn(p[e], __fmul_rn(dpt[4 * n + e], sv) - ((e & 1) ? d2.y : d2.x)),
+                        sm_scale);
+    }
+    pa[n / 2][(n % 2) * 2 + 0] = as_u32(__floats2bfloat162_rn(p[0], p[1]));
+    pa[n / 2][(n % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(p[2], p[3]));
+    da[n / 2][(n % 2) * 2 + 0] = as_u32(__floats2bfloat162_rn(ds[0], ds[1]));
+    da[n / 2][(n % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(ds[2], ds[3]));
+  }
 }
 
-// 64 int8 rows row0.. of a [n_rows, D] payload into an int8 tile and, when
-// wide != nullptr, widened into a bf16 tile; rows at or past n are zero.
-__device__ __forceinline__ void load_i8_tile(int8_t* tile, __nv_bfloat16* wide,
-                                             const int8_t* src, int row0, int n) {
-  for (int c = threadIdx.x; c < 64 * (D / 16); c += THREADS) {
-    const int r = c / (D / 16);
-    const int col = (c % (D / 16)) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col);
-    if (tile) *reinterpret_cast<uint4*>(&tile[r * IROW + col]) = val;
-    if (wide) widen16(&wide[r * SROW + col], val);
+// B8's dS of one tile, as the bf16 A fragments of dQ_seg, and its row sums
+// added to rs: P = exp2(raw * c - lse), 0 where masked; dS = P (dP * sv - D)
+// * sm_scale with the unrounded P. s_acc[4 n + e], dp[4 n + e]: row e / 2,
+// key k0 + 8 n + cq + (e & 1). MASK: the tile reaches past s or the causal
+// diagonal.
+template <bool MASK>
+__device__ __forceinline__ void dq_ds(const int (&s_acc)[ACC], const float (&dp)[ACC],
+                                      const float (&c)[2], const float (&lse_r)[2],
+                                      const float (&di_r)[2], float sv, float sm_scale, int k0,
+                                      int cq, const int (&pos)[2], int s, int causal,
+                                      float (&rs)[2], uint32_t (&dsa)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e / 2;
+      float p = exp2_ftz(__fmul_rn(small_int_to_float(s_acc[4 * n + e]), c[h]) - lse_r[h]);
+      if (MASK) {
+        const int col = k0 + 8 * n + cq + (e & 1);
+        p = col < s && (!causal || col <= pos[h]) ? p : 0.f;
+      }
+      ds[e] = __fmul_rn(__fmul_rn(p, __fmul_rn(dp[4 * n + e], sv) - di_r[h]), sm_scale);
+      rs[h] += ds[e];
+    }
+    dsa[n / 2][(n % 2) * 2 + 0] = as_u32(__floats2bfloat162_rn(ds[0], ds[1]));
+    dsa[n / 2][(n % 2) * 2 + 1] = as_u32(__floats2bfloat162_rn(ds[2], ds[3]));
   }
 }
 
@@ -219,145 +213,222 @@ __device__ __forceinline__ void load_i8_tile(int8_t* tile, __nv_bfloat16* wide,
 // B7: dK, dV
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-int8_dkv_kernel(const int8_t* __restrict__ q,            // [bh_kv * rep, q_pad, D]
-                const int8_t* __restrict__ k,            // [bh_kv, kv_pad, D]
-                const int8_t* __restrict__ v,            // [bh_kv, kv_pad, D]
-                const float* __restrict__ sq,            // [bh_kv * rep, q_pad / q_grain]
-                const float* __restrict__ sk,            // [bh_kv, kv_pad / kv_grain]
-                const float* __restrict__ sv,            // [bh_kv, kv_pad / kv_grain]
-                const __nv_bfloat16* __restrict__ dout,  // [bh_kv * rep, t, D]
-                const float* __restrict__ lse,           // [bh_kv * rep, t]
-                const float* __restrict__ di,            // [bh_kv * rep, t]
-                float* __restrict__ dk,                  // [bh_kv, s, D]
-                float* __restrict__ dv,                  // [bh_kv, s, D]
-                int rep, int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain,
-                int causal, float qk_scale, float sm_scale) {
-  __shared__ __align__(16) int8_t k_s[BN * IROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BN * SROW];
-  __shared__ __align__(16) int8_t q_s[BM * IROW];
-  __shared__ __align__(16) __nv_bfloat16 qw_s[BM * SROW];
-  __shared__ __align__(16) __nv_bfloat16 do_s[BM * SROW];
-  __shared__ float lse_s[BM];
-  __shared__ float di_s[BM];
+__global__ void __launch_bounds__(THREADS, 1)
+int8_dkv_kernel(const __grid_constant__ CUtensorMap q_map,   // [bh_kv * rep * q_pad, 64] int8
+                const __grid_constant__ CUtensorMap do_map,  // [bh_kv * rep, t, 64] bf16
+                const int8_t* __restrict__ k,                // [bh_kv, kv_pad, D]
+                const int8_t* __restrict__ v,                // [bh_kv, kv_pad, D]
+                const float* __restrict__ sq,                // [bh_kv * rep, nq]
+                const float* __restrict__ sk,                // [bh_kv, nk]
+                const float* __restrict__ sv,                // [bh_kv, nk]
+                const float* __restrict__ lse,               // [bh_kv * rep, t]
+                const float* __restrict__ di,                // [bh_kv * rep, t]
+                float* __restrict__ dk,                      // [bh_kv, s, D]
+                float* __restrict__ dv,                      // [bh_kv, s, D]
+                int rep, int t, int s, int q_pad, int kv_pad, int nq, int nk, int q_grain,
+                int kv_grain, int causal, float qk_scale, float sm_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + DKV_OFF_BAR;
+  auto full = [&](int st) { return bars + 8 * st; };
+  float* rows_s = reinterpret_cast<float*>(smem + DKV_OFF_ROWS);
+  float* dk_s = reinterpret_cast<float*>(smem + DKV_OFF_DK);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * DKV_KEYS;  // key tile 0, which sees the most q tiles, first
+  const int n_qt = (t + TILE - 1) / TILE;
+  // Causal: q tiles wholly before the key tile see none of its keys.
+  const int j0 = causal ? min(k0 / TILE, n_qt) : 0;
+  const int per_head = n_qt - j0;
+  const int n_tiles = rep * per_head;  // tile i: q head i / per_head, q tile j0 + i % per_head
+
+  init_barriers(bars, DKV_STAGES);
+
+  // Thread 0 fills the ring: tiles 0 .. DKV_STAGES - 1 now, tile i - 2 +
+  // DKV_STAGES at the start of tile i, into the stage of tile i - 2, whose
+  // last reader (tile i - 2's dV product) every thread waited for before the
+  // barrier that ended tile i - 1.
+  QTileCursor at_load = {0, j0};  // the next tile to load
+  auto load_tile = [&](int i) {
+    if (tid == 0 && i < n_tiles) {
+      const int head = static_cast<int>(bh) * rep + at_load.g;
+      const int q0 = at_load.j * TILE;
+      const int st = i % DKV_STAGES;
+      mbar_expect_tx(full(st), I8_TILE + BF_TILE);
+      tma_load_2d(base + DKV_OFF_Q + st * I8_TILE, &q_map, full(st), 0, head * q_pad + q0);
+      tma_load_3d(base + DKV_OFF_DO + st * BF_TILE, &do_map, full(st), 0, q0, head);
+      at_load.next(j0, n_qt);
+    }
+  };
+  for (int i = 0; i < DKV_STAGES; ++i) load_tile(i);
+
+  // The next tile's lse and D (threads 0-63, 64-127; 0 past t) and sq
+  // (thread 128), loaded into registers a tile ahead and stored into row
+  // buffer i % 2.
+  const int q_tiles_per_grain = q_grain / TILE;
+  QTileCursor at_rows = {0, j0};
+  auto fetch_rows = [&](int i) {
+    float x = 0.f;
+    if (i < n_tiles && tid <= 2 * TILE) {
+      const size_t head = bh * rep + at_rows.g;
+      const int q0 = at_rows.j * TILE;
+      if (tid == 2 * TILE) {
+        x = sq[head * nq + at_rows.j / q_tiles_per_grain];
+      } else {
+        const int pos = q0 + tid % TILE;
+        if (pos < t) x = (tid < TILE ? lse : di)[head * t + pos];
+      }
+    }
+    at_rows.next(j0, n_qt);
+    return x;
+  };
+  auto store_rows = [&](int i, float x) {
+    if (tid <= 2 * TILE) rows_s[(i % 2) * ROW_FLOATS + tid] = x;
+  };
+
+  // The block's K rows (past s: payload padding, which P masks) and tile 0's
+  // rows; dK's sums start at 0 (each thread owns its ACC slots).
+  stage_rows_sw64(smem, k, DKV_KEYS, [&](int r) { return static_cast<long long>(bh * kv_pad + k0 + r); });
+  store_rows(0, fetch_rows(0));
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) dk_s[e * THREADS + tid] = 0.f;
+  fence_proxy_async();
+  named_barrier(1, THREADS);
+
+  // The consumer warpgroups: wg owns keys k0 + 64 wg .. k0 + 64 wg + 63.
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int cq = (lane % 4) * 2;
-  const int c4 = (lane % 4) * 4;
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * BN;
-  const int nq = q_pad / q_grain;
-  const int nk = kv_pad / kv_grain;
-
-  // rows past s hold the padded payload (k0 + 64 <= kv_pad); P masks them
-  load_i8_tile(k_s, nullptr, k + bh * kv_pad * D, k0, kv_pad);
-  load_i8_tile(nullptr, v_s, v + bh * kv_pad * D, k0, kv_pad);
-  __syncthreads();
-
-  // This warp's 16 keys as the A operand of S^T = K Q^T (int8).
-  const int ra = warp * 16 + lane / 4;
-  uint32_t ka[D / 32][4];
-  load_a_s8(ka, k_s, ra, c4);
-  const int key[2] = {k0 + ra, k0 + ra + 8};
+  const int cq = (lane % 4) * 2;                     // accumulator column pair
+  const int kw0 = k0 + 64 * wg;                      // the warpgroup's first key
+  const int kr = 64 * wg + 16 * warp + lane / 4;     // this thread's rows kr, kr + 8
+  const int key[2] = {k0 + kr, k0 + kr + 8};
   const float sk_b = sk[bh * nk + k0 / kv_grain];
   const float sv_b = sv[bh * nk + k0 / kv_grain];
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4], dk_seg[D / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  zero(dk_seg);
-
-  // Causal: q tiles wholly before the key tile see none of its keys.
-  const int j0 = causal ? k0 / BM : 0;
-  const int n_qt = (t + BM - 1) / BM;
-  for (int g = 0; g < rep; ++g) {
-    const size_t head = bh * rep + g;
-    for (int j = j0; j < n_qt; ++j) {
-      const int q0 = j * BM;
-      __syncthreads();  // every warp is done with the previous q tile
-      load_i8_tile(q_s, qw_s, q + head * q_pad * D, q0, t);
-      for (int c = tid; c < BM * (D / 8); c += THREADS) {
-        const int r = c / (D / 8);
-        const int col = (c % (D / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (q0 + r < t)
-          val = *reinterpret_cast<const uint4*>(dout + (head * t + q0 + r) * D + col);
-        *reinterpret_cast<uint4*>(&do_s[r * SROW + col]) = val;
-      }
-      if (tid < BM) {
-        const bool live = q0 + tid < t;
-        lse_s[tid] = live ? lse[head * t + q0 + tid] : 0.f;
-        di_s[tid] = live ? di[head * t + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      // the tile lies in one q grain: c = (sq * sk) * qk_scale is one number
-      const float sq_t = sq[head * nq + q0 / q_grain];
-      const float c = __fmul_rn(__fmul_rn(sq_t, sk_b), qk_scale);
-
-      // P^T = exp2(raw * c - lse_q): 16 keys x 64 q positions, 0 where masked.
-      float pt[8][4];
-      mma_abt_s8(pt, ka, q_s, lane);
+  // V rows kr, kr + 8 as the A fragments of dP^T = V dO^T (k-step kk: head
+  // dims 16 kk + cq, + 1 and 16 kk + 8 + cq, + 1), widened once.
+  uint32_t va[4][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+  for (int h = 0; h < 2; ++h) {
+    const int8_t* row = v + (bh * kv_pad + key[h]) * D + 4 * ((lane % 4) / 2);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + cq + (e & 1);
-          const int pos = q0 + col;
-          const int kk = key[e / 2];
-          const bool valid = kk < s && pos < t && (!causal || kk <= pos);
-          pt[nt][e] = valid ? exp2f(__fmul_rn(pt[nt][e], c) - lse_s[col]) : 0.f;
-        }
-      }
-      uint32_t fa[4][4];
-      acc_to_a(fa, pt);
-      mma_ab(dv_acc, fa, do_s, lane);  // dV += bf16(P^T) dO
-
-      // dS^T = P^T ((V dO^T) * sv - D_q) * sm_scale, with the unrounded P.
-      float dst[8][4];
-      {
-        uint32_t va[D / 16][4];
-        load_a_bf16(va, v_s, ra, cq);
-        mma_abt_bf16(dst, va, do_s, lane);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float dp = __fmul_rn(dst[nt][e], sv_b);
-          dst[nt][e] =
-              __fmul_rn(__fmul_rn(pt[nt][e], dp - di_s[nt * 8 + cq + (e & 1)]), sm_scale);
-        }
-      }
-      acc_to_a(fa, dst);
-      mma_ab(dk_seg, fa, qw_s, lane);  // dK_seg += bf16(dS^T) Q_i8
-
-      // the (q head, q grain) segment ends: dK += dK_seg * sq
-      if (j + 1 == n_qt || ((j + 1) * BM) % q_grain == 0) {
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dk_acc[dt][e] = __fadd_rn(dk_acc[dt][e], __fmul_rn(dk_seg[dt][e], sq_t));
-            dk_seg[dt][e] = 0.f;
-          }
-        }
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint2 lo = widen4(*reinterpret_cast<const uint32_t*>(row + 16 * kk));
+      const uint2 hi = widen4(*reinterpret_cast<const uint32_t*>(row + 16 * kk + 8));
+      va[kk][h] = (lane & 1) ? lo.y : lo.x;
+      va[kk][2 + h] = (lane & 1) ? hi.y : hi.x;
     }
   }
+
+  const uint64_t desc_k = desc_kmajor_sw64(base + 64 * wg * D);
+  float dv_acc[ACC], dk_seg[ACC], dpt[ACC];
+  int st_acc[ACC];
+  uint32_t pa[4][4] = {}, da[4][4] = {};  // bf16 P^T and dS^T: the A of dV and dK_seg
+  zero(dv_acc);
+  zero(dk_seg);
+  zero(dpt);
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) st_acc[e] = 0;
+  bool fold = false;  // a segment ended with the last tile: fold dK_seg once it is done
+  float sq_fold = 0.f;
+  auto fold_dk = [&]() {
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) {
+      float& sum = dk_s[e * THREADS + tid];
+      sum = __fadd_rn(sum, __fmul_rn(dk_seg[e], sq_fold));
+      dk_seg[e] = 0.f;
+    }
+  };
+
+  int j = j0;  // tile i's q tile
+  int seg = j0 % q_tiles_per_grain;  // its place in the q grain
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % DKV_STAGES;
+    if (i >= 2) load_tile(i - 2 + DKV_STAGES);
+    const float next_rows = fetch_rows(i + 1);
+    const int q0 = j * TILE;
+    mbar_wait(full(st), (i / DKV_STAGES) & 1);
+    {  // S^T = K Q^T (s8) and dP^T = V dO^T (bf16, B = dO K-major)
+      const uint64_t desc_q = desc_kmajor_sw64(base + DKV_OFF_Q + st * I8_TILE);
+      const uint64_t desc_do = desc_kmajor_sw128(base + DKV_OFF_DO + st * BF_TILE);
+      wgmma_fence();
+      wgmma_s8_m64n64k32(st_acc, desc_k, desc_q, 0);
+      wgmma_s8_m64n64k32(st_acc, desc_k + 2, desc_q + 2, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16_m64n64k16_rs<B_KMAJOR>(dpt, va[kk], desc_do + 2 * kk, kk > 0);
+      wgmma_commit();
+    }
+    widen_tile_64x64(smem + DKV_OFF_Q + st * I8_TILE, smem + DKV_OFF_QW + (i % 2) * BF_TILE, tid);
+    store_rows(i + 1, next_rows);
+    wgmma_wait<0>();  // this tile's S^T, dP^T and the last tile's dV, dK_seg are done
+    reg_fence(st_acc);
+    reg_fence(dpt);
+    reg_fence(pa);
+    reg_fence(da);
+    reg_fence(dv_acc);
+    reg_fence(dk_seg);
+    if (fold) {
+      fold_dk();
+      fold = false;
+    }
+    const float* rw = rows_s + (i % 2) * ROW_FLOATS;
+    const float sq_t = rw[2 * TILE];
+    // the tile lies in one q grain: c = (sq * sk) * qk_scale is one number
+    const float c = __fmul_rn(__fmul_rn(sq_t, sk_b), qk_scale);
+    // masking only where the tile reaches past t or s or the diagonal (a
+    // warpgroup whose keys all lie past a causal tile gets P = 0)
+    if (q0 + TILE > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))
+      dkv_p_ds<true>(st_acc, dpt, rw, c, sv_b, sm_scale, q0, cq, key, s, t, causal, pa, da);
+    else
+      dkv_p_ds<false>(st_acc, dpt, rw, c, sv_b, sm_scale, q0, cq, key, s, t, causal, pa, da);
+    fence_proxy_async();  // the widened Q tile, for wgmma
+    named_barrier(1, THREADS);
+    {  // dV += P^T dO, dK_seg += dS^T Q (both B MN-major)
+      const uint64_t desc_dot = desc_mnmajor_sw128(base + DKV_OFF_DO + st * BF_TILE);
+      const uint64_t desc_qw = desc_mnmajor_sw128(base + DKV_OFF_QW + (i % 2) * BF_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, pa[kk], desc_dot + 128 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_seg, da[kk], desc_qw + 128 * kk, 1);
+      wgmma_commit();
+    }
+    // the (q head, q grain) segment ends with this tile: dK += dK_seg * sq
+    ++seg;
+    if (j + 1 == n_qt || seg == q_tiles_per_grain) {
+      fold = true;
+      sq_fold = sq_t;
+    }
+    if (seg == q_tiles_per_grain) seg = 0;
+    if (++j == n_qt) {
+      j = j0;
+      seg = j0 % q_tiles_per_grain;
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(dv_acc);
+  reg_fence(dk_seg);
+  reg_fence(pa);
+  reg_fence(da);
+  if (fold) fold_dk();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= s) continue;
     const size_t off = (bh * s + key[h]) * D + cq;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<float2*>(dk + off + dt * 8) =
-          make_float2(dk_acc[dt][2 * h], dk_acc[dt][2 * h + 1]);
-      *reinterpret_cast<float2*>(dv + off + dt * 8) =
-          make_float2(dv_acc[dt][2 * h], dv_acc[dt][2 * h + 1]);
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + off + 8 * n) =
+          make_float2(dk_s[(4 * n + 2 * h) * THREADS + tid], dk_s[(4 * n + 2 * h + 1) * THREADS + tid]);
+      *reinterpret_cast<float2*>(dv + off + 8 * n) =
+          make_float2(dv_acc[4 * n + 2 * h], dv_acc[4 * n + 2 * h + 1]);
     }
   }
 }
@@ -366,146 +437,194 @@ int8_dkv_kernel(const int8_t* __restrict__ q,            // [bh_kv * rep, q_pad,
 // B8: dQ
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-int8_dq_kernel(const int8_t* __restrict__ q,            // [bh_kv * rep, q_pad, D]
-               const int8_t* __restrict__ k,            // [bh_kv, kv_pad, D]
-               const int8_t* __restrict__ v,            // [bh_kv, kv_pad, D]
-               const float* __restrict__ sq,            // [bh_kv * rep, q_pad / q_grain]
-               const float* __restrict__ sk,            // [bh_kv, kv_pad / kv_grain]
-               const float* __restrict__ sv,            // [bh_kv, kv_pad / kv_grain]
-               const __nv_bfloat16* __restrict__ dout,  // [bh_kv * rep, t, D]
-               const float* __restrict__ lse,           // [bh_kv * rep, t]
-               const float* __restrict__ di,            // [bh_kv * rep, t]
-               const float* __restrict__ k_mean,        // [bh_kv, D]
-               float* __restrict__ dq,                  // [bh_kv * rep, t, D]
-               int rep, int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain,
-               int bq, int causal, float qk_scale, float sm_scale) {
-  __shared__ __align__(16) int8_t q_s[BM * IROW];
-  __shared__ __align__(16) __nv_bfloat16 do_s[BM * SROW];
-  __shared__ __align__(16) int8_t k_s[BN * IROW];
-  __shared__ __align__(16) __nv_bfloat16 kw_s[BN * SROW];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BN * SROW];
+__global__ void __launch_bounds__(THREADS, 1)
+int8_dq_kernel(const __grid_constant__ CUtensorMap k_map,  // [bh_kv * kv_pad, 64] int8
+               const __grid_constant__ CUtensorMap v_map,  // [bh_kv * kv_pad, 64] int8
+               const int8_t* __restrict__ q,               // [bh_kv * rep, q_pad, D]
+               const float* __restrict__ sq,               // [bh_kv * rep, nq]
+               const float* __restrict__ sk,               // [bh_kv, nk]
+               const float* __restrict__ sv,               // [bh_kv, nk]
+               const __nv_bfloat16* __restrict__ dout,     // [bh_kv * rep, t, D]
+               const float* __restrict__ lse,              // [bh_kv * rep, t]
+               const float* __restrict__ di,               // [bh_kv * rep, t]
+               const float* __restrict__ k_mean,           // [bh_kv, D]
+               float* __restrict__ dq,                     // [bh_kv * rep, t, D]
+               int rep, int t, int s, int q_pad, int kv_pad, int nq, int nk, int q_grain,
+               int kv_grain, int bq, int causal, float qk_scale, float sm_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + DQ_OFF_BAR;
+  auto full = [&](int st) { return bars + 8 * st; };
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const size_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;  // the last rows (the most key tiles) first
+  // Causal: keys past the block's last query position (below t) are never
+  // visible.
+  const int kv_hi = causal ? min(s, min(t, q0 + bq)) : s;
+  const int n_tiles = (kv_hi + TILE - 1) / TILE;
+
+  init_barriers(bars, DQ_STAGES);
+
+  // Thread 0 fills the K/V ring: tiles 0 .. DQ_STAGES - 1 now, tile j - 1 +
+  // DQ_STAGES at the start of tile j, into the stage of tile j - 1, whose
+  // readers (its widening and S) every thread finished before the barrier
+  // that ended tile j - 1.
+  auto load_kv = [&](int j) {
+    if (tid == 0 && j < n_tiles) {
+      const int st = j % DQ_STAGES;
+      mbar_expect_tx(full(st), 2 * I8_TILE);
+      const int row = static_cast<int>(bh) * kv_pad + j * TILE;
+      tma_load_2d(base + DQ_OFF_K + st * I8_TILE, &k_map, full(st), 0, row);
+      tma_load_2d(base + DQ_OFF_V + st * I8_TILE, &v_map, full(st), 0, row);
+    }
+  };
+  for (int j = 0; j < DQ_STAGES; ++j) load_kv(j);
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int cq = (lane % 4) * 2;
-  const int c4 = (lane % 4) * 4;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * bq;
-  const int rows = rep * bq;  // live rows of the block (<= BM)
-  const int nq = q_pad / q_grain;
-  const int nk = kv_pad / kv_grain;
+  const int rows = rep * bq;  // live rows of the block (<= DQ_ROWS)
 
-  // Q (int8) and dO (bf16) rows of the whole GQA group -> shared (zeros for
-  // dead rows and positions past t).
-  for (int c = tid; c < BM * (D / 16); c += THREADS) {
-    const int r = c / (D / 16);
-    const int col = (c % (D / 16)) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && q0 + r % bq < t)
-      val = *reinterpret_cast<const uint4*>(
-          q + ((bh * rep + r / bq) * q_pad + q0 + r % bq) * D + col);
-    *reinterpret_cast<uint4*>(&q_s[r * IROW + col]) = val;
-  }
-  for (int c = tid; c < BM * (D / 8); c += THREADS) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && q0 + r % bq < t)
-      val = *reinterpret_cast<const uint4*>(
-          dout + ((bh * rep + r / bq) * t + q0 + r % bq) * D + col);
-    *reinterpret_cast<uint4*>(&do_s[r * SROW + col]) = val;
-  }
-  __syncthreads();
+  // Q rows of the whole GQA group -> shared (zeros for dead rows and
+  // positions past t).
+  stage_rows_sw64(smem, q, DQ_ROWS, [&](int r) {
+    const int p = q0 + r % bq;
+    return r < rows && p < t ? static_cast<long long>((bh * rep + r / bq) * q_pad + p) : -1ll;
+  });
 
-  // This thread's two rows (fragment rows lane/4 and lane/4 + 8 of its warp).
-  const int ra = warp * 16 + lane / 4;
+  // This thread's two rows (accumulator rows lane/4 and lane/4 + 8 of its
+  // warp). A dead row has Q = dO = 0, lse = D = 0: its P is 1 and its dS 0.
+  const int ra = wg * 64 + warp * 16 + lane / 4;
   bool live[2];
   int pos[2];
   float lse_r[2], di_r[2], sq_r[2];
+  uint32_t doa[4][4];  // dO rows as the A fragments of dP = dO V^T
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
     pos[h] = q0 + r % bq;
     live[h] = r < rows && pos[h] < t;
-    const size_t head = bh * rep + r / bq;
-    lse_r[h] = live[h] ? lse[head * t + pos[h]] : 0.f;
-    di_r[h] = live[h] ? di[head * t + pos[h]] : 0.f;
-    sq_r[h] = live[h] ? sq[head * nq + pos[h] / q_grain] : 1.f;
+    const size_t row = (bh * rep + r / bq) * t + pos[h];
+    lse_r[h] = live[h] ? lse[row] : 0.f;
+    di_r[h] = live[h] ? di[row] : 0.f;
+    sq_r[h] = live[h] ? sq[(bh * rep + r / bq) * nq + pos[h] / q_grain] : 1.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(dout + row * D + 16 * kk + cq);
+      doa[kk][h] = live[h] ? src[0] : 0u;
+      doa[kk][2 + h] = live[h] ? src[4] : 0u;  // head dims + 8
+    }
   }
-  uint32_t qa[D / 32][4], doa[D / 16][4];
-  load_a_s8(qa, q_s, ra, c4);
-  load_a_bf16(doa, do_s, ra, cq);
 
-  float dq_acc[D / 8][4], dq_seg[D / 8][4];
+  // Tile 0's K and V, widened before the loop.
+  mbar_wait(full(0), 0);
+  widen_tile_64x64(smem + DQ_OFF_K, smem + DQ_OFF_KW, tid);
+  widen_tile_64x64(smem + DQ_OFF_V, smem + DQ_OFF_VW, tid);
+  fence_proxy_async();
+  named_barrier(1, THREADS);
+
+  const uint64_t desc_q = desc_kmajor_sw64(base + wg * 64 * D);
+  float dq_acc[ACC], dq_seg[ACC], dp[ACC];
+  int s_acc[ACC];
+  uint32_t dsa[4][4] = {};  // bf16 dS: the A of dQ_seg
   zero(dq_acc);
   zero(dq_seg);
   float rs[2] = {0.f, 0.f};  // this thread's part of rowsum(dS) over the grain
+  bool fold = false;
+  float sk_fold = 0.f;
+  // the kv grain ended: dQ += dQ_seg * sk + rowsum(dS) * k_mean
+  auto fold_dq = [&]() {
+    const float rsum[2] = {quad_sum(rs[0]), quad_sum(rs[1])};
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float2 km = *reinterpret_cast<const float2*>(k_mean + bh * D + 8 * n + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float term = __fadd_rn(__fmul_rn(dq_seg[4 * n + e], sk_fold),
+                                     __fmul_rn(rsum[e / 2], (e & 1) ? km.y : km.x));
+        dq_acc[4 * n + e] = __fadd_rn(dq_acc[4 * n + e], term);
+        dq_seg[4 * n + e] = 0.f;
+      }
+    }
+    rs[0] = rs[1] = 0.f;
+  };
 
-  // Causal: keys past the block's last query position are never visible.
-  const int kv_hi = causal ? min(s, q0 + bq) : s;
-  const int n_tiles = (kv_hi + BN - 1) / BN;
+  const int kv_tiles_per_grain = kv_grain / TILE;
+  int grain = 0, seg = 0;  // tile j's kv grain and its place in it
+  float sk_t = sk[bh * nk], sv_t = sv[bh * nk];
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_i8_tile(k_s, kw_s, k + bh * kv_pad * D, k0, kv_pad);
-    load_i8_tile(nullptr, v_s, v + bh * kv_pad * D, k0, kv_pad);
-    __syncthreads();
-
-    const float sk_t = sk[bh * nk + k0 / kv_grain];
-    const float sv_t = sv[bh * nk + k0 / kv_grain];
+    const int st = j % DQ_STAGES;
+    if (j >= 1) load_kv(j - 1 + DQ_STAGES);
+    const int k0 = j * TILE;
+    {  // S = Q K^T (s8) and dP = dO V^T (bf16, B = the widened V, K-major)
+      const uint64_t desc_k = desc_kmajor_sw64(base + DQ_OFF_K + st * I8_TILE);
+      const uint64_t desc_v = desc_kmajor_sw128(base + DQ_OFF_VW + (j % 2) * BF_TILE);
+      wgmma_fence();
+      wgmma_s8_m64n64k32(s_acc, desc_q, desc_k, 0);
+      wgmma_s8_m64n64k32(s_acc, desc_q + 2, desc_k + 2, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16_m64n64k16_rs<B_KMAJOR>(dp, doa[kk], desc_v + 2 * kk, kk > 0);
+      wgmma_commit();
+    }
+    if (j + 1 < n_tiles) {  // the next tile's K and V, widened while these run
+      const int sn = (j + 1) % DQ_STAGES;
+      mbar_wait(full(sn), ((j + 1) / DQ_STAGES) & 1);
+      widen_tile_64x64(smem + DQ_OFF_K + sn * I8_TILE,
+                       smem + DQ_OFF_KW + ((j + 1) % DQ_KW) * BF_TILE, tid);
+      widen_tile_64x64(smem + DQ_OFF_V + sn * I8_TILE, smem + DQ_OFF_VW + ((j + 1) % 2) * BF_TILE,
+                       tid);
+    }
+    wgmma_wait<0>();  // this tile's S, dP and the last tile's dQ_seg are done
+    reg_fence(s_acc);
+    reg_fence(dp);
+    reg_fence(dq_seg);
+    reg_fence(dsa);
+    if (fold) {
+      fold_dq();
+      fold = false;
+    }
     float c[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) c[h] = __fmul_rn(__fmul_rn(sq_r[h], sk_t), qk_scale);
-
-    // P = exp2(raw * c - lse), 0 where masked.
-    float p[8][4];
-    mma_abt_s8(p, qa, k_s, lane);
+    // the next tile's scales, loaded while no product is in flight
+    const int next_grain = grain + (seg + 1 == kv_tiles_per_grain);
+    const float sk_next = sk[bh * nk + min(next_grain, nk - 1)];
+    const float sv_next = sv[bh * nk + min(next_grain, nk - 1)];
+    // masking only where the tile reaches past s or the diagonal
+    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0))
+      dq_ds<true>(s_acc, dp, c, lse_r, di_r, sv_t, sm_scale, k0, cq, pos, s, causal, rs, dsa);
+    else
+      dq_ds<false>(s_acc, dp, c, lse_r, di_r, sv_t, sm_scale, k0, cq, pos, s, causal, rs, dsa);
+    fence_proxy_async();  // the next tile's widened K and V, for wgmma
+    named_barrier(1, THREADS);
+    {  // dQ_seg += dS K (B = the widened K, MN-major)
+      const uint64_t desc_kw = desc_mnmajor_sw128(base + DQ_OFF_KW + (j % DQ_KW) * BF_TILE);
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        const bool valid = live[h] && col < s && (!causal || col <= pos[h]);
-        p[nt][e] = valid ? exp2f(__fmul_rn(p[nt][e], c[h]) - lse_r[h]) : 0.f;
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_seg, dsa[kk], desc_kw + 128 * kk, 1);
+      wgmma_commit();
     }
-    // dS = P ((dO V^T) * sv - D) * sm_scale, with the unrounded P.
-    float ds[8][4];
-    mma_abt_bf16(ds, doa, v_s, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const float dp = __fmul_rn(ds[nt][e], sv_t);
-        ds[nt][e] = __fmul_rn(__fmul_rn(p[nt][e], dp - di_r[h]), sm_scale);
-        rs[h] += ds[nt][e];
-      }
+    if (++seg == kv_tiles_per_grain || j + 1 == n_tiles) {
+      fold = true;
+      sk_fold = sk_t;
     }
-    uint32_t fa[4][4];
-    acc_to_a(fa, ds);
-    mma_ab(dq_seg, fa, kw_s, lane);  // dQ_seg += bf16(dS) K_i8
-
-    // the kv grain ends: dQ += dQ_seg * sk + rowsum(dS) * k_mean
-    if (j + 1 == n_tiles || ((j + 1) * BN) % kv_grain == 0) {
-      const float rsum[2] = {quad_sum(rs[0]), quad_sum(rs[1])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const float2 km = *reinterpret_cast<const float2*>(k_mean + bh * D + dt * 8 + cq);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float term = __fadd_rn(__fmul_rn(dq_seg[dt][e], sk_t),
-                                       __fmul_rn(rsum[e / 2], (e & 1) ? km.y : km.x));
-          dq_acc[dt][e] = __fadd_rn(dq_acc[dt][e], term);
-          dq_seg[dt][e] = 0.f;
-        }
-      }
-      rs[0] = rs[1] = 0.f;
+    if (seg == kv_tiles_per_grain) {
+      seg = 0;
+      ++grain;
     }
+    sk_t = sk_next;
+    sv_t = sv_next;
   }
+  wgmma_wait<0>();
+  reg_fence(dq_seg);
+  reg_fence(dsa);
+  if (fold) fold_dq();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -513,13 +632,36 @@ int8_dq_kernel(const int8_t* __restrict__ q,            // [bh_kv * rep, q_pad, 
     const int r = ra + 8 * h;
     const size_t off = ((bh * rep + r / bq) * t + pos[h]) * D + cq;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<float2*>(dq + off + dt * 8) =
-          make_float2(dq_acc[dt][2 * h], dq_acc[dt][2 * h + 1]);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dq + off + 8 * n) =
+          make_float2(dq_acc[4 * n + 2 * h], dq_acc[4 * n + 2 * h + 1]);
   }
 }
 
+// Raise a kernel's dynamic shared memory limit once.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// What both kernels take (ops/int8_tiling.py checks the same before a launch).
+bool bad_shape(int bh_kv, int rep, int t, int s, int q_pad, int kv_pad, int q_grain,
+               int kv_grain) {
+  return bh_kv < 1 || rep < 1 || t < 1 || s < 1 || t > q_pad || s > kv_pad || q_grain % TILE ||
+         kv_grain % DKV_KEYS || q_pad % q_grain || kv_pad % kv_grain ||
+         static_cast<long long>(bh_kv) * rep * q_pad > 0x7fffffffLL ||  // TMA row coordinates
+         static_cast<long long>(bh_kv) * kv_pad > 0x7fffffffLL;
+}
+
 }  // namespace
+
+// Shared bytes one block asks for (ops/int8_tiling.py mirrors them).
+extern "C" int qa_int8_bwd_dkv_smem_bytes() { return DKV_SMEM; }
+extern "C" int qa_int8_bwd_dq_smem_bytes() { return DQ_SMEM; }
 
 // B7: dK, dV [bh_kv, s, D] f32. q/k/v int8 payloads, sq/sk/sv f32 scale
 // tables, dout [bh_kv * rep, t, D] bf16, lse/di [bh_kv * rep, t] f32.
@@ -528,31 +670,55 @@ extern "C" int qa_int8_bwd_dkv(const void* q, const void* k, const void* v, cons
                                const void* di, void* dk, void* dv, int bh_kv, int rep, int t,
                                int s, int q_pad, int kv_pad, int q_grain, int kv_grain,
                                int causal, float qk_scale, float sm_scale, void* stream) {
-  const dim3 grid((s + BN - 1) / BN, bh_kv);
-  int8_dkv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(sq),
-      static_cast<const float*>(sk), static_cast<const float*>(sv),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), rep, t, s,
-      q_pad, kv_pad, q_grain, kv_grain, causal, qk_scale, sm_scale);
+  const int n_kt = (s + DKV_KEYS - 1) / DKV_KEYS;
+  if (bad_shape(bh_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain) || n_kt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, do_map;
+  if (!tensor_map_2d(&q_map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh_kv * rep * q_pad, D, TILE, D,
+                     CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tensor_map_3d(&do_map, dout, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, bh_kv * rep, t, D, TILE,
+                     D, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  const cudaError_t err = allow_smem(int8_dkv_kernel, DKV_SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh_kv, n_kt);
+  int8_dkv_kernel<<<grid, THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      q_map, do_map, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+      static_cast<const float*>(sq), static_cast<const float*>(sk), static_cast<const float*>(sv),
+      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dk),
+      static_cast<float*>(dv), rep, t, s, q_pad, kv_pad, q_pad / q_grain, kv_pad / kv_grain,
+      q_grain, kv_grain, causal, qk_scale, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B8: dQ [bh_kv * rep, t, D] f32, same inputs as B7 plus k_mean [bh_kv, D].
+// B8: dQ [bh_kv * rep, t, D] f32, same inputs as B7 plus k_mean [bh_kv, D];
+// bq query positions a block (rep * bq <= 128).
 extern "C" int qa_int8_bwd_dq(const void* q, const void* k, const void* v, const void* sq,
                               const void* sk, const void* sv, const void* dout, const void* lse,
                               const void* di, const void* k_mean, void* dq, int bh_kv, int rep,
                               int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain,
-                              int causal, float qk_scale, float sm_scale, void* stream) {
-  const int bq = BM / rep;
-  const dim3 grid((t + bq - 1) / bq, bh_kv);
-  int8_dq_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(sq),
+                              int bq, int causal, float qk_scale, float sm_scale, void* stream) {
+  const int n_qb = bq < 1 ? 0 : (t + bq - 1) / bq;
+  if (bad_shape(bh_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain) || bq < 1 ||
+      rep * bq > DQ_ROWS || n_qb > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap k_map, v_map;
+  if (!tensor_map_2d(&k_map, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh_kv * kv_pad, D, TILE, D,
+                     CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tensor_map_2d(&v_map, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh_kv * kv_pad, D, TILE, D,
+                     CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  const cudaError_t err = allow_smem(int8_dq_kernel, DQ_SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh_kv, n_qb);
+  int8_dq_kernel<<<grid, THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      k_map, v_map, static_cast<const int8_t*>(q), static_cast<const float*>(sq),
       static_cast<const float*>(sk), static_cast<const float*>(sv),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<const float*>(k_mean), static_cast<float*>(dq),
-      rep, t, s, q_pad, kv_pad, q_grain, kv_grain, bq, causal, qk_scale, sm_scale);
+      rep, t, s, q_pad, kv_pad, q_pad / q_grain, kv_pad / kv_grain, q_grain, kv_grain, bq, causal,
+      qk_scale, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

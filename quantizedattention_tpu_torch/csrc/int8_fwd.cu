@@ -93,41 +93,12 @@ constexpr int SMEM_BYTES = OFF_ONES + ONES_BYTES + 1024;  // + slack to align th
 static_assert(N_BARS * 8 <= 128, "the barriers fit before the ones");
 constexpr float EPS_BIAS = 1.0f / 256.0f;
 
-// Shared-memory matrix descriptors (start address, LBO, SBO in 16-byte units;
-// layout type in bits 62-63). K-major, 64-byte swizzle: rows of 64 bytes,
-// 8-row groups 512 bytes apart (Q and K of S).
-__device__ __forceinline__ uint64_t desc_kmajor_sw64(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
-}
-
-// MN-major, 128-byte swizzle: rows (keys) of 64 bf16 = 128 bytes, 8-key
-// groups 1024 bytes apart along K (V of PV).
-__device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
 // No swizzle, K-major (core matrices of 8 rows x 16 bytes, 128 bytes apart
 // along K and 256 along N): only the all-ones B of P's row sums uses it, and
 // reads 256 bytes from the start.
 __device__ __forceinline__ uint64_t desc_interleave(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
          (static_cast<uint64_t>(256 >> 4) << 32);
-}
-
-// As hopper.cuh's reg_fence, for S's and P's registers.
-template <int N>
-__device__ __forceinline__ void reg_fence(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 // d[64 x 128] (+)= A[64 x 32] B[128 x 32]^T, s8 x s8 -> s32, both from shared
@@ -159,28 +130,6 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 -> f32; A from registers (the
-// m16n8k16 A fragment of each warp's 16 rows), B from shared memory,
-// transposed (MN-major).
-__device__ __forceinline__ void wgmma_bf16_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                        uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
 // d[64 x 8] (+)= A[64 x 16] B[16 x 8], bf16 -> f32; A from registers, B
 // K-major from shared memory.
 __device__ __forceinline__ void wgmma_bf16_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],
@@ -194,52 +143,6 @@ __device__ __forceinline__ void wgmma_bf16_m64n8k16_rs(float (&d)[4], const uint
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// --- element helpers ---
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-// 4 int8 (one word) -> 4 bf16 (exact), as two words, on the integer and FMA
-// pipes only (conversion instructions run at a quarter of their rate): each
-// byte, biased to unsigned, is spliced into the mantissa of 2^23 and 2^23 +
-// 128 is subtracted, which gives the integer b exactly in f32; |b| <= 128
-// has at most 8 significant bits, so its bf16 is the f32's upper half.
-__device__ __forceinline__ uint2 widen4(uint32_t w) {
-  const uint32_t u = w ^ 0x80808080u;
-  uint32_t f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + i)) -
-                           8388736.f);
-  return make_uint2(__byte_perm(f[0], f[1], 0x7632u), __byte_perm(f[2], f[3], 0x7632u));
-}
-
-// 8 int8 (two words) -> 8 bf16 (exact), as 16 bytes.
-__device__ __forceinline__ uint4 widen8(uint32_t w0, uint32_t w1) {
-  const uint2 a = widen4(w0), b = widen4(w1);
-  return make_uint4(a.x, a.y, b.x, b.y);
-}
-
-// An int32 of magnitude below 2^22 as f32, exactly, without a conversion
-// instruction: added to the bits of 1.5 * 2^23, then 1.5 * 2^23 subtracted.
-__device__ __forceinline__ float small_int_to_float(int x) {
-  return __int_as_float(x + 0x4B400000) - 12582912.f;
-}
-
-// 2^x, one MUFU.EX2 (flushes results below 2^-126 to 0: P is rounded to
-// bf16, whose normal range is f32's).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Masks one tile's raw S (only where the tile reaches past s or past the
@@ -424,7 +327,7 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      wgmma_bf16_m64n64k16_rs(pv, pa[kk], desc_v + kk * (16 * VB_ROW >> 4), kk > 0);
+      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(pv, pa[kk], desc_v + kk * (16 * VB_ROW >> 4), kk > 0);
       wgmma_bf16_m64n8k16_rs(ls, pa[kk], desc_ones, kk > 0);
     }
     wgmma_commit();

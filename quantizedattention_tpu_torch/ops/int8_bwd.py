@@ -6,8 +6,9 @@ scale tables, K smoothed), the K-smoothing mean, O, lse and dO, and returns
 (dq, dk, dv) in f32 with dk/dv on the kv-head count. It runs two
 hand-written Hopper kernels (csrc/int8_bwd.cu) for CUDA tensors:
 
-  int8_bwd_dkv  B7, dK and dV per 64-key tile over all q tiles;
-  int8_bwd_dq   B8, dQ per q tile over all kv tiles;
+  int8_bwd_dkv  B7, dK and dV per 128-key block over the q tiles that see it;
+  int8_bwd_dq   B8, dQ per block of 128 rows (the GQA group) over the key
+                tiles it sees;
 
 and their plain PyTorch versions (`int8_bwd_dkv_plain`, `int8_bwd_dq_plain`)
 for CPU tensors. Each wrapper counts its launches (`.launches`).
@@ -33,11 +34,8 @@ import torch
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.common import qk_scales, tile_mask
 from quantizedattention_tpu_torch.ops.int8_fwd import _layout, raw_logits_and_scale
+from quantizedattention_tpu_torch.ops.int8_tiling import HEAD_DIM, bwd_grids, check_bwd_grains
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
-
-_HEAD_DIM = 64  # the kernels' compiled head dim
-_BLOCK_ROWS = 64  # rows per dQ block; the GQA group must fit in it
-_TILE = 64  # q rows / keys per kernel tile; each grain must be a multiple of it
 
 
 class Int8BwdOperands(NamedTuple):
@@ -155,21 +153,20 @@ def _kernels():
     lib = load_kernel("int8_bwd")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
-    lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
+    lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 10 + [f32, f32, ptr]
     lib.qa_int8_bwd_dkv.restype = lib.qa_int8_bwd_dq.restype = ctypes.c_int
     return lib
 
 
 def _launch_args(ops: Int8BwdOperands):
-    """Check what the kernels take; returns (device, the kernels' int args)."""
+    """Check what the kernels take (ops/int8_tiling.py's backward geometry);
+    returns (device, the kernels' shape args, bq)."""
     _, _, t, s, d = ops.dims
-    bh_kv = ops.k_i8.shape[0]
-    if d != _HEAD_DIM or ops.rep > _BLOCK_ROWS or bh_kv * ops.rep > 65535 \
-            or ops.q_grain % _TILE or ops.kv_grain % _TILE:
-        raise ValueError(f"kernels take head_dim {_HEAD_DIM}, rep <= {_BLOCK_ROWS}, b*h <= "
-                         f"65535, grains that are multiples of {_TILE}; got d={d}, "
-                         f"rep={ops.rep}, b*h={bh_kv * ops.rep}, grains {ops.q_grain}, "
-                         f"{ops.kv_grain}")
+    bh_kv, q_pad, kv_pad = ops.k_i8.shape[0], ops.q_i8.shape[1], ops.k_i8.shape[1]
+    if d != HEAD_DIM:
+        raise ValueError(f"kernels take head_dim {HEAD_DIM}; got d={d}")
+    bq, _, _ = bwd_grids(bh_kv, ops.rep, t, s, q_pad, kv_pad)
+    check_bwd_grains(ops.q_grain, ops.kv_grain, q_pad, kv_pad)
     if any(x.dtype != torch.int8 for x in (ops.q_i8, ops.k_i8, ops.v_i8)) \
             or ops.do.dtype != torch.bfloat16 \
             or any(x.dtype != torch.float32 for x in (ops.sq, ops.sk, ops.sv, ops.k_mean,
@@ -178,9 +175,8 @@ def _launch_args(ops: Int8BwdOperands):
                          "k_mean, lse and di (see int8_bwd_operands)")
     dev = require_cuda(ops.q_i8, ops.k_i8, ops.v_i8, ops.sq, ops.sk, ops.sv, ops.k_mean,
                        ops.do, ops.lse, ops.di)
-    ints = (bh_kv, ops.rep, t, s, ops.q_i8.shape[1], ops.k_i8.shape[1], ops.q_grain,
-            ops.kv_grain, int(ops.causal))
-    return dev, ints
+    ints = (bh_kv, ops.rep, t, s, q_pad, kv_pad, ops.q_grain, ops.kv_grain)
+    return dev, ints, bq
 
 
 def _inputs(ops: Int8BwdOperands):
@@ -193,13 +189,13 @@ def int8_bwd_dkv(ops: Int8BwdOperands):
     raise); CPU operands take `int8_bwd_dkv_plain`."""
     if ops.q_i8.device.type == "cpu":
         return int8_bwd_dkv_plain(ops)
-    dev, ints = _launch_args(ops)
+    dev, ints, _ = _launch_args(ops)
     s = ops.dims[3]
-    dk = torch.empty((ops.k_i8.shape[0], s, _HEAD_DIM), dtype=torch.float32, device=dev)
+    dk = torch.empty((ops.k_i8.shape[0], s, HEAD_DIM), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     status = _kernels().qa_int8_bwd_dkv(
-        *_inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints, ops.qk_scale, ops.sm_scale,
-        torch.cuda.current_stream(dev).cuda_stream,
+        *_inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints, int(ops.causal), ops.qk_scale,
+        ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_bwd_dkv")
     int8_bwd_dkv.launches += 1
@@ -211,13 +207,13 @@ def int8_bwd_dq(ops: Int8BwdOperands):
     raise); CPU operands take `int8_bwd_dq_plain`."""
     if ops.q_i8.device.type == "cpu":
         return int8_bwd_dq_plain(ops)
-    dev, ints = _launch_args(ops)
+    dev, ints, bq = _launch_args(ops)
     t = ops.dims[2]
-    dq = torch.empty((ops.k_i8.shape[0], ops.rep, t, _HEAD_DIM), dtype=torch.float32,
+    dq = torch.empty((ops.k_i8.shape[0], ops.rep, t, HEAD_DIM), dtype=torch.float32,
                      device=dev)
     status = _kernels().qa_int8_bwd_dq(
-        *_inputs(ops), ops.k_mean.data_ptr(), dq.data_ptr(), *ints, ops.qk_scale,
-        ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
+        *_inputs(ops), ops.k_mean.data_ptr(), dq.data_ptr(), *ints, bq, int(ops.causal),
+        ops.qk_scale, ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_bwd_dq")
     int8_bwd_dq.launches += 1

@@ -1,4 +1,5 @@
-"""Launch geometry of the int8 forward kernel (csrc/int8_fwd.cu), B5 and B6.
+"""Launch geometry of the int8 attention kernels: the forward (csrc/int8_fwd.cu,
+B5 and B6) and the backward (csrc/int8_bwd.cu, B7 and B8).
 
 Pure Python, so the CPU tests can hold it against the JAX package's scale
 grain. A block has BLOCK_ROWS query rows, which hold one kv head's whole GQA
@@ -11,6 +12,14 @@ grain must be a multiple of KV_TILE (the JAX grain always is: a multiple of
 widened into a ring of V_STAGES bf16 stages. The constants mirror the
 kernel's, and `shared_bytes` is held against the kernel's own count on the
 card.
+
+The backward (the second section) streams 64-token tiles through both
+kernels. B7 takes 128 keys a block (two warpgroups of 64), so a kv grain must
+be a multiple of 128 and a q grain a multiple of 64; it walks, for each q head
+of the GQA group, the 64-row q tiles from `dkv_first_q_tile` on. B8 takes
+BLOCK_ROWS rows a block, bq = `block_positions` positions of every q head of
+the group, and walks the 64-key tiles up to `dq_key_tiles`. Their shared
+bytes are held against the kernels' own counts on the card as well.
 """
 
 from __future__ import annotations
@@ -50,3 +59,76 @@ def check_grain(kv_grain: int, kv_pad: int) -> None:
     if kv_grain % KV_TILE or kv_pad % kv_grain:
         raise ValueError(f"kernel takes a kv grain that is a multiple of {KV_TILE} and divides "
                          f"the padded length; got grain {kv_grain}, padded {kv_pad}")
+
+
+# --------------------------------------------------------------------------
+# The backward, B7 (dK, dV) and B8 (dQ)
+# --------------------------------------------------------------------------
+
+BWD_TILE = 64  # q positions a B7 tile, keys a B8 tile
+DKV_KEYS = 128  # keys a B7 block: two warpgroups of 64
+DKV_STAGES = 4  # int8 Q / bf16 dO tiles in flight (B7)
+DQ_STAGES = 3  # int8 K / V tiles in flight (B8)
+DQ_WIDE_K = 3  # widened K tiles (B8): one being written, one read, one draining
+MAX_GRID_Y = 65535  # the grid's y extent: key tiles (B7) or row blocks (B8)
+MAX_TMA_ROW = 2**31 - 1  # TMA row coordinates are int32
+_ACC = 32  # f32 accumulator registers a thread
+
+
+def dkv_shared_bytes() -> int:
+    """B7's dynamic shared memory: K [128, 64] int8, the ring of int8 Q and
+    bf16 dO tiles, two widened Q tiles, dK's f32 sums (32 a thread), two row
+    buffers (lse, D and sq of a q tile: 132 floats), 64 bytes of mbarriers and
+    1024 bytes to align the swizzled tiles."""
+    tile_i8 = BWD_TILE * HEAD_DIM
+    return (DKV_KEYS * HEAD_DIM + DKV_STAGES * 3 * tile_i8 + 2 * 2 * tile_i8
+            + _ACC * 256 * 4 + 2 * (2 * BWD_TILE + 4) * 4 + 64 + 1024)
+
+
+def dq_shared_bytes() -> int:
+    """B8's dynamic shared memory: Q [128, 64] int8, the ring of int8 K and V
+    tiles, the widened K and V tiles (bf16), 64 bytes of mbarriers and 1024
+    bytes of alignment."""
+    tile_i8 = BWD_TILE * HEAD_DIM
+    return (BLOCK_ROWS * HEAD_DIM + DQ_STAGES * 2 * tile_i8 + (DQ_WIDE_K + 2) * 2 * tile_i8
+            + 64 + 1024)
+
+
+def check_bwd_grains(q_grain: int, kv_grain: int, q_pad: int, kv_pad: int) -> None:
+    """Raise unless every B7 key block and B8 key tile lies inside one kv
+    grain, every q tile inside one q grain, and the grains tile the padding."""
+    if q_grain % BWD_TILE or kv_grain % DKV_KEYS or q_pad % q_grain or kv_pad % kv_grain:
+        raise ValueError(f"kernels take a q grain that is a multiple of {BWD_TILE} and a kv "
+                         f"grain that is a multiple of {DKV_KEYS}, each dividing its padded "
+                         f"length; got grains {q_grain}, {kv_grain}, padded {q_pad}, {kv_pad}")
+
+
+def dkv_first_q_tile(k0: int, t: int, causal: bool) -> int:
+    """The first q tile a B7 block at key k0 visits: causal, the tile that
+    holds position k0 (tiles before it see none of the block's keys), or
+    cdiv(t, 64) when no position reaches k0."""
+    n_qt = -(-t // BWD_TILE)
+    return min(k0 // BWD_TILE, n_qt) if causal else 0
+
+
+def dq_key_tiles(q0: int, bq: int, t: int, s: int, causal: bool) -> int:
+    """The 64-key tiles a B8 block at position q0 visits: causal, up to its
+    last position below t, min(q0 + bq, t) - 1; else all of [0, s)."""
+    kv_hi = min(s, q0 + bq, t) if causal else s
+    return -(-kv_hi // BWD_TILE)
+
+
+def bwd_grids(bh_kv: int, rep: int, t: int, s: int, q_pad: int,
+              kv_pad: int) -> tuple[int, tuple[int, int], tuple[int, int]]:
+    """(bq, B7's grid, B8's grid), each grid (x, y) = (b * h_kv, key tiles of
+    128 or row blocks of bq positions); raises where a kernel takes no launch."""
+    bq = block_positions(bh_kv, rep)
+    dkv = (bh_kv, -(-s // DKV_KEYS))
+    dq = (bh_kv, -(-t // bq))
+    if max(dkv[1], dq[1]) > MAX_GRID_Y:
+        raise ValueError(f"kernels take at most {MAX_GRID_Y} key tiles of {DKV_KEYS} and row "
+                         f"blocks of {bq}; got s={s}, t={t}")
+    if bh_kv * rep * q_pad > MAX_TMA_ROW or bh_kv * kv_pad > MAX_TMA_ROW:
+        raise ValueError(f"kernels take b*h*q_pad and b*h_kv*kv_pad below 2^31; got "
+                         f"{bh_kv * rep * q_pad}, {bh_kv * kv_pad}")
+    return bq, dkv, dq
