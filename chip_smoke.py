@@ -6,10 +6,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
-     and holds the int8 forward's and backward's and the weight matmuls'
-     shared bytes against their launch geometry (ops/int8_tiling.py,
-     ops/linear_tiling.py);
-  3. flash_fwd kernel vs its plain PyTorch version (O and lse);
+     and holds the bf16 flash forward's, the int8 forward's and backward's and
+     the weight matmuls' shared bytes against their launch geometry
+     (ops/flash_tiling.py, ops/int8_tiling.py, ops/linear_tiling.py);
+  3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
+     bf16 inputs, at the forward's cases and its tile edges (t and s off a
+     multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
+     rows with no visible key in a tile, more key tiles than ring stages);
+     each call twice for the same bits, the f32 path equal to the bf16 path
+     bit for bit on bf16-representable inputs, strided [b, t, h, d] views
+     equal to contiguous ones, and the f32 K/V prep byte-equal to
+     .to(bfloat16); then timed at the serving prefill's shape;
   4. decode kernel vs its plain version, with stale non-finite scales and
      junk payloads written past every row's length;
   5. serving at full width: the bench LM (vocab 8192, d_model 1024, 16 heads,
@@ -27,7 +34,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   7. the training shape (4, 16, 2048, 64), causal: B1, B2 and B3 (both
      modes) held against their plain versions, then timed beside them and
      beside F.scaled_dot_product_attention (a yardstick only; the port never
-     calls it);
+     calls it); B1's f32 call split into its K/V prep launch and its kernel,
+     and the call on bf16 inputs (no prep);
   8. int8 kernels: B4 (quantize, byte-equal), B5 (forward), B7 (dK/dV) and
      B8 (dQ) against their plain versions at the training shape, a ragged
      length with a large K mean, GQA rep 4, the GQA train shape (rep 2), the
@@ -223,7 +231,9 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_fp32,
     flash_attention_fwd_plain,
+    kv_to_bf16,
 )
+from quantizedattention_tpu_torch.ops.flash_tiling import shared_bytes as flash_fwd_shared_bytes
 from quantizedattention_tpu_torch.models.transformer import (
     _decode_logits,
     _verify_logits,
@@ -278,7 +288,7 @@ from quantizedattention_tpu_torch.serve import ServingEngine
 from quantizedattention_tpu_torch.utils.testing import ATOL, GRAD_MISMATCH_RATE, mismatch_report
 
 # kernel vs plain, unit-normal inputs: only the summation order and where P
-# is rounded to bf16 differ. The kernel rounds each 64-key tile's P against
+# is rounded to bf16 differ. The kernel rounds each 128-key tile's P against
 # the running max, the plain version against the row's final max, so an
 # entry can differ by up to one bf16 ulp (2^-7 relative); in a row dominated
 # by a few keys that moves l, and lse = m + log2(l) by up to log2(1 + 2^-7)
@@ -301,7 +311,7 @@ BWD_FAST_TOL, BWD_EXACT_TOL = 1e-2, 1e-4
 # H100 at the training shape). 1e-3 is the CPU tests' BWD_REL.
 INT8_BWD_TOL = 1e-3
 # lm_loss on the card vs the CPU plain path, same f32 params: the two differ
-# where B1 rounds P (per 64-key tile on the card, per row on the CPU; a few
+# where B1 rounds P (per 128-key tile on the card, per row on the CPU; a few
 # 1e-3 in O, as the flash_fwd phase shows) and in summation order. Loss and
 # gradients are smooth in O, so they move by the same order; the loss
 # averages it away.
@@ -463,13 +473,16 @@ def phase_build() -> None:
     log(f"[build] kernels + scheduler built/loaded in {secs:.1f} s")
     int8_bwd = _build.load_kernel("int8_bwd")
     for name, got, want in (
+            ("flash_fwd", _build.load_kernel("flash_fwd").qa_flash_fwd_smem_bytes(),
+             flash_fwd_shared_bytes()),
             ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
             ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes())):
         if got != want:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
-                                 f"geometry (ops/int8_tiling.py) says {want}")
+                                 f"geometry (ops/flash_tiling.py, ops/int8_tiling.py) says "
+                                 f"{want}")
     for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phase 15 makes
         half = -(-k // 256) * 128  # quantize_weight_int4's packed rows at group 128
         for name, plan in (("int8_linear", plan_int8(m, k, n)),
@@ -481,8 +494,13 @@ def phase_build() -> None:
                                      f"{plan.shared_bytes}")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # the bf16 flash forward keeps every wgmma asynchronous and spills nothing
+    bad = [line for line in _build.build_log("flash_fwd").splitlines()
+           if "serialized" in line or ("spill" in line and " 0 bytes spill stores" not in line)]
+    if bad:
+        raise AssertionError(f"flash_fwd's ptxas notes: {bad}")
 
 
 FLASH_CASES = [  # (b, h, h_kv, t, s, causal)
@@ -492,22 +510,75 @@ FLASH_CASES = [  # (b, h, h_kv, t, s, causal)
 ]
 
 
+# the bf16 forward's tile edges (phase 3 only: rep 128 is past B2/B3's fast
+# mode): t and s off a multiple of 128, causal t < s and t > s, rep 3 (rows
+# with no visible key in a causal tile: the block at position 126 sees keys
+# 128-255 only from 128 on), rep 5, 8 and 128, one token, and more key tiles
+# than the ring has stages, causal and not
+FLASH_EDGE_CASES = [
+    (1, 4, 4, 200, 330, True),
+    (1, 4, 4, 330, 200, True),
+    (1, 6, 2, 300, 300, True),
+    (1, 10, 2, 77, 201, False),
+    (1, 16, 2, 300, 300, True),
+    (1, 128, 1, 40, 300, True),
+    (1, 2, 2, 1, 1, True),
+    (1, 3, 1, 1, 1, False),
+    (1, 2, 2, 1280, 1280, False),
+]
+
+
+def _check_flash(q, k, v, causal, label) -> float:
+    """B1 against its plain version on (q, k, v) as given; a second call must
+    give the same bits. Returns max|dO|."""
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"flash_fwd gave other bits on a second call at {label}")
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=causal)
+    err_o = (o - o_p).abs().max().item()
+    err_l = (lse - lse_p).abs().max().item()
+    log(f"[flash_fwd] {label}: max|dO|={err_o:.3e} (tol {FLASH_O_TOL}) max|dlse|={err_l:.3e} "
+        f"(tol {FLASH_LSE_TOL})")
+    if not (err_o <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
+        raise AssertionError("flash_fwd kernel disagrees with its plain version")
+    return err_o
+
+
 def phase_flash(dev, gen) -> dict:
+    """B1 on f32 and on bf16 inputs at every case, each against its plain
+    version and called twice; the f32 path (in-kernel Q prep, the K/V prep
+    launch) equal bit for bit to the bf16 path on bf16-representable inputs;
+    [b, t, h, d] storage read as [b, h, t, d] equal to contiguous inputs; the
+    K/V prep byte-equal to .to(bfloat16). Then timing at the serving shape.
+    The edge cases draw from their own generator, so the later phases see the
+    inputs they saw before those cases were added."""
     worst = 0.0
-    for b, h, h_kv, t, s, causal in FLASH_CASES:
-        q = torch.randn((b, h, t, 64), generator=gen, device=dev)
-        k = torch.randn((b, h_kv, s, 64), generator=gen, device=dev)
-        v = torch.randn((b, h_kv, s, 64), generator=gen, device=dev)
-        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    edge_gen = torch.Generator(device=dev).manual_seed(11)
+    for case in FLASH_CASES + FLASH_EDGE_CASES:
+        b, h, h_kv, t, s, causal = case
+        label = f"b={b} h={h} h_kv={h_kv} t={t} s={s} causal={causal}"
+        g = gen if case in FLASH_CASES else edge_gen
+        qkv = [torch.randn((b, n, m, 64), generator=g, device=dev)
+               for n, m in ((h, t), (h_kv, s), (h_kv, s))]
+        bf = [x.to(torch.bfloat16) for x in qkv]
+        worst = max(worst, _check_flash(*qkv, causal, f"{label}, f32 in"),
+                    _check_flash(*bf, causal, f"{label}, bf16 in"))
+        o, lse = flash_attention_fwd(*bf, causal=causal)
+        o_f, lse_f = flash_attention_fwd(*(x.float() for x in bf), causal=causal)
+        strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in bf]
+        o_t, lse_t = flash_attention_fwd(*strided, causal=causal)
+        kb, vb = kv_to_bf16(*(x.transpose(1, 2).contiguous().transpose(1, 2) for x in qkv[1:]))
         torch.cuda.synchronize()
-        o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=causal)
-        err_o = (o - o_p).abs().max().item()
-        err_l = (lse - lse_p).abs().max().item()
-        log(f"[flash_fwd] b={b} h={h} h_kv={h_kv} t={t} s={s} causal={causal}: "
-            f"max|dO|={err_o:.3e} (tol {FLASH_O_TOL}) max|dlse|={err_l:.3e} (tol {FLASH_LSE_TOL})")
-        if not (err_o <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
-            raise AssertionError("flash_fwd kernel disagrees with its plain version")
-        worst = max(worst, err_o)
+        if not (torch.equal(o, o_f) and torch.equal(lse, lse_f)):
+            raise AssertionError(f"flash_fwd on f32 inputs that bf16 represents differs from "
+                                 f"the bf16 call at {label}")
+        if not (torch.equal(o, o_t) and torch.equal(lse, lse_t)):
+            raise AssertionError(f"flash_fwd on [b, t, h, d] views differs from contiguous "
+                                 f"inputs at {label}")
+        if not (torch.equal(kb, bf[1]) and torch.equal(vb, bf[2])):
+            raise AssertionError(f"kv_to_bf16 differs from .to(bfloat16) at {label}")
     # time at the serving prefill's shape: 8 prompts x 256 tokens, 16 heads
     q, k, v = (torch.randn((N_SLOTS, 16, PROMPT_LEN, 64), generator=gen, device=dev,
                            dtype=torch.bfloat16) for _ in range(3))
@@ -1380,6 +1451,19 @@ def phase_train_timing(dev, gen) -> tuple[dict, dict]:
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         torch.autograd.grad(flash_attention_bf16(*leaves, causal=True), leaves, do)
 
+    # B1's f32 call split: the K/V prep launch, and the kernel on its output
+    # (Q still f32: it is scaled and rounded in the kernel); the call on bf16
+    # inputs makes no prep launch
+    k_b, v_b = kv_to_bf16(k, v)
+    q_b = q.to(torch.bfloat16)
+    fwd = out["flash_fwd"]
+    fwd.update(prep_ms=device_ms(lambda: kv_to_bf16(k, v)),
+               kernel_ms=device_ms(lambda: flash_attention_fwd(q, k_b, v_b, causal=True)),
+               bf16_in_ms=device_ms(lambda: flash_attention_fwd(q_b, k_b, v_b, causal=True)))
+    log(f"[timing] flash_fwd at ({b},{h},{t},{d}) causal, f32 in: call {fwd['ms']:.4f} ms = K/V "
+        f"prep launch {fwd['prep_ms']:.4f} ms + kernel {fwd['kernel_ms']:.4f} ms; bf16 in "
+        f"(no prep launch) {fwd['bf16_in_ms']:.4f} ms")
+    del k_b, v_b, q_b
     sdpa_fwd_ms = device_ms(sdpa_fwd)
     sdpa_bwd_ms = _sdpa_bwd_ms(q, k, v, do)
     ours_fb_ms = eager_ms(ours_fwd_bwd)
@@ -1897,6 +1981,13 @@ def phase_int8_infer_oracle(dev, gen) -> None:
         raise AssertionError("sage_attention_int8_inference outside bench.py's gate")
 
 
+def _b1_bound_ms(q, k, v, pairs) -> float:
+    """B1's bound on bf16 inputs: both products in bf16 over the visible
+    pairs, against reading q, k, v and writing O and lse in f32."""
+    out_bytes = 4 * (q.numel() + q.numel() // q.shape[-1])
+    return bound(nbytes(q, k, v) + out_bytes, (2 * 2 * pairs * q.shape[-1], PEAK_BF16))["bound_ms"]
+
+
 def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
     """Phase 14, BASELINE config 3. The path run: sage_attention_int8_inference
     once at each sequence length on bf16 inputs, counts from 0. Then device
@@ -1931,6 +2022,7 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
              "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
              "b4_b5_ms": device_ms(lambda: int8_attention_fwd(q, k, v, True, k_sub=k_sub)),
              "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
+             "b1_bound_ms": _b1_bound_ms(q, k, v, pairs),
              **bound(nbytes(q, k, v, k_sub, o, lse), (2 * pairs * 64, PEAK_INT8),
                      (2 * pairs * 64, PEAK_BF16), (2 * (q.numel() + 2 * k.numel()), PEAK_FP32))}
         r["tflops"] = {name: flops / (r[key] * 1e-3) / 1e12 for name, key in (
@@ -1947,7 +2039,8 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
             f"{r['entry_ms']:.4f} ms), "
             f"sdpa {r['sdpa_ms']:.4f} ms ({r['tflops']['sdpa']:.1f}), B4 -> B5 "
             f"{r['b4_b5_ms']:.4f} ms ({r['tflops']['b4_b5']:.1f}), B1 {r['b1_ms']:.4f} ms "
-            f"({r['tflops']['b1']:.1f}); bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            f"({r['tflops']['b1']:.1f}); bound {r['bound_ms']:.4f} ms ({r['bound_by']}), B1's "
+            f"{r['b1_bound_ms']:.4f} ms"
             + (f"; B6 plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""))
     del inputs
     # the GQA A/B shape (bench.py:250)
@@ -1958,9 +2051,11 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
            "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True)),
            "b4_b5_ms": device_ms(lambda: int8_attention_fwd(q, k, v, True, k_sub=k_sub)),
-           "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True))}
+           "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
+           "b1_bound_ms": _b1_bound_ms(q, k, v, 4 * 16 * visible_pairs(t, t, True))}
     log(f"[timing] GQA (4,16q/4kv,{t},64) causal bf16: B6 {gqa['ms']:.4f} ms, sdpa "
-        f"{gqa['sdpa_ms']:.4f} ms, B4 -> B5 {gqa['b4_b5_ms']:.4f} ms, B1 {gqa['b1_ms']:.4f} ms")
+        f"{gqa['sdpa_ms']:.4f} ms, B4 -> B5 {gqa['b4_b5_ms']:.4f} ms, B1 {gqa['b1_ms']:.4f} ms "
+        f"(bound {gqa['b1_bound_ms']:.4f} ms)")
     out.update(library_ms=out["sdpa_ms"],
                library_call="F.scaled_dot_product_attention(is_causal=True), bf16",
                by_seq={str(t): {k: v for k, v in r.items() if k != "bound_by"}

@@ -1,16 +1,22 @@
 """Time kernels of two checkouts of the PyTorch port on one GPU, in turns:
-the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, and
-the int8 backward (B7 dK/dV, B8 dQ).
+the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, the
+int8 backward (B7 dK/dV, B8 dQ) and the corrected-bf16 flash forward (B1).
 
-    python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd]
+    python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd]
+    python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
-(both parts without a third argument). Each checkout is timed in its own
+(every part without a third argument). Each checkout is timed in its own
 process (its own package and kernel build), in the order old, new, new, old:
 the weight matmuls at chip_smoke.py's WEIGHT_SHAPES, m = 8 (decode), 40 (a
 spec verify pass) and 2048 (prefill) rows against the bench LM's (k, n); B7
 and B8 at chip_smoke.py's phase-8 timing shapes, (4, 16, 2048, 64) and GQA
-rep 4 (2, 16 q / 4 kv, 2048, 64), causal, on the forward's residuals. A time
-is the mean device time of one wrapper call, from CUDA-graph replays as in
+rep 4 (2, 16 q / 4 kv, 2048, 64), causal, on the forward's residuals; B1's
+wrapper `flash_attention_fwd`, causal, at the serving prefill (8, 16, 256,
+64) on bf16 inputs, the training shape (4, 16, 2048, 64) on f32 and on bf16
+inputs, (4, 16, {4096, 8192}, 64) bf16 and GQA rep 4 (4, 16 q / 4 kv, 4096,
+64) bf16, each call also split by torch.profiler into the B1 kernel's device
+time and the rest of the call (the wrapper's prep launches). A time is the
+mean device time of one wrapper call, from CUDA-graph replays as in
 chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
 checkouts see the same ones. Prints one JSON line a run and a summary line a
 shape (the mean of each checkout's two runs); exits non-zero without a GPU.
@@ -26,7 +32,11 @@ import sys
 MS = (8, 40, 2048)
 KN = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 8192))
 BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048))  # (b, h, h_kv, t = s), causal
-PARTS = ("weights", "int8_bwd")
+# (b, h, h_kv, t = s, input dtype), causal
+FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
+              (4, 16, 16, 2048, "bfloat16"), (4, 16, 16, 4096, "bfloat16"),
+              (4, 16, 16, 8192, "bfloat16"), (4, 16, 4, 4096, "bfloat16"))
+PARTS = ("weights", "int8_bwd", "flash_fwd")
 
 
 def _device_ms(torch, fn, calls=20, replays=10) -> float:
@@ -91,6 +101,44 @@ def _int8_bwd_rows(torch, gen, dev) -> dict:
     return rows
 
 
+def _kernel_split_ms(torch, fn, calls=20) -> tuple[float, float]:
+    """(the B1 kernel's device time, every other launch's) per `fn()` call,
+    from torch.profiler over `calls` eager calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernel = other = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            if "flash_fwd_kernel" in e.key:
+                kernel += e.self_device_time_total
+            else:
+                other += e.self_device_time_total
+    return kernel / calls / 1e3, other / calls / 1e3
+
+
+def _flash_fwd_rows(torch, gen, dev) -> dict:
+    from quantizedattention_tpu_torch.ops import flash_attention_fwd
+
+    rows = {}
+    for b, h, h_kv, t, dtype in FWD_SHAPES:
+        q, k, v = (torch.randn((b, n, t, 64), generator=gen, device=dev).to(getattr(torch, dtype))
+                   for n in (h, h_kv, h_kv))
+
+        def call():
+            return flash_attention_fwd(q, k, v, causal=True)
+
+        kernel_ms, prep_ms = _kernel_split_ms(torch, call)
+        rows[f"b={b} h={h} h_kv={h_kv} t={t} {dtype} causal"] = {
+            "call_ms": _device_ms(torch, call), "kernel_ms": kernel_ms, "prep_ms": prep_ms}
+    return rows
+
+
 def run_one(tree: str, parts) -> None:
     """Time `tree`'s kernels; print one JSON object."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -103,12 +151,14 @@ def run_one(tree: str, parts) -> None:
         rows.update(_weight_rows(torch, gen, dev))
     if "int8_bwd" in parts:
         rows.update(_int8_bwd_rows(torch, gen, dev))
+    if "flash_fwd" in parts:
+        rows.update(_flash_fwd_rows(torch, gen, dev))
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
 
 
 def main() -> None:
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        run_one(sys.argv[2], sys.argv[3:])
+        run_one(sys.argv[2], sys.argv[3:] or list(PARTS))
         return
     parts = sys.argv[3:] or list(PARTS)
     if len(sys.argv) < 3 or set(parts) - set(PARTS):

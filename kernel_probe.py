@@ -1,8 +1,10 @@
 """Where the time of a kernel goes, on one GPU: the weight matmuls (B17
-csrc/int8_linear.cu, B18 csrc/int4_linear.cu) and the int8 backward (B7 and
-B8, csrc/int8_bwd.cu).
+csrc/int8_linear.cu, B18 csrc/int4_linear.cu), the int8 backward (B7 and
+B8, csrc/int8_bwd.cu) and the bf16 flash forward (B1, csrc/flash_fwd.cu);
+and one numerics witness, bwd_exact.
 
-    python3 kernel_probe.py [weights] [int8_bwd]    (both without arguments)
+    python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [bwd_exact]
+                                                  (all without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -40,7 +42,29 @@ int8_bwd, at chip_smoke.py's timing shapes (4,16,2048,64) and GQA rep 4
   fragments in registers;
 and a copy that sums clock64 cycles by phase of the mainloop in each
 warpgroup (thread 0 of each, into shared memory), printed as cycles per
-mainloop tile over all blocks. Exits non-zero without a GPU.
+mainloop tile over all blocks.
+
+flash_fwd, at (4,16,2048,64), (8,16,256,64) and (4,16,8192,64), causal, bf16
+inputs (the kernel alone, no prep launch); each build's ptxas registers,
+spills and C75xx notes are printed:
+- stages_5: a ring of 5 K/V stages instead of 3;
+- no_exp: P takes its exponent's argument (no MUFU.EX2);
+- no_softmax: no softmax at all (the products run on stale P);
+- no_mask: no tile takes the mask (wrong on the diagonal and ragged tiles);
+- no_pv: the mainloop issues no PV;
+and a copy that sums clock64 cycles by phase of the mainloop's step in each
+warpgroup, printed as cycles per key tile.
+
+bwd_exact times nothing: it holds B2/B3's exact mode (csrc/flash_bwd.cu) on
+chip_smoke.py phase 6's one-token case (1, 3 q / 1 kv heads, t = s = 1,
+causal) against a float64 evaluation of the same operands, beside the plain
+f32 version. There dS = P (dP - D) with O = V rounded to bf16, so dP - D is
+V's rounding error, and the f32 sums that form dP and D cancel. It prints
+each tensor's max|diff| / max|reference| for kernel vs plain (phase 6's
+gate, 1e-4), kernel vs float64 and plain vs float64: first on the inputs
+phase 6 drew when phase 3's edge cases took their inputs from the shared
+generator (its draws replayed), then the worst over 256 seeds of the case.
+Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -56,6 +80,8 @@ import torch
 import torch.nn.functional as F
 
 from quantizedattention_tpu_torch import _build
+from quantizedattention_tpu_torch.ops import flash_fwd as tfwd
+from quantizedattention_tpu_torch.ops import flash_tiling
 from quantizedattention_tpu_torch.ops import int8_bwd as tbwd
 from quantizedattention_tpu_torch.ops import (int8_attention_fwd_from_quantized, int8_bwd_operands,
                                               quantize_qkv)
@@ -65,6 +91,7 @@ from quantizedattention_tpu_torch.quantize.weights import quantize_weight, quant
 SRC = os.path.join(_build.CSRC_DIR, "int8_linear.cu")
 SRC4 = os.path.join(_build.CSRC_DIR, "int4_linear.cu")
 SRC_BWD = os.path.join(_build.CSRC_DIR, "int8_bwd.cu")
+SRC_FWD = os.path.join(_build.CSRC_DIR, "flash_fwd.cu")
 OUT_DIR = os.path.join(_build.BUILD_DIR, "probe")
 DECODE = [(8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024), (8, 1024, 8192)]
 PREFILL = [(2048, 1024, 4096), (2048, 4096, 1024)]
@@ -150,7 +177,13 @@ def _build_lib(name: str, src: str) -> ctypes.CDLL:
     if proc.returncode:
         raise SystemExit(f"kernel_probe: build of {name} failed:\n{proc.stderr[-3000:]}")
     lib = ctypes.CDLL(os.path.join(OUT_DIR, f"lib{name}.so"))
-    if name.startswith("bwd"):
+    if name.startswith("fwd"):
+        lib.qa_flash_fwd.argtypes = tfwd.ARGTYPES["qa_flash_fwd"]
+        lib.qa_flash_fwd.restype = ctypes.c_int
+        for line in proc.stderr.splitlines():
+            if "C75" in line or "spill" in line or "registers" in line:
+                print(f"[ptxas] {name}: {line.split(' in function')[0].strip()}", flush=True)
+    elif name.startswith("bwd"):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
         lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 10 + [f32, f32, ptr]
@@ -426,11 +459,189 @@ def probe_int8_bwd(smi) -> None:
                       + f"; all {per.sum():.0f}", flush=True)
 
 
+# --- the bf16 flash forward (B1) ---
+
+FWD_SHAPES = [(4, 16, 2048), (8, 16, 256), (4, 16, 8192)]  # (b, h = h_kv, t = s), causal
+_FWD_EXP = ("      const __nv_bfloat162 pr = __floats2bfloat162_rn(exp2_ftz(s[4 * n + 2 * h] - next_m[h]),\n"
+            "                                                      exp2_ftz(s[4 * n + 2 * h + 1] - next_m[h]));")
+_FWD_PV = "    mma_pv(dv, p_prev);\n    wgmma_commit();\n    wgmma_wait<1>();"
+FWD_VARIANTS = {
+    "fwd_as_is": [],
+    "fwd_stages_5": [("constexpr int KV_STAGES = 3;", "constexpr int KV_STAGES = 5;")],
+    "fwd_no_exp": [(_FWD_EXP, _FWD_EXP.replace("exp2_ftz(", "("))],
+    "fwd_no_softmax": [("    if (!live) {\n#pragma unroll", "    if (n_tiles < 0)\n    if (!live) {\n#pragma unroll")],
+    "fwd_no_mask": [("    } else if (edge(j)) {", "    } else if (false) {")],
+    "fwd_no_pv": [(_FWD_PV, "    wgmma_commit();\n    wgmma_wait<1>();")],
+}
+# (anchor, phase ended there, insert before the anchor?) in the mainloop's step
+FWD_PHASES = [("    uint64_t dk = desc_k(jc);\n", "TMA wait", True),
+              ("    wgmma_wait<1>();  // S of tile j is done\n", "issue S, PV", True),
+              ("    float alpha[2] = {1.f, 1.f};\n", "wait S", True),
+              ("    wgmma_wait<0>();\n    reg_fence(acc);\n    reg_fence(ls);\n    reg_fence(p_prev);",
+               "softmax", True),
+              ("    if (j > 0) release(j - 1);", "wait PV", True),
+              ("  };\n\n  uint32_t p_a[8][4], p_b[8][4] = {};", "release, rescale", True)]
+
+
+def _fwd_split_source() -> str:
+    """B1 with clock64 sums by phase of the mainloop's step, per warpgroup."""
+    src = open(SRC_FWD).read().replace('#include "hopper.cuh"\n', _SPLIT_HEAD)
+    k0 = src.index("flash_fwd_kernel(const __grid_constant__")
+    end = src.index("  // Epilogue: O = acc / l", k0)
+    body = src[k0:end]
+    for k, (anchor, _, before) in enumerate(FWD_PHASES):
+        i = body.index(anchor)
+        at = i if before else i + len(anchor)
+        body = body[:at] + f"SPLIT({k})\n" + body[at:]
+    i = body.index("  auto step = [&]")
+    body = (body[:i] + "  if (threadIdx.x < 18) probe_cyc[threadIdx.x / 9][threadIdx.x % 9] = 0;\n"
+            "  __syncthreads();\n  long long probe_t0 = clock64();\n" + body[i:])
+    done = ("  if ((threadIdx.x & 127) == 0) {\n    const int w_ = threadIdx.x / 128;\n"
+            "    const int b_ = blockIdx.y * gridDim.x + blockIdx.x;\n"
+            "    for (int k_ = 0; k_ < 8; ++k_) g_cyc[0][b_][w_][k_] = probe_cyc[w_][k_];\n"
+            "    g_cyc[0][b_][w_][8] = n_tiles;\n  }\n")
+    src = src[:k0] + body + done + src[end:]
+    return src + ('\nextern "C" int qa_probe_cycles(void* host) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(host, g_cyc, sizeof(g_cyc));\n}\n')
+
+
+def _fwd_call(lib, q, k, v, o, lse):
+    """One launch of B1 from an altered build, as ops/flash_fwd.py launches it
+    on bf16 inputs."""
+    b, h, t, _ = q.shape
+    h_kv, s = k.shape[1], k.shape[2]
+    bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t)
+    status = lib.qa_flash_fwd(q.data_ptr(), *tfwd._strides(q), 0, k.data_ptr(), *tfwd._strides(k),
+                              v.data_ptr(), *tfwd._strides(v), o.data_ptr(), lse.data_ptr(), b,
+                              h_kv, h // h_kv, t, s, bq, 1, 0.125 * 1.44269504,
+                              torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def probe_flash_fwd(smi) -> None:
+    jobs = {name: _altered(edits, SRC_FWD) for name, edits in FWD_VARIANTS.items()}
+    jobs["fwd_split"] = _fwd_split_source()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, t in FWD_SHAPES:
+        q, k, v = (torch.randn((b, h, t, 64), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        o = torch.empty((b, h, t, 64), dtype=torch.float32, device="cuda")
+        lse = torch.empty((b, h, t), dtype=torch.float32, device="cuda")
+        times = {v_: _device_us(lambda v_=v_: _fwd_call(libs[v_], q, k, v, o, lse))
+                 for v_ in FWD_VARIANTS}
+        print(f"[probe] B1 ({b},{h},{t},64) causal bf16: "
+              + ", ".join(f"{v_[4:]} {us:.2f}" for v_, us in times.items()) + f" us ({smi})",
+              flush=True)
+        lib = libs["fwd_split"]
+        _fwd_call(lib, q, k, v, o, lse)
+        torch.cuda.synchronize()
+        cyc = np.zeros((2, 8192, 2, 9), dtype=np.int64)
+        lib.qa_probe_cycles(ctypes.c_void_p(cyc.ctypes.data))
+        n_blocks = b * h * -(-t // flash_tiling.BLOCK_ROWS)
+        for wg in (0, 1):  # thread 0 (which issues the TMA) and thread 128
+            c = cyc[0, :n_blocks, wg]
+            tiles = c[:, 8].sum()
+            per = c[:, :8].sum(axis=0) / max(tiles, 1)
+            print(f"[split] B1 ({b},{h},{t},64) causal, warpgroup {wg}, cycles per key tile "
+                  f"({tiles} tiles): " + ", ".join(
+                      f"{label} {x:.0f}" for (_, label, _), x in zip(FWD_PHASES, per))
+                  + f"; all {per.sum():.0f}", flush=True)
+
+
+# --- B2/B3 exact mode against float64 (a witness, not a timing) ---
+
+ONE_TOKEN = (1, 3, 1, 1, 1, True)  # chip_smoke.py BWD_EDGE_CASES[-1]
+
+
+def _bwd_f64(ops):
+    """(dq, dk, dv) of the exact backward on the kernels' operands `ops`,
+    evaluated in float64 (the plain versions' formulas)."""
+    q, k, v, do = (x.double() for x in (ops.q, ops.k[:, None], ops.v[:, None], ops.do))
+    t, s = q.shape[2], k.shape[2]
+    scores = q @ k.transpose(-1, -2)
+    if ops.causal:
+        visible = torch.ones((t, s), dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(visible, scores, -30000.0)
+    p = torch.exp2(scores - ops.lse.double()[..., None])
+    ds = p * (do @ v.transpose(-1, -2) - ops.di.double()[..., None])
+    return (ds @ k, (ds.transpose(-1, -2) @ q).sum(1) / ops.qk_scale,
+            (p.transpose(-1, -2) @ do).sum(1) / ops.sm_scale)
+
+
+def _bwd_exact_readings(q, k, v, do, causal):
+    """{tensor: (kernel vs plain, kernel vs f64, plain vs f64)}, each
+    max|diff| / max|reference|, on B1's forward of (q, k, v)."""
+    from quantizedattention_tpu_torch.ops import (bwd_operands, flash_attention_fwd, flash_bwd_dkv,
+                                                  flash_bwd_dkv_plain, flash_bwd_dq,
+                                                  flash_bwd_dq_plain)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ops = bwd_operands(q, k, v, o, lse, do, causal=causal, fast=False)
+    got = (flash_bwd_dq(ops), *flash_bwd_dkv(ops))
+    plain = (flash_bwd_dq_plain(ops), *flash_bwd_dkv_plain(ops))
+    exact = _bwd_f64(ops)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+    return {name: (rel(g, p), rel(g, e), rel(p, e))
+            for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact)}
+
+
+def _replayed_phase6_inputs(dev):
+    """q, k, v, dO of phase 6's one-token case as phase 6 drew them when
+    phase 3's edge cases took their inputs from the shared generator: every
+    draw of phases 3, 4 and 6 before it, in order, from seed 0."""
+    import chip_smoke as smoke
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b, h, h_kv, t, s, _ in smoke.FLASH_CASES + smoke.FLASH_EDGE_CASES:
+        for n, m in ((h, t), (h_kv, s), (h_kv, s)):
+            torch.randn((b, n, m, 64), generator=gen, device=dev)
+    for _ in range(3):
+        torch.randn((smoke.N_SLOTS, 16, smoke.PROMPT_LEN, 64), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    smoke.phase_decode(dev, gen)
+    cases = smoke.FLASH_CASES + smoke.BWD_EDGE_CASES
+    assert cases[-1] == ONE_TOKEN
+    for b, h, h_kv, t, s, _ in cases:
+        qkvdo = smoke._qkvdo(gen, dev, b, h, h_kv, t, s)
+    return qkvdo
+
+
+def _fmt(readings):
+    return "; ".join(f"{n} {a:.3e} / {b:.3e} / {c:.3e}" for n, (a, b, c) in readings.items())
+
+
+def probe_bwd_exact(smi) -> None:
+    dev = torch.device("cuda", 0)
+    b, h, h_kv, t, s, causal = ONE_TOKEN
+    print(f"[bwd_exact] (1,3q/1kv,1,64) causal, kernel vs plain / kernel vs f64 / plain vs f64, "
+          f"each max|diff| / max|reference| (phase 6's gate: kernel vs plain <= 1e-4) ({smi})",
+          flush=True)
+    readings = _bwd_exact_readings(*_replayed_phase6_inputs(dev), causal)
+    print(f"[bwd_exact] phase 6's inputs with phase 3's edge cases on the shared generator: "
+          f"{_fmt(readings)}", flush=True)
+    worst, over = {}, 0
+    for seed in range(256):
+        gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+        qkvdo = [torch.randn((b, n, m, 64), generator=gen, device=dev)
+                 for n, m in ((h, t), (h_kv, s), (h_kv, s), (h, t))]
+        r = _bwd_exact_readings(*qkvdo, causal)
+        over += max(a for a, _, _ in r.values()) > 1e-4
+        worst = {n: tuple(max(x, y) for x, y in zip(r[n], worst.get(n, (0.0,) * 3))) for n in r}
+    print(f"[bwd_exact] 256 seeds: kernel vs plain over 1e-4 on {over}; worst {_fmt(worst)}",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
-    parts = sys.argv[1:] or ["weights", "int8_bwd"]
-    if set(parts) - {"weights", "int8_bwd"}:
+    every = ["weights", "int8_bwd", "flash_fwd", "bwd_exact"]
+    parts = sys.argv[1:] or every
+    if set(parts) - set(every):
         sys.exit(__doc__)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -439,6 +650,10 @@ def main() -> None:
         probe_weights(smi)
     if "int8_bwd" in parts:
         probe_int8_bwd(smi)
+    if "flash_fwd" in parts:
+        probe_flash_fwd(smi)
+    if "bwd_exact" in parts:
+        probe_bwd_exact(smi)
 
 
 

@@ -93,14 +93,6 @@ constexpr int SMEM_BYTES = OFF_ONES + ONES_BYTES + 1024;  // + slack to align th
 static_assert(N_BARS * 8 <= 128, "the barriers fit before the ones");
 constexpr float EPS_BIAS = 1.0f / 256.0f;
 
-// No swizzle, K-major (core matrices of 8 rows x 16 bytes, 128 bytes apart
-// along K and 256 along N): only the all-ones B of P's row sums uses it, and
-// reads 256 bytes from the start.
-__device__ __forceinline__ uint64_t desc_interleave(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(256 >> 4) << 32);
-}
-
 // d[64 x 128] (+)= A[64 x 32] B[128 x 32]^T, s8 x s8 -> s32, both from shared
 // memory; accumulate = 0 zeroes d first.
 __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, uint64_t db,
@@ -128,21 +120,6 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
         "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 8] (+)= A[64 x 16] B[16 x 8], bf16 -> f32; A from registers, B
-// K-major from shared memory.
-__device__ __forceinline__ void wgmma_bf16_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],
-                                                       uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // Masks one tile's raw S (only where the tile reaches past s or past the

@@ -11,8 +11,14 @@ rounded to bf16; k/v are rounded to bf16; S accumulates in f32; masked logits
 (causal k <= q, kv padding) are MASK_VALUE; the row max carries +EPS_BIAS
 (the "eps" correction); P = exp2(S - m) is rounded to bf16 before both the PV
 product and the row sum; rows with l == 0 give 0. The kernel runs the online
-softmax over 64-key tiles and the plain version over whole rows, so the two
+softmax over 128-key tiles and the plain version over whole rows, so the two
 differ only in where P is rounded and in summation order.
+
+The kernel takes q as it comes (f32 or bf16, any strides with rows
+contiguous) and scales and rounds it itself; bf16 k/v go to its TMA maps as
+they are (a [b, s, h_kv, d] storage read as [b, h_kv, s, d] included), and
+f32 k/v are cast to bf16 by one launch for both (`kv_to_bf16`). The launch
+geometry is ops/flash_tiling.py's.
 
 GQA is native: k/v carry h_kv heads with h_kv dividing h, and q head
 h = kv_head * rep + g reads kv head `kv_head`.
@@ -33,12 +39,12 @@ import functools
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
+from quantizedattention_tpu_torch.ops import flash_tiling
 from quantizedattention_tpu_torch.ops.common import MASK_VALUE, qk_scales, tile_mask
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 _HEAD_DIM = 64  # the kernel's compiled head dim
-_BLOCK_ROWS = 64  # rows per kernel block; the GQA group must fit in it
 
 
 def _check_args(q, k, v, correction, precision="bf16"):
@@ -86,40 +92,89 @@ def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="
     return o.reshape(b, h, t, d), lse[..., 0].reshape(b, h, t)
 
 
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+ARGTYPES = {  # the C entries of csrc/flash_fwd.cu
+    "qa_flash_fwd": [_PTR, _I64, _I64, _I64, _I32] + [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR]
+                    + [_I32] * 7 + [ctypes.c_float, _PTR],
+    "qa_flash_kv_to_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR, _I32, _I32, _I32, _PTR],
+    "qa_flash_fwd_f32": [_PTR] * 5 + [_I32] * 5 + [_PTR],
+}
+
+
 @functools.cache
 def _kernel(name="qa_flash_fwd"):
     fn = getattr(load_kernel("flash_fwd"), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _strides(x):
+    """x's (batch, head, token) strides in elements, as the kernel takes them:
+    a dimension of size 1 gets the stride of a whole [s, d] matrix (any
+    16-byte multiple does; TMA wants one)."""
+    return [st if n > 1 else x.shape[2] * x.shape[3] for n, st in zip(x.shape[:3], x.stride()[:3])]
+
+
+def _kernel_ready(x, dtypes):
+    """x itself if the kernel reads it in place (a dtype of `dtypes`, on a
+    CUDA device, rows contiguous, pointer and strides 16-byte aligned), else a
+    contiguous copy (f32 unless x's dtype is in `dtypes`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"expected CUDA tensors, got one on {x.device}")
+    if x.dtype not in dtypes:
+        x = x.float()
+    size = x.element_size()
+    if (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(st > 0 and st * size % 16 == 0 for st in _strides(x))):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def kv_to_bf16(k, v):
+    """f32 k and v [b, h_kv, s, 64] (rows contiguous, 16-byte aligned) ->
+    contiguous bf16 copies, both in one launch: the K/V prep of f32 inputs."""
+    b, h_kv, s, d = k.shape
+    kb = torch.empty((b, h_kv, s, d), dtype=torch.bfloat16, device=k.device)
+    vb = torch.empty_like(kb)
+    status = _kernel("qa_flash_kv_to_bf16")(
+        k.data_ptr(), *_strides(k), v.data_ptr(), *_strides(v), kb.data_ptr(), vb.data_ptr(),
+        b, h_kv, s, torch.cuda.current_stream(k.device).cuda_stream)
+    check_status(status, "flash_fwd kv_to_bf16")
+    return kb, vb
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps"):
     """Corrected-bf16 flash-attention forward. q [b, h, t, d]; k/v [b, h_kv, s, d].
 
-    CUDA tensors launch the kernel (head_dim 64, rep <= 64) or raise; CPU
-    tensors take `flash_attention_fwd_plain`. `flash_attention_fwd.launches`
-    counts kernel launches.
+    CUDA tensors launch the kernel (head_dim 64, rep <= 128, b*h_kv <= 65535)
+    or raise; CPU tensors take `flash_attention_fwd_plain`. q may be f32 or
+    bf16 with any strides (rows contiguous) and is scaled in the kernel; bf16
+    k/v are read in place, f32 k/v are cast by one `kv_to_bf16` launch.
+    `flash_attention_fwd.launches` counts kernel launches (one a call).
     """
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction)
     _check_args(q, k, v, correction)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
-    rep = h // h_kv
-    if d != _HEAD_DIM or rep > _BLOCK_ROWS or b * h_kv > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, rep <= {_BLOCK_ROWS}, "
-                         f"b*h_kv <= 65535; got d={d}, rep={rep}, b*h_kv={b * h_kv}")
+    if d != _HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}; got {d}")
+    bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t)
     _, qk_scale = qk_scales(d, sm_scale)
-    qs = (q.float() * qk_scale).to(torch.bfloat16).contiguous()
-    kb = k.to(torch.bfloat16).contiguous()
-    vb = v.to(torch.bfloat16).contiguous()
-    dev = require_cuda(qs, kb, vb)
-    o = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    qk = _kernel_ready(q, (torch.float32, torch.bfloat16))
+    if k.dtype == v.dtype == torch.bfloat16:
+        kb, vb = _kernel_ready(k, (torch.bfloat16,)), _kernel_ready(v, (torch.bfloat16,))
+    else:
+        kb, vb = kv_to_bf16(_kernel_ready(k, (torch.float32,)), _kernel_ready(v, (torch.float32,)))
+    if not qk.device == kb.device == vb.device:
+        raise ValueError(f"q, k and v lie on {qk.device}, {kb.device} and {vb.device}")
+    o = torch.empty((b, h, t, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     status = _kernel()(
-        qs.data_ptr(), kb.data_ptr(), vb.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h_kv, rep, t, s, int(causal), torch.cuda.current_stream(dev).cuda_stream,
+        qk.data_ptr(), *_strides(qk), int(qk.dtype == torch.float32), kb.data_ptr(),
+        *_strides(kb), vb.data_ptr(), *_strides(vb), o.data_ptr(), lse.data_ptr(), b, h_kv,
+        h // h_kv, t, s, bq, int(causal), qk_scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_status(status, "flash_fwd")
     flash_attention_fwd.launches += 1
