@@ -6,9 +6,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
-     and holds the bf16 flash forward's, the int8 forward's and backward's and
-     the weight matmuls' shared bytes against their launch geometry
-     (ops/flash_tiling.py, ops/int8_tiling.py, ops/linear_tiling.py);
+     holds the bf16 flash forward's and backward's, the int8 forward's and
+     backward's and the weight matmuls' shared bytes against their launch
+     geometry (ops/flash_tiling.py, ops/int8_tiling.py, ops/linear_tiling.py),
+     and fails if ptxas spills or serializes wgmma (a C75xx note) in the bf16
+     flash forward or backward;
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
      multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
@@ -27,15 +29,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      8 prompts as one batch; prefill logits must agree with the plain path
      on the CPU;
   6. flash_bwd: the dK/dV (B2) and dQ (B3) kernels vs their plain versions in
-     fast and exact mode (O and lse from the B1 kernel), on the forward's
-     cases and a few edge shapes, and autograd through
+     fast and exact mode (O and lse from the B1 kernel), each called twice
+     for the same bits, on the forward's cases, a few edge shapes, the fast
+     kernels' tile edges (t and s off a multiple of 128, causal t < s and t >
+     s, rep 3, 5, 8 and 128, one 128-key tile, more q and key tiles than ring
+     stages), the one-token case on 16 more draws and the train-GQA phase's
+     shape (8, 4 q / 2 kv, 512, 64); at each, fast mode's
+     prep launch against the plain prep (q_s, dO_s, lse, K and V byte-equal,
+     D within 1e-6 of max|D|) and the whole fast call on [b, t, h, d] views
+     equal bit for bit to contiguous inputs; then autograd through
      flash_attention_bf16 against the fp32 oracle within the JAX package's
      envelope;
   7. the training shape (4, 16, 2048, 64), causal: B1, B2 and B3 (both
      modes) held against their plain versions, then timed beside them and
      beside F.scaled_dot_product_attention (a yardstick only; the port never
      calls it); B1's f32 call split into its K/V prep launch and its kernel,
-     and the call on bf16 inputs (no prep);
+     and the call on bf16 inputs (no prep); the whole fast backward call on
+     the model's f32 [b, t, h, d] views, its prep launches held against the
+     plain prep and the call against its plain version there, then timed
+     with its prep launches and the plain prep; B2 and B3 at
+     GQA rep 4 (2, 16 q / 4 kv, 2048, 64) beside SDPA's backward there;
   8. int8 kernels: B4 (quantize, byte-equal), B5 (forward), B7 (dK/dV) and
      B8 (dQ) against their plain versions at the training shape, a ragged
      length with a large K mean, GQA rep 4, the GQA train shape (rep 2), the
@@ -55,7 +68,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      same init: the bench LM's widths at max_seq 2048 with f32 params,
      4 x 2048 tokens, 1 warm-up + 10 timed AdamW steps through
      make_train_step; losses finite and falling; each step launches its
-     attention kind's kernels (B1/B2/B3, or B4/B5/B7/B8) n_layers times and
+     attention kind's kernels (B1/B2/B3 and the backward's prep launch, or
+     B4/B5/B7/B8) n_layers times and
      the other kind's never; lm_loss gradients on the card vs the CPU plain
      path; torch.profiler over one more step (device time by kernel, busy
      share, the attention kernels' share); the int8 run's global gradient
@@ -150,9 +164,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
-allocation), from CUDA events around CUDA-graph replays; serving and train
-step times are CUDA events or host wall clock around synchronised work. They
-are records, not claims.
+allocation), from CUDA events around CUDA-graph replays (SDPA's backward
+too); the port's forward + backward calls are device time summed by
+torch.profiler; serving and train step times are CUDA events or host wall
+clock around synchronised work. They are records, not claims.
 """
 
 from __future__ import annotations
@@ -199,6 +214,9 @@ from quantizedattention_tpu_torch.ops import (
     jvp_bwd_dq_plain,
     jvp_bwd_operands,
     bwd_operands,
+    bwd_prep,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_bf16,
     int4_weight_matmul,
     int4_weight_matmul_plain,
@@ -233,7 +251,7 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd_plain,
     kv_to_bf16,
 )
-from quantizedattention_tpu_torch.ops.flash_tiling import shared_bytes as flash_fwd_shared_bytes
+from quantizedattention_tpu_torch.ops import flash_tiling
 from quantizedattention_tpu_torch.models.transformer import (
     _decode_logits,
     _verify_logits,
@@ -417,21 +435,6 @@ def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
-def eager_ms(fn, calls: int = 20) -> float:
-    """Mean time of one `fn()` from CUDA events around an eager loop of
-    `calls` calls, after one warm-up call. For work of 0.1 ms and more per
-    call, which the host enqueues faster than the card runs it."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
-
-
 def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -442,6 +445,12 @@ def visible_pairs(t: int, s: int, causal: bool) -> int:
         return t * s
     n = min(t, s)
     return n * (n + 1) // 2 + (t - n) * s
+
+
+def _strided(*xs):
+    """[b, h, t, d] views of [b, t, h, d] storage with the same values, as the
+    model hands q, k, v and dO in."""
+    return [x.transpose(1, 2).contiguous().transpose(1, 2) for x in xs]
 
 
 def bound(n_bytes: float, *work: tuple[float, float]) -> dict:
@@ -472,9 +481,14 @@ def phase_build() -> None:
     secs = _build.build_all()
     log(f"[build] kernels + scheduler built/loaded in {secs:.1f} s")
     int8_bwd = _build.load_kernel("int8_bwd")
+    flash_bwd_lib = _build.load_kernel("flash_bwd")
     for name, got, want in (
             ("flash_fwd", _build.load_kernel("flash_fwd").qa_flash_fwd_smem_bytes(),
-             flash_fwd_shared_bytes()),
+             flash_tiling.shared_bytes()),
+            ("flash_bwd dK/dV", flash_bwd_lib.qa_flash_bwd_dkv_smem_bytes(),
+             flash_tiling.dkv_shared_bytes()),
+            ("flash_bwd dQ", flash_bwd_lib.qa_flash_bwd_dq_smem_bytes(),
+             flash_tiling.dq_shared_bytes()),
             ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
@@ -496,11 +510,14 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # the bf16 flash forward keeps every wgmma asynchronous and spills nothing
-    bad = [line for line in _build.build_log("flash_fwd").splitlines()
-           if "serialized" in line or ("spill" in line and " 0 bytes spill stores" not in line)]
-    if bad:
-        raise AssertionError(f"flash_fwd's ptxas notes: {bad}")
+    # the bf16 flash forward and backward keep every wgmma asynchronous (no
+    # C75xx note) and spill nothing
+    for name in ("flash_fwd", "flash_bwd"):
+        bad = [line for line in _build.build_log(name).splitlines()
+               if "serialized" in line or "(C75" in line
+               or ("spill" in line and " 0 bytes spill stores" not in line)]
+        if bad:
+            raise AssertionError(f"{name}'s ptxas notes: {bad}")
 
 
 FLASH_CASES = [  # (b, h, h_kv, t, s, causal)
@@ -510,11 +527,11 @@ FLASH_CASES = [  # (b, h, h_kv, t, s, causal)
 ]
 
 
-# the bf16 forward's tile edges (phase 3 only: rep 128 is past B2/B3's fast
-# mode): t and s off a multiple of 128, causal t < s and t > s, rep 3 (rows
-# with no visible key in a causal tile: the block at position 126 sees keys
-# 128-255 only from 128 on), rep 5, 8 and 128, one token, and more key tiles
-# than the ring has stages, causal and not
+# the bf16 forward's tile edges (phase 3 only; phase 6 has the backward's,
+# BWD_TILE_CASES): t and s off a multiple of 128, causal t < s and t > s,
+# rep 3 (rows with no visible key in a causal tile: the block at position
+# 126 sees keys 128-255 only from 128 on), rep 5, 8 and 128, one token, and
+# more key tiles than the ring has stages, causal and not
 FLASH_EDGE_CASES = [
     (1, 4, 4, 200, 330, True),
     (1, 4, 4, 330, 200, True),
@@ -567,9 +584,8 @@ def phase_flash(dev, gen) -> dict:
                     _check_flash(*bf, causal, f"{label}, bf16 in"))
         o, lse = flash_attention_fwd(*bf, causal=causal)
         o_f, lse_f = flash_attention_fwd(*(x.float() for x in bf), causal=causal)
-        strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in bf]
-        o_t, lse_t = flash_attention_fwd(*strided, causal=causal)
-        kb, vb = kv_to_bf16(*(x.transpose(1, 2).contiguous().transpose(1, 2) for x in qkv[1:]))
+        o_t, lse_t = flash_attention_fwd(*_strided(*bf), causal=causal)
+        kb, vb = kv_to_bf16(*_strided(*qkv[1:]))
         torch.cuda.synchronize()
         if not (torch.equal(o, o_f) and torch.equal(lse, lse_f)):
             raise AssertionError(f"flash_fwd on f32 inputs that bf16 represents differs from "
@@ -1333,16 +1349,33 @@ def _qkvdo(gen, dev, b, h, h_kv, t, s):
 # shapes the forward cases do not reach: a rep that does not divide 64, rep 64
 # (one row per group in a dQ block), a single token, causal with t < s
 BWD_EDGE_CASES = [(2, 6, 2, 33, 130, True), (1, 64, 1, 70, 70, True), (1, 3, 1, 1, 1, True)]
+# the fast kernels' tile edges (128-key B2 blocks, 128-row B3 blocks, 64-row
+# tiles through rings of 4 stages): t and s off a multiple of 128, causal t <
+# s and t > s, rep 3, 5, 8 and 128 (one position a B3 block), one 128-key
+# tile, and more q tiles (B2) and key tiles (B3) than stages; inputs from a
+# generator of their own, as the one-token case's 16 seeds
+BWD_TILE_CASES = [(1, 4, 4, 200, 330, True), (1, 4, 4, 330, 200, True), (1, 6, 2, 300, 300, True),
+                  (1, 10, 2, 77, 201, False), (1, 16, 2, 300, 300, True),
+                  (1, 128, 1, 40, 300, True), (1, 2, 2, 128, 128, True),
+                  (1, 2, 2, 1280, 1280, False), (1, 2, 2, 1280, 1280, True)]
+ONE_TOKEN_SEEDS = 16
+# fast mode's prep launch against its plain version: q_s, dO_s, K and V byte
+# for byte; D up to f32 summation order (64 products a row)
+PREP_D_TOL = 1e-6
 
 
 def _check_bwd(ops, label: str) -> dict:
     """B2 and B3 on `ops` against their plain versions, max|diff| /
-    max|plain| per tensor within the mode's tolerance (raises otherwise).
-    Returns each kernel's max|diff|."""
+    max|plain| per tensor within the mode's tolerance (raises otherwise), and
+    the same bits from a second call. Returns each kernel's max|diff|."""
     tol = BWD_FAST_TOL if ops.fast else BWD_EXACT_TOL
     dk, dv = flash_bwd_dkv(ops)
     dq = flash_bwd_dq(ops)
+    dk2, dv2 = flash_bwd_dkv(ops)
+    dq2 = flash_bwd_dq(ops)
     torch.cuda.synchronize()
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)):
+        raise AssertionError(f"flash_bwd gave other bits on a second call at {label}")
     dk_p, dv_p = flash_bwd_dkv_plain(ops)
     dq_p = flash_bwd_dq_plain(ops)
     rel, err = {}, {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0}
@@ -1364,14 +1397,60 @@ def _worst(*errs: dict) -> dict:
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
+def _check_prep(q, k, v, o, lse, do, causal, label) -> float:
+    """Fast mode's prep launches (bwd_prep for q_s, dO_s, lse and D;
+    kv_to_bf16 for f32 K and V) against the plain prep on the same inputs:
+    q_s, dO_s, lse, K and V byte-equal, D within PREP_D_TOL of max|D|.
+    Returns D's max|diff| / max|D|."""
+    got = bwd_operands(q, k, v, o, lse, do, causal=causal, fast=True)
+    want = bwd_operands(q, k, v, o, lse, do, causal=causal, fast=True, plain=True)
+    for name in ("q", "do", "k", "v", "lse"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"flash_bwd prep: {name} differs from the plain prep at {label}")
+    rel = ((got.di - want.di).abs().max() / want.di.abs().max()).item()
+    if not rel <= PREP_D_TOL:
+        raise AssertionError(f"flash_bwd prep: D {rel:.3e} of max|D| from the plain prep at "
+                             f"{label} (tol {PREP_D_TOL})")
+    return rel
+
+
+def _bwd_case(q, k, v, do, causal, label) -> tuple[list, float]:
+    """Both modes' kernels against their plain versions on B1's O and lse of
+    (q, k, v); the fast prep against its plain version; the whole fast call
+    on [b, t, h, d] views equal bit for bit to the call on contiguous
+    inputs. Returns (the two modes' errors, the prep's D error)."""
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    errs = [_check_bwd(bwd_operands(q, k, v, o, lse, do, causal=causal, fast=fast), label)
+            for fast in (True, False)]
+    d_rel = _check_prep(*_strided(q, k, v, o), lse, *_strided(do), causal, label)
+    got = flash_attention_bwd(*_strided(q, k, v, o), lse, *_strided(do), causal=causal, fast=True)
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, fast=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"flash_attention_bwd on [b, t, h, d] views differs from "
+                             f"contiguous inputs at {label}")
+    return errs, d_rel
+
+
 def phase_flash_bwd(dev, gen) -> dict:
-    errs = []
-    for b, h, h_kv, t, s, causal in FLASH_CASES + BWD_EDGE_CASES:
-        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s)
-        o, lse = flash_attention_fwd(q, k, v, causal=causal)
-        for fast in (True, False):
-            ops = bwd_operands(q, k, v, o, lse, do, causal=causal, fast=fast)
-            errs.append(_check_bwd(ops, f"b={b} h={h} h_kv={h_kv} t={t} s={s} causal={causal}"))
+    errs, d_rel = [], 0.0
+    edge_gen = torch.Generator(device=dev).manual_seed(12)
+    cases = [(c, gen) for c in FLASH_CASES + BWD_EDGE_CASES] \
+        + [(c, edge_gen) for c in BWD_TILE_CASES]
+    first_draw = len(cases)
+    cases += [(BWD_EDGE_CASES[-1], edge_gen)] * ONE_TOKEN_SEEDS
+    # the train-GQA phase's attention shape, as its model hands it in
+    cases += [((GQA_BATCH, GQA_CFG.n_heads, GQA_CFG.n_kv_heads, GQA_CFG.max_seq, GQA_CFG.max_seq,
+                True), torch.Generator(device=dev).manual_seed(13))]
+    for i, ((b, h, h_kv, t, s, causal), g) in enumerate(cases):
+        label = f"b={b} h={h} h_kv={h_kv} t={t} s={s} causal={causal}"
+        if first_draw <= i < first_draw + ONE_TOKEN_SEEDS:
+            label += f" (draw {i - first_draw + 1} of {ONE_TOKEN_SEEDS})"
+        e, d = _bwd_case(*_qkvdo(g, dev, b, h, h_kv, t, s), causal, label)
+        errs += e
+        d_rel = max(d_rel, d)
+    log(f"[flash_bwd] prep launch: q_s, dO_s, lse, K and V byte-equal to the plain prep at every "
+        f"case; D max|diff|/max|D| {d_rel:.3e} (tol {PREP_D_TOL})")
 
     # autograd through flash_attention_bf16 vs the fp32 oracle: the JAX
     # package's envelope (atol 1e-2, mismatch rate <= 3.5e-4), whose atol is
@@ -1394,6 +1473,77 @@ def phase_flash_bwd(dev, gen) -> dict:
             if max(r.mismatch_rate for r in reps) > GRAD_MISMATCH_RATE:
                 raise AssertionError("flash_attention_bf16 gradients outside the envelope")
     return _worst(*errs)
+
+
+# B2 and B3 are also timed at GQA rep 4: (b, h, h_kv, t), causal
+BWD_GQA = (2, 16, 4, 2048)
+
+
+def _bwd_call_times(q, k, v, o, lse, do) -> tuple[dict, dict]:
+    """The whole fast `flash_attention_bwd` call at the training shape on the
+    model's inputs ([b, h, t, 64] views of [b, t, h, 64] f32 tensors): its
+    prep launches held against the plain prep (`_check_prep`) and the call
+    against `flash_attention_bwd_plain` (BWD_FAST_TOL of max|plain| per
+    tensor), then the call's time, its prep's and the plain prep's. Returns
+    (times, each kernel's max|diff| of the call against the plain call)."""
+    qv, kv, vv, ov, dov = _strided(q, k, v, o, do)
+    label = f"{tuple(q.shape)} causal on [b, t, h, d] views"
+    d_rel = _check_prep(qv, kv, vv, ov, lse, dov, True, label)
+    got = flash_attention_bwd(qv, kv, vv, ov, lse, dov, causal=True, fast=True)
+    want = flash_attention_bwd_plain(qv, kv, vv, ov, lse, dov, causal=True, fast=True)
+    torch.cuda.synchronize()
+    rel, err = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"flash_attention_bwd {name} is not finite at {label}")
+        diff = (g - w).abs().max().item()
+        rel[name] = diff / w.abs().max().item()
+        kernel = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+        err[kernel] = max(err.get(kernel, 0.0), diff)
+    log(f"[flash_bwd] {label}: prep launches byte-equal to the plain prep (D "
+        f"max|diff|/max|D| {d_rel:.3e}, tol {PREP_D_TOL}); the whole fast call vs "
+        f"flash_attention_bwd_plain max|diff|/max|plain| dq {rel['dq']:.3e} dk {rel['dk']:.3e} "
+        f"dv {rel['dv']:.3e} (tol {BWD_FAST_TOL})")
+    if max(rel.values()) > BWD_FAST_TOL:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain version at {label}")
+    del got, want
+    call_ms = device_ms(lambda: flash_attention_bwd(qv, kv, vv, ov, lse, dov, causal=True,
+                                                    fast=True))
+    prep_ms = device_ms(lambda: bwd_operands(qv, kv, vv, ov, lse, dov, causal=True, fast=True))
+    prep_plain_ms = device_ms(lambda: bwd_operands(qv, kv, vv, ov, lse, dov, causal=True,
+                                                   fast=True, plain=True))
+    log(f"[timing] flash_attention_bwd (fast) on the model's f32 [b, t, h, d] views at "
+        f"{tuple(q.shape)} causal: call {call_ms:.4f} ms, of which the prep launches "
+        f"{prep_ms:.4f} ms ({prep_ms / call_ms:.1%}); the plain prep (torch ops) "
+        f"{prep_plain_ms:.4f} ms")
+    return ({"call_ms": call_ms, "prep_ms": prep_ms, "prep_plain_ms": prep_plain_ms,
+             "prep_d_rel": d_rel}, err)
+
+
+def _bwd_gqa_times(q, k, v, do) -> dict:
+    """B2 and B3 (fast) at a GQA shape, causal: device time and bound of
+    each, beside SDPA's bf16 backward (K/V repeated over the group)."""
+    (b, h, t, d), h_kv = q.shape, k.shape[1]
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True)
+    dk, dv = flash_bwd_dkv(ops)
+    dq = flash_bwd_dq(ops)
+    pairs = b * h * visible_pairs(t, t, True)
+    lib_ms = _sdpa_bwd_ms(q, k, v, do)
+    out = {"flash_bwd_dkv": {"gqa_ms": device_ms(lambda: flash_bwd_dkv(ops)),
+                             **bound(nbytes(*ops[:6], dk, dv), (4 * 2 * pairs * d, PEAK_BF16))},
+           "flash_bwd_dq": {"gqa_ms": device_ms(lambda: flash_bwd_dq(ops)),
+                            **bound(nbytes(*ops[:6], dq), (3 * 2 * pairs * d, PEAK_BF16))}}
+    pair_ms = out["flash_bwd_dkv"]["gqa_ms"] + out["flash_bwd_dq"]["gqa_ms"]
+    shape = f"({b},{h}q/{h_kv}kv,{t},{d})"
+    for name, r in out.items():
+        r["gqa_bound_ms"], r["gqa_bound_by"] = r.pop("bound_ms"), r.pop("bound_by")
+        r["gqa_library_ms"], r["gqa_shape"] = lib_ms, f"{shape} causal"
+        log(f"[timing] {name} at {shape} causal: kernel {r['gqa_ms']:.4f} ms, bound "
+            f"{r['gqa_bound_ms']:.4f} ms ({r['gqa_bound_by']})")
+    log(f"[timing] flash backward at {shape} causal: B2 + B3 {pair_ms:.4f} ms, sdpa bf16 "
+        f"backward {lib_ms:.4f} ms, ratio {pair_ms / lib_ms:.3f}")
+    return out
 
 
 def phase_train_timing(dev, gen) -> tuple[dict, dict]:
@@ -1466,19 +1616,31 @@ def phase_train_timing(dev, gen) -> tuple[dict, dict]:
     del k_b, v_b, q_b
     sdpa_fwd_ms = device_ms(sdpa_fwd)
     sdpa_bwd_ms = _sdpa_bwd_ms(q, k, v, do)
-    ours_fb_ms = eager_ms(ours_fwd_bwd)
+    ours_fb_ms = profiled_ms(ours_fwd_bwd)
     out["flash_fwd"]["library_ms"] = sdpa_fwd_ms
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
         out[name]["library_ms"] = sdpa_bwd_ms
         out[name]["library_call"] = ("backward of F.scaled_dot_product_attention(is_causal="
                                      "True), bf16: dq, dk, dv together")
+    del fast, exact, dk, dv, dq
+    call, call_err = _bwd_call_times(q, k, v, o, lse, do)
+    out["flash_bwd_dkv"].update(call)
+    errs.update({name: max(errs[name], e) for name, e in call_err.items()})
+    # B2 + B3 at GQA rep 4, inputs from a generator of their own (the phases
+    # after this one draw what they drew before)
+    gqa = _bwd_gqa_times(*_qkvdo(torch.Generator(device=dev).manual_seed(9), dev, *BWD_GQA[:3],
+                                 BWD_GQA[3], BWD_GQA[3]))
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        out[name].update(gqa[name])
     for name, r in out.items():
         log(f"[timing] {name} at ({b},{h},{t},{d}) causal: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
             + (f", exact mode {r['exact_ms']:.4f} ms (bound {r['exact_bound_ms']:.4f} ms "
                "at the fp32 peak)" if "exact_ms" in r else ""))
-    log(f"[timing] sdpa bf16 forward {sdpa_fwd_ms:.4f} ms, backward {sdpa_bwd_ms:.4f} ms; "
-        f"flash_attention_bf16 forward + backward {ours_fb_ms:.4f} ms (eager, CUDA events)")
+    pair_ms = out["flash_bwd_dkv"]["ms"] + out["flash_bwd_dq"]["ms"]
+    log(f"[timing] sdpa bf16 forward {sdpa_fwd_ms:.4f} ms, backward {sdpa_bwd_ms:.4f} ms (B2 + B3 "
+        f"{pair_ms:.4f} ms, ratio {pair_ms / sdpa_bwd_ms:.3f}); flash_attention_bf16 forward + "
+        f"backward {ours_fb_ms:.4f} ms (device time, torch.profiler)")
     out["flash_fwd"]["fwd_bwd_ms"] = ours_fb_ms
     return out, errs
 
@@ -1492,9 +1654,10 @@ def _grads(params, tokens, targets, cfg):
 
 
 # the wrappers a train step may launch, by attention kind
-TRAIN_KERNELS = {"bf16": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+TRAIN_KERNELS = {"bf16": ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq"),
                  "int8": ("quant_int8", "int8_fwd", "int8_bwd_dkv", "int8_bwd_dq")}
-_COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_dkv": flash_bwd_dkv,
+_COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_prep": bwd_prep,
+            "flash_bwd_dkv": flash_bwd_dkv,
             "flash_bwd_dq": flash_bwd_dq, "quant_int8": quant_int8,
             "int8_fwd": int8_attention_fwd_from_quantized, "int8_bwd_dkv": int8_bwd_dkv,
             "int8_bwd_dq": int8_bwd_dq, "decode": decode_attention,
@@ -1747,10 +1910,27 @@ def phase_int8_kernels(dev, gen) -> dict:
 INT8_BWD_GQA = (2, 16, 4, 2048)
 
 
+def profiled_ms(fn, calls: int = 10) -> float:
+    """Device time of one `fn()` call: its kernels' device time summed by
+    torch.profiler over `calls` eager calls, after one warm-up call. For work
+    whose host dispatch outruns its device time in an eager loop (the
+    port's autograd calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / calls / 1e3
+
+
 def _sdpa_bwd_ms(q, k, v, do) -> float:
     """SDPA's backward alone on bf16 copies, causal, K/V repeated over the GQA
-    group: (forward + backward) - forward, from CUDA events around an eager
-    loop (phases 7 and 8)."""
+    group: (forward + backward) - forward, each by CUDA-graph replays after
+    eager warm-up calls (phases 7 and 8)."""
     rep = q.shape[1] // k.shape[1]
     qb, kb, vb = (x.to(torch.bfloat16).requires_grad_(True)
                   for x in (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
@@ -1764,7 +1944,9 @@ def _sdpa_bwd_ms(q, k, v, do) -> float:
         torch.autograd.grad(F.scaled_dot_product_attention(qb, kb, vb, is_causal=True),
                             (qb, kb, vb), dob)
 
-    return eager_ms(fwd_bwd) - eager_ms(fwd)
+    for _ in range(3):
+        fwd_bwd()
+    return device_ms(fwd_bwd) - device_ms(fwd)
 
 
 def _int8_bwd_times(q, k, v, do, sdpa_bwd_ms=None) -> tuple[dict, object]:
@@ -1856,8 +2038,9 @@ def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         torch.autograd.grad(sage_attention_int8(*leaves, causal=True), leaves, do)
 
-    fb_ms = eager_ms(fwd_bwd)
-    log(f"[timing] sage_attention_int8 forward + backward {fb_ms:.4f} ms (eager, CUDA events); "
+    fb_ms = profiled_ms(fwd_bwd)
+    log(f"[timing] sage_attention_int8 forward + backward {fb_ms:.4f} ms (device time, "
+        f"torch.profiler); "
         f"sdpa bf16 forward {sdpa['fwd']:.4f} ms, backward {sdpa['bwd']:.4f} ms")
     out["int8_fwd"]["fwd_bwd_ms"] = fb_ms
     return out
@@ -2589,6 +2772,11 @@ def main() -> None:
                                              "jvp_oracle": oracle_launches[kname]},
                         "max_abs_err": max(bwd_err[kname], train_err[kname]),
                         **timing[kname]})
+    kernels[-2].update(  # fast mode's prep launches run in every B2/B3 call of the train paths
+        also_runs="quantizedattention_tpu_torch/csrc/flash_bwd.cu bwd_prep_kernel (q_s, dO_s, lse "
+                  "and D, once a fast call) and csrc/flash_fwd.cu kv_to_bf16_kernel (f32 K, V)",
+        prep_launches_by_path={"train": train_launches["flash_bwd_prep"],
+                               "train_gqa": gqa_launches["flash_bwd_prep"]})
     for kname, source, replaces in (
             ("quant_int8", "quant_int8.cu", "quantizedattention_tpu/quantize/int8.py:66"),
             ("int8_fwd", "int8_fwd.cu", "quantizedattention_tpu/ops/int8_fwd.py:68"),

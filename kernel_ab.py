@@ -1,8 +1,9 @@
 """Time kernels of two checkouts of the PyTorch port on one GPU, in turns:
 the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, the
-int8 backward (B7 dK/dV, B8 dQ) and the corrected-bf16 flash forward (B1).
+int8 backward (B7 dK/dV, B8 dQ), the corrected-bf16 flash forward (B1) and
+its backward (B2 dK/dV, B3 dQ).
 
-    python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd]
+    python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd] [flash_bwd]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
 (every part without a third argument). Each checkout is timed in its own
@@ -15,7 +16,13 @@ wrapper `flash_attention_fwd`, causal, at the serving prefill (8, 16, 256,
 64) on bf16 inputs, the training shape (4, 16, 2048, 64) on f32 and on bf16
 inputs, (4, 16, {4096, 8192}, 64) bf16 and GQA rep 4 (4, 16 q / 4 kv, 4096,
 64) bf16, each call also split by torch.profiler into the B1 kernel's device
-time and the rest of the call (the wrapper's prep launches). A time is the
+time and the rest of the call (the wrapper's prep launches); the backward's
+fast mode, B2 and B3 on prepared operands and the whole
+`flash_attention_bwd` call on the model's inputs (f32 [b, h, t, 64] views
+of [b, t, h, 64] tensors, O and lse from B1), at (4, 16, {2048, 4096,
+8192}, 64) and GQA rep 4 (2, 16 q / 4 kv, 2048, 64), causal, the call split
+by torch.profiler into B2, B3 and the rest (the operand prep), and exact
+mode's B2 and B3 at the first shape. A time is the
 mean device time of one wrapper call, from CUDA-graph replays as in
 chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
 checkouts see the same ones. Prints one JSON line a run and a summary line a
@@ -36,7 +43,9 @@ BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048))  # (b, h, h_kv, t = s), causa
 FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
               (4, 16, 16, 2048, "bfloat16"), (4, 16, 16, 4096, "bfloat16"),
               (4, 16, 16, 8192, "bfloat16"), (4, 16, 4, 4096, "bfloat16"))
-PARTS = ("weights", "int8_bwd", "flash_fwd")
+# (b, h, h_kv, t = s), causal, f32 inputs as the model hands them in
+FLASH_BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048), (4, 16, 16, 4096), (4, 16, 16, 8192))
+PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd")
 
 
 def _device_ms(torch, fn, calls=20, replays=10) -> float:
@@ -101,9 +110,10 @@ def _int8_bwd_rows(torch, gen, dev) -> dict:
     return rows
 
 
-def _kernel_split_ms(torch, fn, calls=20) -> tuple[float, float]:
-    """(the B1 kernel's device time, every other launch's) per `fn()` call,
-    from torch.profiler over `calls` eager calls."""
+def _kernel_split_ms(torch, fn, names=("flash_fwd_kernel",), calls=20) -> list[float]:
+    """The device time per `fn()` call of each kernel in `names` (by CUDA
+    function name), then of every other launch, from torch.profiler over
+    `calls` eager calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -112,14 +122,12 @@ def _kernel_split_ms(torch, fn, calls=20) -> tuple[float, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernel = other = 0.0
+    split = [0.0] * (len(names) + 1)
     for e in prof.key_averages():
         if e.device_type.name == "CUDA":
-            if "flash_fwd_kernel" in e.key:
-                kernel += e.self_device_time_total
-            else:
-                other += e.self_device_time_total
-    return kernel / calls / 1e3, other / calls / 1e3
+            at = next((i for i, n in enumerate(names) if f"{n}(" in e.key), len(names))
+            split[at] += e.self_device_time_total
+    return [x / calls / 1e3 for x in split]
 
 
 def _flash_fwd_rows(torch, gen, dev) -> dict:
@@ -139,6 +147,34 @@ def _flash_fwd_rows(torch, gen, dev) -> dict:
     return rows
 
 
+def _flash_bwd_rows(torch, gen, dev) -> dict:
+    from quantizedattention_tpu_torch.ops import (bwd_operands, flash_attention_bwd,
+                                                  flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq)
+
+    rows = {}
+    for b, h, h_kv, t in FLASH_BWD_SHAPES:
+        q, k, v, do = (torch.randn((b, t, n, 64), generator=gen, device=dev).transpose(1, 2)
+                       for n in (h, h_kv, h_kv, h))
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True)
+
+        def call():
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=True, fast=True)
+
+        b2, b3, prep = _kernel_split_ms(torch, call, ("dkv_kernel_bf16", "dq_kernel_bf16"))
+        row = rows[f"b={b} h={h} h_kv={h_kv} t={t} f32 causal"] = {
+            "b2_ms": _device_ms(torch, lambda: flash_bwd_dkv(ops)),
+            "b3_ms": _device_ms(torch, lambda: flash_bwd_dq(ops)),
+            "call_ms": _device_ms(torch, call), "call_b2_ms": b2, "call_b3_ms": b3,
+            "call_prep_ms": prep}
+        if (b, h, h_kv, t) == FLASH_BWD_SHAPES[0]:  # exact mode (FFMA) at the first shape
+            ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=False)
+            row["b2_exact_ms"] = _device_ms(torch, lambda: flash_bwd_dkv(ops), calls=4, replays=5)
+            row["b3_exact_ms"] = _device_ms(torch, lambda: flash_bwd_dq(ops), calls=4, replays=5)
+        del ops
+    return rows
+
+
 def run_one(tree: str, parts) -> None:
     """Time `tree`'s kernels; print one JSON object."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -153,6 +189,8 @@ def run_one(tree: str, parts) -> None:
         rows.update(_int8_bwd_rows(torch, gen, dev))
     if "flash_fwd" in parts:
         rows.update(_flash_fwd_rows(torch, gen, dev))
+    if "flash_bwd" in parts:
+        rows.update(_flash_bwd_rows(torch, gen, dev))
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
 
 

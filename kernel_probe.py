@@ -1,9 +1,10 @@
 """Where the time of a kernel goes, on one GPU: the weight matmuls (B17
 csrc/int8_linear.cu, B18 csrc/int4_linear.cu), the int8 backward (B7 and
-B8, csrc/int8_bwd.cu) and the bf16 flash forward (B1, csrc/flash_fwd.cu);
-and one numerics witness, bwd_exact.
+B8, csrc/int8_bwd.cu), the bf16 flash forward (B1, csrc/flash_fwd.cu) and
+its backward's fast mode (B2 and B3, csrc/flash_bwd.cu); and one numerics
+witness, bwd_exact.
 
-    python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [bwd_exact]
+    python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                                                   (all without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
@@ -55,15 +56,30 @@ spills and C75xx notes are printed:
 and a copy that sums clock64 cycles by phase of the mainloop's step in each
 warpgroup, printed as cycles per key tile.
 
-bwd_exact times nothing: it holds B2/B3's exact mode (csrc/flash_bwd.cu) on
-chip_smoke.py phase 6's one-token case (1, 3 q / 1 kv heads, t = s = 1,
-causal) against a float64 evaluation of the same operands, beside the plain
-f32 version. There dS = P (dP - D) with O = V rounded to bf16, so dP - D is
-V's rounding error, and the f32 sums that form dP and D cancel. It prints
-each tensor's max|diff| / max|reference| for kernel vs plain (phase 6's
-gate, 1e-4), kernel vs float64 and plain vs float64: first on the inputs
-phase 6 drew when phase 3's edge cases took their inputs from the shared
-generator (its draws replayed), then the worst over 256 seeds of the case.
+flash_bwd, B2 and B3 in fast mode on prepared operands at (4,16,2048,64)
+and GQA rep 4 (2,16 q / 4 kv,2048,64), causal; each build's ptxas
+registers, spills and C75xx notes are printed:
+- stages_6: rings of 6 stages instead of 4;
+- no_exp: P takes its exponent's argument (no MUFU.EX2);
+- no_elementwise: P and dS are never computed (the products run on stale
+  fragments);
+- no_late_products: B2 skips dV and dK, B3 skips dQ;
+and a copy that sums clock64 cycles by phase of the mainloop's tile in each
+warpgroup, printed as cycles per tile. The stamps sit between products and
+their waits, so ptxas serializes that copy's wgmma (C7515): its phases say
+where a warpgroup waits, not how the unstamped kernel overlaps.
+
+bwd_exact times nothing: it holds B2/B3 (csrc/flash_bwd.cu) on chip_smoke.py
+phase 6's one-token case (1, 3 q / 1 kv heads, t = s = 1, causal) against a
+float64 evaluation of the same operands (the bf16-rounded ones in fast
+mode), beside the plain version, in exact mode and then in fast mode. There
+dS = P (dP - D) with O = V rounded to bf16, so dP - D is a rounding error
+and the f32 sums that form dP and D cancel. It prints each tensor's
+max|diff| / max|reference| for kernel vs plain (phase 6's gate: 1e-4 exact,
+1e-2 fast), kernel vs float64 and plain vs float64: in exact mode first on
+the inputs phase 6 drew when phase 3's edge cases took their inputs from the
+shared generator (its draws replayed), then, in each mode, the worst over
+256 seeds of the case and the seeds over the gate and over half of it.
 Exits non-zero without a GPU.
 """
 
@@ -177,12 +193,18 @@ def _build_lib(name: str, src: str) -> ctypes.CDLL:
     if proc.returncode:
         raise SystemExit(f"kernel_probe: build of {name} failed:\n{proc.stderr[-3000:]}")
     lib = ctypes.CDLL(os.path.join(OUT_DIR, f"lib{name}.so"))
-    if name.startswith("fwd"):
+    lib.ptxas = [f"[ptxas] {name}: {line.split(' in function')[0].strip()}"
+                 for line in proc.stderr.splitlines()
+                 if "C75" in line or "spill" in line or "registers" in line]
+    if name.startswith("fbwd"):
+        from quantizedattention_tpu_torch.ops import flash_bwd as fbwd
+        ref = fbwd._kernels()
+        for fn in ("qa_flash_bwd_dkv", "qa_flash_bwd_dq"):
+            getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    elif name.startswith("fwd"):
         lib.qa_flash_fwd.argtypes = tfwd.ARGTYPES["qa_flash_fwd"]
         lib.qa_flash_fwd.restype = ctypes.c_int
-        for line in proc.stderr.splitlines():
-            if "C75" in line or "spill" in line or "registers" in line:
-                print(f"[ptxas] {name}: {line.split(' in function')[0].strip()}", flush=True)
     elif name.startswith("bwd"):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
@@ -524,6 +546,7 @@ def probe_flash_fwd(smi) -> None:
     jobs["fwd_split"] = _fwd_split_source()
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    print("\n".join(line for lib in libs.values() for line in lib.ptxas), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b, h, t in FWD_SHAPES:
         q, k, v = (torch.randn((b, h, t, 64), generator=gen, device="cuda").to(torch.bfloat16)
@@ -551,6 +574,116 @@ def probe_flash_fwd(smi) -> None:
                   + f"; all {per.sum():.0f}", flush=True)
 
 
+# --- the bf16 flash backward's fast mode (B2, B3) ---
+
+SRC_FBWD = os.path.join(_build.CSRC_DIR, "flash_bwd.cu")
+FBWD_SHAPES = [(4, 16, 16, 2048), (2, 16, 4, 2048)]  # (b, h, h_kv, t = s), causal
+_B2_EXP = "      p[e] = exp2_ftz(st[4 * n + e] - ((e & 1) ? l2.y : l2.x));"
+_B3_EXP = "      float p = exp2_ftz(sc[4 * n + e] - lse_r[h]);"
+_B2_COMPUTE = "    if (q0 + TILE > t || kw0 + 64 > s"
+_B3_COMPUTE = "    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0))"
+_B2_LATE = "    {  // dV += P^T dO"
+_B3_LATE = "    {  // dQ += dS K"
+FBWD_VARIANTS = {
+    "fbwd_as_is": [],
+    "fbwd_stages_6": [("constexpr int DKV_STAGES = 4;", "constexpr int DKV_STAGES = 6;"),
+                      ("constexpr int DQ_STAGES = 4;", "constexpr int DQ_STAGES = 6;")],
+    "fbwd_no_exp": [(_B2_EXP, _B2_EXP.replace("exp2_ftz(", "(")),
+                    (_B3_EXP, _B3_EXP.replace("exp2_ftz(", "("))],
+    "fbwd_no_elementwise": [(_B2_COMPUTE, _SKIP + _B2_COMPUTE), (_B3_COMPUTE, _SKIP + _B3_COMPUTE)],
+    "fbwd_no_late_products": [(_B2_LATE, _SKIP + _B2_LATE), (_B3_LATE, _SKIP + _B3_LATE)],
+}
+# (anchor, phase ended there, insert before the anchor?) of each kernel's mainloop
+_LOOP_END = "  }}\n  wgmma_wait<0>();\n  reg_fence({acc});"
+B2_PHASES = [("    mbar_wait(full(st), (i / DKV_STAGES) & 1);\n", "TMA wait", False),
+             ("    wgmma_wait<1>();\n", "issue S, dP", True),
+             ("    if (i > 0) release_stage(", "wait last dV, dK", True),
+             ("    wgmma_wait<0>();  // this tile's S^T", "release", True),
+             ("    const float* rw = ", "wait S, dP", True),
+             (_B2_LATE, "P, dS", True),
+             (_LOOP_END.format(acc="dv_acc"), "issue dV, dK", True)]
+B3_PHASES = [("    wgmma_wait<1>();\n", "issue S, dP", True),
+             ("    if (j > 0) release(j - 1);", "wait last dQ", True),
+             ("    wgmma_wait<0>();  // this tile's S and dP", "release", True),
+             ("    // masking only where the tile reaches past s", "wait S, dP", True),
+             ("    if (j + 1 < n_tiles) mbar_wait(", "dS", True),
+             (_B3_LATE, "TMA wait (next tile)", True),
+             (_LOOP_END.format(acc="dq_acc"), "issue dQ", True)]
+
+
+def _fbwd_split_source() -> str:
+    src = open(SRC_FBWD).read().replace('#include "hopper.cuh"\n', _SPLIT_HEAD)
+    src = _split_kernel(src, "dkv_kernel_bf16(const", "  for (int i = 0; i < n_tiles; ++i) {",
+                        "#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    if (key[h] >= s)",
+                        B2_PHASES, 0)
+    src = _split_kernel(src, "dq_kernel_bf16(const", "  for (int j = 0; j < n_tiles; ++j) {",
+                        "#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    if (!live[h])",
+                        B3_PHASES, 1)
+    return src + ('\nextern "C" int qa_probe_cycles(void* host) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(host, g_cyc, sizeof(g_cyc));\n}\n'
+                  'extern "C" int qa_probe_reset() {\n  void* p = nullptr;\n'
+                  '  cudaGetSymbolAddress(&p, g_cyc);\n'
+                  '  return (int)cudaMemset(p, 0, sizeof(g_cyc));\n}\n')
+
+
+def _fbwd_call(lib, ops, kernel):
+    """One fast launch of B2 (kernel "dkv") or B3 ("dq") from an altered
+    build, as ops/flash_bwd.py's wrappers launch it."""
+    from quantizedattention_tpu_torch.ops import flash_bwd as fbwd
+    dev, bh_kv, rep, t, s, ld, bq = fbwd._launch_args(ops)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [x.data_ptr() for x in (ops.q, ops.k, ops.v, ops.do, ops.lse, ops.di)]
+    if kernel == "dkv":
+        dk = torch.empty((bh_kv, s, 64), dtype=torch.float32, device=dev)
+        dv = torch.empty_like(dk)
+        status = lib.qa_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), bh_kv, rep, t, s, ld,
+                                      int(ops.causal), 1, 1.0 / ops.qk_scale, 1.0 / ops.sm_scale,
+                                      stream)
+    else:
+        dq = torch.empty((bh_kv, rep, t, 64), dtype=torch.float32, device=dev)
+        status = lib.qa_flash_bwd_dq(*ptrs, dq.data_ptr(), bh_kv, rep, t, s, ld, bq,
+                                     int(ops.causal), 1, stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def probe_flash_bwd(smi) -> None:
+    from quantizedattention_tpu_torch.ops import bwd_operands, flash_attention_fwd
+    jobs = {name: _altered(edits, SRC_FBWD) for name, edits in FBWD_VARIANTS.items()}
+    jobs["fbwd_split"] = _fbwd_split_source()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    print("\n".join(line for lib in libs.values() for line in lib.ptxas), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, h_kv, t in FBWD_SHAPES:
+        q, k, v, do = (torch.randn((b, n, t, 64), generator=gen, device="cuda")
+                       for n in (h, h_kv, h_kv, h))
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True)
+        for kernel, name in (("dkv", "B2"), ("dq", "B3")):
+            times = {v_: _device_us(lambda v_=v_: _fbwd_call(libs[v_], ops, kernel))
+                     for v_ in FBWD_VARIANTS}
+            print(f"[probe] {name} ({b},{h},{h_kv},{t},64) causal: "
+                  + ", ".join(f"{v_[5:]} {us:.2f}" for v_, us in times.items()) + f" us ({smi})",
+                  flush=True)
+        lib = libs["fbwd_split"]
+        lib.qa_probe_reset()
+        _fbwd_call(lib, ops, "dkv")
+        _fbwd_call(lib, ops, "dq")
+        torch.cuda.synchronize()
+        cyc = np.zeros((2, 8192, 2, 9), dtype=np.int64)
+        lib.qa_probe_cycles(ctypes.c_void_p(cyc.ctypes.data))
+        for which, (name, phases) in enumerate((("B2", B2_PHASES), ("B3", B3_PHASES))):
+            for wg in (0, 1):
+                c = cyc[which, :, wg]
+                tiles = c[:, 8].sum()
+                per = c[:, :len(phases)].sum(axis=0) / max(tiles, 1)
+                print(f"[split] {name} ({b},{h},{h_kv},{t},64) causal, warpgroup {wg}, cycles "
+                      f"per mainloop tile ({tiles} tiles): " + ", ".join(
+                          f"{label} {x:.0f}" for (_, label, _), x in zip(phases, per))
+                      + f"; all {per.sum():.0f}", flush=True)
+
+
 # --- B2/B3 exact mode against float64 (a witness, not a timing) ---
 
 ONE_TOKEN = (1, 3, 1, 1, 1, True)  # chip_smoke.py BWD_EDGE_CASES[-1]
@@ -571,14 +704,14 @@ def _bwd_f64(ops):
             (p.transpose(-1, -2) @ do).sum(1) / ops.sm_scale)
 
 
-def _bwd_exact_readings(q, k, v, do, causal):
+def _bwd_exact_readings(q, k, v, do, causal, fast=False):
     """{tensor: (kernel vs plain, kernel vs f64, plain vs f64)}, each
     max|diff| / max|reference|, on B1's forward of (q, k, v)."""
     from quantizedattention_tpu_torch.ops import (bwd_operands, flash_attention_fwd, flash_bwd_dkv,
                                                   flash_bwd_dkv_plain, flash_bwd_dq,
                                                   flash_bwd_dq_plain)
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
-    ops = bwd_operands(q, k, v, o, lse, do, causal=causal, fast=False)
+    ops = bwd_operands(q, k, v, o, lse, do, causal=causal, fast=fast)
     got = (flash_bwd_dq(ops), *flash_bwd_dkv(ops))
     plain = (flash_bwd_dq_plain(ops), *flash_bwd_dkv_plain(ops))
     exact = _bwd_f64(ops)
@@ -619,27 +752,31 @@ def probe_bwd_exact(smi) -> None:
     dev = torch.device("cuda", 0)
     b, h, h_kv, t, s, causal = ONE_TOKEN
     print(f"[bwd_exact] (1,3q/1kv,1,64) causal, kernel vs plain / kernel vs f64 / plain vs f64, "
-          f"each max|diff| / max|reference| (phase 6's gate: kernel vs plain <= 1e-4) ({smi})",
-          flush=True)
+          f"each max|diff| / max|reference| (phase 6's gate: kernel vs plain <= 1e-4 exact, "
+          f"<= 1e-2 fast) ({smi})", flush=True)
     readings = _bwd_exact_readings(*_replayed_phase6_inputs(dev), causal)
     print(f"[bwd_exact] phase 6's inputs with phase 3's edge cases on the shared generator: "
           f"{_fmt(readings)}", flush=True)
-    worst, over = {}, 0
-    for seed in range(256):
-        gen = torch.Generator(device=dev).manual_seed(1000 + seed)
-        qkvdo = [torch.randn((b, n, m, 64), generator=gen, device=dev)
-                 for n, m in ((h, t), (h_kv, s), (h_kv, s), (h, t))]
-        r = _bwd_exact_readings(*qkvdo, causal)
-        over += max(a for a, _, _ in r.values()) > 1e-4
-        worst = {n: tuple(max(x, y) for x, y in zip(r[n], worst.get(n, (0.0,) * 3))) for n in r}
-    print(f"[bwd_exact] 256 seeds: kernel vs plain over 1e-4 on {over}; worst {_fmt(worst)}",
-          flush=True)
+    for mode, fast, gate in (("exact", False, 1e-4), ("fast", True, 1e-2)):
+        worst, over, half = {}, 0, 0
+        for seed in range(256):
+            gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+            qkvdo = [torch.randn((b, n, m, 64), generator=gen, device=dev)
+                     for n, m in ((h, t), (h_kv, s), (h_kv, s), (h, t))]
+            r = _bwd_exact_readings(*qkvdo, causal, fast)
+            top = max(a for a, _, _ in r.values())
+            over += top > gate
+            half += top > gate / 2
+            worst = {n: tuple(max(x, y) for x, y in zip(r[n], worst.get(n, (0.0,) * 3)))
+                     for n in r}
+        print(f"[bwd_exact] {mode} mode, 256 seeds: kernel vs plain over {gate:g} on {over}, over "
+              f"half of it on {half}; worst {_fmt(worst)}", flush=True)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
-    every = ["weights", "int8_bwd", "flash_fwd", "bwd_exact"]
+    every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact"]
     parts = sys.argv[1:] or every
     if set(parts) - set(every):
         sys.exit(__doc__)
@@ -652,6 +789,8 @@ def main() -> None:
         probe_int8_bwd(smi)
     if "flash_fwd" in parts:
         probe_flash_fwd(smi)
+    if "flash_bwd" in parts:
+        probe_flash_bwd(smi)
     if "bwd_exact" in parts:
         probe_bwd_exact(smi)
 

@@ -1,5 +1,5 @@
 """Launch geometry of the corrected-bf16 flash forward (csrc/flash_fwd.cu, B1
-bf16 mode).
+bf16 mode) and of its backward's fast mode (csrc/flash_bwd.cu, B2 and B3).
 
 Pure Python, so the CPU tests can hold it. A block has BLOCK_ROWS query
 rows, two warpgroups of 64, which hold one kv head's whole GQA group: bq =
@@ -10,6 +10,14 @@ r // bq at position q0 + r % bq (rows from rep * bq on are dead). The grid is
 first. Keys are walked in tiles of KV_TILE through a ring of KV_STAGES TMA
 stages (K and V of one tile a stage). The constants mirror the kernel's,
 and `shared_bytes` is held against the kernel's own count on the card.
+
+The backward (the second section) streams 64-row tiles through rings of TMA
+stages in both kernels. B2 takes 128 keys a block (two warpgroups of 64) and
+walks, for each q head of the GQA group, the 64-row q tiles that see its
+keys; B3 takes BLOCK_ROWS rows a block, as the forward does (bq positions of
+every q head of the group), and walks the 64-key tiles its rows see. The
+kernels compute those walks themselves. Their shared bytes are held against
+the kernels' own counts on the card as well.
 """
 
 from __future__ import annotations
@@ -54,3 +62,46 @@ def grid(bh_kv: int, rep: int, t: int) -> tuple[int, tuple[int, int]]:
         raise ValueError(f"kernel takes 1 to {MAX_Q_TILES} q tiles of {bq}; got t={t}")
     return bq, (bh_kv, n_qt)
 
+
+
+# --------------------------------------------------------------------------
+# The backward's fast mode, B2 (dK, dV) and B3 (dQ)
+# --------------------------------------------------------------------------
+
+BWD_TILE = 64  # q positions a B2 tile, keys a B3 tile
+DKV_KEYS = 128  # keys a B2 block: two warpgroups of 64
+DKV_STAGES = 4  # q_s / dO_s tiles (with their lse and D) in flight (B2)
+DQ_STAGES = 4  # K / V tiles in flight (B3)
+_BF_TILE = BWD_TILE * HEAD_DIM * 2  # bytes of a bf16 tile
+
+
+def dkv_shared_bytes() -> int:
+    """B2's dynamic shared memory: K and V [128, 64] bf16, the ring of q_s and
+    dO_s tiles with each tile's lse and D (64 floats each), 128 bytes of
+    mbarriers and release counters and 1024 bytes to align the swizzled
+    tiles."""
+    return 4 * _BF_TILE + DKV_STAGES * (2 * _BF_TILE + 2 * BWD_TILE * 4) + 128 + 1024
+
+
+def dq_shared_bytes() -> int:
+    """B3's dynamic shared memory: Q [128, 64] bf16, the ring of K and V
+    tiles, 128 bytes of mbarriers and counters and 1024 bytes of alignment."""
+    return 2 * _BF_TILE + DQ_STAGES * 2 * _BF_TILE + 128 + 1024
+
+
+def lse_row_stride(t: int) -> int:
+    """The row stride (floats) of the fast mode's lse and D, [b * h, ld]: t
+    rounded up to 4, so that a row starts on 16 bytes (TMA)."""
+    return -(-t // 4) * 4
+
+
+def bwd_grids(bh_kv: int, rep: int, t: int, s: int) -> tuple[int, tuple[int, int], tuple[int, int]]:
+    """(bq, B2's grid, B3's grid), each grid (x, y) = (b * h_kv, key tiles of
+    128 or row blocks of bq positions); raises where a kernel takes no launch."""
+    bq = block_positions(bh_kv, rep)
+    dkv = (bh_kv, -(-s // DKV_KEYS))
+    dq = (bh_kv, -(-t // bq))
+    if min(t, s) < 1 or max(dkv[1], dq[1]) > MAX_Q_TILES:
+        raise ValueError(f"kernels take 1 to {MAX_Q_TILES} key tiles of {DKV_KEYS} and row "
+                         f"blocks of {bq}; got t={t}, s={s}")
+    return bq, dkv, dq

@@ -1,5 +1,6 @@
 """The bf16 flash forward's launch geometry (B1, csrc/flash_fwd.cu) and its Q
-rounding rule.
+rounding rule, and the launch geometry of the backward's fast mode (B2 and
+B3, csrc/flash_bwd.cu).
 
 `ops.flash_tiling` holds what the wrapper passes to the kernel (bq query
 positions a block, the grid) and the kernel's shared bytes. Checked here for
@@ -10,6 +11,16 @@ exactly once; one block's shared memory fits an H100, and the grid's limits
 raise. The Q rounding rule the kernel applies to each element, bf16(f32(q) *
 f32(qk_scale)) rounded to nearest even, gives the bytes of the JAX package's
 q.astype(f32) * qk_scale -> bf16 on f32 and on bf16 inputs.
+
+For the backward, at every rep from 1 to 128 on ragged, cross and one-token
+shapes, causal and not: B2's 128-key blocks and the 64-row q tiles they
+walk (the kernel's rule, restated here) cover every (key, position) pair
+that attention computes exactly once, B3's blocks cover every (q head,
+position) once and walk the key tiles up to the last key one of their rows
+sees, the lse/D row stride
+starts each row on 16 bytes, each block's shared memory fits an H100, and
+the grids' limits raise (the wrappers check them before asking for CUDA
+tensors).
 """
 
 import jax.numpy as jnp
@@ -112,3 +123,100 @@ def test_q_rounding_rule_matches_jax(dtype, sm_scale):
     xt = torch.from_numpy(x32).to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
     plain = (xt.float() * qk_scale).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
     np.testing.assert_array_equal(plain, want)
+
+
+# --------------------------------------------------------------------------
+# The backward's fast mode: B2 (dK, dV) and B3 (dQ)
+# --------------------------------------------------------------------------
+
+BWD_SHAPES = [(1000, 1000), (200, 330), (330, 200), (77, 201), (1, 1), (1, 300), (128, 128),
+              (40, 300), (1280, 1280)]
+
+
+def _visible(t, s, causal):
+    """The (key, position) pairs attention computes."""
+    k, p = np.meshgrid(np.arange(s), np.arange(t), indexing="ij")
+    return (k <= p) if causal else np.ones((s, t), dtype=bool)
+
+
+def _check_bwd_geometry(rep, t, s, causal):
+    bq, dkv, dq = tiling.bwd_grids(5, rep, t, s)
+    tile = tiling.BWD_TILE
+    assert dkv == (5, -(-s // tiling.DKV_KEYS)) and dq == (5, -(-t // bq))
+    # B2: each block's q tiles (causal, from the tile holding position k0 on,
+    # as csrc/flash_bwd.cu's j0; each inside [0, t) or its last ragged tile)
+    # cover each pair of its keys that attention computes exactly once
+    vis = _visible(t, s, causal)
+    cover = np.zeros((s, t), dtype=int)
+    n_qt = -(-t // tile)
+    for kb in range(dkv[1]):
+        k0 = kb * tiling.DKV_KEYS
+        keys = slice(k0, min(k0 + tiling.DKV_KEYS, s))
+        for j in range(min(k0 // tile, n_qt) if causal else 0, n_qt):
+            assert j * tile < t
+            cover[keys, j * tile:min(j * tile + tile, t)] += 1
+    assert (cover[vis] == 1).all(), (rep, t, s, causal)
+    assert cover.max() <= 1
+    # B3: blocks of bq positions (last first, as the kernel walks them) cover
+    # [0, t) once per q head; each walks the key tiles up to the last key one
+    # of its rows sees (causal, csrc/flash_bwd.cu's kv_hi = min(s, t, q0 + bq))
+    starts = [(dq[1] - 1 - y) * bq for y in range(dq[1])]
+    assert sorted(p for q0 in starts for p in range(q0, min(q0 + bq, t))) == list(range(t))
+    assert rep * bq <= tiling.BLOCK_ROWS
+    for q0 in starts:
+        n_tiles = -(-(min(s, t, q0 + bq) if causal else s) // tile)
+        rows = vis[:, q0:min(q0 + bq, t)]
+        last_seen = int(np.nonzero(rows.any(axis=1))[0].max()) + 1
+        assert (n_tiles - 1) * tile < last_seen <= n_tiles * tile, (rep, t, s, causal, q0)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 8, 16, 64, 127, 128])
+def test_bwd_tiles_cover_each_visible_pair_once(rep):
+    for t, s in BWD_SHAPES:
+        for causal in (True, False):
+            _check_bwd_geometry(rep, t, s, causal)
+
+
+@pytest.mark.parametrize("t", TS)
+def test_lse_row_stride_starts_rows_on_16_bytes(t):
+    ld = tiling.lse_row_stride(t)
+    assert t <= ld < t + 4 and ld * 4 % 16 == 0
+
+
+def test_bwd_shared_memory_fits_one_block():
+    dkv, dq = tiling.dkv_shared_bytes(), tiling.dq_shared_bytes()
+    assert max(dkv, dq) <= tiling.SMEM_LIMIT
+    tile = tiling.BWD_TILE * 64 * 2
+    # B2: K, V and the q_s / dO_s ring with each tile's lse and D; B3: Q and
+    # the K / V ring
+    dkv_floor = 4 * tile + tiling.DKV_STAGES * (2 * tile + 2 * tiling.BWD_TILE * 4)
+    dq_floor = 2 * tile + tiling.DQ_STAGES * 2 * tile
+    assert dkv_floor < dkv <= dkv_floor + 2048
+    assert dq_floor < dq <= dq_floor + 2048
+    assert tiling.DKV_STAGES >= 3 and tiling.DQ_STAGES >= 3
+
+
+@pytest.mark.parametrize("bh_kv, rep, t, s, match", [
+    (1, 129, 64, 64, "rep <= 128"),
+    (1, 0, 64, 64, "rep <= 128"),
+    (65536, 1, 64, 64, "b\\*h_kv"),
+    (1, 1, 64, 128 * 65536, "key tiles"),
+    (1, 128, 65536, 64, "row"),
+    (1, 1, 0, 64, "key tiles"),
+])
+def test_bwd_geometry_refusals(bh_kv, rep, t, s, match):
+    with pytest.raises(ValueError, match=match):
+        tiling.bwd_grids(bh_kv, rep, t, s)
+
+
+def test_bwd_wrappers_check_the_geometry_first():
+    """rep 129 is refused by the geometry before the wrapper asks for CUDA
+    tensors, and rep 128 passes it (then wants CUDA)."""
+    from quantizedattention_tpu_torch.ops.flash_bwd import _launch_args, bwd_operands
+
+    for h, match in ((129, "rep <= 128"), (128, "CUDA")):
+        q = torch.zeros((1, h, 4, 64))
+        k = torch.ones((1, 1, 4, 64))
+        ops = bwd_operands(q, k, k, q, torch.zeros((1, h, 4)), q, causal=True, fast=True)
+        with pytest.raises(ValueError, match=match):
+            _launch_args(ops)

@@ -238,6 +238,41 @@ def test_rows_and_keys_past_the_end_contribute_nothing():
     torch.testing.assert_close(dv_p, dv0[:, :, :n], rtol=1e-5, atol=1e-5)
 
 
+# The exact backward at one token (1, 3 q / 1 kv heads, t = s = 1, causal):
+# O is V rounded to bf16, so dP - D = dO . (V - bf16(V)) is about 2^-9 of
+# dP, and an f32 sum of dP would decide dS (its rounding amplified ~500x).
+# With dP summed in float64 and D subtracted there, the plain exact version
+# stays within f32 rounding of a float64 evaluation of the same operands.
+ONE_TOKEN_F64_TOL = 1e-5
+
+
+def _bwd_f64(ops):
+    """(dq, dk, dv) of the exact backward on `ops`, evaluated in float64 (the
+    plain versions' formulas; the same f32 D)."""
+    q, k, v, do = (x.double() for x in (ops.q, ops.k[:, None], ops.v[:, None], ops.do))
+    t, s = q.shape[2], k.shape[2]
+    scores = q @ k.transpose(-1, -2)
+    if ops.causal:
+        scores = torch.where(torch.ones((t, s), dtype=torch.bool).tril(), scores, -30000.0)
+    p = torch.exp2(scores - ops.lse.double()[..., None])
+    ds = p * (do @ v.transpose(-1, -2) - ops.di.double()[..., None])
+    return (ds @ k, (ds.transpose(-1, -2) @ q).sum(1) / ops.qk_scale,
+            (p.transpose(-1, -2) @ do).sum(1) / ops.sm_scale)
+
+
+@pytest.mark.parametrize("seed", range(32))
+def test_exact_bwd_one_token_matches_float64(seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_t(rng.standard_normal(shape, np.float32))
+                   for shape in ((1, 3, 1, 64), (1, 1, 1, 64), (1, 1, 1, 64), (1, 3, 1, 64)))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=False)
+    got = (flash_bwd_dq(ops), *flash_bwd_dkv(ops))
+    for name, g, w in zip(("dq", "dk", "dv"), got, _bwd_f64(ops)):
+        rel = ((g.double() - w).abs().max() / w.abs().max()).item()
+        assert rel <= ONE_TOKEN_F64_TOL, (name, rel)
+
+
 # --------------------------------------------------------------------------
 # The LM: lm_loss, its gradients and AdamW steps against the JAX package
 # --------------------------------------------------------------------------
