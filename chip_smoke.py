@@ -6,11 +6,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
-     holds the bf16 flash forward's and backward's, the int8 forward's and
-     backward's and the weight matmuls' shared bytes against their launch
-     geometry (ops/flash_tiling.py, ops/int8_tiling.py, ops/linear_tiling.py),
-     and fails if ptxas spills or serializes wgmma (a C75xx note) in the bf16
-     flash forward or backward;
+     holds the flash forward's (bf16 and fp32 modes) and backward's, B11
+     fast's, the int8 forward's and backward's and the weight matmuls' shared
+     bytes against their launch geometry (ops/flash_tiling.py,
+     ops/jvp_tiling.py, ops/int8_tiling.py, ops/linear_tiling.py), and fails
+     if ptxas spills or serializes wgmma (a C75xx note) in the flash forward
+     (both modes) or backward or in B11 fast and its prep;
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
      multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
@@ -105,7 +106,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      lse, mu), B10 (tO given O and lse), B11 (dK, dV, dtK, dtV) and B12
      (dQ, dtQ), B9-B12 in fast and exact mode, at (2, 4, 1024, 64) causal
      and not, the DiT's attention shape (4, 4, 4096, 64), 77x201 causal and
-     not, (1, 3, 33, 130) causal and not, and one token;
+     not, (1, 3, 33, 130) causal and not, and one token, and B1 fp32 at GQA
+     rep 4 (2, 8 q / 2 kv, 300, 64) causal and at its tile edges (t > s and
+     t < s causal, rep 3, one query, one key); B1 fp32 and B11 fast called
+     twice for the same bits at each, and their prep launches (B1's K/V
+     split, B11's bf16 operands and row terms) byte-equal to the plain preps;
  18. BASELINE config 5's gate: attention_value_and_jvp (exact) and
      torch.func.jvp of attention_jvp at (1, 2, 4096, 64) against the fp32
      oracle's (O, tO), 0 mismatches at atol 1e-2; at (1, 2, 256, 64),
@@ -113,15 +118,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      attention_jvp against autograd through the oracle; fast against
      exact;
  19. timing of B1 fp32 (beside F.scaled_dot_product_attention on the same
-     f32 inputs) and B9-B12 in both modes, at the DiT's attention shape
+     f32 inputs; its bounds as 3xTF32 on the tensor cores and as fp32 on
+     the CUDA cores) and B9-B12 in both modes, at the DiT's attention shape
      (4, 4, 4096, 64) beside their plain versions and at bench.py's
-     bench_jvp shape (4, 16, 4096, 64), non-causal;
+     bench_jvp shape (4, 16, 4096, 64), non-causal; B1 fp32's and B11
+     fast's calls split into their prep launch and the kernel;
  20. the rCM distillation step of the DiT at BASELINE config 5
      (DiTConfig(seq_len=4096): d_model 256, 4 heads, 2 layers; batch 4;
      `ada` and `out` drawn at 1/sqrt(fan_in), so attention reaches the
      loss), fast=True: 1 warm-up + 5 AdamW steps through make_dit_rcm_step,
      losses finite and falling, each step launching B1 fp32, B9, B11 and
-     B12 n_layers times and no other kernel; step time, tokens/s and peak
+     B12 and the prep launches of B1 fp32 and B11 n_layers times and no
+     other kernel; step time, tokens/s and peak
      memory; torch.profiler over one more step; at seq 512 the loss and
      every gradient against the CPU plain path, (u, du/dt) against finite
      differences, and torch.func.jvp of dit_forward through B10.
@@ -213,6 +221,8 @@ from quantizedattention_tpu_torch.ops import (
     jvp_bwd_dq,
     jvp_bwd_dq_plain,
     jvp_bwd_operands,
+    jvp_bwd_prep,
+    jvp_bwd_prep_plain,
     bwd_operands,
     bwd_prep,
     flash_attention_bwd,
@@ -249,9 +259,11 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_fp32,
     flash_attention_fwd_plain,
+    kv_split_tf32,
+    kv_split_tf32_plain,
     kv_to_bf16,
 )
-from quantizedattention_tpu_torch.ops import flash_tiling
+from quantizedattention_tpu_torch.ops import flash_tiling, jvp_tiling
 from quantizedattention_tpu_torch.models.transformer import (
     _decode_logits,
     _verify_logits,
@@ -385,6 +397,7 @@ DIT_JVP_REL_L2 = 1e-2
 # bound is the larger of its operations over the peak of their type and its
 # bytes (each input read once, each output written once) over HBM bandwidth.
 PEAK_BF16, PEAK_INT8, PEAK_FP32, HBM_BYTES_S = 989e12, 1979e12, 67e12, 3.35e12
+PEAK_TF32 = 494.7e12
 
 BENCH_CFG = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=16, n_kv_heads=16,
                               head_dim=64, n_layers=4, max_seq=1280)
@@ -489,14 +502,18 @@ def phase_build() -> None:
              flash_tiling.dkv_shared_bytes()),
             ("flash_bwd dQ", flash_bwd_lib.qa_flash_bwd_dq_smem_bytes(),
              flash_tiling.dq_shared_bytes()),
+            ("flash_fwd fp32", _build.load_kernel("flash_fwd").qa_flash_fwd_f32_smem_bytes(),
+             flash_tiling.fp32_shared_bytes()),
+            ("jvp dK/dV fast", _build.load_kernel("jvp").qa_jvp_bwd_dkv_smem_bytes(),
+             jvp_tiling.dkv_shared_bytes()),
             ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
             ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes())):
         if got != want:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
-                                 f"geometry (ops/flash_tiling.py, ops/int8_tiling.py) says "
-                                 f"{want}")
+                                 f"geometry (ops/flash_tiling.py, ops/int8_tiling.py, "
+                                 f"ops/jvp_tiling.py) says {want}")
     for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phase 15 makes
         half = -(-k // 256) * 128  # quantize_weight_int4's packed rows at group 128
         for name, plan in (("int8_linear", plan_int8(m, k, n)),
@@ -510,14 +527,30 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # the bf16 flash forward and backward keep every wgmma asynchronous (no
-    # C75xx note) and spill nothing
-    for name in ("flash_fwd", "flash_bwd"):
-        bad = [line for line in _build.build_log(name).splitlines()
-               if "serialized" in line or "(C75" in line
-               or ("spill" in line and " 0 bytes spill stores" not in line)]
+    # the flash forward (both modes) and backward and B11 fast keep every
+    # wgmma asynchronous (no C75xx note) and spill nothing
+    for name, only in (("flash_fwd", None), ("flash_bwd", None),
+                       ("jvp", ("jvp_dkv_wgmma", "jvp_bwd_prep_kernel"))):
+        bad = _ptxas_faults(_build.build_log(name), only)
         if bad:
             raise AssertionError(f"{name}'s ptxas notes: {bad}")
+
+
+def _ptxas_faults(log_text: str, only=None) -> list:
+    """The lines of a ptxas -v log that phase 2 fails on: a C75xx note
+    (wgmma serialized or waited on) anywhere, and a spill in any function or,
+    given `only`, in the functions whose mangled names hold one of `only`."""
+    bad, function = [], ""
+    for line in log_text.splitlines():
+        if "Function properties for" in line or "Compiling entry function" in line:
+            function = line
+        if "serialized" in line or "(C75" in line:
+            bad.append(line.strip())
+        elif "spill" in line and not (" 0 bytes spill stores" in line
+                                      and " 0 bytes spill loads" in line):
+            if only is None or any(name in function for name in only):
+                bad.append(f"{function.strip()}: {line.strip()}")
+    return bad
 
 
 FLASH_CASES = [  # (b, h, h_kv, t, s, causal)
@@ -1663,8 +1696,9 @@ _COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_prep": bwd_prep,
             "int8_bwd_dq": int8_bwd_dq, "decode": decode_attention,
             "int8_fused": int8_attention_fwd_fused, "int8_linear": int8_weight_matmul,
             "int4_linear": int4_weight_matmul, "flash_fwd_fp32": flash_attention_fwd_fp32,
+            "flash_fwd_fp32_prep": kv_split_tf32,
             "jvp_fwd": attention_jvp_fwd, "jvp_tangent": attention_tangent_fwd,
-            "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq,
+            "jvp_bwd_prep": jvp_bwd_prep, "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq,
             "paged_decode": paged_decode_attention, "decode4": decode_attention_int4,
             "paged4_decode": paged4_decode_attention, "verify": verify_decode_attention,
             "paged_verify": paged_verify_attention, "verify4": verify_decode_attention_int4,
@@ -2340,12 +2374,18 @@ def phase_weight_kernels(dev, gen) -> dict:
 # --------------------------------------------------------------------------
 
 JVP_KERNELS = ("flash_fwd_fp32", "jvp_fwd", "jvp_tangent", "jvp_bwd_dkv", "jvp_bwd_dq")
+JVP_PREPS = ("flash_fwd_fp32_prep", "jvp_bwd_prep")  # B1 fp32's and B11 fast's prep launches
 # (b, h, t, s, causal): a square pair; the DiT's attention shape (the rCM
 # step's); odd cross lengths; a ragged t < s; one token
 JVP_CASES = [(2, 4, 1024, 1024, True), (2, 4, 1024, 1024, False),
              (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len, DIT_CFG.seq_len, False),
              (1, 4, 77, 201, True), (1, 4, 77, 201, False), (1, 3, 33, 130, True),
              (1, 3, 33, 130, False), (1, 2, 1, 1, True)]
+
+
+# B1 fp32's tile edges (b, h, h_kv, t, s, causal)
+FP32_EDGE_CASES = [(1, 2, 2, 330, 200, True), (1, 2, 2, 200, 330, True), (1, 6, 2, 129, 65, False),
+                   (1, 2, 2, 1, 300, False), (1, 2, 2, 300, 1, True), (2, 4, 4, 128, 64, True)]
 
 
 def _jvp_inputs(gen, dev, b, h, t, s):
@@ -2355,11 +2395,36 @@ def _jvp_inputs(gen, dev, b, h, t, s):
     return q, k, v, tq, tk, tv, do, dto
 
 
+def _same_bits(kernel, first, second, label) -> None:
+    """A second call of a kernel gave the first call's bits."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"[jvp] {label}: a second {kernel} call gave other bits")
+
+
+def _bits(x):
+    """x's bytes as integers of its width (bf16 or f32), for byte equality."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def _check_jvp_preps(q, k, v, ops, label) -> None:
+    """B1 fp32's K/V prep and B11 fast's prep against their plain versions,
+    byte for byte (the row terms are copies)."""
+    got, want = kv_split_tf32(k, v), kv_split_tf32_plain(k, v)
+    (ops_b, rows), (ops_w, rows_w) = jvp_bwd_prep(ops), jvp_bwd_prep_plain(ops)
+    torch.cuda.synchronize()
+    pairs = [*zip(got, want), *zip(ops_b, ops_w), (rows, rows_w)]
+    if not all(torch.equal(_bits(g), _bits(w)) for g, w in pairs):
+        raise AssertionError(f"[jvp] {label}: a prep launch differs from its plain version")
+
+
 def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
     """B1 fp32 and B9-B12 in both modes against their plain versions on one
     case, by max|diff| / max|plain| per tensor (lse, and the gradients that
-    vanish at one key: max|diff|), raising outside the tolerances. Returns
-    each kernel's max|diff|."""
+    vanish at one key: max|diff|), raising outside the tolerances; B1 fp32
+    and B11 fast called twice for the same bits, and their prep launches
+    held byte for byte against the plain preps. Returns each kernel's
+    max|diff|."""
     err, msgs = dict.fromkeys(JVP_KERNELS, 0.0), []
     absolute = {"lse"} | ({"dk", "dtk", "dq", "dtq"} if k.shape[2] == 1 else set())
 
@@ -2377,9 +2442,10 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
             raise AssertionError(f"[jvp] {label}: {msgs[-1]} (tol {tol}): the kernel disagrees "
                                  "with its plain version")
 
-    hold("flash_fwd_fp32", "fp32", JVP_EXACT_TOL, ("o", "lse"),
-         flash_attention_fwd_fp32(q, k, v, causal=causal),
+    b1 = flash_attention_fwd_fp32(q, k, v, causal=causal)
+    hold("flash_fwd_fp32", "fp32", JVP_EXACT_TOL, ("o", "lse"), b1,
          flash_attention_fwd_plain(q, k, v, causal=causal, precision="fp32"))
+    _same_bits("flash_fwd_fp32", b1, flash_attention_fwd_fp32(q, k, v, causal=causal), label)
     for fast in (False, True):
         mode, tol = ("fast", BWD_FAST_TOL) if fast else ("exact", JVP_EXACT_TOL)
         fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, causal=causal, fast=fast)
@@ -2392,11 +2458,15 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
              [attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)])
         ops = jvp_bwd_operands(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal=causal,
                                fast=fast)
-        hold("jvp_bwd_dkv", mode, tol, ("dk", "dv", "dtk", "dtv"), jvp_bwd_dkv(ops),
-             jvp_bwd_dkv_plain(ops))
+        dkv = jvp_bwd_dkv(ops)
+        hold("jvp_bwd_dkv", mode, tol, ("dk", "dv", "dtk", "dtv"), dkv, jvp_bwd_dkv_plain(ops))
+        if fast:
+            _same_bits("jvp_bwd_dkv", dkv, jvp_bwd_dkv(ops), label)
+            _check_jvp_preps(q, k, v, ops, label)
         hold("jvp_bwd_dq", mode, tol, ("dq", "dtq"), jvp_bwd_dq(ops), jvp_bwd_dq_plain(ops))
     log(f"[jvp] {label} (tol exact {JVP_EXACT_TOL}, fast B9 {JVP_FWD_FAST_TOL}, fast B10-B12 "
-        f"{BWD_FAST_TOL}): " + "; ".join(msgs))
+        f"{BWD_FAST_TOL}; B1 fp32 and B11 fast bit-equal on a second call, their preps "
+        f"byte-equal): " + "; ".join(msgs))
     return err
 
 
@@ -2409,7 +2479,8 @@ def phase_jvp_kernels(dev, gen) -> dict:
     # B1's fp32 mode is GQA-native, as its bf16 mode: rep 4, a ragged length
     q, k, v, _ = _qkvdo(gen, dev, 2, 8, 2, 300, 300)
     o, lse = flash_attention_fwd_fp32(q, k, v, causal=True)
-    torch.cuda.synchronize()
+    _same_bits("flash_fwd_fp32", (o, lse), flash_attention_fwd_fp32(q, k, v, causal=True),
+               "GQA (2,8q/2kv,300,64)")
     o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=True, precision="fp32")
     err_o = (o - o_p).abs().max().item()
     err_l = (lse - lse_p).abs().max().item()
@@ -2419,12 +2490,30 @@ def phase_jvp_kernels(dev, gen) -> dict:
     if max(rel_o, err_l) > JVP_EXACT_TOL:
         raise AssertionError("flash_fwd_fp32 disagrees with its plain version under GQA")
     errs.append({**dict.fromkeys(JVP_KERNELS, 0.0), "flash_fwd_fp32": err_o})
+    # B1 fp32's tile edges: t > s and t < s causal, ragged 64-key and
+    # 128-position tiles, rep 3, one query, one key
+    msgs = []
+    for b, h, h_kv, t, s, causal in FP32_EDGE_CASES:
+        label = f"({b},{h}q/{h_kv}kv,{t}x{s},64) causal={causal}"
+        q, k, v, _ = _qkvdo(gen, dev, b, h, h_kv, t, s)
+        got = flash_attention_fwd_fp32(q, k, v, causal=causal)
+        _same_bits("flash_fwd_fp32", got, flash_attention_fwd_fp32(q, k, v, causal=causal), label)
+        o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=causal, precision="fp32")
+        err = (got[0] - o_p).abs().max().item()
+        rel, err_l = err / o_p.abs().max().item(), (got[1] - lse_p).abs().max().item()
+        msgs.append(f"{label} O {rel:.2e} lse {err_l:.2e}")
+        if max(rel, err_l) > JVP_EXACT_TOL or not torch.isfinite(got[0]).all():
+            raise AssertionError(f"flash_fwd_fp32 disagrees with its plain version at {label}")
+        errs.append({**dict.fromkeys(JVP_KERNELS, 0.0), "flash_fwd_fp32": err})
+    log(f"[jvp] flash_fwd_fp32 tile edges (tol {JVP_EXACT_TOL}; each bit-equal on a second "
+        "call): " + "; ".join(msgs))
     return _worst(*errs)
 
 
 def _jvp_launches() -> dict:
     counts = _launch_counts()
-    return {k: counts[k] for k in (*JVP_KERNELS, "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd")}
+    return {k: counts[k] for k in (*JVP_KERNELS, *JVP_PREPS, "flash_bwd_dkv", "flash_bwd_dq",
+                                   "flash_fwd")}
 
 
 def _within(got, want, tol) -> tuple[bool, float]:
@@ -2524,15 +2613,24 @@ def phase_jvp_timing(dev, gen) -> dict:
                   "jvp_bwd_dq": lambda m: jvp_bwd_dq_plain(ops[m])}
         r = out["flash_fwd_fp32"]
         r[f"{tag}ms"] = few(lambda: flash_attention_fwd_fp32(q, k, v))
+        r[f"{tag}prep_ms"] = few(lambda: kv_split_tf32(k, v))
+        r[f"{tag}kernel_ms"] = r[f"{tag}ms"] - r[f"{tag}prep_ms"]
         r[f"{tag}library_ms"] = few(lambda: F.scaled_dot_product_attention(q, k, v))
-        b1 = bound(nbytes(q, k, v, o, lse), (2 * prod, PEAK_FP32))
+        # the kernel's work, 3xTF32: 6 TF32 products; the same function on
+        # the CUDA cores: 2 fp32 products
+        b1 = bound(nbytes(q, k, v, o, lse), (6 * prod, PEAK_TF32))
         r.update({f"{tag}{key}": val for key, val in b1.items()})
+        r[f"{tag}fp32_bound_ms"] = bound(nbytes(q, k, v, o, lse), (2 * prod, PEAK_FP32))["bound_ms"]
         if not tag:
             r["plain_ms"] = few(lambda: flash_attention_fwd_plain(q, k, v, precision="fp32"))
+        r = out["jvp_bwd_dkv"]  # B11 fast's call, split into its prep launch and the kernel
+        r[f"{tag}prep_ms"] = few(lambda: jvp_bwd_prep(ops[True]))
         for name in dots:
             main = name != "jvp_tangent"  # fast for the rCM step's kernels
             r = out[name]
             r[f"{tag}ms"] = few(lambda: calls[name](main))
+            if name == "jvp_bwd_dkv":
+                r[f"{tag}kernel_ms"] = r[f"{tag}ms"] - r[f"{tag}prep_ms"]
             r[f"{tag}other_ms"] = few(lambda: calls[name](not main))
             for mode, peak in ((main, PEAK_BF16 if main else PEAK_FP32),
                                (not main, PEAK_BF16 if not main else PEAK_FP32)):
@@ -2549,10 +2647,15 @@ def phase_jvp_timing(dev, gen) -> dict:
         r["bench_shape"] = "({},{},{},64)".format(*JVP_BENCH_SHAPE)
         if name == "flash_fwd_fp32":
             r["library_call"] = "F.scaled_dot_product_attention, f32 inputs"
-            log(f"[timing] flash_fwd_fp32 {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, sdpa f32 {r['library_ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.4f} ms; {r['bench_shape']}: kernel {r['bench_ms']:.4f} ms, sdpa f32 "
-                f"{r['bench_library_ms']:.4f} ms, bound {r['bench_bound_ms']:.4f} ms")
+            r["bound_kind"] = "3xTF32 on the tensor cores; fp32_bound_ms: 2 fp32 products on FFMA"
+            log(f"[timing] flash_fwd_fp32 {r['shape']}: call {r['ms']:.4f} ms = prep "
+                f"{r['prep_ms']:.4f} + kernel {r['kernel_ms']:.4f}, plain {r['plain_ms']:.4f} ms, "
+                f"sdpa f32 {r['library_ms']:.4f} ms, bound 3xTF32 {r['bound_ms']:.4f} ms, fp32 "
+                f"CUDA cores {r['fp32_bound_ms']:.4f} ms; {r['bench_shape']}: call "
+                f"{r['bench_ms']:.4f} ms = prep {r['bench_prep_ms']:.4f} + kernel "
+                f"{r['bench_kernel_ms']:.4f}, sdpa f32 {r['bench_library_ms']:.4f} ms, bound "
+                f"3xTF32 {r['bench_bound_ms']:.4f} ms, fp32 CUDA cores "
+                f"{r['bench_fp32_bound_ms']:.4f} ms")
             continue
         r["library_ms"] = None
         r["library_call"] = "none (no single call)"
@@ -2562,6 +2665,10 @@ def phase_jvp_timing(dev, gen) -> dict:
             f"{r['other_bound_ms']:.4f}), plain {r['mode']} {r['plain_ms']:.4f} ms; {r['bench_shape']}: "
             f"{r['mode']} {r['bench_ms']:.4f} ms (bound {r['bench_bound_ms']:.4f}), {other} "
             f"{r['bench_other_ms']:.4f} ms (bound {r['bench_other_bound_ms']:.4f})")
+        if name == "jvp_bwd_dkv":
+            log(f"[timing] jvp_bwd_dkv fast call = prep + kernel: {r['shape']} {r['prep_ms']:.4f} "
+                f"+ {r['kernel_ms']:.4f} ms; {r['bench_shape']} {r['bench_prep_ms']:.4f} + "
+                f"{r['bench_kernel_ms']:.4f} ms")
     return out
 
 
@@ -2630,7 +2737,8 @@ def _dit_checks(dev, params, x, t) -> dict:
         f"{rel_fd:.3e} (tol 0.05); torch.func.jvp(dit_forward) (exact, B10) vs the fast pair "
         f"path rel L2 {rel_j:.3e} (tol {DIT_JVP_REL_L2}); its launches {launches}")
     want = {k: 0 for k in launches}
-    want.update(flash_fwd_fp32=cfg.n_layers, jvp_tangent=cfg.n_layers)
+    want.update(flash_fwd_fp32=cfg.n_layers, flash_fwd_fp32_prep=cfg.n_layers,
+                jvp_tangent=cfg.n_layers)
     if not (rel_fd < 0.05 and rel_j <= DIT_JVP_REL_L2 and launches == want):
         raise AssertionError("dit_jvp_step disagrees with finite differences or with "
                              "torch.func.jvp of dit_forward, or the forward-mode DiT did not "
@@ -2638,8 +2746,10 @@ def _dit_checks(dev, params, x, t) -> dict:
     return launches
 
 
-# each rCM step runs the fp32 prepass (B1 fp32), B9 forward, B11 + B12 backward
-DIT_STEP_KERNELS = ("flash_fwd_fp32", "jvp_fwd", "jvp_bwd_dkv", "jvp_bwd_dq")
+# each rCM step runs the fp32 prepass (B1 fp32 and its prep), B9 forward, B11
+# (and its prep) + B12 backward
+DIT_STEP_KERNELS = ("flash_fwd_fp32", "flash_fwd_fp32_prep", "jvp_fwd", "jvp_bwd_prep",
+                    "jvp_bwd_dkv", "jvp_bwd_dq")
 
 
 def phase_dit(dev, smi) -> tuple[dict, dict, dict]:
@@ -2683,7 +2793,7 @@ def phase_dit(dev, smi) -> tuple[dict, dict, dict]:
         f"tokens/s, max_memory_allocated {mem:.2f} GiB, launches per step "
         f"{ {k: n for k, n in per_step[0].items() if n} }; losses {[round(v, 6) for v in losses]}")
     _profile_dit_step(step, x, t)
-    launches = {k: sum(c[k] for c in per_step) for k in JVP_KERNELS}
+    launches = {k: sum(c[k] for c in per_step) for k in (*JVP_KERNELS, *JVP_PREPS)}
     return launches, jvp_launches, {"median_ms": med, "max_memory_gib": mem,
                                     "tokens_per_s": tokens / med * 1e3, "losses": losses}
 
@@ -2816,6 +2926,16 @@ def main() -> None:
                         "replaces": replaces, "launches_by_path": by_path,
                         "max_abs_err": jvp_err[kname], **jvp_timing[kname]})
     kernels[-5]["mode_of"] = "precision='fp32' of the B1 kernel"
+    for row, prep, what in (
+            (kernels[-5], "flash_fwd_fp32_prep", "csrc/flash_fwd.cu kv_split_tf32_kernel (K big and "
+                                                 "small, V^T big and small, once a call)"),
+            (kernels[-2], "jvp_bwd_prep", "csrc/jvp.cu jvp_bwd_prep_kernel (the eight operands in "
+                                          "bf16 and the row terms, once a fast call)")):
+        row["also_runs"] = f"quantizedattention_tpu_torch/{what}"
+        row["prep_launches_by_path"] = {
+            path: n for path, n in (("dit_rcm", dit_launches[prep]),
+                                    ("jvp_oracle", oracle_launches[prep]),
+                                    ("dit_jvp", dit_jvp_launches[prep])) if n}
     for kname, replaces in (("paged_decode", "quantizedattention_tpu/parallel/paged_cache.py:252"),
                             ("decode4", "quantizedattention_tpu/parallel/kv4_cache.py:341"),
                             ("paged4_decode",

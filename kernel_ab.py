@@ -1,9 +1,11 @@
 """Time kernels of two checkouts of the PyTorch port on one GPU, in turns:
 the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, the
 int8 backward (B7 dK/dV, B8 dQ), the corrected-bf16 flash forward (B1) and
-its backward (B2 dK/dV, B3 dQ).
+its backward (B2 dK/dV, B3 dQ), B1's fp32 mode and the second-order
+backward's fast dK/dV (B11).
 
     python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd] [flash_bwd]
+                                                   [flash_fwd_fp32] [jvp_bwd]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
 (every part without a third argument). Each checkout is timed in its own
@@ -22,7 +24,13 @@ fast mode, B2 and B3 on prepared operands and the whole
 of [b, t, h, 64] tensors, O and lse from B1), at (4, 16, {2048, 4096,
 8192}, 64) and GQA rep 4 (2, 16 q / 4 kv, 2048, 64), causal, the call split
 by torch.profiler into B2, B3 and the rest (the operand prep), and exact
-mode's B2 and B3 at the first shape. A time is the
+mode's B2 and B3 at the first shape; B1's fp32 mode (`flash_attention_fwd_fp32`,
+non-causal, on the DiT's f32 [b, h, t, 64] views of [b, t, h, 64] tensors)
+beside SDPA f32 on the same inputs, and B11 fast's whole `jvp_bwd_dkv` call
+(on `jvp_bwd_operands`' fast operands from B9's residuals), each at the DiT's
+attention shape (4, 4, 4096, 64) and bench_jvp's (4, 16, 4096, 64) and split
+by torch.profiler into the kernel (flash_fwd_f32_kernel; B11's jvp_dkv_mma
+or jvp_dkv_wgmma) and the rest of the call (its prep). A time is the
 mean device time of one wrapper call, from CUDA-graph replays as in
 chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
 checkouts see the same ones. Prints one JSON line a run and a summary line a
@@ -45,7 +53,9 @@ FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
               (4, 16, 16, 8192, "bfloat16"), (4, 16, 4, 4096, "bfloat16"))
 # (b, h, h_kv, t = s), causal, f32 inputs as the model hands them in
 FLASH_BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048), (4, 16, 16, 4096), (4, 16, 16, 8192))
-PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd")
+# (b, h, t = s), non-causal: the DiT's attention shape, bench_jvp's
+JVP_SHAPES = ((4, 4, 4096), (4, 16, 4096))
+PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd")
 
 
 def _device_ms(torch, fn, calls=20, replays=10) -> float:
@@ -175,6 +185,54 @@ def _flash_bwd_rows(torch, gen, dev) -> dict:
     return rows
 
 
+def _dit_views(torch, gen, dev, b, h, t, n):
+    """n f32 [b, h, t, 64] views of [b, t, h, 64] tensors, as the DiT hands
+    them to attention."""
+    return [torch.randn((b, t, h, 64), generator=gen, device=dev).transpose(1, 2)
+            for _ in range(n)]
+
+
+def _fwd_fp32_rows(torch, gen, dev) -> dict:
+    import torch.nn.functional as F
+
+    from quantizedattention_tpu_torch.ops import flash_attention_fwd_fp32
+
+    rows = {}
+    for b, h, t in JVP_SHAPES:
+        q, k, v = _dit_views(torch, gen, dev, b, h, t, 3)
+
+        def call():
+            return flash_attention_fwd_fp32(q, k, v)
+
+        kernel_ms, prep_ms = _kernel_split_ms(torch, call, ("flash_fwd_f32_kernel",), calls=5)
+        rows[f"fp32 b={b} h={h} t={t}"] = {
+            "call_ms": _device_ms(torch, call, calls=5, replays=5), "kernel_ms": kernel_ms,
+            "prep_ms": prep_ms,
+            "sdpa_f32_ms": _device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                                      calls=5, replays=5)}
+    return rows
+
+
+def _jvp_bwd_rows(torch, gen, dev) -> dict:
+    from quantizedattention_tpu_torch.ops import attention_jvp_fwd, jvp_bwd_dkv, jvp_bwd_operands
+
+    rows = {}
+    for b, h, t in JVP_SHAPES:
+        q, k, v, tq, tk, tv, do, dto = _dit_views(torch, gen, dev, b, h, t, 8)
+        fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, fast=True)
+        ops = jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd, do, dto, fast=True)
+
+        def call():
+            return jvp_bwd_dkv(ops)
+
+        mma, wgmma, prep = _kernel_split_ms(torch, call, ("jvp_dkv_mma", "jvp_dkv_wgmma"), calls=5)
+        rows[f"b11 fast b={b} h={h} t={t}"] = {
+            "call_ms": _device_ms(torch, call, calls=5, replays=5), "kernel_ms": mma + wgmma,
+            "prep_ms": prep}
+        del ops, fwd
+    return rows
+
+
 def run_one(tree: str, parts) -> None:
     """Time `tree`'s kernels; print one JSON object."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -191,6 +249,10 @@ def run_one(tree: str, parts) -> None:
         rows.update(_flash_fwd_rows(torch, gen, dev))
     if "flash_bwd" in parts:
         rows.update(_flash_bwd_rows(torch, gen, dev))
+    if "flash_fwd_fp32" in parts:
+        rows.update(_fwd_fp32_rows(torch, gen, dev))
+    if "jvp_bwd" in parts:
+        rows.update(_jvp_bwd_rows(torch, gen, dev))
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
 
 

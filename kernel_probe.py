@@ -1,11 +1,11 @@
 """Where the time of a kernel goes, on one GPU: the weight matmuls (B17
 csrc/int8_linear.cu, B18 csrc/int4_linear.cu), the int8 backward (B7 and
 B8, csrc/int8_bwd.cu), the bf16 flash forward (B1, csrc/flash_fwd.cu) and
-its backward's fast mode (B2 and B3, csrc/flash_bwd.cu); and one numerics
-witness, bwd_exact.
+its backward's fast mode (B2 and B3, csrc/flash_bwd.cu); and two numerics
+witnesses, bwd_exact and fwd_fp32.
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
-                                                  (all without arguments)
+                            [fwd_fp32] [jvp_bwd] [PARENT_CHECKOUT]  (all parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -80,6 +80,32 @@ max|diff| / max|reference| for kernel vs plain (phase 6's gate: 1e-4 exact,
 the inputs phase 6 drew when phase 3's edge cases took their inputs from the
 shared generator (its draws replayed), then, in each mode, the worst over
 256 seeds of the case and the seeds over the gate and over half of it.
+
+fwd_fp32 times nothing: it holds B1's fp32 mode (3xTF32, csrc/flash_fwd.cu)
+against float64 on the same inputs (q scaled by qk_scale in f32, as the
+kernels scale it) over 256 seeds at (1,3,300,64), causal and not, and prints
+the worst max|dO| / max|O| and max|dlse|. Given a parent checkout (a
+directory among the arguments) whose csrc/flash_fwd.cu holds the FFMA
+design's fp32 kernel, it builds that too (build/probe/) and holds it on the
+same inputs, with the ratio of the two designs' worst errors. Then B1
+fp32's kernel alone (on the K/V prep's outputs) at the DiT's (4,4,4096,64)
+and bench_jvp's (4,16,4096,64) shapes, non-causal, beside its knock-outs
+(each build's ptxas registers and C75xx notes printed):
+- 1xtf32: only the big.big products (16 of the 48 a tile);
+- no_exp: P takes its exponent's argument (no MUFU.EX2);
+- no_softmax: no softmax at all (P V runs on stale P);
+- no_pv: no P V products;
+- turns: warpgroup turns, each warpgroup issuing its products only after
+  the other issued its last (bar.sync / bar.arrive), so that one's softmax
+  could run under the other's products.
+
+jvp_bwd: B11 fast's kernel alone (on its prep's outputs) at the same two
+shapes beside its knock-outs:
+- no_exp: p takes its exponent's argument;
+- no_elementwise: p^T, tP^T, dS^T, tSb^T never computed (the second
+  products run on stale fragments);
+- no_second: no dV, dtV, dK, dtK products;
+- turns: warpgroup turns around each issue of products, as B1 fp32's.
 Exits non-zero without a GPU.
 """
 
@@ -101,13 +127,16 @@ from quantizedattention_tpu_torch.ops import flash_tiling
 from quantizedattention_tpu_torch.ops import int8_bwd as tbwd
 from quantizedattention_tpu_torch.ops import (int8_attention_fwd_from_quantized, int8_bwd_operands,
                                               quantize_qkv)
+from quantizedattention_tpu_torch.ops.common import LOG2_E, MASK_VALUE, tile_mask
 from quantizedattention_tpu_torch.ops.linear_tiling import plan_int4, plan_int8
+from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
 from quantizedattention_tpu_torch.quantize.weights import quantize_weight, quantize_weight_int4
 
 SRC = os.path.join(_build.CSRC_DIR, "int8_linear.cu")
 SRC4 = os.path.join(_build.CSRC_DIR, "int4_linear.cu")
 SRC_BWD = os.path.join(_build.CSRC_DIR, "int8_bwd.cu")
 SRC_FWD = os.path.join(_build.CSRC_DIR, "flash_fwd.cu")
+SRC_JVP = os.path.join(_build.CSRC_DIR, "jvp.cu")
 OUT_DIR = os.path.join(_build.BUILD_DIR, "probe")
 DECODE = [(8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024), (8, 1024, 8192)]
 PREFILL = [(2048, 1024, 4096), (2048, 4096, 1024)]
@@ -181,13 +210,14 @@ def _stamped() -> str:
                   '  return (int)cudaMemcpyFromSymbol(host, g_t, sizeof(g_t));\n}\n')
 
 
-def _build_lib(name: str, src: str) -> ctypes.CDLL:
-    """Compile one altered source into build/probe/lib<name>.so and load it."""
+def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CDLL:
+    """Compile one altered source into build/probe/lib<name>.so (its headers
+    from `include`) and load it."""
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"{name}.cu")
     with open(path, "w") as f:
         f.write(src)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, path, "-o",
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", include, path, "-o",
            os.path.join(OUT_DIR, f"lib{name}.so")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
@@ -205,6 +235,16 @@ def _build_lib(name: str, src: str) -> ctypes.CDLL:
     elif name.startswith("fwd"):
         lib.qa_flash_fwd.argtypes = tfwd.ARGTYPES["qa_flash_fwd"]
         lib.qa_flash_fwd.restype = ctypes.c_int
+    elif name.startswith("f32v"):
+        lib.qa_flash_fwd_f32.argtypes = tfwd.ARGTYPES["qa_flash_fwd_f32"]
+        lib.qa_flash_fwd_f32.restype = ctypes.c_int
+    elif name.startswith("dkvv"):
+        from quantizedattention_tpu_torch.ops import jvp_bwd as tjvp
+        lib.qa_jvp_bwd_dkv_bf16.argtypes = tjvp._kernels().qa_jvp_bwd_dkv_bf16.argtypes
+        lib.qa_jvp_bwd_dkv_bf16.restype = ctypes.c_int
+    elif name.startswith("ffma"):  # the FFMA design's fp32 entry (q pre-scaled, all contiguous)
+        lib.qa_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.qa_flash_fwd_f32.restype = ctypes.c_int
     elif name.startswith("bwd"):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
@@ -773,12 +813,242 @@ def probe_bwd_exact(smi) -> None:
               f"half of it on {half}; worst {_fmt(worst)}", flush=True)
 
 
+FP32_CASE = (1, 3, 300)  # (b, h = h_kv, t = s), head_dim 64
+FP32_SEEDS = 256
+JVP_SHAPES = [(4, 4, 4096), (4, 16, 4096)]  # (b, h, t = s), non-causal: the DiT's, bench_jvp's
+# B1 fp32's knock-outs (each computes wrong results on purpose)
+_F32_S_SMALL = ("""    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage + 2 * F_BLK, 0));  // Q big . K small
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage + 2 * F_BLK, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+      wgmma_tf32_m64n64k8_ss(sacc, desc_f32(qs_base, kk), desc_f32(stage, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q big . K big
+      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
+""", """    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
+""")
+_F32_PV_SMALL = """#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P small . V big
+      wgmma_tf32_m64n64k8_rs(oacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V small
+      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
+"""
+_F32_PV_BIG = """#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V big
+      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+"""
+_F32_SOFTMAX = "    if (edge(j))\n      softmax_tf32<true>"
+# warpgroup turns: each warpgroup issues its products only after the other
+# issued its last ones (bar.sync on its own barrier, bar.arrive on the
+# other's), so one's elementwise work could run under the other's products
+_ARRIVE = ('#include "hopper.cuh"\n', '#include "hopper.cuh"\n'
+           "__device__ __forceinline__ void named_barrier_arrive(int id, int count) {\n"
+           '  asm volatile("bar.arrive %0, %1;\\n" ::"r"(id), "r"(count) : "memory");\n}\n')
+
+
+def _turns(first):
+    """The turn lambdas on barriers first, first + 1 (warpgroup 0's, 1's)."""
+    return (f"  auto take_turn = [&]() {{ named_barrier({first} + wg, 256); }};\n"
+            f"  auto pass_turn = [&]() {{ named_barrier_arrive({first + 1} - wg, 256); }};\n")
+
+
+_F32_TURNS = [
+    _ARRIVE,
+    ("  mbar_wait(full(0), 0);\n  reg_fence(sacc);\n  wgmma_fence();\n  issue_s(stage_of(0));\n",
+     _turns(3) + "  if (wg == 1) pass_turn();\n  mbar_wait(full(0), 0);\n  reg_fence(sacc);\n"
+     "  take_turn();\n  wgmma_fence();\n  issue_s(stage_of(0));\n  pass_turn();\n"),
+    ("    reg_fence(ps);\n    wgmma_fence();\n#pragma unroll\n    for (int kk = 0; kk < F_KEYS / 8;",
+     "    reg_fence(ps);\n    take_turn();\n    wgmma_fence();\n#pragma unroll\n"
+     "    for (int kk = 0; kk < F_KEYS / 8;"),
+    ("    issue_s(stage_of(jn));\n    wgmma_wait<0>();\n",
+     "    issue_s(stage_of(jn));\n    if (wg == 0 || j + 1 < n_tiles) pass_turn();\n"
+     "    wgmma_wait<0>();\n"),
+]
+F32_VARIANTS = {
+    "f32v_as_is": [],
+    "f32v_1xtf32": [_F32_S_SMALL, (_F32_PV_SMALL, "")],
+    "f32v_no_exp": [("const float p = MASK && !visible(i) ? 0.f : exp2f(s[i] - m[h]);",
+                     "const float p = MASK && !visible(i) ? 0.f : (s[i] - m[h]);")],
+    "f32v_no_softmax": [(_F32_SOFTMAX, _SKIP + _F32_SOFTMAX)],
+    "f32v_no_pv": [(_F32_PV_SMALL + _F32_PV_BIG, "")],
+    "f32v_turns": _F32_TURNS,
+}
+# B11 fast's knock-outs
+_DKV_TERMS = "    if (q0 + JD_ROWS > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))\n      dkv_terms<true>"
+DKV_VARIANTS = {
+    "dkvv_as_is": [],
+    "dkvv_no_exp": [("float pe = exp2_ftz(st[i] * qk_scale - (odd ? lse2.y : lse2.x));",
+                     "float pe = (st[i] * qk_scale - (odd ? lse2.y : lse2.x));")],
+    "dkvv_no_elementwise": [(_DKV_TERMS, _SKIP + _DKV_TERMS)],
+    "dkvv_no_second": [],  # the second products cut out: _dkv_source
+    "dkvv_turns": [
+        _ARRIVE,
+        ("  if (n_tiles > 0) mbar_wait(kv_bar, 0);\n",
+         _turns(1) + "  if (n_tiles > 0) mbar_wait(kv_bar, 0);\n"
+         "  if (n_tiles > 0 && wg == 1) pass_turn();\n"),
+        ("    mbar_wait(full(st), (i / JD_STAGES) & 1);\n",
+         "    mbar_wait(full(st), (i / JD_STAGES) & 1);\n    if (i == 0) take_turn();\n"),
+        ("      wgmma_commit();\n    }\n    // the last tile's second products are done",
+         "      wgmma_commit();\n    }\n    pass_turn();\n"
+         "    // the last tile's second products are done"),
+        ("      const uint64_t ddto = desc_mnmajor_sw128(tiles + 3 * JD_TILE);\n      wgmma_fence();\n",
+         "      const uint64_t ddto = desc_mnmajor_sw128(tiles + 3 * JD_TILE);\n      take_turn();\n"
+         "      wgmma_fence();\n"),
+        ("  wgmma_wait<0>();\n  reg_fence(dk_acc);\n",
+         "  if (n_tiles > 0 && wg == 0) pass_turn();\n  wgmma_wait<0>();\n  reg_fence(dk_acc);\n"),
+    ],
+}
+_DKV_SECOND = ("#pragma unroll\n      for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dV += p^T dO",
+               "      wgmma_commit();\n    }\n  }\n  wgmma_wait<0>();\n  reg_fence(dk_acc);")
+
+
+def _dkv_source(name) -> str:
+    """jvp.cu with B11 fast's knock-out `name`."""
+    src = _altered(DKV_VARIANTS[name], SRC_JVP)
+    if name == "dkvv_no_second":
+        a, b = src.index(_DKV_SECOND[0]), src.index(_DKV_SECOND[1])
+        src = src[:a] + src[b:]
+    return src
+
+
+def _fp32_f64(q, k, v, causal, qk_scale):
+    """B1 fp32's function in float64 on the same inputs, q scaled by qk_scale
+    in f32 first (as both designs scale it): (O, lse)."""
+    t, s = q.shape[2], k.shape[2]
+    scores = (q * qk_scale).double() @ k.double().transpose(-1, -2)
+    mask = tile_mask(0, 0, t, s, s, causal, device=q.device)
+    scores = torch.where(mask, scores, MASK_VALUE)
+    m = scores.amax(-1, keepdim=True) + EPS_BIAS
+    p = torch.where(mask, torch.exp2(scores - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    return (p @ v.double()) / l, (m + torch.log2(l))[..., 0]
+
+
+def _ffma_fp32(lib, q, k, v, causal, qk_scale):
+    """The FFMA design's fp32 kernel (a parent checkout's csrc/flash_fwd.cu),
+    launched as its wrapper launched it: q pre-scaled in f32, all contiguous."""
+    b, h, t, d = q.shape
+    qs = (q * qk_scale).contiguous()
+    o = torch.empty_like(qs)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    status = lib.qa_flash_fwd_f32(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  lse.data_ptr(), b * h, 1, t, k.shape[2], int(causal),
+                                  torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: the FFMA fp32 launch failed with status {status}")
+    return o, lse
+
+
+def _f32_call(lib, q, prep, o, lse):
+    """One launch of B1 fp32 from an altered build on the K/V prep's outputs."""
+    b, h, t, _ = q.shape
+    s = prep[0].shape[1]
+    status = lib.qa_flash_fwd_f32(q.data_ptr(), *tfwd._strides(q), *(x.data_ptr() for x in prep),
+                                  o.data_ptr(), lse.data_ptr(), b, h, h, t, s, 0, 0.125 * LOG2_E,
+                                  torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def probe_fwd_fp32(smi, parent=None) -> None:
+    """B1 fp32 against float64 over FP32_SEEDS seeds at FP32_CASE, causal and
+    not: this checkout's kernel (3xTF32) and, given a parent checkout, its
+    FFMA kernel, on the same inputs; then the kernel's knock-outs timed."""
+    designs = {"3xTF32": lambda q, k, v, c: tfwd.flash_attention_fwd_fp32(q, k, v, causal=c)}
+    if parent:
+        csrc = os.path.join(parent, "quantizedattention_tpu_torch", "csrc")
+        with open(os.path.join(csrc, "flash_fwd.cu")) as f:
+            lib = _build_lib("ffma_parent", f.read(), csrc)
+        designs["FFMA"] = lambda q, k, v, c: _ffma_fp32(lib, q, k, v, c, 0.125 * LOG2_E)
+    b, h, t = FP32_CASE
+    for causal in (False, True):
+        worst = {name: [0.0, 0.0] for name in designs}
+        for seed in range(FP32_SEEDS):
+            gen = torch.Generator(device="cuda").manual_seed(2000 + seed)
+            q, k, v = (torch.randn((b, h, t, 64), generator=gen, device="cuda") for _ in range(3))
+            o64, lse64 = _fp32_f64(q, k, v, causal, 0.125 * LOG2_E)
+            for name, fn in designs.items():
+                o, lse = fn(q, k, v, causal)
+                torch.cuda.synchronize()
+                worst[name][0] = max(worst[name][0],
+                                     ((o.double() - o64).abs().max() / o64.abs().max()).item())
+                worst[name][1] = max(worst[name][1], (lse.double() - lse64).abs().max().item())
+        ratio = ""
+        if "FFMA" in worst:
+            ratio = (f"; 3xTF32 / FFMA: O {worst['3xTF32'][0] / worst['FFMA'][0]:.2f}x, lse "
+                     f"{worst['3xTF32'][1] / worst['FFMA'][1]:.2f}x (the design's gate: 4x)")
+        print(f"[fwd_fp32] ({b},{h},{t},64) causal={causal}, {FP32_SEEDS} seeds, worst against "
+              "float64, max|dO| / max|O| and max|dlse|: "
+              + "; ".join(f"{n} {o_:.3e}, {l_:.3e}" for n, (o_, l_) in worst.items())
+              + ratio + f" ({smi})", flush=True)
+    jobs = {name: _altered(edits, SRC_FWD) for name, edits in F32_VARIANTS.items()}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    print("\n".join(line for lib in libs.values() for line in lib.ptxas if "f32_kernel" in line
+                    or "registers" in line), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, t in JVP_SHAPES:
+        q, k, v = (torch.randn((b, h, t, 64), generator=gen, device="cuda") for _ in range(3))
+        prep = tfwd.kv_split_tf32(k, v)
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, t), dtype=torch.float32, device="cuda")
+        times = {v_: _device_us(lambda v_=v_: _f32_call(libs[v_], q, prep, o, lse), 2, 5)
+                 for v_ in F32_VARIANTS}
+        print(f"[probe] B1 fp32 kernel ({b},{h},{t},64): "
+              + ", ".join(f"{v_[5:]} {us:.1f}" for v_, us in times.items()) + f" us ({smi})",
+              flush=True)
+
+
+def _dkv_call(lib, prep, outs, causal=False):
+    """One launch of B11 fast from an altered build on the prep's outputs."""
+    ops8, rows = prep
+    bh, t, _ = ops8[0].shape
+    s = ops8[1].shape[1]
+    status = lib.qa_jvp_bwd_dkv_bf16(*(x.data_ptr() for x in ops8), rows.data_ptr(),
+                                     *(x.data_ptr() for x in outs), bh, t, s, rows.stride(1),
+                                     int(causal), 0.125, 0.125 * LOG2_E,
+                                     torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def probe_jvp_bwd(smi) -> None:
+    """B11 fast's knock-outs timed beside the unaltered build, on the prep's
+    outputs at the DiT's and bench_jvp's shapes."""
+    from quantizedattention_tpu_torch.ops import attention_jvp_fwd, jvp_bwd_operands, jvp_bwd_prep
+
+    jobs = {name: _dkv_source(name) for name in DKV_VARIANTS}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    print("\n".join(line for lib in libs.values() for line in lib.ptxas if "dkv_wgmma" in line),
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, t in JVP_SHAPES:
+        q, k, v, tq, tk, tv, do, dto = (torch.randn((b, h, t, 64), generator=gen, device="cuda")
+                                        for _ in range(8))
+        fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, fast=True)
+        prep = jvp_bwd_prep(jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd, do, dto, fast=True))
+        outs = [torch.empty((b * h, t, 64), dtype=torch.float32, device="cuda") for _ in range(4)]
+        times = {v_: _device_us(lambda v_=v_: _dkv_call(libs[v_], prep, outs), 2, 5)
+                 for v_ in DKV_VARIANTS}
+        print(f"[probe] B11 fast kernel ({b},{h},{t},64): "
+              + ", ".join(f"{v_[5:]} {us:.1f}" for v_, us in times.items()) + f" us ({smi})",
+              flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
-    every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact"]
-    parts = sys.argv[1:] or every
-    if set(parts) - set(every):
+    every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd"]
+    dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
+    parts = [a for a in sys.argv[1:] if a not in dirs] or every
+    if set(parts) - set(every) or len(dirs) > 1:
         sys.exit(__doc__)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -793,6 +1063,10 @@ def main() -> None:
         probe_flash_bwd(smi)
     if "bwd_exact" in parts:
         probe_bwd_exact(smi)
+    if "fwd_fp32" in parts:
+        probe_fwd_fp32(smi, dirs[0] if dirs else None)
+    if "jvp_bwd" in parts:
+        probe_jvp_bwd(smi)
 
 
 

@@ -108,34 +108,6 @@ static_assert((DKV_STAGES + 1) * 8 <= COUNTERS && COUNTERS + DKV_STAGES * 4 <= 1
 static_assert(DKV_OFF_RING % 1024 == 0 && DKV_OFF_ROWS % 1024 == 0 && DQ_OFF_RING % 1024 == 0,
               "swizzled tiles start on 1024 bytes");
 
-// Initialise n full barriers (one arrival each: the expect_tx) and zero the
-// release counters.
-__device__ __forceinline__ void init_ring(uint32_t bars, int* released, int n) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < n; ++i) {
-      mbar_init(bars + 8 * i, 1);
-      released[i] = 0;
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// The warpgroup of this thread reads tile i's stage no more: the second of
-// the two warpgroups to say so refills the stage with tile i + stages (if
-// any) through `load`, so no thread ever waits to refill.
-template <class Load>
-__device__ __forceinline__ void release_stage(int* released, int i, int stages, int n_tiles,
-                                              Load load) {
-  if (threadIdx.x % 128 == 0 && atomicAdd(&released[i % stages], 1) == 1) {
-    atomicExch(&released[i % stages], 0);
-    if (i + stages < n_tiles) {
-      fence_proxy_async();
-      load(i + stages);
-    }
-  }
-}
-
 // The A fragments (rows 16 warp + lane / 4, + 8 of the warpgroup's 64; k-step
 // kk = accumulator columns 16 kk .. 16 kk + 15) of a product's bf16 input,
 // from two f32 accumulator n-tiles' worth of values x[4].

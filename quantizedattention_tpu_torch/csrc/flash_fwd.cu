@@ -60,13 +60,37 @@
 //
 // precision="fp32" (flash_fwd_f32_kernel, entry qa_flash_fwd_f32): the same
 // TPU kernel's fp32 mode (flash_fwd.py:255-260, Precision.HIGHEST), the
-// primal of attention_jvp and the rCM prepass. Q arrives pre-scaled in f32,
-// nothing is rounded, masked P is 0, the row max still carries +EPS_BIAS.
-// Bound: fp32 products, 2 over every visible (q, k) pair against the 67
-// TFLOP/s of the CUDA cores (the TPU's HIGHEST dots have no tensor-core
-// counterpart short of 3xTF32). Design: FFMA in 4x4 register tiles, one
-// block of 256 threads per (q head, 64-row q tile) over 64-key tiles (see the
-// kernel). GQA reads kv head head / rep. No pipelining yet.
+// primal of attention_jvp and the rCM prepass. Q is scaled by qk_scale in
+// f32, nothing is rounded to a narrower type, masked P is exactly 0, the row
+// max still carries +EPS_BIAS, and GQA reads kv head head / rep.
+// Bound: the TPU's HIGHEST dots are a multi-pass f32 emulation on its matrix
+// unit; Hopper's counterpart is 3xTF32 on the tensor cores (hopper.cuh: x =
+// big + small, each product as big.big + big.small + small.big), 6 TF32
+// products over every visible (q, k) pair at 495 TFLOP/s, against 2 fp32
+// products at the CUDA cores' 67 TFLOP/s for FFMA (7.4x more time). Between
+// the products each pair takes one exponential and the split of P.
+// Design: B1 bf16's shape in TF32. One block of two warpgroups per (q head,
+// 128 positions), 64 each; the last positions (most key tiles) first.
+//   - One prep launch (kv_split_tf32_kernel), reading K and V through their
+//     strides, writes K big and small and V^T big and small: TF32 wgmma reads
+//     A and B K-major only, so P V's B is V^T (keys contiguous), its keys in
+//     each group of 8 permuted so that P's A fragments come straight from S's
+//     accumulator (hopper.cuh's tf32_a_column).
+//   - The kernel reads Q through its strides, scales it, keeps Q big as the
+//     A fragments of S in registers and writes Q small to shared memory.
+//   - Tiles of 64 keys (K big and small, V^T big and small: 64 KB, blocks of
+//     32 f32 columns in the 128-byte swizzle, by 3-D TMA maps; keys past s
+//     arrive as zeros) through a ring of 3 stages on "full" mbarriers; the
+//     second warpgroup to release a stage refills it.
+//   - Per tile and warpgroup: S = Q K^T as 24 wgmma m64n64k8 (Q big from
+//     registers against K small and K big, Q small from shared memory against
+//     K big; the small terms first), the online softmax in registers (row
+//     sums in f32 from the unrounded P), P split into big and small A
+//     fragments, then O += P V as 24 more (P small . V^T big, P big . V^T
+//     small, P big . V^T big). The next tile's S is issued while this tile's
+//     P V runs; the two warpgroups' softmaxes overlap each other's products.
+//   - Causal blocks stop at their last visible tile; only tiles that reach
+//     past s or the warpgroup's first position take the mask.
 
 #include <math.h>
 
@@ -457,171 +481,307 @@ bool strides16(long long elem_bytes, long long sb, long long sh, long long st) {
 }
 
 // ---------------------------------------------------------------------------
-// precision="fp32": FFMA on the CUDA cores
+// precision="fp32": 3xTF32 on wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int TF = 64;            // q rows per block and keys per tile
-constexpr int LDF = TF + 4;       // padded row of an f32 tile (float4-aligned)
-constexpr int THREADS_F = 256;    // thread = (row group tid / 16, column group tid % 16)
+constexpr int F_ROWS = 128;         // q positions a block (one q head): two warpgroups of 64
+constexpr int F_KEYS = 64;          // keys a K/V tile
+constexpr int F_STAGES = 3;         // tiles in flight
+constexpr int F_BLK = 64 * 128;     // bytes of a [64 x 32] f32 block: rows of 128 bytes (the swizzle)
+// A stage: K big, K small (two blocks each: head dims 0-31, 32-63), V^T big,
+// V^T small (two blocks each: keys 0-31, 32-63).
+constexpr int F_STAGE = 8 * F_BLK;
+constexpr int F_OFF_QS = 0;                    // Q small, two blocks a warpgroup
+constexpr int F_OFF_RING = 2 * 2 * F_BLK;
+constexpr int F_OFF_BAR = F_OFF_RING + F_STAGES * F_STAGE;
+constexpr int F_COUNTERS = 64;      // byte offset of the release counters in the barrier area
+constexpr int F_SMEM = F_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
+static_assert(F_STAGES * 8 <= F_COUNTERS && F_COUNTERS + F_STAGES * 4 <= 128, "barriers fit");
+static_assert(F_SMEM <= 232448, "a block's shared memory fits an H100 SM");
 
-// max / sum over the sixteen threads of a row group (one half-warp)
-__device__ __forceinline__ float group_max16(float x) {
+// The K/V prep of the fp32 mode, one launch: K [b, h_kv, s, 64] f32 (any
+// strides, rows contiguous) -> K big and K small [b * h_kv, s, 64]; V -> V^T
+// big and V^T small [b * h_kv, 64, s8] (s8 = s rounded up to 8), column 8g +
+// j holding key 8g + tf32_a_column(j), keys past s 0: the K-major B of P V
+// for a P whose fragments come from S's accumulator. Grid (s / 64 rounded
+// up, b * h_kv); a block takes 64 keys, V through shared memory, every load
+// issued before the first store.
+__global__ void __launch_bounds__(256)
+kv_split_tf32_kernel(const float* __restrict__ k, long long k_sb, long long k_sh, long long k_st,
+                     const float* __restrict__ v, long long v_sb, long long v_sh, long long v_st,
+                     float* __restrict__ kb, float* __restrict__ ks, float* __restrict__ vbt,
+                     float* __restrict__ vst, int h_kv, int s, int s8) {
+  __shared__ float v_s[F_KEYS][D + 1];
+  const int bh = blockIdx.y, tid = threadIdx.x;
+  const long long batch = bh / h_kv, head = bh % h_kv;
+  const int k0 = blockIdx.x * F_KEYS;
+  const float* kp = k + batch * k_sb + head * k_sh;
+  const float* vp = v + batch * v_sb + head * v_sh;
+  constexpr int PASSES = F_KEYS * (D / 4) / 256;
+  float4 kx[PASSES], vx[PASSES];
 #pragma unroll
-  for (int o = 1; o < 16; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum16(float x) {
+  for (int i = 0; i < PASSES; ++i) {  // chunk c: key c / 16, head dims 4 (c % 16) ..
+    const int c = tid + 256 * i, key = k0 + c / (D / 4);
+    kx[i] = vx[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < s) {
+      kx[i] = *reinterpret_cast<const float4*>(kp + key * k_st + 4 * (c % (D / 4)));
+      vx[i] = *reinterpret_cast<const float4*>(vp + key * v_st + 4 * (c % (D / 4)));
+    }
+  }
 #pragma unroll
-  for (int o = 1; o < 16; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows row0 .. row0+TF-1 of a row-major [n, D] f32 matrix into shared
-// memory, transposed (dst[d * LDF + row]); rows at or past n are zero.
-// Consecutive threads take consecutive rows, so the transposed stores hit
-// consecutive banks.
-__device__ __forceinline__ void load_transposed(float* dst, const float* src, int row0, int n) {
-  for (int c = threadIdx.x; c < TF * (D / 4); c += THREADS_F) {
-    const int r = c % TF;
-    const int col = (c / TF) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + col);
-    dst[(col + 0) * LDF + r] = val.x;
-    dst[(col + 1) * LDF + r] = val.y;
-    dst[(col + 2) * LDF + r] = val.z;
-    dst[(col + 3) * LDF + r] = val.w;
+  for (int i = 0; i < PASSES; ++i) {
+    const int c = tid + 256 * i, r = c / (D / 4), c4 = 4 * (c % (D / 4));
+    const float x[4] = {kx[i].x, kx[i].y, kx[i].z, kx[i].w};
+    float big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      big[e] = tf32_big(x[e]);
+      small[e] = x[e] - big[e];
+    }
+    if (k0 + r < s) {
+      const size_t at = (static_cast<size_t>(bh) * s + k0 + r) * D + c4;
+      *reinterpret_cast<float4*>(kb + at) = make_float4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<float4*>(ks + at) = make_float4(small[0], small[1], small[2], small[3]);
+    }
+    v_s[r][c4] = vx[i].x;
+    v_s[r][c4 + 1] = vx[i].y;
+    v_s[r][c4 + 2] = vx[i].z;
+    v_s[r][c4 + 3] = vx[i].w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {  // chunk c: head dim c / 16, columns 4 (c % 16) ..
+    const int c = tid + 256 * i, d = c / (F_KEYS / 4), j4 = 4 * (c % (F_KEYS / 4));
+    if (k0 + j4 >= s8) continue;
+    float big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = v_s[(j4 / 8) * 8 + tf32_a_column(j4 % 8 + e)][d];
+      big[e] = tf32_big(x);
+      small[e] = x - big[e];
+    }
+    const size_t at = (static_cast<size_t>(bh) * D + d) * s8 + k0 + j4;
+    *reinterpret_cast<float4*>(vbt + at) = make_float4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<float4*>(vst + at) = make_float4(small[0], small[1], small[2], small[3]);
   }
 }
 
-// Rows row0 .. row0+TF-1 of a row-major [n, D] f32 matrix into a padded
-// shared tile as they are; rows at or past n are zero.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int n) {
-  for (int c = threadIdx.x; c < TF * (D / 4); c += THREADS_F) {
-    const int r = c / (D / 4);
-    const int col = (c % (D / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + col);
-    *reinterpret_cast<float4*>(&dst[r * LDF + col]) = val;
-  }
+// The descriptor of k-step kk (8 columns, 32 bytes of a row) of a K-major
+// f32 operand stored as 128-byte blocks of 32 columns, `F_BLK` bytes apart.
+__device__ __forceinline__ uint64_t desc_f32(uint32_t addr, int kk) {
+  return desc_kmajor_sw128(addr + (kk / 4) * F_BLK) + 2 * (kk % 4);
 }
 
-// acc[4][4] += a^T b over TF (or D) steps: a, b [steps][LDF], columns
-// a0 .. a0+3 of a and b0 .. b0+3 of b, read as float4.
-__device__ __forceinline__ void outer4(float (&acc)[4][4], const float* a, const float* b, int a0,
-                                       int b0, int steps) {
-  for (int d = 0; d < steps; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(&a[d * LDF + a0]);
-    const float4 y = *reinterpret_cast<const float4*>(&b[d * LDF + b0]);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-    const float ys[4] = {y.x, y.y, y.z, y.w};
+// One tile's S (f32, exp2 domain: Q is pre-scaled) -> P = exp2(S - m), 0
+// where masked, split into the TF32 A fragments of P V (k-step n = keys 8n ..
+// 8n + 7, in tf32_a_column order). Masks where MASK (the tile reaches past s
+// or past the warpgroup's first position), updates the running max m
+// (+EPS_BIAS), this thread's partial row sums l and each row's alpha. s[4 n +
+// e]: row h = e / 2, key k0 + 8 n + c2 + (e & 1).
+template <bool MASK>
+__device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb)[8][4],
+                                             uint32_t (&ps)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int c2, const int (&pos)[2],
+                                             int s_len, int causal) {
+  auto visible = [&](int i) {
+    const int col = k0 + (i / 4) * 8 + c2 + (i & 1);
+    return col < s_len && (!causal || col <= pos[(i % 4) / 2]);
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i % 4) / 2;
+    mx[h] = fmaxf(mx[h], MASK && !visible(i) ? MASK_VALUE : s[i]);
   }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float next = fmaxf(m[h], quad_max(mx[h]) + EPS_BIAS);
+    alpha[h] = exp2f(m[h] - next);  // 0 while m is -inf
+    m[h] = next;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i % 4) / 2;
+    const float p = MASK && !visible(i) ? 0.f : exp2f(s[i] - m[h]);
+    sum[h] += p;
+    const float big = tf32_big(p);
+    // accumulator column 2c + (i & 1) of row h -> fragment column c + 4 (i & 1)
+    pb[i / 4][h + 2 * (i & 1)] = __float_as_uint(big);
+    ps[i / 4][h + 2 * (i & 1)] = __float_as_uint(p - big);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
 }
 
-// One block of 256 threads per (q head, 64-row q tile). Thread (g, c) =
-// (tid / 16, tid % 16) owns rows 4g .. 4g+3 and, per 64-key tile, keys
-// 4c .. 4c+3 of S and columns 4c .. 4c+3 of O: a 4x4 register tile per
-// product from two float4 shared loads per step (Q and K stored transposed,
-// P transposed, V as it is). A row group's sixteen owners are one
-// half-warp: row max and sums reduce by shuffles, and its P rows pass to
-// P V behind a __syncwarp.
-__global__ void __launch_bounds__(THREADS_F)
-flash_fwd_f32_kernel(const float* __restrict__ q,  // [b*h, t, D], pre-scaled by qk_scale
-                     const float* __restrict__ k,  // [b*h_kv, s, D]
-                     const float* __restrict__ v,  // [b*h_kv, s, D]
-                     float* __restrict__ o,        // [b*h, t, D]
-                     float* __restrict__ lse,      // [b*h, t]
-                     int rep, int t, int s, int causal) {
-  extern __shared__ __align__(16) float smem_f[];
-  float* qt_s = smem_f;           // [D][LDF]: Q^T
-  float* kt_s = qt_s + D * LDF;   // [D][LDF]: K^T
-  float* v_s = kt_s + D * LDF;    // [TF][LDF]: V
-  float* pt_s = v_s + TF * LDF;   // [TF][LDF]: P^T
+// One block of two warpgroups (256 threads) per (q head, 128 positions);
+// warpgroup wg owns positions q0 + 64 wg .. + 63. See the file's head.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s, 64] K big
+                     const __grid_constant__ CUtensorMap ks_map,   // K small
+                     const __grid_constant__ CUtensorMap vbt_map,  // [b*h_kv, 64, s8] V^T big
+                     const __grid_constant__ CUtensorMap vst_map,  // V^T small
+                     const float* __restrict__ q,  // [b, h, t, D] f32, strides in elements
+                     long long q_sb, long long q_sh, long long q_st,
+                     float* __restrict__ o,    // [b, h, t, D]
+                     float* __restrict__ lse,  // [b, h, t]
+                     int h, int rep, int t, int s, int causal, float qk_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + F_OFF_BAR;
+  auto full = [&](int st) { return bars + 8 * st; };
+  int* released = reinterpret_cast<int*>(smem + F_OFF_BAR + F_COUNTERS);
 
   const int tid = threadIdx.x;
-  const int g4 = (tid / 16) * 4;
-  const int c4 = (tid % 16) * 4;
-  const size_t head = blockIdx.y;
-  const size_t kvh = head / rep;
-  const int q0 = blockIdx.x * TF;
+  const int bh = blockIdx.x, batch = bh / h, head = bh % h;
+  const int kvh = batch * (h / rep) + head / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F_ROWS;  // the last positions (most tiles) first
+  const int kv_hi = causal ? min(s, min(t, q0 + F_ROWS)) : s;
+  const int n_tiles = (kv_hi + F_KEYS - 1) / F_KEYS;
 
-  load_transposed(qt_s, q + head * t * D, q0, t);
-
-  float m[4], l[4], acc[4][4];
+  init_ring(bars, released, F_STAGES);
+  auto load_kv = [&](int j) {  // tile j into stage j % F_STAGES; keys past s arrive as zeros
+    const int st = j % F_STAGES;
+    const uint32_t dst = base + F_OFF_RING + st * F_STAGE;
+    mbar_expect_tx(full(st), F_STAGE);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kv_hi = causal ? min(s, q0 + TF) : s;
-  const int n_tiles = (kv_hi + TF - 1) / TF;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * TF;
-    __syncthreads();  // every thread is done with the previous K/V tile
-    load_transposed(kt_s, k + kvh * s * D, k0, s);
-    load_rows(v_s, v + kvh * s * D, k0, s);
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    outer4(sc, qt_s, kt_s, g4, c4, D);
-
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pos = q0 + g4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + c4 + j;
-        if (!(col < s && (!causal || col <= pos))) sc[i][j] = MASK_VALUE;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float next_m = fmaxf(m[i], group_max16(mx) + EPS_BIAS);
-      alpha[i] = exp2f(m[i] - next_m);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + c4 + j;
-        sc[i][j] = (col < s && (!causal || col <= pos)) ? exp2f(sc[i][j] - next_m) : 0.f;
-        psum += sc[i][j];
-      }
-      l[i] = l[i] * alpha[i] + group_sum16(psum);
-      m[i] = next_m;
+    for (int half = 0; half < 2; ++half) {
+      tma_load_3d(dst + half * F_BLK, &kb_map, full(st), 32 * half, j * F_KEYS, kvh);
+      tma_load_3d(dst + (2 + half) * F_BLK, &ks_map, full(st), 32 * half, j * F_KEYS, kvh);
+      tma_load_3d(dst + (4 + half) * F_BLK, &vbt_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
+      tma_load_3d(dst + (6 + half) * F_BLK, &vst_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&pt_s[(c4 + j) * LDF + g4]) =
-          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-    __syncwarp();  // a row group's P is written by its sixteen owners, all in this half-warp
+  };
+  if (tid == 0)
+    for (int j = 0; j < min(F_STAGES, n_tiles); ++j) load_kv(j);
 
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int c = lane % 4;
+  const int ra = 16 * warp + lane / 4;  // this thread's rows ra, ra + 8 of the warpgroup's 64
+  int pos[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int h2 = 0; h2 < 2; ++h2) pos[h2] = q0 + 64 * wg + ra + 8 * h2;
+
+  // Q * qk_scale (f32, PyTorch's bits), split: big as the A fragments of the
+  // 8 k-steps in registers, small K-major into shared memory (128-byte
+  // swizzle: 16-byte chunk ch of row r at ch ^ (r & 7)). Positions past t
+  // are 0. Every load is issued before the first conversion.
+  uint32_t qa[8][4];
+  const uint32_t qs_base = base + F_OFF_QS + wg * 2 * F_BLK;
+  {
+    float x[2][16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha[i];
-    outer4(acc, pt_s, v_s, g4, c4, TF);
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const float* row = q + batch * q_sb + head * q_sh + static_cast<long long>(pos[h2]) * q_st;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)  // head dim 8 (i / 2) + c + 4 (i % 2)
+        x[h2][i] = pos[h2] < t ? row[8 * (i / 2) + c + 4 * (i % 2)] : 0.f;
+    }
+    float* qs_s = reinterpret_cast<float*>(smem + F_OFF_QS + wg * 2 * F_BLK);
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = ra + 8 * h2;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float xs = __fmul_rn(x[h2][i], qk_scale);
+        const float big = tf32_big(xs);
+        qa[i / 2][h2 + 2 * (i % 2)] = __float_as_uint(big);
+        const int d = 8 * (i / 2) + c + 4 * (i % 2), w = d % 32;
+        qs_s[(d / 32) * (F_BLK / 4) + r * 32 + (((w / 4) ^ (r & 7)) << 2) + w % 4] = xs - big;
+      }
+    }
+  }
+  fence_proxy_async();  // Q small, for wgmma
+  named_barrier(1 + wg, 128);
+
+  float sacc[32], oacc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t pb[8][4] = {}, ps[8][4] = {};  // P big and small: the A of P V
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = oacc[i] = 0.f;
+  auto edge = [&](int j) {
+    return j * F_KEYS + F_KEYS > s || (causal && j * F_KEYS + F_KEYS - 1 > q0 + 64 * wg);
+  };
+
+  // S = Q K^T of the tile in `stage`: 24 products, the small terms first
+  // into the accumulator, the big-big term last.
+  auto issue_s = [&](uint32_t stage) {
+    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage + 2 * F_BLK, 0));  // Q big . K small
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage + 2 * F_BLK, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+      wgmma_tf32_m64n64k8_ss(sacc, desc_f32(qs_base, kk), desc_f32(stage, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q big . K big
+      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
+    wgmma_commit();
+  };
+  auto stage_of = [&](int j) { return base + F_OFF_RING + (j % F_STAGES) * F_STAGE; };
+
+  // Tile j: the softmax of its S, then its P V and the next tile's S issued
+  // together (the last tile's S again at the end: a wgmma under a branch
+  // would serialize them all) and both waited for, so no product is in
+  // flight across the loop's back edge (that too serializes them, C7515)
+  // or while a ring wait's trap path is live (C7517); then the stage is
+  // released.
+  mbar_wait(full(0), 0);
+  reg_fence(sacc);
+  wgmma_fence();
+  issue_s(stage_of(0));
+  wgmma_wait<0>();
+  reg_fence(sacc);
+  for (int j = 0; j < n_tiles; ++j) {
+    float alpha[2];
+    if (edge(j))
+      softmax_tf32<true>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+    else
+      softmax_tf32<false>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i % 4) / 2];
+    const int jn = min(j + 1, n_tiles - 1);
+    if (j + 1 < n_tiles) mbar_wait(full(jn % F_STAGES), (jn / F_STAGES) & 1);
+    const uint32_t stage = stage_of(j);
+    reg_fence(sacc);
+    reg_fence(oacc);
+    reg_fence(pb);
+    reg_fence(ps);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P small . V big
+      wgmma_tf32_m64n64k8_rs(oacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V small
+      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V big
+      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+    wgmma_commit();
+    issue_s(stage_of(jn));
+    wgmma_wait<0>();
+    reg_fence(sacc);
+    reg_fence(oacc);
+    reg_fence(pb);
+    reg_fence(ps);
+    release_stage(released, j, F_STAGES, n_tiles, load_kv);
   }
 
+  // O = acc / l (l == 0 -> 1), lse = m + log2(l); rows past t store nothing.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int pos = q0 + g4 + i;
-    if (pos >= t) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    const size_t row = head * t + pos;
-    *reinterpret_cast<float4*>(o + row * D + c4) =
-        make_float4(acc[i][0] / l_safe, acc[i][1] / l_safe, acc[i][2] / l_safe,
-                    acc[i][3] / l_safe);
-    if (c4 == 0) lse[row] = m[i] + log2f(l_safe);
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const float lsum = quad_sum(l[h2]);
+    const float l_safe = lsum == 0.f ? 1.f : lsum;
+    if (pos[h2] >= t) continue;
+    const size_t row = static_cast<size_t>(bh) * t + pos[h2];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(o + row * D + 8 * n + 2 * c) =
+          make_float2(oacc[4 * n + 2 * h2] / l_safe, oacc[4 * n + 2 * h2 + 1] / l_safe);
+    if (c == 0) lse[row] = m[h2] + log2f(l_safe);
   }
 }
 
@@ -631,18 +791,64 @@ flash_fwd_f32_kernel(const float* __restrict__ q,  // [b*h, t, D], pre-scaled by
 // shared_bytes mirrors it).
 extern "C" int qa_flash_fwd_smem_bytes() { return SMEM_BYTES; }
 
-// precision="fp32": q [b*h, t, D] f32 pre-scaled by qk_scale, k/v
-// [b*h_kv, s, D] f32 (h = h_kv * rep) -> O [b*h, t, D], lse [b*h, t] f32.
-extern "C" int qa_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int bh, int rep, int t, int s, int causal, void* stream) {
-  const int smem = (2 * D + 2 * TF) * LDF * sizeof(float);  // 69,632 bytes
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t + TF - 1) / TF, bh);
-  flash_fwd_f32_kernel<<<grid, THREADS_F, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), rep, t, s, causal);
+// Shared bytes one fp32-mode block asks for (ops/flash_tiling.py's
+// fp32_shared_bytes mirrors it).
+extern "C" int qa_flash_fwd_f32_smem_bytes() { return F_SMEM; }
+
+// The fp32 mode's K/V prep: k/v [b, h_kv, s, 64] f32 (strides in elements,
+// rows contiguous; pointers and strides 16-byte aligned) -> kb, ks [b * h_kv,
+// s, 64] and vbt, vst [b * h_kv, 64, s8] f32 (s8 = s rounded up to 8), in one
+// launch.
+extern "C" int qa_flash_kv_split_tf32(const void* k, long long k_sb, long long k_sh,
+                                      long long k_st, const void* v, long long v_sb,
+                                      long long v_sh, long long v_st, void* kb, void* ks,
+                                      void* vbt, void* vst, int b, int h_kv, int s,
+                                      void* stream) {
+  if (b < 1 || h_kv < 1 || static_cast<long long>(b) * h_kv > 65535 || s < 1 ||
+      s > (1 << 27) || !aligned16(k) || !aligned16(v) || !aligned16(kb) || !aligned16(ks) ||
+      !aligned16(vbt) || !aligned16(vst) || !strides16(4, k_sb, k_sh, k_st) ||
+      !strides16(4, v_sb, v_sh, v_st))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((s + F_KEYS - 1) / F_KEYS, b * h_kv);
+  kv_split_tf32_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(k), k_sb, k_sh, k_st, static_cast<const float*>(v), v_sb, v_sh,
+      v_st, static_cast<float*>(kb), static_cast<float*>(ks), static_cast<float*>(vbt),
+      static_cast<float*>(vst), h_kv, s, (s + 7) / 8 * 8);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// precision="fp32": q [b, h, t, 64] f32 (strides in elements, rows
+// contiguous), the prep's kb, ks, vbt, vst (h = h_kv * rep) -> O [b, h, t,
+// 64], lse [b, h, t] f32 (contiguous); Q is scaled by qk_scale in the kernel.
+extern "C" int qa_flash_fwd_f32(const void* q, long long q_sb, long long q_sh, long long q_st,
+                                const void* kb, const void* ks, const void* vbt, const void* vst,
+                                void* o, void* lse, int b, int h, int h_kv, int t, int s,
+                                int causal, float qk_scale, void* stream) {
+  const int n_qt = (t + F_ROWS - 1) / F_ROWS;
+  if (b < 1 || h_kv < 1 || h < h_kv || h % h_kv || static_cast<long long>(b) * h > 65535 ||
+      t < 1 || s < 1 || s > (1 << 27) || n_qt > 65535 || !aligned16(kb) || !aligned16(ks) ||
+      !aligned16(vbt) || !aligned16(vst))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int s8 = (s + 7) / 8 * 8;
+  CUtensorMap kb_map, ks_map, vbt_map, vst_map;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_3d(&kb_map, kb, f32, 4, b * h_kv, s, D, F_KEYS, 32, sw) ||
+      !tensor_map_3d(&ks_map, ks, f32, 4, b * h_kv, s, D, F_KEYS, 32, sw) ||
+      !tensor_map_3d(&vbt_map, vbt, f32, 4, b * h_kv, D, s8, D, 32, sw) ||
+      !tensor_map_3d(&vst_map, vst, f32, 4, b * h_kv, D, s8, D, 32, sw))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(b * h, n_qt);
+  flash_fwd_f32_kernel<<<grid, THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      kb_map, ks_map, vbt_map, vst_map, static_cast<const float*>(q), q_sb, q_sh, q_st,
+      static_cast<float*>(o), static_cast<float*>(lse), h, h / h_kv, t, s, causal, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

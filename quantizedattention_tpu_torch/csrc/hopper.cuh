@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-memory
-// addresses, mbarriers, TMA (2-, 3- and 4-D maps), thread-block clusters and
-// the k split's sum, mma.sync, wgmma (descriptors, the int8 and bf16 forms),
+// addresses, mbarriers, TMA (2-, 3- and 4-D maps), rings of TMA stages shared
+// by two warpgroups, thread-block clusters and the k split's sum, mma.sync,
+// wgmma (descriptors, the int8, bf16 and tf32 forms, the 3xTF32 split),
 // the exact int8 / int4 -> bf16 widening, and the element helpers of the
 // attention kernels (exp2, quad reductions, exact small integers as f32).
 // Each .cu that includes it is its own library, so everything here has
@@ -93,6 +94,36 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// --- rings of TMA stages shared by two warpgroups ---
+
+// Initialise n "full" barriers (one arrival each: the expect_tx) and zero the
+// release counters.
+__device__ __forceinline__ void init_ring(uint32_t bars, int* released, int n) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n; ++i) {
+      mbar_init(bars + 8 * i, 1);
+      released[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The warpgroup of this thread reads tile i's stage no more: the second of
+// the two warpgroups to say so refills the stage with tile i + stages (if
+// any) through `load`, so no thread ever waits to refill.
+template <class Load>
+__device__ __forceinline__ void release_stage(int* released, int i, int stages, int n_tiles,
+                                              Load load) {
+  if (threadIdx.x % 128 == 0 && atomicAdd(&released[i % stages], 1) == 1) {
+    atomicExch(&released[i % stages], 0);
+    if (i + stages < n_tiles) {
+      fence_proxy_async();
+      load(i + stages);
+    }
+  }
 }
 
 // --- thread-block clusters ---
@@ -395,6 +426,25 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16_ss_zero(float (&d)[64], ui
       : "l"(da), "l"(db), "r"(0));
 }
 
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32], bf16 -> f32; A and B both K-major
+// from shared memory (descriptors). d[4 n + e]: row 16 * warp + lane / 4 + 8
+// * (e / 2), column 8 n + 2 * (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_bf16_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 8] (+)= A[64 x 16] B[16 x 8], bf16 -> f32; A from registers, B
 // K-major from shared memory (P's row sums against a ones matrix).
 __device__ __forceinline__ void wgmma_bf16_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],
@@ -407,6 +457,97 @@ __device__ __forceinline__ void wgmma_bf16_m64n8k16_rs(float (&d)[4], const uint
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// --- TF32 (the exact modes' products as 3xTF32) ---
+//
+// An f32 x splits into big = x rounded to nearest TF32 (ties away from zero,
+// as cvt.rna.tf32.f32: the low 13 bits cleared after adding half of their
+// range) and small = x - big, exact in f32. The tensor cores ignore the low 13
+// bits of what they read, so a product of two f32 operands is taken as
+// a_big b_big + a_big b_small + a_small b_big (the small-small term, below
+// 2^-22 of the product, is dropped). TF32 wgmma reads A and B K-major only
+// (the transpose bits are for 16-bit types), each k8 step 32 bytes of a row:
+// the bf16 k16 steps' descriptors serve unchanged. The A fragment in
+// registers of a k-step (8 columns) is, per thread, a[0] = (row, c), a[1] =
+// (row + 8, c), a[2] = (row, c + 4), a[3] = (row + 8, c + 4), with row = 16
+// warp + lane / 4 and c = lane % 4: an accumulator's pair (row, 2c), (row,
+// 2c + 1) lands on columns c and c + 4, so a product whose A comes from an
+// accumulator reads its B with each group of 8 k indices permuted (column j
+// of the fragment is accumulator column tf32_a_column(j)).
+
+__device__ __forceinline__ float tf32_big(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// The accumulator column (0..7 within a group of 8) that a TF32 A fragment
+// built from accumulator pairs holds in its column j.
+__host__ __device__ constexpr int tf32_a_column(int j) { return j < 4 ? 2 * j : 2 * (j - 4) + 1; }
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32 -> f32; A and B K-major from
+// shared memory. d's layout as wgmma_s8_m64n64k32's.
+__device__ __forceinline__ void wgmma_tf32_m64n64k8_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] = A[64 x 8] B[8 x 64], tf32 -> f32, A from registers: the
+// first k-step of a product into d, whose old values it neither reads nor
+// keeps alive ("=f"): with "+f", the moves that carry d's dead values across
+// a loop's back edge land inside the pipeline stage of a product still in
+// flight there, and ptxas serializes the kernel's wgmma (C7515).
+__device__ __forceinline__ void wgmma_tf32_m64n64k8_rs_zero(float (&d)[32],
+                                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
+        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32 -> f32; A from registers (the
+// fragment above), B K-major from shared memory.
+__device__ __forceinline__ void wgmma_tf32_m64n64k8_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -26,11 +26,13 @@
 // Every masked entry (causal, keys past s, rows past t) gets p = 0 explicitly:
 // nothing past t or s is read as data.
 //
-// Two modes, two kernels each:
-//   fast  - bf16 tensor cores (mma.sync, f32 accumulation; the *_mma kernels
-//           below): every product's operands are rounded to bf16 where they
-//           enter it, as the TPU's DEFAULT-precision dots round them: q, k,
-//           v, tq, tk, tv, dO and dtO, and p, h = p tS, dS, tSb and tP.
+// Two modes, a kernel each (B11 fast also a prep launch):
+//   fast  - bf16 tensor cores (f32 accumulation; B9, B10, B12 on mma.sync,
+//           the *_mma kernels, B11 on wgmma with a prep launch, jvp_dkv_wgmma
+//           and jvp_bwd_prep_kernel): every product's operands are rounded to
+//           bf16 where they enter it, as the TPU's DEFAULT-precision dots
+//           round them: q, k, v, tq, tk, tv, dO and dtO, and p, h = p tS, dS,
+//           tSb and tP.
 //           Sums, row terms and the rescaling stay f32. The rCM step's mode.
 //   exact - fp32 on the CUDA cores (FFMA), nothing rounded
 //           (Precision.HIGHEST): attention_jvp, the default of
@@ -43,10 +45,10 @@
 // TFLOP/s) at ~25 ms.
 //
 // Ownership, both modes: B9, B10 and B12 own a q tile and loop over 32-key
-// tiles up to the causal diagonal; B11 owns a key tile (its rows are keys)
-// and loops over the 32-row q tiles that can see it, computing the
-// transposed tile quantities. Each output tile has one owner and there are
-// no atomics, so results repeat from run to run.
+// tiles up to the causal diagonal; B11 owns a key tile (its rows are keys:
+// 32 exact, 128 fast) and loops over the 32-row q tiles that can see it,
+// computing the transposed tile quantities. Each output tile has one owner
+// and there are no atomics, so results repeat from run to run.
 //
 // Exact design (simple first): one block of 256 threads per (b*h, 32-row
 // tile); thread (r, c) = (tid / 8, tid % 8) owns tile row r and output
@@ -57,10 +59,9 @@
 // (57-82 KB). No register blocking and no pipelining yet.
 // Fast design: below, beside its kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -559,22 +560,39 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ===========================================================================
-// fast: bf16 tensor cores (mma.sync.m16n8k16, f32 accumulation)
+// fast: bf16 tensor cores, f32 accumulation
 // ===========================================================================
 //
 // The same tile math with every product on the tensor cores. Operands are
 // rounded to bf16 where the TPU's DEFAULT-precision dots round them: q, k,
-// v, tq, tk, tv, dO and dtO on their way into shared memory (f32 in global
-// memory, round-to-nearest-even, as torch's .to(bfloat16)), and p, h, dS,
-// tSb and tP where they become the A operand of the second products; tQ K^T
-// and Q tK^T (B11/B12: dO V^T and dtO tV^T) sum in one f32 accumulator. The
-// accumulator layout of mma.sync is, two n-tiles at a time, the A operand
-// layout of the next product, so the probability tiles go from registers
-// to the tensor cores without touching shared memory. A block is 4 warps;
-// each warp owns 16 rows (B9, B10, B12: q rows, against 32-key tiles; B11:
-// keys, against 32-row q tiles); its A fragments come from shared memory
-// per 16-column k-step, the B operand of the second products through
-// ldmatrix.trans.
+// v, tq, tk, tv, dO and dtO (round-to-nearest-even, as torch's
+// .to(bfloat16)), and p, h, dS, tSb and tP where they become the A operand
+// of the second products; tQ K^T and Q tK^T (B11/B12: dO V^T and dtO tV^T)
+// sum in one f32 accumulator.
+//
+// B9, B10, B12 (mma.sync, the simple-first design): a block is 4 warps;
+// each warp owns 16 q rows against 32-key tiles, rounded to bf16 on their
+// way into shared memory; the mma.sync accumulator layout is, two n-tiles at
+// a time, the A operand layout of the next product, so the probability
+// tiles go from registers to the tensor cores; the B operand of the second
+// products comes through ldmatrix.trans.
+//
+// B11 (jvp_dkv_wgmma, B2's design in csrc/flash_bwd.cu): one prep launch
+// (jvp_bwd_prep_kernel) rounds the eight operands to bf16 once a call and
+// copies the row terms lse, mu, c and dhat to rows ld floats apart (TMA wants
+// 16-byte row starts). Then one block of two warpgroups per (b*h, 128-key
+// tile), 64 keys each, K, tK, V and tV resident in shared memory (the A of
+// the first products); the q-side tiles of 32 rows (Q, tQ, dO, dtO, their
+// row terms) stream through a ring of TMA stages (128-byte swizzle, rows past
+// t as zeros), refilled by the second warpgroup to release a stage. Per tile
+// and warpgroup: S^T, tS^T (two products, one accumulator), tpb^T and the
+// dO V^T + dtO tV^T part of pbar^T as wgmma m64n32k16 (B K-major); p^T,
+// tP^T, dS^T and tSb^T as bf16 A fragments in registers; then dV, dtV, dK
+// and dtK as wgmma m64n64k16 with the same q-side tiles as B, read
+// MN-major. Four m64n64 accumulators (128 registers) stay live across the
+// walk, hence 32-row tiles (the first products' four m64n32 accumulators
+// take 64 more). A tile's stage is released while the next tile's first
+// products run. Key tile 0 (causal: the most q tiles) starts first.
 
 constexpr int MMA_THREADS = 128;   // 4 warps
 constexpr int BM = 64;             // rows a block owns: 4 warps x 16
@@ -607,16 +625,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Rows row0 .. row0+ROWS-1 of a row-major [n, D] f32 matrix into a padded
@@ -912,134 +920,6 @@ jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B11, fast: a warp owns 16 keys; its tile quantities are transposed
-// ([key, q row]), so p^T, tP^T, dS^T and tSb^T come out in the A layout of
-// dV, dtV, dK and dtK.
-__global__ void __launch_bounds__(MMA_THREADS)
-jvp_dkv_mma(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ tq,
-            const float* __restrict__ tk, const float* __restrict__ tv,
-            const float* __restrict__ dout, const float* __restrict__ dtout,
-            const float* __restrict__ lse, const float* __restrict__ mu,
-            const float* __restrict__ crow, const float* __restrict__ dhat,
-            float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dtk,
-            float* __restrict__ dtv, int t, int s, int causal, float sm_scale,
-            float qk_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* tk_s = k_s + BM * SROW;
-  bf16* v_s = tk_s + BM * SROW;
-  bf16* tv_s = v_s + BM * SROW;
-  bf16* q_s = tv_s + BM * SROW;
-  bf16* tq_s = q_s + BT * SROW;
-  bf16* do_s = tq_s + BT * SROW;
-  bf16* dto_s = do_s + BT * SROW;
-  float* lse_s = reinterpret_cast<float*>(dto_s + BT * SROW);
-  float* mu_s = lse_s + BT;
-  float* c_s = mu_s + BT;
-  float* dh_s = c_s + BT;
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int ra = (tid / 32) * 16 + lane / 4;
-  const int cq = (lane % 4) * 2;
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * BM;
-  const int key[2] = {k0 + ra, k0 + ra + 8};
-
-  load_bf16<BM>(k_s, k + bh * s * D, k0, s);
-  load_bf16<BM>(tk_s, tk + bh * s * D, k0, s);
-  load_bf16<BM>(v_s, v + bh * s * D, k0, s);
-  load_bf16<BM>(tv_s, tv + bh * s * D, k0, s);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4], dtk_acc[D / 8][4], dtv_acc[D / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  zero(dtk_acc);
-  zero(dtv_acc);
-
-  // Causal: q tiles wholly before the key block see none of its keys.
-  const int j0 = causal ? k0 / BT : 0;
-  const int n_qt = (t + BT - 1) / BT;
-  const size_t qrow0 = bh * t;
-  for (int j = j0; j < n_qt; ++j) {
-    const int q0 = j * BT;
-    __syncthreads();
-    load_bf16<BT>(q_s, q + qrow0 * D, q0, t);
-    load_bf16<BT>(tq_s, tq + qrow0 * D, q0, t);
-    load_bf16<BT>(do_s, dout + qrow0 * D, q0, t);
-    load_bf16<BT>(dto_s, dtout + qrow0 * D, q0, t);
-    if (tid < BT) {
-      const bool live = q0 + tid < t;
-      const size_t rw = qrow0 + q0 + tid;
-      lse_s[tid] = live ? lse[rw] : 0.f;
-      mu_s[tid] = live ? mu[rw] : 0.f;
-      c_s[tid] = live ? crow[rw] : 0.f;
-      dh_s[tid] = live ? dhat[rw] : 0.f;
-    }
-    __syncthreads();
-
-    // [16 keys x 32 q rows]: S^T, tS^T (both terms), tpb^T, and dO V^T + dtO tV^T
-    float st[NT][4], tst[NT][4], tpbt[NT][4], pbt[NT][4];
-    zero(st);
-    zero(tst);
-    zero(tpbt);
-    zero(pbt);
-    mma_abt(st, k_s, q_s, ra, lane);
-    mma_abt(tst, k_s, tq_s, ra, lane);
-    mma_abt(tst, tk_s, q_s, ra, lane);
-    mma_abt(tpbt, v_s, dto_s, ra, lane);
-    mma_abt(pbt, v_s, do_s, ra, lane);
-    mma_abt(pbt, tv_s, dto_s, ra, lane);
-    // p, tP, dS, tSb in place of S, tS, tpb, pbar (tS and the first two
-    // pbar terms arrive summed, hence the zeros)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + cq + (e & 1);
-        const int kk = key[e / 2];
-        const bool valid = kk < s && q0 + col < t && (!causal || kk <= q0 + col);
-        const Terms x = tile_terms(valid, st[nt][e], tst[nt][e], 0.f, tpbt[nt][e], pbt[nt][e],
-                                   0.f, lse_s[col], mu_s[col], c_s[col], dh_s[col], sm_scale,
-                                   qk_scale);
-        st[nt][e] = x.p;
-        tst[nt][e] = x.tp;
-        tpbt[nt][e] = x.ds;
-        pbt[nt][e] = x.tsb;
-      }
-    }
-    uint32_t pa[KS][4], tpa[KS][4], dsa[KS][4], tsba[KS][4];
-    acc_to_a(pa, st);
-    acc_to_a(tpa, tst);
-    acc_to_a(dsa, tpbt);
-    acc_to_a(tsba, pbt);
-    mma_ab(dv_acc, pa, do_s, lane);     // dV += p^T dO
-    mma_ab(dv_acc, tpa, dto_s, lane);   //    + tP^T dtO
-    mma_ab(dtv_acc, pa, dto_s, lane);   // dtV += p^T dtO
-    mma_ab(dk_acc, dsa, q_s, lane);     // dK += dS^T Q
-    mma_ab(dk_acc, tsba, tq_s, lane);   //    + tSb^T tQ
-    mma_ab(dtk_acc, tsba, q_s, lane);   // dtK += tSb^T Q
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (key[h] >= s) continue;
-    const size_t off = (bh * s + key[h]) * D + cq;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<float2*>(dk + off + dt * 8) =
-          make_float2(dk_acc[dt][2 * h] * sm_scale, dk_acc[dt][2 * h + 1] * sm_scale);
-      *reinterpret_cast<float2*>(dv + off + dt * 8) =
-          make_float2(dv_acc[dt][2 * h], dv_acc[dt][2 * h + 1]);
-      *reinterpret_cast<float2*>(dtk + off + dt * 8) =
-          make_float2(dtk_acc[dt][2 * h] * sm_scale, dtk_acc[dt][2 * h + 1] * sm_scale);
-      *reinterpret_cast<float2*>(dtv + off + dt * 8) =
-          make_float2(dtv_acc[dt][2 * h], dtv_acc[dt][2 * h + 1]);
-    }
-  }
-}
-
 // B12, fast.
 __global__ void __launch_bounds__(MMA_THREADS)
 jvp_dq_mma(const float* __restrict__ q, const float* __restrict__ k,
@@ -1151,6 +1031,340 @@ jvp_dq_mma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B11 fast: TMA ring + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int JD_THREADS = 256;               // two warpgroups
+constexpr int JD_KEYS = 128;                  // keys a block: 64 a warpgroup
+constexpr int JD_ROWS = 32;                   // q rows a streamed tile
+constexpr int JD_STAGES = 6;                  // q-side tiles in flight
+constexpr int JD_TILE = JD_ROWS * D * 2;      // bytes of a bf16 q-side tile
+constexpr int JD_HALF = 64 * D * 2;           // bytes of a warpgroup's 64 keys of K, tK, V or tV
+constexpr int JD_ROW_BYTES = JD_ROWS * 4;     // a tile's lse, mu, c or dhat
+// K, tK, V, tV at 2 JD_HALF each; stage st: Q, tQ, dO, dtO at JD_OFF_RING +
+// 4 st JD_TILE and lse, mu, c, dhat at JD_OFF_ROWS + 4 st JD_ROW_BYTES; then
+// the mbarriers (full[stage], then K/V's) and the release counters.
+constexpr int JD_OFF_RING = 8 * JD_HALF;
+constexpr int JD_OFF_ROWS = JD_OFF_RING + JD_STAGES * 4 * JD_TILE;
+constexpr int JD_OFF_BAR = JD_OFF_ROWS + JD_STAGES * 4 * JD_ROW_BYTES;
+constexpr int JD_COUNTERS = 64;
+constexpr int JD_SMEM = JD_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
+static_assert((JD_STAGES + 1) * 8 <= JD_COUNTERS && JD_COUNTERS + JD_STAGES * 4 <= 128,
+              "the barriers and counters fit");
+static_assert(JD_OFF_RING % 1024 == 0 && JD_OFF_ROWS % 1024 == 0,
+              "swizzled tiles start on 1024 bytes");
+
+// Four f32 values of two accumulator columns (rows r, r + 8) -> the bf16 A
+// fragment words of k-step n / 2 (as flash_bwd.cu's pack_a).
+template <int K>
+__device__ __forceinline__ void pack_frag(uint32_t (&a)[K][4], int n, const float (&x)[4]) {
+  a[n / 2][(n % 2) * 2 + 0] = pack_bf16(x[0], x[1]);
+  a[n / 2][(n % 2) * 2 + 1] = pack_bf16(x[2], x[3]);
+}
+
+// One tile's p^T, tP^T, dS^T and tSb^T as the bf16 A fragments of the second
+// products (tile_terms' arithmetic). x[4 n + e]: key key[e / 2], q row q0 +
+// 8 n + cq + (e & 1), whose lse, mu, c and dhat are rw[col], rw[32 + col],
+// rw[64 + col], rw[96 + col]. MASK: the tile reaches past t or s or the
+// causal diagonal.
+template <bool MASK>
+__device__ __forceinline__ void dkv_terms(const float (&st)[16], const float (&tst)[16],
+                                          const float (&tpbt)[16], const float (&pbt)[16],
+                                          const float* rw, int q0, int cq, const int (&key)[2],
+                                          int s, int t, int causal, float sm_scale,
+                                          float qk_scale, uint32_t (&pa)[2][4],
+                                          uint32_t (&tpa)[2][4], uint32_t (&dsa)[2][4],
+                                          uint32_t (&tsba)[2][4]) {
+#pragma unroll
+  for (int n = 0; n < JD_ROWS / 8; ++n) {
+    const float2 lse2 = *reinterpret_cast<const float2*>(rw + 8 * n + cq);
+    const float2 mu2 = *reinterpret_cast<const float2*>(rw + JD_ROWS + 8 * n + cq);
+    const float2 c2 = *reinterpret_cast<const float2*>(rw + 2 * JD_ROWS + 8 * n + cq);
+    const float2 dh2 = *reinterpret_cast<const float2*>(rw + 3 * JD_ROWS + 8 * n + cq);
+    float p[4], tp[4], ds[4], tsb[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e, odd = e & 1;
+      float pe = exp2_ftz(st[i] * qk_scale - (odd ? lse2.y : lse2.x));
+      if (MASK) {
+        const int pos = q0 + 8 * n + cq + odd, k = key[e / 2];
+        pe = k < s && pos < t && (!causal || k <= pos) ? pe : 0.f;
+      }
+      const float cr = odd ? c2.y : c2.x;
+      const float ts = tst[i] * sm_scale;
+      const float tsmu = ts - (odd ? mu2.y : mu2.x);
+      const float pbar = pbt[i] + tpbt[i] * tsmu - cr * ts;
+      p[e] = pe;
+      ds[e] = pe * (pbar - (odd ? dh2.y : dh2.x));
+      tsb[e] = pe * (tpbt[i] - cr);
+      tp[e] = pe * tsmu;
+    }
+    pack_frag(pa, n, p);
+    pack_frag(tpa, n, tp);
+    pack_frag(dsa, n, ds);
+    pack_frag(tsba, n, tsb);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+__global__ void __launch_bounds__(JD_THREADS, 1)
+jvp_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
+              const __grid_constant__ CUtensorMap tq_map,   // the same for tq
+              const __grid_constant__ CUtensorMap do_map,   // dO
+              const __grid_constant__ CUtensorMap dto_map,  // dtO
+              const __grid_constant__ CUtensorMap k_map,    // [bh, s, 64] bf16 k
+              const __grid_constant__ CUtensorMap tk_map,
+              const __grid_constant__ CUtensorMap v_map,
+              const __grid_constant__ CUtensorMap tv_map,
+              const __grid_constant__ CUtensorMap row_map,  // [4, bh, ld] f32 lse, mu, c, dhat
+              float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dtk,
+              float* __restrict__ dtv,  // [bh, s, D]
+              int t, int s, int causal, float sm_scale, float qk_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + JD_OFF_BAR;
+  auto full = [&](int st) { return bars + 8 * st; };
+  const uint32_t kv_bar = full(JD_STAGES);
+  int* released = reinterpret_cast<int*>(smem + JD_OFF_BAR + JD_COUNTERS);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * JD_KEYS;  // key tile 0, which sees the most q tiles, first
+  const int n_qt = (t + JD_ROWS - 1) / JD_ROWS;
+  // Causal: q tiles wholly before the key tile see none of its keys.
+  const int j0 = causal ? min(k0 / JD_ROWS, n_qt) : 0;
+  const int n_tiles = n_qt - j0;
+
+  init_ring(bars, released, JD_STAGES + 1);
+
+  // Tile i of the walk (q rows (j0 + i) 32 ..) into stage i % JD_STAGES.
+  auto load_tile = [&](int i) {
+    const int st = i % JD_STAGES;
+    const int q0 = (j0 + i) * JD_ROWS;
+    const uint32_t tiles = base + JD_OFF_RING + st * 4 * JD_TILE;
+    const uint32_t rows = base + JD_OFF_ROWS + st * 4 * JD_ROW_BYTES;
+    mbar_expect_tx(full(st), 4 * JD_TILE + 4 * JD_ROW_BYTES);
+    tma_load_3d(tiles, &q_map, full(st), 0, q0, bh);
+    tma_load_3d(tiles + JD_TILE, &tq_map, full(st), 0, q0, bh);
+    tma_load_3d(tiles + 2 * JD_TILE, &do_map, full(st), 0, q0, bh);
+    tma_load_3d(tiles + 3 * JD_TILE, &dto_map, full(st), 0, q0, bh);
+#pragma unroll
+    for (int term = 0; term < 4; ++term)
+      tma_load_4d(rows + term * JD_ROW_BYTES, &row_map, full(st), q0, 0, bh, term);
+  };
+  // The block's K, tK, V, tV (keys past s arrive as zeros; a half wholly
+  // past s is not loaded: its keys' rows are never stored), then the first
+  // stages. A block that no q tile sees loads nothing and stores zeros.
+  if (tid == 0 && n_tiles > 0) {
+    const int halves = k0 + 64 < s ? 2 : 1;
+    mbar_expect_tx(kv_bar, halves * 4 * JD_HALF);
+    for (int h = 0; h < halves; ++h) {
+      tma_load_3d(base + h * JD_HALF, &k_map, kv_bar, 0, k0 + 64 * h, bh);
+      tma_load_3d(base + (2 + h) * JD_HALF, &tk_map, kv_bar, 0, k0 + 64 * h, bh);
+      tma_load_3d(base + (4 + h) * JD_HALF, &v_map, kv_bar, 0, k0 + 64 * h, bh);
+      tma_load_3d(base + (6 + h) * JD_HALF, &tv_map, kv_bar, 0, k0 + 64 * h, bh);
+    }
+    for (int i = 0; i < min(JD_STAGES, n_tiles); ++i) load_tile(i);
+  }
+
+  // wg owns keys k0 + 64 wg .. k0 + 64 wg + 63.
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int cq = (lane % 4) * 2;  // accumulator column pair
+  const int kw0 = k0 + 64 * wg;
+  const int key[2] = {kw0 + 16 * warp + lane / 4, kw0 + 16 * warp + lane / 4 + 8};
+  const uint64_t desc_k = desc_kmajor_sw128(base + wg * JD_HALF);
+  const uint64_t desc_tk = desc_kmajor_sw128(base + (2 + wg) * JD_HALF);
+  const uint64_t desc_v = desc_kmajor_sw128(base + (4 + wg) * JD_HALF);
+  const uint64_t desc_tv = desc_kmajor_sw128(base + (6 + wg) * JD_HALF);
+
+  float dk_acc[32], dv_acc[32], dtk_acc[32], dtv_acc[32];
+  float st_acc[16], ts_acc[16], tpb_acc[16], pb_acc[16];  // S^T, tS^T, tpb^T, pbar^T's products
+  uint32_t pa[2][4] = {}, tpa[2][4] = {}, dsa[2][4] = {}, tsba[2][4] = {};
+  zero(dk_acc);
+  zero(dv_acc);
+  zero(dtk_acc);
+  zero(dtv_acc);
+  zero(st_acc);
+  zero(ts_acc);
+  zero(tpb_acc);
+  zero(pb_acc);
+  if (n_tiles > 0) mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % JD_STAGES;
+    const int q0 = (j0 + i) * JD_ROWS;
+    const uint32_t tiles = base + JD_OFF_RING + st * 4 * JD_TILE;
+    mbar_wait(full(st), (i / JD_STAGES) & 1);
+    {  // the first products, A = the block's keys, B = the q-side tiles (K-major)
+      const uint64_t dq = desc_kmajor_sw128(tiles), dtq = desc_kmajor_sw128(tiles + JD_TILE);
+      const uint64_t ddo = desc_kmajor_sw128(tiles + 2 * JD_TILE);
+      const uint64_t ddto = desc_kmajor_sw128(tiles + 3 * JD_TILE);
+      reg_fence(st_acc);
+      reg_fence(ts_acc);
+      reg_fence(tpb_acc);
+      reg_fence(pb_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
+        wgmma_bf16_m64n32k16_ss(st_acc, desc_k + 2 * kk, dq + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // tS^T = K tQ^T + tK Q^T
+        wgmma_bf16_m64n32k16_ss(ts_acc, desc_k + 2 * kk, dtq + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16_m64n32k16_ss(ts_acc, desc_tk + 2 * kk, dq + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // tpb^T = V dtO^T
+        wgmma_bf16_m64n32k16_ss(tpb_acc, desc_v + 2 * kk, ddto + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // V dO^T + tV dtO^T
+        wgmma_bf16_m64n32k16_ss(pb_acc, desc_v + 2 * kk, ddo + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16_m64n32k16_ss(pb_acc, desc_tv + 2 * kk, ddto + 2 * kk, 1);
+      wgmma_commit();
+    }
+    // the last tile's second products are done (all but the newest group):
+    // its stage is released while this tile's first products run
+    wgmma_wait<1>();
+    if (i > 0) release_stage(released, i - 1, JD_STAGES, n_tiles, load_tile);
+    wgmma_wait<0>();
+    reg_fence(st_acc);
+    reg_fence(ts_acc);
+    reg_fence(tpb_acc);
+    reg_fence(pb_acc);
+    reg_fence(pa);
+    reg_fence(tpa);
+    reg_fence(dsa);
+    reg_fence(tsba);
+    reg_fence(dk_acc);
+    reg_fence(dv_acc);
+    reg_fence(dtk_acc);
+    reg_fence(dtv_acc);
+    const float* rw =
+        reinterpret_cast<const float*>(smem + JD_OFF_ROWS + st * 4 * JD_ROW_BYTES);
+    if (q0 + JD_ROWS > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))
+      dkv_terms<true>(st_acc, ts_acc, tpb_acc, pb_acc, rw, q0, cq, key, s, t, causal, sm_scale,
+                      qk_scale, pa, tpa, dsa, tsba);
+    else
+      dkv_terms<false>(st_acc, ts_acc, tpb_acc, pb_acc, rw, q0, cq, key, s, t, causal, sm_scale,
+                       qk_scale, pa, tpa, dsa, tsba);
+    reg_fence(pa);
+    reg_fence(tpa);
+    reg_fence(dsa);
+    reg_fence(tsba);
+    {  // the second products, B = the same tiles read MN-major (16 q rows = 2048 bytes a k-step)
+      const uint64_t dq = desc_mnmajor_sw128(tiles), dtq = desc_mnmajor_sw128(tiles + JD_TILE);
+      const uint64_t ddo = desc_mnmajor_sw128(tiles + 2 * JD_TILE);
+      const uint64_t ddto = desc_mnmajor_sw128(tiles + 3 * JD_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dV += p^T dO + tP^T dtO
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, pa[kk], ddo + 128 * kk, 1);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, tpa[kk], ddto + 128 * kk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < JD_ROWS / 16; ++kk)  // dtV += p^T dtO
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtv_acc, pa[kk], ddto + 128 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dK += dS^T Q + tSb^T tQ
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc, dsa[kk], dq + 128 * kk, 1);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc, tsba[kk], dtq + 128 * kk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < JD_ROWS / 16; ++kk)  // dtK += tSb^T Q
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtk_acc, tsba[kk], dq + 128 * kk, 1);
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(dk_acc);
+  reg_fence(dv_acc);
+  reg_fence(dtk_acc);
+  reg_fence(dtv_acc);
+  reg_fence(pa);
+  reg_fence(tpa);
+  reg_fence(dsa);
+  reg_fence(tsba);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= s) continue;
+    const size_t off = (static_cast<size_t>(bh) * s + key[h]) * D + cq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * n + 2 * h;
+      *reinterpret_cast<float2*>(dk + off + 8 * n) =
+          make_float2(dk_acc[i] * sm_scale, dk_acc[i + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * n) = make_float2(dv_acc[i], dv_acc[i + 1]);
+      *reinterpret_cast<float2*>(dtk + off + 8 * n) =
+          make_float2(dtk_acc[i] * sm_scale, dtk_acc[i + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dtv + off + 8 * n) = make_float2(dtv_acc[i], dtv_acc[i + 1]);
+    }
+  }
+}
+
+// B11's prep, one launch: the eight contiguous f32 operands (q, k, v, tq,
+// tk, tv, dO, dtO: [bh, t, 64] or [bh, s, 64]) -> bf16 (round to nearest
+// even), and the row terms lse, mu, c, dhat ([bh, t] each) -> [4, bh, ld]. Grid (rows /
+// PREP_ROWS rounded up, bh, 9): z < 8 converts operand z, eight elements a
+// thread in PREP_PASSES rows, every load issued before the first store; z ==
+// 8 copies the row terms.
+struct PrepArgs {
+  const float* src[8];
+  __nv_bfloat16* dst[8];
+  const float* rows[4];
+};
+constexpr int PREP_PASSES = 4;
+constexpr int PREP_ROWS = PREP_PASSES * 256 / 8;
+constexpr int Q_SIDE = 0xC9;  // the operands of t rows: q, tq, dO, dtO (bits 0, 3, 6, 7)
+
+__global__ void __launch_bounds__(256)
+jvp_bwd_prep_kernel(PrepArgs args, float* __restrict__ rows_out, int bh_n, int t, int s, int ld) {
+  const int z = blockIdx.z, bh = blockIdx.y, tid = threadIdx.x;
+  const int tok0 = blockIdx.x * PREP_ROWS;
+  if (z == 8) {
+    for (int i = tid; i < 4 * PREP_ROWS; i += 256) {
+      const int term = i / PREP_ROWS, tok = tok0 + i % PREP_ROWS;
+      if (tok < t)
+        rows_out[(static_cast<size_t>(term) * bh_n + bh) * ld + tok] =
+            args.rows[term][static_cast<size_t>(bh) * t + tok];
+    }
+    return;
+  }
+  const int n = (Q_SIDE >> z) & 1 ? t : s, c8 = tid % 8;
+  const float* src = args.src[z] + static_cast<size_t>(bh) * n * D;
+  uint4* dst = reinterpret_cast<uint4*>(args.dst[z] + static_cast<size_t>(bh) * n * D);
+  float4 x[PREP_PASSES][2] = {};
+#pragma unroll
+  for (int i = 0; i < PREP_PASSES; ++i) {
+    const int tok = tok0 + tid / 8 + 32 * i;
+    if (tok < n) {
+      const float4* row = reinterpret_cast<const float4*>(src + static_cast<size_t>(tok) * D);
+      x[i][0] = row[2 * c8];
+      x[i][1] = row[2 * c8 + 1];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PREP_PASSES; ++i) {
+    const int tok = tok0 + tid / 8 + 32 * i;
+    if (tok < n)
+      dst[static_cast<size_t>(tok) * (D / 8) + c8] =
+          make_uint4(pack_bf16(x[i][0].x, x[i][0].y), pack_bf16(x[i][0].z, x[i][0].w),
+                     pack_bf16(x[i][1].x, x[i][1].y), pack_bf16(x[i][1].z, x[i][1].w));
+  }
+}
+
 constexpr size_t TILE16 = BT * SROW * sizeof(bf16);   // a streamed bf16 tile
 constexpr size_t BLOCK16 = BM * SROW * sizeof(bf16);  // a block's own bf16 tile
 
@@ -1205,25 +1419,83 @@ extern "C" int qa_jvp_tangent(const void* q, const void* k, const void* v, const
                 qk_scale);
 }
 
-// B11: dK, dV, dtK, dtV [bh, s, D].
+// B11 exact: dK, dV, dtK, dtV [bh, s, D] (fast mode: qa_jvp_bwd_dkv_bf16).
 extern "C" int qa_jvp_bwd_dkv(const void* q, const void* k, const void* v, const void* tq,
                               const void* tk, const void* tv, const void* dout, const void* dtout,
                               const void* lse, const void* mu, const void* crow,
                               const void* dhat, void* dk, void* dv, void* dtk, void* dtv, int bh,
                               int t, int s, int causal, int fast, float sm_scale, float qk_scale,
                               void* stream) {
-  if (fast)
-    return launch(jvp_dkv_mma, dim3((s + BM - 1) / BM, bh), MMA_THREADS,
-                  4 * BLOCK16 + 4 * TILE16 + 4 * BT * sizeof(float), stream, cf(q), cf(k),
-                  cf(v), cf(tq), cf(tk), cf(tv), cf(dout), cf(dtout), cf(lse), cf(mu), cf(crow),
-                  cf(dhat), static_cast<float*>(dk), static_cast<float*>(dv),
-                  static_cast<float*>(dtk), static_cast<float*>(dtv), t, s, causal, sm_scale,
-                  qk_scale);
+  if (fast) return static_cast<int>(cudaErrorInvalidValue);
   return launch(jvp_dkv_kernel, dim3((s + T - 1) / T, bh), THREADS,
                 (8 * TILE + 4 * PTILE + 4 * T) * sizeof(float), stream, cf(q), cf(k), cf(v),
                 cf(tq), cf(tk), cf(tv), cf(dout), cf(dtout), cf(lse), cf(mu), cf(crow), cf(dhat),
                 static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dtk),
                 static_cast<float*>(dtv), t, s, causal, sm_scale, qk_scale);
+}
+
+// Shared bytes one B11 fast block asks for (ops/jvp_tiling.py mirrors it).
+extern "C" int qa_jvp_bwd_dkv_smem_bytes() { return JD_SMEM; }
+
+// B11 fast's prep: src = q, k, v, tq, tk, tv, dO, dtO (q-side [bh, t, 64],
+// kv-side [bh, s, 64]) f32, rows = lse, mu, c, dhat [bh, t] f32, all contiguous and 16-byte
+// aligned -> dst (the same eight in bf16) and rows_out [4, bh, ld] (ld >= t,
+// a multiple of 4), in one launch.
+extern "C" int qa_jvp_bwd_prep(const void* const* src, void* const* dst, const void* const* rows,
+                               void* rows_out, int bh, int t, int s, int ld, void* stream) {
+  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PrepArgs args;
+  for (int i = 0; i < 8; ++i) {
+    if (!aligned16(src[i]) || !aligned16(dst[i])) return static_cast<int>(cudaErrorInvalidValue);
+    args.src[i] = static_cast<const float*>(src[i]);
+    args.dst[i] = static_cast<__nv_bfloat16*>(dst[i]);
+  }
+  for (int i = 0; i < 4; ++i) args.rows[i] = static_cast<const float*>(rows[i]);
+  const dim3 grid(((t > s ? t : s) + PREP_ROWS - 1) / PREP_ROWS, bh, 9);
+  jvp_bwd_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      args, static_cast<float*>(rows_out), bh, t, s, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B11 fast: the prep's q, k, v, tq, tk, tv, dO, dtO (bf16, contiguous) and
+// rows [4, bh, ld] -> dK, dV, dtK, dtV [bh, s, D] f32.
+extern "C" int qa_jvp_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* tq,
+                                   const void* tk, const void* tv, const void* dout,
+                                   const void* dtout, const void* rows, void* dk, void* dv,
+                                   void* dtk, void* dtv, int bh, int t, int s, int ld, int causal,
+                                   float sm_scale, float qk_scale, void* stream) {
+  const int n_kt = (s + JD_KEYS - 1) / JD_KEYS;
+  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4 || n_kt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map, row_map;
+  const long long rb = 4LL * ld;
+  const long long row_stride[3] = {rb, rb, rb * bh};
+  if (!tensor_map_3d(&q_map, q, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
+      !tensor_map_3d(&tq_map, tq, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
+      !tensor_map_3d(&do_map, dout, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
+      !tensor_map_3d(&dto_map, dtout, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
+      !tensor_map_3d(&k_map, k, b16, 2, bh, s, D, 64, D, sw) ||
+      !tensor_map_3d(&tk_map, tk, b16, 2, bh, s, D, 64, D, sw) ||
+      !tensor_map_3d(&v_map, v, b16, 2, bh, s, D, 64, D, sw) ||
+      !tensor_map_3d(&tv_map, tv, b16, 2, bh, s, D, 64, D, sw) ||
+      !tensor_map_4d(&row_map, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bh, 1, t, row_stride, 1,
+                     JD_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(jvp_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, JD_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  jvp_dkv_wgmma<<<dim3(bh, n_kt), JD_THREADS, JD_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map, row_map,
+      static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dtk),
+      static_cast<float*>(dtv), t, s, causal, sm_scale, qk_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B12: dQ, dtQ [bh, t, D].

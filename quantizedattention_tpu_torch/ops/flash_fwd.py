@@ -26,9 +26,14 @@ h = kv_head * rep + g reads kv head `kv_head`.
 The fp32 mode (flash_fwd.py:255-260, `precision="fp32"`; the primal of
 `attention_jvp` and the rCM prepass) is a second kernel of the same file with
 its own wrapper, `flash_attention_fwd_fp32`, and its own launch count: q is
-pre-scaled in f32, k/v stay f32, nothing is rounded (the TPU's
-Precision.HIGHEST dots), and the eps row-max bias still applies. The plain
-version serves both modes through its `precision` argument.
+pre-scaled in f32, k/v stay f32, nothing is rounded to a narrower type (the
+TPU's Precision.HIGHEST dots), and the eps row-max bias still applies. The
+kernel takes each product as three TF32 products on the tensor cores
+(3xTF32: x = big + small, big rounded to nearest TF32), reads q through its
+strides and scales it itself, and takes K and V from one prep launch
+(`kv_split_tf32`: K big and small, V^T big and small) that reads them
+through their strides. The plain version serves both modes through its
+`precision` argument; `kv_split_tf32_plain` is the prep's.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import flash_tiling
 from quantizedattention_tpu_torch.ops.common import MASK_VALUE, qk_scales, tile_mask
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
-from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
+from quantizedattention_tpu_torch.utils.runtime import check_status
 
 _HEAD_DIM = 64  # the kernel's compiled head dim
 
@@ -97,7 +102,9 @@ ARGTYPES = {  # the C entries of csrc/flash_fwd.cu
     "qa_flash_fwd": [_PTR, _I64, _I64, _I64, _I32] + [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR]
                     + [_I32] * 7 + [ctypes.c_float, _PTR],
     "qa_flash_kv_to_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR, _I32, _I32, _I32, _PTR],
-    "qa_flash_fwd_f32": [_PTR] * 5 + [_I32] * 5 + [_PTR],
+    "qa_flash_kv_split_tf32": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 4 + [_I32] * 3 + [_PTR],
+    "qa_flash_fwd_f32": [_PTR, _I64, _I64, _I64] + [_PTR] * 6 + [_I32] * 6
+                        + [ctypes.c_float, _PTR],
 }
 
 
@@ -181,28 +188,82 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps"):
     return o, lse
 
 
+def tf32_split(x):
+    """f32 x -> (big, small): big = x rounded to nearest TF32, ties away from
+    zero (the low 13 bits cleared after adding half their range, as
+    cvt.rna.tf32.f32), small = x - big, exact in f32."""
+    big = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return big, x - big
+
+
+def kv_split_tf32_plain(k, v):
+    """The fp32 mode's K/V prep in plain PyTorch: f32 k, v [b, h_kv, s, d] ->
+    (K big, K small [b * h_kv, s, d], V^T big, V^T small [b * h_kv, d, s8]),
+    s8 = `flash_tiling.fp32_kv_cols(s)`. Column 8g + j of V^T holds key 8g +
+    `flash_tiling.TF32_A_COLUMNS[j]` (the order in which the kernel's P
+    fragments hold their keys); keys past s are 0."""
+    b, h_kv, s, d = k.shape
+    kb, ks = tf32_split(k.float().reshape(b * h_kv, s, d).contiguous())
+    s8 = flash_tiling.fp32_kv_cols(s)
+    vf = torch.zeros((b * h_kv, s8, d), dtype=torch.float32, device=v.device)
+    vf[:, :s] = v.float().reshape(b * h_kv, s, d)
+    order = torch.tensor(flash_tiling.TF32_A_COLUMNS, device=v.device)
+    keys = (torch.arange(0, s8, 8, device=v.device)[:, None] + order).reshape(-1)
+    vbt, vst = tf32_split(vf[:, keys].transpose(1, 2).contiguous())
+    return kb, ks, vbt, vst
+
+
+def kv_split_tf32(k, v):
+    """`kv_split_tf32_plain`'s result, byte for byte, from one kernel launch
+    for CUDA tensors (f32 k, v [b, h_kv, s, 64], rows contiguous, 16-byte
+    aligned); CPU tensors take the plain version. `kv_split_tf32.launches`
+    counts kernel launches."""
+    if k.device.type == "cpu":
+        return kv_split_tf32_plain(k, v)
+    b, h_kv, s, d = k.shape
+    if (k.dtype, v.dtype, d, v.shape) != (torch.float32, torch.float32, _HEAD_DIM, k.shape) \
+            or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError(f"kernel takes f32 k, v [b, h_kv, s, {_HEAD_DIM}] with rows contiguous")
+    s8 = flash_tiling.fp32_kv_cols(s)
+    kb = torch.empty((b * h_kv, s, d), dtype=torch.float32, device=k.device)
+    ks = torch.empty_like(kb)
+    vbt = torch.empty((b * h_kv, d, s8), dtype=torch.float32, device=k.device)
+    vst = torch.empty_like(vbt)
+    status = _kernel("qa_flash_kv_split_tf32")(
+        k.data_ptr(), *_strides(k), v.data_ptr(), *_strides(v), kb.data_ptr(), ks.data_ptr(),
+        vbt.data_ptr(), vst.data_ptr(), b, h_kv, s, torch.cuda.current_stream(k.device).cuda_stream)
+    check_status(status, "flash_fwd kv_split_tf32")
+    kv_split_tf32.launches += 1
+    return kb, ks, vbt, vst
+
+
 def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="eps"):
-    """The fp32 flash-attention forward: the fp32 kernel for CUDA tensors
-    (head_dim 64, any rep) or `flash_attention_fwd_plain(precision="fp32")`
-    for CPU tensors. Returns (O f32 [b, h, t, d], lse f32 [b, h, t]);
-    `flash_attention_fwd_fp32.launches` counts kernel launches."""
+    """The fp32 flash-attention forward: for CUDA tensors one `kv_split_tf32`
+    launch and the 3xTF32 kernel (head_dim 64, any rep, b*h <= 65535; q, k, v
+    read through their strides, rows contiguous), or
+    `flash_attention_fwd_plain(precision="fp32")` for CPU tensors. Returns
+    (O f32 [b, h, t, d], lse f32 [b, h, t]); `flash_attention_fwd_fp32.launches`
+    counts kernel launches (the prep's are `kv_split_tf32.launches`)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction, "fp32")
     _check_args(q, k, v, correction)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
-    if d != _HEAD_DIM or b * h > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, b*h <= 65535; got d={d}, "
-                         f"b*h={b * h}")
+    if d != _HEAD_DIM:
+        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}; got d={d}")
+    flash_tiling.fp32_grid(b * h, t)
     _, qk_scale = qk_scales(d, sm_scale)
-    qs = (q.float() * qk_scale).contiguous()
-    kf, vf = k.float().contiguous(), v.float().contiguous()
-    dev = require_cuda(qs, kf, vf)
+    qf, kf, vf = (_kernel_ready(x, (torch.float32,)) for x in (q, k, v))
+    dev = qf.device
+    if not dev == kf.device == vf.device:
+        raise ValueError(f"q, k and v lie on {dev}, {kf.device} and {vf.device}")
+    kb, ks, vbt, vst = kv_split_tf32(kf, vf)
     o = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     status = _kernel("qa_flash_fwd_f32")(
-        qs.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, h // h_kv, t, s, int(causal), torch.cuda.current_stream(dev).cuda_stream,
+        qf.data_ptr(), *_strides(qf), kb.data_ptr(), ks.data_ptr(), vbt.data_ptr(),
+        vst.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, h_kv, t, s, int(causal), qk_scale,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "flash_fwd_fp32")
     flash_attention_fwd_fp32.launches += 1
@@ -211,3 +272,4 @@ def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="e
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd_fp32.launches = 0
+kv_split_tf32.launches = 0

@@ -1,5 +1,6 @@
 """Launch geometry of the corrected-bf16 flash forward (csrc/flash_fwd.cu, B1
-bf16 mode) and of its backward's fast mode (csrc/flash_bwd.cu, B2 and B3).
+bf16 mode), of its fp32 mode (3xTF32) and of its backward's fast mode
+(csrc/flash_bwd.cu, B2 and B3).
 
 Pure Python, so the CPU tests can hold it. A block has BLOCK_ROWS query
 rows, two warpgroups of 64, which hold one kv head's whole GQA group: bq =
@@ -10,6 +11,12 @@ r // bq at position q0 + r % bq (rows from rep * bq on are dead). The grid is
 first. Keys are walked in tiles of KV_TILE through a ring of KV_STAGES TMA
 stages (K and V of one tile a stage). The constants mirror the kernel's,
 and `shared_bytes` is held against the kernel's own count on the card.
+
+The fp32 mode (the third section) takes FP32_ROWS positions of one q head a
+block, two warpgroups of 64, and walks 64-key tiles of K big and small and
+V^T big and small through a ring of FP32_STAGES TMA stages; its K/V prep
+writes V^T with FP32_KV_COLS-aligned rows and the keys of each group of 8 in
+the order TF32_A_COLUMNS.
 
 The backward (the second section) streams 64-row tiles through rings of TMA
 stages in both kernels. B2 takes 128 keys a block (two warpgroups of 64) and
@@ -105,3 +112,41 @@ def bwd_grids(bh_kv: int, rep: int, t: int, s: int) -> tuple[int, tuple[int, int
         raise ValueError(f"kernels take 1 to {MAX_Q_TILES} key tiles of {DKV_KEYS} and row "
                          f"blocks of {bq}; got t={t}, s={s}")
     return bq, dkv, dq
+
+
+# --------------------------------------------------------------------------
+# The forward's fp32 mode (3xTF32)
+# --------------------------------------------------------------------------
+
+FP32_ROWS = 128  # q positions a block, one q head: two warpgroups of 64
+FP32_KEYS = 64  # keys a tile
+FP32_STAGES = 3  # tiles in flight (each K big, K small, V^T big, V^T small: 64 KB)
+FP32_KV_COLS = 8  # V^T rows are padded to a multiple of this many keys
+# Column j of each group of 8 keys of V^T holds key TF32_A_COLUMNS[j]: a
+# TF32 A fragment built from an accumulator holds its columns 2c and 2c + 1
+# as fragment columns c and c + 4 (hopper.cuh's tf32_a_column).
+TF32_A_COLUMNS = (0, 2, 4, 6, 1, 3, 5, 7)
+_F32_BLOCK = 64 * 128  # bytes of a [64 x 32] f32 block
+
+
+def fp32_shared_bytes() -> int:
+    """The fp32 kernel's dynamic shared memory: Q small of both warpgroups
+    (two [64 x 32] f32 blocks each), the ring (eight blocks a stage), 128
+    bytes of mbarriers and release counters, 1024 bytes of alignment."""
+    return 4 * _F32_BLOCK + FP32_STAGES * 8 * _F32_BLOCK + 128 + 1024
+
+
+def fp32_kv_cols(s: int) -> int:
+    """The row length of the prep's V^T (keys, a multiple of 8: a group of 8
+    permuted keys never straddles the row's end)."""
+    return -(-s // FP32_KV_COLS) * FP32_KV_COLS
+
+
+def fp32_grid(bh: int, t: int) -> tuple[int, int]:
+    """The fp32 kernel's grid (b * h, q tiles of FP32_ROWS); raises where the
+    kernel takes no launch."""
+    n_qt = -(-t // FP32_ROWS)
+    if not 1 <= bh <= MAX_KV_BLOCKS or not 1 <= n_qt <= MAX_Q_TILES:
+        raise ValueError(f"kernel takes 1 to {MAX_KV_BLOCKS} q heads (b*h) and 1 to {MAX_Q_TILES} "
+                         f"tiles of {FP32_ROWS} positions; got b*h={bh}, t={t}")
+    return bh, n_qt

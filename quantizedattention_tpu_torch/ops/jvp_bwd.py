@@ -6,11 +6,14 @@ the VJP of (q, k, v, tq, tk, tv) -> (O, tO): from the forward's residuals
 (dq, dk, dv, dtq, dtk, dtv) in f32. Two hand-written Hopper kernels
 (csrc/jvp.cu) run for CUDA tensors:
 
-  jvp_bwd_dkv  B11, dK, dV, dtK, dtV per 32-key tile over all q tiles;
-  jvp_bwd_dq   B12, dQ, dtQ per 32-row q tile over all kv tiles;
+  jvp_bwd_prep  B11 fast's operand prep, one launch: the eight operands in
+                bf16 and the row terms lse, mu, c, dhat at TMA's row stride;
+  jvp_bwd_dkv   B11, dK, dV, dtK, dtV per key tile (32 keys exact, 128 fast)
+                over all q tiles;
+  jvp_bwd_dq    B12, dQ, dtQ per 32-row q tile over all kv tiles;
 
 and their plain PyTorch versions for CPU tensors. Each wrapper counts its
-launches (`.launches`).
+launches (`.launches`). B11 fast's launch geometry is ops/jvp_tiling.py's.
 
 Tile math (jvp_bwd.py:15-44): p = exp2(S - lse), 0 where masked;
 tS = (tQ K^T + Q tK^T) sm_scale; tpb = dtO V^T;
@@ -34,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
+from quantizedattention_tpu_torch.ops import jvp_tiling
 from quantizedattention_tpu_torch.ops.common import qk_scales, tile_mask
 from quantizedattention_tpu_torch.ops.jvp_fwd import check_jvp_args, kernel_args, rounder
 from quantizedattention_tpu_torch.utils.runtime import check_status
@@ -137,13 +141,46 @@ def jvp_bwd_dq_plain(ops: JvpBwdOperands):
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
+def jvp_bwd_prep_plain(ops: JvpBwdOperands):
+    """B11 fast's prep in plain PyTorch: (q, k, v, tq, tk, tv, do, dto) in
+    bf16 (round to nearest even, the shapes of `ops`) and the row terms
+    (lse, mu, c, dhat) stacked, f32 [4, b*h, t]."""
+    return tuple(x.to(torch.bfloat16) for x in ops[:8]), torch.stack(ops[8:12])
+
+
+def jvp_bwd_prep(ops: JvpBwdOperands):
+    """`jvp_bwd_prep_plain`'s result from one kernel launch for CUDA
+    operands, byte for byte: the bf16 operands contiguous, the row terms a
+    [4, b*h, t] view of [4, b*h, ld] rows (ld = `jvp_tiling.row_stride(t)`).
+    CPU operands take the plain version. `jvp_bwd_prep.launches` counts
+    kernel launches."""
+    if ops.q.device.type == "cpu":
+        return jvp_bwd_prep_plain(ops)
+    dev, bh, t, s, _ = _launch_args(ops)
+    ld = jvp_tiling.row_stride(t)
+    outs = [torch.empty(x.shape, dtype=torch.bfloat16, device=dev) for x in ops[:8]]
+    rows = torch.empty((4, bh, ld), dtype=torch.float32, device=dev)
+    arr = ctypes.c_void_p * 8
+    status = _kernels().qa_jvp_bwd_prep(
+        arr(*(x.data_ptr() for x in ops[:8])), arr(*(x.data_ptr() for x in outs)),
+        (ctypes.c_void_p * 4)(*(x.data_ptr() for x in ops[8:12])), rows.data_ptr(), bh, t, s,
+        ld, torch.cuda.current_stream(dev).cuda_stream)
+    check_status(status, "jvp_bwd prep")
+    jvp_bwd_prep.launches += 1
+    return tuple(outs), rows[..., :t]
+
+
 @functools.cache
 def _kernels():
     lib = load_kernel("jvp")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.qa_jvp_bwd_dkv.argtypes = [ptr] * 16 + [i32] * 5 + [f32, f32, ptr]
+    lib.qa_jvp_bwd_dkv_bf16.argtypes = [ptr] * 13 + [i32] * 5 + [f32, f32, ptr]
+    lib.qa_jvp_bwd_prep.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.qa_jvp_bwd_dq.argtypes = [ptr] * 14 + [i32] * 5 + [f32, f32, ptr]
-    lib.qa_jvp_bwd_dkv.restype = lib.qa_jvp_bwd_dq.restype = ctypes.c_int
+    for fn in (lib.qa_jvp_bwd_dkv, lib.qa_jvp_bwd_dkv_bf16, lib.qa_jvp_bwd_prep,
+               lib.qa_jvp_bwd_dq):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -162,14 +199,23 @@ def _launch_args(ops: JvpBwdOperands):
 
 def jvp_bwd_dkv(ops: JvpBwdOperands):
     """B11: (dk, dv, dtk, dtv) [b*h, s, d] f32. CUDA operands launch the
-    kernel (or raise); CPU operands take `jvp_bwd_dkv_plain`."""
+    kernel (or raise): fast mode after one `jvp_bwd_prep` launch; CPU
+    operands take `jvp_bwd_dkv_plain`."""
     if ops.q.device.type == "cpu":
         return jvp_bwd_dkv_plain(ops)
-    dev, bh, _, s, tail = _launch_args(ops)
+    dev, bh, t, s, tail = _launch_args(ops)
     outs = [torch.empty((bh, s, ops.q.shape[2]), dtype=torch.float32, device=dev)
             for _ in range(4)]
-    status = _kernels().qa_jvp_bwd_dkv(*(x.data_ptr() for x in ops[:12]),
-                                       *(x.data_ptr() for x in outs), *tail)
+    if ops.fast:
+        jvp_tiling.dkv_grid(bh, t, s)
+        (q, k, v, tq, tk, tv, do, dto), rows = jvp_bwd_prep(ops)
+        status = _kernels().qa_jvp_bwd_dkv_bf16(
+            *(x.data_ptr() for x in (q, k, v, tq, tk, tv, do, dto)), rows.data_ptr(),
+            *(x.data_ptr() for x in outs), bh, t, s, rows.stride(1), int(ops.causal),
+            ops.sm_scale, ops.qk_scale, tail[-1])
+    else:
+        status = _kernels().qa_jvp_bwd_dkv(*(x.data_ptr() for x in ops[:12]),
+                                           *(x.data_ptr() for x in outs), *tail)
     check_status(status, "jvp_bwd_dkv")
     jvp_bwd_dkv.launches += 1
     return tuple(outs)
@@ -189,6 +235,7 @@ def jvp_bwd_dq(ops: JvpBwdOperands):
     return tuple(outs)
 
 
+jvp_bwd_prep.launches = 0
 jvp_bwd_dkv.launches = 0
 jvp_bwd_dq.launches = 0
 
