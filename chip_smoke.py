@@ -11,7 +11,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      bytes against their launch geometry (ops/flash_tiling.py,
      ops/jvp_tiling.py, ops/int8_tiling.py, ops/linear_tiling.py), and fails
      if ptxas spills or serializes wgmma (a C75xx note) in the flash forward
-     (both modes) or backward or in B11 fast and its prep;
+     (both modes) or backward or in B9, B11 and B12 fast and their preps;
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
      multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
@@ -108,9 +108,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      and not, the DiT's attention shape (4, 4, 4096, 64), 77x201 causal and
      not, (1, 3, 33, 130) causal and not, and one token, and B1 fp32 at GQA
      rep 4 (2, 8 q / 2 kv, 300, 64) causal and at its tile edges (t > s and
-     t < s causal, rep 3, one query, one key); B1 fp32 and B11 fast called
-     twice for the same bits at each, and their prep launches (B1's K/V
-     split, B11's bf16 operands and row terms) byte-equal to the plain preps;
+     t < s causal, rep 3, one query, one key); B1 fp32, B9, B11 and B12 fast
+     called twice for the same bits at each (B9's second call on [b, t, h,
+     d] views, B12's on a prep of its own), and their prep launches (B1's
+     K/V split, B9's bf16 K, V, tK, tV from the strided views, the bf16
+     operands and row terms B11 and B12 share) byte-equal to the plain
+     preps;
  18. BASELINE config 5's gate: attention_value_and_jvp (exact) and
      torch.func.jvp of attention_jvp at (1, 2, 4096, 64) against the fp32
      oracle's (O, tO), 0 mismatches at atol 1e-2; at (1, 2, 256, 64),
@@ -121,15 +124,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      f32 inputs; its bounds as 3xTF32 on the tensor cores and as fp32 on
      the CUDA cores) and B9-B12 in both modes, at the DiT's attention shape
      (4, 4, 4096, 64) beside their plain versions and at bench.py's
-     bench_jvp shape (4, 16, 4096, 64), non-causal; B1 fp32's and B11
-     fast's calls split into their prep launch and the kernel;
+     bench_jvp shape (4, 16, 4096, 64), non-causal, on [b, h, t, d] views
+     of [b, t, h, d] tensors as the DiT hands them; B1 fp32's, B9 fast's and
+     B11 fast's calls split into their prep launch and the kernel, B12 fast
+     on B11's prep (as the rCM step runs it) and as a call of its own; B10
+     exact also at the dit_jvp path's shape (2, 4, 512, 64);
  20. the rCM distillation step of the DiT at BASELINE config 5
      (DiTConfig(seq_len=4096): d_model 256, 4 heads, 2 layers; batch 4;
      `ada` and `out` drawn at 1/sqrt(fan_in), so attention reaches the
      loss), fast=True: 1 warm-up + 5 AdamW steps through make_dit_rcm_step,
      losses finite and falling, each step launching B1 fp32, B9, B11 and
-     B12 and the prep launches of B1 fp32 and B11 n_layers times and no
-     other kernel; step time, tokens/s and peak
+     B12 and the prep launches of B1 fp32, B9 and B11 (shared with B12)
+     n_layers times and no other kernel; step time, tokens/s and peak
      memory; torch.profiler over one more step; at seq 512 the loss and
      every gradient against the CPU plain path, (u, du/dt) against finite
      differences, and torch.func.jvp of dit_forward through B10.
@@ -223,6 +229,8 @@ from quantizedattention_tpu_torch.ops import (
     jvp_bwd_operands,
     jvp_bwd_prep,
     jvp_bwd_prep_plain,
+    jvp_fwd_prep,
+    jvp_fwd_prep_plain,
     bwd_operands,
     bwd_prep,
     flash_attention_bwd,
@@ -506,6 +514,10 @@ def phase_build() -> None:
              flash_tiling.fp32_shared_bytes()),
             ("jvp dK/dV fast", _build.load_kernel("jvp").qa_jvp_bwd_dkv_smem_bytes(),
              jvp_tiling.dkv_shared_bytes()),
+            ("jvp dQ fast", _build.load_kernel("jvp").qa_jvp_bwd_dq_smem_bytes(),
+             jvp_tiling.dq_shared_bytes()),
+            ("jvp fwd fast", _build.load_kernel("jvp").qa_jvp_fwd_smem_bytes(),
+             jvp_tiling.fwd_shared_bytes()),
             ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
@@ -527,10 +539,11 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # the flash forward (both modes) and backward and B11 fast keep every
-    # wgmma asynchronous (no C75xx note) and spill nothing
+    # the flash forward (both modes) and backward and B9, B11 and B12 fast
+    # keep every wgmma asynchronous (no C75xx note) and spill nothing
     for name, only in (("flash_fwd", None), ("flash_bwd", None),
-                       ("jvp", ("jvp_dkv_wgmma", "jvp_bwd_prep_kernel"))):
+                       ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
+                                "jvp_dq_wgmma", "jvp_bwd_prep_kernel"))):
         bad = _ptxas_faults(_build.build_log(name), only)
         if bad:
             raise AssertionError(f"{name}'s ptxas notes: {bad}")
@@ -1697,7 +1710,8 @@ _COUNTED = {"flash_fwd": flash_attention_fwd, "flash_bwd_prep": bwd_prep,
             "int8_fused": int8_attention_fwd_fused, "int8_linear": int8_weight_matmul,
             "int4_linear": int4_weight_matmul, "flash_fwd_fp32": flash_attention_fwd_fp32,
             "flash_fwd_fp32_prep": kv_split_tf32,
-            "jvp_fwd": attention_jvp_fwd, "jvp_tangent": attention_tangent_fwd,
+            "jvp_fwd": attention_jvp_fwd, "jvp_fwd_prep": jvp_fwd_prep,
+            "jvp_tangent": attention_tangent_fwd,
             "jvp_bwd_prep": jvp_bwd_prep, "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq,
             "paged_decode": paged_decode_attention, "decode4": decode_attention_int4,
             "paged4_decode": paged4_decode_attention, "verify": verify_decode_attention,
@@ -2374,7 +2388,8 @@ def phase_weight_kernels(dev, gen) -> dict:
 # --------------------------------------------------------------------------
 
 JVP_KERNELS = ("flash_fwd_fp32", "jvp_fwd", "jvp_tangent", "jvp_bwd_dkv", "jvp_bwd_dq")
-JVP_PREPS = ("flash_fwd_fp32_prep", "jvp_bwd_prep")  # B1 fp32's and B11 fast's prep launches
+# the prep launches of B1 fp32, B9 fast and B11 + B12 fast (one shared by both)
+JVP_PREPS = ("flash_fwd_fp32_prep", "jvp_fwd_prep", "jvp_bwd_prep")
 # (b, h, t, s, causal): a square pair; the DiT's attention shape (the rCM
 # step's); odd cross lengths; a ragged t < s; one token
 JVP_CASES = [(2, 4, 1024, 1024, True), (2, 4, 1024, 1024, False),
@@ -2407,13 +2422,15 @@ def _bits(x):
     return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
 
 
-def _check_jvp_preps(q, k, v, ops, label) -> None:
-    """B1 fp32's K/V prep and B11 fast's prep against their plain versions,
-    byte for byte (the row terms are copies)."""
+def _check_jvp_preps(k, v, tk, tv, ops, label) -> None:
+    """B1 fp32's K/V prep, B9 fast's K-side prep (on [b, h, s, d] views of
+    [b, s, h, d] tensors) and B11/B12 fast's prep against their plain
+    versions, byte for byte (the row terms are copies)."""
     got, want = kv_split_tf32(k, v), kv_split_tf32_plain(k, v)
+    fwd_b, fwd_w = jvp_fwd_prep(*_strided(k, v, tk, tv)), jvp_fwd_prep_plain(k, v, tk, tv)
     (ops_b, rows), (ops_w, rows_w) = jvp_bwd_prep(ops), jvp_bwd_prep_plain(ops)
     torch.cuda.synchronize()
-    pairs = [*zip(got, want), *zip(ops_b, ops_w), (rows, rows_w)]
+    pairs = [*zip(got, want), *zip(fwd_b, fwd_w), *zip(ops_b, ops_w), (rows, rows_w)]
     if not all(torch.equal(_bits(g), _bits(w)) for g, w in pairs):
         raise AssertionError(f"[jvp] {label}: a prep launch differs from its plain version")
 
@@ -2422,9 +2439,10 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
     """B1 fp32 and B9-B12 in both modes against their plain versions on one
     case, by max|diff| / max|plain| per tensor (lse, and the gradients that
     vanish at one key: max|diff|), raising outside the tolerances; B1 fp32
-    and B11 fast called twice for the same bits, and their prep launches
-    held byte for byte against the plain preps. Returns each kernel's
-    max|diff|."""
+    and B9, B11 and B12 fast called twice for the same bits (B9 the second
+    time on [b, t, h, d] views, B12 on a prep of its own), and their prep
+    launches held byte for byte against the plain preps. Returns each
+    kernel's max|diff|."""
     err, msgs = dict.fromkeys(JVP_KERNELS, 0.0), []
     absolute = {"lse"} | ({"dk", "dtk", "dq", "dtq"} if k.shape[2] == 1 else set())
 
@@ -2452,6 +2470,9 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
         hold("jvp_fwd", mode, JVP_FWD_FAST_TOL if fast else JVP_EXACT_TOL,
              ("o", "to", "lse", "mu"), fwd,
              attention_jvp_fwd_plain(q, k, v, tq, tk, tv, causal=causal, fast=fast))
+        if fast:  # B9 reads q and tq through their strides, its prep k, v, tk and tv
+            _same_bits("jvp_fwd", fwd, attention_jvp_fwd(*_strided(q, k, v, tq, tk, tv),
+                                                         causal=causal, fast=True), label)
         o, to, lse, mu = fwd  # the kernel's residuals, as the entry points hand them on
         hold("jvp_tangent", mode, tol, ("to",),
              [attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)],
@@ -2462,11 +2483,14 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
         hold("jvp_bwd_dkv", mode, tol, ("dk", "dv", "dtk", "dtv"), dkv, jvp_bwd_dkv_plain(ops))
         if fast:
             _same_bits("jvp_bwd_dkv", dkv, jvp_bwd_dkv(ops), label)
-            _check_jvp_preps(q, k, v, ops, label)
-        hold("jvp_bwd_dq", mode, tol, ("dq", "dtq"), jvp_bwd_dq(ops), jvp_bwd_dq_plain(ops))
+            _check_jvp_preps(k, v, tk, tv, ops, label)
+        dq = jvp_bwd_dq(ops)
+        hold("jvp_bwd_dq", mode, tol, ("dq", "dtq"), dq, jvp_bwd_dq_plain(ops))
+        if fast:  # on a prep handed in, as attention_jvp_bwd shares B11's
+            _same_bits("jvp_bwd_dq", dq, jvp_bwd_dq(ops, jvp_bwd_prep(ops)), label)
     log(f"[jvp] {label} (tol exact {JVP_EXACT_TOL}, fast B9 {JVP_FWD_FAST_TOL}, fast B10-B12 "
-        f"{BWD_FAST_TOL}; B1 fp32 and B11 fast bit-equal on a second call, their preps "
-        f"byte-equal): " + "; ".join(msgs))
+        f"{BWD_FAST_TOL}; B1 fp32, B9, B11 and B12 fast bit-equal on a second call, their "
+        f"preps byte-equal): " + "; ".join(msgs))
     return err
 
 
@@ -2578,10 +2602,14 @@ def phase_jvp_oracle(dev, gen) -> dict:
 def phase_jvp_timing(dev, gen) -> dict:
     """Phase 19: device time per call of B1 fp32 and B9-B12 (both modes) at
     the DiT's attention shape beside their plain versions, and at bench.py's
-    bench_jvp shape; B1 fp32 beside SDPA on the same f32 inputs. The row's
-    `ms`, `plain_ms` and `bound_ms` are at the DiT shape in the mode its main
-    path runs (B9, B11, B12 fast as the rCM step; B10 exact as attention_jvp;
-    B1 fp32); `other_ms` is the other mode's."""
+    bench_jvp shape, on [b, h, t, d] views of [b, t, h, d] tensors as the DiT
+    hands them; B1 fp32 beside SDPA on the same f32 inputs. The row's `ms`,
+    `plain_ms` and `bound_ms` are at the DiT shape in the mode its main path
+    runs (B9, B11, B12 fast as the rCM step; B10 exact as attention_jvp;
+    B1 fp32); `other_ms` is the other mode's. B1 fp32's, B9's and B11's `ms`
+    are whole calls (`prep_ms` + `kernel_ms`); B12's is its kernel on B11's
+    prep, as the rCM step runs it (`call_ms`: a call that runs its own prep).
+    B10 exact is also timed at the dit_jvp path's shape (`dit_jvp_ms`)."""
     out = {k: {} for k in JVP_KERNELS}
 
     def few(fn):  # exact-mode calls take tens of ms: one call a graph, two replays
@@ -2589,7 +2617,7 @@ def phase_jvp_timing(dev, gen) -> dict:
 
     for tag, (b, h, t) in (("", (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len)),
                            ("bench_", JVP_BENCH_SHAPE)):
-        q, k, v, tq, tk, tv, do, dto = _jvp_inputs(gen, dev, b, h, t, t)
+        q, k, v, tq, tk, tv, do, dto = _strided(*_jvp_inputs(gen, dev, b, h, t, t))
         prod = 2 * b * h * t * t * 64  # one product over every (q, k) pair
         o, lse = flash_attention_fwd_fp32(q, k, v)
         fwd = {m: attention_jvp_fwd(q, k, v, tq, tk, tv, fast=m) for m in (True, False)}
@@ -2605,7 +2633,7 @@ def phase_jvp_timing(dev, gen) -> dict:
                  "jvp_tangent": lambda m: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv,
                                                                 fast=m),
                  "jvp_bwd_dkv": lambda m: jvp_bwd_dkv(ops[m]),
-                 "jvp_bwd_dq": lambda m: jvp_bwd_dq(ops[m])}
+                 "jvp_bwd_dq": lambda m: jvp_bwd_dq(ops[m], prep if m else None)}
         plains = {"jvp_fwd": lambda m: attention_jvp_fwd_plain(q, k, v, tq, tk, tv, fast=m),
                   "jvp_tangent": lambda m: attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk,
                                                                        tv, fast=m),
@@ -2623,13 +2651,17 @@ def phase_jvp_timing(dev, gen) -> dict:
         r[f"{tag}fp32_bound_ms"] = bound(nbytes(q, k, v, o, lse), (2 * prod, PEAK_FP32))["bound_ms"]
         if not tag:
             r["plain_ms"] = few(lambda: flash_attention_fwd_plain(q, k, v, precision="fp32"))
-        r = out["jvp_bwd_dkv"]  # B11 fast's call, split into its prep launch and the kernel
-        r[f"{tag}prep_ms"] = few(lambda: jvp_bwd_prep(ops[True]))
+        # B9 fast's and B11 fast's calls, split into their prep launch and the
+        # kernel; B12 fast on B11's prep, and as a call of its own
+        prep = jvp_bwd_prep(ops[True])
+        out["jvp_fwd"][f"{tag}prep_ms"] = few(lambda: jvp_fwd_prep(k, v, tk, tv))
+        out["jvp_bwd_dkv"][f"{tag}prep_ms"] = few(lambda: jvp_bwd_prep(ops[True]))
+        out["jvp_bwd_dq"][f"{tag}call_ms"] = few(lambda: jvp_bwd_dq(ops[True]))
         for name in dots:
             main = name != "jvp_tangent"  # fast for the rCM step's kernels
             r = out[name]
             r[f"{tag}ms"] = few(lambda: calls[name](main))
-            if name == "jvp_bwd_dkv":
+            if name in ("jvp_fwd", "jvp_bwd_dkv"):
                 r[f"{tag}kernel_ms"] = r[f"{tag}ms"] - r[f"{tag}prep_ms"]
             r[f"{tag}other_ms"] = few(lambda: calls[name](not main))
             for mode, peak in ((main, PEAK_BF16 if main else PEAK_FP32),
@@ -2640,7 +2672,18 @@ def phase_jvp_timing(dev, gen) -> dict:
                 r[f"{tag}{key}bound_by"] = bnd["bound_by"]
             if not tag:
                 r["plain_ms"] = few(lambda: plains[name](main))
-        del q, k, v, tq, tk, tv, do, dto, o, lse, fwd, ops, dkv, dq
+        del q, k, v, tq, tk, tv, do, dto, o, lse, fwd, ops, dkv, dq, prep
+    # B10 exact at the dit_jvp path's shape: torch.func.jvp(dit_forward) at
+    # seq DIT_PARITY_LEN, batch 2 (phase 20)
+    b, h, t = 2, DIT_CFG.n_heads, DIT_PARITY_LEN
+    q, k, v, tq, tk, tv, _, _ = _strided(*_jvp_inputs(gen, dev, b, h, t, t))
+    o, lse = flash_attention_fwd_fp32(q, k, v)
+    r = out["jvp_tangent"]
+    r["dit_jvp_shape"] = f"({b},{h},{t},64)"
+    r["dit_jvp_ms"] = device_ms(lambda: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv))
+    to = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
+    bnd = bound(nbytes(q, k, v, tq, tk, tv, o, lse, to), (5 * 2 * b * h * t * t * 64, PEAK_FP32))
+    r["dit_jvp_bound_ms"], r["dit_jvp_bound_by"] = bnd["bound_ms"], bnd["bound_by"]
     for name, r in out.items():
         r["mode"] = {"flash_fwd_fp32": "fp32", "jvp_tangent": "exact"}.get(name, "fast")
         r["shape"] = f"({DIT_BATCH},{DIT_CFG.n_heads},{DIT_CFG.seq_len},64)"
@@ -2665,10 +2708,18 @@ def phase_jvp_timing(dev, gen) -> dict:
             f"{r['other_bound_ms']:.4f}), plain {r['mode']} {r['plain_ms']:.4f} ms; {r['bench_shape']}: "
             f"{r['mode']} {r['bench_ms']:.4f} ms (bound {r['bench_bound_ms']:.4f}), {other} "
             f"{r['bench_other_ms']:.4f} ms (bound {r['bench_other_bound_ms']:.4f})")
-        if name == "jvp_bwd_dkv":
-            log(f"[timing] jvp_bwd_dkv fast call = prep + kernel: {r['shape']} {r['prep_ms']:.4f} "
+        if name in ("jvp_fwd", "jvp_bwd_dkv"):
+            log(f"[timing] {name} fast call = prep + kernel: {r['shape']} {r['prep_ms']:.4f} "
                 f"+ {r['kernel_ms']:.4f} ms; {r['bench_shape']} {r['bench_prep_ms']:.4f} + "
                 f"{r['bench_kernel_ms']:.4f} ms")
+        elif name == "jvp_bwd_dq":
+            r["ms_of"] = "the kernel on B11's prep, as the rCM step launches it"
+            log(f"[timing] jvp_bwd_dq fast: kernel on B11's prep {r['ms']:.4f} ms, a call with "
+                f"its own prep {r['call_ms']:.4f} ms; {r['bench_shape']} "
+                f"{r['bench_ms']:.4f}, {r['bench_call_ms']:.4f} ms")
+        elif name == "jvp_tangent":
+            log(f"[timing] jvp_tangent exact at the dit_jvp shape {r['dit_jvp_shape']}: "
+                f"{r['dit_jvp_ms']:.4f} ms (bound {r['dit_jvp_bound_ms']:.4f})")
     return out
 
 
@@ -2746,10 +2797,10 @@ def _dit_checks(dev, params, x, t) -> dict:
     return launches
 
 
-# each rCM step runs the fp32 prepass (B1 fp32 and its prep), B9 forward, B11
-# (and its prep) + B12 backward
-DIT_STEP_KERNELS = ("flash_fwd_fp32", "flash_fwd_fp32_prep", "jvp_fwd", "jvp_bwd_prep",
-                    "jvp_bwd_dkv", "jvp_bwd_dq")
+# each rCM step runs the fp32 prepass (B1 fp32 and its prep), B9 forward (and
+# its prep), B11 + B12 backward (and their one shared prep)
+DIT_STEP_KERNELS = ("flash_fwd_fp32", "flash_fwd_fp32_prep", "jvp_fwd", "jvp_fwd_prep",
+                    "jvp_bwd_prep", "jvp_bwd_dkv", "jvp_bwd_dq")
 
 
 def phase_dit(dev, smi) -> tuple[dict, dict, dict]:
@@ -2929,8 +2980,11 @@ def main() -> None:
     for row, prep, what in (
             (kernels[-5], "flash_fwd_fp32_prep", "csrc/flash_fwd.cu kv_split_tf32_kernel (K big and "
                                                  "small, V^T big and small, once a call)"),
+            (kernels[-4], "jvp_fwd_prep", "csrc/jvp.cu jvp_fwd_prep_kernel (K, V, tK and tV in "
+                                          "bf16 from the model's strided views, once a fast call)"),
             (kernels[-2], "jvp_bwd_prep", "csrc/jvp.cu jvp_bwd_prep_kernel (the eight operands in "
-                                          "bf16 and the row terms, once a fast call)")):
+                                          "bf16 and the row terms, once a fast call, shared with "
+                                          "B12)")):
         row["also_runs"] = f"quantizedattention_tpu_torch/{what}"
         row["prep_launches_by_path"] = {
             path: n for path, n in (("dit_rcm", dit_launches[prep]),

@@ -1,11 +1,12 @@
 """Time kernels of two checkouts of the PyTorch port on one GPU, in turns:
 the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, the
 int8 backward (B7 dK/dV, B8 dQ), the corrected-bf16 flash forward (B1) and
-its backward (B2 dK/dV, B3 dQ), B1's fp32 mode and the second-order
-backward's fast dK/dV (B11).
+its backward (B2 dK/dV, B3 dQ), B1's fp32 mode, the second-order
+backward's fast dK/dV (B11) and dQ (B12), and the JVP forward's fast mode
+(B9).
 
     python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd] [flash_bwd]
-                                                   [flash_fwd_fp32] [jvp_bwd]
+                                                   [flash_fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
 (every part without a third argument). Each checkout is timed in its own
@@ -30,7 +31,11 @@ beside SDPA f32 on the same inputs, and B11 fast's whole `jvp_bwd_dkv` call
 (on `jvp_bwd_operands`' fast operands from B9's residuals), each at the DiT's
 attention shape (4, 4, 4096, 64) and bench_jvp's (4, 16, 4096, 64) and split
 by torch.profiler into the kernel (flash_fwd_f32_kernel; B11's jvp_dkv_mma
-or jvp_dkv_wgmma) and the rest of the call (its prep). A time is the
+or jvp_dkv_wgmma) and the rest of the call (its prep); at the same two
+shapes B9 fast's whole `attention_jvp_fwd` call and B12 fast's `jvp_bwd_dq`
+call (which runs its own prep where the checkout has one), each split into
+the kernel (jvp_fwd_mma or jvp_fwd_wgmma; jvp_dq_mma or jvp_dq_wgmma) and
+the rest of the call (its prep or its operands' f32 copies). A time is the
 mean device time of one wrapper call, from CUDA-graph replays as in
 chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
 checkouts see the same ones. Prints one JSON line a run and a summary line a
@@ -55,7 +60,8 @@ FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
 FLASH_BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048), (4, 16, 16, 4096), (4, 16, 16, 8192))
 # (b, h, t = s), non-causal: the DiT's attention shape, bench_jvp's
 JVP_SHAPES = ((4, 4, 4096), (4, 16, 4096))
-PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd")
+PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd", "jvp_fwd",
+         "jvp_dq")
 
 
 def _device_ms(torch, fn, calls=20, replays=10) -> float:
@@ -233,6 +239,32 @@ def _jvp_bwd_rows(torch, gen, dev) -> dict:
     return rows
 
 
+def _jvp_fast_rows(torch, gen, dev, part) -> dict:
+    """B9 fast's (`part` "jvp_fwd") or B12 fast's ("jvp_dq") whole call at
+    JVP_SHAPES on the DiT's views, split into its kernel and the rest."""
+    from quantizedattention_tpu_torch.ops import attention_jvp_fwd, jvp_bwd_dq, jvp_bwd_operands
+
+    rows = {}
+    for b, h, t in JVP_SHAPES:
+        q, k, v, tq, tk, tv, do, dto = _dit_views(torch, gen, dev, b, h, t, 8)
+        if part == "jvp_fwd":
+            def call():
+                return attention_jvp_fwd(q, k, v, tq, tk, tv, fast=True)
+        else:
+            fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, fast=True)
+            ops = jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd, do, dto, fast=True)
+
+            def call():
+                return jvp_bwd_dq(ops)
+
+        name = "jvp_fwd" if part == "jvp_fwd" else "jvp_dq"
+        mma, wgmma, rest = _kernel_split_ms(torch, call, (f"{name}_mma", f"{name}_wgmma"), calls=5)
+        rows[f"{'b9' if part == 'jvp_fwd' else 'b12'} fast b={b} h={h} t={t}"] = {
+            "call_ms": _device_ms(torch, call, calls=5, replays=5), "kernel_ms": mma + wgmma,
+            "prep_ms": rest}
+    return rows
+
+
 def run_one(tree: str, parts) -> None:
     """Time `tree`'s kernels; print one JSON object."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -253,6 +285,9 @@ def run_one(tree: str, parts) -> None:
         rows.update(_fwd_fp32_rows(torch, gen, dev))
     if "jvp_bwd" in parts:
         rows.update(_jvp_bwd_rows(torch, gen, dev))
+    for part in ("jvp_fwd", "jvp_dq"):
+        if part in parts:
+            rows.update(_jvp_fast_rows(torch, gen, dev, part))
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
 
 

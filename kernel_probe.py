@@ -1,11 +1,13 @@
 """Where the time of a kernel goes, on one GPU: the weight matmuls (B17
 csrc/int8_linear.cu, B18 csrc/int4_linear.cu), the int8 backward (B7 and
 B8, csrc/int8_bwd.cu), the bf16 flash forward (B1, csrc/flash_fwd.cu) and
-its backward's fast mode (B2 and B3, csrc/flash_bwd.cu); and two numerics
+its backward's fast mode (B2 and B3, csrc/flash_bwd.cu), B1's fp32 mode and
+the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu); and two numerics
 witnesses, bwd_exact and fwd_fp32.
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
-                            [fwd_fp32] [jvp_bwd] [PARENT_CHECKOUT]  (all parts without arguments)
+                            [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [PARENT_CHECKOUT]
+                            (all parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -106,6 +108,21 @@ shapes beside its knock-outs:
   products run on stale fragments);
 - no_second: no dV, dtV, dK, dtK products;
 - turns: warpgroup turns around each issue of products, as B1 fp32's.
+
+jvp_fwd: B9 fast's kernel alone (on its K-side prep's outputs, q and tq the
+DiT's [b, h, t, d] views of [b, t, h, d] tensors) at the same two shapes
+beside its knock-outs, with each build's ptxas registers and spills:
+- no_exp: p takes its exponent's argument;
+- no_elementwise: the softmax, P and H never computed (the products run on
+  stale fragments);
+- no_second: no O, A, B products;
+- keys32: 32-key tiles (8 stages) instead of 64.
+
+jvp_dq: B12 fast's kernel alone (on the shared prep's outputs) at the same
+two shapes beside its knock-outs, as jvp_fwd's:
+- no_exp, no_elementwise (dS and tSb never computed), no_second (no dQ,
+  dtQ products);
+- keys64: 64-key tiles (4 stages) instead of 32.
 Exits non-zero without a GPU.
 """
 
@@ -226,6 +243,7 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
     lib.ptxas = [f"[ptxas] {name}: {line.split(' in function')[0].strip()}"
                  for line in proc.stderr.splitlines()
                  if "C75" in line or "spill" in line or "registers" in line]
+    lib.ptxas_log = proc.stderr
     if name.startswith("fbwd"):
         from quantizedattention_tpu_torch.ops import flash_bwd as fbwd
         ref = fbwd._kernels()
@@ -242,6 +260,14 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
         from quantizedattention_tpu_torch.ops import jvp_bwd as tjvp
         lib.qa_jvp_bwd_dkv_bf16.argtypes = tjvp._kernels().qa_jvp_bwd_dkv_bf16.argtypes
         lib.qa_jvp_bwd_dkv_bf16.restype = ctypes.c_int
+    elif name.startswith("b9v"):
+        from quantizedattention_tpu_torch.ops import jvp_fwd as tjf
+        lib.qa_jvp_fwd_bf16.argtypes = tjf._ARGTYPES["qa_jvp_fwd_bf16"]
+        lib.qa_jvp_fwd_bf16.restype = ctypes.c_int
+    elif name.startswith("b12v"):
+        from quantizedattention_tpu_torch.ops import jvp_bwd as tjvp
+        lib.qa_jvp_bwd_dq_bf16.argtypes = tjvp._kernels().qa_jvp_bwd_dq_bf16.argtypes
+        lib.qa_jvp_bwd_dq_bf16.restype = ctypes.c_int
     elif name.startswith("ffma"):  # the FFMA design's fp32 entry (q pre-scaled, all contiguous)
         lib.qa_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.qa_flash_fwd_f32.restype = ctypes.c_int
@@ -1042,10 +1068,126 @@ def probe_jvp_bwd(smi) -> None:
               flush=True)
 
 
+# B9 fast's and B12 fast's knock-outs (each computes wrong results on purpose)
+B9_VARIANTS = {
+    "b9v_as_is": [],
+    "b9v_no_exp": [("p[e] = MASK && !visible(i) ? 0.f : exp2_ftz(sc[i] - m[h]);",
+                    "p[e] = MASK && !visible(i) ? 0.f : (sc[i] - m[h]);")],
+    "b9v_no_elementwise": [("    if (edge(j))\n      fwd_terms<true>",
+                            _SKIP + "    if (edge(j))\n      fwd_terms<true>")],
+    "b9v_no_second": [("    issue_out(stage(j));\n", "")],
+    "b9v_keys32": [("constexpr int JF_KEYS = 64;", "constexpr int JF_KEYS = 32;")],
+}
+_DQ_TERMS = "    if (k0 + JQ_KEYS > s || (causal && k0 + JQ_KEYS - 1 > qw0))\n      dq_terms<true>"
+B12_VARIANTS = {
+    "b12v_as_is": [],
+    "b12v_no_exp": [("float p = exp2_ftz(sc[i] * qk_scale - lse[h]);",
+                     "float p = (sc[i] * qk_scale - lse[h]);")],
+    "b12v_no_elementwise": [(_DQ_TERMS, _SKIP + _DQ_TERMS)],
+    "b12v_no_second": [],  # the second products cut out: _b12_source
+    "b12v_keys64": [("constexpr int JQ_KEYS = 32;", "constexpr int JQ_KEYS = 64;")],
+}
+_DQ_SECOND = ("#pragma unroll\n      for (int kk = 0; kk < JQ_KEYS / 16; ++kk) {\n"
+              "        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc",
+              "      wgmma_commit();\n    }\n  }\n  wgmma_wait<0>();\n  reg_fence(dq_acc);")
+
+
+def _variant_source(variants, name) -> str:
+    """jvp.cu with the knock-out `name` of `variants` (B9_VARIANTS or
+    B12_VARIANTS)."""
+    src = _altered(variants[name], SRC_JVP)
+    if name == "b12v_no_second":
+        a, b = src.index(_DQ_SECOND[0]), src.index(_DQ_SECOND[1])
+        src = src[:a] + src[b:]
+    return src
+
+
+def _kernel_ptxas(lib, kernel) -> list:
+    """The registers and spill lines ptxas printed for `kernel` in a build."""
+    lines, inside = [], False
+    for line in lib.ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("registers" in line or "spill" in line) or "C75" in line:
+            lines.append(line.split(" in function")[0].strip())
+    return lines
+
+
+def _variant_libs(variants):
+    jobs = {name: _variant_source(variants, name) for name in variants}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+
+
+def probe_jvp_fwd(smi) -> None:
+    """B9 fast's knock-outs timed beside the unaltered build, the kernel
+    alone on its prep's outputs, at the DiT's and bench_jvp's shapes."""
+    from quantizedattention_tpu_torch.ops import jvp_fwd_prep
+
+    libs = _variant_libs(B9_VARIANTS)
+    for name, lib in libs.items():
+        print(f"[ptxas] {name} jvp_fwd_wgmma: " + "; ".join(_kernel_ptxas(lib, "jvp_fwd_wgmma")),
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, t in JVP_SHAPES:
+        q, k, v, tq, tk, tv = (torch.randn((b, t, h, 64), generator=gen, device="cuda")
+                               .transpose(1, 2) for _ in range(6))
+        kv = jvp_fwd_prep(k, v, tk, tv)
+        o, to = (torch.empty((b, h, t, 64), device="cuda") for _ in range(2))
+        lse, mu = (torch.empty((b, h, t), device="cuda") for _ in range(2))
+
+        def call(lib):
+            status = lib.qa_jvp_fwd_bf16(
+                q.data_ptr(), *tfwd._strides(q), tq.data_ptr(), *tfwd._strides(tq),
+                *(x.data_ptr() for x in kv), o.data_ptr(), to.data_ptr(), lse.data_ptr(),
+                mu.data_ptr(), b, h, t, t, 0, 0.125, 0.125 * LOG2_E,
+                torch.cuda.current_stream().cuda_stream)
+            if status:
+                raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+        times = {v_: _device_us(lambda v_=v_: call(libs[v_]), 2, 5) for v_ in B9_VARIANTS}
+        print(f"[probe] B9 fast kernel ({b},{h},{t},64): "
+              + ", ".join(f"{v_[4:]} {us:.1f}" for v_, us in times.items()) + f" us ({smi})",
+              flush=True)
+
+
+def probe_jvp_dq(smi) -> None:
+    """B12 fast's knock-outs timed beside the unaltered build, the kernel
+    alone on the shared prep's outputs, at the DiT's and bench_jvp's
+    shapes."""
+    from quantizedattention_tpu_torch.ops import attention_jvp_fwd, jvp_bwd_operands, jvp_bwd_prep
+
+    libs = _variant_libs(B12_VARIANTS)
+    for name, lib in libs.items():
+        print(f"[ptxas] {name} jvp_dq_wgmma: " + "; ".join(_kernel_ptxas(lib, "jvp_dq_wgmma")),
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, t in JVP_SHAPES:
+        q, k, v, tq, tk, tv, do, dto = (torch.randn((b, h, t, 64), generator=gen, device="cuda")
+                                        for _ in range(8))
+        fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, fast=True)
+        ops8, rows = jvp_bwd_prep(jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd, do, dto, fast=True))
+        dq, dtq = (torch.empty((b * h, t, 64), device="cuda") for _ in range(2))
+
+        def call(lib):
+            status = lib.qa_jvp_bwd_dq_bf16(
+                *(x.data_ptr() for x in ops8), rows.data_ptr(), dq.data_ptr(), dtq.data_ptr(),
+                b * h, t, t, rows.stride(1), 0, 0.125, 0.125 * LOG2_E,
+                torch.cuda.current_stream().cuda_stream)
+            if status:
+                raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+        times = {v_: _device_us(lambda v_=v_: call(libs[v_]), 2, 5) for v_ in B12_VARIANTS}
+        print(f"[probe] B12 fast kernel ({b},{h},{t},64): "
+              + ", ".join(f"{v_[5:]} {us:.1f}" for v_, us in times.items()) + f" us ({smi})",
+              flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
-    every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd"]
+    every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
+             "jvp_fwd", "jvp_dq"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -1067,6 +1209,10 @@ def main() -> None:
         probe_fwd_fp32(smi, dirs[0] if dirs else None)
     if "jvp_bwd" in parts:
         probe_jvp_bwd(smi)
+    if "jvp_fwd" in parts:
+        probe_jvp_fwd(smi)
+    if "jvp_dq" in parts:
+        probe_jvp_dq(smi)
 
 
 

@@ -445,6 +445,45 @@ __device__ __forceinline__ void wgmma_bf16_m64n32k16_ss(float (&d)[16], uint64_t
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 32] = A[64 x 16] B[16 x 32]: the first k-step of a product into d,
+// whose old values it neither reads nor keeps alive ("=f"), as
+// wgmma_bf16_m64n128k16_ss_zero.
+__device__ __forceinline__ void wgmma_bf16_m64n32k16_ss_zero(float (&d)[16], uint64_t da,
+                                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d[64 x 64] = A[64 x 16] B[16 x 64]: the same first k-step at n64.
+__device__ __forceinline__ void wgmma_bf16_m64n64k16_ss_zero(float (&d)[32], uint64_t da,
+                                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
+        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // d[64 x 8] (+)= A[64 x 16] B[16 x 8], bf16 -> f32; A from registers, B
 // K-major from shared memory (P's row sums against a ones matrix).
 __device__ __forceinline__ void wgmma_bf16_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],

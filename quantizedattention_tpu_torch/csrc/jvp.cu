@@ -26,11 +26,12 @@
 // Every masked entry (causal, keys past s, rows past t) gets p = 0 explicitly:
 // nothing past t or s is read as data.
 //
-// Two modes, a kernel each (B11 fast also a prep launch):
-//   fast  - bf16 tensor cores (f32 accumulation; B9, B10, B12 on mma.sync,
-//           the *_mma kernels, B11 on wgmma with a prep launch, jvp_dkv_wgmma
-//           and jvp_bwd_prep_kernel): every product's operands are rounded to
-//           bf16 where they enter it, as the TPU's DEFAULT-precision dots
+// Two modes, a kernel each (B9, B11 and B12 fast also a prep launch):
+//   fast  - bf16 tensor cores (f32 accumulation; B10 on mma.sync,
+//           jvp_tangent_mma; B9, B11 and B12 on wgmma: jvp_fwd_wgmma after
+//           jvp_fwd_prep_kernel, jvp_dkv_wgmma and jvp_dq_wgmma after one
+//           shared jvp_bwd_prep_kernel): every product's operands are rounded
+//           to bf16 where they enter it, as the TPU's DEFAULT-precision dots
 //           round them: q, k, v, tq, tk, tv, dO and dtO, and p, h = p tS, dS,
 //           tSb and tP.
 //           Sums, row terms and the rescaling stay f32. The rCM step's mode.
@@ -44,9 +45,10 @@
 // tensor-core peak B11 is bound at ~1.7 ms, at the fp32 CUDA-core peak (67
 // TFLOP/s) at ~25 ms.
 //
-// Ownership, both modes: B9, B10 and B12 own a q tile and loop over 32-key
-// tiles up to the causal diagonal; B11 owns a key tile (its rows are keys:
-// 32 exact, 128 fast) and loops over the 32-row q tiles that can see it,
+// Ownership, both modes: B9, B10 and B12 own a q tile (32 rows exact, 64
+// for B10 fast, 128 for B9 and B12 fast) and loop over key tiles (32 keys;
+// 64 for B9 fast) up to the causal diagonal; B11 owns a key tile (its rows are keys: 32 exact, 128
+// fast) and loops over the 32-row q tiles that can see it,
 // computing the transposed tile quantities. Each output tile has one owner
 // and there are no atomics, so results repeat from run to run.
 //
@@ -570,12 +572,12 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // of the second products; tQ K^T and Q tK^T (B11/B12: dO V^T and dtO tV^T)
 // sum in one f32 accumulator.
 //
-// B9, B10, B12 (mma.sync, the simple-first design): a block is 4 warps;
-// each warp owns 16 q rows against 32-key tiles, rounded to bf16 on their
-// way into shared memory; the mma.sync accumulator layout is, two n-tiles at
-// a time, the A operand layout of the next product, so the probability
-// tiles go from registers to the tensor cores; the B operand of the second
-// products comes through ldmatrix.trans.
+// B10 (mma.sync, the simple-first design): a block is 4 warps; each warp
+// owns 16 q rows against 32-key tiles, rounded to bf16 on their way into
+// shared memory; the mma.sync accumulator layout is, two n-tiles at a time,
+// the A operand layout of the next product, so the probability tiles go from
+// registers to the tensor cores; the B operand of the second products comes
+// through ldmatrix.trans.
 //
 // B11 (jvp_dkv_wgmma, B2's design in csrc/flash_bwd.cu): one prep launch
 // (jvp_bwd_prep_kernel) rounds the eight operands to bf16 once a call and
@@ -593,6 +595,37 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // walk, hence 32-row tiles (the first products' four m64n32 accumulators
 // take 64 more). A tile's stage is released while the next tile's first
 // products run. Key tile 0 (causal: the most q tiles) starts first.
+//
+// B12 (jvp_dq_wgmma, B3's design) reads the same prep: one block of two
+// warpgroups per (b*h, 128 q rows), 64 rows each, its Q, tQ, dO and dtO
+// resident in shared memory (loaded once by TMA; the A of the first
+// products) and each row's lse, mu, c and dhat in registers; K, tK, V and tV
+// tiles of 32 keys stream through a ring of 8 TMA stages (keys past s as
+// zeros) with B11's release scheme. Per tile and warpgroup: S, tS (two
+// products, one accumulator), tpb and dO V^T + dtO tV^T as wgmma m64n32k16
+// (B K-major); dS and tSb as bf16 A fragments in registers; then dQ += dS K
+// + tSb tK and dtQ += tSb K as wgmma m64n64k16 with the same K and tK tiles
+// as B, read MN-major. Two m64n64 outputs (64 registers) and four m64n32
+// first products (64) stay live, hence 32-key tiles. Causal blocks stop at
+// their last visible key tile; the blocks with the most key tiles start
+// first.
+//
+// B9 (jvp_fwd_wgmma, B1's designs in csrc/flash_fwd.cu): one prep launch
+// (jvp_fwd_prep_kernel) reads K, V, tK and tV through their strides (the
+// DiT's [b, s, h, d] views) and writes them as contiguous bf16; Q and tQ are
+// read through their strides and rounded inside the kernel, as B1 bf16 does.
+// One block of two warpgroups per (b*h, 128 q rows); K, tK, V, tV tiles of
+// 64 keys through a ring of 4 TMA stages refilled by the second warpgroup to
+// release a stage. Per tile and warpgroup: S and tS as wgmma m64n64k16 (A =
+// Q, tQ from shared memory); the online softmax in registers (l and r sum
+// the unrounded p and h); then O += P V, A += P tV, B += H V as wgmma
+// m64n64k16 with the rounded P and H as register A fragments and V, tV read
+// MN-major, issued with the next tile's S and tS and waited for together (B1
+// fp32's pipeline: one set of fragments, the two warpgroups' softmaxes under
+// each other's products). Three m64n64 outputs (96 registers), S and tS (64)
+// and P and H (32) stay live: 232 registers. B1 bf16's pipeline (tile j's
+// softmax under tile j - 1's products) needs two sets of fragments: at
+// 64-key tiles it spilled, and at 32 keys it ran slower than this design.
 
 constexpr int MMA_THREADS = 128;   // 4 warps
 constexpr int BM = 64;             // rows a block owns: 4 warps x 16
@@ -700,133 +733,6 @@ __device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&
 constexpr int NT = BT / 8;  // n-tiles of a streamed tile
 constexpr int KS = BT / 16;  // its k-steps as the A operand of a second product
 
-// B9, fast.
-__global__ void __launch_bounds__(MMA_THREADS)
-jvp_fwd_mma(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ tq,
-            const float* __restrict__ tk, const float* __restrict__ tv,
-            float* __restrict__ o, float* __restrict__ to, float* __restrict__ lse,
-            float* __restrict__ mu, int t, int s, int causal, float sm_scale, float qk_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* tq_s = q_s + BM * SROW;
-  bf16* k_s = tq_s + BM * SROW;
-  bf16* tk_s = k_s + BT * SROW;
-  bf16* v_s = tk_s + BT * SROW;
-  bf16* tv_s = v_s + BT * SROW;
-
-  const int lane = threadIdx.x % 32;
-  const int ra = (threadIdx.x / 32) * 16 + lane / 4;  // this thread's rows ra, ra + 8
-  const int cq = (lane % 4) * 2;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
-  const int pos[2] = {q0 + ra, q0 + ra + 8};
-  const float* kb = k + bh * s * D;
-  const float* tkb = tk + bh * s * D;
-  const float* vb = v + bh * s * D;
-  const float* tvb = tv + bh * s * D;
-
-  load_bf16<BM>(q_s, q + bh * t * D, q0, t);
-  load_bf16<BM>(tq_s, tq + bh * t * D, q0, t);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
-  float oacc[D / 8][4], aacc[D / 8][4], bacc[D / 8][4];
-  zero(oacc);
-  zero(aacc);
-  zero(bacc);
-
-  const int kv_hi = causal ? min(s, q0 + BM) : s;
-  const int n_tiles = (kv_hi + BT - 1) / BT;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BT;
-    __syncthreads();  // every warp is done with the previous tiles
-    load_bf16<BT>(k_s, kb, k0, s);
-    load_bf16<BT>(tk_s, tkb, k0, s);
-    load_bf16<BT>(v_s, vb, k0, s);
-    load_bf16<BT>(tv_s, tvb, k0, s);
-    __syncthreads();
-
-    float sc[NT][4], ts[NT][4];
-    zero(sc);
-    zero(ts);
-    mma_abt(sc, q_s, k_s, ra, lane);
-    mma_abt(ts, tq_s, k_s, ra, lane);
-    mma_abt(ts, q_s, tk_s, ra, lane);
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        const bool valid = col < s && (!causal || col <= pos[e / 2]);
-        sc[nt][e] = valid ? sc[nt][e] * qk_scale : MASK_VALUE;
-        mx[e / 2] = fmaxf(mx[e / 2], sc[nt][e]);
-      }
-    }
-    float next_m[2], alpha[2], psum[2] = {0.f, 0.f}, hsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      next_m[h] = fmaxf(m[h], quad_max(mx[h]));
-      alpha[h] = exp2f(m[h] - next_m[h]);
-      m[h] = next_m[h];
-    }
-    // p (0 where masked) and h = p tS, in place of S and tS
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        const bool valid = col < s && (!causal || col <= pos[e / 2]);
-        const float p = valid ? exp2f(sc[nt][e] - next_m[e / 2]) : 0.f;
-        ts[nt][e] = p * (ts[nt][e] * sm_scale);
-        sc[nt][e] = p;
-        psum[e / 2] += p;
-        hsum[e / 2] += ts[nt][e];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
-      rs[h] = rs[h] * alpha[h] + quad_sum(hsum[h]);
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        oacc[dt][e] *= alpha[e / 2];
-        aacc[dt][e] *= alpha[e / 2];
-        bacc[dt][e] *= alpha[e / 2];
-      }
-    }
-    uint32_t pa[KS][4], ha[KS][4];
-    acc_to_a(pa, sc);
-    acc_to_a(ha, ts);
-    mma_ab(oacc, pa, v_s, lane);   // O += P V
-    mma_ab(aacc, pa, tv_s, lane);  // A += P tV
-    mma_ab(bacc, ha, v_s, lane);   // B += H V
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (pos[h] >= t) continue;
-    const float l_safe = l[h] == 0.f ? 1.f : l[h];
-    const size_t row = bh * t + pos[h];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const float o0 = oacc[dt][2 * h] / l_safe, o1 = oacc[dt][2 * h + 1] / l_safe;
-      *reinterpret_cast<float2*>(o + row * D + dt * 8 + cq) = make_float2(o0, o1);
-      *reinterpret_cast<float2*>(to + row * D + dt * 8 + cq) =
-          make_float2((aacc[dt][2 * h] + bacc[dt][2 * h] - rs[h] * o0) / l_safe,
-                      (aacc[dt][2 * h + 1] + bacc[dt][2 * h + 1] - rs[h] * o1) / l_safe);
-    }
-    if (lane % 4 == 0) {
-      lse[row] = m[h] + log2f(l_safe);
-      mu[row] = rs[h] / l_safe;
-    }
-  }
-}
-
 // B10, fast.
 __global__ void __launch_bounds__(MMA_THREADS)
 jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
@@ -916,117 +822,6 @@ jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
       const float2 ov = *reinterpret_cast<const float2*>(o + row * D + dt * 8 + cq);
       *reinterpret_cast<float2*>(to + row * D + dt * 8 + cq) =
           make_float2(acc[dt][2 * h] - r * ov.x, acc[dt][2 * h + 1] - r * ov.y);
-    }
-  }
-}
-
-// B12, fast.
-__global__ void __launch_bounds__(MMA_THREADS)
-jvp_dq_mma(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ tq,
-           const float* __restrict__ tk, const float* __restrict__ tv,
-           const float* __restrict__ dout, const float* __restrict__ dtout,
-           const float* __restrict__ lse, const float* __restrict__ mu,
-           const float* __restrict__ crow, const float* __restrict__ dhat,
-           float* __restrict__ dq, float* __restrict__ dtq, int t, int s, int causal,
-           float sm_scale, float qk_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* tq_s = q_s + BM * SROW;
-  bf16* do_s = tq_s + BM * SROW;
-  bf16* dto_s = do_s + BM * SROW;
-  bf16* k_s = dto_s + BM * SROW;
-  bf16* tk_s = k_s + BT * SROW;
-  bf16* v_s = tk_s + BT * SROW;
-  bf16* tv_s = v_s + BT * SROW;
-
-  const int lane = threadIdx.x % 32;
-  const int ra = (threadIdx.x / 32) * 16 + lane / 4;
-  const int cq = (lane % 4) * 2;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
-  int pos[2];
-  bool live[2];
-  float lse_r[2], mu_r[2], c_r[2], dh_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    pos[h] = q0 + ra + 8 * h;
-    live[h] = pos[h] < t;
-    const size_t row = bh * t + pos[h];
-    lse_r[h] = live[h] ? lse[row] : 0.f;
-    mu_r[h] = live[h] ? mu[row] : 0.f;
-    c_r[h] = live[h] ? crow[row] : 0.f;
-    dh_r[h] = live[h] ? dhat[row] : 0.f;
-  }
-  const float* kb = k + bh * s * D;
-  const float* tkb = tk + bh * s * D;
-  const float* vb = v + bh * s * D;
-  const float* tvb = tv + bh * s * D;
-
-  load_bf16<BM>(q_s, q + bh * t * D, q0, t);
-  load_bf16<BM>(tq_s, tq + bh * t * D, q0, t);
-  load_bf16<BM>(do_s, dout + bh * t * D, q0, t);
-  load_bf16<BM>(dto_s, dtout + bh * t * D, q0, t);
-
-  float dq_acc[D / 8][4], dtq_acc[D / 8][4];
-  zero(dq_acc);
-  zero(dtq_acc);
-
-  const int kv_hi = causal ? min(s, q0 + BM) : s;
-  const int n_tiles = (kv_hi + BT - 1) / BT;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BT;
-    __syncthreads();
-    load_bf16<BT>(k_s, kb, k0, s);
-    load_bf16<BT>(tk_s, tkb, k0, s);
-    load_bf16<BT>(v_s, vb, k0, s);
-    load_bf16<BT>(tv_s, tvb, k0, s);
-    __syncthreads();
-
-    float sc[NT][4], ts[NT][4], tpb[NT][4], pb[NT][4];
-    zero(sc);
-    zero(ts);
-    zero(tpb);
-    zero(pb);
-    mma_abt(sc, q_s, k_s, ra, lane);
-    mma_abt(ts, tq_s, k_s, ra, lane);
-    mma_abt(ts, q_s, tk_s, ra, lane);
-    mma_abt(tpb, dto_s, v_s, ra, lane);
-    mma_abt(pb, do_s, v_s, ra, lane);
-    mma_abt(pb, dto_s, tv_s, ra, lane);
-    // dS and tSb in place of S and tS (tS and the first two pbar terms
-    // arrive summed, hence the zeros)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        const bool valid = live[h] && col < s && (!causal || col <= pos[h]);
-        const Terms x = tile_terms(valid, sc[nt][e], ts[nt][e], 0.f, tpb[nt][e], pb[nt][e], 0.f,
-                                   lse_r[h], mu_r[h], c_r[h], dh_r[h], sm_scale, qk_scale);
-        sc[nt][e] = x.ds;
-        ts[nt][e] = x.tsb;
-      }
-    }
-    uint32_t dsa[KS][4], tsba[KS][4];
-    acc_to_a(dsa, sc);
-    acc_to_a(tsba, ts);
-    mma_ab(dq_acc, dsa, k_s, lane);     // dQ += dS K
-    mma_ab(dq_acc, tsba, tk_s, lane);   //    + tSb tK
-    mma_ab(dtq_acc, tsba, k_s, lane);   // dtQ += tSb K
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!live[h]) continue;
-    const size_t off = (bh * t + pos[h]) * D + cq;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<float2*>(dq + off + dt * 8) =
-          make_float2(dq_acc[dt][2 * h] * sm_scale, dq_acc[dt][2 * h + 1] * sm_scale);
-      *reinterpret_cast<float2*>(dtq + off + dt * 8) =
-          make_float2(dtq_acc[dt][2 * h] * sm_scale, dtq_acc[dt][2 * h + 1] * sm_scale);
     }
   }
 }
@@ -1365,6 +1160,572 @@ jvp_bwd_prep_kernel(PrepArgs args, float* __restrict__ rows_out, int bh_n, int t
   }
 }
 
+// An m64 x 32 or m64 x 64 product's k-step, both operands K-major from shared
+// memory (N = 16 or 32 accumulator registers): the first one into d, whose
+// old values it neither reads nor keeps alive, and the next ones.
+template <int N>
+__device__ __forceinline__ void ss_first(float (&d)[N], uint64_t da, uint64_t db) {
+  if constexpr (N == 16)
+    wgmma_bf16_m64n32k16_ss_zero(d, da, db);
+  else
+    wgmma_bf16_m64n64k16_ss_zero(d, da, db);
+}
+template <int N>
+__device__ __forceinline__ void ss_step(float (&d)[N], uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (N == 16)
+    wgmma_bf16_m64n32k16_ss(d, da, db, accumulate);
+  else
+    wgmma_bf16_m64n64k16_ss(d, da, db, accumulate);
+}
+
+// ---------------------------------------------------------------------------
+// B12 fast: TMA ring + wgmma, on B11's prep
+// ---------------------------------------------------------------------------
+
+constexpr int JQ_THREADS = 256;            // two warpgroups
+constexpr int JQ_ROWS = 128;               // q rows a block: 64 a warpgroup
+constexpr int JQ_KEYS = 32;                // keys a streamed tile
+constexpr int JQ_STAGES = 256 / JQ_KEYS;   // K-side tiles in flight: 256 keys
+constexpr int JQ_ACC = JQ_KEYS / 2;        // f32 registers of an m64 x JQ_KEYS accumulator
+constexpr int JQ_KS = JQ_KEYS / 16;        // its k-steps as the A of a second product
+constexpr int JQ_QTILE = JQ_ROWS * D * 2;  // bytes of the block's bf16 Q, tQ, dO or dtO
+constexpr int JQ_TILE = JQ_KEYS * D * 2;   // bytes of a bf16 K, tK, V or tV tile
+// Q, tQ, dO, dtO at JQ_QTILE each; stage st: K, tK, V, tV at JQ_OFF_RING + 4 st
+// JQ_TILE; then a 256-byte barrier area: the mbarriers (full[stage], then the
+// q side's) and, RING_COUNTERS bytes on, the release counters.
+constexpr int JQ_OFF_RING = 4 * JQ_QTILE;
+constexpr int JQ_OFF_BAR = JQ_OFF_RING + JQ_STAGES * 4 * JQ_TILE;
+constexpr int RING_COUNTERS = 128;
+constexpr int JQ_SMEM = JQ_OFF_BAR + 256 + 1024;  // + slack to align the base to 1024
+static_assert((JQ_STAGES + 1) * 8 <= RING_COUNTERS && RING_COUNTERS + (JQ_STAGES + 1) * 4 <= 256,
+              "the barriers and counters fit");
+static_assert(JQ_SMEM <= 232448, "a block's shared memory fits an H100 SM");
+
+// One tile's dS and tSb as the bf16 A fragments of dQ and dtQ (tile_terms'
+// arithmetic; tS and dO V^T + dtO tV^T arrive summed). x[4 n + e]: row pos[e
+// / 2], key k0 + 8 n + cq + (e & 1). MASK: the tile reaches past s or the
+// causal diagonal. (Rows past t have Q = tQ = dO = dtO = 0 and row terms 0:
+// p = 1, dS = tSb = 0.)
+template <bool MASK>
+__device__ __forceinline__ void dq_terms(const float (&sc)[JQ_ACC], const float (&tsc)[JQ_ACC],
+                                         const float (&tpb)[JQ_ACC], const float (&pb)[JQ_ACC],
+                                         const float (&lse)[2], const float (&mu)[2],
+                                         const float (&cr)[2], const float (&dh)[2], int k0,
+                                         int cq, const int (&pos)[2], int s, int causal,
+                                         float sm_scale, float qk_scale,
+                                         uint32_t (&dsa)[JQ_KS][4], uint32_t (&tsba)[JQ_KS][4]) {
+#pragma unroll
+  for (int n = 0; n < JQ_KEYS / 8; ++n) {
+    float ds[4], tsb[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e, h = e / 2;
+      float p = exp2_ftz(sc[i] * qk_scale - lse[h]);
+      if (MASK) {
+        const int col = k0 + 8 * n + cq + (e & 1);
+        p = col < s && (!causal || col <= pos[h]) ? p : 0.f;
+      }
+      const float ts = tsc[i] * sm_scale;
+      const float pbar = pb[i] + tpb[i] * (ts - mu[h]) - cr[h] * ts;
+      ds[e] = p * (pbar - dh[h]);
+      tsb[e] = p * (tpb[i] - cr[h]);
+    }
+    pack_frag(dsa, n, ds);
+    pack_frag(tsba, n, tsb);
+  }
+}
+
+__global__ void __launch_bounds__(JQ_THREADS, 1)
+jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q, boxes of 128 rows
+             const __grid_constant__ CUtensorMap tq_map,   // the same for tq
+             const __grid_constant__ CUtensorMap do_map,   // dO
+             const __grid_constant__ CUtensorMap dto_map,  // dtO
+             const __grid_constant__ CUtensorMap k_map,    // [bh, s, 64] bf16 k, boxes of 32 keys
+             const __grid_constant__ CUtensorMap tk_map,
+             const __grid_constant__ CUtensorMap v_map,
+             const __grid_constant__ CUtensorMap tv_map,
+             const float* __restrict__ rows,  // [4, bh, ld] f32 lse, mu, c, dhat
+             float* __restrict__ dq, float* __restrict__ dtq,  // [bh, t, D]
+             int t, int s, int ld, int causal, float sm_scale, float qk_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + JQ_OFF_BAR;
+  auto full = [&](int st) { return bars + 8 * st; };
+  const uint32_t q_bar = full(JQ_STAGES);
+  int* released = reinterpret_cast<int*>(smem + JQ_OFF_BAR + RING_COUNTERS);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * JQ_ROWS;  // the last rows (the most key tiles) first
+  // Causal: keys past the block's last query position (below t) are never visible.
+  const int kv_hi = causal ? min(s, min(t, q0 + JQ_ROWS)) : s;
+  const int n_tiles = (kv_hi + JQ_KEYS - 1) / JQ_KEYS;
+
+  init_ring(bars, released, JQ_STAGES + 1);
+
+  // Key tile j into stage j % JQ_STAGES (keys past s arrive as zeros).
+  auto load_tile = [&](int j) {
+    const int st = j % JQ_STAGES;
+    const uint32_t tiles = base + JQ_OFF_RING + st * 4 * JQ_TILE;
+    mbar_expect_tx(full(st), 4 * JQ_TILE);
+    tma_load_3d(tiles, &k_map, full(st), 0, j * JQ_KEYS, bh);
+    tma_load_3d(tiles + JQ_TILE, &tk_map, full(st), 0, j * JQ_KEYS, bh);
+    tma_load_3d(tiles + 2 * JQ_TILE, &v_map, full(st), 0, j * JQ_KEYS, bh);
+    tma_load_3d(tiles + 3 * JQ_TILE, &tv_map, full(st), 0, j * JQ_KEYS, bh);
+  };
+  // The block's Q, tQ, dO and dtO (rows past t arrive as zeros), then the
+  // first stages.
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, 4 * JQ_QTILE);
+    tma_load_3d(base, &q_map, q_bar, 0, q0, bh);
+    tma_load_3d(base + JQ_QTILE, &tq_map, q_bar, 0, q0, bh);
+    tma_load_3d(base + 2 * JQ_QTILE, &do_map, q_bar, 0, q0, bh);
+    tma_load_3d(base + 3 * JQ_QTILE, &dto_map, q_bar, 0, q0, bh);
+    for (int j = 0; j < min(JQ_STAGES, n_tiles); ++j) load_tile(j);
+  }
+
+  // wg owns rows q0 + 64 wg .. + 63; this thread rows pos[0], pos[1] and
+  // their row terms.
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int cq = (lane % 4) * 2;  // accumulator column pair
+  const int qw0 = q0 + 64 * wg;
+  const int pos[2] = {qw0 + 16 * warp + lane / 4, qw0 + 16 * warp + lane / 4 + 8};
+  const size_t term = static_cast<size_t>(gridDim.x) * ld;  // floats from one row term to the next
+  float lse_r[2], mu_r[2], c_r[2], dh_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = pos[h] < t;
+    const float* rw = rows + static_cast<size_t>(bh) * ld + pos[h];
+    lse_r[h] = live ? rw[0] : 0.f;
+    mu_r[h] = live ? rw[term] : 0.f;
+    c_r[h] = live ? rw[2 * term] : 0.f;
+    dh_r[h] = live ? rw[3 * term] : 0.f;
+  }
+  const uint32_t qs = base + wg * 64 * (D * 2);  // the warpgroup's rows of the q-side tiles
+  const uint64_t desc_q = desc_kmajor_sw128(qs), desc_tq = desc_kmajor_sw128(qs + JQ_QTILE);
+  const uint64_t desc_do = desc_kmajor_sw128(qs + 2 * JQ_QTILE);
+  const uint64_t desc_dto = desc_kmajor_sw128(qs + 3 * JQ_QTILE);
+
+  float dq_acc[32], dtq_acc[32];
+  // S, tS, tpb and dO V^T + dtO tV^T
+  float s_acc[JQ_ACC], ts_acc[JQ_ACC], tpb_acc[JQ_ACC], pb_acc[JQ_ACC];
+  uint32_t dsa[JQ_KS][4] = {}, tsba[JQ_KS][4] = {};  // bf16 dS and tSb: the A of dQ and dtQ
+  zero(dq_acc);
+  zero(dtq_acc);
+  zero(s_acc);
+  zero(ts_acc);
+  zero(tpb_acc);
+  zero(pb_acc);
+  mbar_wait(q_bar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % JQ_STAGES;
+    const int k0 = j * JQ_KEYS;
+    const uint32_t tiles = base + JQ_OFF_RING + st * 4 * JQ_TILE;
+    mbar_wait(full(st), (j / JQ_STAGES) & 1);
+    {  // the first products, A = the block's q-side rows, B = the key tiles (K-major)
+      const uint64_t dk = desc_kmajor_sw128(tiles), dtk = desc_kmajor_sw128(tiles + JQ_TILE);
+      const uint64_t dv = desc_kmajor_sw128(tiles + 2 * JQ_TILE);
+      const uint64_t dtv = desc_kmajor_sw128(tiles + 3 * JQ_TILE);
+      reg_fence(s_acc);
+      reg_fence(ts_acc);
+      reg_fence(tpb_acc);
+      reg_fence(pb_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T
+        ss_step(s_acc, desc_q + 2 * kk, dk + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // tS = tQ K^T + Q tK^T
+        ss_step(ts_acc, desc_tq + 2 * kk, dk + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ss_step(ts_acc, desc_q + 2 * kk, dtk + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // tpb = dtO V^T
+        ss_step(tpb_acc, desc_dto + 2 * kk, dv + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // dO V^T + dtO tV^T
+        ss_step(pb_acc, desc_do + 2 * kk, dv + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ss_step(pb_acc, desc_dto + 2 * kk, dtv + 2 * kk, 1);
+      wgmma_commit();
+    }
+    // the last tile's second products are done (all but the newest group):
+    // its stage is released while this tile's first products run
+    wgmma_wait<1>();
+    if (j > 0) release_stage(released, j - 1, JQ_STAGES, n_tiles, load_tile);
+    wgmma_wait<0>();
+    reg_fence(s_acc);
+    reg_fence(ts_acc);
+    reg_fence(tpb_acc);
+    reg_fence(pb_acc);
+    reg_fence(dsa);
+    reg_fence(tsba);
+    reg_fence(dq_acc);
+    reg_fence(dtq_acc);
+    // masking only where the tile reaches past s or the warpgroup's diagonal
+    if (k0 + JQ_KEYS > s || (causal && k0 + JQ_KEYS - 1 > qw0))
+      dq_terms<true>(s_acc, ts_acc, tpb_acc, pb_acc, lse_r, mu_r, c_r, dh_r, k0, cq, pos, s,
+                     causal, sm_scale, qk_scale, dsa, tsba);
+    else
+      dq_terms<false>(s_acc, ts_acc, tpb_acc, pb_acc, lse_r, mu_r, c_r, dh_r, k0, cq, pos, s,
+                      causal, sm_scale, qk_scale, dsa, tsba);
+    reg_fence(dsa);
+    reg_fence(tsba);
+    {  // dQ += dS K + tSb tK, dtQ += tSb K (B = the same K and tK tiles read
+       // MN-major: 16 keys = 2048 bytes a k-step)
+      const uint64_t dk = desc_mnmajor_sw128(tiles), dtk = desc_mnmajor_sw128(tiles + JQ_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < JQ_KEYS / 16; ++kk) {
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc, dsa[kk], dk + 128 * kk, 1);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc, tsba[kk], dtk + 128 * kk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < JQ_KEYS / 16; ++kk)
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtq_acc, tsba[kk], dk + 128 * kk, 1);
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(dq_acc);
+  reg_fence(dtq_acc);
+  reg_fence(dsa);
+  reg_fence(tsba);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (pos[h] >= t) continue;
+    const size_t off = (static_cast<size_t>(bh) * t + pos[h]) * D + cq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * n + 2 * h;
+      *reinterpret_cast<float2*>(dq + off + 8 * n) =
+          make_float2(dq_acc[i] * sm_scale, dq_acc[i + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dtq + off + 8 * n) =
+          make_float2(dtq_acc[i] * sm_scale, dtq_acc[i + 1] * sm_scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B9 fast: TMA ring + wgmma, with a K-side prep launch
+// ---------------------------------------------------------------------------
+
+constexpr int JF_THREADS = 256;            // two warpgroups
+constexpr int JF_ROWS = 128;               // q rows a block: 64 a warpgroup
+constexpr int JF_KEYS = 64;                // keys a K-side tile
+constexpr int JF_STAGES = 256 / JF_KEYS;   // tiles in flight: 256 keys (32 KB a stage)
+constexpr int JF_QTILE = JF_ROWS * D * 2;  // bytes of the block's bf16 Q or tQ
+constexpr int JF_TILE = JF_KEYS * D * 2;   // bytes of a bf16 K, tK, V or tV tile
+constexpr int JF_ACC = JF_KEYS / 2;        // f32 registers of an m64 x JF_KEYS accumulator
+constexpr int JF_KS = JF_KEYS / 16;        // its k-steps as the A of a second product
+// Q, tQ at JF_QTILE each; stage st: K, tK, V, tV at JF_OFF_RING + 4 st
+// JF_TILE; then the 256-byte barrier area (full[stage]; release counters
+// RING_COUNTERS bytes on).
+constexpr int JF_OFF_RING = 2 * JF_QTILE;
+constexpr int JF_OFF_BAR = JF_OFF_RING + JF_STAGES * 4 * JF_TILE;
+constexpr int JF_SMEM = JF_OFF_BAR + 256 + 1024;  // + slack to align the base to 1024
+static_assert(JF_STAGES * 8 <= RING_COUNTERS, "the barriers fit");
+static_assert(JF_SMEM <= 232448, "a block's shared memory fits an H100 SM");
+
+// One tile's online-softmax step (the exact kernel's arithmetic): S (f32 Q K^T) -> S
+// qk_scale, MASK_VALUE where masked (MASK: the tile reaches past s or past the
+// warpgroup's first position); the running max m and each row's alpha; p =
+// exp2(S - m), 0 where masked, and h = p tS sm_scale, rounded to bf16 as the A
+// fragments of the second products; l and r, this thread's partial row sums of
+// the unrounded p and h, rescaled by alpha. x[4 n + e]: row pos[e / 2], key k0
+// + 8 n + cq + (e & 1).
+template <bool MASK>
+__device__ __forceinline__ void fwd_terms(float (&sc)[JF_ACC], const float (&tc)[JF_ACC],
+                                          uint32_t (&pa)[JF_KS][4], uint32_t (&ha)[JF_KS][4],
+                                          float (&m)[2], float (&l)[2], float (&r)[2],
+                                          float (&alpha)[2], int k0, int cq, const int (&pos)[2],
+                                          int s, int causal, float sm_scale, float qk_scale) {
+  auto visible = [&](int i) {
+    const int col = k0 + (i / 4) * 8 + cq + (i & 1);
+    return col < s && (!causal || col <= pos[(i % 4) / 2]);
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < JF_ACC; ++i) {
+    sc[i] = MASK && !visible(i) ? MASK_VALUE : sc[i] * qk_scale;
+    mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sc[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float next = fmaxf(m[h], quad_max(mx[h]));
+    alpha[h] = exp2_ftz(m[h] - next);  // 0 while m is -inf
+    m[h] = next;
+  }
+  float lsum[2] = {0.f, 0.f}, rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < JF_KEYS / 8; ++n) {
+    float p[4], hp[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e, h = e / 2;
+      p[e] = MASK && !visible(i) ? 0.f : exp2_ftz(sc[i] - m[h]);
+      hp[e] = p[e] * (tc[i] * sm_scale);
+      lsum[h] += p[e];
+      rsum[h] += hp[e];
+    }
+    pack_frag(pa, n, p);
+    pack_frag(ha, n, hp);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = l[h] * alpha[h] + lsum[h];
+    r[h] = r[h] * alpha[h] + rsum[h];
+  }
+}
+
+__global__ void __launch_bounds__(JF_THREADS, 1)
+jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, 64] bf16 k, boxes of JF_KEYS
+              const __grid_constant__ CUtensorMap v_map,   // the same for v
+              const __grid_constant__ CUtensorMap tk_map,  // tk
+              const __grid_constant__ CUtensorMap tv_map,  // tv
+              const float* __restrict__ q,  // [b, h, t, D] f32, strides in elements
+              long long q_sb, long long q_sh, long long q_st,
+              const float* __restrict__ tq, long long tq_sb, long long tq_sh, long long tq_st,
+              float* __restrict__ o, float* __restrict__ to,    // [bh, t, D]
+              float* __restrict__ lse, float* __restrict__ mu,  // [bh, t]
+              int heads, int t, int s, int causal, float sm_scale, float qk_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + JF_OFF_BAR;
+  auto full = [&](int st) { return bars + 8 * st; };
+  int* released = reinterpret_cast<int*>(smem + JF_OFF_BAR + RING_COUNTERS);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const long long batch = bh / heads, head = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * JF_ROWS;  // the last rows (the most key tiles) first
+  const int kv_hi = causal ? min(s, min(t, q0 + JF_ROWS)) : s;
+  const int n_tiles = (kv_hi + JF_KEYS - 1) / JF_KEYS;
+
+  init_ring(bars, released, JF_STAGES);
+  // Tile j into stage j % JF_STAGES: K, tK, V, tV (keys past s arrive as
+  // zeros). Thread 0 loads the first stages; the second warpgroup to release
+  // a stage refills it.
+  auto load_kv = [&](int j) {
+    const int st = j % JF_STAGES;
+    const uint32_t dst = base + JF_OFF_RING + st * 4 * JF_TILE;
+    mbar_expect_tx(full(st), 4 * JF_TILE);
+    tma_load_3d(dst, &k_map, full(st), 0, j * JF_KEYS, bh);
+    tma_load_3d(dst + JF_TILE, &tk_map, full(st), 0, j * JF_KEYS, bh);
+    tma_load_3d(dst + 2 * JF_TILE, &v_map, full(st), 0, j * JF_KEYS, bh);
+    tma_load_3d(dst + 3 * JF_TILE, &tv_map, full(st), 0, j * JF_KEYS, bh);
+  };
+  if (tid == 0)
+    for (int j = 0; j < min(JF_STAGES, n_tiles); ++j) load_kv(j);
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int cq = (lane % 4) * 2;  // accumulator column pair
+  const int qw0 = q0 + 64 * wg;   // the warpgroup's first row
+
+  // This warpgroup's Q and tQ rows -> shared memory in bf16 (round to nearest
+  // even, as .to(bfloat16)), K-major with the 128-byte swizzle (16-byte chunk
+  // c of row r at c ^ (r & 7)); zeros past t. Every load is issued before the
+  // first conversion.
+  constexpr int Q_PASSES = 64 * (D / 8) / 128;  // chunks of 8 a thread, each of Q and tQ
+  uint4 qraw[2][Q_PASSES][2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int i = 0; i < Q_PASSES; ++i) {
+      const int c = tid % 128 + 128 * i, p = qw0 + c / (D / 8), c8 = c % (D / 8);
+      qraw[x][i][0] = qraw[x][i][1] = make_uint4(0u, 0u, 0u, 0u);
+      if (p < t) {
+        const float* row = x ? tq + batch * tq_sb + head * tq_sh + p * tq_st
+                             : q + batch * q_sb + head * q_sh + p * q_st;
+        const uint4* src = reinterpret_cast<const uint4*>(row + c8 * 8);
+        qraw[x][i][0] = src[0];
+        qraw[x][i][1] = src[1];
+      }
+    }
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int i = 0; i < Q_PASSES; ++i) {
+      const int c = tid % 128 + 128 * i, r = wg * 64 + c / (D / 8), c8 = c % (D / 8);
+      const uint4 a = qraw[x][i][0], b = qraw[x][i][1];
+      *reinterpret_cast<uint4*>(smem + x * JF_QTILE + r * (D * 2) + ((c8 ^ (r & 7)) << 4)) =
+          make_uint4(pack_bf16(__uint_as_float(a.x), __uint_as_float(a.y)),
+                     pack_bf16(__uint_as_float(a.z), __uint_as_float(a.w)),
+                     pack_bf16(__uint_as_float(b.x), __uint_as_float(b.y)),
+                     pack_bf16(__uint_as_float(b.z), __uint_as_float(b.w)));
+    }
+  fence_proxy_async();  // Q and tQ, for wgmma
+  named_barrier(1 + wg, 128);
+
+  const int pos[2] = {qw0 + 16 * warp + lane / 4, qw0 + 16 * warp + lane / 4 + 8};
+  auto edge = [&](int j) {
+    return j * JF_KEYS + JF_KEYS > s || (causal && j * JF_KEYS + JF_KEYS - 1 > qw0);
+  };
+  const uint32_t qs = base + wg * 64 * (D * 2);
+  const uint64_t desc_q = desc_kmajor_sw128(qs), desc_tq = desc_kmajor_sw128(qs + JF_QTILE);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+  float oacc[32], aacc[32], bacc[32];  // O, A = P tV, B = H V, each rescaled by alpha
+  zero(oacc);
+  zero(aacc);
+  zero(bacc);
+
+  auto stage = [&](int j) { return base + JF_OFF_RING + (j % JF_STAGES) * 4 * JF_TILE; };
+  float sc[JF_ACC], tc[JF_ACC];                   // a tile's S and tS
+  uint32_t pa[JF_KS][4] = {}, ha[JF_KS][4] = {};  // its bf16 P and H: the A of the second products
+  // The registers the products read or write: their last writes stay
+  // before wgmma.fence (C7513), and their reads after the wait.
+  auto fence_regs = [&]() {
+    reg_fence(sc);
+    reg_fence(tc);
+    reg_fence(oacc);
+    reg_fence(aacc);
+    reg_fence(bacc);
+    reg_fence(pa);
+    reg_fence(ha);
+  };
+  // S = Q K^T and tS = tQ K^T + Q tK^T of the tile in stage `st`.
+  auto issue_s = [&](uint32_t st) {
+    const uint64_t dk = desc_kmajor_sw128(st), dtk = desc_kmajor_sw128(st + JF_TILE);
+    ss_first(sc, desc_q, dk);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) ss_step(sc, desc_q + 2 * kk, dk + 2 * kk, 1);
+    ss_first(tc, desc_tq, dk);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) ss_step(tc, desc_tq + 2 * kk, dk + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ss_step(tc, desc_q + 2 * kk, dtk + 2 * kk, 1);
+  };
+  // O += P V, A += P tV, B += H V of the tile in stage `st`: k-steps of 16
+  // keys (2048 bytes of the V and tV tiles, read MN-major).
+  auto issue_out = [&](uint32_t st) {
+    const uint64_t dv = desc_mnmajor_sw128(st + 2 * JF_TILE);
+    const uint64_t dtv = desc_mnmajor_sw128(st + 3 * JF_TILE);
+#pragma unroll
+    for (int kk = 0; kk < JF_KS; ++kk) {
+      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(oacc, pa[kk], dv + 128 * kk, 1);
+      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(aacc, pa[kk], dtv + 128 * kk, 1);
+      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(bacc, ha[kk], dv + 128 * kk, 1);
+    }
+  };
+
+  // The mainloop, B1 fp32's (csrc/flash_fwd.cu): tile j's softmax, then its
+  // second products and the next tile's S and tS issued together (the last
+  // tile's S again at the end: a wgmma under a branch would serialize them
+  // all) and both waited for, so no product is in flight across the loop's
+  // back edge (C7515) or while a ring wait's trap path is live (C7517); then
+  // the stage is released. One set of fragments: the two warpgroups'
+  // softmaxes overlap each other's products.
+  mbar_wait(full(0), 0);
+  fence_regs();
+  wgmma_fence();
+  issue_s(stage(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs();
+  for (int j = 0; j < n_tiles; ++j) {
+    float alpha[2];
+    if (edge(j))
+      fwd_terms<true>(sc, tc, pa, ha, m, l, rs, alpha, j * JF_KEYS, cq, pos, s, causal, sm_scale,
+                      qk_scale);
+    else
+      fwd_terms<false>(sc, tc, pa, ha, m, l, rs, alpha, j * JF_KEYS, cq, pos, s, causal, sm_scale,
+                       qk_scale);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float a = alpha[(i % 4) / 2];
+      oacc[i] *= a;
+      aacc[i] *= a;
+      bacc[i] *= a;
+    }
+    const int jn = min(j + 1, n_tiles - 1);
+    if (j + 1 < n_tiles) mbar_wait(full(jn % JF_STAGES), (jn / JF_STAGES) & 1);
+    fence_regs();
+    wgmma_fence();
+    issue_out(stage(j));
+    issue_s(stage(jn));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs();
+    release_stage(released, j, JF_STAGES, n_tiles, load_kv);
+  }
+
+  // O = acc / l, tO = (A + B - r O) / l (l == 0 -> 1), lse = m + log2(l), mu
+  // = r / l; rows past t store nothing.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lsum = quad_sum(l[h]), rsum = quad_sum(rs[h]);
+    const float l_safe = lsum == 0.f ? 1.f : lsum;
+    if (pos[h] >= t) continue;
+    const size_t row = static_cast<size_t>(bh) * t + pos[h];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * n + 2 * h;
+      const float o0 = oacc[i] / l_safe, o1 = oacc[i + 1] / l_safe;
+      *reinterpret_cast<float2*>(o + row * D + 8 * n + cq) = make_float2(o0, o1);
+      *reinterpret_cast<float2*>(to + row * D + 8 * n + cq) =
+          make_float2((aacc[i] + bacc[i] - rsum * o0) / l_safe,
+                      (aacc[i + 1] + bacc[i + 1] - rsum * o1) / l_safe);
+    }
+    if (lane % 4 == 0) {
+      lse[row] = m[h] + log2f(l_safe);
+      mu[row] = rsum / l_safe;
+    }
+  }
+}
+
+// B9 fast's K-side prep, one launch: k, v, tk, tv ([b, h, s, 64] f32, any
+// strides, rows contiguous) -> contiguous bf16 [b * h, s, 64] (round to
+// nearest even). Grid (s / FP_ROWS rounded up, b * h, 4): z is the operand; a
+// thread converts 8 elements of a row in each of FP_ROWS / 32 rows, every
+// load issued before its first store.
+struct FwdPrepArgs {
+  const float* src[4];
+  long long stride[4][3];  // batch, head, token strides in elements
+  __nv_bfloat16* dst[4];
+};
+constexpr int FP_ROWS = 256;
+
+__global__ void __launch_bounds__(256)
+jvp_fwd_prep_kernel(FwdPrepArgs args, int heads, int s) {
+  const int z = blockIdx.z, bh = blockIdx.y, c8 = threadIdx.x % 8;
+  const int tok0 = blockIdx.x * FP_ROWS + threadIdx.x / 8;
+  const float* src = args.src[z] + (bh / heads) * args.stride[z][0] +
+                     (bh % heads) * args.stride[z][1];
+  const long long st = args.stride[z][2];
+  uint4* dst = reinterpret_cast<uint4*>(args.dst[z] + static_cast<size_t>(bh) * s * D);
+  constexpr int PASSES = FP_ROWS / 32;
+  float4 x[PASSES][2] = {};
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    const int tok = tok0 + 32 * i;
+    if (tok < s) {
+      const float4* row = reinterpret_cast<const float4*>(src + tok * st + c8 * 8);
+      x[i][0] = row[0];
+      x[i][1] = row[1];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    const int tok = tok0 + 32 * i;
+    if (tok < s)
+      dst[static_cast<size_t>(tok) * (D / 8) + c8] =
+          make_uint4(pack_bf16(x[i][0].x, x[i][0].y), pack_bf16(x[i][0].z, x[i][0].w),
+                     pack_bf16(x[i][1].x, x[i][1].y), pack_bf16(x[i][1].z, x[i][1].w));
+  }
+}
+
 constexpr size_t TILE16 = BT * SROW * sizeof(bf16);   // a streamed bf16 tile
 constexpr size_t BLOCK16 = BM * SROW * sizeof(bf16);  // a block's own bf16 tile
 
@@ -1384,24 +1745,85 @@ using cf = const float*;
 
 }  // namespace
 
-// Every tensor is f32 and contiguous: q-side [bh, t, D], kv-side [bh, s, D],
-// row terms [bh, t].
+// The exact entries: every tensor is f32 and contiguous: q-side [bh, t, D],
+// kv-side [bh, s, D], row terms [bh, t].
 
-// B9: O, tO [bh, t, D]; lse, mu [bh, t].
+// B9 exact: O, tO [bh, t, D]; lse, mu [bh, t] (fast mode: qa_jvp_fwd_bf16).
 extern "C" int qa_jvp_fwd(const void* q, const void* k, const void* v, const void* tq,
                           const void* tk, const void* tv, void* o, void* to, void* lse, void* mu,
                           int bh, int t, int s, int causal, int fast, float sm_scale,
                           float qk_scale, void* stream) {
-  if (fast)
-    return launch(jvp_fwd_mma, dim3((t + BM - 1) / BM, bh), MMA_THREADS,
-                  2 * BLOCK16 + 4 * TILE16, stream, cf(q), cf(k), cf(v), cf(tq), cf(tk), cf(tv),
-                  static_cast<float*>(o), static_cast<float*>(to), static_cast<float*>(lse),
-                  static_cast<float*>(mu), t, s, causal, sm_scale, qk_scale);
+  if (fast) return static_cast<int>(cudaErrorInvalidValue);
   return launch(jvp_fwd_kernel, dim3((t + T - 1) / T, bh), THREADS,
                 (6 * TILE + 2 * PTILE) * sizeof(float), stream, cf(q), cf(k), cf(v), cf(tq),
                 cf(tk), cf(tv), static_cast<float*>(o), static_cast<float*>(to),
                 static_cast<float*>(lse), static_cast<float*>(mu), t, s, causal, sm_scale,
                 qk_scale);
+}
+
+// Shared bytes one B9 fast block asks for (ops/jvp_tiling.py mirrors it).
+extern "C" int qa_jvp_fwd_smem_bytes() { return JF_SMEM; }
+
+// B9 fast's K-side prep: src = k, v, tk, tv [b, h, s, 64] f32 with
+// strides[4][3] (batch, head, token, in elements; rows contiguous; pointers
+// and strides 16-byte aligned) -> dst, the same four as contiguous bf16 [b *
+// h, s, 64], in one launch.
+extern "C" int qa_jvp_fwd_prep(const void* const* src, const long long* strides,
+                               void* const* dst, int b, int h, int s, void* stream) {
+  if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || s < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdPrepArgs args;
+  for (int i = 0; i < 4; ++i) {
+    if (!aligned16(src[i]) || !aligned16(dst[i])) return static_cast<int>(cudaErrorInvalidValue);
+    args.src[i] = static_cast<const float*>(src[i]);
+    args.dst[i] = static_cast<__nv_bfloat16*>(dst[i]);
+    for (int j = 0; j < 3; ++j) {
+      if (strides[3 * i + j] % 4) return static_cast<int>(cudaErrorInvalidValue);
+      args.stride[i][j] = strides[3 * i + j];
+    }
+  }
+  const dim3 grid((s + FP_ROWS - 1) / FP_ROWS, b * h, 4);
+  jvp_fwd_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(args, h, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9 fast: q, tq [b, h, t, 64] f32 (strides in elements, rows contiguous;
+// pointers and strides 16-byte aligned) and the prep's k, v, tk, tv (bf16,
+// contiguous [b * h, s, 64]) -> O, tO [b * h, t, 64] and lse, mu [b * h, t]
+// f32.
+extern "C" int qa_jvp_fwd_bf16(const void* q, long long q_sb, long long q_sh, long long q_st,
+                               const void* tq, long long tq_sb, long long tq_sh, long long tq_st,
+                               const void* k, const void* v, const void* tk, const void* tv,
+                               void* o, void* to, void* lse, void* mu, int b, int h, int t, int s,
+                               int causal, float sm_scale, float qk_scale, void* stream) {
+  const int n_qt = (t + JF_ROWS - 1) / JF_ROWS;
+  const long long st[6] = {q_sb, q_sh, q_st, tq_sb, tq_sh, tq_st};
+  bool strided16 = aligned16(q) && aligned16(tq);
+  for (long long x : st) strided16 = strided16 && x % 4 == 0;
+  if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || t < 1 || s < 1 ||
+      n_qt > 65535 || !strided16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap k_map, v_map, tk_map, tv_map;
+  if (!tensor_map_3d(&k_map, k, b16, 2, b * h, s, D, JF_KEYS, D, sw) ||
+      !tensor_map_3d(&v_map, v, b16, 2, b * h, s, D, JF_KEYS, D, sw) ||
+      !tensor_map_3d(&tk_map, tk, b16, 2, b * h, s, D, JF_KEYS, D, sw) ||
+      !tensor_map_3d(&tv_map, tv, b16, 2, b * h, s, D, JF_KEYS, D, sw))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(jvp_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, JF_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  jvp_fwd_wgmma<<<dim3(b * h, n_qt), JF_THREADS, JF_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      k_map, v_map, tk_map, tv_map, static_cast<const float*>(q), q_sb, q_sh, q_st,
+      static_cast<const float*>(tq), tq_sb, tq_sh, tq_st, static_cast<float*>(o),
+      static_cast<float*>(to), static_cast<float*>(lse), static_cast<float*>(mu), h, t, s, causal,
+      sm_scale, qk_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B10: tO [bh, t, D] from O [bh, t, D] and lse [bh, t].
@@ -1498,21 +1920,56 @@ extern "C" int qa_jvp_bwd_dkv_bf16(const void* q, const void* k, const void* v, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// B12: dQ, dtQ [bh, t, D].
+// B12 exact: dQ, dtQ [bh, t, D] (fast mode: qa_jvp_bwd_dq_bf16).
 extern "C" int qa_jvp_bwd_dq(const void* q, const void* k, const void* v, const void* tq,
                              const void* tk, const void* tv, const void* dout, const void* dtout,
                              const void* lse, const void* mu, const void* crow, const void* dhat,
                              void* dq, void* dtq, int bh, int t, int s, int causal, int fast,
                              float sm_scale, float qk_scale, void* stream) {
-  if (fast)
-    return launch(jvp_dq_mma, dim3((t + BM - 1) / BM, bh), MMA_THREADS,
-                  4 * BLOCK16 + 4 * TILE16, stream, cf(q), cf(k), cf(v), cf(tq), cf(tk), cf(tv),
-                  cf(dout), cf(dtout), cf(lse), cf(mu), cf(crow), cf(dhat),
-                  static_cast<float*>(dq), static_cast<float*>(dtq), t, s, causal, sm_scale,
-                  qk_scale);
+  if (fast) return static_cast<int>(cudaErrorInvalidValue);
   return launch(jvp_dq_kernel, dim3((t + T - 1) / T, bh), THREADS,
                 (8 * TILE + 2 * PTILE) * sizeof(float), stream, cf(q), cf(k), cf(v), cf(tq),
                 cf(tk), cf(tv), cf(dout), cf(dtout), cf(lse), cf(mu), cf(crow), cf(dhat),
                 static_cast<float*>(dq), static_cast<float*>(dtq), t, s, causal, sm_scale,
                 qk_scale);
+}
+
+// Shared bytes one B12 fast block asks for (ops/jvp_tiling.py mirrors it).
+extern "C" int qa_jvp_bwd_dq_smem_bytes() { return JQ_SMEM; }
+
+// B12 fast: B11's prep's q, k, v, tq, tk, tv, dO, dtO (bf16, contiguous) and
+// rows [4, bh, ld] -> dQ, dtQ [bh, t, D] f32.
+extern "C" int qa_jvp_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* tq,
+                                  const void* tk, const void* tv, const void* dout,
+                                  const void* dtout, const void* rows, void* dq, void* dtq, int bh,
+                                  int t, int s, int ld, int causal, float sm_scale,
+                                  float qk_scale, void* stream) {
+  const int n_qt = (t + JQ_ROWS - 1) / JQ_ROWS;
+  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4 || n_qt > 65535 ||
+      !aligned16(rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map;
+  if (!tensor_map_3d(&q_map, q, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
+      !tensor_map_3d(&tq_map, tq, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
+      !tensor_map_3d(&do_map, dout, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
+      !tensor_map_3d(&dto_map, dtout, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
+      !tensor_map_3d(&k_map, k, b16, 2, bh, s, D, JQ_KEYS, D, sw) ||
+      !tensor_map_3d(&tk_map, tk, b16, 2, bh, s, D, JQ_KEYS, D, sw) ||
+      !tensor_map_3d(&v_map, v, b16, 2, bh, s, D, JQ_KEYS, D, sw) ||
+      !tensor_map_3d(&tv_map, tv, b16, 2, bh, s, D, JQ_KEYS, D, sw))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(jvp_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, JQ_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  jvp_dq_wgmma<<<dim3(bh, n_qt), JQ_THREADS, JQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map,
+      static_cast<const float*>(rows), static_cast<float*>(dq), static_cast<float*>(dtq), t, s,
+      ld, causal, sm_scale, qk_scale);
+  return static_cast<int>(cudaGetLastError());
 }

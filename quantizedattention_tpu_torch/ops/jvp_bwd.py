@@ -6,14 +6,18 @@ the VJP of (q, k, v, tq, tk, tv) -> (O, tO): from the forward's residuals
 (dq, dk, dv, dtq, dtk, dtv) in f32. Two hand-written Hopper kernels
 (csrc/jvp.cu) run for CUDA tensors:
 
-  jvp_bwd_prep  B11 fast's operand prep, one launch: the eight operands in
-                bf16 and the row terms lse, mu, c, dhat at TMA's row stride;
+  jvp_bwd_prep  the fast kernels' operand prep, one launch: the eight
+                operands in bf16 and the row terms lse, mu, c, dhat at TMA's
+                row stride; `attention_jvp_bwd` runs it once a fast call and
+                hands it to both kernels;
   jvp_bwd_dkv   B11, dK, dV, dtK, dtV per key tile (32 keys exact, 128 fast)
                 over all q tiles;
-  jvp_bwd_dq    B12, dQ, dtQ per 32-row q tile over all kv tiles;
+  jvp_bwd_dq    B12, dQ, dtQ per q tile (32 rows exact, 128 fast) over all
+                kv tiles;
 
 and their plain PyTorch versions for CPU tensors. Each wrapper counts its
-launches (`.launches`). B11 fast's launch geometry is ops/jvp_tiling.py's.
+launches (`.launches`). The fast kernels' launch geometry is
+ops/jvp_tiling.py's.
 
 Tile math (jvp_bwd.py:15-44): p = exp2(S - lse), 0 where masked;
 tS = (tQ K^T + Q tK^T) sm_scale; tpb = dtO V^T;
@@ -142,8 +146,8 @@ def jvp_bwd_dq_plain(ops: JvpBwdOperands):
 # --------------------------------------------------------------------------
 
 def jvp_bwd_prep_plain(ops: JvpBwdOperands):
-    """B11 fast's prep in plain PyTorch: (q, k, v, tq, tk, tv, do, dto) in
-    bf16 (round to nearest even, the shapes of `ops`) and the row terms
+    """The fast kernels' prep in plain PyTorch: (q, k, v, tq, tk, tv, do, dto)
+    in bf16 (round to nearest even, the shapes of `ops`) and the row terms
     (lse, mu, c, dhat) stacked, f32 [4, b*h, t]."""
     return tuple(x.to(torch.bfloat16) for x in ops[:8]), torch.stack(ops[8:12])
 
@@ -170,6 +174,15 @@ def jvp_bwd_prep(ops: JvpBwdOperands):
     return tuple(outs), rows[..., :t]
 
 
+def _from_prep(ops: JvpBwdOperands, prep) -> JvpBwdOperands:
+    """`ops` with the prep's operands (widened back to f32: the values the
+    plain fast path rounds them to) and row terms in place of its own."""
+    operands, rows = prep
+    names = JvpBwdOperands._fields
+    return ops._replace(**dict(zip(names[:8], (x.float() for x in operands))),
+                        **dict(zip(names[8:12], rows)))
+
+
 @functools.cache
 def _kernels():
     lib = load_kernel("jvp")
@@ -178,8 +191,9 @@ def _kernels():
     lib.qa_jvp_bwd_dkv_bf16.argtypes = [ptr] * 13 + [i32] * 5 + [f32, f32, ptr]
     lib.qa_jvp_bwd_prep.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.qa_jvp_bwd_dq.argtypes = [ptr] * 14 + [i32] * 5 + [f32, f32, ptr]
+    lib.qa_jvp_bwd_dq_bf16.argtypes = [ptr] * 11 + [i32] * 5 + [f32, f32, ptr]
     for fn in (lib.qa_jvp_bwd_dkv, lib.qa_jvp_bwd_dkv_bf16, lib.qa_jvp_bwd_prep,
-               lib.qa_jvp_bwd_dq):
+               lib.qa_jvp_bwd_dq, lib.qa_jvp_bwd_dq_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -197,22 +211,32 @@ def _launch_args(ops: JvpBwdOperands):
     return dev, bh, t, s, tail
 
 
-def jvp_bwd_dkv(ops: JvpBwdOperands):
+def _fast_args(ops: JvpBwdOperands, prep):
+    """The pointers and sizes both fast kernels take after their operands'
+    prep (run here, counted, unless `prep` is given): the eight bf16
+    operands, the row terms, then (bh, t, s, ld)."""
+    operands, rows = prep if prep is not None else jvp_bwd_prep(ops)
+    bh, t, _ = operands[0].shape
+    return ([x.data_ptr() for x in operands] + [rows.data_ptr()],
+            (bh, t, operands[1].shape[1], rows.stride(1)))
+
+
+def jvp_bwd_dkv(ops: JvpBwdOperands, prep=None):
     """B11: (dk, dv, dtk, dtv) [b*h, s, d] f32. CUDA operands launch the
-    kernel (or raise): fast mode after one `jvp_bwd_prep` launch; CPU
-    operands take `jvp_bwd_dkv_plain`."""
+    kernel (or raise): fast mode on `prep`, `jvp_bwd_prep(ops)`'s result,
+    which it runs itself when not given. CPU operands take
+    `jvp_bwd_dkv_plain` (on the prep's operands when given)."""
     if ops.q.device.type == "cpu":
-        return jvp_bwd_dkv_plain(ops)
+        return jvp_bwd_dkv_plain(ops if prep is None else _from_prep(ops, prep))
     dev, bh, t, s, tail = _launch_args(ops)
     outs = [torch.empty((bh, s, ops.q.shape[2]), dtype=torch.float32, device=dev)
             for _ in range(4)]
     if ops.fast:
         jvp_tiling.dkv_grid(bh, t, s)
-        (q, k, v, tq, tk, tv, do, dto), rows = jvp_bwd_prep(ops)
-        status = _kernels().qa_jvp_bwd_dkv_bf16(
-            *(x.data_ptr() for x in (q, k, v, tq, tk, tv, do, dto)), rows.data_ptr(),
-            *(x.data_ptr() for x in outs), bh, t, s, rows.stride(1), int(ops.causal),
-            ops.sm_scale, ops.qk_scale, tail[-1])
+        ptrs, sizes = _fast_args(ops, prep)
+        status = _kernels().qa_jvp_bwd_dkv_bf16(*ptrs, *(x.data_ptr() for x in outs), *sizes,
+                                                int(ops.causal), ops.sm_scale, ops.qk_scale,
+                                                tail[-1])
     else:
         status = _kernels().qa_jvp_bwd_dkv(*(x.data_ptr() for x in ops[:12]),
                                            *(x.data_ptr() for x in outs), *tail)
@@ -221,15 +245,23 @@ def jvp_bwd_dkv(ops: JvpBwdOperands):
     return tuple(outs)
 
 
-def jvp_bwd_dq(ops: JvpBwdOperands):
+def jvp_bwd_dq(ops: JvpBwdOperands, prep=None):
     """B12: (dq, dtq) [b*h, t, d] f32. CUDA operands launch the kernel (or
-    raise); CPU operands take `jvp_bwd_dq_plain`."""
+    raise): fast mode on `prep`, as `jvp_bwd_dkv`. CPU operands take
+    `jvp_bwd_dq_plain` (on the prep's operands when given)."""
     if ops.q.device.type == "cpu":
-        return jvp_bwd_dq_plain(ops)
-    dev, _, _, _, tail = _launch_args(ops)
+        return jvp_bwd_dq_plain(ops if prep is None else _from_prep(ops, prep))
+    dev, bh, t, _, tail = _launch_args(ops)
     outs = [torch.empty_like(ops.q) for _ in range(2)]
-    status = _kernels().qa_jvp_bwd_dq(*(x.data_ptr() for x in ops[:12]),
-                                      *(x.data_ptr() for x in outs), *tail)
+    if ops.fast:
+        jvp_tiling.q_blocks(bh, t)
+        ptrs, sizes = _fast_args(ops, prep)
+        status = _kernels().qa_jvp_bwd_dq_bf16(*ptrs, *(x.data_ptr() for x in outs), *sizes,
+                                               int(ops.causal), ops.sm_scale, ops.qk_scale,
+                                               tail[-1])
+    else:
+        status = _kernels().qa_jvp_bwd_dq(*(x.data_ptr() for x in ops[:12]),
+                                          *(x.data_ptr() for x in outs), *tail)
     check_status(status, "jvp_bwd_dq")
     jvp_bwd_dq.launches += 1
     return tuple(outs)
@@ -244,10 +276,13 @@ def attention_jvp_bwd(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal=False
                       sm_scale=None, fast=False):
     """VJP of (q, k, v, tq, tk, tv) -> (O, tO). Returns
     (dq, dk, dv, dtq, dtk, dtv) f32 in the inputs' shapes. CUDA tensors run
-    B11 and B12 (head_dim 64); CPU tensors their plain versions."""
+    B11 and B12 (head_dim 64; fast mode on one `jvp_bwd_prep` launch shared
+    by both); CPU tensors their plain versions (fast mode on the plain prep's
+    operands)."""
     ops = jvp_bwd_operands(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal, sm_scale, fast)
-    dk, dv, dtk, dtv = jvp_bwd_dkv(ops)
-    dq, dtq = jvp_bwd_dq(ops)
+    prep = jvp_bwd_prep(ops) if fast else None  # one prep for both fast kernels
+    dk, dv, dtk, dtv = jvp_bwd_dkv(ops, prep)
+    dq, dtq = jvp_bwd_dq(ops, prep)
     qs, ks = q.shape, k.shape
     return (dq.reshape(qs), dk.reshape(ks), dv.reshape(ks), dtq.reshape(qs), dtk.reshape(ks),
             dtv.reshape(ks))

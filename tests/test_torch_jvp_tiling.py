@@ -17,6 +17,18 @@ rounding the plain fast path applies, byte for byte, and the row terms of
 of every operand dropped, the small-small term left out) keeps fp32
 attention within 1e-5 of max|float64| on (2, 2, 300, 64) over 8 seeds: the
 accuracy argument for the kernel's design, on record.
+
+B9 fast and B12 fast (csrc/jvp.cu): their 128-row blocks and the key
+tiles they walk (64 keys for B9, 32 for B12) cover every visible (position,
+key) pair exactly once, and causal blocks stop at their last visible tile; their shared memory fits an
+H100; their grids' limits raise. B9's K-side prep (plain) is .to(bfloat16)
+of the model's transposed views, laid out contiguous; on the CPU,
+`attention_jvp_bwd`'s fast route through one shared prep gives the separate
+plain calls' results bit for bit. A numpy emulation of B9 fast's tiled
+online softmax (P and H rounded to bf16 against the running max of 64-key
+tiles, the kernel's, and of 32-key ones) stays within chip_smoke.py's
+JVP_FWD_FAST_TOL (5e-3) of the plain version on causal and ragged cases:
+the tile width's effect on the rounding, answered before the card.
 """
 
 import numpy as np
@@ -26,12 +38,20 @@ import torch
 from quantizedattention_tpu_torch.ops import flash_tiling, jvp_tiling
 from quantizedattention_tpu_torch.ops.flash_fwd import kv_split_tf32_plain, tf32_split
 from quantizedattention_tpu_torch.ops.jvp_bwd import (
+    attention_jvp_bwd,
+    jvp_bwd_dkv,
     jvp_bwd_dkv_plain,
+    jvp_bwd_dq,
+    jvp_bwd_dq_plain,
     jvp_bwd_operands,
     jvp_bwd_prep,
     jvp_bwd_prep_plain,
 )
-from quantizedattention_tpu_torch.ops.jvp_fwd import attention_jvp_fwd_plain
+from quantizedattention_tpu_torch.ops.jvp_fwd import (
+    attention_jvp_fwd_plain,
+    jvp_fwd_prep,
+    jvp_fwd_prep_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -265,3 +285,196 @@ def test_prep_plain_matches_operands(t, s, causal):
         ("q", "k", "v", "tq", "tk", "tv", "do", "dto"), (q, k, v, tq, tk, tv, do, dto))})
     for got, want in zip(jvp_bwd_dkv_plain(widened), jvp_bwd_dkv_plain(ops)):
         assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# B9 fast and B12 fast
+# --------------------------------------------------------------------------
+
+JVP_FWD_FAST_TOL = 5e-3  # chip_smoke.py's B9 fast gate, max|diff| / max|plain| (lse: max|diff|)
+QB_SHAPES = [(1, 1), (1, 300), (300, 1), (33, 130), (77, 201), (128, 128), (129, 31),
+             (200, 330), (330, 200), (300, 300), (1024, 1024), (4096, 64)]
+
+
+def _q_block_walk(t, s, causal, width):
+    """(position, key) pairs every B9 / B12 fast block computes, as the
+    kernels walk: grid row y takes positions block_rows(y) .. + 127 and the
+    key tiles 0 .. key_tiles - 1, each `width` keys."""
+    pairs = []
+    _, n_qb = jvp_tiling.q_blocks(3, t)
+    for y in range(n_qb):
+        q0 = jvp_tiling.block_rows(y, n_qb)
+        pos = np.arange(q0, min(q0 + jvp_tiling.Q_BLOCK, t))
+        n_kt = jvp_tiling.key_tiles(q0, t, s, causal, width)
+        keys = np.arange(0, min(n_kt * width, s))
+        pp, kk = np.meshgrid(pos, keys, indexing="ij")
+        pairs.append(np.stack([pp.ravel(), kk.ravel()], 1))
+        last_seen = min(t - 1, q0 + jvp_tiling.Q_BLOCK - 1) if causal else s - 1
+        assert (n_kt - 1) * width <= last_seen  # the last walked tile holds a key a row sees
+        assert n_kt * width >= s or n_kt * width > last_seen  # the next would hold none
+    return np.concatenate(pairs)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("t, s", QB_SHAPES)
+@pytest.mark.parametrize("width", [jvp_tiling.FWD_KEYS, jvp_tiling.DQ_KEYS], ids=["b9", "b12"])
+def test_q_block_walk_covers_every_visible_pair_once(width, t, s, causal):
+    """B9 fast (FWD_KEYS-key tiles) and B12 fast (DQ_KEYS) walk every
+    visible pair once, the blocks with the most key tiles first."""
+    pairs = _q_block_walk(t, s, causal, width)
+    walked = [tuple(x) for x in pairs]
+    assert len(set(walked)) == len(walked)
+    visible = {(p, k) for p in range(t) for k in range(s) if not causal or k <= p}
+    assert visible <= set(walked)
+    _, n_qb = jvp_tiling.q_blocks(3, t)
+    tiles = [jvp_tiling.key_tiles(jvp_tiling.block_rows(y, n_qb), t, s, causal, width)
+             for y in range(n_qb)]
+    assert tiles == sorted(tiles, reverse=True)
+
+
+@pytest.mark.parametrize("shared_bytes, resident", [
+    (jvp_tiling.fwd_shared_bytes, 2 * 128 * 64 * 2 + jvp_tiling.FWD_STAGES * 4 * 64 * 64 * 2),
+    (jvp_tiling.dq_shared_bytes, 4 * 128 * 64 * 2 + jvp_tiling.DQ_STAGES * 4 * 32 * 64 * 2)],
+    ids=["b9", "b12"])
+def test_q_block_shared_memory_fits_one_block(shared_bytes, resident):
+    n = shared_bytes()
+    assert resident < n <= resident + 2048
+    assert n <= flash_tiling.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bh, t", [(0, 10), (65536, 10), (1, 0), (1, 128 * 65535 + 1)])
+def test_q_blocks_limits_raise(bh, t):
+    with pytest.raises(ValueError, match="kernel takes"):
+        jvp_tiling.q_blocks(bh, t)
+
+
+@pytest.mark.parametrize("bh, s", [(0, 8), (65536, 8), (1, 0)])
+def test_fwd_prep_grid_limits_raise(bh, s):
+    with pytest.raises(ValueError, match="kernel takes"):
+        jvp_tiling.fwd_prep_grid(bh, s)
+
+
+@pytest.mark.parametrize("s", [1, 31, 257])
+def test_fwd_prep_plain_is_bf16_of_the_views(s):
+    """B9's K-side prep on the DiT's [b, h, s, d] views of [b, s, h, d]
+    storage: each operand .to(bfloat16), laid out contiguous [b * h, s, d];
+    the CPU wrapper takes it and counts no launch."""
+    gen = torch.Generator().manual_seed(s)
+    views = [torch.randn((2, s, 3, 64), generator=gen).transpose(1, 2) for _ in range(4)]
+    assert s == 1 or not views[0].is_contiguous()
+    before = jvp_fwd_prep.launches
+    got = jvp_fwd_prep(*views)
+    assert jvp_fwd_prep.launches == before
+    assert jvp_tiling.fwd_prep_grid(6, s) == (-(-s // 256), 6, 4)
+    for g, x, w in zip(got, views, jvp_fwd_prep_plain(*views)):
+        assert g.dtype == torch.bfloat16 and g.shape == (6, s, 64) and g.is_contiguous()
+        want = x.to(torch.bfloat16).reshape(6, s, 64)
+        assert torch.equal(g.view(torch.int16), want.view(torch.int16))
+        assert torch.equal(w.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("t, s, causal", [(77, 201, False), (33, 130, True), (1, 1, True),
+                                          (130, 33, True)])
+def test_shared_prep_route_matches_separate_plain_calls(t, s, causal):
+    """attention_jvp_bwd in fast mode runs one prep for B11 and B12; on the
+    CPU that route (the plain versions on the plain prep's operands) gives
+    the separate plain calls' results bit for bit, and launches nothing."""
+    rng = np.random.default_rng(t + s)
+    q, tq, do, dto = (torch.from_numpy(rng.standard_normal((1, 2, t, 64), np.float32))
+                      for _ in range(4))
+    k, v, tk, tv = (torch.from_numpy(rng.standard_normal((1, 2, s, 64), np.float32))
+                    for _ in range(4))
+    fwd = attention_jvp_fwd_plain(q, k, v, tq, tk, tv, causal=causal, fast=True)
+    counts = [fn.launches for fn in (jvp_bwd_prep, jvp_bwd_dkv, jvp_bwd_dq)]
+    got = attention_jvp_bwd(q, k, v, tq, tk, tv, *fwd, do, dto, causal=causal, fast=True)
+    assert [fn.launches for fn in (jvp_bwd_prep, jvp_bwd_dkv, jvp_bwd_dq)] == counts
+    ops = jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd, do, dto, causal=causal, fast=True)
+    dk, dv, dtk, dtv = jvp_bwd_dkv_plain(ops)
+    dq, dtq = jvp_bwd_dq_plain(ops)
+    for g, w in zip(got, (dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(k.shape),
+                          dtq.reshape(q.shape), dtk.reshape(k.shape), dtv.reshape(k.shape))):
+        assert torch.equal(g, w)
+
+
+def _bf16(x):
+    """x rounded to bf16 (nearest even) and back, in numpy."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x7FFF) + ((b >> 16) & 1)) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _b9_fast_emulated(q, k, v, tq, tk, tv, causal, keys):
+    """B9 fast's arithmetic as the kernel orders it, in numpy f32: the
+    operands rounded to bf16; per tile of `keys` keys the running max m, p =
+    exp2(S qk_scale - m) (0 where masked) and h = p tS sm_scale, l and r
+    summing the unrounded p and h, and O, A = P tV, B = H V accumulating the
+    bf16-rounded P and H, all rescaled by exp2(m_old - m_new)."""
+    sm_scale = np.float32(0.125)
+    qk_scale = np.float32(0.125 * 1.44269504)
+    qf, kf, vf, tqf, tkf, tvf = (_bf16(x) for x in (q, k, v, tq, tk, tv))
+    t, s = q.shape[-2], k.shape[-2]
+    sc = (qf @ np.swapaxes(kf, -1, -2)) * qk_scale
+    ts = (tqf @ np.swapaxes(kf, -1, -2) + qf @ np.swapaxes(tkf, -1, -2)) * sm_scale
+    valid = np.ones((t, s), bool)
+    if causal:
+        valid = np.arange(s)[None, :] <= np.arange(t)[:, None]
+    sc = np.where(valid, sc, np.float32(-30000.0)).astype(np.float32)
+    lead = q.shape[:-2]
+    m = np.full(lead + (t, 1), -np.inf, np.float32)
+    l, r = np.zeros(lead + (t, 1), np.float32), np.zeros(lead + (t, 1), np.float32)
+    o, a, b = (np.zeros(lead + (t, 64), np.float32) for _ in range(3))
+    for k0 in range(0, s, keys):
+        cols = slice(k0, min(k0 + keys, s))
+        new = np.maximum(m, sc[..., cols].max(-1, keepdims=True))
+        alpha = np.exp2(m - new).astype(np.float32)
+        m = new
+        p = np.where(valid[:, cols], np.exp2(sc[..., cols] - m), 0.0).astype(np.float32)
+        h = (p * ts[..., cols]).astype(np.float32)
+        l = l * alpha + p.sum(-1, keepdims=True)
+        r = r * alpha + h.sum(-1, keepdims=True)
+        o = o * alpha + _bf16(p) @ vf[..., cols, :]
+        a = a * alpha + _bf16(p) @ tvf[..., cols, :]
+        b = b * alpha + _bf16(h) @ vf[..., cols, :]
+    l_safe = np.where(l == 0, np.float32(1.0), l)
+    o = o / l_safe
+    return o, (a + b - r * o) / l_safe, (m + np.log2(l_safe))[..., 0], (r / l_safe)[..., 0]
+
+
+def _b9_case(b, h, t, s, seed=0):
+    rng = np.random.default_rng(seed + 1000 * t + s)
+    q, tq = (rng.standard_normal((b, h, t, 64), np.float32) for _ in range(2))
+    k, v, tk, tv = (rng.standard_normal((b, h, s, 64), np.float32) for _ in range(4))
+    return q, k, v, tq, tk, tv
+
+
+def _rel_to_plain(got, want):
+    """chip_smoke.py's measure: max|diff| / max|plain| per tensor, lse by
+    max|diff|."""
+    return [float(np.abs(g - w.numpy()).max() / (1.0 if n == "lse" else np.abs(w.numpy()).max()))
+            for n, g, w in zip(("o", "to", "lse", "mu"), got, want)]
+
+
+B9_CASES = [(1, 2, 77, 201, False), (1, 2, 77, 201, True), (1, 2, 300, 300, True),
+            (1, 3, 33, 130, True), (2, 2, 256, 256, False), (1, 2, 330, 200, True),
+            (1, 2, 1, 1, True)]
+
+
+@pytest.mark.parametrize("keys", [jvp_tiling.FWD_KEYS, 32])
+@pytest.mark.parametrize("b, h, t, s, causal", B9_CASES)
+def test_b9_fast_tiled_rounding_within_gate(b, h, t, s, causal, keys):
+    """Rounding P and H against the running max of each key tile moves an
+    entry by at most a bf16 ulp against the plain version's row max: within
+    JVP_FWD_FAST_TOL at the kernel's tile width (and at 32 keys)."""
+    x = _b9_case(b, h, t, s)
+    want = attention_jvp_fwd_plain(*(torch.from_numpy(a) for a in x), causal=causal, fast=True)
+    errs = _rel_to_plain(_b9_fast_emulated(*x, causal, keys), want)
+    assert max(errs) <= JVP_FWD_FAST_TOL, errs
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_b9_emulation_one_tile_is_the_plain_version(causal):
+    """With one tile holding every key the emulation rounds where the plain
+    version does: only the f32 summation order differs."""
+    x = _b9_case(1, 2, 77, 201)
+    want = attention_jvp_fwd_plain(*(torch.from_numpy(a) for a in x), causal=causal, fast=True)
+    errs = _rel_to_plain(_b9_fast_emulated(*x, causal, 256), want)
+    assert max(errs) <= 1e-5, errs
