@@ -7,11 +7,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
      holds the flash forward's (bf16 and fp32 modes) and backward's, B11
-     fast's, the int8 forward's and backward's and the weight matmuls' shared
-     bytes against their launch geometry (ops/flash_tiling.py,
-     ops/jvp_tiling.py, ops/int8_tiling.py, ops/linear_tiling.py), and fails
-     if ptxas spills or serializes wgmma (a C75xx note) in the flash forward
-     (both modes) or backward or in B9, B11 and B12 fast and their preps;
+     fast's, the int8 forward's and backward's, B15/B16's and the weight
+     matmuls' shared bytes against their launch geometry (ops/flash_tiling.py,
+     ops/jvp_tiling.py, ops/int8_tiling.py, parallel/decode_tiling.py,
+     ops/linear_tiling.py), and fails if ptxas spills or serializes wgmma (a
+     C75xx note) in the flash forward (both modes) or backward, in B9, B11
+     and B12 fast and their preps, or spills in B15/B16;
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
      multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
@@ -144,9 +145,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      and 16/4 heads, pages of 128, 10 per sequence) with lengths [0, 1, 127,
      128, 1000, 1280, 300, 640], pages shuffled across the pool, page 0 and
      every page past a row's length holding junk payloads and NaN/inf
-     scales; B14 against B13 and B16 against B15 on the same K/V; then each
-     timed at the serving decode shape (8 slots x 16 heads, length 304 of
-     1280) beside B13 and its plain version;
+     scales; B14 against B13 (within DECODE_TOL) and B16 against B15 (bit
+     for bit) on the same K/V; then each timed at the serving decode shape
+     (8 slots x 16 heads, length 304 of 1280) beside B13 and its plain
+     version, and B15/B16 at capacity (1280 of 1280) at 16/16 and 16/4
+     heads beside their bounds;
  22. cache-kind serving at full width: phase 5's run with cache="paged"
      (tokens equal phase 5's; B1 and B14 only), kv_quant="int4" (B1 and
      B15), both (tokens equal the slotted int4 run's; B1 and B16), and the
@@ -165,7 +168,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      length 304 of 1280, beside its spec = 1 time and its plain version;
  24. speculative serving at bench.py:bench_spec_decode's widths (the bench
      LM at max_seq 512, bf16; 8 periodic prompts of 256 tokens, 16-token
-     motifs, 96 new tokens each): the plain engine at decode horizon 32 and
+     motifs, 96 new tokens each): first one verify pass of 5 tokens a slot
+     equals 5 decode steps bit for bit (logits and caches, slotted int8 and
+     int4); then the plain engine at decode horizon 32 and
      spec_decode=4 on each cache kind (slotted int8, paged int8, slotted
      int4, paged int4), each a warm-up and a timed run that repeats it. Spec
      tokens equal the plain engine's (a difference is printed, and fails
@@ -277,6 +282,7 @@ from quantizedattention_tpu_torch.models.transformer import (
     _verify_logits,
     prefill_slots,
 )
+from quantizedattention_tpu_torch.parallel import decode_tiling
 from quantizedattention_tpu_torch.parallel.kv4_cache import (
     PACK,
     Int4KVCache,
@@ -521,11 +527,13 @@ def phase_build() -> None:
             ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
-            ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes())):
+            ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes()),
+            ("cache_decode int4", _build.load_kernel("cache_decode").qa_decode4_smem_bytes(),
+             decode_tiling.shared_bytes())):
         if got != want:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
                                  f"geometry (ops/flash_tiling.py, ops/int8_tiling.py, "
-                                 f"ops/jvp_tiling.py) says {want}")
+                                 f"ops/jvp_tiling.py, parallel/decode_tiling.py) says {want}")
     for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phase 15 makes
         half = -(-k // 256) * 128  # quantize_weight_int4's packed rows at group 128
         for name, plan in (("int8_linear", plan_int8(m, k, n)),
@@ -540,10 +548,12 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
     # the flash forward (both modes) and backward and B9, B11 and B12 fast
-    # keep every wgmma asynchronous (no C75xx note) and spill nothing
+    # keep every wgmma asynchronous (no C75xx note) and spill nothing; B15/B16
+    # (two blocks an SM: at most 128 registers) spill nothing
     for name, only in (("flash_fwd", None), ("flash_bwd", None),
                        ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
-                                "jvp_dq_wgmma", "jvp_bwd_prep_kernel"))):
+                                "jvp_dq_wgmma", "jvp_bwd_prep_kernel")),
+                       ("cache_decode", ("decode4_kernel",))):
         bad = _ptxas_faults(_build.build_log(name), only)
         if bad:
             raise AssertionError(f"{name}'s ptxas notes: {bad}")
@@ -962,16 +972,19 @@ def _check_decode_kernel(name, fn, plain, q, cache, label) -> float:
     return err_o
 
 
-def _check_twins(name, got, want, label) -> float:
-    """Two kernels on the same K/V: (O, lse) within DECODE_TOL (the two walk
-    their tokens in another order, which moves where P is rounded to bf16)."""
+def _check_twins(name, got, want, label, exact=False) -> float:
+    """Two kernels on the same K/V: (O, lse) within DECODE_TOL, or with
+    `exact` bit for bit (B16 and B15 put every token in the same slot of the
+    same chunk and tile: only the addressing of a byte row differs)."""
     d_o = (got[0] - want[0]).abs().max().item()
     live = torch.isfinite(want[1])
     d_l = (got[1][live] - want[1][live]).abs().max().item()
     same_empty = bool(torch.equal(torch.isfinite(got[1]), live))
-    log(f"[{name}] {label}: max|dO|={d_o:.3e} max|dlse|={d_l:.3e} (tol {DECODE_TOL}) "
-        f"same empty rows={same_empty}")
-    if not (d_o <= DECODE_TOL and d_l <= DECODE_TOL and same_empty):
+    equal = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    log(f"[{name}] {label}: max|dO|={d_o:.3e} max|dlse|={d_l:.3e} (tol "
+        f"{'0, bit for bit' if exact else DECODE_TOL}) same empty rows={same_empty} "
+        f"bit-equal={equal}")
+    if not (d_o <= DECODE_TOL and d_l <= DECODE_TOL and same_empty and (equal or not exact)):
         raise AssertionError(f"{name}: {label} disagree")
     return d_o
 
@@ -1001,7 +1014,8 @@ def phase_cache_kernels(dev, gen) -> dict:
         b15 = decode_attention_int4(q, dense4, return_lse=True)
         b16 = paged4_decode_attention(q, paged4, return_lse=True)
         twins[f"paged4_decode_vs_decode4_{n_kv}"] = _check_twins(
-            "paged4_decode", b16, b15, f"B16 on shuffled pages vs B15 dense, {n_q}/{n_kv} heads")
+            "paged4_decode", b16, b15, f"B16 on shuffled pages vs B15 dense, {n_q}/{n_kv} heads",
+            exact=True)
 
     # time at the serving decode's shape: 8 slots x 16 heads, mid-generation
     length = PROMPT_LEN + NEW_TOKENS // 2
@@ -1031,6 +1045,27 @@ def phase_cache_kernels(dev, gen) -> dict:
         v for k, v in twins.items() if k.startswith("paged_decode_"))
     out["paged4_decode"]["max_abs_diff_vs_decode4"] = max(
         v for k, v in twins.items() if k.startswith("paged4_decode_"))
+
+    # B15 and B16 at capacity (1280 of 1280 tokens), 16/16 and 16/4 heads, on
+    # inputs from a generator of their own (the phases after this one draw
+    # what they drew before)
+    cap_gen = torch.Generator(device=dev).manual_seed(21)
+    n_tok = BENCH_CFG.max_seq * N_SLOTS
+    for n_kv in (16, 4):
+        q, _, _, dense4, paged4 = _cache_kinds(dev, cap_gen, 16, n_kv,
+                                               [BENCH_CFG.max_seq] * N_SLOTS, False)
+        for name, cache, table_bytes in (("decode4", dense4, 0),
+                                         ("paged4_decode", paged4, 4 * N_SLOTS * MAX_PAGES)):
+            fn = kernels[name][0]
+            ms = device_ms(lambda: fn(q, cache))
+            o = fn(q, cache)
+            bnd = bound(n_tok * n_kv * 72 + table_bytes + nbytes(q, o, cache[-1]),
+                        (2 * 2 * n_tok * q.shape[1] * 64, PEAK_BF16))
+            log(f"[{name}] 8 slots x 16 q / {n_kv} kv heads, length {BENCH_CFG.max_seq} of "
+                f"{BENCH_CFG.max_seq}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}), {ms / bnd['bound_ms']:.2f}x")
+            out[name][f"capacity_16q_{n_kv}kv_ms"] = ms
+            out[name][f"capacity_16q_{n_kv}kv_bound_ms"] = bnd["bound_ms"]
     return out
 
 
@@ -1277,6 +1312,40 @@ def _plain_gaps(params, prompts, plain, firsts, kv_quant) -> dict:
     return out
 
 
+def verify_vs_decode_steps(params, prompts, kv_quant) -> tuple[int, int, list[str]]:
+    """One verify pass over SPEC_K + 1 tokens a slot against SPEC_K + 1
+    decode steps on a copy of the same prefilled slotted cache: (logits
+    that differ, logits, cache fields that differ after). Phase 24 wants
+    them bit-equal: greedy spec tokens equal plain ones because of it (the
+    verify pass runs its MLP down projection a position at a time,
+    `_mlp_residual_per_position`), and a cuBLAS that rounds a row apart at
+    another M would fail here before the tokens differ."""
+    dev = params["embed"].device
+    n, s = len(prompts), SPEC_K + 1
+    init = init_kv4_cache if kv_quant else init_kv_cache
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    on = torch.ones((n,), dtype=torch.bool, device=dev)
+    toks = (torch.arange(n * s, device=dev).reshape(n, s) * 37 + 11) % SPEC_CFG.vocab_size
+    with torch.no_grad():
+        pair = []
+        for _ in range(2):
+            caches = [init(n, SPEC_CFG.n_kv_heads, SPEC_CFG.max_seq, SPEC_CFG.head_dim, dev)
+                      for _ in range(SPEC_CFG.n_layers)]
+            _, caches = prefill_slots(params, caches, torch.tensor(prompts, device=dev), lens,
+                                      torch.arange(n, device=dev), SPEC_CFG)
+            pair.append(caches)
+        got, got_caches = _verify_logits(params, pair[0], toks[:, 0], toks[:, 1:], lens, on,
+                                         SPEC_CFG)
+        steps, caches = [], pair[1]
+        for i in range(s):
+            logits, caches = _decode_logits(params, caches, toks[:, i], lens + i, on, SPEC_CFG)
+            steps.append(logits)
+    off = (got != torch.stack(steps, 1)).sum().item()
+    fields_off = [f"layer {i} {name}" for i, (a, b) in enumerate(zip(got_caches, caches))
+                  for name, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+    return off, got.numel(), fields_off
+
+
 def _verify_parity(eng, label) -> float:
     """One verify pass's logits (every slot active, drafts of the slots' next
     token ids) on copies of the engine's final cache state, on the card
@@ -1307,6 +1376,13 @@ def phase_spec_serving(dev, smi) -> dict:
     params = init_transformer(SPEC_CFG, torch.Generator(device=dev).manual_seed(0), dev,
                               torch.bfloat16)
     prompts = _spec_prompts()
+    for kv_quant in (None, "int4"):
+        off, total, fields_off = verify_vs_decode_steps(params, prompts, kv_quant)
+        log(f"[spec] kv_quant={kv_quant}: a verify pass of {SPEC_K + 1} tokens against "
+            f"{SPEC_K + 1} decode steps: {off} of {total} logits differ, cache fields that "
+            f"differ: {fields_off}")
+        if off or fields_off:
+            raise AssertionError(f"kv_quant={kv_quant}: a verify pass is not its decode steps")
     runs = {}
     for suffix, kw in SPEC_KINDS.items():
         row = DECODE_ROW[suffix]

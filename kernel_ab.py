@@ -3,10 +3,12 @@ the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, the
 int8 backward (B7 dK/dV, B8 dQ), the corrected-bf16 flash forward (B1) and
 its backward (B2 dK/dV, B3 dQ), B1's fp32 mode, the second-order
 backward's fast dK/dV (B11) and dQ (B12), and the JVP forward's fast mode
-(B9).
+(B9), and the int4 decode kernels (B15 slotted, B16 paged) beside the
+paged int8 one (B14).
 
     python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd] [flash_bwd]
                                                    [flash_fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq]
+                                                   [decode4]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
 (every part without a third argument). Each checkout is timed in its own
@@ -35,7 +37,12 @@ or jvp_dkv_wgmma) and the rest of the call (its prep); at the same two
 shapes B9 fast's whole `attention_jvp_fwd` call and B12 fast's `jvp_bwd_dq`
 call (which runs its own prep where the checkout has one), each split into
 the kernel (jvp_fwd_mma or jvp_fwd_wgmma; jvp_dq_mma or jvp_dq_wgmma) and
-the rest of the call (its prep or its operands' f32 copies). A time is the
+the rest of the call (its prep or its operands' f32 copies); B15 and B16
+through each checkout's public wrappers (the parent has no decode_tiling)
+at 8 sequences x 16 q heads: spec 1 and the verify wrappers at spec 5,
+length 304 of 1280 (the serving decode), and spec 1 at 1280 of 1280 with
+16 and 4 kv heads, the paged pools' pages of 128 shuffled, with B14 at the
+first shape on int8 pages. A time is the
 mean device time of one wrapper call, from CUDA-graph replays as in
 chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
 checkouts see the same ones. Prints one JSON line a run and a summary line a
@@ -60,8 +67,11 @@ FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
 FLASH_BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048), (4, 16, 16, 4096), (4, 16, 16, 8192))
 # (b, h, t = s), non-causal: the DiT's attention shape, bench_jvp's
 JVP_SHAPES = ((4, 4, 4096), (4, 16, 4096))
+# (kv heads of 16 q heads, length of 1280, spec), 8 sequences: the serving
+# decode and its verify pass, the capacity at 16/16 and 16/4 heads
+DECODE4_SHAPES = ((16, 304, 1), (16, 304, 5), (16, 1280, 1), (4, 1280, 1))
 PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd", "jvp_fwd",
-         "jvp_dq")
+         "jvp_dq", "decode4")
 
 
 def _device_ms(torch, fn, calls=20, replays=10) -> float:
@@ -265,6 +275,54 @@ def _jvp_fast_rows(torch, gen, dev, part) -> dict:
     return rows
 
 
+def _decode4_rows(torch, gen, dev) -> dict:
+    """B15 and B16 through each checkout's public wrappers (spec 1, and the
+    verify wrappers at spec 5), and B14 beside them, at DECODE4_SHAPES; q f32
+    as chip_smoke.py draws it, the paged pools' pages of 128 shuffled."""
+    from quantizedattention_tpu_torch.parallel import (Int4KVCache, Paged4KVCache, PagedKVCache,
+                                                       decode_attention_int4,
+                                                       paged4_decode_attention,
+                                                       paged4_verify_attention,
+                                                       paged_decode_attention,
+                                                       verify_decode_attention_int4)
+
+    rows = {}
+    n, cap, ps = 8, 1280, 128
+    max_pages = cap // ps
+    for n_kv, length, spec in DECODE4_SHAPES:
+        q = torch.randn((n, 16, 64) if spec == 1 else (n, 16, spec, 64), generator=gen,
+                        device=dev)
+        lengths = torch.full((n,), length, dtype=torch.int32, device=dev)
+        k4, v4 = (torch.randint(-128, 128, (n, n_kv, cap // 2, 64), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        sk, sv = (torch.rand((n, n_kv, cap), generator=gen, device=dev) * 0.28 + 0.02
+                  for _ in range(2))
+        table = (torch.randperm(n * max_pages, generator=torch.Generator().manual_seed(0)) + 1)
+        table = table.reshape(n, max_pages).int().to(dev)
+        pages = table.flatten().long()
+        pay = [torch.zeros((n_kv, 1 + n * max_pages, ps // 2, 64), dtype=torch.int8, device=dev)
+               for _ in range(2)]
+        scales = [torch.zeros((1 + n * max_pages, n_kv, ps), device=dev) for _ in range(2)]
+        for x, p, y, sc in ((k4, pay[0], sk, scales[0]), (v4, pay[1], sv, scales[1])):
+            p[:, pages] = x.reshape(n, n_kv, max_pages, ps // 2, 64).transpose(0, 1).reshape(
+                n_kv, n * max_pages, ps // 2, 64)
+            sc[pages] = y.reshape(n, n_kv, max_pages, ps).transpose(1, 2).reshape(
+                n * max_pages, n_kv, ps)
+        slotted = Int4KVCache(k4, sk, v4, sv, lengths)
+        paged = Paged4KVCache(pay[0], scales[0], pay[1], scales[1], table, lengths)
+        b15, b16 = ((decode_attention_int4, paged4_decode_attention) if spec == 1
+                    else (verify_decode_attention_int4, paged4_verify_attention))
+        row = rows[f"decode4 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} of {cap}"] = {
+            "b15_ms": _device_ms(torch, lambda: b15(q, slotted)),
+            "b16_ms": _device_ms(torch, lambda: b16(q, paged))}
+        if (n_kv, length, spec) == DECODE4_SHAPES[0]:  # B14 at the serving shape, int8 pages
+            k8, v8 = (torch.randint(-127, 128, (n_kv, 1 + n * max_pages, ps, 64), generator=gen,
+                                    device=dev, dtype=torch.int8) for _ in range(2))
+            paged8 = PagedKVCache(k8, scales[0], v8, scales[1], table, lengths)
+            row["b14_ms"] = _device_ms(torch, lambda: paged_decode_attention(q, paged8))
+    return rows
+
+
 def run_one(tree: str, parts) -> None:
     """Time `tree`'s kernels; print one JSON object."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -288,6 +346,8 @@ def run_one(tree: str, parts) -> None:
     for part in ("jvp_fwd", "jvp_dq"):
         if part in parts:
             rows.update(_jvp_fast_rows(torch, gen, dev, part))
+    if "decode4" in parts:
+        rows.update(_decode4_rows(torch, gen, dev))
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
 
 

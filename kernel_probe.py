@@ -1,13 +1,14 @@
 """Where the time of a kernel goes, on one GPU: the weight matmuls (B17
 csrc/int8_linear.cu, B18 csrc/int4_linear.cu), the int8 backward (B7 and
 B8, csrc/int8_bwd.cu), the bf16 flash forward (B1, csrc/flash_fwd.cu) and
-its backward's fast mode (B2 and B3, csrc/flash_bwd.cu), B1's fp32 mode and
-the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu); and two numerics
+its backward's fast mode (B2 and B3, csrc/flash_bwd.cu), B1's fp32 mode,
+the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu) and the int4
+decode kernels (B15, B16, csrc/cache_decode.cu); and two numerics
 witnesses, bwd_exact and fwd_fp32.
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
-                            [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [PARENT_CHECKOUT]
-                            (all parts without arguments)
+                            [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4]
+                            [PARENT_CHECKOUT]  (all parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -123,6 +124,25 @@ two shapes beside its knock-outs, as jvp_fwd's:
 - no_exp, no_elementwise (dS and tSb never computed), no_second (no dQ,
   dtQ products);
 - keys64: 64-key tiles (4 stages) instead of 32.
+
+decode4: B15 (`qa_decode4`) called on its entry with bf16 q (no cast
+launch) at 8 sequences x 16 q heads: length 304 of 1280 at spec 1 (the
+serving decode) and 5 (its verify pass), 1280 of 1280 at 16/16 and 16/4
+heads; each build's ptxas registers and spills are printed, and timed:
+- as_is, and on f32 q (rounded in the kernel); the merge by a second launch
+  instead of the last block (merge_launch: no_merge's kernel, then a merge
+  kernel appended to the copy); B16 on pages of 128 shuffled;
+  the wrapper's q cast alone and the whole wrapper call on f32 and bf16 q;
+- no_merge: the partials only (no arrival, no merge);
+- no_unpack: the packed words fed to the products as they are;
+- loads_only: the chunks' copies and nothing after them;
+- one_chunk: chunk 0 alone (the other blocks exit), no merge;
+- ex2_approx: p by ex2.approx.ftz instead of exp2f;
+- empty: every block returns at once (the launch alone);
+and a copy that stamps %globaltimer at each phase of a block (length read,
+copies landed, S, the maxima exchanged, PV, the warps' sums shared,
+partials written, arrival, end), printed as medians over the blocks that
+run.
 Exits non-zero without a GPU.
 """
 
@@ -268,6 +288,16 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
         from quantizedattention_tpu_torch.ops import jvp_bwd as tjvp
         lib.qa_jvp_bwd_dq_bf16.argtypes = tjvp._kernels().qa_jvp_bwd_dq_bf16.argtypes
         lib.qa_jvp_bwd_dq_bf16.restype = ctypes.c_int
+    elif name.startswith("d4"):
+        from quantizedattention_tpu_torch.parallel import kv4_cache
+        for fn in ("qa_decode4", "qa_paged4_decode"):
+            getattr(lib, fn).argtypes = kv4_cache._entry(fn).argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        if name == "d4_merge_launch":
+            lib.qa_probe_merge.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                                           + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                           + [ctypes.c_void_p])
+            lib.qa_probe_merge.restype = ctypes.c_int
     elif name.startswith("ffma"):  # the FFMA design's fp32 entry (q pre-scaled, all contiguous)
         lib.qa_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.qa_flash_fwd_f32.restype = ctypes.c_int
@@ -1183,11 +1213,223 @@ def probe_jvp_dq(smi) -> None:
               flush=True)
 
 
+# --- the int4 decode kernels (B15, B16) ---
+
+SRC_CACHE = os.path.join(_build.CSRC_DIR, "cache_decode.cu")
+# (label, kv heads of 16 q heads, length of 1280, spec), 8 sequences: the
+# serving decode, its verify pass, the capacity at 16/16 and at 16/4 heads
+D4_SHAPES = [("serve", 16, 304, 1), ("verify", 16, 304, 5), ("capacity", 16, 1280, 1),
+             ("capacity gqa", 4, 1280, 1)]
+D4_CAP = 1280
+_D4_NO_MERGE = ("  {  // the last block of the (kv head, sequence) merges",
+                "  if (false) {  // the last block of the (kv head, sequence) merges")
+# the merge by a second launch, for d4_merge_launch: no_merge's kernel, then this
+_D4_MERGE_LAUNCH = """
+namespace {
+__global__ void __launch_bounds__(THREADS)
+probe_merge_kernel(Partials part, const int* __restrict__ length, int capacity,
+                   float* __restrict__ o, float* __restrict__ lse, int n_kv, int rows, int spec) {
+  const size_t pair = static_cast<size_t>(blockIdx.y) * n_kv + blockIdx.x;
+  const int len = min(max(length[blockIdx.y], 0), capacity);
+  merge_rows(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
+}
+}  // namespace
+
+extern "C" int qa_probe_merge(void* part_acc, void* part_ml, const void* length, int capacity,
+                              void* o, void* lse, int n_seqs, int n_kv, int rows, int spec,
+                              void* stream) {
+  const Partials part{static_cast<float*>(part_acc), static_cast<float*>(part_ml), nullptr,
+                      (capacity + CHUNK - 1) / CHUNK};
+  probe_merge_kernel<<<dim3(n_kv, n_seqs), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, static_cast<const int*>(length), capacity, static_cast<float*>(o),
+      static_cast<float*>(lse), n_kv, rows, spec);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+D4_VARIANTS = {
+    "d4_as_is": [],
+    "d4_no_merge": [_D4_NO_MERGE],
+    "d4_merge_launch": [_D4_NO_MERGE],  # + _D4_MERGE_LAUNCH
+    "d4_no_unpack": [
+        ("            mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), "
+         "signed_nibbles_to_bf16x2(y >> 8));",
+         "            mma_bf16(s[n], qa[ks], y, y >> 8);"),
+        ("            mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], "
+         "n % 4),\n                     signed_nibble_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], "
+         "n % 4));",
+         "            mma_bf16(acc[n], pa[kk], vw[kk][0][n / 4], vw[kk][2][n / 4]);")],
+    "d4_loads_only": [_D4_NO_MERGE, (
+        "    const int n_tiles = min(max((len - t0 + TILE - 1) / TILE, 0), CHUNK / TILE);",
+        "    const int n_tiles = 0;")],
+    "d4_one_chunk": [_D4_NO_MERGE, ("  const int n_live = max(1, (len + CHUNK - 1) / CHUNK);",
+                                    "  const int n_live = 1;")],
+    "d4_ex2_approx": [("exp2f(s[n][2 * h + e] - m[h])", "exp2_ftz(s[n][2 * h + e] - m[h])")],
+    "d4_empty": [("  Smem4& sm = *reinterpret_cast<Smem4*>(smem_raw);\n",
+                  "  Smem4& sm = *reinterpret_cast<Smem4*>(smem_raw);\n  if (rows > 0) return;\n")],
+}
+D4_STAMPS = ["start", "length read", "staged", "S", "max exchanged", "PV", "warps' sums shared",
+             "partials written", "arrived", "end"]  # a block's last chunk (and m-tile) from "staged"
+
+
+def _d4_stamped() -> str:
+    """cache_decode.cu with a %globaltimer stamp at D4_STAMPS of every B15/B16
+    block (thread 0, warp 0: tile 0; the last m-tile's)."""
+    src = open(SRC_CACHE).read().replace(
+        '#include "hopper.cuh"',
+        '#include "hopper.cuh"\n__device__ unsigned long long g_t[8192][16];\n'
+        '#define STAMP(i) if (threadIdx.x == 0) { unsigned long long t_; '
+        'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
+        'g_t[blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)][i] = t_; }')
+    k0 = src.index("decode4_kernel(const")
+    for i, (anchor, after) in enumerate((
+            ("  const size_t pair = static_cast<size_t>(seq) * n_kv + kvh;\n", True),
+            ("    cp_async_wait<0>();\n    return;\n  }\n", True),
+            ("      cp_async_wait<0>();\n    }\n    __syncthreads();\n", True),
+            ("      if (j == 0) {\n        sm.red_max[warp][g] = mx[0];", False),
+            ("      // the online softmax's m after tile 0", False),
+            ("      // the warps' acc and l of the live rows", False),
+            ("      // tile 0's sums (warps 0-3 in order)", False),
+            ("  {  // the last block of the (kv head, sequence) merges", False),
+            ("    if (sm.merges) merge_rows(", False),
+            ("spec, o, lse);\n  }\n", True))):
+        at = src.index(anchor, k0) + (len(anchor) if after else 0)
+        src = src[:at] + f"STAMP({i})\n" + src[at:]
+    return src + ('\nextern "C" int qa_probe_stamps(void* host) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(host, g_t, sizeof(g_t));\n}\n'
+                  'extern "C" int qa_probe_reset() {\n  static unsigned long long z[8192][16];\n'
+                  '  return (int)cudaMemcpyToSymbol(g_t, z, sizeof(g_t));\n}\n')
+
+
+def _d4_case(gen, n_kv, length, spec):
+    """q [8, 16 * spec, 64] f32 and its bf16 copy, a slotted int4 cache of
+    random bytes and scales at capacity D4_CAP, all rows at `length`, its
+    paged twin (pages of 128 shuffled across the pool), and the partials."""
+    from quantizedattention_tpu_torch.parallel import Int4KVCache, Paged4KVCache
+    from quantizedattention_tpu_torch.parallel import decode_tiling as dt
+
+    n, dev = 8, "cuda"
+    q = torch.randn((n, 16 * spec, 64), generator=gen, device=dev)
+    k4, v4 = (torch.randint(-128, 128, (n, n_kv, D4_CAP // 2, 64), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    sk, sv = (torch.rand((n, n_kv, D4_CAP), generator=gen, device=dev) * 0.28 + 0.02
+              for _ in range(2))
+    lengths = torch.full((n,), length, dtype=torch.int32, device=dev)
+    slotted = Int4KVCache(k4, sk, v4, sv, lengths)
+    ps, max_pages = 128, D4_CAP // 128
+    perm = torch.randperm(n * max_pages, generator=torch.Generator().manual_seed(0)) + 1
+    table = perm.reshape(n, max_pages).int().to(dev)
+    pay = [torch.zeros((n_kv, 1 + n * max_pages, ps // 2, 64), dtype=torch.int8, device=dev)
+           for _ in range(2)]
+    scales = [torch.zeros((1 + n * max_pages, n_kv, ps), device=dev) for _ in range(2)]
+    for x, p in zip((k4, v4), pay):  # any bytes do: the twin is timed, not compared
+        p[:, table.flatten().long()] = x.reshape(n, n_kv, max_pages, ps // 2, 64).transpose(
+            0, 1).reshape(n_kv, n * max_pages, ps // 2, 64)
+    for x, sc in zip((sk, sv), scales):
+        sc[table.flatten().long()] = x.reshape(n, n_kv, max_pages, ps).transpose(1, 2).reshape(
+            n * max_pages, n_kv, ps)
+    paged = Paged4KVCache(pay[0], scales[0], pay[1], scales[1], table, lengths)
+    rows = 16 * spec // n_kv
+    acc, ml = (torch.empty(shape, device=dev)
+               for shape in dt.scratch_shapes(n, n_kv, rows, D4_CAP))
+    o = torch.empty((n, 16 * spec, 64), device=dev)
+    lse = torch.empty((n, 16 * spec), device=dev)
+    return q, slotted, paged, (acc, ml, o, lse)
+
+
+def _d4_call(lib, q, cache, outs, arrived, n_kv, spec, paged=False):
+    from quantizedattention_tpu_torch.parallel import decode_tiling as dt
+
+    acc, ml, o, lse = outs
+    group = 16 // n_kv
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, grid_z = dt.grid(n_kv, 8, D4_CAP, sms)
+    args = [q.data_ptr(), *(x.data_ptr() for x in cache), o.data_ptr(), lse.data_ptr(),
+            acc.data_ptr(), ml.data_ptr(), arrived, int(q.dtype == torch.float32)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if paged:
+        status = lib.qa_paged4_decode(*args, 8, n_kv, group, spec, cache.k_p.shape[1], 128,
+                                      cache.page_table.shape[1], grid_z, 0.125 * LOG2_E, stream)
+    else:
+        status = lib.qa_decode4(*args, 8, n_kv, group, spec, D4_CAP, grid_z, 0.125 * LOG2_E,
+                                stream)
+    if status:
+        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def probe_decode4(smi) -> None:
+    """B15's knock-outs (on bf16 q), B15 on f32 q (rounded in the kernel),
+    the merge by a second launch, B16, the q cast and the whole wrapper
+    call, timed at D4_SHAPES; then the stamped copy's phases per block."""
+    from quantizedattention_tpu_torch.parallel import decode_attention_int4
+
+    jobs = {name: _altered(edits, SRC_CACHE) for name, edits in D4_VARIANTS.items()}
+    jobs["d4_merge_launch"] += _D4_MERGE_LAUNCH
+    jobs["d4_stamped"] = _d4_stamped()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    for name, lib in libs.items():
+        print(f"[ptxas] {name} decode4_kernel: " + "; ".join(_kernel_ptxas(lib, "decode4_kernel")),
+              flush=True)
+        if lib.qa_decode4_init():
+            raise SystemExit(f"kernel_probe: {name}'s shared-memory attribute was refused")
+    counters = torch.zeros(8 * 16, dtype=torch.int32, device="cuda")
+    arrived = counters.data_ptr()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, n_kv, length, spec in D4_SHAPES:
+        q, slotted, paged, outs = _d4_case(gen, n_kv, length, spec)
+        qb = q.to(torch.bfloat16)
+        variants = [v for v in D4_VARIANTS if v != "d4_merge_launch"]
+        times = {v[3:]: _device_us(lambda v=v: _d4_call(libs[v], qb, slotted, outs, arrived, n_kv,
+                                                        spec)) for v in variants}
+        times["f32_q"] = _device_us(
+            lambda: _d4_call(libs["d4_as_is"], q, slotted, outs, arrived, n_kv, spec))
+        merge = libs["d4_merge_launch"]
+
+        def two_launches():
+            _d4_call(merge, qb, slotted, outs, arrived, n_kv, spec)
+            acc, ml, o, lse = outs
+            status = merge.qa_probe_merge(acc.data_ptr(), ml.data_ptr(), slotted.length.data_ptr(),
+                                          D4_CAP, o.data_ptr(), lse.data_ptr(), 8, n_kv,
+                                          16 * spec // n_kv, spec,
+                                          torch.cuda.current_stream().cuda_stream)
+            if status:
+                raise SystemExit(f"kernel_probe: merge launch failed with status {status}")
+
+        times["merge_launch"] = _device_us(two_launches)
+        times["b16"] = _device_us(
+            lambda: _d4_call(libs["d4_as_is"], qb, paged, outs, arrived, n_kv, spec, paged=True))
+        times["q_cast"] = _device_us(lambda: q.to(torch.bfloat16))
+        if spec == 1:
+            times["call_f32_q"] = _device_us(lambda: decode_attention_int4(q, slotted))
+            times["call_bf16_q"] = _device_us(lambda: decode_attention_int4(qb, slotted))
+        print(f"[probe] B15 {label}: 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} "
+              f"of {D4_CAP}: " + ", ".join(f"{v} {us:.2f}" for v, us in times.items())
+              + f" us ({smi})", flush=True)
+        lib = libs["d4_stamped"]
+        _d4_call(lib, qb, slotted, outs, arrived, n_kv, spec)
+        torch.cuda.synchronize()
+        lib.qa_probe_reset()
+        _d4_call(lib, qb, slotted, outs, arrived, n_kv, spec)
+        torch.cuda.synchronize()
+        stamps = np.zeros((8192, 16), dtype=np.uint64)
+        lib.qa_probe_stamps(ctypes.c_void_p(stamps.ctypes.data))
+        t = stamps[:n_kv * 8 * D4_CAP // 256, :len(D4_STAMPS)].astype(np.int64)
+        live = t[:, 1] > 0
+        first = t[:, 0][t[:, 0] > 0].min()
+        phases = np.diff(t[live], axis=1) / 1e3
+        print(f"[split] B15 {label}: {int(live.sum())} of {len(t)} blocks run; "
+              + ", ".join(f"{a} -> {b} {np.median(phases[:, i]):.2f}"
+                          for i, (a, b) in enumerate(zip(D4_STAMPS, D4_STAMPS[1:])))
+              + f" us (medians over the blocks that run); block starts over "
+              f"{(t[live, 0].max() - first) / 1e3:.2f} us; first start to last end "
+              f"{(t[live, -1].max() - first) / 1e3:.2f} us", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
-             "jvp_fwd", "jvp_dq"]
+             "jvp_fwd", "jvp_dq", "decode4"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -1213,6 +1455,8 @@ def main() -> None:
         probe_jvp_fwd(smi)
     if "jvp_dq" in parts:
         probe_jvp_dq(smi)
+    if "decode4" in parts:
+        probe_decode4(smi)
 
 
 

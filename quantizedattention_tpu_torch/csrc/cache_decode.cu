@@ -1,23 +1,24 @@
 // Decode attention over the paged int8 cache (B14), the slotted int4 cache
 // (B15) and the paged int4 cache (B16), for Hopper (sm_90a), plain C ABI:
 // one query per sequence (spec == 1) or the speculative-verify staircase of
-// `spec` consecutive queries. One kernel body, three entries:
+// `spec` consecutive queries. Two kernels, three entries:
 //
 //   qa_paged_decode  replaces quantizedattention_tpu/parallel/paged_cache.py:
-//                    _paged_decode_kernel;
+//                    _paged_decode_kernel (paged_decode_kernel);
 //   qa_decode4       replaces quantizedattention_tpu/parallel/kv4_cache.py:
-//                    _decode4_kernel;
+//                    _decode4_kernel (decode4_kernel);
 //   qa_paged4_decode replaces quantizedattention_tpu/parallel/paged4_cache.py:
-//                    _paged4_decode_kernel.
+//                    _paged4_decode_kernel (the same two).
 //
 // Numerics are those of the slotted int8 kernel (decode.cu, B13): q and the
 // integer K/V are taken as bf16 (int8 and int4 values are exact in bf16),
 // s = (q . k) * (sk * qk_scale) in f32, masked tokens get -inf, p =
-// exp2(s - m) with the online running max, l sums the UNROUNDED p, and the
-// PV operand is bf16(p * sv) against the integer V. The q rows of a kv head
-// fold (GQA group, spec) as r = g * spec + j; row r attends tokens
-// t < length - (spec - 1) + r % spec, the JAX kernels' staircase, and a row
-// with no live token gives O = 0 and lse = -inf.
+// exp2(s - m) with the online running max over 128-token tiles in token
+// order, l sums the UNROUNDED p, and the PV operand is bf16(p * sv) against
+// the integer V. The q rows of a kv head fold (GQA group, spec) as r = g *
+// spec + j; row r attends tokens t < length - (spec - 1) + r % spec, the JAX
+// kernels' staircase, and a row with no live token gives O = 0 and lse =
+// -inf.
 //
 // Layouts (the JAX package's). A sequence's tokens live in "pages" of ps
 // tokens; page j of sequence s is table[s, j] (paged) or j itself (slotted
@@ -26,40 +27,82 @@
 // page's token r in its low nibble and token r + ps/2 in its high nibble.
 // Scales are per token, f32.
 //
-// What bounds it on this card: each step streams every live token's K and V
-// payload (2 * 64 bytes for int8, 2 * 32 for int4) and two f32 scales once
+// What bounds them on this card: each step streams every live token's K and
+// V payload (2 * 64 bytes for int8, 2 * 32 for int4) and two f32 scales once
 // per (sequence, kv head), plus the row's page-table entries, and does about
-// 4 * group FLOP per byte: far below the FLOP/byte ridge, so it is HBM-bound
-// on the K/V stream (and at short lengths, latency-bound).
+// 4 * group FLOP per byte: far below the FLOP/byte ridge, so they are
+// HBM-bound on the K/V stream at long lengths and latency-bound at the
+// serving lengths (a few hundred tokens: 2.8 MB at 8 x 16 heads x 304
+// tokens of int4, under a microsecond of HBM time).
 //
-// Design (simple first, decode.cu's): one block of 128 threads per (kv head,
-// sequence) holds the kv head's whole GQA group, so the group shares every
-// K/V fetch. The block walks the row's tokens in order, in tiles of 128
-// consecutive tokens, exactly as decode.cu does: slot s of a tile is token
-// t0 + s, so B14 computes what B13 computes on the same K/V bit for bit,
-// and B15 and B16 (whose pages split their tokens differently) do too. Each
-// slot looks up its own page in the table (an ordinary global read; this
-// card has no scalar prefetch) and stages its payload row in shared memory
-// with 16-byte loads; an int4 slot unpacks the one nibble that is its
-// token. Two tokens share an int4 byte row, so a byte row is fetched once
-// per token: the second fetch is served by L1 (a 128-token page holds both
-// tokens of a row in one tile) or L2 (a 256-token pack block holds them in
-// two consecutive tiles). Only tokens below the length are read, so no page
-// at or past ceil(length / ps) is touched; a slot past the length (the tail
-// of a tile, the other half of a half-live int4 row) is zero-filled, gets
-// p = 0 by select and a zero scale, never a stale scale times 0 (stale
-// scales may be non-finite). Scores use one thread per slot, the softmax
-// one warp per group row, PV one thread per (group row, channel). The
-// staircase is decode.cu's: a per-row limit where the scores are masked and
-// p is taken, p = 0 and alpha = 1 by select for a row with no live token in
-// a tile, so verify row j equals the spec == 1 launch at its own length bit
-// for bit. Reading each int4 byte row once for both its tokens, splitting
-// the kv axis across blocks, TMA and wgmma are later work.
+// B14 (simple first, decode.cu's design): one block of 128 threads per (kv
+// head, sequence) holds the kv head's whole GQA group, so the group shares
+// every K/V fetch. The block walks the row's tokens in order, in tiles of
+// 128 consecutive tokens, exactly as decode.cu does: slot s of a tile is
+// token t0 + s, so B14 computes what B13 computes on the same K/V bit for
+// bit. Each slot looks up its own page in the table (an ordinary global
+// read; this card has no scalar prefetch) and stages its payload row in
+// shared memory with 16-byte loads. Only tokens below the length are read,
+// so no page at or past ceil(length / ps) is touched; a slot past the length
+// (the tail of a tile) is zero-filled, gets p = 0 by select and a zero
+// scale, never a stale scale times 0 (stale scales may be non-finite).
+// Scores use one thread per slot, the softmax one warp per group row, PV one
+// thread per (group row, channel). The staircase is decode.cu's: a per-row
+// limit where the scores are masked and p is taken, p = 0 and alpha = 1 by
+// select for a row with no live token in a tile, so verify row j equals the
+// spec == 1 launch at its own length bit for bit.
+//
+// B15/B16 (redesigned for the latency they are bound by; geometry in
+// parallel/decode_tiling.py):
+// - A kv split with an lse merge. Chunk c is tokens [256 c, 256 c + 256).
+//   The grid is (kv head, sequence, z), z = min(chunks of the capacity, 2 *
+//   SMs / pairs): sized from the capacity, never from a length (the wrapper
+//   reads no length on the host), and no larger than the card holds at once,
+//   so at the serving shape no block is launched only to find its chunk past
+//   the length. Block z takes chunks z, z + Z, ... below the length (chunk 0
+//   always runs), each chunk's copies in flight while the one before is
+//   computed. A chunk's unnormalised partial (acc, m, l) per q row goes to
+//   scratch; the last block of the (kv head, sequence) to arrive (through a
+//   counter it resets) merges them: a row's partials in chunk order over the
+//   chunks holding a token it sees, M = max m_c, L = sum l_c 2^(m_c - M), O
+//   = sum acc_c 2^(m_c - M) / L, lse = M + log2 L. (A second launch to merge
+//   was 0.7-2.6 us slower: kernel_probe.py decode4.)
+// - Two round trips to device memory before the first product. The length,
+//   the table entries of a thread's first copies (clamped into the row:
+//   always in bounds) and q's first m-tile (cp.async to shared memory, so no
+//   thread waits for q before the length) in one; every payload and scale
+//   copy of the chunk at once with cp.async in the next, zero-filled
+//   (nothing read) for a token past the length, so no page past the length,
+//   page 0 included, is touched, and a stale scale never reaches a product.
+// - Each packed byte row is staged once for both its tokens: at the slot of
+//   its "owner", the low-nibble token, or a high-nibble token whose low
+//   partner lies in another chunk. A 256-token pack block (B15) or whole
+//   pages of 128 or 256 (B16) fill a chunk's 128 rows exactly. The nibbles
+//   are widened to bf16 where the fragments are built, on the logic and
+//   bf16x2 FMA pipes (signed_nibbles_to_bf16x2), not by conversions.
+// - Every thread works at a group of 1: 8 warps, the chunk's two 128-token
+//   tiles side by side, 32 tokens a warp; both products run on mma.sync
+//   m16n8k16 with the q rows padded to 16 (m-tiles of 16 rows, one at G *
+//   spec <= 16; rows 8-15 of a tile skip the softmax at G * spec <= 8). S
+//   reads a token's 16-byte piece of K into B fragments directly (the head
+//   dims permuted within a thread's k slots, q's A fragments permuted
+//   alike); P's C fragments are PV's A fragments; PV reads 8 bytes of V per
+//   token, the output columns permuted (column g of n-tile n is dim 8 g +
+//   n). One exchange of the warps' row maxima gives the online softmax's m
+//   after tile 0 (m0) and after tile 1 (m1): tile 0 takes p against m0, tile
+//   1 against m1, and the block sums tile 0's warps * 2^(m0 - m1) + tile 1's,
+//   in warp order.
+// - Bits do not depend on the layout, on the other rows or on the block
+//   that computes a chunk: a token's slot, and so its place in every
+//   fragment and sum, is its index in the chunk, so B16 equals B15 on the
+//   same K/V, bit for bit; a row's sums read no other row, a tile or chunk a
+//   row does not see adds exact zeros (alpha = 1, p = 0 by select) or is not
+//   merged, so verify row j equals the spec == 1 launch at length len -
+//   spec + 1 + j, bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -109,22 +152,10 @@ union Bytes16 {
   int8_t b[16];
 };
 
-// 16 packed bytes -> the sign-extended low (hi = false) or high nibbles
-// (ops/int4_linear.py:unpack_int4: lo = ((b & 15) ^ 8) - 8, hi = b >> 4)
-__device__ __forceinline__ int4 nibbles16(int4 packed, bool hi) {
-  Bytes16 in, out;
-  in.v = packed;
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    const int b = in.b[e];
-    out.b[e] = static_cast<int8_t>(hi ? b >> 4 : ((b & 15) ^ 8) - 8);
-  }
-  return out.v;
-}
+// --- B14: the paged int8 pool ---
 
-template <bool INT4>
 __global__ void __launch_bounds__(THREADS)
-cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, D]
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, D]
                     Pool c,
                     float* __restrict__ o,                 // [n_seqs, n_kv * G, D]
                     float* __restrict__ lse,               // [n_seqs, n_kv * G]
@@ -149,7 +180,6 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
   const int seq = blockIdx.y;
   const size_t head0 = static_cast<size_t>(seq) * n_kv * G + static_cast<size_t>(kvh) * G;
   const int len = min(max(c.length[seq], 0), c.max_pages * c.ps);
-  const int rpp = INT4 ? c.ps / 2 : c.ps;  // payload rows per page
   const int* trow = c.table ? c.table + static_cast<size_t>(seq) * c.max_pages : nullptr;
   const int8_t* k_seq = c.k + c.pay_seq * seq + c.pay_head * kvh;
   const int8_t* v_seq = c.v + c.pay_seq * seq + c.pay_head * kvh;
@@ -180,14 +210,9 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
         const int in_page = t % c.ps;
         const int page = trow ? trow[blk] : blk;
         const long long off =
-            c.pay_page * page + static_cast<long long>(in_page % rpp) * D + col;
+            c.pay_page * page + static_cast<long long>(in_page) * D + col;
         kk = *reinterpret_cast<const int4*>(k_seq + off);
         vv = *reinterpret_cast<const int4*>(v_seq + off);
-        if (INT4) {  // the nibble of this token: low in the page's first half
-          const bool hi = in_page >= rpp;
-          kk = nibbles16(kk, hi);
-          vv = nibbles16(vv, hi);
-        }
       }
       *reinterpret_cast<int4*>(k_s + s * KROW + col) = kk;
       *reinterpret_cast<int4*>(v_s + s * D + col) = vv;
@@ -278,20 +303,18 @@ cache_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, 
   }
 }
 
-template <bool INT4>
-int launch(const void* q, const Pool& pool, void* o, void* lse, int n_seqs, int n_kv,
-           int group, int spec, float qk_scale, void* stream) {
+int launch_paged(const void* q, const Pool& pool, void* o, void* lse, int n_seqs, int n_kv,
+                 int group, int spec, float qk_scale, void* stream) {
   if (spec < 1 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = group * spec;
   const size_t bytes = smem_bytes(rows);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cache_decode_kernel<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cache_decode_kernel<INT4><<<dim3(n_kv, n_seqs), THREADS, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
+  paged_decode_kernel<<<dim3(n_kv, n_seqs), THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), pool, static_cast<float*>(o),
       static_cast<float*>(lse), n_kv, rows, spec, qk_scale);
   return static_cast<int>(cudaGetLastError());
@@ -319,6 +342,483 @@ Pool paged_pool(const void* k, const void* sk, const void* v, const void* sv,
   return p;
 }
 
+// --- B15 / B16: the int4 caches, a kv split with an lse merge ---
+
+constexpr int CHUNK = 256;              // tokens a chunk (decode_tiling.CHUNK)
+constexpr int THREADS4 = 256;           // 8 warps: 4 a tile, 32 tokens each
+constexpr int WARPS4 = THREADS4 / 32;
+constexpr int RESIDENT = 2;             // blocks an SM holds (shared memory, registers)
+constexpr int M_ROWS = 16;              // q rows an mma.sync m-tile
+constexpr int RED_ROW = D + 1;          // padded row of the warps' partial acc
+constexpr int MERGE_REG = 8;            // chunks a merging thread holds in registers
+
+// Where a launch keeps its partials (decode_tiling.scratch_shapes).
+struct Partials {
+  float* acc;    // [n_seqs, n_kv, n_chunks, rows, D]
+  float* ml;     // [n_seqs, n_kv, n_chunks, rows, 2]: m, l
+  int* arrived;  // [n_seqs * n_kv], 0 between launches
+  int n_chunks;
+};
+
+// One chunk's copies in shared memory.
+struct Stage {
+  uint8_t k[CHUNK][D];  // packed byte rows, at their owner's slot
+  uint8_t v[CHUNK][D];
+  uint16_t src[CHUNK];  // slot -> its owner's row offset in bytes | its nibble's shift (0 or 4)
+  float sk[CHUNK];
+  float sv[CHUNK];
+};
+
+struct Smem4 {
+  Stage stage[2];  // the chunk computed and the next one's copies in flight
+  float q[M_ROWS][D];  // q's first m-tile, f32 or (in its first half) bf16
+  float red_max[WARPS4][M_ROWS];  // warp w: tile w / 4
+  float red_acc[WARPS4][M_ROWS][RED_ROW];
+  float red_l[WARPS4][M_ROWS];
+  float m[M_ROWS];
+  float alpha[M_ROWS];
+  int merges;
+};
+
+constexpr size_t SMEM4 = (sizeof(Smem4) + 15) & ~static_cast<size_t>(15);
+
+// 16 (4) bytes global -> shared, asynchronously; zero-filled and nothing read
+// when !live.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The pages of this thread's copies of chunk `ch`: payload pieces (slot
+// tid / 4 + 64 i, 16 bytes at 16 (tid % 4)) and a scale (slot tid), from
+// the table clamped into the row (always in bounds, whatever ch).
+struct ChunkPages {
+  int pay[4];
+  int sc;
+};
+
+__device__ __forceinline__ ChunkPages chunk_pages(const Pool& c, const int* trow, int ch, int tid) {
+  ChunkPages pg;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int pj = min((ch * CHUNK + tid / 4 + 64 * i) / c.ps, c.max_pages - 1);
+    pg.pay[i] = trow ? trow[pj] : pj;
+  }
+  const int pj = min((ch * CHUNK + tid) / c.ps, c.max_pages - 1);
+  pg.sc = trow ? trow[pj] : pj;
+  return pg;
+}
+
+// Issue chunk ch's copies into `st` as one group: each byte row once, at its
+// owner's slot (a high-nibble slot whose low partner is in the chunk reads
+// the partner's), and the scales; zero-filled, nothing read, past `len`.
+__device__ __forceinline__ void stage_chunk(Stage& st, const Pool& c, int seq, int kvh, int ch,
+                                            int len, const ChunkPages& pg, int tid) {
+  const int t0 = ch * CHUNK;
+  const int half = c.ps / 2;
+  const int j = tid % 4;
+  const int8_t* k_seq = c.k + c.pay_seq * seq + c.pay_head * kvh;
+  const int8_t* v_seq = c.v + c.pay_seq * seq + c.pay_head * kvh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = tid / 4 + 64 * i;
+    const int in_page = (t0 + s) % c.ps;
+    const bool hi = in_page >= half;
+    if (hi && s >= half) continue;  // its low partner's copy feeds it
+    const bool live = t0 + s < len;
+    const long long off = c.pay_page * pg.pay[i] +
+                          static_cast<long long>(hi ? in_page - half : in_page) * D + 16 * j;
+    cp_async16(&st.k[s][16 * j], live ? k_seq + off : c.k, live);
+    cp_async16(&st.v[s][16 * j], live ? v_seq + off : c.v, live);
+  }
+  const int in_page = (t0 + tid) % c.ps;
+  const bool hi = in_page >= half;
+  st.src[tid] = static_cast<uint16_t>((hi && tid >= half ? tid - half : tid) * D + (hi ? 4 : 0));
+  const bool live = t0 + tid < len;
+  const long long off = c.sc_seq * seq + c.sc_head * kvh + c.sc_page * pg.sc + in_page;
+  cp_async4(&st.sk[tid], live ? c.sk + off : c.sk, live);
+  cp_async4(&st.sv[tid], live ? c.sv + off : c.sv, live);
+  cp_async_commit();
+}
+
+// The merge of one (kv head, sequence): row r's partials in chunk order over
+// the chunks holding a token it sees (a chunk it does not see is not read);
+// a row that sees none gets O = 0 and lse = -inf. pbase: the partial index
+// of the pair's chunk 0. Loads go through L2 (__ldcg): they read what other
+// blocks wrote during the launch; up to MERGE_REG chunks' loads are all
+// issued before the first is used.
+__device__ void merge_rows(const Partials& part, size_t pbase, size_t head0, int len, int rows,
+                           int spec, float* __restrict__ o, float* __restrict__ lse) {
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D;
+    const int d = i % D;
+    const int lim = len - (spec - 1) + r % spec;
+    const int nc = lim <= 0 ? 0 : min(part.n_chunks, (lim + CHUNK - 1) / CHUNK);
+    float mc[MERGE_REG], lc[MERGE_REG], ac[MERGE_REG];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int ch = 0; ch < MERGE_REG; ++ch) {
+      if (ch < nc) {
+        const size_t at = (pbase + ch) * rows + r;
+        mc[ch] = __ldcg(part.ml + at * 2);
+        lc[ch] = __ldcg(part.ml + at * 2 + 1);
+        ac[ch] = __ldcg(part.acc + at * D + d);
+        mx = fmaxf(mx, mc[ch]);
+      }
+    }
+    for (int ch = MERGE_REG; ch < nc; ++ch)
+      mx = fmaxf(mx, __ldcg(part.ml + ((pbase + ch) * rows + r) * 2));
+    float l = 0.f;
+    float acc = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < MERGE_REG; ++ch) {
+      if (ch < nc) {
+        const float w = exp2f(mc[ch] - mx);
+        l = fmaf(lc[ch], w, l);
+        acc = fmaf(ac[ch], w, acc);
+      }
+    }
+    for (int ch = MERGE_REG; ch < nc; ++ch) {
+      const size_t at = (pbase + ch) * rows + r;
+      const float w = exp2f(__ldcg(part.ml + at * 2) - mx);
+      l = fmaf(__ldcg(part.ml + at * 2 + 1), w, l);
+      acc = fmaf(__ldcg(part.acc + at * D + d), w, acc);
+    }
+    o[(head0 + r) * D + d] = nc == 0 ? 0.f : acc / l;
+    if (d == 0) lse[head0 + r] = nc == 0 ? -INFINITY : mx + log2f(l);
+  }
+}
+
+// q's A fragments of m-tile mt (rows g and g + 8; zeros past `rows`), from
+// bf16 q or from f32 q rounded to bf16 here: k slot (ks, 2 j + e) holds dim
+// 16 j + 4 ks + 2 e and slot (ks, 2 j + 8 + e) dim 16 j + 4 ks + 2 e + 1, as
+// decode4_kernel's K fragments read them.
+__device__ __forceinline__ void load_q(const void* __restrict__ q_kv, bool q_f32, int mt,
+                                       int rows, int g, int j, uint32_t (&qa)[4][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = mt * M_ROWS + g + 8 * h;
+    uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // bf16 pairs of dims 16 j + 2 i, + 1
+    if (r < rows && q_f32) {
+      const float4* qr = static_cast<const float4*>(q_kv) + (r * D + 16 * j) / 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 f = qr[i];
+        w[2 * i] = as_u32(__floats2bfloat162_rn(f.x, f.y));
+        w[2 * i + 1] = as_u32(__floats2bfloat162_rn(f.z, f.w));
+      }
+    } else if (r < rows) {
+      const uint4* qr = static_cast<const uint4*>(q_kv) + (r * D + 16 * j) / 8;
+      const uint4 lo = qr[0];
+      const uint4 hi = qr[1];
+      w[0] = lo.x, w[1] = lo.y, w[2] = lo.z, w[3] = lo.w;
+      w[4] = hi.x, w[5] = hi.y, w[6] = hi.z, w[7] = hi.w;
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      qa[ks][h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x5410);
+      qa[ks][2 + h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x7632);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS4, RESIDENT)
+decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or bf16
+               Pool c, Partials part,
+               float* __restrict__ o,    // [n_seqs, n_kv * rows, D]
+               float* __restrict__ lse,  // [n_seqs, n_kv * rows]
+               int n_kv, int rows, int spec, float qk_scale, int q_f32) {
+  // rows: q rows per kv head, the GQA group times spec (row r = g * spec + j)
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  Smem4& sm = *reinterpret_cast<Smem4*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int tile = warp / 4;     // this warp's tile of the chunk
+  const int g = (tid % 32) / 4;  // fragment row / column group
+  const int j = tid % 4;         // thread within the quad
+  const int kvh = blockIdx.x;
+  const int seq = blockIdx.y;
+  const int chunk = blockIdx.z;  // the first of chunks z, z + gridDim.z, ...
+  const int* trow = c.table ? c.table + static_cast<size_t>(seq) * c.max_pages : nullptr;
+  const size_t pair = static_cast<size_t>(seq) * n_kv + kvh;
+  const void* q_kv = static_cast<const uint8_t*>(q) + pair * rows * D * (q_f32 ? 4 : 2);
+
+  // One round trip: the length, the table entries of this thread's first
+  // copies and q's first m-tile (copied to shared memory, so that nothing
+  // waits for it before the length is known); then every copy of the first
+  // chunk at once, and each later chunk's copies while the one before is
+  // computed.
+  const int length = c.length[seq];
+  ChunkPages pg = chunk_pages(c, trow, chunk, tid);
+  if (tid * 16 < M_ROWS * D * (q_f32 ? 4 : 2)) {
+    const bool live = tid * 16 < rows * D * (q_f32 ? 4 : 2);
+    cp_async16(reinterpret_cast<uint8_t*>(sm.q) + tid * 16,
+               live ? static_cast<const uint8_t*>(q_kv) + tid * 16 : q, live);
+  }
+  const int len = min(max(length, 0), c.max_pages * c.ps);
+  const int n_live = max(1, (len + CHUNK - 1) / CHUNK);
+  if (chunk >= n_live) {  // no copy may land after the block is gone
+    cp_async_wait<0>();
+    return;
+  }
+  stage_chunk(sm.stage[0], c, seq, kvh, chunk, len, pg, tid);
+  pg = chunk_pages(c, trow, chunk + gridDim.z, tid);
+
+  for (int ch = chunk, it = 0; ch < n_live; ch += gridDim.z, ++it) {
+    const Stage& st = sm.stage[it & 1];
+    if (ch + gridDim.z < n_live) {
+      stage_chunk(sm.stage[(it + 1) & 1], c, seq, kvh, ch + gridDim.z, len, pg, tid);
+      pg = chunk_pages(c, trow, ch + 2 * gridDim.z, tid);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = ch * CHUNK;
+    const int n_tiles = min(max((len - t0 + TILE - 1) / TILE, 0), CHUNK / TILE);
+    const bool runs = tile < n_tiles;  // warp-uniform
+    const int base = tile * TILE + (warp % 4) * 32;  // the warp's first slot
+    const size_t prow = (pair * part.n_chunks + ch) * rows;
+    const uint8_t* k_bytes = &st.k[0][0];
+    const uint8_t* v_bytes = &st.v[0][0];
+    for (int mt = 0; n_tiles > 0 && mt * M_ROWS < rows; ++mt) {
+      uint32_t qa[4][4];  // q's A fragments of the m-tile
+      load_q(mt == 0 ? static_cast<const void*>(sm.q) : q_kv, q_f32, mt, rows, g, j, qa);
+      int lim[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * M_ROWS + g + 8 * h;
+        lim[h] = r < rows ? len - (spec - 1) + r % spec : 0;
+      }
+      // rows g + 8 hold a q row only past 8 live rows (warp-uniform)
+      const bool two = rows - mt * M_ROWS > 8;
+      // S = q k^T of the warp's 32 tokens (column g of n-tile n is slot base +
+      // 8 n + g), scaled and masked at each row's limit; the row maxima. The
+      // n-tiles' products alternate: back-to-back mma.sync are independent
+      float s[4][4];
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (runs) {
+        uint32_t kw[4][4];  // [n][ks]: the token's 4 dims 16 j + 4 ks .. + 3
+        int sh[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+          const int at = st.src[base + 8 * n + g];
+          const uint4 x = *reinterpret_cast<const uint4*>(k_bytes + (at & ~63) + 16 * j);
+          kw[n][0] = x.x, kw[n][1] = x.y, kw[n][2] = x.z, kw[n][3] = x.w;
+          sh[n] = at & 4;
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const uint32_t y = kw[n][ks] >> sh[n];
+            mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), signed_nibbles_to_bf16x2(y >> 8));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int slot = base + 8 * n + 2 * j + e;
+            const float scale = st.sk[slot] * qk_scale;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (h == 1 && !two) continue;
+              const float x = t0 + slot < lim[h] ? s[n][2 * h + e] * scale : -INFINITY;
+              s[n][2 * h + e] = x;
+              mx[h] = fmaxf(mx[h], x);
+            }
+          }
+        }
+        mx[0] = quad_max(mx[0]);
+        mx[1] = quad_max(mx[1]);
+      }
+      if (j == 0) {
+        sm.red_max[warp][g] = mx[0];
+        sm.red_max[warp][g + 8] = mx[1];
+      }
+      // PV's V bytes (slots base + 16 kk + 2 j + {0, 1, 8, 9}, 8 bytes at dim
+      // 8 g, as int4 words shifted to their nibble) and the scales sv, read
+      // before the barrier
+      uint32_t vw[2][4][2];
+      float sv[4][2];
+      if (runs) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint32_t at01 = *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j]);
+          const uint32_t at89 =
+              *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j + 8]);
+          const uint32_t at[4] = {at01 & 0xFFFF, at01 >> 16, at89 & 0xFFFF, at89 >> 16};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + (at[u] & ~63u) + 8 * g);
+            vw[kk][u][0] = x.x >> (at[u] & 4);
+            vw[kk][u][1] = x.y >> (at[u] & 4);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float2 v2 = *reinterpret_cast<const float2*>(&st.sv[base + 8 * n + 2 * j]);
+          sv[n][0] = v2.x;
+          sv[n][1] = v2.y;
+        }
+      }
+      __syncthreads();
+
+      // the online softmax's m after tile 0 (m0) and after tile 1 (m1); this
+      // warp's tile takes p = exp2(s - m) against its own (0 past a row's
+      // limit, by select), l sums p unrounded, acc = bf16(p * sv) . v; the
+      // block then forms tile 0's sums * alpha + tile 1's, alpha = 2^(m0 - m1)
+      float m[2], l[2] = {0.f, 0.f};
+      float acc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m0 = -INFINITY, m1;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) m0 = fmaxf(m0, sm.red_max[w][g + 8 * h]);
+        m1 = m0;
+#pragma unroll
+        for (int w = 4; w < WARPS4; ++w) m1 = fmaxf(m1, sm.red_max[w][g + 8 * h]);
+        m[h] = tile == 0 ? m0 : m1;
+        if (warp == 0 && j == 0) {
+          sm.m[g + 8 * h] = m1;
+          // no live token: m stays -inf, and exp2(-inf - -inf) would be NaN
+          sm.alpha[g + 8 * h] = m1 == -INFINITY ? 1.f : exp2f(m0 - m1);
+        }
+      }
+      if (runs) {
+        // bf16(p * sv) forms PV's A fragments (n-tiles 2 kk, 2 kk + 1 -> step kk)
+        uint32_t pa[2][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float w[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int slot = base + 8 * n + 2 * j + e;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              w[2 * h + e] = 0.f;
+              if (h == 1 && !two) continue;
+              const bool live = t0 + slot < lim[h];
+              const float p = live ? exp2f(s[n][2 * h + e] - m[h]) : 0.f;
+              l[h] += p;
+              w[2 * h + e] = live ? p * sv[n][e] : 0.f;
+            }
+          }
+          pa[n / 2][2 * (n % 2)] = as_u32(__floats2bfloat162_rn(w[0], w[1]));
+          pa[n / 2][2 * (n % 2) + 1] = as_u32(__floats2bfloat162_rn(w[2], w[3]));
+        }
+        l[0] = quad_sum(l[0]);
+        l[1] = quad_sum(l[1]);
+        // PV: column g of n-tile n is dim 8 g + n
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], n % 4),
+                     signed_nibble_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));
+      }
+
+      // the warps' acc and l of the live rows; acc[n][2 h + e] (row g + 8 h,
+      // dim 16 j + 8 e + n) sits at column 8 j + 32 e + n, so a store's 32
+      // lanes hit 32 banks
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (mt * M_ROWS + g + 8 * h >= rows) continue;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sm.red_acc[warp][g + 8 * h][8 * j + 32 * e + n] = acc[n][2 * h + e];
+        if (j == 0) sm.red_l[warp][g + 8 * h] = l[h];
+      }
+      __syncthreads();
+      // tile 0's sums (warps 0-3 in order) * alpha + tile 1's (warps 4-7)
+      const int live_rows = min(rows - mt * M_ROWS, M_ROWS);
+      for (int i = tid; i < live_rows * D; i += THREADS4) {
+        const int rr = i / D;
+        const int col = i % D;
+        const size_t at = prow + mt * M_ROWS + rr;
+        float s0 = sm.red_acc[0][rr][col], s1 = sm.red_acc[4][rr][col];
+#pragma unroll
+        for (int w = 1; w < 4; ++w) {
+          s0 += sm.red_acc[w][rr][col];
+          s1 += sm.red_acc[4 + w][rr][col];
+        }
+        part.acc[at * D + 16 * (col % 32 / 8) + 8 * (col / 32) + col % 8] =
+            fmaf(s0, sm.alpha[rr], s1);
+        if (col == 0) {
+          float l0 = sm.red_l[0][rr], l1 = sm.red_l[4][rr];
+#pragma unroll
+          for (int w = 1; w < 4; ++w) {
+            l0 += sm.red_l[w][rr];
+            l1 += sm.red_l[4 + w][rr];
+          }
+          part.ml[at * 2] = sm.m[rr];
+          part.ml[at * 2 + 1] = fmaf(l0, sm.alpha[rr], l1);
+        }
+      }
+    }
+    // the stage is free for the copies two chunks on, red_* for the next chunk
+    if (ch + gridDim.z < n_live) __syncthreads();
+  }
+
+  {  // the last block of the (kv head, sequence) merges
+    // the block's partials are written; thread 0 orders them before its
+    // arrival (a gpu-scope fence) and, in the last block, the others' before
+    // the merge's reads. A pair that one block computes alone merges at once.
+    const int arrivals = min(static_cast<int>(gridDim.z), n_live);
+    __syncthreads();
+    if (tid == 0) {
+      int* flag = part.arrived + pair;
+      __threadfence();
+      sm.merges = arrivals == 1 || atomicAdd(flag, 1) == arrivals - 1;
+      if (sm.merges && arrivals > 1) {
+        atomicExch(flag, 0);  // every block has arrived: ready for the next launch
+        __threadfence();
+      }
+    }
+    __syncthreads();
+    if (sm.merges) merge_rows(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
+  }
+}
+
+int launch4(const void* q, int q_f32, const Pool& pool, void* part_acc, void* part_ml,
+            void* arrived, void* o, void* lse, int n_seqs, int n_kv, int group, int spec,
+            int grid_z, float qk_scale, void* stream) {
+  const int capacity = pool.max_pages * pool.ps;
+  const Partials part{static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+                      static_cast<int*>(arrived), (capacity + CHUNK - 1) / CHUNK};
+  if (spec < 1 || group < 1 || n_seqs < 1 || n_kv < 1 || pool.max_pages < 1 || grid_z < 1 ||
+      grid_z > part.n_chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  decode4_kernel<<<dim3(n_kv, n_seqs, grid_z), THREADS4, SMEM4,
+                   static_cast<cudaStream_t>(stream)>>>(
+      q, pool, part, static_cast<float*>(o), static_cast<float*>(lse), n_kv, group * spec, spec,
+      qk_scale, q_f32);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Every entry takes q [n_seqs, n_kv * group * spec, D], row (kv head, g, j).
@@ -330,26 +830,33 @@ extern "C" int qa_paged_decode(const void* q, const void* k_pages, const void* s
   if (page_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_pages, sk, v_pages, sv, table, lengths, n_kv, n_pages,
                                page_size, max_pages, page_size);
-  return launch<false>(q, pool, o, lse, n_seqs, n_kv, group, spec, qk_scale, stream);
+  return launch_paged(q, pool, o, lse, n_seqs, n_kv, group, spec, qk_scale, stream);
 }
 
+// The int4 entries take q in f32 (q_f32 = 1, rounded to bf16 in the kernel)
+// or bf16, the partials' scratch (decode_tiling.scratch_shapes), `arrived`:
+// n_seqs * n_kv ints that are 0 (the last block of each pair merges and
+// leaves them 0), and the grid's z (decode_tiling.grid). qa_decode4_init
+// must have run once on the device first.
 extern "C" int qa_paged4_decode(const void* q, const void* k_p, const void* sk, const void* v_p,
                                 const void* sv, const void* table, const void* lengths, void* o,
-                                void* lse, int n_seqs, int n_kv, int group, int spec,
-                                int n_pages, int page_size, int max_pages, float qk_scale,
+                                void* lse, void* part_acc, void* part_ml, void* arrived,
+                                int q_f32, int n_seqs, int n_kv, int group, int spec, int n_pages,
+                                int page_size, int max_pages, int grid_z, float qk_scale,
                                 void* stream) {
   if (page_size <= 0 || page_size % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_p, sk, v_p, sv, table, lengths, n_kv, n_pages, page_size,
                                max_pages, page_size / 2);
-  return launch<true>(q, pool, o, lse, n_seqs, n_kv, group, spec, qk_scale, stream);
+  return launch4(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv, group, spec,
+                 grid_z, qk_scale, stream);
 }
 
 // Slotted int4: payload [b, n_kv, max_len/2, D], scales [b, n_kv, max_len];
 // the pages are the row's 256-token pack blocks, in order.
 extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const void* v_p,
-                          const void* sv, const void* length, void* o, void* lse, int batch,
-                          int n_kv, int group, int spec, int max_len, float qk_scale,
-                          void* stream) {
+                          const void* sv, const void* length, void* o, void* lse, void* part_acc,
+                          void* part_ml, void* arrived, int q_f32, int batch, int n_kv, int group,
+                          int spec, int max_len, int grid_z, float qk_scale, void* stream) {
   constexpr int PACK = 256;
   if (max_len <= 0 || max_len % PACK != 0) return static_cast<int>(cudaErrorInvalidValue);
   Pool p;
@@ -367,5 +874,16 @@ extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const 
   p.sc_head = max_len;
   p.sc_seq = static_cast<long long>(max_len) * n_kv;
   p.sc_page = PACK;
-  return launch<true>(q, p, o, lse, batch, n_kv, group, spec, qk_scale, stream);
+  return launch4(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv, group, spec,
+                 grid_z, qk_scale, stream);
+}
+
+// B15/B16's dynamic shared memory a block (decode_tiling.shared_bytes).
+extern "C" int qa_decode4_smem_bytes() { return static_cast<int>(SMEM4); }
+
+// Lets B15/B16 take SMEM4 bytes of shared memory on the current device: once
+// a device, before its first launch there.
+extern "C" int qa_decode4_init() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      decode4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM4)));
 }

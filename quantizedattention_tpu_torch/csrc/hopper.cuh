@@ -644,6 +644,29 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t t) {
   return r;
 }
 
+// The same from two int4 values in two's complement (bits 0-3 and 16-19 of
+// t): the sign bit flipped is the value biased by 8, folded into the same
+// logic op.
+__device__ __forceinline__ uint32_t signed_nibbles_to_bf16x2(uint32_t t) {
+  const uint32_t biased = (t & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// Byte j of two words of biased nibbles -> one word of two bf16 (exact): nb0's
+// in the low half, nb1's in the high half.
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t nb0, uint32_t nb1, int j) {
+  return nibbles_to_bf16x2(__byte_perm(nb0, nb1, j | ((4 + j) << 8)));
+}
+
+// The same from two words of int4 values in two's complement.
+__device__ __forceinline__ uint32_t signed_nibble_pair(uint32_t n0, uint32_t n1, int j) {
+  return signed_nibbles_to_bf16x2(__byte_perm(n0, n1, j | ((4 + j) << 8)));
+}
+
 // The int4 nibbles of a packed word (low nibbles: the lower half's rows; high
 // nibbles: the upper half's), biased by 8, one per byte.
 __device__ __forceinline__ uint32_t low_nibbles(uint32_t p) {

@@ -83,12 +83,6 @@ constexpr int stream_smem(int nt, int bn) {
          4 * cluster_recv_floats(nt * 8 * bn, MAX_SPLIT, S_THREADS) + 128 + 1024;
 }
 
-// Byte j of two words of biased nibbles -> one word of two bf16 (exact): nb0's
-// in the low half, nb1's in the high half.
-__device__ __forceinline__ uint32_t nibble_pair(uint32_t nb0, uint32_t nb1, int j) {
-  return nibbles_to_bf16x2(__byte_perm(nb0, nb1, j | ((4 + j) << 8)));
-}
-
 // --- streaming regime ---
 
 // As int8_linear.cu, the weights are the mma's A operand and x its B.

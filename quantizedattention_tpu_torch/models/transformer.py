@@ -168,6 +168,21 @@ def _mlp_residual(layer, x):
     return x + mm(F.gelu(mm(h, layer["w1"]), approximate="tanh"), layer["w2"])
 
 
+def _mlp_residual_per_position(layer, x):
+    """`_mlp_residual` with the down projection run one token position at a
+    time on contiguous rows, so that each is the [n, d_ff] product of a
+    decode step. On an H100 the [n * s, d_ff] product, or one on strided
+    rows, takes another algorithm for its long contraction and rounds some
+    outputs one bf16 ulp apart, and a verify pass would then not be its
+    decode steps bit for bit (its int4 K/V rounding to other nibbles, its
+    greedy tokens to other tokens at close logits). One copy puts each
+    position's rows together: s products and a stack where the whole
+    product is one launch."""
+    h = F.gelu(mm(rmsnorm(x, layer["ln2"]), layer["w1"]), approximate="tanh")
+    by_position = h.transpose(0, 1).contiguous()  # [s, n, d_ff]
+    return x + torch.stack([mm(rows, layer["w2"]) for rows in by_position], dim=1)
+
+
 def _block(layer, x, cfg: TransformerConfig, positions):
     h = rmsnorm(x, layer["ln1"])
     q, k, v = _project_qkv(layer, h, cfg, positions)
@@ -388,7 +403,7 @@ def _verify_logits(params, caches, last_tok, draft, pos, active, cfg: Transforme
         q, k, v = _project_qkv(layer, h, cfg, positions)
         cache = _cache_append(cache, k, v, active=active)
         o = _cache_verify(q, cache)  # [n, H, s, d], the causal staircase
-        x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+        x = _mlp_residual_per_position(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
         new_caches.append(cache)
     return mm(rmsnorm(x, params["final_norm"]), params["unembed"]), new_caches
 

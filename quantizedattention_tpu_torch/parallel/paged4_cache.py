@@ -16,7 +16,8 @@ a write the JAX append drops (an inactive row, a row at table capacity)
 goes to the garbage page 0, never to a live page.
 
 `paged4_decode_attention` launches the Hopper kernel (csrc/cache_decode.cu,
-entry qa_paged4_decode) for CUDA tensors and runs
+entry qa_paged4_decode: B15's kernel, a byte row addressed through the
+table; geometry in decode_tiling.py) for CUDA tensors and runs
 `paged4_decode_attention_plain` for CPU tensors; `paged4_verify_attention`
 runs the same entry's speculative-verify staircase, or
 `paged4_verify_attention_plain`.
@@ -32,6 +33,7 @@ from quantizedattention_tpu_torch.parallel.kv4_cache import (
     _combine,
     _pack_halves,
     _quant4_rows,
+    launch_int4,
     unpack_tokens,
 )
 from quantizedattention_tpu_torch.parallel.kv_cache import (
@@ -44,12 +46,12 @@ from quantizedattention_tpu_torch.parallel.paged_cache import (
     DEFAULT_PAGE_SIZE,
     _prompt_pages,
     _set_length,
+    _check_paged_args,
     _token_slots,
     assign_pages,
     check_page_size,
     gather_rows,
     gather_scales,
-    launch_paged,
 )
 
 assign_pages4 = assign_pages
@@ -148,6 +150,20 @@ def paged4_decode_attention_plain(q, cache: Paged4KVCache, sm_scale=None, return
     return decode_attention_plain(q, dense, sm_scale, return_lse, spec)
 
 
+def _launch(q, cache: Paged4KVCache, sm_scale, return_lse, spec: int = 1):
+    """Launch entry qa_paged4_decode on q [n, n_kv * group * spec, d] (folded)."""
+    _check_paged_args(q, cache, cache.k_p.shape[0], spec)
+    if cache.k_p.shape[3] != q.shape[2]:
+        raise ValueError(f"q head_dim {q.shape[2]} does not fit the pool's {cache.k_p.shape[3]}")
+    if tuple(x.dtype for x in cache) != (torch.int8, torch.float32, torch.int8, torch.float32,
+                                         torch.int32, torch.int32):
+        raise TypeError("paged cache must be int8 payloads, f32 scales, int32 table and lengths")
+    max_pages = cache.page_table.shape[1]
+    return launch_int4("qa_paged4_decode", q, cache, cache.k_p.shape[0],
+                       max_pages * cache.page_size, (cache.n_pages, cache.page_size, max_pages),
+                       sm_scale, return_lse, spec)
+
+
 def paged4_decode_attention(q, cache: Paged4KVCache, sm_scale=None, return_lse=False):
     """Single-token decode against the paged int4 cache: q [n_seqs, H, d],
     as paged_cache.paged_decode_attention. CUDA tensors launch B16
@@ -155,7 +171,7 @@ def paged4_decode_attention(q, cache: Paged4KVCache, sm_scale=None, return_lse=F
     `.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return paged4_decode_attention_plain(q, cache, sm_scale, return_lse)
-    out = launch_paged("qa_paged4_decode", q, cache, sm_scale, return_lse)
+    out = _launch(q, cache, sm_scale, return_lse)
     paged4_decode_attention.launches += 1
     return out
 
@@ -177,7 +193,7 @@ def paged4_verify_attention(q, cache: Paged4KVCache, sm_scale=None):
     if q.device.type == "cpu":
         return paged4_verify_attention_plain(q, cache, sm_scale)
     qf, s = fold_verify(q)
-    o = launch_paged("qa_paged4_decode", qf, cache, sm_scale, False, s)
+    o = _launch(qf, cache, sm_scale, False, s)
     paged4_verify_attention.launches += 1
     return unfold_verify(o, q.shape[1])
 

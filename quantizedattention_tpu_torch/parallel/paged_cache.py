@@ -204,18 +204,17 @@ def paged_decode_attention_plain(q, cache: PagedKVCache, sm_scale=None, return_l
 
 
 @functools.cache
-def _entry(name: str):
-    fn = getattr(load_kernel("cache_decode"), name)
+def _kernel():
+    fn = load_kernel("cache_decode").qa_paged_decode
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch_paged(entry: str, q, cache, sm_scale, return_lse, spec: int = 1):
-    """Launch a paged decode entry of csrc/cache_decode.cu on `cache`'s
+def launch_paged(q, cache, sm_scale, return_lse, spec: int = 1):
+    """Launch entry qa_paged_decode of csrc/cache_decode.cu on `cache`'s
     fields (k, sk, v, sv, page_table, lengths), q folded with `spec` queries
-    per row (`fold_verify`); the int8 and int4 pools share this argument
-    list."""
+    per row (`fold_verify`)."""
     k, sk, v, sv, table, lengths = cache
     _check_paged_args(q, cache, k.shape[0], spec)
     n, n_q, d = q.shape
@@ -232,13 +231,13 @@ def launch_paged(entry: str, q, cache, sm_scale, return_lse, spec: int = 1):
     dev = require_cuda(qb, k, sk, v, sv, table, lengths)
     o = torch.empty((n, n_q, d), dtype=torch.float32, device=dev)
     lse = torch.empty((n, n_q), dtype=torch.float32, device=dev)
-    status = _entry(entry)(
+    status = _kernel()(
         qb.data_ptr(), k.data_ptr(), sk.data_ptr(), v.data_ptr(), sv.data_ptr(),
         table.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
         n, n_kv, group, spec, n_pages, cache.page_size, table.shape[1], qk_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    check_status(status, entry)
+    check_status(status, "paged_decode")
     return (o, lse) if return_lse else o
 
 
@@ -251,7 +250,7 @@ def paged_decode_attention(q, cache: PagedKVCache, sm_scale=None, return_lse=Fal
     `paged_decode_attention_plain`. `.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, cache, sm_scale, return_lse)
-    out = launch_paged("qa_paged_decode", q, cache, sm_scale, return_lse)
+    out = launch_paged(q, cache, sm_scale, return_lse)
     paged_decode_attention.launches += 1
     return out
 
@@ -274,7 +273,7 @@ def paged_verify_attention(q, cache: PagedKVCache, sm_scale=None):
     if q.device.type == "cpu":
         return paged_verify_attention_plain(q, cache, sm_scale)
     qf, s = fold_verify(q)
-    o = launch_paged("qa_paged_decode", qf, cache, sm_scale, False, s)
+    o = launch_paged(qf, cache, sm_scale, False, s)
     paged_verify_attention.launches += 1
     return unfold_verify(o, q.shape[1])
 

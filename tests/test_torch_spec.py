@@ -47,7 +47,10 @@ from quantizedattention_tpu_torch.models import (
 from quantizedattention_tpu_torch.models.transformer import (
     _cache_append,
     _cache_rollback,
+    _mlp_residual,
+    _mlp_residual_per_position,
     gumbel_draws,
+    rmsnorm,
 )
 from quantizedattention_tpu_torch.parallel import kv4_cache as t4
 from quantizedattention_tpu_torch.parallel import kv_cache as tkv
@@ -302,6 +305,26 @@ def test_verify_step_greedy_matches_jax(lm, kind, drafts):
     _assert_caches_match(tcaches, jcaches, kind.startswith("paged"))
     length = "lengths" if kind.startswith("paged") else "length"
     assert getattr(tcaches[0], length).tolist() == (pos + t_n.numpy()).tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_mlp_runs_each_position_as_a_decode_step(dtype):
+    """The verify pass's MLP: position i's down projection is the [n, d_ff]
+    product of its own contiguous rows (a decode step's), and the whole is
+    `_mlp_residual` up to the products' rounding (2e-6 in f32; in bf16 two
+    ulps of outputs below 4)."""
+    n, s, d, d_ff = 3, 5, 16, 48
+    g = torch.Generator().manual_seed(0)
+    layer = {"ln2": (1 + 0.1 * torch.randn(d, generator=g)).to(dtype),
+             "w1": (torch.randn(d, d_ff, generator=g) * d ** -0.5).to(dtype),
+             "w2": (torch.randn(d_ff, d, generator=g) * d_ff ** -0.5).to(dtype)}
+    x = torch.randn(n, s, d, generator=g).to(dtype)
+    got = _mlp_residual_per_position(layer, x)
+    h = torch.nn.functional.gelu(rmsnorm(x, layer["ln2"]) @ layer["w1"], approximate="tanh")
+    for i in range(s):
+        assert torch.equal(got[:, i], x[:, i] + h[:, i].contiguous() @ layer["w2"])
+    tol = 2e-6 if dtype == torch.float32 else 2 * 2 ** -6
+    torch.testing.assert_close(got.float(), _mlp_residual(layer, x).float(), rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("kind", KINDS)
