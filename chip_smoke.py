@@ -7,12 +7,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
      holds the flash forward's (bf16 and fp32 modes) and backward's, B11
-     fast's, the int8 forward's and backward's, B15/B16's and the weight
+     fast's, the int8 forward's and backward's, the decode kernel's (its
+     int8 instance, B13/B14, and its int4 one, B15/B16) and the weight
      matmuls' shared bytes against their launch geometry (ops/flash_tiling.py,
      ops/jvp_tiling.py, ops/int8_tiling.py, parallel/decode_tiling.py,
      ops/linear_tiling.py), and fails if ptxas spills or serializes wgmma (a
      C75xx note) in the flash forward (both modes) or backward, in B9, B11
-     and B12 fast and their preps, or spills in B15/B16;
+     and B12 fast and their preps, or spills in either decode instance;
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
      multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
@@ -21,8 +22,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      bit for bit on bf16-representable inputs, strided [b, t, h, d] views
      equal to contiguous ones, and the f32 K/V prep byte-equal to
      .to(bfloat16); then timed at the serving prefill's shape;
-  4. decode kernel vs its plain version, with stale non-finite scales and
-     junk payloads written past every row's length;
+  4. the slotted int8 decode kernel (B13) vs its plain version, with stale
+     non-finite scales and junk payloads written past every row's length;
+     timed at the serving decode shape and at capacity (1280 of 1280, 16/16
+     and 16/4 heads) beside its bound;
   5. serving at full width: the bench LM (vocab 8192, d_model 1024, 16 heads,
      head_dim 64, 4 layers, max_seq 1280, bf16) serves 8 requests of 256
      random tokens x 96 new tokens through ServingEngine (8 slots, decode
@@ -145,11 +148,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      and 16/4 heads, pages of 128, 10 per sequence) with lengths [0, 1, 127,
      128, 1000, 1280, 300, 640], pages shuffled across the pool, page 0 and
      every page past a row's length holding junk payloads and NaN/inf
-     scales; B14 against B13 (within DECODE_TOL) and B16 against B15 (bit
-     for bit) on the same K/V; then each timed at the serving decode shape
-     (8 slots x 16 heads, length 304 of 1280) beside B13 and its plain
-     version, and B15/B16 at capacity (1280 of 1280) at 16/16 and 16/4
-     heads beside their bounds;
+     scales; B14 against B13 and B16 against B15, bit for bit, on the same
+     K/V; then each timed at the serving decode shape (8 slots x 16 heads,
+     length 304 of 1280) beside B13 and its plain version, and B14, B15 and
+     B16 at capacity (1280 of 1280) at 16/16 and 16/4 heads beside their
+     bounds;
  22. cache-kind serving at full width: phase 5's run with cache="paged"
      (tokens equal phase 5's; B1 and B14 only), kv_quant="int4" (B1 and
      B15), both (tokens equal the slotted int4 run's; B1 and B16), and the
@@ -528,8 +531,10 @@ def phase_build() -> None:
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
             ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes()),
-            ("cache_decode int4", _build.load_kernel("cache_decode").qa_decode4_smem_bytes(),
-             decode_tiling.shared_bytes())):
+            ("cache_decode int8", _build.load_kernel("cache_decode").qa_decode_smem_bytes(8),
+             decode_tiling.shared_bytes("int8")),
+            ("cache_decode int4", _build.load_kernel("cache_decode").qa_decode_smem_bytes(4),
+             decode_tiling.shared_bytes("int4"))):
         if got != want:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
                                  f"geometry (ops/flash_tiling.py, ops/int8_tiling.py, "
@@ -548,12 +553,13 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
     # the flash forward (both modes) and backward and B9, B11 and B12 fast
-    # keep every wgmma asynchronous (no C75xx note) and spill nothing; B15/B16
-    # (two blocks an SM: at most 128 registers) spill nothing
+    # keep every wgmma asynchronous (no C75xx note) and spill nothing; the
+    # decode kernel's two instances (two blocks an SM: at most 128 registers)
+    # spill nothing
     for name, only in (("flash_fwd", None), ("flash_bwd", None),
                        ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
                                 "jvp_dq_wgmma", "jvp_bwd_prep_kernel")),
-                       ("cache_decode", ("decode4_kernel",))):
+                       ("cache_decode", ("decode_kernel",))):
         bad = _ptxas_faults(_build.build_log(name), only)
         if bad:
             raise AssertionError(f"{name}'s ptxas notes: {bad}")
@@ -714,7 +720,36 @@ def phase_decode(dev, gen) -> dict:
     bnd = bound(kv_bytes + nbytes(q, o, cache.length), (flops, PEAK_BF16))
     log(f"[decode] 8 slots x 16 heads, length {length} of {BENCH_CFG.max_seq}: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
+    out = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
+    out.update(_capacity_times("decode", dev, lambda g, n_kv: _decode_case(
+        dev, g, 16, n_kv, [BENCH_CFG.max_seq] * N_SLOTS, stale=False)))
+    return out
+
+
+def _capacity_times(name, dev, case) -> dict:
+    """Kernel `name` at capacity (every row 1280 of 1280 tokens), 16/16 and
+    16/4 heads, on `case(generator, n_kv)`'s (q, cache) from a generator of
+    its own (the phases after draw what they drew before), beside its bound:
+    the live tokens' payloads and scales, the table's entries, q, O and the
+    lengths."""
+    fn = VERIFY[name][3]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n_tok = BENCH_CFG.max_seq * N_SLOTS
+    out = {}
+    for n_kv in (16, 4):
+        q, cache = case(gen, n_kv)
+        ms = device_ms(lambda: fn(q, cache))
+        o = fn(q, cache)
+        per_tok = 72 if name in ("decode4", "paged4_decode") else 136  # 2 x (payload + scale)
+        table = 4 * N_SLOTS * MAX_PAGES if name.startswith("paged") else 0
+        bnd = bound(n_tok * n_kv * per_tok + table + nbytes(q, o, cache[-1]),
+                    (2 * 2 * n_tok * q.shape[1] * 64, PEAK_BF16))
+        log(f"[{name}] 8 slots x 16 q / {n_kv} kv heads, length {BENCH_CFG.max_seq} of "
+            f"{BENCH_CFG.max_seq}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), {ms / bnd['bound_ms']:.2f}x")
+        out[f"capacity_16q_{n_kv}kv_ms"] = ms
+        out[f"capacity_16q_{n_kv}kv_bound_ms"] = bnd["bound_ms"]
+    return out
 
 
 def _serve(dev, smi, cfg, weight_quant=None, **cache_kw) -> tuple[list, dict, float, dict]:
@@ -974,8 +1009,9 @@ def _check_decode_kernel(name, fn, plain, q, cache, label) -> float:
 
 def _check_twins(name, got, want, label, exact=False) -> float:
     """Two kernels on the same K/V: (O, lse) within DECODE_TOL, or with
-    `exact` bit for bit (B16 and B15 put every token in the same slot of the
-    same chunk and tile: only the addressing of a byte row differs)."""
+    `exact` bit for bit (B14 and B13, B16 and B15 put every token in the
+    same slot of the same chunk and tile: only the addressing of a payload
+    row differs)."""
     d_o = (got[0] - want[0]).abs().max().item()
     live = torch.isfinite(want[1])
     d_l = (got[1][live] - want[1][live]).abs().max().item()
@@ -993,8 +1029,8 @@ def phase_cache_kernels(dev, gen) -> dict:
     """Phase 21: B14, B15 and B16 against their plain versions at the bench
     widths (16/16 and 16/4 heads), with shuffled pages, junk pages and
     non-finite stale scales; B14 against B13 and B16 against B15 on the same
-    K/V; then each timed at the serving decode shape beside B13 and its
-    plain version."""
+    K/V, bit for bit; then each timed at the serving decode shape beside B13
+    and its plain version, and at capacity beside its bound."""
     kernels = {"paged_decode": (paged_decode_attention, paged_decode_attention_plain),
                "decode4": (decode_attention_int4, decode_attention_int4_plain),
                "paged4_decode": (paged4_decode_attention, paged4_decode_attention_plain)}
@@ -1010,7 +1046,8 @@ def phase_cache_kernels(dev, gen) -> dict:
         b13 = decode_attention(q, dense8, return_lse=True)
         b14 = paged_decode_attention(q, paged8, return_lse=True)
         twins[f"paged_decode_vs_decode_{n_kv}"] = _check_twins(
-            "paged_decode", b14, b13, f"B14 on shuffled pages vs B13 dense, {n_q}/{n_kv} heads")
+            "paged_decode", b14, b13, f"B14 on shuffled pages vs B13 dense, {n_q}/{n_kv} heads",
+            exact=True)
         b15 = decode_attention_int4(q, dense4, return_lse=True)
         b16 = paged4_decode_attention(q, paged4, return_lse=True)
         twins[f"paged4_decode_vs_decode4_{n_kv}"] = _check_twins(
@@ -1046,26 +1083,12 @@ def phase_cache_kernels(dev, gen) -> dict:
     out["paged4_decode"]["max_abs_diff_vs_decode4"] = max(
         v for k, v in twins.items() if k.startswith("paged4_decode_"))
 
-    # B15 and B16 at capacity (1280 of 1280 tokens), 16/16 and 16/4 heads, on
-    # inputs from a generator of their own (the phases after this one draw
-    # what they drew before)
-    cap_gen = torch.Generator(device=dev).manual_seed(21)
-    n_tok = BENCH_CFG.max_seq * N_SLOTS
-    for n_kv in (16, 4):
-        q, _, _, dense4, paged4 = _cache_kinds(dev, cap_gen, 16, n_kv,
-                                               [BENCH_CFG.max_seq] * N_SLOTS, False)
-        for name, cache, table_bytes in (("decode4", dense4, 0),
-                                         ("paged4_decode", paged4, 4 * N_SLOTS * MAX_PAGES)):
-            fn = kernels[name][0]
-            ms = device_ms(lambda: fn(q, cache))
-            o = fn(q, cache)
-            bnd = bound(n_tok * n_kv * 72 + table_bytes + nbytes(q, o, cache[-1]),
-                        (2 * 2 * n_tok * q.shape[1] * 64, PEAK_BF16))
-            log(f"[{name}] 8 slots x 16 q / {n_kv} kv heads, length {BENCH_CFG.max_seq} of "
-                f"{BENCH_CFG.max_seq}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}), {ms / bnd['bound_ms']:.2f}x")
-            out[name][f"capacity_16q_{n_kv}kv_ms"] = ms
-            out[name][f"capacity_16q_{n_kv}kv_bound_ms"] = bnd["bound_ms"]
+    # B14, B15 and B16 at capacity (1280 of 1280 tokens), 16/16 and 16/4 heads
+    for name, at in (("paged_decode", 2), ("decode4", 3), ("paged4_decode", 4)):
+        def case(g, n_kv, at=at):  # q and the kind's cache
+            kinds = _cache_kinds(dev, g, 16, n_kv, [BENCH_CFG.max_seq] * N_SLOTS, False)
+            return kinds[0], kinds[at]
+        out[name].update(_capacity_times(name, dev, case))
     return out
 
 
@@ -2995,7 +3018,7 @@ def main() -> None:
          **flash, "max_abs_err": max(flash["max_abs_err"], train_err["flash_fwd"]),
          **at_train("flash_fwd")},
         {"name": "decode", "route": "cuda",
-         "source": "quantizedattention_tpu_torch/csrc/decode.cu",
+         "source": "quantizedattention_tpu_torch/csrc/cache_decode.cu",
          "replaces": "quantizedattention_tpu/parallel/kv_cache.py:172",
          "launches_by_path": {"serve": serve_launches["decode"]}, **decode, **verify["decode"]},
     ]

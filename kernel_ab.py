@@ -3,12 +3,13 @@ the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, the
 int8 backward (B7 dK/dV, B8 dQ), the corrected-bf16 flash forward (B1) and
 its backward (B2 dK/dV, B3 dQ), B1's fp32 mode, the second-order
 backward's fast dK/dV (B11) and dQ (B12), and the JVP forward's fast mode
-(B9), and the int4 decode kernels (B15 slotted, B16 paged) beside the
-paged int8 one (B14).
+(B9), the int4 decode kernels (B15 slotted, B16 paged) beside the paged
+int8 one (B14), and the int8 decode kernels (B13 slotted, B14 paged)
+beside the int4 ones.
 
     python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd] [flash_bwd]
                                                    [flash_fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq]
-                                                   [decode4]
+                                                   [decode4] [decode8]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
 (every part without a third argument). Each checkout is timed in its own
@@ -42,7 +43,9 @@ through each checkout's public wrappers (the parent has no decode_tiling)
 at 8 sequences x 16 q heads: spec 1 and the verify wrappers at spec 5,
 length 304 of 1280 (the serving decode), and spec 1 at 1280 of 1280 with
 16 and 4 kv heads, the paged pools' pages of 128 shuffled, with B14 at the
-first shape on int8 pages. A time is the
+first shape on int8 pages; decode8 times B13 and B14 (`decode_attention`,
+`paged_decode_attention` and their verify wrappers) at the same shapes, and
+B15 and B16 beside them on the same shapes' int4 caches. A time is the
 mean device time of one wrapper call, from CUDA-graph replays as in
 chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
 checkouts see the same ones. Prints one JSON line a run and a summary line a
@@ -71,7 +74,7 @@ JVP_SHAPES = ((4, 4, 4096), (4, 16, 4096))
 # decode and its verify pass, the capacity at 16/16 and 16/4 heads
 DECODE4_SHAPES = ((16, 304, 1), (16, 304, 5), (16, 1280, 1), (4, 1280, 1))
 PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd", "jvp_fwd",
-         "jvp_dq", "decode4")
+         "jvp_dq", "decode4", "decode8")
 
 
 def _device_ms(torch, fn, calls=20, replays=10) -> float:
@@ -275,16 +278,14 @@ def _jvp_fast_rows(torch, gen, dev, part) -> dict:
     return rows
 
 
-def _decode4_rows(torch, gen, dev) -> dict:
-    """B15 and B16 through each checkout's public wrappers (spec 1, and the
-    verify wrappers at spec 5), and B14 beside them, at DECODE4_SHAPES; q f32
-    as chip_smoke.py draws it, the paged pools' pages of 128 shuffled."""
-    from quantizedattention_tpu_torch.parallel import (Int4KVCache, Paged4KVCache, PagedKVCache,
-                                                       decode_attention_int4,
-                                                       paged4_decode_attention,
-                                                       paged4_verify_attention,
-                                                       paged_decode_attention,
-                                                       verify_decode_attention_int4)
+def _decode_rows(torch, gen, dev, part) -> dict:
+    """The decode kernels through each checkout's public wrappers (spec 1,
+    and the verify wrappers at spec 5) at DECODE4_SHAPES; q f32 as
+    chip_smoke.py draws it, int8 and int4 caches of random bytes and scales
+    (chip_smoke.py's ranges), the paged pools' pages of 128 shuffled.
+    decode4: B15 and B16, and B14 at the first shape; decode8: B13 and B14,
+    and B15 and B16 beside them."""
+    from quantizedattention_tpu_torch import parallel as P
 
     rows = {}
     n, cap, ps = 8, 1280, 128
@@ -293,33 +294,40 @@ def _decode4_rows(torch, gen, dev) -> dict:
         q = torch.randn((n, 16, 64) if spec == 1 else (n, 16, spec, 64), generator=gen,
                         device=dev)
         lengths = torch.full((n,), length, dtype=torch.int32, device=dev)
-        k4, v4 = (torch.randint(-128, 128, (n, n_kv, cap // 2, 64), generator=gen, device=dev,
-                                dtype=torch.int8) for _ in range(2))
-        sk, sv = (torch.rand((n, n_kv, cap), generator=gen, device=dev) * 0.28 + 0.02
-                  for _ in range(2))
         table = (torch.randperm(n * max_pages, generator=torch.Generator().manual_seed(0)) + 1)
         table = table.reshape(n, max_pages).int().to(dev)
         pages = table.flatten().long()
-        pay = [torch.zeros((n_kv, 1 + n * max_pages, ps // 2, 64), dtype=torch.int8, device=dev)
-               for _ in range(2)]
-        scales = [torch.zeros((1 + n * max_pages, n_kv, ps), device=dev) for _ in range(2)]
-        for x, p, y, sc in ((k4, pay[0], sk, scales[0]), (v4, pay[1], sv, scales[1])):
-            p[:, pages] = x.reshape(n, n_kv, max_pages, ps // 2, 64).transpose(0, 1).reshape(
-                n_kv, n * max_pages, ps // 2, 64)
-            sc[pages] = y.reshape(n, n_kv, max_pages, ps).transpose(1, 2).reshape(
-                n * max_pages, n_kv, ps)
-        slotted = Int4KVCache(k4, sk, v4, sv, lengths)
-        paged = Paged4KVCache(pay[0], scales[0], pay[1], scales[1], table, lengths)
-        b15, b16 = ((decode_attention_int4, paged4_decode_attention) if spec == 1
-                    else (verify_decode_attention_int4, paged4_verify_attention))
-        row = rows[f"decode4 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} of {cap}"] = {
-            "b15_ms": _device_ms(torch, lambda: b15(q, slotted)),
-            "b16_ms": _device_ms(torch, lambda: b16(q, paged))}
-        if (n_kv, length, spec) == DECODE4_SHAPES[0]:  # B14 at the serving shape, int8 pages
-            k8, v8 = (torch.randint(-127, 128, (n_kv, 1 + n * max_pages, ps, 64), generator=gen,
-                                    device=dev, dtype=torch.int8) for _ in range(2))
-            paged8 = PagedKVCache(k8, scales[0], v8, scales[1], table, lengths)
-            row["b14_ms"] = _device_ms(torch, lambda: paged_decode_attention(q, paged8))
+        caches = {}
+        for bits, lo, per_page, scale in ((4, -128, ps // 2, 0.28), (8, -127, ps, 0.028)):
+            k, v = (torch.randint(lo, 128, (n, n_kv, max_pages * per_page, 64), generator=gen,
+                                  device=dev, dtype=torch.int8) for _ in range(2))
+            sk, sv = (torch.rand((n, n_kv, cap), generator=gen, device=dev) * scale + scale / 14
+                      for _ in range(2))
+            pool = []
+            for x, y in ((k, sk), (v, sv)):
+                p = torch.zeros((n_kv, 1 + n * max_pages, per_page, 64), dtype=torch.int8,
+                                device=dev)
+                p[:, pages] = x.reshape(n, n_kv, max_pages, per_page, 64).transpose(0, 1).reshape(
+                    n_kv, n * max_pages, per_page, 64)
+                sc = torch.zeros((1 + n * max_pages, n_kv, ps), device=dev)
+                sc[pages] = y.reshape(n, n_kv, max_pages, ps).transpose(1, 2).reshape(
+                    n * max_pages, n_kv, ps)
+                pool += [p, sc]
+            slotted = (P.Int4KVCache if bits == 4 else P.QuantizedKVCache)(k, sk, v, sv, lengths)
+            paged = (P.Paged4KVCache if bits == 4 else P.PagedKVCache)(*pool, table, lengths)
+            caches[bits] = slotted, paged
+        calls = {"b13": (P.decode_attention, P.verify_decode_attention, caches[8][0]),
+                 "b14": (P.paged_decode_attention, P.paged_verify_attention, caches[8][1]),
+                 "b15": (P.decode_attention_int4, P.verify_decode_attention_int4, caches[4][0]),
+                 "b16": (P.paged4_decode_attention, P.paged4_verify_attention, caches[4][1])}
+        names = ["b13", "b14", "b15", "b16"] if part == "decode8" else ["b15", "b16"]
+        if part == "decode4" and (n_kv, length, spec) == DECODE4_SHAPES[0]:
+            names.append("b14")
+        row = rows[f"{part} 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} of {cap}"] = {}
+        for name in names:
+            one, verify, cache = calls[name]
+            fn = one if spec == 1 else verify
+            row[f"{name}_ms"] = _device_ms(torch, lambda: fn(q, cache))
     return rows
 
 
@@ -346,8 +354,9 @@ def run_one(tree: str, parts) -> None:
     for part in ("jvp_fwd", "jvp_dq"):
         if part in parts:
             rows.update(_jvp_fast_rows(torch, gen, dev, part))
-    if "decode4" in parts:
-        rows.update(_decode4_rows(torch, gen, dev))
+    for part in ("decode4", "decode8"):
+        if part in parts:
+            rows.update(_decode_rows(torch, gen, dev, part))
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
 
 

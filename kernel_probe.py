@@ -2,12 +2,13 @@
 csrc/int8_linear.cu, B18 csrc/int4_linear.cu), the int8 backward (B7 and
 B8, csrc/int8_bwd.cu), the bf16 flash forward (B1, csrc/flash_fwd.cu) and
 its backward's fast mode (B2 and B3, csrc/flash_bwd.cu), B1's fp32 mode,
-the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu) and the int4
-decode kernels (B15, B16, csrc/cache_decode.cu); and two numerics
-witnesses, bwd_exact and fwd_fp32.
+the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu) and the decode
+kernels (B13-B16, one body in csrc/cache_decode.cu, its int4 instance in
+decode4 and its int8 one in decode8); and two numerics witnesses,
+bwd_exact and fwd_fp32.
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
-                            [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4]
+                            [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
                             [PARENT_CHECKOUT]  (all parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
@@ -143,6 +144,21 @@ and a copy that stamps %globaltimer at each phase of a block (length read,
 copies landed, S, the maxima exchanged, PV, the warps' sums shared,
 partials written, arrival, end), printed as medians over the blocks that
 run.
+
+decode8: B13 (`qa_decode`, the int8 instance) on bf16 q at decode4's
+shapes, each build's ptxas registers and spills printed, and timed:
+- as_is, on f32 q (rounded in the kernel), B14 (`qa_paged_decode`) on
+  pages of 128 shuffled, and the whole wrapper call on f32 q;
+- no_merge, loads_only, one_chunk: as decode4's;
+- no_widen: the int8 words fed to the products as they are (no byte
+  permutes and adds);
+- chunk128: chunks of 128 tokens (one tile a chunk, 16 tokens a warp), z
+  from the grid's rule over 128-token chunks;
+decode4's stamped copy, on the int8 instance; and B13's and B14's max|dO|
+against their plain versions on chip_smoke.py's phase-21 and phase-23
+inputs (stale scales, junk pages), with a digest of B15's and B16's
+outputs there, in this checkout and in PARENT_CHECKOUT when one is given
+(its own package, in a process of its own).
 Exits non-zero without a GPU.
 """
 
@@ -288,10 +304,10 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
         from quantizedattention_tpu_torch.ops import jvp_bwd as tjvp
         lib.qa_jvp_bwd_dq_bf16.argtypes = tjvp._kernels().qa_jvp_bwd_dq_bf16.argtypes
         lib.qa_jvp_bwd_dq_bf16.restype = ctypes.c_int
-    elif name.startswith("d4"):
-        from quantizedattention_tpu_torch.parallel import kv4_cache
-        for fn in ("qa_decode4", "qa_paged4_decode"):
-            getattr(lib, fn).argtypes = kv4_cache._entry(fn).argtypes
+    elif name.startswith(("d4", "d8")):
+        from quantizedattention_tpu_torch.parallel import decode_launch
+        for fn in ("qa_decode", "qa_paged_decode", "qa_decode4", "qa_paged4_decode"):
+            getattr(lib, fn).argtypes = decode_launch._entry(fn).argtypes
             getattr(lib, fn).restype = ctypes.c_int
         if name == "d4_merge_launch":
             lib.qa_probe_merge.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
@@ -1213,7 +1229,7 @@ def probe_jvp_dq(smi) -> None:
               flush=True)
 
 
-# --- the int4 decode kernels (B15, B16) ---
+# --- the decode kernels (B13-B16, one body in csrc/cache_decode.cu) ---
 
 SRC_CACHE = os.path.join(_build.CSRC_DIR, "cache_decode.cu")
 # (label, kv heads of 16 q heads, length of 1280, spec), 8 sequences: the
@@ -1223,6 +1239,9 @@ D4_SHAPES = [("serve", 16, 304, 1), ("verify", 16, 304, 5), ("capacity", 16, 128
 D4_CAP = 1280
 _D4_NO_MERGE = ("  {  // the last block of the (kv head, sequence) merges",
                 "  if (false) {  // the last block of the (kv head, sequence) merges")
+_D4_LOADS_ONLY = ("    const int n_tiles = min(max((len - t0 + TILE - 1) / TILE, 0), TILES);",
+                  "    const int n_tiles = 0;")
+_D4_ONE_CHUNK = ("  const int n_live = max(1, (len + CH - 1) / CH);", "  const int n_live = 1;")
 # the merge by a second launch, for d4_merge_launch: no_merge's kernel, then this
 _D4_MERGE_LAUNCH = """
 namespace {
@@ -1231,7 +1250,7 @@ probe_merge_kernel(Partials part, const int* __restrict__ length, int capacity,
                    float* __restrict__ o, float* __restrict__ lse, int n_kv, int rows, int spec) {
   const size_t pair = static_cast<size_t>(blockIdx.y) * n_kv + blockIdx.x;
   const int len = min(max(length[blockIdx.y], 0), capacity);
-  merge_rows(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
+  merge_rows<CHUNK4>(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
 }
 }  // namespace
 
@@ -1239,7 +1258,7 @@ extern "C" int qa_probe_merge(void* part_acc, void* part_ml, const void* length,
                               void* o, void* lse, int n_seqs, int n_kv, int rows, int spec,
                               void* stream) {
   const Partials part{static_cast<float*>(part_acc), static_cast<float*>(part_ml), nullptr,
-                      (capacity + CHUNK - 1) / CHUNK};
+                      (capacity + CHUNK4 - 1) / CHUNK4};
   probe_merge_kernel<<<dim3(n_kv, n_seqs), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       part, static_cast<const int*>(length), capacity, static_cast<float*>(o),
       static_cast<float*>(lse), n_kv, rows, spec);
@@ -1251,36 +1270,50 @@ D4_VARIANTS = {
     "d4_no_merge": [_D4_NO_MERGE],
     "d4_merge_launch": [_D4_NO_MERGE],  # + _D4_MERGE_LAUNCH
     "d4_no_unpack": [
-        ("            mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), "
+        ("              mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), "
          "signed_nibbles_to_bf16x2(y >> 8));",
-         "            mma_bf16(s[n], qa[ks], y, y >> 8);"),
-        ("            mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], "
-         "n % 4),\n                     signed_nibble_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], "
-         "n % 4));",
-         "            mma_bf16(acc[n], pa[kk], vw[kk][0][n / 4], vw[kk][2][n / 4]);")],
-    "d4_loads_only": [_D4_NO_MERGE, (
-        "    const int n_tiles = min(max((len - t0 + TILE - 1) / TILE, 0), CHUNK / TILE);",
-        "    const int n_tiles = 0;")],
-    "d4_one_chunk": [_D4_NO_MERGE, ("  const int n_live = max(1, (len + CHUNK - 1) / CHUNK);",
-                                    "  const int n_live = 1;")],
+         "              mma_bf16(s[n], qa[ks], y, y >> 8);"),
+        ("              mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], "
+         "vw[kk][1][n / 4], n % 4),\n                       signed_nibble_pair(vw[kk][2][n / 4], "
+         "vw[kk][3][n / 4], n % 4));",
+         "              mma_bf16(acc[n], pa[kk], vw[kk][0][n / 4], vw[kk][2][n / 4]);")],
+    "d4_loads_only": [_D4_NO_MERGE, _D4_LOADS_ONLY],
+    "d4_one_chunk": [_D4_NO_MERGE, _D4_ONE_CHUNK],
     "d4_ex2_approx": [("exp2f(s[n][2 * h + e] - m[h])", "exp2_ftz(s[n][2 * h + e] - m[h])")],
-    "d4_empty": [("  Smem4& sm = *reinterpret_cast<Smem4*>(smem_raw);\n",
-                  "  Smem4& sm = *reinterpret_cast<Smem4*>(smem_raw);\n  if (rows > 0) return;\n")],
+    "d4_empty": [("  Smem<PACKED, CH>& sm = *reinterpret_cast<Smem<PACKED, CH>*>(smem_raw);\n",
+                  "  Smem<PACKED, CH>& sm = *reinterpret_cast<Smem<PACKED, CH>*>(smem_raw);\n"
+                  "  if (rows > 0) return;\n")],
+}
+# the int8 instance (B13): knock-outs, and 128- against 256-token chunks
+D8_VARIANTS = {
+    "d8_as_is": [],
+    "d8_no_merge": [_D4_NO_MERGE],
+    "d8_no_widen": [
+        ("              const uint2 b = widen4(kw[n][ks]);",
+         "              const uint2 b = make_uint2(kw[n][ks], kw[n][ks] >> 8);"),
+        ("              mma_bf16(acc[n], pa[kk], widen_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], "
+         "n % 4),\n                       widen_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));",
+         "              mma_bf16(acc[n], pa[kk], vw[kk][0][n / 4], vw[kk][2][n / 4]);")],
+    "d8_loads_only": [_D4_NO_MERGE, _D4_LOADS_ONLY],
+    "d8_one_chunk": [_D4_NO_MERGE, _D4_ONE_CHUNK],
+    "d8_chunk128": [("constexpr int CHUNK8 = 256;", "constexpr int CHUNK8 = 128;")],
 }
 D4_STAMPS = ["start", "length read", "staged", "S", "max exchanged", "PV", "warps' sums shared",
              "partials written", "arrived", "end"]  # a block's last chunk (and m-tile) from "staged"
+# the instance's mangled name: decode_kernel<PACKED, CH>
+INSTANCE = {4: "decode_kernelILb1E", 8: "decode_kernelILb0E"}
 
 
 def _d4_stamped() -> str:
-    """cache_decode.cu with a %globaltimer stamp at D4_STAMPS of every B15/B16
-    block (thread 0, warp 0: tile 0; the last m-tile's)."""
+    """cache_decode.cu with a %globaltimer stamp at D4_STAMPS of every block
+    of either instance (thread 0, warp 0: tile 0; the last m-tile's)."""
     src = open(SRC_CACHE).read().replace(
         '#include "hopper.cuh"',
         '#include "hopper.cuh"\n__device__ unsigned long long g_t[8192][16];\n'
         '#define STAMP(i) if (threadIdx.x == 0) { unsigned long long t_; '
         'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
         'g_t[blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)][i] = t_; }')
-    k0 = src.index("decode4_kernel(const")
+    k0 = src.index("decode_kernel(const")
     for i, (anchor, after) in enumerate((
             ("  const size_t pair = static_cast<size_t>(seq) * n_kv + kvh;\n", True),
             ("    cp_async_wait<0>();\n    return;\n  }\n", True),
@@ -1288,9 +1321,9 @@ def _d4_stamped() -> str:
             ("      if (j == 0) {\n        sm.red_max[warp][g] = mx[0];", False),
             ("      // the online softmax's m after tile 0", False),
             ("      // the warps' acc and l of the live rows", False),
-            ("      // tile 0's sums (warps 0-3 in order)", False),
+            ("      // tile 0's sums (its warps in order)", False),
             ("  {  // the last block of the (kv head, sequence) merges", False),
-            ("    if (sm.merges) merge_rows(", False),
+            ("    if (sm.merges) merge_rows", False),
             ("spec, o, lse);\n  }\n", True))):
         at = src.index(anchor, k0) + (len(anchor) if after else 0)
         src = src[:at] + f"STAMP({i})\n" + src[at:]
@@ -1300,60 +1333,105 @@ def _d4_stamped() -> str:
                   '  return (int)cudaMemcpyToSymbol(g_t, z, sizeof(g_t));\n}\n')
 
 
-def _d4_case(gen, n_kv, length, spec):
-    """q [8, 16 * spec, 64] f32 and its bf16 copy, a slotted int4 cache of
-    random bytes and scales at capacity D4_CAP, all rows at `length`, its
-    paged twin (pages of 128 shuffled across the pool), and the partials."""
-    from quantizedattention_tpu_torch.parallel import Int4KVCache, Paged4KVCache
-    from quantizedattention_tpu_torch.parallel import decode_tiling as dt
+def _d4_case(gen, n_kv, length, spec, bits=4):
+    """q [8, 16 * spec, 64] f32, a slotted cache of random bytes and scales
+    (int4 or int8) at capacity D4_CAP, all rows at `length`, its paged twin
+    (pages of 128 shuffled across the pool), and the partials (room for
+    128-token chunks)."""
+    from quantizedattention_tpu_torch import parallel as P
 
     n, dev = 8, "cuda"
+    per_page = 64 if bits == 4 else 128
     q = torch.randn((n, 16 * spec, 64), generator=gen, device=dev)
-    k4, v4 = (torch.randint(-128, 128, (n, n_kv, D4_CAP // 2, 64), generator=gen, device=dev,
-                            dtype=torch.int8) for _ in range(2))
-    sk, sv = (torch.rand((n, n_kv, D4_CAP), generator=gen, device=dev) * 0.28 + 0.02
+    k, v = (torch.randint(-128, 128, (n, n_kv, D4_CAP * per_page // 128, 64), generator=gen,
+                          device=dev, dtype=torch.int8) for _ in range(2))
+    scale = 0.28 if bits == 4 else 0.028
+    sk, sv = (torch.rand((n, n_kv, D4_CAP), generator=gen, device=dev) * scale + scale / 14
               for _ in range(2))
     lengths = torch.full((n,), length, dtype=torch.int32, device=dev)
-    slotted = Int4KVCache(k4, sk, v4, sv, lengths)
+    slotted = (P.Int4KVCache if bits == 4 else P.QuantizedKVCache)(k, sk, v, sv, lengths)
     ps, max_pages = 128, D4_CAP // 128
     perm = torch.randperm(n * max_pages, generator=torch.Generator().manual_seed(0)) + 1
     table = perm.reshape(n, max_pages).int().to(dev)
-    pay = [torch.zeros((n_kv, 1 + n * max_pages, ps // 2, 64), dtype=torch.int8, device=dev)
+    pay = [torch.zeros((n_kv, 1 + n * max_pages, per_page, 64), dtype=torch.int8, device=dev)
            for _ in range(2)]
     scales = [torch.zeros((1 + n * max_pages, n_kv, ps), device=dev) for _ in range(2)]
-    for x, p in zip((k4, v4), pay):  # any bytes do: the twin is timed, not compared
-        p[:, table.flatten().long()] = x.reshape(n, n_kv, max_pages, ps // 2, 64).transpose(
-            0, 1).reshape(n_kv, n * max_pages, ps // 2, 64)
+    for x, p in zip((k, v), pay):  # any bytes do: the twin is timed, not compared
+        p[:, table.flatten().long()] = x.reshape(n, n_kv, max_pages, per_page, 64).transpose(
+            0, 1).reshape(n_kv, n * max_pages, per_page, 64)
     for x, sc in zip((sk, sv), scales):
         sc[table.flatten().long()] = x.reshape(n, n_kv, max_pages, ps).transpose(1, 2).reshape(
             n * max_pages, n_kv, ps)
-    paged = Paged4KVCache(pay[0], scales[0], pay[1], scales[1], table, lengths)
+    paged = (P.Paged4KVCache if bits == 4 else P.PagedKVCache)(pay[0], scales[0], pay[1],
+                                                                scales[1], table, lengths)
     rows = 16 * spec // n_kv
     acc, ml = (torch.empty(shape, device=dev)
-               for shape in dt.scratch_shapes(n, n_kv, rows, D4_CAP))
+               for shape in ((n, n_kv, D4_CAP // 128, rows, 64), (n, n_kv, D4_CAP // 128, rows, 2)))
     o = torch.empty((n, 16 * spec, 64), device=dev)
     lse = torch.empty((n, 16 * spec), device=dev)
     return q, slotted, paged, (acc, ml, o, lse)
 
 
-def _d4_call(lib, q, cache, outs, arrived, n_kv, spec, paged=False):
+def _d4_call(lib, q, cache, outs, arrived, n_kv, spec, paged=False, bits=4, chunk=256):
+    """One launch of the slotted or paged entry of `lib` for `bits`, its z
+    from decode_tiling.grid's rule for `chunk`-token chunks."""
     from quantizedattention_tpu_torch.parallel import decode_tiling as dt
 
     acc, ml, o, lse = outs
     group = 16 // n_kv
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, _, grid_z = dt.grid(n_kv, 8, D4_CAP, sms)
+    grid_z = min(-(-D4_CAP // chunk), max(1, dt.RESIDENT * sms // (8 * n_kv)))
     args = [q.data_ptr(), *(x.data_ptr() for x in cache), o.data_ptr(), lse.data_ptr(),
             acc.data_ptr(), ml.data_ptr(), arrived, int(q.dtype == torch.float32)]
     stream = torch.cuda.current_stream().cuda_stream
     if paged:
-        status = lib.qa_paged4_decode(*args, 8, n_kv, group, spec, cache.k_p.shape[1], 128,
-                                      cache.page_table.shape[1], grid_z, 0.125 * LOG2_E, stream)
+        entry = lib.qa_paged4_decode if bits == 4 else lib.qa_paged_decode
+        status = entry(*args, 8, n_kv, group, spec, cache[0].shape[1], 128,
+                       cache.page_table.shape[1], grid_z, 0.125 * LOG2_E, stream)
     else:
-        status = lib.qa_decode4(*args, 8, n_kv, group, spec, D4_CAP, grid_z, 0.125 * LOG2_E,
-                                stream)
+        entry = lib.qa_decode4 if bits == 4 else lib.qa_decode
+        status = entry(*args, 8, n_kv, group, spec, D4_CAP, grid_z, 0.125 * LOG2_E, stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
+
+
+def _d4_split(lib, label, qb, cache, outs, arrived, n_kv, spec, bits) -> str:
+    """The stamped copy's phases, medians over the blocks that run."""
+    _d4_call(lib, qb, cache, outs, arrived, n_kv, spec, bits=bits)
+    torch.cuda.synchronize()
+    lib.qa_probe_reset()
+    _d4_call(lib, qb, cache, outs, arrived, n_kv, spec, bits=bits)
+    torch.cuda.synchronize()
+    stamps = np.zeros((8192, 16), dtype=np.uint64)
+    lib.qa_probe_stamps(ctypes.c_void_p(stamps.ctypes.data))
+    t = stamps[:n_kv * 8 * D4_CAP // 256, :len(D4_STAMPS)].astype(np.int64)
+    live = t[:, 1] > 0
+    first = t[:, 0][t[:, 0] > 0].min()
+    phases = np.diff(t[live], axis=1) / 1e3
+    return (f"{int(live.sum())} of {len(t)} blocks run; "
+            + ", ".join(f"{a} -> {b} {np.median(phases[:, i]):.2f}"
+                        for i, (a, b) in enumerate(zip(D4_STAMPS, D4_STAMPS[1:])))
+            + f" us (medians over the blocks that run); block starts over "
+            f"{(t[live, 0].max() - first) / 1e3:.2f} us; first start to last end "
+            f"{(t[live, -1].max() - first) / 1e3:.2f} us")
+
+
+def _d4_libs(variants, extra):
+    """Build every variant (`extra`: name -> source, in place of a variant's
+    edits or beside them) in parallel; print each build's registers and
+    spills for the instance probed."""
+    jobs = {name: _altered(edits, SRC_CACHE) for name, edits in variants.items()
+            if name not in extra}
+    jobs.update(extra)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    bits = 4 if next(iter(variants)).startswith("d4") else 8
+    for name, lib in libs.items():
+        print(f"[ptxas] {name} decode_kernel<int{bits}>: "
+              + "; ".join(_kernel_ptxas(lib, INSTANCE[bits])), flush=True)
+        if lib.qa_decode_init():
+            raise SystemExit(f"kernel_probe: {name}'s shared-memory attribute was refused")
+    return libs
 
 
 def probe_decode4(smi) -> None:
@@ -1362,16 +1440,8 @@ def probe_decode4(smi) -> None:
     call, timed at D4_SHAPES; then the stamped copy's phases per block."""
     from quantizedattention_tpu_torch.parallel import decode_attention_int4
 
-    jobs = {name: _altered(edits, SRC_CACHE) for name, edits in D4_VARIANTS.items()}
-    jobs["d4_merge_launch"] += _D4_MERGE_LAUNCH
-    jobs["d4_stamped"] = _d4_stamped()
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
-    for name, lib in libs.items():
-        print(f"[ptxas] {name} decode4_kernel: " + "; ".join(_kernel_ptxas(lib, "decode4_kernel")),
-              flush=True)
-        if lib.qa_decode4_init():
-            raise SystemExit(f"kernel_probe: {name}'s shared-memory attribute was refused")
+    libs = _d4_libs(D4_VARIANTS, {"d4_stamped": _d4_stamped(), "d4_merge_launch": _altered(
+        D4_VARIANTS["d4_merge_launch"], SRC_CACHE) + _D4_MERGE_LAUNCH})
     counters = torch.zeros(8 * 16, dtype=torch.int32, device="cuda")
     arrived = counters.data_ptr()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1405,31 +1475,90 @@ def probe_decode4(smi) -> None:
         print(f"[probe] B15 {label}: 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} "
               f"of {D4_CAP}: " + ", ".join(f"{v} {us:.2f}" for v, us in times.items())
               + f" us ({smi})", flush=True)
-        lib = libs["d4_stamped"]
-        _d4_call(lib, qb, slotted, outs, arrived, n_kv, spec)
-        torch.cuda.synchronize()
-        lib.qa_probe_reset()
-        _d4_call(lib, qb, slotted, outs, arrived, n_kv, spec)
-        torch.cuda.synchronize()
-        stamps = np.zeros((8192, 16), dtype=np.uint64)
-        lib.qa_probe_stamps(ctypes.c_void_p(stamps.ctypes.data))
-        t = stamps[:n_kv * 8 * D4_CAP // 256, :len(D4_STAMPS)].astype(np.int64)
-        live = t[:, 1] > 0
-        first = t[:, 0][t[:, 0] > 0].min()
-        phases = np.diff(t[live], axis=1) / 1e3
-        print(f"[split] B15 {label}: {int(live.sum())} of {len(t)} blocks run; "
-              + ", ".join(f"{a} -> {b} {np.median(phases[:, i]):.2f}"
-                          for i, (a, b) in enumerate(zip(D4_STAMPS, D4_STAMPS[1:])))
-              + f" us (medians over the blocks that run); block starts over "
-              f"{(t[live, 0].max() - first) / 1e3:.2f} us; first start to last end "
-              f"{(t[live, -1].max() - first) / 1e3:.2f} us", flush=True)
+        print(f"[split] B15 {label}: " + _d4_split(libs["d4_stamped"], label, qb, slotted, outs,
+                                                   arrived, n_kv, spec, 4), flush=True)
+
+
+# B13's and B14's error against their plain versions on chip_smoke.py's
+# phase-21 and phase-23 inputs (non-finite stale scales, junk pages), drawn
+# afresh from seed 0, and a digest of B15's and B16's outputs there (equal
+# digests in two checkouts: the same bits); run in a checkout's own process
+# by `python -c`
+_D8_ERRORS = """
+import hashlib, torch
+import chip_smoke as cs
+dev, out, bits = torch.device("cuda", 0), {}, hashlib.sha256()
+gen = torch.Generator(device=dev).manual_seed(0)
+for n_kv in (16, 4):
+    q, d8, p8, d4, p4 = cs._cache_kinds(dev, gen, 16, n_kv, cs.CACHE_LENGTHS, True)
+    for o in (*cs.decode_attention_int4(q, d4, return_lse=True),
+              *cs.paged4_decode_attention(q, p4, return_lse=True)):
+        bits.update(o.cpu().numpy().tobytes())
+    for name, fn, plain, c in (("b13", cs.decode_attention, cs.decode_attention_plain, d8),
+                               ("b14", cs.paged_decode_attention,
+                                cs.paged_decode_attention_plain, p8)):
+        out[f"{name} 16/{n_kv}"] = (fn(q, c) - plain(q, c)).abs().max().item()
+    for spec in (2, 5):
+        _, d8, p8, d4, p4 = cs._cache_kinds(dev, gen, 16, n_kv, cs.SPEC_LENGTHS, True)
+        q = torch.randn((8, 16, spec, 64), generator=gen, device=dev)
+        for o in (cs.verify_decode_attention_int4(q, d4), cs.paged4_verify_attention(q, p4)):
+            bits.update(o.cpu().numpy().tobytes())
+        for name, fn, plain, c in (("b13", cs.verify_decode_attention,
+                                    cs.verify_decode_attention_plain, d8),
+                                   ("b14", cs.paged_verify_attention,
+                                    cs.paged_verify_attention_plain, p8)):
+            out[f"{name} 16/{n_kv} spec {spec}"] = (fn(q, c) - plain(q, c)).abs().max().item()
+print(", ".join(f"{k} {v:.3e}" for k, v in out.items()) + f"; B15/B16 bits {bits.hexdigest()[:16]}")
+"""
+
+
+def _d8_errors(tree) -> str:
+    proc = subprocess.run([sys.executable, "-c", _D8_ERRORS], cwd=os.path.abspath(tree),
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"kernel_probe: the error check failed in {tree}:\n{proc.stderr[-3000:]}")
+    return proc.stdout.strip()
+
+
+def probe_decode8(smi, parent=None) -> None:
+    """B13's knock-outs and its 128-token-chunk variant (on bf16 q), B13 on
+    f32 q (rounded in the kernel), B14, and the whole wrapper call, timed at
+    D4_SHAPES; then the stamped copy's phases per block; then B13's and
+    B14's max|dO| against their plain versions and a digest of B15's and
+    B16's outputs, in this checkout and, given one, the parent checkout."""
+    from quantizedattention_tpu_torch.parallel import decode_attention
+
+    libs = _d4_libs(D8_VARIANTS, {"d8_stamped": _d4_stamped()})
+    counters = torch.zeros(8 * 16, dtype=torch.int32, device="cuda")
+    arrived = counters.data_ptr()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, n_kv, length, spec in D4_SHAPES:
+        q, slotted, paged, outs = _d4_case(gen, n_kv, length, spec, bits=8)
+        qb = q.to(torch.bfloat16)
+        times = {v[3:]: _device_us(lambda v=v: _d4_call(
+            libs[v], qb, slotted, outs, arrived, n_kv, spec, bits=8,
+            chunk=128 if v == "d8_chunk128" else 256)) for v in D8_VARIANTS}
+        times["f32_q"] = _device_us(
+            lambda: _d4_call(libs["d8_as_is"], q, slotted, outs, arrived, n_kv, spec, bits=8))
+        times["b14"] = _device_us(lambda: _d4_call(libs["d8_as_is"], qb, paged, outs, arrived,
+                                                   n_kv, spec, paged=True, bits=8))
+        if spec == 1:
+            times["call_f32_q"] = _device_us(lambda: decode_attention(q, slotted))
+        print(f"[probe] B13 {label}: 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} "
+              f"of {D4_CAP}: " + ", ".join(f"{v} {us:.2f}" for v, us in times.items())
+              + f" us ({smi})", flush=True)
+        print(f"[split] B13 {label}: " + _d4_split(libs["d8_stamped"], label, qb, slotted, outs,
+                                                   arrived, n_kv, spec, 8), flush=True)
+    for tree in ([parent] if parent else []) + ["."]:
+        print(f"[error] B13/B14 max|dO| vs plain (DECODE_TOL 5e-3), {os.path.abspath(tree)}: "
+              + _d8_errors(tree) + f" ({smi})", flush=True)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
-             "jvp_fwd", "jvp_dq", "decode4"]
+             "jvp_fwd", "jvp_dq", "decode4", "decode8"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -1457,6 +1586,8 @@ def main() -> None:
         probe_jvp_dq(smi)
     if "decode4" in parts:
         probe_decode4(smi)
+    if "decode8" in parts:
+        probe_decode8(smi, dirs[0] if dirs else None)
 
 
 

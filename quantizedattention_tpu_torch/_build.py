@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(_ROOT, "build")
 KERNEL_DIR = os.path.join(BUILD_DIR, "kernels")
 NATIVE = ("scheduler", "ngram")  # native/<name>.cpp -> build/lib<name>.so
 
-KERNELS = ("flash_fwd", "flash_bwd", "decode", "quant_int8", "int8_fwd", "int8_bwd",
+KERNELS = ("flash_fwd", "flash_bwd", "quant_int8", "int8_fwd", "int8_bwd",
            "int8_linear", "int4_linear", "jvp", "cache_decode")
 
 NVCC_FLAGS = [

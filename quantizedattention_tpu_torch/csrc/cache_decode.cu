@@ -1,18 +1,20 @@
-// Decode attention over the paged int8 cache (B14), the slotted int4 cache
-// (B15) and the paged int4 cache (B16), for Hopper (sm_90a), plain C ABI:
-// one query per sequence (spec == 1) or the speculative-verify staircase of
-// `spec` consecutive queries. Two kernels, three entries:
+// Decode attention over the four KV caches, for Hopper (sm_90a), plain C
+// ABI: one query per sequence (spec == 1) or the speculative-verify
+// staircase of `spec` consecutive queries. One kernel body, two payloads,
+// four entries:
 //
+//   qa_decode        replaces quantizedattention_tpu/parallel/kv_cache.py:
+//                    _decode_kernel (decode_kernel<int8>, B13);
 //   qa_paged_decode  replaces quantizedattention_tpu/parallel/paged_cache.py:
-//                    _paged_decode_kernel (paged_decode_kernel);
+//                    _paged_decode_kernel (decode_kernel<int8>, B14);
 //   qa_decode4       replaces quantizedattention_tpu/parallel/kv4_cache.py:
-//                    _decode4_kernel (decode4_kernel);
+//                    _decode4_kernel (decode_kernel<int4>, B15);
 //   qa_paged4_decode replaces quantizedattention_tpu/parallel/paged4_cache.py:
-//                    _paged4_decode_kernel (the same two).
+//                    _paged4_decode_kernel (decode_kernel<int4>, B16).
 //
-// Numerics are those of the slotted int8 kernel (decode.cu, B13): q and the
-// integer K/V are taken as bf16 (int8 and int4 values are exact in bf16),
-// s = (q . k) * (sk * qk_scale) in f32, masked tokens get -inf, p =
+// Numerics (the JAX kernels'): q and the integer K/V are taken as bf16 (int8
+// and int4 values are exact in bf16, and so is each product with a bf16 q in
+// f32), s = (q . k) * (sk * qk_scale) in f32, masked tokens get -inf, p =
 // exp2(s - m) with the online running max over 128-token tiles in token
 // order, l sums the UNROUNDED p, and the PV operand is bf16(p * sv) against
 // the integer V. The q rows of a kv head fold (GQA group, spec) as r = g *
@@ -21,52 +23,36 @@
 // -inf.
 //
 // Layouts (the JAX package's). A sequence's tokens live in "pages" of ps
-// tokens; page j of sequence s is table[s, j] (paged) or j itself (slotted
-// int4, whose pages are its 256-token pack blocks). A page holds ps payload
-// rows of int8 values, or ps/2 byte rows of int4 pairs: byte row r holds the
-// page's token r in its low nibble and token r + ps/2 in its high nibble.
-// Scales are per token, f32.
+// tokens; page j of sequence s is table[s, j] (paged) or j itself (slotted:
+// the int8 row is one page of max_len tokens, the int4 row's pages are its
+// 256-token pack blocks). A page holds ps payload rows of int8 values, or
+// ps/2 byte rows of int4 pairs: byte row r holds the page's token r in its
+// low nibble and token r + ps/2 in its high nibble. Scales are per token,
+// f32.
 //
 // What bounds them on this card: each step streams every live token's K and
 // V payload (2 * 64 bytes for int8, 2 * 32 for int4) and two f32 scales once
 // per (sequence, kv head), plus the row's page-table entries, and does about
 // 4 * group FLOP per byte: far below the FLOP/byte ridge, so they are
 // HBM-bound on the K/V stream at long lengths and latency-bound at the
-// serving lengths (a few hundred tokens: 2.8 MB at 8 x 16 heads x 304
-// tokens of int4, under a microsecond of HBM time).
+// serving lengths (a few hundred tokens: 5.3 MB of int8 at 8 x 16 heads x
+// 304 tokens, 1.6 us of HBM time).
 //
-// B14 (simple first, decode.cu's design): one block of 128 threads per (kv
-// head, sequence) holds the kv head's whole GQA group, so the group shares
-// every K/V fetch. The block walks the row's tokens in order, in tiles of
-// 128 consecutive tokens, exactly as decode.cu does: slot s of a tile is
-// token t0 + s, so B14 computes what B13 computes on the same K/V bit for
-// bit. Each slot looks up its own page in the table (an ordinary global
-// read; this card has no scalar prefetch) and stages its payload row in
-// shared memory with 16-byte loads. Only tokens below the length are read,
-// so no page at or past ceil(length / ps) is touched; a slot past the length
-// (the tail of a tile) is zero-filled, gets p = 0 by select and a zero
-// scale, never a stale scale times 0 (stale scales may be non-finite).
-// Scores use one thread per slot, the softmax one warp per group row, PV one
-// thread per (group row, channel). The staircase is decode.cu's: a per-row
-// limit where the scores are masked and p is taken, p = 0 and alpha = 1 by
-// select for a row with no live token in a tile, so verify row j equals the
-// spec == 1 launch at its own length bit for bit.
-//
-// B15/B16 (redesigned for the latency they are bound by; geometry in
-// parallel/decode_tiling.py):
-// - A kv split with an lse merge. Chunk c is tokens [256 c, 256 c + 256).
-//   The grid is (kv head, sequence, z), z = min(chunks of the capacity, 2 *
-//   SMs / pairs): sized from the capacity, never from a length (the wrapper
-//   reads no length on the host), and no larger than the card holds at once,
-//   so at the serving shape no block is launched only to find its chunk past
-//   the length. Block z takes chunks z, z + Z, ... below the length (chunk 0
-//   always runs), each chunk's copies in flight while the one before is
-//   computed. A chunk's unnormalised partial (acc, m, l) per q row goes to
-//   scratch; the last block of the (kv head, sequence) to arrive (through a
-//   counter it resets) merges them: a row's partials in chunk order over the
-//   chunks holding a token it sees, M = max m_c, L = sum l_c 2^(m_c - M), O
-//   = sum acc_c 2^(m_c - M) / L, lse = M + log2 L. (A second launch to merge
-//   was 0.7-2.6 us slower: kernel_probe.py decode4.)
+// Design (geometry in parallel/decode_tiling.py), for the latency they are
+// bound by:
+// - A kv split with an lse merge. Chunk c is tokens [CH c, CH c + CH), CH =
+//   256. The grid is (kv head, sequence, z), z = min(chunks of the capacity,
+//   2 * SMs / pairs): sized from the capacity, never from a length (the
+//   wrapper reads no length on the host), and no larger than the card holds
+//   at once, so at the serving shape no block is launched only to find its
+//   chunk past the length. Block z takes chunks z, z + Z, ... below the
+//   length (chunk 0 always runs), each chunk's copies in flight while the one
+//   before is computed. A chunk's unnormalised partial (acc, m, l) per q row
+//   goes to scratch; the last block of the (kv head, sequence) to arrive
+//   (through a counter it resets) merges them: a row's partials in chunk
+//   order over the chunks holding a token it sees, M = max m_c, L = sum l_c
+//   2^(m_c - M), O = sum acc_c 2^(m_c - M) / L, lse = M + log2 L. (A second
+//   launch to merge was 0.7-2.6 us slower: kernel_probe.py decode4.)
 // - Two round trips to device memory before the first product. The length,
 //   the table entries of a thread's first copies (clamped into the row:
 //   always in bounds) and q's first m-tile (cp.async to shared memory, so no
@@ -74,12 +60,16 @@
 //   copy of the chunk at once with cp.async in the next, zero-filled
 //   (nothing read) for a token past the length, so no page past the length,
 //   page 0 included, is touched, and a stale scale never reaches a product.
-// - Each packed byte row is staged once for both its tokens: at the slot of
-//   its "owner", the low-nibble token, or a high-nibble token whose low
-//   partner lies in another chunk. A 256-token pack block (B15) or whole
-//   pages of 128 or 256 (B16) fill a chunk's 128 rows exactly. The nibbles
-//   are widened to bf16 where the fragments are built, on the logic and
-//   bf16x2 FMA pipes (signed_nibbles_to_bf16x2), not by conversions.
+// - The payload. int4: each packed byte row is staged once for both its
+//   tokens, at the slot of its "owner" (the low-nibble token, or a
+//   high-nibble token whose low partner lies in another chunk); a 256-token
+//   pack block or whole pages of 128 or 256 fill a chunk's 128 rows exactly,
+//   and the nibbles are widened where the fragments are built, on the logic
+//   and bf16x2 FMA pipes (signed_nibbles_to_bf16x2). int8: each token's 64-
+//   byte row is staged at its own slot, the rows swapped in pairs and their
+//   32-byte halves every four rows (row8), so that both products' fragment
+//   reads are free of bank conflicts; the bytes are widened by byte permutes
+//   and f32 adds (widen4, widen_pair). No conversion instruction either way.
 // - Every thread works at a group of 1: 8 warps, the chunk's two 128-token
 //   tiles side by side, 32 tokens a warp; both products run on mma.sync
 //   m16n8k16 with the q rows padded to 16 (m-tiles of 16 rows, one at G *
@@ -94,11 +84,11 @@
 //   in warp order.
 // - Bits do not depend on the layout, on the other rows or on the block
 //   that computes a chunk: a token's slot, and so its place in every
-//   fragment and sum, is its index in the chunk, so B16 equals B15 on the
-//   same K/V, bit for bit; a row's sums read no other row, a tile or chunk a
-//   row does not see adds exact zeros (alpha = 1, p = 0 by select) or is not
-//   merged, so verify row j equals the spec == 1 launch at length len -
-//   spec + 1 + j, bit for bit.
+//   fragment and sum, is its index in the chunk, so B14 equals B13 and B16
+//   equals B15 on the same K/V, bit for bit; a row's sums read no other row,
+//   a tile or chunk a row does not see adds exact zeros (alpha = 1, p = 0 by
+//   select) or is not merged, so verify row j equals the spec == 1 launch at
+//   length len - spec + 1 + j, bit for bit.
 
 #include <math.h>
 
@@ -106,10 +96,16 @@
 
 namespace {
 
-constexpr int D = 64;         // head dim
-constexpr int TILE = 128;     // token slots per tile = threads per block
-constexpr int KROW = D + 16;  // padded shared K row (bytes): conflict-free 16-byte reads
-constexpr int THREADS = 128;
+constexpr int D = 64;          // head dim
+constexpr int TILE = 128;      // tokens an online-softmax step
+constexpr int CHUNK4 = 256;    // tokens a chunk, int4 (decode_tiling.CHUNK)
+constexpr int CHUNK8 = 256;    // tokens a chunk, int8 (decode_tiling.CHUNK)
+constexpr int THREADS = 256;   // 8 warps: 4 a tile, 32 tokens each
+constexpr int WARPS = THREADS / 32;
+constexpr int RESIDENT = 2;    // blocks an SM holds (shared memory, registers)
+constexpr int M_ROWS = 16;     // q rows an mma.sync m-tile
+constexpr int RED_ROW = D + 1; // padded row of the warps' partial acc
+constexpr int MERGE_REG = 8;   // chunks a merging thread holds in registers
 
 struct Pool {
   const int8_t* k;
@@ -126,199 +122,6 @@ struct Pool {
   long long pay_seq, pay_head, pay_page;
   long long sc_seq, sc_head, sc_page;
 };
-
-__host__ __device__ constexpr int float_words(int group) {
-  // q [G][D], scores/weights [G][TILE], acc [G][D], m/l/alpha [G], sk/sv [TILE]
-  return ((group * (2 * D + TILE + 3) + 2 * TILE) + 3) & ~3;
-}
-
-__host__ __device__ constexpr size_t smem_bytes(int group) {
-  // + K [TILE][KROW] and V [TILE][D] int8 slots
-  return static_cast<size_t>(float_words(group)) * 4 + TILE * KROW + TILE * D;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-union Bytes16 {
-  int4 v;
-  int8_t b[16];
-};
-
-// --- B14: the paged int8 pool ---
-
-__global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [n_seqs, n_kv * G, D]
-                    Pool c,
-                    float* __restrict__ o,                 // [n_seqs, n_kv * G, D]
-                    float* __restrict__ lse,               // [n_seqs, n_kv * G]
-                    int n_kv, int G, int spec, float qk_scale) {
-  // G: q rows per kv head, the GQA group times spec (row r = g * spec + j)
-  extern __shared__ __align__(16) float smem[];
-  float* q_f = smem;
-  float* w_s = q_f + G * D;       // scores, then bf16(p * sv)
-  float* acc = w_s + G * TILE;
-  float* m_s = acc + G * D;
-  float* l_s = m_s + G;
-  float* a_s = l_s + G;
-  float* sk_s = a_s + G;
-  float* sv_s = sk_s + TILE;
-  int8_t* k_s = reinterpret_cast<int8_t*>(smem + float_words(G));
-  int8_t* v_s = k_s + TILE * KROW;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int kvh = blockIdx.x;
-  const int seq = blockIdx.y;
-  const size_t head0 = static_cast<size_t>(seq) * n_kv * G + static_cast<size_t>(kvh) * G;
-  const int len = min(max(c.length[seq], 0), c.max_pages * c.ps);
-  const int* trow = c.table ? c.table + static_cast<size_t>(seq) * c.max_pages : nullptr;
-  const int8_t* k_seq = c.k + c.pay_seq * seq + c.pay_head * kvh;
-  const int8_t* v_seq = c.v + c.pay_seq * seq + c.pay_head * kvh;
-  const float* sk_seq = c.sk + c.sc_seq * seq + c.sc_head * kvh;
-  const float* sv_seq = c.sv + c.sc_seq * seq + c.sc_head * kvh;
-
-  for (int i = tid; i < G * D; i += THREADS) {
-    q_f[i] = __bfloat162float(q[head0 * D + i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TILE) {
-    const int n = min(TILE, len - t0);
-    // Slot s holds token t0 + s: its page, in-page offset and payload row.
-    for (int ci = tid; ci < TILE * (D / 16); ci += THREADS) {
-      const int s = ci / (D / 16);
-      const int col = (ci % (D / 16)) * 16;
-      int4 kk = make_int4(0, 0, 0, 0);
-      int4 vv = kk;
-      if (s < n) {
-        const int t = t0 + s;
-        const int blk = t / c.ps;
-        const int in_page = t % c.ps;
-        const int page = trow ? trow[blk] : blk;
-        const long long off =
-            c.pay_page * page + static_cast<long long>(in_page) * D + col;
-        kk = *reinterpret_cast<const int4*>(k_seq + off);
-        vv = *reinterpret_cast<const int4*>(v_seq + off);
-      }
-      *reinterpret_cast<int4*>(k_s + s * KROW + col) = kk;
-      *reinterpret_cast<int4*>(v_s + s * D + col) = vv;
-    }
-    if (tid < n) {
-      const int t = t0 + tid;
-      const int page = trow ? trow[t / c.ps] : t / c.ps;
-      const long long off = c.sc_page * page + t % c.ps;
-      sk_s[tid] = sk_seq[off];
-      sv_s[tid] = sv_seq[off];
-    } else {
-      sk_s[tid] = 0.f;
-      sv_s[tid] = 0.f;
-    }
-    __syncthreads();
-
-    // Scores: thread tid owns slot tid for every group row.
-    {
-      const int8_t* krow = k_s + tid * KROW;
-      const float scale = sk_s[tid] * qk_scale;
-      for (int g = 0; g < G; ++g) {
-        const float* qg = q_f + g * D;
-        float dot = 0.f;
-#pragma unroll
-        for (int cc = 0; cc < D; cc += 16) {
-          Bytes16 chunk;
-          chunk.v = *reinterpret_cast<const int4*>(krow + cc);
-#pragma unroll
-          for (int e = 0; e < 16; ++e) dot = fmaf(qg[cc + e], static_cast<float>(chunk.b[e]), dot);
-        }
-        // spec == 1: the limit is the length, and t0 + tid < len is tid < n
-        const int lim = len - (spec - 1) + g % spec;
-        w_s[g * TILE + tid] = t0 + tid < lim ? dot * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: one warp per group row.
-    for (int g = warp; g < G; g += THREADS / 32) {
-      float x[TILE / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < TILE / 32; ++i) {
-        x[i] = w_s[g * TILE + lane + 32 * i];
-        mx = fmaxf(mx, x[i]);
-      }
-      const float m_prev = m_s[g];
-      const float next_m = fmaxf(m_prev, warp_max(mx));
-      const int live = len - (spec - 1) + g % spec - t0;  // this row's live slots
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < TILE / 32; ++i) {
-        const int r = lane + 32 * i;
-        const float p = r < live ? exp2f(x[i] - next_m) : 0.f;
-        psum += p;
-        w_s[g * TILE + r] = __bfloat162float(__float2bfloat16_rn(p * sv_s[r]));
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        // no live token yet: m stays -inf, and exp2(-inf - -inf) would be NaN
-        const float alpha = next_m == -INFINITY ? 1.f : exp2f(m_prev - next_m);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + psum;
-        m_s[g] = next_m;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + bf16(p * sv) . v: thread -> (group row, channel).
-    for (int i = tid; i < G * D; i += THREADS) {
-      const int g = i / D;
-      const int d = i % D;
-      const float* wg = w_s + g * TILE;
-      float pv = 0.f;
-      for (int r = 0; r < n; ++r) pv = fmaf(wg[r], static_cast<float>(v_s[r * D + d]), pv);
-      acc[i] = acc[i] * a_s[g] + pv;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < G * D; i += THREADS) {
-    const float l = l_s[i / D];
-    o[head0 * D + i] = acc[i] / (l == 0.f ? 1.f : l);
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    const float l = l_s[g];
-    lse[head0 + g] = l == 0.f ? -INFINITY : m_s[g] + log2f(l);
-  }
-}
-
-int launch_paged(const void* q, const Pool& pool, void* o, void* lse, int n_seqs, int n_kv,
-                 int group, int spec, float qk_scale, void* stream) {
-  if (spec < 1 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = group * spec;
-  const size_t bytes = smem_bytes(rows);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  paged_decode_kernel<<<dim3(n_kv, n_seqs), THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), pool, static_cast<float*>(o),
-      static_cast<float*>(lse), n_kv, rows, spec, qk_scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Pool of pages [n_kv, n_pages, rpp, D] payload rows, scales [n_pages, n_kv, ps].
 Pool paged_pool(const void* k, const void* sk, const void* v, const void* sv,
@@ -342,16 +145,6 @@ Pool paged_pool(const void* k, const void* sk, const void* v, const void* sv,
   return p;
 }
 
-// --- B15 / B16: the int4 caches, a kv split with an lse merge ---
-
-constexpr int CHUNK = 256;              // tokens a chunk (decode_tiling.CHUNK)
-constexpr int THREADS4 = 256;           // 8 warps: 4 a tile, 32 tokens each
-constexpr int WARPS4 = THREADS4 / 32;
-constexpr int RESIDENT = 2;             // blocks an SM holds (shared memory, registers)
-constexpr int M_ROWS = 16;              // q rows an mma.sync m-tile
-constexpr int RED_ROW = D + 1;          // padded row of the warps' partial acc
-constexpr int MERGE_REG = 8;            // chunks a merging thread holds in registers
-
 // Where a launch keeps its partials (decode_tiling.scratch_shapes).
 struct Partials {
   float* acc;    // [n_seqs, n_kv, n_chunks, rows, D]
@@ -360,27 +153,50 @@ struct Partials {
   int n_chunks;
 };
 
-// One chunk's copies in shared memory.
+// One chunk's copies in shared memory. int4 (PACKED): packed byte rows at
+// their owner's slot, and each slot's source; int8: each token's row at
+// row8(slot, 0).
+template <bool PACKED, int CH>
 struct Stage {
-  uint8_t k[CHUNK][D];  // packed byte rows, at their owner's slot
-  uint8_t v[CHUNK][D];
-  uint16_t src[CHUNK];  // slot -> its owner's row offset in bytes | its nibble's shift (0 or 4)
-  float sk[CHUNK];
-  float sv[CHUNK];
+  uint8_t k[CH][D];
+  uint8_t v[CH][D];
+  uint16_t src[CH];  // slot -> its owner's row offset in bytes | its nibble's shift (0 or 4)
+  float sk[CH];
+  float sv[CH];
 };
 
-struct Smem4 {
-  Stage stage[2];  // the chunk computed and the next one's copies in flight
+template <int CH>
+struct Stage<false, CH> {
+  uint8_t k[CH][D];
+  uint8_t v[CH][D];
+  float sk[CH];
+  float sv[CH];
+};
+
+template <bool PACKED, int CH>
+struct Smem {
+  Stage<PACKED, CH> stage[2];  // the chunk computed and the next one's copies in flight
   float q[M_ROWS][D];  // q's first m-tile, f32 or (in its first half) bf16
-  float red_max[WARPS4][M_ROWS];  // warp w: tile w / 4
-  float red_acc[WARPS4][M_ROWS][RED_ROW];
-  float red_l[WARPS4][M_ROWS];
+  float red_max[WARPS][M_ROWS];  // warp w: tile w / (warps a tile)
+  float red_acc[WARPS][M_ROWS][RED_ROW];
+  float red_l[WARPS][M_ROWS];
   float m[M_ROWS];
   float alpha[M_ROWS];
   int merges;
 };
 
-constexpr size_t SMEM4 = (sizeof(Smem4) + 15) & ~static_cast<size_t>(15);
+template <bool PACKED, int CH>
+constexpr size_t smem_bytes() {
+  return (sizeof(Smem<PACKED, CH>) + 15) & ~static_cast<size_t>(15);
+}
+
+// Byte b of int8 slot s's row in a stage: rows swapped in pairs every other
+// pair, and 32-byte halves swapped every four rows. S's reads (a quarter of
+// a warp: two rows whole) and PV's (half a warp: 32 bytes of four rows two
+// apart) then hit 32 distinct banks; 16-byte pieces stay whole.
+__device__ __forceinline__ int row8(int s, int b) {
+  return (s ^ ((s >> 1) & 1)) * D + (b ^ ((s << 3) & 32));
+}
 
 // 16 (4) bytes global -> shared, asynchronously; zero-filled and nothing read
 // when !live.
@@ -414,47 +230,60 @@ struct ChunkPages {
   int sc;
 };
 
+template <int CH>
 __device__ __forceinline__ ChunkPages chunk_pages(const Pool& c, const int* trow, int ch, int tid) {
   ChunkPages pg;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int pj = min((ch * CHUNK + tid / 4 + 64 * i) / c.ps, c.max_pages - 1);
+  for (int i = 0; i < CH / 64; ++i) {
+    const int pj = min((ch * CH + tid / 4 + 64 * i) / c.ps, c.max_pages - 1);
     pg.pay[i] = trow ? trow[pj] : pj;
   }
-  const int pj = min((ch * CHUNK + tid) / c.ps, c.max_pages - 1);
+  const int pj = min((ch * CH + tid) / c.ps, c.max_pages - 1);
   pg.sc = trow ? trow[pj] : pj;
   return pg;
 }
 
-// Issue chunk ch's copies into `st` as one group: each byte row once, at its
-// owner's slot (a high-nibble slot whose low partner is in the chunk reads
-// the partner's), and the scales; zero-filled, nothing read, past `len`.
-__device__ __forceinline__ void stage_chunk(Stage& st, const Pool& c, int seq, int kvh, int ch,
-                                            int len, const ChunkPages& pg, int tid) {
-  const int t0 = ch * CHUNK;
+// Start chunk ch's copies into `st` as one group: int4, each byte row once,
+// at its owner's slot (a high-nibble slot whose low partner is in the chunk
+// reads the partner's); int8, each token's row at its slot; and the scales;
+// zero-filled, nothing read, past `len`.
+template <bool PACKED, int CH>
+__device__ __forceinline__ void stage_chunk(Stage<PACKED, CH>& st, const Pool& c, int seq,
+                                            int kvh, int ch, int len, const ChunkPages& pg,
+                                            int tid) {
+  const int t0 = ch * CH;
   const int half = c.ps / 2;
   const int j = tid % 4;
   const int8_t* k_seq = c.k + c.pay_seq * seq + c.pay_head * kvh;
   const int8_t* v_seq = c.v + c.pay_seq * seq + c.pay_head * kvh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < CH / 64; ++i) {
     const int s = tid / 4 + 64 * i;
     const int in_page = (t0 + s) % c.ps;
-    const bool hi = in_page >= half;
-    if (hi && s >= half) continue;  // its low partner's copy feeds it
+    int row = in_page;
+    int at = row8(s, 16 * j);
+    if constexpr (PACKED) {
+      const bool hi = in_page >= half;
+      if (hi && s >= half) continue;  // its low partner's copy feeds it
+      row = hi ? in_page - half : in_page;
+      at = s * D + 16 * j;
+    }
     const bool live = t0 + s < len;
-    const long long off = c.pay_page * pg.pay[i] +
-                          static_cast<long long>(hi ? in_page - half : in_page) * D + 16 * j;
-    cp_async16(&st.k[s][16 * j], live ? k_seq + off : c.k, live);
-    cp_async16(&st.v[s][16 * j], live ? v_seq + off : c.v, live);
+    const long long off = c.pay_page * pg.pay[i] + static_cast<long long>(row) * D + 16 * j;
+    cp_async16(&st.k[0][0] + at, live ? k_seq + off : c.k, live);
+    cp_async16(&st.v[0][0] + at, live ? v_seq + off : c.v, live);
   }
-  const int in_page = (t0 + tid) % c.ps;
-  const bool hi = in_page >= half;
-  st.src[tid] = static_cast<uint16_t>((hi && tid >= half ? tid - half : tid) * D + (hi ? 4 : 0));
-  const bool live = t0 + tid < len;
-  const long long off = c.sc_seq * seq + c.sc_head * kvh + c.sc_page * pg.sc + in_page;
-  cp_async4(&st.sk[tid], live ? c.sk + off : c.sk, live);
-  cp_async4(&st.sv[tid], live ? c.sv + off : c.sv, live);
+  if (CH == THREADS || tid < CH) {
+    const int in_page = (t0 + tid) % c.ps;
+    if constexpr (PACKED) {
+      const bool hi = in_page >= half;
+      st.src[tid] = static_cast<uint16_t>((hi && tid >= half ? tid - half : tid) * D + (hi ? 4 : 0));
+    }
+    const bool live = t0 + tid < len;
+    const long long off = c.sc_seq * seq + c.sc_head * kvh + c.sc_page * pg.sc + in_page;
+    cp_async4(&st.sk[tid], live ? c.sk + off : c.sk, live);
+    cp_async4(&st.sv[tid], live ? c.sv + off : c.sv, live);
+  }
   cp_async_commit();
 }
 
@@ -464,13 +293,14 @@ __device__ __forceinline__ void stage_chunk(Stage& st, const Pool& c, int seq, i
 // of the pair's chunk 0. Loads go through L2 (__ldcg): they read what other
 // blocks wrote during the launch; up to MERGE_REG chunks' loads are all
 // issued before the first is used.
+template <int CH>
 __device__ void merge_rows(const Partials& part, size_t pbase, size_t head0, int len, int rows,
                            int spec, float* __restrict__ o, float* __restrict__ lse) {
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
     const int r = i / D;
     const int d = i % D;
     const int lim = len - (spec - 1) + r % spec;
-    const int nc = lim <= 0 ? 0 : min(part.n_chunks, (lim + CHUNK - 1) / CHUNK);
+    const int nc = lim <= 0 ? 0 : min(part.n_chunks, (lim + CH - 1) / CH);
     float mc[MERGE_REG], lc[MERGE_REG], ac[MERGE_REG];
     float mx = -INFINITY;
 #pragma unroll
@@ -507,9 +337,12 @@ __device__ void merge_rows(const Partials& part, size_t pbase, size_t head0, int
 }
 
 // q's A fragments of m-tile mt (rows g and g + 8; zeros past `rows`), from
-// bf16 q or from f32 q rounded to bf16 here: k slot (ks, 2 j + e) holds dim
-// 16 j + 4 ks + 2 e and slot (ks, 2 j + 8 + e) dim 16 j + 4 ks + 2 e + 1, as
-// decode4_kernel's K fragments read them.
+// bf16 q or from f32 q rounded to bf16 here, with the k slots permuted as
+// decode_kernel's K fragments read them. int4 (PACKED): k slot (ks, 2 j +
+// e) holds dim 16 j + 4 ks + 2 e and slot (ks, 2 j + 8 + e) dim 16 j + 4 ks
+// + 2 e + 1; int8: slot (ks, 2 j + e) dim 16 j + 4 ks + e and slot (ks, 2 j
+// + 8 + e) dim 16 j + 4 ks + 2 + e.
+template <bool PACKED>
 __device__ __forceinline__ void load_q(const void* __restrict__ q_kv, bool q_f32, int mt,
                                        int rows, int g, int j, uint32_t (&qa)[4][4]) {
 #pragma unroll
@@ -533,24 +366,35 @@ __device__ __forceinline__ void load_q(const void* __restrict__ q_kv, bool q_f32
     }
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      qa[ks][h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x5410);
-      qa[ks][2 + h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x7632);
+      if constexpr (PACKED) {
+        qa[ks][h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x5410);
+        qa[ks][2 + h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x7632);
+      } else {
+        qa[ks][h] = w[2 * ks];
+        qa[ks][2 + h] = w[2 * ks + 1];
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS4, RESIDENT)
-decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or bf16
-               Pool c, Partials part,
-               float* __restrict__ o,    // [n_seqs, n_kv * rows, D]
-               float* __restrict__ lse,  // [n_seqs, n_kv * rows]
-               int n_kv, int rows, int spec, float qk_scale, int q_f32) {
+template <bool PACKED, int CH>
+__global__ void __launch_bounds__(THREADS, RESIDENT)
+decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or bf16
+              Pool c, Partials part,
+              float* __restrict__ o,    // [n_seqs, n_kv * rows, D]
+              float* __restrict__ lse,  // [n_seqs, n_kv * rows]
+              int n_kv, int rows, int spec, float qk_scale, int q_f32) {
   // rows: q rows per kv head, the GQA group times spec (row r = g * spec + j)
+  constexpr int TILES = CH / TILE;    // a chunk's tiles, side by side
+  constexpr int WPT = WARPS / TILES;  // warps a tile
+  constexpr int TPW = TILE / WPT;     // tokens a warp
+  constexpr int NT = TPW / 8;         // S's n-tiles a warp
+  constexpr int KK = TPW / 16;        // PV's k-steps a warp
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  Smem4& sm = *reinterpret_cast<Smem4*>(smem_raw);
+  Smem<PACKED, CH>& sm = *reinterpret_cast<Smem<PACKED, CH>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int tile = warp / 4;     // this warp's tile of the chunk
+  const int tile = warp / WPT;   // this warp's tile of the chunk
   const int g = (tid % 32) / 4;  // fragment row / column group
   const int j = tid % 4;         // thread within the quad
   const int kvh = blockIdx.x;
@@ -566,41 +410,41 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
   // chunk at once, and each later chunk's copies while the one before is
   // computed.
   const int length = c.length[seq];
-  ChunkPages pg = chunk_pages(c, trow, chunk, tid);
+  ChunkPages pg = chunk_pages<CH>(c, trow, chunk, tid);
   if (tid * 16 < M_ROWS * D * (q_f32 ? 4 : 2)) {
     const bool live = tid * 16 < rows * D * (q_f32 ? 4 : 2);
     cp_async16(reinterpret_cast<uint8_t*>(sm.q) + tid * 16,
                live ? static_cast<const uint8_t*>(q_kv) + tid * 16 : q, live);
   }
   const int len = min(max(length, 0), c.max_pages * c.ps);
-  const int n_live = max(1, (len + CHUNK - 1) / CHUNK);
+  const int n_live = max(1, (len + CH - 1) / CH);
   if (chunk >= n_live) {  // no copy may land after the block is gone
     cp_async_wait<0>();
     return;
   }
   stage_chunk(sm.stage[0], c, seq, kvh, chunk, len, pg, tid);
-  pg = chunk_pages(c, trow, chunk + gridDim.z, tid);
+  pg = chunk_pages<CH>(c, trow, chunk + gridDim.z, tid);
 
   for (int ch = chunk, it = 0; ch < n_live; ch += gridDim.z, ++it) {
-    const Stage& st = sm.stage[it & 1];
+    const Stage<PACKED, CH>& st = sm.stage[it & 1];
     if (ch + gridDim.z < n_live) {
       stage_chunk(sm.stage[(it + 1) & 1], c, seq, kvh, ch + gridDim.z, len, pg, tid);
-      pg = chunk_pages(c, trow, ch + 2 * gridDim.z, tid);
+      pg = chunk_pages<CH>(c, trow, ch + 2 * gridDim.z, tid);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int t0 = ch * CHUNK;
-    const int n_tiles = min(max((len - t0 + TILE - 1) / TILE, 0), CHUNK / TILE);
+    const int t0 = ch * CH;
+    const int n_tiles = min(max((len - t0 + TILE - 1) / TILE, 0), TILES);
     const bool runs = tile < n_tiles;  // warp-uniform
-    const int base = tile * TILE + (warp % 4) * 32;  // the warp's first slot
+    const int base = tile * TILE + (warp % WPT) * TPW;  // the warp's first slot
     const size_t prow = (pair * part.n_chunks + ch) * rows;
     const uint8_t* k_bytes = &st.k[0][0];
     const uint8_t* v_bytes = &st.v[0][0];
     for (int mt = 0; n_tiles > 0 && mt * M_ROWS < rows; ++mt) {
       uint32_t qa[4][4];  // q's A fragments of the m-tile
-      load_q(mt == 0 ? static_cast<const void*>(sm.q) : q_kv, q_f32, mt, rows, g, j, qa);
+      load_q<PACKED>(mt == 0 ? static_cast<const void*>(sm.q) : q_kv, q_f32, mt, rows, g, j, qa);
       int lim[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -609,32 +453,42 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
       }
       // rows g + 8 hold a q row only past 8 live rows (warp-uniform)
       const bool two = rows - mt * M_ROWS > 8;
-      // S = q k^T of the warp's 32 tokens (column g of n-tile n is slot base +
+      // S = q k^T of the warp's tokens (column g of n-tile n is slot base +
       // 8 n + g), scaled and masked at each row's limit; the row maxima. The
       // n-tiles' products alternate: back-to-back mma.sync are independent
-      float s[4][4];
+      float s[NT][4];
       float mx[2] = {-INFINITY, -INFINITY};
       if (runs) {
-        uint32_t kw[4][4];  // [n][ks]: the token's 4 dims 16 j + 4 ks .. + 3
-        int sh[4];
+        uint32_t kw[NT][4];  // [n][ks]: the token's 4 dims 16 j + 4 ks .. + 3
+        int sh[NT];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < NT; ++n) {
           s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-          const int at = st.src[base + 8 * n + g];
-          const uint4 x = *reinterpret_cast<const uint4*>(k_bytes + (at & ~63) + 16 * j);
+          uint4 x;
+          if constexpr (PACKED) {
+            const int at = st.src[base + 8 * n + g];
+            x = *reinterpret_cast<const uint4*>(k_bytes + (at & ~63) + 16 * j);
+            sh[n] = at & 4;
+          } else {
+            x = *reinterpret_cast<const uint4*>(k_bytes + row8(base + 8 * n + g, 16 * j));
+          }
           kw[n][0] = x.x, kw[n][1] = x.y, kw[n][2] = x.z, kw[n][3] = x.w;
-          sh[n] = at & 4;
         }
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const uint32_t y = kw[n][ks] >> sh[n];
-            mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), signed_nibbles_to_bf16x2(y >> 8));
+          for (int n = 0; n < NT; ++n) {
+            if constexpr (PACKED) {
+              const uint32_t y = kw[n][ks] >> sh[n];
+              mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), signed_nibbles_to_bf16x2(y >> 8));
+            } else {
+              const uint2 b = widen4(kw[n][ks]);
+              mma_bf16(s[n], qa[ks], b.x, b.y);
+            }
           }
         }
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < NT; ++n) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int slot = base + 8 * n + 2 * j + e;
@@ -656,26 +510,37 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
         sm.red_max[warp][g + 8] = mx[1];
       }
       // PV's V bytes (slots base + 16 kk + 2 j + {0, 1, 8, 9}, 8 bytes at dim
-      // 8 g, as int4 words shifted to their nibble) and the scales sv, read
+      // 8 g; int4 words shifted to their nibble) and the scales sv, read
       // before the barrier
-      uint32_t vw[2][4][2];
-      float sv[4][2];
+      uint32_t vw[KK][4][2];
+      float sv[NT][2];
       if (runs) {
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const uint32_t at01 = *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j]);
-          const uint32_t at89 =
-              *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j + 8]);
-          const uint32_t at[4] = {at01 & 0xFFFF, at01 >> 16, at89 & 0xFFFF, at89 >> 16};
+        for (int kk = 0; kk < KK; ++kk) {
+          if constexpr (PACKED) {
+            const uint32_t at01 =
+                *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j]);
+            const uint32_t at89 =
+                *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j + 8]);
+            const uint32_t at[4] = {at01 & 0xFFFF, at01 >> 16, at89 & 0xFFFF, at89 >> 16};
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + (at[u] & ~63u) + 8 * g);
-            vw[kk][u][0] = x.x >> (at[u] & 4);
-            vw[kk][u][1] = x.y >> (at[u] & 4);
+            for (int u = 0; u < 4; ++u) {
+              const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + (at[u] & ~63u) + 8 * g);
+              vw[kk][u][0] = x.x >> (at[u] & 4);
+              vw[kk][u][1] = x.y >> (at[u] & 4);
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int slot = base + 16 * kk + 2 * j + (u & 1) + 8 * (u >> 1);
+              const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + row8(slot, 8 * g));
+              vw[kk][u][0] = x.x;
+              vw[kk][u][1] = x.y;
+            }
           }
         }
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < NT; ++n) {
           const float2 v2 = *reinterpret_cast<const float2*>(&st.sv[base + 8 * n + 2 * j]);
           sv[n][0] = v2.x;
           sv[n][1] = v2.y;
@@ -695,10 +560,10 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
       for (int h = 0; h < 2; ++h) {
         float m0 = -INFINITY, m1;
 #pragma unroll
-        for (int w = 0; w < 4; ++w) m0 = fmaxf(m0, sm.red_max[w][g + 8 * h]);
+        for (int w = 0; w < WPT; ++w) m0 = fmaxf(m0, sm.red_max[w][g + 8 * h]);
         m1 = m0;
 #pragma unroll
-        for (int w = 4; w < WARPS4; ++w) m1 = fmaxf(m1, sm.red_max[w][g + 8 * h]);
+        for (int w = WPT; w < WARPS; ++w) m1 = fmaxf(m1, sm.red_max[w][g + 8 * h]);
         m[h] = tile == 0 ? m0 : m1;
         if (warp == 0 && j == 0) {
           sm.m[g + 8 * h] = m1;
@@ -708,9 +573,9 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
       }
       if (runs) {
         // bf16(p * sv) forms PV's A fragments (n-tiles 2 kk, 2 kk + 1 -> step kk)
-        uint32_t pa[2][4];
+        uint32_t pa[KK][4];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < NT; ++n) {
           float w[4];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -732,11 +597,16 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
         l[1] = quad_sum(l[1]);
         // PV: column g of n-tile n is dim 8 g + n
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
+        for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
-          for (int n = 0; n < 8; ++n)
-            mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], n % 4),
-                     signed_nibble_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));
+          for (int n = 0; n < 8; ++n) {
+            if constexpr (PACKED)
+              mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], n % 4),
+                       signed_nibble_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));
+            else
+              mma_bf16(acc[n], pa[kk], widen_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], n % 4),
+                       widen_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));
+          }
       }
 
       // the warps' acc and l of the live rows; acc[n][2 h + e] (row g + 8 h,
@@ -753,26 +623,26 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
         if (j == 0) sm.red_l[warp][g + 8 * h] = l[h];
       }
       __syncthreads();
-      // tile 0's sums (warps 0-3 in order) * alpha + tile 1's (warps 4-7)
+      // tile 0's sums (its warps in order) * alpha + tile 1's
       const int live_rows = min(rows - mt * M_ROWS, M_ROWS);
-      for (int i = tid; i < live_rows * D; i += THREADS4) {
+      for (int i = tid; i < live_rows * D; i += THREADS) {
         const int rr = i / D;
         const int col = i % D;
         const size_t at = prow + mt * M_ROWS + rr;
-        float s0 = sm.red_acc[0][rr][col], s1 = sm.red_acc[4][rr][col];
+        float s0 = sm.red_acc[0][rr][col], s1 = TILES > 1 ? sm.red_acc[WPT % WARPS][rr][col] : 0.f;
 #pragma unroll
-        for (int w = 1; w < 4; ++w) {
+        for (int w = 1; w < WPT; ++w) {
           s0 += sm.red_acc[w][rr][col];
-          s1 += sm.red_acc[4 + w][rr][col];
+          if (TILES > 1) s1 += sm.red_acc[(WPT + w) % WARPS][rr][col];
         }
         part.acc[at * D + 16 * (col % 32 / 8) + 8 * (col / 32) + col % 8] =
             fmaf(s0, sm.alpha[rr], s1);
         if (col == 0) {
-          float l0 = sm.red_l[0][rr], l1 = sm.red_l[4][rr];
+          float l0 = sm.red_l[0][rr], l1 = TILES > 1 ? sm.red_l[WPT % WARPS][rr] : 0.f;
 #pragma unroll
-          for (int w = 1; w < 4; ++w) {
+          for (int w = 1; w < WPT; ++w) {
             l0 += sm.red_l[w][rr];
-            l1 += sm.red_l[4 + w][rr];
+            if (TILES > 1) l1 += sm.red_l[(WPT + w) % WARPS][rr];
           }
           part.ml[at * 2] = sm.m[rr];
           part.ml[at * 2 + 1] = fmaf(l0, sm.alpha[rr], l1);
@@ -799,21 +669,22 @@ decode4_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or 
       }
     }
     __syncthreads();
-    if (sm.merges) merge_rows(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
+    if (sm.merges) merge_rows<CH>(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
   }
 }
 
-int launch4(const void* q, int q_f32, const Pool& pool, void* part_acc, void* part_ml,
-            void* arrived, void* o, void* lse, int n_seqs, int n_kv, int group, int spec,
-            int grid_z, float qk_scale, void* stream) {
+template <bool PACKED, int CH>
+int launch(const void* q, int q_f32, const Pool& pool, void* part_acc, void* part_ml,
+           void* arrived, void* o, void* lse, int n_seqs, int n_kv, int group, int spec,
+           int grid_z, float qk_scale, void* stream) {
   const int capacity = pool.max_pages * pool.ps;
   const Partials part{static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-                      static_cast<int*>(arrived), (capacity + CHUNK - 1) / CHUNK};
+                      static_cast<int*>(arrived), (capacity + CH - 1) / CH};
   if (spec < 1 || group < 1 || n_seqs < 1 || n_kv < 1 || pool.max_pages < 1 || grid_z < 1 ||
       grid_z > part.n_chunks)
     return static_cast<int>(cudaErrorInvalidValue);
-  decode4_kernel<<<dim3(n_kv, n_seqs, grid_z), THREADS4, SMEM4,
-                   static_cast<cudaStream_t>(stream)>>>(
+  decode_kernel<PACKED, CH><<<dim3(n_kv, n_seqs, grid_z), THREADS, smem_bytes<PACKED, CH>(),
+                              static_cast<cudaStream_t>(stream)>>>(
       q, pool, part, static_cast<float*>(o), static_cast<float*>(lse), n_kv, group * spec, spec,
       qk_scale, q_f32);
   return static_cast<int>(cudaGetLastError());
@@ -821,23 +692,56 @@ int launch4(const void* q, int q_f32, const Pool& pool, void* part_acc, void* pa
 
 }  // namespace
 
-// Every entry takes q [n_seqs, n_kv * group * spec, D], row (kv head, g, j).
+// Every entry takes q [n_seqs, n_kv * group * spec, D], row (kv head, g, j),
+// in f32 (q_f32 = 1, rounded to bf16 in the kernel) or bf16, the partials'
+// scratch (decode_tiling.scratch_shapes), `arrived`: n_seqs * n_kv ints that
+// are 0 (the last block of each pair merges and leaves them 0), and the
+// grid's z (decode_tiling.grid). qa_decode_init must have run once on the
+// device first.
+
+// Slotted int8 (B13): payload [b, n_kv, max_len, D], scales [b, n_kv,
+// max_len]; a row is one page of max_len tokens.
+extern "C" int qa_decode(const void* q, const void* k, const void* sk, const void* v,
+                         const void* sv, const void* length, void* o, void* lse, void* part_acc,
+                         void* part_ml, void* arrived, int q_f32, int batch, int n_kv, int group,
+                         int spec, int max_len, int grid_z, float qk_scale, void* stream) {
+  if (max_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Pool p;
+  p.k = static_cast<const int8_t*>(k);
+  p.sk = static_cast<const float*>(sk);
+  p.v = static_cast<const int8_t*>(v);
+  p.sv = static_cast<const float*>(sv);
+  p.table = nullptr;
+  p.length = static_cast<const int*>(length);
+  p.ps = max_len;
+  p.max_pages = 1;
+  p.pay_head = static_cast<long long>(max_len) * D;
+  p.pay_seq = p.pay_head * n_kv;
+  p.pay_page = p.pay_head;
+  p.sc_head = max_len;
+  p.sc_seq = static_cast<long long>(max_len) * n_kv;
+  p.sc_page = max_len;
+  return launch<false, CHUNK8>(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv,
+                               group, spec, grid_z, qk_scale, stream);
+}
+
+// Paged int8 (B14): pool [n_kv, n_pages, page_size, D], scales [n_pages,
+// n_kv, page_size], table [n_seqs, max_pages]; any positive page size.
 extern "C" int qa_paged_decode(const void* q, const void* k_pages, const void* sk,
                                const void* v_pages, const void* sv, const void* table,
-                               const void* lengths, void* o, void* lse, int n_seqs, int n_kv,
+                               const void* lengths, void* o, void* lse, void* part_acc,
+                               void* part_ml, void* arrived, int q_f32, int n_seqs, int n_kv,
                                int group, int spec, int n_pages, int page_size, int max_pages,
-                               float qk_scale, void* stream) {
+                               int grid_z, float qk_scale, void* stream) {
   if (page_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_pages, sk, v_pages, sv, table, lengths, n_kv, n_pages,
                                page_size, max_pages, page_size);
-  return launch_paged(q, pool, o, lse, n_seqs, n_kv, group, spec, qk_scale, stream);
+  return launch<false, CHUNK8>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv,
+                               group, spec, grid_z, qk_scale, stream);
 }
 
-// The int4 entries take q in f32 (q_f32 = 1, rounded to bf16 in the kernel)
-// or bf16, the partials' scratch (decode_tiling.scratch_shapes), `arrived`:
-// n_seqs * n_kv ints that are 0 (the last block of each pair merges and
-// leaves them 0), and the grid's z (decode_tiling.grid). qa_decode4_init
-// must have run once on the device first.
+// Paged int4 (B16): pool [n_kv, n_pages, page_size / 2, D] byte rows, split
+// half per page; an even page size.
 extern "C" int qa_paged4_decode(const void* q, const void* k_p, const void* sk, const void* v_p,
                                 const void* sv, const void* table, const void* lengths, void* o,
                                 void* lse, void* part_acc, void* part_ml, void* arrived,
@@ -847,12 +751,12 @@ extern "C" int qa_paged4_decode(const void* q, const void* k_p, const void* sk, 
   if (page_size <= 0 || page_size % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_p, sk, v_p, sv, table, lengths, n_kv, n_pages, page_size,
                                max_pages, page_size / 2);
-  return launch4(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv, group, spec,
-                 grid_z, qk_scale, stream);
+  return launch<true, CHUNK4>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv,
+                              group, spec, grid_z, qk_scale, stream);
 }
 
-// Slotted int4: payload [b, n_kv, max_len/2, D], scales [b, n_kv, max_len];
-// the pages are the row's 256-token pack blocks, in order.
+// Slotted int4 (B15): payload [b, n_kv, max_len/2, D], scales [b, n_kv,
+// max_len]; the pages are the row's 256-token pack blocks, in order.
 extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const void* v_p,
                           const void* sv, const void* length, void* o, void* lse, void* part_acc,
                           void* part_ml, void* arrived, int q_f32, int batch, int n_kv, int group,
@@ -874,16 +778,27 @@ extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const 
   p.sc_head = max_len;
   p.sc_seq = static_cast<long long>(max_len) * n_kv;
   p.sc_page = PACK;
-  return launch4(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv, group, spec,
-                 grid_z, qk_scale, stream);
+  return launch<true, CHUNK4>(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv,
+                              group, spec, grid_z, qk_scale, stream);
 }
 
-// B15/B16's dynamic shared memory a block (decode_tiling.shared_bytes).
-extern "C" int qa_decode4_smem_bytes() { return static_cast<int>(SMEM4); }
+// A block's dynamic shared memory (decode_tiling.shared_bytes) for the int8
+// (bits 8: B13/B14) or int4 (bits 4: B15/B16) payload; -1 for other bits.
+extern "C" int qa_decode_smem_bytes(int bits) {
+  return bits == 8   ? static_cast<int>(smem_bytes<false, CHUNK8>())
+         : bits == 4 ? static_cast<int>(smem_bytes<true, CHUNK4>())
+                     : -1;
+}
 
-// Lets B15/B16 take SMEM4 bytes of shared memory on the current device: once
-// a device, before its first launch there.
-extern "C" int qa_decode4_init() {
-  return static_cast<int>(cudaFuncSetAttribute(
-      decode4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM4)));
+// Lets both instances take their shared memory on the current device: once
+// a device, before the first launch there.
+extern "C" int qa_decode_init() {
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel<false, CHUNK8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes<false, CHUNK8>()));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(decode_kernel<true, CHUNK4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes<true, CHUNK4>()));
+  return static_cast<int>(err);
 }

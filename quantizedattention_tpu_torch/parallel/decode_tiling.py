@@ -1,6 +1,7 @@
-"""Launch geometry of the int4 decode kernels (csrc/cache_decode.cu): B15
-over the slotted int4 cache (entry `qa_decode4`) and B16 over the paged int4
-pool (`qa_paged4_decode`).
+"""Launch geometry of the decode kernels (csrc/cache_decode.cu, one kernel
+body, two payloads): B13 over the slotted int8 cache (entry `qa_decode`),
+B14 over the paged int8 pool (`qa_paged_decode`), B15 over the slotted int4
+cache (`qa_decode4`) and B16 over the paged int4 pool (`qa_paged4_decode`).
 
 Pure Python, so the CPU tests can hold it. The kv axis is split into chunks
 of CHUNK consecutive token indices, [c * CHUNK, (c + 1) * CHUNK), whatever a
@@ -12,31 +13,35 @@ many chunks in parallel as fill the card's resident blocks. Block z takes
 chunks z, z + Z, ... below the row's length (`block_chunks`; chunk 0 always
 runs, a block whose first chunk is past the length exits at once), each
 chunk's copies in flight while the one before is computed. For a chunk, a
-block stages the byte rows of its tokens once each, runs its two TILE-token
-tiles on four warps each, the online softmax's running max taken in tile
-order, and writes an unnormalised partial (acc, m, l) per q row into
+block stages the payload rows of its tokens once each, runs its two
+TILE-token tiles on four warps each, the online softmax's running max taken
+in tile order, and writes an unnormalised partial (acc, m, l) per q row into
 scratch (`scratch_shapes`). The merge sums a row's partials in chunk order
 over the chunks that hold a token it sees (`row_chunks`): M = max m_c, L =
 sum l_c 2^(m_c - M), O = sum acc_c 2^(m_c - M) / L, lse = M + log2 L; a row
 with no live token gets O = 0, lse = -inf.
 
 Layouts (the JAX package's): a sequence's tokens live in "pages" of
-`page_size` tokens, page j being table[s, j] (paged) or j itself (slotted,
-whose pages are its PACK-token pack blocks); byte row r of a page holds its
-token r in the low nibble and token r + page_size / 2 in the high nibble.
-Slot s of chunk c is token c * CHUNK + s, in tile s // TILE. The byte row of
-slot s is staged at the slot of its "owner": s itself, or, for a
-high-nibble token whose low partner lies in the same chunk, that partner's
-slot, so a byte row is staged once per chunk and feeds both its tokens
-(`owner`, `staged_rows`). Which slot a token takes, and so every sum of the
-kernel, does not depend on the layout or on which block computes the
-chunk: B16 computes what B15 computes on the same K/V, bit for bit.
+`page_size` tokens, page j being table[s, j] (paged) or j itself (slotted:
+an int8 row is one page of max_len tokens, an int4 row's pages are its
+PACK-token pack blocks). Slot s of chunk c is token c * CHUNK + s, in tile
+s // TILE. An int8 page holds one payload row a token, and slot s stages
+its token's row. An int4 page's byte row r holds its token r in the low
+nibble and token r + page_size / 2 in the high nibble; the byte row of slot
+s is staged at the slot of its "owner": s itself, or, for a high-nibble
+token whose low partner lies in the same chunk, that partner's slot, so a
+byte row is staged once per chunk and feeds both its tokens (`owner`,
+`staged_rows`). Which slot a token takes, and so every sum of the kernel,
+does not depend on the layout or on which block computes the chunk: B14
+computes what B13 computes, and B16 what B15 computes, on the same K/V,
+bit for bit.
 """
 
 from __future__ import annotations
 
 HEAD_DIM = 64
 PACK = 256  # tokens of a slotted int4 pack block: the slotted cache's "page"
+PAYLOADS = ("int8", "int4")
 CHUNK = 256  # tokens a block: a pack block, or whole pages of 128 or 256
 TILE = 128  # tokens an online-softmax step
 THREADS = 256  # eight warps: four a tile, 32 tokens each
@@ -104,43 +109,52 @@ def token_slot(t: int) -> tuple[int, int, int]:
     return t // CHUNK, s // TILE, s % TILE
 
 
-def slot_source(page_size: int, t: int) -> tuple[int, int, bool]:
-    """Token t -> (page index, the table's column or the pack block; byte
-    row within the page; high nibble)."""
+def slot_source(page_size: int, t: int, payload: str = "int4") -> tuple[int, int, bool]:
+    """Token t -> (page index, the table's column or the pack block; payload
+    row within the page; high nibble, always False for int8)."""
+    if payload == "int8":
+        return t // page_size, t % page_size, False
     half = page_size // 2
     in_page = t % page_size
     return t // page_size, in_page % half, in_page >= half
 
 
-def owner(page_size: int, s: int, chunk: int = 0) -> int:
-    """The slot whose staged byte row slot s of `chunk` reads."""
+def owner(page_size: int, s: int, chunk: int = 0, payload: str = "int4") -> int:
+    """The slot whose staged payload row slot s of `chunk` reads."""
+    if payload == "int8":
+        return s
     half = page_size // 2
     hi = (chunk * CHUNK + s) % page_size >= half
     return s - half if hi and s >= half else s
 
 
-def staged_rows(page_size: int, chunk: int, length: int) -> dict[int, tuple[int, int]]:
-    """The byte rows block `chunk` loads from device memory: owner slot ->
-    (page index, byte row), for owners below the length (the others are
-    zero-filled in shared memory and never read)."""
+def staged_rows(page_size: int, chunk: int, length: int,
+                payload: str = "int4") -> dict[int, tuple[int, int]]:
+    """The payload rows block `chunk` loads from device memory: owner slot ->
+    (page index, row), for owners below the length (the others are
+    zero-filled in shared memory and never read). int8: every live token's
+    row, at its own slot; int4: every live owner's byte row."""
     rows = {}
     for s in range(CHUNK):
         t = chunk * CHUNK + s
-        if owner(page_size, s, chunk) == s and t < length:
-            page, row, _ = slot_source(page_size, t)
+        if owner(page_size, s, chunk, payload) == s and t < length:
+            page, row, _ = slot_source(page_size, t, payload)
             rows[s] = (page, row)
     return rows
 
 
-def shared_bytes() -> int:
+def shared_bytes(payload: str) -> int:
     """Dynamic shared memory of a block: two stages (the chunk computed and
-    the next one's copies), each the K and V byte rows [CHUNK, HEAD_DIM] by
-    owner slot, a slot's source (row offset and nibble shift, 2 bytes) and
-    the f32 scales of K and V; q's first m-tile [M_ROWS, HEAD_DIM] f32;
-    each warp's row maxima, partial acc (rows
-    padded by a float) and l of an m-tile; the m-tile's m and alpha; the
-    merging flag; rounded up to 16 bytes."""
+    the next one's copies), each the K and V payload rows [CHUNK, HEAD_DIM]
+    by slot, for int4 a slot's source (row offset and nibble shift, 2
+    bytes), and the f32 scales of K and V; q's first m-tile [M_ROWS,
+    HEAD_DIM] f32; each warp's row maxima, partial acc (rows padded by a
+    float) and l of an m-tile; the m-tile's m and alpha; the merging flag;
+    rounded up to 16 bytes."""
+    if payload not in PAYLOADS:
+        raise ValueError(f"payload {payload!r} is not one of {PAYLOADS}")
     warps = THREADS // 32
-    stage = 2 * CHUNK * HEAD_DIM + 2 * CHUNK + 4 * 2 * CHUNK
+    src = 2 * CHUNK if payload == "int4" else 0
+    stage = 2 * CHUNK * HEAD_DIM + src + 4 * 2 * CHUNK
     floats = warps * M_ROWS * (1 + (HEAD_DIM + 1) + 1) + 2 * M_ROWS
     return -(-(2 * stage + 4 * (M_ROWS * HEAD_DIM + floats) + 4) // 16) * 16

@@ -20,34 +20,28 @@ byte row already holds (or, for the one row the last in-range token
 shares, that token's own bytes), so the cache ends as JAX's does.
 
 `decode_attention_int4` launches the Hopper kernel (csrc/cache_decode.cu,
-entry qa_decode4: a kv split over 256-token chunks with an lse merge,
-geometry in decode_tiling.py) for CUDA tensors and runs
-`decode_attention_int4_plain` for CPU tensors;
+entry qa_decode4: the decode kernel's int4 instance, geometry in
+decode_tiling.py, launched through decode_launch.py) for CUDA tensors and
+runs `decode_attention_int4_plain` for CPU tensors;
 `verify_decode_attention_int4` runs the same entry's speculative-verify
 staircase, or `verify_decode_attention_int4_plain`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from quantizedattention_tpu_torch._build import load_kernel
-from quantizedattention_tpu_torch.ops.common import qk_scales
 from quantizedattention_tpu_torch.ops.int4_linear import unpack_int4
-from quantizedattention_tpu_torch.parallel import decode_tiling
+from quantizedattention_tpu_torch.parallel import decode_launch
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     QuantizedKVCache,
     _one,
-    check_kernel_rows,
     decode_attention_plain,
     fold_verify,
     unfold_verify,
 )
-from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 PACK = 256  # tokens per pack block (128 byte rows)
 _HALF = PACK // 2
@@ -227,77 +221,6 @@ def decode_attention_int4_plain(q, cache: Int4KVCache, sm_scale=None, return_lse
     return decode_attention_plain(q, dense, sm_scale, return_lse, spec)
 
 
-@functools.cache
-def _entry(name: str):
-    fn = getattr(load_kernel("cache_decode"), name)
-    n_ptr, n_int = {"qa_decode4": (11, 7), "qa_paged4_decode": (12, 9)}[name]
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _device_sms(dev: torch.device) -> int:
-    """The card's SM count, after letting B15/B16 take their shared memory
-    there (qa_decode4_init, once a device)."""
-    with torch.cuda.device(dev):
-        fn = load_kernel("cache_decode").qa_decode4_init
-        fn.restype = ctypes.c_int
-        check_status(fn(), "decode4_init")
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-_ARRIVED: dict[tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _arrived(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The merge's counters, one a (sequence, kv head): B15/B16's last block
-    of a pair to arrive merges its chunks. 0 between launches (the merging
-    block resets its own). One buffer a (device, stream): launches on one
-    stream run one after another, so none shares its counters with a
-    launch in flight; grown where a launch needs more."""
-    buf = _ARRIVED.get((dev, stream))
-    if buf is None or buf.numel() < n:
-        buf = _ARRIVED[dev, stream] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-    return buf
-
-
-def launch_int4(entry: str, q, tensors, n_kv: int, capacity: int, sizes, sm_scale, return_lse,
-                spec: int):
-    """Launch B15 (`qa_decode4`) or B16 (`qa_paged4_decode`) of
-    csrc/cache_decode.cu on q [n, n_kv * group * spec, d] (folded; f32 or
-    bf16 as it comes, rounded to bf16 in the kernel, other types via f32):
-    `tensors` are the cache's payloads, scales, (table) and lengths in the
-    entry's order, `sizes` its ints after (n, n_kv, group, spec). The
-    partials' scratch follows decode_tiling.scratch_shapes; the grid is
-    sized from `capacity`, so nothing is read back from the card."""
-    n, n_q, d = q.shape
-    if n_q % (n_kv * spec) != 0:
-        raise ValueError(f"{n_q} q rows not a multiple of {n_kv} kv heads x spec {spec}")
-    group = n_q // (n_kv * spec)
-    check_kernel_rows(d, n_q // n_kv, n_kv, n)
-    _, qk_scale = qk_scales(d, sm_scale)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        q = q.float()  # the kernel rounds f32 to bf16, as .to(bfloat16) would
-    q = q.contiguous()
-    dev = require_cuda(q, *tensors)
-    _, _, grid_z = decode_tiling.grid(n_kv, n, capacity, _device_sms(dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    o = torch.empty((n, n_q, d), dtype=torch.float32, device=dev)
-    lse = torch.empty((n, n_q), dtype=torch.float32, device=dev)
-    acc_shape, ml_shape = decode_tiling.scratch_shapes(n, n_kv, n_q // n_kv, capacity)
-    part_acc = torch.empty(acc_shape, dtype=torch.float32, device=dev)
-    part_ml = torch.empty(ml_shape, dtype=torch.float32, device=dev)
-    status = _entry(entry)(
-        q.data_ptr(), *(t.data_ptr() for t in tensors), o.data_ptr(), lse.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), _arrived(dev, stream, n * n_kv).data_ptr(),
-        int(q.dtype == torch.float32), n, n_kv, group, spec, *sizes, grid_z, qk_scale, stream,
-    )
-    check_status(status, entry)
-    return (o, lse) if return_lse else o
-
-
 def _launch(q, cache: Int4KVCache, sm_scale, return_lse, spec: int):
     """Launch entry qa_decode4 on q [b, n_kv * group * spec, d] (folded)."""
     if q.ndim != 3 or q.shape[0] != cache.k_p.shape[0] or q.shape[2] != cache.k_p.shape[3]:
@@ -306,8 +229,8 @@ def _launch(q, cache: Int4KVCache, sm_scale, return_lse, spec: int):
             cache.length.dtype) != (torch.int8, torch.int8, torch.float32, torch.float32,
                                     torch.int32):
         raise TypeError("cache must be int8 payloads, f32 scales and int32 lengths")
-    return launch_int4("qa_decode4", q, cache, cache.k_p.shape[1], cache.max_len,
-                       (cache.max_len,), sm_scale, return_lse, spec)
+    return decode_launch.launch("qa_decode4", q, cache, cache.k_p.shape[1], cache.max_len,
+                                (cache.max_len,), sm_scale, return_lse, spec)
 
 
 def decode_attention_int4(q, cache: Int4KVCache, sm_scale=None, return_lse=False):

@@ -8,28 +8,24 @@ they update the cache tensors IN PLACE (a decode step would otherwise copy
 the whole cache) and return the cache for the JAX package's call form
 `cache = append_kv(cache, ...)`.
 
-`decode_attention` launches the hand-written Hopper kernel (csrc/decode.cu)
-for CUDA tensors and runs `decode_attention_plain` for CPU tensors;
-`verify_decode_attention` runs the same kernel's speculative-verify
+`decode_attention` launches the hand-written Hopper kernel (csrc/cache_decode.cu,
+entry qa_decode: a kv split over 256-token chunks with an lse merge,
+geometry in decode_tiling.py, launched through decode_launch.py) for CUDA
+tensors and runs `decode_attention_plain` for CPU tensors;
+`verify_decode_attention` runs the same entry's speculative-verify
 staircase (`spec` queries per row), or `verify_decode_attention_plain`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.common import qk_scales
+from quantizedattention_tpu_torch.parallel import decode_launch
 from quantizedattention_tpu_torch.quantize.int8 import INV_INT8_MAX
-from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
-
-_HEAD_DIM = 64  # the kernel's compiled head dim
-_MAX_GROUP = 128  # q rows (GQA group x spec) per kv head the kernels' shared memory holds
 
 
 class QuantizedKVCache(NamedTuple):
@@ -193,45 +189,15 @@ def decode_attention_plain(q, cache: QuantizedKVCache, sm_scale=None, return_lse
     return o, lse.reshape(b, n_q)
 
 
-@functools.cache
-def _kernel():
-    fn = load_kernel("decode").qa_decode
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def check_kernel_rows(d: int, rows: int, n_kv: int, n: int) -> None:
-    """The decode kernels' limits: head_dim 64, at most _MAX_GROUP q rows
-    (GQA group times spec) per kv head, grid dims within 65535."""
-    if d != _HEAD_DIM or rows > _MAX_GROUP or n_kv > 65535 or n > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, group * spec <= {_MAX_GROUP}; "
-                         f"got d={d}, group * spec={rows}")
-
-
 def _launch(q, cache: QuantizedKVCache, sm_scale, return_lse, spec: int):
-    """Launch csrc/decode.cu on q [b, n_kv * group * spec, d] (folded)."""
+    """Launch entry qa_decode on q [b, n_kv * group * spec, d] (folded)."""
     _check_decode_args(q, cache, spec)
-    b, n_q, d = q.shape
-    n_kv, max_len = cache.k_i8.shape[1], cache.max_len
-    group = n_q // (n_kv * spec)
-    check_kernel_rows(d, n_q // n_kv, n_kv, b)
     if (cache.k_i8.dtype, cache.v_i8.dtype, cache.sk.dtype, cache.sv.dtype,
             cache.length.dtype) != (torch.int8, torch.int8, torch.float32, torch.float32,
                                     torch.int32):
         raise TypeError("cache must be int8 payloads, f32 scales and int32 lengths")
-    _, qk_scale = qk_scales(d, sm_scale)
-    qb = q.to(torch.bfloat16).contiguous()
-    dev = require_cuda(qb, cache.k_i8, cache.sk, cache.v_i8, cache.sv, cache.length)
-    o = torch.empty((b, n_q, d), dtype=torch.float32, device=dev)
-    lse = torch.empty((b, n_q), dtype=torch.float32, device=dev)
-    status = _kernel()(
-        qb.data_ptr(), cache.k_i8.data_ptr(), cache.sk.data_ptr(), cache.v_i8.data_ptr(),
-        cache.sv.data_ptr(), cache.length.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, n_kv, group, spec, max_len, qk_scale, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_status(status, "decode")
-    return (o, lse) if return_lse else o
+    return decode_launch.launch("qa_decode", q, cache, cache.k_i8.shape[1], cache.max_len,
+                                (cache.max_len,), sm_scale, return_lse, spec)
 
 
 def decode_attention(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False):
@@ -267,7 +233,7 @@ def verify_decode_attention(q, cache: QuantizedKVCache, sm_scale=None):
     at or before it: the causal staircase, one launch for s positions.
 
     Returns [b, H, s, d] f32; a query with no token to see (length < s - j)
-    gives 0. CUDA tensors launch csrc/decode.cu with spec = s or raise; CPU
+    gives 0. CUDA tensors launch B13 (qa_decode) with spec = s or raise; CPU
     tensors take `verify_decode_attention_plain`. `.launches` counts
     launches."""
     if q.device.type == "cpu":

@@ -17,7 +17,8 @@ goes to the garbage page 0, never to a live page.
 
 `paged4_decode_attention` launches the Hopper kernel (csrc/cache_decode.cu,
 entry qa_paged4_decode: B15's kernel, a byte row addressed through the
-table; geometry in decode_tiling.py) for CUDA tensors and runs
+table; geometry in decode_tiling.py, launched through decode_launch.py) for
+CUDA tensors and runs
 `paged4_decode_attention_plain` for CPU tensors; `paged4_verify_attention`
 runs the same entry's speculative-verify staircase, or
 `paged4_verify_attention_plain`.
@@ -29,11 +30,11 @@ from typing import NamedTuple
 
 import torch
 
+from quantizedattention_tpu_torch.parallel import decode_launch
 from quantizedattention_tpu_torch.parallel.kv4_cache import (
     _combine,
     _pack_halves,
     _quant4_rows,
-    launch_int4,
     unpack_tokens,
 )
 from quantizedattention_tpu_torch.parallel.kv_cache import (
@@ -159,9 +160,10 @@ def _launch(q, cache: Paged4KVCache, sm_scale, return_lse, spec: int = 1):
                                          torch.int32, torch.int32):
         raise TypeError("paged cache must be int8 payloads, f32 scales, int32 table and lengths")
     max_pages = cache.page_table.shape[1]
-    return launch_int4("qa_paged4_decode", q, cache, cache.k_p.shape[0],
-                       max_pages * cache.page_size, (cache.n_pages, cache.page_size, max_pages),
-                       sm_scale, return_lse, spec)
+    return decode_launch.launch("qa_paged4_decode", q, cache, cache.k_p.shape[0],
+                                max_pages * cache.page_size,
+                                (cache.n_pages, cache.page_size, max_pages), sm_scale,
+                                return_lse, spec)
 
 
 def paged4_decode_attention(q, cache: Paged4KVCache, sm_scale=None, return_lse=False):

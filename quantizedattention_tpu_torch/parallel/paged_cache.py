@@ -18,13 +18,14 @@ write (an inactive row, or a row at table capacity) the port sends it to
 page 0 instead: a scatter that drops would need the host to read the mask
 back. No live page is ever written for such a row.
 
-`page_size` may be any positive even number: the kernel walks 128-token
-tiles that span pages, and the int4 pool (paged4_cache.py) splits a page
-into two halves. The JAX package's 128-multiple rule is a TPU tiling rule
-and is not carried over.
+`page_size` may be any positive even number: the kernel walks 256-token
+chunks that span pages (each token's row looked up through the table), and
+the int4 pool (paged4_cache.py) splits a page into two halves. The JAX
+package's 128-multiple rule is a TPU tiling rule and is not carried over.
 
 `paged_decode_attention` launches the Hopper kernel (csrc/cache_decode.cu,
-entry qa_paged_decode) for CUDA tensors and runs
+entry qa_paged_decode: B13's kernel, a token's row addressed through the
+table; launched through decode_launch.py) for CUDA tensors and runs
 `paged_decode_attention_plain` for CPU tensors; `paged_verify_attention`
 runs the same entry's speculative-verify staircase, or
 `paged_verify_attention_plain`.
@@ -32,24 +33,19 @@ runs the same entry's speculative-verify staircase, or
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from quantizedattention_tpu_torch._build import load_kernel
-from quantizedattention_tpu_torch.ops.common import qk_scales
+from quantizedattention_tpu_torch.parallel import decode_launch
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     QuantizedKVCache,
     _one,
     _row_quant,
-    check_kernel_rows,
     decode_attention_plain,
     fold_verify,
     unfold_verify,
 )
-from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 DEFAULT_PAGE_SIZE = 128
 
@@ -203,42 +199,20 @@ def paged_decode_attention_plain(q, cache: PagedKVCache, sm_scale=None, return_l
     return decode_attention_plain(q, dense, sm_scale, return_lse, spec)
 
 
-@functools.cache
-def _kernel():
-    fn = load_kernel("cache_decode").qa_paged_decode
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def launch_paged(q, cache, sm_scale, return_lse, spec: int = 1):
-    """Launch entry qa_paged_decode of csrc/cache_decode.cu on `cache`'s
-    fields (k, sk, v, sv, page_table, lengths), q folded with `spec` queries
-    per row (`fold_verify`)."""
-    k, sk, v, sv, table, lengths = cache
-    _check_paged_args(q, cache, k.shape[0], spec)
-    n, n_q, d = q.shape
-    n_kv, n_pages = k.shape[0], k.shape[1]
-    group = n_q // (n_kv * spec)
-    if k.shape[3] != d:
-        raise ValueError(f"q head_dim {d} does not fit the pool's {k.shape[3]}")
-    check_kernel_rows(d, n_q // n_kv, n_kv, n)
-    if (k.dtype, v.dtype, sk.dtype, sv.dtype, table.dtype, lengths.dtype) != (
-            torch.int8, torch.int8, torch.float32, torch.float32, torch.int32, torch.int32):
+def _launch(q, cache: PagedKVCache, sm_scale, return_lse, spec: int = 1):
+    """Launch entry qa_paged_decode on q [n, n_kv * group * spec, d] (folded)."""
+    _check_paged_args(q, cache, cache.k_pages.shape[0], spec)
+    if cache.k_pages.shape[3] != q.shape[2]:
+        raise ValueError(f"q head_dim {q.shape[2]} does not fit the pool's "
+                         f"{cache.k_pages.shape[3]}")
+    if tuple(x.dtype for x in cache) != (torch.int8, torch.float32, torch.int8, torch.float32,
+                                         torch.int32, torch.int32):
         raise TypeError("paged cache must be int8 payloads, f32 scales, int32 table and lengths")
-    _, qk_scale = qk_scales(d, sm_scale)
-    qb = q.to(torch.bfloat16).contiguous()
-    dev = require_cuda(qb, k, sk, v, sv, table, lengths)
-    o = torch.empty((n, n_q, d), dtype=torch.float32, device=dev)
-    lse = torch.empty((n, n_q), dtype=torch.float32, device=dev)
-    status = _kernel()(
-        qb.data_ptr(), k.data_ptr(), sk.data_ptr(), v.data_ptr(), sv.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        n, n_kv, group, spec, n_pages, cache.page_size, table.shape[1], qk_scale,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check_status(status, "paged_decode")
-    return (o, lse) if return_lse else o
+    max_pages = cache.page_table.shape[1]
+    return decode_launch.launch("qa_paged_decode", q, cache, cache.k_pages.shape[0],
+                                max_pages * cache.page_size,
+                                (cache.n_pages, cache.page_size, max_pages), sm_scale,
+                                return_lse, spec)
 
 
 def paged_decode_attention(q, cache: PagedKVCache, sm_scale=None, return_lse=False):
@@ -250,7 +224,7 @@ def paged_decode_attention(q, cache: PagedKVCache, sm_scale=None, return_lse=Fal
     `paged_decode_attention_plain`. `.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, cache, sm_scale, return_lse)
-    out = launch_paged(q, cache, sm_scale, return_lse)
+    out = _launch(q, cache, sm_scale, return_lse)
     paged_decode_attention.launches += 1
     return out
 
@@ -273,7 +247,7 @@ def paged_verify_attention(q, cache: PagedKVCache, sm_scale=None):
     if q.device.type == "cpu":
         return paged_verify_attention_plain(q, cache, sm_scale)
     qf, s = fold_verify(q)
-    o = launch_paged(qf, cache, sm_scale, False, s)
+    o = _launch(qf, cache, sm_scale, False, s)
     paged_verify_attention.launches += 1
     return unfold_verify(o, q.shape[1])
 
