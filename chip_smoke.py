@@ -7,13 +7,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
      holds the flash forward's (bf16 and fp32 modes) and backward's, B11
-     fast's, the int8 forward's and backward's, the decode kernel's (its
+     fast's, B10 exact's, the int8 forward's and backward's, the decode kernel's (its
      int8 instance, B13/B14, and its int4 one, B15/B16) and the weight
      matmuls' shared bytes against their launch geometry (ops/flash_tiling.py,
      ops/jvp_tiling.py, ops/int8_tiling.py, parallel/decode_tiling.py,
      ops/linear_tiling.py), and fails if ptxas spills or serializes wgmma (a
      C75xx note) in the flash forward (both modes) or backward, in B9, B11
-     and B12 fast and their preps, or spills in either decode instance;
+     and B12 fast and their preps, in B10 exact, its prep and its merge, or
+     spills in either decode instance or in B4 (whose cluster geometry is
+     held against ops/int8_tiling.py);
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
      multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
@@ -54,7 +56,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      plain prep and the call against its plain version there, then timed
      with its prep launches and the plain prep; B2 and B3 at
      GQA rep 4 (2, 16 q / 4 kv, 2048, 64) beside SDPA's backward there;
-  8. int8 kernels: B4 (quantize, byte-equal), B5 (forward), B7 (dK/dV) and
+  8. int8 kernels: B4 byte-equal to its plain version (payloads and
+     scales) on [b, h, t, 64] f32 views of [b, t, h, 64] tensors and on
+     bf16, at grains 128, 256, 512 and 1024 with a partial last grain, and
+     on one launch of three jobs at three grains; B4 (quantize, byte-equal), B5 (forward), B7 (dK/dV) and
      B8 (dQ) against their plain versions at the training shape, a ragged
      length with a large K mean, GQA rep 4, the GQA train shape (rep 2), the
      int8 serving prefill's shape (8, 16, 256, 64) and an odd cross length, with B8's K-smoothing term held on its own where
@@ -62,7 +67,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      multiple of 128, causal t < s, rep 3 and 5, one 128-key tile, rows with
      no visible key in a tile); B7 and B8 called twice on each case's
      operands for the same bits; then each timed at (4, 16, 2048, 64) causal
-     beside its plain version, and B7 and B8 also at GQA rep 4 (2, 16 q / 4
+     beside its plain version (B4 also on the model's f32 views and on
+     bf16, as B6 launches it), and B7 and B8 also at GQA rep 4 (2, 16 q / 4
      kv, 2048, 64), each with its bound and TFLOP/s (bf16-equivalent
      products over time) and the pair beside SDPA's bf16 backward at the same
      shape (K/V repeated over the group; a yardstick only);
@@ -117,7 +123,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      d] views, B12's on a prep of its own), and their prep launches (B1's
      K/V split, B9's bf16 K, V, tK, tV from the strided views, the bf16
      operands and row terms B11 and B12 share) byte-equal to the plain
-     preps;
+     preps; B10 exact on the DiT's [b, h, t, d] views of [b, t, h, d]
+     tensors at the DiT's shape and the dit_jvp path's (2, 4, 512, 64),
+     whose keys it splits, against its plain version and bit-equal on a
+     second call, its prep byte-equal to the plain prep;
  18. BASELINE config 5's gate: attention_value_and_jvp (exact) and
      torch.func.jvp of attention_jvp at (1, 2, 4096, 64) against the fp32
      oracle's (O, tO), 0 mismatches at atol 1e-2; at (1, 2, 256, 64),
@@ -132,7 +141,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      of [b, t, h, d] tensors as the DiT hands them; B1 fp32's, B9 fast's and
      B11 fast's calls split into their prep launch and the kernel, B12 fast
      on B11's prep (as the rCM step runs it) and as a call of its own; B10
-     exact also at the dit_jvp path's shape (2, 4, 512, 64);
+     exact also at the dit_jvp path's shape (2, 4, 512, 64), with its bound
+     as 3xTF32 on the tensor cores beside the fp32 CUDA cores' at each
+     shape;
  20. the rCM distillation step of the DiT at BASELINE config 5
      (DiTConfig(seq_len=4096): d_model 256, 4 heads, 2 layers; batch 4;
      `ada` and `out` drawn at 1/sqrt(fan_in), so attention reaches the
@@ -194,6 +205,7 @@ clock around synchronised work. They are records, not claims.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -279,7 +291,9 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     kv_split_tf32_plain,
     kv_to_bf16,
 )
-from quantizedattention_tpu_torch.ops import flash_tiling, jvp_tiling
+from quantizedattention_tpu_torch.ops import flash_tiling, int8_tiling, jvp_tiling
+from quantizedattention_tpu_torch.ops.int8_fwd import _qkv_jobs
+from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep, tangent_prep_plain
 from quantizedattention_tpu_torch.models.transformer import (
     _decode_logits,
     _verify_logits,
@@ -319,7 +333,8 @@ from quantizedattention_tpu_torch.parallel.paged_cache import (
     paged_verify_attention,
     paged_verify_attention_plain,
 )
-from quantizedattention_tpu_torch.quantize.int8 import quant_int8, quant_int8_uncounted
+from quantizedattention_tpu_torch.quantize.int8 import (QuantJob, quant_int8, quant_int8_plain,
+                                                        quant_int8_uncounted)
 from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -527,6 +542,10 @@ def phase_build() -> None:
              jvp_tiling.dq_shared_bytes()),
             ("jvp fwd fast", _build.load_kernel("jvp").qa_jvp_fwd_smem_bytes(),
              jvp_tiling.fwd_shared_bytes()),
+            ("jvp tangent exact", _build.load_kernel("jvp").qa_jvp_tangent_smem_bytes(),
+             jvp_tiling.tangent_shared_bytes()),
+            ("quant_int8", _build.load_kernel("quant_int8").qa_quant_int8_smem_bytes(),
+             int8_tiling.quant_shared_bytes()),
             ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
@@ -539,6 +558,12 @@ def phase_build() -> None:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
                                  f"geometry (ops/flash_tiling.py, ops/int8_tiling.py, "
                                  f"ops/jvp_tiling.py, parallel/decode_tiling.py) says {want}")
+    geometry = [ctypes.c_int() for _ in range(3)]  # B4: cluster, threads, largest grain
+    _build.load_kernel("quant_int8").qa_quant_int8_geometry(*map(ctypes.byref, geometry))
+    want = (int8_tiling.QUANT_CLUSTER, int8_tiling.QUANT_THREADS, int8_tiling.QUANT_MAX_GRAIN)
+    if tuple(g.value for g in geometry) != want:
+        raise AssertionError(f"quant_int8.cu's cluster, threads and largest grain "
+                             f"{[g.value for g in geometry]} differ from ops/int8_tiling.py's {want}")
     for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phase 15 makes
         half = -(-k // 256) * 128  # quantize_weight_int4's packed rows at group 128
         for name, plan in (("int8_linear", plan_int8(m, k, n)),
@@ -552,14 +577,15 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # the flash forward (both modes) and backward and B9, B11 and B12 fast
-    # keep every wgmma asynchronous (no C75xx note) and spill nothing; the
-    # decode kernel's two instances (two blocks an SM: at most 128 registers)
-    # spill nothing
+    # the flash forward (both modes) and backward, B9, B11 and B12 fast and
+    # B10 exact keep every wgmma asynchronous (no C75xx note) and spill
+    # nothing; the decode kernel's two instances (two blocks an SM: at most
+    # 128 registers) and B4 spill nothing
     for name, only in (("flash_fwd", None), ("flash_bwd", None),
                        ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
-                                "jvp_dq_wgmma", "jvp_bwd_prep_kernel")),
-                       ("cache_decode", ("decode_kernel",))):
+                                "jvp_dq_wgmma", "jvp_bwd_prep_kernel", "jvp_tangent_tf32",
+                                "tangent_prep_kernel", "tangent_merge_kernel")),
+                       ("cache_decode", ("decode_kernel",)), ("quant_int8", None)):
         bad = _ptxas_faults(_build.build_log(name), only)
         if bad:
             raise AssertionError(f"{name}'s ptxas notes: {bad}")
@@ -2044,7 +2070,46 @@ def _check_k_mean_term(ops, label) -> None:
         raise AssertionError("int8_bwd_dq's K-smoothing term disagrees with its plain version")
 
 
+# B4's grains with a partial last grain: (grain, t) at 2 x 4 heads
+QUANT_GRAINS = [(128, 3 * 128 - 37), (256, 3 * 256 - 37), (512, 3 * 512 - 37),
+                (1024, 2 * 1024 - 37)]
+
+
+def _check_quant(gen, dev) -> None:
+    """B4 byte-equal to its plain version (payloads and scales) on [b, h, t,
+    64] f32 views of [b, t, h, 64] tensors (through `quant_int8`) and on bf16
+    (through `quant_int8_uncounted`, as B6 launches it), Q, K (with its
+    smoothing shift) and V of one launch at each of QUANT_GRAINS, then one
+    launch of three jobs at three grains."""
+    cases = []
+    for grain, t in QUANT_GRAINS:
+        pad = -(-t // grain) * grain
+        q, k, v = _strided(*(torch.randn((2, 4, t, 64), generator=gen, device=dev)
+                             for _ in range(3)))
+        sub = k.mean(-2).reshape(8, 64).contiguous()
+        cases.append((f"grain {grain}, t {t}",
+                      [QuantJob(q, pad, grain), QuantJob(k, pad, grain, sub),
+                       QuantJob(v, pad, grain)]))
+    x = _strided(torch.randn((2, 4, 1500, 64), generator=gen, device=dev))[0]
+    cases.append(("grains 1024, 128, 512 in one launch, t 1500",
+                  [QuantJob(x, 2048, 1024), QuantJob(x, 1536, 128, x.mean(-2).reshape(8, 64)),
+                   QuantJob(x, 1536, 512)]))
+    for label, jobs in cases:
+        for dtype, fn in ((torch.float32, quant_int8), (torch.bfloat16, quant_int8_uncounted)):
+            typed = [j._replace(x=j.x.to(dtype)) for j in jobs]  # .to keeps the strides
+            assert not typed[0].x.is_contiguous()
+            got = fn(typed)
+            torch.cuda.synchronize()
+            want = quant_int8_plain(typed)
+            if not all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w)):
+                raise AssertionError(f"quant_int8 is not byte-equal to its plain version on "
+                                     f"{dtype} views, {label}")
+    log("[int8] quant_int8 byte-equal to its plain version on f32 and bf16 [b, h, t, 64] views "
+        "of [b, t, h, 64] tensors: " + "; ".join(label for label, _ in cases))
+
+
 def phase_int8_kernels(dev, gen) -> dict:
+    _check_quant(gen, dev)
     errs = []
     for b, h, h_kv, t, s, causal, shift in INT8_CASES:
         q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s)
@@ -2072,6 +2137,19 @@ def profiled_ms(fn, calls: int = 10) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type.name == "CUDA") / calls / 1e3
+
+
+def device_kernels(fn) -> dict:
+    """{CUDA kernel name: launches} of one `fn()` call, by torch.profiler,
+    after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
 def _sdpa_bwd_ms(q, k, v, do) -> float:
@@ -2149,9 +2227,16 @@ def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
     def plain_ms(fn):
         return device_ms(fn, calls=4, replays=5)
 
+    views = _strided(q, k, v)
+    bf16_jobs = _qkv_jobs(*(x.to(torch.bfloat16) for x in (q, k, v)), k_mean, to_f32=False)
+    bf16_bytes = nbytes(*(j.x for j in bf16_jobs), k_mean) + payload
     out = {
         "quant_int8": {
             "ms": device_ms(lambda: quantize_qkv(q, k, v, k_sub=k_mean)),
+            "views_ms": device_ms(lambda: quantize_qkv(*views, k_sub=k_mean)),
+            "bf16_ms": device_ms(lambda: quant_int8_uncounted(bf16_jobs)),
+            "bf16_bound_ms": bound(bf16_bytes, (2 * (q.numel() + 2 * k.numel()),
+                                                PEAK_FP32))["bound_ms"],
             "plain_ms": plain_ms(lambda: quantize_qkv_plain(q, k, v, k_sub=k_mean)),
             **bound(nbytes(q, k, v, k_mean) + payload, (2 * (q.numel() + 2 * k.numel()), PEAK_FP32))},
         "int8_fwd": {
@@ -2164,6 +2249,18 @@ def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
         r["library_ms"] = None
         log(f"[timing] {name} at ({b},{h},{t},{d}) causal: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    r = out["quant_int8"]
+    # on the model's views the kernel reads Q, K and V in place: one launch, no copy
+    launched = device_kernels(lambda: quantize_qkv(*views, k_sub=k_mean))
+    log(f"[int8] quantize_qkv on the model's f32 views launches {launched}")
+    if len(launched) != 1 or "quant_int8_kernel" not in next(iter(launched)) \
+            or sum(launched.values()) != 1:
+        raise AssertionError(f"quantize_qkv on [b, h, t, 64] views launched {launched}, want one "
+                             "B4 launch and no copy")
+    r["ms_of"] = ("quantize_qkv on contiguous f32; views_ms on the model's [b, h, t, 64] views of "
+                  "[b, t, h, 64] f32 tensors; bf16_ms one launch on bf16 views, as B6's")
+    log(f"[timing] quant_int8 on the model's f32 views {r['views_ms']:.4f} ms; on bf16 "
+        f"{r['bf16_ms']:.4f} ms (bound {r['bf16_bound_ms']:.4f} ms)")
     bwd, ops = _int8_bwd_times(q, k, v, do, sdpa["bwd"])
     bwd["int8_bwd_dkv"]["plain_ms"] = plain_ms(lambda: int8_bwd_dkv_plain(ops))
     bwd["int8_bwd_dq"]["plain_ms"] = plain_ms(lambda: int8_bwd_dq_plain(ops))
@@ -2599,6 +2696,34 @@ def phase_jvp_kernels(dev, gen) -> dict:
     for b, h, t, s, causal in JVP_CASES:
         errs.append(_check_jvp(*_jvp_inputs(gen, dev, b, h, t, s), causal,
                                f"b={b} h={h} t={t} s={s} causal={causal}"))
+    # B10 exact on the DiT's [b, h, t, d] views of [b, t, h, d] tensors (O and
+    # lse from B1 fp32), at the DiT's shape and the dit_jvp path's, whose keys
+    # it splits into ranges: twice for the same bits, its prep byte-equal to
+    # the plain prep
+    msgs = []
+    for b, h, t in ((DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len),
+                    (2, DIT_CFG.n_heads, DIT_PARITY_LEN)):
+        label = f"({b},{h},{t},64) DiT views"
+        q, k, v, tq, tk, tv = _strided(*_jvp_inputs(gen, dev, b, h, t, t)[:6])
+        o, lse = flash_attention_fwd_fp32(q, k, v)
+        got = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
+        _same_bits("jvp_tangent", (got,), (attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv),),
+                   label)
+        want = attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv)
+        diff = (got - want).abs().max().item()
+        rel = diff / want.abs().max().item()
+        prep_ok = all(torch.equal(_bits(a), _bits(w_)) for a, w_ in
+                      zip(tangent_prep(k, v, tk, tv), tangent_prep_plain(k, v, tk, tv)))
+        _, z, per = jvp_tiling.tangent_grid(b * h, t, t, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        msgs.append(f"{label}: tO {rel:.2e} ({z} key ranges of {per} tiles)")
+        if rel > JVP_EXACT_TOL or not torch.isfinite(got).all() or not prep_ok:
+            raise AssertionError(f"[jvp] {label}: jvp_tangent exact {rel:.2e} (tol "
+                                 f"{JVP_EXACT_TOL}), prep byte-equal {prep_ok}")
+        errs.append({**dict.fromkeys(JVP_KERNELS, 0.0), "jvp_tangent": diff})
+        del q, k, v, tq, tk, tv, o, lse, got, want
+    log(f"[jvp] jvp_tangent exact (3xTF32) vs plain, max|diff|/max|plain| (tol {JVP_EXACT_TOL}; "
+        "bit-equal on a second call, prep byte-equal): " + "; ".join(msgs))
     # B1's fp32 mode is GQA-native, as its bf16 mode: rep 4, a ragged length
     q, k, v, _ = _qkvdo(gen, dev, 2, 8, 2, 300, 300)
     o, lse = flash_attention_fwd_fp32(q, k, v, causal=True)
@@ -2769,6 +2894,10 @@ def phase_jvp_timing(dev, gen) -> dict:
                 bnd = bound(io[name], (dots[name] * prod, peak))
                 r[f"{tag}{key}bound_ms"] = bnd["bound_ms"]
                 r[f"{tag}{key}bound_by"] = bnd["bound_by"]
+            if name == "jvp_tangent":  # exact runs 3xTF32: 15 TF32 products
+                r[f"{tag}fp32_bound_ms"] = r[f"{tag}bound_ms"]
+                bnd = bound(io[name], (3 * dots[name] * prod, PEAK_TF32))
+                r[f"{tag}bound_ms"], r[f"{tag}bound_by"] = bnd["bound_ms"], bnd["bound_by"]
             if not tag:
                 r["plain_ms"] = few(lambda: plains[name](main))
         del q, k, v, tq, tk, tv, do, dto, o, lse, fwd, ops, dkv, dq, prep
@@ -2781,8 +2910,12 @@ def phase_jvp_timing(dev, gen) -> dict:
     r["dit_jvp_shape"] = f"({b},{h},{t},64)"
     r["dit_jvp_ms"] = device_ms(lambda: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv))
     to = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
-    bnd = bound(nbytes(q, k, v, tq, tk, tv, o, lse, to), (5 * 2 * b * h * t * t * 64, PEAK_FP32))
+    io, prod = nbytes(q, k, v, tq, tk, tv, o, lse, to), 2 * b * h * t * t * 64
+    bnd = bound(io, (15 * prod, PEAK_TF32))
     r["dit_jvp_bound_ms"], r["dit_jvp_bound_by"] = bnd["bound_ms"], bnd["bound_by"]
+    r["dit_jvp_fp32_bound_ms"] = bound(io, (5 * prod, PEAK_FP32))["bound_ms"]
+    r["bound_kind"] = ("exact: 3xTF32 on the tensor cores (15 TF32 products); fp32_bound_ms: 5 fp32 "
+                       "products on FFMA; other (fast): 5 bf16 products")
     for name, r in out.items():
         r["mode"] = {"flash_fwd_fp32": "fp32", "jvp_tangent": "exact"}.get(name, "fast")
         r["shape"] = f"({DIT_BATCH},{DIT_CFG.n_heads},{DIT_CFG.seq_len},64)"
@@ -2818,7 +2951,9 @@ def phase_jvp_timing(dev, gen) -> dict:
                 f"{r['bench_ms']:.4f}, {r['bench_call_ms']:.4f} ms")
         elif name == "jvp_tangent":
             log(f"[timing] jvp_tangent exact at the dit_jvp shape {r['dit_jvp_shape']}: "
-                f"{r['dit_jvp_ms']:.4f} ms (bound {r['dit_jvp_bound_ms']:.4f})")
+                f"{r['dit_jvp_ms']:.4f} ms (bound 3xTF32 {r['dit_jvp_bound_ms']:.4f}, fp32 CUDA "
+                f"cores {r['dit_jvp_fp32_bound_ms']:.4f}); fp32 CUDA-core bounds: DiT "
+                f"{r['fp32_bound_ms']:.4f}, bench {r['bench_fp32_bound_ms']:.4f} ms")
     return out
 
 
@@ -3076,6 +3211,10 @@ def main() -> None:
                         "replaces": replaces, "launches_by_path": by_path,
                         "max_abs_err": jvp_err[kname], **jvp_timing[kname]})
     kernels[-5]["mode_of"] = "precision='fp32' of the B1 kernel"
+    kernels[-3]["also_runs"] = (
+        "quantizedattention_tpu_torch/csrc/jvp.cu tangent_prep_kernel (K, tK, V and tV split into "
+        "TF32 big and small parts, once an exact call) and tangent_merge_kernel (the key ranges' "
+        "sums, in order, where the keys are split)")
     for row, prep, what in (
             (kernels[-5], "flash_fwd_fp32_prep", "csrc/flash_fwd.cu kv_split_tf32_kernel (K big and "
                                                  "small, V^T big and small, once a call)"),

@@ -5,11 +5,12 @@ its backward (B2 dK/dV, B3 dQ), B1's fp32 mode, the second-order
 backward's fast dK/dV (B11) and dQ (B12), and the JVP forward's fast mode
 (B9), the int4 decode kernels (B15 slotted, B16 paged) beside the paged
 int8 one (B14), and the int8 decode kernels (B13 slotted, B14 paged)
-beside the int4 ones.
+beside the int4 ones, the Q/K/V quantizer (B4) and the tangent's exact
+mode (B10 exact).
 
     python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd] [flash_bwd]
                                                    [flash_fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq]
-                                                   [decode4] [decode8]
+                                                   [decode4] [decode8] [quant] [jvp_tangent]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
 (every part without a third argument). Each checkout is timed in its own
@@ -45,7 +46,17 @@ length 304 of 1280 (the serving decode), and spec 1 at 1280 of 1280 with
 16 and 4 kv heads, the paged pools' pages of 128 shuffled, with B14 at the
 first shape on int8 pages; decode8 times B13 and B14 (`decode_attention`,
 `paged_decode_attention` and their verify wrappers) at the same shapes, and
-B15 and B16 beside them on the same shapes' int4 caches. A time is the
+B15 and B16 beside them on the same shapes' int4 caches; quant times B4
+through each checkout's `quantize_qkv` at the training shape (4, 16, 2048,
+64) on contiguous f32 and on the model's f32 [b, h, t, 64] views of [b, t,
+h, 64] tensors (that call split by torch.profiler into the B4 kernel and the
+rest: the copies a checkout makes before it), B4 on bf16 through
+`quant_int8_uncounted` on the jobs B6 builds, and B6's whole call at (4, 16,
+2048, 64) bf16 causal; jvp_tangent times B10 exact's whole
+`attention_tangent_fwd` call on the DiT's views (O and lse from B1 fp32) at
+the DiT's shape, bench_jvp's and the dit_jvp path's (2, 4, 512, 64), split
+into the B10 kernel (jvp_tangent_kernel or jvp_tangent_tf32) and the rest
+(copies, prep, merge). A time is the
 mean device time of one wrapper call, from CUDA-graph replays as in
 chip_smoke.py:device_ms. Inputs come from a seeded generator, so both
 checkouts see the same ones. Prints one JSON line a run and a summary line a
@@ -73,8 +84,11 @@ JVP_SHAPES = ((4, 4, 4096), (4, 16, 4096))
 # (kv heads of 16 q heads, length of 1280, spec), 8 sequences: the serving
 # decode and its verify pass, the capacity at 16/16 and 16/4 heads
 DECODE4_SHAPES = ((16, 304, 1), (16, 304, 5), (16, 1280, 1), (4, 1280, 1))
+QUANT_SHAPE = (4, 16, 2048)  # (b, h = h_kv, t = s): the int8 training shape
+# (b, h, t = s), non-causal: the DiT's, bench_jvp's, the dit_jvp path's
+TANGENT_SHAPES = ((4, 4, 4096), (4, 16, 4096), (2, 4, 512))
 PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd", "jvp_fwd",
-         "jvp_dq", "decode4", "decode8")
+         "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent")
 
 
 def _device_ms(torch, fn, calls=20, replays=10) -> float:
@@ -331,6 +345,55 @@ def _decode_rows(torch, gen, dev, part) -> dict:
     return rows
 
 
+def _quant_rows(torch, gen, dev) -> dict:
+    """B4 through `quantize_qkv` (contiguous f32; the model's f32 views, split
+    into the kernel and the rest), on bf16 as B6 launches it, and B6's call."""
+    from quantizedattention_tpu_torch.ops import int8_attention_fwd_fused, quantize_qkv
+    from quantizedattention_tpu_torch.ops import int8_fwd as ifwd
+    from quantizedattention_tpu_torch.quantize.int8 import quant_int8_uncounted
+
+    b, h, t = QUANT_SHAPE
+    views = _dit_views(torch, gen, dev, b, h, t, 3)
+    dense = [x.contiguous() for x in views]
+    k_mean = dense[1].mean(-2, keepdim=True)
+    bf16 = [x.to(torch.bfloat16) for x in dense]
+    k_sub = bf16[1].float().mean(-2, keepdim=True).to(torch.bfloat16)
+    jobs = ifwd._qkv_jobs(*bf16, k_sub, to_f32=False)
+
+    def on_views():
+        return quantize_qkv(*views, k_sub=k_mean)
+
+    kernel_ms, rest_ms = _kernel_split_ms(torch, on_views, ("quant_int8_kernel<float>",))
+    return {f"quant b={b} h={h} t={t}": {
+        "f32_contiguous_ms": _device_ms(torch, lambda: quantize_qkv(*dense, k_sub=k_mean)),
+        "f32_views_ms": _device_ms(torch, on_views), "f32_views_kernel_ms": kernel_ms,
+        "f32_views_rest_ms": rest_ms,
+        "bf16_ms": _device_ms(torch, lambda: quant_int8_uncounted(jobs)),
+        "b6_bf16_causal_ms": _device_ms(torch, lambda: int8_attention_fwd_fused(
+            *bf16, causal=True, k_sub=k_sub))}}
+
+
+def _tangent_rows(torch, gen, dev) -> dict:
+    """B10 exact's whole call on the DiT's views at TANGENT_SHAPES, split
+    into its kernel and the rest of the call."""
+    from quantizedattention_tpu_torch.ops import attention_tangent_fwd, flash_attention_fwd_fp32
+
+    rows = {}
+    for b, h, t in TANGENT_SHAPES:
+        q, k, v, tq, tk, tv = _dit_views(torch, gen, dev, b, h, t, 6)
+        o, lse = flash_attention_fwd_fp32(q, k, v)
+
+        def call():
+            return attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
+
+        ffma, tf32, rest = _kernel_split_ms(torch, call, ("jvp_tangent_kernel", "jvp_tangent_tf32"),
+                                            calls=5)
+        rows[f"b10 exact b={b} h={h} t={t}"] = {
+            "call_ms": _device_ms(torch, call, calls=5, replays=5), "kernel_ms": ffma + tf32,
+            "rest_ms": rest}
+    return rows
+
+
 def run_one(tree: str, parts) -> None:
     """Time `tree`'s kernels; print one JSON object."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -357,6 +420,10 @@ def run_one(tree: str, parts) -> None:
     for part in ("decode4", "decode8"):
         if part in parts:
             rows.update(_decode_rows(torch, gen, dev, part))
+    if "quant" in parts:
+        rows.update(_quant_rows(torch, gen, dev))
+    if "jvp_tangent" in parts:
+        rows.update(_tangent_rows(torch, gen, dev))
     print(json.dumps({"tree": tree, "device": torch.cuda.get_device_name(0), "rows": rows}))
 
 

@@ -4,12 +4,14 @@ B8, csrc/int8_bwd.cu), the bf16 flash forward (B1, csrc/flash_fwd.cu) and
 its backward's fast mode (B2 and B3, csrc/flash_bwd.cu), B1's fp32 mode,
 the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu) and the decode
 kernels (B13-B16, one body in csrc/cache_decode.cu, its int4 instance in
-decode4 and its int8 one in decode8); and two numerics witnesses,
-bwd_exact and fwd_fp32.
+decode4 and its int8 one in decode8), the Q/K/V quantizer (B4, quant) and
+the tangent's exact mode (B10, jvp_tangent, also a numerics witness); and
+two numerics witnesses, bwd_exact and fwd_fp32.
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                             [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
-                            [PARENT_CHECKOUT]  (all parts without arguments)
+                            [quant] [jvp_tangent] [PARENT_CHECKOUT]  (all parts without
+                            arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -159,6 +161,26 @@ against their plain versions on chip_smoke.py's phase-21 and phase-23
 inputs (stale scales, junk pages), with a digest of B15's and B16's
 outputs there, in this checkout and in PARENT_CHECKOUT when one is given
 (its own package, in a process of its own).
+quant, B4 (csrc/quant_int8.cu) at the training shape (4,16,2048,64) on
+contiguous f32, the model's strided f32 views and bf16 (B6's launch), each
+build's ptxas registers and spills printed:
+- as_is; loads_only: the payload stores skipped (loads, absmax, exchange);
+- no_div: a product instead of the IEEE division (the division's cost);
+- no_exchange: each block's own max (the cluster barriers stay);
+- early_arrive: the second cluster arrival before the stores, not after;
+- threads256: blocks of 256 threads;
+and, given a PARENT_CHECKOUT, its B4 (the first design: a block a grain,
+the grain read twice) as built there and without its second read.
+
+jvp_tangent, B10 exact (csrc/jvp.cu, 3xTF32): the worst max|dtO| / max|tO|
+against float64 over 256 seeds at the DiT's shape (4,4,4096,64) on its
+strided views (O and lse from B1 fp32), of this design, of its in_place
+variant (every tile's h V + p tV summed into the accumulator on the tensor
+cores) and, given a PARENT_CHECKOUT, of the FFMA design built from it, with
+the ratio to FFMA's (the design's gate: 4x); then the kernel alone (one
+key range, on its prep's outputs) at the DiT, bench_jvp and dit_jvp
+(2,4,512,64) shapes beside in_place and no_exp (p takes its exponent's
+argument), with each build's ptxas registers and spills.
 Exits non-zero without a GPU.
 """
 
@@ -314,6 +336,22 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
                                            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                                            + [ctypes.c_void_p])
             lib.qa_probe_merge.restype = ctypes.c_int
+    elif name.startswith("quantv"):
+        from quantizedattention_tpu_torch.quantize import int8 as tq
+        lib.qa_quant_int8.argtypes = tq._kernel().argtypes
+        lib.qa_quant_int8.restype = ctypes.c_int
+    elif name.startswith("quantp"):  # the first design's entry: contiguous rows, no strides
+        ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+        lib.qa_quant_int8.argtypes = [ptrs] * 4 + [ints] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.qa_quant_int8.restype = ctypes.c_int
+    elif name.startswith("tgv"):
+        from quantizedattention_tpu_torch.ops import jvp_tangent as tjt
+        lib.qa_jvp_tangent_tf32.argtypes = tjt._ARGTYPES["qa_jvp_tangent_tf32"]
+        lib.qa_jvp_tangent_tf32.restype = ctypes.c_int
+    elif name.startswith("tgffma"):  # the FFMA design's B10 entry (all contiguous f32)
+        from quantizedattention_tpu_torch.ops import jvp_tangent as tjt
+        lib.qa_jvp_tangent.argtypes = tjt._ARGTYPES["qa_jvp_tangent"]
+        lib.qa_jvp_tangent.restype = ctypes.c_int
     elif name.startswith("ffma"):  # the FFMA design's fp32 entry (q pre-scaled, all contiguous)
         lib.qa_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.qa_flash_fwd_f32.restype = ctypes.c_int
@@ -1554,11 +1592,254 @@ def probe_decode8(smi, parent=None) -> None:
               + _d8_errors(tree) + f" ({smi})", flush=True)
 
 
+# --------------------------------------------------------------------------
+# B4, the Q/K/V quantizer
+# --------------------------------------------------------------------------
+
+SRC_QUANT = os.path.join(_build.CSRC_DIR, "quant_int8.cu")
+QUANT_SHAPE = (4, 16, 2048)  # (b, h = h_kv, t = s): the training shape, grains of 1024
+# knock-outs of this design (each computes wrong results on purpose)
+_Q_DIV = "rintf(__fdiv_rn(v, s))"
+QUANT_VARIANTS = {
+    "quantv_as_is": [],
+    # the payload stores skipped (the scale still written): the loads, the
+    # absmax and the cluster exchange
+    "quantv_loads_only": [("    if constexpr (VEC == 4)\n      *reinterpret_cast<uint32_t*>(o)",
+                           "    if (s < 0.f)\n    if constexpr (VEC == 4)\n"
+                           "      *reinterpret_cast<uint32_t*>(o)")],
+    # a product instead of the IEEE division
+    "quantv_no_div": [(_Q_DIV, "rintf(__fmul_rn(v, s))")],
+    # each block's own max, no read of the other blocks' (the barriers stay)
+    "quantv_no_exchange": [("  for (int q = 0; q < CLUSTER; ++q) amax = fmaxf(amax, ld_cluster_f32(at, q));",
+                            "  amax = block_max;")],
+    # the second cluster arrival right after the reads of the other blocks'
+    # maxima, before the stores (the wait stays at the end)
+    "quantv_early_arrive": [("  for (int q = 0; q < CLUSTER; ++q) amax = fmaxf(amax, ld_cluster_f32(at, q));\n",
+                             "  for (int q = 0; q < CLUSTER; ++q) amax = fmaxf(amax, ld_cluster_f32(at, q));\n"
+                             "  cluster_arrive();\n"),
+                            ("  cluster_arrive();\n  cluster_wait();\n}", "  cluster_wait();\n}")],
+    # blocks of 256 threads (8 chunks a thread at grain 1024)
+    "quantv_threads256": [("constexpr int THREADS = 128;", "constexpr int THREADS = 256;")],
+}
+# the first design's (a parent checkout's): pass 2 reads nothing (it
+# quantizes zeros), so the grain is read from memory once
+_P_SECOND = ("  for (int tok = tok0 + r0; tok < tok0 + jb.grain; tok += ROWS_PER_STEP) {\n"
+             "    const float4 v = load_shifted(jb, xrow, tok, sub);\n    char4 qv;",
+             "  for (int tok = tok0 + r0; tok < tok0 + jb.grain; tok += ROWS_PER_STEP) {\n"
+             "    const float4 v = make_float4(0.f, 0.f, 0.f, 0.f);\n    char4 qv;")
+
+
+def _quant_call(lib, jobs, out):
+    """One launch of a quant_int8.cu build of this design over `jobs`."""
+    from quantizedattention_tpu_torch.quantize import int8 as tq
+    n = len(jobs)
+    views = [tq._rows_view(j.x) for j in jobs]
+    status = lib.qa_quant_int8(
+        (ctypes.c_void_p * n)(*(j.x.data_ptr() for j in jobs)),
+        (ctypes.c_longlong * (3 * n))(*(st for j in jobs for st in tq._strides(j.x))),
+        (ctypes.c_int * n)(*(v[1] for v in views)),
+        (ctypes.c_void_p * n)(*(None if j.sub is None else j.sub.data_ptr() for j in jobs)),
+        (ctypes.c_void_p * n)(*(x.data_ptr() for x, _ in out)),
+        (ctypes.c_void_p * n)(*(sc.data_ptr() for _, sc in out)),
+        (ctypes.c_int * n)(*(v[0] for v in views)), (ctypes.c_int * n)(*(v[2] for v in views)),
+        (ctypes.c_int * n)(*(j.pad for j in jobs)), (ctypes.c_int * n)(*(j.grain for j in jobs)),
+        n, tq.IN_TYPES[jobs[0].x.dtype], torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: quant launch failed with status {status}")
+
+
+def _quant_call_parent(lib, jobs, out):
+    """One launch of the first design's kernel (rows [rows, t, 64] contiguous)."""
+    from quantizedattention_tpu_torch.quantize import int8 as tq
+    n = len(jobs)
+    rows = [j.x.reshape(-1, j.x.shape[-2], 64) for j in jobs]
+    if not all(r.is_contiguous() for r in rows):
+        raise SystemExit("kernel_probe: the first design takes contiguous rows")
+    status = lib.qa_quant_int8(
+        (ctypes.c_void_p * n)(*(r.data_ptr() for r in rows)),
+        (ctypes.c_void_p * n)(*(None if j.sub is None else j.sub.data_ptr() for j in jobs)),
+        (ctypes.c_void_p * n)(*(x.data_ptr() for x, _ in out)),
+        (ctypes.c_void_p * n)(*(sc.data_ptr() for _, sc in out)),
+        (ctypes.c_int * n)(*(r.shape[0] for r in rows)), (ctypes.c_int * n)(*(r.shape[1] for r in rows)),
+        (ctypes.c_int * n)(*(j.pad for j in jobs)), (ctypes.c_int * n)(*(j.grain for j in jobs)),
+        n, tq.IN_TYPES[jobs[0].x.dtype], torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: parent quant launch failed with status {status}")
+
+
+def probe_quant(smi, parent=None) -> None:
+    """B4 at the training shape on contiguous f32, the model's strided f32
+    views and bf16 (B6's route), this design beside its knock-outs and,
+    given a parent checkout, the first design as built there and without its
+    second read of the grain; each build's ptxas registers and spills."""
+    from quantizedattention_tpu_torch.ops import int8_fwd as ifwd
+    from quantizedattention_tpu_torch.quantize import int8 as tq
+    jobs = {name: _altered(edits, SRC_QUANT) for name, edits in QUANT_VARIANTS.items()}
+    if parent:
+        with open(os.path.join(parent, "quantizedattention_tpu_torch", "csrc", "quant_int8.cu")) as f:
+            src = f.read()
+        jobs["quantp_as_is"] = src
+        if _P_SECOND[0] not in src:
+            raise SystemExit("kernel_probe: the parent's quant_int8.cu has no second read to remove")
+        jobs["quantp_no_second_read"] = src.replace(*_P_SECOND)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
+    for name, lib in libs.items():
+        print(f"[ptxas] {name}: " + "; ".join(_kernel_ptxas(lib, "quant_int8_kernel")), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, h, t = QUANT_SHAPE
+    views = [torch.randn((b, t, h, 64), generator=gen, device="cuda").transpose(1, 2)
+             for _ in range(3)]
+    k_mean = views[1].mean(-2, keepdim=True)
+    cases = {"f32 contiguous": [x.contiguous() for x in views], "f32 views": views,
+             "bf16 contiguous": [x.contiguous().to(torch.bfloat16) for x in views]}
+    for label, (q, k, v) in cases.items():
+        qjobs = ifwd._qkv_jobs(q, k, v, k_mean, to_f32=False)
+        out = [(torch.empty((tq._rows_view(j.x)[0], j.pad, 64), dtype=torch.int8, device="cuda"),
+                torch.empty((tq._rows_view(j.x)[0], j.pad // j.grain), device="cuda"))
+               for j in qjobs]
+        times = {}
+        for name, lib in libs.items():
+            if name.startswith("quantp") and label == "f32 views":
+                continue  # the first design reads contiguous rows only
+            call = _quant_call_parent if name.startswith("quantp") else _quant_call
+            times[name] = _device_us(lambda lib=lib, call=call: call(lib, qjobs, out))
+        print(f"[probe] B4 ({b},{h},{t},64) {label}: "
+              + ", ".join(f"{n} {us:.1f}" for n, us in times.items()) + f" us ({smi})", flush=True)
+
+
+# --------------------------------------------------------------------------
+# B10 exact, the tangent (3xTF32)
+# --------------------------------------------------------------------------
+
+TANGENT_CASE = (4, 4, 4096)  # the DiT's attention shape, non-causal
+TANGENT_SEEDS = 256
+# the first tile-sum design: every tile's h V + p tV summed into acc in place
+# on the tensor cores (their truncating accumulation, over every key tile)
+_TG_FRESH = ("    wgmma_tf32_m64n64k8_rs_zero(tacc, hs[0], desc_kmajor_sw128(st + TG_VB));",
+             "    wgmma_tf32_m64n64k8_rs(acc, hs[0], desc_kmajor_sw128(st + TG_VB), 1);")
+TG_VARIANTS = {
+    "tgv_as_is": [],
+    "tgv_in_place": [_TG_FRESH, ("wgmma_tf32_m64n64k8_rs(tacc,", "wgmma_tf32_m64n64k8_rs(acc,"),
+                     ("#pragma unroll\n    for (int e = 0; e < 32; ++e) acc[e] += tacc[e];\n", ""),
+                     ("    float tacc[32];\n", ""), ("    reg_fence(tacc);", "    reg_fence(acc);")],
+    # the exponential's argument as p (no MUFU.EX2)
+    "tgv_no_exp": [("exp2f(sacc[i] * qk_scale - lse[h2])", "(sacc[i] * qk_scale - lse[h2])")],
+}
+
+
+def _tangent_f64(q, k, v, o, lse, tq, tk, tv, sm_scale, qk_scale):
+    """B10's function in float64 on the same inputs (non-causal): tO."""
+    q, k, v, o, lse, tq, tk, tv = (x.double() for x in (q, k, v, o, lse, tq, tk, tv))
+    p = torch.exp2((q @ k.transpose(-1, -2)) * qk_scale - lse[..., None])
+    hp = p * ((tq @ k.transpose(-1, -2) + q @ tk.transpose(-1, -2)) * sm_scale)
+    return hp @ v + p @ tv - hp.sum(-1, keepdim=True) * o
+
+
+def _tangent_call(lib, q, o, lse, tq, prep, to, sm_scale, qk_scale, entry="qa_jvp_tangent_tf32"):
+    """One launch of a B10 exact build on the prep's outputs (z = 1)."""
+    b, h, t, _ = q.shape
+    s = prep[0].shape[1]
+    per = -(-s // 32)
+
+    def st(x):
+        return (ctypes.c_longlong * 3)(*x.stride()[:3])
+
+    status = getattr(lib, entry)(
+        q.data_ptr(), st(q), tq.data_ptr(), st(tq), o.data_ptr(), st(o), lse.data_ptr(), st(lse),
+        (ctypes.c_void_p * 8)(*(x.data_ptr() for x in prep)), to.data_ptr(), None, b, h, t, s, 0,
+        1, per, sm_scale, qk_scale, torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: B10 launch failed with status {status}")
+
+
+def _tangent_ffma(lib, q, k, v, o, lse, tq, tk, tv, sm_scale, qk_scale):
+    """The FFMA design's B10 exact (a parent checkout's csrc/jvp.cu), as its
+    wrapper launched it: every input a contiguous f32 copy."""
+    b, h, t, _ = q.shape
+    ins = [x.float().contiguous() for x in (q, k, v, tq, tk, tv, o, lse)]
+    to = torch.empty((b, h, t, 64), device=q.device)
+    status = lib.qa_jvp_tangent(*(x.data_ptr() for x in ins), to.data_ptr(), b * h, t, k.shape[2],
+                                0, 0, sm_scale, qk_scale, torch.cuda.current_stream().cuda_stream)
+    if status:
+        raise SystemExit(f"kernel_probe: the FFMA B10 launch failed with status {status}")
+    return to
+
+
+def probe_jvp_tangent(smi, parent=None) -> None:
+    """B10 exact against float64 over TANGENT_SEEDS seeds at the DiT's shape
+    (q, k, v, tq, tk, tv unit normal [b, h, t, d] views of [b, t, h, d]
+    tensors; O and lse from B1 fp32): this design (3xTF32, as
+    `attention_tangent_fwd` runs it), its first tile-sum design (in_place)
+    and, given a parent checkout, the FFMA design; worst max|dtO| / max|tO|
+    of each and the ratio to FFMA's (the design's gate: 4x). Then the
+    kernel alone at the DiT, bench_jvp and dit_jvp shapes beside its
+    knock-outs, and each build's ptxas registers and spills."""
+    from quantizedattention_tpu_torch.ops import jvp_tangent as tjt
+    jobs = {name: _altered(edits, SRC_JVP) for name, edits in TG_VARIANTS.items()}
+    if parent:
+        csrc = os.path.join(parent, "quantizedattention_tpu_torch", "csrc")
+        with open(os.path.join(csrc, "jvp.cu")) as f:
+            ffma_src = f.read()
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        futures = {name: pool.submit(_build_lib, name, src) for name, src in jobs.items()}
+        if parent:
+            futures["tgffma_parent"] = pool.submit(_build_lib, "tgffma_parent", ffma_src, csrc)
+        libs = {name: f.result() for name, f in futures.items()}
+    for name, lib in libs.items():
+        kernel = "jvp_tangent_kernel" if name.startswith("tgffma") else "jvp_tangent_tf32"
+        print(f"[ptxas] {name}: " + "; ".join(_kernel_ptxas(lib, kernel)), flush=True)
+    sm_scale, qk_scale = 0.125, 0.125 * LOG2_E
+    b, h, t = TANGENT_CASE
+    designs = {"3xTF32": None, "in_place": libs["tgv_in_place"]}
+    if parent:
+        designs["FFMA"] = libs["tgffma_parent"]
+    worst = dict.fromkeys(designs, 0.0)
+    for seed in range(TANGENT_SEEDS):
+        gen = torch.Generator(device="cuda").manual_seed(3000 + seed)
+        q, k, v, tq, tk, tv = (torch.randn((b, t, h, 64), generator=gen, device="cuda")
+                               .transpose(1, 2) for _ in range(6))
+        o, lse = tfwd.flash_attention_fwd_fp32(q, k, v)
+        want = _tangent_f64(q, k, v, o, lse, tq, tk, tv, sm_scale, qk_scale)
+        scale = want.abs().max()
+        for name, lib in designs.items():
+            if name == "3xTF32":
+                got = tjt.attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
+            elif name == "FFMA":
+                got = _tangent_ffma(lib, q, k, v, o, lse, tq, tk, tv, sm_scale, qk_scale)
+            else:
+                got = torch.empty((b, h, t, 64), device="cuda")
+                _tangent_call(lib, q, o, lse, tq, tjt.tangent_prep(k, v, tk, tv), got, sm_scale,
+                              qk_scale)
+            worst[name] = max(worst[name], ((got.double() - want).abs().max() / scale).item())
+        del want
+    ratio = ""
+    if "FFMA" in worst:
+        ratio = "; 3xTF32 / FFMA " + f"{worst['3xTF32'] / worst['FFMA']:.2f}x (the gate: 4x)"
+    print(f"[jvp_tangent] ({b},{h},{t},64), {TANGENT_SEEDS} seeds, worst max|dtO| / max|tO| "
+          "against float64: " + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()) + ratio
+          + f" ({smi})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, t in [*JVP_SHAPES, (2, 4, 512)]:
+        q, k, v, tq, tk, tv = (torch.randn((b, t, h, 64), generator=gen, device="cuda")
+                               .transpose(1, 2) for _ in range(6))
+        o, lse = tfwd.flash_attention_fwd_fp32(q, k, v)
+        prep = tjt.tangent_prep(k, v, tk, tv)
+        to = torch.empty((b, h, t, 64), device="cuda")
+        times = {n: _device_us(lambda lib=lib: _tangent_call(lib, q, o, lse, tq, prep, to, sm_scale,
+                                                             qk_scale), 2, 5)
+                 for n, lib in libs.items() if n.startswith("tgv")}
+        print(f"[probe] B10 exact kernel alone, one key range, ({b},{h},{t},64): "
+              + ", ".join(f"{n[4:]} {us:.1f}" for n, us in times.items()) + f" us ({smi})",
+              flush=True)
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
-             "jvp_fwd", "jvp_dq", "decode4", "decode8"]
+             "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -1588,6 +1869,10 @@ def main() -> None:
         probe_decode4(smi)
     if "decode8" in parts:
         probe_decode8(smi, dirs[0] if dirs else None)
+    if "quant" in parts:
+        probe_quant(smi, dirs[0] if dirs else None)
+    if "jvp_tangent" in parts:
+        probe_jvp_tangent(smi, dirs[0] if dirs else None)
 
 
 

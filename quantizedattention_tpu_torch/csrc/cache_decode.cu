@@ -198,28 +198,12 @@ __device__ __forceinline__ int row8(int s, int b) {
   return (s ^ ((s >> 1) & 1)) * D + (b ^ ((s << 3) & 32));
 }
 
-// 16 (4) bytes global -> shared, asynchronously; zero-filled and nothing read
-// when !live.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
+// 4 bytes global -> shared, asynchronously; zero-filled and nothing read
+// when !live (hopper.cuh's cp_async16 takes 16).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(live ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The pages of this thread's copies of chunk `ch`: payload pieces (slot

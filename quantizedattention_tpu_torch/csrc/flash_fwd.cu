@@ -511,59 +511,14 @@ kv_split_tf32_kernel(const float* __restrict__ k, long long k_sb, long long k_sh
                      const float* __restrict__ v, long long v_sb, long long v_sh, long long v_st,
                      float* __restrict__ kb, float* __restrict__ ks, float* __restrict__ vbt,
                      float* __restrict__ vst, int h_kv, int s, int s8) {
+  static_assert(SPLIT_KEYS == F_KEYS, "a prep block takes one 64-key tile");
   __shared__ float v_s[F_KEYS][D + 1];
-  const int bh = blockIdx.y, tid = threadIdx.x;
+  const int bh = blockIdx.y;
   const long long batch = bh / h_kv, head = bh % h_kv;
-  const int k0 = blockIdx.x * F_KEYS;
-  const float* kp = k + batch * k_sb + head * k_sh;
-  const float* vp = v + batch * v_sb + head * v_sh;
-  constexpr int PASSES = F_KEYS * (D / 4) / 256;
-  float4 kx[PASSES], vx[PASSES];
-#pragma unroll
-  for (int i = 0; i < PASSES; ++i) {  // chunk c: key c / 16, head dims 4 (c % 16) ..
-    const int c = tid + 256 * i, key = k0 + c / (D / 4);
-    kx[i] = vx[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (key < s) {
-      kx[i] = *reinterpret_cast<const float4*>(kp + key * k_st + 4 * (c % (D / 4)));
-      vx[i] = *reinterpret_cast<const float4*>(vp + key * v_st + 4 * (c % (D / 4)));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < PASSES; ++i) {
-    const int c = tid + 256 * i, r = c / (D / 4), c4 = 4 * (c % (D / 4));
-    const float x[4] = {kx[i].x, kx[i].y, kx[i].z, kx[i].w};
-    float big[4], small[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      big[e] = tf32_big(x[e]);
-      small[e] = x[e] - big[e];
-    }
-    if (k0 + r < s) {
-      const size_t at = (static_cast<size_t>(bh) * s + k0 + r) * D + c4;
-      *reinterpret_cast<float4*>(kb + at) = make_float4(big[0], big[1], big[2], big[3]);
-      *reinterpret_cast<float4*>(ks + at) = make_float4(small[0], small[1], small[2], small[3]);
-    }
-    v_s[r][c4] = vx[i].x;
-    v_s[r][c4 + 1] = vx[i].y;
-    v_s[r][c4 + 2] = vx[i].z;
-    v_s[r][c4 + 3] = vx[i].w;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < PASSES; ++i) {  // chunk c: head dim c / 16, columns 4 (c % 16) ..
-    const int c = tid + 256 * i, d = c / (F_KEYS / 4), j4 = 4 * (c % (F_KEYS / 4));
-    if (k0 + j4 >= s8) continue;
-    float big[4], small[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = v_s[(j4 / 8) * 8 + tf32_a_column(j4 % 8 + e)][d];
-      big[e] = tf32_big(x);
-      small[e] = x - big[e];
-    }
-    const size_t at = (static_cast<size_t>(bh) * D + d) * s8 + k0 + j4;
-    *reinterpret_cast<float4*>(vbt + at) = make_float4(big[0], big[1], big[2], big[3]);
-    *reinterpret_cast<float4*>(vst + at) = make_float4(small[0], small[1], small[2], small[3]);
-  }
+  const size_t kv_at = static_cast<size_t>(bh) * s * D, vt_at = static_cast<size_t>(bh) * D * s8;
+  kv_split_tf32_tile(k + batch * k_sb + head * k_sh, k_st, v + batch * v_sb + head * v_sh, v_st,
+                     kb + kv_at, ks + kv_at, vbt + vt_at, vst + vt_at, blockIdx.x * F_KEYS, s, s8,
+                     v_s);
 }
 
 // The descriptor of k-step kk (8 columns, 32 bytes of a row) of a K-major

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-memory
-// addresses, mbarriers, TMA (2-, 3- and 4-D maps), rings of TMA stages shared
+// addresses, mbarriers, TMA (2-, 3- and 4-D maps), cp.async, rings of TMA stages shared
 // by two warpgroups, thread-block clusters and the k split's sum, mma.sync,
 // wgmma (descriptors, the int8, bf16 and tf32 forms, the 3xTF32 split),
 // the exact int8 / int4 -> bf16 widening, and the element helpers of the
@@ -96,6 +96,26 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// --- cp.async ---
+
+// 16 bytes global -> shared, asynchronously; zero-filled and nothing read
+// when !live.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // --- rings of TMA stages shared by two warpgroups ---
 
 // Initialise n "full" barriers (one arrival each: the expect_tx) and zero the
@@ -140,6 +160,26 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of cluster_sync, for work between them: an arrival
+// releases this thread's earlier shared-memory writes to the cluster; the
+// wait returns once every thread of the cluster has arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The f32 at this block's shared address `addr` in the cluster's block `rank`.
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // Store an f32 at this block's shared address `addr` in the block of the
@@ -588,6 +628,129 @@ __device__ __forceinline__ void wgmma_tf32_m64n64k8_rs(float (&d)[32], const uin
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32 -> f32, A from registers (the
+// fragment above), B K-major from shared memory. d[4 n + e]: row 16 * warp +
+// lane / 4 + 8 * (e / 2), column 8 n + 2 * (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_tf32_m64n32k8_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] = A[64 x 8] B[8 x 32]: the first k-step of a product into d,
+// whose old values it neither reads nor keeps alive ("=f"), as
+// wgmma_tf32_m64n64k8_rs_zero.
+__device__ __forceinline__ void wgmma_tf32_m64n32k8_rs_zero(float (&d)[16],
+                                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+// d[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32 -> f32; A and B K-major from
+// shared memory. d's layout as wgmma_tf32_m64n32k8_rs's.
+__device__ __forceinline__ void wgmma_tf32_m64n32k8_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The 3xTF32 prep of one pair of key-side operands, 64 keys of one (batch,
+// head) by a block of 256 threads: K [s, 64] f32 (rows `k_st` floats apart,
+// contiguous, 16-byte aligned) -> K big and K small at kb, ks [s, 64]; V ->
+// V^T big and V^T small at vbt, vst [64, s8] (s8 = s rounded up to 8),
+// column 8g + j holding key 8g + tf32_a_column(j), keys past s 0: the
+// K-major B of a product whose A fragments come from an accumulator whose
+// columns are keys. Keys k0 .. k0 + 63; V passes through v_s. Every load is
+// issued before the first store.
+constexpr int SPLIT_KEYS = 64;
+
+__device__ __forceinline__ void kv_split_tf32_tile(const float* __restrict__ kp, long long k_st,
+                                                   const float* __restrict__ vp, long long v_st,
+                                                   float* __restrict__ kb, float* __restrict__ ks,
+                                                   float* __restrict__ vbt,
+                                                   float* __restrict__ vst, int k0, int s, int s8,
+                                                   float (&v_s)[SPLIT_KEYS][65]) {
+  constexpr int HD = 64;
+  const int tid = threadIdx.x;
+  constexpr int PASSES = SPLIT_KEYS * (HD / 4) / 256;
+  float4 kx[PASSES], vx[PASSES];
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {  // chunk c: key c / 16, head dims 4 (c % 16) ..
+    const int c = tid + 256 * i, key = k0 + c / (HD / 4);
+    kx[i] = vx[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < s) {
+      kx[i] = *reinterpret_cast<const float4*>(kp + key * k_st + 4 * (c % (HD / 4)));
+      vx[i] = *reinterpret_cast<const float4*>(vp + key * v_st + 4 * (c % (HD / 4)));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    const int c = tid + 256 * i, r = c / (HD / 4), c4 = 4 * (c % (HD / 4));
+    const float x[4] = {kx[i].x, kx[i].y, kx[i].z, kx[i].w};
+    float big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      big[e] = tf32_big(x[e]);
+      small[e] = x[e] - big[e];
+    }
+    if (k0 + r < s) {
+      const size_t at = static_cast<size_t>(k0 + r) * HD + c4;
+      *reinterpret_cast<float4*>(kb + at) = make_float4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<float4*>(ks + at) = make_float4(small[0], small[1], small[2], small[3]);
+    }
+    v_s[r][c4] = vx[i].x;
+    v_s[r][c4 + 1] = vx[i].y;
+    v_s[r][c4 + 2] = vx[i].z;
+    v_s[r][c4 + 3] = vx[i].w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {  // chunk c: head dim c / 16, columns 4 (c % 16) ..
+    const int c = tid + 256 * i, d = c / (SPLIT_KEYS / 4), j4 = 4 * (c % (SPLIT_KEYS / 4));
+    if (k0 + j4 >= s8) continue;
+    float big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = v_s[(j4 / 8) * 8 + tf32_a_column(j4 % 8 + e)][d];
+      big[e] = tf32_big(x);
+      small[e] = x - big[e];
+    }
+    const size_t at = static_cast<size_t>(d) * s8 + k0 + j4;
+    *reinterpret_cast<float4*>(vbt + at) = make_float4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<float4*>(vst + at) = make_float4(small[0], small[1], small[2], small[3]);
+  }
 }
 
 // --- exact widening to bf16, off the conversion pipe ---

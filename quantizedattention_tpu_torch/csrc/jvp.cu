@@ -35,9 +35,11 @@
 //           round them: q, k, v, tq, tk, tv, dO and dtO, and p, h = p tS, dS,
 //           tSb and tP.
 //           Sums, row terms and the rescaling stay f32. The rCM step's mode.
-//   exact - fp32 on the CUDA cores (FFMA), nothing rounded
-//           (Precision.HIGHEST): attention_jvp, the default of
-//           attention_value_and_jvp, and the JVP ring's mode.
+//   exact - nothing rounded (Precision.HIGHEST): attention_jvp, the default
+//           of attention_value_and_jvp, and the JVP ring's mode. B9, B11 and
+//           B12 in fp32 on the CUDA cores (FFMA); B10 (what
+//           torch.func.jvp of attention_jvp runs) in 3xTF32 on wgmma,
+//           jvp_tangent_tf32 after tangent_prep_kernel.
 //
 // What bounds them on this card: operations. Per visible (q, k) pair and
 // head_dim column, B9 runs 6 products, B10 5, B11 12 and B12 9 (2 flops
@@ -46,20 +48,22 @@
 // TFLOP/s) at ~25 ms.
 //
 // Ownership, both modes: B9, B10 and B12 own a q tile (32 rows exact, 64
-// for B10 fast, 128 for B9 and B12 fast) and loop over key tiles (32 keys;
-// 64 for B9 fast) up to the causal diagonal; B11 owns a key tile (its rows are keys: 32 exact, 128
-// fast) and loops over the 32-row q tiles that can see it,
-// computing the transposed tile quantities. Each output tile has one owner
-// and there are no atomics, so results repeat from run to run.
+// for B10 fast, 128 for B9 and B12 fast and B10 exact) and loop over key
+// tiles (32 keys; 64 for B9 fast) up to the causal diagonal; B11 owns a key
+// tile (its rows are keys: 32 exact, 128 fast) and loops over the 32-row q
+// tiles that can see it, computing the transposed tile quantities. Each
+// output tile has one owner (B10 exact may split a tile's keys into ranges,
+// whose sums a second launch adds in a fixed order) and there are no
+// atomics, so results repeat from run to run.
 //
-// Exact design (simple first): one block of 256 threads per (b*h, 32-row
-// tile); thread (r, c) = (tid / 8, tid % 8) owns tile row r and output
+// Exact design of B9, B11 and B12 (simple first): one block of 256 threads
+// per (b*h, 32-row tile); thread (r, c) = (tid / 8, tid % 8) owns tile row r and output
 // columns c + 8i. A row's eight owners sit in one warp: row max and sums
 // reduce by shuffles, and the probability tiles pass to the second products
 // through padded shared rows behind a __syncwarp. Operand tiles live in
 // padded f32 rows (conflict-free column reads) in dynamic shared memory
 // (57-82 KB). No register blocking and no pipelining yet.
-// Fast design: below, beside its kernels.
+// B10 exact's design and the fast designs: below, beside their kernels.
 
 #include <math.h>
 
@@ -235,91 +239,6 @@ jvp_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       lse[row] = m + log2f(l_safe);
       mu[row] = rs / l_safe;
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B10: tO given (O, lse)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-jvp_tangent_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ tq,
-                   const float* __restrict__ tk, const float* __restrict__ tv,
-                   const float* __restrict__ o, const float* __restrict__ lse,
-                   float* __restrict__ to, int t, int s, int causal, float sm_scale,
-                   float qk_scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* tq_s = q_s + TILE;
-  float* k_s = tq_s + TILE;
-  float* tk_s = k_s + TILE;
-  float* v_s = tk_s + TILE;
-  float* tv_s = v_s + TILE;
-  float* p_s = tv_s + TILE;
-  float* h_s = p_s + PTILE;
-
-  const int tid = threadIdx.x;
-  const int r = tid / 8;
-  const int c = tid % 8;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * T;
-  const int pos = q0 + r;
-  const bool live = pos < t;
-  const size_t row = bh * t + pos;
-  const float lse_r = live ? lse[row] : 0.f;
-  const float* kb = k + bh * s * D;
-  const float* tkb = tk + bh * s * D;
-  const float* vb = v + bh * s * D;
-  const float* tvb = tv + bh * s * D;
-
-  load_tile(q_s, q + bh * t * D, q0, t);
-  load_tile(tq_s, tq + bh * t * D, q0, t);
-
-  float hsum = 0.f;
-  float acc[D / 8];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i] = 0.f;
-
-  const int kv_hi = causal ? min(s, q0 + T) : s;
-  const int n_tiles = (kv_hi + T - 1) / T;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * T;
-    __syncthreads();
-    load_tile(k_s, kb, k0, s);
-    load_tile(tk_s, tkb, k0, s);
-    load_tile(v_s, vb, k0, s);
-    load_tile(tv_s, tvb, k0, s);
-    __syncthreads();
-
-    float sc[T / 8], ta[T / 8], tb[T / 8];
-    logits(sc, ta, tb, q_s, tq_s, k_s, tk_s, r, c);
-#pragma unroll
-    for (int i = 0; i < T / 8; ++i) {
-      const int col = k0 + c + 8 * i;
-      const bool valid = live && col < s && (!causal || col <= pos);
-      const float p = valid ? exp2f(sc[i] * qk_scale - lse_r) : 0.f;
-      const float h = p * ((ta[i] + tb[i]) * sm_scale);
-      hsum += h;
-      p_s[r * PROW + c + 8 * i] = p;
-      h_s[r * PROW + c + 8 * i] = h;
-    }
-    __syncwarp();
-
-    for (int kk = 0; kk < T; ++kk) {
-      const float p = p_s[r * PROW + kk];
-      const float h = h_s[r * PROW + kk];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        acc[i] = fmaf(h, v_s[kk * FROW + c + 8 * i], fmaf(p, tv_s[kk * FROW + c + 8 * i], acc[i]));
-    }
-  }
-
-  const float rsum = row_sum8(hsum);
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      to[row * D + c + 8 * i] = acc[i] - rsum * o[row * D + c + 8 * i];
   }
 }
 
@@ -1726,6 +1645,373 @@ jvp_fwd_prep_kernel(FwdPrepArgs args, int heads, int s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// B10 exact: 3xTF32 on wgmma
+// ---------------------------------------------------------------------------
+//
+// tO = sum over keys of (h V + p tV) - r O, p = exp2(S qk_scale - lse) (0
+// where masked), h = p tS sm_scale, r = rowsum(h), with lse given: p is final
+// on first touch, so acc and r are plain sums over keys (no rescaling) and a
+// block may take any range of key tiles; the ranges' sums are added in a
+// fixed order (tangent_merge_kernel), so results repeat bit for bit. Each of
+// the five products (S = Q K^T, tS = tQ K^T + Q tK^T, h V, p tV) runs as
+// 3xTF32 on wgmma (x = big + small, hopper.cuh; big.big + big.small +
+// small.big).
+//
+// Bound: operations. 15 TF32 products over every visible (q, k) pair at 495
+// TFLOP/s; the operands are 8 f32 tensors read once.
+// Design: B1 fp32's in a wider form. One prep launch (tangent_prep_kernel)
+// writes K and tK big and small [bh, s, 64] (the K-major B of S and tS) and
+// V and tV as V^T big and small [bh, 64, s8] in tf32_a_column order (the B
+// of h V and p tV, whose A fragments come from the S / tS accumulators).
+// Then blocks of two warpgroups per (bh, 128 rows, key range z), 64 rows
+// each, grid (q blocks, bh, z): both warpgroups walk the range's 32-key
+// tiles through a 3-stage TMA ring (64 KB a stage: eight [32 x 64] f32
+// operands), refilled by the second warpgroup to release a stage. Q big, Q
+// small and tQ big sit in registers as A fragments (96 registers), tQ small
+// in shared memory (its product SS). A tile: S and tS issued together (72
+// wgmma m64n32k8) and waited for; p and h split into TF32 A fragments in
+// registers; the 24 wgmma m64n64k8 of the tile's h V + p tV issued into a
+// fresh accumulator and waited for, then added to acc in f32; the stage
+// released. Nothing is in flight across the loop's back edge (C7515) or at
+// a ring wait (C7517). The epilogue writes tO = acc - r O, or, when the keys
+// are split (z > 1), the range's acc and r for the merge.
+
+constexpr int TG_THREADS = 256;            // two warpgroups
+constexpr int TG_ROWS = 128;               // q rows a block: 64 a warpgroup
+constexpr int TG_KEYS = 32;                // keys a tile
+constexpr int TG_STAGES = 3;               // tiles in flight
+constexpr int TG_KBLK = TG_KEYS * 128;     // a [32 keys x 32 dims] f32 block: rows of 128 bytes
+constexpr int TG_VBLK = D * 128;           // a [64 dims x 32 keys] f32 block
+constexpr int TG_QBLK = 64 * 128;          // a [64 rows x 32 dims] f32 block of tQ small
+// A stage: K big, K small, tK big, tK small (two K blocks each: dims 0-31,
+// 32-63), then V^T big, V^T small, tV^T big, tV^T small (a V block each).
+constexpr int TG_KS = 2 * TG_KBLK, TG_TKB = 4 * TG_KBLK, TG_TKS = 6 * TG_KBLK;
+constexpr int TG_VB = 8 * TG_KBLK, TG_VS = TG_VB + TG_VBLK, TG_TVB = TG_VB + 2 * TG_VBLK,
+              TG_TVS = TG_VB + 3 * TG_VBLK;
+constexpr int TG_STAGE = 8 * TG_KBLK + 4 * TG_VBLK;
+constexpr int TG_OFF_RING = 2 * 2 * TG_QBLK;  // tQ small first: two blocks a warpgroup
+constexpr int TG_OFF_BAR = TG_OFF_RING + TG_STAGES * TG_STAGE;
+constexpr int TG_COUNTERS = 64;  // byte offset of the release counters in the barrier area
+constexpr int TG_SMEM = TG_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
+static_assert(TG_STAGES * 8 <= TG_COUNTERS && TG_COUNTERS + TG_STAGES * 4 <= 128, "barriers fit");
+static_assert(TG_SMEM <= 232448, "a block's shared memory fits an H100 SM");
+
+// The prep's two pairs: (K, V) at z = 0, (tK, tV) at z = 1.
+struct SplitArgs {
+  const float* k[2];
+  const float* v[2];
+  long long k_st[2][3], v_st[2][3];  // batch, head, token strides in elements
+  float* out[2][4];                  // big, small [bh, s, 64]; V^T big, small [bh, 64, s8]
+};
+
+// f32 strides (in elements) that keep 16-byte rows 16-byte aligned.
+bool strides16(const long long (&st)[3]) {
+  return st[0] % 4 == 0 && st[1] % 4 == 0 && st[2] % 4 == 0;
+}
+
+// Grid (s / 64 rounded up, bh, 2): a block takes 64 keys of one pair.
+__global__ void __launch_bounds__(256)
+tangent_prep_kernel(SplitArgs a, int heads, int s, int s8) {
+  __shared__ float v_s[SPLIT_KEYS][D + 1];
+  const int z = blockIdx.z, bh = blockIdx.y;
+  const long long batch = bh / heads, head = bh % heads;
+  const size_t kv_at = static_cast<size_t>(bh) * s * D, vt_at = static_cast<size_t>(bh) * D * s8;
+  kv_split_tf32_tile(a.k[z] + batch * a.k_st[z][0] + head * a.k_st[z][1], a.k_st[z][2],
+                     a.v[z] + batch * a.v_st[z][0] + head * a.v_st[z][1], a.v_st[z][2],
+                     a.out[z][0] + kv_at, a.out[z][1] + kv_at, a.out[z][2] + vt_at,
+                     a.out[z][3] + vt_at, blockIdx.x * SPLIT_KEYS, s, s8, v_s);
+}
+
+// k-step kk of a K-major f32 operand stored as 128-byte-row blocks of 32
+// columns, `blk` bytes apart.
+__device__ __forceinline__ uint64_t desc_tf32(uint32_t addr, int kk, int blk) {
+  return desc_kmajor_sw128(addr + (kk / 4) * blk) + 2 * (kk % 4);
+}
+
+// One tile's p and h from its S and tS accumulators (m64n32: element i is
+// row ra + 8 ((i % 4) / 2), key k0 + 8 (i / 4) + 2c + (i & 1)), split into
+// the TF32 A fragments of h V and p tV (k-step n = keys 8n .. 8n + 7 in
+// tf32_a_column order); hsum gathers this thread's part of r. MASK: the
+// tile reaches past s or, causal, past the warpgroup's first row.
+template <bool MASK>
+__device__ __forceinline__ void tangent_terms(const float (&sacc)[16], const float (&tsacc)[16],
+                                              uint32_t (&pb)[4][4], uint32_t (&ps)[4][4],
+                                              uint32_t (&hb)[4][4], uint32_t (&hs)[4][4],
+                                              float (&hsum)[2], const float (&lse)[2],
+                                              const int (&pos)[2], int k0, int c2, int s,
+                                              int causal, float sm_scale, float qk_scale) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int h2 = (i % 4) / 2, col = k0 + (i / 4) * 8 + c2 + (i & 1);
+    const bool visible = !MASK || (col < s && (!causal || col <= pos[h2]));
+    const float p = visible ? exp2f(sacc[i] * qk_scale - lse[h2]) : 0.f;
+    const float h = p * (tsacc[i] * sm_scale);
+    hsum[h2] += h;
+    const int f = h2 + 2 * (i & 1);  // accumulator column 2c + (i & 1) -> fragment column c + 4 (i & 1)
+    const float p_big = tf32_big(p), h_big = tf32_big(h);
+    pb[i / 4][f] = __float_as_uint(p_big);
+    ps[i / 4][f] = __float_as_uint(p - p_big);
+    hb[i / 4][f] = __float_as_uint(h_big);
+    hs[i / 4][f] = __float_as_uint(h - h_big);
+  }
+}
+
+__global__ void __launch_bounds__(TG_THREADS, 1)
+jvp_tangent_tf32(const __grid_constant__ CUtensorMap kb_map,    // [bh, s, 64] K big
+                 const __grid_constant__ CUtensorMap ks_map,    // K small
+                 const __grid_constant__ CUtensorMap tkb_map,   // tK big
+                 const __grid_constant__ CUtensorMap tks_map,   // tK small
+                 const __grid_constant__ CUtensorMap vb_map,    // [bh, 64, s8] V^T big
+                 const __grid_constant__ CUtensorMap vs_map,    // V^T small
+                 const __grid_constant__ CUtensorMap tvb_map,   // tV^T big
+                 const __grid_constant__ CUtensorMap tvs_map,   // tV^T small
+                 const float* __restrict__ q, long long q_sb, long long q_sh, long long q_st,
+                 const float* __restrict__ tq, long long tq_sb, long long tq_sh, long long tq_st,
+                 const float* __restrict__ o, long long o_sb, long long o_sh, long long o_st,
+                 const float* __restrict__ lse, long long l_sb, long long l_sh, long long l_st,
+                 float* __restrict__ to,    // [bh, t, 64], or with z > 1 the ranges' acc
+                 float* __restrict__ rpart,  // [z, bh, t] the ranges' r (z > 1)
+                 int h, int t, int s, int causal, int per, float sm_scale, float qk_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + TG_OFF_BAR;
+  auto full = [&](int st) { return bars + 8 * st; };
+  int* released = reinterpret_cast<int*>(smem + TG_OFF_BAR + TG_COUNTERS);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y, batch = bh / h, head = bh % h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TG_ROWS;  // the last rows (most tiles) first
+  const int kv_hi = causal ? min(s, min(t, q0 + TG_ROWS)) : s;
+  const int j0 = blockIdx.z * per;
+  const int j1 = min(j0 + per, (kv_hi + TG_KEYS - 1) / TG_KEYS);
+  const int n_tiles = max(j1 - j0, 0);
+
+  init_ring(bars, released, TG_STAGES);
+  auto load = [&](int i) {  // tile j0 + i into stage i % TG_STAGES; keys past s arrive as zeros
+    const int st = i % TG_STAGES, key0 = (j0 + i) * TG_KEYS;
+    const uint32_t dst = base + TG_OFF_RING + st * TG_STAGE;
+    mbar_expect_tx(full(st), TG_STAGE);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      tma_load_3d(dst + half * TG_KBLK, &kb_map, full(st), 32 * half, key0, bh);
+      tma_load_3d(dst + TG_KS + half * TG_KBLK, &ks_map, full(st), 32 * half, key0, bh);
+      tma_load_3d(dst + TG_TKB + half * TG_KBLK, &tkb_map, full(st), 32 * half, key0, bh);
+      tma_load_3d(dst + TG_TKS + half * TG_KBLK, &tks_map, full(st), 32 * half, key0, bh);
+    }
+    tma_load_3d(dst + TG_VB, &vb_map, full(st), key0, 0, bh);
+    tma_load_3d(dst + TG_VS, &vs_map, full(st), key0, 0, bh);
+    tma_load_3d(dst + TG_TVB, &tvb_map, full(st), key0, 0, bh);
+    tma_load_3d(dst + TG_TVS, &tvs_map, full(st), key0, 0, bh);
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(TG_STAGES, n_tiles); ++i) load(i);
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int c = lane % 4;
+  const int ra = 16 * warp + lane / 4;  // this thread's rows ra, ra + 8 of the warpgroup's 64
+  int pos[2];
+  float lse_r[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    pos[h2] = q0 + 64 * wg + ra + 8 * h2;
+    lse_r[h2] = pos[h2] < t ? lse[batch * l_sb + head * l_sh + pos[h2] * l_st] : 0.f;
+  }
+
+  // Q and tQ (f32, read through their strides; rows past t are 0), split:
+  // Q big and small and tQ big as the A fragments of the 8 k-steps, tQ small
+  // K-major into shared memory (128-byte swizzle: 16-byte chunk ch of row r
+  // at ch ^ (r & 7)). Every load is issued before the first split.
+  uint32_t qb[8][4], qs[8][4], tqb[8][4];
+  const uint32_t tqs_base = base + wg * 2 * TG_QBLK;
+  {
+    float x[2][16], tx[2][16];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const float* row = q + batch * q_sb + head * q_sh + static_cast<long long>(pos[h2]) * q_st;
+      const float* trow =
+          tq + batch * tq_sb + head * tq_sh + static_cast<long long>(pos[h2]) * tq_st;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {  // head dim 8 (i / 2) + c + 4 (i % 2)
+        const int d = 8 * (i / 2) + c + 4 * (i % 2);
+        x[h2][i] = pos[h2] < t ? row[d] : 0.f;
+        tx[h2][i] = pos[h2] < t ? trow[d] : 0.f;
+      }
+    }
+    float* tqs_s = reinterpret_cast<float*>(smem + wg * 2 * TG_QBLK);
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = ra + 8 * h2;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int f = h2 + 2 * (i % 2);
+        const float big = tf32_big(x[h2][i]), tbig = tf32_big(tx[h2][i]);
+        qb[i / 2][f] = __float_as_uint(big);
+        qs[i / 2][f] = __float_as_uint(x[h2][i] - big);
+        tqb[i / 2][f] = __float_as_uint(tbig);
+        const int d = 8 * (i / 2) + c + 4 * (i % 2), w = d % 32;
+        tqs_s[(d / 32) * (TG_QBLK / 4) + r * 32 + (((w / 4) ^ (r & 7)) << 2) + w % 4] =
+            tx[h2][i] - tbig;
+      }
+    }
+  }
+  fence_proxy_async();  // tQ small, for wgmma
+  named_barrier(1 + wg, 128);
+
+  float sacc[16], tsacc[16], acc[32], hsum[2] = {0.f, 0.f};
+  uint32_t pb[4][4], ps[4][4], hb[4][4], hs[4][4];  // p, h big and small: the A of h V, p tV
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  auto edge = [&](int j) {
+    return j * TG_KEYS + TG_KEYS > s || (causal && j * TG_KEYS + TG_KEYS - 1 > q0 + 64 * wg);
+  };
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int j = j0 + i;
+    const uint32_t st = base + TG_OFF_RING + (i % TG_STAGES) * TG_STAGE;
+    mbar_wait(full(i % TG_STAGES), (i / TG_STAGES) & 1);
+    // S = Q K^T and tS = tQ K^T + Q tK^T, the small terms first, the big-big
+    // terms last: 72 products in one group.
+    wgmma_fence();
+    wgmma_tf32_m64n32k8_rs_zero(sacc, qb[0], desc_tf32(st + TG_KS, 0, TG_KBLK));
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)  // Q big . K small
+      wgmma_tf32_m64n32k8_rs(sacc, qb[kk], desc_tf32(st + TG_KS, kk, TG_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+      wgmma_tf32_m64n32k8_rs(sacc, qs[kk], desc_tf32(st, kk, TG_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q big . K big
+      wgmma_tf32_m64n32k8_rs(sacc, qb[kk], desc_tf32(st, kk, TG_KBLK), 1);
+    wgmma_tf32_m64n32k8_rs_zero(tsacc, tqb[0], desc_tf32(st + TG_KS, 0, TG_KBLK));
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)  // tQ big . K small
+      wgmma_tf32_m64n32k8_rs(tsacc, tqb[kk], desc_tf32(st + TG_KS, kk, TG_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // tQ small . K big
+      wgmma_tf32_m64n32k8_ss(tsacc, desc_tf32(tqs_base, kk, TG_QBLK), desc_tf32(st, kk, TG_KBLK),
+                             1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q big . tK small
+      wgmma_tf32_m64n32k8_rs(tsacc, qb[kk], desc_tf32(st + TG_TKS, kk, TG_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . tK big
+      wgmma_tf32_m64n32k8_rs(tsacc, qs[kk], desc_tf32(st + TG_TKB, kk, TG_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // tQ big . K big
+      wgmma_tf32_m64n32k8_rs(tsacc, tqb[kk], desc_tf32(st, kk, TG_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q big . tK big
+      wgmma_tf32_m64n32k8_rs(tsacc, qb[kk], desc_tf32(st + TG_TKB, kk, TG_KBLK), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sacc);
+    reg_fence(tsacc);
+    if (edge(j))
+      tangent_terms<true>(sacc, tsacc, pb, ps, hb, hs, hsum, lse_r, pos, j * TG_KEYS, 2 * c, s,
+                          causal, sm_scale, qk_scale);
+    else
+      tangent_terms<false>(sacc, tsacc, pb, ps, hb, hs, hsum, lse_r, pos, j * TG_KEYS, 2 * c, s,
+                           causal, sm_scale, qk_scale);
+    // The tile's h V + p tV: 24 products in one group into a fresh
+    // accumulator, the big-big terms last, then added to acc in f32 (round
+    // to nearest). The tensor cores' accumulation truncates: every tile's
+    // products summed into acc in place biased it toward 0, 1.3e-4 of
+    // max|tO| against float64 at the DiT's shape where this sum gives 3.2e-6
+    // and FFMA 7.2e-6 (kernel_probe.py jvp_tangent, on an H100).
+    float tacc[32];
+    reg_fence(pb);
+    reg_fence(ps);
+    reg_fence(hb);
+    reg_fence(hs);
+    wgmma_fence();
+    wgmma_tf32_m64n64k8_rs_zero(tacc, hs[0], desc_kmajor_sw128(st + TG_VB));
+#pragma unroll
+    for (int kk = 1; kk < TG_KEYS / 8; ++kk)  // h small . V big
+      wgmma_tf32_m64n64k8_rs(tacc, hs[kk], desc_kmajor_sw128(st + TG_VB) + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < TG_KEYS / 8; ++kk)  // h big . V small
+      wgmma_tf32_m64n64k8_rs(tacc, hb[kk], desc_kmajor_sw128(st + TG_VS) + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < TG_KEYS / 8; ++kk)  // p small . tV big
+      wgmma_tf32_m64n64k8_rs(tacc, ps[kk], desc_kmajor_sw128(st + TG_TVB) + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < TG_KEYS / 8; ++kk)  // p big . tV small
+      wgmma_tf32_m64n64k8_rs(tacc, pb[kk], desc_kmajor_sw128(st + TG_TVS) + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < TG_KEYS / 8; ++kk)  // h big . V big
+      wgmma_tf32_m64n64k8_rs(tacc, hb[kk], desc_kmajor_sw128(st + TG_VB) + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < TG_KEYS / 8; ++kk)  // p big . tV big
+      wgmma_tf32_m64n64k8_rs(tacc, pb[kk], desc_kmajor_sw128(st + TG_TVB) + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(tacc);
+    reg_fence(pb);
+    reg_fence(ps);
+    reg_fence(hb);
+    reg_fence(hs);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] += tacc[e];
+    release_stage(released, i, TG_STAGES, n_tiles, load);
+  }
+
+  // tO = acc - r O, or the range's acc and r (z > 1); rows past t store nothing.
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const float r = quad_sum(hsum[h2]);
+    if (pos[h2] >= t) continue;
+    const size_t row = static_cast<size_t>(bh) * t + pos[h2];
+    if (gridDim.z > 1) {
+      const size_t at = static_cast<size_t>(blockIdx.z) * gridDim.y * t + row;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(to + at * D + 8 * n + 2 * c) =
+            make_float2(acc[4 * n + 2 * h2], acc[4 * n + 2 * h2 + 1]);
+      if (c == 0) rpart[at] = r;
+      continue;
+    }
+    const float* orow = o + batch * o_sb + head * o_sh + static_cast<long long>(pos[h2]) * o_st;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float2 ov = *reinterpret_cast<const float2*>(orow + 8 * n + 2 * c);
+      *reinterpret_cast<float2*>(to + row * D + 8 * n + 2 * c) =
+          make_float2(acc[4 * n + 2 * h2] - r * ov.x, acc[4 * n + 2 * h2 + 1] - r * ov.y);
+    }
+  }
+}
+
+// The key ranges' sums, added in range order: tO = (acc_0 + acc_1 + ...) -
+// (r_0 + r_1 + ...) O. A thread takes 4 columns of one row.
+__global__ void __launch_bounds__(256)
+tangent_merge_kernel(const float* __restrict__ part, const float* __restrict__ rpart,
+                     const float* __restrict__ o, long long o_sb, long long o_sh, long long o_st,
+                     float* __restrict__ to, int h, int t, long long rows, int z) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long row = i / (D / 4);
+  if (row >= rows) return;
+  const int c4 = 4 * static_cast<int>(i % (D / 4));
+  float4 a = *reinterpret_cast<const float4*>(part + row * D + c4);
+  float r = rpart[row];
+  for (int zz = 1; zz < z; ++zz) {
+    const float4 b = *reinterpret_cast<const float4*>(part + (zz * rows + row) * D + c4);
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+    r += rpart[zz * rows + row];
+  }
+  const long long bh = row / t, pos = row % t;
+  const float4 ov = *reinterpret_cast<const float4*>(o + (bh / h) * o_sb + (bh % h) * o_sh +
+                                                     pos * o_st + c4);
+  *reinterpret_cast<float4*>(to + row * D + c4) =
+      make_float4(a.x - r * ov.x, a.y - r * ov.y, a.z - r * ov.z, a.w - r * ov.w);
+}
+
 constexpr size_t TILE16 = BT * SROW * sizeof(bf16);   // a streamed bf16 tile
 constexpr size_t BLOCK16 = BM * SROW * sizeof(bf16);  // a block's own bf16 tile
 
@@ -1826,20 +2112,101 @@ extern "C" int qa_jvp_fwd_bf16(const void* q, long long q_sb, long long q_sh, lo
   return static_cast<int>(cudaGetLastError());
 }
 
-// B10: tO [bh, t, D] from O [bh, t, D] and lse [bh, t].
+// B10 fast: tO [bh, t, D] from O [bh, t, D] and lse [bh, t], all contiguous
+// f32 (exact mode: qa_jvp_tangent_tf32).
 extern "C" int qa_jvp_tangent(const void* q, const void* k, const void* v, const void* tq,
                               const void* tk, const void* tv, const void* o, const void* lse,
                               void* to, int bh, int t, int s, int causal, int fast,
                               float sm_scale, float qk_scale, void* stream) {
-  if (fast)
-    return launch(jvp_tangent_mma, dim3((t + BM - 1) / BM, bh), MMA_THREADS,
-                  2 * BLOCK16 + 4 * TILE16, stream, cf(q), cf(k), cf(v), cf(tq), cf(tk), cf(tv),
-                  cf(o), cf(lse), static_cast<float*>(to), t, s, causal, sm_scale, qk_scale);
-  return launch(jvp_tangent_kernel, dim3((t + T - 1) / T, bh), THREADS,
-                (6 * TILE + 2 * PTILE) * sizeof(float), stream, cf(q), cf(k), cf(v), cf(tq),
-                cf(tk), cf(tv), cf(o), cf(lse), static_cast<float*>(to), t, s, causal, sm_scale,
-                qk_scale);
+  if (!fast) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(jvp_tangent_mma, dim3((t + BM - 1) / BM, bh), MMA_THREADS,
+                2 * BLOCK16 + 4 * TILE16, stream, cf(q), cf(k), cf(v), cf(tq), cf(tk), cf(tv),
+                cf(o), cf(lse), static_cast<float*>(to), t, s, causal, sm_scale, qk_scale);
 }
+
+// B10 exact's prep, one launch: k, v, tk, tv [b, h, s, 64] f32 (strides in
+// elements, rows contiguous; pointers and strides 16-byte aligned) -> out[0
+// .. 3] K big, K small [bh, s, 64], V^T big, V^T small [bh, 64, s8] and
+// out[4 .. 7] the same of tK, tV (s8 = s rounded up to 8; 16-byte aligned).
+extern "C" int qa_jvp_tangent_prep(const void* const* kv, const long long* strides,
+                                   void* const* out, int b, int h, int s, void* stream) {
+  if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || s < 1 || s > (1 << 27))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs a;
+  for (int z = 0; z < 2; ++z) {
+    a.k[z] = static_cast<const float*>(kv[2 * z]);
+    a.v[z] = static_cast<const float*>(kv[2 * z + 1]);
+    for (int i = 0; i < 3; ++i) {
+      a.k_st[z][i] = strides[6 * z + i];
+      a.v_st[z][i] = strides[6 * z + 3 + i];
+    }
+    if (!aligned16(a.k[z]) || !aligned16(a.v[z]) || !strides16(a.k_st[z]) ||
+        !strides16(a.v_st[z]))
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < 4; ++i) {
+      a.out[z][i] = static_cast<float*>(out[4 * z + i]);
+      if (!aligned16(a.out[z][i])) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int s8 = (s + 7) / 8 * 8;
+  const dim3 grid((s + SPLIT_KEYS - 1) / SPLIT_KEYS, b * h, 2);
+  tangent_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a, h, s, s8);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B10 exact: tO [bh, t, D] f32 from q, tq, o [b, h, t, 64] and lse [b, h, t]
+// (f32, strides in elements; q, tq, o rows contiguous and 8-byte aligned)
+// and the prep's eight operands. The keys are split into z ranges of `per`
+// 32-key tiles (z * per covers s); with z > 1 `part` holds z * (bh * t *
+// 65) floats for the ranges' sums, which a second launch adds in order.
+extern "C" int qa_jvp_tangent_tf32(const void* q, const long long* q_st, const void* tq,
+                                   const long long* tq_st, const void* o, const long long* o_st,
+                                   const void* lse, const long long* l_st,
+                                   const void* const* prep, void* to, void* part, int b, int h,
+                                   int t, int s, int causal, int z, int per, float sm_scale,
+                                   float qk_scale, void* stream) {
+  const long long bh = static_cast<long long>(b) * h;
+  const int n_qb = (t + TG_ROWS - 1) / TG_ROWS;
+  if (b < 1 || h < 1 || bh > 65535 || t < 1 || s < 1 || z < 1 || z > 65535 || per < 1 ||
+      static_cast<long long>(z) * per * TG_KEYS < s || (z > 1 && !part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 8; ++i)
+    if (!aligned16(prep[i])) return static_cast<int>(cudaErrorInvalidValue);
+  const int s8 = (s + 7) / 8 * 8;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap maps[8];  // K big, K small, tK big, tK small, then V^T big, small, tV^T big, small
+  const int order[8] = {0, 1, 4, 5, 2, 3, 6, 7};  // the prep's: K, V pair then tK, tV pair
+  for (int i = 0; i < 8; ++i) {
+    const bool kside = i < 4;
+    if (!(kside ? tensor_map_3d(&maps[i], prep[order[i]], f32, 4, bh, s, D, TG_KEYS, 32, sw)
+                : tensor_map_3d(&maps[i], prep[order[i]], f32, 4, bh, D, s8, D, TG_KEYS, sw)))
+      return static_cast<int>(cudaErrorNotSupported);
+  }
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jvp_tangent_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sums = z > 1 ? static_cast<float*>(part) : static_cast<float*>(to);
+  float* rsums = z > 1 ? sums + static_cast<size_t>(z) * bh * t * D : nullptr;
+  jvp_tangent_tf32<<<dim3(n_qb, bh, z), TG_THREADS, TG_SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], cf(q), q_st[0],
+      q_st[1], q_st[2], cf(tq), tq_st[0], tq_st[1], tq_st[2], cf(o), o_st[0], o_st[1], o_st[2],
+      cf(lse), l_st[0], l_st[1], l_st[2], sums, rsums, h, t, s, causal, per, sm_scale, qk_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || z == 1) return static_cast<int>(err);
+  const long long rows = bh * t;
+  tangent_merge_kernel<<<static_cast<unsigned>((rows * (D / 4) + 255) / 256), 256, 0, st>>>(
+      sums, rsums, cf(o), o_st[0], o_st[1], o_st[2], static_cast<float*>(to), h, t, rows, z);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared bytes one B10 exact block asks for (ops/jvp_tiling.py mirrors it).
+extern "C" int qa_jvp_tangent_smem_bytes() { return TG_SMEM; }
 
 // B11 exact: dK, dV, dtK, dtV [bh, s, D] (fast mode: qa_jvp_bwd_dkv_bf16).
 extern "C" int qa_jvp_bwd_dkv(const void* q, const void* k, const void* v, const void* tq,

@@ -53,6 +53,9 @@ from quantizedattention_tpu_torch.utils.runtime import check_status, require_cud
 
 
 def _qkv_jobs(q, k, v, k_sub, to_f32=True):
+    """B4's jobs for q [b, h, t, d], k/v [b, h_kv, s, d]: the caller's
+    tensors themselves (f32 unless to_f32 is False), which the kernel reads
+    through their strides; no copy."""
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     if h % h_kv != 0:
@@ -60,7 +63,7 @@ def _qkv_jobs(q, k, v, k_sub, to_f32=True):
     q_grain, kv_grain, q_pad, kv_pad = int8_grain(t, s, h // h_kv)
 
     def rows(x):
-        return (x.float() if to_f32 else x).reshape(-1, x.shape[2], d).contiguous()
+        return x.float() if to_f32 else x
 
     sub = None if k_sub is None else k_sub.float().reshape(b * h_kv, d).contiguous()
     return [QuantJob(rows(q), q_pad, q_grain), QuantJob(rows(k), kv_pad, kv_grain, sub),

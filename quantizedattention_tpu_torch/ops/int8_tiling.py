@@ -1,5 +1,6 @@
 """Launch geometry of the int8 attention kernels: the forward (csrc/int8_fwd.cu,
-B5 and B6) and the backward (csrc/int8_bwd.cu, B7 and B8).
+B5 and B6), the backward (csrc/int8_bwd.cu, B7 and B8) and the Q/K/V
+quantizer (csrc/quant_int8.cu, B4).
 
 Pure Python, so the CPU tests can hold it against the JAX package's scale
 grain. A block has BLOCK_ROWS query rows, which hold one kv head's whole GQA
@@ -20,6 +21,12 @@ of the GQA group, the 64-row q tiles from `dkv_first_q_tile` on. B8 takes
 BLOCK_ROWS rows a block, bq = `block_positions` positions of every q head of
 the group, and walks the 64-key tiles up to `dq_key_tiles`. Their shared
 bytes are held against the kernels' own counts on the card as well.
+
+B4 (the third section) gives each (tensor, row, grain) item a thread-block
+cluster of QUANT_CLUSTER blocks; block `rank` of it quantizes the grain's
+tokens `quant_share_tokens(grain, rank)`, so the shares tile the grain once,
+and the items of up to QUANT_MAX_JOBS tensors are laid end to end in one
+launch (`quant_items`), cluster c taking item c.
 """
 
 from __future__ import annotations
@@ -132,3 +139,52 @@ def bwd_grids(bh_kv: int, rep: int, t: int, s: int, q_pad: int,
         raise ValueError(f"kernels take b*h*q_pad and b*h_kv*kv_pad below 2^31; got "
                          f"{bh_kv * rep * q_pad}, {bh_kv * kv_pad}")
     return bq, dkv, dq
+
+
+# --------------------------------------------------------------------------
+# B4, the Q/K/V quantizer
+# --------------------------------------------------------------------------
+
+QUANT_CLUSTER = 8  # blocks a grain (the portable cluster size)
+QUANT_THREADS = 128
+QUANT_MAX_GRAIN = 1024  # a block's share at most 128 tokens: 32 KB of f32, in shared memory
+QUANT_MAX_JOBS = 3  # Q, K and V of one call
+QUANT_MAX_ITEMS = (2**31 - 1) // QUANT_CLUSTER  # (row, grain) items a launch: the grid's x
+
+
+def quant_check_grain(grain: int) -> None:
+    """Raise unless the kernel takes `grain`: a multiple of 16 up to
+    QUANT_MAX_GRAIN (each block's share a whole number of tokens)."""
+    if grain % 16 or not 16 <= grain <= QUANT_MAX_GRAIN:
+        raise ValueError(f"kernel takes grains that are multiples of 16 up to {QUANT_MAX_GRAIN}, "
+                         f"got {grain}")
+
+
+def quant_share_tokens(grain: int, rank: int) -> range:
+    """The tokens of a grain (offsets from its first) that block `rank` of
+    its cluster quantizes."""
+    share = grain // QUANT_CLUSTER
+    return range(rank * share, (rank + 1) * share)
+
+
+def quant_items(jobs) -> list[int]:
+    """The first item of each job (rows, pad, grain) of one launch and, last,
+    the launch's item count; raises where the kernel takes no launch."""
+    if not 1 <= len(jobs) <= QUANT_MAX_JOBS:
+        raise ValueError(f"kernel takes 1 to {QUANT_MAX_JOBS} jobs, got {len(jobs)}")
+    starts = [0]
+    for rows, pad, grain in jobs:
+        quant_check_grain(grain)
+        if pad % grain:
+            raise ValueError(f"pad {pad} is not a multiple of grain {grain}")
+        starts.append(starts[-1] + rows * (pad // grain))
+    if starts[-1] > QUANT_MAX_ITEMS:
+        raise ValueError(f"kernel takes at most {QUANT_MAX_ITEMS} (row, grain) items a launch, "
+                         f"got {starts[-1]}")
+    return starts
+
+
+def quant_shared_bytes() -> int:
+    """B4's dynamic shared memory: a block's largest share (QUANT_MAX_GRAIN /
+    QUANT_CLUSTER tokens) in f32 rows, staged there by its copies."""
+    return QUANT_MAX_GRAIN // QUANT_CLUSTER * HEAD_DIM * 4

@@ -63,8 +63,9 @@ def rounder(fast: bool):
 
 
 def kernel_args(b: int, h: int, d: int, *tensors):
-    """Check what the JVP kernels' contiguous entries (exact mode, B10) take;
-    returns the tensors as contiguous f32 and their device."""
+    """Check what the JVP kernels' contiguous entries take (B9, B11 and B12
+    exact, B10 fast); returns the tensors as contiguous f32 and their
+    device."""
     if d != HEAD_DIM or b * h > 65535:
         raise ValueError(f"the JVP kernels take head_dim {HEAD_DIM}, b*h <= 65535; got "
                          f"d={d}, b*h={b * h}")

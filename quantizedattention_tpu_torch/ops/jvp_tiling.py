@@ -1,7 +1,8 @@
-"""Launch geometry of the JVP family's fast kernels (csrc/jvp.cu): the
+"""Launch geometry of the JVP family's tensor-core kernels (csrc/jvp.cu): the
 second-order backward's dK/dV (B11 fast, `jvp_dkv_wgmma`) and dQ (B12 fast,
-`jvp_dq_wgmma`), and the forward (B9 fast, `jvp_fwd_wgmma`) with its K-side
-prep (`jvp_fwd_prep_kernel`).
+`jvp_dq_wgmma`), the forward (B9 fast, `jvp_fwd_wgmma`) with its K-side
+prep (`jvp_fwd_prep_kernel`), and the tangent's exact mode (B10 exact,
+`jvp_tangent_tf32`, 3xTF32).
 
 Pure Python, so the CPU tests can hold it. A B11 block takes DKV_KEYS keys
 of one (batch * head), two warpgroups of 64, with K, tK, V and tV resident
@@ -24,6 +25,15 @@ launch for the four, FWD_PREP_ROWS keys a block). Their grids are (b * h, q
 blocks); grid row y holds rows (n - 1 - y) * Q_BLOCK .., so the blocks with
 the most key tiles start first. The constants mirror the kernels', and
 every shared-byte count is held against the kernel's own on the card.
+
+B10 exact (the last section) takes TANGENT_ROWS q rows of one (batch *
+head) a block, as B9, and walks TANGENT_KEYS-key tiles. With lse given its
+sums over keys need no rescaling, so the key tiles may be split into z
+ranges of `per` tiles (`tangent_grid`: enough blocks to fill the card once,
+where the q blocks alone do not), each range a block of its own; a second
+launch adds the ranges' sums in range order. Its grid is (q blocks, b * h,
+z); grid column x holds rows (n - 1 - x) * TANGENT_ROWS .., the blocks with
+the most key tiles first.
 """
 
 from __future__ import annotations
@@ -127,3 +137,48 @@ def fwd_prep_grid(bh: int, s: int) -> tuple[int, int, int]:
         raise ValueError(f"kernel takes 1 to {MAX_HEADS} heads (b*h) and s >= 1; got b*h={bh}, "
                          f"s={s}")
     return -(-s // FWD_PREP_ROWS), bh, 4
+
+
+# --------------------------------------------------------------------------
+# B10 exact: 3xTF32 q blocks over ranges of key tiles
+# --------------------------------------------------------------------------
+
+TANGENT_ROWS = 128  # q rows a block: two warpgroups of 64
+TANGENT_KEYS = 32  # keys a tile
+TANGENT_STAGES = 3  # tiles in flight
+_KBLK = TANGENT_KEYS * 128  # bytes of a [32 keys x 32 dims] f32 block
+_VBLK = HEAD_DIM * 128  # bytes of a [64 dims x 32 keys] f32 block (V^T)
+
+
+def tangent_shared_bytes() -> int:
+    """B10 exact's dynamic shared memory: each warpgroup's tQ small [64, 64]
+    f32, the ring (K, tK big and small, V^T, tV^T big and small: 64 KB a
+    stage), 128 bytes of mbarriers and release counters, 1024 bytes to align
+    the swizzled tiles."""
+    return 2 * 64 * HEAD_DIM * 4 + TANGENT_STAGES * (8 * _KBLK + 4 * _VBLK) + 128 + 1024
+
+
+def tangent_grid(bh: int, t: int, s: int, sms: int) -> tuple[int, int, int]:
+    """(q blocks, z, per): B10 exact's grid is (q blocks, b * h, z), range z
+    taking key tiles z * per .. z * per + per - 1. z > 1 only where the q
+    blocks alone fill fewer than `sms` SMs; raises where the kernel takes no
+    launch."""
+    n_qb, n_kt = -(-t // TANGENT_ROWS), -(-s // TANGENT_KEYS)
+    if not 1 <= bh <= MAX_HEADS or t < 1 or s < 1:
+        raise ValueError(f"kernel takes 1 to {MAX_HEADS} heads (b*h), t >= 1 and s >= 1; got "
+                         f"b*h={bh}, t={t}, s={s}")
+    want = max(1, -(-sms // (bh * n_qb)))
+    per = -(-n_kt // min(want, n_kt))
+    return n_qb, -(-n_kt // per), per
+
+
+def tangent_key_tiles(q0: int, t: int, s: int, causal: bool) -> int:
+    """The key tiles a block whose rows start at q0 sees (causal: up to its
+    last row below t)."""
+    hi = min(s, t, q0 + TANGENT_ROWS) if causal else s
+    return -(-hi // TANGENT_KEYS)
+
+
+def tangent_range(q0: int, z: int, per: int, t: int, s: int, causal: bool) -> range:
+    """The key tiles range z of a block at q0 walks (empty past its last)."""
+    return range(z * per, min(z * per + per, tangent_key_tiles(q0, t, s, causal)))

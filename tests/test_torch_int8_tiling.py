@@ -1,5 +1,6 @@
 """The int8 kernels' launch geometry against the JAX package's scale grain:
-the forward (B5 and B6) and the backward (B7 and B8).
+the forward (B5 and B6), the backward (B7 and B8) and the Q/K/V quantizer
+(B4).
 
 `ops.int8_tiling` holds what the wrappers pass to the kernels, bq query
 positions a block, and what they check before a launch. The grain comes from
@@ -12,14 +13,23 @@ phase-8 shapes and the same grain table: B7's 128-key blocks and 64-row q
 tiles each lie inside one grain, its q tiles cover the positions that see
 the block's keys exactly once, B8's blocks cover [0, t) once per head and
 walk the keys their rows see, and both grids stay within their limits.
+B4: the blocks of a grain's cluster tile it once, for grains 16-1024, and
+one launch's clusters cover every padded token of up to three jobs with
+different grains once; launches and grains past the kernel's limits raise. Its
+plain version on the model's strided views gives the bytes it gives on
+contiguous inputs and the jitted JAX quantizer's, and `_qkv_jobs` hands the
+kernel the caller's tensors, not copies.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from quantizedattention_tpu.ops.int8_fwd import quantize_qkv as jax_quantize_qkv
 from quantizedattention_tpu.tune.config import default_block_config
 from quantizedattention_tpu_torch.ops import int8_fwd as tfwd
 from quantizedattention_tpu_torch.ops import int8_tiling as tiling
+from quantizedattention_tpu_torch.quantize import int8 as tq
 from quantizedattention_tpu_torch.tune.config import int8_grain
 
 torch.set_num_threads(2)
@@ -184,3 +194,129 @@ def test_bwd_geometry_refusals():
     ops = tbwd.int8_bwd_operands(res, k.mean(-2, keepdim=True), o, lse, q, dims)
     with pytest.raises(ValueError, match="rep <= 128"):
         tbwd._launch_args(ops)
+
+
+# --------------------------------------------------------------------------
+# B4, the Q/K/V quantizer: a cluster of blocks a grain, rows through strides
+# --------------------------------------------------------------------------
+
+QUANT_GRAINS = [16, 48, 128, 256, 384, 512, 640, 768, 896, 1024]
+
+
+@pytest.mark.parametrize("grain", QUANT_GRAINS)
+def test_quant_shares_cover_each_grain_once(grain):
+    """The blocks of a grain's cluster take disjoint shares that tile it."""
+    seen = [tok for rank in range(tiling.QUANT_CLUSTER)
+            for tok in tiling.quant_share_tokens(grain, rank)]
+    assert sorted(seen) == list(range(grain))
+    # a share fits the kernel's registers: at most 128 tokens
+    assert len(tiling.quant_share_tokens(grain, 0)) <= tiling.QUANT_MAX_GRAIN // tiling.QUANT_CLUSTER
+
+
+def _quant_walk(jobs):
+    """(job, row, token) of every block of one launch as the kernel maps it:
+    cluster c of the launch is job j's item c - starts[j], row (c -
+    starts[j]) // n_grains, grain (c - starts[j]) % n_grains; block `rank`
+    of it takes its share of the grain."""
+    starts = tiling.quant_items(jobs)
+    seen = []
+    for block in range(starts[-1] * tiling.QUANT_CLUSTER):
+        c, rank = divmod(block, tiling.QUANT_CLUSTER)
+        j = max(i for i in range(len(jobs)) if starts[i] <= c)
+        rows, pad, grain = jobs[j]
+        row, g = divmod(c - starts[j], pad // grain)
+        seen += [(j, row, g * grain + tok) for tok in tiling.quant_share_tokens(grain, rank)]
+    return seen
+
+
+@pytest.mark.parametrize("jobs", [
+    [(4, 1024, 1024)],                                        # the training grain, two halves
+    [(3, 384, 128), (2, 1024, 512), (2, 1024, 1024)],         # three jobs, three grains
+    [(6, 256, 256), (2, 1152, 384), (2, 1152, 384)],          # Q, K, V of rep 3 at a ragged t
+], ids=["one", "three_grains", "rep3"])
+def test_quant_blocks_cover_every_padded_token_once(jobs):
+    """One launch over up to three jobs covers each job's [rows, pad) tokens,
+    the padded tail included, exactly once."""
+    seen = _quant_walk(jobs)
+    want = [(j, row, tok) for j, (rows, pad, _) in enumerate(jobs) for row in range(rows)
+            for tok in range(pad)]
+    assert len(seen) == len(want) and sorted(seen) == want
+
+
+@pytest.mark.parametrize("t,s,rep", [(2048, 2048, 1), (1000, 1000, 1), (1100, 1100, 4),
+                                     (77, 201, 2), (8192, 8192, 1), (300, 300, 3)])
+def test_quant_geometry_takes_the_jax_grain(t, s, rep):
+    """quantize_qkv's jobs at the JAX grain are all launchable."""
+    q_grain, kv_grain, q_pad, kv_pad = int8_grain(t, s, rep)
+    starts = tiling.quant_items([(4 * rep, q_pad, q_grain), (4, kv_pad, kv_grain),
+                                 (4, kv_pad, kv_grain)])
+    assert starts[-1] == 4 * rep * q_pad // q_grain + 8 * kv_pad // kv_grain
+
+
+def test_quant_shared_bytes_fit():
+    """A block's largest share in f32 (128 tokens x 64), six blocks an SM
+    (each with its static bytes and the 1 KB the card reserves a block)."""
+    assert tiling.quant_shared_bytes() == 128 * 64 * 4 <= 48 * 1024
+    static = 4 * (tiling.QUANT_THREADS // 32 + 1)
+    assert 6 * (tiling.quant_shared_bytes() + static + 1024) <= 228 * 1024
+
+
+def test_quant_grid_limits_raise():
+    for grain in (0, 8, 24, 2048):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            tiling.quant_check_grain(grain)
+    with pytest.raises(ValueError, match="1 to 3 jobs"):
+        tiling.quant_items([(1, 128, 128)] * 4)
+    with pytest.raises(ValueError, match="multiple of grain"):
+        tiling.quant_items([(1, 200, 128)])
+    with pytest.raises(ValueError, match="items a launch"):
+        tiling.quant_items([(2**21, 2**14, 16)])
+
+
+def _strided_qkv(b, h, h_kv, t, s, seed=0, shift=0.0):
+    """q [b, h, t, 64], k/v [b, h_kv, s, 64]: views of [b, t, h, 64] storage,
+    as the model hands them in, and contiguous copies of the same values."""
+    rng = np.random.default_rng(seed)
+    views = [torch.from_numpy(rng.standard_normal((b, n, heads, 64), np.float32)).transpose(1, 2)
+             for n, heads in ((t, h), (s, h_kv), (s, h_kv))]
+    views[1] = (views[1] + np.float32(shift)).transpose(1, 2).contiguous().transpose(1, 2)
+    return views, [x.contiguous() for x in views]
+
+
+@pytest.mark.parametrize("b,h,h_kv,t,s,shift", [(2, 4, 4, 300, 300, 0.0), (1, 4, 2, 77, 201, 4.0),
+                                                (1, 2, 2, 1100, 1100, 0.0)])
+def test_plain_quantizer_on_strided_views_is_byte_equal(b, h, h_kv, t, s, shift):
+    """B4's plain version on [b, h, t, 64] views of [b, t, h, 64] tensors
+    gives the bytes it gives on contiguous ones, and the jitted JAX
+    quantizer's."""
+    views, dense = _strided_qkv(b, h, h_kv, t, s, shift=shift)
+    assert not views[0].is_contiguous()
+    k_mean = dense[1].mean(-2, keepdim=True)
+    got = tfwd.quantize_qkv_plain(*views, k_sub=k_mean)
+    want = tfwd.quantize_qkv_plain(*dense, k_sub=k_mean)
+    cfg = default_block_config("int8", t, s, 64)
+    jax_res = jax_quantize_qkv(*(np.asarray(x) for x in dense), cfg, k_sub=k_mean.numpy())
+    for (x, sc), (x_w, sc_w), (x_j, sc_j) in zip(got, want, jax_res):
+        assert torch.equal(x, x_w) and torch.equal(sc, sc_w)
+        assert np.array_equal(x.numpy(), np.asarray(x_j))
+        assert np.array_equal(sc.numpy(), np.asarray(sc_j))
+
+
+def test_qkv_jobs_hand_over_the_callers_storage():
+    """On the kernel route B4 reads the caller's tensors: `_qkv_jobs` copies
+    none of Q, K or V (f32 for `quantize_qkv`, the inputs' own type for
+    B6), and the launch check takes the views as they are."""
+    views, _ = _strided_qkv(2, 4, 2, 300, 300)
+    k_mean = views[1].mean(-2, keepdim=True)
+    for cast, to_f32 in ((lambda x: x, True), (lambda x: x.to(torch.bfloat16), False)):
+        xs = [cast(x) for x in views]
+        jobs = tfwd._qkv_jobs(*xs, k_mean, to_f32=to_f32)
+        for job, x in zip(jobs, xs):
+            assert job.x.data_ptr() == x.data_ptr() and job.x.stride() == x.stride()
+        # the layout is what the kernel takes: the check stops only at the device
+        with pytest.raises(ValueError, match="CUDA"):
+            tq._launch_args(jobs, tuple(tq.IN_TYPES))
+    # a view whose token rows are not contiguous is refused, not copied
+    jobs = tfwd._qkv_jobs(views[0].transpose(2, 3).contiguous().transpose(2, 3), *views[1:], None)
+    with pytest.raises(ValueError, match="unit last stride"):
+        tq._launch_args(jobs)

@@ -29,6 +29,15 @@ online softmax (P and H rounded to bf16 against the running max of 64-key
 tiles, the kernel's, and of 32-key ones) stays within chip_smoke.py's
 JVP_FWD_FAST_TOL (5e-3) of the plain version on causal and ragged cases:
 the tile width's effect on the rounding, answered before the card.
+
+B10 exact (csrc/jvp.cu, 3xTF32): its 128-row blocks and the ranges of
+32-key tiles they split the keys into cover every visible (position, key)
+pair exactly once, causal and not, split or not; the keys are split only
+where the q blocks alone fill fewer SMs than the card has; its shared memory
+fits an H100 and its grid's limits raise; its prep (plain) is B1 fp32's
+K/V split of both pairs; and a numpy emulation of its five products as
+3xTF32 keeps tO within 1e-5 of max|float64| where the big terms alone
+(1xTF32) are more than 1e-4 off.
 """
 
 import numpy as np
@@ -478,3 +487,124 @@ def test_b9_emulation_one_tile_is_the_plain_version(causal):
     want = attention_jvp_fwd_plain(*(torch.from_numpy(a) for a in x), causal=causal, fast=True)
     errs = _rel_to_plain(_b9_fast_emulated(*x, causal, 256), want)
     assert max(errs) <= 1e-5, errs
+
+
+# --------------------------------------------------------------------------
+# B10 exact: 3xTF32 q blocks over ranges of key tiles
+# --------------------------------------------------------------------------
+
+# (t, s): ragged, cross both ways, one token, one key, the dit_jvp path's,
+# a length off a tile and the DiT's
+TANGENT_SHAPES = [(1, 1), (1, 300), (300, 1), (33, 130), (77, 201), (129, 31), (512, 512),
+                  (1000, 1000), (4096, 4096)]
+
+
+def _tangent_walk(bh, t, s, causal, sms):
+    """(position, key) pairs every B10 exact block computes, as the kernel
+    walks: grid column x holds rows (n - 1 - x) * 128 .., range z the key
+    tiles `tangent_range` gives, every visible key of each."""
+    n_qb, z, per = jvp_tiling.tangent_grid(bh, t, s, sms)
+    assert z * per * jvp_tiling.TANGENT_KEYS >= s and (z - 1) * per * jvp_tiling.TANGENT_KEYS < s
+    seen = []
+    for x in range(n_qb):
+        q0 = (n_qb - 1 - x) * jvp_tiling.TANGENT_ROWS
+        for zi in range(z):
+            for tile in jvp_tiling.tangent_range(q0, zi, per, t, s, causal):
+                for pos in range(q0, min(q0 + jvp_tiling.TANGENT_ROWS, t)):
+                    seen += [(pos, key) for key in range(tile * 32, min(tile * 32 + 32, s))
+                             if not causal or key <= pos]
+    return seen
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,s", TANGENT_SHAPES[:-1])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_tangent_walk_covers_every_visible_pair_once(t, s, causal, sms):
+    """Split or not, the blocks and key ranges cover every visible (position,
+    key) pair of a head exactly once."""
+    seen = _tangent_walk(1, t, s, causal, sms)
+    want = [(pos, key) for pos in range(t) for key in range(s) if not causal or key <= pos]
+    assert len(seen) == len(want) and sorted(seen) == want
+
+
+@pytest.mark.parametrize("bh,t,s,want", [
+    (16, 4096, 4096, (32, 1, 128)),   # the DiT's: 512 blocks fill the card unsplit
+    (64, 4096, 4096, (32, 1, 128)),   # bench_jvp's
+    (8, 512, 512, (4, 4, 4)),         # the dit_jvp path's: 32 q blocks, 4 key ranges of 4 tiles
+    (2, 4096, 4096, (32, 3, 43)),     # (1, 2, 4096) as the oracle phase: 64 q blocks, 3 ranges
+    (1, 1, 1, (1, 1, 1)),
+])
+def test_tangent_grid_splits_keys_only_to_fill_the_card(bh, t, s, want):
+    assert jvp_tiling.tangent_grid(bh, t, s, 132) == want
+
+
+def test_tangent_shared_memory_fits_one_block():
+    smem = jvp_tiling.tangent_shared_bytes()
+    # tQ small of both warpgroups (32 KB), three 64 KB stages of eight f32 operands
+    assert smem == 2 * 16384 + 3 * 65536 + 128 + 1024
+    assert smem <= flash_tiling.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bh,t,s", [(0, 1, 1), (65536, 1, 1), (1, 0, 1), (1, 1, 0)])
+def test_tangent_grid_limits_raise(bh, t, s):
+    with pytest.raises(ValueError, match="kernel takes"):
+        jvp_tiling.tangent_grid(bh, t, s, 132)
+
+
+def test_tangent_prep_plain_is_the_split_of_both_pairs():
+    """B10 exact's prep is B1 fp32's K/V split of (k, v) and of (tk, tv)."""
+    from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep, tangent_prep_plain
+    rng = np.random.default_rng(3)
+    k, v, tk, tv = (torch.from_numpy(rng.standard_normal((2, 3, 77, 64), np.float32))
+                    for _ in range(4))
+    got = tangent_prep_plain(k, v, tk, tv)
+    want = (*kv_split_tf32_plain(k, v), *kv_split_tf32_plain(tk, tv))
+    assert len(got) == 8 and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(tangent_prep(k, v, tk, tv), got))  # CPU: plain
+
+
+def _tangent_emulated_error(mm, causal):
+    """Worst max|dtO| / max|tO| of B10's tangent with its five products taken
+    as `mm` (p and h computed in f32 from the emulated S and tS), against
+    float64, over 4 seeds at (1, 2, 300, 64); O and lse from float64."""
+    b, h, t, d = 1, 2, 300, 64
+    sm_scale = np.float32(0.125)
+    qk_scale = np.float32(0.125 * 1.44269504)
+    mask = np.tril(np.ones((t, t), bool)) if causal else np.ones((t, t), bool)
+    worst = 0.0
+    for seed in range(4):
+        rng = np.random.default_rng(200 + seed)
+        q, k, v, tq, tk, tv = (rng.standard_normal((b, h, t, d), np.float32) for _ in range(6))
+        kt, tkt = np.swapaxes(k, -1, -2), np.swapaxes(tk, -1, -2)
+        s64 = np.where(mask, q.astype(np.float64) @ kt * float(qk_scale), -np.inf)
+        m = s64.max(-1, keepdims=True)
+        l = np.exp2(s64 - m).sum(-1, keepdims=True)
+        lse = (m + np.log2(l)).astype(np.float32)
+        o = ((np.exp2(s64 - m) / l) @ v.astype(np.float64)).astype(np.float32)
+        ref = {}
+        for name, dot in (("f64", lambda a, c: a.astype(np.float64) @ c.astype(np.float64)),
+                          ("emu", mm)):
+            s_ = dot(q, kt)
+            ts = dot(tq, kt) + dot(q, tkt)
+            if name == "emu":
+                s_, ts = s_.astype(np.float32), ts.astype(np.float32)
+            p = np.where(mask, np.exp2(s_ * qk_scale - lse), 0.0)
+            hp = p * (ts * sm_scale)
+            if name == "emu":
+                p, hp = p.astype(np.float32), hp.astype(np.float32)
+            ref[name] = dot(hp, v) + dot(p, tv) - hp.sum(-1, keepdims=True, dtype=np.float64) * o
+        worst = max(worst, np.abs(ref["emu"] - ref["f64"]).max() / np.abs(ref["f64"]).max())
+    return worst
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_b10_3xtf32_emulation_keeps_fp32_accuracy(causal):
+    """B10 exact's design on record: its five products as 3xTF32 (the split,
+    the low 13 bits of every operand dropped, the small-small term left out)
+    keep tO within 1e-4 of max|float64|, and the big terms alone do not."""
+    assert _tangent_emulated_error(_mm3, causal) <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_b10_1xtf32_emulation_does_not(causal):
+    assert _tangent_emulated_error(_mm1, causal) > 1e-4
