@@ -194,6 +194,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      accepted; a spec run launches B1 and its kind's verify kernel, n_layers
      times per spec step, and no other decode kernel; one verify step's
      logits on the final cache state agree with the CPU plain path.
+ 25. chunked and prefix serving: B1 at a chunk's shapes against its plain
+     version (causal (1, 16, 256, 64) bf16; non-causal from that bf16 q to
+     f32 dequantized prefixes of 256, 512 and 768 tokens, the kv_to_bf16
+     route), `_merge_partials` on the card against the CPU within 1e-6, B1
+     timed at the 768-token prefix beside its plain version and SDPA; the
+     bench LM at max_seq 1280 with prefill_chunk=256 and decode horizon 32
+     serving 4 prompts of 256 tokens and 4 of 1000 (alternating), 96 new
+     tokens each, on each cache kind: one long prompt's last-chunk logits
+     against the CPU plain path, B1 launched 7 times a layer for a long
+     prompt and once for each one-shot prefill, decode banks between every
+     two chunks of every long prompt, tokens set beside the one-shot
+     engine's (reported, not gated); bench.py:bench_prefix_cache's traffic
+     (paged, pages of 128, chunks of 256, max_seq 1088, 8 x (768 shared +
+     64 tail), 32 new tokens, two waves, scheduler="native") cold and warm:
+     warm tokens equal cold ones bit for bit, wave 2 hits 48 pages, B1
+     launches 224 a cold wave and 64 for the warm wave 2, tokens/s and
+     median TTFT of both; `_filter_logits` on the card equal to the CPU's,
+     top_k=1 at temperature 1 serving the greedy engine's tokens (f32
+     params), a top-k / top-p engine repeating itself under its seed, and
+     adaptive_horizon=32 serving phase 5's tokens.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -295,8 +315,11 @@ from quantizedattention_tpu_torch.ops import flash_tiling, int8_tiling, jvp_tili
 from quantizedattention_tpu_torch.ops.int8_fwd import _qkv_jobs
 from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep, tangent_prep_plain
 from quantizedattention_tpu_torch.models.transformer import (
+    Sampling,
     _decode_logits,
+    _filter_logits,
     _verify_logits,
+    prefill_chunk_logits,
     prefill_slots,
 )
 from quantizedattention_tpu_torch.parallel import decode_tiling
@@ -321,6 +344,7 @@ from quantizedattention_tpu_torch.parallel.kv_cache import (
 )
 from quantizedattention_tpu_torch.parallel.paged4_cache import (
     Paged4KVCache,
+    init_paged4_cache,
     paged4_decode_attention,
     paged4_decode_attention_plain,
     paged4_verify_attention,
@@ -328,11 +352,14 @@ from quantizedattention_tpu_torch.parallel.paged4_cache import (
 )
 from quantizedattention_tpu_torch.parallel.paged_cache import (
     PagedKVCache,
+    assign_pages,
+    init_paged_cache,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_verify_attention,
     paged_verify_attention_plain,
 )
+from quantizedattention_tpu_torch.parallel.ring import _merge_partials
 from quantizedattention_tpu_torch.quantize.int8 import (QuantJob, quant_int8, quant_int8_plain,
                                                         quant_int8_uncounted)
 from quantizedattention_tpu_torch.quantize.weights import (
@@ -1482,6 +1509,324 @@ def phase_spec_serving(dev, smi) -> dict:
         runs[f"serve_spec{suffix}"] = {("flash_fwd" if k == "flash_fwd" else row): v
                                        for k, v in spec_l.items() if v}
     return runs
+
+
+# --------------------------------------------------------------------------
+# Chunked prefill, the prefix cache, top-k / top-p sampling, adaptive horizons
+# --------------------------------------------------------------------------
+
+CHUNK, LONG_LEN = 256, 1000
+# _merge_partials on the card against the CPU: the same f32 operations, so
+# only exp2 / log2 may round apart (one ulp)
+MERGE_TOL = 1e-6
+# bench.py:bench_prefix_cache: 8 slots x (768 shared + 64 tail), 32 new
+# tokens, paged (pages of 128), chunks of 256, max_seq = prompt + 256
+PREFIX_SHARED, PREFIX_TAIL, PREFIX_NEW = 768, 64, 32
+PREFIX_CFG = dataclasses.replace(BENCH_CFG, max_seq=PREFIX_SHARED + PREFIX_TAIL + 256)
+FILTER_SPECS = (Sampling(0.8, 50, 0.9), Sampling(1.0, 0, 0.5), Sampling(1.0, 8192, 0.999),
+                Sampling(0.7, 1, 1.0), Sampling(1.3, 400, 0.95))
+
+
+def _chunk_b1(dev, gen) -> dict:
+    """B1 at a chunk's shapes: causal on the chunk itself, bf16 (1, 16, 256,
+    64), and non-causal from the chunk's bf16 q to f32 dequantized prefixes
+    of 256, 512 and 768 tokens (one kv_to_bf16 launch a call), each against
+    its plain version; `_merge_partials` on the card against the CPU; then
+    B1 timed at the 768-token prefix beside its plain version and SDPA."""
+    q, k, v = (torch.randn((1, 16, CHUNK, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    worst = _check_flash(q, k, v, True, "chunk (1,16,256,64) causal, bf16 in")
+    for s in (256, 512, 768):
+        kp, vp = (torch.randn((1, 16, s, 64), generator=gen, device=dev) for _ in range(2))
+        worst = max(worst, _check_flash(q, kp, vp, False, f"chunk q bf16 (1,16,256,64) to an f32 "
+                                                          f"prefix of {s}, non-causal"))
+    o1, o2 = (torch.randn((1, 16, CHUNK, 64), generator=gen, device=dev) for _ in range(2))
+    lse1, lse2 = (torch.randn((1, 16, CHUNK), generator=gen, device=dev) * 4 for _ in range(2))
+    lse1[0, 0, :7] = -torch.inf
+    lse2[0, 1, 3:9] = -torch.inf
+    lse1[0, 2, 10:14] = lse2[0, 2, 10:14] = -torch.inf
+    got_o, got_l = (x.cpu() for x in _merge_partials(o1, lse1, o2, lse2))
+    want_o, want_l = _merge_partials(*(x.cpu() for x in (o1, lse1, o2, lse2)))
+    empty = torch.isneginf(want_l)
+    err = max((got_o - want_o).abs().max().item(), (got_l - want_l)[~empty].abs().max().item())
+    log(f"[chunk] _merge_partials on the card vs the CPU: max diff {err:.3e} (tol {MERGE_TOL}), "
+        f"{int(empty.sum())} rows with both lse -inf")
+    if not (err <= MERGE_TOL and torch.equal(torch.isneginf(got_l), empty)
+            and bool((got_o[empty] == 0).all())):
+        raise AssertionError("_merge_partials on the card differs from the CPU")
+    ms = device_ms(lambda: flash_attention_fwd(q, kp, vp, causal=False))
+    plain_ms = device_ms(lambda: flash_attention_fwd_plain(q, kp, vp, causal=False))
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, kb, vb))
+    o, lse = flash_attention_fwd(q, kp, vp, causal=False)
+    flops = 2 * 2 * 16 * CHUNK * 768 * 64
+    call = bound(nbytes(q, kp, vp, o, lse), (flops, PEAK_BF16))
+    kernel = bound(nbytes(q, kb, vb, o, lse), (flops, PEAK_BF16))
+    log(f"[chunk] B1 non-causal (1,16,256,64) x 768 f32 prefix: call {ms:.4f} ms (kv_to_bf16 + "
+        f"kernel), plain {plain_ms:.4f} ms, sdpa (bf16 K/V) {lib_ms:.4f} ms; bound {call['bound_ms']:.4f}"
+        f" ms with f32 K/V in, {kernel['bound_ms']:.4f} ms with bf16 K/V ({kernel['bound_by']})")
+    return {"chunk_max_abs_err": worst, "chunk_prefix_ms": ms, "chunk_prefix_plain_ms": plain_ms,
+            "chunk_prefix_bound_ms": call["bound_ms"], "chunk_prefix_bound_by": call["bound_by"],
+            "chunk_prefix_kernel_bound_ms": kernel["bound_ms"], "chunk_prefix_library_ms": lib_ms,
+            "chunk_prefix_shape": "q bf16 (1,16,256,64), K/V f32 (1,16,768,64), non-causal"}
+
+
+def _chunk_prompts() -> list:
+    """4 prompts of 256 tokens and 4 of 1000, alternating, so each long
+    prompt's chunks run while earlier requests decode."""
+    rng = np.random.default_rng(1)
+    return [rng.integers(1, BENCH_CFG.vocab_size, size=PROMPT_LEN if i % 2 == 0 else LONG_LEN)
+            .tolist() for i in range(N_SLOTS)]
+
+
+def _kind_caches(dev, kw):
+    """Fresh one-row caches of the cache kind `kw` at BENCH_CFG's capacity
+    (a paged row owns pages 1 .. 10)."""
+    cfg, pages = BENCH_CFG, BENCH_CFG.max_seq // PAGE
+    if kw.get("cache") == "paged":
+        init = init_paged4_cache if kw.get("kv_quant") == "int4" else init_paged_cache
+        caches = [init(cfg.n_kv_heads, 1 + pages, 1, pages, cfg.head_dim, PAGE, dev)
+                  for _ in range(cfg.n_layers)]
+        row = torch.arange(1, 1 + pages, dtype=torch.int32, device=dev)
+        return [assign_pages(c, 0, row) for c in caches]
+    init = init_kv4_cache if kw.get("kv_quant") == "int4" else init_kv_cache
+    return [init(1, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim, dev) for _ in range(cfg.n_layers)]
+
+
+def _chunk_logit_parity(dev, params, prompt, kw, label) -> float:
+    """The last chunk's logits of `prompt`, chunk by chunk into fresh caches
+    of the kind, on the card against the plain path on the CPU."""
+
+    def last_logits(device, p):
+        caches = _kind_caches(device, kw)
+        n = -(-len(prompt) // CHUNK)
+        for i in range(n):
+            piece = prompt[i * CHUNK:(i + 1) * CHUNK]
+            tokens = torch.tensor(piece + [0] * (CHUNK - len(piece)), device=device)
+            logits, caches = prefill_chunk_logits(p, caches, tokens, i * CHUNK, len(prompt), 0,
+                                                  BENCH_CFG, i == n - 1)
+        return logits.float().cpu()
+
+    got, ref = last_logits(dev, params), last_logits("cpu", _to(params, "cpu"))
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"[chunk] {label}: last-chunk logits of a {len(prompt)}-token prompt vs the CPU plain "
+        f"path: rel L2 {rel:.3e} (tol {LOGITS_REL_TOL}), argmax equal {bool(got.argmax() == ref.argmax())}")
+    if not (torch.isfinite(got).all() and rel <= LOGITS_REL_TOL):
+        raise AssertionError(f"{label}: chunked-prefill logits disagree with the CPU plain path")
+    return rel
+
+
+def _serve_once(dev, params, prompts, label, **kw):
+    """One run of `prompts` (NEW_TOKENS each) on a fresh engine at
+    BENCH_CFG with the engine options `kw`: (tokens, the launches counted
+    over the run, wall seconds, the engine, its action sequence, the
+    results). Each request must get its budget of in-vocab tokens."""
+    eng = ServingEngine(params, BENCH_CFG, dev, n_slots=N_SLOTS, scheduler="native",
+                        decode_horizon=HORIZON, **kw)
+    events = []
+    real_chunk, real_decode = eng._do_prefill_chunk, eng._do_decode
+
+    def chunk():
+        events.append(("chunk", eng._pending["rid"], eng._pending["next"]))
+        real_chunk()
+
+    def decode():
+        events.append(("decode", sum(r >= 0 for r in eng._slot_req), None))
+        real_decode()
+
+    eng._do_prefill_chunk, eng._do_decode = chunk, decode
+    rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    results = [out[r] for r in rids]
+    for r in results:
+        if len(r.tokens) != NEW_TOKENS or not all(0 <= t < BENCH_CFG.vocab_size for t in r.tokens):
+            raise AssertionError(f"{label}: request {r.request_id} gave {len(r.tokens)} tokens")
+    return [r.tokens for r in results], launches, wall, eng, events, results
+
+
+def _chunk_serving(dev, smi, params) -> dict:
+    """The chunked engine (prefill_chunk 256, horizon 32) on 4 x 256 + 4 x
+    1000-token prompts, on each cache kind: the last chunk's logits against
+    the CPU, B1 launched 7 times a layer for a long prompt and once a layer
+    for each one-shot prefill, decode banks between every two chunks of
+    each long prompt, tokens set beside the one-shot engine's (reported,
+    not gated: the chunked path reads its prefix back quantized, so a
+    near-tie may flip). Returns each kind's launches by path."""
+    prompts = _chunk_prompts()
+    long_rids = [i for i, p in enumerate(prompts) if len(p) > CHUNK]
+    n_chunks = -(-LONG_LEN // CHUNK)
+    # one-shot prefills: each short prompt is served before the next long one
+    want_b1 = BENCH_CFG.n_layers * (len(long_rids) * (2 * n_chunks - 1)
+                                    + N_SLOTS - len(long_rids))
+    _serve_once(dev, params, prompts, "warm-up", prefill_chunk=CHUNK)
+    runs = {}
+    for suffix, kw in SPEC_KINDS.items():
+        label = "chunked" + "".join(f" {k}={v}" for k, v in kw.items())
+        _chunk_logit_parity(dev, params, prompts[long_rids[0]], kw, label)
+        tokens, launches, wall, eng, events, results = _serve_once(
+            dev, params, prompts, label, prefill_chunk=CHUNK, **kw)
+        one_shot, _, wall1, _, _, res1 = _serve_once(dev, params, prompts, label + " one-shot",
+                                                      **kw)
+        row = DECODE_ROW[suffix]
+        if set(launches) != {"flash_fwd", row} or launches["flash_fwd"] != want_b1:
+            raise AssertionError(f"{label}: launches {launches}, want flash_fwd {want_b1} and {row}")
+        between = []
+        for rid in long_rids:
+            at = [i for i, e in enumerate(events) if e[0] == "chunk" and e[1] == rid]
+            banks = [e for e in events[at[0]:at[-1]] if e[0] == "decode" and e[1] > 0]
+            if len(at) != n_chunks or not banks:
+                raise AssertionError(f"{label}: request {rid} ran {len(at)} chunks with "
+                                     f"{len(banks)} decode banks between them")
+            between.append(len(banks))
+        same = sum(a == b for a, b in zip(tokens, one_shot))
+        flat = [(a, b) for x, y in zip(tokens, one_shot) for a, b in zip(x, y)]
+        ttft = statistics.median(r.ttft_s for r in results) * 1e3
+        ttft1 = statistics.median(r.ttft_s for r in res1) * 1e3
+        log(f"[chunk] {label} on {smi}: {N_SLOTS * NEW_TOKENS / wall:.1f} tokens/s, median TTFT "
+            f"{ttft:.2f} ms (one-shot {N_SLOTS * NEW_TOKENS / wall1:.1f} tokens/s, {ttft1:.2f} ms); "
+            f"launches {launches}; decode banks between each long prompt's first and last "
+            f"chunk {between}; {same}/{N_SLOTS} requests and "
+            f"{sum(a == b for a, b in flat) / len(flat):.3f} of the tokens equal the one-shot "
+            f"engine's (not gated)")
+        runs[f"serve_chunked{suffix}"] = launches
+    return runs
+
+
+def _prefix_waves() -> list:
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, PREFIX_CFG.vocab_size, size=PREFIX_SHARED).tolist()
+    return [[prefix + rng.integers(1, PREFIX_CFG.vocab_size, size=PREFIX_TAIL).tolist()
+             for _ in range(N_SLOTS)] for _ in range(2)]
+
+
+def _prefix_engine(dev, smi, params, waves, prefix_cache) -> list:
+    """bench_prefix_cache's engine, its two waves one after another: each
+    wave's tokens, launches, tokens/s, median TTFT and prefix hit pages."""
+    eng = ServingEngine(params, PREFIX_CFG, dev, n_slots=N_SLOTS, scheduler="native",
+                        cache="paged", page_size=PAGE, prefill_chunk=CHUNK,
+                        decode_horizon=PREFIX_NEW, prefix_cache=prefix_cache)
+    out = []
+    for wave in waves:
+        hits = eng.stats().get("prefix_hit_pages", 0)
+        rids = [eng.submit(p, PREFIX_NEW) for p in wave]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        out.append({"tokens": [res[r].tokens for r in rids],
+                    "launches": {k: v for k, v in _launch_counts().items() if v},
+                    "tokens_per_s": sum(len(res[r].tokens) for r in rids) / wall,
+                    "ttft_ms": statistics.median(res[r].ttft_s for r in rids) * 1e3,
+                    "hit_pages": st.get("prefix_hit_pages", 0) - hits,
+                    "nodes": st.get("prefix_nodes"), "pages_free": st["pages_free"]})
+    if prefix_cache and out[-1]["pages_free"] + out[-1]["nodes"] != eng.caches[0].n_pages - 1:
+        raise AssertionError(f"prefix engine: {out[-1]['pages_free']} pages free and "
+                             f"{out[-1]['nodes']} cached of {eng.caches[0].n_pages - 1}")
+    return out
+
+
+def _prefix_serving(dev, smi, params) -> dict:
+    """bench_prefix_cache's traffic, cold (no prefix cache) then warm: the
+    warm engine's tokens equal the cold one's bit for bit (the same chunk
+    grid, so the same bits in the shared pages), wave 2 hits 6 pages a
+    request, B1 runs 7 times a layer a request cold and 2 warm."""
+    waves = _prefix_waves()
+    n_chunks = -(-(PREFIX_SHARED + PREFIX_TAIL) // CHUNK)
+    cold = _prefix_engine(dev, smi, params, waves, False)
+    warm = _prefix_engine(dev, smi, params, waves, True)
+    want_cold = PREFIX_CFG.n_layers * N_SLOTS * (2 * n_chunks - 1)
+    want_warm = PREFIX_CFG.n_layers * N_SLOTS * 2
+    want_hits = N_SLOTS * (PREFIX_SHARED // PAGE)
+    for w in range(2):
+        log(f"[prefix] wave {w + 1} on {smi}: cold {cold[w]['tokens_per_s']:.1f} tokens/s, median "
+            f"TTFT {cold[w]['ttft_ms']:.2f} ms, launches {cold[w]['launches']}; warm "
+            f"{warm[w]['tokens_per_s']:.1f} tokens/s, median TTFT {warm[w]['ttft_ms']:.2f} ms, "
+            f"launches {warm[w]['launches']}, hit pages {warm[w]['hit_pages']}, nodes "
+            f"{warm[w]['nodes']}, pages free {warm[w]['pages_free']}")
+        if warm[w]["tokens"] != cold[w]["tokens"]:
+            raise AssertionError(f"prefix wave {w + 1}: warm tokens differ from the cold engine's")
+        if cold[w]["launches"].get("flash_fwd") != want_cold:
+            raise AssertionError(f"prefix wave {w + 1}: the cold engine launched B1 "
+                                 f"{cold[w]['launches'].get('flash_fwd')} times, want {want_cold}")
+    if warm[1]["hit_pages"] != want_hits or warm[1]["launches"].get("flash_fwd") != want_warm:
+        raise AssertionError(f"prefix wave 2: {warm[1]['hit_pages']} hit pages (want {want_hits}), "
+                             f"B1 {warm[1]['launches'].get('flash_fwd')} launches (want {want_warm})")
+    if set(warm[1]["launches"]) != {"flash_fwd", "paged_decode"}:
+        raise AssertionError(f"prefix wave 2 launched {warm[1]['launches']}")
+    log(f"[prefix] wave 2, warm against cold on {smi}: tokens/s "
+        f"{warm[1]['tokens_per_s'] / cold[1]['tokens_per_s']:.3f}x, median TTFT "
+        f"{cold[1]['ttft_ms'] / warm[1]['ttft_ms']:.3f}x faster; tokens equal bit for bit")
+    return {"serve_prefix_cold": cold[1]["launches"], "serve_prefix_warm": warm[1]["launches"]}
+
+
+def _sampling_serving(dev, smi, bf16_tokens) -> dict:
+    """top_k = 1 at temperature 1 serves the greedy engine's tokens (with
+    f32 params: bf16 logits tie exactly often enough that top-k keeps two
+    ids, in JAX as here); a temperature 0.8, top_k 50, top_p 0.9 engine
+    repeats its tokens under the same seed; `_filter_logits` on the card
+    equals the CPU's bit for bit; adaptive_horizon=32 serves phase 5's
+    tokens."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    logits = torch.randn((N_SLOTS, BENCH_CFG.vocab_size), generator=gen, device=dev) * 3
+    logits[:, :40] = logits[:, :1]  # a tie across the top-k and top-p cuts
+    for spec in FILTER_SPECS:
+        scaled = logits / spec.temperature
+        got, want = _filter_logits(scaled, spec).cpu(), _filter_logits(scaled.cpu(), spec)
+        if not torch.equal(got, want):
+            raise AssertionError(f"_filter_logits {spec} on the card differs from the CPU")
+    log(f"[sampling] _filter_logits on the card equals the CPU bit for bit at {len(FILTER_SPECS)} "
+        f"specs on [{N_SLOTS}, {BENCH_CFG.vocab_size}] logits")
+    runs = {}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, BENCH_CFG.vocab_size, size=PROMPT_LEN).tolist()
+               for _ in range(N_SLOTS)]
+    f32 = init_transformer(BENCH_CFG, torch.Generator(device=dev).manual_seed(0), dev)
+    greedy = _serve_once(dev, f32, prompts, "greedy, f32")[0]
+    k1, runs["serve_top_k1"], *_ = _serve_once(dev, f32, prompts, "top_k=1, f32",
+                                              temperature=1.0, top_k=1, seed=3)
+    if k1 != greedy:
+        raise AssertionError("top_k=1 at temperature 1 differs from the greedy engine")
+    log(f"[sampling] f32 params: top_k=1 at temperature 1 serves the greedy engine's "
+        f"{N_SLOTS} x {NEW_TOKENS} tokens; launches {runs['serve_top_k1']}")
+    params = init_transformer(BENCH_CFG, torch.Generator(device=dev).manual_seed(0), dev,
+                              torch.bfloat16)
+    sampled = [_serve_once(dev, params, prompts, "top-k / top-p", temperature=0.8, top_k=50,
+                           top_p=0.9, seed=5)[0] for _ in range(2)]
+    if sampled[0] != sampled[1]:
+        raise AssertionError("the top-k / top-p engine did not repeat its tokens under its seed")
+    flat = [(a, b) for x, y in zip(sampled[0], bf16_tokens) for a, b in zip(x, y)]
+    log(f"[sampling] temperature 0.8, top_k 50, top_p 0.9, seed 5: repeats itself; "
+        f"{sum(a == b for a, b in flat) / len(flat):.3f} of its tokens equal the greedy ones")
+    tokens, launches, _, _ = _serve(dev, smi, BENCH_CFG, adaptive_horizon=HORIZON)
+    if tokens != bf16_tokens:
+        raise AssertionError("adaptive_horizon=32 differs from the fixed-horizon engine")
+    runs["serve_adaptive"] = {k: v for k, v in launches.items() if v}
+    log(f"[sampling] adaptive_horizon={HORIZON}: tokens equal phase 5's; launches "
+        f"{runs['serve_adaptive']}")
+    return runs
+
+
+def phase_chunked_prefix_serving(dev, gen, smi, bf16_tokens) -> tuple[dict, dict]:
+    """Phase 25: B1 at the chunk shapes, the chunked engine on the four cache
+    kinds, the prefix cache on bench_prefix_cache's traffic, top-k / top-p
+    sampling and adaptive horizons. Returns (B1's timing at the chunk's
+    prefix shape, each run's launches by path)."""
+    b1 = _chunk_b1(dev, gen)
+    params = init_transformer(BENCH_CFG, torch.Generator(device=dev).manual_seed(0), dev,
+                              torch.bfloat16)
+    runs = _chunk_serving(dev, smi, params)
+    runs.update(_prefix_serving(dev, smi, params))
+    runs.update(_sampling_serving(dev, smi, bf16_tokens))
+    return b1, runs
 
 
 def _to(params, device):
@@ -3139,6 +3484,7 @@ def main() -> None:
     cache_runs = phase_serving_caches(dev, smi, serve_tokens, serve_launches)
     verify = phase_verify_kernels(dev, gen)
     spec_runs = phase_spec_serving(dev, smi)
+    chunk_b1, chunk_runs = phase_chunked_prefix_serving(dev, gen, smi, serve_tokens)
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -3150,8 +3496,9 @@ def main() -> None:
          "launches_by_path": {"serve": serve_launches["flash_fwd"],
                               "train": train_launches["flash_fwd"],
                               "train_gqa": gqa_launches["flash_fwd"]},
-         **flash, "max_abs_err": max(flash["max_abs_err"], train_err["flash_fwd"]),
-         **at_train("flash_fwd")},
+         **flash, "max_abs_err": max(flash["max_abs_err"], train_err["flash_fwd"],
+                                     chunk_b1["chunk_max_abs_err"]),
+         **at_train("flash_fwd"), **chunk_b1},
         {"name": "decode", "route": "cuda",
          "source": "quantizedattention_tpu_torch/csrc/cache_decode.cu",
          "replaces": "quantizedattention_tpu/parallel/kv_cache.py:172",
@@ -3239,8 +3586,8 @@ def main() -> None:
     for k in kernels:  # the decode rows' error: the spec = 1 and verify phases'
         if "verify_max_abs_err" in k:
             k["max_abs_err"] = max(k["max_abs_err"], k["verify_max_abs_err"])
-    for k in kernels:  # the quantized, cache-kind and spec serving runs' launches
-        for path, counts in {**quant_runs, **cache_runs, **spec_runs}.items():
+    for k in kernels:  # the quantized, cache-kind, spec, chunked and prefix runs' launches
+        for path, counts in {**quant_runs, **cache_runs, **spec_runs, **chunk_runs}.items():
             if k["name"] in counts:
                 k["launches_by_path"][path] = counts[k["name"]]
     for k in kernels:  # launches: every path's run together

@@ -22,8 +22,10 @@ rep 4 (2, 16 q / 4 kv, 2048, 64), causal, on the forward's residuals; B1's
 wrapper `flash_attention_fwd`, causal, at the serving prefill (8, 16, 256,
 64) on bf16 inputs, the training shape (4, 16, 2048, 64) on f32 and on bf16
 inputs, (4, 16, {4096, 8192}, 64) bf16 and GQA rep 4 (4, 16 q / 4 kv, 4096,
-64) bf16, each call also split by torch.profiler into the B1 kernel's device
-time and the rest of the call (the wrapper's prep launches); the backward's
+64) bf16, and non-causal from a chunked prefill's bf16 q (1, 16, 256, 64) to
+an f32 prefix of 768 tokens (beside SDPA on bf16 K/V), each call also split
+by torch.profiler into the B1 kernel's device time and the rest of the call
+(the wrapper's prep launches); the backward's
 fast mode, B2 and B3 on prepared operands and the whole
 `flash_attention_bwd` call on the model's inputs (f32 [b, h, t, 64] views
 of [b, t, h, 64] tensors, O and lse from B1), at (4, 16, {2048, 4096,
@@ -77,6 +79,8 @@ BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048))  # (b, h, h_kv, t = s), causa
 FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
               (4, 16, 16, 2048, "bfloat16"), (4, 16, 16, 4096, "bfloat16"),
               (4, 16, 16, 8192, "bfloat16"), (4, 16, 4, 4096, "bfloat16"))
+# (b, h, t, s): a chunk of 256 queries against a 768-token cached prefix
+CHUNK_PREFIX = (1, 16, 256, 768)
 # (b, h, h_kv, t = s), causal, f32 inputs as the model hands them in
 FLASH_BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048), (4, 16, 16, 4096), (4, 16, 16, 8192))
 # (b, h, t = s), non-causal: the DiT's attention shape, bench_jvp's
@@ -187,6 +191,22 @@ def _flash_fwd_rows(torch, gen, dev) -> dict:
         kernel_ms, prep_ms = _kernel_split_ms(torch, call)
         rows[f"b={b} h={h} h_kv={h_kv} t={t} {dtype} causal"] = {
             "call_ms": _device_ms(torch, call), "kernel_ms": kernel_ms, "prep_ms": prep_ms}
+    # a chunked prefill's prefix part: a chunk's bf16 q against the f32
+    # dequantized prefix, non-causal (one kv_to_bf16 launch, then B1), beside
+    # SDPA on the same q and bf16 K/V
+    b, h, t, s = CHUNK_PREFIX
+    q = torch.randn((b, h, t, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, h, s, 64), generator=gen, device=dev) for _ in range(2))
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+    def call():
+        return flash_attention_fwd(q, k, v, causal=False)
+
+    kernel_ms, prep_ms = _kernel_split_ms(torch, call)
+    rows[f"b={b} h={h} t={t} bfloat16 q, s={s} float32 k/v, non-causal"] = {
+        "call_ms": _device_ms(torch, call), "kernel_ms": kernel_ms, "prep_ms": prep_ms,
+        "sdpa_ms": _device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kb, vb))}
     return rows
 
 

@@ -5,9 +5,11 @@ headers, so nvcc takes seconds, not minutes) and is compiled for Hopper into
 `build/kernels/lib<name>.so` beside the package on first use. The host's
 native helpers, shared with the JAX package, are compiled with g++ into
 `build/`: the continuous-batching scheduler core (`native/scheduler.cpp` ->
-`build/libscheduler.so`) and the n-gram draft proposer of speculative
-decoding (`native/ngram.cpp` -> `build/libngram.so`); the tracked `native/`
-directory is never written.
+`build/libscheduler.so`), the n-gram draft proposer of speculative
+decoding (`native/ngram.cpp` -> `build/libngram.so`) and the prefix cache's
+page store (`native/prefix_store.cpp` -> `build/libprefix_store.so`); the
+tracked `native/` directory is never written, and no library there is
+loaded.
 
 A library is rebuilt when its source, or a header beside it, is newer than
 it. Builds write to a temporary file and rename it into place, so concurrent
@@ -29,7 +31,7 @@ _ROOT = os.path.dirname(_PKG_DIR)
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_ROOT, "build")
 KERNEL_DIR = os.path.join(BUILD_DIR, "kernels")
-NATIVE = ("scheduler", "ngram")  # native/<name>.cpp -> build/lib<name>.so
+NATIVE = ("scheduler", "ngram", "prefix_store")  # native/<name>.cpp -> build/lib<name>.so
 
 KERNELS = ("flash_fwd", "flash_bwd", "quant_int8", "int8_fwd", "int8_bwd",
            "int8_linear", "int4_linear", "jvp", "cache_decode")

@@ -19,7 +19,12 @@ tokens back (`_cache_rollback`). Matmuls go through `quantize.weights.mm`
 and gathers through `embedding_lookup`, so params with weight-only
 int8/int4 leaves (`quantize_lm_weights`) run B17/B18.
 
-Chunked prefill and top-k/top-p sampling are not ported yet.
+Chunked prefill (`prefill_chunk`) runs a long prompt through in chunks: a
+chunk attends causally to itself and non-causally to the cache's
+dequantized prefix, both through B1 bf16, and the two partials merge by
+their lse (parallel/ring.py). Sampling takes a float temperature or a
+`Sampling` spec (temperature, top-k, top-p) wherever it takes a
+temperature.
 """
 
 from __future__ import annotations
@@ -31,19 +36,24 @@ import torch
 import torch.nn.functional as F
 
 from quantizedattention_tpu_torch.ops.api import flash_attention_bf16, sage_attention_int8
+from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
 from quantizedattention_tpu_torch.parallel.kv4_cache import (
     Int4KVCache,
     append_kv4,
     decode_attention_int4,
     install_kv4_batched,
+    read_prefix_kv4,
     verify_decode_attention_int4,
+    write_kv4_chunk,
     write_kv4_slot,
 )
 from quantizedattention_tpu_torch.parallel.kv_cache import (
     append_kv,
     decode_attention,
     init_kv_cache,
+    read_prefix_kv,
     verify_decode_attention,
+    write_kv_chunk,
     write_kv_slot,
 )
 from quantizedattention_tpu_torch.parallel.paged4_cache import (
@@ -51,6 +61,8 @@ from quantizedattention_tpu_torch.parallel.paged4_cache import (
     append_tokens_paged4,
     paged4_decode_attention,
     paged4_verify_attention,
+    read_prefix_paged4,
+    write_chunk_paged4,
     write_prompt_paged4,
 )
 from quantizedattention_tpu_torch.parallel.paged_cache import (
@@ -58,8 +70,11 @@ from quantizedattention_tpu_torch.parallel.paged_cache import (
     append_tokens_paged,
     paged_decode_attention,
     paged_verify_attention,
+    read_prefix_paged,
+    write_chunk_paged,
     write_prompt_paged,
 )
+from quantizedattention_tpu_torch.parallel.ring import _merge_partials
 from quantizedattention_tpu_torch.quantize.weights import embedding_lookup, mm
 
 
@@ -304,6 +319,33 @@ def _cache_verify(q, cache):
     return verify_decode_attention(q, cache)
 
 
+def _cache_write_chunk(cache, slot: int, k, v, chunk_start: int, new_len: int):
+    """A chunked prefill's write of [h_kv, c, d] K/V at chunk_start, cut at
+    the capacity first (JAX transformer.py:573-590): the last chunk is
+    padded to the full chunk, and its overhang past max_len (slotted) or
+    past the table (paged) is padding only."""
+    if isinstance(cache, (PagedKVCache, Paged4KVCache)):
+        ps = cache.page_size
+        c_write = min(k.shape[1], cache.page_table.shape[1] * ps - chunk_start)
+        write = write_chunk_paged4 if isinstance(cache, Paged4KVCache) else write_chunk_paged
+        return write(cache, slot, k[:, :c_write], v[:, :c_write], chunk_start // ps, new_len)
+    c_write = min(k.shape[1], cache.max_len - chunk_start)
+    write = write_kv4_chunk if isinstance(cache, Int4KVCache) else write_kv_chunk
+    return write(cache, slot, k[:, :c_write], v[:, :c_write], chunk_start, new_len)
+
+
+def _cache_read_prefix(cache, slot: int, n_tokens: int):
+    """The dequantized f32 K/V [h_kv, n_tokens, d] of the row's first
+    n_tokens: what every later decode step reads."""
+    if isinstance(cache, PagedKVCache):
+        return read_prefix_paged(cache, slot, n_tokens)
+    if isinstance(cache, Paged4KVCache):
+        return read_prefix_paged4(cache, slot, n_tokens)
+    if isinstance(cache, Int4KVCache):
+        return read_prefix_kv4(cache, slot, n_tokens)
+    return read_prefix_kv(cache, slot, n_tokens)
+
+
 def _cache_rollback(cache, drop):
     """Shrink the live token counts by `drop` [b] IN PLACE (speculative
     rejection: later appends overwrite the stale entries)."""
@@ -312,15 +354,64 @@ def _cache_rollback(cache, drop):
     return cache
 
 
-def sample_token(logits, temperature: float = 0.0, generator: torch.Generator | None = None):
-    """Greedy (temperature 0 or no generator) or temperature-scaled
-    categorical sampling. Accepts [vocab] or [batch, vocab] logits; returns
-    int64 token ids (one draw per row)."""
-    if temperature < 0.0:
-        raise ValueError("temperature must be >= 0")
-    if temperature == 0.0 or generator is None:
+@dataclasses.dataclass(frozen=True)
+class Sampling:
+    """Sampling spec: temperature scaling, then top-k and nucleus (top-p)
+    filtering, in that order (the JAX package's `Sampling`,
+    transformer.py:277-303). Every function that takes a temperature takes
+    one; a plain float means temperature only. top_k=0 and top_p=1.0 turn
+    their filter off; the nucleus keeps at least one token."""
+
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+    def __post_init__(self):
+        if self.temperature < 0.0:
+            raise ValueError("temperature must be >= 0")
+        if self.top_k < 0:
+            raise ValueError("top_k must be >= 0")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
+
+
+def sampling_temperature(temperature) -> float:
+    """The float temperature of a float-or-Sampling `temperature` value."""
+    return temperature.temperature if isinstance(temperature, Sampling) else float(temperature)
+
+
+def _spec(temperature) -> Sampling:
+    return temperature if isinstance(temperature, Sampling) else Sampling(float(temperature))
+
+
+def _filter_logits(scaled, spec: Sampling):
+    """Temperature-scaled logits [..., vocab] with the entries outside the
+    top-k / top-p set set to -inf (JAX transformer.py:314-332). Top-k keeps
+    the k highest (every tie of the k-th included); top-p keeps the sorted
+    prefix whose preceding probability mass is below top_p (the first token
+    always), ties at the cut included."""
+    if 0 < spec.top_k < scaled.shape[-1]:
+        kth = torch.topk(scaled, spec.top_k, dim=-1).values[..., -1:]
+        scaled = torch.where(scaled < kth, -torch.inf, scaled)
+    if spec.top_p < 1.0:
+        srt = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        top_p = torch.tensor(spec.top_p, dtype=probs.dtype)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        cut = torch.gather(srt, -1, keep.sum(-1, keepdim=True) - 1)
+        scaled = torch.where(scaled < cut, -torch.inf, scaled)
+    return scaled
+
+
+def sample_token(logits, temperature=0.0, generator: torch.Generator | None = None):
+    """Greedy (temperature 0 or no generator), temperature-scaled
+    categorical, or, with a `Sampling` spec, top-k / top-p filtered
+    sampling. Accepts [vocab] or [batch, vocab] logits; returns int64 token
+    ids (one draw per row)."""
+    spec = _spec(temperature)
+    if spec.temperature == 0.0 or generator is None:
         return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    probs = torch.softmax(_filter_logits(logits.float() / spec.temperature, spec), dim=-1)
     draws = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=generator)
     return draws.reshape(probs.shape[:-1])
 
@@ -345,7 +436,7 @@ def _decode_logits(params, caches, last_tok, pos, active, cfg: TransformerConfig
 
 
 def decode_step_batched(params, caches, last_tok, pos, active, cfg: TransformerConfig,
-                        temperature: float = 0.0, generator=None):
+                        temperature=0.0, generator=None):
     """One continuous-batching decode step over all cache slots at once.
 
     last_tok/pos/active: [n_slots]; every slot sits at its own position;
@@ -370,23 +461,30 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def gumbel_draws(logits, temperature: float, seed: int, rows, positions):
+def gumbel_draws(logits, temperature, seed: int, rows, positions):
     """One categorical draw per (row, position) from softmax(logits / T),
     by Gumbel-max: argmax(logits / T - log(-log u)). The uniform u of vocab
     id v is a counter-based hash of (seed, row, position, v), computed on the
     logits' device with int64 tensor ops: no generator state and no host
     sync, and a draw depends only on where it lands, so the same seed
     replays the same token at the same (row, position) however many drafts
-    were in flight. logits [n, s, V]; rows [n] and positions [n, s] integer
-    tensors. Returns int64 [n, s]."""
+    were in flight. `temperature` is a float or a `Sampling` spec, whose
+    top-k / top-p filter (`_filter_logits` on the f32 logits / T) takes the
+    ids outside its set out of the argmax: the draw then follows the
+    filtered softmax. logits [n, s, V]; rows [n] and positions [n, s]
+    integer tensors. Returns int64 [n, s]."""
+    spec = _spec(temperature)
     key = _mix32(_mix32(seed & _MASK32) ^ ((seed >> 32) & _MASK32))
     vocab = torch.arange(logits.shape[-1], device=logits.device)
     h = _mix32(key ^ rows.long()[:, None])
     h = _mix32(h ^ (positions.long() & _MASK32))  # [n, s]
     h = _mix32(_mix32(h[..., None] ^ vocab) ^ (h[..., None] >> 5))  # [n, s, V]
     u = (h.double() + 0.5) * 2.0 ** -32  # in (0, 1)
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(logits.double() / temperature + gumbel, dim=-1)
+    z = logits.double() / spec.temperature - torch.log(-torch.log(u))
+    if spec.top_k > 0 or spec.top_p < 1.0:
+        kept = torch.isfinite(_filter_logits(logits.float() / spec.temperature, spec))
+        z = torch.where(kept, z, -torch.inf)
+    return torch.argmax(z, dim=-1)
 
 
 @torch.no_grad()
@@ -409,7 +507,7 @@ def _verify_logits(params, caches, last_tok, draft, pos, active, cfg: Transforme
 
 
 def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: TransformerConfig,
-                        temperature: float = 0.0, seed: int | None = None):
+                        temperature=0.0, seed: int | None = None):
     """Speculative-verification decode step: one pass scores the last
     accepted token and s - 1 draft tokens per slot and emits between 1 and s
     tokens per slot, token-exact with s plain decode steps, because every
@@ -417,7 +515,8 @@ def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: Trans
     (the JAX package's verify_step_batched).
 
     Greedy (temperature 0 or seed None): the target is the argmax. Sampled:
-    the target at each position is a draw from softmax(logits / T) keyed by
+    the target at each position is a draw from softmax(logits / T), top-k /
+    top-p filtered first when `temperature` is a `Sampling` spec, keyed by
     (seed, slot row, the absolute position it predicts) (`gumbel_draws`);
     drafts are accepted while they equal the draws, and the first draw that
     differs is the emitted token. For a deterministic drafter (the engine's
@@ -434,7 +533,7 @@ def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: Trans
     """
     n_slots, s = draft.shape[0], draft.shape[1] + 1
     logits, new_caches = _verify_logits(params, caches, last_tok, draft, pos, active, cfg)
-    if temperature == 0.0 or seed is None:
+    if sampling_temperature(temperature) == 0.0 or seed is None:
         targets = torch.argmax(logits, dim=-1)
     else:
         # target t predicts the token at position pos + t + 1
@@ -455,7 +554,7 @@ def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: Trans
 
 
 def decode_horizon_batched(params, caches, last_tok, pos, active, cfg: TransformerConfig,
-                           horizon: int, temperature: float = 0.0, generator=None):
+                           horizon: int, temperature=0.0, generator=None):
     """`horizon` chained decode steps with every step's token banked:
     returns (tokens [horizon, n_slots], caches, last_tok, pos). Nothing in
     the loop waits for the device; the caller fetches the bank once."""
@@ -471,7 +570,7 @@ def decode_horizon_batched(params, caches, last_tok, pos, active, cfg: Transform
 
 @torch.no_grad()
 def prefill_slot(params, caches, tokens, true_len: int, slot: int, cfg: TransformerConfig,
-                 temperature: float = 0.0, generator=None):
+                 temperature=0.0, generator=None):
     """Fused prefill of one request into cache row `slot`.
 
     tokens: [t_pad] prompt right-padded past `true_len` (causal masking keeps
@@ -494,9 +593,57 @@ def prefill_slot(params, caches, tokens, true_len: int, slot: int, cfg: Transfor
     return sample_token(logits, temperature, generator), new_caches
 
 
+def prefill_chunk(params, caches, tokens, chunk_start: int, true_end: int, slot: int,
+                  cfg: TransformerConfig, last: bool, temperature=0.0, generator=None):
+    """One chunk of a chunked prefill into cache row `slot` (the JAX
+    package's prefill_chunk, transformer.py:531-620).
+
+    tokens: [c] the prompt's slice [chunk_start, chunk_start + c), the last
+    chunk right-padded; true_end: the prompt's length. The chunk attends
+    causally to itself and, past the first chunk, non-causally to the
+    row's dequantized prefix [0, chunk_start), both through B1 bf16
+    whatever `cfg.attention` is (as in JAX), and the two partials merge by
+    lse. The row's length grows to min(chunk_start + c, true_end), so decode
+    steps of other slots between chunks see only written positions of this
+    row. chunk_start, true_end and slot are Python ints.
+
+    Returns (the sampled first token on the last chunk, else None; caches).
+    """
+    logits, caches = prefill_chunk_logits(params, caches, tokens, chunk_start, true_end, slot,
+                                          cfg, last)
+    return (None if logits is None else sample_token(logits, temperature, generator)), caches
+
+
+@torch.no_grad()
+def prefill_chunk_logits(params, caches, tokens, chunk_start: int, true_end: int, slot: int,
+                         cfg: TransformerConfig, last: bool):
+    """`prefill_chunk` up to its last token's logits: (logits [vocab] on the
+    last chunk, else None; caches)."""
+    c = tokens.shape[0]
+    x = embedding_lookup(params["embed"], tokens)[None]
+    positions = chunk_start + torch.arange(c, device=tokens.device)
+    new_len = min(chunk_start + c, true_end)
+    new_caches = []
+    for layer, cache in zip(params["layers"], caches):
+        h = rmsnorm(x, layer["ln1"])
+        q, k, v = _project_qkv(layer, h, cfg, positions)
+        cache = _cache_write_chunk(cache, slot, k[0], v[0], chunk_start, new_len)
+        o, lse = flash_attention_fwd(q, k, v, causal=True)  # GQA-native
+        if chunk_start > 0:
+            k_pre, v_pre = _cache_read_prefix(cache, slot, chunk_start)
+            o2, lse2 = flash_attention_fwd(q, k_pre[None], v_pre[None], causal=False)
+            o, lse = _merge_partials(o, lse, o2, lse2)
+        x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+        new_caches.append(cache)
+    if not last:
+        return None, new_caches
+    return mm(rmsnorm(x[0, true_end - 1 - chunk_start], params["final_norm"]),
+              params["unembed"]), new_caches
+
+
 @torch.no_grad()
 def prefill_slots(params, caches, tokens, true_lens, slots, cfg: TransformerConfig,
-                  temperature: float = 0.0, generator=None):
+                  temperature=0.0, generator=None):
     """Fused prefill of several requests in one pass: tokens [B, t_pad]
     (right-padded to a shared length), true_lens [B] and slots [B] integer
     tensors on the params' device. Returns (first tokens [B], caches)."""
@@ -519,7 +666,7 @@ def prefill_slots(params, caches, tokens, true_lens, slots, cfg: TransformerConf
 
 @torch.no_grad()
 def prefill_batched(params, caches, prompt, cfg: TransformerConfig,
-                    temperature: float = 0.0, generator=None):
+                    temperature=0.0, generator=None):
     """Fused prefill of a same-length batch prompt [B, T0], K/V installed in
     every cache row (all rows at length 0; a paged cache's rows must own
     their pages). Returns (next_tok [B], caches)."""
@@ -538,15 +685,18 @@ def prefill_batched(params, caches, prompt, cfg: TransformerConfig,
 
 
 def generate(params, prompt, cfg: TransformerConfig, max_new_tokens: int = 16,
-             temperature: float = 0.0, generator=None):
+             temperature=0.0, generator=None, top_k: int = 0, top_p: float = 1.0):
     """Decoding with the int8 KV cache: one fused prefill over the prompt,
     then batched single-token decode steps (the serving engine's numerics).
-    Greedy by default; temperature > 0 samples with `generator`.
+    Greedy by default; temperature > 0 samples with `generator`, top-k /
+    top-p filtered when top_k > 0 or top_p < 1.
 
     prompt: [B, T0] integer tensor on the params' device; returns
     [B, T0 + max_new_tokens] int64.
     """
-    if temperature > 0.0 and generator is None:
+    if top_k or top_p < 1.0:
+        temperature = Sampling(sampling_temperature(temperature), top_k, top_p)
+    if sampling_temperature(temperature) > 0.0 and generator is None:
         raise ValueError("temperature > 0 requires a torch.Generator")
     b, t0 = prompt.shape
     dev = prompt.device

@@ -194,6 +194,45 @@ def write_kv4_slot(cache: Int4KVCache, slot, k_new, v_new, true_len) -> Int4KVCa
     return cache
 
 
+def write_kv4_chunk(cache: Int4KVCache, slot: int, k_new, v_new, start: int,
+                    new_len) -> Int4KVCache:
+    """Chunked-prefill write (the int4 twin of kv_cache.write_kv_chunk):
+    quantize [h_kv, c, d] K/V and install them at row `slot` (a Python int),
+    positions start .. start + c - 1, setting its length to `new_len`. A
+    chunk may start in a pack block's second half, so the write reads each
+    byte row first and replaces one nibble, in pieces of <= 128 tokens (no
+    byte row twice in a piece), as append_kv4 does. The caller trims c to
+    the capacity: a write past max_len raises."""
+    c = k_new.shape[1]
+    if start < 0 or start + c > cache.max_len:
+        raise ValueError(f"chunk [{start}, {start + c}) is outside max_len {cache.max_len}")
+    k4, sk = _quant4_rows(k_new.float()[None])
+    v4, sv = _quant4_rows(v_new.float()[None])
+    row = slice(slot, slot + 1)
+    first = torch.full((1,), start, dtype=torch.long, device=cache.k_p.device)
+    for c0 in range(0, c, _HALF):
+        piece = slice(c0, min(c0 + _HALF, c))
+        _write_tokens([(cache.k_p[row], cache.sk[row], k4[:, :, piece], sk[:, :, piece]),
+                       (cache.v_p[row], cache.sv[row], v4[:, :, piece], sv[:, :, piece])],
+                      first + c0)
+    dev = cache.length.device
+    cache.length.index_copy_(0, _one(slot, torch.long, dev), _one(new_len, torch.int32, dev))
+    return cache
+
+
+def read_prefix_kv4(cache: Int4KVCache, slot: int, n_tokens: int):
+    """The first `n_tokens` of row `slot` (a Python int) unpacked to token
+    order and dequantized: (k, v) f32 [h_kv, n_tokens, d]. Reads whole pack
+    blocks and trims."""
+    rows = -(-n_tokens // PACK) * _HALF
+
+    def deq(payload, scales):
+        x = unpack_tokens(payload[slot, :, :rows], PACK)[:, :n_tokens].float()
+        return x * scales[slot, :, :n_tokens, None]
+
+    return deq(cache.k_p, cache.sk), deq(cache.v_p, cache.sv)
+
+
 def unpack_tokens(p: torch.Tensor, block: int) -> torch.Tensor:
     """[..., rows, d] packed bytes -> [..., 2 rows, d] int32 values in token
     order, for split-half blocks of `block` tokens."""

@@ -127,6 +127,40 @@ def write_kv_slot(cache: QuantizedKVCache, slot, k_new, v_new, true_len) -> Quan
     return cache
 
 
+def write_kv_chunk(cache: QuantizedKVCache, slot: int, k_new, v_new, start: int,
+                   new_len) -> QuantizedKVCache:
+    """Chunked-prefill write: quantize [h_kv, c, d] K/V and install them at
+    row `slot`, positions start .. start + c - 1, setting the row's length
+    to `new_len` (a Python int or a one-element tensor). The caller trims c
+    to the capacity, as models.transformer.prefill_chunk does: a write past
+    max_len raises."""
+    c = k_new.shape[1]
+    if start < 0 or start + c > cache.max_len:
+        raise ValueError(f"chunk [{start}, {start + c}) is outside max_len {cache.max_len}")
+    dev = cache.k_i8.device
+    idx = _one(slot, torch.long, dev)
+    for buf, sbuf, x in ((cache.k_i8, cache.sk, k_new), (cache.v_i8, cache.sv, v_new)):
+        x_i8, s = _row_quant(x.float())
+        buf.narrow(2, start, c).index_copy_(0, idx, x_i8[None])
+        sbuf.narrow(2, start, c).index_copy_(0, idx, s[None])
+    cache.length.index_copy_(0, idx, _one(new_len, torch.int32, dev))
+    return cache
+
+
+def read_prefix_kv(cache: QuantizedKVCache, slot: int, n_tokens: int):
+    """The first `n_tokens` of row `slot` dequantized: (k, v) f32
+    [h_kv, n_tokens, d], payload times scale in f32, the values every later
+    decode step reads (the JAX chunked prefill computes it inline,
+    models/transformer.py:602-609)."""
+    idx = _one(slot, torch.long, cache.k_i8.device)
+
+    def deq(payload, scales):
+        x = payload.narrow(2, 0, n_tokens).index_select(0, idx)[0].float()
+        return x * scales.narrow(2, 0, n_tokens).index_select(0, idx)[0, ..., None]
+
+    return deq(cache.k_i8, cache.sk), deq(cache.v_i8, cache.sv)
+
+
 def _check_decode_args(q, cache, spec: int = 1):
     if q.ndim != 3 or q.shape[0] != cache.k_i8.shape[0] or q.shape[2] != cache.k_i8.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache {tuple(cache.k_i8.shape)}")

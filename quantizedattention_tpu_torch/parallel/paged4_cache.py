@@ -48,11 +48,13 @@ from quantizedattention_tpu_torch.parallel.paged_cache import (
     _prompt_pages,
     _set_length,
     _check_paged_args,
+    _chunk_pages,
     _token_slots,
     assign_pages,
     check_page_size,
     gather_rows,
     gather_scales,
+    prefix_pages,
 )
 
 assign_pages4 = assign_pages
@@ -111,6 +113,37 @@ def write_prompt_paged4(cache: Paged4KVCache, seq, k_new, v_new, true_len) -> Pa
         sbuf.index_copy_(0, pages, s.reshape(h, pages.shape[0], ps).transpose(0, 1))
     _set_length(cache, seq, true_len)
     return cache
+
+
+def write_chunk_paged4(cache: Paged4KVCache, seq, k_new, v_new, page_start: int,
+                       new_len) -> Paged4KVCache:
+    """Chunked prefill: [h, c, d] K/V (c a multiple of page_size) packed as
+    whole pages into the pages of `seq` at table columns page_start ..;
+    length set to `new_len`. The contract of
+    paged_cache.write_chunk_paged."""
+    h, c, _ = k_new.shape
+    ps = cache.page_size
+    pages = _chunk_pages(cache, seq, page_start, c)
+    for buf, sbuf, x in ((cache.k_p, cache.sk, k_new), (cache.v_p, cache.sv, v_new)):
+        x4, s = _quant4_rows(x.float())
+        buf.index_copy_(1, pages, _pack_pages(x4, ps))
+        sbuf.index_copy_(0, pages, s.reshape(h, pages.shape[0], ps).transpose(0, 1))
+    _set_length(cache, seq, new_len)
+    return cache
+
+
+def read_prefix_paged4(cache: Paged4KVCache, seq, n_tokens: int):
+    """The first `n_tokens` (a page multiple) of `seq` gathered, unpacked to
+    token order and dequantized: (k, v) f32 [h, n_tokens, d]."""
+    pages = prefix_pages(cache, seq, n_tokens)
+    h, d = cache.k_p.shape[0], cache.k_p.shape[3]
+
+    def deq(payload, scales):
+        x = unpack_tokens(payload.index_select(1, pages), cache.page_size).float()
+        s = scales.index_select(0, pages).transpose(0, 1)  # [h, n, ps]
+        return (x * s[..., None]).reshape(h, n_tokens, d)
+
+    return deq(cache.k_p, cache.sk), deq(cache.v_p, cache.sv)
 
 
 def append_tokens_paged4(cache: Paged4KVCache, k_new, v_new, active=None) -> Paged4KVCache:

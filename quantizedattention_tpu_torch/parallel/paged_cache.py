@@ -130,6 +130,58 @@ def write_prompt_paged(cache: PagedKVCache, seq, k_new, v_new, true_len) -> Page
     return cache
 
 
+def _chunk_pages(cache, seq, page_start: int, c: int) -> torch.Tensor:
+    """The pages of `seq` at table columns page_start .. that a chunk of c
+    tokens (a page multiple, within the table) fills."""
+    ps, max_pages = cache.page_size, cache.page_table.shape[1]
+    if c % ps != 0 or page_start < 0 or page_start + c // ps > max_pages:
+        raise ValueError(f"chunk of {c} tokens at page {page_start} is not a page multiple "
+                         f"within {max_pages} pages of {ps}")
+    row = cache.page_table.index_select(0, _one(seq, torch.long, cache.page_table.device))
+    return row[0, page_start: page_start + c // ps].long()
+
+
+def write_chunk_paged(cache: PagedKVCache, seq, k_new, v_new, page_start: int,
+                      new_len) -> PagedKVCache:
+    """Chunked prefill: quantize [h, c, d] K/V (c a multiple of page_size)
+    into the pages of `seq` at table columns page_start .. (the engine's
+    chunk grid is page-aligned) and set its length to `new_len`. The caller
+    trims c to the table, as models.transformer.prefill_chunk does; table
+    entries past the sequence's pages are 0, so a padded chunk's overhang
+    lands on the garbage page."""
+    h, c, d = k_new.shape
+    ps = cache.page_size
+    pages = _chunk_pages(cache, seq, page_start, c)
+    n = pages.shape[0]
+    for buf, sbuf, x in ((cache.k_pages, cache.sk, k_new), (cache.v_pages, cache.sv, v_new)):
+        x_i8, s = _row_quant(x.float())
+        buf.index_copy_(1, pages, x_i8.reshape(h, n, ps, d))
+        sbuf.index_copy_(0, pages, s.reshape(h, n, ps).transpose(0, 1))
+    _set_length(cache, seq, new_len)
+    return cache
+
+
+def prefix_pages(cache, seq, n_tokens: int) -> torch.Tensor:
+    """The first n_tokens / page_size pages of `seq` (n_tokens a page
+    multiple within the table)."""
+    return _chunk_pages(cache, seq, 0, n_tokens)
+
+
+def read_prefix_paged(cache: PagedKVCache, seq, n_tokens: int):
+    """The first `n_tokens` (a page multiple) of `seq` gathered from its
+    pages and dequantized: (k, v) f32 [h, n_tokens, d], the chunked-prefill
+    prefix, read back as every later decode step sees it."""
+    pages = prefix_pages(cache, seq, n_tokens)
+    h, d = cache.k_pages.shape[0], cache.k_pages.shape[3]
+
+    def deq(payload, scales):
+        x = payload.index_select(1, pages).float()                # [h, n, ps, d]
+        s = scales.index_select(0, pages).transpose(0, 1)         # [h, n, ps]
+        return (x * s[..., None]).reshape(h, n_tokens, d)
+
+    return deq(cache.k_pages, cache.sk), deq(cache.v_pages, cache.sv)
+
+
 def _token_slots(cache, t: int, active):
     """Per (row, new token): the page and in-page offset it is written to,
     and whether the write is real. Inactive rows and tokens past the table's

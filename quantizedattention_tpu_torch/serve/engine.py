@@ -49,9 +49,31 @@ gets ceil((max_seq + k) / page_size) entries, the ones past its pages
 pointing at the garbage page 0, where the overshoot lands and still
 advances the row's length, so the staircase stays aligned.
 
-The JAX engine's mesh serving, prefix cache, chunked prefill, adaptive
-horizon and top-k/top-p sampling are not ported yet; asking for any of them
-raises NotImplementedError.
+Chunked prefill (`prefill_chunk=c`, a positive multiple of 128, and of
+page_size when paged): a prompt longer than c is admitted chunk by chunk
+(models/transformer.py:prefill_chunk), and while it is in flight `step()`
+alternates one decode bank of the running slots with one chunk, so a long
+prompt does not stall the decodes. The row's length grows chunk by chunk;
+the slot joins the decode banks after its last chunk.
+
+Prefix caching (`prefix_cache=True`; needs cache="paged" and
+prefill_chunk): the full pages of every prefilled prompt are offered to a
+prefix store (serve/prefix_store.py); a request whose prompt starts with a
+cached chain takes those pages into its table row (the hit rounded down to
+the chunk grid and kept below the prompt's end, so at least one token is
+computed) and prefills only the tail, through the chunked path, which
+reads the cached prefix through the table. Shared pages are released, not
+freed, when a request finishes; under pool pressure the store evicts
+unreferenced ones back to the pager.
+
+Sampling: `top_k` / `top_p` filter the temperature-scaled logits
+(models/transformer.py:Sampling) on every path: prefill, decode banks,
+chunks and the verify pass's Gumbel draws. `adaptive_horizon=cap` sizes
+each decode bank from the slots' remaining budgets, a power of two up to
+cap (`_pick_horizon`); tokens equal the fixed-horizon engine's.
+
+The JAX engine's mesh serving is not ported yet; asking for it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -62,10 +84,13 @@ import time
 import torch
 
 from quantizedattention_tpu_torch.models.transformer import (
+    Sampling,
     TransformerConfig,
     decode_horizon_batched,
+    prefill_chunk as prefill_chunk_step,
     prefill_slot,
     prefill_slots,
+    sampling_temperature,
     verify_step_batched,
 )
 from quantizedattention_tpu_torch.parallel.kv4_cache import init_kv4_cache
@@ -77,6 +102,7 @@ from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight4,
     quantize_lm_weights,
 )
+from quantizedattention_tpu_torch.serve.prefix_store import make_prefix_store
 from quantizedattention_tpu_torch.serve.scheduler import (
     DECODE,
     IDLE,
@@ -87,10 +113,7 @@ from quantizedattention_tpu_torch.serve.scheduler import (
 from quantizedattention_tpu_torch.serve.spec import make_lookup
 
 # option -> the value that leaves it off; any other value is not ported yet
-_UNPORTED = {
-    "mesh": None, "prefix_cache": False, "prefill_chunk": None,
-    "adaptive_horizon": None, "top_k": 0, "top_p": 1.0,
-}
+_UNPORTED = {"mesh": None}
 
 
 @dataclasses.dataclass
@@ -134,8 +157,13 @@ class ServingEngine:
     that already hold quantized weights are served as they are. eos_id:
     optional stop token. scheduler: "native" (the C++ core and page
     allocator) or "python" (their twins). decode_horizon: decode steps per
-    dispatched bank (one token fetch per bank). temperature > 0 samples with
-    a torch.Generator seeded by `seed`. cache: "slotted" or "paged";
+    dispatched bank (one token fetch per bank); adaptive_horizon: a cap
+    that sizes each bank from the remaining budgets instead (same tokens,
+    fewer dispatches). temperature > 0 samples with a torch.Generator
+    seeded by `seed`, top_k > 0 / top_p < 1 filtered. prefill_chunk: admit
+    prompts longer than it chunk by chunk, interleaved with decode banks;
+    prefix_cache: share cached prompt pages (paged, chunked). cache:
+    "slotted" or "paged";
     page_size (any positive even number) and n_pages (default
     1 + n_slots * ceil(max_seq / page_size), page 0 reserved) size the paged
     pool. kv_quant: None (int8) or "int4"; the slotted int4 cache needs
@@ -147,8 +175,11 @@ class ServingEngine:
 
     def __init__(self, params, cfg: TransformerConfig, device, n_slots: int = 4,
                  eos_id: int | None = None, scheduler: str = "native",
-                 temperature: float = 0.0, seed: int = 0, param_dtype=None,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 seed: int = 0, param_dtype=None,
                  weight_quant: str | None = None, decode_horizon: int = 1,
+                 prefill_chunk: int | None = None, adaptive_horizon: int | None = None,
+                 prefix_cache: bool = False,
                  cache: str = "slotted", page_size: int = 128, n_pages: int | None = None,
                  kv_quant: str | None = None, spec_decode: int | None = None,
                  spec_ngram: int = 3, **unported):
@@ -166,13 +197,25 @@ class ServingEngine:
             raise ValueError(f"unknown cache kind {cache!r}")
         if decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
-        if temperature < 0.0:
-            raise ValueError("temperature must be >= 0")
+        if adaptive_horizon is not None and adaptive_horizon < 1:
+            raise ValueError("adaptive_horizon must be >= 1")
+        spec = Sampling(float(temperature), top_k, top_p)  # validates all three
         if spec_decode is not None:
             if spec_decode < 1:
                 raise ValueError("spec_decode must be >= 1")
-            if decode_horizon != 1:
-                raise ValueError("spec_decode replaces decode_horizon")
+            if decode_horizon != 1 or adaptive_horizon is not None:
+                raise ValueError("spec_decode replaces decode_horizon/adaptive_horizon")
+        if prefill_chunk is not None:
+            if prefill_chunk % 128 != 0 or prefill_chunk <= 0:
+                raise ValueError("prefill_chunk must be a positive multiple of 128")
+            if cache == "paged" and prefill_chunk % page_size != 0:
+                raise ValueError("prefill_chunk must be a multiple of page_size")
+        if prefix_cache:
+            if cache != "paged":
+                raise ValueError("prefix_cache=True requires cache='paged'")
+            if prefill_chunk is None:
+                raise ValueError("prefix_cache=True requires prefill_chunk (the tail-only "
+                                 "prefill rides the chunked-prefill path)")
         self.device = torch.device(device)
         self.params = _move(params, self.device, param_dtype)
         if weight_quant is not None:
@@ -182,7 +225,10 @@ class ServingEngine:
         self.n_slots = n_slots
         self.eos_id = eos_id
         self.decode_horizon = decode_horizon
-        self.temperature = temperature
+        self.adaptive_horizon = adaptive_horizon
+        self.prefill_chunk = prefill_chunk
+        # a float stays a float: the temperature-only paths are unchanged
+        self.temperature = spec if (top_k or top_p < 1.0) else float(temperature)
         self.spec_decode = spec_decode
         self.spec_ngram = spec_ngram
         self._propose = make_lookup(scheduler) if spec_decode is not None else None
@@ -193,13 +239,20 @@ class ServingEngine:
         # row's last token, whose position is below max_seq
         k = spec_decode or 0
         self._generator = None
-        if temperature > 0.0:
+        if sampling_temperature(self.temperature) > 0.0:
             self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.sched = make_scheduler(scheduler, n_slots, cfg.max_seq)
         self.cache_kind = cache
         self._pager = None
-        # the pages each slot owns, returned to the pager when it finishes
+        self._prefix_store = None
+        # page bookkeeping per slot: its private pages (returned to the pager
+        # when it finishes), the store's pages it holds references on
+        # (released), its whole table row in prefix order, and the tokens the
+        # shared prefix covers (where its chunked prefill starts)
         self._slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
+        self._slot_shared: list[list[int]] = [[] for _ in range(n_slots)]
+        self._slot_row: list[list[int]] = [[] for _ in range(n_slots)]
+        self._slot_prefix = [0] * n_slots
         if cache == "paged":
             # one allocator; the same page ids index every layer's pool, and
             # each layer's cache keeps its own copy of the table and lengths
@@ -211,6 +264,8 @@ class ServingEngine:
             # other token
             self._table_pages = -(-(cfg.max_seq + k) // page_size)
             self._pager = make_pager(scheduler, n_pages)
+            if prefix_cache:
+                self._prefix_store = make_prefix_store(scheduler, page_size)
             init = init_paged4_cache if kv_quant == "int4" else init_paged_cache
             self.caches = [init(cfg.n_kv_heads, n_pages, n_slots, self._table_pages,
                                 cfg.head_dim, page_size, self.device)
@@ -227,6 +282,9 @@ class ServingEngine:
         self.pos = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
         self.active = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
 
+        # the chunked prefill in flight, and whether a decode bank goes next
+        self._pending: dict | None = None
+        self._pending_decode_turn = False
         # (kind, device tokens, owners) in dispatch order; fetched lazily
         self._pending_fetches: list[tuple] = []
         self._ledger = {"dispatches": 0, "fetches": 0, "dispatch_s": 0.0, "fetch_s": 0.0}
@@ -311,6 +369,10 @@ class ServingEngine:
         }
         if self._pager is not None:
             s["pages_free"] = self._pager.num_free
+        if self._prefix_store is not None:
+            s["prefix_nodes"] = self._prefix_store.n_nodes
+            s["prefix_hit_pages"] = self._prefix_store.hits
+            s["prefix_miss_pages"] = self._prefix_store.misses
         if self.spec_decode is not None:
             sp = dict(self._spec_stats)
             # each slot-step emits exactly one token that is not a draft, so
@@ -323,7 +385,20 @@ class ServingEngine:
     # -- engine side ---------------------------------------------------------
 
     def step(self) -> bool:
-        """One engine action (prefill XOR decode bank). False if idle."""
+        """One engine action. False if idle.
+
+        With a chunked prefill in flight, actions alternate between one
+        decode bank of the running slots and one prompt chunk. Otherwise one
+        scheduler action: a prefill or a decode bank."""
+        if self._pending is not None:
+            has_decodes = any(r >= 0 for r in self._slot_req)
+            if self._pending_decode_turn and has_decodes:
+                self._pending_decode_turn = False
+                self._do_decode()
+            else:
+                self._pending_decode_turn = True
+                self._do_prefill_chunk()
+            return True
         action, rid, slot = self.sched.next_action()
         if action == IDLE:
             # drain pipelined fetches before declaring idle (their tokens
@@ -363,7 +438,10 @@ class ServingEngine:
             self.active[slot] = False
             if self._slot_pages[slot]:
                 self._pager.free(self._slot_pages[slot])
-                self._slot_pages[slot] = []
+            if self._slot_shared[slot]:
+                # shared pages stay cached in the store (evicted under pressure)
+                self._prefix_store.release(self._slot_shared[slot])
+            self._slot_pages[slot], self._slot_shared[slot], self._slot_row[slot] = [], [], []
 
     def _pad_len(self, prompt) -> int:
         if self._pager is not None:  # paged prompts fill whole pages
@@ -373,36 +451,127 @@ class ServingEngine:
 
     def _admit_pages(self, rid: int, slot: int) -> bool:
         """Paged admission: the pages of the whole prompt + budget, all or
-        nothing. False, with the request requeued at the queue's front, when
-        the pool is short: completions free pages, and submit() guarantees
-        the request fits an empty pool."""
-        n_need = -(-(len(self._prompts[rid]) + self._budgets[rid]) // self._page_size)
-        pages = self._pager.alloc(n_need)
+        nothing. With the prefix cache, the longest cached chain of the
+        prompt's full pages comes first, rounded down to the chunk grid and
+        kept below the prompt's end (its last token's logits must be
+        computed), and referenced before anything is evicted; when the pool
+        is short, the store's unreferenced pages are evicted to the pager.
+        False, with the hit released and the request requeued at the
+        queue's front, when the pool is still short: completions free
+        pages, and submit() guarantees the request fits an empty pool."""
+        ps = self._page_size
+        prompt = self._prompts[rid]
+        n_need = -(-(len(prompt) + self._budgets[rid]) // ps)
+        store, hit = self._prefix_store, []
+        if store is not None:
+            chunk_pages = self.prefill_chunk // ps
+            hit = store.lookup(prompt, max_pages=(len(prompt) - 1) // ps)
+            hit = hit[: len(hit) // chunk_pages * chunk_pages]
+            if hit:
+                store.acquire(hit)
+        n_fresh = n_need - len(hit)
+        pages = self._pager.alloc(n_fresh)
+        if pages is None and store is not None:
+            evicted = store.evict(n_fresh - self._pager.num_free)
+            if evicted:
+                self._pager.free(evicted)
+                pages = self._pager.alloc(n_fresh)
         if pages is None:
+            if hit:
+                store.release(hit)
             self.sched.requeue(slot)
             return False
-        self._slot_pages[slot] = pages
-        row = self._to_device(pages + [0] * (self._table_pages - len(pages)), torch.int32)
+        row = hit + pages
+        self._slot_pages[slot], self._slot_shared[slot], self._slot_row[slot] = pages, hit, row
+        self._slot_prefix[slot] = len(hit) * ps
+        table_row = self._to_device(row + [0] * (self._table_pages - len(row)), torch.int32)
         for c in self.caches:
-            assign_pages(c, slot, row)
+            assign_pages(c, slot, table_row)
         return True
 
+    def _register_prefix(self, slot: int, rid: int):
+        """Offer the prefilled prompt's full pages to the prefix store; the
+        pages it adopts move from the slot's private list to its shared
+        list (released, not freed, when the slot finishes)."""
+        if self._prefix_store is None:
+            return
+        prompt = self._prompts[rid]
+        n_full = len(prompt) // self._page_size
+        if n_full == 0:
+            return
+        owned = self._prefix_store.register(prompt, self._slot_row[slot][:n_full])
+        owned_set = set(owned)
+        self._slot_shared[slot] = owned
+        self._slot_pages[slot] = [p for p in self._slot_row[slot] if p not in owned_set]
+
+    def _needs_chunking(self, prompt) -> bool:
+        return self.prefill_chunk is not None and len(prompt) > self.prefill_chunk
+
     def _do_prefill(self, rid: int, slot: int):
+        prompt = self._prompts[rid]
         if self._pager is not None and not self._admit_pages(rid, slot):
             if self.sched.num_active > 0:
                 self._do_decode()
             return
+        if self._needs_chunking(prompt) or self._slot_prefix[slot] > 0:
+            # a prefix hit always takes the chunked path: it is the
+            # tail-only prefill
+            self._start_chunked_prefill(rid, slot, prompt)
+            return
         # batched admission: while requests wait and slots are free the
-        # scheduler keeps answering PREFILL; drain them into ONE prefill
-        batch = [(rid, slot, self._prompts[rid])]
+        # scheduler keeps answering PREFILL; drain them into ONE prefill,
+        # cut before a request that takes the chunked path
+        batch = [(rid, slot, prompt)]
         while len(batch) < self.n_slots and self.sched.num_waiting > 0:
             action, rid2, slot2 = self.sched.next_action()
             if action != PREFILL:
                 break
+            prompt2 = self._prompts[rid2]
             if self._pager is not None and not self._admit_pages(rid2, slot2):
                 break  # rid2 requeued; serve what we have
-            batch.append((rid2, slot2, self._prompts[rid2]))
+            if self._needs_chunking(prompt2) or self._slot_prefix[slot2] > 0:
+                self._dispatch_prefills(batch)
+                self._start_chunked_prefill(rid2, slot2, prompt2)
+                return
+            batch.append((rid2, slot2, prompt2))
         self._dispatch_prefills(batch)
+
+    def _start_chunked_prefill(self, rid: int, slot: int, prompt):
+        """Begin a chunked admission: the slot is reserved now, and step()
+        interleaves decode banks between its chunks. With a prefix hit the
+        first chunk starts at the cached boundary (a chunk-grid multiple)
+        and reads the shared pages through the slot's table."""
+        self._pending = {"rid": rid, "slot": slot, "prompt": prompt,
+                         "next": self._slot_prefix[slot] // self.prefill_chunk}
+        self._pending_decode_turn = True
+        self._do_prefill_chunk()
+
+    def _do_prefill_chunk(self):
+        """Advance the chunked prefill in flight by one chunk; after the last
+        one the slot joins the decode banks and its first token is fetched
+        with the next flush."""
+        p = self._pending
+        prompt, slot, rid, i = p["prompt"], p["slot"], p["rid"], p["next"]
+        chunk = self.prefill_chunk
+        piece = prompt[i * chunk:(i + 1) * chunk]
+        last = i == -(-len(prompt) // chunk) - 1
+        t0 = time.perf_counter()
+        tok, self.caches = prefill_chunk_step(
+            self.params, self.caches, self._to_device(piece + [0] * (chunk - len(piece))),
+            i * chunk, len(prompt), slot, self.cfg, last, self.temperature, self._generator)
+        self._ledger["dispatches"] += 1
+        self._ledger["dispatch_s"] += time.perf_counter() - t0
+        if not last:
+            p["next"] = i + 1
+            return
+        self._pending = None
+        self._slot_req[slot] = rid
+        self._register_prefix(slot, rid)
+        self.last_tok[slot] = tok
+        self.pos[slot] = len(prompt)
+        self.active[slot] = True
+        self._flush_pending()
+        self._pending_fetches.append(("prefill", tok, (slot, rid)))
 
     def _to_device(self, data, dtype=None) -> torch.Tensor:
         """A host list as a device tensor. A blocking host-to-device copy
@@ -441,6 +610,7 @@ class ServingEngine:
         self._ledger["dispatch_s"] += time.perf_counter() - t0
         for rid_i, slot_i, _ in batch:
             self._slot_req[slot_i] = rid_i
+            self._register_prefix(slot_i, rid_i)
         self._flush_pending()
         self._pending_fetches.append(entry)
 
@@ -483,6 +653,31 @@ class ServingEngine:
                 counts[pair] = counts.get(pair, 0) + n
         return counts
 
+    def _remaining(self, slots) -> list[int]:
+        """Each slot's budget left once the pending fetches are recorded."""
+        counts = self._pending_token_counts()
+        return [self._budgets[self._slot_req[s]] - len(self._outputs[self._slot_req[s]])
+                - counts.get((s, self._slot_req[s]), 0) for s in slots]
+
+    def _pick_horizon(self, active_slots) -> int:
+        """Bank size for this dispatch: `decode_horizon`, or with
+        `adaptive_horizon` a power of two up to that cap sized from the
+        slots' remaining budgets (the pending fetches counted): the
+        smallest remaining, rounded down, while requests wait (a slot frees
+        soon for them), else the largest, rounded up (fewest dispatches to
+        drain; surplus rows are discarded at the flush)."""
+        cap = self.adaptive_horizon
+        if cap is None:
+            return self.decode_horizon
+        rem = [r for r in self._remaining(active_slots) if r > 0]
+        if not rem:
+            return 1
+        if self.sched.num_waiting > 0:
+            target = max(1, min(min(rem), cap))
+            return 1 << (target.bit_length() - 1)
+        target = max(1, min(max(rem), cap))
+        return min(1 << (target - 1).bit_length(), cap)
+
     def _do_spec_decode(self):
         """One speculative decode action: draft on the host by n-gram lookup,
         dispatch one verify pass, fetch [n_slots, k + 2] (the emitted tokens
@@ -505,7 +700,7 @@ class ServingEngine:
             drafts[s][:len(prop)] = prop
         t0 = time.perf_counter()
         seed = None
-        if self.temperature > 0.0:  # fresh draws for every dispatch
+        if sampling_temperature(self.temperature) > 0.0:  # fresh draws for every dispatch
             seed = (self._seed << 32) | self._spec_dispatches
         self._spec_dispatches += 1
         emitted, n_emit, self.caches = verify_step_batched(
@@ -538,19 +733,14 @@ class ServingEngine:
         if active_before and self._pending_fetches:
             # if the pending fetches already cover every active slot's
             # remaining budget, another bank is provably surplus: flush
-            counts = self._pending_token_counts()
-
-            def left(s):
-                rid = self._slot_req[s]
-                return self._budgets[rid] - len(self._outputs[rid]) - counts.get((s, rid), 0)
-
-            if all(left(s) <= 0 for s in active_before):
+            if all(r <= 0 for r in self._remaining(active_before)):
                 self._flush_pending()
                 return
+        horizon = self._pick_horizon(active_before)
         t0 = time.perf_counter()
         bank, self.caches, self.last_tok, self.pos = decode_horizon_batched(
             self.params, self.caches, self.last_tok, self.pos, self.active, self.cfg,
-            self.decode_horizon, self.temperature, self._generator)
+            horizon, self.temperature, self._generator)
         self._ledger["dispatches"] += 1
         self._ledger["dispatch_s"] += time.perf_counter() - t0
         self._flush_pending()

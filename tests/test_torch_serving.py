@@ -323,20 +323,19 @@ def test_engine_rejects_bad_requests(lm):
         eng.submit([1, 64], max_new_tokens=2)
 
 
-@pytest.mark.parametrize(
-    "option,value",
-    [("mesh", object()), ("spec_decode", 2), ("prefix_cache", True), ("prefill_chunk", 128),
-     ("adaptive_horizon", 8), ("top_k", 5), ("top_p", 0.9)],
-)
+@pytest.mark.parametrize("option,value", [("mesh", object()), ("spec_decode", 2)])
 def test_engine_unported_options_raise(lm, option, value):
-    """The JAX engine's options the port lacks raise NotImplementedError.
-    spec_decode is ported (tests/test_torch_spec.py serves with it): it
-    builds its engine, and beside an option that is not ported still raises."""
+    """The JAX engine's option the port lacks, mesh, raises
+    NotImplementedError. spec_decode is ported (tests/test_torch_spec.py
+    serves with it), and so are prefill_chunk, prefix_cache,
+    adaptive_horizon and top_k/top_p (tests/test_torch_chunked_prefill.py,
+    test_torch_prefix_cache.py, test_torch_sampling.py): spec with top_k
+    builds its engine."""
     _, _, cfg, tparams = lm
     if option == "spec_decode":
         assert ServingEngine(tparams, cfg, "cpu", spec_decode=value).spec_decode == value
-        with pytest.raises(NotImplementedError, match="top_k"):
-            ServingEngine(tparams, cfg, "cpu", spec_decode=value, top_k=5)
+        eng = ServingEngine(tparams, cfg, "cpu", spec_decode=value, top_k=5)
+        assert eng.spec_decode == value and eng.temperature.top_k == 5
         return
     with pytest.raises(NotImplementedError, match=option):
         ServingEngine(tparams, cfg, "cpu", **{option: value})
