@@ -214,6 +214,29 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      top_k=1 at temperature 1 serving the greedy engine's tokens (f32
      params), a top-k / top-p engine repeating itself under its seed, and
      adaptive_horizon=32 serving phase 5's tokens.
+ 26. mesh serving: ServingEngine(mesh=make_attention_mesh(data=2, model=2))
+     on phase 5's model and requests (8 slots, horizon 32). First, on card
+     0, B1, B13-B16 and B13's verify at one rank's shapes (4 slots, 8 q / 8
+     kv heads, one 256-token prompt) against their plain versions and timed
+     (B17's shards are in phase 15's WEIGHT_SHAPES). Then 4 ranks
+     spawned by parallel/launch.py:RankPool, one a card over NCCL where 4
+     cards are visible, else sharing the visible card over gloo on CUDA
+     tensors (the backend is printed); each rank loads the kernels phase 2
+     built. With f32 params the slotted, int4-KV, paged and spec_decode=4
+     runs give the one-device engine's tokens on every request; the bf16
+     and int8-weight runs print their share of equal tokens and fail where
+     a request first differs away from a near-tie of the one-device run
+     (MESH_TIE_ULPS); every rank records the same tokens; launches summed
+     over the ranks by path. The bf16 run is timed beside the one-device
+     engine (tokens/s; with ranks sharing a card not a scaling number) and
+     torch.profiler reads one decode step of 8 live slots on rank 0 (the
+     all_reduces' host time, collective kernels' and copies' device time).
+     Then
+     context_sharded_decode at context 4 (B13 with its lse on each rank's
+     320 tokens, merged over context) within DECODE_TOL of B13 over the
+     whole cache, and the serving half of the JAX package's
+     dryrun_multichip (sharded decode, int8 weights over the int4 cache,
+     sharded verify).
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -365,6 +388,7 @@ from quantizedattention_tpu_torch.quantize.int8 import (QuantJob, quant_int8, qu
 from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
+    mm,
     quantize_weight,
     quantize_weight_int4,
 )
@@ -461,6 +485,10 @@ PEAK_TF32 = 494.7e12
 BENCH_CFG = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=16, n_kv_heads=16,
                               head_dim=64, n_layers=4, max_seq=1280)
 N_SLOTS, PROMPT_LEN, NEW_TOKENS, HORIZON = 8, 256, 96, 32
+# phase 26's mesh: (data, model) and its ranks; one rank serves N_SLOTS /
+# data slots with n_heads / model q and kv heads
+MESH_SHAPE, MESH_RANKS = (2, 2), 4
+MESH_ROWS, MESH_HEADS = N_SLOTS // MESH_SHAPE[0], BENCH_CFG.n_heads // MESH_SHAPE[1]
 # training: BASELINE config 2's attention shape (4, 16, 2048, 64) in every layer
 TRAIN_CFG = TransformerConfig(vocab_size=8192, d_model=1024, n_heads=16, n_kv_heads=16,
                               head_dim=64, n_layers=4, max_seq=2048)
@@ -725,8 +753,8 @@ def phase_flash(dev, gen) -> dict:
             "library_call": "F.scaled_dot_product_attention(is_causal=True), bf16"}
 
 
-def _decode_case(dev, gen, n_q, n_kv, lengths, stale):
-    b, max_len = len(lengths), BENCH_CFG.max_seq
+def _decode_case(dev, gen, n_q, n_kv, lengths, stale, max_len=BENCH_CFG.max_seq):
+    b = len(lengths)
     shape = (b, n_kv, max_len, 64)
     k_i8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
     v_i8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
@@ -1343,7 +1371,7 @@ def _spec_serve(dev, params, prompts, label, **kw):
     return eng, tokens, launches, wall
 
 
-def _plain_gaps(params, prompts, plain, firsts, kv_quant) -> dict:
+def _plain_gaps(params, prompts, plain, firsts, kv_quant, cfg=SPEC_CFG) -> dict:
     """The plain run's top-2 logit gaps where request i first chose
     plain[i][firsts[i]]: its computation replayed exactly, the 8 prompts
     prefilled in one batch into slotted rows of its payload type (a paged
@@ -1353,32 +1381,35 @@ def _plain_gaps(params, prompts, plain, firsts, kv_quant) -> dict:
     in bf16), so the gap is read in f32 as well as in the bf16 logits the
     engine argmaxes; the replay's own argmax tokens are checked against the
     plain run's. Returns {i: (f32 gap, bf16 gap, top logit)}."""
-    dev = params["embed"].device
+    dev = params["unembed"].w_i8.device if isinstance(params["unembed"], QuantizedWeight) \
+        else params["unembed"].device
     n = len(prompts)
     init = init_kv4_cache if kv_quant else init_kv_cache
-    caches = [init(n, SPEC_CFG.n_kv_heads, SPEC_CFG.max_seq, SPEC_CFG.head_dim, dev)
-              for _ in range(SPEC_CFG.n_layers)]
+    caches = [init(n, cfg.n_kv_heads, cfg.max_seq, cfg.head_dim, dev)
+              for _ in range(cfg.n_layers)]
     lens = torch.tensor([len(p) for p in prompts], device=dev)
     slots = torch.arange(n, device=dev)
-    hidden_params = dict(params, unembed=torch.eye(SPEC_CFG.d_model, dtype=torch.bfloat16,
+    hidden_params = dict(params, unembed=torch.eye(cfg.d_model, dtype=torch.bfloat16,
                                                    device=dev))
+    unembed = params["unembed"]
+    dense = unembed.dequantize() if isinstance(unembed, QuantizedWeight) else unembed.float()
     toks = torch.tensor(plain, device=dev)  # [n, NEW_TOKENS]
     on = torch.ones((n,), dtype=torch.bool, device=dev)
     out, preds = {}, []
     last = max(firsts.values())
     with torch.no_grad():
         _, caches = prefill_slots(params, caches, torch.tensor(prompts, device=dev), lens,
-                                  slots, SPEC_CFG)
+                                  slots, cfg)
         for step in range(last):
             # step s feeds token s and gives the logits of token s + 1
             h, caches = _decode_logits(hidden_params, caches, toks[:, step], lens + step, on,
-                                       SPEC_CFG)
-            logits = h @ params["unembed"]  # the engine's own [n, V] product
+                                       cfg)
+            logits = mm(h, unembed)  # the engine's own [n, V] product
             preds.append(logits.argmax(-1))
             for i, t in firsts.items():
                 if t == step + 1:
                     lg16 = logits[i].float()
-                    lg32 = h[i].float() @ params["unembed"].float()
+                    lg32 = h[i].float() @ dense
                     top16, top32 = torch.topk(lg16, 2).values, torch.topk(lg32, 2).values
                     out[i] = ((top32[0] - top32[1]).item(), (top16[0] - top16[1]).item(),
                               top16[0].item())
@@ -2838,9 +2869,17 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
 
 # (m, k, n): decode (the engine's 8 slots), a spec verify pass (8 slots x
 # SPEC_K + 1 tokens) and prefill (8 x 256 tokens) rows against the bench
-# widths' weights, and an odd shape
+# widths' weights; then one rank of phase 26's mesh: decode (MESH_ROWS
+# slots) and one 256-token prompt's prefill rows against its column shards
+# (wq, wk, wv: 1024 x 512; w1: 1024 x 2048), contraction shards (wo: 512 x
+# 1024; w2: 2048 x 1024) and the replicated unembed, and a prefill's last
+# row through the unembed; and an odd shape
+_D, _F, _MODEL = BENCH_CFG.d_model, BENCH_CFG.mlp_dim, MESH_SHAPE[1]
 WEIGHT_SHAPES = [(m, k, n) for m in (N_SLOTS, N_SLOTS * (SPEC_K + 1), N_SLOTS * PROMPT_LEN)
-                 for k, n in ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 8192))]
+                 for k, n in ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 8192))] + [
+    (m, k, n) for m in (MESH_ROWS, PROMPT_LEN)
+    for k, n in ((_D, _D // _MODEL), (_D // _MODEL, _D), (_D, _F // _MODEL), (_F // _MODEL, _D),
+                 (_D, BENCH_CFG.vocab_size))] + [(1, _D, BENCH_CFG.vocab_size)]
 WEIGHT_ODD = (5, 1000, 300)
 WEIGHT_HEADLINE = (N_SLOTS, 1024, 4096)  # decode through w1
 
@@ -3445,6 +3484,255 @@ def _profile_dit_step(step, x, t):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} calls  "
             f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
 
+# --------------------------------------------------------------------------
+# Mesh serving (phase 26)
+# --------------------------------------------------------------------------
+
+# a bf16 mesh run rounds each layer's two partial out and down projections
+# to bf16 before the psum adds them, where the one-device product rounds
+# once: about one bf16 ulp on each of the 2 x n_layers residual updates. A
+# request's first token that differs from the one-device run's is a fault
+# unless the one-device run's top-2 logit gap there (f32, from an exact
+# replay) is below this many bf16 ulps of its top logit, or below
+# SPEC_TIE_GAP
+MESH_TIE_ULPS = 4
+MESH_CASES = {  # label -> (engine options, whether tokens must equal the one-device run's)
+    "f32": ({}, True),
+    "bf16": ({"param_dtype": torch.bfloat16}, False),
+    "kv4": ({"kv_quant": "int4"}, True),
+    "paged": ({"cache": "paged"}, True),
+    "w8": ({"param_dtype": torch.bfloat16, "weight_quant": "int8"}, False),
+    "spec": ({"spec_decode": SPEC_K, "decode_horizon": 1}, True),
+}
+MESH_KERNEL_ROW = {"verify": "decode", "paged_verify": "paged_decode", "verify4": "decode4",
+                   "paged4_verify": "paged4_decode"}
+
+
+def _one_device_serve(dev, params, prompts, runs=1, **kw):
+    """(each request's tokens, the last run's tokens/s, the engine) of the
+    one-device engine on phase 26's requests."""
+    eng = ServingEngine(params, BENCH_CFG, dev, n_slots=N_SLOTS, scheduler="native",
+                        decode_horizon=HORIZON, **kw)
+    for _ in range(runs):
+        rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [out[r].tokens for r in rids], N_SLOTS * NEW_TOKENS / wall, eng
+
+
+def _first_gaps(eng, prompts, want, got, kv_quant) -> dict:
+    """{request: (token index, f32 gap, bf16 gap, top logit)} at each
+    request's first token that differs: the one-device run's top-2 logit
+    gap there, from `_plain_gaps`' exact replay (a prefill token from the
+    logits of transformer_forward over the prompt)."""
+    firsts = {i: next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+              for i, (a, b) in enumerate(zip(got, want)) if a != b}
+    later = {i: t for i, t in firsts.items() if t > 0}
+    gaps = _plain_gaps(eng.params, prompts, want, later, kv_quant, BENCH_CFG) if later else {}
+    for i in (i for i, t in firsts.items() if t == 0):
+        with torch.no_grad():
+            lg = transformer_forward(eng.params, torch.tensor([prompts[i]], device=eng.device),
+                                     BENCH_CFG)[0, -1]
+        top16 = torch.topk(lg.float(), 2).values
+        gaps[i] = ((top16[0] - top16[1]).item(), (top16[0] - top16[1]).item(), top16[0].item())
+    return {i: (t, *gaps[i]) for i, t in firsts.items()}
+
+
+MESH_LENGTHS = [0, 127, 1000, BENCH_CFG.max_seq]
+# a spec_decode=SPEC_K engine's slotted rows: max_seq and 128 slack tokens
+MESH_SPEC_LEN, MESH_SPEC_LENGTHS = BENCH_CFG.max_seq + 128, [0, 3, 1000, BENCH_CFG.max_seq + SPEC_K]
+
+
+def _check_mesh_kernels(dev) -> dict:
+    """Phase 26's attention kernels at one rank's shapes, on card 0, against
+    their plain versions: B1 on a (1, MESH_HEADS, 256, 64) prompt, f32 and
+    bf16 in (FLASH_O_TOL, FLASH_LSE_TOL); B13-B16 at MESH_ROWS rows x
+    MESH_HEADS q / kv heads, lengths MESH_LENGTHS, shuffled pages, junk pages
+    and non-finite stale scales (DECODE_TOL); B13's verify at spec SPEC_K + 1
+    on the spec engine's MESH_SPEC_LEN-token rows (DECODE_TOL, each row
+    bit-equal to spec 1). Each kernel then timed at its mesh decode or
+    prefill shape beside its plain version and bound. B17 at its mesh shapes
+    is held and timed in phase 15 (WEIGHT_SHAPES). Returns {kernel row:
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, shape}}."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    h, rows = MESH_HEADS, MESH_ROWS
+    qkv = [torch.randn((1, h, PROMPT_LEN, 64), generator=g, device=dev) for _ in range(3)]
+    bf = [x.to(torch.bfloat16) for x in qkv]
+    label = f"mesh rank: b=1 h={h} h_kv={h} t=s={PROMPT_LEN} causal"
+    err = max(_check_flash(*qkv, True, f"{label}, f32 in"),
+              _check_flash(*bf, True, f"{label}, bf16 in"))
+    o, lse = flash_attention_fwd(*bf, causal=True)
+    flops = 2 * 2 * h * visible_pairs(PROMPT_LEN, PROMPT_LEN, True) * 64
+    out = {"flash_fwd": {"max_abs_err": err,
+                         "ms": device_ms(lambda: flash_attention_fwd(*bf, causal=True)),
+                         "plain_ms": device_ms(lambda: flash_attention_fwd_plain(*bf, causal=True)),
+                         **bound(nbytes(*bf, o, lse), (flops, PEAK_BF16)),
+                         "shape": f"(1,{h},{PROMPT_LEN},64) causal, bf16"}}
+
+    kernels = {"decode": (decode_attention, decode_attention_plain),
+               "paged_decode": (paged_decode_attention, paged_decode_attention_plain),
+               "decode4": (decode_attention_int4, decode_attention_int4_plain),
+               "paged4_decode": (paged4_decode_attention, paged4_decode_attention_plain)}
+    q, *caches = _cache_kinds(dev, g, h, h, MESH_LENGTHS, True)
+    label = (f"mesh rank: {rows} seqs, {h} q / {h} kv heads, lengths {MESH_LENGTHS}, shuffled "
+             f"pages, junk pages, non-finite stale scales")
+    for (name, (fn, plain)), cache in zip(kernels.items(), caches):
+        out[name] = {"max_abs_err": _check_decode_kernel(name, fn, plain, q, cache, label)}
+    _, spec_cache = _decode_case(dev, g, h, h, MESH_SPEC_LENGTHS, True, max_len=MESH_SPEC_LEN)
+    q_spec = torch.randn((rows, h, SPEC_K + 1, 64), generator=g, device=dev)
+    out["decode"]["max_abs_err"] = max(out["decode"]["max_abs_err"], _check_verify(
+        "decode", q_spec, spec_cache, f"mesh rank: {rows} seqs, {h} q / {h} kv heads, max_len "
+        f"{MESH_SPEC_LEN}, lengths {MESH_SPEC_LENGTHS}, non-finite stale scales"))
+
+    length = PROMPT_LEN + NEW_TOKENS // 2  # mid-generation
+    q, *caches = _cache_kinds(dev, g, h, h, [length] * rows, False)
+    live_pages = rows * -(-length // PAGE)
+    flops = 2 * 2 * length * rows * h * 64
+    for (name, (fn, plain)), cache, per_tok, table_bytes in zip(
+            kernels.items(), caches, (136, 136, 72, 72), (0, 4 * live_pages, 0, 4 * live_pages)):
+        o = fn(q, cache)
+        # the live tokens' K/V payloads and scales per kv head, the table
+        # entries of the live pages, q, O and the lengths
+        n_bytes = length * rows * h * per_tok + table_bytes + nbytes(q, o, cache[-1])
+        out[name].update(ms=device_ms(lambda: fn(q, cache)),
+                         plain_ms=device_ms(lambda: plain(q, cache), calls=4, replays=5),
+                         **bound(n_bytes, (flops, PEAK_BF16)),
+                         shape=f"{rows} seqs x {h} heads, length {length}")
+    for name, r in out.items():
+        log(f"[mesh] {name} at a rank's shape {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max|diff| "
+            f"to plain {r['max_abs_err']:.3e}")
+    return out
+
+
+def phase_mesh_serving(dev, smi, gen) -> dict:
+    """Phase 26: ServingEngine(mesh=) at (data=2, model=2) on phase 5's model
+    and requests, 4 ranks (one a card where 4 cards are visible, over NCCL;
+    else sharing the visible cards over gloo on CUDA tensors), each case
+    beside the one-device engine; context_sharded_decode at context 4
+    against B13 over the whole cache; the JAX package's dryrun_multichip
+    serving half. Returns each case's launches summed over the ranks, by
+    path, under the kernel rows' names."""
+    from quantizedattention_tpu_torch.parallel.launch import RankPool
+    from quantizedattention_tpu_torch.serve import mesh_jobs
+
+    t_phase = time.perf_counter()
+    local = _check_mesh_kernels(dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, BENCH_CFG.vocab_size, size=PROMPT_LEN).tolist()
+               for _ in range(N_SLOTS)]
+    params = init_transformer(BENCH_CFG, torch.Generator().manual_seed(0), "cpu")
+    cards = torch.cuda.device_count()
+    pool = RankPool(MESH_RANKS, "cuda", timeout_s=300)
+    sharing = pool.backend != "nccl"
+    where = (f"{MESH_RANKS} ranks sharing {min(cards, MESH_RANKS)} card(s) over gloo (CUDA "
+             f"tensors)" if sharing else f"{MESH_RANKS} ranks, one a card, over NCCL")
+    log(f"[mesh] ServingEngine(mesh=make_attention_mesh(data={MESH_SHAPE[0]}, "
+        f"model={MESH_SHAPE[1]})): {where}; {pool.backend} chosen from {cards} visible card(s)")
+    runs = {"mesh_local": local}
+    try:
+        refs = {}
+        for label, (kw, exact) in MESH_CASES.items():
+            base = {k: v for k, v in kw.items() if k not in ("spec_decode", "decode_horizon")}
+            key = tuple(sorted(base.items(), key=lambda kv: kv[0]))
+            timed = label == "bf16"
+            if key not in refs:
+                want, tps, eng = _one_device_serve(dev, params, prompts, runs=2 if timed else 1,
+                                                   **base)
+                refs[key] = (want, tps, eng)
+            want, tps, eng = refs[key]
+            outs = pool.run(mesh_jobs.serve, BENCH_CFG, MESH_SHAPE, prompts,
+                            [NEW_TOKENS] * N_SLOTS, device_type="cuda", runs=2 if timed else 1,
+                            profile=timed, n_slots=N_SLOTS, scheduler="native",
+                            decode_horizon=kw.get("decode_horizon", HORIZON),
+                            **{k: v for k, v in kw.items() if k != "decode_horizon"})
+            got = outs[0]["tokens"][-1]
+            if any(o["tokens"] != outs[0]["tokens"] for o in outs[1:]):
+                raise AssertionError(f"[mesh] {label}: the ranks recorded different tokens")
+            if not all(len(t) == NEW_TOKENS and all(0 <= x < BENCH_CFG.vocab_size for x in t)
+                       for t in got):
+                raise AssertionError(f"[mesh] {label}: a request's tokens are short or out of "
+                                     f"vocab")
+            same = sum(a == b for a, b in zip(got, want))
+            equal = sum(x == y for a, b in zip(got, want) for x, y in zip(a, b))
+            launches = {}
+            for o in outs:
+                for k, n in o["launches"].items():
+                    row = MESH_KERNEL_ROW.get(k, k)
+                    launches[row] = launches.get(row, 0) + n
+            launches = {k: n for k, n in launches.items() if n}
+            runs[f"mesh_{label}"] = launches
+            log(f"[mesh] {label} {kw}: {same}/{N_SLOTS} requests and {equal}/"
+                f"{N_SLOTS * NEW_TOKENS} tokens equal the one-device engine's; launches over "
+                f"the ranks {launches}; stats(rank 0) "
+                f"{ {k: v for k, v in outs[0]['stats'].items() if k != 'ledger'} }")
+            if "flash_fwd" not in launches or not any(k in launches for k in MESH_KERNEL_ROW.values()):
+                raise AssertionError(f"[mesh] {label}: the run launched {launches}")
+            if exact and same != N_SLOTS:
+                raise AssertionError(f"[mesh] {label}: f32-param tokens differ from the "
+                                     f"one-device engine's")
+            if not exact:
+                for i, (t, g32, g16, top) in _first_gaps(eng, prompts, want, got,
+                                                         kw.get("kv_quant")).items():
+                    ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+                    floor = max(SPEC_TIE_GAP, MESH_TIE_ULPS * ulp)
+                    log(f"[mesh] {label}: request {i} first differs at token {t} (mesh "
+                        f"{got[i][t]}, one device {want[i][t]}); the one-device run's top-2 "
+                        f"logit gap there {g32:.4e} (f32; bf16 {g16:.4e}, top logit {top:.4f}, "
+                        f"one bf16 ulp {ulp:.4e}); near-tie floor {floor:.4e}")
+                    if g32 >= floor:
+                        raise AssertionError(f"[mesh] {label}: tokens differ from the "
+                                             f"one-device engine's away from a near-tie")
+            if timed:
+                prof = outs[0]["profile"]
+                note = "not a scaling number: the ranks share one card" if sharing else \
+                    "4 cards, one rank each"
+                log(f"[mesh] bf16 on {smi}: mesh engine {outs[0]['tokens_per_s']:.1f} tokens/s "
+                    f"(rank 0, wall {outs[0]['wall_s']:.3f} s; {note}) beside the one-device "
+                    f"engine {tps:.1f} tokens/s, same model and requests")
+                log(f"[mesh] one decode step of {prof['live_slots']} live slots on rank 0 "
+                    f"({pool.backend}, torch.profiler, the ranks aligned by a host barrier): wall "
+                    f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms, collective "
+                    f"kernels {prof['collective_kernel_ms']:.4f} ms, memcpy "
+                    f"{prof['memcpy_ms']:.4f} ms; all_reduce on the host "
+                    f"{[(k, n, round(ms, 4)) for k, n, ms in prof['all_reduce_host']]}; top "
+                    f"device {[(k, round(ms, 4), n) for k, ms, n in prof['top_device']]}")
+                runs["mesh_profile"] = prof
+                runs["mesh_tokens_per_s"] = (outs[0]["tokens_per_s"], tps)
+
+        q, cache = _decode_case(dev, gen, BENCH_CFG.n_heads, BENCH_CFG.n_kv_heads,
+                                CACHE_LENGTHS, True)
+        whole = decode_attention(q, cache)
+        ctx = pool.run(mesh_jobs.context_decode, q.cpu(), type(cache)(*(x.cpu() for x in cache)),
+                       4, "cuda")
+        err = max((o - whole.cpu()).abs().max().item() for o in ctx)
+        log(f"[mesh] context_sharded_decode, context 4 ({BENCH_CFG.max_seq // 4} tokens a rank), "
+            f"8 rows x 16 heads, lengths {CACHE_LENGTHS}: max|O - B13 over the whole cache| "
+            f"{err:.3e} (tol {DECODE_TOL}); ranks equal "
+            f"{all(torch.equal(o, ctx[0]) for o in ctx)}")
+        if not (err <= DECODE_TOL and all(torch.isfinite(o).all() for o in ctx)
+                and all(torch.equal(o, ctx[0]) for o in ctx)):
+            raise AssertionError("[mesh] context_sharded_decode disagrees with B13")
+
+        dry = pool.run(mesh_jobs.dryrun_serving, "cuda")
+        n_emit = dry[0]["verify"][:, -1]
+        ok = all(((d[k] >= 0) & (d[k] < 128)).all() for d in dry for k in ("decode", "quantized"))
+        ok &= bool(((n_emit >= 1) & (n_emit <= 4)).all())
+        ok &= all(torch.equal(d["verify"], dry[0]["verify"]) for d in dry)
+        log(f"[mesh] dryrun_multichip's serving half (data={dry[0]['shape'][0]} x "
+            f"model={dry[0]['shape'][1]}): sharded decode, int8 weights over the int4 cache, "
+            f"sharded verify (n_emit {n_emit.tolist()}): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("[mesh] the dryrun_multichip serving twin failed")
+    finally:
+        pool.close()
+    log(f"[mesh] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 
 def main() -> None:
     name, smi = phase_device()
@@ -3485,6 +3773,9 @@ def main() -> None:
     verify = phase_verify_kernels(dev, gen)
     spec_runs = phase_spec_serving(dev, smi)
     chunk_b1, chunk_runs = phase_chunked_prefix_serving(dev, gen, smi, serve_tokens)
+    mesh_runs = phase_mesh_serving(dev, smi, gen)
+    mesh_launches = {k: v for k, v in mesh_runs.items() if k.startswith("mesh_")
+                     and k not in ("mesh_profile", "mesh_tokens_per_s", "mesh_local")}
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -3587,9 +3878,14 @@ def main() -> None:
         if "verify_max_abs_err" in k:
             k["max_abs_err"] = max(k["max_abs_err"], k["verify_max_abs_err"])
     for k in kernels:  # the quantized, cache-kind, spec, chunked and prefix runs' launches
-        for path, counts in {**quant_runs, **cache_runs, **spec_runs, **chunk_runs}.items():
+        for path, counts in {**quant_runs, **cache_runs, **spec_runs, **chunk_runs,
+                             **mesh_launches}.items():
             if k["name"] in counts:
                 k["launches_by_path"][path] = counts[k["name"]]
+    for k in kernels:  # the kernels at one mesh rank's shapes (phase 26)
+        if k["name"] in mesh_runs["mesh_local"]:
+            k["mesh_rank"] = mesh_runs["mesh_local"][k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], k["mesh_rank"]["max_abs_err"])
     for k in kernels:  # launches: every path's run together
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))

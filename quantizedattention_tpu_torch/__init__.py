@@ -20,8 +20,12 @@ Public surface:
   flash_attention_fwd / flash_attention_bwd / decode_attention   the kernel wrappers
   models.TransformerConfig, init_transformer, generate, params_from_jax
   models.lm_loss, make_train_step            training, AdamW (attention "bf16" or "int8")
-  serve.ServingEngine                        continuous batching, one device
-                                             (attention "bf16" or "int8"; weight_quant)
+  serve.ServingEngine                        continuous batching, one device or, with
+                                             mesh=, one process a rank (slots on data,
+                                             heads on model); attention "bf16" or
+                                             "int8"; weight_quant
+  parallel.initialize_multihost, make_attention_mesh   process group and mesh
+  parallel.launch.RankPool                   spawned ranks for multi-process runs
   quantize.quantize_lm_weights               weight-only int8 / int4 params
   models.DiTConfig, init_dit, dit_forward, dit_jvp_step, make_dit_rcm_step
                                              the DiT and its rCM step, one device

@@ -178,12 +178,19 @@ def _merge_heads(o, cfg: TransformerConfig, dtype):
     return o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim).to(dtype)
 
 
-def _mlp_residual(layer, x):
+def _no_psum(x):
+    return x
+
+
+def _mlp_residual(layer, x, psum=_no_psum):
+    """x + MLP(x). `psum` sums the down projection's partial products over
+    the mesh's model axis where w1/w2 are sharded on it (serve/engine.py's
+    mesh steps); on one device it is the identity."""
     h = rmsnorm(x, layer["ln2"])
-    return x + mm(F.gelu(mm(h, layer["w1"]), approximate="tanh"), layer["w2"])
+    return x + psum(mm(F.gelu(mm(h, layer["w1"]), approximate="tanh"), layer["w2"]))
 
 
-def _mlp_residual_per_position(layer, x):
+def _mlp_residual_per_position(layer, x, psum=_no_psum):
     """`_mlp_residual` with the down projection run one token position at a
     time on contiguous rows, so that each is the [n, d_ff] product of a
     decode step. On an H100 the [n * s, d_ff] product, or one on strided
@@ -195,7 +202,7 @@ def _mlp_residual_per_position(layer, x):
     product is one launch."""
     h = F.gelu(mm(rmsnorm(x, layer["ln2"]), layer["w1"]), approximate="tanh")
     by_position = h.transpose(0, 1).contiguous()  # [s, n, d_ff]
-    return x + torch.stack([mm(rows, layer["w2"]) for rows in by_position], dim=1)
+    return x + psum(torch.stack([mm(rows, layer["w2"]) for rows in by_position], dim=1))
 
 
 def _block(layer, x, cfg: TransformerConfig, positions):
@@ -417,9 +424,12 @@ def sample_token(logits, temperature=0.0, generator: torch.Generator | None = No
 
 
 @torch.no_grad()
-def _decode_logits(params, caches, last_tok, pos, active, cfg: TransformerConfig):
+def _decode_logits(params, caches, last_tok, pos, active, cfg: TransformerConfig,
+                   psum=_no_psum):
     """One batched decode step's logits [n_slots, vocab] (caches updated in
-    place)."""
+    place). Under a mesh (serve/engine.py) the rows are a data shard's
+    slots, `cfg` counts this rank's heads and `psum` sums the out and down
+    projections over the model axis."""
     x = embedding_lookup(params["embed"], last_tok)[:, None, :]
     positions = pos[:, None]  # [n_slots, 1]: per-row RoPE
     new_caches = []
@@ -429,7 +439,7 @@ def _decode_logits(params, caches, last_tok, pos, active, cfg: TransformerConfig
         cache = _cache_append(cache, k, v, active=active)
         o = _cache_decode(q[:, :, 0, :], cache)  # GQA-native
         o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
-        x = _mlp_residual(layer, x + mm(o, layer["wo"]))
+        x = _mlp_residual(layer, x + psum(mm(o, layer["wo"])), psum)
         new_caches.append(cache)
     x = rmsnorm(x, params["final_norm"])
     return mm(x[:, 0], params["unembed"]), new_caches
@@ -488,9 +498,11 @@ def gumbel_draws(logits, temperature, seed: int, rows, positions):
 
 
 @torch.no_grad()
-def _verify_logits(params, caches, last_tok, draft, pos, active, cfg: TransformerConfig):
+def _verify_logits(params, caches, last_tok, draft, pos, active, cfg: TransformerConfig,
+                   psum=_no_psum):
     """One verify pass's logits [n_slots, s, vocab] over last_tok and the
-    s - 1 drafts of each slot (caches appended in place, not rolled back)."""
+    s - 1 drafts of each slot (caches appended in place, not rolled back);
+    `psum` as in `_decode_logits`."""
     s = draft.shape[1] + 1
     tokens = torch.cat([last_tok[:, None].long(), draft.long()], dim=1)  # [n, s]
     x = embedding_lookup(params["embed"], tokens)
@@ -501,13 +513,14 @@ def _verify_logits(params, caches, last_tok, draft, pos, active, cfg: Transforme
         q, k, v = _project_qkv(layer, h, cfg, positions)
         cache = _cache_append(cache, k, v, active=active)
         o = _cache_verify(q, cache)  # [n, H, s, d], the causal staircase
-        x = _mlp_residual_per_position(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+        x = _mlp_residual_per_position(
+            layer, x + psum(mm(_merge_heads(o, cfg, x.dtype), layer["wo"])), psum)
         new_caches.append(cache)
     return mm(rmsnorm(x, params["final_norm"]), params["unembed"]), new_caches
 
 
 def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: TransformerConfig,
-                        temperature=0.0, seed: int | None = None):
+                        temperature=0.0, seed: int | None = None, psum=_no_psum, row0: int = 0):
     """Speculative-verification decode step: one pass scores the last
     accepted token and s - 1 draft tokens per slot and emits between 1 and s
     tokens per slot, token-exact with s plain decode steps, because every
@@ -529,15 +542,17 @@ def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: Trans
     rejected ones are rolled back by shrinking the lengths in place.
     Returns (emitted [n_slots, s] int64, n_emit [n_slots] int64, caches):
     per row, emitted[:n_emit] are the accepted drafts followed by the
-    model's own next token, so n_emit >= 1.
+    model's own next token, so n_emit >= 1. Under a mesh the rows are a data
+    shard's slots, the first of them global row `row0`, and `psum` is as in
+    `_decode_logits`.
     """
     n_slots, s = draft.shape[0], draft.shape[1] + 1
-    logits, new_caches = _verify_logits(params, caches, last_tok, draft, pos, active, cfg)
+    logits, new_caches = _verify_logits(params, caches, last_tok, draft, pos, active, cfg, psum)
     if sampling_temperature(temperature) == 0.0 or seed is None:
         targets = torch.argmax(logits, dim=-1)
     else:
         # target t predicts the token at position pos + t + 1
-        rows = torch.arange(n_slots, device=logits.device)
+        rows = torch.arange(row0, row0 + n_slots, device=logits.device)
         out_pos = pos.long()[:, None] + torch.arange(1, s + 1, device=pos.device)
         targets = gumbel_draws(logits.float(), temperature, seed, rows, out_pos)
     # accept the longest prefix of drafts that matches the targets
@@ -553,22 +568,31 @@ def verify_step_batched(params, caches, last_tok, draft, pos, active, cfg: Trans
     return emitted, n_acc + 1, new_caches
 
 
-def decode_horizon_batched(params, caches, last_tok, pos, active, cfg: TransformerConfig,
-                           horizon: int, temperature=0.0, generator=None):
-    """`horizon` chained decode steps with every step's token banked:
-    returns (tokens [horizon, n_slots], caches, last_tok, pos). Nothing in
-    the loop waits for the device; the caller fetches the bank once."""
+def decode_bank(step, caches, last_tok, pos, active, horizon: int):
+    """`horizon` chained calls of step(caches, last_tok, pos) -> (next_tok,
+    caches) with every step's token banked, pos advancing on the active
+    rows: returns (tokens [horizon, n_slots], caches, last_tok, pos).
+    Nothing in the loop waits for the device; the caller fetches the bank
+    once."""
     bank = []
-    step = active.to(pos.dtype)
+    inc = active.to(pos.dtype)
     for _ in range(horizon):
-        last_tok, caches = decode_step_batched(
-            params, caches, last_tok, pos, active, cfg, temperature, generator)
+        last_tok, caches = step(caches, last_tok, pos)
         bank.append(last_tok)
-        pos = pos + step
+        pos = pos + inc
     return torch.stack(bank), caches, last_tok, pos
 
 
-@torch.no_grad()
+def decode_horizon_batched(params, caches, last_tok, pos, active, cfg: TransformerConfig,
+                           horizon: int, temperature=0.0, generator=None):
+    """`horizon` chained decode steps with every step's token banked
+    (`decode_bank` of decode_step_batched)."""
+    return decode_bank(
+        lambda caches, last_tok, pos: decode_step_batched(
+            params, caches, last_tok, pos, active, cfg, temperature, generator),
+        caches, last_tok, pos, active, horizon)
+
+
 def prefill_slot(params, caches, tokens, true_len: int, slot: int, cfg: TransformerConfig,
                  temperature=0.0, generator=None):
     """Fused prefill of one request into cache row `slot`.
@@ -577,20 +601,30 @@ def prefill_slot(params, caches, tokens, true_len: int, slot: int, cfg: Transfor
     the padding out of every real row, and the slot's length is set to
     true_len). Returns (first generated token [scalar], caches).
     """
+    logits, caches = prefill_slot_logits(params, caches, tokens, true_len, slot, cfg)
+    return sample_token(logits, temperature, generator), caches
+
+
+@torch.no_grad()
+def prefill_slot_logits(params, caches, tokens, true_len: int, slot: int, cfg: TransformerConfig,
+                        psum=_no_psum, own: bool = True):
+    """`prefill_slot` up to its last true token's logits: (logits [vocab],
+    caches). Under a mesh (serve/engine.py) `cfg` counts this rank's heads,
+    `psum` is as in `_decode_logits`, and only the data shard that owns the
+    slot writes its row (`own`; `slot` is then the shard's local row)."""
     x = embedding_lookup(params["embed"], tokens)[None]
     positions = torch.arange(tokens.shape[0], device=tokens.device)
     new_caches = []
     for layer, cache in zip(params["layers"], caches):
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
-        # a paged prompt is padded to a page multiple by the engine
-        cache = _cache_write_slot(cache, slot, k[0], v[0], true_len)
+        if own:  # a paged prompt is padded to a page multiple by the engine
+            cache = _cache_write_slot(cache, slot, k[0], v[0], true_len)
         o = _attention(q, k, v, cfg)
-        x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+        x = _mlp_residual(layer, x + psum(mm(_merge_heads(o, cfg, x.dtype), layer["wo"])), psum)
         new_caches.append(cache)
     # final norm on the sampled rows only (it is per row)
-    logits = mm(rmsnorm(x[0, true_len - 1], params["final_norm"]), params["unembed"])
-    return sample_token(logits, temperature, generator), new_caches
+    return mm(rmsnorm(x[0, true_len - 1], params["final_norm"]), params["unembed"]), new_caches
 
 
 def prefill_chunk(params, caches, tokens, chunk_start: int, true_end: int, slot: int,
@@ -616,9 +650,15 @@ def prefill_chunk(params, caches, tokens, chunk_start: int, true_end: int, slot:
 
 @torch.no_grad()
 def prefill_chunk_logits(params, caches, tokens, chunk_start: int, true_end: int, slot: int,
-                         cfg: TransformerConfig, last: bool):
+                         cfg: TransformerConfig, last: bool, psum=_no_psum, own: bool = True,
+                         data_psum=_no_psum):
     """`prefill_chunk` up to its last token's logits: (logits [vocab] on the
-    last chunk, else None; caches)."""
+    last chunk, else None; caches). Under a mesh (serve/engine.py) `cfg`
+    and `psum` are as in `prefill_slot_logits`, and the chunk's activations
+    are the same on every data shard while only the owning one (`own`)
+    holds the row: it alone writes the chunk and merges the prefix in, the
+    others contribute zeros, and `data_psum` (a sum over the data axis)
+    hands the owner's merged output to every shard."""
     c = tokens.shape[0]
     x = embedding_lookup(params["embed"], tokens)[None]
     positions = chunk_start + torch.arange(c, device=tokens.device)
@@ -627,13 +667,18 @@ def prefill_chunk_logits(params, caches, tokens, chunk_start: int, true_end: int
     for layer, cache in zip(params["layers"], caches):
         h = rmsnorm(x, layer["ln1"])
         q, k, v = _project_qkv(layer, h, cfg, positions)
-        cache = _cache_write_chunk(cache, slot, k[0], v[0], chunk_start, new_len)
+        if own:
+            cache = _cache_write_chunk(cache, slot, k[0], v[0], chunk_start, new_len)
         o, lse = flash_attention_fwd(q, k, v, causal=True)  # GQA-native
         if chunk_start > 0:
-            k_pre, v_pre = _cache_read_prefix(cache, slot, chunk_start)
-            o2, lse2 = flash_attention_fwd(q, k_pre[None], v_pre[None], causal=False)
-            o, lse = _merge_partials(o, lse, o2, lse2)
-        x = _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+            if own:
+                k_pre, v_pre = _cache_read_prefix(cache, slot, chunk_start)
+                o2, lse2 = flash_attention_fwd(q, k_pre[None], v_pre[None], causal=False)
+                o, _ = _merge_partials(o, lse, o2, lse2)
+            else:
+                o = torch.zeros_like(o)
+            o = data_psum(o)
+        x = _mlp_residual(layer, x + psum(mm(_merge_heads(o, cfg, x.dtype), layer["wo"])), psum)
         new_caches.append(cache)
     if not last:
         return None, new_caches

@@ -279,3 +279,32 @@ def verify_decode_attention(q, cache: QuantizedKVCache, sm_scale=None):
 
 
 verify_decode_attention.launches = 0
+
+
+def shard_cache_context(cache: QuantizedKVCache, mesh, axis: str = "context") -> QuantizedKVCache:
+    """This rank's view of a context-sharded cache: its payloads hold global
+    token positions [i * shard_len, (i + 1) * shard_len) of every row (i its
+    index on `axis`), and its live length is the clipped remainder of the
+    row's GLOBAL length `cache.length`."""
+    from quantizedattention_tpu_torch.parallel.mesh import axis_index
+
+    shard_len = cache.max_len
+    start = axis_index(mesh, axis) * shard_len
+    local = torch.clamp(cache.length.long() - start, 0, shard_len).to(torch.int32)
+    return cache._replace(length=local)
+
+
+def context_sharded_decode(q, cache: QuantizedKVCache, mesh, axis: str = "context",
+                           sm_scale=None) -> torch.Tensor:
+    """Flash-decoding over a sequence-sharded int8 cache (JAX
+    kv_cache.py:424-449): each rank holds a contiguous slice of every row's
+    tokens (`cache.length` is the global length, the same on every rank),
+    decodes q [b, n_q_heads, d] against its slice with B13 (`return_lse`),
+    and the normalized partials merge over `axis` through
+    `collective.lse_weighted_merge`: three all_reduces over [b, n_q_heads]
+    statistics and the [b, n_q_heads, d] weighted outputs; no K/V moves."""
+    from quantizedattention_tpu_torch.parallel.collective import lse_weighted_merge
+
+    o, lse = decode_attention(q, shard_cache_context(cache, mesh, axis), sm_scale,
+                              return_lse=True)
+    return lse_weighted_merge(o, lse, mesh, axis)

@@ -14,6 +14,7 @@ from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight4,
     embedding_lookup,
     mm,
+    quantize_lm_specs,
     quantize_lm_weights,
     quantize_weight,
     quantize_weight_int4,
@@ -33,6 +34,7 @@ __all__ = [
     "quant_int8_plain",
     "quantize_int8",
     "quantize_int8_blocks",
+    "quantize_lm_specs",
     "quantize_lm_weights",
     "quantize_weight",
     "quantize_weight_int4",

@@ -159,3 +159,25 @@ def embedding_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
         raise ValueError("embedding_lookup wants per-row scales (axis=0)")
     bf16 = torch.bfloat16
     return embed.w_i8[tokens].to(bf16) * embed.scale[tokens][..., None].to(bf16)
+
+
+def quantize_lm_specs(specs: dict) -> dict:
+    """The spec-tree twin of `quantize_lm_weights(bits=8)` (JAX
+    weights.py:177-208): each quantized leaf's spec becomes a QuantizedWeight
+    whose `w_i8` holds the weight's own spec and whose `scale` holds its
+    output-axis entry, so a column scale shards with the columns it scales
+    and a contraction-sharded weight (wo, w2) keeps a replicated scale,
+    applied after the local product (scaling commutes with the psum). The
+    embedding's per-row scale follows its row axis. int8 only: int4's
+    split-half packing does not split along the contraction."""
+
+    def q(spec):
+        return QuantizedWeight(w_i8=spec, scale=(spec[1] if len(spec) > 1 else None,), axis=1)
+
+    out = dict(specs)
+    out["layers"] = [{key: q(leaf) if key in _LINEAR_KEYS else leaf for key, leaf in layer.items()}
+                     for layer in specs["layers"]]
+    out["unembed"] = q(specs["unembed"])
+    e = specs["embed"]
+    out["embed"] = QuantizedWeight(w_i8=e, scale=(e[0] if len(e) > 0 else None,), axis=0)
+    return out

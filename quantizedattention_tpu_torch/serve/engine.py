@@ -72,8 +72,21 @@ chunks and the verify pass's Gumbel draws. `adaptive_horizon=cap` sizes
 each decode bank from the slots' remaining budgets, a power of two up to
 cap (`_pick_horizon`); tokens equal the fixed-horizon engine's.
 
-The JAX engine's mesh serving is not ported yet; asking for it raises
-NotImplementedError.
+Mesh serving (`mesh=`, a parallel.make_attention_mesh DeviceMesh; the JAX
+engine's mesh branch): one process per rank, each running this engine on
+the same request stream. Slots split over `data` and heads over `model`
+(the Megatron layout of models/sharded_train.py; int8 weights shard as
+quantize_lm_specs says, int4 weights raise); each rank holds only its shard
+of the params and its data shard's caches, a paged pool private to the
+shard with shard-local page ids. Every rank keeps the whole host policy,
+every shard's pager and prefix store included, identically, and records
+every token: the mesh steps (below the class) share each shard's tokens
+through one all_reduce. A request is admitted alone (no batched admission
+under a mesh), and every step first checks over a gloo group on the host
+that all ranks chose the same action and slot and hold the same tokens,
+raising where they diverge instead of hanging in a collective. Draws are
+keyed by (seed, global slot, position), so a seeded sampled run gives the
+same tokens however the slots are split.
 """
 
 from __future__ import annotations
@@ -82,21 +95,33 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
+from quantizedattention_tpu_torch.models.sharded_train import local_config, shard_params
 from quantizedattention_tpu_torch.models.transformer import (
     Sampling,
     TransformerConfig,
+    _decode_logits,
+    decode_bank,
     decode_horizon_batched,
+    gumbel_draws,
     prefill_chunk as prefill_chunk_step,
+    prefill_chunk_logits,
     prefill_slot,
+    prefill_slot_logits,
     prefill_slots,
     sampling_temperature,
     verify_step_batched,
 )
-from quantizedattention_tpu_torch.parallel.kv4_cache import init_kv4_cache
-from quantizedattention_tpu_torch.parallel.kv_cache import init_kv_cache
-from quantizedattention_tpu_torch.parallel.paged4_cache import init_paged4_cache
-from quantizedattention_tpu_torch.parallel.paged_cache import assign_pages, init_paged_cache
+from quantizedattention_tpu_torch.parallel.kv4_cache import Int4KVCache, init_kv4_cache
+from quantizedattention_tpu_torch.parallel.kv_cache import QuantizedKVCache, init_kv_cache
+from quantizedattention_tpu_torch.parallel.mesh import axis_index, axis_size, is_mesh, psum
+from quantizedattention_tpu_torch.parallel.paged4_cache import Paged4KVCache, init_paged4_cache
+from quantizedattention_tpu_torch.parallel.paged_cache import (
+    PagedKVCache,
+    assign_pages,
+    init_paged_cache,
+)
 from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -112,8 +137,9 @@ from quantizedattention_tpu_torch.serve.scheduler import (
 )
 from quantizedattention_tpu_torch.serve.spec import make_lookup
 
-# option -> the value that leaves it off; any other value is not ported yet
-_UNPORTED = {"mesh": None}
+# the lockstep check's code for a chunk of a chunked prefill (the
+# scheduler's actions are IDLE, PREFILL and DECODE)
+_CHUNK = 3
 
 
 @dataclasses.dataclass
@@ -170,7 +196,13 @@ class ServingEngine:
     max_seq a multiple of 256. spec_decode: k >= 1 drafts per slot and
     decode action (speculative decoding; needs decode_horizon 1), drafted
     by n-gram lookup up to spec_ngram tokens long with the `scheduler`
-    kind's proposer ("native" builds native/ngram.cpp or raises).
+    kind's proposer ("native" builds native/ngram.cpp or raises). mesh: a
+    parallel.make_attention_mesh DeviceMesh (context 1) for mesh serving;
+    every rank builds its engine from the same full params and runs the
+    same submits, and `device` is the rank's own. n_slots must divide over
+    data, the heads over model, and weight_quant "int4" raises; n_pages
+    then sizes each data shard's pool (default 1 + its slots *
+    ceil(max_seq / page_size)).
     """
 
     def __init__(self, params, cfg: TransformerConfig, device, n_slots: int = 4,
@@ -182,13 +214,7 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  cache: str = "slotted", page_size: int = 128, n_pages: int | None = None,
                  kv_quant: str | None = None, spec_decode: int | None = None,
-                 spec_ngram: int = 3, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"unexpected argument {name!r}")
-            if value != _UNPORTED[name]:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported to the PyTorch package yet")
+                 spec_ngram: int = 3, mesh=None):
         if weight_quant not in (None, "int8", "int4"):
             raise ValueError("weight_quant must be 'int8', 'int4', or None")
         if kv_quant not in (None, "int4"):
@@ -216,11 +242,36 @@ class ServingEngine:
             if prefill_chunk is None:
                 raise ValueError("prefix_cache=True requires prefill_chunk (the tail-only "
                                  "prefill rides the chunked-prefill path)")
+        n_shards = 1
+        if mesh is not None:
+            if not is_mesh(mesh):
+                raise ValueError("mesh must be a DeviceMesh with 'data' and 'model' axes "
+                                 "(parallel.make_attention_mesh)")
+            if axis_size(mesh, "context") != 1:
+                raise ValueError("mesh serving splits slots over data and heads over model; "
+                                 "its context axis must be 1")
+            if weight_quant == "int4":
+                raise ValueError("weight_quant='int4' with mesh serving is not supported "
+                                 "(split-half nibble packing does not split along the "
+                                 "contraction axis; use 'int8')")
+            local_config(cfg, mesh)  # ValueError unless the heads split over model
+            n_shards = axis_size(mesh, "data")
+            if n_slots % n_shards:
+                raise ValueError(f"n_slots {n_slots} must divide the data axis ({n_shards})")
         self.device = torch.device(device)
         self.params = _move(params, self.device, param_dtype)
         if weight_quant is not None:
             # after the param_dtype cast, so the scales stay f32
             self.params = quantize_lm_weights(self.params, bits=4 if weight_quant == "int4" else 8)
+        self._mesh = mesh
+        slots_loc, kv_loc = n_slots // n_shards, cfg.n_kv_heads
+        if mesh is not None:
+            self.params = shard_params(self.params, cfg, mesh)
+            kv_loc = local_config(cfg, mesh).n_kv_heads
+            self._slots_per_shard = slots_loc
+            # host-side checks go over gloo on CPU tensors: no device sync
+            self._host_group = dist.new_group(backend="gloo")
+            self._token_hash = 0
         self.cfg = cfg
         self.n_slots = n_slots
         self.eos_id = eos_id
@@ -229,6 +280,12 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         # a float stays a float: the temperature-only paths are unchanged
         self.temperature = spec if (top_k or top_p < 1.0) else float(temperature)
+        if mesh is not None:
+            self._mesh_decode = make_sharded_decode_step(mesh, cfg, self.temperature)
+            self._mesh_prefill = make_sharded_prefill_slot(mesh, cfg, self.temperature)
+            self._mesh_chunk = make_sharded_prefill_chunk(mesh, cfg, self.temperature)
+            self._mesh_verify = make_sharded_verify_step(mesh, cfg, self.temperature)
+            self._draws = 0  # sampled dispatches: a mesh draw's seed counter
         self.spec_decode = spec_decode
         self.spec_ngram = spec_ngram
         self._propose = make_lookup(scheduler) if spec_decode is not None else None
@@ -239,12 +296,11 @@ class ServingEngine:
         # row's last token, whose position is below max_seq
         k = spec_decode or 0
         self._generator = None
-        if sampling_temperature(self.temperature) > 0.0:
+        if sampling_temperature(self.temperature) > 0.0 and mesh is None:
             self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.sched = make_scheduler(scheduler, n_slots, cfg.max_seq)
         self.cache_kind = cache
-        self._pager = None
-        self._prefix_store = None
+        self._pagers = self._prefix_stores = None
         # page bookkeeping per slot: its private pages (returned to the pager
         # when it finishes), the store's pages it holds references on
         # (released), its whole table row in prefix order, and the tokens the
@@ -254,20 +310,24 @@ class ServingEngine:
         self._slot_row: list[list[int]] = [[] for _ in range(n_slots)]
         self._slot_prefix = [0] * n_slots
         if cache == "paged":
-            # one allocator; the same page ids index every layer's pool, and
-            # each layer's cache keeps its own copy of the table and lengths
+            # one allocator a data shard (one without a mesh); the same page
+            # ids index every layer's pool, and each layer's cache keeps its
+            # own copy of the table and lengths. Under a mesh every rank
+            # keeps every shard's allocator and store, identically, and
+            # holds the pool of its own shard only.
             self._page_size = page_size
             if n_pages is None:  # page 0 reserved
-                n_pages = 1 + n_slots * -(-cfg.max_seq // page_size)
+                n_pages = 1 + slots_loc * -(-cfg.max_seq // page_size)
             # the table entries past the row's pages hold page 0, so a
             # verify's overshoot lands there and advances the length like any
             # other token
             self._table_pages = -(-(cfg.max_seq + k) // page_size)
-            self._pager = make_pager(scheduler, n_pages)
+            self._pagers = [make_pager(scheduler, n_pages) for _ in range(n_shards)]
             if prefix_cache:
-                self._prefix_store = make_prefix_store(scheduler, page_size)
+                self._prefix_stores = [make_prefix_store(scheduler, page_size)
+                                       for _ in range(n_shards)]
             init = init_paged4_cache if kv_quant == "int4" else init_paged_cache
-            self.caches = [init(cfg.n_kv_heads, n_pages, n_slots, self._table_pages,
+            self.caches = [init(kv_loc, n_pages, slots_loc, self._table_pages,
                                 cfg.head_dim, page_size, self.device)
                            for _ in range(cfg.n_layers)]
         else:
@@ -276,7 +336,7 @@ class ServingEngine:
             grain = 256 if kv_quant == "int4" else 128
             max_len = cfg.max_seq + (-(-(k + 1) // grain) * grain if k else 0)
             init = init_kv4_cache if kv_quant == "int4" else init_kv_cache
-            self.caches = [init(n_slots, cfg.n_kv_heads, max_len, cfg.head_dim, self.device)
+            self.caches = [init(slots_loc, kv_loc, max_len, cfg.head_dim, self.device)
                            for _ in range(cfg.n_layers)]
         self.last_tok = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
         self.pos = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
@@ -314,7 +374,7 @@ class ServingEngine:
             raise ValueError(f"prompt token out of range [0, {self.cfg.vocab_size})")
         rid = self._next_id
         self._next_id += 1
-        if self._pager is not None:
+        if self._pagers is not None:  # the pool of one data shard
             n_need = -(-(len(prompt) + max_new_tokens) // self._page_size)
             usable = self.caches[0].n_pages - 1
             if n_need > usable:
@@ -367,12 +427,12 @@ class ServingEngine:
             "cache": self.cache_kind,
             "decode_horizon": self.decode_horizon,
         }
-        if self._pager is not None:
-            s["pages_free"] = self._pager.num_free
-        if self._prefix_store is not None:
-            s["prefix_nodes"] = self._prefix_store.n_nodes
-            s["prefix_hit_pages"] = self._prefix_store.hits
-            s["prefix_miss_pages"] = self._prefix_store.misses
+        if self._pagers is not None:
+            s["pages_free"] = sum(p.num_free for p in self._pagers)
+        if self._prefix_stores is not None:
+            s["prefix_nodes"] = sum(st.n_nodes for st in self._prefix_stores)
+            s["prefix_hit_pages"] = sum(st.hits for st in self._prefix_stores)
+            s["prefix_miss_pages"] = sum(st.misses for st in self._prefix_stores)
         if self.spec_decode is not None:
             sp = dict(self._spec_stats)
             # each slot-step emits exactly one token that is not a draft, so
@@ -393,13 +453,16 @@ class ServingEngine:
         if self._pending is not None:
             has_decodes = any(r >= 0 for r in self._slot_req)
             if self._pending_decode_turn and has_decodes:
+                self._lockstep(DECODE, -1)
                 self._pending_decode_turn = False
                 self._do_decode()
             else:
+                self._lockstep(_CHUNK, self._pending["slot"])
                 self._pending_decode_turn = True
                 self._do_prefill_chunk()
             return True
         action, rid, slot = self.sched.next_action()
+        self._lockstep(action, slot)
         if action == IDLE:
             # drain pipelined fetches before declaring idle (their tokens
             # may finish requests or free slots)
@@ -410,10 +473,41 @@ class ServingEngine:
             self._do_decode()
         return True
 
+    def _lockstep(self, action: int, slot: int):
+        """Under a mesh: raise unless every rank chose this action and slot
+        and has recorded the same tokens (their count and a running hash).
+        One all_reduce (MAX of the values and of their negations) over the
+        host's gloo group, on CPU tensors: it waits for no device work.
+        Ranks whose host policies diverged would otherwise issue different
+        collectives and hang."""
+        if self._mesh is None:
+            return
+        mine = torch.tensor([action, slot, self._tokens_generated, self._token_hash])
+        both = torch.cat([mine, -mine])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self._host_group)
+        if not torch.equal(both[:4], -both[4:]):
+            raise RuntimeError(
+                f"mesh ranks diverged: (action, slot, tokens, token hash) here "
+                f"{mine.tolist()}, max over ranks {both[:4].tolist()}, min {(-both[4:]).tolist()}")
+
+    def _next_seed(self) -> int | None:
+        """A mesh dispatch's draw seed when sampling: the engine's seed and
+        the count of sampled dispatches, the same on every rank."""
+        if sampling_temperature(self.temperature) == 0.0:
+            return None
+        self._draws += 1
+        return (self._seed << 32) | self._draws
+
+    def _shard(self, slot: int) -> int:
+        """The data shard that owns `slot` (0 without a mesh)."""
+        return 0 if self._mesh is None else slot // self._slots_per_shard
+
     def _record(self, slot: int, token: int):
         rid = self._slot_req[slot]
         self._outputs[rid].append(token)
         self._tokens_generated += 1
+        if self._mesh is not None:
+            self._token_hash = (self._token_hash * 1000003 + token + 1) % 2147483647
         now = time.perf_counter()
         if rid not in self._ttft:
             self._ttft[rid] = now - self._submitted_at[rid]
@@ -437,14 +531,14 @@ class ServingEngine:
             self._slot_req[slot] = -1
             self.active[slot] = False
             if self._slot_pages[slot]:
-                self._pager.free(self._slot_pages[slot])
+                self._pagers[self._shard(slot)].free(self._slot_pages[slot])
             if self._slot_shared[slot]:
                 # shared pages stay cached in the store (evicted under pressure)
-                self._prefix_store.release(self._slot_shared[slot])
+                self._prefix_stores[self._shard(slot)].release(self._slot_shared[slot])
             self._slot_pages[slot], self._slot_shared[slot], self._slot_row[slot] = [], [], []
 
     def _pad_len(self, prompt) -> int:
-        if self._pager is not None:  # paged prompts fill whole pages
+        if self._pagers is not None:  # paged prompts fill whole pages
             return -(-max(len(prompt), 1) // self._page_size) * self._page_size
         # power-of-two bucket, clamped at the 128-rounded cache capacity
         return min(_bucket(len(prompt)), -(-self.cfg.max_seq // 128) * 128)
@@ -462,7 +556,10 @@ class ServingEngine:
         ps = self._page_size
         prompt = self._prompts[rid]
         n_need = -(-(len(prompt) + self._budgets[rid]) // ps)
-        store, hit = self._prefix_store, []
+        shard = self._shard(slot)
+        pager = self._pagers[shard]
+        store = None if self._prefix_stores is None else self._prefix_stores[shard]
+        hit = []
         if store is not None:
             chunk_pages = self.prefill_chunk // ps
             hit = store.lookup(prompt, max_pages=(len(prompt) - 1) // ps)
@@ -470,12 +567,12 @@ class ServingEngine:
             if hit:
                 store.acquire(hit)
         n_fresh = n_need - len(hit)
-        pages = self._pager.alloc(n_fresh)
+        pages = pager.alloc(n_fresh)
         if pages is None and store is not None:
-            evicted = store.evict(n_fresh - self._pager.num_free)
+            evicted = store.evict(n_fresh - pager.num_free)
             if evicted:
-                self._pager.free(evicted)
-                pages = self._pager.alloc(n_fresh)
+                pager.free(evicted)
+                pages = pager.alloc(n_fresh)
         if pages is None:
             if hit:
                 store.release(hit)
@@ -484,6 +581,10 @@ class ServingEngine:
         row = hit + pages
         self._slot_pages[slot], self._slot_shared[slot], self._slot_row[slot] = pages, hit, row
         self._slot_prefix[slot] = len(hit) * ps
+        if self._mesh is not None:  # only the owning shard holds the row
+            own, slot = _owner(self._mesh, self.caches, slot)
+            if not own:
+                return True
         table_row = self._to_device(row + [0] * (self._table_pages - len(row)), torch.int32)
         for c in self.caches:
             assign_pages(c, slot, table_row)
@@ -493,13 +594,14 @@ class ServingEngine:
         """Offer the prefilled prompt's full pages to the prefix store; the
         pages it adopts move from the slot's private list to its shared
         list (released, not freed, when the slot finishes)."""
-        if self._prefix_store is None:
+        if self._prefix_stores is None:
             return
         prompt = self._prompts[rid]
         n_full = len(prompt) // self._page_size
         if n_full == 0:
             return
-        owned = self._prefix_store.register(prompt, self._slot_row[slot][:n_full])
+        owned = self._prefix_stores[self._shard(slot)].register(
+            prompt, self._slot_row[slot][:n_full])
         owned_set = set(owned)
         self._slot_shared[slot] = owned
         self._slot_pages[slot] = [p for p in self._slot_row[slot] if p not in owned_set]
@@ -509,7 +611,7 @@ class ServingEngine:
 
     def _do_prefill(self, rid: int, slot: int):
         prompt = self._prompts[rid]
-        if self._pager is not None and not self._admit_pages(rid, slot):
+        if self._pagers is not None and not self._admit_pages(rid, slot):
             if self.sched.num_active > 0:
                 self._do_decode()
             return
@@ -518,16 +620,17 @@ class ServingEngine:
             # tail-only prefill
             self._start_chunked_prefill(rid, slot, prompt)
             return
-        # batched admission: while requests wait and slots are free the
-        # scheduler keeps answering PREFILL; drain them into ONE prefill,
-        # cut before a request that takes the chunked path
+        # batched admission (one device only): while requests wait and slots
+        # are free the scheduler keeps answering PREFILL; drain them into
+        # ONE prefill, cut before a request that takes the chunked path
         batch = [(rid, slot, prompt)]
-        while len(batch) < self.n_slots and self.sched.num_waiting > 0:
+        while (self._mesh is None and len(batch) < self.n_slots
+               and self.sched.num_waiting > 0):
             action, rid2, slot2 = self.sched.next_action()
             if action != PREFILL:
                 break
             prompt2 = self._prompts[rid2]
-            if self._pager is not None and not self._admit_pages(rid2, slot2):
+            if self._pagers is not None and not self._admit_pages(rid2, slot2):
                 break  # rid2 requeued; serve what we have
             if self._needs_chunking(prompt2) or self._slot_prefix[slot2] > 0:
                 self._dispatch_prefills(batch)
@@ -555,10 +658,16 @@ class ServingEngine:
         chunk = self.prefill_chunk
         piece = prompt[i * chunk:(i + 1) * chunk]
         last = i == -(-len(prompt) // chunk) - 1
+        tokens = self._to_device(piece + [0] * (chunk - len(piece)))
         t0 = time.perf_counter()
-        tok, self.caches = prefill_chunk_step(
-            self.params, self.caches, self._to_device(piece + [0] * (chunk - len(piece))),
-            i * chunk, len(prompt), slot, self.cfg, last, self.temperature, self._generator)
+        if self._mesh is not None:
+            tok, self.caches = self._mesh_chunk(self.params, self.caches, tokens, i * chunk,
+                                                len(prompt), slot, last,
+                                                self._next_seed() if last else None)
+        else:
+            tok, self.caches = prefill_chunk_step(
+                self.params, self.caches, tokens, i * chunk, len(prompt), slot, self.cfg, last,
+                self.temperature, self._generator)
         self._ledger["dispatches"] += 1
         self._ledger["dispatch_s"] += time.perf_counter() - t0
         if not last:
@@ -588,9 +697,13 @@ class ServingEngine:
         if len(batch) == 1:
             rid, slot, prompt = batch[0]
             tokens = self._to_device(prompt + [0] * (t_pad - len(prompt)))
-            first, self.caches = prefill_slot(
-                self.params, self.caches, tokens, len(prompt), slot, self.cfg,
-                self.temperature, self._generator)
+            if self._mesh is not None:
+                first, self.caches = self._mesh_prefill(self.params, self.caches, tokens,
+                                                        len(prompt), slot, self._next_seed())
+            else:
+                first, self.caches = prefill_slot(
+                    self.params, self.caches, tokens, len(prompt), slot, self.cfg,
+                    self.temperature, self._generator)
             self.last_tok[slot] = first
             self.pos[slot] = len(prompt)
             self.active[slot] = True
@@ -703,13 +816,18 @@ class ServingEngine:
         if sampling_temperature(self.temperature) > 0.0:  # fresh draws for every dispatch
             seed = (self._seed << 32) | self._spec_dispatches
         self._spec_dispatches += 1
-        emitted, n_emit, self.caches = verify_step_batched(
-            self.params, self.caches, self.last_tok, self._to_device(drafts, torch.long),
-            self.pos, self.active, self.cfg, self.temperature, seed)
-        n = torch.arange(self.n_slots, device=self.device)
-        self.last_tok = torch.where(self.active, emitted[n, n_emit - 1], self.last_tok)
-        self.pos = self.pos + n_emit * self.active.long()
-        packed = torch.cat([emitted, n_emit[:, None]], dim=1)  # one fetch
+        drafts = self._to_device(drafts, torch.long)
+        if self._mesh is not None:
+            packed, self.caches, self.last_tok, self.pos = self._mesh_verify(
+                self.params, self.caches, self.last_tok, drafts, self.pos, self.active, seed)
+        else:
+            emitted, n_emit, self.caches = verify_step_batched(
+                self.params, self.caches, self.last_tok, drafts, self.pos, self.active,
+                self.cfg, self.temperature, seed)
+            n = torch.arange(self.n_slots, device=self.device)
+            self.last_tok = torch.where(self.active, emitted[n, n_emit - 1], self.last_tok)
+            self.pos = self.pos + n_emit * self.active.long()
+            packed = torch.cat([emitted, n_emit[:, None]], dim=1)  # one fetch
         self._ledger["dispatches"] += 1
         self._ledger["dispatch_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -738,9 +856,16 @@ class ServingEngine:
                 return
         horizon = self._pick_horizon(active_before)
         t0 = time.perf_counter()
-        bank, self.caches, self.last_tok, self.pos = decode_horizon_batched(
-            self.params, self.caches, self.last_tok, self.pos, self.active, self.cfg,
-            horizon, self.temperature, self._generator)
+        if self._mesh is not None:
+            seed = self._next_seed()
+            bank, self.caches, self.last_tok, self.pos = decode_bank(
+                lambda caches, last_tok, pos: self._mesh_decode(
+                    self.params, caches, last_tok, pos, self.active, seed),
+                self.caches, self.last_tok, self.pos, self.active, horizon)
+        else:
+            bank, self.caches, self.last_tok, self.pos = decode_horizon_batched(
+                self.params, self.caches, self.last_tok, self.pos, self.active, self.cfg,
+                horizon, self.temperature, self._generator)
         self._ledger["dispatches"] += 1
         self._ledger["dispatch_s"] += time.perf_counter() - t0
         self._flush_pending()
@@ -748,3 +873,229 @@ class ServingEngine:
         # bank is still decoding: their rows are surplus
         owners = [(s, self._slot_req[s]) for s in active_before if self._slot_req[s] >= 0]
         self._pending_fetches.append(("bank", bank, owners))
+
+
+# --------------------------------------------------------------------------
+# Mesh serving: slots on `data`, heads on `model` (one process per rank)
+# --------------------------------------------------------------------------
+#
+# The counterparts of the JAX engine's shard_map bodies (engine.py:1040-
+# 1598). JAX runs one controller over every device; here every rank runs
+# the same host policy on the same request stream and calls these per-rank
+# functions on its own shards: params from models/sharded_train.py:
+# shard_params, caches holding the rows of its data shard's slots and the
+# kv heads of its model shard (a paged pool private to the data shard, its
+# page ids shard-local). last_tok/pos/active are the full [n_slots] vectors
+# on every rank; a step reads its data shard's rows and hands back the full
+# vector of next tokens, so every rank's host records the same tokens.
+#
+# Collectives, all `dist.all_reduce` (parallel/mesh.py), issued by every
+# rank in the same order: the psum over `model` after wo and after w2 in
+# every layer, one psum over `data` of a zero-filled [n_slots] buffer that
+# shares each shard's tokens, and in a chunk past the first the owner-masked
+# psum over `data` that picks the owning shard's prefix merge. Decode and
+# verify attention run per (slot, kv head): B13-B16 at the local head count,
+# no communication.
+#
+# Sampling keys each draw by (seed, GLOBAL row, the position it predicts)
+# through models/transformer.py:gumbel_draws, as the JAX mesh steps fold
+# the global row into the step key, so a seeded run draws the same tokens
+# however the slots are split over data.
+
+
+def _mesh_psum(mesh):
+    """The model-axis psum the projections' partial products go through."""
+    return lambda x: psum(x.contiguous(), mesh, "model")
+
+
+def _local_rows(mesh, n_slots: int) -> tuple[int, int]:
+    """[lo, hi): the global slots of this rank's data shard."""
+    n = n_slots // axis_size(mesh, "data")
+    lo = axis_index(mesh, "data") * n
+    return lo, lo + n
+
+
+def _gather_rows(local: torch.Tensor, mesh, n_slots: int, lo: int) -> torch.Tensor:
+    """The full [n_slots, ...] tensor on every rank from each data shard's
+    rows: a zero-filled buffer holding this shard's rows, psum over data."""
+    full = local.new_zeros((n_slots, *local.shape[1:]))
+    full[lo:lo + local.shape[0]] = local
+    return psum(full, mesh, "data")
+
+
+def _owner(mesh, caches, slot: int) -> tuple[bool, int]:
+    """(whether this rank's data shard owns global `slot`, its local row)."""
+    c0 = caches[0]
+    slots_loc = (c0.lengths if isinstance(c0, (PagedKVCache, Paged4KVCache)) else c0.length).shape[0]
+    return slot // slots_loc == axis_index(mesh, "data"), slot % slots_loc
+
+
+def _draw(logits, temperature, seed, rows, positions):
+    """Greedy, or the (seed, row, position)-keyed draw under sampling;
+    logits [n, s, vocab] -> [n, s]."""
+    if sampling_temperature(temperature) == 0.0 or seed is None:
+        return torch.argmax(logits, dim=-1)
+    return gumbel_draws(logits.float(), temperature, seed, rows, positions)
+
+
+def _sharded_decode_step(params, caches, last_tok, pos, active, mesh, cfg: TransformerConfig,
+                         temperature=0.0, seed: int | None = None):
+    """One decode step on this rank's shards (JAX engine.py:1040-1099):
+    its data shard's rows of the full last_tok/pos/active [n_slots], its
+    heads (cfg is the global config). Returns (next tokens [n_slots] on
+    every rank, caches)."""
+    lo, hi = _local_rows(mesh, last_tok.shape[0])
+    logits, caches = _decode_logits(params, caches, last_tok[lo:hi], pos[lo:hi], active[lo:hi],
+                                    local_config(cfg, mesh), _mesh_psum(mesh))
+    rows = torch.arange(lo, hi, device=logits.device)
+    tok = _draw(logits[:, None], temperature, seed, rows, pos[lo:hi, None].long() + 1)[:, 0]
+    return _gather_rows(tok, mesh, last_tok.shape[0], lo), caches
+
+
+def make_sharded_decode_step(mesh, cfg: TransformerConfig, temperature=0.0, horizon: int = 1):
+    """The per-rank decode step (JAX engine.py:1288-1361): (params, caches,
+    last_tok, pos, active, seed=None) -> (next_tok [n_slots], caches), or
+    with horizon > 1 (bank [horizon, n_slots], caches, last_tok, pos), the
+    contract of decode_horizon_batched. params and caches are this rank's
+    shards (`serving_shardings`); seed keys the draws when sampling."""
+    local_config(cfg, mesh)  # the heads must split over model
+
+    def step(params, caches, last_tok, pos, active, seed=None):
+        if sampling_temperature(temperature) > 0.0 and seed is None:
+            raise ValueError("temperature > 0 requires a seed per step")
+
+        def one(caches, last_tok, pos):
+            return _sharded_decode_step(params, caches, last_tok, pos, active, mesh, cfg,
+                                        temperature, seed)
+
+        if horizon <= 1:
+            return one(caches, last_tok, pos)
+        return decode_bank(one, caches, last_tok, pos, active, horizon)
+
+    return step
+
+
+def make_sharded_verify_step(mesh, cfg: TransformerConfig, temperature=0.0):
+    """The per-rank speculative verify step (JAX engine.py:1102-1211):
+    (params, caches, last_tok, draft [n_slots, s - 1], pos, active,
+    seed=None) -> (packed [n_slots, s + 1]: the emitted tokens and n_emit,
+    caches, last_tok, pos), every output but the caches full on every rank.
+    The staircase attention is per (slot, kv head); acceptance and rollback
+    are per slot, on the rank's own rows."""
+    lcfg = local_config(cfg, mesh)
+
+    def step(params, caches, last_tok, draft, pos, active, seed=None):
+        n_slots = last_tok.shape[0]
+        lo, hi = _local_rows(mesh, n_slots)
+        emitted, n_emit, caches = verify_step_batched(
+            params, caches, last_tok[lo:hi], draft[lo:hi], pos[lo:hi], active[lo:hi], lcfg,
+            temperature, seed, psum=_mesh_psum(mesh), row0=lo)
+        packed = _gather_rows(torch.cat([emitted, n_emit[:, None]], dim=1), mesh, n_slots, lo)
+        n_emit = packed[:, -1]
+        new_last = packed[torch.arange(n_slots, device=packed.device), n_emit - 1]
+        last_tok = torch.where(active, new_last, last_tok)
+        return packed, caches, last_tok, pos + n_emit * active.long()
+
+    return step
+
+
+def _draw_first(logits, temperature, seed, slot: int, true_end: int):
+    """A prefill's first token from its last logits [vocab]: greedy, or the
+    draw keyed by (seed, global slot, the position it predicts)."""
+    rows = torch.tensor([slot], device=logits.device)
+    pos = torch.tensor([[true_end]], device=logits.device)
+    return _draw(logits[None, None], temperature, seed, rows, pos)[0, 0]
+
+
+def make_sharded_prefill_slot(mesh, cfg: TransformerConfig, temperature=0.0):
+    """The per-rank fused prefill of one request into global cache row
+    `slot` (JAX engine.py:1364-1444): every rank runs the prompt through its
+    heads (activations replicated across data, psum over model after wo and
+    w2), and only the data shard that owns the slot writes its cache
+    (slotted row or private pool); models/transformer.py:prefill_slot_logits
+    is the body. (params, caches, tokens [t_pad], true_len, slot, seed=None)
+    -> (first token, the same on every rank; caches)."""
+    lcfg = local_config(cfg, mesh)
+
+    def prefill(params, caches, tokens, true_len: int, slot: int, seed=None):
+        own, slot_loc = _owner(mesh, caches, slot)
+        logits, caches = prefill_slot_logits(params, caches, tokens, true_len, slot_loc, lcfg,
+                                             _mesh_psum(mesh), own)
+        return _draw_first(logits, temperature, seed, slot, true_len), caches
+
+    return prefill
+
+
+def make_sharded_prefill_chunk(mesh, cfg: TransformerConfig, temperature=0.0):
+    """The per-rank chunked prefill (JAX engine.py:1447-1578), with
+    models/transformer.py:prefill_chunk's signature plus a seed, on
+    prefill_chunk_logits' body. Chunk activations are replicated across
+    data, so the chunk's causal part runs on every rank; the prefix lives
+    only in the owning data shard's cache, so the owner merges it in by lse
+    and one masked psum over data hands its merged output to every shard
+    (the others add zeros). Only the owner writes the chunk."""
+    lcfg = local_config(cfg, mesh)
+
+    def prefill(params, caches, tokens, chunk_start: int, true_end: int, slot: int, last: bool,
+                seed=None):
+        own, slot_loc = _owner(mesh, caches, slot)
+        logits, caches = prefill_chunk_logits(
+            params, caches, tokens, chunk_start, true_end, slot_loc, lcfg, last,
+            _mesh_psum(mesh), own, lambda o: psum(o.contiguous(), mesh, "data"))
+        if logits is None:
+            return None, caches
+        return _draw_first(logits, temperature, seed, slot, true_end), caches
+
+    return prefill
+
+
+def cache_specs() -> QuantizedKVCache:
+    """Spec tree of one layer's slotted int8 cache: slots on data, kv heads
+    on model (JAX engine.py:1214-1221)."""
+    payload, scales = ("data", "model", None, None), ("data", "model", None)
+    return QuantizedKVCache(k_i8=payload, sk=scales, v_i8=payload, sv=scales, length=("data",))
+
+
+def cache4_specs() -> Int4KVCache:
+    """The slotted int4 cache's twin of `cache_specs`: the pack blocks run
+    along the unsplit token axis, so packing and sharding never meet."""
+    payload, scales = ("data", "model", None, None), ("data", "model", None)
+    return Int4KVCache(k_p=payload, sk=scales, v_p=payload, sv=scales, length=("data",))
+
+
+def paged_cache_specs() -> PagedKVCache:
+    """Spec tree of one layer's paged int8 pool under the serving mesh: each
+    data shard owns a PRIVATE pool (pages split on data, table values
+    shard-local ids) and the table rows of its slots; kv heads on model."""
+    pages, scales = ("model", "data", None, None), ("data", "model", None)
+    return PagedKVCache(k_pages=pages, sk=scales, v_pages=pages, sv=scales,
+                        page_table=("data", None), lengths=("data",))
+
+
+def paged4_cache_specs() -> Paged4KVCache:
+    """The paged int4 pool's twin of `paged_cache_specs`."""
+    pages, scales = ("model", "data", None, None), ("data", "model", None)
+    return Paged4KVCache(k_p=pages, sk=scales, v_p=pages, sv=scales,
+                         page_table=("data", None), lengths=("data",))
+
+
+def serving_shardings(cfg: TransformerConfig, cache: str = "slotted",
+                      weight_quant: str | None = None, kv_quant: str | None = None):
+    """(param specs, per-layer cache specs) of mesh serving (JAX
+    engine.py:1581-1598); models/sharded_train.py:shard_tree cuts full
+    trees to a rank's shards under them. weight_quant="int8": the params
+    hold QuantizedWeight leaves, so the spec tree is their twin
+    (quantize_lm_specs). JAX's third tree, the vectors' data sharding, has
+    no counterpart: last_tok/pos/active are whole on every rank, whose host
+    records every token."""
+    from quantizedattention_tpu_torch.models.sharded_train import param_specs
+    from quantizedattention_tpu_torch.quantize.weights import quantize_lm_specs
+
+    pspecs = param_specs(cfg)
+    if weight_quant is not None:
+        pspecs = quantize_lm_specs(pspecs)
+    if cache == "paged":
+        one = paged4_cache_specs() if kv_quant == "int4" else paged_cache_specs()
+    else:
+        one = cache4_specs() if kv_quant == "int4" else cache_specs()
+    return pspecs, [one for _ in range(cfg.n_layers)]

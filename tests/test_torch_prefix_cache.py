@@ -189,7 +189,7 @@ def test_prefix_cache_matches_jax_and_the_cold_engine(lm):
     assert got == want == cold
     assert stats == jstats
     assert stats[0]["prefix_nodes"] == 2 and stats[1]["prefix_hit_pages"] >= 2
-    store = warm._prefix_store
+    store = warm._prefix_stores[0]
     chain = store.lookup(PROMPT_A[:256])
     assert len(chain) == 2 and all(store.refcount(p) == 0 for p in chain)
     # nothing live: every page is free or cached in the store
@@ -219,7 +219,7 @@ def test_prefix_cache_with_native_components(lm):
     _, _, cfg, tparams = lm
     waves = WAVES[:2]
     nat = _engine(tparams, cfg, True, scheduler="native")
-    assert isinstance(nat._prefix_store, tps.NativePrefixStore)
+    assert isinstance(nat._prefix_stores[0], tps.NativePrefixStore)
     assert _waves(nat, waves) == _waves(_engine(tparams, cfg, True), waves)
 
 

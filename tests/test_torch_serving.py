@@ -325,20 +325,24 @@ def test_engine_rejects_bad_requests(lm):
 
 @pytest.mark.parametrize("option,value", [("mesh", object()), ("spec_decode", 2)])
 def test_engine_unported_options_raise(lm, option, value):
-    """The JAX engine's option the port lacks, mesh, raises
-    NotImplementedError. spec_decode is ported (tests/test_torch_spec.py
-    serves with it), and so are prefill_chunk, prefix_cache,
-    adaptive_horizon and top_k/top_p (tests/test_torch_chunked_prefill.py,
-    test_torch_prefix_cache.py, test_torch_sampling.py): spec with top_k
-    builds its engine."""
+    """Every option of the JAX engine is ported. mesh serves in
+    tests/test_torch_mesh_engine.py; here a mesh that is not a DeviceMesh
+    with data and model axes raises ValueError. spec_decode is ported
+    (tests/test_torch_spec.py serves with it), and so are prefill_chunk,
+    prefix_cache, adaptive_horizon and top_k/top_p
+    (tests/test_torch_chunked_prefill.py, test_torch_prefix_cache.py,
+    test_torch_sampling.py): spec with top_k builds its engine. An unknown
+    option is a TypeError."""
     _, _, cfg, tparams = lm
     if option == "spec_decode":
         assert ServingEngine(tparams, cfg, "cpu", spec_decode=value).spec_decode == value
         eng = ServingEngine(tparams, cfg, "cpu", spec_decode=value, top_k=5)
         assert eng.spec_decode == value and eng.temperature.top_k == 5
         return
-    with pytest.raises(NotImplementedError, match=option):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         ServingEngine(tparams, cfg, "cpu", **{option: value})
+    with pytest.raises(TypeError):
+        ServingEngine(tparams, cfg, "cpu", no_such_option=1)
 
 
 @pytest.mark.parametrize(
