@@ -237,6 +237,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      whole cache, and the serving half of the JAX package's
      dryrun_multichip (sharded decode, int8 weights over the int4 cache,
      sharded verify).
+ 27. sequence-parallel training: first, on card 0, B1 and B2/B3 fast with the
+     global q/k offsets at the SP paths' shard shapes (SP_KERNEL_CASES: the
+     all-gather launch, the ring's diagonal and past steps, GQA 8/2, offsets
+     off the tile grid, and rows that see no key, which must give O = 0,
+     lse = -inf and zero gradients exactly) against their plain versions,
+     timed beside their bounds and SDPA (without a dense mask where a fused
+     backend computes the case: is_causal, causal_lower_right, no mask;
+     enable_gqa; the dense-mask time beside it). Then
+     make_sharded_train_step at TRAIN_CFG's full width on 4 ranks (RankPool,
+     as phase 26; models/sharded_jobs.py): ring (bf16 3 steps, int8 2),
+     all-gather, zigzag (bf16, int8) on (data 1, model 2, context 2) and
+     Ulysses (bf16, int8) on (2, 1, 2). Every rank's first loss equals rank
+     0's, every kernel of the path launches, and each run's first loss and
+     gradients hold against the one-device make_train_step of its attention
+     kind (bf16: SP_LOSS_REL, SP_GRAD_REL_L2; int8: SP_INT8_LOSS_REL,
+     SP_INT8_GRAD_REL_L2); a witness reads the one-device gradient from the
+     batch in two halves against the whole batch's; step times, and one
+     profiled ring step's device busy share on rank 0. Then the training half of the JAX dryrun_multichip
+     (sharded_jobs.dryrun_training) must give finite losses.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -539,12 +558,17 @@ def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def visible_pairs(t: int, s: int, causal: bool) -> int:
-    """(query, key) pairs attention computes: causal keeps k <= q."""
+def visible_pairs(t: int, s: int, causal: bool, q_offset: int = 0, k_offset: int = 0) -> int:
+    """(query, key) pairs attention computes: causal keeps k <= q on global
+    positions, key j + k_offset <= query i + q_offset (row i sees min(s,
+    max(0, i + q_offset - k_offset + 1)) keys)."""
     if not causal:
         return t * s
-    n = min(t, s)
-    return n * (n + 1) // 2 + (t - n) * s
+    d = q_offset - k_offset
+    n = max(0, min(t, s - d))  # rows i < n (i + d + 1 <= s) see i + d + 1 keys, if positive
+    lo = max(0, min(n, -d))  # rows below -d see none
+    full = (n * (n + 1) - lo * (lo + 1)) // 2 + (n - lo) * d
+    return full + (t - n) * s if t > n else full
 
 
 def _strided(*xs):
@@ -2192,11 +2216,17 @@ def phase_train_timing(dev, gen) -> tuple[dict, dict]:
     return out, errs
 
 
-def _grads(params, tokens, targets, cfg):
-    """(loss, gradients in param_leaves order) on the tokens' device."""
+def _grads(params, tokens, targets, cfg, attention_fn=None):
+    """(loss, gradients in param_leaves order) on the tokens' device; with
+    `attention_fn`, of lm_loss's formula through transformer_forward's
+    attention hook."""
     copy = _to(params, tokens.device)
     leaves = [x.requires_grad_(True) for x in param_leaves(copy)]
-    loss = lm_loss(copy, tokens, targets, cfg)
+    if attention_fn is None:
+        loss = lm_loss(copy, tokens, targets, cfg)
+    else:
+        logits = transformer_forward(copy, tokens, cfg, attention_fn)
+        loss = -torch.log_softmax(logits.float(), -1).gather(-1, targets.long()[..., None]).mean()
     return loss.item(), torch.autograd.grad(loss, leaves)
 
 
@@ -3734,6 +3764,384 @@ def phase_mesh_serving(dev, smi, gen) -> dict:
 
 
 
+# --------------------------------------------------------------------------
+# Sequence-parallel training (phase 27)
+# --------------------------------------------------------------------------
+
+# dryrun_multichip's factoring of 4 ranks (__graft_entry__.py:34-47): one rank
+# holds TRAIN_CFG's 8 heads of 16 and 1024 of 2048 tokens; Ulysses runs on
+# (data 2, model 1, context 2), where 16 heads divide the context axis
+SP_SHAPE, SP_ULYSSES_SHAPE, SP_RANKS = (1, 2, 2), (2, 1, 2), 4
+SP_HEADS, SP_T = TRAIN_CFG.n_heads // SP_SHAPE[1], TRAIN_CFG.max_seq // SP_SHAPE[2]
+# B1-B3 at the SP paths' shard shapes with the global offsets (B-f2): (label,
+# b, h, h_kv, t, s, q_offset, k_offset, timed). The all-gather launch (t_local
+# queries at q_offset t_local against the gathered 2 t_local keys), the
+# ring's two live steps (its diagonal, offsets equal, and a past shard),
+# GQA 8 q / 2 kv heads, offsets off the 64/128 tile grid, and two cases with
+# rows that see no key: kv_sharded_attention's (q_offset 0, k_offset 512:
+# rows below 512 see nothing and keys from 512 on are seen by no row) and
+# rows 0-76 of a live tile (k_offset 77)
+SP_KERNEL_CASES = [
+    ("allgather", TRAIN_BATCH, SP_HEADS, SP_HEADS, SP_T, 2 * SP_T, SP_T, 0, True),
+    ("ring_diagonal", TRAIN_BATCH, SP_HEADS, SP_HEADS, SP_T, SP_T, SP_T, SP_T, True),
+    ("ring_past", TRAIN_BATCH, SP_HEADS, SP_HEADS, SP_T, SP_T, SP_T, 0, True),
+    ("gqa", TRAIN_BATCH, SP_HEADS, 2, SP_T, 2 * SP_T, SP_T, 0, True),
+    ("unaligned", 1, 8, 2, 300, 700, 1000, 37, False),
+    ("kv_sharded", 2, SP_HEADS, SP_HEADS, SP_T, SP_T, 0, 512, False),
+    ("empty_in_tile", 1, 4, 4, 200, 300, 0, 77, False),
+]
+SP_RUNS = [  # (label, mesh shape, attention, attention_sp, steps)
+    ("ring", SP_SHAPE, "bf16", "ring", 3),
+    ("ring_int8", SP_SHAPE, "int8", "ring", 2),
+    ("allgather", SP_SHAPE, "bf16", "allgather", 1),
+    ("zigzag", SP_SHAPE, "bf16", "zigzag", 1),
+    ("zigzag_int8", SP_SHAPE, "int8", "zigzag", 1),
+    ("ulysses", SP_ULYSSES_SHAPE, "bf16", "ulysses", 1),
+    ("ulysses_int8", SP_ULYSSES_SHAPE, "int8", "ulysses", 1),
+]
+# the sharded step's first loss and gradients against the one-device
+# make_train_step of the same attention kind on the same batch and params.
+# bf16: the CPU tests' tolerances (tests/test_torch_train.py:286-287); the
+# strategies differ from one device where B1-B3's bf16 roundings grow f32
+# regrouping (the witness, `_split_batch_witness`). int8: set from the card's
+# readings (PERF.md, PR 20): first losses within 7.6e-6, so 5e-5; gradients
+# of the ring 6.5e-3 and Ulysses 4.8e-3, which share one device's
+# quantization grid but for shard edges (2e-2), zigzag 3.59e-2, whose
+# 512-token chunks sit on another grid as far from one device's int8 as that
+# is from one device's bf16 (3.55e-2), so 7e-2
+SP_LOSS_REL, SP_GRAD_REL_L2 = 1e-4, 3e-2
+SP_INT8_LOSS_REL = 5e-5
+SP_INT8_GRAD_REL_L2 = {"ring": 2e-2, "ulysses": 2e-2, "zigzag": 7e-2}
+SP_PATH_KERNELS = {"bf16": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep"),
+                   "int8": ("quant_int8", "int8_fwd", "int8_bwd_dkv", "int8_bwd_dq")}
+
+
+def _sp_visible(t: int, s: int, q_offset: int, k_offset: int) -> torch.Tensor:
+    """[t] bool: each query row sees a key (causal on global positions)."""
+    return torch.arange(t) + q_offset - k_offset >= 0
+
+
+def _sdpa_offsets(t: int, s: int, q_offset: int, k_offset: int) -> tuple[dict | None, str]:
+    """The SDPA arguments that compute causal attention at these offsets
+    without a dense mask, so that SDPA may take a fused (flash or
+    memory-efficient) backend: none where every row sees every key (a past
+    shard), is_causal where the offsets are equal and t = s (top-left, the
+    ring's diagonal), causal_lower_right where the last query sits on the
+    last key (the all-gather launch); None where only a dense mask does."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    diag = q_offset - k_offset
+    if diag >= s - 1:
+        return {}, "no mask (every row sees every key)"
+    if diag == 0 and t == s:
+        return {"is_causal": True}, "is_causal=True"
+    if diag == s - t:
+        return {"attn_mask": causal_lower_right(t, s)}, "attn_mask=causal_lower_right(t, s)"
+    return None, "a dense mask only"
+
+
+def _sdpa_ms(q, k, v, do, **kw) -> tuple[float, float, list]:
+    """SDPA on bf16 copies with `kw` (GQA: enable_gqa=True, K/V unrepeated):
+    (forward ms, backward ms = forward + backward - forward, the forward's
+    device kernels by torch.profiler, which name the backend)."""
+    gqa = q.shape[1] != k.shape[1]
+    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    dob = do.to(torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qb, kb, vb, enable_gqa=gqa, **kw)
+
+    def fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qb, kb, vb, enable_gqa=gqa, **kw),
+                            (qb, kb, vb), dob)
+
+    for _ in range(3):
+        fwd_bwd()
+    f = device_ms(fwd, calls=4, replays=5)
+    return f, device_ms(fwd_bwd, calls=4, replays=5) - f, sorted(device_kernels(fwd))
+
+
+def _sp_case(g, dev, label, b, h, h_kv, t, s, qo, ko, timed) -> tuple[dict, dict]:
+    """B1, then B2 + B3 fast on B1's O and lse, at one offset case against
+    their plain versions (FLASH_O_TOL, FLASH_LSE_TOL, BWD_FAST_TOL; each
+    called twice for the same bits). Rows that see no key must give O = 0 and
+    lse = -inf and dQ = 0, keys no row sees dK = dV = 0, all exactly, in the
+    kernels and the plain versions. Returns (each kernel's max|diff|, with
+    `timed` each kernel's times beside its plain version, bound and SDPA)."""
+    q, k, v, do = _qkvdo(g, dev, b, h, h_kv, t, s)
+    kw = dict(causal=True, q_offset=qo, k_offset=ko)
+    where = f"{label}: b={b} h={h} h_kv={h_kv} t={t} s={s} q_offset={qo} k_offset={ko}"
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = flash_attention_fwd(q, k, v, **kw)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"flash_fwd gave other bits on a second call at {where}")
+    seen = _sp_visible(t, s, qo, ko).to(dev)
+    empty = ~seen
+    for name, (oo, ll) in (("kernel", (o, lse)), ("plain", (o_p, lse_p))):
+        if empty.any() and not ((oo[:, :, empty] == 0).all() and (ll[:, :, empty] == -math.inf).all()):
+            raise AssertionError(f"flash_fwd {name}: rows that see no key do not give O = 0 and "
+                                 f"lse = -inf at {where}")
+    err_o = (o - o_p)[:, :, seen].abs().max().item()
+    err_l = (lse - lse_p)[:, :, seen].abs().max().item()
+    log(f"[sp] flash_fwd {where}: max|dO| {err_o:.3e} (tol {FLASH_O_TOL}) max|dlse| {err_l:.3e} "
+        f"(tol {FLASH_LSE_TOL}); {int(empty.sum())} rows see no key: O = 0, lse = -inf exactly")
+    if not (err_o <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
+        raise AssertionError("flash_fwd kernel disagrees with its plain version at the offsets")
+    ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True, q_offset=qo, k_offset=ko)
+    errs = {"flash_fwd": err_o, **_check_bwd(ops, f"[sp] {where}")}
+    dk, dv = flash_bwd_dkv(ops)
+    dq = flash_bwd_dq(ops)
+    dk_p, dv_p = flash_bwd_dkv_plain(ops)
+    dq_p = flash_bwd_dq_plain(ops)
+    unseen = torch.arange(s, device=dev) + ko > t - 1 + qo  # keys no query sees
+    for name, (gq, gk, gv) in (("kernel", (dq, dk, dv)), ("plain", (dq_p, dk_p, dv_p))):
+        if not ((gq[:, :, empty] == 0).all() and (gk[:, unseen] == 0).all()
+                and (gv[:, unseen] == 0).all()):
+            raise AssertionError(f"flash_bwd {name}: rows that see no key or keys no row sees "
+                                 f"have nonzero gradients at {where}")
+    if empty.any() or unseen.any():
+        log(f"[sp] flash_bwd {where}: dQ of the {int(empty.sum())} rows that see no key and "
+            f"dK, dV of the {int(unseen.sum())} keys no row sees are 0 exactly (kernels and plain)")
+    if not timed:
+        return errs, {}
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)  # the SP paths hand K/V in bf16
+    pairs = b * h * visible_pairs(t, s, True, qo, ko)
+    # the library: SDPA in bf16 with the arguments that let it take a fused
+    # backend (GQA by enable_gqa); beside it, as a second field, SDPA with
+    # the offsets' dense boolean mask, which no fused backend takes
+    fused, call = _sdpa_offsets(t, s, qo, ko)
+    mask = (torch.arange(s, device=dev)[None, :] + ko <= torch.arange(t, device=dev)[:, None] + qo)
+    mask_f, mask_b, _ = _sdpa_ms(q, k, v, do, attn_mask=mask)
+    sdpa_f, sdpa_b, sdpa_kernels = (mask_f, mask_b, []) if fused is None else \
+        _sdpa_ms(q, k, v, do, **fused)
+    call = f"F.scaled_dot_product_attention({call}" + (", enable_gqa=True" if h != h_kv else "") \
+        + "), bf16"
+    log(f"[sp] sdpa {where}: {call}: forward kernels {[x[:60] for x in sdpa_kernels]}")
+    lib = [{"library_ms": f, "library_call": call + tail, "library_mask_ms": m}
+           for f, m, tail in ((sdpa_f, mask_f, ""),
+                              (sdpa_b, mask_b, ", backward (dq, dk, dv)"))]
+    times = {
+        "flash_fwd": {"ms": device_ms(lambda: flash_attention_fwd(q, kb, vb, **kw)),
+                      "plain_ms": device_ms(lambda: flash_attention_fwd_plain(q, kb, vb, **kw),
+                                            calls=4, replays=5),
+                      **bound(nbytes(q, kb, vb, o, lse), (2 * 2 * pairs * 64, PEAK_BF16)),
+                      **lib[0]},
+        "flash_bwd_dkv": {"ms": device_ms(lambda: flash_bwd_dkv(ops)),
+                          "plain_ms": device_ms(lambda: flash_bwd_dkv_plain(ops), calls=4,
+                                                replays=5),
+                          **bound(nbytes(*ops[:6], dk, dv), (4 * 2 * pairs * 64, PEAK_BF16)),
+                          **lib[1]},
+        "flash_bwd_dq": {"ms": device_ms(lambda: flash_bwd_dq(ops)),
+                         "plain_ms": device_ms(lambda: flash_bwd_dq_plain(ops), calls=4,
+                                               replays=5),
+                         **bound(nbytes(*ops[:6], dq), (3 * 2 * pairs * 64, PEAK_BF16)),
+                         **lib[1]},
+    }
+    for name, r in times.items():
+        r["shape"] = where
+        log(f"[sp] {name} {where}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), sdpa {r['library_ms']:.4f} ms "
+            f"({r['library_call']}), sdpa with the dense mask {r['library_mask_ms']:.4f} ms")
+    return errs, times
+
+
+def _sp_kernels(dev) -> tuple[dict, dict]:
+    """Phase 27's kernel checks on card 0: every SP_KERNEL_CASES case.
+    Returns (each kernel's worst max|diff|, {kernel: {case: times}})."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    errs, times = [], {"flash_fwd": {}, "flash_bwd_dkv": {}, "flash_bwd_dq": {}}
+    for label, *case in SP_KERNEL_CASES:
+        e, tm = _sp_case(g, dev, label, *case)
+        errs.append(e)
+        for name, r in tm.items():
+            times[name][label] = r
+        torch.cuda.empty_cache()
+    return _worst(*errs), times
+
+
+def _rel_l2(got: dict, ref: dict) -> dict:
+    """{name: ||got - ref|| / ||ref||} over the reference's tensors."""
+    return {n: ((got[n].float() - ref[n]).norm() / ref[n].norm()).item() for n in ref}
+
+
+def _f32_attention(q, k, v):
+    """Causal attention in f32 (SDPA; TF32 is off): the witness's reference
+    for what B1-B3's bf16 roundings do to the gradient."""
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+
+def _split_batch_witness(params, tokens, targets, cfg, ref: dict, dev) -> None:
+    """A witness for how far the sharded bf16 steps may sit from the
+    one-device step when their arithmetic is the same but grouped otherwise:
+    the one-device gradient from the batch in two halves (the Ulysses
+    ranks' batch shards; each half's mean loss halved, the two gradients
+    summed) against the whole batch's, and the whole batch's again against
+    itself (run to run); the same split with f32 attention in place of
+    B1-B3, and the bf16 gradient against the f32-attention one (the scale of
+    the kernels' bf16 roundings). Then where the split's difference is born:
+    the share of a product's elements whose f32 bits change when cuBLAS
+    computes it at a shard's shape (the first q projection's rows of batch
+    0-1, the Ulysses data shard, and its first 512 columns, the model shard
+    of the all-gather and ring runs), the half batch's logits against the
+    whole batch's rows, and B1-B3 at the half batch against the whole's."""
+    half = tokens.shape[0] // 2
+    names = list(ref)
+
+    def grads(toks, tgts, attention_fn=None):
+        return {n: g.cpu() for n, g in zip(names, _grads(params, toks.to(dev), tgts.to(dev), cfg,
+                                                         attention_fn)[1])}
+
+    def split(attention_fn=None):
+        parts = [grads(tokens[i:i + half], targets[i:i + half], attention_fn) for i in (0, half)]
+        return {n: (parts[0][n] + parts[1][n]) / 2 for n in names}
+
+    rel_split, rel_again = _rel_l2(split(), ref), _rel_l2(grads(tokens, targets), ref)
+    ref32 = grads(tokens, targets, _f32_attention)
+    rel_split32, rel_bf16 = _rel_l2(split(_f32_attention), ref32), _rel_l2(ref, ref32)
+    worst = max(rel_split, key=rel_split.get)
+    x = params["embed"].to(dev)[tokens.to(dev)]
+    w = params["layers"][0]["wq"].to(dev)
+    whole = x @ w
+    rows = (x[:half] @ w != whole[:half]).float().mean().item()
+    cols = (x @ w[:, :512].contiguous() != whole[..., :512]).float().mean().item()
+    with torch.no_grad():  # the forward: the half batch's logits against the whole's rows
+        on_dev = _to(params, dev)
+        logits = [transformer_forward(on_dev, tokens[:n].to(dev), cfg)[:half]
+                  for n in (half, tokens.shape[0])]
+        logit_share = (logits[0] != logits[1]).float().mean().item()
+    # B1-B3 at the half and the whole batch on random inputs, TRAIN_CFG's heads
+    g = torch.Generator(device=dev).manual_seed(28)
+    q, k, v, do = _qkvdo(g, dev, tokens.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.max_seq,
+                         cfg.max_seq)
+    outs = []
+    for n in (half, tokens.shape[0]):
+        o, lse = flash_attention_fwd(q[:n], k[:n], v[:n], causal=True)
+        ops = bwd_operands(q[:n], k[:n], v[:n], o, lse, do[:n], causal=True, fast=True)
+        outs.append((o, *flash_bwd_dkv(ops), flash_bwd_dq(ops)))
+    bh = half * cfg.n_kv_heads  # the half batch's leading rows of [b * h_kv, ...]
+    kernels_equal = torch.equal(outs[0][0], outs[1][0][:half]) and all(
+        torch.equal(a, b[:bh]) for a, b in zip(outs[0][1:], outs[1][1:]))
+    log(f"[sp] witness (one device, bf16): the gradient from two half batches vs the whole "
+        f"batch's: rel L2 max {rel_split[worst]:.3e} ({worst}), median "
+        f"{statistics.median(rel_split.values()):.3e}; the whole batch's again: max "
+        f"{max(rel_again.values()):.3e}; with f32 attention (SDPA) in place of B1-B3, the two "
+        f"half batches vs the whole: max {max(rel_split32.values()):.3e}, median "
+        f"{statistics.median(rel_split32.values()):.3e}; the bf16 gradient vs the f32-attention "
+        f"one: max {max(rel_bf16.values()):.3e}, median "
+        f"{statistics.median(rel_bf16.values()):.3e}; embed @ wq in f32 at a shard's shape: "
+        f"{rows:.2%} of the elements differ from the whole product's (rows of batch 0-1), "
+        f"{cols:.2%} (512 columns); "
+        f"the half batch's logits: {logit_share:.2%} of the elements differ from the whole "
+        f"batch's; B1, B2, B3 at the half batch: "
+        f"{'the same bits as' if kernels_equal else 'other bits than'} at the whole batch")
+
+
+def phase_sp_training(dev, smi) -> dict:
+    """Phase 27: B1-B3 with the global offsets at the SP shard shapes (card
+    0), then make_sharded_train_step at TRAIN_CFG's full width (f32 params,
+    TRAIN_BATCH x 2048 tokens) on 4 ranks: NCCL with a card a rank where 4
+    cards are visible, else sharing the card over gloo. Every run of SP_RUNS:
+    the ranks' first losses equal, losses finite, every kernel of its
+    attention path launched; its first loss and gradients against the
+    one-device make_train_step of its attention kind; then the training half of the
+    JAX dryrun_multichip. Returns {"errs", "times", "launches": {run:
+    launches summed over the ranks}}."""
+    from quantizedattention_tpu_torch.models import sharded_jobs
+    from quantizedattention_tpu_torch.models.sharded_jobs import _flat
+    from quantizedattention_tpu_torch.parallel.launch import RankPool
+
+    t_phase = time.perf_counter()
+    errs, times = _sp_kernels(dev)
+    cfg = TRAIN_CFG
+    rng = np.random.default_rng(27)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_seq)))
+    targets = torch.roll(tokens, -1, dims=1)
+    # the one-device references: the first step's loss and gradients of each
+    # attention kind, on card 0, from the params every rank draws
+    # (init_transformer, seed 0, CPU); param_leaves' order is the names'
+    params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    refs = {}
+    for kind in ("bf16", "int8"):
+        loss, grads = _grads(params, tokens.to(dev), targets.to(dev),
+                             dataclasses.replace(cfg, attention=kind))
+        refs[kind] = (loss, {name: g.cpu() for name, g in zip(_flat(params), grads)})
+    rel = _rel_l2(refs["int8"][1], refs["bf16"][1])
+    log(f"[sp] one device, int8 vs bf16: first loss {refs['int8'][0]:.6f} vs "
+        f"{refs['bf16'][0]:.6f}; gradients rel L2 max {max(rel.values()):.3e}, median "
+        f"{statistics.median(rel.values()):.3e}")
+    _split_batch_witness(params, tokens, targets, cfg, refs["bf16"][1], dev)
+    del params
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    pool = RankPool(SP_RANKS, "cuda", timeout_s=600)
+    sharing = pool.backend != "nccl"
+    log(f"[sp] make_sharded_train_step at TRAIN_CFG (vocab {cfg.vocab_size}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_layers} layers, f32 params, "
+        f"{TRAIN_BATCH} x {cfg.max_seq} tokens): {SP_RANKS} ranks "
+        + (f"sharing {min(cards, SP_RANKS)} card(s) over gloo (CUDA tensors)" if sharing else
+           "one a card over NCCL") + f"; {pool.backend} chosen from {cards} visible card(s)")
+    launches = {}
+    try:
+        for label, shape, attention, sp, steps in SP_RUNS:
+            outs = pool.run(sharded_jobs.train, cfg, shape, None, tokens, targets, steps,
+                            attention, sp, "cuda", profile=label == "ring")
+            losses = [o["losses"] for o in outs]
+            if any(x[0] != losses[0][0] for x in losses) or not np.isfinite(losses).all():
+                raise AssertionError(f"[sp] {label}: first losses differ over the ranks or are "
+                                     f"not finite: {losses}")
+            count = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+            count = {k: n for k, n in count.items() if n}
+            launches[f"train_sp_{label}"] = count
+            missing = [k for k in SP_PATH_KERNELS[attention] if not count.get(k)]
+            if missing:
+                raise AssertionError(f"[sp] {label}: the run launched {count}, none of {missing}")
+            step_ms = outs[0]["step_ms"]
+            note = "ranks share one card: not a scaling number" if sharing else "4 cards"
+            log(f"[sp] {label} ({attention}, attention_sp={sp!r}, mesh {shape}) on {smi}: losses "
+                f"{[round(x, 5) for x in losses[0]]}, every rank's first loss equal; step ms "
+                f"(rank 0, wall, synchronised; the first includes set-up) "
+                f"{[round(x, 1) for x in step_ms]} ({note}); launches over the ranks {count}")
+            ref_loss, ref = refs[attention]
+            loss_tol, grad_tol = ((SP_LOSS_REL, SP_GRAD_REL_L2) if attention == "bf16" else
+                                  (SP_INT8_LOSS_REL, SP_INT8_GRAD_REL_L2[sp]))
+            rel = _rel_l2(outs[0]["grads"], ref)
+            loss_rel = abs(losses[0][0] - ref_loss) / abs(ref_loss)
+            worst = max(rel, key=rel.get)
+            log(f"[sp] {label}: first loss {losses[0][0]:.6f} vs one device ({attention}) "
+                f"{ref_loss:.6f} (rel {loss_rel:.2e}, tol {loss_tol}); gradients rel L2 max "
+                f"{rel[worst]:.3e} ({worst}), median {statistics.median(rel.values()):.3e} "
+                f"over {len(rel)} tensors (tol {grad_tol})")
+            if attention == "int8":
+                rel16 = _rel_l2(outs[0]["grads"], refs["bf16"][1])
+                log(f"[sp] {label}: gradients vs one device (bf16): rel L2 max "
+                    f"{max(rel16.values()):.3e}, median {statistics.median(rel16.values()):.3e}")
+            if not (loss_rel <= loss_tol and rel[worst] <= grad_tol):
+                raise AssertionError(f"[sp] {label}: the sharded step's loss or gradients "
+                                     f"differ from the one-device step's")
+            if outs[0].get("profile"):
+                prof = outs[0]["profile"]
+                log(f"[sp] {label}: one profiled step on rank 0 ({pool.backend}): wall "
+                    f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, busy "
+                    f"{prof['busy_share']:.1%}; top device "
+                    f"{[(k, round(ms, 3), n) for k, ms, n in prof['top_device']]}")
+                launches[f"train_sp_{label}_profile"] = prof
+        dry = pool.run(sharded_jobs.dryrun_training, "cuda")
+        vals = [v for d in dry for k, v in d.items() if k != "shape"]
+        ok = np.isfinite(vals).all() and all(d == dry[0] for d in dry)
+        log(f"[sp] dryrun_multichip's training half (mesh {dry[0]['shape']}): "
+            f"{ {k: round(v, 4) for k, v in dry[0].items() if k != 'shape'} }: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("[sp] the dryrun_multichip training twin failed")
+    finally:
+        pool.close()
+    log(f"[sp] phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return {"errs": errs, "times": times, "launches": launches}
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -3776,6 +4184,8 @@ def main() -> None:
     mesh_runs = phase_mesh_serving(dev, smi, gen)
     mesh_launches = {k: v for k, v in mesh_runs.items() if k.startswith("mesh_")
                      and k not in ("mesh_profile", "mesh_tokens_per_s", "mesh_local")}
+    sp = phase_sp_training(dev, smi)
+    sp_launches = {k: v for k, v in sp["launches"].items() if not k.endswith("_profile")}
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -3879,13 +4289,17 @@ def main() -> None:
             k["max_abs_err"] = max(k["max_abs_err"], k["verify_max_abs_err"])
     for k in kernels:  # the quantized, cache-kind, spec, chunked and prefix runs' launches
         for path, counts in {**quant_runs, **cache_runs, **spec_runs, **chunk_runs,
-                             **mesh_launches}.items():
+                             **mesh_launches, **sp_launches}.items():
             if k["name"] in counts:
                 k["launches_by_path"][path] = counts[k["name"]]
     for k in kernels:  # the kernels at one mesh rank's shapes (phase 26)
         if k["name"] in mesh_runs["mesh_local"]:
             k["mesh_rank"] = mesh_runs["mesh_local"][k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], k["mesh_rank"]["max_abs_err"])
+    for k in kernels:  # B1-B3 at the SP shard shapes with global offsets (phase 27)
+        if k["name"] in sp["errs"]:
+            k["sp_cases"] = sp["times"][k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], sp["errs"][k["name"]])
     for k in kernels:  # launches: every path's run together
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))

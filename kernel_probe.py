@@ -6,12 +6,13 @@ the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu) and the decode
 kernels (B13-B16, one body in csrc/cache_decode.cu, its int4 instance in
 decode4 and its int8 one in decode8), the Q/K/V quantizer (B4, quant) and
 the tangent's exact mode (B10, jvp_tangent, also a numerics witness); and
-two numerics witnesses, bwd_exact and fwd_fp32.
+three numerics witnesses, bwd_exact, fwd_fp32 and flash_digest (B1-B3's
+outputs at zero offsets hashed here and in a parent checkout).
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                             [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
-                            [quant] [jvp_tangent] [PARENT_CHECKOUT]  (all parts without
-                            arguments)
+                            [quant] [jvp_tangent] [flash_digest] [PARENT_CHECKOUT]  (all
+                            parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -685,7 +686,7 @@ def _fwd_call(lib, q, k, v, o, lse):
     bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t)
     status = lib.qa_flash_fwd(q.data_ptr(), *tfwd._strides(q), 0, k.data_ptr(), *tfwd._strides(k),
                               v.data_ptr(), *tfwd._strides(v), o.data_ptr(), lse.data_ptr(), b,
-                              h_kv, h // h_kv, t, s, bq, 1, 0.125 * 1.44269504,
+                              h_kv, h // h_kv, t, s, bq, 1, 0, 0, 0.125 * 1.44269504,
                               torch.cuda.current_stream().cuda_stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
@@ -731,7 +732,7 @@ FBWD_SHAPES = [(4, 16, 16, 2048), (2, 16, 4, 2048)]  # (b, h, h_kv, t = s), caus
 _B2_EXP = "      p[e] = exp2_ftz(st[4 * n + e] - ((e & 1) ? l2.y : l2.x));"
 _B3_EXP = "      float p = exp2_ftz(sc[4 * n + e] - lse_r[h]);"
 _B2_COMPUTE = "    if (q0 + TILE > t || kw0 + 64 > s"
-_B3_COMPUTE = "    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0))"
+_B3_COMPUTE = "    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0 + diag))"
 _B2_LATE = "    {  // dV += P^T dO"
 _B3_LATE = "    {  // dQ += dS K"
 FBWD_VARIANTS = {
@@ -787,12 +788,12 @@ def _fbwd_call(lib, ops, kernel):
         dk = torch.empty((bh_kv, s, 64), dtype=torch.float32, device=dev)
         dv = torch.empty_like(dk)
         status = lib.qa_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), bh_kv, rep, t, s, ld,
-                                      int(ops.causal), 1, 1.0 / ops.qk_scale, 1.0 / ops.sm_scale,
-                                      stream)
+                                      int(ops.causal), ops.q_offset, ops.k_offset, 1,
+                                      1.0 / ops.qk_scale, 1.0 / ops.sm_scale, stream)
     else:
         dq = torch.empty((bh_kv, rep, t, 64), dtype=torch.float32, device=dev)
         status = lib.qa_flash_bwd_dq(*ptrs, dq.data_ptr(), bh_kv, rep, t, s, ld, bq,
-                                     int(ops.causal), 1, stream)
+                                     int(ops.causal), ops.q_offset, ops.k_offset, 1, stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
 
@@ -1558,6 +1559,58 @@ def _d8_errors(tree) -> str:
     return proc.stdout.strip()
 
 
+# --------------------------------------------------------------------------
+# B1-B3 at zero offsets: the same bits as a parent checkout
+# --------------------------------------------------------------------------
+
+# run in a checkout's root: one SHA-256 over B1's O and lse (f32 and bf16
+# inputs) at chip_smoke.py phase 3's cases and B2/B3's dq, dk, dv (fast and
+# exact, on B1's O and lse) at phase 6's, each case's inputs from its own seed
+_FLASH_DIGEST = r"""
+import hashlib, torch
+import chip_smoke as cs
+from quantizedattention_tpu_torch.ops.flash_bwd import flash_attention_bwd
+from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
+h, n = hashlib.sha256(), 0
+fwd = cs.FLASH_CASES + cs.FLASH_EDGE_CASES
+bwd = cs.FLASH_CASES + cs.BWD_EDGE_CASES + cs.BWD_TILE_CASES
+for i, (b, hq, hk, t, s, causal) in enumerate(fwd + bwd):
+    g = torch.Generator(device="cuda").manual_seed(1000 + i)
+    q, k, v, do = cs._qkvdo(g, torch.device("cuda"), b, hq, hk, t, s)
+    if i < len(fwd):
+        outs = [*flash_attention_fwd(q, k, v, causal=causal),
+                *flash_attention_fwd(*(x.to(torch.bfloat16) for x in (q, k, v)), causal=causal)]
+    else:
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        outs = [o, lse] + [x for fast in (True, False)
+                           for x in flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                        fast=fast)]
+    for x in outs:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    n += 1
+print(f"{n} cases ({len(fwd)} forward, {len(bwd)} backward), sha256 {h.hexdigest()}")
+"""
+
+
+def probe_flash_digest(smi, parent=None) -> None:
+    """One digest of B1's and B2/B3's outputs at zero offsets over chip_smoke.py
+    phase 3's and 6's cases, in the parent checkout (if given) and here: equal
+    digests are the same bits."""
+    digests = {}
+    for tree in ([parent] if parent else []) + ["."]:
+        proc = subprocess.run([sys.executable, "-c", _FLASH_DIGEST], cwd=os.path.abspath(tree),
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(f"kernel_probe: the digest failed in {tree}:\n{proc.stderr[-3000:]}")
+        digests[os.path.abspath(tree)] = proc.stdout.strip().splitlines()[-1]
+        print(f"[digest] B1-B3 at zero offsets, {os.path.abspath(tree)}: "
+              f"{digests[os.path.abspath(tree)]} ({smi})", flush=True)
+    if parent:
+        same = len(set(digests.values())) == 1
+        print(f"[digest] parent and this checkout: {'the same bits' if same else 'DIFFERENT'}",
+              flush=True)
+
+
 def probe_decode8(smi, parent=None) -> None:
     """B13's knock-outs and its 128-token-chunk variant (on bf16 q), B13 on
     f32 q (rounded in the kernel), B14, and the whole wrapper call, timed at
@@ -1839,7 +1892,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
-             "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent"]
+             "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent", "flash_digest"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -1873,6 +1926,8 @@ def main() -> None:
         probe_quant(smi, dirs[0] if dirs else None)
     if "jvp_tangent" in parts:
         probe_jvp_tangent(smi, dirs[0] if dirs else None)
+    if "flash_digest" in parts:
+        probe_flash_digest(smi, dirs[0] if dirs else None)
 
 
 

@@ -7,7 +7,10 @@
 // forward's exp2-domain lse; dV += P^T dO; dP = dO V^T; dS = P (dP - D) with
 // D = rowsum(dO o O) and the UNROUNDED f32 P; dK += dS^T Q; dQ += dS K. dK and
 // dV are scaled back by 1/qk_scale and 1/sm_scale at the end. Masked logits
-// (causal k <= q, keys past s) and rows past t give P = 0 exactly.
+// (causal k <= q on global positions, k + k_offset <= q + q_offset; keys past
+// s) and rows past t give P = 0 exactly, and so does a row that saw no key
+// (lse -inf: the prep hands it to the kernels as +inf). The fast kernels take
+// the offsets as diag = q_offset - k_offset; exact mode takes none.
 //
 // Two modes, one C entry per kernel:
 //   fast  - bf16 products with f32 accumulation, the operands rounded to bf16
@@ -124,7 +127,7 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], int n, const float (
 template <bool MASK>
 __device__ __forceinline__ void dkv_p_ds(const float (&st)[ACC], const float (&dpt)[ACC],
                                          const float* rw, int q0, int cq, const int (&key)[2],
-                                         int s, int t, int causal, uint32_t (&pa)[4][4],
+                                         int s, int t, int causal, int diag, uint32_t (&pa)[4][4],
                                          uint32_t (&da)[4][4]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -136,7 +139,7 @@ __device__ __forceinline__ void dkv_p_ds(const float (&st)[ACC], const float (&d
       p[e] = exp2_ftz(st[4 * n + e] - ((e & 1) ? l2.y : l2.x));
       if (MASK) {
         const int pos = q0 + 8 * n + cq + (e & 1), k = key[e / 2];
-        p[e] = k < s && pos < t && (!causal || k <= pos) ? p[e] : 0.f;
+        p[e] = k < s && pos < t && (!causal || k <= pos + diag) ? p[e] : 0.f;
       }
       ds[e] = p[e] * (dpt[4 * n + e] - ((e & 1) ? d2.y : d2.x));
     }
@@ -153,7 +156,7 @@ __device__ __forceinline__ void dkv_p_ds(const float (&st)[ACC], const float (&d
 template <bool MASK>
 __device__ __forceinline__ void dq_ds(const float (&sc)[ACC], const float (&dp)[ACC],
                                       const float (&lse_r)[2], const float (&di_r)[2], int k0,
-                                      int cq, const int (&pos)[2], int s, int causal,
+                                      int cq, const int (&pos)[2], int s, int causal, int diag,
                                       uint32_t (&dsa)[4][4]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -164,7 +167,7 @@ __device__ __forceinline__ void dq_ds(const float (&sc)[ACC], const float (&dp)[
       float p = exp2_ftz(sc[4 * n + e] - lse_r[h]);
       if (MASK) {
         const int col = k0 + 8 * n + cq + (e & 1);
-        p = col < s && (!causal || col <= pos[h]) ? p : 0.f;
+        p = col < s && (!causal || col <= pos[h] + diag) ? p : 0.f;
       }
       ds[e] = p * (dp[4 * n + e] - di_r[h]);
     }
@@ -190,7 +193,7 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
                 const __grid_constant__ CUtensorMap di_map,   // the same for D
                 float* __restrict__ dk,                       // [bh_kv, s, D]
                 float* __restrict__ dv,                       // [bh_kv, s, D]
-                int rep, int t, int s, int causal, float dk_scale, float dv_scale) {
+                int rep, int t, int s, int causal, int diag, float dk_scale, float dv_scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
@@ -204,8 +207,10 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * DKV_KEYS;  // key tile 0, which sees the most q tiles, first
   const int n_qt = (t + TILE - 1) / TILE;
-  // Causal: q tiles wholly before the key tile see none of its keys.
-  const int j0 = causal ? min(k0 / TILE, n_qt) : 0;
+  // Causal: q tiles wholly before the key tile's first key, moved by diag =
+  // q_offset - k_offset, see none of its keys (a block that no q tile sees
+  // writes dK = dV = 0).
+  const int j0 = causal ? min(max(0, k0 - diag) / TILE, n_qt) : 0;
   const int per_head = n_qt - j0;
   const int n_tiles = rep * per_head;  // tile i: q head i / per_head, q tile j0 + i % per_head
 
@@ -290,10 +295,10 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
     const float* rw = reinterpret_cast<const float*>(smem + DKV_OFF_ROWS + st * 2 * ROW_BYTES);
     // masking only where the tile reaches past t or s or the diagonal (a
     // warpgroup whose keys all lie past a causal tile gets P = 0)
-    if (q0 + TILE > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))
-      dkv_p_ds<true>(st_acc, dpt, rw, q0, cq, key, s, t, causal, pa, da);
+    if (q0 + TILE > t || kw0 + 64 > s || (causal && q0 + diag < kw0 + 63))
+      dkv_p_ds<true>(st_acc, dpt, rw, q0, cq, key, s, t, causal, diag, pa, da);
     else
-      dkv_p_ds<false>(st_acc, dpt, rw, q0, cq, key, s, t, causal, pa, da);
+      dkv_p_ds<false>(st_acc, dpt, rw, q0, cq, key, s, t, causal, diag, pa, da);
     reg_fence(pa);
     reg_fence(da);
     {  // dV += P^T dO, dK += dS^T Q (both B MN-major: 16 q rows = 2048 bytes a k-step)
@@ -341,7 +346,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
                const float* __restrict__ lse,              // [bh_kv * rep, ld]
                const float* __restrict__ di,               // [bh_kv * rep, ld]
                float* __restrict__ dq,                     // [bh_kv * rep, t, D]
-               int rep, int t, int s, int ld, int bq, int causal) {
+               int rep, int t, int s, int ld, int bq, int causal, int diag) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -353,9 +358,10 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;  // the last rows (the most key tiles) first
-  // Causal: keys past the block's last query position (below t) are never
-  // visible.
-  const int kv_hi = causal ? min(s, min(t, q0 + bq)) : s;
+  // Causal: keys past the block's last query position (below t), moved by
+  // diag = q_offset - k_offset, are never visible (none at all: no key tile,
+  // dQ = 0).
+  const int kv_hi = causal ? max(0, min(s, min(t, q0 + bq) + diag)) : s;
   const int n_tiles = (kv_hi + TILE - 1) / TILE;
 
   init_ring(bars, released, DQ_STAGES);
@@ -437,7 +443,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
   // A tile's K and V are waited for while no product is in flight (tile 0
   // here, tile j + 1 before tile j's dQ): a wait's trap path with a product's
   // registers live makes ptxas inject a warpgroup.wait there (C7517).
-  mbar_wait(full(0), 0);
+  if (n_tiles > 0) mbar_wait(full(0), 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % DQ_STAGES;
     const int k0 = j * TILE;
@@ -466,10 +472,10 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
     reg_fence(dq_acc);
     reg_fence(dsa);
     // masking only where the tile reaches past s or the diagonal
-    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0))
-      dq_ds<true>(sc, dp, lse_r, di_r, k0, cq, pos, s, causal, dsa);
+    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0 + diag))
+      dq_ds<true>(sc, dp, lse_r, di_r, k0, cq, pos, s, causal, diag, dsa);
     else
-      dq_ds<false>(sc, dp, lse_r, di_r, k0, cq, pos, s, causal, dsa);
+      dq_ds<false>(sc, dp, lse_r, di_r, k0, cq, pos, s, causal, diag, dsa);
     if (j + 1 < n_tiles) mbar_wait(full((j + 1) % DQ_STAGES), ((j + 1) / DQ_STAGES) & 1);
     reg_fence(dsa);
     {  // dQ += dS K (B = the K tile, MN-major)
@@ -592,7 +598,10 @@ bwd_prep_kernel(Rows q, Rows dout, Rows o, const float* __restrict__ lse,  // ls
       reinterpret_cast<uint4*>(dos)[row * (D / 8) + c8] = pack8(xd);
       if (c8 == 0) {
         di[static_cast<size_t>(bh) * ld + tok] = part;
-        lse_out[static_cast<size_t>(bh) * ld + tok] = lse[row];
+        // a row that saw no key (lse -inf, O = 0) goes in as +inf, so that
+        // P = exp2(S - lse) is 0 for it in both kernels
+        const float l = lse[row];
+        lse_out[static_cast<size_t>(bh) * ld + tok] = l == -INFINITY ? INFINITY : l;
       }
     }
   }
@@ -869,16 +878,20 @@ extern "C" int qa_flash_bwd_prep(const void* q, long long q_sb, long long q_sh, 
 
 // B2: dK, dV [bh_kv, s, D] f32. q/dout [bh_kv, rep, t, D], k/v [bh_kv, s, D]
 // (contiguous): bf16 when fast, else f32; lse/di [bh_kv * rep, ld] f32 (fast:
-// ld a multiple of 4, at least t; exact: ld == t).
+// ld a multiple of 4, at least t; exact: ld == t). Causal masking on global
+// positions q_offset + i, k_offset + j (fast mode; exact mode only with
+// q_offset == k_offset).
 extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* di, void* dk, void* dv, int bh_kv,
-                                int rep, int t, int s, int ld, int causal, int fast,
-                                float dk_scale, float dv_scale, void* stream) {
+                                int rep, int t, int s, int ld, int causal, int q_offset,
+                                int k_offset, int fast, float dk_scale, float dv_scale,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t)
+  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!fast) {
-    if (ld != t) return static_cast<int>(cudaErrorInvalidValue);
+  if (!fast) {  // exact mode takes no offsets
+    if (ld != t || (causal && q_offset != k_offset))
+      return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((s + TE - 1) / TE, bh_kv);
     dkv_kernel_f32<<<grid, THREADS_E, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -901,20 +914,23 @@ extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, con
   const dim3 grid(bh_kv, n_kt);
   dkv_kernel_bf16<<<grid, THREADS, DKV_SMEM, st>>>(q_map, do_map, k_map, v_map, lse_map, di_map,
                                                    static_cast<float*>(dk), static_cast<float*>(dv),
-                                                   rep, t, s, causal, dk_scale, dv_scale);
+                                                   rep, t, s, causal, q_offset - k_offset,
+                                                   dk_scale, dv_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B3: dQ [bh_kv, rep, t, D] f32, same inputs as B2; bq query positions a fast
-// block (rep * bq <= 128).
+// block (rep * bq <= 128), offsets as B2's.
 extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* di, void* dq, int bh_kv, int rep,
-                               int t, int s, int ld, int bq, int causal, int fast, void* stream) {
+                               int t, int s, int ld, int bq, int causal, int q_offset,
+                               int k_offset, int fast, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t)
+  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!fast) {
-    if (ld != t || static_cast<long long>(bh_kv) * rep > 65535)
+  if (!fast) {  // exact mode takes no offsets
+    if (ld != t || static_cast<long long>(bh_kv) * rep > 65535 ||
+        (causal && q_offset != k_offset))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((t + TE - 1) / TE, bh_kv * rep);
     dq_kernel_f32<<<grid, THREADS_E, 0, st>>>(
@@ -935,6 +951,6 @@ extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   dq_kernel_bf16<<<grid, THREADS, DQ_SMEM, st>>>(
       k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dq), rep,
-      t, s, ld, bq, causal);
+      t, s, ld, bq, causal, q_offset - k_offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,13 @@
 // Replaces the TPU kernel quantizedattention_tpu/ops/flash_fwd.py:_fwd_kernel
 // (the Pallas online-softmax forward). Same numerics: Q is pre-scaled by
 // sm_scale*log2(e) in f32 and rounded to bf16, K and V are bf16, S = Q K^T
-// accumulates in f32, masked logits are MASK_VALUE (causal k <= q plus keys
-// past s), the row max carries +EPS_BIAS, P = exp2(S - m) is rounded to bf16
-// before BOTH the PV product and the row sum l, and rows with l == 0 give O =
-// 0. Outputs O f32 and the exp2-domain lse = m + log2(l).
+// accumulates in f32, masked logits are MASK_VALUE (causal k <= q on global
+// positions, k + k_offset <= q + q_offset, plus keys past s), the row max
+// carries +EPS_BIAS, P = exp2(S - m) is rounded to bf16 before BOTH the PV
+// product and the row sum l, and rows with l == 0 give O = 0. Outputs O f32
+// and the exp2-domain lse = m + log2(l). A row that sees no key at all (q_offset
+// < k_offset) gives O = 0 and lse = -inf; the TPU kernel gives a row inside a
+// live tile MASK_VALUE + log2(s) and the mean of its V (ROADMAP.md §C).
 //
 // What bounds it on this card: at (4,16,2048,64), causal, the two products
 // over 134 M visible (q, k) pairs are 34.4 GFLOP of bf16, 0.035 ms on the
@@ -51,7 +54,9 @@
 //     warpgroups take turns issuing their products (named barriers): that
 //     helped the serving shape a little and slowed the longer ones.
 //   - Causal blocks stop at their last visible key tile; only the tiles that
-//     reach past s or past the block's first position take the mask.
+//     reach past s or past the block's first position take the mask. The
+//     global offsets enter as diag = q_offset - k_offset, which moves the
+//     last tile and the masked ones, never the products each step issues.
 //   - The epilogue stages O / l through shared memory and writes it with
 //     16-byte stores; rows past t and dead rows store nothing.
 // f32 K and V are cast to bf16 by one launch of kv_to_bf16_kernel before
@@ -129,14 +134,15 @@ static_assert(KV_STAGES * (8 + 4) <= 128, "the barriers and release counters fit
 template <bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[8][4], float (&m)[2],
                                              float (&alpha)[2], int k0, int cq,
-                                             const int (&pos)[2], int s_len, int causal) {
+                                             const int (&pos)[2], int s_len, int causal,
+                                             int diag) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int h = (i % 4) / 2;
     if (MASK) {
       const int col = k0 + (i / 4) * 8 + cq + (i & 1);
-      if (!(col < s_len && (!causal || col <= pos[h]))) s[i] = MASK_VALUE;
+      if (!(col < s_len && (!causal || col <= pos[h] + diag))) s[i] = MASK_VALUE;
     }
     mx[h] = fmaxf(mx[h], s[i]);
   }
@@ -175,7 +181,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
                  long long q_sb, long long q_sh, long long q_st, int q_f32,
                  float* __restrict__ o,    // [b, h, t, D]
                  float* __restrict__ lse,  // [b, h, t]
-                 int h_kv, int rep, int t, int s, int bq, int causal, float qk_scale) {
+                 int h_kv, int rep, int t, int s, int bq, int causal, int diag,
+                 float qk_scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
@@ -187,8 +194,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   const int bh = blockIdx.x;
   const int batch = bh / h_kv, kvh = bh % h_kv;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;  // the last q tile (most key tiles) first
-  // Causal: keys past the block's last query position below t are never visible.
-  const int kv_hi = causal ? min(s, min(t, q0 + bq)) : s;
+  // Causal: a key is visible where key + k_offset <= position + q_offset, so
+  // keys past the block's last query position below t, moved by diag =
+  // q_offset - k_offset, are never visible (none at all: no key tile).
+  const int kv_hi = causal ? max(0, min(s, min(t, q0 + bq) + diag)) : s;
   const int n_tiles = (kv_hi + BN - 1) / BN;
 
   if (tid == 0) {
@@ -291,7 +300,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   int pos[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) pos[h] = q0 + (ra + 8 * h) % bq;
-  auto edge = [&](int j) { return j * BN + BN > s || (causal && j * BN + BN - 1 > q0); };
+  auto edge = [&](int j) {
+    return j * BN + BN > s || (causal && j * BN + BN - 1 > q0 + diag);
+  };
 
   const uint64_t desc_q = desc_kmajor_sw128(base + OFF_Q + wg * 64 * ROW);
   const uint64_t desc_ones = desc_interleave(base + OFF_ONES);
@@ -368,9 +379,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
 #pragma unroll
         for (int e = 0; e < 4; ++e) p_cur[kk][e] = 0u;
     } else if (edge(j)) {
-      softmax_tile<true>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal);
+      softmax_tile<true>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
     } else {
-      softmax_tile<false>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal);
+      softmax_tile<false>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
     }
     wgmma_wait<0>();
     reg_fence(acc);
@@ -388,8 +399,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
     step(j, true, p_b, p_a);
     step(j + 1, j + 1 < n_tiles, p_a, p_b);
   }
-  {  // tile n_tiles - 1's PV (or, n_tiles odd, P = 0)
-    uint64_t dk = 0, dv = desc_v(n_tiles - 1);
+  {  // tile n_tiles - 1's PV (or, n_tiles odd or 0, P = 0)
+    uint64_t dk = 0, dv = desc_v(max(n_tiles - 1, 0));
     fence_operands(p_b, dk, dv);
     mma_pv(dv, p_b);
     wgmma_commit();
@@ -399,19 +410,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   reg_fence(ls);
 
   // Epilogue: O = acc / l (l == 0 -> 1) staged in shared memory by rows, then
-  // 16-byte stores; lse = m + log2(l).
+  // 16-byte stores; lse = m + log2(l). A row that sees no key (causal, its
+  // position + diag < 0: every logit was MASK_VALUE, or the block had no key
+  // tile) gets O = 0 and lse = -inf, whatever its accumulators hold.
   float* o_s = reinterpret_cast<float*>(smem + OFF_O);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
+    const bool empty = causal && pos[h] + diag < 0;
     const float l = ls[2 * h];
     const float l_safe = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(o_s + r * O_LD + 8 * n + cq) =
-          make_float2(acc[4 * n + 2 * h] / l_safe, acc[4 * n + 2 * h + 1] / l_safe);
+          empty ? make_float2(0.f, 0.f)
+                : make_float2(acc[4 * n + 2 * h] / l_safe, acc[4 * n + 2 * h + 1] / l_safe);
     if (lane % 4 == 0 && r < rows && pos[h] < t)
-      lse[(static_cast<size_t>(bh) * rep + r / bq) * t + pos[h]] = m[h] + log2f(l_safe);
+      lse[(static_cast<size_t>(bh) * rep + r / bq) * t + pos[h]] =
+          empty ? -INFINITY : m[h] + log2f(l_safe);
   }
   named_barrier(2 + wg, 128);
   for (int c = tid % 128; c < 64 * (D / 4); c += 128) {
@@ -827,14 +843,18 @@ extern "C" int qa_flash_kv_to_bf16(const void* k, long long k_sb, long long k_sh
 // bf16 mode: q [b, h, t, 64] f32 (q_f32) or bf16, k/v [b, h_kv, s, 64] bf16,
 // each with its strides in elements (rows contiguous; pointers and strides
 // 16-byte aligned) -> O [b, h, t, 64], lse [b, h, t] f32 (contiguous); h =
-// h_kv * rep, bq query positions a block (rep * bq <= 128).
+// h_kv * rep, bq query positions a block (rep * bq <= 128). Causal masking
+// is on global positions: query i sits at q_offset + i, key j at k_offset + j
+// (both >= 0; a sequence shard's first token).
 extern "C" int qa_flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st,
                             int q_f32, const void* k, long long k_sb, long long k_sh,
                             long long k_st, const void* v, long long v_sb, long long v_sh,
                             long long v_st, void* o, void* lse, int b, int h_kv, int rep, int t,
-                            int s, int bq, int causal, float qk_scale, void* stream) {
+                            int s, int bq, int causal, int q_offset, int k_offset,
+                            float qk_scale, void* stream) {
   const int n_qt = bq < 1 ? 0 : (t + bq - 1) / bq;
   if (bq < 1 || rep < 1 || rep * bq > BM || t < 1 || s < 1 || b < 1 || h_kv < 1 ||
+      q_offset < 0 || k_offset < 0 ||
       static_cast<long long>(b) * h_kv > 65535 || n_qt > 65535 || !aligned16(q) ||
       !strides16(q_f32 ? 4 : 2, q_sb, q_sh, q_st) || !aligned16(k) || !aligned16(v) ||
       !strides16(2, k_sb, k_sh, k_st) || !strides16(2, v_sb, v_sh, v_st))
@@ -853,6 +873,6 @@ extern "C" int qa_flash_fwd(const void* q, long long q_sb, long long q_sh, long 
   const dim3 grid(b * h_kv, n_qt);
   flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       k_map, v_map, q, q_sb, q_sh, q_st, q_f32, static_cast<float*>(o), static_cast<float*>(lse),
-      h_kv, rep, t, s, bq, causal, qk_scale);
+      h_kv, rep, t, s, bq, causal, q_offset - k_offset, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }

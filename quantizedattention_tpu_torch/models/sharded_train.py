@@ -1,9 +1,9 @@
-"""The Megatron parameter layout over the (data, model, context) mesh.
+"""Multi-rank training step: data x model x sequence parallelism over a
+(data, model, context) mesh, and the Megatron parameter layout it runs on.
 
-Counterpart of the layout half of quantizedattention_tpu/models/
-sharded_train.py (`param_specs`); its sharded train step comes with the
-training slice. A spec is a tuple naming, for each leading dim, the mesh
-axis it splits over (None: replicated), as a JAX PartitionSpec does:
+Counterpart of quantizedattention_tpu/models/sharded_train.py. A spec is a
+tuple naming, for each leading dim, the mesh axis it splits over (None:
+replicated), as a JAX PartitionSpec does:
 
   wq, wk, wv, w1  [D, out]   columns on model (heads, MLP hidden)
   wo, w2          [in, D]    contraction on model: a psum follows them
@@ -11,14 +11,46 @@ axis it splits over (None: replicated), as a JAX PartitionSpec does:
 
 `shard_params` cuts a full parameter tree to this rank's shard, the
 counterpart of `jax.device_put` with NamedShardings.
+
+The train step (`make_sharded_train_step`) is the JAX step in the
+multi-controller idiom: every rank runs it on its own parameter shards and
+its own (data, context) block of tokens, and meets the others in
+collectives. The batch splits over data, heads and the MLP hidden over
+model, the sequence over context: attention crosses the context axis by the
+chosen strategy (parallel/ring.py, collective.py, ulysses.py, zigzag.py),
+RoPE takes each token's global position, and the loss is the global mean.
+What JAX's transposes give its gradients, explicit here:
+- the psum over model after wo and w2 is the identity going back
+  (`_ReduceFromModel`), and the gradient reaching the column-parallel input
+  (the normed h before wq/wk/wv and w1) is summed over model
+  (`_CopyToModel`), so every model rank holds the whole gradient of the
+  replicated activations and parameters;
+- the loss is each rank's token sum over the global token count, and every
+  parameter's gradient is summed over data and context (one flat buffer,
+  one all_reduce an axis);
+- the attention strategies carry their own transposes (all_gather ->
+  psum_scatter, all_to_all -> the reverse all_to_all, the ring's dK/dV
+  home by rotation).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from quantizedattention_tpu_torch.models.transformer import TransformerConfig
-from quantizedattention_tpu_torch.parallel.mesh import axis_size, shard_tensor
+import torch
+
+from quantizedattention_tpu_torch.models.transformer import (
+    TransformerConfig,
+    param_leaves,
+    transformer_forward,
+)
+from quantizedattention_tpu_torch.parallel.mesh import (
+    all_gather,
+    axis_index,
+    axis_size,
+    psum,
+    shard_tensor,
+)
 from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -91,3 +123,195 @@ def shard_params(params: dict, cfg: TransformerConfig, mesh, weight_quant: str |
         specs = quantize_lm_specs(specs)
     local_config(cfg, mesh)  # the heads must split
     return shard_tree(params, specs, mesh)
+
+
+# --------------------------------------------------------------------------
+# The train step
+# --------------------------------------------------------------------------
+
+STRATEGIES = ("ring", "allgather", "ulysses", "zigzag")
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over model (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous().clone(), ctx.mesh, "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """psum over model forward; the identity going back (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return psum(x.contiguous().clone(), mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _attend(q, k, v, mesh, attention: str, attention_sp: str):
+    """Causal attention of this rank's shards across the context axis."""
+    from quantizedattention_tpu_torch.parallel.collective import (
+        allgather_kv_attention,
+        allgather_kv_attention_int8,
+    )
+    from quantizedattention_tpu_torch.parallel.ring import ring_attention
+    from quantizedattention_tpu_torch.parallel.ulysses import ulysses_attention
+    from quantizedattention_tpu_torch.parallel.zigzag import (
+        zigzag_ring_attention,
+        zigzag_ring_attention_int8,
+    )
+
+    if attention_sp == "ring":
+        return ring_attention(q, k, v, mesh, "context", causal=True, kind=attention)
+    if attention_sp == "ulysses":
+        return ulysses_attention(q, k, v, mesh, "context", causal=True, kind=attention)
+    if attention_sp == "zigzag":
+        zz = zigzag_ring_attention_int8 if attention == "int8" else zigzag_ring_attention
+        return zz(q, k, v, mesh, "context")
+    if attention == "int8":
+        return allgather_kv_attention_int8(q, k, v, mesh, "context", causal=True)
+    return allgather_kv_attention(q, k, v, mesh, "context", causal=True)
+
+
+def _sharded_forward(params, tokens, cfg: TransformerConfig, mesh, attention: str = "bf16",
+                     attention_sp: str = "ring"):
+    """This rank's forward on its shards (JAX sharded_train.py:52-113):
+    params from `shard_params`, tokens [B_loc, T_loc] (under zigzag the
+    rank's block of the permuted sequence). Returns logits [B_loc, T_loc,
+    vocab]."""
+    from quantizedattention_tpu_torch.parallel.zigzag import zigzag_local_positions
+
+    n_model = axis_size(mesh, "model")
+    n_ctx, ctx_idx = axis_size(mesh, "context"), axis_index(mesh, "context")
+    lcfg = local_config(cfg, mesh)
+    t_loc = tokens.shape[1]
+    if attention_sp == "zigzag":
+        positions = zigzag_local_positions(ctx_idx, n_ctx, t_loc, device=tokens.device)
+    else:
+        positions = ctx_idx * t_loc + torch.arange(t_loc, device=tokens.device)
+
+    def to_model(h):
+        return _CopyToModel.apply(h, mesh) if n_model > 1 else h
+
+    def from_model(y):
+        return _ReduceFromModel.apply(y, mesh) if n_model > 1 else y
+
+    def attend(q, k, v):
+        return _attend(q, k, v, mesh, attention, attention_sp)
+
+    return transformer_forward(params, tokens, lcfg, attend, positions, from_model, to_model)
+
+
+def _psum_grads(leaves, mesh) -> None:
+    """Every leaf's gradient summed over data and context, in place: one flat
+    buffer, one all_reduce an axis of size > 1."""
+    axes = [a for a in ("data", "context") if axis_size(mesh, a) > 1]
+    if not axes:
+        return
+    grads = [t.grad for t in leaves]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    for a in axes:
+        psum(flat, mesh, a)
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+
+
+def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None,
+                            attention: str = "bf16", attention_sp: str = "auto"):
+    """(optimizer, step) with step(tokens, targets) -> loss, the global mean
+    next-token cross entropy (a 0-d tensor, the same on every rank), in the
+    idiom of models/transformer.py:make_train_step.
+
+    params: this rank's shards (`shard_params(full, cfg, mesh)`); every
+    tensor is made a leaf that requires grad, and `step` updates them in
+    place. tokens/targets: this rank's ("data", "context") block [B / data,
+    T / context] of the global batch. The default optimizer is AdamW(3e-4,
+    betas (0.9, 0.999), eps 1e-8, weight decay 1e-4), as optax.adamw(3e-4);
+    a caller's must be built over `param_leaves(params)`.
+
+    attention: "bf16" or "int8". attention_sp: "ring" (contiguous shards,
+    ring hops), "allgather" (K/V all-gathered, dK/dV reduce-scattered home;
+    bf16 only: the int8 kernels take no offsets yet), "ulysses" (all-to-all
+    head <-> sequence; heads and kv heads per model shard divisible by the
+    context axis) or "zigzag" (the load-balanced causal ring; the step
+    gathers the sequence's tokens over context, permutes them by
+    `zigzag_perm` and takes this rank's block; the mean loss is
+    permutation-invariant). "auto" (the JAX default) raises
+    NotImplementedError: it needs parallel/scaling_model.py (ROADMAP A11).
+    """
+    n_model, n_ctx = axis_size(mesh, "model"), axis_size(mesh, "context")
+    if cfg.n_heads % n_model != 0:
+        raise ValueError("n_heads must divide the model axis")
+    if cfg.n_kv_heads % n_model != 0:
+        raise ValueError("n_kv_heads must divide the model axis")
+    if cfg.n_heads % cfg.n_kv_heads != 0:
+        raise ValueError("n_heads must be a multiple of n_kv_heads")
+    if attention not in ("bf16", "int8"):
+        raise ValueError(f"unknown attention kind {attention!r}")
+    if attention_sp == "auto":
+        raise NotImplementedError(
+            "attention_sp='auto' picks a strategy by parallel/scaling_model.py, which is not "
+            "ported (ROADMAP A11); pass 'ring', 'allgather', 'ulysses' or 'zigzag'")
+    if attention_sp not in STRATEGIES:
+        raise ValueError(f"unknown attention_sp {attention_sp!r}")
+    if attention_sp == "allgather" and attention == "int8":
+        from quantizedattention_tpu_torch.parallel.collective import _INT8_OFFSETS
+
+        raise NotImplementedError(f"attention='int8' with attention_sp='allgather': "
+                                  f"{_INT8_OFFSETS}")
+    h_loc, kv_loc = cfg.n_heads // n_model, cfg.n_kv_heads // n_model
+    if attention_sp == "ulysses" and (h_loc % n_ctx or kv_loc % n_ctx):
+        raise ValueError(
+            f"attention_sp='ulysses' needs per-shard head counts divisible "
+            f"by the context axis ({h_loc}/{kv_loc} heads, context={n_ctx})")
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    if optimizer is None:
+        optimizer = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=1e-4)
+
+    def step(tokens, targets):
+        b_loc, t_loc = tokens.shape
+        t = t_loc * n_ctx
+        if attention_sp == "zigzag":
+            if t % (2 * n_ctx):
+                raise ValueError(
+                    f"attention_sp='zigzag' cannot shard sequence length {t} over "
+                    f"context={n_ctx} (zigzag needs t % {2 * n_ctx} == 0) — pick a "
+                    f"compatible length or another strategy")
+            from quantizedattention_tpu_torch.parallel.zigzag import zigzag_perm
+
+            # the global sequence re-ordered so that contiguous context
+            # blocks hold zigzag (lo, hi) chunk pairs; targets move with
+            # their tokens
+            mine = zigzag_perm(n_ctx, t)[axis_index(mesh, "context") * t_loc:][:t_loc]
+            mine = mine.to(tokens.device)
+            tokens = all_gather(tokens.contiguous(), mesh, "context", 1)[:, mine]
+            targets = all_gather(targets.contiguous(), mesh, "context", 1)[:, mine]
+        optimizer.zero_grad(set_to_none=True)
+        logits = _sharded_forward(params, tokens, cfg, mesh, attention, attention_sp)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, targets.long()[..., None]).sum()
+        count = b_loc * t_loc * axis_size(mesh, "data") * n_ctx
+        loss = nll / count
+        loss.backward()
+        _psum_grads(leaves, mesh)
+        optimizer.step()
+        total = loss.detach().clone().reshape(1)
+        for a in ("data", "context"):
+            psum(total, mesh, a)
+        return total[0]
+
+    return optimizer, step

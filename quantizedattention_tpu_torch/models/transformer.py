@@ -182,11 +182,13 @@ def _no_psum(x):
     return x
 
 
-def _mlp_residual(layer, x, psum=_no_psum):
+def _mlp_residual(layer, x, psum=_no_psum, to_model=_no_psum):
     """x + MLP(x). `psum` sums the down projection's partial products over
     the mesh's model axis where w1/w2 are sharded on it (serve/engine.py's
-    mesh steps); on one device it is the identity."""
-    h = rmsnorm(x, layer["ln2"])
+    mesh steps, models/sharded_train.py); `to_model` marks the normed input
+    of the column-parallel w1 (the sharded train step sums its gradient over
+    model). On one device both are the identity."""
+    h = to_model(rmsnorm(x, layer["ln2"]))
     return x + psum(mm(F.gelu(mm(h, layer["w1"]), approximate="tanh"), layer["w2"]))
 
 
@@ -205,20 +207,30 @@ def _mlp_residual_per_position(layer, x, psum=_no_psum):
     return x + psum(torch.stack([mm(rows, layer["w2"]) for rows in by_position], dim=1))
 
 
-def _block(layer, x, cfg: TransformerConfig, positions):
-    h = rmsnorm(x, layer["ln1"])
+def _block(layer, x, cfg: TransformerConfig, positions, attention_fn=None, psum=_no_psum,
+           to_model=_no_psum):
+    h = to_model(rmsnorm(x, layer["ln1"]))
     q, k, v = _project_qkv(layer, h, cfg, positions)
-    o = _attention(q, k, v, cfg)
-    return _mlp_residual(layer, x + mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+    o = attention_fn(q, k, v) if attention_fn is not None else _attention(q, k, v, cfg)
+    x = x + psum(mm(_merge_heads(o, cfg, x.dtype), layer["wo"]))
+    return _mlp_residual(layer, x, psum, to_model)
 
 
-def transformer_forward(params, tokens, cfg: TransformerConfig):
+def transformer_forward(params, tokens, cfg: TransformerConfig, attention_fn=None,
+                        positions=None, psum=_no_psum, to_model=_no_psum):
     """tokens [B, T] -> logits [B, T, vocab] (the params' dtype).
-    Differentiable: gradients flow to every param that requires them."""
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    Differentiable: gradients flow to every param that requires them.
+
+    The hooks, for models/sharded_train.py's ranks (identities, and
+    `_attention` on positions 0..T-1, on one device): `attention_fn(q, k, v)`
+    in place of `_attention`, the tokens' global RoPE `positions`, `psum`
+    after the row-parallel wo and w2, `to_model` on the normed inputs of the
+    column-parallel wq/wk/wv and w1."""
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embedding_lookup(params["embed"], tokens)
     for layer in params["layers"]:
-        x = _block(layer, x, cfg, positions)
+        x = _block(layer, x, cfg, positions, attention_fn, psum, to_model)
     x = rmsnorm(x, params["final_norm"])
     return mm(x, params["unembed"])
 

@@ -32,6 +32,13 @@ the f32 D subtracted there before dS is rounded to f32: where dP - D cancels
 (one visible key, O = bf16(V)) an f32 sum's rounding would decide dS, and
 differently in the kernel and here.
 
+Causal masking is on global positions (flash_bwd.py:200-201): query i at
+q_offset + i, key j at k_offset + j, as in the forward. A row that saw no key
+(forward lse -inf, O = 0) gets zero gradients: the prep hands its lse to the
+kernels as +inf, so P = exp2(S - lse) is 0 for it. Only fast mode takes
+offsets on the card; exact mode's kernels raise ValueError on a causal call
+whose offsets differ (the plain versions take them in both modes).
+
 The fast kernels read lse and D as rows `flash_tiling.lse_row_stride(t)`
 floats apart (a 16-byte row start for TMA): `bwd_prep` writes them so, and
 the operands hand the plain versions [b*h_kv, rep, t] views of them. The
@@ -49,7 +56,12 @@ import torch
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import flash_tiling
 from quantizedattention_tpu_torch.ops.common import MASK_VALUE, qk_scales, tile_mask
-from quantizedattention_tpu_torch.ops.flash_fwd import _kernel_ready, _strides, kv_to_bf16
+from quantizedattention_tpu_torch.ops.flash_fwd import (
+    _check_offsets,
+    _kernel_ready,
+    _strides,
+    kv_to_bf16,
+)
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 _HEAD_DIM = 64  # the kernels' compiled head dim
@@ -68,15 +80,24 @@ class BwdOperands(NamedTuple):
     qk_scale: float
     causal: bool
     fast: bool
+    q_offset: int = 0  # global position of the first query (causal masking)
+    k_offset: int = 0  # global position of the first key
+
+
+def _kernel_lse(lse):
+    """The lse the kernels recompute P against: f32, with a row that saw no
+    key (-inf) as +inf, so that its P is 0."""
+    lse = lse.float()
+    return torch.where(lse == -torch.inf, torch.inf, lse)
 
 
 def bwd_prep_plain(q, o, do, lse, qk_scale: float, sm_scale: float):
     """Fast mode's q/dO/D prep in plain PyTorch: (q_s, dO_s) bf16 [b, h, t,
     d] with q_s = bf16(f32(q) * qk_scale) and dO_s = bf16(f32(dO) *
-    sm_scale), then lse and D = rowsum(f32(dO) * sm_scale * f32(O)), f32 [b,
-    h, t]."""
+    sm_scale), then lse (-inf as +inf) and D = rowsum(f32(dO) * sm_scale *
+    f32(O)), f32 [b, h, t]."""
     dos = do.float() * sm_scale
-    return ((q.float() * qk_scale).to(torch.bfloat16), dos.to(torch.bfloat16), lse.float(),
+    return ((q.float() * qk_scale).to(torch.bfloat16), dos.to(torch.bfloat16), _kernel_lse(lse),
             (dos * o.float()).sum(-1))
 
 
@@ -126,11 +147,13 @@ def _kv_bf16(k, v):
 
 
 def bwd_operands(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False,
-                 plain=False) -> BwdOperands:
+                 plain=False, q_offset=0, k_offset=0) -> BwdOperands:
     """Scale, round and lay out the residuals for the kernels (any strides
     in). Fast mode on CUDA tensors: one `bwd_prep` launch for q, dO and D
     and one `kv_to_bf16` launch for f32 K and V, unless `plain` (then torch
-    ops, as on the CPU)."""
+    ops, as on the CPU). q_offset/k_offset: host ints >= 0, as the
+    forward's."""
+    q_offset, k_offset = _check_offsets(q_offset, k_offset)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or o.shape != q.shape \
             or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"want q/o/do [b,h,t,d], k/v [b,h_kv,s,d], lse [b,h,t]; got q "
@@ -152,7 +175,7 @@ def bwd_operands(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False,
         kb, vb = _kv_bf16(k, v)
     else:
         dos = do.float() * sm_scale
-        qs, kb, vb, lse_r, di = q.float() * qk_scale, k.float(), v.float(), lse.float(), \
+        qs, kb, vb, lse_r, di = q.float() * qk_scale, k.float(), v.float(), _kernel_lse(lse), \
             (dos * o.float()).sum(-1)
 
     def heads(x):  # [b, h, t, ...] -> [b*h_kv, rep, t, ...]
@@ -169,6 +192,7 @@ def bwd_operands(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False,
     return BwdOperands(
         q=heads(qs).contiguous(), k=kv(kb), v=kv(vb), do=heads(dos).contiguous(), lse=rows[0],
         di=rows[1], sm_scale=sm_scale, qk_scale=qk_scale, causal=bool(causal), fast=bool(fast),
+        q_offset=q_offset, k_offset=k_offset,
     )
 
 
@@ -187,7 +211,8 @@ def _p_ds(ops: BwdOperands):
     qs, kf, vf, dos = ops.q.float(), ops.k.float()[:, None], ops.v.float()[:, None], ops.do.float()
     t, s = qs.shape[2], kf.shape[2]
     scores = qs @ kf.transpose(-1, -2)
-    mask = tile_mask(0, 0, t, s, s, ops.causal, device=qs.device)
+    mask = tile_mask(ops.q_offset, ops.k_offset, t, s, s, ops.causal, k_local_start=0,
+                     device=qs.device)
     p = torch.exp2(torch.where(mask, scores, MASK_VALUE) - ops.lse[..., None])
     if ops.fast:
         return p, p * (dos @ vf.transpose(-1, -2) - ops.di[..., None])
@@ -219,8 +244,8 @@ def _kernels():
     ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.qa_flash_bwd_prep.argtypes = [ptr, i64, i64, i64, i32] * 3 + [ptr] * 5 + [i32] * 4 \
         + [f32, f32, ptr]
-    lib.qa_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 7 + [f32, f32, ptr]
-    lib.qa_flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.qa_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
+    lib.qa_flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
     for fn in (lib.qa_flash_bwd_prep, lib.qa_flash_bwd_dkv, lib.qa_flash_bwd_dq):
         fn.restype = ctypes.c_int
     return lib
@@ -245,6 +270,9 @@ def _launch_args(ops: BwdOperands):
         bq = flash_tiling.bwd_grids(bh_kv, rep, t, s)[0]
     elif bh_kv * rep > 65535:
         raise ValueError(f"exact kernels take b*h <= 65535; got {bh_kv * rep}")
+    elif ops.causal and ops.q_offset != ops.k_offset:
+        raise ValueError("exact kernels take no global offsets (q_offset "
+                         f"{ops.q_offset} != k_offset {ops.k_offset}); use fast mode")
     want = torch.bfloat16 if ops.fast else torch.float32
     if any(x.dtype != want for x in (ops.q, ops.k, ops.v, ops.do)):
         raise ValueError(f"fast={ops.fast} kernels take {want} q/k/v/do (see bwd_operands)")
@@ -272,7 +300,8 @@ def flash_bwd_dkv(ops: BwdOperands):
     status = _kernels().qa_flash_bwd_dkv(
         ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(), ops.do.data_ptr(),
         ops.lse.data_ptr(), ops.di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh_kv, rep, t, s, ld, int(ops.causal), int(ops.fast), 1.0 / ops.qk_scale,
+        bh_kv, rep, t, s, ld, int(ops.causal), ops.q_offset, ops.k_offset, int(ops.fast),
+        1.0 / ops.qk_scale,
         1.0 / ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "flash_bwd_dkv")
@@ -290,7 +319,7 @@ def flash_bwd_dq(ops: BwdOperands):
     status = _kernels().qa_flash_bwd_dq(
         ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(), ops.do.data_ptr(),
         ops.lse.data_ptr(), ops.di.data_ptr(), dq.data_ptr(),
-        bh_kv, rep, t, s, ld, bq, int(ops.causal), int(ops.fast),
+        bh_kv, rep, t, s, ld, bq, int(ops.causal), ops.q_offset, ops.k_offset, int(ops.fast),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "flash_bwd_dq")
@@ -306,20 +335,25 @@ def _unflatten(q, k, dq, dk, dv):
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(k.shape)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False):
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False,
+                        q_offset=0, k_offset=0):
     """Flash-attention backward from the forward's residuals.
 
     q/o/do [b, h, t, d], k/v [b, h_kv, s, d], lse [b, h, t] (exp2 domain).
     Returns (dq [b, h, t, d], dk, dv [b, h_kv, s, d]) in f32. CUDA tensors run
     the two kernels (head_dim 64); CPU tensors their plain versions.
+    q_offset/k_offset: the forward's global positions (fast mode on CUDA).
     """
-    ops = bwd_operands(q, k, v, o, lse, do, causal, sm_scale, fast)
+    ops = bwd_operands(q, k, v, o, lse, do, causal, sm_scale, fast, q_offset=q_offset,
+                       k_offset=k_offset)
     dk, dv = flash_bwd_dkv(ops)
     return _unflatten(q, k, flash_bwd_dq(ops), dk, dv)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False,
+                              q_offset=0, k_offset=0):
     """`flash_attention_bwd` through the plain versions, on any device."""
-    ops = bwd_operands(q, k, v, o, lse, do, causal, sm_scale, fast, plain=True)
+    ops = bwd_operands(q, k, v, o, lse, do, causal, sm_scale, fast, plain=True,
+                       q_offset=q_offset, k_offset=k_offset)
     dk, dv = flash_bwd_dkv_plain(ops)
     return _unflatten(q, k, flash_bwd_dq_plain(ops), dk, dv)

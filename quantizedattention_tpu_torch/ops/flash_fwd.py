@@ -14,6 +14,15 @@ product and the row sum; rows with l == 0 give 0. The kernel runs the online
 softmax over 128-key tiles and the plain version over whole rows, so the two
 differ only in where P is rounded and in summation order.
 
+Causal masking is on global positions (flash_fwd.py:228-229, the TPU
+kernel's q_offset/k_offset): query i sits at q_offset + i and key j at
+k_offset + j, and a key is visible where k_offset + j <= q_offset + i (and j
+< s: the kv-length mask stays local). A sequence shard passes its first
+token's position. A row that sees no key (q_offset < k_offset) gives O = 0
+and lse = -inf in both versions; the TPU kernel gives such a row inside a
+live tile a finite lse and the mean of its V (ROADMAP.md §C). Only the bf16
+mode takes offsets: `flash_attention_fwd_fp32` has none.
+
 The kernel takes q as it comes (f32 or bf16, any strides with rows
 contiguous) and scales and rounds it itself; bf16 k/v go to its TMA maps as
 they are (a [b, s, h_kv, d] storage read as [b, h_kv, s, d] included), and
@@ -69,11 +78,20 @@ def _check_args(q, k, v, correction, precision="bf16"):
         raise ValueError(f"unknown precision {precision!r}")
 
 
+def _check_offsets(q_offset, k_offset):
+    if int(q_offset) != q_offset or int(k_offset) != k_offset or q_offset < 0 or k_offset < 0:
+        raise ValueError(f"q_offset and k_offset are host ints >= 0; got {q_offset!r}, "
+                         f"{k_offset!r}")
+    return int(q_offset), int(k_offset)
+
+
 def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="eps",
-                              precision="bf16"):
+                              precision="bf16", q_offset=0, k_offset=0):
     """The forward's arithmetic in plain PyTorch, one softmax over whole rows;
-    `precision="fp32"` rounds nothing."""
+    `precision="fp32"` rounds nothing. Rows that see no key give O = 0 and
+    lse = -inf."""
     _check_args(q, k, v, correction, precision)
+    q_offset, k_offset = _check_offsets(q_offset, k_offset)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     _, qk_scale = qk_scales(d, sm_scale)
@@ -86,21 +104,22 @@ def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="
     kf = rnd(k.float())[:, :, None]
     vf = rnd(v.float())[:, :, None]
     scores = qs @ kf.transpose(-1, -2)  # [b, h_kv, rep, t, s] f32
-    mask = tile_mask(0, 0, t, s, s, causal, device=q.device)
+    mask = tile_mask(q_offset, k_offset, t, s, s, causal, k_local_start=0, device=q.device)
     scores = torch.where(mask, scores, MASK_VALUE)
     m = scores.amax(-1, keepdim=True) + EPS_BIAS
     p = rnd(torch.exp2(scores - m))
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = (p @ vf) / l_safe
-    lse = m + torch.log2(l_safe)
+    seen = mask.any(-1, keepdim=True)  # [t, 1]: the row sees a key
+    o = torch.where(seen, (p @ vf) / l_safe, 0.0)
+    lse = torch.where(seen, m + torch.log2(l_safe), -torch.inf)
     return o.reshape(b, h, t, d), lse[..., 0].reshape(b, h, t)
 
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {  # the C entries of csrc/flash_fwd.cu
     "qa_flash_fwd": [_PTR, _I64, _I64, _I64, _I32] + [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR]
-                    + [_I32] * 7 + [ctypes.c_float, _PTR],
+                    + [_I32] * 9 + [ctypes.c_float, _PTR],
     "qa_flash_kv_to_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR, _I32, _I32, _I32, _PTR],
     "qa_flash_kv_split_tf32": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 4 + [_I32] * 3 + [_PTR],
     "qa_flash_fwd_f32": [_PTR, _I64, _I64, _I64] + [_PTR] * 6 + [_I32] * 6
@@ -151,18 +170,23 @@ def kv_to_bf16(k, v):
     return kb, vb
 
 
-def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps"):
+def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", q_offset=0,
+                        k_offset=0):
     """Corrected-bf16 flash-attention forward. q [b, h, t, d]; k/v [b, h_kv, s, d].
 
     CUDA tensors launch the kernel (head_dim 64, rep <= 128, b*h_kv <= 65535)
     or raise; CPU tensors take `flash_attention_fwd_plain`. q may be f32 or
     bf16 with any strides (rows contiguous) and is scaled in the kernel; bf16
     k/v are read in place, f32 k/v are cast by one `kv_to_bf16` launch.
+    q_offset/k_offset (host ints >= 0): the global positions of the first
+    query and key, for causal masking across sequence shards.
     `flash_attention_fwd.launches` counts kernel launches (one a call).
     """
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction)
+        return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction,
+                                         q_offset=q_offset, k_offset=k_offset)
     _check_args(q, k, v, correction)
+    q_offset, k_offset = _check_offsets(q_offset, k_offset)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     if d != _HEAD_DIM:
@@ -181,7 +205,8 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps"):
     status = _kernel()(
         qk.data_ptr(), *_strides(qk), int(qk.dtype == torch.float32), kb.data_ptr(),
         *_strides(kb), vb.data_ptr(), *_strides(vb), o.data_ptr(), lse.data_ptr(), b, h_kv,
-        h // h_kv, t, s, bq, int(causal), qk_scale, torch.cuda.current_stream(q.device).cuda_stream,
+        h // h_kv, t, s, bq, int(causal), q_offset, k_offset, qk_scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_status(status, "flash_fwd")
     flash_attention_fwd.launches += 1

@@ -71,6 +71,14 @@ def grid(bh_kv: int, rep: int, t: int) -> tuple[int, tuple[int, int]]:
 
 
 
+def kv_end(q0: int, bq: int, t: int, s: int, causal: bool, diag: int = 0) -> int:
+    """The keys a causal block of positions q0 .. q0 + bq - 1 walks (B1 and
+    B3: `kv_hi`): up to the last one its last position below t sees, with
+    the global offsets as diag = q_offset - k_offset; 0 where no row sees a
+    key (no key tile)."""
+    return max(0, min(s, min(t, q0 + bq) + diag)) if causal else s
+
+
 # --------------------------------------------------------------------------
 # The backward's fast mode, B2 (dK, dV) and B3 (dQ)
 # --------------------------------------------------------------------------
@@ -100,6 +108,14 @@ def lse_row_stride(t: int) -> int:
     """The row stride (floats) of the fast mode's lse and D, [b * h, ld]: t
     rounded up to 4, so that a row starts on 16 bytes (TMA)."""
     return -(-t // 4) * 4
+
+
+def dkv_first_q_tile(k0: int, t: int, causal: bool, diag: int = 0) -> int:
+    """B2's first 64-row q tile for the key block starting at k0 (`j0`): the
+    first that holds a position seeing key k0 (position + diag >= k0); the
+    tile count where none does (the block writes dK = dV = 0)."""
+    n_qt = -(-t // BWD_TILE)
+    return min(max(0, k0 - diag) // BWD_TILE, n_qt) if causal else 0
 
 
 def bwd_grids(bh_kv: int, rep: int, t: int, s: int) -> tuple[int, tuple[int, int], tuple[int, int]]:

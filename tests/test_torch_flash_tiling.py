@@ -170,6 +170,34 @@ def _check_bwd_geometry(rep, t, s, causal):
         assert (n_tiles - 1) * tile < last_seen <= n_tiles * tile, (rep, t, s, causal, q0)
 
 
+OFFSETS = [(1024, 1024), (1024, 0), (0, 512), (1000, 37), (0, 77), (37, 1000), (128, 64)]
+
+
+@pytest.mark.parametrize("q_offset,k_offset", OFFSETS)
+def test_offset_tiles_cover_each_visible_pair_once(q_offset, k_offset):
+    """With the global offsets (diag = q_offset - k_offset): B1/B3's blocks
+    walk the key tiles up to the last key any of their rows sees (none: no
+    tile), and B2's q tiles from `dkv_first_q_tile` on cover each pair its
+    keys make with a position that sees them exactly once."""
+    diag = q_offset - k_offset
+    tile = tiling.BWD_TILE
+    for t, s in BWD_SHAPES + [(1024, 2048), (300, 700)]:
+        k, p = np.meshgrid(np.arange(s), np.arange(t), indexing="ij")
+        vis = k <= p + diag
+        for bq in (128, 64, 42, 1):
+            for q0 in range(0, t, bq):
+                rows = vis[:, q0:min(q0 + bq, t)]
+                end = tiling.kv_end(q0, bq, t, s, True, diag)
+                seen = np.nonzero(rows.any(axis=1))[0]
+                assert end == (int(seen.max()) + 1 if seen.size else 0), (t, s, q0, bq)
+        cover = np.zeros((s, t), dtype=int)
+        n_qt = -(-t // tile)
+        for k0 in range(0, s, tiling.DKV_KEYS):
+            for j in range(tiling.dkv_first_q_tile(k0, t, True, diag), n_qt):
+                cover[k0:min(k0 + tiling.DKV_KEYS, s), j * tile:min(j * tile + tile, t)] += 1
+        assert (cover[vis] == 1).all() and cover.max() <= 1, (t, s)
+
+
 @pytest.mark.parametrize("rep", [1, 2, 3, 4, 5, 8, 16, 64, 127, 128])
 def test_bwd_tiles_cover_each_visible_pair_once(rep):
     for t, s in BWD_SHAPES:
