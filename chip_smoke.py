@@ -255,7 +255,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      SP_INT8_GRAD_REL_L2); a witness reads the one-device gradient from the
      batch in two halves against the whole batch's; step times, and one
      profiled ring step's device busy share on rank 0. Then the training half of the JAX dryrun_multichip
-     (sharded_jobs.dryrun_training) must give finite losses.
+     (sharded_jobs.dryrun_training) must give finite losses. B5, B7 and B8
+     with the global offsets too (SP_INT8_CASES: the int8 all-gather launch,
+     GQA 8/2, offsets off the grid, the KV-sharded launch, rows that see no
+     key, exact; a past ring piece bit-equal to the same piece non-causal)
+     against their plain versions, timed beside bounds and SDPA; the int8
+     all-gather train run (SP_INT8_GRAD_REL_L2["allgather"]); and the int8
+     KV-sharded forward on 4 ranks against one device's computation of the
+     same per-shard partials and merge.
+ 28. sequence-parallel rCM distillation: make_dit_rcm_step(mesh=) at
+     DIT_CFG's full width (seq 4096, d_model 256, 4 heads x 64, 2 layers,
+     batch 4, fast) on (data 1, model 1, context 4), 4 ranks as phase 27,
+     2 steps: every rank's loss equals rank 0's, the first loss within
+     SP_RCM_LOSS_REL of the one-device step's (its prepass runs the bf16
+     ring, the one-device step's fp32 B1), the gradients' relative L2 to
+     the one-device step's printed, step times, and the launches of B1 (the
+     prepass's ring), B9, B11 and B12 over the ranks.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -3385,9 +3400,10 @@ def _dit_params(dev, cfg, seed=0):
 
 def _dit_copy(params, device):
     """A detached copy of DiT params on `device`, every tensor a leaf that
-    requires grad."""
+    requires grad (a copy on their own device too: an optimizer steps it in
+    place)."""
     def leaf(x):
-        return x.detach().to(device).requires_grad_(True)
+        return x.detach().to(device, copy=True).requires_grad_(True)
 
     out = {k: leaf(params[k]) for k in ("t_mlp1", "t_mlp2", "out")}
     out["layers"] = [{k: leaf(x) for k, x in layer.items()} for layer in params["layers"]]
@@ -3798,6 +3814,7 @@ SP_RUNS = [  # (label, mesh shape, attention, attention_sp, steps)
     ("zigzag_int8", SP_SHAPE, "int8", "zigzag", 1),
     ("ulysses", SP_ULYSSES_SHAPE, "bf16", "ulysses", 1),
     ("ulysses_int8", SP_ULYSSES_SHAPE, "int8", "ulysses", 1),
+    ("allgather_int8", SP_SHAPE, "int8", "allgather", 1),
 ]
 # the sharded step's first loss and gradients against the one-device
 # make_train_step of the same attention kind on the same batch and params.
@@ -3811,9 +3828,32 @@ SP_RUNS = [  # (label, mesh shape, attention, attention_sp, steps)
 # is from one device's bf16 (3.55e-2), so 7e-2
 SP_LOSS_REL, SP_GRAD_REL_L2 = 1e-4, 3e-2
 SP_INT8_LOSS_REL = 5e-5
-SP_INT8_GRAD_REL_L2 = {"ring": 2e-2, "ulysses": 2e-2, "zigzag": 7e-2}
+# the int8 all-gather shares one device's quantization grid but for shard
+# edges, as the ring does: the ring's limit
+SP_INT8_GRAD_REL_L2 = {"ring": 2e-2, "ulysses": 2e-2, "zigzag": 7e-2, "allgather": 2e-2}
 SP_PATH_KERNELS = {"bf16": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep"),
                    "int8": ("quant_int8", "int8_fwd", "int8_bwd_dkv", "int8_bwd_dq")}
+# B5, B7 and B8 at the int8 SP paths' shapes with the global offsets: (label,
+# b, h, h_kv, t, s, q_offset, k_offset, timed). The int8 all-gather launch
+# (t_local queries at q_offset t_local against the gathered 2 t_local keys),
+# GQA 8 q / 2 kv heads, offsets off the 64/128 tile grid, the KV-sharded
+# launch (q over TRAIN_CFG's whole sequence against the last of 4 key
+# shards: rows below 1536 see no key), rows 0-76 of a live tile that see no
+# key, and the ring's past piece (causal, every key visible)
+SP_INT8_CASES = [
+    ("allgather", TRAIN_BATCH, SP_HEADS, SP_HEADS, SP_T, 2 * SP_T, SP_T, 0, True),
+    ("gqa", TRAIN_BATCH, SP_HEADS, 2, SP_T, 2 * SP_T, SP_T, 0, True),
+    ("unaligned", 1, 8, 2, 300, 700, 1000, 37, False),
+    ("kv_sharded", TRAIN_BATCH, SP_HEADS, SP_HEADS, TRAIN_CFG.max_seq, TRAIN_CFG.max_seq // 4, 0,
+     3 * TRAIN_CFG.max_seq // 4, True),
+    ("empty_in_tile", 1, 4, 4, 200, 300, 0, 77, False),
+    ("ring_past", TRAIN_BATCH, SP_HEADS, SP_HEADS, SP_T, SP_T, SP_T, 0, False),
+]
+# the int8 KV-sharded forward on 4 ranks against one device's computation of
+# the same per-shard partials and lse merge: the ranks' K mean and merge sum
+# in another order, so a K payload entry can land one step apart; the
+# kernels' own tolerance
+SP_KV_INT8_TOL = FLASH_O_TOL
 
 
 def _sp_visible(t: int, s: int, q_offset: int, k_offset: int) -> torch.Tensor:
@@ -3909,20 +3949,7 @@ def _sp_case(g, dev, label, b, h, h_kv, t, s, qo, ko, timed) -> tuple[dict, dict
         return errs, {}
     kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)  # the SP paths hand K/V in bf16
     pairs = b * h * visible_pairs(t, s, True, qo, ko)
-    # the library: SDPA in bf16 with the arguments that let it take a fused
-    # backend (GQA by enable_gqa); beside it, as a second field, SDPA with
-    # the offsets' dense boolean mask, which no fused backend takes
-    fused, call = _sdpa_offsets(t, s, qo, ko)
-    mask = (torch.arange(s, device=dev)[None, :] + ko <= torch.arange(t, device=dev)[:, None] + qo)
-    mask_f, mask_b, _ = _sdpa_ms(q, k, v, do, attn_mask=mask)
-    sdpa_f, sdpa_b, sdpa_kernels = (mask_f, mask_b, []) if fused is None else \
-        _sdpa_ms(q, k, v, do, **fused)
-    call = f"F.scaled_dot_product_attention({call}" + (", enable_gqa=True" if h != h_kv else "") \
-        + "), bf16"
-    log(f"[sp] sdpa {where}: {call}: forward kernels {[x[:60] for x in sdpa_kernels]}")
-    lib = [{"library_ms": f, "library_call": call + tail, "library_mask_ms": m}
-           for f, m, tail in ((sdpa_f, mask_f, ""),
-                              (sdpa_b, mask_b, ", backward (dq, dk, dv)"))]
+    lib = _sp_library(q, k, v, do, t, s, qo, ko, where)
     times = {
         "flash_fwd": {"ms": device_ms(lambda: flash_attention_fwd(q, kb, vb, **kw)),
                       "plain_ms": device_ms(lambda: flash_attention_fwd_plain(q, kb, vb, **kw),
@@ -3948,18 +3975,181 @@ def _sp_case(g, dev, label, b, h, h_kv, t, s, qo, ko, timed) -> tuple[dict, dict
     return errs, times
 
 
+def _sp_library(q, k, v, do, t, s, qo, ko, where) -> list:
+    """SDPA in bf16 at the offsets, on a fused backend where arguments other
+    than a dense mask compute the case (GQA by enable_gqa), and with the
+    offsets' dense boolean mask as a second field: [the forward's fields,
+    the backward's]."""
+    dev = q.device
+    fused, call = _sdpa_offsets(t, s, qo, ko)
+    mask = (torch.arange(s, device=dev)[None, :] + ko <= torch.arange(t, device=dev)[:, None] + qo)
+    mask_f, mask_b, _ = _sdpa_ms(q, k, v, do, attn_mask=mask)
+    sdpa_f, sdpa_b, sdpa_kernels = (mask_f, mask_b, []) if fused is None else \
+        _sdpa_ms(q, k, v, do, **fused)
+    call = f"F.scaled_dot_product_attention({call}" + (
+        ", enable_gqa=True" if q.shape[1] != k.shape[1] else "") + "), bf16"
+    log(f"[sp] sdpa {where}: {call}: forward kernels {[x[:60] for x in sdpa_kernels]}")
+    return [{"library_ms": f, "library_call": call + tail, "library_mask_ms": m}
+            for f, m, tail in ((sdpa_f, mask_f, ""), (sdpa_b, mask_b, ", backward (dq, dk, dv)"))]
+
+
+def _sp_int8_case(g, dev, label, b, h, h_kv, t, s, qo, ko, timed) -> tuple[dict, dict]:
+    """B4, then B5 and B7 + B8 on its payloads at one offset case against
+    their plain versions (FLASH_O_TOL, FLASH_LSE_TOL, INT8_BWD_TOL; each
+    called twice for the same bits). Rows that see no key must give O = 0,
+    lse = -inf and dQ = 0, keys no row sees dK = dV = 0, all exactly, in the
+    kernels and the plain versions; a piece that sees every key gives B5's
+    non-causal bits. Returns (each kernel's max|diff|, with `timed` each
+    kernel's times beside its plain version, bound and SDPA)."""
+    q, k, v, do = _qkvdo(g, dev, b, h, h_kv, t, s)
+    k_mean = k.mean(dim=-2, keepdim=True)
+    res = quantize_qkv(q, k, v, k_sub=k_mean)
+    dims = (b, h, t, s, 64)
+    kw = dict(causal=True, q_offset=qo, k_offset=ko)
+    where = f"{label}: b={b} h={h} h_kv={h_kv} t={t} s={s} q_offset={qo} k_offset={ko}"
+    o, lse = int8_attention_fwd_from_quantized(res, dims, **kw)
+    o2, lse2 = int8_attention_fwd_from_quantized(res, dims, **kw)
+    o_p, lse_p = int8_attention_fwd_from_quantized_plain(res, dims, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"int8_fwd gave other bits on a second call at {where}")
+    seen = _sp_visible(t, s, qo, ko).to(dev)
+    empty = ~seen
+    for name, (oo, ll) in (("kernel", (o, lse)), ("plain", (o_p, lse_p))):
+        if empty.any() and not ((oo[:, :, empty] == 0).all()
+                                and (ll[:, :, empty] == -math.inf).all()):
+            raise AssertionError(f"int8_fwd {name}: rows that see no key do not give O = 0 and "
+                                 f"lse = -inf at {where}")
+    err_o = (o - o_p)[:, :, seen].abs().max().item()
+    err_l = (lse - lse_p)[:, :, seen].abs().max().item()
+    log(f"[sp] int8_fwd {where}: max|dO| {err_o:.3e} (tol {FLASH_O_TOL}) max|dlse| {err_l:.3e} "
+        f"(tol {FLASH_LSE_TOL}); {int(empty.sum())} rows see no key: O = 0, lse = -inf exactly")
+    if not (err_o <= FLASH_O_TOL and err_l <= FLASH_LSE_TOL):
+        raise AssertionError("int8_fwd kernel disagrees with its plain version at the offsets")
+    if qo - ko >= s - 1:  # every row sees every key: the non-causal launch's bits
+        whole = int8_attention_fwd_from_quantized(res, dims, causal=False)
+        if not (torch.equal(o, whole[0]) and torch.equal(lse, whole[1])):
+            raise AssertionError(f"int8_fwd at {where} differs from the non-causal launch")
+        log(f"[sp] int8_fwd {where}: the same bits as the non-causal launch")
+    del o2, lse2, o_p, lse_p
+    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, **kw)
+    dk, dv = int8_bwd_dkv(ops)
+    dq = int8_bwd_dq(ops)
+    again = (*int8_bwd_dkv(ops), int8_bwd_dq(ops))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip((dk, dv, dq), again)):
+        raise AssertionError(f"int8 backward kernels give other bits on a second call at {where}")
+    del again
+    dk_p, dv_p = int8_bwd_dkv_plain(ops)
+    dq_p = int8_bwd_dq_plain(ops)
+    err, rel = {"int8_fwd": err_o}, {}
+    for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"int8 backward {name} is not finite at {where}")
+        diff = (got - want).abs().max().item()
+        rel[name] = diff / want.abs().max().item()
+        kernel = "int8_bwd_dq" if name == "dq" else "int8_bwd_dkv"
+        err[kernel] = max(err.get(kernel, 0.0), diff)
+    dq4 = dq.reshape(b, h, t, 64)
+    dk4, dv4 = dk.reshape(b, h_kv, s, 64), dv.reshape(b, h_kv, s, 64)
+    dq4_p = dq_p.reshape(b, h, t, 64)
+    dk4_p, dv4_p = dk_p.reshape(b, h_kv, s, 64), dv_p.reshape(b, h_kv, s, 64)
+    unseen = torch.arange(s, device=dev) + ko > t - 1 + qo  # keys no query sees
+    for name, (gq, gk, gv) in (("kernel", (dq4, dk4, dv4)), ("plain", (dq4_p, dk4_p, dv4_p))):
+        if not ((gq[:, :, empty] == 0).all() and (gk[:, :, unseen] == 0).all()
+                and (gv[:, :, unseen] == 0).all()):
+            raise AssertionError(f"int8 backward {name}: rows that see no key or keys no row "
+                                 f"sees have nonzero gradients at {where}")
+    log(f"[sp] int8 backward {where}: max|diff|/max|plain| dq {rel['dq']:.3e} dk {rel['dk']:.3e} "
+        f"dv {rel['dv']:.3e} (tol {INT8_BWD_TOL}), second call bit-equal; dQ of the "
+        f"{int(empty.sum())} rows that see no key and dK, dV of the {int(unseen.sum())} keys no "
+        f"row sees are 0 exactly (kernels and plain)")
+    if max(rel.values()) > INT8_BWD_TOL:
+        raise AssertionError("int8 backward kernels disagree with their plain versions at the "
+                             "offsets")
+    if not timed:
+        return err, {}
+    pairs = b * h * visible_pairs(t, s, True, qo, ko)
+    prod = 2 * pairs * 64  # one product over the visible pairs
+    payload = nbytes(*(x for pair in res for x in pair))
+    rows_in = nbytes(ops.do, ops.lse, ops.di)
+    lib = _sp_library(q, k, v, do, t, s, qo, ko, where)
+
+    def plain_ms(fn):
+        return device_ms(fn, calls=4, replays=5)
+
+    times = {
+        "int8_fwd": {"ms": device_ms(lambda: int8_attention_fwd_from_quantized(res, dims, **kw)),
+                     "plain_ms": plain_ms(lambda: int8_attention_fwd_from_quantized_plain(
+                         res, dims, **kw)),
+                     **bound(payload + nbytes(o, lse), (prod, PEAK_INT8), (prod, PEAK_BF16)),
+                     **lib[0]},
+        "int8_bwd_dkv": {"ms": device_ms(lambda: int8_bwd_dkv(ops)),
+                         "plain_ms": plain_ms(lambda: int8_bwd_dkv_plain(ops)),
+                         **bound(payload + rows_in + nbytes(dk, dv), (prod, PEAK_INT8),
+                                 (3 * prod, PEAK_BF16)), **lib[1]},
+        "int8_bwd_dq": {"ms": device_ms(lambda: int8_bwd_dq(ops)),
+                        "plain_ms": plain_ms(lambda: int8_bwd_dq_plain(ops)),
+                        **bound(payload + rows_in + nbytes(ops.k_mean, dq), (prod, PEAK_INT8),
+                                (2 * prod, PEAK_BF16)), **lib[1]},
+    }
+    for name, r in times.items():
+        r["shape"] = where
+        log(f"[sp] {name} {where}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), sdpa {r['library_ms']:.4f} ms "
+            f"({r['library_call']}), sdpa with the dense mask {r['library_mask_ms']:.4f} ms")
+    return err, times
+
+
 def _sp_kernels(dev) -> tuple[dict, dict]:
-    """Phase 27's kernel checks on card 0: every SP_KERNEL_CASES case.
-    Returns (each kernel's worst max|diff|, {kernel: {case: times}})."""
+    """Phase 27's kernel checks on card 0: every SP_KERNEL_CASES case (B1-B3)
+    and SP_INT8_CASES case (B5, B7, B8). Returns (each kernel's worst
+    max|diff|, {kernel: {case: times}})."""
     g = torch.Generator(device=dev).manual_seed(27)
-    errs, times = [], {"flash_fwd": {}, "flash_bwd_dkv": {}, "flash_bwd_dq": {}}
-    for label, *case in SP_KERNEL_CASES:
-        e, tm = _sp_case(g, dev, label, *case)
-        errs.append(e)
-        for name, r in tm.items():
-            times[name][label] = r
-        torch.cuda.empty_cache()
-    return _worst(*errs), times
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "int8_fwd", "int8_bwd_dkv",
+             "int8_bwd_dq")
+    errs, times = [], {name: {} for name in names}
+    for check, cases in ((_sp_case, SP_KERNEL_CASES), (_sp_int8_case, SP_INT8_CASES)):
+        for label, *case in cases:
+            e, tm = check(g, dev, label, *case)
+            errs.append(e)
+            for name, r in tm.items():
+                times[name][label] = r
+            torch.cuda.empty_cache()
+    return {k: max(e[k] for e in errs if k in e) for k in names}, times
+
+
+def _kv_sharded_int8(pool, dev) -> None:
+    """kv_sharded_attention_int8 on 4 ranks (context 4) against one device's
+    computation of the same thing: each K/V shard quantized with the global
+    K mean, B5 at its k_offset, the partials merged by their lse."""
+    from quantizedattention_tpu_torch.models import sharded_jobs
+
+    b, h, t = TRAIN_BATCH, SP_HEADS, TRAIN_CFG.max_seq
+    q, k, v, _ = _qkvdo(torch.Generator(device=dev).manual_seed(29), dev, b, h, h, t, t)
+    outs = pool.run(sharded_jobs.kv_sharded, q.cpu(), k.cpu(), v.cpu(), (1, 1, SP_RANKS), True,
+                    "cuda", "int8")
+    n, c = SP_RANKS, t // SP_RANKS
+    k_mean = torch.stack([x.mean(dim=-2, keepdim=True) for x in k.chunk(n, 2)]).sum(0) / n
+    parts = []
+    for i in range(n):
+        ks, vs = k[:, :, i * c:(i + 1) * c], v[:, :, i * c:(i + 1) * c]
+        parts.append(int8_attention_fwd_from_quantized(quantize_qkv(q, ks, vs, k_sub=k_mean),
+                                                       (b, h, t, c, 64), causal=True, q_offset=0,
+                                                       k_offset=i * c))
+    lse = torch.stack([p[1] for p in parts])
+    m = lse.amax(0)
+    w = torch.where(torch.isfinite(lse), torch.exp2(lse - m), 0.0)
+    want = (torch.stack([p[0] for p in parts]) * w[..., None]).sum(0) / w.sum(0)[..., None]
+    ref = reference_attention(q, k, v, causal=True)
+    err = max((got.to(dev) - want).abs().max().item() for got in outs)
+    same = all(torch.equal(got, outs[0]) for got in outs)
+    log(f"[sp] kv_sharded_attention_int8 on {n} ranks, q ({b},{h},{t},64) against K/V shards of "
+        f"{c}: max|diff| to one device's partials and merge {err:.3e} (tol {SP_KV_INT8_TOL}); "
+        f"every rank the same bits: {same}; max|diff| to the fp32 reference "
+        f"{(outs[0].to(dev) - ref).abs().max().item():.3e}")
+    if not (err <= SP_KV_INT8_TOL and same):
+        raise AssertionError("kv_sharded_attention_int8 disagrees with one device's")
 
 
 def _rel_l2(got: dict, ref: dict) -> dict:
@@ -4039,16 +4229,17 @@ def _split_batch_witness(params, tokens, targets, cfg, ref: dict, dev) -> None:
         f"{'the same bits as' if kernels_equal else 'other bits than'} at the whole batch")
 
 
-def phase_sp_training(dev, smi) -> dict:
+def phase_sp_training(dev, smi) -> tuple[dict, object]:
     """Phase 27: B1-B3 with the global offsets at the SP shard shapes (card
     0), then make_sharded_train_step at TRAIN_CFG's full width (f32 params,
     TRAIN_BATCH x 2048 tokens) on 4 ranks: NCCL with a card a rank where 4
     cards are visible, else sharing the card over gloo. Every run of SP_RUNS:
     the ranks' first losses equal, losses finite, every kernel of its
     attention path launched; its first loss and gradients against the
-    one-device make_train_step of its attention kind; then the training half of the
-    JAX dryrun_multichip. Returns {"errs", "times", "launches": {run:
-    launches summed over the ranks}}."""
+    one-device make_train_step of its attention kind; the int8 KV-sharded
+    forward; then the training half of the JAX dryrun_multichip. Returns
+    ({"errs", "times", "launches": {run: launches summed over the ranks}},
+    the open RankPool, which phase 28 runs on and closes)."""
     from quantizedattention_tpu_torch.models import sharded_jobs
     from quantizedattention_tpu_torch.models.sharded_jobs import _flat
     from quantizedattention_tpu_torch.parallel.launch import RankPool
@@ -4128,6 +4319,7 @@ def phase_sp_training(dev, smi) -> dict:
                     f"{prof['busy_share']:.1%}; top device "
                     f"{[(k, round(ms, 3), n) for k, ms, n in prof['top_device']]}")
                 launches[f"train_sp_{label}_profile"] = prof
+        _kv_sharded_int8(pool, dev)
         dry = pool.run(sharded_jobs.dryrun_training, "cuda")
         vals = [v for d in dry for k, v in d.items() if k != "shape"]
         ok = np.isfinite(vals).all() and all(d == dry[0] for d in dry)
@@ -4136,10 +4328,84 @@ def phase_sp_training(dev, smi) -> dict:
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError("[sp] the dryrun_multichip training twin failed")
-    finally:
+    except BaseException:
         pool.close()
+        raise
     log(f"[sp] phase 27 took {time.perf_counter() - t_phase:.1f} s")
-    return {"errs": errs, "times": times, "launches": launches}
+    return {"errs": errs, "times": times, "launches": launches}, pool
+
+
+# --------------------------------------------------------------------------
+# Sequence-parallel rCM distillation (phase 28)
+# --------------------------------------------------------------------------
+
+# the context axis over the 4 ranks: each holds 1024 of DIT_CFG's 4096 tokens
+SP_RCM_SHAPE, SP_RCM_STEPS = (1, 1, SP_RANKS), 2
+# the first loss against the one-device step's: the JAX test's bound
+# (tests/test_models.py:183); the sharded prepass runs the bf16 ring where
+# the one-device step runs B1 fp32
+SP_RCM_LOSS_REL = 5e-3
+# a step launches each of these once a layer and live ring step on every
+# rank (the prepass's bf16 ring: B1; the pair pass: B9 and its prep; its
+# backward: B11 + B12 on one shared prep), and nothing else it counts
+SP_RCM_KERNELS = ("flash_fwd", "jvp_fwd", "jvp_fwd_prep", "jvp_bwd_dkv", "jvp_bwd_dq",
+                  "jvp_bwd_prep")
+
+
+def phase_sp_rcm(dev, smi, pool) -> dict:
+    """Phase 28: make_dit_rcm_step(mesh=) at DIT_CFG's full width on
+    SP_RCM_SHAPE, SP_RCM_STEPS steps on phase 27's ranks, against the
+    one-device step on card 0 from the same params and batch. Returns
+    {"launches": {"dit_rcm_sp": launches summed over the ranks}, ...}."""
+    from quantizedattention_tpu_torch.models import sharded_jobs
+
+    t_phase = time.perf_counter()
+    cfg = DIT_CFG
+    params = _dit_params(dev, cfg, seed=28)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn((DIT_BATCH, cfg.seq_len, cfg.d_model), generator=gen, device=dev)
+    t = torch.rand((DIT_BATCH,), generator=gen, device=dev)
+    one = _dit_copy(params, dev)
+    _, step = make_dit_rcm_step(cfg, one, fast=True)
+    loss_one = step(x, t).item()
+    grads_one = [p.grad.detach().cpu() for p in dit_param_leaves(one)]
+    del one, step
+    torch.cuda.empty_cache()
+    host = {k: params[k].detach().cpu() for k in ("t_mlp1", "t_mlp2", "out")}
+    host["layers"] = [{k: w.detach().cpu() for k, w in layer.items()} for layer in params["layers"]]
+    outs = pool.run(sharded_jobs.rcm, cfg, SP_RCM_SHAPE, host, x.cpu(), t.cpu(), SP_RCM_STEPS,
+                    True, "cuda")
+    losses = [o["losses"] for o in outs]
+    if any(x_ != losses[0] for x_ in losses) or not np.isfinite(losses).all():
+        raise AssertionError(f"[rcm] the ranks' losses differ or are not finite: {losses}")
+    loss_rel = abs(losses[0][0] - loss_one) / abs(loss_one)
+    names = ["t_mlp1", "t_mlp2", "out"] + [f"layers.{i}.{k}" for i in range(cfg.n_layers)
+                                           for k in ("ada", "wq", "wk", "wv", "wo", "w1", "w2")]
+    rel = {n: ((g - w).norm() / w.norm()).item() for n, g, w in zip(names, outs[0]["grads"],
+                                                                    grads_one)}
+    worst = max(rel, key=rel.get)
+    count = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+    count = {k: n for k, n in count.items() if n}
+    per_step = cfg.n_layers * SP_RCM_SHAPE[2] * SP_RANKS * SP_RCM_STEPS
+    want = {k: per_step for k in SP_RCM_KERNELS}
+    sharing = pool.backend != "nccl"
+    log(f"[rcm] make_dit_rcm_step(mesh=) at DIT_CFG (d_model {cfg.d_model}, {cfg.n_heads} x "
+        f"{cfg.head_dim} heads, {cfg.n_layers} layers, {DIT_BATCH} x {cfg.seq_len} tokens, fast) "
+        f"on mesh {SP_RCM_SHAPE}, {SP_RANKS} ranks "
+        + ("sharing the card over gloo" if sharing else "one a card over NCCL")
+        + f", {smi}: losses {[round(v, 6) for v in losses[0]]}, every rank's equal; step ms "
+        f"(rank 0, wall, synchronised; the first includes set-up) "
+        f"{[round(v, 1) for v in outs[0]['step_ms']]}; launches over the ranks {count}")
+    log(f"[rcm] first loss {losses[0][0]:.6f} vs one device {loss_one:.6f} (rel {loss_rel:.2e}, "
+        f"tol {SP_RCM_LOSS_REL}); gradients vs one device: rel L2 max {rel[worst]:.3e} "
+        f"({worst}), median {statistics.median(rel.values()):.3e} over {len(rel)} tensors")
+    if count != want:
+        raise AssertionError(f"[rcm] the sharded steps launched {count}, want {want}")
+    if not loss_rel <= SP_RCM_LOSS_REL:
+        raise AssertionError("[rcm] the sharded rCM loss differs from the one-device step's")
+    log(f"[rcm] phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"dit_rcm_sp": count}, "loss_rel": loss_rel, "grad_rel_l2": rel,
+            "step_ms": outs[0]["step_ms"]}
 
 
 def main() -> None:
@@ -4184,8 +4450,13 @@ def main() -> None:
     mesh_runs = phase_mesh_serving(dev, smi, gen)
     mesh_launches = {k: v for k, v in mesh_runs.items() if k.startswith("mesh_")
                      and k not in ("mesh_profile", "mesh_tokens_per_s", "mesh_local")}
-    sp = phase_sp_training(dev, smi)
+    sp, pool = phase_sp_training(dev, smi)
+    try:
+        rcm = phase_sp_rcm(dev, smi, pool)
+    finally:
+        pool.close()
     sp_launches = {k: v for k, v in sp["launches"].items() if not k.endswith("_profile")}
+    sp_launches.update(rcm["launches"])
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -4296,7 +4567,11 @@ def main() -> None:
         if k["name"] in mesh_runs["mesh_local"]:
             k["mesh_rank"] = mesh_runs["mesh_local"][k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], k["mesh_rank"]["max_abs_err"])
-    for k in kernels:  # B1-B3 at the SP shard shapes with global offsets (phase 27)
+    for k in kernels:  # the JVP preps on the sharded rCM path (phase 28)
+        prep = {"jvp_fwd": "jvp_fwd_prep", "jvp_bwd_dkv": "jvp_bwd_prep"}.get(k["name"])
+        if prep:
+            k["prep_launches_by_path"]["dit_rcm_sp"] = rcm["launches"]["dit_rcm_sp"][prep]
+    for k in kernels:  # B1-B3, B5, B7, B8 at the SP shard shapes with global offsets (phase 27)
         if k["name"] in sp["errs"]:
             k["sp_cases"] = sp["times"][k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], sp["errs"][k["name"]])

@@ -1,6 +1,6 @@
 """Time kernels of two checkouts of the PyTorch port on one GPU, in turns:
 the weight-only matmuls (B17 int8, B18 int4) beside bf16 torch.matmul, the
-int8 backward (B7 dK/dV, B8 dQ), the corrected-bf16 flash forward (B1) and
+int8 forward (B5) and backward (B7 dK/dV, B8 dQ), the corrected-bf16 flash forward (B1) and
 its backward (B2 dK/dV, B3 dQ), B1's fp32 mode, the second-order
 backward's fast dK/dV (B11) and dQ (B12), and the JVP forward's fast mode
 (B9), the int4 decode kernels (B15 slotted, B16 paged) beside the paged
@@ -8,15 +8,18 @@ int8 one (B14), and the int8 decode kernels (B13 slotted, B14 paged)
 beside the int4 ones, the Q/K/V quantizer (B4) and the tangent's exact
 mode (B10 exact).
 
-    python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_bwd] [flash_fwd] [flash_bwd]
-                                                   [flash_fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq]
-                                                   [decode4] [decode8] [quant] [jvp_tangent]
+    python3 kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [weights] [int8_fwd] [int8_bwd] [flash_fwd]
+                                                   [flash_bwd] [flash_fwd_fp32] [jvp_bwd] [jvp_fwd]
+                                                   [jvp_dq] [decode4] [decode8] [quant] [jvp_tangent]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
 (every part without a third argument). Each checkout is timed in its own
 process (its own package and kernel build), in the order old, new, new, old:
 the weight matmuls at chip_smoke.py's WEIGHT_SHAPES, m = 8 (decode), 40 (a
-spec verify pass) and 2048 (prefill) rows against the bench LM's (k, n); B7
+spec verify pass) and 2048 (prefill) rows against the bench LM's (k, n); B5
+(`int8_attention_fwd_from_quantized`, causal, on B4's residuals) at the
+training shape (4, 16, 2048, 64), GQA rep 4 (2, 16 q / 4 kv, 2048, 64) and
+the serving prefill (8, 16, 256, 64); B7
 and B8 at chip_smoke.py's phase-8 timing shapes, (4, 16, 2048, 64) and GQA
 rep 4 (2, 16 q / 4 kv, 2048, 64), causal, on the forward's residuals; B1's
 wrapper `flash_attention_fwd`, causal, at the serving prefill (8, 16, 256,
@@ -75,6 +78,7 @@ import sys
 MS = (8, 40, 2048)
 KN = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 8192))
 BWD_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048))  # (b, h, h_kv, t = s), causal
+INT8_FWD_SHAPES = BWD_SHAPES + ((8, 16, 16, 256),)  # and the serving prefill
 # (b, h, h_kv, t = s, input dtype), causal
 FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
               (4, 16, 16, 2048, "bfloat16"), (4, 16, 16, 4096, "bfloat16"),
@@ -91,7 +95,7 @@ DECODE4_SHAPES = ((16, 304, 1), (16, 304, 5), (16, 1280, 1), (4, 1280, 1))
 QUANT_SHAPE = (4, 16, 2048)  # (b, h = h_kv, t = s): the int8 training shape
 # (b, h, t = s), non-causal: the DiT's, bench_jvp's, the dit_jvp path's
 TANGENT_SHAPES = ((4, 4, 4096), (4, 16, 4096), (2, 4, 512))
-PARTS = ("weights", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd", "jvp_fwd",
+PARTS = ("weights", "int8_fwd", "int8_bwd", "flash_fwd", "flash_bwd", "flash_fwd_fp32", "jvp_bwd", "jvp_fwd",
          "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent")
 
 
@@ -135,6 +139,19 @@ def _weight_rows(torch, gen, dev) -> dict:
                 "int4_ms": _device_ms(
                     torch, lambda: int4_weight_matmul(x4, q4.packed, q4.scale, q4.group)),
                 "bf16_matmul_ms": _device_ms(torch, lambda: torch.matmul(x, wb))}
+    return rows
+
+
+def _int8_fwd_rows(torch, gen, dev) -> dict:
+    from quantizedattention_tpu_torch.ops import int8_attention_fwd_from_quantized, quantize_qkv
+
+    rows = {}
+    for b, h, h_kv, t in INT8_FWD_SHAPES:
+        q, k, v = (torch.randn((b, n, t, 64), generator=gen, device=dev) for n in (h, h_kv, h_kv))
+        res = quantize_qkv(q, k, v, k_sub=k.mean(dim=-2, keepdim=True))
+        dims = (b, h, t, t, 64)
+        rows[f"B5 b={b} h={h} h_kv={h_kv} t={t} causal"] = {"b5_ms": _device_ms(
+            torch, lambda: int8_attention_fwd_from_quantized(res, dims, causal=True))}
     return rows
 
 
@@ -424,6 +441,8 @@ def run_one(tree: str, parts) -> None:
     rows = {}
     if "weights" in parts:
         rows.update(_weight_rows(torch, gen, dev))
+    if "int8_fwd" in parts:
+        rows.update(_int8_fwd_rows(torch, gen, dev))
     if "int8_bwd" in parts:
         rows.update(_int8_bwd_rows(torch, gen, dev))
     if "flash_fwd" in parts:

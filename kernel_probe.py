@@ -6,13 +6,14 @@ the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu) and the decode
 kernels (B13-B16, one body in csrc/cache_decode.cu, its int4 instance in
 decode4 and its int8 one in decode8), the Q/K/V quantizer (B4, quant) and
 the tangent's exact mode (B10, jvp_tangent, also a numerics witness); and
-three numerics witnesses, bwd_exact, fwd_fp32 and flash_digest (B1-B3's
-outputs at zero offsets hashed here and in a parent checkout).
+four numerics witnesses, bwd_exact, fwd_fp32, flash_digest (B1-B3's
+outputs at zero offsets hashed here and in a parent checkout) and
+int8_digest (B4-B8's, the same way).
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                             [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
-                            [quant] [jvp_tangent] [flash_digest] [PARENT_CHECKOUT]  (all
-                            parts without arguments)
+                            [quant] [jvp_tangent] [flash_digest] [int8_digest]
+                            [PARENT_CHECKOUT]  (all parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -358,8 +359,8 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
         lib.qa_flash_fwd_f32.restype = ctypes.c_int
     elif name.startswith("bwd"):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
-        lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 10 + [f32, f32, ptr]
+        lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 11 + [f32, f32, ptr]
+        lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 12 + [f32, f32, ptr]
         lib.qa_int8_bwd_dkv.restype = lib.qa_int8_bwd_dq.restype = ctypes.c_int
     elif name.startswith("b18"):
         lib.qa_int4_linear.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -466,7 +467,7 @@ _B7_EXP = ("      p[e] = exp2_ftz(__fmul_rn(small_int_to_float(st[4 * n + e]), c
            "((e & 1) ? l2.y : l2.x));")
 _B8_EXP = "      float p = exp2_ftz(__fmul_rn(small_int_to_float(s_acc[4 * n + e]), c[h]) - lse_r[h]);"
 _B7_COMPUTE = "    if (q0 + TILE > t || kw0 + 64 > s"
-_B8_COMPUTE = "    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0))"
+_B8_COMPUTE = "    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0 + diag))"
 _B7_LATE = "    {  // dV += P^T dO"
 _B8_LATE = "    {  // dQ_seg += dS K"
 _B7_WIDEN = "    widen_tile_64x64(smem + DKV_OFF_Q + st * I8_TILE"
@@ -592,11 +593,13 @@ def _bwd_call(lib, ops, kernel):
         dk = torch.empty((ops.k_i8.shape[0], s, d), dtype=torch.float32, device=dev)
         dv = torch.empty_like(dk)
         status = lib.qa_int8_bwd_dkv(*tbwd._inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints,
-                                     int(ops.causal), ops.qk_scale, ops.sm_scale, stream)
+                                     int(ops.causal), ops.q_offset, ops.k_offset, ops.qk_scale,
+                                     ops.sm_scale, stream)
     else:
         dq = torch.empty((ops.k_i8.shape[0], ops.rep, t, d), dtype=torch.float32, device=dev)
         status = lib.qa_int8_bwd_dq(*tbwd._inputs(ops), ops.k_mean.data_ptr(), dq.data_ptr(),
-                                    *ints, bq, int(ops.causal), ops.qk_scale, ops.sm_scale, stream)
+                                    *ints, bq, int(ops.causal), ops.q_offset, ops.k_offset,
+                                    ops.qk_scale, ops.sm_scale, stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
 
@@ -1592,23 +1595,66 @@ print(f"{n} cases ({len(fwd)} forward, {len(bwd)} backward), sha256 {h.hexdigest
 """
 
 
-def probe_flash_digest(smi, parent=None) -> None:
-    """One digest of B1's and B2/B3's outputs at zero offsets over chip_smoke.py
-    phase 3's and 6's cases, in the parent checkout (if given) and here: equal
-    digests are the same bits."""
+# run in a checkout's root: one SHA-256 over B4's payloads and scales, B5's O
+# and lse, B7/B8's dk, dv, dq (on B5's O and lse) and B6's O and lse (f32 and
+# bf16 inputs) at chip_smoke.py phase 8's int8 cases (INT8_CASES), each
+# case's inputs from its own seed; only calls both a parent and this
+# checkout take (no offsets)
+_INT8_DIGEST = r"""
+import hashlib, torch
+import chip_smoke as cs
+from quantizedattention_tpu_torch.ops import (int8_attention_fwd_from_quantized,
+                                             int8_attention_fwd_fused, int8_bwd_dkv, int8_bwd_dq,
+                                             int8_bwd_operands, quantize_qkv)
+h, n = hashlib.sha256(), 0
+for i, (b, hq, hk, t, s, causal, shift) in enumerate(cs.INT8_CASES):
+    g = torch.Generator(device="cuda").manual_seed(2000 + i)
+    q, k, v, do = cs._qkvdo(g, torch.device("cuda"), b, hq, hk, t, s)
+    k = k + shift
+    k_mean = k.mean(dim=-2, keepdim=True)
+    res = quantize_qkv(q, k, v, k_sub=k_mean)
+    dims = (b, hq, t, s, 64)
+    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=causal)
+    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=causal)
+    outs = [x for pair in res for x in pair] + [o, lse, *int8_bwd_dkv(ops), int8_bwd_dq(ops)]
+    for dt in (torch.float32, torch.bfloat16):
+        outs += int8_attention_fwd_fused(q.to(dt), k.to(dt), v.to(dt), causal=causal,
+                                         k_sub=k_mean.to(dt))
+    for x in outs:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    n += 1
+print(f"{n} cases (B4, B5, B7, B8, B6 f32 and bf16), sha256 {h.hexdigest()}")
+"""
+
+
+def _digest(script, what, smi, parent=None) -> None:
+    """Runs `script` in the parent checkout (if given) and here and prints
+    each digest: equal digests are the same bits."""
     digests = {}
     for tree in ([parent] if parent else []) + ["."]:
-        proc = subprocess.run([sys.executable, "-c", _FLASH_DIGEST], cwd=os.path.abspath(tree),
+        proc = subprocess.run([sys.executable, "-c", script], cwd=os.path.abspath(tree),
                               capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"kernel_probe: the digest failed in {tree}:\n{proc.stderr[-3000:]}")
         digests[os.path.abspath(tree)] = proc.stdout.strip().splitlines()[-1]
-        print(f"[digest] B1-B3 at zero offsets, {os.path.abspath(tree)}: "
+        print(f"[digest] {what} at zero offsets, {os.path.abspath(tree)}: "
               f"{digests[os.path.abspath(tree)]} ({smi})", flush=True)
     if parent:
         same = len(set(digests.values())) == 1
-        print(f"[digest] parent and this checkout: {'the same bits' if same else 'DIFFERENT'}",
-              flush=True)
+        print(f"[digest] {what}, parent and this checkout: "
+              f"{'the same bits' if same else 'DIFFERENT'}", flush=True)
+
+
+def probe_flash_digest(smi, parent=None) -> None:
+    """One digest of B1's and B2/B3's outputs at zero offsets over chip_smoke.py
+    phase 3's and 6's cases, in the parent checkout (if given) and here."""
+    _digest(_FLASH_DIGEST, "B1-B3", smi, parent)
+
+
+def probe_int8_digest(smi, parent=None) -> None:
+    """One digest of B4-B8's outputs at zero offsets over chip_smoke.py
+    phase 8's int8 cases, in the parent checkout (if given) and here."""
+    _digest(_INT8_DIGEST, "B4-B8", smi, parent)
 
 
 def probe_decode8(smi, parent=None) -> None:
@@ -1892,7 +1938,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
-             "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent", "flash_digest"]
+             "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent", "flash_digest",
+             "int8_digest"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -1928,6 +1975,8 @@ def main() -> None:
         probe_jvp_tangent(smi, dirs[0] if dirs else None)
     if "flash_digest" in parts:
         probe_flash_digest(smi, dirs[0] if dirs else None)
+    if "int8_digest" in parts:
+        probe_int8_digest(smi, dirs[0] if dirs else None)
 
 
 

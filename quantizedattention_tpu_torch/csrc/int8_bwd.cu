@@ -18,7 +18,12 @@
 // a product whose scale changes with the grain runs into its own accumulator
 // (dK_seg, dQ_seg), folded into the main one with that grain's scale when the
 // grain ends; no scale is folded into a bf16 operand before it rounds.
-// Masked logits (causal k <= q, keys past s) and positions past t give P = 0.
+// Masked logits (causal k <= q on global positions, k + k_offset <= q +
+// q_offset; keys past s) and positions past t give P = 0, and so does a row
+// that saw no key (lse -inf: ops/int8_bwd.py hands it to the kernels as
+// +inf). The offsets enter as diag = q_offset - k_offset: they move the first
+// q tile (B7), the last key tile (B8) and the masked tiles, never the
+// products a tile issues. A block that sees nothing writes zeros.
 //
 // What bounds it on this card: at (4,16,2048,64), causal, B7 runs one int8
 // product (S) and three bf16 products (dV, dP, dK) over 134 M visible pairs,
@@ -156,7 +161,8 @@ template <bool MASK>
 __device__ __forceinline__ void dkv_p_ds(const int (&st)[ACC], const float (&dpt)[ACC],
                                          const float* rw, float c, float sv, float sm_scale,
                                          int q0, int cq, const int (&key)[2], int s, int t,
-                                         int causal, uint32_t (&pa)[4][4], uint32_t (&da)[4][4]) {
+                                         int causal, int diag, uint32_t (&pa)[4][4],
+                                         uint32_t (&da)[4][4]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const float2 l2 = *reinterpret_cast<const float2*>(rw + 8 * n + cq);
@@ -167,7 +173,7 @@ __device__ __forceinline__ void dkv_p_ds(const int (&st)[ACC], const float (&dpt
       p[e] = exp2_ftz(__fmul_rn(small_int_to_float(st[4 * n + e]), c) - ((e & 1) ? l2.y : l2.x));
       if (MASK) {
         const int pos = q0 + 8 * n + cq + (e & 1), k = key[e / 2];
-        p[e] = k < s && pos < t && (!causal || k <= pos) ? p[e] : 0.f;
+        p[e] = k < s && pos < t && (!causal || k <= pos + diag) ? p[e] : 0.f;
       }
       ds[e] = __fmul_rn(__fmul_rn(p[e], __fmul_rn(dpt[4 * n + e], sv) - ((e & 1) ? d2.y : d2.x)),
                         sm_scale);
@@ -189,7 +195,7 @@ __device__ __forceinline__ void dq_ds(const int (&s_acc)[ACC], const float (&dp)
                                       const float (&c)[2], const float (&lse_r)[2],
                                       const float (&di_r)[2], float sv, float sm_scale, int k0,
                                       int cq, const int (&pos)[2], int s, int causal,
-                                      float (&rs)[2], uint32_t (&dsa)[4][4]) {
+                                      int diag, float (&rs)[2], uint32_t (&dsa)[4][4]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     float ds[4];
@@ -199,7 +205,7 @@ __device__ __forceinline__ void dq_ds(const int (&s_acc)[ACC], const float (&dp)
       float p = exp2_ftz(__fmul_rn(small_int_to_float(s_acc[4 * n + e]), c[h]) - lse_r[h]);
       if (MASK) {
         const int col = k0 + 8 * n + cq + (e & 1);
-        p = col < s && (!causal || col <= pos[h]) ? p : 0.f;
+        p = col < s && (!causal || col <= pos[h] + diag) ? p : 0.f;
       }
       ds[e] = __fmul_rn(__fmul_rn(p, __fmul_rn(dp[4 * n + e], sv) - di_r[h]), sm_scale);
       rs[h] += ds[e];
@@ -226,7 +232,7 @@ int8_dkv_kernel(const __grid_constant__ CUtensorMap q_map,   // [bh_kv * rep * q
                 float* __restrict__ dk,                      // [bh_kv, s, D]
                 float* __restrict__ dv,                      // [bh_kv, s, D]
                 int rep, int t, int s, int q_pad, int kv_pad, int nq, int nk, int q_grain,
-                int kv_grain, int causal, float qk_scale, float sm_scale) {
+                int kv_grain, int causal, int diag, float qk_scale, float sm_scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
@@ -240,8 +246,10 @@ int8_dkv_kernel(const __grid_constant__ CUtensorMap q_map,   // [bh_kv * rep * q
   const size_t bh = blockIdx.x;
   const int k0 = blockIdx.y * DKV_KEYS;  // key tile 0, which sees the most q tiles, first
   const int n_qt = (t + TILE - 1) / TILE;
-  // Causal: q tiles wholly before the key tile see none of its keys.
-  const int j0 = causal ? min(k0 / TILE, n_qt) : 0;
+  // Causal: q tiles wholly before the key tile's first key, moved by diag =
+  // q_offset - k_offset, see none of its keys (a block that no q tile sees
+  // writes dK = dV = 0).
+  const int j0 = causal ? min(max(0, k0 - diag) / TILE, n_qt) : 0;
   const int per_head = n_qt - j0;
   const int n_tiles = rep * per_head;  // tile i: q head i / per_head, q tile j0 + i % per_head
 
@@ -382,10 +390,12 @@ int8_dkv_kernel(const __grid_constant__ CUtensorMap q_map,   // [bh_kv * rep * q
     const float c = __fmul_rn(__fmul_rn(sq_t, sk_b), qk_scale);
     // masking only where the tile reaches past t or s or the diagonal (a
     // warpgroup whose keys all lie past a causal tile gets P = 0)
-    if (q0 + TILE > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))
-      dkv_p_ds<true>(st_acc, dpt, rw, c, sv_b, sm_scale, q0, cq, key, s, t, causal, pa, da);
+    if (q0 + TILE > t || kw0 + 64 > s || (causal && q0 + diag < kw0 + 63))
+      dkv_p_ds<true>(st_acc, dpt, rw, c, sv_b, sm_scale, q0, cq, key, s, t, causal, diag, pa,
+                     da);
     else
-      dkv_p_ds<false>(st_acc, dpt, rw, c, sv_b, sm_scale, q0, cq, key, s, t, causal, pa, da);
+      dkv_p_ds<false>(st_acc, dpt, rw, c, sv_b, sm_scale, q0, cq, key, s, t, causal, diag, pa,
+                      da);
     fence_proxy_async();  // the widened Q tile, for wgmma
     named_barrier(1, THREADS);
     {  // dV += P^T dO, dK_seg += dS^T Q (both B MN-major)
@@ -450,7 +460,7 @@ int8_dq_kernel(const __grid_constant__ CUtensorMap k_map,  // [bh_kv * kv_pad, 6
                const float* __restrict__ k_mean,           // [bh_kv, D]
                float* __restrict__ dq,                     // [bh_kv * rep, t, D]
                int rep, int t, int s, int q_pad, int kv_pad, int nq, int nk, int q_grain,
-               int kv_grain, int bq, int causal, float qk_scale, float sm_scale) {
+               int kv_grain, int bq, int causal, int diag, float qk_scale, float sm_scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -461,9 +471,10 @@ int8_dq_kernel(const __grid_constant__ CUtensorMap k_map,  // [bh_kv * kv_pad, 6
   const int tid = threadIdx.x;
   const size_t bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;  // the last rows (the most key tiles) first
-  // Causal: keys past the block's last query position (below t) are never
-  // visible.
-  const int kv_hi = causal ? min(s, min(t, q0 + bq)) : s;
+  // Causal: keys past the block's last query position (below t), moved by
+  // diag = q_offset - k_offset, are never visible (none at all: no key tile,
+  // dQ = 0).
+  const int kv_hi = causal ? max(0, min(s, min(t, q0 + bq) + diag)) : s;
   const int n_tiles = (kv_hi + TILE - 1) / TILE;
 
   init_barriers(bars, DQ_STAGES);
@@ -520,10 +531,13 @@ int8_dq_kernel(const __grid_constant__ CUtensorMap k_map,  // [bh_kv * kv_pad, 6
     }
   }
 
-  // Tile 0's K and V, widened before the loop.
-  mbar_wait(full(0), 0);
-  widen_tile_64x64(smem + DQ_OFF_K, smem + DQ_OFF_KW, tid);
-  widen_tile_64x64(smem + DQ_OFF_V, smem + DQ_OFF_VW, tid);
+  // Tile 0's K and V, widened before the loop (a block with no key tile has
+  // none).
+  if (n_tiles > 0) {
+    mbar_wait(full(0), 0);
+    widen_tile_64x64(smem + DQ_OFF_K, smem + DQ_OFF_KW, tid);
+    widen_tile_64x64(smem + DQ_OFF_V, smem + DQ_OFF_VW, tid);
+  }
   fence_proxy_async();
   named_barrier(1, THREADS);
 
@@ -596,10 +610,12 @@ int8_dq_kernel(const __grid_constant__ CUtensorMap k_map,  // [bh_kv * kv_pad, 6
     const float sk_next = sk[bh * nk + min(next_grain, nk - 1)];
     const float sv_next = sv[bh * nk + min(next_grain, nk - 1)];
     // masking only where the tile reaches past s or the diagonal
-    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0))
-      dq_ds<true>(s_acc, dp, c, lse_r, di_r, sv_t, sm_scale, k0, cq, pos, s, causal, rs, dsa);
+    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0 + diag))
+      dq_ds<true>(s_acc, dp, c, lse_r, di_r, sv_t, sm_scale, k0, cq, pos, s, causal, diag, rs,
+                  dsa);
     else
-      dq_ds<false>(s_acc, dp, c, lse_r, di_r, sv_t, sm_scale, k0, cq, pos, s, causal, rs, dsa);
+      dq_ds<false>(s_acc, dp, c, lse_r, di_r, sv_t, sm_scale, k0, cq, pos, s, causal, diag, rs,
+                   dsa);
     fence_proxy_async();  // the next tile's widened K and V, for wgmma
     named_barrier(1, THREADS);
     {  // dQ_seg += dS K (B = the widened K, MN-major)
@@ -650,8 +666,9 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
 
 // What both kernels take (ops/int8_tiling.py checks the same before a launch).
 bool bad_shape(int bh_kv, int rep, int t, int s, int q_pad, int kv_pad, int q_grain,
-               int kv_grain) {
-  return bh_kv < 1 || rep < 1 || t < 1 || s < 1 || t > q_pad || s > kv_pad || q_grain % TILE ||
+               int kv_grain, int q_offset, int k_offset) {
+  return bh_kv < 1 || rep < 1 || t < 1 || s < 1 || t > q_pad || s > kv_pad || q_offset < 0 ||
+         k_offset < 0 || q_grain % TILE ||
          kv_grain % DKV_KEYS || q_pad % q_grain || kv_pad % kv_grain ||
          static_cast<long long>(bh_kv) * rep * q_pad > 0x7fffffffLL ||  // TMA row coordinates
          static_cast<long long>(bh_kv) * kv_pad > 0x7fffffffLL;
@@ -664,14 +681,17 @@ extern "C" int qa_int8_bwd_dkv_smem_bytes() { return DKV_SMEM; }
 extern "C" int qa_int8_bwd_dq_smem_bytes() { return DQ_SMEM; }
 
 // B7: dK, dV [bh_kv, s, D] f32. q/k/v int8 payloads, sq/sk/sv f32 scale
-// tables, dout [bh_kv * rep, t, D] bf16, lse/di [bh_kv * rep, t] f32.
+// tables, dout [bh_kv * rep, t, D] bf16, lse/di [bh_kv * rep, t] f32. Causal
+// masking on global positions q_offset + i, k_offset + j (both >= 0).
 extern "C" int qa_int8_bwd_dkv(const void* q, const void* k, const void* v, const void* sq,
                                const void* sk, const void* sv, const void* dout, const void* lse,
                                const void* di, void* dk, void* dv, int bh_kv, int rep, int t,
                                int s, int q_pad, int kv_pad, int q_grain, int kv_grain,
-                               int causal, float qk_scale, float sm_scale, void* stream) {
+                               int causal, int q_offset, int k_offset, float qk_scale,
+                               float sm_scale, void* stream) {
   const int n_kt = (s + DKV_KEYS - 1) / DKV_KEYS;
-  if (bad_shape(bh_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain) || n_kt > 65535)
+  if (bad_shape(bh_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain, q_offset, k_offset) ||
+      n_kt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, do_map;
   if (!tensor_map_2d(&q_map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh_kv * rep * q_pad, D, TILE, D,
@@ -688,19 +708,21 @@ extern "C" int qa_int8_bwd_dkv(const void* q, const void* k, const void* v, cons
       static_cast<const float*>(sq), static_cast<const float*>(sk), static_cast<const float*>(sv),
       static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dk),
       static_cast<float*>(dv), rep, t, s, q_pad, kv_pad, q_pad / q_grain, kv_pad / kv_grain,
-      q_grain, kv_grain, causal, qk_scale, sm_scale);
+      q_grain, kv_grain, causal, q_offset - k_offset, qk_scale, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B8: dQ [bh_kv * rep, t, D] f32, same inputs as B7 plus k_mean [bh_kv, D];
-// bq query positions a block (rep * bq <= 128).
+// bq query positions a block (rep * bq <= 128), offsets as B7's.
 extern "C" int qa_int8_bwd_dq(const void* q, const void* k, const void* v, const void* sq,
                               const void* sk, const void* sv, const void* dout, const void* lse,
                               const void* di, const void* k_mean, void* dq, int bh_kv, int rep,
                               int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain,
-                              int bq, int causal, float qk_scale, float sm_scale, void* stream) {
+                              int bq, int causal, int q_offset, int k_offset, float qk_scale,
+                              float sm_scale, void* stream) {
   const int n_qb = bq < 1 ? 0 : (t + bq - 1) / bq;
-  if (bad_shape(bh_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain) || bq < 1 ||
+  if (bad_shape(bh_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain, q_offset, k_offset) ||
+      bq < 1 ||
       rep * bq > DQ_ROWS || n_qb > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap k_map, v_map;
@@ -719,6 +741,6 @@ extern "C" int qa_int8_bwd_dq(const void* q, const void* k, const void* v, const
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<const float*>(k_mean), static_cast<float*>(dq),
       rep, t, s, q_pad, kv_pad, q_pad / q_grain, kv_pad / kv_grain, q_grain, kv_grain, bq, causal,
-      qk_scale, sm_scale);
+      q_offset - k_offset, qk_scale, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,12 +7,15 @@
 // Q_i8 K_i8^T is an exact integer (s8 x s8 -> s32, then f32: |S| <= 64 *
 // 127^2 < 2^24, the value the TPU gets from bf16 dots on the same payloads);
 // each row r and key tile scale it by c = (sq_r * sk) * qk_scale, with sq per
-// (q head, q grain) and sk per kv grain; masked raw logits (causal k <= q,
-// keys past s) become 30000 / -c, so that the scaled logit is -30000 whatever
-// the scale; the row max is max(raw) * c + EPS_BIAS; P = bf16(exp2(raw * c -
-// m)) feeds both the PV product and the row sum l; acc = acc * alpha + (P
-// V_i8) * sv with sv per kv grain; rows with l == 0 give O = 0; lse = m +
-// log2(l) (exp2 domain).
+// (q head, q grain) and sk per kv grain; masked raw logits (causal k <= q on
+// global positions, k + k_offset <= q + q_offset; keys past s) become 30000 /
+// -c, so that the scaled logit is -30000 whatever the scale; the row max is
+// max(raw) * c + EPS_BIAS; P = bf16(exp2(raw * c - m)) feeds both the PV
+// product and the row sum l; acc = acc * alpha + (P V_i8) * sv with sv per kv
+// grain; rows with l == 0 give O = 0; lse = m + log2(l) (exp2 domain). A row
+// that sees no key at all (q_offset < k_offset) gives O = 0 and lse = -inf;
+// the TPU kernel gives such a row inside a live tile a finite lse and the
+// mean of its V (ROADMAP.md §C, C4).
 //
 // B6 is B4 then B5: its wrapper runs one B4 launch on the f32 or bf16 inputs
 // that writes the payloads of Q, K (after the K-smoothing shift) and V and
@@ -66,6 +69,11 @@
 //     sentinel's division) is applied only on tiles that reach past s or past
 //     the block's first position; a row with no running max yet takes alpha
 //     = 0 by select. The next tile's kv grain scales load a tile ahead.
+//   - The global offsets enter as diag = q_offset - k_offset, which moves the
+//     last tile and the masked ones, never the products a tile issues. A
+//     block that sees no key still runs its first tile, wholly masked (the
+//     pipeline's products are not under a branch), and the epilogue gives its
+//     rows O = 0 and lse = -inf by select.
 
 #include <math.h>
 
@@ -126,11 +134,12 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
 // block's first position) and converts it to f32; updates the running max m
 // (scaled, +EPS_BIAS) and gives each row's alpha; writes P = bf16(exp2(raw *
 // c - m)) as PV's A fragments (key tiles 2kk and 2kk + 1 of 8 keys are k-step
-// kk). si[4 n + e]: row h = e / 2, key k0 + 8 n + cq + (e & 1).
+// kk). si[4 n + e]: row h = e / 2, key k0 + 8 n + cq + (e & 1); lim[h]: row h's
+// last visible key under causal masking (its position + diag).
 __device__ __forceinline__ void softmax_tile(const int (&si)[64], uint32_t (&p)[8][4],
                                              float (&m)[2], float (&alpha)[2],
                                              const float (&c)[2], bool edge, int k0, int cq,
-                                             const int (&pos)[2], int s, int causal) {
+                                             const int (&lim)[2], int s, int causal) {
   float sc[64];
   float mx[2] = {-INFINITY, -INFINITY};
   float sentinel[2] = {0.f, 0.f};  // the masked raw logit 30000 / -c, on edge tiles only
@@ -144,7 +153,7 @@ __device__ __forceinline__ void softmax_tile(const int (&si)[64], uint32_t (&p)[
     sc[i] = small_int_to_float(si[i]);  // |S| <= 64 * 128^2 = 2^20
     if (edge) {
       const int col = k0 + (i / 4) * 8 + cq + (i & 1);
-      if (!(col < s && (!causal || col <= pos[h]))) sc[i] = sentinel[h];
+      if (!(col < s && (!causal || col <= lim[h]))) sc[i] = sentinel[h];
     }
     mx[h] = fmaxf(mx[h], sc[i]);
   }
@@ -179,7 +188,7 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
                  float* __restrict__ o,                      // [bh_kv * rep, t, D]
                  float* __restrict__ lse,                    // [bh_kv * rep, t]
                  int rep, int t, int s, int q_pad, int kv_pad, int nq, int nk, int q_grain,
-                 int kv_grain, int bq, int causal, float qk_scale) {
+                 int kv_grain, int bq, int causal, int diag, float qk_scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
@@ -190,9 +199,12 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
   const int tid = threadIdx.x;
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * bq;
-  // Causal: keys past the block's last query position are never visible.
-  const int kv_hi = causal ? min(s, q0 + bq) : s;
-  const int n_tiles = (kv_hi + BN - 1) / BN;
+  // Causal: a key is visible where key + k_offset <= position + q_offset, so
+  // keys past the block's last query position, moved by diag = q_offset -
+  // k_offset, are never visible. A block that sees none still runs tile 0,
+  // wholly masked (see the epilogue).
+  const int kv_hi = causal ? max(0, min(s, q0 + bq + diag)) : s;
+  const int n_tiles = max(1, (kv_hi + BN - 1) / BN);
 
   if (tid == 0) {
 #pragma unroll
@@ -241,17 +253,20 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
   fence_proxy_async();
   named_barrier(1, THREADS);
 
-  // This thread's two rows (accumulator rows lane/4 and lane/4 + 8 of its warp).
+  // This thread's two rows (accumulator rows lane/4 and lane/4 + 8 of its
+  // warp), each with its last visible key under causal masking, lim = its
+  // position + diag (below 0: the row sees no key).
   const int ra = wg * 64 + warp * 16 + lane / 4;
   bool live[2];
-  int pos[2];
+  int lim[2];
   float sq_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
-    pos[h] = q0 + r % bq;
-    live[h] = r < rows && pos[h] < t;
-    sq_r[h] = live[h] ? sq[(bh * rep + r / bq) * nq + pos[h] / q_grain] : 1.f;
+    const int pos = q0 + r % bq;
+    lim[h] = pos + diag;
+    live[h] = r < rows && pos < t;
+    sq_r[h] = live[h] ? sq[(bh * rep + r / bq) * nq + pos / q_grain] : 1.f;
   }
 
   // Tile j's scale c = (sq_r * sk) * qk_scale per row, from its kv grain's sk.
@@ -262,7 +277,9 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
   auto scale_at = [&](const float* table, int j) {
     return table[bh * nk + min(j, n_tiles - 1) * BN / kv_grain];
   };
-  auto edge = [&](int j) { return j * BN + BN > s || (causal && j * BN + BN - 1 > q0); };
+  auto edge = [&](int j) {
+    return j * BN + BN > s || (causal && j * BN + BN - 1 > q0 + diag);
+  };
 
   const uint64_t desc_q = desc_kmajor_sw64(base + wg * 64 * D);
   const uint64_t desc_ones = desc_interleave(base + OFF_ONES);
@@ -335,7 +352,7 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
     widen_v(0);
     wgmma_wait<0>();
     reg_fence(si);
-    softmax_tile(si, pa, m, alpha, c, edge(0), 0, cq, pos, s, causal);
+    softmax_tile(si, pa, m, alpha, c, edge(0), 0, cq, lim, s, causal);
     fence_proxy_async();
     named_barrier(1, THREADS);
   }
@@ -353,7 +370,7 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
     wgmma_wait<1>();  // S of tile j is done; PV of tile j - 1 may still run
     reg_fence(si);
     uint32_t pb[8][4];
-    softmax_tile(si, pb, m, alpha, c, edge(j), j * BN, cq, pos, s, causal);
+    softmax_tile(si, pb, m, alpha, c, edge(j), j * BN, cq, lim, s, causal);
     fence_proxy_async();
     wgmma_wait<0>();
     reg_fence(pa);
@@ -372,19 +389,24 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
     fold_pv(pv, ls, alpha, sv_prev);
   }
 
-  // Epilogue: O = acc / l (l == 0 -> 1), lse = m + log2(l).
+  // Epilogue: O = acc / l (l == 0 -> 1), lse = m + log2(l). A row that sees
+  // no key (causal, its position + diag < 0: every logit it met was the
+  // sentinel) gets O = 0 and lse = -inf, whatever its accumulators hold.
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!live[h]) continue;
     const int r = ra + 8 * h;
+    const bool empty = causal && lim[h] < 0;
     const float l_safe = l[h] == 0.f ? 1.f : l[h];
-    const size_t row = (bh * rep + r / bq) * t + pos[h];
+    const size_t row = (bh * rep + r / bq) * t + q0 + r % bq;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      const float2 val = make_float2(acc[4 * n + 2 * h] / l_safe, acc[4 * n + 2 * h + 1] / l_safe);
+      const float2 val = empty ? make_float2(0.f, 0.f)
+                               : make_float2(acc[4 * n + 2 * h] / l_safe,
+                                             acc[4 * n + 2 * h + 1] / l_safe);
       *reinterpret_cast<float2*>(o + row * D + n * 8 + cq) = val;
     }
-    if (lane % 4 == 0) lse[row] = m[h] + log2f(l_safe);
+    if (lane % 4 == 0) lse[row] = empty ? -INFINITY : m[h] + log2f(l_safe);
   }
 }
 
@@ -402,11 +424,14 @@ extern "C" int qa_int8_fwd_smem_bytes() { return SMEM_BYTES; }
 // their scale tables sq [bh_kv * rep, q_pad / q_grain], sk/sv [bh_kv,
 // kv_pad / kv_grain] -> O [bh_kv * rep, t, 64], lse [bh_kv * rep, t] (f32).
 // bq query positions a block (rep * bq <= 128); kv_grain a multiple of 128.
+// Causal masking is on global positions: query i sits at q_offset + i, key j
+// at k_offset + j (both >= 0; a sequence shard's first token).
 extern "C" int qa_int8_fwd(const void* q, const void* k, const void* v, const void* sq,
                            const void* sk, const void* sv, void* o, void* lse, int bh_kv, int rep,
                            int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain, int bq,
-                           int causal, float qk_scale, void* stream) {
+                           int causal, int q_offset, int k_offset, float qk_scale, void* stream) {
   if (bq < 1 || rep < 1 || rep * bq > BM || t < 1 || t > q_pad || s < 1 || s > kv_pad ||
+      q_offset < 0 || k_offset < 0 ||
       kv_pad % BN || kv_grain % BN || kv_pad % kv_grain || q_pad % q_grain || bh_kv < 1 ||
       bh_kv > 65535 ||
       static_cast<long long>(bh_kv) * kv_pad > 0x7fffffffLL)  // TMA row coordinates are int32
@@ -427,6 +452,6 @@ extern "C" int qa_int8_fwd(const void* q, const void* k, const void* v, const vo
       k_map, v_map, static_cast<const int8_t*>(q), static_cast<const float*>(sq),
       static_cast<const float*>(sk), static_cast<const float*>(sv), static_cast<float*>(o),
       static_cast<float*>(lse), rep, t, s, q_pad, kv_pad, q_pad / q_grain, kv_pad / kv_grain,
-      q_grain, kv_grain, bq, causal, qk_scale);
+      q_grain, kv_grain, bq, causal, q_offset - k_offset, qk_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 """Flow-matching DiT on the JVP attention kernels, and its rCM distillation step.
 
-Counterpart of quantizedattention_tpu/models/dit.py on one device. The model
+Counterpart of quantizedattention_tpu/models/dit.py. The model
 is a minimal adaLN DiT: timestep-conditioned shift/scale/gate around
 non-causal attention and an MLP, with a residual head. Params are a dict
 {t_mlp1, t_mlp2, out, layers: [{ada, wq, wk, wv, wo, w1, w2}]} of [in, out]
@@ -18,6 +18,14 @@ and MLP, the head) run under torch.func.jvp, and attention in between is
 mode flows through the segments' outputs. `dit_forward` runs the same
 segment functions, so the two paths cannot drift.
 
+`make_dit_rcm_step(mesh=)` is the sequence-parallel step (JAX
+models/dit.py:160-241): each rank holds its (data, context) block of the
+latents; everything but attention is per token, so only attention crosses
+the context axis: the tangent direction's prepass through the bf16 ring
+(parallel/ring.py:ring_attention), the differentiated pass through the JVP
+ring (ring_attention_jvp), and the loss and gradients summed over data and
+context.
+
 Differences from PyTorch's defaults that the JAX model fixes: GELU is the
 tanh form (jax.nn.gelu), the layer norm has no affine, uses the population
 variance and eps 1e-6, the timestep embedding is [cos, sin] at dim 256, and
@@ -32,7 +40,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from quantizedattention_tpu_torch.models.sharded_train import _psum_grads
 from quantizedattention_tpu_torch.ops.api import attention_jvp, attention_value_and_jvp
+from quantizedattention_tpu_torch.parallel.mesh import axis_size, psum
+from quantizedattention_tpu_torch.parallel.ring import ring_attention, ring_attention_jvp
 
 DIT_LAYER_KEYS = ("ada", "wq", "wk", "wv", "wo", "w1", "w2")
 
@@ -127,40 +138,59 @@ def _head(params, x):
     return x @ params["out"] + x  # residual head
 
 
-def dit_forward(params, x, t, cfg: DiTConfig):
+def _jvp_attention(q, k, v):
+    return attention_jvp(q, k, v, causal=False)
+
+
+def dit_forward(params, x, t, cfg: DiTConfig, attention=None):
     """x [B, N, D] (patched latents), t [B] -> the velocity field u [B, N, D].
 
-    Attention is `attention_jvp` (fp32 forward; under forward-mode AD its
-    tangent rule runs B10, under reverse mode the exact flash backward).
+    attention: (q, k, v) -> O, non-causal on [b, h, n, d]. The default is
+    `attention_jvp` (fp32 forward; under forward-mode AD its tangent rule
+    runs B10, under reverse mode the exact flash backward).
     """
+    attention = _jvp_attention if attention is None else attention
     temb = _temb(params, t)
     for layer in params["layers"]:
         q, k, v, *ada = _pre_attention(layer, x, temb, cfg)
-        x = _post_attention(layer, x, attention_jvp(q, k, v, causal=False), *ada)
+        x = _post_attention(layer, x, attention(q, k, v), *ada)
     return _head(params, x)
 
 
-def dit_jvp_step(params, x_t, t, cfg: DiTConfig, fast: bool = True):
+def _pair_pass(params, x, t, dx_dt, cfg: DiTConfig, pair):
+    """(u, du/dt) along the tangent (dx_dt, 1): the segments under
+    torch.func.jvp, each attention by `pair` (q, k, v, tq, tk, tv) -> (O, tO)
+    on explicit (primal, tangent) pairs."""
+    jvp = torch.func.jvp
+    temb, ttemb = jvp(lambda t_: _temb(params, t_), (t,), (torch.ones_like(t),))
+    tx = dx_dt
+    for layer in params["layers"]:
+        (q, k, v, *ada), (tq, tk, tv, *tada) = jvp(
+            lambda x_, e_: _pre_attention(layer, x_, e_, cfg), (x, temb), (tx, ttemb))
+        o, to = pair(q, k, v, tq, tk, tv)
+        x, tx = jvp(lambda x_, o_, *a_: _post_attention(layer, x_, o_, *a_),
+                    (x, o, *ada), (tx, to, *tada))
+    return jvp(lambda x_: _head(params, x_), (x,), (tx,))
+
+
+def dit_jvp_step(params, x_t, t, cfg: DiTConfig, fast: bool = True, dx_dt=None):
     """(u, du/dt) along the probability-flow ODE, differentiable in reverse mode.
 
-    The tangent direction is (dx/dt, dt/dt = 1), dx/dt being the model's own
+    The tangent direction is (dx/dt, dt/dt = 1). A given dx_dt [B, N, D] is
+    that direction and no prepass runs; with None, dx/dt is the model's own
     velocity from a prepass under no_grad (stop-gradient: rCM treats the
     direction as data), whose attention is `attention_jvp`'s fp32 forward.
     Then each attention runs `attention_value_and_jvp(fast=)` on explicit
     (primal, tangent) pairs; the segments between run under torch.func.jvp.
     """
-    with torch.no_grad():
-        dx_dt = dit_forward(params, x_t, t, cfg)
-    jvp = torch.func.jvp
-    temb, ttemb = jvp(lambda t_: _temb(params, t_), (t,), (torch.ones_like(t),))
-    x, tx = x_t, dx_dt
-    for layer in params["layers"]:
-        (q, k, v, *ada), (tq, tk, tv, *tada) = jvp(
-            lambda x_, e_: _pre_attention(layer, x_, e_, cfg), (x, temb), (tx, ttemb))
-        o, to = attention_value_and_jvp(q, k, v, tq, tk, tv, causal=False, fast=fast)
-        x, tx = jvp(lambda x_, o_, *a_: _post_attention(layer, x_, o_, *a_),
-                    (x, o, *ada), (tx, to, *tada))
-    return jvp(lambda x_: _head(params, x_), (x,), (tx,))
+    if dx_dt is None:
+        with torch.no_grad():
+            dx_dt = dit_forward(params, x_t, t, cfg)
+
+    def pair(*qkv_and_tangents):
+        return attention_value_and_jvp(*qkv_and_tangents, causal=False, fast=fast)
+
+    return _pair_pass(params, x_t, t, dx_dt, cfg, pair)
 
 
 def rcm_loss(params, x, t, cfg: DiTConfig, fast: bool = True):
@@ -169,16 +199,46 @@ def rcm_loss(params, x, t, cfg: DiTConfig, fast: bool = True):
     return dudt.square().mean() + 0.1 * u.square().mean()
 
 
-def make_dit_rcm_step(cfg: DiTConfig, params, optimizer=None, fast: bool = True):
-    """(optimizer, step) with step(x, t) -> loss, a 0-d tensor, on one device.
+def _sharded_rcm_loss(params, x, t, cfg: DiTConfig, fast: bool, mesh, data_axis: str,
+                      context_axis: str):
+    """(this rank's share of the rCM loss, for backward; the global count) on
+    its (data, context) block x [B_loc, N_loc, D] and data block t [B_loc]
+    (JAX models/dit.py:205-227): the direction from a no-grad prepass
+    through the bf16 ring, (u, du/dt) through the JVP ring, and the local
+    sum of du/dt^2 + 0.1 u^2 over the global element count."""
+    def plain_ring(q, k, v):
+        return ring_attention(q, k, v, mesh, context_axis, causal=False, kind="bf16")
 
-    Counterpart of examples/distill_dit.py's loop and of the loss of the JAX
-    `make_dit_rcm_step` (its mesh arguments are not ported). As the LM's
-    `make_train_step`, every param becomes a leaf that requires grad and
-    `step` updates them in place; it returns the loss without a sync. The
-    default optimizer matches `optax.adamw(1e-4)`: lr 1e-4, betas
-    (0.9, 0.999), eps 1e-8, weight decay 1e-4. A caller's optimizer must be
-    built over `dit_param_leaves(params)`.
+    def pair(*qkv_and_tangents):
+        return ring_attention_jvp(*qkv_and_tangents, mesh, context_axis, causal=False,
+                                  fast=fast)
+
+    with torch.no_grad():
+        dx_dt = dit_forward(params, x, t, cfg, attention=plain_ring)
+    u, dudt = _pair_pass(params, x, t, dx_dt, cfg, pair)
+    count = u.numel() * axis_size(mesh, data_axis) * axis_size(mesh, context_axis)
+    return (dudt.square().sum() + 0.1 * u.square().sum()) / count
+
+
+def make_dit_rcm_step(cfg: DiTConfig, params, optimizer=None, fast: bool = True, mesh=None,
+                      data_axis: str = "data", context_axis: str = "context"):
+    """(optimizer, step) with step(x, t) -> loss, a 0-d tensor.
+
+    Counterpart of examples/distill_dit.py's loop and of the JAX
+    `make_dit_rcm_step`. As the LM's `make_train_step`, every param becomes
+    a leaf that requires grad and `step` updates them in place; it returns
+    the loss without a sync. The default optimizer matches
+    `optax.adamw(1e-4)`: lr 1e-4, betas (0.9, 0.999), eps 1e-8, weight
+    decay 1e-4. A caller's optimizer must be built over
+    `dit_param_leaves(params)`.
+
+    mesh=None: one device, x [B, N, D] and t [B]. With a mesh (every rank
+    runs the step on the whole params): x is this rank's (data_axis,
+    context_axis) block [B / data, N / context, D] and t its data block
+    [B / data]; attention runs the rings over context_axis, the loss is the
+    global mean (the same on every rank) and every gradient is summed over
+    data_axis and context_axis (an axis the step does not use, as model,
+    replicates the computation and sums nothing).
     """
     leaves = dit_param_leaves(params)
     for p in leaves:
@@ -186,12 +246,22 @@ def make_dit_rcm_step(cfg: DiTConfig, params, optimizer=None, fast: bool = True)
     if optimizer is None:
         optimizer = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                                       weight_decay=1e-4)
+    axes = (data_axis, context_axis)
 
     def step(x, t):
         optimizer.zero_grad(set_to_none=True)
-        loss = rcm_loss(params, x, t, cfg, fast)
+        if mesh is None:
+            loss = rcm_loss(params, x, t, cfg, fast)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+        loss = _sharded_rcm_loss(params, x, t, cfg, fast, mesh, *axes)
         loss.backward()
+        _psum_grads(leaves, mesh, axes)
         optimizer.step()
-        return loss.detach()
+        total = loss.detach().clone().reshape(1)
+        for a in axes:
+            psum(total, mesh, a)
+        return total[0]
 
     return optimizer, step

@@ -1,12 +1,13 @@
 """Calls a parallel.launch.RankPool runs on every rank to drive sequence-
-parallel attention and the sharded train step.
+parallel attention, the sharded train step and the sharded rCM step.
 
 Each takes FULL inputs (the same on every rank), builds or reuses its
 (data, model, context) mesh over the pool's ranks (serve/mesh_jobs.py:mesh),
 cuts the inputs to this rank's block, runs one entry point and returns this
 rank's outputs (tensors on the CPU). tests/test_torch_sp_attention.py and
 tests/test_torch_sharded_train.py hold them against the JAX package on the
-CPU; chip_smoke.py phase 27 runs them on the card. They live in the package
+CPU (tests/test_torch_sp_jvp.py the JVP ring and the rCM step);
+chip_smoke.py phases 27 and 28 run them on the card. They live in the package
 so that spawned ranks import nothing but torch and this package; they run on
 the card unless given device_type="cpu".
 """
@@ -24,25 +25,39 @@ from quantizedattention_tpu_torch.models.sharded_train import (
     param_specs,
     shard_params,
 )
+from quantizedattention_tpu_torch.models.dit import (
+    DiTConfig,
+    dit_param_leaves,
+    init_dit,
+    make_dit_rcm_step,
+)
 from quantizedattention_tpu_torch.models.transformer import TransformerConfig, init_transformer
 from quantizedattention_tpu_torch.ops.flash_bwd import bwd_prep, flash_bwd_dkv, flash_bwd_dq
 from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
 from quantizedattention_tpu_torch.ops.int8_bwd import int8_bwd_dkv, int8_bwd_dq
 from quantizedattention_tpu_torch.ops.int8_fwd import int8_attention_fwd_from_quantized
-from quantizedattention_tpu_torch.parallel.collective import kv_sharded_attention
+from quantizedattention_tpu_torch.ops.jvp_bwd import jvp_bwd_dkv, jvp_bwd_dq, jvp_bwd_prep
+from quantizedattention_tpu_torch.ops.jvp_fwd import attention_jvp_fwd, jvp_fwd_prep
+from quantizedattention_tpu_torch.parallel.collective import (
+    kv_sharded_attention,
+    kv_sharded_attention_int8,
+    make_allgather_attention,
+)
 from quantizedattention_tpu_torch.parallel.mesh import all_gather, axis_size, shard_tensor
+from quantizedattention_tpu_torch.parallel.ring import ring_attention_jvp
 from quantizedattention_tpu_torch.parallel.multihost import local_device
 from quantizedattention_tpu_torch.parallel.zigzag import zigzag_perm
 from quantizedattention_tpu_torch.quantize.int8 import quant_int8
 from quantizedattention_tpu_torch.serve.mesh_jobs import mesh
 
-# the wrappers the sharded train step may launch, by chip_smoke.py's kernel
-# names; each counts its launches in `.launches`
+# the wrappers the sharded train and rCM steps may launch, by chip_smoke.py's
+# kernel names; each counts its launches in `.launches`
 TRAIN_KERNELS = {
     "flash_fwd": flash_attention_fwd, "flash_bwd_dkv": flash_bwd_dkv,
     "flash_bwd_dq": flash_bwd_dq, "flash_bwd_prep": bwd_prep, "quant_int8": quant_int8,
     "int8_fwd": int8_attention_fwd_from_quantized, "int8_bwd_dkv": int8_bwd_dkv,
-    "int8_bwd_dq": int8_bwd_dq,
+    "int8_bwd_dq": int8_bwd_dq, "jvp_fwd": attention_jvp_fwd, "jvp_fwd_prep": jvp_fwd_prep,
+    "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq, "jvp_bwd_prep": jvp_bwd_prep,
 }
 BLOCK = ("data", "model", "context", None)  # q, k, v, dO: batch, heads, tokens
 
@@ -74,8 +89,8 @@ def sp_attention(strategy: str, kind: str, q, k, v, do, shape, device_type: str 
     """One causal sequence-parallel attention of the full q [B, H, T, d], k/v
     [B, H_kv, T, d] on this rank's (batch, head, sequence) block of a `shape`
     mesh, as the train step runs it (models/sharded_train.py:_attend), and
-    its gradients of sum(O * dO): strategy "ring", "allgather" (bf16),
-    "ulysses" or "zigzag" (the blocks are of the zigzag-permuted sequence),
+    its gradients of sum(O * dO): strategy "ring", "allgather", "ulysses"
+    or "zigzag" (the blocks are of the zigzag-permuted sequence),
     kind "bf16" or "int8". Returns this rank's (O, dq, dk, dv) blocks."""
     m = mesh(shape, device_type)
     dev = local_device(device_type)
@@ -89,15 +104,82 @@ def sp_attention(strategy: str, kind: str, q, k, v, do, shape, device_type: str 
     return o.detach(), q.grad, k.grad, v.grad
 
 
-def kv_sharded(q, k, v, shape, causal: bool = True, device_type: str = "cuda"):
-    """`kv_sharded_attention` of q [B, H, t, d] (replicated over context) to
-    the full k/v [B, H_kv, T, d] sharded over context; returns this rank's
-    merged O block [B / data, H / model, t, d]."""
+def allgather(kind: str, q, k, v, do, shape, causal: bool = True, device_type: str = "cuda"):
+    """`make_allgather_attention(kind=)` of the full q [B, H, T, d], k/v [B,
+    H_kv, T, d] on this rank's (batch, head, sequence) block of a `shape`
+    mesh, and its gradients of sum(O * dO). Returns this rank's (O, dq, dk,
+    dv) blocks."""
+    m = mesh(shape, device_type)
+    dev = local_device(device_type)
+    q, k, v, do = (shard_tensor(x, BLOCK, m).to(dev) for x in (q, k, v, do))
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    o = make_allgather_attention(m, causal=causal, kind=kind)(q, k, v)
+    (o * do).sum().backward()
+    return o.detach(), q.grad, k.grad, v.grad
+
+
+def kv_sharded(q, k, v, shape, causal: bool = True, device_type: str = "cuda",
+               kind: str = "bf16"):
+    """`kv_sharded_attention` (kind "bf16") or `kv_sharded_attention_int8`
+    ("int8") of q [B, H, t, d] (replicated over context) to the full k/v [B,
+    H_kv, T, d] sharded over context; returns this rank's merged O block [B
+    / data, H / model, t, d]."""
     m = mesh(shape, device_type)
     dev = local_device(device_type)
     q = shard_tensor(q, ("data", "model", None, None), m).to(dev)
     k, v = (shard_tensor(x, BLOCK, m).to(dev) for x in (k, v))
-    return kv_sharded_attention(q, k, v, m, "context", causal=causal)
+    fn = kv_sharded_attention_int8 if kind == "int8" else kv_sharded_attention
+    return fn(q, k, v, m, "context", causal=causal)
+
+
+def ring_jvp(q, k, v, tq, tk, tv, do, dto, shape, causal: bool = False, fast: bool = False,
+             device_type: str = "cuda"):
+    """`ring_attention_jvp` of the full [B, H, T, d] primals and tangents on
+    this rank's (batch, head, sequence) block of a `shape` mesh, and the
+    gradients of sum(O * dO + tO * dtO) in all six inputs. Returns this
+    rank's (O, tO, dq, dk, dv, dtq, dtk, dtv) blocks."""
+    m = mesh(shape, device_type)
+    dev = local_device(device_type)
+    ins = [shard_tensor(x, BLOCK, m).to(dev).requires_grad_(True) for x in (q, k, v, tq, tk, tv)]
+    do, dto = (shard_tensor(x, BLOCK, m).to(dev) for x in (do, dto))
+    o, to = ring_attention_jvp(*ins, m, "context", causal=causal, fast=fast)
+    ((o * do).sum() + (to * dto).sum()).backward()
+    return (o.detach(), to.detach(), *(x.grad for x in ins))
+
+
+def rcm(cfg: DiTConfig, shape, params, x, t, steps: int = 1, fast: bool = True,
+        device_type: str = "cuda") -> dict:
+    """`steps` steps of make_dit_rcm_step(mesh=) on the whole `params` (None:
+    init_dit's from seed 0 on the CPU) with this rank's (data, context)
+    block of the full latents x [B, N, D] and its data block of t [B].
+    Returns the losses, the step times (ms, synchronised; the first
+    includes set-up), this rank's kernel launches over the steps (the counts
+    set to 0 just before them), and the first step's gradients (summed over
+    the ranks) and the params after it (rank 0, by dit_param_leaves' order;
+    others None)."""
+    m = mesh(shape, device_type)
+    dev = local_device(device_type)
+    if params is None:
+        params = init_dit(cfg, torch.Generator().manual_seed(0), "cpu")
+    local = _to(params, dev)
+    xb = shard_tensor(x, ("data", "context"), m).to(dev)
+    tb = shard_tensor(t, ("data",), m).to(dev)
+    _, step = make_dit_rcm_step(cfg, local, fast=fast, mesh=m)
+    losses, times, grads, first = [], [], None, None
+    _sync(dev)
+    reset_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(xb, tb))
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and dist.get_rank() == 0:
+            leaves = dit_param_leaves(local)
+            grads = [p.grad.detach().cpu() for p in leaves]
+            first = [p.detach().cpu() for p in leaves]
+    return {"losses": [float(x) for x in losses], "step_ms": times,
+            "launches": launch_counts(), "grads": grads, "params": first}
 
 
 def _flat(tree) -> dict:
@@ -161,11 +243,14 @@ def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1
 
 
 def _to(tree, dev):
+    """A copy of the tree on `dev`: the ranks' arguments may share one
+    storage (tensors pass between processes in shared memory), and the
+    optimizer updates the copy in place."""
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
-    return tree.to(dev)
+    return tree.to(dev, copy=True)
 
 
 def _profile_step(step, tok, tgt, dev) -> dict | None:
@@ -201,9 +286,13 @@ def dryrun_training(device_type: str = "cuda") -> dict:
     mesh from its `_factor_mesh` (4 ranks: data 1, model 2, context 2); a
     bf16 step with attention_sp="ring" (the dryrun takes the default "auto",
     which the port does not have), the int8 + GQA step on the ring, a Ulysses
-    step on (data x model, 1, context), a zigzag step and an all-gather step.
-    The Ulysses arm runs head_dim 64 where the dryrun takes 32: the kernels
-    have head_dim 64 only (queue B, B-f3). Returns each step's loss."""
+    step on (data x model, 1, context), a zigzag step, an all-gather step
+    and the int8 all-gather step (of the JAX package's strategies, the one
+    that also quantizes); then the rCM half (__graft_entry__.py:226-240):
+    one make_dit_rcm_step(mesh=) step on (data x model, 1, context), exact
+    mode, as the dryrun's fast=False. The Ulysses arm runs head_dim 64 where
+    the dryrun takes 32: the kernels have head_dim 64 only (queue B, B-f3).
+    Returns each step's loss."""
     n = dist.get_world_size()
     data, model, context = n, 1, 1
     if data % 2 == 0:
@@ -238,4 +327,11 @@ def dryrun_training(device_type: str = "cuda") -> dict:
                               tgts=torch.roll(utok, -1, 1), seed=8)
         out["zigzag"] = loss(cfg, "zigzag")
         out["allgather"] = loss(cfg, "allgather")
+        out["allgather_int8"] = loss(cfg, "allgather", "int8")
+    dcfg = DiTConfig(d_model=128, n_heads=2, head_dim=64, n_layers=1, seq_len=128 * context)
+    dshape = (data * model, 1, context)
+    dx = torch.randn((2 * data * model, dcfg.seq_len, dcfg.d_model), generator=g)
+    dt = torch.rand((2 * data * model,), generator=g)
+    out["rcm"] = rcm(dcfg, dshape, init_dit(dcfg, torch.Generator().manual_seed(5), "cpu"), dx,
+                     dt, 1, False, device_type)["losses"][0]
     return out

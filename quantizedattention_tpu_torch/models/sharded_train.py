@@ -211,10 +211,10 @@ def _sharded_forward(params, tokens, cfg: TransformerConfig, mesh, attention: st
     return transformer_forward(params, tokens, lcfg, attend, positions, from_model, to_model)
 
 
-def _psum_grads(leaves, mesh) -> None:
-    """Every leaf's gradient summed over data and context, in place: one flat
-    buffer, one all_reduce an axis of size > 1."""
-    axes = [a for a in ("data", "context") if axis_size(mesh, a) > 1]
+def _psum_grads(leaves, mesh, axes=("data", "context")) -> None:
+    """Every leaf's gradient summed over `axes`, in place: one flat buffer,
+    one all_reduce an axis of size > 1."""
+    axes = [a for a in axes if axis_size(mesh, a) > 1]
     if not axes:
         return
     grads = [t.grad for t in leaves]
@@ -242,7 +242,9 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None
 
     attention: "bf16" or "int8". attention_sp: "ring" (contiguous shards,
     ring hops), "allgather" (K/V all-gathered, dK/dV reduce-scattered home;
-    bf16 only: the int8 kernels take no offsets yet), "ulysses" (all-to-all
+    int8 gathers the payloads and scale tables and needs T / context a
+    multiple of 128 and of the shard's int8 kv block: ValueError from the
+    step otherwise), "ulysses" (all-to-all
     head <-> sequence; heads and kv heads per model shard divisible by the
     context axis) or "zigzag" (the load-balanced causal ring; the step
     gathers the sequence's tokens over context, permutes them by
@@ -265,11 +267,6 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None
             "ported (ROADMAP A11); pass 'ring', 'allgather', 'ulysses' or 'zigzag'")
     if attention_sp not in STRATEGIES:
         raise ValueError(f"unknown attention_sp {attention_sp!r}")
-    if attention_sp == "allgather" and attention == "int8":
-        from quantizedattention_tpu_torch.parallel.collective import _INT8_OFFSETS
-
-        raise NotImplementedError(f"attention='int8' with attention_sp='allgather': "
-                                  f"{_INT8_OFFSETS}")
     h_loc, kv_loc = cfg.n_heads // n_model, cfg.n_kv_heads // n_model
     if attention_sp == "ulysses" and (h_loc % n_ctx or kv_loc % n_ctx):
         raise ValueError(

@@ -23,6 +23,15 @@ def qk_scales(head_dim: int, sm_scale: float | None):
     return sm_scale, sm_scale * LOG2_E
 
 
+def check_offsets(q_offset, k_offset) -> tuple[int, int]:
+    """The global positions of a shard's first query and key: host ints >= 0
+    (a float that is a whole number is taken), or ValueError."""
+    if int(q_offset) != q_offset or int(k_offset) != k_offset or q_offset < 0 or k_offset < 0:
+        raise ValueError(f"q_offset and k_offset are host ints >= 0; got {q_offset!r}, "
+                         f"{k_offset!r}")
+    return int(q_offset), int(k_offset)
+
+
 def tile_mask(
     q_start: int,
     k_start: int,

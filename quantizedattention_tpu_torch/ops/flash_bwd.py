@@ -55,9 +55,8 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import flash_tiling
-from quantizedattention_tpu_torch.ops.common import MASK_VALUE, qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import MASK_VALUE, check_offsets, qk_scales, tile_mask
 from quantizedattention_tpu_torch.ops.flash_fwd import (
-    _check_offsets,
     _kernel_ready,
     _strides,
     kv_to_bf16,
@@ -153,7 +152,7 @@ def bwd_operands(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=False,
     and one `kv_to_bf16` launch for f32 K and V, unless `plain` (then torch
     ops, as on the CPU). q_offset/k_offset: host ints >= 0, as the
     forward's."""
-    q_offset, k_offset = _check_offsets(q_offset, k_offset)
+    q_offset, k_offset = check_offsets(q_offset, k_offset)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or o.shape != q.shape \
             or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"want q/o/do [b,h,t,d], k/v [b,h_kv,s,d], lse [b,h,t]; got q "

@@ -54,7 +54,7 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import flash_tiling
-from quantizedattention_tpu_torch.ops.common import MASK_VALUE, qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import MASK_VALUE, check_offsets, qk_scales, tile_mask
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
 from quantizedattention_tpu_torch.utils.runtime import check_status
 
@@ -78,20 +78,13 @@ def _check_args(q, k, v, correction, precision="bf16"):
         raise ValueError(f"unknown precision {precision!r}")
 
 
-def _check_offsets(q_offset, k_offset):
-    if int(q_offset) != q_offset or int(k_offset) != k_offset or q_offset < 0 or k_offset < 0:
-        raise ValueError(f"q_offset and k_offset are host ints >= 0; got {q_offset!r}, "
-                         f"{k_offset!r}")
-    return int(q_offset), int(k_offset)
-
-
 def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="eps",
                               precision="bf16", q_offset=0, k_offset=0):
     """The forward's arithmetic in plain PyTorch, one softmax over whole rows;
     `precision="fp32"` rounds nothing. Rows that see no key give O = 0 and
     lse = -inf."""
     _check_args(q, k, v, correction, precision)
-    q_offset, k_offset = _check_offsets(q_offset, k_offset)
+    q_offset, k_offset = check_offsets(q_offset, k_offset)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     _, qk_scale = qk_scales(d, sm_scale)
@@ -186,7 +179,7 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", 
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction,
                                          q_offset=q_offset, k_offset=k_offset)
     _check_args(q, k, v, correction)
-    q_offset, k_offset = _check_offsets(q_offset, k_offset)
+    q_offset, k_offset = check_offsets(q_offset, k_offset)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
     if d != _HEAD_DIM:

@@ -21,6 +21,11 @@ sm_scale with D = rowsum(dO * O) in f32 and the unrounded P; dK gets
 (bf16(dS)^T Q_i8) * sq per (q head, q grain); dQ gets (bf16(dS) K_i8) * sk
 + rowsum(dS) * k_mean per kv grain, the rowsum over the f32 dS (the last
 term undoes K-smoothing). dO is not pre-scaled.
+
+Causal masking is on global positions, k_offset + j <= q_offset + i, as in
+the forward (ops/int8_fwd.py). A row that saw no key (the forward's lse
+-inf, O = 0) goes to the kernels with lse +inf, so its P is 0: it gets dQ = 0,
+and keys that no row sees get dK = dV = 0.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
-from quantizedattention_tpu_torch.ops.common import qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import check_offsets, qk_scales, tile_mask
 from quantizedattention_tpu_torch.ops.int8_fwd import _layout, raw_logits_and_scale
 from quantizedattention_tpu_torch.ops.int8_tiling import HEAD_DIM, bwd_grids, check_bwd_grains
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
@@ -49,7 +54,7 @@ class Int8BwdOperands(NamedTuple):
     sv: torch.Tensor      # [b*h_kv, kv_pad // kv_grain] f32
     k_mean: torch.Tensor  # [b*h_kv, d] f32
     do: torch.Tensor      # [b*h, t, d] bf16
-    lse: torch.Tensor     # [b*h, t] f32, exp2 domain
+    lse: torch.Tensor     # [b*h, t] f32, exp2 domain; +inf for a row that saw no key
     di: torch.Tensor      # [b*h, t] f32, rowsum(dO * O)
     dims: tuple           # (batch, head, q_tokens, kv_len, head_dim)
     rep: int
@@ -58,12 +63,16 @@ class Int8BwdOperands(NamedTuple):
     sm_scale: float
     qk_scale: float
     causal: bool
+    q_offset: int = 0     # global position of the first query
+    k_offset: int = 0     # global position of the first key
 
 
-def int8_bwd_operands(residuals, k_mean, o, lse, do, dims, causal=False,
-                      sm_scale=None) -> Int8BwdOperands:
+def int8_bwd_operands(residuals, k_mean, o, lse, do, dims, causal=False, sm_scale=None,
+                      q_offset=0, k_offset=0) -> Int8BwdOperands:
     """Lay out the residuals, k_mean [b, h_kv, 1, d], O/dO [b, h, t, d] and lse
-    [b, h, t] for the kernels; D = rowsum(dO * O) in f32."""
+    [b, h, t] for the kernels; D = rowsum(dO * O) in f32, and a row's lse of
+    -inf (it saw no key) as +inf."""
+    q_offset, k_offset = check_offsets(q_offset, k_offset)
     bh_kv, rep, q_grain, kv_grain = _layout(residuals, dims)
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
     b, h, t, s, d = dims
@@ -74,13 +83,15 @@ def int8_bwd_operands(residuals, k_mean, o, lse, do, dims, causal=False,
                          f"{tuple(k_mean.shape)}")
     sm_scale, qk_scale = qk_scales(d, sm_scale)
     di = (do.float() * o.float()).sum(-1)
+    lse = lse.float()
+    lse = torch.where(lse == -torch.inf, torch.inf, lse)
     return Int8BwdOperands(
         q_i8=q_i8, sq=sq.float(), k_i8=k_i8, sk=sk.float(), v_i8=v_i8, sv=sv.float(),
         k_mean=k_mean.float().reshape(bh_kv, d).contiguous(),
         do=do.to(torch.bfloat16).reshape(b * h, t, d).contiguous(),
-        lse=lse.float().reshape(b * h, t).contiguous(), di=di.reshape(b * h, t).contiguous(),
+        lse=lse.reshape(b * h, t).contiguous(), di=di.reshape(b * h, t).contiguous(),
         dims=tuple(dims), rep=rep, q_grain=q_grain, kv_grain=kv_grain, sm_scale=sm_scale,
-        qk_scale=qk_scale, causal=bool(causal),
+        qk_scale=qk_scale, causal=bool(causal), q_offset=q_offset, k_offset=k_offset,
     )
 
 
@@ -99,7 +110,8 @@ def _p_ds(ops: Int8BwdOperands):
     raw, c = raw_logits_and_scale(ops.q_i8, ops.sq, ops.k_i8, ops.sk, bh_kv, ops.rep, t, s,
                                   ops.q_grain, ops.kv_grain, ops.qk_scale)
     lse = ops.lse.reshape(bh_kv, ops.rep, t, 1)
-    mask = tile_mask(0, 0, t, s, s, ops.causal, device=raw.device)
+    mask = tile_mask(ops.q_offset, ops.k_offset, t, s, s, ops.causal, k_local_start=0,
+                     device=raw.device)
     p = torch.where(mask, torch.exp2(raw * c - lse), 0.0)
     sv_key = ops.sv[:, torch.arange(s, device=raw.device) // ops.kv_grain]
     dp = (_dov(ops) @ ops.v_i8[:, :s].float()[:, None].transpose(-1, -2)) * sv_key[:, None, None]
@@ -152,8 +164,8 @@ def int8_bwd_dq_plain(ops: Int8BwdOperands):
 def _kernels():
     lib = load_kernel("int8_bwd")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 9 + [f32, f32, ptr]
-    lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 10 + [f32, f32, ptr]
+    lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 11 + [f32, f32, ptr]
+    lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 12 + [f32, f32, ptr]
     lib.qa_int8_bwd_dkv.restype = lib.qa_int8_bwd_dq.restype = ctypes.c_int
     return lib
 
@@ -194,8 +206,8 @@ def int8_bwd_dkv(ops: Int8BwdOperands):
     dk = torch.empty((ops.k_i8.shape[0], s, HEAD_DIM), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     status = _kernels().qa_int8_bwd_dkv(
-        *_inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints, int(ops.causal), ops.qk_scale,
-        ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
+        *_inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints, int(ops.causal), ops.q_offset,
+        ops.k_offset, ops.qk_scale, ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_bwd_dkv")
     int8_bwd_dkv.launches += 1
@@ -213,7 +225,8 @@ def int8_bwd_dq(ops: Int8BwdOperands):
                      device=dev)
     status = _kernels().qa_int8_bwd_dq(
         *_inputs(ops), ops.k_mean.data_ptr(), dq.data_ptr(), *ints, bq, int(ops.causal),
-        ops.qk_scale, ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
+        ops.q_offset, ops.k_offset, ops.qk_scale, ops.sm_scale,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_bwd_dq")
     int8_bwd_dq.launches += 1
@@ -230,19 +243,23 @@ def _unflatten(ops, dq, dk, dv):
     return dq.reshape(b, h, t, d), dk.reshape(b, h_kv, s, d), dv.reshape(b, h_kv, s, d)
 
 
-def int8_attention_bwd(residuals, k_mean, o, lse, do, dims, causal=False, sm_scale=None):
+def int8_attention_bwd(residuals, k_mean, o, lse, do, dims, causal=False, sm_scale=None,
+                       q_offset=0, k_offset=0):
     """Int8 backward from the forward's residuals (`quantize_qkv`'s layout, K
     smoothed by k_mean [b, h_kv, 1, d]); o/do [b, h, t, d], lse [b, h, t];
-    dims = (batch, head, q_tokens, kv_len, head_dim). Returns (dq [b, h, t, d],
-    dk, dv [b, h_kv, s, d]) in f32. CUDA tensors run B7 and B8, CPU tensors
-    their plain versions."""
-    ops = int8_bwd_operands(residuals, k_mean, o, lse, do, dims, causal, sm_scale)
+    dims = (batch, head, q_tokens, kv_len, head_dim); q_offset/k_offset as
+    the forward's. Returns (dq [b, h, t, d], dk, dv [b, h_kv, s, d]) in f32.
+    CUDA tensors run B7 and B8, CPU tensors their plain versions."""
+    ops = int8_bwd_operands(residuals, k_mean, o, lse, do, dims, causal, sm_scale, q_offset,
+                            k_offset)
     dk, dv = int8_bwd_dkv(ops)
     return _unflatten(ops, int8_bwd_dq(ops), dk, dv)
 
 
-def int8_attention_bwd_plain(residuals, k_mean, o, lse, do, dims, causal=False, sm_scale=None):
+def int8_attention_bwd_plain(residuals, k_mean, o, lse, do, dims, causal=False, sm_scale=None,
+                             q_offset=0, k_offset=0):
     """`int8_attention_bwd` through the plain versions, on any device."""
-    ops = int8_bwd_operands(residuals, k_mean, o, lse, do, dims, causal, sm_scale)
+    ops = int8_bwd_operands(residuals, k_mean, o, lse, do, dims, causal, sm_scale, q_offset,
+                            k_offset)
     dk, dv = int8_bwd_dkv_plain(ops)
     return _unflatten(ops, int8_bwd_dq_plain(ops), dk, dv)

@@ -22,6 +22,15 @@ give 0 and lse = m + log2(l) (exp2 domain). The kernel runs the online
 softmax per 128-key tile, the plain version over whole rows, so the two
 differ only in where P is rounded (as B1 and its plain version do).
 
+Causal masking is on global positions (JAX ops/int8_fwd.py:85-86, the TPU
+kernel's q_offset/k_offset): query i sits at q_offset + i and key j at
+k_offset + j, visible where k_offset + j <= q_offset + i (and j < s). The
+sequence-parallel paths pass a shard's first token (parallel/collective.py,
+parallel/ring.py). A row that sees no key (q_offset < k_offset) gives O = 0
+and lse = -inf in both versions; the TPU kernel gives such a row inside a
+live tile a finite lse and the mean of its V (ROADMAP.md §C, C4). The scale
+grain stays the payloads' own: offsets move only the mask. B6 takes none.
+
 `int8_attention_fwd_fused` runs B6 on f32 or bf16 CUDA inputs: one B4 launch
 (`quant_int8_uncounted`, on the inputs in their own type) writes the
 payloads and scale tables of Q, K (after the shift) and V into scratch, so K
@@ -38,7 +47,7 @@ import functools
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
-from quantizedattention_tpu_torch.ops.common import qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import check_offsets, qk_scales, tile_mask
 from quantizedattention_tpu_torch.ops.int8_tiling import HEAD_DIM, block_positions, check_grain
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
 from quantizedattention_tpu_torch.quantize.int8 import (
@@ -121,16 +130,19 @@ def raw_logits_and_scale(q_i8, sq, k_i8, sk, bh_kv, rep, t, s, q_grain, kv_grain
     return raw, c
 
 
-def int8_attention_fwd_from_quantized_plain(residuals, dims, causal=False, sm_scale=None):
+def int8_attention_fwd_from_quantized_plain(residuals, dims, causal=False, sm_scale=None,
+                                            q_offset=0, k_offset=0):
     """B5's arithmetic in plain PyTorch, one softmax over whole rows.
-    Returns (o [b, h, t, d] f32, lse [b, h, t])."""
+    Returns (o [b, h, t, d] f32, lse [b, h, t]); rows that see no key give
+    O = 0 and lse = -inf."""
+    q_offset, k_offset = check_offsets(q_offset, k_offset)
     bh_kv, rep, q_grain, kv_grain = _layout(residuals, dims)
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
     b, h, t, s, d = dims
     _, qk_scale = qk_scales(d, sm_scale)
     raw, c = raw_logits_and_scale(q_i8, sq, k_i8, sk, bh_kv, rep, t, s, q_grain, kv_grain,
                                   qk_scale)
-    mask = tile_mask(0, 0, t, s, s, causal, device=raw.device)
+    mask = tile_mask(q_offset, k_offset, t, s, s, causal, k_local_start=0, device=raw.device)
     raw = torch.where(mask, raw, 30000.0 / -c)
     scaled = raw * c
     m = scaled.amax(-1, keepdim=True) + EPS_BIAS
@@ -143,15 +155,16 @@ def int8_attention_fwd_from_quantized_plain(residuals, dims, causal=False, sm_sc
         pv = p[..., g0:g1] @ vf[:, :, g0:g1]
         acc = acc + pv * sv.float()[:, g0 // kv_grain, None, None, None]
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = acc / l_safe
-    lse = m + torch.log2(l_safe)
+    seen = mask.any(-1, keepdim=True)  # [t, 1]: the row sees a key
+    o = torch.where(seen, acc / l_safe, 0.0)
+    lse = torch.where(seen, m + torch.log2(l_safe), -torch.inf)
     return o.reshape(b, h, t, d), lse[..., 0].reshape(b, h, t)
 
 
 @functools.cache
 def _kernel():
     fn = load_kernel("int8_fwd").qa_int8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -172,7 +185,7 @@ def _launch_args(residuals, dims):
     return require_cuda(q_i8, k_i8, v_i8, sq, sk, sv), bh_kv, rep, q_grain, kv_grain, bq
 
 
-def _attend(residuals, dims, causal, sm_scale):
+def _attend(residuals, dims, causal, sm_scale, q_offset=0, k_offset=0):
     """One launch of B5's kernel on CUDA residuals, not counted here."""
     dev, bh_kv, rep, q_grain, kv_grain, bq = _launch_args(residuals, dims)
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
@@ -183,24 +196,29 @@ def _attend(residuals, dims, causal, sm_scale):
     status = _kernel()(
         q_i8.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), sq.data_ptr(), sk.data_ptr(),
         sv.data_ptr(), o.data_ptr(), lse.data_ptr(), bh_kv, rep, t, s, q_i8.shape[1],
-        k_i8.shape[1], q_grain, kv_grain, bq, int(causal), qk_scale,
+        k_i8.shape[1], q_grain, kv_grain, bq, int(causal), q_offset, k_offset, qk_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_fwd")
     return o, lse
 
 
-def int8_attention_fwd_from_quantized(residuals, dims, causal=False, sm_scale=None):
+def int8_attention_fwd_from_quantized(residuals, dims, causal=False, sm_scale=None, q_offset=0,
+                                      k_offset=0):
     """B5: the int8 forward from pre-quantized residuals (the layout of
     `quantize_qkv`); dims = (batch, head, q_tokens, kv_len, head_dim).
 
-    CUDA residuals launch the kernel (head_dim 64, rep <= 128, kv grain a
-    multiple of 128) or raise; CPU residuals take the plain version. Returns
-    (o [b, h, t, d] f32, lse [b, h, t]). `.launches` counts kernel launches.
+    q_offset/k_offset (host ints >= 0): the global positions of the first
+    query and key, for causal masking across sequence shards. CUDA residuals
+    launch the kernel (head_dim 64, rep <= 128, kv grain a multiple of 128)
+    or raise; CPU residuals take the plain version. Returns (o [b, h, t, d]
+    f32, lse [b, h, t]). `.launches` counts kernel launches.
     """
     if residuals[0][0].device.type == "cpu":
-        return int8_attention_fwd_from_quantized_plain(residuals, dims, causal, sm_scale)
-    out = _attend(residuals, dims, causal, sm_scale)
+        return int8_attention_fwd_from_quantized_plain(residuals, dims, causal, sm_scale,
+                                                       q_offset, k_offset)
+    q_offset, k_offset = check_offsets(q_offset, k_offset)
+    out = _attend(residuals, dims, causal, sm_scale, q_offset, k_offset)
     int8_attention_fwd_from_quantized.launches += 1
     return out
 

@@ -18,9 +18,19 @@ front:
   the normalized partials merge by `lse_weighted_merge`. Forward only. Rows
   that see no key of a rank's slice give that rank lse -inf and weight 0.
 
-The int8 twins (JAX collective.py:123-201, :228-247) need the global
-offsets in B5, B7 and B8 (queue B, B-f2), which the port's int8 kernels do
-not take yet: they raise NotImplementedError.
+The int8 twins (JAX collective.py:123-201, :228-247) quantize each shard
+once (B4) with K smoothed by the GLOBAL token mean (`pmean` over the axis),
+at the grain of the shard:
+- `allgather_kv_attention_int8` all-gathers the int8 K/V payloads and their
+  scale tables (a quarter of bf16's bytes; GQA: the unrepeated kv heads,
+  which the GQA-native kernels read as they are) and runs one B5 with
+  q_offset = idx * t_local; the backward is B7 + B8 at the same offsets,
+  then `psum_scatter` of dK/dV. It keeps JAX's refusals
+  (tune/config.py:int8_shard_grain): t_local a multiple of 128 and of the
+  kv block and grain clamped to the shard, so that each shard's payload has
+  no padding and the gathered payloads are the whole sequence's grid.
+- `kv_sharded_attention_int8` runs B5 on the rank's key slice with k_offset
+  = idx * t_local, then `lse_weighted_merge`. Forward only.
 """
 
 from __future__ import annotations
@@ -29,16 +39,22 @@ import torch
 
 from quantizedattention_tpu_torch.ops.flash_bwd import flash_attention_bwd
 from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
+from quantizedattention_tpu_torch.ops.int8_bwd import int8_attention_bwd
+from quantizedattention_tpu_torch.ops.int8_fwd import (
+    _qkv_dims,
+    int8_attention_fwd_from_quantized,
+    quantize_qkv,
+)
 from quantizedattention_tpu_torch.parallel.mesh import (
     all_gather,
     axis_index,
+    axis_size,
     pmax,
     psum,
     psum_scatter,
 )
-
-_INT8_OFFSETS = ("the int8 kernels B5, B7 and B8 take no global q/k offsets yet (queue B, "
-                 "B-f2); use the int8 ring, zigzag or Ulysses")
+from quantizedattention_tpu_torch.parallel.ring import global_k_mean
+from quantizedattention_tpu_torch.tune.config import int8_shard_grain
 
 
 def lse_weighted_merge(o: torch.Tensor, lse: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -94,10 +110,54 @@ def allgather_kv_attention(q, k, v, mesh, axis: str = "context", causal: bool = 
     return _AllGatherKV.apply(q, k, v, mesh, axis, causal, sm_scale)
 
 
+class _AllGatherKVInt8(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis, causal, sm_scale):
+        b, h, t_local, d = q.shape
+        k_mean = global_k_mean(k, mesh, axis)
+        (q_i8, sq), (k_i8, sk), (v_i8, sv) = quantize_qkv(q, k, v, k_sub=k_mean)
+        # the shards share one grain and carry no padding: the payloads and
+        # scale tables concatenated in coordinate order ARE the sequence's
+        k_i8, sk, v_i8, sv = (all_gather(x, mesh, axis, 1) for x in (k_i8, sk, v_i8, sv))
+        dims = (b, h, t_local, axis_size(mesh, axis) * t_local, d)
+        q_off = axis_index(mesh, axis) * t_local
+        o, lse = int8_attention_fwd_from_quantized(((q_i8, sq), (k_i8, sk), (v_i8, sv)), dims,
+                                                   causal=causal, sm_scale=sm_scale,
+                                                   q_offset=q_off, k_offset=0)
+        ctx.save_for_backward(q_i8, sq, k_i8, sk, v_i8, sv, k_mean, o, lse)
+        ctx.args = (mesh, axis, causal, sm_scale, dims, q_off, q.dtype, k.dtype, v.dtype)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q_i8, sq, k_i8, sk, v_i8, sv, k_mean, o, lse = ctx.saved_tensors
+        mesh, axis, causal, sm_scale, dims, q_off, q_dtype, k_dtype, v_dtype = ctx.args
+        dq, dk_full, dv_full = int8_attention_bwd(((q_i8, sq), (k_i8, sk), (v_i8, sv)), k_mean,
+                                                  o, lse, do, dims, causal=causal,
+                                                  sm_scale=sm_scale, q_offset=q_off, k_offset=0)
+        dk = psum_scatter(dk_full, mesh, axis, 2)
+        dv = psum_scatter(dv_full, mesh, axis, 2)
+        return dq.to(q_dtype), dk.to(k_dtype), dv.to(v_dtype), None, None, None, None
+
+
 def allgather_kv_attention_int8(q, k, v, mesh, axis: str = "context", causal: bool = False,
-                                sm_scale: float | None = None):
-    """The int8 all-gather attention: not ported (see the module docstring)."""
-    raise NotImplementedError(f"allgather_kv_attention_int8: {_INT8_OFFSETS}")
+                                sm_scale: float | None = None) -> torch.Tensor:
+    """Sequence-parallel int8 attention: each shard quantized once (K
+    smoothed by the global mean), the int8 K/V payloads and scale tables
+    all-gathered over `axis`, one B5 launch. q/k/v: this rank's shards [b,
+    h(_kv), t_local, d], the sequence split identically over `axis`;
+    t_local a multiple of 128 and of the shard's kv block and grain
+    (`int8_shard_grain`), else ValueError before any collective.
+    Differentiable (B7 + B8, then psum_scatter of dK/dV); returns this
+    rank's O shard in f32."""
+    if q.shape[1] % k.shape[1] != 0:
+        raise ValueError("q heads must be a multiple of kv heads")
+    if q.shape[2] != k.shape[2]:
+        raise ValueError(f"q and k/v shards must hold the same tokens: {q.shape[2]} != "
+                         f"{k.shape[2]}")
+    int8_shard_grain(q.shape[2], q.shape[1] // k.shape[1])
+    return _AllGatherKVInt8.apply(q, k, v, mesh, axis, causal, sm_scale)
 
 
 def kv_sharded_attention(q, k, v, mesh, axis: str = "context", causal: bool = False,
@@ -112,24 +172,31 @@ def kv_sharded_attention(q, k, v, mesh, axis: str = "context", causal: bool = Fa
 
 
 def kv_sharded_attention_int8(q, k, v, mesh, axis: str = "context", causal: bool = False,
-                              sm_scale: float | None = None):
-    """The int8 KV-sharded attention: not ported (see the module docstring)."""
-    raise NotImplementedError(f"kv_sharded_attention_int8: {_INT8_OFFSETS}")
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """Int8 attention of replicated q [b, h, t, d] to K/V [b, h_kv, t_local,
+    d] sharded over `axis`: this rank's slice quantized with K smoothed by
+    the global mean (q at the grain of (t, t_local)), one B5 launch with
+    k_offset = idx * t_local, then `lse_weighted_merge`. Forward only;
+    returns O f32 [b, h, t, d], the same on every rank of the axis."""
+    k_mean = global_k_mean(k, mesh, axis)
+    o, lse = int8_attention_fwd_from_quantized(
+        quantize_qkv(q, k, v, k_sub=k_mean), _qkv_dims(q, k, v), causal=causal,
+        sm_scale=sm_scale, q_offset=0, k_offset=axis_index(mesh, axis) * k.shape[2])
+    return lse_weighted_merge(o, lse, mesh, axis)
 
 
 def make_allgather_attention(mesh, causal: bool = False, sm_scale: float | None = None,
                              context_axis: str = "context", kind: str = "bf16"):
     """(q, k, v) -> O on this rank's (batch, head, sequence) block of `mesh`
-    through `allgather_kv_attention` (`spec` as make_ring_attention's; swap
-    one for the other freely). kind "int8" raises NotImplementedError."""
-    if kind == "int8":
-        raise NotImplementedError(f"make_allgather_attention(kind='int8'): {_INT8_OFFSETS}")
-    if kind != "bf16":
+    through `allgather_kv_attention` (kind "bf16") or
+    `allgather_kv_attention_int8` ("int8"); `spec` as make_ring_attention's
+    (swap one for the other freely)."""
+    if kind not in ("bf16", "int8"):
         raise ValueError(f"unknown kind {kind!r}")
+    fn = allgather_kv_attention_int8 if kind == "int8" else allgather_kv_attention
 
     def sharded(q, k, v):
-        return allgather_kv_attention(q, k, v, mesh, context_axis, causal=causal,
-                                      sm_scale=sm_scale)
+        return fn(q, k, v, mesh, context_axis, causal=causal, sm_scale=sm_scale)
 
     sharded.spec = ("data", "model", context_axis, None)
     return sharded

@@ -1,14 +1,15 @@
 """Ring attention over the `context` axis, and merging partial attentions.
 
-Counterpart of quantizedattention_tpu/parallel/ring.py (its bf16 and int8
-rings; the JVP ring is not ported). The sequence is split over the ranks of
-the context axis; every rank keeps its query shard and the key/value shards
-pass around the ring by `mesh.ppermute`, one hop a step. At each step a rank
-attends its queries to the shard in front of it and merges the normalized
-partial (O, lse) into its running result by their exp2-domain lse
-(`_merge_partials`, JAX ring.py:52-62): the merge is associative, so the
-ring's order does not matter. The next hop is posted before the step's
-kernel (JAX ring.py:92), so on NCCL the transfer overlaps it.
+Counterpart of quantizedattention_tpu/parallel/ring.py: its bf16 and int8
+rings, and the JVP ring (`ring_attention_jvp`, below). The sequence is split
+over the ranks of the context axis; every rank keeps its query shard and the
+key/value shards pass around the ring by `mesh.ppermute`, one hop a step.
+At each step a rank attends its queries to the shard in front of it and
+merges the normalized partial (O, lse) into its running result by their
+exp2-domain lse (`_merge_partials`, JAX ring.py:52-62): the merge is
+associative, so the ring's order does not matter. The next hop is posted
+before the step's kernel (JAX ring.py:92), so on NCCL the transfer overlaps
+it.
 
 Causal: shard src sits at positions src * t_local on. A shard in the future
 (src > idx) is skipped on the host: every rank knows src and idx, so no
@@ -22,8 +23,8 @@ device value is read. The shards in the past run whole.
   the same shift for every key of a row), at the grain of its own shard
   (tune/config.py:int8_grain at (t_local, t_local), the grain of JAX's
   default_block_config("int8", t_local, t_local, d)). The int8 payloads and
-  their scale tables ride the ring; B5 runs causal on the diagonal and
-  non-causal on the past shards, so it needs no offsets.
+  their scale tables ride the ring; B5 runs at the same global offsets as
+  B1 (a past shard's causal mask covers it whole, so it masks no tile).
 
 Both run through one torch.autograd.Function, `_Ring`, whose backward is a
 ring too (JAX ring.py:137-190 and :246-292): the forward's shards rotate
@@ -34,6 +35,15 @@ after n hops they are home. A ring is its list of pieces a step
 (`_contiguous_pieces` here, parallel/zigzag.py's chunk pairs) and its kind
 (`_BF16`, `_Int8`). GQA: the unrepeated kv heads ride the ring and feed the
 GQA-native kernels.
+
+The JVP ring (`ring_attention_jvp`, JAX ring.py:362-529) carries (K, V, tK,
+tV) around the same ring and runs B9 a live step (causal on the diagonal,
+whole on a past shard, a future one skipped on the host; the diagonal has
+t = s, so no offsets), merging the partials (O, tO, lse, mu) exactly in the
+exp2 domain (`_merge_jvp_partials`). Its backward is the second-order ring:
+the four f32 accumulators (dK, dV, dtK, dtV) ride beside the shards and
+each live step runs B11 + B12 (`attention_jvp_bwd`) against the GLOBAL
+(O, tO, lse, mu); a last hop brings the accumulators home.
 """
 
 from __future__ import annotations
@@ -55,6 +65,8 @@ from quantizedattention_tpu_torch.ops.int8_fwd import (
     int8_attention_fwd_from_quantized,
     quantize_qkv,
 )
+from quantizedattention_tpu_torch.ops.jvp_bwd import attention_jvp_bwd
+from quantizedattention_tpu_torch.ops.jvp_fwd import attention_jvp_fwd
 from quantizedattention_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
@@ -101,6 +113,14 @@ def ring_steps(blk: list, mesh, axis: str):
             blk = pending.wait()
 
 
+def global_k_mean(k, mesh, axis: str) -> torch.Tensor:
+    """K's token mean over the whole sequence, [b, h_kv, 1, d] f32: the shards'
+    means averaged over `axis` (the shards hold equal token counts). The int8
+    paths smooth every shard's K by it: softmax shift invariance needs the
+    same shift for every key of a row."""
+    return pmean(k.float().mean(dim=-2, keepdim=True), mesh, axis)
+
+
 class _BF16:
     """The bf16 kind: B1 a piece; backward B2 + B3 fast. K and V ride the
     ring in bf16 (the kernels round them to bf16 anyway)."""
@@ -132,22 +152,20 @@ class _BF16:
 
 class _Int8:
     """The int8 kind: B4 once a chunk, with K smoothed by the GLOBAL token
-    mean, B5 a piece; backward B7 + B8. The payloads and their scale tables
-    ride the ring. These kernels take no offsets yet (B-f2): a causal piece
-    whose offsets differ lies wholly in the past on every ring here, so it
-    runs whole."""
+    mean, B5 a piece at its global offsets; backward B7 + B8 at the same.
+    The payloads and their scale tables ride the ring."""
 
     @staticmethod
     def prepare(q, k, v, qs, ks, vs, mesh, axis):
-        k_mean = pmean(k.float().mean(dim=-2, keepdim=True), mesh, axis)
+        k_mean = global_k_mean(k, mesh, axis)
         res = [quantize_qkv(*x, k_sub=k_mean) for x in zip(qs, ks, vs)]
         return [r[0] for r in res], [x for r in res for x in (*r[1], *r[2])], [k_mean]
 
     @staticmethod
     def forward(q_res, kv, dims, causal, q_offset, k_offset, sm_scale):
-        return int8_attention_fwd_from_quantized(
-            (q_res, kv[:2], kv[2:]), dims, causal=causal and q_offset == k_offset,
-            sm_scale=sm_scale)
+        return int8_attention_fwd_from_quantized((q_res, kv[:2], kv[2:]), dims, causal=causal,
+                                                 sm_scale=sm_scale, q_offset=q_offset,
+                                                 k_offset=k_offset)
 
     @staticmethod
     def operands(q_res, kv, extra, o, lse, do, dims, sm_scale):
@@ -156,8 +174,8 @@ class _Int8:
 
     @staticmethod
     def backward(ops, kv, causal, q_offset, k_offset):
-        piece = ops._replace(k_i8=kv[0], sk=kv[1], v_i8=kv[2], sv=kv[3],
-                             causal=causal and q_offset == k_offset)
+        piece = ops._replace(k_i8=kv[0], sk=kv[1], v_i8=kv[2], sv=kv[3], causal=causal,
+                             q_offset=q_offset, k_offset=k_offset)
         return (*int8_bwd_dkv(piece), int8_bwd_dq(piece))
 
 
@@ -270,3 +288,94 @@ def make_ring_attention(mesh, kind: str = "bf16", causal: bool = False,
 
     sharded.spec = ("data", "model", context_axis, None)
     return sharded
+
+
+# --------------------------------------------------------------------------
+# The JVP ring: sequence-parallel (O, tO) for long-context rCM distillation
+# --------------------------------------------------------------------------
+
+def _merge_jvp_partials(acc, part):
+    """Merge two normalized JVP partials (O, tO [..., t, d], lse, mu [..., t])
+    exactly (JAX ring.py:375-391): with w = exp2(lse - max), O and mu are the
+    w-weighted means, and tO the weighted mean of the de-centred tO + mu O
+    less mu O. Both lse -inf gives zeros and lse -inf."""
+    o1, to1, lse1, mu1 = acc
+    o2, to2, lse2, mu2 = part
+    m = torch.maximum(lse1, lse2)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    w1 = torch.where(torch.isfinite(lse1), torch.exp2(lse1 - m_safe), 0.0)
+    w2 = torch.where(torch.isfinite(lse2), torch.exp2(lse2 - m_safe), 0.0)
+    l = w1 + w2
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = (o1 * w1[..., None] + o2 * w2[..., None]) / l_safe[..., None]
+    mu = (mu1 * w1 + mu2 * w2) / l_safe
+    num = ((to1 + mu1[..., None] * o1) * w1[..., None]
+           + (to2 + mu2[..., None] * o2) * w2[..., None]) / l_safe[..., None]
+    to = num - mu[..., None] * o
+    lse = torch.where(l == 0.0, -torch.inf, m + torch.log2(l_safe))
+    return o, to, lse, mu
+
+
+def _live(causal: bool, src: int, idx: int):
+    """Whether shard src is attended by this rank's queries, and causally:
+    (live, causal of the piece)."""
+    if not causal:
+        return True, False
+    return src <= idx, src == idx
+
+
+class _RingJVP(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, tq, tk, tv, mesh, axis, causal, sm_scale, fast):
+        idx = axis_index(mesh, axis)
+        o, lse = _empty_partial(q)
+        acc = (o, torch.zeros_like(o), lse, torch.zeros_like(lse))
+        own = [x.contiguous() for x in (k, v, tk, tv)]
+        for _, src, blk in ring_steps(own, mesh, axis):
+            live, piece_causal = _live(causal, src, idx)
+            if live:
+                part = attention_jvp_fwd(q, blk[0], blk[1], tq, blk[2], blk[3],
+                                         causal=piece_causal, sm_scale=sm_scale, fast=fast)
+                acc = _merge_jvp_partials(acc, part)
+        o, to, lse, mu = acc
+        ctx.save_for_backward(q, *own, tq, o, to, lse, mu)
+        ctx.args = (mesh, axis, causal, sm_scale, fast, tuple(x.dtype for x in (q, k, v, tq, tk,
+                                                                                tv)))
+        return o, to
+
+    @staticmethod
+    def backward(ctx, do, dto):
+        q, k, v, tk, tv, tq, o, to, lse, mu = ctx.saved_tensors
+        mesh, axis, causal, sm_scale, fast, dtypes = ctx.args
+        idx = axis_index(mesh, axis)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dtq = torch.zeros_like(dq)
+        acc = [torch.zeros(k.shape, dtype=torch.float32, device=k.device) for _ in range(4)]
+        for _, src, blk in ring_steps([k, v, tk, tv], mesh, axis):
+            live, piece_causal = _live(causal, src, idx)
+            if live:
+                dq_p, dk_p, dv_p, dtq_p, dtk_p, dtv_p = attention_jvp_bwd(
+                    q, blk[0], blk[1], tq, blk[2], blk[3], o, to, lse, mu, do, dto,
+                    causal=piece_causal, sm_scale=sm_scale, fast=fast)
+                dq += dq_p
+                dtq += dtq_p
+                for a, g in zip(acc, (dk_p, dv_p, dtk_p, dtv_p)):
+                    a += g
+            acc = ppermute(acc, mesh, axis)  # they follow their shards: home after n hops
+        grads = (dq, acc[0], acc[1], dtq, acc[2], acc[3])
+        return (*(g.to(dt) for g, dt in zip(grads, dtypes)), None, None, None, None, None)
+
+
+def ring_attention_jvp(q, k, v, tq, tk, tv, mesh, axis: str = "context", causal: bool = False,
+                       sm_scale: float | None = None, fast: bool = False):
+    """Sequence-parallel (O, tO) of attention and its tangent on this rank's
+    shards: q/k/v and tq/tk/tv [b, h, t_local, d] (one head count), the
+    sequence split identically over `axis`. B9 a live ring step (fast: its
+    bf16-operand mode); differentiable in reverse mode in all six inputs
+    through the second-order ring (B11 + B12 a live step). Returns this
+    rank's (O, tO) shards in f32."""
+    if q.shape[2] != k.shape[2]:
+        raise ValueError(f"q and k/v shards must hold the same tokens: {q.shape[2]} != "
+                         f"{k.shape[2]}")
+    return _RingJVP.apply(q, k, v, tq, tk, tv, mesh, axis, causal, sm_scale, fast)

@@ -10,8 +10,9 @@ outputs. So the port reproduces the rule exactly (`int8_grain`), while the
 Hopper kernels tile at their own 64-token tiles inside it.
 
 Carried over: the BlockConfig fields, `kv_compute`, `clamp` (fit to short
-sequences), `clamp_rep` (the GQA shrink) and the pinned "int8" default.
-Left out: the autotune JSON cache and the other kinds' defaults.
+sequences), `clamp_rep` (the GQA shrink), the pinned "int8" default and the
+int8 all-gather's shard rule (`int8_shard_grain`). Left out: the autotune
+JSON cache and the other kinds' defaults.
 """
 
 from __future__ import annotations
@@ -121,3 +122,20 @@ def int8_grain(t: int, s: int, rep: int = 1) -> tuple[int, int, int, int]:
     q_pad = -(-t // cfg.block_q) * cfg.block_q
     kv_pad = -(-s // cfg.block_kv) * cfg.block_kv
     return cfg.block_q, min(cfg.kv_compute, kv_pad), q_pad, kv_pad
+
+
+def int8_shard_grain(t_local: int, rep: int = 1) -> tuple[int, int, int, int]:
+    """`int8_grain(t_local, t_local, rep)` of one sequence shard whose K/V
+    payloads and scale tables are all-gathered (JAX
+    parallel/collective.py:150-163), after its refusals: t_local must be a
+    multiple of 128, and of the kv block and grain of the config clamped to
+    the shard (`clamp(t_local, t_local)`). Then kv_pad == t_local, so the
+    shards' grids concatenate with no interior padding: the gathered
+    payload is the whole sequence's quantization grid."""
+    if t_local % 128 != 0:
+        raise ValueError("int8 all-gather requires t_local % 128 == 0")
+    cfg = INT8_DEFAULT.clamp(t_local, t_local)
+    if t_local % cfg.block_kv != 0 or t_local % cfg.kv_compute != 0:
+        raise ValueError(f"int8 all-gather: t_local={t_local} must be a multiple of the kv block "
+                         f"({cfg.block_kv}) and grain ({cfg.kv_compute})")
+    return int8_grain(t_local, t_local, rep)

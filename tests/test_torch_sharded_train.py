@@ -11,7 +11,7 @@ params_from_jax) and tokens:
 - bf16 strategies: JAX's one-device jax.value_and_grad(lm_loss). A wrong
   factor in a collective's transpose shows here, not in AdamW's first step,
   which is close to sign(g).
-- int8 ring and zigzag: JAX's shard_map'd loss of the same strategy
+- int8 ring, zigzag and all-gather: JAX's shard_map'd loss of the same strategy
   (sharded_train.py:_sharded_forward under shard_map, as
   make_sharded_train_step builds it; zigzag with tokens and targets permuted
   by zigzag_perm) on 4 of the 8 emulated devices: each shard is quantized on
@@ -161,7 +161,7 @@ def test_bf16_step_matches_one_device(pool, batch, n_kv, sp, shape):
     _hold(loss, grads, want_loss, want, LOSS_REL, GRAD_REL_L2)
 
 
-@pytest.mark.parametrize("sp", ["ring", "zigzag"])
+@pytest.mark.parametrize("sp", ["ring", "zigzag", "allgather"])
 def test_int8_step_matches_jax_sharded(pool, batch, sp):
     shape = (1, 2, 2)
     loss, grads = _run(pool, 2, "int8", sp, shape, batch)
@@ -203,9 +203,12 @@ def test_step_refusals():
     cfg, params = _local(4, (1, 2, 2))
     with pytest.raises(NotImplementedError, match="scaling_model"):
         make_sharded_train_step(_Mesh((1, 2, 2)), cfg, params)
-    with pytest.raises(NotImplementedError, match="B-f2"):
-        make_sharded_train_step(_Mesh((1, 2, 2)), cfg, params, attention="int8",
-                                attention_sp="allgather")
+    # the int8 all-gather's refusal (JAX collective.py:153-154), from the
+    # step, before any collective: 100 tokens a shard
+    _, step = make_sharded_train_step(_Mesh((1, 2, 2)), cfg, params, attention="int8",
+                                      attention_sp="allgather")
+    with pytest.raises(ValueError, match="t_local % 128"):
+        step(torch.zeros((B, 100), dtype=torch.long), torch.zeros((B, 100), dtype=torch.long))
     with pytest.raises(ValueError, match="divisible by the context axis"):
         make_sharded_train_step(_Mesh((1, 2, 4)), cfg, params, attention_sp="ulysses")
     with pytest.raises(ValueError, match="unknown attention_sp"):
