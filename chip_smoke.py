@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py pipeline   # phases 1, 2 and 29 alone (e.g. on four cards)
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
@@ -271,6 +272,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      ring, the one-device step's fp32 B1), the gradients' relative L2 to
      the one-device step's printed, step times, and the launches of B1 (the
      prepass's ring), B9, B11 and B12 over the ranks.
+ 29. pipeline-parallel training, checkpoint and failure detection: B1 and
+     B2 + B3 at the pipeline's microbatch shape (1, 16, 2048, 64) causal
+     against their plain versions, timed beside their bounds and SDPA
+     (is_causal); make_pipeline_train_step at TRAIN_CFG's full width on
+     phase 27's ranks as a 4-stage pipe mesh (one block a stage, 4
+     microbatches; NCCL with a card a rank, else gloo sharing the card):
+     bf16 3 steps (median step printed) and int8 1 step, every rank's loss
+     and replicated leaves equal, the first loss and gradients against the
+     one-device step of the same attention kind (phase 27's SP bounds),
+     launches over the ranks exactly B1 32, B2, B3 and the prep 16 a step
+     (int8: B4, B5 32, B7, B8 16); save_checkpoint (DCP) of every stage's
+     params and AdamW state after step 1, restored into fresh params and a
+     fresh optimizer, whose step 2 must be within 1e-6 of the uninterrupted
+     one (bit-equality printed); hosts_alive over the ranks, device_heartbeat
+     and a Watchdog on card 0, and a StepGuard that flags a step whose
+     torch.cuda._sleep crosses its factor while the call returns at once,
+     and no normal step.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -286,9 +304,11 @@ import ctypes
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -432,6 +452,7 @@ from quantizedattention_tpu_torch.reference import (
     reference_attention_vjp,
 )
 from quantizedattention_tpu_torch.serve import ServingEngine
+from quantizedattention_tpu_torch.utils import StepGuard, Watchdog, device_heartbeat, hosts_alive
 from quantizedattention_tpu_torch.utils.testing import ATOL, GRAD_MISMATCH_RATE, mismatch_report
 
 # kernel vs plain, unit-normal inputs: only the summation order and where P
@@ -4408,6 +4429,180 @@ def phase_sp_rcm(dev, smi, pool) -> dict:
             "step_ms": outs[0]["step_ms"]}
 
 
+# --------------------------------------------------------------------------
+# Pipeline-parallel training, checkpoint and failure detection (phase 29)
+# --------------------------------------------------------------------------
+
+# GPipe at TRAIN_CFG: one block a stage over the 4 ranks, 4 microbatches of
+# one sequence; 3 bf16 steps (the median step printed), 1 int8 step
+PIPE_MICRO, PIPE_STEPS = 4, 3
+# launches over the ranks a step, in units of M L (models/pipeline.py): the
+# forward and the remat recompute run B1 (int8: B4 and B5) once each a block
+# and microbatch; the backward runs B2, B3 and fast mode's prep (B7, B8) once
+PIPE_KERNELS = {"bf16": {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
+                         "flash_bwd_prep": 1},
+                "int8": {"quant_int8": 2, "int8_fwd": 2, "int8_bwd_dkv": 1, "int8_bwd_dq": 1}}
+# the resumed step 2 against the uninterrupted one: the JAX package's bound
+# (tests/test_utils.py:98)
+PIPE_RESUME_TOL = 1e-6
+# StepGuard on the card: normal steps enqueue GUARD_CYCLES of torch.cuda._sleep
+# (a few ms), the stalled one GUARD_STALL x as many, past GUARD_FACTOR
+GUARD_CYCLES, GUARD_STALL, GUARD_FACTOR = 10_000_000, 40, 10.0
+
+
+def _pipe_run(pool, label, cfg, tokens, targets, steps, ref, resume_dir) -> tuple[dict, list]:
+    """One make_pipeline_train_step run on the pool's ranks against the
+    one-device step's (loss, gradients) `ref`; returns (its launches over
+    the ranks, the ranks' outputs)."""
+    from quantizedattention_tpu_torch.models import sharded_jobs
+
+    outs = pool.run(sharded_jobs.pipeline_train, cfg, None, tokens, targets, PIPE_MICRO, steps,
+                    "cuda", True, resume_dir, profile=cfg.attention == "bf16")
+    losses = [o["losses"] for o in outs]
+    if any(x != losses[0] for x in losses) or not np.isfinite(losses).all():
+        raise AssertionError(f"[pipe] {label}: the ranks' losses differ or are not finite: "
+                             f"{losses}")
+    if any(o["replicated"] != outs[0]["replicated"] for o in outs):
+        raise AssertionError(f"[pipe] {label}: the replicated leaves differ over the ranks")
+    count = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+    per_step = cfg.n_layers * PIPE_MICRO * steps
+    want = {k: PIPE_KERNELS[cfg.attention].get(k, 0) * per_step for k in count}
+    count = {k: n for k, n in count.items() if n}
+    grads = {}
+    for o in reversed(outs):  # the replicated leaves' gradients from rank 0
+        grads.update(o["grads"])
+    ref_loss, ref_grads = ref
+    rel = _rel_l2(grads, ref_grads)
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(losses[0][0] - ref_loss) / abs(ref_loss)
+    loss_tol, grad_tol = ((SP_LOSS_REL, SP_GRAD_REL_L2) if cfg.attention == "bf16" else
+                          (SP_INT8_LOSS_REL, SP_INT8_GRAD_REL_L2["ring"]))
+    step_ms = outs[0]["step_ms"]
+    note = "ranks share one card: not a scaling number" if pool.backend != "nccl" else "4 cards"
+    log(f"[pipe] {label} ({cfg.attention}, {cfg.n_layers} layers over {pool.world_size} stages, "
+        f"{PIPE_MICRO} microbatches of {TRAIN_BATCH // PIPE_MICRO} x {cfg.max_seq}) over "
+        f"{pool.backend}: losses {[round(x, 5) for x in losses[0]]}, every rank's equal, the "
+        f"replicated leaves equal on every rank; step ms (rank 0, wall, synchronised; the first "
+        f"includes set-up) {[round(x, 1) for x in step_ms]}, median "
+        f"{statistics.median(step_ms):.1f} ({note}); launches over the ranks {count}")
+    log(f"[pipe] {label}: first loss {losses[0][0]:.6f} vs one device ({cfg.attention}) "
+        f"{ref_loss:.6f} (rel {loss_rel:.2e}, tol {loss_tol}); gradients rel L2 max "
+        f"{rel[worst]:.3e} ({worst}), median {statistics.median(rel.values()):.3e} over "
+        f"{len(rel)} tensors (tol {grad_tol})")
+    prof = outs[0].get("profile")
+    if prof:
+        log(f"[pipe] {label}: one profiled step on rank 0 ({pool.backend}): wall "
+            f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, busy "
+            f"{prof['busy_share']:.1%}; top device "
+            f"{[(k, round(ms, 3), n) for k, ms, n in prof['top_device']]}")
+    if {k: n for k, n in want.items() if n} != count:
+        raise AssertionError(f"[pipe] {label}: launched {count} over {steps} step(s), want "
+                             f"{ {k: n for k, n in want.items() if n} }")
+    if not (loss_rel <= loss_tol and rel[worst] <= grad_tol):
+        raise AssertionError(f"[pipe] {label}: the pipeline's loss or gradients differ from the "
+                             f"one-device step's")
+    return count, outs
+
+
+def _failure_checks(pool) -> dict:
+    """hosts_alive over the pool's ranks, device_heartbeat and a Watchdog on
+    card 0, and a StepGuard that must flag a step whose device work
+    (torch.cuda._sleep) crosses its factor while its call returns at once,
+    and none of the normal steps before it."""
+    alive = pool.run(hosts_alive, 60.0)
+    beat = device_heartbeat()
+    with Watchdog(device_heartbeat, interval_s=0.05, timeout_s=30.0) as wd:
+        time.sleep(0.5)
+    enqueue = []
+
+    def step(cycles):
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        enqueue.append(time.perf_counter() - t0)
+
+    guard = StepGuard(step, stall_factor=GUARD_FACTOR, warmup_steps=3)
+    for _ in range(5):
+        guard(GUARD_CYCLES)
+    normal_stalls = len(guard.stalls)
+    guard(GUARD_CYCLES * GUARD_STALL)
+    med = statistics.median(guard.durations[:5])
+    log(f"[failure] hosts_alive over the pool's ranks: {alive}; device_heartbeat on card 0 "
+        f"{beat * 1e3:.3f} ms; Watchdog(device_heartbeat) {wd.probes_ok} probes, "
+        f"{len(wd.failures)} failures, last {wd.last_latency_s * 1e3:.3f} ms; StepGuard: normal "
+        f"steps median {med * 1e3:.2f} ms ({normal_stalls} flagged), the _sleep step "
+        f"{guard.durations[-1] * 1e3:.2f} ms with its call returning in {enqueue[-1] * 1e3:.3f} "
+        f"ms: {len(guard.stalls) - normal_stalls} flagged "
+        f"({guard.stalls[-1].detail if guard.stalls else 'no stall'})")
+    if alive != [pool.world_size] * pool.world_size:
+        raise AssertionError(f"[failure] hosts_alive gave {alive}")
+    if wd.failures or wd.probes_ok < 3:
+        raise AssertionError(f"[failure] the watchdog failed: {wd.failures}, {wd.probes_ok} probes")
+    if normal_stalls or len(guard.stalls) != 1 or enqueue[-1] * GUARD_FACTOR > guard.durations[-1]:
+        raise AssertionError("[failure] StepGuard missed the device stall or flagged a normal "
+                             "step, or the stalled call did not return before its work ended")
+    return {"hosts_alive": alive, "heartbeat_ms": beat * 1e3, "stall_ms": guard.durations[-1] * 1e3,
+            "normal_ms": med * 1e3}
+
+
+def phase_pipeline(dev, smi, pool) -> dict:
+    """Phase 29: B1 and B2 + B3 at the pipeline's microbatch shape (1, 16,
+    2048, 64) causal against their plain versions, timed beside their
+    bounds and SDPA (is_causal); then make_pipeline_train_step at
+    TRAIN_CFG's full width on phase 27's ranks as a 4-stage pipe mesh (one
+    block a stage, PIPE_MICRO microbatches), bf16 PIPE_STEPS steps with a
+    checkpoint after step 1 that fresh params and a fresh optimizer resume
+    from, and int8 1 step: every rank's loss equal, the first loss and
+    gradients against the one-device step of its attention kind (phase
+    27's SP bounds), launches exactly PIPE_KERNELS a step; then the failure
+    detectors (`_failure_checks`). Returns {"launches", "errs", "times",
+    ...}."""
+    from quantizedattention_tpu_torch.models.sharded_jobs import _flat
+
+    t_phase = time.perf_counter()
+    cfg = TRAIN_CFG
+    errs, times = _sp_case(torch.Generator(device=dev).manual_seed(29), dev, "pipe_microbatch",
+                           TRAIN_BATCH // PIPE_MICRO, cfg.n_heads, cfg.n_kv_heads, cfg.max_seq,
+                           cfg.max_seq, 0, 0, True)
+    rng = np.random.default_rng(29)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_seq)))
+    targets = torch.roll(tokens, -1, dims=1)
+    # the one-device references from the params every rank draws
+    # (init_transformer, seed 0, CPU); param_leaves' order is the names'
+    params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    refs = {}
+    for kind in ("bf16", "int8"):
+        loss, grads = _grads(params, tokens.to(dev), targets.to(dev),
+                             dataclasses.replace(cfg, attention=kind))
+        refs[kind] = (loss, {name: g.cpu() for name, g in zip(_flat(params), grads)})
+    del params
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="qattn_pipe_ckpt_")
+    try:
+        bf16, outs = _pipe_run(pool, "train_pipe", cfg, tokens, targets, PIPE_STEPS, refs["bf16"],
+                               ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed = [o["resumed_loss"] for o in outs]
+    ref2 = outs[0]["losses"][1]
+    bits = all(r == ref2 for r in resumed)
+    log(f"[pipe] checkpoint after step 1 (save_checkpoint, DCP, every stage's params and AdamW "
+        f"state), restored into fresh params and a fresh optimizer: step 2 {resumed[0]:.8f} vs "
+        f"the uninterrupted {ref2:.8f} (|diff| {abs(resumed[0] - ref2):.2e}, tol "
+        f"{PIPE_RESUME_TOL}; {'bit-equal' if bits else 'not bit-equal'}); restored state equal "
+        f"to the saved one on every rank: {all(o['restored_equal'] for o in outs)}")
+    if not (all(o["restored_equal"] for o in outs)
+            and all(abs(r - ref2) <= PIPE_RESUME_TOL for r in resumed)):
+        raise AssertionError("[pipe] the resumed pipeline step differs from the uninterrupted one")
+    int8, _ = _pipe_run(pool, "train_pipe_int8", dataclasses.replace(cfg, attention="int8"),
+                        tokens, targets, 1, refs["int8"], None)
+    failure = _failure_checks(pool)
+    log(f"[pipe] phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"train_pipe": bf16, "train_pipe_int8": int8},
+            "errs": errs, "times": times, "step_ms": outs[0]["step_ms"],
+            "profile": outs[0].get("profile"),
+            "resume_bit_equal": bits, "failure": failure}
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -4453,10 +4648,12 @@ def main() -> None:
     sp, pool = phase_sp_training(dev, smi)
     try:
         rcm = phase_sp_rcm(dev, smi, pool)
+        pipe = phase_pipeline(dev, smi, pool)
     finally:
         pool.close()
     sp_launches = {k: v for k, v in sp["launches"].items() if not k.endswith("_profile")}
     sp_launches.update(rcm["launches"])
+    sp_launches.update(pipe["launches"])
 
     def at_train(name):
         return {f"train_{k}": v for k, v in timing[name].items()}
@@ -4575,6 +4772,13 @@ def main() -> None:
         if k["name"] in sp["errs"]:
             k["sp_cases"] = sp["times"][k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], sp["errs"][k["name"]])
+    for k in kernels:  # B1-B3 at the pipeline's microbatch shape, B2's prep on its path (phase 29)
+        if k["name"] in pipe["times"]:
+            k["pipe_microbatch"] = pipe["times"][k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], pipe["errs"][k["name"]])
+        if k["name"] == "flash_bwd_dkv":
+            k["prep_launches_by_path"]["train_pipe"] = pipe["launches"]["train_pipe"][
+                "flash_bwd_prep"]
     for k in kernels:  # launches: every path's run together
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": kernels}))
@@ -4582,5 +4786,28 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+def main_pipeline() -> None:
+    """`python3 chip_smoke.py pipeline`: phases 1, 2 and 29 alone, phase 29
+    on a pool of its own (on four visible cards, one rank a card over
+    NCCL)."""
+    from quantizedattention_tpu_torch.parallel.launch import RankPool
+
+    name, smi = phase_device()
+    phase_build()
+    pool = RankPool(SP_RANKS, "cuda", timeout_s=600)
+    try:
+        pipe = phase_pipeline(torch.device("cuda", 0), smi, pool)
+    finally:
+        pool.close()
+    print(json.dumps({k: v for k, v in pipe.items() if k != "times"}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["pipeline"]:
+        main_pipeline()
+    elif sys.argv[1:]:
+        sys.exit(f"usage: python3 chip_smoke.py [pipeline]; got {sys.argv[1:]}")
+    else:
+        main()

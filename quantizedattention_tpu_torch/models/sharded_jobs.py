@@ -1,19 +1,24 @@
 """Calls a parallel.launch.RankPool runs on every rank to drive sequence-
-parallel attention, the sharded train step and the sharded rCM step.
+parallel attention, the sharded train step, the pipeline train step and the
+sharded rCM step.
 
 Each takes FULL inputs (the same on every rank), builds or reuses its
 (data, model, context) mesh over the pool's ranks (serve/mesh_jobs.py:mesh),
 cuts the inputs to this rank's block, runs one entry point and returns this
 rank's outputs (tensors on the CPU). tests/test_torch_sp_attention.py and
 tests/test_torch_sharded_train.py hold them against the JAX package on the
-CPU (tests/test_torch_sp_jvp.py the JVP ring and the rCM step);
-chip_smoke.py phases 27 and 28 run them on the card. They live in the package
+CPU (tests/test_torch_sp_jvp.py the JVP ring and the rCM step,
+tests/test_torch_pipeline.py the pipeline, tests/test_torch_checkpoint.py
+a checkpoint and resume of both train steps); chip_smoke.py phases 27-29
+run them on the card. The pipeline jobs take the pool's ranks as one
+("pipe",) mesh, stage s on rank s. They live in the package
 so that spawned ranks import nothing but torch and this package; they run on
 the card unless given device_type="cpu".
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 
 import torch
@@ -31,6 +36,12 @@ from quantizedattention_tpu_torch.models.dit import (
     init_dit,
     make_dit_rcm_step,
 )
+from quantizedattention_tpu_torch.models.pipeline import (
+    REPLICATED,
+    make_pipeline_train_step,
+    pipeline_named_params,
+    pipeline_stage_params,
+)
 from quantizedattention_tpu_torch.models.transformer import TransformerConfig, init_transformer
 from quantizedattention_tpu_torch.ops.flash_bwd import bwd_prep, flash_bwd_dkv, flash_bwd_dq
 from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
@@ -43,12 +54,23 @@ from quantizedattention_tpu_torch.parallel.collective import (
     kv_sharded_attention_int8,
     make_allgather_attention,
 )
-from quantizedattention_tpu_torch.parallel.mesh import all_gather, axis_size, shard_tensor
+from quantizedattention_tpu_torch.parallel.mesh import (
+    all_gather,
+    axis_size,
+    make_pipeline_mesh,
+    shard_tensor,
+)
 from quantizedattention_tpu_torch.parallel.ring import ring_attention_jvp
 from quantizedattention_tpu_torch.parallel.multihost import local_device
 from quantizedattention_tpu_torch.parallel.zigzag import zigzag_perm
 from quantizedattention_tpu_torch.quantize.int8 import quant_int8
 from quantizedattention_tpu_torch.serve.mesh_jobs import mesh
+from quantizedattention_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    restore_train_state,
+    save_checkpoint,
+    train_state,
+)
 
 # the wrappers the sharded train and rCM steps may launch, by chip_smoke.py's
 # kernel names; each counts its launches in `.launches`
@@ -206,7 +228,7 @@ def _full_grads(params, cfg: TransformerConfig, m) -> dict | None:
 
 def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1,
           attention: str = "bf16", attention_sp: str = "ring", device_type: str = "cuda",
-          grads: bool = True, profile: bool = False) -> dict:
+          grads: bool = True, profile: bool = False, resume_dir: str | None = None) -> dict:
     """`steps` steps of make_sharded_train_step on this rank's shards of the
     full `params` (None: init_transformer's from seed 0 on the CPU, the same
     on every rank) and its (data, context) block of the full tokens/targets
@@ -215,17 +237,27 @@ def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1
     over the steps (the counts set to 0 just before them), with `grads` the
     first step's gradients (rank 0: whole tensors by name; others None), and
     with `profile` one more step under torch.profiler on rank 0 (wall, device
-    time, its busy share and the top device kernels)."""
+    time, its busy share and the top device kernels). With `resume_dir` (and
+    steps >= 2), the train state after step 1 is checkpointed there (the
+    model-sharded params and moments as DTensors) and, after the steps,
+    restored into fresh params and a fresh optimizer that take step 2 again
+    (`_resume`)."""
     m = mesh(shape, device_type)
     dev = local_device(device_type)
     if params is None:
         params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
-    local = _to(shard_params(params, cfg, m), dev)
     tok = shard_tensor(tokens, ("data", "context"), m).to(dev)
     tgt = shard_tensor(targets, ("data", "context"), m).to(dev)
-    _, step = make_sharded_train_step(m, cfg, local, attention=attention,
-                                      attention_sp=attention_sp)
-    losses, times, first = [], [], None
+    specs = _flat(param_specs(cfg))
+
+    def build(full):
+        local = _to(shard_params(full, cfg, m), dev)
+        opt, step = make_sharded_train_step(m, cfg, local, attention=attention,
+                                            attention_sp=attention_sp)
+        return local, _flat(local), opt, step
+
+    local, named, opt, step = build(params)
+    losses, times, first, snap = [], [], None, None
     _sync(dev)
     reset_counts()
     for i in range(steps):
@@ -235,11 +267,42 @@ def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0 and grads:
             first = _full_grads(local, cfg, m)
+        if i == 0 and resume_dir is not None:
+            save_checkpoint(resume_dir, train_state(named, opt, m, specs))
+            snap = _snapshot(named, opt)
     out = {"losses": [float(x) for x in losses], "step_ms": times, "launches": launch_counts(),
            "grads": first, "backend": dist.get_backend()}
     if profile:
         out["profile"] = _profile_step(step, tok, tgt, dev)
+    if resume_dir is not None:
+        fresh = init_transformer(cfg, torch.Generator().manual_seed(1), "cpu")
+        _, named2, opt2, step2 = build(fresh)
+        out.update(_resume(resume_dir, snap, named2, opt2, step2, tok, tgt, m, specs))
     return out
+
+
+def _snapshot(named: dict, optimizer) -> dict:
+    """Copies of this rank's params and optimizer state by name: what a
+    checkpoint of them holds."""
+    state = optimizer.state_dict()["state"]
+    return {n: [named[n].detach().clone()] + [v.detach().clone() for v in state[i].values()]
+            for i, n in enumerate(named)}
+
+
+def _resume(path, snap, named, optimizer, step, tok, tgt, m=None, specs=None) -> dict:
+    """Restore the checkpoint at `path` into the fresh `named` params and
+    `optimizer`, then take one step. Returns its loss, whether the restored
+    params and optimizer state equal the snapshot taken at the save bit for
+    bit, and each saved param's sum (ranks that hold other shards show other
+    sums)."""
+    restore_train_state(load_checkpoint(path, train_state(named, optimizer, m, specs)), named,
+                        optimizer)
+    now = _snapshot(named, optimizer)
+    equal = all(len(now[n]) == len(v) and all(torch.equal(a, b) for a, b in zip(now[n], v))
+                for n, v in snap.items())
+    loss = float(step(tok, tgt))
+    return {"resumed_loss": loss, "restored_equal": equal,
+            "saved_sums": {n: float(v[0].double().sum()) for n, v in snap.items()}}
 
 
 def _to(tree, dev):
@@ -280,6 +343,74 @@ def _profile_step(step, tok, tgt, dev) -> dict | None:
                                   for e in events), key=lambda x: -x[1])[:8]}
 
 
+_PIPE_MESHES: dict = {}
+
+
+def pipe_mesh(device_type: str = "cuda"):
+    """The pool's ranks as one ("pipe",) mesh, made once a device type
+    (making one is a collective: every rank must ask in the same order)."""
+    if device_type not in _PIPE_MESHES:
+        _PIPE_MESHES[device_type] = make_pipeline_mesh(dist.get_world_size(), device_type)
+    return _PIPE_MESHES[device_type]
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
+
+
+def pipeline_train(cfg: TransformerConfig, params, tokens, targets, n_microbatches: int,
+                   steps: int = 1, device_type: str = "cuda", grads: bool = True,
+                   resume_dir: str | None = None, profile: bool = False) -> dict:
+    """`steps` steps of make_pipeline_train_step, one stage a rank, from the
+    full `params` (None: init_transformer's from seed 0 on the CPU) and the
+    whole batch tokens/targets [B, T] on every rank. Returns the losses, the
+    step times (ms, each synchronised; the first includes set-up), this
+    rank's kernel launches over the steps (the counts set to 0 just before
+    them), with `grads` the first step's gradients of this stage's leaves by
+    name (`pipeline_named_params`: blocks under their global index), and the
+    SHA-256 of each replicated leaf after the steps; with `profile` one more
+    step under torch.profiler on rank 0 (as `train`'s). With `resume_dir` (and
+    steps >= 2), the train state after step 1 is checkpointed there (each
+    stage's blocks under their global names) and, after the steps, restored
+    into fresh params and a fresh optimizer that take step 2 again
+    (`_resume`)."""
+    m = pipe_mesh(device_type)
+    dev = local_device(device_type)
+    if params is None:
+        params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok, tgt = tokens.to(dev), targets.to(dev)
+
+    def build(full):
+        local = _to(pipeline_stage_params(full, cfg, m), dev)
+        opt, step = make_pipeline_train_step(m, cfg, local, n_microbatches)
+        return local, pipeline_named_params(local, cfg, m), opt, step
+
+    local, named, opt, step = build(params)
+    losses, times, first, snap = [], [], None, None
+    _sync(dev)
+    reset_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(tok, tgt))
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and grads:
+            first = {n: t.grad.detach().cpu() for n, t in named.items()}
+        if i == 0 and resume_dir is not None:
+            save_checkpoint(resume_dir, train_state(named, opt))
+            snap = _snapshot(named, opt)
+    out = {"losses": [float(x) for x in losses], "step_ms": times, "launches": launch_counts(),
+           "grads": first, "backend": dist.get_backend(),
+           "replicated": {k: _digest(local[k]) for k in REPLICATED}}
+    if profile:
+        out["profile"] = _profile_step(step, tok, tgt, dev)
+    if resume_dir is not None:
+        fresh = init_transformer(cfg, torch.Generator().manual_seed(1), "cpu")
+        _, named2, opt2, step2 = build(fresh)
+        out.update(_resume(resume_dir, snap, named2, opt2, step2, tok, tgt))
+    return out
+
+
 def dryrun_training(device_type: str = "cuda") -> dict:
     """The training half of the JAX package's dryrun_multichip
     (__graft_entry__.py:48-135) on the pool's ranks, at its own shapes: the
@@ -290,9 +421,12 @@ def dryrun_training(device_type: str = "cuda") -> dict:
     and the int8 all-gather step (of the JAX package's strategies, the one
     that also quantizes); then the rCM half (__graft_entry__.py:226-240):
     one make_dit_rcm_step(mesh=) step on (data x model, 1, context), exact
-    mode, as the dryrun's fast=False. The Ulysses arm runs head_dim 64 where
-    the dryrun takes 32: the kernels have head_dim 64 only (queue B, B-f3).
-    Returns each step's loss."""
+    mode, as the dryrun's fast=False; then the pipeline half
+    (__graft_entry__.py:242-260): one make_pipeline_train_step step over the
+    ranks as a pipe mesh (n_layers = stages, d_model 128, 2 heads x 64,
+    max_seq 128, batch 4, 2 microbatches). The Ulysses arm runs head_dim 64
+    where the dryrun takes 32: the kernels have head_dim 64 only (queue B,
+    B-f3). Returns each step's loss."""
     n = dist.get_world_size()
     data, model, context = n, 1, 1
     if data % 2 == 0:
@@ -334,4 +468,10 @@ def dryrun_training(device_type: str = "cuda") -> dict:
     dt = torch.rand((2 * data * model,), generator=g)
     out["rcm"] = rcm(dcfg, dshape, init_dit(dcfg, torch.Generator().manual_seed(5), "cpu"), dx,
                      dt, 1, False, device_type)["losses"][0]
+    pcfg = TransformerConfig(vocab_size=128, d_model=128, n_heads=2, n_kv_heads=2, head_dim=64,
+                             n_layers=n, max_seq=128)
+    ptok = torch.randint(0, pcfg.vocab_size, (4, pcfg.max_seq), generator=g)
+    out["pipe"] = pipeline_train(pcfg, init_transformer(pcfg, torch.Generator().manual_seed(2),
+                                                        "cpu"), ptok, torch.roll(ptok, -1, 1),
+                                 2, 1, device_type, grads=False)["losses"][0]
     return out

@@ -7,7 +7,8 @@ Counterpart of quantizedattention_tpu/parallel/mesh.py. Axis convention:
              down projections sum their partial products
   context  - sequence; each rank holds a slice of the tokens
 
-The mesh is a torch DeviceMesh (`init_device_mesh`) with those dim names;
+The mesh is a torch DeviceMesh (`init_device_mesh`) with those dim names
+(`make_pipeline_mesh` lays out the pipeline's one "pipe" axis);
 `axis_index`, `axis_size`, `psum`, `pmax`, `pmean`, `ppermute`,
 `all_gather`, `psum_scatter` and `all_to_all` are the small counterparts of
 JAX's `jax.lax` functions of the same names (the last three tiled, as JAX's
@@ -47,6 +48,21 @@ def make_attention_mesh(data: int = 1, model: int = 1, context: int = 1,
         raise ValueError(f"mesh {data}x{model}x{context} needs {want} ranks, the process group "
                          f"has {dist.get_world_size()}")
     return init_device_mesh(device_type, (data, model, context), mesh_dim_names=AXES)
+
+
+def make_pipeline_mesh(pipe: int, device_type: str = "cuda"):
+    """A one-dim ("pipe",) DeviceMesh over every rank of the process group,
+    stage s on rank s: the mesh of models/pipeline.py (JAX
+    `jax.make_mesh((pipe,), ("pipe",))`). device_type "cuda" (the default)
+    or "cpu"."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call parallel.multihost.initialize_multihost first")
+    if pipe != dist.get_world_size():
+        raise ValueError(f"pipe mesh of {pipe} stages needs {pipe} ranks, the process group has "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(device_type, (pipe,), mesh_dim_names=("pipe",))
 
 
 def is_mesh(mesh) -> bool:
@@ -117,29 +133,39 @@ class Pending:
         return self._outs
 
 
-def ppermute_start(xs, mesh, axis: str) -> Pending:
-    """Start the one-hop ring shift of each tensor of `xs` along `axis`: the
-    rank at coordinate i sends to (i + 1) % n and receives, into fresh
-    buffers, what (i - 1) % n sent (jax.lax.ppermute with perm [(i, (i + 1)
-    % n)]). One `dist.batch_isend_irecv` for all of them, the peers' global
-    ranks from `dist.get_global_rank`. On NCCL the transfers run on the
-    communicator's stream while this rank goes on; on gloo (host-staged for
-    CUDA tensors) they are complete when this returns. An axis of size 1
-    hands the tensors back as they are."""
+def ppermute_start(xs, mesh, axis: str, shift: int = 1, send: bool = True,
+                   recv: bool = True) -> Pending:
+    """Start the one-hop ring shift of each tensor of `xs` along `axis`: with
+    shift 1 the rank at coordinate i sends to (i + 1) % n and receives, into
+    fresh buffers, what (i - 1) % n sent (jax.lax.ppermute with perm [(i, (i
+    + 1) % n)]); shift -1 is the reverse hop, to (i - 1) % n. One
+    `dist.batch_isend_irecv` for all of them, the peers' global ranks from
+    `dist.get_global_rank`. On NCCL the transfers run on the communicator's
+    stream while this rank goes on; on gloo (host-staged for CUDA tensors)
+    they are complete when this returns. An axis of size 1 hands the tensors
+    back as they are.
+
+    `send=False` posts no send (xs are then only the templates of what
+    arrives) and `recv=False` no receive (`wait()` returns []): a pipeline's
+    hop between its live stages (models/pipeline.py), where each rank's
+    sends must pair with its peer's receives."""
+    if shift not in (1, -1):
+        raise ValueError(f"ppermute_start shifts by one hop, 1 or -1; got {shift}")
     xs = list(xs)
     n = axis_size(mesh, axis)
     if n == 1:
-        return Pending(xs, [])
+        return Pending(xs if recv else [], [])
     group = mesh.get_group(axis)
     i = axis_index(mesh, axis)
-    dst = dist.get_global_rank(group, (i + 1) % n)
-    src = dist.get_global_rank(group, (i - 1) % n)
+    dst = dist.get_global_rank(group, (i + shift) % n)
+    src = dist.get_global_rank(group, (i - shift) % n)
     device = xs[0].device if _staged(xs[0], mesh, axis) else None
-    send = [(x.cpu() if device is not None else x).contiguous() for x in xs]
-    outs = [torch.empty_like(x) for x in send]
-    ops = [dist.P2POp(dist.isend, x, dst, group) for x in send] \
+    sends = [(x.cpu() if device is not None else x).contiguous() for x in xs] if send else []
+    outs = [torch.empty(x.shape, dtype=x.dtype, device="cpu" if device is not None else x.device)
+            for x in xs] if recv else []
+    ops = [dist.P2POp(dist.isend, x, dst, group) for x in sends] \
         + [dist.P2POp(dist.irecv, x, src, group) for x in outs]
-    pending = Pending(outs, dist.batch_isend_irecv(ops), device)
+    pending = Pending(outs, dist.batch_isend_irecv(ops) if ops else [], device)
     if device is not None:
         pending.wait()
     return pending
