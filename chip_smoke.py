@@ -2,20 +2,22 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py pipeline   # phases 1, 2 and 29 alone (e.g. on four cards)
+    python3 chip_smoke.py head128    # phases 1, 2 and 30 alone
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
-     holds the flash forward's (bf16 and fp32 modes) and backward's, B11
-     fast's, B10 exact's, the int8 forward's and backward's, the decode kernel's (its
-     int8 instance, B13/B14, and its int4 one, B15/B16) and the weight
-     matmuls' shared bytes against their launch geometry (ops/flash_tiling.py,
+     holds the flash forward's (bf16 and fp32 modes; bf16 at head dims 64
+     and 128) and backward's (fast at 64 and 128), B11 fast's, B10 exact's,
+     the int8 forward's and backward's, the decode kernel's (its int8
+     instances, B13/B14 at 64 and B13 at 128, and its int4 one, B15/B16)
+     and the weight matmuls' shared bytes against their launch geometry (ops/flash_tiling.py,
      ops/jvp_tiling.py, ops/int8_tiling.py, parallel/decode_tiling.py,
      ops/linear_tiling.py), and fails if ptxas spills or serializes wgmma (a
      C75xx note) in the flash forward (both modes) or backward, in B9, B11
      and B12 fast and their preps, in B10 exact, its prep and its merge, or
-     spills in either decode instance or in B4 (whose cluster geometry is
+     spills in any decode instance or in B4 (whose cluster geometry is
      held against ops/int8_tiling.py);
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
@@ -289,6 +291,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      and a Watchdog on card 0, and a StepGuard that flags a step whose
      torch.cuda._sleep crosses its factor while the call returns at once,
      and no normal step.
+ 30. head dim 128 (run before phase 27): B1 bf16, fast B2/B3 and B13 at d=128
+     against their plain versions at their phase-3, 6, 4 and 23 tolerances
+     (HEAD128_CASES: t and s off a multiple of 128, causal t < s and t > s,
+     rep 3, 5 and 128, GQA rep 4, one token, many key tiles; B1 on f32, bf16
+     and [b, t, h, d] views, the K/V prep byte-equal to .to(bfloat16); the
+     backward's prep byte-equal to the plain prep and its strided call equal
+     to the contiguous one; B13 with non-finite stale scales at 16/16 and
+     16/4 heads and its verify staircase at spec 2 and 5, each row bit-equal
+     to its spec = 1 launch; every kernel twice for the same bits); BASELINE
+     config 2 at (4, 16, 2048, 128) causal against the fp32 oracle by the
+     JAX package's criteria (O mismatch rate <= 5e-5, dq/dk/dv <= 1.2e-4 at
+     atol 1e-2); at that shape B1 (its f32 call split into prep and kernel,
+     and on bf16), B2 and B3 timed beside their bounds, plain versions and
+     SDPA's fused bf16 forward and backward, the whole fast backward call on
+     the model's views with its prep, B2 + B3 at GQA rep 4, and B13 at 8
+     slots x 16 q / 4 kv heads, length 304 of 1280 and at capacity; then
+     make_train_step at TRAIN128_CFG (vocab 8192, d_model 2048, 16 heads x
+     128, 4 layers, 4 x 2048 tokens, f32 params: phase 10's parity, 1 + 10
+     steps, exactly 4 launches a step of B1, B2, B3 and the prep) and
+     ServingEngine at SERVE128_CFG (16 q / 4 kv heads x 128, max_seq 1280,
+     phase 5's traffic; f32 params: tokens equal `generate`'s; bf16:
+     tokens/s; B1 4 launches, B13 as counted).
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -642,13 +666,19 @@ def phase_build() -> None:
     log(f"[build] kernels + scheduler built/loaded in {secs:.1f} s")
     int8_bwd = _build.load_kernel("int8_bwd")
     flash_bwd_lib = _build.load_kernel("flash_bwd")
+    head_dims = [(f"{name} d={d}", getattr(lib, entry)(d), want(d))
+                 for d in flash_tiling.HEAD_DIMS for name, lib, entry, want in (
+                     ("flash_fwd", _build.load_kernel("flash_fwd"), "qa_flash_fwd_smem_bytes",
+                      flash_tiling.shared_bytes),
+                     ("flash_bwd dK/dV", flash_bwd_lib, "qa_flash_bwd_dkv_smem_bytes",
+                      flash_tiling.dkv_shared_bytes),
+                     ("flash_bwd dQ", flash_bwd_lib, "qa_flash_bwd_dq_smem_bytes",
+                      flash_tiling.dq_shared_bytes))]
+    head_dims += [(f"cache_decode int8 d={d}",
+                   _build.load_kernel("cache_decode").qa_decode_smem_bytes(8, d),
+                   decode_tiling.shared_bytes("int8", d)) for d in decode_tiling.HEAD_DIMS_INT8]
     for name, got, want in (
-            ("flash_fwd", _build.load_kernel("flash_fwd").qa_flash_fwd_smem_bytes(),
-             flash_tiling.shared_bytes()),
-            ("flash_bwd dK/dV", flash_bwd_lib.qa_flash_bwd_dkv_smem_bytes(),
-             flash_tiling.dkv_shared_bytes()),
-            ("flash_bwd dQ", flash_bwd_lib.qa_flash_bwd_dq_smem_bytes(),
-             flash_tiling.dq_shared_bytes()),
+            *head_dims,
             ("flash_fwd fp32", _build.load_kernel("flash_fwd").qa_flash_fwd_f32_smem_bytes(),
              flash_tiling.fp32_shared_bytes()),
             ("jvp dK/dV fast", _build.load_kernel("jvp").qa_jvp_bwd_dkv_smem_bytes(),
@@ -665,10 +695,8 @@ def phase_build() -> None:
              int8_fwd_shared_bytes()),
             ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
             ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes()),
-            ("cache_decode int8", _build.load_kernel("cache_decode").qa_decode_smem_bytes(8),
-             decode_tiling.shared_bytes("int8")),
-            ("cache_decode int4", _build.load_kernel("cache_decode").qa_decode_smem_bytes(4),
-             decode_tiling.shared_bytes("int4"))):
+            ("cache_decode int4", _build.load_kernel("cache_decode").qa_decode_smem_bytes(4, 64),
+             decode_tiling.shared_bytes("int4", 64))):
         if got != want:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
                                  f"geometry (ops/flash_tiling.py, ops/int8_tiling.py, "
@@ -694,8 +722,8 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
     # the flash forward (both modes) and backward, B9, B11 and B12 fast and
     # B10 exact keep every wgmma asynchronous (no C75xx note) and spill
-    # nothing; the decode kernel's two instances (two blocks an SM: at most
-    # 128 registers) and B4 spill nothing
+    # nothing; the decode kernel's instances (two blocks an SM at head dim
+    # 64: at most 128 registers; one at 128) and B4 spill nothing
     for name, only in (("flash_fwd", None), ("flash_bwd", None),
                        ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
                                 "jvp_dq_wgmma", "jvp_bwd_prep_kernel", "jvp_tangent_tf32",
@@ -813,9 +841,9 @@ def phase_flash(dev, gen) -> dict:
             "library_call": "F.scaled_dot_product_attention(is_causal=True), bf16"}
 
 
-def _decode_case(dev, gen, n_q, n_kv, lengths, stale, max_len=BENCH_CFG.max_seq):
+def _decode_case(dev, gen, n_q, n_kv, lengths, stale, max_len=BENCH_CFG.max_seq, d=64):
     b = len(lengths)
-    shape = (b, n_kv, max_len, 64)
+    shape = (b, n_kv, max_len, d)
     k_i8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
     v_i8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
     sk = torch.rand(shape[:3], generator=gen, device=dev) * 0.028 + 0.002
@@ -825,7 +853,7 @@ def _decode_case(dev, gen, n_q, n_kv, lengths, stale, max_len=BENCH_CFG.max_seq)
         dead = torch.arange(max_len, device=dev)[None, None, :] >= length.long()[:, None, None]
         sk = torch.where(dead, torch.nan, sk)
         sv = torch.where(dead, torch.inf, sv)
-    q = torch.randn((b, n_q, 64), generator=gen, device=dev)
+    q = torch.randn((b, n_q, d), generator=gen, device=dev)
     return q, QuantizedKVCache(k_i8, sk, v_i8, sv, length)
 
 
@@ -881,10 +909,12 @@ def _capacity_times(name, dev, case) -> dict:
         q, cache = case(gen, n_kv)
         ms = device_ms(lambda: fn(q, cache))
         o = fn(q, cache)
-        per_tok = 72 if name in ("decode4", "paged4_decode") else 136  # 2 x (payload + scale)
+        d = q.shape[-1]
+        # 2 x (payload + scale): int4 packs two tokens a byte
+        per_tok = 2 * (d // 2 + 4) if name in ("decode4", "paged4_decode") else 2 * (d + 4)
         table = 4 * N_SLOTS * MAX_PAGES if name.startswith("paged") else 0
         bnd = bound(n_tok * n_kv * per_tok + table + nbytes(q, o, cache[-1]),
-                    (2 * 2 * n_tok * q.shape[1] * 64, PEAK_BF16))
+                    (2 * 2 * n_tok * q.shape[1] * d, PEAK_BF16))
         log(f"[{name}] 8 slots x 16 q / {n_kv} kv heads, length {BENCH_CFG.max_seq} of "
             f"{BENCH_CFG.max_seq}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']}), {ms / bnd['bound_ms']:.2f}x")
@@ -893,22 +923,23 @@ def _capacity_times(name, dev, case) -> dict:
     return out
 
 
-def _serve(dev, smi, cfg, weight_quant=None, **cache_kw) -> tuple[list, dict, float, dict]:
-    """One full-width serving run of `cfg` (bf16 params, `weight_quant`, the
-    engine's cache options `cache_kw`): a warm-up run, every launch count set
-    to 0, the timed run. It must give every request its budget of in-vocab
-    tokens, repeat the warm-up's tokens, match `generate` on the engine's own
+def _serve(dev, smi, cfg, weight_quant=None, param_dtype=torch.bfloat16,
+           **cache_kw) -> tuple[list, dict, float, dict]:
+    """One full-width serving run of `cfg` (`param_dtype` params,
+    `weight_quant`, the engine's cache options `cache_kw`): a warm-up run,
+    every launch count set to 0, the timed run. It must give every request
+    its budget of in-vocab tokens, repeat the warm-up's tokens, match
+    `generate` on the engine's own
     params and the same 8 prompts (int8 KV caches only: `generate` decodes
     the slotted int8 cache), and keep prefill logits and one decode step's
     logits on the final cache state within LOGITS_REL_TOL of the plain path
     on the CPU. Returns (each request's tokens, the timed run's launches by
     kernel, its tokens/s, the engine's stats() with the requeues counted)."""
-    params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev,
-                              torch.bfloat16)
+    params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev, param_dtype)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=PROMPT_LEN).tolist() for _ in range(N_SLOTS)]
     eng = ServingEngine(params, cfg, dev, n_slots=N_SLOTS, scheduler="native",
-                        param_dtype=torch.bfloat16, decode_horizon=HORIZON,
+                        param_dtype=param_dtype, decode_horizon=HORIZON,
                         weight_quant=weight_quant, **cache_kw)
     requeues = [0]
     requeue = eng.sched.requeue
@@ -920,6 +951,9 @@ def _serve(dev, smi, cfg, weight_quant=None, **cache_kw) -> tuple[list, dict, fl
     eng.sched.requeue = counted_requeue
     label = f"attention={cfg.attention} weight_quant={weight_quant}" + "".join(
         f" {k}={v}" for k, v in cache_kw.items())
+    if cfg.head_dim != BENCH_CFG.head_dim or param_dtype != torch.bfloat16:
+        label += f" head_dim={cfg.head_dim} {cfg.n_heads}q/{cfg.n_kv_heads}kv " \
+                 f"d_model={cfg.d_model} params={str(param_dtype)[6:]}"
 
     def serve():
         rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
@@ -1946,11 +1980,11 @@ ORACLE_CASES = [(2, 16, 16, 256, 256, True), (2, 16, 16, 256, 256, False),
                 (1, 4, 2, 77, 201, False), (2, 16, 4, 1000, 1000, True)]
 
 
-def _qkvdo(gen, dev, b, h, h_kv, t, s):
-    return (torch.randn((b, h, t, 64), generator=gen, device=dev),
-            torch.randn((b, h_kv, s, 64), generator=gen, device=dev),
-            torch.randn((b, h_kv, s, 64), generator=gen, device=dev),
-            torch.randn((b, h, t, 64), generator=gen, device=dev))
+def _qkvdo(gen, dev, b, h, h_kv, t, s, d=64):
+    return (torch.randn((b, h, t, d), generator=gen, device=dev),
+            torch.randn((b, h_kv, s, d), generator=gen, device=dev),
+            torch.randn((b, h_kv, s, d), generator=gen, device=dev),
+            torch.randn((b, h, t, d), generator=gen, device=dev))
 
 
 # shapes the forward cases do not reach: a rep that does not divide 64, rep 64
@@ -1967,7 +2001,9 @@ BWD_TILE_CASES = [(1, 4, 4, 200, 330, True), (1, 4, 4, 330, 200, True), (1, 6, 2
                   (1, 2, 2, 1280, 1280, False), (1, 2, 2, 1280, 1280, True)]
 ONE_TOKEN_SEEDS = 16
 # fast mode's prep launch against its plain version: q_s, dO_s, K and V byte
-# for byte; D up to f32 summation order (64 products a row)
+# for byte; D within PREP_D_TOL of max|D| (the plain prep sums the products in
+# the kernel's order, so 0 is expected; the tolerance leaves room for the
+# order of the f32 sum)
 PREP_D_TOL = 1e-6
 
 
@@ -2021,14 +2057,15 @@ def _check_prep(q, k, v, o, lse, do, causal, label) -> float:
     return rel
 
 
-def _bwd_case(q, k, v, do, causal, label) -> tuple[list, float]:
-    """Both modes' kernels against their plain versions on B1's O and lse of
-    (q, k, v); the fast prep against its plain version; the whole fast call
-    on [b, t, h, d] views equal bit for bit to the call on contiguous
-    inputs. Returns (the two modes' errors, the prep's D error)."""
+def _bwd_case(q, k, v, do, causal, label, modes=(True, False)) -> tuple[list, float]:
+    """The kernels of both modes (fast=True, False; `modes`) against their
+    plain versions on B1's O and lse of (q, k, v); the fast prep against its
+    plain version; the whole fast call on [b, t, h, d] views equal bit for
+    bit to the call on contiguous inputs. Returns (the modes' errors, the
+    prep's D error)."""
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
     errs = [_check_bwd(bwd_operands(q, k, v, o, lse, do, causal=causal, fast=fast), label)
-            for fast in (True, False)]
+            for fast in modes]
     d_rel = _check_prep(*_strided(q, k, v, o), lse, *_strided(do), causal, label)
     got = flash_attention_bwd(*_strided(q, k, v, o), lse, *_strided(do), causal=causal, fast=True)
     want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, fast=True)
@@ -2389,7 +2426,8 @@ def _profile_step(cfg, params, tokens, targets):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} calls  "
             f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
     attn_us = sum(e.self_device_time_total for e in events
-                  if any(f"{name}(" in e.key for name in ATTENTION_KERNELS))
+                  if any(f"{name}{end}" in e.key for name in ATTENTION_KERNELS
+                         for end in "(<"))  # B1-B3 are templates on the head dim
     log(f"[profile] attention kernels ({cfg.attention}): {attn_us / 1e3:.3f} ms, "
         f"{attn_us / total_us:.1%} of device time")
 
@@ -4603,6 +4641,254 @@ def phase_pipeline(dev, smi, pool) -> dict:
             "resume_bit_equal": bits, "failure": failure}
 
 
+# --------------------------------------------------------------------------
+# Phase 30: head dim 128 (B1 bf16, fast B2/B3 and B13)
+# --------------------------------------------------------------------------
+
+HEAD128 = 128
+# BASELINE config 2's second head dim: (b, h, t, d), causal, fwd + bwd
+CONFIG2_128 = (4, 16, 2048, HEAD128)
+# config 2's oracle criteria (tests/test_baseline_configs.py:30-49): mismatch
+# rates at atol 1e-2 against the fp32 oracle
+CONFIG2_O_RATE, CONFIG2_GRAD_RATE = 5e-5, 1.2e-4
+# training at full width: 16 heads x 128 = d_model 2048; its attention is
+# exactly config 2's (4, 16, 2048, 128)
+TRAIN128_CFG = TransformerConfig(vocab_size=8192, d_model=2048, n_heads=16, n_kv_heads=16,
+                                 head_dim=HEAD128, n_layers=4, max_seq=2048)
+# serving at full width with GQA rep 4, BENCH_CFG's traffic
+SERVE128_CFG = TransformerConfig(vocab_size=8192, d_model=2048, n_heads=16, n_kv_heads=4,
+                                 head_dim=HEAD128, n_layers=4, max_seq=1280)
+# the kernels' tile edges at 128: B1 walks 64-key tiles through 3 stages, B2
+# 128-key blocks over 64-row q tiles and B3 128-row blocks over 64-key tiles
+# through 4 stages. t and s off a multiple of 128 (and of 64), causal t < s
+# and t > s, rep 3 and 5, GQA rep 4, rep 128 (one position a block), one
+# token, and more key tiles than stages, causal and not
+HEAD128_CASES = [(1, 4, 4, 200, 330, True), (1, 4, 4, 330, 200, True), (1, 6, 2, 300, 300, True),
+                 (1, 10, 2, 77, 201, False), (1, 16, 4, 300, 300, True),
+                 (1, 128, 1, 40, 300, True), (1, 2, 2, 1, 1, True), (1, 3, 1, 1, 1, True),
+                 (1, 2, 2, 1280, 1280, False)]
+
+
+def _head128_kernels(dev) -> dict:
+    """B1 bf16, fast B2/B3 and B13 at head dim 128 against their plain
+    versions at the tolerances of their head-dim-64 phases (3, 6, 4 and 23),
+    each called twice for the same bits; B1's f32 and bf16 paths and its
+    [b, t, h, d] views as phase 3 holds them, the backward's prep and strided
+    call as phase 6's. Returns each kernel's max|diff|."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    err = {"flash_fwd": 0.0, "flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0, "decode": 0.0}
+    d_rel = 0.0
+    for b, h, h_kv, t, s, causal in HEAD128_CASES:
+        label = f"d=128 b={b} h={h} h_kv={h_kv} t={t} s={s} causal={causal}"
+        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s, HEAD128)
+        bf = [x.to(torch.bfloat16) for x in (q, k, v)]
+        err["flash_fwd"] = max(err["flash_fwd"], _check_flash(q, k, v, causal, f"{label}, f32 in"),
+                               _check_flash(*bf, causal, f"{label}, bf16 in"))
+        o, lse = flash_attention_fwd(*bf, causal=causal)
+        o_f, lse_f = flash_attention_fwd(*(x.float() for x in bf), causal=causal)
+        o_t, lse_t = flash_attention_fwd(*_strided(*bf), causal=causal)
+        kb, vb = kv_to_bf16(*_strided(k, v))
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o_f) and torch.equal(lse, lse_f) and torch.equal(o, o_t)
+                and torch.equal(lse, lse_t)):
+            raise AssertionError(f"flash_fwd: the f32 path or [b, t, h, d] views differ from "
+                                 f"the bf16 call at {label}")
+        if not (torch.equal(kb, bf[1]) and torch.equal(vb, bf[2])):
+            raise AssertionError(f"kv_to_bf16 differs from .to(bfloat16) at {label}")
+        (fast,), d = _bwd_case(q, k, v, do, causal, label, modes=(True,))
+        err.update({name: max(err[name], e) for name, e in fast.items()})
+        d_rel = max(d_rel, d)
+    log(f"[head128] backward prep launch: q_s, dO_s, lse, K and V byte-equal to the plain prep "
+        f"at every case; D max|diff|/max|D| {d_rel:.3e} (tol {PREP_D_TOL})")
+    # B13: phase 4's lengths with non-finite stale scales, 16/16 and 16/4
+    # heads; phase 23's verify staircase at spec 5 (and 2), rows bit-equal to
+    # their spec = 1 launches
+    for n_q, n_kv in ((16, 16), (16, 4)):
+        q, cache = _decode_case(dev, gen, n_q, n_kv, CACHE_LENGTHS, stale=True, d=HEAD128)
+        o, lse = decode_attention(q, cache, return_lse=True)
+        o2, lse2 = decode_attention(q, cache, return_lse=True)
+        torch.cuda.synchronize()
+        o_p, lse_p = decode_attention_plain(q, cache, return_lse=True)
+        live = cache.length > 0
+        e_o = (o - o_p).abs().max().item()
+        e_l = (lse[live] - lse_p[live]).abs().max().item()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        empty_ok = bool((o[~live] == 0).all() and torch.isneginf(lse[~live]).all())
+        log(f"[head128] decode d=128, 8 slots, {n_q} q / {n_kv} kv heads, lengths "
+            f"{CACHE_LENGTHS}, non-finite stale scales: max|dO|={e_o:.3e} max|dlse|={e_l:.3e} "
+            f"(tol {DECODE_TOL}) empty_rows_ok={empty_ok} second call same bits={same}")
+        if not (torch.isfinite(o).all() and e_o <= DECODE_TOL and e_l <= DECODE_TOL
+                and empty_ok and same):
+            raise AssertionError("decode (B13) at head dim 128 disagrees with its plain version")
+        err["decode"] = max(err["decode"], e_o)
+        _, vcache = _decode_case(dev, gen, n_q, n_kv, SPEC_LENGTHS, stale=True, d=HEAD128)
+        for spec in SPECS:
+            qv = torch.randn((len(SPEC_LENGTHS), n_q, spec, HEAD128), generator=gen, device=dev)
+            err["decode"] = max(err["decode"], _check_verify(
+                "decode", qv, vcache, f"d=128, 8 seqs, {n_q} q / {n_kv} kv heads, lengths "
+                f"{SPEC_LENGTHS}, non-finite stale scales"))
+    return err
+
+
+def _head128_oracle(dev) -> None:
+    """BASELINE config 2 at head dim 128, causal: flash_attention_bf16 (fast
+    backward) against the fp32 oracle by the JAX package's criteria for it."""
+    b, h, t, d = CONFIG2_128
+    q, k, v, do = _qkvdo(torch.Generator(device=dev).manual_seed(31), dev, b, h, h, t, t, d)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = flash_attention_bf16(*leaves, causal=True)
+    got = torch.autograd.grad(o, leaves, do)
+    with torch.no_grad():
+        rep = mismatch_report("config2 d=128 O", o.detach(), reference_attention(q, k, v, True))
+    reps = [mismatch_report(n, g, w) for n, g, w in zip(
+        ("dq", "dk", "dv"), got, reference_attention_vjp(q, k, v, do, causal=True))]
+    log(f"[head128] BASELINE config 2 {CONFIG2_128} causal vs the fp32 oracle: {rep} (rate limit "
+        f"{CONFIG2_O_RATE}); " + "; ".join(map(str, reps)) + f" (rate limit {CONFIG2_GRAD_RATE})")
+    if rep.mismatch_rate > CONFIG2_O_RATE or max(r.mismatch_rate for r in reps) > \
+            CONFIG2_GRAD_RATE:
+        raise AssertionError("BASELINE config 2 at head dim 128 misses the JAX package's criteria")
+
+
+def _head128_timing(dev) -> dict:
+    """At config 2's shape, causal, on f32 inputs as the model hands them in
+    (phase 7 at 128): B1 against its plain version; device time of B1 (its
+    f32 call split into the K/V prep launch and the kernel, and the call on
+    bf16 inputs), B2 and B3 beside their plain versions, bounds and SDPA's
+    fused bf16 forward and backward; the whole fast backward call on the
+    model's [b, t, h, d] views with its prep; B2 + B3 at GQA rep 4; B13 at
+    the serving decode shape (8 slots x 16 q / 4 kv heads, length 304 of
+    1280) and at capacity. Returns {kernel: times}."""
+    b, h, t, d = CONFIG2_128
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t, d)
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=True)
+    e_o, e_l = (o - o_p).abs().max().item(), (lse - lse_p).abs().max().item()
+    log(f"[head128] flash_fwd {CONFIG2_128} causal, f32 in: max|dO|={e_o:.3e} (tol "
+        f"{FLASH_O_TOL}) max|dlse|={e_l:.3e} (tol {FLASH_LSE_TOL})")
+    if not (e_o <= FLASH_O_TOL and e_l <= FLASH_LSE_TOL):
+        raise AssertionError("flash_fwd at head dim 128 disagrees with its plain version")
+    del o_p, lse_p
+    fast = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True)
+    err = _check_bwd(fast, f"{CONFIG2_128} causal")
+    dk, dv = flash_bwd_dkv(fast)
+    dq = flash_bwd_dq(fast)
+    pairs = b * h * visible_pairs(t, t, True)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    k_b, v_b = kv_to_bf16(k, v)
+    sdpa_bwd = _sdpa_bwd_ms(q, k, v, do)
+    out = {
+        "flash_fwd": {
+            "ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
+            "prep_ms": device_ms(lambda: kv_to_bf16(k, v)),
+            "kernel_ms": device_ms(lambda: flash_attention_fwd(q, k_b, v_b, causal=True)),
+            "bf16_in_ms": device_ms(lambda: flash_attention_fwd(qb, kb, vb, causal=True)),
+            "plain_ms": device_ms(lambda: flash_attention_fwd_plain(q, k, v, True), calls=4,
+                                  replays=5),
+            **bound(nbytes(q, k, v, o, lse), (2 * 2 * pairs * d, PEAK_BF16)),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                                           is_causal=True))},
+        "flash_bwd_dkv": {
+            "ms": device_ms(lambda: flash_bwd_dkv(fast)),
+            "plain_ms": device_ms(lambda: flash_bwd_dkv_plain(fast), calls=4, replays=5),
+            **bound(nbytes(*fast[:6], dk, dv), (4 * 2 * pairs * d, PEAK_BF16)),
+            "library_ms": sdpa_bwd},
+        "flash_bwd_dq": {
+            "ms": device_ms(lambda: flash_bwd_dq(fast)),
+            "plain_ms": device_ms(lambda: flash_bwd_dq_plain(fast), calls=4, replays=5),
+            **bound(nbytes(*fast[:6], dq), (3 * 2 * pairs * d, PEAK_BF16)),
+            "library_ms": sdpa_bwd},
+    }
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        out[name]["library_call"] = ("backward of F.scaled_dot_product_attention(is_causal=True), "
+                                     "bf16: dq, dk, dv together")
+    out["flash_fwd"]["library_call"] = "F.scaled_dot_product_attention(is_causal=True), bf16"
+    fwd = out["flash_fwd"]
+    log(f"[head128] flash_fwd {CONFIG2_128} causal, f32 in: call {fwd['ms']:.4f} ms = K/V prep "
+        f"launch {fwd['prep_ms']:.4f} ms + kernel {fwd['kernel_ms']:.4f} ms; bf16 in (no prep "
+        f"launch) {fwd['bf16_in_ms']:.4f} ms")
+    del fast, dk, dv, dq, k_b, v_b, qb, kb, vb
+    call, call_err = _bwd_call_times(q, k, v, o, lse, do)
+    out["flash_bwd_dkv"].update(call)
+    err.update({name: max(err[name], e) for name, e in call_err.items()})
+    gqa = _bwd_gqa_times(*_qkvdo(gen, dev, 2, 16, 4, t, t, d))
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        out[name].update(gqa[name])
+    for name, r in out.items():
+        log(f"[head128] {name} {CONFIG2_128} causal: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['ms'] / r['bound_ms']:.2f}x; sdpa {r['library_ms']:.4f} ms")
+    # B13 at the serving decode shape of SERVE128_CFG and at capacity
+    length = PROMPT_LEN + NEW_TOKENS // 2
+    q, cache = _decode_case(dev, gen, 16, 4, [length] * N_SLOTS, stale=False, d=d)
+    o = decode_attention(q, cache)
+    live = int(cache.length.sum()) * cache.k_i8.shape[1]
+    dec = {"ms": device_ms(lambda: decode_attention(q, cache)),
+           "plain_ms": device_ms(lambda: decode_attention_plain(q, cache)),
+           **bound(live * 2 * (d + 4) + nbytes(q, o, cache.length),
+                   (2 * 2 * int(cache.length.sum()) * q.shape[1] * d, PEAK_BF16)),
+           "library_ms": None}
+    log(f"[head128] decode d=128, 8 slots x 16 q / 4 kv heads, length {length} of "
+        f"{BENCH_CFG.max_seq}: kernel {dec['ms']:.4f} ms, plain {dec['plain_ms']:.4f} ms, bound "
+        f"{dec['bound_ms']:.4f} ms ({dec['bound_by']})")
+    dec.update(_capacity_times("decode", dev, lambda g, n_kv: _decode_case(
+        dev, g, 16, n_kv, [BENCH_CFG.max_seq] * N_SLOTS, stale=False, d=d)))
+    out["decode"] = dec
+    for name, r in out.items():
+        r["max_abs_err"] = err.get(name, 0.0)
+        r["shape"] = (f"{CONFIG2_128} causal" if name != "decode"
+                      else f"8 slots x 16 q / 4 kv heads x 128, length {length} of 1280")
+    return out
+
+
+def phase_head128(dev, smi) -> dict:
+    """Phase 30: head dim 128 on the main paths. The kernels at their tile
+    edges, BASELINE config 2 against the fp32 oracle, the timings, then
+    make_train_step at TRAIN128_CFG (phase 10's parity, steps and exact
+    launches) and ServingEngine at SERVE128_CFG (f32 params: tokens equal
+    `generate`'s; bf16 params: tokens/s). Returns {kernel: its d=128 entry}
+    with the launches of both paths."""
+    errs = _head128_kernels(dev)
+    _head128_oracle(dev)
+    out = _head128_timing(dev)
+    for name, e in errs.items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+    train_launches, run = phase_train(dev, smi, TRAIN128_CFG)
+    serve = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _, launches, tok_s, _ = _serve(dev, smi, SERVE128_CFG, param_dtype=dtype)
+        used = {k: v for k, v in launches.items() if v}
+        if set(used) != {"flash_fwd", "decode"} or used["flash_fwd"] != SERVE128_CFG.n_layers:
+            raise AssertionError(f"the d=128 served run launched {used}, want flash_fwd "
+                                 f"{SERVE128_CFG.n_layers} times (one batched prefill) and decode")
+        serve[str(dtype)[6:]] = {"launches": used, "tokens_per_s": tok_s}
+    log(f"[head128] train step at TRAIN128_CFG: median {run['median_ms']:.2f} ms, "
+        f"max_memory_allocated {run['max_memory_gib']:.2f} GiB, launches {train_launches}; "
+        f"serving at SERVE128_CFG: {serve}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode"):
+        by_path = {"train128": train_launches.get(name, 0),
+                   "serve128": serve["bfloat16"]["launches"].get(name, 0)}
+        out[name]["launches_by_path"] = {p: n for p, n in by_path.items() if n}
+    out["flash_bwd_dkv"]["prep_launches_by_path"] = {"train128": train_launches["flash_bwd_prep"]}
+    out["train128"] = {"median_step_ms": run["median_ms"], "max_memory_gib": run["max_memory_gib"]}
+    out["serve128_tokens_per_s"] = serve["bfloat16"]["tokens_per_s"]
+    return out
+
+
+def _head128_rows(kernels: list, head128: dict) -> None:
+    """Phase 30's numbers into the `kernels` line: each of B1, B2, B3 and B13
+    gains its d=128 entry and its paths' launches."""
+    for k in kernels:
+        if k["name"] in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode"):
+            row = dict(head128[k["name"]])
+            k["launches_by_path"].update(row.pop("launches_by_path"))
+            if "prep_launches_by_path" in row:
+                k["prep_launches_by_path"].update(row.pop("prep_launches_by_path"))
+            k["max_abs_err"] = max(k["max_abs_err"], row["max_abs_err"])
+            k["head_dim_128"] = row
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -4645,6 +4931,7 @@ def main() -> None:
     mesh_runs = phase_mesh_serving(dev, smi, gen)
     mesh_launches = {k: v for k, v in mesh_runs.items() if k.startswith("mesh_")
                      and k not in ("mesh_profile", "mesh_tokens_per_s", "mesh_local")}
+    head128 = phase_head128(dev, smi)
     sp, pool = phase_sp_training(dev, smi)
     try:
         rcm = phase_sp_rcm(dev, smi, pool)
@@ -4779,8 +5066,36 @@ def main() -> None:
         if k["name"] == "flash_bwd_dkv":
             k["prep_launches_by_path"]["train_pipe"] = pipe["launches"]["train_pipe"][
                 "flash_bwd_prep"]
+    _head128_rows(kernels, head128)  # B1-B3 and B13 at head dim 128 (phase 30)
     for k in kernels:  # launches: every path's run together
         k["launches"] = sum(k["launches_by_path"].values())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+HEAD128_ROWS = {  # phase 30's kernels: source and the TPU kernel each replaces
+    "flash_fwd": ("flash_fwd.cu", "quantizedattention_tpu/ops/flash_fwd.py:47"),
+    "flash_bwd_dkv": ("flash_bwd.cu", "quantizedattention_tpu/ops/flash_bwd.py:66"),
+    "flash_bwd_dq": ("flash_bwd.cu", "quantizedattention_tpu/ops/flash_bwd.py:132"),
+    "decode": ("cache_decode.cu", "quantizedattention_tpu/parallel/kv_cache.py:172"),
+}
+
+
+def main_head128() -> None:
+    """`python3 chip_smoke.py head128`: phases 1, 2 and 30 alone; the
+    `kernels` line holds the four kernels at head dim 128."""
+    name, smi = phase_device()
+    phase_build()
+    head128 = phase_head128(torch.device("cuda", 0), smi)
+    kernels = []
+    for kname, (source, replaces) in HEAD128_ROWS.items():
+        row = dict(head128[kname])
+        by_path = row.pop("launches_by_path")
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": f"quantizedattention_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches_by_path": by_path,
+                        "launches": sum(by_path.values()), **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -4807,7 +5122,9 @@ def main_pipeline() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["pipeline"]:
         main_pipeline()
+    elif sys.argv[1:] == ["head128"]:
+        main_head128()
     elif sys.argv[1:]:
-        sys.exit(f"usage: python3 chip_smoke.py [pipeline]; got {sys.argv[1:]}")
+        sys.exit(f"usage: python3 chip_smoke.py [pipeline | head128]; got {sys.argv[1:]}")
     else:
         main()

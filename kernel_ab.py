@@ -13,7 +13,10 @@ mode (B10 exact).
                                                    [jvp_dq] [decode4] [decode8] [quant] [jvp_tangent]
     python3 kernel_ab.py --one CHECKOUT flash_fwd      (one checkout, once)
 
-(every part without a third argument). Each checkout is timed in its own
+(every part without a third argument). flash_fwd, flash_bwd and decode8
+also time head dim 128 (B1 at FWD128_SHAPES, B2/B3 and the call at
+FLASH_BWD128_SHAPES, B13 at DECODE4_SHAPES) in a checkout that takes it;
+the summary prints those rows for that checkout alone. Each checkout is timed in its own
 process (its own package and kernel build), in the order old, new, new, old:
 the weight matmuls at chip_smoke.py's WEIGHT_SHAPES, m = 8 (decode), 40 (a
 spec verify pass) and 2048 (prefill) rows against the bench LM's (k, n); B5
@@ -83,6 +86,12 @@ INT8_FWD_SHAPES = BWD_SHAPES + ((8, 16, 16, 256),)  # and the serving prefill
 FWD_SHAPES = ((8, 16, 16, 256, "bfloat16"), (4, 16, 16, 2048, "float32"),
               (4, 16, 16, 2048, "bfloat16"), (4, 16, 16, 4096, "bfloat16"),
               (4, 16, 16, 8192, "bfloat16"), (4, 16, 4, 4096, "bfloat16"))
+# head dim 128 (a checkout whose B1-B3 and B13 take it; the others skip
+# these rows): (b, h, h_kv, t = s, input dtype), causal: BASELINE config 2 and
+# the d=128 serving model's prefill; and the backward's (b, h, h_kv, t = s)
+FWD128_SHAPES = ((4, 16, 16, 2048, "float32"), (4, 16, 16, 2048, "bfloat16"),
+                 (8, 16, 4, 256, "bfloat16"))
+FLASH_BWD128_SHAPES = ((4, 16, 16, 2048), (2, 16, 4, 2048))
 # (b, h, t, s): a chunk of 256 queries against a 768-token cached prefix
 CHUNK_PREFIX = (1, 16, 256, 768)
 # (b, h, h_kv, t = s), causal, f32 inputs as the model hands them in
@@ -189,24 +198,37 @@ def _kernel_split_ms(torch, fn, names=("flash_fwd_kernel",), calls=20) -> list[f
     split = [0.0] * (len(names) + 1)
     for e in prof.key_averages():
         if e.device_type.name == "CUDA":
-            at = next((i for i, n in enumerate(names) if f"{n}(" in e.key), len(names))
+            # a kernel's name ends in "(", or in "<" where it is a template (B1-B3 on
+            # their head dim)
+            at = next((i for i, n in enumerate(names) if f"{n}(" in e.key or f"{n}<" in e.key),
+                      len(names))
             split[at] += e.self_device_time_total
     return [x / calls / 1e3 for x in split]
+
+
+def _takes_128() -> bool:
+    """Whether this process's checkout runs B1-B3 and B13 at head dim 128."""
+    from quantizedattention_tpu_torch.ops import flash_tiling
+
+    return 128 in getattr(flash_tiling, "HEAD_DIMS", ())
 
 
 def _flash_fwd_rows(torch, gen, dev) -> dict:
     from quantizedattention_tpu_torch.ops import flash_attention_fwd
 
     rows = {}
-    for b, h, h_kv, t, dtype in FWD_SHAPES:
-        q, k, v = (torch.randn((b, n, t, 64), generator=gen, device=dev).to(getattr(torch, dtype))
+    shapes = [(*s, 64) for s in FWD_SHAPES]
+    if _takes_128():
+        shapes += [(*s, 128) for s in FWD128_SHAPES]
+    for b, h, h_kv, t, dtype, d in shapes:
+        q, k, v = (torch.randn((b, n, t, d), generator=gen, device=dev).to(getattr(torch, dtype))
                    for n in (h, h_kv, h_kv))
 
         def call():
             return flash_attention_fwd(q, k, v, causal=True)
 
         kernel_ms, prep_ms = _kernel_split_ms(torch, call)
-        rows[f"b={b} h={h} h_kv={h_kv} t={t} {dtype} causal"] = {
+        rows[f"b={b} h={h} h_kv={h_kv} t={t}{'' if d == 64 else f' d={d}'} {dtype} causal"] = {
             "call_ms": _device_ms(torch, call), "kernel_ms": kernel_ms, "prep_ms": prep_ms}
     # a chunked prefill's prefix part: a chunk's bf16 q against the f32
     # dequantized prefix, non-causal (one kv_to_bf16 launch, then B1), beside
@@ -232,8 +254,11 @@ def _flash_bwd_rows(torch, gen, dev) -> dict:
                                                   flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq)
 
     rows = {}
-    for b, h, h_kv, t in FLASH_BWD_SHAPES:
-        q, k, v, do = (torch.randn((b, t, n, 64), generator=gen, device=dev).transpose(1, 2)
+    shapes = [(*s, 64) for s in FLASH_BWD_SHAPES]
+    if _takes_128():
+        shapes += [(*s, 128) for s in FLASH_BWD128_SHAPES]
+    for b, h, h_kv, t, d in shapes:
+        q, k, v, do = (torch.randn((b, t, n, d), generator=gen, device=dev).transpose(1, 2)
                        for n in (h, h_kv, h_kv, h))
         o, lse = flash_attention_fwd(q, k, v, causal=True)
         ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True)
@@ -242,12 +267,12 @@ def _flash_bwd_rows(torch, gen, dev) -> dict:
             return flash_attention_bwd(q, k, v, o, lse, do, causal=True, fast=True)
 
         b2, b3, prep = _kernel_split_ms(torch, call, ("dkv_kernel_bf16", "dq_kernel_bf16"))
-        row = rows[f"b={b} h={h} h_kv={h_kv} t={t} f32 causal"] = {
+        row = rows[f"b={b} h={h} h_kv={h_kv} t={t}{'' if d == 64 else f' d={d}'} f32 causal"] = {
             "b2_ms": _device_ms(torch, lambda: flash_bwd_dkv(ops)),
             "b3_ms": _device_ms(torch, lambda: flash_bwd_dq(ops)),
             "call_ms": _device_ms(torch, call), "call_b2_ms": b2, "call_b3_ms": b3,
             "call_prep_ms": prep}
-        if (b, h, h_kv, t) == FLASH_BWD_SHAPES[0]:  # exact mode (FFMA) at the first shape
+        if (b, h, h_kv, t, d) == (*FLASH_BWD_SHAPES[0], 64):  # exact mode (FFMA) at the first shape
             ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=False)
             row["b2_exact_ms"] = _device_ms(torch, lambda: flash_bwd_dkv(ops), calls=4, replays=5)
             row["b3_exact_ms"] = _device_ms(torch, lambda: flash_bwd_dq(ops), calls=4, replays=5)
@@ -379,6 +404,20 @@ def _decode_rows(torch, gen, dev, part) -> dict:
             one, verify, cache = calls[name]
             fn = one if spec == 1 else verify
             row[f"{name}_ms"] = _device_ms(torch, lambda: fn(q, cache))
+    if part == "decode8" and _takes_128():  # B13, the one decode kernel at head dim 128
+        for n_kv, length, spec in DECODE4_SHAPES:
+            d = 128
+            q = torch.randn((n, 16, d) if spec == 1 else (n, 16, spec, d), generator=gen,
+                            device=dev)
+            k, v = (torch.randint(-127, 128, (n, n_kv, cap, d), generator=gen, device=dev,
+                                  dtype=torch.int8) for _ in range(2))
+            sk, sv = (torch.rand((n, n_kv, cap), generator=gen, device=dev) * 0.028 + 0.002
+                      for _ in range(2))
+            cache = P.QuantizedKVCache(k, sk, v, sv,
+                                       torch.full((n,), length, dtype=torch.int32, device=dev))
+            fn = P.decode_attention if spec == 1 else P.verify_decode_attention
+            rows[f"{part} d=128 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} of "
+                 f"{cap}"] = {"b13_ms": _device_ms(torch, lambda: fn(q, cache))}
     return rows
 
 
@@ -485,12 +524,19 @@ def main() -> None:
             sys.exit(f"timing {tree} failed:\n{out.stderr[-3000:]}")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    for shape, row in runs[0]["rows"].items():
+    for shape in dict.fromkeys(key for run in runs for key in run["rows"]):
+        row = runs[1]["rows"].get(shape) or runs[0]["rows"][shape]
         mean = {label: {key: sum(runs[i]["rows"][shape][key] for i in idx) / 2 for key in row}
-                for label, idx in (("old", (0, 3)), ("new", (1, 2)))}
-        print(f"[ab] {shape}: " + ", ".join(
-            f"{key[:-3]} {mean['old'][key]:.4f} -> {mean['new'][key]:.4f} ms" for key in row)
-              + f" ({smi})", flush=True)
+                for label, idx in (("old", (0, 3)), ("new", (1, 2)))
+                if all(shape in runs[i]["rows"] for i in idx)}
+        if len(mean) == 2:
+            print(f"[ab] {shape}: " + ", ".join(
+                f"{key[:-3]} {mean['old'][key]:.4f} -> {mean['new'][key]:.4f} ms" for key in row)
+                  + f" ({smi})", flush=True)
+        else:  # a row one checkout has (head dim 128: the new one)
+            (label, only), = mean.items()
+            print(f"[ab] {shape}, {label} only: " + ", ".join(
+                f"{key[:-3]} {only[key]:.4f} ms" for key in row) + f" ({smi})", flush=True)
 
 
 if __name__ == "__main__":

@@ -7,12 +7,13 @@ kernels (B13-B16, one body in csrc/cache_decode.cu, its int4 instance in
 decode4 and its int8 one in decode8), the Q/K/V quantizer (B4, quant) and
 the tangent's exact mode (B10, jvp_tangent, also a numerics witness); and
 four numerics witnesses, bwd_exact, fwd_fp32, flash_digest (B1-B3's
-outputs at zero offsets hashed here and in a parent checkout) and
+outputs at zero offsets and head dim 64 hashed here and in a parent
+checkout, then at head dim 128 here) and
 int8_digest (B4-B8's, the same way).
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                             [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
-                            [quant] [jvp_tangent] [flash_digest] [int8_digest]
+                            [quant] [jvp_tangent] [flash_digest] [int8_digest] [sass]
                             [PARENT_CHECKOUT]  (all parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
@@ -53,10 +54,11 @@ and a copy that sums clock64 cycles by phase of the mainloop in each
 warpgroup (thread 0 of each, into shared memory), printed as cycles per
 mainloop tile over all blocks.
 
-flash_fwd, at (4,16,2048,64), (8,16,256,64) and (4,16,8192,64), causal, bf16
-inputs (the kernel alone, no prep launch); each build's ptxas registers,
-spills and C75xx notes are printed:
-- stages_5: a ring of 5 K/V stages instead of 3;
+flash_fwd, at (4,16,2048,64), (8,16,256,64) and (4,16,8192,64), and at head
+dim 128 (4,16,2048,128) and (8,16,256,128), causal, bf16 inputs (the kernel
+alone, no prep launch); each build's ptxas registers, spills and C75xx notes
+(both head dims' instances) are printed:
+- stages_5: a ring of 5 K/V stages instead of 3 (head dim 64 only);
 - no_exp: P takes its exponent's argument (no MUFU.EX2);
 - no_softmax: no softmax at all (the products run on stale P);
 - no_mask: no tile takes the mask (wrong on the diagonal and ragged tiles);
@@ -65,9 +67,9 @@ and a copy that sums clock64 cycles by phase of the mainloop's step in each
 warpgroup, printed as cycles per key tile.
 
 flash_bwd, B2 and B3 in fast mode on prepared operands at (4,16,2048,64)
-and GQA rep 4 (2,16 q / 4 kv,2048,64), causal; each build's ptxas
-registers, spills and C75xx notes are printed:
-- stages_6: rings of 6 stages instead of 4;
+and GQA rep 4 (2,16 q / 4 kv,2048,64), and the same at head dim 128,
+causal; each build's ptxas registers, spills and C75xx notes are printed:
+- stages_6: rings of 6 stages instead of 4 (B2's at head dim 64 only);
 - no_exp: P takes its exponent's argument (no MUFU.EX2);
 - no_elementwise: P and dS are never computed (the products run on stale
   fragments);
@@ -150,7 +152,8 @@ partials written, arrival, end), printed as medians over the blocks that
 run.
 
 decode8: B13 (`qa_decode`, the int8 instance) on bf16 q at decode4's
-shapes, each build's ptxas registers and spills printed, and timed:
+shapes at head dim 64, and at 128 but the 16/16 capacity, each build's
+ptxas registers and spills printed, and timed:
 - as_is, on f32 q (rounded in the kernel), B14 (`qa_paged_decode`) on
   pages of 128 shuffled, and the whole wrapper call on f32 q;
 - no_merge, loads_only, one_chunk: as decode4's;
@@ -160,9 +163,10 @@ shapes, each build's ptxas registers and spills printed, and timed:
   from the grid's rule over 128-token chunks;
 decode4's stamped copy, on the int8 instance; and B13's and B14's max|dO|
 against their plain versions on chip_smoke.py's phase-21 and phase-23
-inputs (stale scales, junk pages), with a digest of B15's and B16's
-outputs there, in this checkout and in PARENT_CHECKOUT when one is given
-(its own package, in a process of its own).
+inputs (stale scales, junk pages, head dim 64), with a digest of B13's and
+B14's outputs and one of B15's and B16's there, in this checkout and in
+PARENT_CHECKOUT when one is given (its own package, in a process of its
+own): equal digests are the same bits.
 quant, B4 (csrc/quant_int8.cu) at the training shape (4,16,2048,64) on
 contiguous f32, the model's strided f32 views and bf16 (B6's launch), each
 build's ptxas registers and spills printed:
@@ -183,12 +187,17 @@ the ratio to FFMA's (the design's gate: 4x); then the kernel alone (one
 key range, on its prep's outputs) at the DiT, bench_jvp and dit_jvp
 (2,4,512,64) shapes beside in_place and no_exp (p takes its exponent's
 argument), with each build's ptxas registers and spills.
+sass (given PARENT_CHECKOUT): builds both checkouts' kernels and compares
+each of the parent's kernels in flash_fwd.cu, flash_bwd.cu and
+cache_decode.cu, by cuobjdump's SASS, with this checkout's head-dim-64
+instance of it: identical instructions, or how many differ.
 Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import difflib
 import os
 import subprocess
 import sys
@@ -637,13 +646,17 @@ def probe_int8_bwd(smi) -> None:
 
 # --- the bf16 flash forward (B1) ---
 
-FWD_SHAPES = [(4, 16, 2048), (8, 16, 256), (4, 16, 8192)]  # (b, h = h_kv, t = s), causal
+# (b, h = h_kv, t = s, head dim), causal: the training shape, the serving
+# prefill, a long one, and BASELINE config 2's and the serving prefill at 128
+FWD_SHAPES = [(4, 16, 2048, 64), (8, 16, 256, 64), (4, 16, 8192, 64), (4, 16, 2048, 128),
+              (8, 16, 256, 128)]
 _FWD_EXP = ("      const __nv_bfloat162 pr = __floats2bfloat162_rn(exp2_ftz(s[4 * n + 2 * h] - next_m[h]),\n"
             "                                                      exp2_ftz(s[4 * n + 2 * h + 1] - next_m[h]));")
 _FWD_PV = "    mma_pv(dv, p_prev);\n    wgmma_commit();\n    wgmma_wait<1>();"
 FWD_VARIANTS = {
     "fwd_as_is": [],
-    "fwd_stages_5": [("constexpr int KV_STAGES = 3;", "constexpr int KV_STAGES = 5;")],
+    # 5 stages at head dim 64 (at 128 they would not fit a block's shared memory)
+    "fwd_stages_5": [("constexpr int KV_STAGES = 3;", "constexpr int KV_STAGES = D == 64 ? 5 : 3;")],
     "fwd_no_exp": [(_FWD_EXP, _FWD_EXP.replace("exp2_ftz(", "("))],
     "fwd_no_softmax": [("    if (!live) {\n#pragma unroll", "    if (n_tiles < 0)\n    if (!live) {\n#pragma unroll")],
     "fwd_no_mask": [("    } else if (edge(j)) {", "    } else if (false) {")],
@@ -653,10 +666,11 @@ FWD_VARIANTS = {
 FWD_PHASES = [("    uint64_t dk = desc_k(jc);\n", "TMA wait", True),
               ("    wgmma_wait<1>();  // S of tile j is done\n", "issue S, PV", True),
               ("    float alpha[2] = {1.f, 1.f};\n", "wait S", True),
-              ("    wgmma_wait<0>();\n    reg_fence(acc);\n    reg_fence(ls);\n    reg_fence(p_prev);",
+              ("    wgmma_wait<0>();\n    fence_acc();\n    reg_fence(ls);\n    reg_fence(p_prev);",
                "softmax", True),
               ("    if (j > 0) release(j - 1);", "wait PV", True),
-              ("  };\n\n  uint32_t p_a[8][4], p_b[8][4] = {};", "release, rescale", True)]
+              ("  };\n\n  uint32_t p_a[BN / 16][4], p_b[BN / 16][4] = {};", "release, rescale",
+               True)]
 
 
 def _fwd_split_source() -> str:
@@ -684,12 +698,12 @@ def _fwd_split_source() -> str:
 def _fwd_call(lib, q, k, v, o, lse):
     """One launch of B1 from an altered build, as ops/flash_fwd.py launches it
     on bf16 inputs."""
-    b, h, t, _ = q.shape
+    b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
-    bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t)
+    bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t, d)
     status = lib.qa_flash_fwd(q.data_ptr(), *tfwd._strides(q), 0, k.data_ptr(), *tfwd._strides(k),
                               v.data_ptr(), *tfwd._strides(v), o.data_ptr(), lse.data_ptr(), b,
-                              h_kv, h // h_kv, t, s, bq, 1, 0, 0, 0.125 * 1.44269504,
+                              h_kv, h // h_kv, t, s, bq, 1, 0, 0, d ** -0.5 * LOG2_E, d,
                               torch.cuda.current_stream().cuda_stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
@@ -702,14 +716,14 @@ def probe_flash_fwd(smi) -> None:
         libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
     print("\n".join(line for lib in libs.values() for line in lib.ptxas), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, h, t in FWD_SHAPES:
-        q, k, v = (torch.randn((b, h, t, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    for b, h, t, d in FWD_SHAPES:
+        q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        o = torch.empty((b, h, t, 64), dtype=torch.float32, device="cuda")
+        o = torch.empty((b, h, t, d), dtype=torch.float32, device="cuda")
         lse = torch.empty((b, h, t), dtype=torch.float32, device="cuda")
         times = {v_: _device_us(lambda v_=v_: _fwd_call(libs[v_], q, k, v, o, lse))
                  for v_ in FWD_VARIANTS}
-        print(f"[probe] B1 ({b},{h},{t},64) causal bf16: "
+        print(f"[probe] B1 ({b},{h},{t},{d}) causal bf16: "
               + ", ".join(f"{v_[4:]} {us:.2f}" for v_, us in times.items()) + f" us ({smi})",
               flush=True)
         lib = libs["fwd_split"]
@@ -722,7 +736,7 @@ def probe_flash_fwd(smi) -> None:
             c = cyc[0, :n_blocks, wg]
             tiles = c[:, 8].sum()
             per = c[:, :8].sum(axis=0) / max(tiles, 1)
-            print(f"[split] B1 ({b},{h},{t},64) causal, warpgroup {wg}, cycles per key tile "
+            print(f"[split] B1 ({b},{h},{t},{d}) causal, warpgroup {wg}, cycles per key tile "
                   f"({tiles} tiles): " + ", ".join(
                       f"{label} {x:.0f}" for (_, label, _), x in zip(FWD_PHASES, per))
                   + f"; all {per.sum():.0f}", flush=True)
@@ -731,7 +745,9 @@ def probe_flash_fwd(smi) -> None:
 # --- the bf16 flash backward's fast mode (B2, B3) ---
 
 SRC_FBWD = os.path.join(_build.CSRC_DIR, "flash_bwd.cu")
-FBWD_SHAPES = [(4, 16, 16, 2048), (2, 16, 4, 2048)]  # (b, h, h_kv, t = s), causal
+# (b, h, h_kv, t = s, head dim), causal: the training shape and GQA rep 4, at 64 and 128
+FBWD_SHAPES = [(4, 16, 16, 2048, 64), (2, 16, 4, 2048, 64), (4, 16, 16, 2048, 128),
+               (2, 16, 4, 2048, 128)]
 _B2_EXP = "      p[e] = exp2_ftz(st[4 * n + e] - ((e & 1) ? l2.y : l2.x));"
 _B3_EXP = "      float p = exp2_ftz(sc[4 * n + e] - lse_r[h]);"
 _B2_COMPUTE = "    if (q0 + TILE > t || kw0 + 64 > s"
@@ -740,7 +756,8 @@ _B2_LATE = "    {  // dV += P^T dO"
 _B3_LATE = "    {  // dQ += dS K"
 FBWD_VARIANTS = {
     "fbwd_as_is": [],
-    "fbwd_stages_6": [("constexpr int DKV_STAGES = 4;", "constexpr int DKV_STAGES = 6;"),
+    # B2's 6 stages at head dim 64 (at 128 they would not fit a block's shared memory)
+    "fbwd_stages_6": [("constexpr int DKV_STAGES = 4;", "constexpr int DKV_STAGES = D == 64 ? 6 : 4;"),
                       ("constexpr int DQ_STAGES = 4;", "constexpr int DQ_STAGES = 6;")],
     "fbwd_no_exp": [(_B2_EXP, _B2_EXP.replace("exp2_ftz(", "(")),
                     (_B3_EXP, _B3_EXP.replace("exp2_ftz(", "("))],
@@ -748,7 +765,7 @@ FBWD_VARIANTS = {
     "fbwd_no_late_products": [(_B2_LATE, _SKIP + _B2_LATE), (_B3_LATE, _SKIP + _B3_LATE)],
 }
 # (anchor, phase ended there, insert before the anchor?) of each kernel's mainloop
-_LOOP_END = "  }}\n  wgmma_wait<0>();\n  reg_fence({acc});"
+_LOOP_END = "  }}\n  wgmma_wait<0>();\n  fence_all({acc});"
 B2_PHASES = [("    mbar_wait(full(st), (i / DKV_STAGES) & 1);\n", "TMA wait", False),
              ("    wgmma_wait<1>();\n", "issue S, dP", True),
              ("    if (i > 0) release_stage(", "wait last dV, dK", True),
@@ -784,19 +801,19 @@ def _fbwd_call(lib, ops, kernel):
     """One fast launch of B2 (kernel "dkv") or B3 ("dq") from an altered
     build, as ops/flash_bwd.py's wrappers launch it."""
     from quantizedattention_tpu_torch.ops import flash_bwd as fbwd
-    dev, bh_kv, rep, t, s, ld, bq = fbwd._launch_args(ops)
+    dev, bh_kv, rep, t, s, ld, bq, d = fbwd._launch_args(ops)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [x.data_ptr() for x in (ops.q, ops.k, ops.v, ops.do, ops.lse, ops.di)]
     if kernel == "dkv":
-        dk = torch.empty((bh_kv, s, 64), dtype=torch.float32, device=dev)
+        dk = torch.empty((bh_kv, s, d), dtype=torch.float32, device=dev)
         dv = torch.empty_like(dk)
         status = lib.qa_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), bh_kv, rep, t, s, ld,
                                       int(ops.causal), ops.q_offset, ops.k_offset, 1,
-                                      1.0 / ops.qk_scale, 1.0 / ops.sm_scale, stream)
+                                      1.0 / ops.qk_scale, 1.0 / ops.sm_scale, d, stream)
     else:
-        dq = torch.empty((bh_kv, rep, t, 64), dtype=torch.float32, device=dev)
+        dq = torch.empty((bh_kv, rep, t, d), dtype=torch.float32, device=dev)
         status = lib.qa_flash_bwd_dq(*ptrs, dq.data_ptr(), bh_kv, rep, t, s, ld, bq,
-                                     int(ops.causal), ops.q_offset, ops.k_offset, 1, stream)
+                                     int(ops.causal), ops.q_offset, ops.k_offset, 1, d, stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
 
@@ -809,15 +826,15 @@ def probe_flash_bwd(smi) -> None:
         libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
     print("\n".join(line for lib in libs.values() for line in lib.ptxas), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, h, h_kv, t in FBWD_SHAPES:
-        q, k, v, do = (torch.randn((b, n, t, 64), generator=gen, device="cuda")
+    for b, h, h_kv, t, d in FBWD_SHAPES:
+        q, k, v, do = (torch.randn((b, n, t, d), generator=gen, device="cuda")
                        for n in (h, h_kv, h_kv, h))
         o, lse = flash_attention_fwd(q, k, v, causal=True)
         ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=True)
         for kernel, name in (("dkv", "B2"), ("dq", "B3")):
             times = {v_: _device_us(lambda v_=v_: _fbwd_call(libs[v_], ops, kernel))
                      for v_ in FBWD_VARIANTS}
-            print(f"[probe] {name} ({b},{h},{h_kv},{t},64) causal: "
+            print(f"[probe] {name} ({b},{h},{h_kv},{t},{d}) causal: "
                   + ", ".join(f"{v_[5:]} {us:.2f}" for v_, us in times.items()) + f" us ({smi})",
                   flush=True)
         lib = libs["fbwd_split"]
@@ -832,7 +849,7 @@ def probe_flash_bwd(smi) -> None:
                 c = cyc[which, :, wg]
                 tiles = c[:, 8].sum()
                 per = c[:, :len(phases)].sum(axis=0) / max(tiles, 1)
-                print(f"[split] {name} ({b},{h},{h_kv},{t},64) causal, warpgroup {wg}, cycles "
+                print(f"[split] {name} ({b},{h},{h_kv},{t},{d}) causal, warpgroup {wg}, cycles "
                       f"per mainloop tile ({tiles} tiles): " + ", ".join(
                           f"{label} {x:.0f}" for (_, label, _), x in zip(phases, per))
                       + f"; all {per.sum():.0f}", flush=True)
@@ -1292,7 +1309,7 @@ probe_merge_kernel(Partials part, const int* __restrict__ length, int capacity,
                    float* __restrict__ o, float* __restrict__ lse, int n_kv, int rows, int spec) {
   const size_t pair = static_cast<size_t>(blockIdx.y) * n_kv + blockIdx.x;
   const int len = min(max(length[blockIdx.y], 0), capacity);
-  merge_rows<CHUNK4>(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
+  merge_rows<CHUNK4, 64>(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
 }
 }  // namespace
 
@@ -1312,18 +1329,17 @@ D4_VARIANTS = {
     "d4_no_merge": [_D4_NO_MERGE],
     "d4_merge_launch": [_D4_NO_MERGE],  # + _D4_MERGE_LAUNCH
     "d4_no_unpack": [
-        ("              mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), "
-         "signed_nibbles_to_bf16x2(y >> 8));",
-         "              mma_bf16(s[n], qa[ks], y, y >> 8);"),
-        ("              mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], "
-         "vw[kk][1][n / 4], n % 4),\n                       signed_nibble_pair(vw[kk][2][n / 4], "
-         "vw[kk][3][n / 4], n % 4));",
-         "              mma_bf16(acc[n], pa[kk], vw[kk][0][n / 4], vw[kk][2][n / 4]);")],
+        ("                mma_bf16(s[n], qa[4 * hh + ks], signed_nibbles_to_bf16x2(y),\n"
+         "                         signed_nibbles_to_bf16x2(y >> 8));",
+         "                mma_bf16(s[n], qa[4 * hh + ks], y, y >> 8);"),
+        ("                mma_bf16(acc[hh][n], pa[kk], signed_nibble_pair(vk[0][n / 4], vk[1][n / 4], "
+         "n % 4),\n                         signed_nibble_pair(vk[2][n / 4], vk[3][n / 4], n % 4));",
+         "                mma_bf16(acc[hh][n], pa[kk], vk[0][n / 4], vk[2][n / 4]);")],
     "d4_loads_only": [_D4_NO_MERGE, _D4_LOADS_ONLY],
     "d4_one_chunk": [_D4_NO_MERGE, _D4_ONE_CHUNK],
     "d4_ex2_approx": [("exp2f(s[n][2 * h + e] - m[h])", "exp2_ftz(s[n][2 * h + e] - m[h])")],
-    "d4_empty": [("  Smem<PACKED, CH>& sm = *reinterpret_cast<Smem<PACKED, CH>*>(smem_raw);\n",
-                  "  Smem<PACKED, CH>& sm = *reinterpret_cast<Smem<PACKED, CH>*>(smem_raw);\n"
+    "d4_empty": [("  Smem<PACKED, CH, D>& sm = *reinterpret_cast<Smem<PACKED, CH, D>*>(smem_raw);\n",
+                  "  Smem<PACKED, CH, D>& sm = *reinterpret_cast<Smem<PACKED, CH, D>*>(smem_raw);\n"
                   "  if (rows > 0) return;\n")],
 }
 # the int8 instance (B13): knock-outs, and 128- against 256-token chunks
@@ -1331,18 +1347,18 @@ D8_VARIANTS = {
     "d8_as_is": [],
     "d8_no_merge": [_D4_NO_MERGE],
     "d8_no_widen": [
-        ("              const uint2 b = widen4(kw[n][ks]);",
-         "              const uint2 b = make_uint2(kw[n][ks], kw[n][ks] >> 8);"),
-        ("              mma_bf16(acc[n], pa[kk], widen_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], "
-         "n % 4),\n                       widen_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));",
-         "              mma_bf16(acc[n], pa[kk], vw[kk][0][n / 4], vw[kk][2][n / 4]);")],
+        ("                const uint2 b = widen4(kw[n][ks]);",
+         "                const uint2 b = make_uint2(kw[n][ks], kw[n][ks] >> 8);"),
+        ("                mma_bf16(acc[hh][n], pa[kk], widen_pair(vk[0][n / 4], vk[1][n / 4], n % 4),\n"
+         "                         widen_pair(vk[2][n / 4], vk[3][n / 4], n % 4));",
+         "                mma_bf16(acc[hh][n], pa[kk], vk[0][n / 4], vk[2][n / 4]);")],
     "d8_loads_only": [_D4_NO_MERGE, _D4_LOADS_ONLY],
     "d8_one_chunk": [_D4_NO_MERGE, _D4_ONE_CHUNK],
     "d8_chunk128": [("constexpr int CHUNK8 = 256;", "constexpr int CHUNK8 = 128;")],
 }
 D4_STAMPS = ["start", "length read", "staged", "S", "max exchanged", "PV", "warps' sums shared",
              "partials written", "arrived", "end"]  # a block's last chunk (and m-tile) from "staged"
-# the instance's mangled name: decode_kernel<PACKED, CH>
+# the instances' mangled names: decode_kernel<PACKED, CH, D> (int8 at head dims 64 and 128)
 INSTANCE = {4: "decode_kernelILb1E", 8: "decode_kernelILb0E"}
 
 
@@ -1365,7 +1381,7 @@ def _d4_stamped() -> str:
             ("      // the warps' acc and l of the live rows", False),
             ("      // tile 0's sums (its warps in order)", False),
             ("  {  // the last block of the (kv head, sequence) merges", False),
-            ("    if (sm.merges) merge_rows", False),
+            ("    if (sm.merges)\n      merge_rows", False),
             ("spec, o, lse);\n  }\n", True))):
         at = src.index(anchor, k0) + (len(anchor) if after else 0)
         src = src[:at] + f"STAMP({i})\n" + src[at:]
@@ -1375,8 +1391,8 @@ def _d4_stamped() -> str:
                   '  return (int)cudaMemcpyToSymbol(g_t, z, sizeof(g_t));\n}\n')
 
 
-def _d4_case(gen, n_kv, length, spec, bits=4):
-    """q [8, 16 * spec, 64] f32, a slotted cache of random bytes and scales
+def _d4_case(gen, n_kv, length, spec, bits=4, d=64):
+    """q [8, 16 * spec, d] f32, a slotted cache of random bytes and scales
     (int4 or int8) at capacity D4_CAP, all rows at `length`, its paged twin
     (pages of 128 shuffled across the pool), and the partials (room for
     128-token chunks)."""
@@ -1384,8 +1400,8 @@ def _d4_case(gen, n_kv, length, spec, bits=4):
 
     n, dev = 8, "cuda"
     per_page = 64 if bits == 4 else 128
-    q = torch.randn((n, 16 * spec, 64), generator=gen, device=dev)
-    k, v = (torch.randint(-128, 128, (n, n_kv, D4_CAP * per_page // 128, 64), generator=gen,
+    q = torch.randn((n, 16 * spec, d), generator=gen, device=dev)
+    k, v = (torch.randint(-128, 128, (n, n_kv, D4_CAP * per_page // 128, d), generator=gen,
                           device=dev, dtype=torch.int8) for _ in range(2))
     scale = 0.28 if bits == 4 else 0.028
     sk, sv = (torch.rand((n, n_kv, D4_CAP), generator=gen, device=dev) * scale + scale / 14
@@ -1395,12 +1411,12 @@ def _d4_case(gen, n_kv, length, spec, bits=4):
     ps, max_pages = 128, D4_CAP // 128
     perm = torch.randperm(n * max_pages, generator=torch.Generator().manual_seed(0)) + 1
     table = perm.reshape(n, max_pages).int().to(dev)
-    pay = [torch.zeros((n_kv, 1 + n * max_pages, per_page, 64), dtype=torch.int8, device=dev)
+    pay = [torch.zeros((n_kv, 1 + n * max_pages, per_page, d), dtype=torch.int8, device=dev)
            for _ in range(2)]
     scales = [torch.zeros((1 + n * max_pages, n_kv, ps), device=dev) for _ in range(2)]
     for x, p in zip((k, v), pay):  # any bytes do: the twin is timed, not compared
-        p[:, table.flatten().long()] = x.reshape(n, n_kv, max_pages, per_page, 64).transpose(
-            0, 1).reshape(n_kv, n * max_pages, per_page, 64)
+        p[:, table.flatten().long()] = x.reshape(n, n_kv, max_pages, per_page, d).transpose(
+            0, 1).reshape(n_kv, n * max_pages, per_page, d)
     for x, sc in zip((sk, sv), scales):
         sc[table.flatten().long()] = x.reshape(n, n_kv, max_pages, ps).transpose(1, 2).reshape(
             n * max_pages, n_kv, ps)
@@ -1408,8 +1424,8 @@ def _d4_case(gen, n_kv, length, spec, bits=4):
                                                                 scales[1], table, lengths)
     rows = 16 * spec // n_kv
     acc, ml = (torch.empty(shape, device=dev)
-               for shape in ((n, n_kv, D4_CAP // 128, rows, 64), (n, n_kv, D4_CAP // 128, rows, 2)))
-    o = torch.empty((n, 16 * spec, 64), device=dev)
+               for shape in ((n, n_kv, D4_CAP // 128, rows, d), (n, n_kv, D4_CAP // 128, rows, 2)))
+    o = torch.empty((n, 16 * spec, d), device=dev)
     lse = torch.empty((n, 16 * spec), device=dev)
     return q, slotted, paged, (acc, ml, o, lse)
 
@@ -1421,18 +1437,19 @@ def _d4_call(lib, q, cache, outs, arrived, n_kv, spec, paged=False, bits=4, chun
 
     acc, ml, o, lse = outs
     group = 16 // n_kv
+    d = q.shape[-1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    grid_z = min(-(-D4_CAP // chunk), max(1, dt.RESIDENT * sms // (8 * n_kv)))
+    grid_z = min(-(-D4_CAP // chunk), max(1, dt.resident(d) * sms // (8 * n_kv)))
     args = [q.data_ptr(), *(x.data_ptr() for x in cache), o.data_ptr(), lse.data_ptr(),
             acc.data_ptr(), ml.data_ptr(), arrived, int(q.dtype == torch.float32)]
     stream = torch.cuda.current_stream().cuda_stream
     if paged:
         entry = lib.qa_paged4_decode if bits == 4 else lib.qa_paged_decode
         status = entry(*args, 8, n_kv, group, spec, cache[0].shape[1], 128,
-                       cache.page_table.shape[1], grid_z, 0.125 * LOG2_E, stream)
+                       cache.page_table.shape[1], d, grid_z, d ** -0.5 * LOG2_E, stream)
     else:
         entry = lib.qa_decode4 if bits == 4 else lib.qa_decode
-        status = entry(*args, 8, n_kv, group, spec, D4_CAP, grid_z, 0.125 * LOG2_E, stream)
+        status = entry(*args, 8, n_kv, group, spec, D4_CAP, d, grid_z, d ** -0.5 * LOG2_E, stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
 
@@ -1523,13 +1540,13 @@ def probe_decode4(smi) -> None:
 
 # B13's and B14's error against their plain versions on chip_smoke.py's
 # phase-21 and phase-23 inputs (non-finite stale scales, junk pages), drawn
-# afresh from seed 0, and a digest of B15's and B16's outputs there (equal
-# digests in two checkouts: the same bits); run in a checkout's own process
-# by `python -c`
+# afresh from seed 0 at head dim 64, and digests of B13's and B14's outputs
+# and of B15's and B16's there (equal digests in two checkouts: the same
+# bits); run in a checkout's own process by `python -c`
 _D8_ERRORS = """
 import hashlib, torch
 import chip_smoke as cs
-dev, out, bits = torch.device("cuda", 0), {}, hashlib.sha256()
+dev, out, bits, b8 = torch.device("cuda", 0), {}, hashlib.sha256(), hashlib.sha256()
 gen = torch.Generator(device=dev).manual_seed(0)
 for n_kv in (16, 4):
     q, d8, p8, d4, p4 = cs._cache_kinds(dev, gen, 16, n_kv, cs.CACHE_LENGTHS, True)
@@ -1539,7 +1556,9 @@ for n_kv in (16, 4):
     for name, fn, plain, c in (("b13", cs.decode_attention, cs.decode_attention_plain, d8),
                                ("b14", cs.paged_decode_attention,
                                 cs.paged_decode_attention_plain, p8)):
-        out[f"{name} 16/{n_kv}"] = (fn(q, c) - plain(q, c)).abs().max().item()
+        got = fn(q, c, return_lse=True)
+        out[f"{name} 16/{n_kv}"] = (got[0] - plain(q, c)).abs().max().item()
+        b8.update(b"".join(x.cpu().numpy().tobytes() for x in got))
     for spec in (2, 5):
         _, d8, p8, d4, p4 = cs._cache_kinds(dev, gen, 16, n_kv, cs.SPEC_LENGTHS, True)
         q = torch.randn((8, 16, spec, 64), generator=gen, device=dev)
@@ -1549,8 +1568,11 @@ for n_kv in (16, 4):
                                     cs.verify_decode_attention_plain, d8),
                                    ("b14", cs.paged_verify_attention,
                                     cs.paged_verify_attention_plain, p8)):
-            out[f"{name} 16/{n_kv} spec {spec}"] = (fn(q, c) - plain(q, c)).abs().max().item()
-print(", ".join(f"{k} {v:.3e}" for k, v in out.items()) + f"; B15/B16 bits {bits.hexdigest()[:16]}")
+            got = fn(q, c)
+            out[f"{name} 16/{n_kv} spec {spec}"] = (got - plain(q, c)).abs().max().item()
+            b8.update(got.cpu().numpy().tobytes())
+print(", ".join(f"{k} {v:.3e}" for k, v in out.items())
+      + f"; B13/B14 bits {b8.hexdigest()[:16]}; B15/B16 bits {bits.hexdigest()[:16]}")
 """
 
 
@@ -1592,6 +1614,27 @@ for i, (b, hq, hk, t, s, causal) in enumerate(fwd + bwd):
         h.update(x.contiguous().cpu().numpy().tobytes())
     n += 1
 print(f"{n} cases ({len(fwd)} forward, {len(bwd)} backward), sha256 {h.hexdigest()}")
+"""
+
+
+# the same at head dim 128 over chip_smoke.py phase 30's cases, B2/B3 in fast
+# mode (a parent without head dim 128 cannot run it)
+_FLASH128_DIGEST = r"""
+import hashlib, torch
+import chip_smoke as cs
+from quantizedattention_tpu_torch.ops.flash_bwd import flash_attention_bwd
+from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd
+h = hashlib.sha256()
+for i, (b, hq, hk, t, s, causal) in enumerate(cs.HEAD128_CASES):
+    g = torch.Generator(device="cuda").manual_seed(3000 + i)
+    q, k, v, do = cs._qkvdo(g, torch.device("cuda"), b, hq, hk, t, s, cs.HEAD128)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    outs = [o, lse, *flash_attention_fwd(*(x.to(torch.bfloat16) for x in (q, k, v)),
+                                         causal=causal),
+            *flash_attention_bwd(q, k, v, o, lse, do, causal=causal, fast=True)]
+    for x in outs:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+print(f"{len(cs.HEAD128_CASES)} cases at head dim 128, sha256 {h.hexdigest()}")
 """
 
 
@@ -1645,10 +1688,72 @@ def _digest(script, what, smi, parent=None) -> None:
               f"{'the same bits' if same else 'DIFFERENT'}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# The head-dim-64 instances' machine code against a parent checkout's
+# --------------------------------------------------------------------------
+
+SASS_LIBS = ("flash_fwd", "flash_bwd", "cache_decode")
+# a kernel's mangled name -> its key: the kernel's name, the decode kernel's
+# payload (PACKED), and no head dim (a template's 64 instance; 128 skipped)
+_KERNEL_NAMES = ("flash_fwd_f32_kernel", "flash_fwd_kernel", "kv_to_bf16_kernel",
+                 "kv_split_tf32_kernel", "dkv_kernel_bf16", "dq_kernel_bf16", "bwd_prep_kernel",
+                 "dkv_kernel_f32", "dq_kernel_f32", "decode_kernel")
+
+
+def _sass(lib_path) -> dict:
+    """{kernel key: its SASS instructions} of one library, from cuobjdump
+    (addresses and encodings dropped)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            base = next((k for k in _KERNEL_NAMES if k in name), name)
+            packed = "ILb1E" in name if base == "decode_kernel" else ""
+            key = None if "Li128E" in name else (base, packed)
+            if key:
+                out[key] = []
+        elif key and "/*" in line and ";" in line:
+            out[key].append(line.split("*/", 1)[1].split(";")[0].strip())
+    return out
+
+
+def probe_sass(smi, parent) -> None:
+    """Each of the parent's kernels in SASS_LIBS against this checkout's
+    head-dim-64 instance of it: identical instructions, or how many differ."""
+    if not parent:
+        raise SystemExit("kernel_probe: sass needs a PARENT_CHECKOUT")
+    build = "from quantizedattention_tpu_torch import _build; _build.build_all()"
+    for tree in (parent, "."):
+        subprocess.run([sys.executable, "-c", build], cwd=os.path.abspath(tree), check=True)
+    for lib in SASS_LIBS:
+        old, new = (_sass(os.path.join(os.path.abspath(tree), "build", "kernels", f"lib{lib}.so"))
+                    for tree in (parent, "."))
+        for key, code in old.items():
+            got = new.get(key)
+            if got is None:
+                same = "missing"
+            elif got == code:
+                same = "identical"
+            else:  # instructions of either side outside the longest matching blocks
+                ops = difflib.SequenceMatcher(None, code, got, autojunk=False).get_opcodes()
+                diff = [op for op in ops if op[0] != "equal"]
+                changed = sum(max(i2 - i1, j2 - j1) for _, i1, i2, j1, j2 in diff)
+                _, i1, i2, j1, j2 = diff[0]
+                same = (f"{changed} instructions differ ({len(got)} here); first at {i1}: "
+                        f"{code[i1:min(i2, i1 + 3)]} -> {got[j1:min(j2, j1 + 3)]}")
+            print(f"[sass] {lib} {key[0]}{' int4' if key[1] is True else ''}: d=64 instance vs "
+                  f"parent: {same} ({len(code)} instructions; {smi})", flush=True)
+
+
 def probe_flash_digest(smi, parent=None) -> None:
     """One digest of B1's and B2/B3's outputs at zero offsets over chip_smoke.py
-    phase 3's and 6's cases, in the parent checkout (if given) and here."""
+    phase 3's and 6's cases (head dim 64), in the parent checkout (if given)
+    and here; then one over phase 30's head-dim-128 cases, here."""
     _digest(_FLASH_DIGEST, "B1-B3", smi, parent)
+    _digest(_FLASH128_DIGEST, "B1-B3 at head dim 128", smi)
 
 
 def probe_int8_digest(smi, parent=None) -> None:
@@ -1669,23 +1774,25 @@ def probe_decode8(smi, parent=None) -> None:
     counters = torch.zeros(8 * 16, dtype=torch.int32, device="cuda")
     arrived = counters.data_ptr()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, n_kv, length, spec in D4_SHAPES:
-        q, slotted, paged, outs = _d4_case(gen, n_kv, length, spec, bits=8)
+    for (label, n_kv, length, spec), d in [(s, 64) for s in D4_SHAPES] + [
+            (s, 128) for s in D4_SHAPES if s[0] != "capacity"]:  # B13 alone takes head dim 128
+        q, slotted, paged, outs = _d4_case(gen, n_kv, length, spec, bits=8, d=d)
         qb = q.to(torch.bfloat16)
         times = {v[3:]: _device_us(lambda v=v: _d4_call(
             libs[v], qb, slotted, outs, arrived, n_kv, spec, bits=8,
             chunk=128 if v == "d8_chunk128" else 256)) for v in D8_VARIANTS}
         times["f32_q"] = _device_us(
             lambda: _d4_call(libs["d8_as_is"], q, slotted, outs, arrived, n_kv, spec, bits=8))
-        times["b14"] = _device_us(lambda: _d4_call(libs["d8_as_is"], qb, paged, outs, arrived,
-                                                   n_kv, spec, paged=True, bits=8))
+        if d == 64:
+            times["b14"] = _device_us(lambda: _d4_call(libs["d8_as_is"], qb, paged, outs, arrived,
+                                                       n_kv, spec, paged=True, bits=8))
         if spec == 1:
             times["call_f32_q"] = _device_us(lambda: decode_attention(q, slotted))
-        print(f"[probe] B13 {label}: 8 x 16 q / {n_kv} kv heads x spec {spec}, length {length} "
-              f"of {D4_CAP}: " + ", ".join(f"{v} {us:.2f}" for v, us in times.items())
+        print(f"[probe] B13 d={d} {label}: 8 x 16 q / {n_kv} kv heads x spec {spec}, length "
+              f"{length} of {D4_CAP}: " + ", ".join(f"{v} {us:.2f}" for v, us in times.items())
               + f" us ({smi})", flush=True)
-        print(f"[split] B13 {label}: " + _d4_split(libs["d8_stamped"], label, qb, slotted, outs,
-                                                   arrived, n_kv, spec, 8), flush=True)
+        print(f"[split] B13 d={d} {label}: " + _d4_split(libs["d8_stamped"], label, qb, slotted,
+                                                         outs, arrived, n_kv, spec, 8), flush=True)
     for tree in ([parent] if parent else []) + ["."]:
         print(f"[error] B13/B14 max|dO| vs plain (DECODE_TOL 5e-3), {os.path.abspath(tree)}: "
               + _d8_errors(tree) + f" ({smi})", flush=True)
@@ -1939,7 +2046,7 @@ def main() -> None:
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
              "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent", "flash_digest",
-             "int8_digest"]
+             "int8_digest", "sass"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -1977,6 +2084,8 @@ def main() -> None:
         probe_flash_digest(smi, dirs[0] if dirs else None)
     if "int8_digest" in parts:
         probe_int8_digest(smi, dirs[0] if dirs else None)
+    if "sass" in parts:
+        probe_sass(smi, dirs[0] if dirs else None)
 
 
 

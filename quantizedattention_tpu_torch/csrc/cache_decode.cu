@@ -82,6 +82,15 @@
 //   after tile 0 (m0) and after tile 1 (m1): tile 0 takes p against m0, tile
 //   1 against m1, and the block sums tile 0's warps * 2^(m0 - m1) + tile 1's,
 //   in warp order.
+// - Head dim 128 (B13 only: decode_kernel<false, 256, 128>, chosen by
+//   qa_decode's d): a token's int8 row is 128 bytes, walked as two 64-byte
+//   halves each as a row of 64 is (S's k-steps 4-7 and PV's n-tiles 8-15
+//   on the second half). row8<128> swaps 64-byte halves every other row and
+//   permutes 32-byte quarters by (slot / 2) % 4, so S's and PV's fragment
+//   reads stay free of bank conflicts. A block asks for 206 KB (stages and
+//   partial sums twice d=64's) and about 210 registers a thread: one block
+//   an SM (decode_tiling.resident), and the grid's z follows. Each live
+//   token streams 2 * (128 + 4) bytes.
 // - Bits do not depend on the layout, on the other rows or on the block
 //   that computes a chunk: a token's slot, and so its place in every
 //   fragment and sum, is its index in the chunk, so B14 equals B13 and B16
@@ -96,16 +105,19 @@
 
 namespace {
 
-constexpr int D = 64;          // head dim
 constexpr int TILE = 128;      // tokens an online-softmax step
 constexpr int CHUNK4 = 256;    // tokens a chunk, int4 (decode_tiling.CHUNK)
 constexpr int CHUNK8 = 256;    // tokens a chunk, int8 (decode_tiling.CHUNK)
 constexpr int THREADS = 256;   // 8 warps: 4 a tile, 32 tokens each
 constexpr int WARPS = THREADS / 32;
-constexpr int RESIDENT = 2;    // blocks an SM holds (shared memory, registers)
 constexpr int M_ROWS = 16;     // q rows an mma.sync m-tile
-constexpr int RED_ROW = D + 1; // padded row of the warps' partial acc
 constexpr int MERGE_REG = 8;   // chunks a merging thread holds in registers
+
+// Blocks an SM holds (shared memory, registers; decode_tiling.resident):
+// two at head dim 64, one at 128, whose stages and partial sums take twice
+// the bytes (a block asks for 206 KB) and whose fragments take about 210
+// registers a thread.
+__host__ __device__ constexpr int resident(int d) { return d == 64 ? 2 : 1; }
 
 struct Pool {
   const int8_t* k;
@@ -123,10 +135,10 @@ struct Pool {
   long long sc_seq, sc_head, sc_page;
 };
 
-// Pool of pages [n_kv, n_pages, rpp, D] payload rows, scales [n_pages, n_kv, ps].
+// Pool of pages [n_kv, n_pages, rpp, d] payload rows, scales [n_pages, n_kv, ps].
 Pool paged_pool(const void* k, const void* sk, const void* v, const void* sv,
                 const void* table, const void* lengths, int n_kv, int n_pages, int ps,
-                int max_pages, int rpp) {
+                int max_pages, int rpp, int d) {
   Pool p;
   p.k = static_cast<const int8_t*>(k);
   p.sk = static_cast<const float*>(sk);
@@ -137,8 +149,8 @@ Pool paged_pool(const void* k, const void* sk, const void* v, const void* sv,
   p.ps = ps;
   p.max_pages = max_pages;
   p.pay_seq = 0;
-  p.pay_head = static_cast<long long>(n_pages) * rpp * D;
-  p.pay_page = static_cast<long long>(rpp) * D;
+  p.pay_head = static_cast<long long>(n_pages) * rpp * d;
+  p.pay_page = static_cast<long long>(rpp) * d;
   p.sc_seq = 0;
   p.sc_head = ps;
   p.sc_page = static_cast<long long>(n_kv) * ps;
@@ -156,7 +168,7 @@ struct Partials {
 // One chunk's copies in shared memory. int4 (PACKED): packed byte rows at
 // their owner's slot, and each slot's source; int8: each token's row at
 // row8(slot, 0).
-template <bool PACKED, int CH>
+template <bool PACKED, int CH, int D>
 struct Stage {
   uint8_t k[CH][D];
   uint8_t v[CH][D];
@@ -165,37 +177,44 @@ struct Stage {
   float sv[CH];
 };
 
-template <int CH>
-struct Stage<false, CH> {
+template <int CH, int D>
+struct Stage<false, CH, D> {
   uint8_t k[CH][D];
   uint8_t v[CH][D];
   float sk[CH];
   float sv[CH];
 };
 
-template <bool PACKED, int CH>
+template <bool PACKED, int CH, int D>
 struct Smem {
-  Stage<PACKED, CH> stage[2];  // the chunk computed and the next one's copies in flight
+  Stage<PACKED, CH, D> stage[2];  // the chunk computed and the next one's copies in flight
   float q[M_ROWS][D];  // q's first m-tile, f32 or (in its first half) bf16
   float red_max[WARPS][M_ROWS];  // warp w: tile w / (warps a tile)
-  float red_acc[WARPS][M_ROWS][RED_ROW];
+  float red_acc[WARPS][M_ROWS][D + 1];  // rows padded by a float
   float red_l[WARPS][M_ROWS];
   float m[M_ROWS];
   float alpha[M_ROWS];
   int merges;
 };
 
-template <bool PACKED, int CH>
+template <bool PACKED, int CH, int D>
 constexpr size_t smem_bytes() {
-  return (sizeof(Smem<PACKED, CH>) + 15) & ~static_cast<size_t>(15);
+  return (sizeof(Smem<PACKED, CH, D>) + 15) & ~static_cast<size_t>(15);
 }
 
-// Byte b of int8 slot s's row in a stage: rows swapped in pairs every other
-// pair, and 32-byte halves swapped every four rows. S's reads (a quarter of
-// a warp: two rows whole) and PV's (half a warp: 32 bytes of four rows two
-// apart) then hit 32 distinct banks; 16-byte pieces stay whole.
+// Byte b of int8 slot s's row in a stage. Head dim 64: rows swapped in
+// pairs every other pair, and 32-byte halves swapped every four rows. Head
+// dim 128 (rows of 128 bytes, each spanning the 32 banks): 64-byte halves
+// swapped every other row and 32-byte quarters permuted by (s / 2) % 4. S's
+// reads (a quarter of a warp: two rows' 64 bytes of one half) and PV's (half
+// a warp: 32 bytes of four rows two apart) then hit 32 distinct banks;
+// 16-byte pieces stay whole.
+template <int D>
 __device__ __forceinline__ int row8(int s, int b) {
-  return (s ^ ((s >> 1) & 1)) * D + (b ^ ((s << 3) & 32));
+  if constexpr (D == 64)
+    return (s ^ ((s >> 1) & 1)) * D + (b ^ ((s << 3) & 32));
+  else
+    return s * D + (b ^ ((((s >> 1) & 3) << 5) ^ ((s & 1) << 6)));
 }
 
 // 4 bytes global -> shared, asynchronously; zero-filled and nothing read
@@ -207,8 +226,9 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live)
 }
 
 // The pages of this thread's copies of chunk `ch`: payload pieces (slot
-// tid / 4 + 64 i, 16 bytes at 16 (tid % 4)) and a scale (slot tid), from
-// the table clamped into the row (always in bounds, whatever ch).
+// tid / 4 + 64 i, 16 bytes at 64 half + 16 (tid % 4) for each 64-byte half
+// of the row) and a scale (slot tid), from the table clamped into the row
+// (always in bounds, whatever ch).
 struct ChunkPages {
   int pay[4];
   int sc;
@@ -231,8 +251,8 @@ __device__ __forceinline__ ChunkPages chunk_pages(const Pool& c, const int* trow
 // at its owner's slot (a high-nibble slot whose low partner is in the chunk
 // reads the partner's); int8, each token's row at its slot; and the scales;
 // zero-filled, nothing read, past `len`.
-template <bool PACKED, int CH>
-__device__ __forceinline__ void stage_chunk(Stage<PACKED, CH>& st, const Pool& c, int seq,
+template <bool PACKED, int CH, int D>
+__device__ __forceinline__ void stage_chunk(Stage<PACKED, CH, D>& st, const Pool& c, int seq,
                                             int kvh, int ch, int len, const ChunkPages& pg,
                                             int tid) {
   const int t0 = ch * CH;
@@ -245,7 +265,7 @@ __device__ __forceinline__ void stage_chunk(Stage<PACKED, CH>& st, const Pool& c
     const int s = tid / 4 + 64 * i;
     const int in_page = (t0 + s) % c.ps;
     int row = in_page;
-    int at = row8(s, 16 * j);
+    int at = row8<D>(s, 16 * j);
     if constexpr (PACKED) {
       const bool hi = in_page >= half;
       if (hi && s >= half) continue;  // its low partner's copy feeds it
@@ -256,12 +276,19 @@ __device__ __forceinline__ void stage_chunk(Stage<PACKED, CH>& st, const Pool& c
     const long long off = c.pay_page * pg.pay[i] + static_cast<long long>(row) * D + 16 * j;
     cp_async16(&st.k[0][0] + at, live ? k_seq + off : c.k, live);
     cp_async16(&st.v[0][0] + at, live ? v_seq + off : c.v, live);
+#pragma unroll
+    for (int hh = 1; hh < D / 64; ++hh) {  // a row's other 64-byte halves (head dim 128)
+      const int a2 = PACKED ? s * D + 64 * hh + 16 * j : row8<D>(s, 64 * hh + 16 * j);
+      cp_async16(&st.k[0][0] + a2, live ? k_seq + off + 64 * hh : c.k, live);
+      cp_async16(&st.v[0][0] + a2, live ? v_seq + off + 64 * hh : c.v, live);
+    }
   }
   if (CH == THREADS || tid < CH) {
     const int in_page = (t0 + tid) % c.ps;
     if constexpr (PACKED) {
       const bool hi = in_page >= half;
-      st.src[tid] = static_cast<uint16_t>((hi && tid >= half ? tid - half : tid) * D + (hi ? 4 : 0));
+      st.src[tid] =
+          static_cast<uint16_t>((hi && tid >= half ? tid - half : tid) * D + (hi ? 4 : 0));
     }
     const bool live = t0 + tid < len;
     const long long off = c.sc_seq * seq + c.sc_head * kvh + c.sc_page * pg.sc + in_page;
@@ -277,7 +304,7 @@ __device__ __forceinline__ void stage_chunk(Stage<PACKED, CH>& st, const Pool& c
 // of the pair's chunk 0. Loads go through L2 (__ldcg): they read what other
 // blocks wrote during the launch; up to MERGE_REG chunks' loads are all
 // issued before the first is used.
-template <int CH>
+template <int CH, int D>
 __device__ void merge_rows(const Partials& part, size_t pbase, size_t head0, int len, int rows,
                            int spec, float* __restrict__ o, float* __restrict__ lse) {
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
@@ -322,47 +349,51 @@ __device__ void merge_rows(const Partials& part, size_t pbase, size_t head0, int
 
 // q's A fragments of m-tile mt (rows g and g + 8; zeros past `rows`), from
 // bf16 q or from f32 q rounded to bf16 here, with the k slots permuted as
-// decode_kernel's K fragments read them. int4 (PACKED): k slot (ks, 2 j +
-// e) holds dim 16 j + 4 ks + 2 e and slot (ks, 2 j + 8 + e) dim 16 j + 4 ks
-// + 2 e + 1; int8: slot (ks, 2 j + e) dim 16 j + 4 ks + e and slot (ks, 2 j
-// + 8 + e) dim 16 j + 4 ks + 2 + e.
-template <bool PACKED>
+// decode_kernel's K fragments read them; k-steps 4 hh .. 4 hh + 3 take the
+// head dims 64 hh .. 64 hh + 63. int4 (PACKED): k slot (ks, 2 j + e) holds
+// dim 16 j + 4 ks + 2 e and slot (ks, 2 j + 8 + e) dim 16 j + 4 ks + 2 e + 1;
+// int8: slot (ks, 2 j + e) dim 16 j + 4 ks + e and slot (ks, 2 j + 8 + e)
+// dim 16 j + 4 ks + 2 + e (each plus 64 hh).
+template <bool PACKED, int D>
 __device__ __forceinline__ void load_q(const void* __restrict__ q_kv, bool q_f32, int mt,
-                                       int rows, int g, int j, uint32_t (&qa)[4][4]) {
+                                       int rows, int g, int j, uint32_t (&qa)[D / 16][4]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = mt * M_ROWS + g + 8 * h;
-    uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // bf16 pairs of dims 16 j + 2 i, + 1
-    if (r < rows && q_f32) {
-      const float4* qr = static_cast<const float4*>(q_kv) + (r * D + 16 * j) / 4;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 f = qr[i];
-        w[2 * i] = as_u32(__floats2bfloat162_rn(f.x, f.y));
-        w[2 * i + 1] = as_u32(__floats2bfloat162_rn(f.z, f.w));
+    for (int hh = 0; hh < D / 64; ++hh) {
+      uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // bf16 pairs of dims 64 hh + 16 j + 2 i, + 1
+      if (r < rows && q_f32) {
+        const float4* qr = static_cast<const float4*>(q_kv) + (r * D + 64 * hh + 16 * j) / 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 f = qr[i];
+          w[2 * i] = as_u32(__floats2bfloat162_rn(f.x, f.y));
+          w[2 * i + 1] = as_u32(__floats2bfloat162_rn(f.z, f.w));
+        }
+      } else if (r < rows) {
+        const uint4* qr = static_cast<const uint4*>(q_kv) + (r * D + 64 * hh + 16 * j) / 8;
+        const uint4 lo = qr[0];
+        const uint4 hi = qr[1];
+        w[0] = lo.x, w[1] = lo.y, w[2] = lo.z, w[3] = lo.w;
+        w[4] = hi.x, w[5] = hi.y, w[6] = hi.z, w[7] = hi.w;
       }
-    } else if (r < rows) {
-      const uint4* qr = static_cast<const uint4*>(q_kv) + (r * D + 16 * j) / 8;
-      const uint4 lo = qr[0];
-      const uint4 hi = qr[1];
-      w[0] = lo.x, w[1] = lo.y, w[2] = lo.z, w[3] = lo.w;
-      w[4] = hi.x, w[5] = hi.y, w[6] = hi.z, w[7] = hi.w;
-    }
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      if constexpr (PACKED) {
-        qa[ks][h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x5410);
-        qa[ks][2 + h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x7632);
-      } else {
-        qa[ks][h] = w[2 * ks];
-        qa[ks][2 + h] = w[2 * ks + 1];
+      for (int ks = 0; ks < 4; ++ks) {
+        if constexpr (PACKED) {
+          qa[4 * hh + ks][h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x5410);
+          qa[4 * hh + ks][2 + h] = __byte_perm(w[2 * ks], w[2 * ks + 1], 0x7632);
+        } else {
+          qa[4 * hh + ks][h] = w[2 * ks];
+          qa[4 * hh + ks][2 + h] = w[2 * ks + 1];
+        }
       }
     }
   }
 }
 
-template <bool PACKED, int CH>
-__global__ void __launch_bounds__(THREADS, RESIDENT)
+template <bool PACKED, int CH, int D>
+__global__ void __launch_bounds__(THREADS, resident(D))
 decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or bf16
               Pool c, Partials part,
               float* __restrict__ o,    // [n_seqs, n_kv * rows, D]
@@ -374,8 +405,9 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
   constexpr int TPW = TILE / WPT;     // tokens a warp
   constexpr int NT = TPW / 8;         // S's n-tiles a warp
   constexpr int KK = TPW / 16;        // PV's k-steps a warp
+  constexpr int HALVES = D / 64;      // 64-dim halves of a row (each 64 int8 bytes)
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  Smem<PACKED, CH>& sm = *reinterpret_cast<Smem<PACKED, CH>*>(smem_raw);
+  Smem<PACKED, CH, D>& sm = *reinterpret_cast<Smem<PACKED, CH, D>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int tile = warp / WPT;   // this warp's tile of the chunk
@@ -395,10 +427,14 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
   // computed.
   const int length = c.length[seq];
   ChunkPages pg = chunk_pages<CH>(c, trow, chunk, tid);
-  if (tid * 16 < M_ROWS * D * (q_f32 ? 4 : 2)) {
-    const bool live = tid * 16 < rows * D * (q_f32 ? 4 : 2);
-    cp_async16(reinterpret_cast<uint8_t*>(sm.q) + tid * 16,
-               live ? static_cast<const uint8_t*>(q_kv) + tid * 16 : q, live);
+#pragma unroll
+  for (int i = 0; i < D / 64; ++i) {  // 16 bytes a thread, twice at head dim 128
+    const int at = (tid + THREADS * i) * 16;
+    if (at < M_ROWS * D * (q_f32 ? 4 : 2)) {
+      const bool live = at < rows * D * (q_f32 ? 4 : 2);
+      cp_async16(reinterpret_cast<uint8_t*>(sm.q) + at,
+                 live ? static_cast<const uint8_t*>(q_kv) + at : q, live);
+    }
   }
   const int len = min(max(length, 0), c.max_pages * c.ps);
   const int n_live = max(1, (len + CH - 1) / CH);
@@ -410,7 +446,7 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
   pg = chunk_pages<CH>(c, trow, chunk + gridDim.z, tid);
 
   for (int ch = chunk, it = 0; ch < n_live; ch += gridDim.z, ++it) {
-    const Stage<PACKED, CH>& st = sm.stage[it & 1];
+    const Stage<PACKED, CH, D>& st = sm.stage[it & 1];
     if (ch + gridDim.z < n_live) {
       stage_chunk(sm.stage[(it + 1) & 1], c, seq, kvh, ch + gridDim.z, len, pg, tid);
       pg = chunk_pages<CH>(c, trow, ch + 2 * gridDim.z, tid);
@@ -427,8 +463,9 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
     const uint8_t* k_bytes = &st.k[0][0];
     const uint8_t* v_bytes = &st.v[0][0];
     for (int mt = 0; n_tiles > 0 && mt * M_ROWS < rows; ++mt) {
-      uint32_t qa[4][4];  // q's A fragments of the m-tile
-      load_q<PACKED>(mt == 0 ? static_cast<const void*>(sm.q) : q_kv, q_f32, mt, rows, g, j, qa);
+      uint32_t qa[D / 16][4];  // q's A fragments of the m-tile
+      load_q<PACKED, D>(mt == 0 ? static_cast<const void*>(sm.q) : q_kv, q_f32, mt, rows, g, j,
+                        qa);
       int lim[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -443,31 +480,36 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
       float s[NT][4];
       float mx[2] = {-INFINITY, -INFINITY};
       if (runs) {
-        uint32_t kw[NT][4];  // [n][ks]: the token's 4 dims 16 j + 4 ks .. + 3
-        int sh[NT];
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-          uint4 x;
-          if constexpr (PACKED) {
-            const int at = st.src[base + 8 * n + g];
-            x = *reinterpret_cast<const uint4*>(k_bytes + (at & ~63) + 16 * j);
-            sh[n] = at & 4;
-          } else {
-            x = *reinterpret_cast<const uint4*>(k_bytes + row8(base + 8 * n + g, 16 * j));
-          }
-          kw[n][0] = x.x, kw[n][1] = x.y, kw[n][2] = x.z, kw[n][3] = x.w;
-        }
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
+        for (int hh = 0; hh < HALVES; ++hh) {
+          uint32_t kw[NT][4];  // [n][ks]: the token's 4 dims 64 hh + 16 j + 4 ks .. + 3
+          int sh[NT];
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
+            if (hh == 0) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+            uint4 x;
             if constexpr (PACKED) {
-              const uint32_t y = kw[n][ks] >> sh[n];
-              mma_bf16(s[n], qa[ks], signed_nibbles_to_bf16x2(y), signed_nibbles_to_bf16x2(y >> 8));
+              const int at = st.src[base + 8 * n + g];
+              x = *reinterpret_cast<const uint4*>(k_bytes + (at & ~63) + 16 * j);
+              sh[n] = at & 4;
             } else {
-              const uint2 b = widen4(kw[n][ks]);
-              mma_bf16(s[n], qa[ks], b.x, b.y);
+              x = *reinterpret_cast<const uint4*>(k_bytes +
+                                                  row8<D>(base + 8 * n + g, 64 * hh + 16 * j));
+            }
+            kw[n][0] = x.x, kw[n][1] = x.y, kw[n][2] = x.z, kw[n][3] = x.w;
+          }
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              if constexpr (PACKED) {
+                const uint32_t y = kw[n][ks] >> sh[n];
+                mma_bf16(s[n], qa[4 * hh + ks], signed_nibbles_to_bf16x2(y),
+                         signed_nibbles_to_bf16x2(y >> 8));
+              } else {
+                const uint2 b = widen4(kw[n][ks]);
+                mma_bf16(s[n], qa[4 * hh + ks], b.x, b.y);
+              }
             }
           }
         }
@@ -494,35 +536,38 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
         sm.red_max[warp][g + 8] = mx[1];
       }
       // PV's V bytes (slots base + 16 kk + 2 j + {0, 1, 8, 9}, 8 bytes at dim
-      // 8 g; int4 words shifted to their nibble) and the scales sv, read
-      // before the barrier
-      uint32_t vw[KK][4][2];
+      // 64 hh + 8 g; int4 words shifted to their nibble) and the scales sv,
+      // read before the barrier
+      uint32_t vw[HALVES][KK][4][2];
       float sv[NT][2];
       if (runs) {
 #pragma unroll
-        for (int kk = 0; kk < KK; ++kk) {
-          if constexpr (PACKED) {
-            const uint32_t at01 =
-                *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j]);
-            const uint32_t at89 =
-                *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j + 8]);
-            const uint32_t at[4] = {at01 & 0xFFFF, at01 >> 16, at89 & 0xFFFF, at89 >> 16};
+        for (int hh = 0; hh < HALVES; ++hh)
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + (at[u] & ~63u) + 8 * g);
-              vw[kk][u][0] = x.x >> (at[u] & 4);
-              vw[kk][u][1] = x.y >> (at[u] & 4);
-            }
-          } else {
+          for (int kk = 0; kk < KK; ++kk) {
+            if constexpr (PACKED) {
+              const uint32_t at01 =
+                  *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j]);
+              const uint32_t at89 =
+                  *reinterpret_cast<const uint32_t*>(&st.src[base + 16 * kk + 2 * j + 8]);
+              const uint32_t at[4] = {at01 & 0xFFFF, at01 >> 16, at89 & 0xFFFF, at89 >> 16};
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int slot = base + 16 * kk + 2 * j + (u & 1) + 8 * (u >> 1);
-              const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + row8(slot, 8 * g));
-              vw[kk][u][0] = x.x;
-              vw[kk][u][1] = x.y;
+              for (int u = 0; u < 4; ++u) {
+                const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + (at[u] & ~63u) + 8 * g);
+                vw[hh][kk][u][0] = x.x >> (at[u] & 4);
+                vw[hh][kk][u][1] = x.y >> (at[u] & 4);
+              }
+            } else {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const int slot = base + 16 * kk + 2 * j + (u & 1) + 8 * (u >> 1);
+                const uint2 x =
+                    *reinterpret_cast<const uint2*>(v_bytes + row8<D>(slot, 64 * hh + 8 * g));
+                vw[hh][kk][u][0] = x.x;
+                vw[hh][kk][u][1] = x.y;
+              }
             }
           }
-        }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const float2 v2 = *reinterpret_cast<const float2*>(&st.sv[base + 8 * n + 2 * j]);
@@ -537,9 +582,12 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
       // limit, by select), l sums p unrounded, acc = bf16(p * sv) . v; the
       // block then forms tile 0's sums * alpha + tile 1's, alpha = 2^(m0 - m1)
       float m[2], l[2] = {0.f, 0.f};
-      float acc[8][4];
+      float acc[HALVES][8][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          acc[hh][n][0] = acc[hh][n][1] = acc[hh][n][2] = acc[hh][n][3] = 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float m0 = -INFINITY, m1;
@@ -579,31 +627,36 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
         }
         l[0] = quad_sum(l[0]);
         l[1] = quad_sum(l[1]);
-        // PV: column g of n-tile n is dim 8 g + n
+        // PV: column g of n-tile n of half hh is dim 64 hh + 8 g + n
 #pragma unroll
-        for (int kk = 0; kk < KK; ++kk)
+        for (int hh = 0; hh < HALVES; ++hh)
 #pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            if constexpr (PACKED)
-              mma_bf16(acc[n], pa[kk], signed_nibble_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], n % 4),
-                       signed_nibble_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));
-            else
-              mma_bf16(acc[n], pa[kk], widen_pair(vw[kk][0][n / 4], vw[kk][1][n / 4], n % 4),
-                       widen_pair(vw[kk][2][n / 4], vw[kk][3][n / 4], n % 4));
-          }
+          for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              const uint32_t(&vk)[4][2] = vw[hh][kk];
+              if constexpr (PACKED)
+                mma_bf16(acc[hh][n], pa[kk], signed_nibble_pair(vk[0][n / 4], vk[1][n / 4], n % 4),
+                         signed_nibble_pair(vk[2][n / 4], vk[3][n / 4], n % 4));
+              else
+                mma_bf16(acc[hh][n], pa[kk], widen_pair(vk[0][n / 4], vk[1][n / 4], n % 4),
+                         widen_pair(vk[2][n / 4], vk[3][n / 4], n % 4));
+            }
       }
 
-      // the warps' acc and l of the live rows; acc[n][2 h + e] (row g + 8 h,
-      // dim 16 j + 8 e + n) sits at column 8 j + 32 e + n, so a store's 32
-      // lanes hit 32 banks
+      // the warps' acc and l of the live rows; acc[hh][n][2 h + e] (row g +
+      // 8 h, dim 64 hh + 16 j + 8 e + n) sits at column 64 hh + 8 j + 32 e +
+      // n, so a store's 32 lanes hit 32 banks
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (mt * M_ROWS + g + 8 * h >= rows) continue;
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+        for (int hh = 0; hh < HALVES; ++hh)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            sm.red_acc[warp][g + 8 * h][8 * j + 32 * e + n] = acc[n][2 * h + e];
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              sm.red_acc[warp][g + 8 * h][64 * hh + 8 * j + 32 * e + n] = acc[hh][n][2 * h + e];
         if (j == 0) sm.red_l[warp][g + 8 * h] = l[h];
       }
       __syncthreads();
@@ -619,8 +672,15 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
           s0 += sm.red_acc[w][rr][col];
           if (TILES > 1) s1 += sm.red_acc[(WPT + w) % WARPS][rr][col];
         }
-        part.acc[at * D + 16 * (col % 32 / 8) + 8 * (col / 32) + col % 8] =
-            fmaf(s0, sm.alpha[rr], s1);
+        // The general index equals the D == 64 one at D = 64 and times the
+        // same; the D == 64 form is kept so that the d=64 instance's SASS
+        // stays that of the 64-only kernel (`kernel_probe.py sass`).
+        if constexpr (D == 64)
+          part.acc[at * D + 16 * (col % 32 / 8) + 8 * (col / 32) + col % 8] =
+              fmaf(s0, sm.alpha[rr], s1);
+        else  // column 64 hh + 8 j + 32 e + n -> dim 64 hh + 16 j + 8 e + n
+          part.acc[at * D + 64 * (col / 64) + 16 * (col % 32 / 8) + 8 * (col % 64 / 32) + col % 8] =
+              fmaf(s0, sm.alpha[rr], s1);
         if (col == 0) {
           float l0 = sm.red_l[0][rr], l1 = TILES > 1 ? sm.red_l[WPT % WARPS][rr] : 0.f;
 #pragma unroll
@@ -653,11 +713,12 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
       }
     }
     __syncthreads();
-    if (sm.merges) merge_rows<CH>(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
+    if (sm.merges)
+      merge_rows<CH, D>(part, pair * part.n_chunks, pair * rows, len, rows, spec, o, lse);
   }
 }
 
-template <bool PACKED, int CH>
+template <bool PACKED, int CH, int D>
 int launch(const void* q, int q_f32, const Pool& pool, void* part_acc, void* part_ml,
            void* arrived, void* o, void* lse, int n_seqs, int n_kv, int group, int spec,
            int grid_z, float qk_scale, void* stream) {
@@ -667,8 +728,8 @@ int launch(const void* q, int q_f32, const Pool& pool, void* part_acc, void* par
   if (spec < 1 || group < 1 || n_seqs < 1 || n_kv < 1 || pool.max_pages < 1 || grid_z < 1 ||
       grid_z > part.n_chunks)
     return static_cast<int>(cudaErrorInvalidValue);
-  decode_kernel<PACKED, CH><<<dim3(n_kv, n_seqs, grid_z), THREADS, smem_bytes<PACKED, CH>(),
-                              static_cast<cudaStream_t>(stream)>>>(
+  decode_kernel<PACKED, CH, D><<<dim3(n_kv, n_seqs, grid_z), THREADS, smem_bytes<PACKED, CH, D>(),
+                                 static_cast<cudaStream_t>(stream)>>>(
       q, pool, part, static_cast<float*>(o), static_cast<float*>(lse), n_kv, group * spec, spec,
       qk_scale, q_f32);
   return static_cast<int>(cudaGetLastError());
@@ -676,20 +737,20 @@ int launch(const void* q, int q_f32, const Pool& pool, void* part_acc, void* par
 
 }  // namespace
 
-// Every entry takes q [n_seqs, n_kv * group * spec, D], row (kv head, g, j),
+// Every entry takes q [n_seqs, n_kv * group * spec, d], row (kv head, g, j),
 // in f32 (q_f32 = 1, rounded to bf16 in the kernel) or bf16, the partials'
 // scratch (decode_tiling.scratch_shapes), `arrived`: n_seqs * n_kv ints that
-// are 0 (the last block of each pair merges and leaves them 0), and the
-// grid's z (decode_tiling.grid). qa_decode_init must have run once on the
-// device first.
+// are 0 (the last block of each pair merges and leaves them 0), the head dim
+// d (64; B13 also 128) and the grid's z (decode_tiling.grid). qa_decode_init
+// must have run once on the device first.
 
-// Slotted int8 (B13): payload [b, n_kv, max_len, D], scales [b, n_kv,
+// Slotted int8 (B13): payload [b, n_kv, max_len, d], scales [b, n_kv,
 // max_len]; a row is one page of max_len tokens.
 extern "C" int qa_decode(const void* q, const void* k, const void* sk, const void* v,
                          const void* sv, const void* length, void* o, void* lse, void* part_acc,
                          void* part_ml, void* arrived, int q_f32, int batch, int n_kv, int group,
-                         int spec, int max_len, int grid_z, float qk_scale, void* stream) {
-  if (max_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                         int spec, int max_len, int d, int grid_z, float qk_scale, void* stream) {
+  if (max_len <= 0 || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
   Pool p;
   p.k = static_cast<const int8_t*>(k);
   p.sk = static_cast<const float*>(sk);
@@ -699,54 +760,57 @@ extern "C" int qa_decode(const void* q, const void* k, const void* sk, const voi
   p.length = static_cast<const int*>(length);
   p.ps = max_len;
   p.max_pages = 1;
-  p.pay_head = static_cast<long long>(max_len) * D;
+  p.pay_head = static_cast<long long>(max_len) * d;
   p.pay_seq = p.pay_head * n_kv;
   p.pay_page = p.pay_head;
   p.sc_head = max_len;
   p.sc_seq = static_cast<long long>(max_len) * n_kv;
   p.sc_page = max_len;
-  return launch<false, CHUNK8>(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv,
-                               group, spec, grid_z, qk_scale, stream);
+  auto* run = d == 64 ? &launch<false, CHUNK8, 64> : &launch<false, CHUNK8, 128>;
+  return run(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv, group, spec, grid_z,
+             qk_scale, stream);
 }
 
-// Paged int8 (B14): pool [n_kv, n_pages, page_size, D], scales [n_pages,
+// Paged int8 (B14): pool [n_kv, n_pages, page_size, 64], scales [n_pages,
 // n_kv, page_size], table [n_seqs, max_pages]; any positive page size.
 extern "C" int qa_paged_decode(const void* q, const void* k_pages, const void* sk,
                                const void* v_pages, const void* sv, const void* table,
                                const void* lengths, void* o, void* lse, void* part_acc,
                                void* part_ml, void* arrived, int q_f32, int n_seqs, int n_kv,
                                int group, int spec, int n_pages, int page_size, int max_pages,
-                               int grid_z, float qk_scale, void* stream) {
-  if (page_size <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                               int d, int grid_z, float qk_scale, void* stream) {
+  if (page_size <= 0 || d != 64) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_pages, sk, v_pages, sv, table, lengths, n_kv, n_pages,
-                               page_size, max_pages, page_size);
-  return launch<false, CHUNK8>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv,
-                               group, spec, grid_z, qk_scale, stream);
+                               page_size, max_pages, page_size, d);
+  return launch<false, CHUNK8, 64>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs,
+                                   n_kv, group, spec, grid_z, qk_scale, stream);
 }
 
-// Paged int4 (B16): pool [n_kv, n_pages, page_size / 2, D] byte rows, split
+// Paged int4 (B16): pool [n_kv, n_pages, page_size / 2, 64] byte rows, split
 // half per page; an even page size.
 extern "C" int qa_paged4_decode(const void* q, const void* k_p, const void* sk, const void* v_p,
                                 const void* sv, const void* table, const void* lengths, void* o,
                                 void* lse, void* part_acc, void* part_ml, void* arrived,
                                 int q_f32, int n_seqs, int n_kv, int group, int spec, int n_pages,
-                                int page_size, int max_pages, int grid_z, float qk_scale,
+                                int page_size, int max_pages, int d, int grid_z, float qk_scale,
                                 void* stream) {
-  if (page_size <= 0 || page_size % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (page_size <= 0 || page_size % 2 != 0 || d != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_p, sk, v_p, sv, table, lengths, n_kv, n_pages, page_size,
-                               max_pages, page_size / 2);
-  return launch<true, CHUNK4>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv,
-                              group, spec, grid_z, qk_scale, stream);
+                               max_pages, page_size / 2, d);
+  return launch<true, CHUNK4, 64>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs,
+                                  n_kv, group, spec, grid_z, qk_scale, stream);
 }
 
-// Slotted int4 (B15): payload [b, n_kv, max_len/2, D], scales [b, n_kv,
+// Slotted int4 (B15): payload [b, n_kv, max_len/2, 64], scales [b, n_kv,
 // max_len]; the pages are the row's 256-token pack blocks, in order.
 extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const void* v_p,
                           const void* sv, const void* length, void* o, void* lse, void* part_acc,
                           void* part_ml, void* arrived, int q_f32, int batch, int n_kv, int group,
-                          int spec, int max_len, int grid_z, float qk_scale, void* stream) {
+                          int spec, int max_len, int d, int grid_z, float qk_scale, void* stream) {
   constexpr int PACK = 256;
-  if (max_len <= 0 || max_len % PACK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (max_len <= 0 || max_len % PACK != 0 || d != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   Pool p;
   p.k = static_cast<const int8_t*>(k_p);
   p.sk = static_cast<const float*>(sk);
@@ -756,33 +820,39 @@ extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const 
   p.length = static_cast<const int*>(length);
   p.ps = PACK;
   p.max_pages = max_len / PACK;
-  p.pay_head = static_cast<long long>(max_len / 2) * D;
+  p.pay_head = static_cast<long long>(max_len / 2) * d;
   p.pay_seq = p.pay_head * n_kv;
-  p.pay_page = static_cast<long long>(PACK / 2) * D;
+  p.pay_page = static_cast<long long>(PACK / 2) * d;
   p.sc_head = max_len;
   p.sc_seq = static_cast<long long>(max_len) * n_kv;
   p.sc_page = PACK;
-  return launch<true, CHUNK4>(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv,
-                              group, spec, grid_z, qk_scale, stream);
+  return launch<true, CHUNK4, 64>(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv,
+                                  group, spec, grid_z, qk_scale, stream);
 }
 
 // A block's dynamic shared memory (decode_tiling.shared_bytes) for the int8
-// (bits 8: B13/B14) or int4 (bits 4: B15/B16) payload; -1 for other bits.
-extern "C" int qa_decode_smem_bytes(int bits) {
-  return bits == 8   ? static_cast<int>(smem_bytes<false, CHUNK8>())
-         : bits == 4 ? static_cast<int>(smem_bytes<true, CHUNK4>())
-                     : -1;
+// (bits 8: B13 at head dim 64 or 128, B14 at 64) or int4 (bits 4: B15/B16,
+// 64) payload; -1 for other bits or head dims.
+extern "C" int qa_decode_smem_bytes(int bits, int d) {
+  if (bits == 8 && d == 64) return static_cast<int>(smem_bytes<false, CHUNK8, 64>());
+  if (bits == 8 && d == 128) return static_cast<int>(smem_bytes<false, CHUNK8, 128>());
+  if (bits == 4 && d == 64) return static_cast<int>(smem_bytes<true, CHUNK4, 64>());
+  return -1;
 }
 
-// Lets both instances take their shared memory on the current device: once
-// a device, before the first launch there.
+// Lets every instance take its shared memory on the current device: once a
+// device, before the first launch there.
 extern "C" int qa_decode_init() {
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<false, CHUNK8>,
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel<false, CHUNK8, 64>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes<false, CHUNK8>()));
+                                         static_cast<int>(smem_bytes<false, CHUNK8, 64>()));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(decode_kernel<true, CHUNK4>,
+    err = cudaFuncSetAttribute(decode_kernel<false, CHUNK8, 128>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_bytes<true, CHUNK4>()));
+                               static_cast<int>(smem_bytes<false, CHUNK8, 128>()));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(decode_kernel<true, CHUNK4, 64>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes<true, CHUNK4, 64>()));
   return static_cast<int>(err);
 }

@@ -67,6 +67,18 @@
 //       the blocks with the most key tiles start first.
 // Each block owns its output rows: no atomics in global memory, the same bits
 // every run.
+//
+// Head dim 128 (fast mode only; BwdGeom<128>, chosen by the entry's d): the
+// same bodies. Every bf16 tile is two 64-dim panels in the 128-byte swizzle
+// (a row of 128 dims is twice its span), each its own TMA box: S, S^T, dP
+// and dP^T take 8 k-steps, the second four on the second panels, and dV,
+// dK and dQ (N = the head dim) are two m64n64 products a k-step, one a
+// panel, into two accumulators. B2 keeps 128 keys a block: dK and dV (128
+// registers), S^T and dP^T (64) and P^T and dS^T's bf16 fragments (32) take
+// 250 registers a thread with no spill; its shared memory is 195 KB, B3's
+// 161 KB. The prep kernel takes 16 threads a row. At (4,16,2048,128) causal
+// B2's four products are 137 GFLOP (0.139 ms) and B3's three 103 GFLOP
+// (0.104 ms) on the tensor cores: the bound is the products, as at 64.
 
 #include <math.h>
 
@@ -74,42 +86,59 @@
 
 namespace {
 
-constexpr int D = 64;  // head dim
-
 // --- fast: TMA rings and wgmma ---
+//
+// One body for head dims 64 and 128 (ops/flash_tiling.py mirrors BwdGeom).
+// As in the forward, a bf16 tile of 128 head dims is two panels of [rows,
+// 64] in the 128-byte swizzle, each its own TMA box: the k-steps 4 .. 7 of
+// S, S^T, dP and dP^T read the second panel, and each product whose N is
+// the head dim (dV, dK, dQ) is two n64 products, one a panel.
 
 constexpr int THREADS = 256;         // two warpgroups
 constexpr int TILE = 64;             // q positions (B2) or keys (B3) a streamed tile
-constexpr int BF_TILE = TILE * D * 2;  // bytes of a bf16 tile: rows of 128 bytes
 constexpr int ROW_BYTES = TILE * 4;  // a tile's lse or D (f32)
 constexpr int ACC = 32;              // f32 accumulator registers a thread (m64n64)
-
-// B2: dK, dV. Shared layout from a 1024-byte aligned base: K, V [128, 64];
-// stage st: the q_s and dO_s tiles at DKV_OFF_RING + 2 st BF_TILE, its lse and
-// D at DKV_OFF_ROWS + 2 st ROW_BYTES; the mbarriers (full[stage], then K/V's)
-// and the release counters.
-constexpr int DKV_KEYS = 128;
-constexpr int DKV_STAGES = 4;
-constexpr int DKV_OFF_V = 2 * BF_TILE;
-constexpr int DKV_OFF_RING = 4 * BF_TILE;
-constexpr int DKV_OFF_ROWS = DKV_OFF_RING + DKV_STAGES * 2 * BF_TILE;
-constexpr int DKV_OFF_BAR = DKV_OFF_ROWS + DKV_STAGES * 2 * ROW_BYTES;
-constexpr int DKV_SMEM = DKV_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
-
-// B3: dQ. Q [128, 64]; stage st: the K and V tiles at DQ_OFF_RING + 2 st
-// BF_TILE; the mbarriers and release counters.
-constexpr int DQ_ROWS = 128;
-constexpr int DQ_STAGES = 4;
-constexpr int DQ_OFF_RING = 2 * BF_TILE;
-constexpr int DQ_OFF_BAR = DQ_OFF_RING + DQ_STAGES * 2 * BF_TILE;
-constexpr int DQ_SMEM = DQ_OFF_BAR + 128 + 1024;
-
+constexpr int PANEL = TILE * 128;    // bytes of a 64-row panel (64 bf16 a row)
+constexpr uint64_t PANEL_DESC = PANEL >> 4;  // a descriptor's step from one panel to the next
 constexpr int COUNTERS = 64;  // byte offset of the release counters in the barrier area
-static_assert((DKV_STAGES + 1) * 8 <= COUNTERS && COUNTERS + DKV_STAGES * 4 <= 128 &&
-                  DQ_STAGES * 8 <= COUNTERS && COUNTERS + DQ_STAGES * 4 <= 128,
-              "the barriers and counters fit");
-static_assert(DKV_OFF_RING % 1024 == 0 && DKV_OFF_ROWS % 1024 == 0 && DQ_OFF_RING % 1024 == 0,
-              "swizzled tiles start on 1024 bytes");
+
+template <int D>
+struct BwdGeom {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int PANELS = D / 64;
+  static constexpr int BF_TILE = TILE * D * 2;  // bytes of a bf16 tile: PANELS panels
+  // B2: dK, dV. Shared layout from a 1024-byte aligned base: K, V [128, D]
+  // (warpgroup w's 64 keys at w BF_TILE); stage st: the q_s and dO_s tiles at
+  // DKV_OFF_RING + 2 st BF_TILE, its lse and D at DKV_OFF_ROWS + 2 st
+  // ROW_BYTES; the mbarriers (full[stage], then K/V's) and the release
+  // counters.
+  static constexpr int DKV_KEYS = 128;
+  static constexpr int DKV_STAGES = 4;
+  static constexpr int DKV_OFF_V = 2 * BF_TILE;
+  static constexpr int DKV_OFF_RING = 4 * BF_TILE;
+  static constexpr int DKV_OFF_ROWS = DKV_OFF_RING + DKV_STAGES * 2 * BF_TILE;
+  static constexpr int DKV_OFF_BAR = DKV_OFF_ROWS + DKV_STAGES * 2 * ROW_BYTES;
+  static constexpr int DKV_SMEM = DKV_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
+  // B3: dQ. Q [128, D] (warpgroup w's 64 rows at w BF_TILE); stage st: the K
+  // and V tiles at DQ_OFF_RING + 2 st BF_TILE; the mbarriers and counters.
+  static constexpr int DQ_ROWS = 128;
+  static constexpr int DQ_STAGES = 4;
+  static constexpr int DQ_OFF_RING = 2 * BF_TILE;
+  static constexpr int DQ_OFF_BAR = DQ_OFF_RING + DQ_STAGES * 2 * BF_TILE;
+  static constexpr int DQ_SMEM = DQ_OFF_BAR + 128 + 1024;
+  static_assert((DKV_STAGES + 1) * 8 <= COUNTERS && COUNTERS + DKV_STAGES * 4 <= 128 &&
+                    DQ_STAGES * 8 <= COUNTERS && COUNTERS + DQ_STAGES * 4 <= 128,
+                "the barriers and counters fit");
+  static_assert(DKV_OFF_RING % 1024 == 0 && DKV_OFF_ROWS % 1024 == 0 && DQ_OFF_RING % 1024 == 0,
+                "swizzled tiles start on 1024 bytes");
+  static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "a block's shared memory fits an H100 SM");
+};
+
+// The descriptor of k-step kk (16 head dims, 32 bytes of a row) of a K-major
+// bf16 tile of 64-row panels.
+__device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk) {
+  return desc + (kk / 4) * PANEL_DESC + 2 * (kk % 4);
+}
 
 // The A fragments (rows 16 warp + lane / 4, + 8 of the warpgroup's 64; k-step
 // kk = accumulator columns 16 kk .. 16 kk + 15) of a product's bf16 input,
@@ -180,32 +209,48 @@ __device__ __forceinline__ void zero(float (&x)[ACC]) {
   for (int i = 0; i < ACC; ++i) x[i] = 0.f;
 }
 
+// An accumulator of N = D head dims: one m64n64 accumulator a panel.
+template <int P>
+__device__ __forceinline__ void zero(float (&x)[P][ACC]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) zero(x[p]);
+}
+
+template <int P>
+__device__ __forceinline__ void fence_all(float (&x)[P][ACC]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) reg_fence(x[p]);
+}
+
 // ---------------------------------------------------------------------------
 // B2 fast: dK, dV
 // ---------------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t, 64] bf16 q_s
+dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t, D] bf16 q_s
                 const __grid_constant__ CUtensorMap do_map,   // the same for dO_s
-                const __grid_constant__ CUtensorMap k_map,    // [bh_kv, s, 64] bf16
+                const __grid_constant__ CUtensorMap k_map,    // [bh_kv, s, D] bf16
                 const __grid_constant__ CUtensorMap v_map,    // the same for V
                 const __grid_constant__ CUtensorMap lse_map,  // [bh_kv * rep, t] f32, rows ld apart
                 const __grid_constant__ CUtensorMap di_map,   // the same for D
                 float* __restrict__ dk,                       // [bh_kv, s, D]
                 float* __restrict__ dv,                       // [bh_kv, s, D]
                 int rep, int t, int s, int causal, int diag, float dk_scale, float dv_scale) {
+  using G = BwdGeom<D>;
+  constexpr int PANELS = G::PANELS, BF_TILE = G::BF_TILE, DKV_STAGES = G::DKV_STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + DKV_OFF_BAR;
+  const uint32_t bars = base + G::DKV_OFF_BAR;
   auto full = [&](int st) { return bars + 8 * st; };
   const uint32_t kv_bar = full(DKV_STAGES);
-  int* released = reinterpret_cast<int*>(smem + DKV_OFF_BAR + COUNTERS);
+  int* released = reinterpret_cast<int*>(smem + G::DKV_OFF_BAR + COUNTERS);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * DKV_KEYS;  // key tile 0, which sees the most q tiles, first
+  const int k0 = blockIdx.y * G::DKV_KEYS;  // key tile 0, which sees the most q tiles, first
   const int n_qt = (t + TILE - 1) / TILE;
   // Causal: q tiles wholly before the key tile's first key, moved by diag =
   // q_offset - k_offset, see none of its keys (a block that no q tile sees
@@ -222,11 +267,14 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
     const int st = i % DKV_STAGES;
     const int head = bh * rep + i / per_head;
     const int q0 = (j0 + i % per_head) * TILE;
-    const uint32_t tiles = base + DKV_OFF_RING + st * 2 * BF_TILE;
-    const uint32_t rows = base + DKV_OFF_ROWS + st * 2 * ROW_BYTES;
+    const uint32_t tiles = base + G::DKV_OFF_RING + st * 2 * BF_TILE;
+    const uint32_t rows = base + G::DKV_OFF_ROWS + st * 2 * ROW_BYTES;
     mbar_expect_tx(full(st), 2 * BF_TILE + 2 * ROW_BYTES);
-    tma_load_3d(tiles, &q_map, full(st), 0, q0, head);
-    tma_load_3d(tiles + BF_TILE, &do_map, full(st), 0, q0, head);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      tma_load_3d(tiles + p * PANEL, &q_map, full(st), 64 * p, q0, head);
+      tma_load_3d(tiles + BF_TILE + p * PANEL, &do_map, full(st), 64 * p, q0, head);
+    }
     tma_load_4d(rows, &lse_map, full(st), q0, 0, head, 0);
     tma_load_4d(rows + ROW_BYTES, &di_map, full(st), q0, 0, head, 0);
   };
@@ -236,10 +284,13 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
   if (tid == 0 && n_tiles > 0) {
     const int halves = k0 + 64 < s ? 2 : 1;
     mbar_expect_tx(kv_bar, halves * 2 * BF_TILE);
-    for (int h = 0; h < halves; ++h) {
-      tma_load_3d(base + h * BF_TILE, &k_map, kv_bar, 0, k0 + 64 * h, bh);
-      tma_load_3d(base + DKV_OFF_V + h * BF_TILE, &v_map, kv_bar, 0, k0 + 64 * h, bh);
-    }
+    for (int h = 0; h < halves; ++h)
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load_3d(base + h * BF_TILE + p * PANEL, &k_map, kv_bar, 64 * p, k0 + 64 * h, bh);
+        tma_load_3d(base + G::DKV_OFF_V + h * BF_TILE + p * PANEL, &v_map, kv_bar, 64 * p,
+                    k0 + 64 * h, bh);
+      }
     for (int i = 0; i < min(DKV_STAGES, n_tiles); ++i) load_tile(i);
   }
 
@@ -252,9 +303,10 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
   const int kr = 64 * wg + 16 * warp + lane / 4;  // this thread's rows kr, kr + 8
   const int key[2] = {k0 + kr, k0 + kr + 8};
   const uint64_t desc_k = desc_kmajor_sw128(base + wg * BF_TILE);
-  const uint64_t desc_v = desc_kmajor_sw128(base + DKV_OFF_V + wg * BF_TILE);
+  const uint64_t desc_v = desc_kmajor_sw128(base + G::DKV_OFF_V + wg * BF_TILE);
 
-  float dv_acc[ACC], dk_acc[ACC], st_acc[ACC], dpt[ACC];
+  // dV and dK (panel p: head dims 64 p ..), S^T and dP^T
+  float dv_acc[PANELS][ACC], dk_acc[PANELS][ACC], st_acc[ACC], dpt[ACC];
   uint32_t pa[4][4] = {}, da[4][4] = {};  // bf16 P^T and dS^T: the A of dV and dK
   zero(dv_acc);
   zero(dk_acc);
@@ -265,7 +317,7 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % DKV_STAGES;
     const int q0 = (j0 + i % per_head) * TILE;
-    const uint32_t tiles = base + DKV_OFF_RING + st * 2 * BF_TILE;
+    const uint32_t tiles = base + G::DKV_OFF_RING + st * 2 * BF_TILE;
     mbar_wait(full(st), (i / DKV_STAGES) & 1);
     {  // S^T = K Q^T and dP^T = V dO^T (A and B K-major)
       const uint64_t desc_q = desc_kmajor_sw128(tiles);
@@ -275,10 +327,10 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_bf16_m64n64k16_ss(st_acc, desc_k + 2 * kk, desc_q + 2 * kk, kk > 0);
+        wgmma_bf16_m64n64k16_ss(st_acc, kstep(desc_k, kk), kstep(desc_q, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_bf16_m64n64k16_ss(dpt, desc_v + 2 * kk, desc_do + 2 * kk, kk > 0);
+        wgmma_bf16_m64n64k16_ss(dpt, kstep(desc_v, kk), kstep(desc_do, kk), kk > 0);
       wgmma_commit();
     }
     // the last tile's dV and dK are done (all but the newest group): its stage
@@ -290,9 +342,9 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
     reg_fence(dpt);
     reg_fence(pa);
     reg_fence(da);
-    reg_fence(dv_acc);
-    reg_fence(dk_acc);
-    const float* rw = reinterpret_cast<const float*>(smem + DKV_OFF_ROWS + st * 2 * ROW_BYTES);
+    fence_all(dv_acc);
+    fence_all(dk_acc);
+    const float* rw = reinterpret_cast<const float*>(smem + G::DKV_OFF_ROWS + st * 2 * ROW_BYTES);
     // masking only where the tile reaches past t or s or the diagonal (a
     // warpgroup whose keys all lie past a causal tile gets P = 0)
     if (q0 + TILE > t || kw0 + 64 > s || (causal && q0 + diag < kw0 + 63))
@@ -306,17 +358,23 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
       const uint64_t desc_dot = desc_mnmajor_sw128(tiles + BF_TILE);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk)
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, pa[kk], desc_dot + 128 * kk, 1);
+      for (int p = 0; p < PANELS; ++p)
 #pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk)
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc, da[kk], desc_qt + 128 * kk, 1);
+        for (int kk = 0; kk < TILE / 16; ++kk)
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc[p], pa[kk],
+                                             desc_dot + p * PANEL_DESC + 128 * kk, 1);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+        for (int kk = 0; kk < TILE / 16; ++kk)
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc[p], da[kk],
+                                             desc_qt + p * PANEL_DESC + 128 * kk, 1);
       wgmma_commit();
     }
   }
   wgmma_wait<0>();
-  reg_fence(dv_acc);
-  reg_fence(dk_acc);
+  fence_all(dv_acc);
+  fence_all(dk_acc);
   reg_fence(pa);
   reg_fence(da);
 
@@ -326,10 +384,11 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
     const size_t off = (static_cast<size_t>(bh) * s + key[h]) * D + cq;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * (n % 8) + 2 * h;
       *reinterpret_cast<float2*>(dk + off + 8 * n) =
-          make_float2(dk_acc[4 * n + 2 * h] * dk_scale, dk_acc[4 * n + 2 * h + 1] * dk_scale);
+          make_float2(dk_acc[n / 8][i] * dk_scale, dk_acc[n / 8][i + 1] * dk_scale);
       *reinterpret_cast<float2*>(dv + off + 8 * n) =
-          make_float2(dv_acc[4 * n + 2 * h] * dv_scale, dv_acc[4 * n + 2 * h + 1] * dv_scale);
+          make_float2(dv_acc[n / 8][i] * dv_scale, dv_acc[n / 8][i + 1] * dv_scale);
     }
   }
 }
@@ -338,8 +397,9 @@ dkv_kernel_bf16(const __grid_constant__ CUtensorMap q_map,    // [bh_kv * rep, t
 // B3 fast: dQ
 // ---------------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf16
+dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, D] bf16
                const __grid_constant__ CUtensorMap v_map,  // the same for V
                const __nv_bfloat16* __restrict__ q,        // [bh_kv * rep, t, D] q_s
                const __nv_bfloat16* __restrict__ dout,     // [bh_kv * rep, t, D] dO_s
@@ -347,13 +407,15 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
                const float* __restrict__ di,               // [bh_kv * rep, ld]
                float* __restrict__ dq,                     // [bh_kv * rep, t, D]
                int rep, int t, int s, int ld, int bq, int causal, int diag) {
+  using G = BwdGeom<D>;
+  constexpr int PANELS = G::PANELS, BF_TILE = G::BF_TILE, DQ_STAGES = G::DQ_STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + DQ_OFF_BAR;
+  const uint32_t bars = base + G::DQ_OFF_BAR;
   auto full = [&](int st) { return bars + 8 * st; };
-  int* released = reinterpret_cast<int*>(smem + DQ_OFF_BAR + COUNTERS);
+  int* released = reinterpret_cast<int*>(smem + G::DQ_OFF_BAR + COUNTERS);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -368,10 +430,13 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
 
   auto load_kv = [&](int j) {  // key tile j into stage j % DQ_STAGES
     const int st = j % DQ_STAGES;
-    const uint32_t tiles = base + DQ_OFF_RING + st * 2 * BF_TILE;
+    const uint32_t tiles = base + G::DQ_OFF_RING + st * 2 * BF_TILE;
     mbar_expect_tx(full(st), 2 * BF_TILE);
-    tma_load_3d(tiles, &k_map, full(st), 0, j * TILE, bh);
-    tma_load_3d(tiles + BF_TILE, &v_map, full(st), 0, j * TILE, bh);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      tma_load_3d(tiles + p * PANEL, &k_map, full(st), 64 * p, j * TILE, bh);
+      tma_load_3d(tiles + BF_TILE + p * PANEL, &v_map, full(st), 64 * p, j * TILE, bh);
+    }
   };
   if (tid == 0)
     for (int j = 0; j < min(DQ_STAGES, n_tiles); ++j) load_kv(j);
@@ -383,9 +448,10 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
   const int rows = rep * bq;  // live rows of the block (<= DQ_ROWS)
 
   // Q rows of the whole GQA group -> shared, K-major with the 128-byte
-  // swizzle (16-byte chunk c of row r at c ^ (r & 7)); zeros for dead rows
-  // and positions past t. Every load is issued before the first store.
-  constexpr int Q_PASSES = DQ_ROWS * (D / 8) / THREADS;
+  // swizzle (16-byte chunk c of a panel's row r at c ^ (r & 7)); zeros for
+  // dead rows and positions past t. Every load is issued before the first
+  // store.
+  constexpr int Q_PASSES = G::DQ_ROWS * (D / 8) / THREADS;
   uint4 qv[Q_PASSES];
 #pragma unroll
   for (int i = 0; i < Q_PASSES; ++i) {
@@ -401,7 +467,11 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
   for (int i = 0; i < Q_PASSES; ++i) {
     const int c = tid + THREADS * i;
     const int r = c / (D / 8), c8 = c % (D / 8);
-    *reinterpret_cast<uint4*>(smem + r * 128 + ((c8 ^ (r & 7)) << 4)) = qv[i];
+    // row r of warpgroup r / 64's half, head dims 64 (c8 / 8) .. of its panel
+    const int at = D == 64 ? r * 128 + ((c8 ^ (r & 7)) << 4)
+                           : (r / 64) * BF_TILE + (c8 / 8) * PANEL + (r % 64) * 128 +
+                                 (((c8 % 8) ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(smem + at) = qv[i];
   }
 
   // This thread's two rows (accumulator rows lane/4 and lane/4 + 8 of its
@@ -410,7 +480,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
   bool live[2];
   int pos[2];
   float lse_r[2], di_r[2];
-  uint32_t doa[4][4];
+  uint32_t doa[D / 16][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
@@ -420,7 +490,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
     lse_r[h] = live[h] ? lse[head * ld + pos[h]] : 0.f;
     di_r[h] = live[h] ? di[head * ld + pos[h]] : 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t* src =
           reinterpret_cast<const uint32_t*>(dout + (head * t + pos[h]) * D + 16 * kk + cq);
       doa[kk][h] = live[h] ? src[0] : 0u;
@@ -431,7 +501,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
   named_barrier(1, THREADS);
 
   const uint64_t desc_q = desc_kmajor_sw128(base + wg * BF_TILE);
-  float dq_acc[ACC], sc[ACC], dp[ACC];
+  float dq_acc[PANELS][ACC], sc[ACC], dp[ACC];  // dQ (panel p: head dims 64 p ..), S, dP
   uint32_t dsa[4][4] = {};  // bf16 dS: the A of dQ
   zero(dq_acc);
   zero(sc);
@@ -447,7 +517,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % DQ_STAGES;
     const int k0 = j * TILE;
-    const uint32_t tiles = base + DQ_OFF_RING + st * 2 * BF_TILE;
+    const uint32_t tiles = base + G::DQ_OFF_RING + st * 2 * BF_TILE;
     {  // S = Q K^T (SS) and dP = dO V^T (A in registers); K and V K-major
       const uint64_t desc_kt = desc_kmajor_sw128(tiles);
       const uint64_t desc_vt = desc_kmajor_sw128(tiles + BF_TILE);
@@ -456,10 +526,10 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_bf16_m64n64k16_ss(sc, desc_q + 2 * kk, desc_kt + 2 * kk, kk > 0);
+        wgmma_bf16_m64n64k16_ss(sc, kstep(desc_q, kk), kstep(desc_kt, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_bf16_m64n64k16_rs<B_KMAJOR>(dp, doa[kk], desc_vt + 2 * kk, kk > 0);
+        wgmma_bf16_m64n64k16_rs<B_KMAJOR>(dp, doa[kk], kstep(desc_vt, kk), kk > 0);
       wgmma_commit();
     }
     // the last tile's dQ is done: its stage is released while this tile's S
@@ -469,7 +539,7 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
     wgmma_wait<0>();  // this tile's S and dP are done
     reg_fence(sc);
     reg_fence(dp);
-    reg_fence(dq_acc);
+    fence_all(dq_acc);
     reg_fence(dsa);
     // masking only where the tile reaches past s or the diagonal
     if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0 + diag))
@@ -482,13 +552,16 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
       const uint64_t desc_kn = desc_mnmajor_sw128(tiles);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk)
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc, dsa[kk], desc_kn + 128 * kk, 1);
+      for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+        for (int kk = 0; kk < TILE / 16; ++kk)
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc[p], dsa[kk],
+                                             desc_kn + p * PANEL_DESC + 128 * kk, 1);
       wgmma_commit();
     }
   }
   wgmma_wait<0>();
-  reg_fence(dq_acc);
+  fence_all(dq_acc);
   reg_fence(dsa);
 
 #pragma unroll
@@ -497,9 +570,11 @@ dq_kernel_bf16(const __grid_constant__ CUtensorMap k_map,  // [bh_kv, s, 64] bf1
     const int r = ra + 8 * h;
     const size_t off = ((static_cast<size_t>(bh) * rep + r / bq) * t + pos[h]) * D + cq;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * (n % 8) + 2 * h;
       *reinterpret_cast<float2*>(dq + off + 8 * n) =
-          make_float2(dq_acc[4 * n + 2 * h], dq_acc[4 * n + 2 * h + 1]);
+          make_float2(dq_acc[n / 8][i], dq_acc[n / 8][i + 1]);
+    }
   }
 }
 
@@ -541,7 +616,7 @@ __device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-struct Rows {  // a [b, h, t, 64] tensor: base, f32 (else bf16), strides in elements
+struct Rows {  // a [b, h, t, D] tensor: base, f32 (else bf16), strides in elements
   const void* p;
   long long sb, sh, st;
   int f32;
@@ -550,26 +625,30 @@ struct Rows {  // a [b, h, t, 64] tensor: base, f32 (else bf16), strides in elem
   }
 };
 
-// Grid (PREP_ROWS positions along t, b * h); eight threads a row, each eight
-// elements, PREP_PASSES rows a thread with all loads issued before the
+// Grid (prep_rows(D) positions along t, b * h); D / 8 threads a row, each
+// eight elements, PREP_PASSES rows a thread with all loads issued before the
 // first store. Per element: q_s = bf16(f32(q) * qk_scale), dos = f32(dO) *
 // sm_scale, dO_s = bf16(dos); per row: D = the sum of dos * f32(O) (each
 // product rounded, as the plain version's), and lse copied; D and lse go to
 // rows ld floats apart.
 constexpr int PREP_PASSES = 4;
-constexpr int PREP_ROWS = PREP_PASSES * 256 / 8;
+__host__ __device__ constexpr int prep_rows(int d) { return PREP_PASSES * 256 / (d / 8); }
+
+template <int D>
 __global__ void __launch_bounds__(256)
 bwd_prep_kernel(Rows q, Rows dout, Rows o, const float* __restrict__ lse,  // lse [b * h, t]
                 __nv_bfloat16* __restrict__ qs, __nv_bfloat16* __restrict__ dos,  // [b*h, t, D]
                 float* __restrict__ lse_out, float* __restrict__ di,  // [b * h, ld]
                 int h, int t, int ld, float qk_scale, float sm_scale) {
+  constexpr int LANES = D / 8;          // threads a row
+  constexpr int STEP = 256 / LANES;     // rows a pass
   const int bh = blockIdx.y, batch = bh / h, head = bh % h;
-  const int c8 = threadIdx.x % 8;
-  const int tok0 = blockIdx.x * PREP_ROWS + threadIdx.x / 8;
+  const int c8 = threadIdx.x % LANES;
+  const int tok0 = blockIdx.x * prep_rows(D) + threadIdx.x / LANES;
   uint4 wq[PREP_PASSES][2] = {}, wd[PREP_PASSES][2] = {}, wo[PREP_PASSES][2] = {};
 #pragma unroll
   for (int i = 0; i < PREP_PASSES; ++i) {
-    const int tok = tok0 + 32 * i;
+    const int tok = tok0 + STEP * i;
     if (tok < t) {
       load8(wq[i], q.p, q.at(batch, head, tok) + 8 * c8, q.f32);
       load8(wd[i], dout.p, dout.at(batch, head, tok) + 8 * c8, dout.f32);
@@ -578,7 +657,7 @@ bwd_prep_kernel(Rows q, Rows dout, Rows o, const float* __restrict__ lse,  // ls
   }
 #pragma unroll
   for (int i = 0; i < PREP_PASSES; ++i) {
-    const int tok = tok0 + 32 * i;
+    const int tok = tok0 + STEP * i;
     float xq[8], xd[8], xo[8];
     widen8_f32(xq, wq[i], q.f32);
     widen8_f32(xd, wd[i], dout.f32);
@@ -591,7 +670,8 @@ bwd_prep_kernel(Rows q, Rows dout, Rows o, const float* __restrict__ lse,  // ls
       part = __fadd_rn(part, __fmul_rn(xd[e], xo[e]));
     }
 #pragma unroll
-    for (int m = 1; m < 8; m *= 2) part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, m));
+    for (int m = 1; m < LANES; m *= 2)
+      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, m));
     if (tok < t) {
       const size_t row = static_cast<size_t>(bh) * t + tok;
       reinterpret_cast<uint4*>(qs)[row * (D / 8) + c8] = pack8(xq);
@@ -607,23 +687,25 @@ bwd_prep_kernel(Rows q, Rows dout, Rows o, const float* __restrict__ lse,  // ls
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // exact: fp32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
+constexpr int E_D = 64;         // head dim (exact mode takes 64 only)
 constexpr int TE = 32;          // rows and keys per tile (exact)
-constexpr int FROW = D + 1;     // padded shared row (f32)
+constexpr int FROW = E_D + 1;     // padded shared row (f32)
 constexpr int PROW = TE + 1;    // padded shared row of a P / dS tile (f32)
 constexpr int THREADS_E = 256;  // exact kernels: thread = (row tid / 8, lane tid % 8)
 
-// Rows row0 .. row0+TE-1 of a row-major [n, D] f32 matrix into a padded
+// Rows row0 .. row0+TE-1 of a row-major [n, E_D] f32 matrix into a padded
 // shared tile; rows at or past n are zero.
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0, int n) {
-  for (int c = threadIdx.x; c < TE * (D / 4); c += THREADS_E) {
-    const int r = c / (D / 4);
-    const int col = (c % (D / 4)) * 4;
+  for (int c = threadIdx.x; c < TE * (E_D / 4); c += THREADS_E) {
+    const int r = c / (E_D / 4);
+    const int col = (c % (E_D / 4)) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + col);
+    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * E_D + col);
     float* o = &dst[r * FROW + col];
     o[0] = val.x;
     o[1] = val.y;
@@ -632,7 +714,7 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
   }
 }
 
-// dS = P (dP - D): dP summed in float64 and the f32 D subtracted there (both
+// dS = P (dP - E_D): dP summed in float64 and the f32 E_D subtracted there (both
 // exact in float64), the difference rounded to f32, times the f32 P.
 __device__ __forceinline__ float exact_ds(float p, double dp, float d) {
   return p * static_cast<float>(dp - static_cast<double>(d));
@@ -663,12 +745,12 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * TE;
   const int key = k0 + r;
 
-  load_tile_f32(k_s, k + bh * s * D, k0, s);
-  load_tile_f32(v_s, v + bh * s * D, k0, s);
+  load_tile_f32(k_s, k + bh * s * E_D, k0, s);
+  load_tile_f32(v_s, v + bh * s * E_D, k0, s);
 
-  float dk_acc[D / 8], dv_acc[D / 8];
+  float dk_acc[E_D / 8], dv_acc[E_D / 8];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < E_D / 8; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   const int j0 = causal ? k0 / TE : 0;
   const int n_qt = (t + TE - 1) / TE;
@@ -677,8 +759,8 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = j0; j < n_qt; ++j) {
       const int q0 = j * TE;
       __syncthreads();
-      load_tile_f32(q_s, q + row0 * D, q0, t);
-      load_tile_f32(do_s, dout + row0 * D, q0, t);
+      load_tile_f32(q_s, q + row0 * E_D, q0, t);
+      load_tile_f32(do_s, dout + row0 * E_D, q0, t);
       if (tid < TE) {
         const bool live = q0 + tid < t;
         lse_s[tid] = live ? lse[row0 + q0 + tid] : 0.f;
@@ -693,7 +775,7 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
         st[i] = 0.f;
         dpt[i] = 0.0;
       }
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < E_D; ++d) {
         const float kd = k_s[r * FROW + d];
         const double vd = v_s[r * FROW + d];
 #pragma unroll
@@ -717,7 +799,7 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float p = p_s[r * PROW + col];
         const float ds = ds_s[r * PROW + col];
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < E_D / 8; ++i) {
           dv_acc[i] = fmaf(p, do_s[col * FROW + c + 8 * i], dv_acc[i]);
           dk_acc[i] = fmaf(ds, q_s[col * FROW + c + 8 * i], dk_acc[i]);
         }
@@ -726,9 +808,9 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (key < s) {
-    const size_t off = (bh * s + key) * D + c;
+    const size_t off = (bh * s + key) * E_D + c;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < E_D / 8; ++i) {
       dk[off + 8 * i] = dk_acc[i] * dk_scale;
       dv[off + 8 * i] = dv_acc[i] * dv_scale;
     }
@@ -758,22 +840,22 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int pos = q0 + r;
   const bool live = pos < t;
 
-  load_tile_f32(q_s, q + head * t * D, q0, t);
-  load_tile_f32(do_s, dout + head * t * D, q0, t);
+  load_tile_f32(q_s, q + head * t * E_D, q0, t);
+  load_tile_f32(do_s, dout + head * t * E_D, q0, t);
   const float lse_r = live ? lse[head * t + pos] : 0.f;
   const float di_r = live ? di[head * t + pos] : 0.f;
 
-  float dq_acc[D / 8];
+  float dq_acc[E_D / 8];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < E_D / 8; ++i) dq_acc[i] = 0.f;
 
   const int kv_hi = causal ? min(s, q0 + TE) : s;
   const int n_tiles = (kv_hi + TE - 1) / TE;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * TE;
     __syncthreads();
-    load_tile_f32(k_s, k + bh * s * D, k0, s);
-    load_tile_f32(v_s, v + bh * s * D, k0, s);
+    load_tile_f32(k_s, k + bh * s * E_D, k0, s);
+    load_tile_f32(v_s, v + bh * s * E_D, k0, s);
     __syncthreads();
 
     float sc[TE / 8];
@@ -783,7 +865,7 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
       sc[i] = 0.f;
       dp[i] = 0.0;
     }
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < E_D; ++d) {
       const float qd = q_s[r * FROW + d];
       const double dod = do_s[r * FROW + d];
 #pragma unroll
@@ -804,14 +886,14 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < TE; ++kk) {
       const float ds = ds_s[r * PROW + kk];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) dq_acc[i] = fmaf(ds, k_s[kk * FROW + c + 8 * i], dq_acc[i]);
+      for (int i = 0; i < E_D / 8; ++i) dq_acc[i] = fmaf(ds, k_s[kk * FROW + c + 8 * i], dq_acc[i]);
     }
   }
 
   if (live) {
-    const size_t off = (head * t + pos) * D + c;
+    const size_t off = (head * t + pos) * E_D + c;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) dq[off + 8 * i] = dq_acc[i];
+    for (int i = 0; i < E_D / 8; ++i) dq[off + 8 * i] = dq_acc[i];
   }
 }
 
@@ -825,10 +907,11 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
   return err;
 }
 
-// A [n, rows, 64] bf16 map (contiguous), boxes of 64 rows with the 128-byte
-// swizzle; rows past `rows` arrive as zeros.
+// A [n, rows, D] bf16 map (contiguous), boxes of 64 rows x 64 head dims (a
+// panel) with the 128-byte swizzle; rows past `rows` arrive as zeros.
+template <int D>
 bool tile_map(CUtensorMap* map, const void* ptr, int n, int rows) {
-  return tensor_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, rows, D, TILE, D,
+  return tensor_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, rows, D, TILE, 64,
                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
@@ -845,49 +928,105 @@ bool strides16(long long elem_bytes, long long sb, long long sh, long long st) {
   return (sb * elem_bytes) % 16 == 0 && (sh * elem_bytes) % 16 == 0 && (st * elem_bytes) % 16 == 0;
 }
 
+// Fast mode at head dim D: the prep's, B2's and B3's launches (maps, the
+// shared-memory attribute once an instance).
+template <int D>
+int prep(Rows q, Rows dout, Rows o, const void* lse, void* qs, void* dos, void* lse_out, void* di,
+         int b, int h, int t, int ld, float qk_scale, float sm_scale, cudaStream_t stream) {
+  const dim3 grid((t + prep_rows(D) - 1) / prep_rows(D), b * h);
+  bwd_prep_kernel<D><<<grid, 256, 0, stream>>>(
+      q, dout, o, static_cast<const float*>(lse), static_cast<__nv_bfloat16*>(qs),
+      static_cast<__nv_bfloat16*>(dos), static_cast<float*>(lse_out), static_cast<float*>(di), h,
+      t, ld, qk_scale, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dkv_fast(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* di, void* dk, void* dv, int bh_kv, int rep, int t, int s, int ld,
+             int causal, int diag, float dk_scale, float dv_scale, cudaStream_t st) {
+  constexpr int SMEM = BwdGeom<D>::DKV_SMEM;
+  CUtensorMap q_map, do_map, k_map, v_map, lse_map, di_map;
+  if (!tile_map<D>(&q_map, q, bh_kv * rep, t) || !tile_map<D>(&do_map, dout, bh_kv * rep, t) ||
+      !tile_map<D>(&k_map, k, bh_kv, s) || !tile_map<D>(&v_map, v, bh_kv, s) ||
+      !row_map(&lse_map, lse, bh_kv * rep, t, ld) || !row_map(&di_map, di, bh_kv * rep, t, ld))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  const cudaError_t err = allow_smem(dkv_kernel_bf16<D>, SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh_kv, (s + BwdGeom<D>::DKV_KEYS - 1) / BwdGeom<D>::DKV_KEYS);
+  dkv_kernel_bf16<D><<<grid, THREADS, SMEM, st>>>(q_map, do_map, k_map, v_map, lse_map, di_map,
+                                                  static_cast<float*>(dk), static_cast<float*>(dv),
+                                                  rep, t, s, causal, diag, dk_scale, dv_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dq_fast(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* di, void* dq, int bh_kv, int rep, int t, int s, int ld, int bq,
+            int causal, int diag, cudaStream_t st) {
+  constexpr int SMEM = BwdGeom<D>::DQ_SMEM;
+  CUtensorMap k_map, v_map;
+  if (!tile_map<D>(&k_map, k, bh_kv, s) || !tile_map<D>(&v_map, v, bh_kv, s))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  const cudaError_t err = allow_smem(dq_kernel_bf16<D>, SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh_kv, (t + bq - 1) / bq);
+  dq_kernel_bf16<D><<<grid, THREADS, SMEM, st>>>(
+      k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dq), rep,
+      t, s, ld, bq, causal, diag);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Shared bytes one fast block asks for (ops/flash_tiling.py mirrors them).
-extern "C" int qa_flash_bwd_dkv_smem_bytes() { return DKV_SMEM; }
-extern "C" int qa_flash_bwd_dq_smem_bytes() { return DQ_SMEM; }
+// Shared bytes one fast block asks for at head dim d, 64 or 128
+// (ops/flash_tiling.py mirrors them); -1 for another d.
+extern "C" int qa_flash_bwd_dkv_smem_bytes(int d) {
+  return d == 64 ? BwdGeom<64>::DKV_SMEM : d == 128 ? BwdGeom<128>::DKV_SMEM : -1;
+}
+extern "C" int qa_flash_bwd_dq_smem_bytes(int d) {
+  return d == 64 ? BwdGeom<64>::DQ_SMEM : d == 128 ? BwdGeom<128>::DQ_SMEM : -1;
+}
 
-// Fast mode's prep: q, dout, o [b, h, t, 64] (each f32 or bf16, strides in
-// elements, rows contiguous, pointers and strides 16-byte aligned), lse [b *
-// h, t] f32 -> qs, dos [b, h, t, 64] bf16 and lse_out, di [b * h, ld] f32
-// (ld >= t), in one launch.
+// Fast mode's prep: q, dout, o [b, h, t, d] (each f32 or bf16, strides in
+// elements, rows contiguous, pointers and strides 16-byte aligned; d 64 or
+// 128), lse [b * h, t] f32 -> qs, dos [b, h, t, d] bf16 and lse_out, di [b *
+// h, ld] f32 (ld >= t), in one launch.
 extern "C" int qa_flash_bwd_prep(const void* q, long long q_sb, long long q_sh, long long q_st,
                                  int q_f32, const void* dout, long long do_sb, long long do_sh,
                                  long long do_st, int do_f32, const void* o, long long o_sb,
                                  long long o_sh, long long o_st, int o_f32, const void* lse,
                                  void* qs, void* dos, void* lse_out, void* di, int b, int h,
-                                 int t, int ld, float qk_scale, float sm_scale, void* stream) {
+                                 int t, int ld, float qk_scale, float sm_scale, int d,
+                                 void* stream) {
   if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || t < 1 || ld < t ||
-      !aligned16(q) || !aligned16(dout) || !aligned16(o) || !aligned16(qs) || !aligned16(dos) ||
-      !strides16(q_f32 ? 4 : 2, q_sb, q_sh, q_st) ||
+      (d != 64 && d != 128) || !aligned16(q) || !aligned16(dout) || !aligned16(o) ||
+      !aligned16(qs) || !aligned16(dos) || !strides16(q_f32 ? 4 : 2, q_sb, q_sh, q_st) ||
       !strides16(do_f32 ? 4 : 2, do_sb, do_sh, do_st) ||
       !strides16(o_f32 ? 4 : 2, o_sb, o_sh, o_st))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((t + PREP_ROWS - 1) / PREP_ROWS, b * h);
-  bwd_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      Rows{q, q_sb, q_sh, q_st, q_f32}, Rows{dout, do_sb, do_sh, do_st, do_f32},
-      Rows{o, o_sb, o_sh, o_st, o_f32}, static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(qs), static_cast<__nv_bfloat16*>(dos),
-      static_cast<float*>(lse_out), static_cast<float*>(di), h, t, ld, qk_scale, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  auto* launch = d == 64 ? &prep<64> : &prep<128>;
+  return launch(Rows{q, q_sb, q_sh, q_st, q_f32}, Rows{dout, do_sb, do_sh, do_st, do_f32},
+                Rows{o, o_sb, o_sh, o_st, o_f32}, lse, qs, dos, lse_out, di, b, h, t, ld, qk_scale,
+                sm_scale, static_cast<cudaStream_t>(stream));
 }
 
-// B2: dK, dV [bh_kv, s, D] f32. q/dout [bh_kv, rep, t, D], k/v [bh_kv, s, D]
-// (contiguous): bf16 when fast, else f32; lse/di [bh_kv * rep, ld] f32 (fast:
-// ld a multiple of 4, at least t; exact: ld == t). Causal masking on global
-// positions q_offset + i, k_offset + j (fast mode; exact mode only with
-// q_offset == k_offset).
+// B2: dK, dV [bh_kv, s, d] f32. q/dout [bh_kv, rep, t, d], k/v [bh_kv, s, d]
+// (contiguous): bf16 when fast (d 64 or 128), else f32 (d 64); lse/di [bh_kv
+// * rep, ld] f32 (fast: ld a multiple of 4, at least t; exact: ld == t).
+// Causal masking on global positions q_offset + i, k_offset + j (fast mode;
+// exact mode only with q_offset == k_offset).
 extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* di, void* dk, void* dv, int bh_kv,
                                 int rep, int t, int s, int ld, int causal, int q_offset,
-                                int k_offset, int fast, float dk_scale, float dv_scale,
+                                int k_offset, int fast, float dk_scale, float dv_scale, int d,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0)
+  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0 ||
+      (d != 64 && (d != 128 || !fast)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!fast) {  // exact mode takes no offsets
     if (ld != t || (causal && q_offset != k_offset))
@@ -900,33 +1039,23 @@ extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, con
         causal, dk_scale, dv_scale);
     return static_cast<int>(cudaGetLastError());
   }
-  const int n_kt = (s + DKV_KEYS - 1) / DKV_KEYS;
+  const int n_kt = (s + 127) / 128;
   if (n_kt > 65535 || ld % 4 || static_cast<long long>(bh_kv) * rep > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap q_map, do_map, k_map, v_map, lse_map, di_map;
-  if (!tile_map(&q_map, q, bh_kv * rep, t) || !tile_map(&do_map, dout, bh_kv * rep, t) ||
-      !tile_map(&k_map, k, bh_kv, s) || !tile_map(&v_map, v, bh_kv, s) ||
-      !row_map(&lse_map, lse, bh_kv * rep, t, ld) || !row_map(&di_map, di, bh_kv * rep, t, ld))
-    return static_cast<int>(cudaErrorNotSupported);
-  static bool configured = false;
-  const cudaError_t err = allow_smem(dkv_kernel_bf16, DKV_SMEM, configured);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh_kv, n_kt);
-  dkv_kernel_bf16<<<grid, THREADS, DKV_SMEM, st>>>(q_map, do_map, k_map, v_map, lse_map, di_map,
-                                                   static_cast<float*>(dk), static_cast<float*>(dv),
-                                                   rep, t, s, causal, q_offset - k_offset,
-                                                   dk_scale, dv_scale);
-  return static_cast<int>(cudaGetLastError());
+  auto* launch = d == 64 ? &dkv_fast<64> : &dkv_fast<128>;
+  return launch(q, k, v, dout, lse, di, dk, dv, bh_kv, rep, t, s, ld, causal, q_offset - k_offset,
+                dk_scale, dv_scale, st);
 }
 
-// B3: dQ [bh_kv, rep, t, D] f32, same inputs as B2; bq query positions a fast
+// B3: dQ [bh_kv, rep, t, d] f32, same inputs as B2; bq query positions a fast
 // block (rep * bq <= 128), offsets as B2's.
 extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* di, void* dq, int bh_kv, int rep,
                                int t, int s, int ld, int bq, int causal, int q_offset,
-                               int k_offset, int fast, void* stream) {
+                               int k_offset, int fast, int d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0)
+  if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0 ||
+      (d != 64 && (d != 128 || !fast)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!fast) {  // exact mode takes no offsets
     if (ld != t || static_cast<long long>(bh_kv) * rep > 65535 ||
@@ -940,17 +1069,8 @@ extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, cons
     return static_cast<int>(cudaGetLastError());
   }
   const int n_qb = bq < 1 ? 0 : (t + bq - 1) / bq;
-  if (bq < 1 || rep * bq > DQ_ROWS || n_qb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap k_map, v_map;
-  if (!tile_map(&k_map, k, bh_kv, s) || !tile_map(&v_map, v, bh_kv, s))
-    return static_cast<int>(cudaErrorNotSupported);
-  static bool configured = false;
-  const cudaError_t err = allow_smem(dq_kernel_bf16, DQ_SMEM, configured);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh_kv, n_qb);
-  dq_kernel_bf16<<<grid, THREADS, DQ_SMEM, st>>>(
-      k_map, v_map, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dq), rep,
-      t, s, ld, bq, causal, q_offset - k_offset);
-  return static_cast<int>(cudaGetLastError());
+  if (bq < 1 || rep * bq > 128 || n_qb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = d == 64 ? &dq_fast<64> : &dq_fast<128>;
+  return launch(q, k, v, dout, lse, di, dq, bh_kv, rep, t, s, ld, bq, causal, q_offset - k_offset,
+                st);
 }

@@ -63,6 +63,18 @@
 // the kernel (for both tensors), never in the mainloop: each tile is read by
 // up to t / bq blocks.
 //
+// Head dim 128 (BASELINE config 2's second head dim; FwdGeom<128>, chosen
+// by the entry's d): the same kernel body. A bf16 row is then 256 bytes,
+// twice the 128-byte swizzle's span, so Q, K and V tiles are two panels of
+// 64 dims (each its own swizzled K-major tile and TMA box); S's k-steps 4-7
+// read the second panels, and PV is two m64n64 products a k-step, one a V
+// panel read MN-major, into two halves of O's accumulator. K/V tiles hold 64
+// keys: S (m64n64, 32 registers) and P's two sets (32) beside O's 64 keep a
+// thread at 165 registers with no spill, and three stages (192 KB at 128
+// keys would leave no room for O's staging) fit 203 KB. At (4,16,2048,128)
+// causal the products are 68.7 GFLOP (0.069 ms on the tensor cores) and f32
+// inputs and outputs 269 MB (0.080 ms of HBM): twice d=64's work a key.
+//
 // precision="fp32" (flash_fwd_f32_kernel, entry qa_flash_fwd_f32): the same
 // TPU kernel's fp32 mode (flash_fwd.py:255-260, Precision.HIGHEST), the
 // primal of attention_jvp and the rCM prepass. Q is scaled by qk_scale in
@@ -103,42 +115,71 @@
 
 namespace {
 
-constexpr int D = 64;  // head dim
 constexpr float MASK_VALUE = -30000.0f;
 constexpr float EPS_BIAS = 1.0f / 256.0f;
 
 // --- bf16 mode: TMA ring + wgmma ---
-
-constexpr int BM = 128;             // rows per block: two warpgroups of 64
-constexpr int BN = 128;             // keys per K/V tile
-constexpr int KV_STAGES = 3;        // K/V tiles in flight
-constexpr int THREADS = 256;        // two warpgroups, 8 warps: up to 255 registers a thread
-constexpr int ROW = D * 2;          // bytes of a bf16 row: the 128-byte swizzle's span
-constexpr int TILE = BN * ROW;      // bytes of a K or a V tile
-constexpr int O_LD = D + 8;         // floats of a staged O row (conflict-free float2 stores)
-constexpr int OFF_Q = 0;            // Q [BM, D] bf16
-constexpr int OFF_KV = OFF_Q + BM * ROW;  // stage st: K at OFF_KV + 2 st TILE, V after it
-constexpr int OFF_O = OFF_KV + KV_STAGES * 2 * TILE;
-constexpr int OFF_BAR = OFF_O + BM * O_LD * 4;
-constexpr int OFF_ONES = OFF_BAR + 128;  // bf16 ones: the B operand of P's row sums
+//
+// One kernel body for head dims 64 and 128 (ops/flash_tiling.py mirrors
+// FwdGeom). A bf16 row of 128 dims is 256 bytes, twice the 128-byte
+// swizzle's span, so every tile is stored as D / 64 panels of [rows, 64]
+// (each its own 128-byte-swizzled K-major tile, TMA-loaded by its own box):
+// S's k-steps 4 .. 7 read the second panel of Q and K, and PV's V (an
+// MN-major B whose N is the head dim) is two n64 products, one a panel. At
+// D = 128 a K/V tile holds 64 keys (S m64n64: 32 registers, P's two sets 32,
+// beside O's 64): at 128 keys S and P alone would take 128.
 constexpr int ONES_BYTES = 1024;
-constexpr int SMEM_BYTES = OFF_ONES + ONES_BYTES + 1024;  // + slack to align the base to 1024
-static_assert(KV_STAGES * (8 + 4) <= 128, "the barriers and release counters fit before the ones");
+constexpr int THREADS = 256;    // two warpgroups, 8 warps: up to 255 registers a thread
+constexpr int PANEL_ROW = 128;  // bytes of a panel's row: 64 bf16, the 128-byte swizzle's span
+
+template <int D>
+struct FwdGeom {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int PANELS = D / 64;          // 64-column panels of a bf16 row
+  static constexpr int BM = 128;                 // rows per block: two warpgroups of 64
+  static constexpr int BN = D == 64 ? 128 : 64;  // keys per K/V tile
+  static constexpr int KV_STAGES = 3;            // K/V tiles in flight
+  static constexpr int TILE = BN * D * 2;        // bytes of a K or a V tile (PANELS panels)
+  static constexpr int O_LD = D + 8;             // floats of a staged O row (conflict-free stores)
+  static constexpr int OFF_Q = 0;                // Q [BM, D] bf16 (PANELS panels of [BM, 64])
+  static constexpr int OFF_KV = OFF_Q + BM * D * 2;  // stage st: K at OFF_KV + 2 st TILE, V after
+  static constexpr int OFF_O = OFF_KV + KV_STAGES * 2 * TILE;
+  static constexpr int OFF_BAR = OFF_O + BM * O_LD * 4;
+  static constexpr int OFF_ONES = OFF_BAR + 128;  // bf16 ones: the B operand of P's row sums
+  static constexpr int SMEM_BYTES = OFF_ONES + ONES_BYTES + 1024;  // + slack to align the base
+  static_assert(KV_STAGES * (8 + 4) <= 128, "the barriers and counters fit before the ones");
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory fits an H100 SM");
+};
+
+// S = Q K^T's products, by the tile's width: m64n128 (64 floats a thread)
+// at 128 keys, m64n64 (32) at 64.
+__device__ __forceinline__ void wgmma_s_zero(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_bf16_m64n128k16_ss_zero(d, da, db);
+}
+__device__ __forceinline__ void wgmma_s_zero(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_bf16_m64n64k16_ss_zero(d, da, db);
+}
+__device__ __forceinline__ void wgmma_s(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_bf16_m64n128k16_ss(d, da, db, 1);
+}
+__device__ __forceinline__ void wgmma_s(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_bf16_m64n64k16_ss(d, da, db, 1);
+}
 
 // One tile's S (f32; Q is pre-scaled, so the logits are in the exp2 domain)
 // -> P = bf16(exp2(S - m)) as PV's A fragments (key tiles 2kk and 2kk + 1 of
 // 8 keys are k-step kk). Masks where MASK (the tile reaches past s or past
 // the block's first position), updates the running max m (+EPS_BIAS) and
 // gives each row's alpha. s[4 n + e]: row h = e / 2, key k0 + 8 n + cq + (e
-// & 1).
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[8][4], float (&m)[2],
-                                             float (&alpha)[2], int k0, int cq,
+// & 1). NS: the tile's keys / 2.
+template <bool MASK, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], uint32_t (&p)[NS / 8][4],
+                                             float (&m)[2], float (&alpha)[2], int k0, int cq,
                                              const int (&pos)[2], int s_len, int causal,
                                              int diag) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int h = (i % 4) / 2;
     if (MASK) {
       const int col = k0 + (i / 4) * 8 + cq + (i & 1);
@@ -154,7 +195,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[8][4]
     m[h] = next_m[h];
   }
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < NS / 4; ++n) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const __nv_bfloat162 pr = __floats2bfloat162_rn(exp2_ftz(s[4 * n + 2 * h] - next_m[h]),
@@ -174,6 +215,7 @@ __device__ __forceinline__ uint4 scale_pack8(const float (&x)[8], float qk_scale
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] bf16, 128B swizzle
                  const __grid_constant__ CUtensorMap v_map,  // the same for V
@@ -183,11 +225,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
                  float* __restrict__ lse,  // [b, h, t]
                  int h_kv, int rep, int t, int s, int bq, int causal, int diag,
                  float qk_scale) {
+  using G = FwdGeom<D>;
+  constexpr int BM = G::BM, BN = G::BN, KV_STAGES = G::KV_STAGES, TILE = G::TILE;
+  constexpr int PANELS = G::PANELS, O_LD = G::O_LD;
+  constexpr int NS = BN / 2;  // S floats a thread
+  // descriptor steps (16-byte units) from one panel to the next: Q's, K's and V's
+  constexpr uint64_t Q_PANEL = BM * PANEL_ROW >> 4, KV_PANEL = BN * PANEL_ROW >> 4;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + OFF_BAR;
+  const uint32_t bars = base + G::OFF_BAR;
   auto full = [&](int st) { return bars + 8 * st; };
 
   const int tid = threadIdx.x;
@@ -204,7 +252,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
 #pragma unroll
     for (int i = 0; i < KV_STAGES; ++i) {
       mbar_init(full(i), 1);
-      reinterpret_cast<int*>(smem + OFF_BAR + 8 * KV_STAGES)[i] = 0;  // releases of a stage
+      reinterpret_cast<int*>(smem + G::OFF_BAR + 8 * KV_STAGES)[i] = 0;  // releases of a stage
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -213,14 +261,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   // The ring by TMA: thread 0 loads tiles 0 .. KV_STAGES - 1; then tile j +
   // KV_STAGES is loaded into tile j's stage by whichever warpgroup releases
   // tile j second (a shared counter a stage), so no thread ever waits to
-  // refill and each tile is asked for KV_STAGES - 1 tiles ahead.
-  int* released = reinterpret_cast<int*>(smem + OFF_BAR + 8 * KV_STAGES);
+  // refill and each tile is asked for KV_STAGES - 1 tiles ahead. A tile's
+  // panel p is the box at head dim 64 p.
+  int* released = reinterpret_cast<int*>(smem + G::OFF_BAR + 8 * KV_STAGES);
   auto load_kv = [&](int j) {
     const int st = j % KV_STAGES;
     mbar_expect_tx(full(st), 2 * TILE);
-    const uint32_t dst = base + OFF_KV + st * 2 * TILE;
-    tma_load_4d(dst, &k_map, full(st), 0, j * BN, kvh, batch);
-    tma_load_4d(dst + TILE, &v_map, full(st), 0, j * BN, kvh, batch);
+    const uint32_t dst = base + G::OFF_KV + st * 2 * TILE;
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      tma_load_4d(dst + p * BN * PANEL_ROW, &k_map, full(st), 64 * p, j * BN, kvh, batch);
+      tma_load_4d(dst + TILE + p * BN * PANEL_ROW, &v_map, full(st), 64 * p, j * BN, kvh, batch);
+    }
   };
   if (tid == 0)
     for (int j = 0; j < min(KV_STAGES, n_tiles); ++j) load_kv(j);
@@ -244,10 +296,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   const int rows = rep * bq;      // live rows of the block (<= BM)
 
   // This warpgroup's Q rows -> shared: bf16(f32(q) * qk_scale), K-major with
-  // the 128-byte swizzle (16-byte chunk c of row r at c ^ (r & 7)); zeros for
-  // dead rows and positions past t. A thread's loads are all issued before
-  // it converts (the block's start waits for one load latency, not four).
-  // Then the ones that sum each row of P.
+  // the 128-byte swizzle (16-byte chunk c of a panel's row r at c ^ (r & 7));
+  // zeros for dead rows and positions past t. A thread's loads are all
+  // issued before it converts (the block's start waits for one load
+  // latency, not four). Then the ones that sum each row of P.
   constexpr int Q_PASSES = 64 * (D / 8) / 128;  // 16-byte bf16 chunks a thread writes
   uint4 qraw[Q_PASSES][2];
 #pragma unroll
@@ -286,11 +338,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
         x[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
       }
     }
-    *reinterpret_cast<uint4*>(smem + OFF_Q + r * ROW + ((c8 ^ (r & 7)) << 4)) =
-        scale_pack8(x, qk_scale);
+    *reinterpret_cast<uint4*>(smem + G::OFF_Q + (c8 / 8) * BM * PANEL_ROW + r * PANEL_ROW +
+                              (((c8 % 8) ^ (r & 7)) << 4)) = scale_pack8(x, qk_scale);
   }
   for (int c = tid; c < ONES_BYTES / 16; c += THREADS)
-    reinterpret_cast<uint4*>(smem + OFF_ONES)[c] =
+    reinterpret_cast<uint4*>(smem + G::OFF_ONES)[c] =
         make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);  // bf16 1.0
   fence_proxy_async();
   named_barrier(1, THREADS);
@@ -304,14 +356,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
     return j * BN + BN > s || (causal && j * BN + BN - 1 > q0 + diag);
   };
 
-  const uint64_t desc_q = desc_kmajor_sw128(base + OFF_Q + wg * 64 * ROW);
-  const uint64_t desc_ones = desc_interleave(base + OFF_ONES);
+  const uint64_t desc_q = desc_kmajor_sw128(base + G::OFF_Q + wg * 64 * PANEL_ROW);
+  const uint64_t desc_ones = desc_interleave(base + G::OFF_ONES);
   float m[2] = {-INFINITY, -INFINITY};
-  float acc[32], ls[4];  // O and the row sums of P, both rescaled by alpha
+  float acc[PANELS][32], ls[4];  // O (panel p: head dims 64 p ..) and P's row sums, both rescaled
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) ls[i] = 0.f;
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) reg_fence(acc[p]);
+  };
 
   // A group of products is issued as: wait for the tiles it reads, compute
   // its descriptors, fence the register operands (their last writes stay
@@ -320,31 +378,36 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   // wgmma.fence, the products, one commit.
   auto wait_kv = [&](int j) { mbar_wait(full(j % KV_STAGES), (j / KV_STAGES) & 1); };
   auto desc_k = [&](int j) {
-    return desc_kmajor_sw128(base + OFF_KV + (j % KV_STAGES) * 2 * TILE);
+    return desc_kmajor_sw128(base + G::OFF_KV + (j % KV_STAGES) * 2 * TILE);
   };
   auto desc_v = [&](int j) {
-    return desc_mnmajor_sw128(base + OFF_KV + (j % KV_STAGES) * 2 * TILE + TILE);
+    return desc_mnmajor_sw128(base + G::OFF_KV + (j % KV_STAGES) * 2 * TILE + TILE);
   };
-  auto fence_operands = [&](uint32_t (&pa)[8][4], uint64_t& dk, uint64_t& dv) {
-    reg_fence(acc);
+  auto fence_operands = [&](uint32_t (&pa)[BN / 16][4], uint64_t& dk, uint64_t& dv) {
+    fence_acc();
     reg_fence(ls);
     reg_fence(pa);
     asm volatile("" : "+l"(dk), "+l"(dv)::"memory");
     wgmma_fence();
   };
-  // S = Q K^T into sc: 4 k-steps of 16 head dims (32 bytes of Q's and K's rows).
-  auto mma_s = [&](uint64_t dk, float (&sc)[64]) {
-    wgmma_bf16_m64n128k16_ss_zero(sc, desc_q, dk);
+  // S = Q K^T into sc: D / 16 k-steps of 16 head dims (32 bytes of Q's and
+  // K's rows; k-step kk in panel kk / 4).
+  auto mma_s = [&](uint64_t dk, float (&sc)[NS]) {
+    wgmma_s_zero(sc, desc_q, dk);
 #pragma unroll
     for (int kk = 1; kk < D / 16; ++kk)
-      wgmma_bf16_m64n128k16_ss(sc, desc_q + 2 * kk, dk + 2 * kk, 1);
+      wgmma_s(sc, desc_q + (kk / 4) * Q_PANEL + 2 * (kk % 4),
+              dk + (kk / 4) * KV_PANEL + 2 * (kk % 4));
   };
-  // acc += P V (and ls += rowsum(P)): 8 k-steps of 16 keys (32 bytes of P's
-  // rows, 16 rows = 2048 bytes of V).
-  auto mma_pv = [&](uint64_t dv, const uint32_t (&pa)[8][4]) {
+  // acc += P V (and ls += rowsum(P)): BN / 16 k-steps of 16 keys (32 bytes of
+  // P's rows, 16 rows = 2048 bytes of each V panel), one n64 product a panel.
+  auto mma_pv = [&](uint64_t dv, const uint32_t (&pa)[BN / 16][4]) {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(acc, pa[kk], dv + kk * (16 * ROW >> 4), 1);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p)
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(acc[p], pa[kk],
+                                           dv + p * KV_PANEL + kk * (16 * PANEL_ROW >> 4), 1);
       wgmma_bf16_m64n8k16_rs(ls, pa[kk], desc_ones, 1);
     }
   };
@@ -359,8 +422,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   // between two sets, two tiles an iteration: copying them between steps
   // would write a product's input inside its stage (C7513). Then O and l are
   // rescaled by alpha for tile j's PV.
-  float sc[64];  // tile j's S
-  auto step = [&](int j, bool live, uint32_t (&p_prev)[8][4], uint32_t (&p_cur)[8][4]) {
+  float sc[NS];  // tile j's S
+  auto step = [&](int j, bool live, uint32_t (&p_prev)[BN / 16][4],
+                  uint32_t (&p_cur)[BN / 16][4]) {
     uint64_t dv = desc_v(max(j - 1, 0));
     const int jc = min(j, n_tiles - 1);
     wait_kv(jc);
@@ -375,7 +439,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
     float alpha[2] = {1.f, 1.f};
     if (!live) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e) p_cur[kk][e] = 0u;
     } else if (edge(j)) {
@@ -384,17 +448,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
       softmax_tile<false>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
     }
     wgmma_wait<0>();
-    reg_fence(acc);
+    fence_acc();
     reg_fence(ls);
     reg_fence(p_prev);
     if (j > 0) release(j - 1);  // this warpgroup reads tile j - 1 no more
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i % 4) / 2];
+    for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i % 4) / 2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) ls[i] *= alpha[i / 2];
   };
 
-  uint32_t p_a[8][4], p_b[8][4] = {};
+  uint32_t p_a[BN / 16][4], p_b[BN / 16][4] = {};
   for (int j = 0; j < n_tiles; j += 2) {
     step(j, true, p_b, p_a);
     step(j + 1, j + 1 < n_tiles, p_a, p_b);
@@ -406,14 +472,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
     wgmma_commit();
   }
   wgmma_wait<0>();
-  reg_fence(acc);
+  fence_acc();
   reg_fence(ls);
 
   // Epilogue: O = acc / l (l == 0 -> 1) staged in shared memory by rows, then
   // 16-byte stores; lse = m + log2(l). A row that sees no key (causal, its
   // position + diag < 0: every logit was MASK_VALUE, or the block had no key
   // tile) gets O = 0 and lse = -inf, whatever its accumulators hold.
-  float* o_s = reinterpret_cast<float*>(smem + OFF_O);
+  float* o_s = reinterpret_cast<float*>(smem + G::OFF_O);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
@@ -424,7 +490,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(o_s + r * O_LD + 8 * n + cq) =
           empty ? make_float2(0.f, 0.f)
-                : make_float2(acc[4 * n + 2 * h] / l_safe, acc[4 * n + 2 * h + 1] / l_safe);
+                : make_float2(acc[n / 8][4 * (n % 8) + 2 * h] / l_safe,
+                              acc[n / 8][4 * (n % 8) + 2 * h + 1] / l_safe);
     if (lane % 4 == 0 && r < rows && pos[h] < t)
       lse[(static_cast<size_t>(bh) * rep + r / bq) * t + pos[h]] =
           empty ? -INFINITY : m[h] + log2f(l_safe);
@@ -443,16 +510,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
 
 // The K/V prep of f32 inputs: K and V ([b, h_kv, s, D] f32, any strides,
 // rows contiguous) -> contiguous bf16 (round to nearest), both in one launch:
-// grid (CAST_ROWS rows along s, b * h_kv, the tensor). A thread converts 8
-// elements of a row in each of CAST_ROWS / 32 rows, all its loads issued
-// before its stores (a block per 32 rows spends more time being scheduled
-// than copying).
-constexpr int CAST_ROWS = 256;
+// grid (cast_rows(D) rows along s, b * h_kv, the tensor). A thread converts 8
+// elements of a row in each of 8 rows, all its loads issued before its
+// stores (a block per 32 rows spends more time being scheduled than
+// copying).
+__host__ __device__ constexpr int cast_rows(int d) { return 256 * 64 / d; }
+
+template <int D>
 __global__ void __launch_bounds__(256)
 kv_to_bf16_kernel(const float* __restrict__ k, const float* __restrict__ v, long long k_sb,
                   long long k_sh, long long k_st, long long v_sb, long long v_sh, long long v_st,
                   __nv_bfloat16* __restrict__ kb, __nv_bfloat16* __restrict__ vb, int h_kv,
                   int s) {
+  constexpr int CAST_ROWS = cast_rows(D);
   const int bh = blockIdx.y, c8 = threadIdx.x % (D / 8);
   const int tok0 = blockIdx.x * CAST_ROWS + threadIdx.x / (D / 8);
   const long long batch = bh / h_kv, head = bh % h_kv;
@@ -484,12 +554,13 @@ kv_to_bf16_kernel(const float* __restrict__ k, const float* __restrict__ v, long
 }
 
 // A 4-D map over [b, h_kv, s, D] bf16 with the tensor's strides in elements,
-// boxes of BN keys.
+// boxes of BN keys x 64 head dims (one panel).
+template <int D>
 bool kv_map(CUtensorMap* map, const void* ptr, int b, int h_kv, int s, long long sb, long long sh,
             long long st) {
   const long long stride[3] = {2 * st, 2 * sh, 2 * sb};
-  return tensor_map_4d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, h_kv, s, D, stride, BN, D,
-                       CU_TENSOR_MAP_SWIZZLE_128B);
+  return tensor_map_4d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, h_kv, s, D, stride,
+                       FwdGeom<D>::BN, 64, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 bool strides16(long long elem_bytes, long long sb, long long sh, long long st) {
@@ -500,6 +571,7 @@ bool strides16(long long elem_bytes, long long sb, long long sh, long long st) {
 // precision="fp32": 3xTF32 on wgmma
 // ---------------------------------------------------------------------------
 
+constexpr int F_D = 64;             // head dim (the fp32 mode takes 64 only)
 constexpr int F_ROWS = 128;         // q positions a block (one q head): two warpgroups of 64
 constexpr int F_KEYS = 64;          // keys a K/V tile
 constexpr int F_STAGES = 3;         // tiles in flight
@@ -528,10 +600,11 @@ kv_split_tf32_kernel(const float* __restrict__ k, long long k_sb, long long k_sh
                      float* __restrict__ kb, float* __restrict__ ks, float* __restrict__ vbt,
                      float* __restrict__ vst, int h_kv, int s, int s8) {
   static_assert(SPLIT_KEYS == F_KEYS, "a prep block takes one 64-key tile");
-  __shared__ float v_s[F_KEYS][D + 1];
+  __shared__ float v_s[F_KEYS][F_D + 1];
   const int bh = blockIdx.y;
   const long long batch = bh / h_kv, head = bh % h_kv;
-  const size_t kv_at = static_cast<size_t>(bh) * s * D, vt_at = static_cast<size_t>(bh) * D * s8;
+  const size_t kv_at = static_cast<size_t>(bh) * s * F_D;
+  const size_t vt_at = static_cast<size_t>(bh) * F_D * s8;
   kv_split_tf32_tile(k + batch * k_sb + head * k_sh, k_st, v + batch * v_sb + head * v_sh, v_st,
                      kb + kv_at, ks + kv_at, vbt + vt_at, vst + vt_at, blockIdx.x * F_KEYS, s, s8,
                      v_s);
@@ -592,9 +665,9 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
                      const __grid_constant__ CUtensorMap ks_map,   // K small
                      const __grid_constant__ CUtensorMap vbt_map,  // [b*h_kv, 64, s8] V^T big
                      const __grid_constant__ CUtensorMap vst_map,  // V^T small
-                     const float* __restrict__ q,  // [b, h, t, D] f32, strides in elements
+                     const float* __restrict__ q,  // [b, h, t, 64] f32, strides in elements
                      long long q_sb, long long q_sh, long long q_st,
-                     float* __restrict__ o,    // [b, h, t, D]
+                     float* __restrict__ o,    // [b, h, t, 64]
                      float* __restrict__ lse,  // [b, h, t]
                      int h, int rep, int t, int s, int causal, float qk_scale) {
   extern __shared__ uint8_t smem_raw[];
@@ -682,13 +755,13 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
   auto issue_s = [&](uint32_t stage) {
     wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage + 2 * F_BLK, 0));  // Q big . K small
 #pragma unroll
-    for (int kk = 1; kk < D / 8; ++kk)
+    for (int kk = 1; kk < F_D / 8; ++kk)
       wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage + 2 * F_BLK, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+    for (int kk = 0; kk < F_D / 8; ++kk)  // Q small . K big
       wgmma_tf32_m64n64k8_ss(sacc, desc_f32(qs_base, kk), desc_f32(stage, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk)  // Q big . K big
+    for (int kk = 0; kk < F_D / 8; ++kk)  // Q big . K big
       wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
     wgmma_commit();
   };
@@ -749,8 +822,8 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
     if (pos[h2] >= t) continue;
     const size_t row = static_cast<size_t>(bh) * t + pos[h2];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(o + row * D + 8 * n + 2 * c) =
+    for (int n = 0; n < F_D / 8; ++n)
+      *reinterpret_cast<float2*>(o + row * F_D + 8 * n + 2 * c) =
           make_float2(oacc[4 * n + 2 * h2] / l_safe, oacc[4 * n + 2 * h2 + 1] / l_safe);
     if (c == 0) lse[row] = m[h2] + log2f(l_safe);
   }
@@ -758,9 +831,11 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
 
 }  // namespace
 
-// Shared bytes one bf16-mode block asks for (ops/flash_tiling.py's
-// shared_bytes mirrors it).
-extern "C" int qa_flash_fwd_smem_bytes() { return SMEM_BYTES; }
+// Shared bytes one bf16-mode block asks for at head dim d, 64 or 128
+// (ops/flash_tiling.py's shared_bytes mirrors it); -1 for another d.
+extern "C" int qa_flash_fwd_smem_bytes(int d) {
+  return d == 64 ? FwdGeom<64>::SMEM_BYTES : d == 128 ? FwdGeom<128>::SMEM_BYTES : -1;
+}
 
 // Shared bytes one fp32-mode block asks for (ops/flash_tiling.py's
 // fp32_shared_bytes mirrors it).
@@ -804,10 +879,10 @@ extern "C" int qa_flash_fwd_f32(const void* q, long long q_sb, long long q_sh, l
   CUtensorMap kb_map, ks_map, vbt_map, vst_map;
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!tensor_map_3d(&kb_map, kb, f32, 4, b * h_kv, s, D, F_KEYS, 32, sw) ||
-      !tensor_map_3d(&ks_map, ks, f32, 4, b * h_kv, s, D, F_KEYS, 32, sw) ||
-      !tensor_map_3d(&vbt_map, vbt, f32, 4, b * h_kv, D, s8, D, 32, sw) ||
-      !tensor_map_3d(&vst_map, vst, f32, 4, b * h_kv, D, s8, D, 32, sw))
+  if (!tensor_map_3d(&kb_map, kb, f32, 4, b * h_kv, s, F_D, F_KEYS, 32, sw) ||
+      !tensor_map_3d(&ks_map, ks, f32, 4, b * h_kv, s, F_D, F_KEYS, 32, sw) ||
+      !tensor_map_3d(&vbt_map, vbt, f32, 4, b * h_kv, F_D, s8, F_D, 32, sw) ||
+      !tensor_map_3d(&vst_map, vst, f32, 4, b * h_kv, F_D, s8, F_D, 32, sw))
     return static_cast<int>(cudaErrorNotSupported);
   static bool configured = false;
   if (!configured) {
@@ -823,56 +898,82 @@ extern "C" int qa_flash_fwd_f32(const void* q, long long q_sb, long long q_sh, l
   return static_cast<int>(cudaGetLastError());
 }
 
-// The K/V prep of f32 inputs: k/v [b, h_kv, s, 64] f32 (strides in elements,
-// rows contiguous; pointers and strides 16-byte aligned) -> kb/vb contiguous
-// bf16 [b, h_kv, s, 64], in one launch.
-extern "C" int qa_flash_kv_to_bf16(const void* k, long long k_sb, long long k_sh, long long k_st,
-                                   const void* v, long long v_sb, long long v_sh, long long v_st,
-                                   void* kb, void* vb, int b, int h_kv, int s, void* stream) {
-  if (b < 1 || h_kv < 1 || static_cast<long long>(b) * h_kv > 65535 || s < 1 ||
-      s > (1 << 27) || !aligned16(k) || !aligned16(v) || !aligned16(kb) || !aligned16(vb) ||
-      !strides16(4, k_sb, k_sh, k_st) || !strides16(4, v_sb, v_sh, v_st))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((s + CAST_ROWS - 1) / CAST_ROWS, b * h_kv, 2);
-  kv_to_bf16_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+// The K/V prep of f32 inputs: k/v [b, h_kv, s, d] f32, d 64 or 128 (strides
+// in elements, rows contiguous; pointers and strides 16-byte aligned) ->
+// kb/vb contiguous bf16 [b, h_kv, s, d], in one launch.
+template <int D>
+int kv_to_bf16(const void* k, long long k_sb, long long k_sh, long long k_st, const void* v,
+               long long v_sb, long long v_sh, long long v_st, void* kb, void* vb, int b, int h_kv,
+               int s, cudaStream_t stream) {
+  const dim3 grid((s + cast_rows(D) - 1) / cast_rows(D), b * h_kv, 2);
+  kv_to_bf16_kernel<D><<<grid, 256, 0, stream>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), k_sb, k_sh, k_st, v_sb, v_sh,
       v_st, static_cast<__nv_bfloat16*>(kb), static_cast<__nv_bfloat16*>(vb), h_kv, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 mode: q [b, h, t, 64] f32 (q_f32) or bf16, k/v [b, h_kv, s, 64] bf16,
-// each with its strides in elements (rows contiguous; pointers and strides
-// 16-byte aligned) -> O [b, h, t, 64], lse [b, h, t] f32 (contiguous); h =
-// h_kv * rep, bq query positions a block (rep * bq <= 128). Causal masking
-// is on global positions: query i sits at q_offset + i, key j at k_offset + j
-// (both >= 0; a sequence shard's first token).
+extern "C" int qa_flash_kv_to_bf16(const void* k, long long k_sb, long long k_sh, long long k_st,
+                                   const void* v, long long v_sb, long long v_sh, long long v_st,
+                                   void* kb, void* vb, int b, int h_kv, int s, int d,
+                                   void* stream) {
+  if (b < 1 || h_kv < 1 || static_cast<long long>(b) * h_kv > 65535 || s < 1 ||
+      s > (1 << 27) || (d != 64 && d != 128) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(kb) || !aligned16(vb) || !strides16(4, k_sb, k_sh, k_st) ||
+      !strides16(4, v_sb, v_sh, v_st))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = d == 64 ? &kv_to_bf16<64> : &kv_to_bf16<128>;
+  return launch(k, k_sb, k_sh, k_st, v, v_sb, v_sh, v_st, kb, vb, b, h_kv, s,
+                static_cast<cudaStream_t>(stream));
+}
+
+// bf16 mode at head dim D: the maps, the shared-memory attribute (once an
+// instance) and the launch.
+template <int D>
+int flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st, int q_f32,
+              const void* k, long long k_sb, long long k_sh, long long k_st, const void* v,
+              long long v_sb, long long v_sh, long long v_st, void* o, void* lse, int b, int h_kv,
+              int rep, int t, int s, int bq, int causal, int diag, float qk_scale,
+              cudaStream_t stream) {
+  constexpr int SMEM = FwdGeom<D>::SMEM_BYTES;
+  CUtensorMap k_map, v_map;
+  if (!kv_map<D>(&k_map, k, b, h_kv, s, k_sb, k_sh, k_st) ||
+      !kv_map<D>(&v_map, v, b, h_kv, s, v_sb, v_sh, v_st))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(b * h_kv, (t + bq - 1) / bq);
+  flash_fwd_kernel<D><<<grid, THREADS, SMEM, stream>>>(
+      k_map, v_map, q, q_sb, q_sh, q_st, q_f32, static_cast<float*>(o), static_cast<float*>(lse),
+      h_kv, rep, t, s, bq, causal, diag, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 mode: q [b, h, t, d] f32 (q_f32) or bf16, k/v [b, h_kv, s, d] bf16,
+// d 64 or 128, each with its strides in elements (rows contiguous; pointers
+// and strides 16-byte aligned) -> O [b, h, t, d], lse [b, h, t] f32
+// (contiguous); h = h_kv * rep, bq query positions a block (rep * bq <=
+// 128). Causal masking is on global positions: query i sits at q_offset + i,
+// key j at k_offset + j (both >= 0; a sequence shard's first token).
 extern "C" int qa_flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st,
                             int q_f32, const void* k, long long k_sb, long long k_sh,
                             long long k_st, const void* v, long long v_sb, long long v_sh,
                             long long v_st, void* o, void* lse, int b, int h_kv, int rep, int t,
                             int s, int bq, int causal, int q_offset, int k_offset,
-                            float qk_scale, void* stream) {
+                            float qk_scale, int d, void* stream) {
   const int n_qt = bq < 1 ? 0 : (t + bq - 1) / bq;
-  if (bq < 1 || rep < 1 || rep * bq > BM || t < 1 || s < 1 || b < 1 || h_kv < 1 ||
-      q_offset < 0 || k_offset < 0 ||
+  if (bq < 1 || rep < 1 || rep * bq > 128 || t < 1 || s < 1 || b < 1 || h_kv < 1 ||
+      q_offset < 0 || k_offset < 0 || (d != 64 && d != 128) ||
       static_cast<long long>(b) * h_kv > 65535 || n_qt > 65535 || !aligned16(q) ||
       !strides16(q_f32 ? 4 : 2, q_sb, q_sh, q_st) || !aligned16(k) || !aligned16(v) ||
       !strides16(2, k_sb, k_sh, k_st) || !strides16(2, v_sb, v_sh, v_st))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap k_map, v_map;
-  if (!kv_map(&k_map, k, b, h_kv, s, k_sb, k_sh, k_st) ||
-      !kv_map(&v_map, v, b, h_kv, s, v_sb, v_sh, v_st))
-    return static_cast<int>(cudaErrorNotSupported);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const dim3 grid(b * h_kv, n_qt);
-  flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      k_map, v_map, q, q_sb, q_sh, q_st, q_f32, static_cast<float*>(o), static_cast<float*>(lse),
-      h_kv, rep, t, s, bq, causal, q_offset - k_offset, qk_scale);
-  return static_cast<int>(cudaGetLastError());
+  auto* launch = d == 64 ? &flash_fwd<64> : &flash_fwd<128>;
+  return launch(q, q_sb, q_sh, q_st, q_f32, k, k_sb, k_sh, k_st, v, v_sb, v_sh, v_st, o, lse, b,
+                h_kv, rep, t, s, bq, causal, q_offset - k_offset, qk_scale,
+                static_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,37 @@ def qk_scales(head_dim: int, sm_scale: float | None):
     return sm_scale, sm_scale * LOG2_E
 
 
+# The head dims each kernel (or mode) takes on the card. CPU tensors take the
+# plain versions at any head dim; on CUDA tensors a wrapper checks its
+# kernel's entry here and raises, never falling back to the plain version.
+# ROADMAP B-f3 brings the rest to 128 (B14, then B4-B8, B15/B16, B9-B12).
+KERNEL_HEAD_DIMS = {
+    "B1 bf16": (64, 128),
+    "B1 fp32": (64,),
+    "B2/B3 fast": (64, 128),
+    "B2/B3 exact": (64,),
+    "B4": (64,),
+    "B5": (64,),
+    "B6": (64,),
+    "B7/B8": (64,),
+    "B9-B12": (64,),
+    "B13": (64, 128),
+    "B14": (64,),
+    "B15": (64,),
+    "B16": (64,),
+}
+
+
+def check_head_dim(kernel: str, d: int) -> None:
+    """Raise ValueError unless `kernel` (a key of KERNEL_HEAD_DIMS) takes
+    head dim d on the card."""
+    dims = KERNEL_HEAD_DIMS[kernel]
+    if d not in dims:
+        todo = " (ROADMAP B-f3: head_dim 128 for this kernel is not ported yet)" if d == 128 else ""
+        raise ValueError(f"the {kernel} kernel takes head_dim {' or '.join(map(str, dims))}; "
+                         f"got d={d}{todo}")
+
+
 def check_offsets(q_offset, k_offset) -> tuple[int, int]:
     """The global positions of a shard's first query and key: host ints >= 0
     (a float that is a whole number is taken), or ValueError."""

@@ -42,7 +42,8 @@ whose offsets differ (the plain versions take them in both modes).
 The fast kernels read lse and D as rows `flash_tiling.lse_row_stride(t)`
 floats apart (a 16-byte row start for TMA): `bwd_prep` writes them so, and
 the operands hand the plain versions [b*h_kv, rep, t] views of them. The
-launch geometry is ops/flash_tiling.py's.
+launch geometry is ops/flash_tiling.py's. On the card fast mode takes head
+dim 64 or 128, exact mode 64 (ops/common.py:check_head_dim).
 """
 
 from __future__ import annotations
@@ -55,16 +56,19 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import flash_tiling
-from quantizedattention_tpu_torch.ops.common import MASK_VALUE, check_offsets, qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import (
+    MASK_VALUE,
+    check_head_dim,
+    check_offsets,
+    qk_scales,
+    tile_mask,
+)
 from quantizedattention_tpu_torch.ops.flash_fwd import (
     _kernel_ready,
     _strides,
     kv_to_bf16,
 )
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
-
-_HEAD_DIM = 64  # the kernels' compiled head dim
-
 
 class BwdOperands(NamedTuple):
     """The backward kernels' inputs, laid out for them by `bwd_operands`."""
@@ -90,29 +94,49 @@ def _kernel_lse(lse):
     return torch.where(lse == -torch.inf, torch.inf, lse)
 
 
+def _prep_row_term(dos, o):
+    """D = rowsum(dos * f32(O)) in the prep kernel's order: the products of
+    each 8 head dims (one thread's) summed in turn, then those partials
+    pairwise (the threads' butterfly), so the two agree bit for bit at the
+    kernel's head dims. Any other head dim is padded with zeros, to 8 dims
+    a partial and a power of two of partials (adding 0.0 is exact)."""
+    prods = dos * o.float()
+    d = prods.shape[-1]
+    parts = max(1, -(-d // 8))
+    width = 8 * (1 << (parts - 1).bit_length())
+    prods = torch.nn.functional.pad(prods, (0, width - d)).unflatten(-1, (-1, 8))
+    part = prods[..., 0]
+    for e in range(1, 8):
+        part = part + prods[..., e]
+    while part.shape[-1] > 1:
+        part = part[..., 0::2] + part[..., 1::2]
+    return part[..., 0]
+
+
 def bwd_prep_plain(q, o, do, lse, qk_scale: float, sm_scale: float):
     """Fast mode's q/dO/D prep in plain PyTorch: (q_s, dO_s) bf16 [b, h, t,
     d] with q_s = bf16(f32(q) * qk_scale) and dO_s = bf16(f32(dO) *
     sm_scale), then lse (-inf as +inf) and D = rowsum(f32(dO) * sm_scale *
-    f32(O)), f32 [b, h, t]."""
+    f32(O)), f32 [b, h, t], summed as the kernel sums it."""
     dos = do.float() * sm_scale
     return ((q.float() * qk_scale).to(torch.bfloat16), dos.to(torch.bfloat16), _kernel_lse(lse),
-            (dos * o.float()).sum(-1))
+            _prep_row_term(dos, o))
 
 
 def bwd_prep(q, o, do, lse, qk_scale: float, sm_scale: float):
     """`bwd_prep_plain`'s result from one kernel launch for CUDA tensors (q,
-    dO and O f32 or bf16 with any strides, rows contiguous; head_dim 64): q_s
-    and dO_s contiguous and byte-equal to the plain version's, lse and D as
-    [b, h, t] views of [b, h, ld] rows (ld = `flash_tiling.lse_row_stride`),
-    D equal to the plain version's up to f32 summation order. CPU tensors
-    take `bwd_prep_plain`. `bwd_prep.launches` counts kernel launches."""
+    dO and O f32 or bf16 with any strides, rows contiguous; head_dim 64 or
+    128): q_s and dO_s contiguous and byte-equal to the plain version's, lse
+    and D as [b, h, t] views of [b, h, ld] rows (ld =
+    `flash_tiling.lse_row_stride`), D equal to the plain version's (the same
+    f32 sums in the same order). CPU tensors take `bwd_prep_plain`.
+    `bwd_prep.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return bwd_prep_plain(q, o, do, lse, qk_scale, sm_scale)
     b, h, t, d = q.shape
-    if d != _HEAD_DIM or b * h > 65535:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}, b*h <= 65535; got d={d}, "
-                         f"b*h={b * h}")
+    check_head_dim("B2/B3 fast", d)
+    if b * h > 65535:
+        raise ValueError(f"kernel takes b*h <= 65535; got b*h={b * h}")
     ready = [_kernel_ready(x, (torch.float32, torch.bfloat16)) for x in (q, do, o)]
     lse_in = lse.float().contiguous()
     dev = require_cuda(lse_in)
@@ -125,7 +149,7 @@ def bwd_prep(q, o, do, lse, qk_scale: float, sm_scale: float):
     args = [a for x in ready for a in (x.data_ptr(), *_strides(x), int(x.dtype == torch.float32))]
     status = _kernels().qa_flash_bwd_prep(
         *args, lse_in.data_ptr(), qs.data_ptr(), dos.data_ptr(), rows[0].data_ptr(),
-        rows[1].data_ptr(), b, h, t, ld, qk_scale, sm_scale,
+        rows[1].data_ptr(), b, h, t, ld, qk_scale, sm_scale, d,
         torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "flash_bwd prep")
     bwd_prep.launches += 1
@@ -139,8 +163,7 @@ def _kv_bf16(k, v):
     """Fast mode's K and V in bf16: f32 (or other) CUDA tensors through one
     `kv_to_bf16` launch, bf16 ones as they are."""
     if k.device.type == "cuda" and not k.dtype == v.dtype == torch.bfloat16:
-        if k.shape[-1] != _HEAD_DIM:
-            raise ValueError(f"kernel takes head_dim {_HEAD_DIM}; got d={k.shape[-1]}")
+        check_head_dim("B2/B3 fast", k.shape[-1])
         return kv_to_bf16(_kernel_ready(k, (torch.float32,)), _kernel_ready(v, (torch.float32,)))
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
@@ -242,9 +265,9 @@ def _kernels():
     lib = load_kernel("flash_bwd")
     ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.qa_flash_bwd_prep.argtypes = [ptr, i64, i64, i64, i32] * 3 + [ptr] * 5 + [i32] * 4 \
-        + [f32, f32, ptr]
-    lib.qa_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
-    lib.qa_flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
+        + [f32, f32, i32, ptr]
+    lib.qa_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, i32, ptr]
+    lib.qa_flash_bwd_dq.argtypes = [ptr] * 7 + [i32] * 11 + [ptr]
     for fn in (lib.qa_flash_bwd_prep, lib.qa_flash_bwd_dkv, lib.qa_flash_bwd_dq):
         fn.restype = ctypes.c_int
     return lib
@@ -260,13 +283,12 @@ def _rows_ok(x, rep: int, ld: int) -> bool:
 
 def _launch_args(ops: BwdOperands):
     """Check what the kernels take; returns (device, bh_kv, rep, t, s, ld,
-    bq): ld the row stride of lse and D, bq fast B3's positions a block."""
+    bq, d): ld the row stride of lse and D, bq fast B3's positions a block."""
     bh_kv, rep, t, d = ops.q.shape
     s = ops.k.shape[1]
-    if d != _HEAD_DIM:
-        raise ValueError(f"kernels take head_dim {_HEAD_DIM}; got d={d}")
+    check_head_dim("B2/B3 fast" if ops.fast else "B2/B3 exact", d)
     if ops.fast:
-        bq = flash_tiling.bwd_grids(bh_kv, rep, t, s)[0]
+        bq = flash_tiling.bwd_grids(bh_kv, rep, t, s, d)[0]
     elif bh_kv * rep > 65535:
         raise ValueError(f"exact kernels take b*h <= 65535; got {bh_kv * rep}")
     elif ops.causal and ops.q_offset != ops.k_offset:
@@ -280,12 +302,12 @@ def _launch_args(ops: BwdOperands):
     dev = require_cuda(ops.q, ops.k, ops.v, ops.do)
     if not ops.fast:
         require_cuda(ops.lse, ops.di)
-        return dev, bh_kv, rep, t, s, t, 0
+        return dev, bh_kv, rep, t, s, t, 0, d
     ld = flash_tiling.lse_row_stride(t)
     if not all(x.device == dev and _rows_ok(x, rep, ld) for x in (ops.lse, ops.di)):
         raise ValueError(f"fast kernels take lse and di as rows {ld} floats apart on {dev} "
                          "(see bwd_prep)")
-    return dev, bh_kv, rep, t, s, ld, bq
+    return dev, bh_kv, rep, t, s, ld, bq, d
 
 
 def flash_bwd_dkv(ops: BwdOperands):
@@ -293,15 +315,15 @@ def flash_bwd_dkv(ops: BwdOperands):
     raise); CPU operands take `flash_bwd_dkv_plain`."""
     if ops.q.device.type == "cpu":
         return flash_bwd_dkv_plain(ops)
-    dev, bh_kv, rep, t, s, ld, _ = _launch_args(ops)
-    dk = torch.empty((bh_kv, s, _HEAD_DIM), dtype=torch.float32, device=dev)
+    dev, bh_kv, rep, t, s, ld, _, d = _launch_args(ops)
+    dk = torch.empty((bh_kv, s, d), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     status = _kernels().qa_flash_bwd_dkv(
         ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(), ops.do.data_ptr(),
         ops.lse.data_ptr(), ops.di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bh_kv, rep, t, s, ld, int(ops.causal), ops.q_offset, ops.k_offset, int(ops.fast),
         1.0 / ops.qk_scale,
-        1.0 / ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
+        1.0 / ops.sm_scale, d, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
@@ -313,12 +335,12 @@ def flash_bwd_dq(ops: BwdOperands):
     raise); CPU operands take `flash_bwd_dq_plain`."""
     if ops.q.device.type == "cpu":
         return flash_bwd_dq_plain(ops)
-    dev, bh_kv, rep, t, s, ld, bq = _launch_args(ops)
-    dq = torch.empty((bh_kv, rep, t, _HEAD_DIM), dtype=torch.float32, device=dev)
+    dev, bh_kv, rep, t, s, ld, bq, d = _launch_args(ops)
+    dq = torch.empty((bh_kv, rep, t, d), dtype=torch.float32, device=dev)
     status = _kernels().qa_flash_bwd_dq(
         ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(), ops.do.data_ptr(),
         ops.lse.data_ptr(), ops.di.data_ptr(), dq.data_ptr(),
-        bh_kv, rep, t, s, ld, bq, int(ops.causal), ops.q_offset, ops.k_offset, int(ops.fast),
+        bh_kv, rep, t, s, ld, bq, int(ops.causal), ops.q_offset, ops.k_offset, int(ops.fast), d,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "flash_bwd_dq")
@@ -340,7 +362,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=F
 
     q/o/do [b, h, t, d], k/v [b, h_kv, s, d], lse [b, h, t] (exp2 domain).
     Returns (dq [b, h, t, d], dk, dv [b, h_kv, s, d]) in f32. CUDA tensors run
-    the two kernels (head_dim 64); CPU tensors their plain versions.
+    the two kernels (head_dim 64, or 128 in fast mode); CPU tensors their
+    plain versions.
     q_offset/k_offset: the forward's global positions (fast mode on CUDA).
     """
     ops = bwd_operands(q, k, v, o, lse, do, causal, sm_scale, fast, q_offset=q_offset,

@@ -32,6 +32,9 @@ geometry is ops/flash_tiling.py's.
 GQA is native: k/v carry h_kv heads with h_kv dividing h, and q head
 h = kv_head * rep + g reads kv head `kv_head`.
 
+On the card the bf16 mode takes head dim 64 or 128 (BASELINE config 2's
+two), the fp32 mode 64; ops/common.py:check_head_dim refuses the rest.
+
 The fp32 mode (flash_fwd.py:255-260, `precision="fp32"`; the primal of
 `attention_jvp` and the rCM prepass) is a second kernel of the same file with
 its own wrapper, `flash_attention_fwd_fp32`, and its own launch count: q is
@@ -54,12 +57,15 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import flash_tiling
-from quantizedattention_tpu_torch.ops.common import MASK_VALUE, check_offsets, qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import (
+    MASK_VALUE,
+    check_head_dim,
+    check_offsets,
+    qk_scales,
+    tile_mask,
+)
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
 from quantizedattention_tpu_torch.utils.runtime import check_status
-
-_HEAD_DIM = 64  # the kernel's compiled head dim
-
 
 def _check_args(q, k, v, correction, precision="bf16"):
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
@@ -112,8 +118,8 @@ def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {  # the C entries of csrc/flash_fwd.cu
     "qa_flash_fwd": [_PTR, _I64, _I64, _I64, _I32] + [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR]
-                    + [_I32] * 9 + [ctypes.c_float, _PTR],
-    "qa_flash_kv_to_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR, _I32, _I32, _I32, _PTR],
+                    + [_I32] * 9 + [ctypes.c_float, _I32, _PTR],
+    "qa_flash_kv_to_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR] + [_I32] * 4 + [_PTR],
     "qa_flash_kv_split_tf32": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 4 + [_I32] * 3 + [_PTR],
     "qa_flash_fwd_f32": [_PTR, _I64, _I64, _I64] + [_PTR] * 6 + [_I32] * 6
                         + [ctypes.c_float, _PTR],
@@ -151,14 +157,16 @@ def _kernel_ready(x, dtypes):
 
 
 def kv_to_bf16(k, v):
-    """f32 k and v [b, h_kv, s, 64] (rows contiguous, 16-byte aligned) ->
-    contiguous bf16 copies, both in one launch: the K/V prep of f32 inputs."""
+    """f32 k and v [b, h_kv, s, d], d 64 or 128 (rows contiguous, 16-byte
+    aligned) -> contiguous bf16 copies, both in one launch: the K/V prep of
+    f32 inputs (B1 bf16's and fast B2/B3's)."""
     b, h_kv, s, d = k.shape
+    check_head_dim("B1 bf16", d)
     kb = torch.empty((b, h_kv, s, d), dtype=torch.bfloat16, device=k.device)
     vb = torch.empty_like(kb)
     status = _kernel("qa_flash_kv_to_bf16")(
         k.data_ptr(), *_strides(k), v.data_ptr(), *_strides(v), kb.data_ptr(), vb.data_ptr(),
-        b, h_kv, s, torch.cuda.current_stream(k.device).cuda_stream)
+        b, h_kv, s, d, torch.cuda.current_stream(k.device).cuda_stream)
     check_status(status, "flash_fwd kv_to_bf16")
     return kb, vb
 
@@ -167,9 +175,9 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", 
                         k_offset=0):
     """Corrected-bf16 flash-attention forward. q [b, h, t, d]; k/v [b, h_kv, s, d].
 
-    CUDA tensors launch the kernel (head_dim 64, rep <= 128, b*h_kv <= 65535)
-    or raise; CPU tensors take `flash_attention_fwd_plain`. q may be f32 or
-    bf16 with any strides (rows contiguous) and is scaled in the kernel; bf16
+    CUDA tensors launch the kernel (head_dim 64 or 128, rep <= 128, b*h_kv <=
+    65535) or raise; CPU tensors take `flash_attention_fwd_plain`. q may be
+    f32 or bf16 with any strides (rows contiguous) and is scaled in the kernel; bf16
     k/v are read in place, f32 k/v are cast by one `kv_to_bf16` launch.
     q_offset/k_offset (host ints >= 0): the global positions of the first
     query and key, for causal masking across sequence shards.
@@ -182,9 +190,8 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", 
     q_offset, k_offset = check_offsets(q_offset, k_offset)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
-    if d != _HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}; got {d}")
-    bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t)
+    check_head_dim("B1 bf16", d)
+    bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t, d)
     _, qk_scale = qk_scales(d, sm_scale)
     qk = _kernel_ready(q, (torch.float32, torch.bfloat16))
     if k.dtype == v.dtype == torch.bfloat16:
@@ -198,7 +205,7 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", 
     status = _kernel()(
         qk.data_ptr(), *_strides(qk), int(qk.dtype == torch.float32), kb.data_ptr(),
         *_strides(kb), vb.data_ptr(), *_strides(vb), o.data_ptr(), lse.data_ptr(), b, h_kv,
-        h // h_kv, t, s, bq, int(causal), q_offset, k_offset, qk_scale,
+        h // h_kv, t, s, bq, int(causal), q_offset, k_offset, qk_scale, d,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_status(status, "flash_fwd")
@@ -239,9 +246,10 @@ def kv_split_tf32(k, v):
     if k.device.type == "cpu":
         return kv_split_tf32_plain(k, v)
     b, h_kv, s, d = k.shape
-    if (k.dtype, v.dtype, d, v.shape) != (torch.float32, torch.float32, _HEAD_DIM, k.shape) \
+    check_head_dim("B1 fp32", d)
+    if (k.dtype, v.dtype, v.shape) != (torch.float32, torch.float32, k.shape) \
             or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError(f"kernel takes f32 k, v [b, h_kv, s, {_HEAD_DIM}] with rows contiguous")
+        raise ValueError(f"kernel takes f32 k, v [b, h_kv, s, {d}] with rows contiguous")
     s8 = flash_tiling.fp32_kv_cols(s)
     kb = torch.empty((b * h_kv, s, d), dtype=torch.float32, device=k.device)
     ks = torch.empty_like(kb)
@@ -267,8 +275,7 @@ def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="e
     _check_args(q, k, v, correction)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
-    if d != _HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {_HEAD_DIM}; got d={d}")
+    check_head_dim("B1 fp32", d)
     flash_tiling.fp32_grid(b * h, t)
     _, qk_scale = qk_scales(d, sm_scale)
     qf, kf, vf = (_kernel_ready(x, (torch.float32,)) for x in (q, k, v))

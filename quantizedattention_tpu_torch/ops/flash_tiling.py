@@ -8,7 +8,7 @@ BLOCK_ROWS // rep query positions a block, row r -> q head kv_head * rep +
 r // bq at position q0 + r % bq (rows from rep * bq on are dead). The grid is
 (b * h_kv, cdiv(t, bq)); grid row y holds the q tile whose first position is
 (cdiv(t, bq) - 1 - y) * bq, so the blocks with the most key tiles start
-first. Keys are walked in tiles of KV_TILE through a ring of KV_STAGES TMA
+first. Keys are walked in tiles of `kv_tile` through a ring of KV_STAGES TMA
 stages (K and V of one tile a stage). The constants mirror the kernel's,
 and `shared_bytes` is held against the kernel's own count on the card.
 
@@ -25,27 +25,46 @@ keys; B3 takes BLOCK_ROWS rows a block, as the forward does (bq positions of
 every q head of the group), and walks the 64-key tiles its rows see. The
 kernels compute those walks themselves. Their shared bytes are held against
 the kernels' own counts on the card as well.
+
+B1 bf16 and the backward's fast mode take head dim 64 or 128 (HEAD_DIMS):
+a bf16 row of 128 dims is two 64-column panels, each its own 128-byte
+swizzled tile. At 128 the forward walks keys in tiles of 64 (`kv_tile`),
+and every tile's bytes double; the rows, q tiles and walks are the same.
+The fp32 mode takes 64 only.
 """
 
 from __future__ import annotations
 
-HEAD_DIM = 64
+from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
+
+HEAD_DIMS = KERNEL_HEAD_DIMS["B1 bf16"]  # and fast B2/B3's
 BLOCK_ROWS = 128  # two warpgroups of 64
-KV_TILE = 128  # keys a tile
 KV_STAGES = 3  # K/V tiles in flight (each 2 x 16 KB of bf16)
-O_LD = HEAD_DIM + 8  # floats of a staged O row (padded: conflict-free stores)
 SMEM_LIMIT = 232_448  # shared bytes an H100 block may use (227 KB)
 MAX_KV_BLOCKS = 65535  # b * h_kv, as the other attention kernels take it
 MAX_Q_TILES = 65535  # the grid's y extent
 
 
-def shared_bytes() -> int:
+def kv_tile(head_dim: int) -> int:
+    """Keys a K/V tile of the forward: 128 at head dim 64, 64 at 128 (S and
+    P's two register sets then take 64 registers a thread, beside O's 64)."""
+    check_head_dim("B1 bf16", head_dim)
+    return 128 if head_dim == 64 else 64
+
+
+def o_ld(head_dim: int) -> int:
+    """Floats of a staged O row (padded: conflict-free stores)."""
+    check_head_dim("B1 bf16", head_dim)
+    return head_dim + 8
+
+
+def shared_bytes(head_dim: int) -> int:
     """Dynamic shared memory of one block: the bf16 Q tile, the K/V ring, the
     f32 O staging tile, 128 bytes of mbarriers, 1024 bytes of bf16 ones (the
     B operand of P's row sums) and 1024 bytes to align the swizzled tiles."""
-    q = BLOCK_ROWS * HEAD_DIM * 2
-    kv = KV_STAGES * 2 * KV_TILE * HEAD_DIM * 2
-    o = BLOCK_ROWS * O_LD * 4
+    q = BLOCK_ROWS * head_dim * 2
+    kv = KV_STAGES * 2 * kv_tile(head_dim) * head_dim * 2
+    o = BLOCK_ROWS * o_ld(head_dim) * 4
     return q + kv + o + 128 + 1024 + 1024
 
 
@@ -60,9 +79,10 @@ def block_positions(bh_kv: int, rep: int) -> int:
     return BLOCK_ROWS // rep
 
 
-def grid(bh_kv: int, rep: int, t: int) -> tuple[int, tuple[int, int]]:
+def grid(bh_kv: int, rep: int, t: int, head_dim: int) -> tuple[int, tuple[int, int]]:
     """(bq, the grid (b * h_kv, q tiles)); raises where the kernel takes no
-    launch."""
+    launch (a head dim outside HEAD_DIMS included)."""
+    check_head_dim("B1 bf16", head_dim)
     bq = block_positions(bh_kv, rep)
     n_qt = -(-t // bq)
     if not 1 <= n_qt <= MAX_Q_TILES:
@@ -87,21 +107,27 @@ BWD_TILE = 64  # q positions a B2 tile, keys a B3 tile
 DKV_KEYS = 128  # keys a B2 block: two warpgroups of 64
 DKV_STAGES = 4  # q_s / dO_s tiles (with their lse and D) in flight (B2)
 DQ_STAGES = 4  # K / V tiles in flight (B3)
-_BF_TILE = BWD_TILE * HEAD_DIM * 2  # bytes of a bf16 tile
+def _bf_tile(head_dim: int) -> int:
+    """Bytes of a bf16 tile of BWD_TILE rows."""
+    check_head_dim("B2/B3 fast", head_dim)
+    return BWD_TILE * head_dim * 2
 
 
-def dkv_shared_bytes() -> int:
-    """B2's dynamic shared memory: K and V [128, 64] bf16, the ring of q_s and
-    dO_s tiles with each tile's lse and D (64 floats each), 128 bytes of
-    mbarriers and release counters and 1024 bytes to align the swizzled
+def dkv_shared_bytes(head_dim: int) -> int:
+    """B2's dynamic shared memory: K and V [128, head_dim] bf16, the ring of
+    q_s and dO_s tiles with each tile's lse and D (64 floats each), 128 bytes
+    of mbarriers and release counters and 1024 bytes to align the swizzled
     tiles."""
-    return 4 * _BF_TILE + DKV_STAGES * (2 * _BF_TILE + 2 * BWD_TILE * 4) + 128 + 1024
+    tile = _bf_tile(head_dim)
+    return 4 * tile + DKV_STAGES * (2 * tile + 2 * BWD_TILE * 4) + 128 + 1024
 
 
-def dq_shared_bytes() -> int:
-    """B3's dynamic shared memory: Q [128, 64] bf16, the ring of K and V
-    tiles, 128 bytes of mbarriers and counters and 1024 bytes of alignment."""
-    return 2 * _BF_TILE + DQ_STAGES * 2 * _BF_TILE + 128 + 1024
+def dq_shared_bytes(head_dim: int) -> int:
+    """B3's dynamic shared memory: Q [128, head_dim] bf16, the ring of K and
+    V tiles, 128 bytes of mbarriers and counters and 1024 bytes of
+    alignment."""
+    tile = _bf_tile(head_dim)
+    return 2 * tile + DQ_STAGES * 2 * tile + 128 + 1024
 
 
 def lse_row_stride(t: int) -> int:
@@ -118,9 +144,12 @@ def dkv_first_q_tile(k0: int, t: int, causal: bool, diag: int = 0) -> int:
     return min(max(0, k0 - diag) // BWD_TILE, n_qt) if causal else 0
 
 
-def bwd_grids(bh_kv: int, rep: int, t: int, s: int) -> tuple[int, tuple[int, int], tuple[int, int]]:
+def bwd_grids(bh_kv: int, rep: int, t: int, s: int,
+              head_dim: int) -> tuple[int, tuple[int, int], tuple[int, int]]:
     """(bq, B2's grid, B3's grid), each grid (x, y) = (b * h_kv, key tiles of
-    128 or row blocks of bq positions); raises where a kernel takes no launch."""
+    128 or row blocks of bq positions); raises where a kernel takes no launch
+    (a head dim outside HEAD_DIMS included)."""
+    check_head_dim("B2/B3 fast", head_dim)
     bq = block_positions(bh_kv, rep)
     dkv = (bh_kv, -(-s // DKV_KEYS))
     dq = (bh_kv, -(-t // bq))

@@ -37,7 +37,12 @@ from typing import NamedTuple
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
-from quantizedattention_tpu_torch.ops.common import check_offsets, qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import (
+    check_head_dim,
+    check_offsets,
+    qk_scales,
+    tile_mask,
+)
 from quantizedattention_tpu_torch.ops.int8_fwd import _layout, raw_logits_and_scale
 from quantizedattention_tpu_torch.ops.int8_tiling import HEAD_DIM, bwd_grids, check_bwd_grains
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
@@ -175,8 +180,7 @@ def _launch_args(ops: Int8BwdOperands):
     returns (device, the kernels' shape args, bq)."""
     _, _, t, s, d = ops.dims
     bh_kv, q_pad, kv_pad = ops.k_i8.shape[0], ops.q_i8.shape[1], ops.k_i8.shape[1]
-    if d != HEAD_DIM:
-        raise ValueError(f"kernels take head_dim {HEAD_DIM}; got d={d}")
+    check_head_dim("B7/B8", d)
     bq, _, _ = bwd_grids(bh_kv, ops.rep, t, s, q_pad, kv_pad)
     check_bwd_grains(ops.q_grain, ops.kv_grain, q_pad, kv_pad)
     if any(x.dtype != torch.int8 for x in (ops.q_i8, ops.k_i8, ops.v_i8)) \

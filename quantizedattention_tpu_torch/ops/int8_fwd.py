@@ -47,8 +47,13 @@ import functools
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
-from quantizedattention_tpu_torch.ops.common import check_offsets, qk_scales, tile_mask
-from quantizedattention_tpu_torch.ops.int8_tiling import HEAD_DIM, block_positions, check_grain
+from quantizedattention_tpu_torch.ops.common import (
+    check_head_dim,
+    check_offsets,
+    qk_scales,
+    tile_mask,
+)
+from quantizedattention_tpu_torch.ops.int8_tiling import block_positions, check_grain
 from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
 from quantizedattention_tpu_torch.quantize.int8 import (
     IN_TYPES,
@@ -175,8 +180,7 @@ def _launch_args(residuals, dims):
     bh_kv, rep, q_grain, kv_grain = _layout(residuals, dims)
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
     d = dims[4]
-    if d != HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}; got d={d}")
+    check_head_dim("B5", d)
     bq = block_positions(bh_kv, rep)
     check_grain(kv_grain, k_i8.shape[1])
     if any(x.dtype != torch.int8 for x in (q_i8, k_i8, v_i8)) or \
@@ -267,8 +271,7 @@ def _fused_launch_args(q, k, v, k_sub):
     h_kv = k.shape[1]
     if h % h_kv != 0:
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({h_kv})")
-    if d != HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}; got d={d}")
+    check_head_dim("B6", d)
     block_positions(b * h_kv, h // h_kv)
     _, kv_grain, _, kv_pad = int8_grain(t, s, h // h_kv)
     check_grain(kv_grain, kv_pad)

@@ -31,7 +31,12 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import jvp_tiling
-from quantizedattention_tpu_torch.ops.common import MASK_VALUE, qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import (
+    MASK_VALUE,
+    check_head_dim,
+    qk_scales,
+    tile_mask,
+)
 from quantizedattention_tpu_torch.ops.flash_fwd import _kernel_ready, _strides
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
@@ -66,9 +71,9 @@ def kernel_args(b: int, h: int, d: int, *tensors):
     """Check what the JVP kernels' contiguous entries take (B9, B11 and B12
     exact, B10 fast); returns the tensors as contiguous f32 and their
     device."""
-    if d != HEAD_DIM or b * h > 65535:
-        raise ValueError(f"the JVP kernels take head_dim {HEAD_DIM}, b*h <= 65535; got "
-                         f"d={d}, b*h={b * h}")
+    check_head_dim("B9-B12", d)
+    if b * h > 65535:
+        raise ValueError(f"the JVP kernels take b*h <= 65535; got b*h={b * h}")
     out = [x.float().contiguous() for x in tensors]
     return out, require_cuda(*out)
 
@@ -134,7 +139,8 @@ def jvp_fwd_prep(k, v, tk, tv):
     if k.device.type == "cpu":
         return jvp_fwd_prep_plain(k, v, tk, tv)
     b, h, s, d = k.shape
-    if d != HEAD_DIM or any(x.shape != k.shape for x in (v, tk, tv)):
+    check_head_dim("B9-B12", d)
+    if any(x.shape != k.shape for x in (v, tk, tv)):
         raise ValueError(f"kernel takes k, v, tk, tv of one shape [b, h, s, {HEAD_DIM}]; got "
                          f"{[tuple(x.shape) for x in (k, v, tk, tv)]}")
     jvp_tiling.fwd_prep_grid(b * h, s)
@@ -167,8 +173,7 @@ def attention_jvp_fwd(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fast=Fal
     s = k.shape[2]
     sm_scale, qk_scale = qk_scales(d, sm_scale)
     if fast:
-        if d != HEAD_DIM:
-            raise ValueError(f"the JVP kernels take head_dim {HEAD_DIM}; got d={d}")
+        check_head_dim("B9-B12", d)
         jvp_tiling.q_blocks(b * h, t)
         qf, tqf = _kernel_ready(q, (torch.float32,)), _kernel_ready(tq, (torch.float32,))
         kv = jvp_fwd_prep(k, v, tk, tv)

@@ -26,7 +26,7 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops import flash_tiling, jvp_tiling
-from quantizedattention_tpu_torch.ops.common import qk_scales, tile_mask
+from quantizedattention_tpu_torch.ops.common import check_head_dim, qk_scales, tile_mask
 from quantizedattention_tpu_torch.ops.flash_fwd import _kernel_ready, _strides, kv_split_tf32_plain
 from quantizedattention_tpu_torch.ops.jvp_fwd import check_jvp_args, kernel_args, rounder
 from quantizedattention_tpu_torch.utils.runtime import check_status
@@ -90,7 +90,8 @@ def tangent_prep(k, v, tk, tv):
     if k.device.type == "cpu":
         return tangent_prep_plain(k, v, tk, tv)
     b, h, s, d = k.shape
-    if d != HEAD_DIM or any(x.shape != k.shape for x in (v, tk, tv)):
+    check_head_dim("B9-B12", d)
+    if any(x.shape != k.shape for x in (v, tk, tv)):
         raise ValueError(f"kernel takes k, v, tk, tv [b, h, s, {HEAD_DIM}] of one shape")
     ins = [_kernel_ready(x, (torch.float32,)) for x in (k, v, tk, tv)]
     dev = ins[0].device
@@ -113,8 +114,7 @@ def _launch_exact(q, k, v, o, lse, tq, tk, tv, causal, sm_scale):
     split, the merge launch."""
     b, h, t, d = q.shape
     s = k.shape[2]
-    if d != HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}; got d={d}")
+    check_head_dim("B9-B12", d)
     sm_scale, qk_scale = qk_scales(d, sm_scale)
     qf, tqf, of = (_kernel_ready(x, (torch.float32,)) for x in (q, tq, o))
     dev = qf.device

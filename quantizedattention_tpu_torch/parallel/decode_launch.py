@@ -18,23 +18,27 @@ import functools
 import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
-from quantizedattention_tpu_torch.ops.common import qk_scales
+from quantizedattention_tpu_torch.ops.common import check_head_dim, qk_scales
 from quantizedattention_tpu_torch.parallel import decode_tiling
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 # entry -> (pointers, ints before qk_scale): q, the cache's tensors, o, lse,
 # the two partials and the counters; q_f32, n, n_kv, group, spec, the
-# entry's sizes and z
-_ARGS = {"qa_decode": (11, 7), "qa_paged_decode": (12, 9), "qa_decode4": (11, 7),
-         "qa_paged4_decode": (12, 9)}
+# entry's sizes, the head dim and z
+_ARGS = {"qa_decode": (11, 8), "qa_paged_decode": (12, 10), "qa_decode4": (11, 8),
+         "qa_paged4_decode": (12, 10)}
+KERNEL_OF = {"qa_decode": "B13", "qa_paged_decode": "B14", "qa_decode4": "B15",
+             "qa_paged4_decode": "B16"}
 
 
-def check_kernel_rows(d: int, rows: int, n_kv: int, n: int) -> None:
-    """The decode kernels' limits: head_dim 64, at most MAX_ROWS q rows (GQA
-    group times spec) per kv head, grid dims within 65535."""
-    if d != decode_tiling.HEAD_DIM or rows > decode_tiling.MAX_ROWS or n_kv > 65535 or n > 65535:
-        raise ValueError(f"kernel takes head_dim {decode_tiling.HEAD_DIM}, group * spec <= "
-                         f"{decode_tiling.MAX_ROWS}; got d={d}, group * spec={rows}")
+def check_kernel_rows(d: int, rows: int, n_kv: int, n: int, entry: str) -> None:
+    """The decode kernels' limits: the entry's head dims (64; B13 also 128),
+    at most MAX_ROWS q rows (GQA group times spec) per kv head, grid dims
+    within 65535."""
+    check_head_dim(KERNEL_OF[entry], d)
+    if rows > decode_tiling.MAX_ROWS or n_kv > 65535 or n > 65535:
+        raise ValueError(f"kernel takes group * spec <= {decode_tiling.MAX_ROWS} and grid dims "
+                         f"<= 65535; got group * spec={rows}, n_kv={n_kv}, n={n}")
 
 
 @functools.cache
@@ -86,23 +90,23 @@ def launch(entry: str, q, tensors, n_kv: int, capacity: int, sizes, sm_scale, re
     if n_q % (n_kv * spec) != 0:
         raise ValueError(f"{n_q} q rows not a multiple of {n_kv} kv heads x spec {spec}")
     group = n_q // (n_kv * spec)
-    check_kernel_rows(d, n_q // n_kv, n_kv, n)
+    check_kernel_rows(d, n_q // n_kv, n_kv, n, entry)
     _, qk_scale = qk_scales(d, sm_scale)
     if q.dtype not in (torch.float32, torch.bfloat16):
         q = q.float()  # the kernel rounds f32 to bf16, as .to(bfloat16) would
     q = q.contiguous()
     dev = require_cuda(q, *tensors)
-    _, _, grid_z = decode_tiling.grid(n_kv, n, capacity, _device_sms(dev))
+    _, _, grid_z = decode_tiling.grid(n_kv, n, capacity, d, _device_sms(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     o = torch.empty((n, n_q, d), dtype=torch.float32, device=dev)
     lse = torch.empty((n, n_q), dtype=torch.float32, device=dev)
-    acc_shape, ml_shape = decode_tiling.scratch_shapes(n, n_kv, n_q // n_kv, capacity)
+    acc_shape, ml_shape = decode_tiling.scratch_shapes(n, n_kv, n_q // n_kv, capacity, d)
     part_acc = torch.empty(acc_shape, dtype=torch.float32, device=dev)
     part_ml = torch.empty(ml_shape, dtype=torch.float32, device=dev)
     status = _entry(entry)(
         q.data_ptr(), *(t.data_ptr() for t in tensors), o.data_ptr(), lse.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), _arrived(dev, stream, n * n_kv).data_ptr(),
-        int(q.dtype == torch.float32), n, n_kv, group, spec, *sizes, grid_z, qk_scale, stream,
+        int(q.dtype == torch.float32), n, n_kv, group, spec, *sizes, d, grid_z, qk_scale, stream,
     )
     check_status(status, entry)
     return (o, lse) if return_lse else o

@@ -8,7 +8,7 @@ of CHUNK consecutive token indices, [c * CHUNK, (c + 1) * CHUNK), whatever a
 row's length. The grid is (kv heads, sequences, z), z sized from the
 capacity's chunks (max_len, or max_pages * page_size), the card's SMs and
 the pairs (kv head, sequence), never from a length, so a launch reads no
-length on the host: z = min(chunks, max(1, RESIDENT * SMs // pairs)), as
+length on the host: z = min(chunks, max(1, resident * SMs // pairs)), as
 many chunks in parallel as fill the card's resident blocks. Block z takes
 chunks z, z + Z, ... below the row's length (`block_chunks`; chunk 0 always
 runs, a block whose first chunk is past the length exits at once), each
@@ -35,11 +35,19 @@ byte row is staged once per chunk and feeds both its tokens (`owner`,
 does not depend on the layout or on which block computes the chunk: B14
 computes what B13 computes, and B16 what B15 computes, on the same K/V,
 bit for bit.
+
+Head dim: the kernels' entries of `ops/common.KERNEL_HEAD_DIMS`: 64 for
+all four, and 128 for B13 (int8 payload rows of 128 bytes, two 64-byte
+halves each walked as a row of 64 is). A block at head dim 128 asks for
+twice the stage and partial-sum bytes, so an SM holds one (`resident`), and
+the grid's z doubles to fill the card as before.
 """
 
 from __future__ import annotations
 
-HEAD_DIM = 64
+from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
+
+HEAD_DIMS_INT8 = KERNEL_HEAD_DIMS["B13"]  # the int8 body's widest entry (B14: 64 only)
 PACK = 256  # tokens of a slotted int4 pack block: the slotted cache's "page"
 PAYLOADS = ("int8", "int4")
 CHUNK = 256  # tokens a block: a pack block, or whole pages of 128 or 256
@@ -48,8 +56,17 @@ THREADS = 256  # eight warps: four a tile, 32 tokens each
 M_ROWS = 16  # q rows an mma.sync m-tile
 MAX_ROWS = 128  # q rows (GQA group x spec) a kv head: eight m-tiles
 MAX_GRID_YZ = 65535
-RESIDENT = 2  # blocks an SM holds: shared_bytes() and the kernel's registers
 H100_SMS = 132
+SM_SHARED = 228 * 1024  # shared bytes an H100 SM holds, 1 KB of them reserved a block
+MAX_RESIDENT = 2  # registers: two blocks of THREADS at the kernel's 128-register cap
+
+
+def resident(head_dim: int) -> int:
+    """Blocks an SM holds, as the kernel's `resident(D)` declares them: as
+    many as its shared memory takes (int8's shared_bytes(); int4's at 64
+    fits as many), at most MAX_RESIDENT: two at head dim 64, one at 128 (a
+    block asks for 206 KB)."""
+    return min(MAX_RESIDENT, SM_SHARED // (shared_bytes("int8", head_dim) + 1024))
 
 
 def n_chunks(capacity: int) -> int:
@@ -57,16 +74,17 @@ def n_chunks(capacity: int) -> int:
     return -(-capacity // CHUNK)
 
 
-def grid(n_kv: int, n_seqs: int, capacity: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+def grid(n_kv: int, n_seqs: int, capacity: int, head_dim: int,
+         sms: int = H100_SMS) -> tuple[int, int, int]:
     """The kernel's grid (kv heads, sequences, z) on a card of `sms` SMs
-    (the wrappers pass the device's count; the default is an H100 SXM's);
-    raises where the kernel takes no launch. The launch takes its z from
-    here."""
+    (the wrappers pass the device's count; the default is an H100 SXM's) at
+    `head_dim`; raises where the kernel takes no launch. The launch takes its
+    z from here."""
     chunks = n_chunks(capacity)
     if n_kv < 1 or not 1 <= n_seqs <= MAX_GRID_YZ or not 1 <= chunks <= MAX_GRID_YZ:
         raise ValueError(f"kernel takes 1 to {MAX_GRID_YZ} sequences and chunks of {CHUNK} "
                          f"tokens; got {n_seqs} sequences, capacity {capacity}")
-    return n_kv, n_seqs, min(chunks, max(1, RESIDENT * sms // (n_kv * n_seqs)))
+    return n_kv, n_seqs, min(chunks, max(1, resident(head_dim) * sms // (n_kv * n_seqs)))
 
 
 def block_chunks(z: int, grid_z: int, length: int, capacity: int) -> list[int]:
@@ -74,12 +92,12 @@ def block_chunks(z: int, grid_z: int, length: int, capacity: int) -> list[int]:
     return list(range(z, live_chunks(length, capacity), grid_z))
 
 
-def scratch_shapes(n_seqs: int, n_kv: int, rows: int,
-                   capacity: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """The partials' shapes: acc [n_seqs, n_kv, chunks, rows, HEAD_DIM] and
+def scratch_shapes(n_seqs: int, n_kv: int, rows: int, capacity: int,
+                   head_dim: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """The partials' shapes: acc [n_seqs, n_kv, chunks, rows, head_dim] and
     (m, l) [n_seqs, n_kv, chunks, rows, 2], f32."""
     lead = (n_seqs, n_kv, n_chunks(capacity), rows)
-    return lead + (HEAD_DIM,), lead + (2,)
+    return lead + (head_dim,), lead + (2,)
 
 
 def live_chunks(length: int, capacity: int) -> int:
@@ -143,18 +161,19 @@ def staged_rows(page_size: int, chunk: int, length: int,
     return rows
 
 
-def shared_bytes(payload: str) -> int:
+def shared_bytes(payload: str, head_dim: int) -> int:
     """Dynamic shared memory of a block: two stages (the chunk computed and
-    the next one's copies), each the K and V payload rows [CHUNK, HEAD_DIM]
+    the next one's copies), each the K and V payload rows [CHUNK, head_dim]
     by slot, for int4 a slot's source (row offset and nibble shift, 2
     bytes), and the f32 scales of K and V; q's first m-tile [M_ROWS,
-    HEAD_DIM] f32; each warp's row maxima, partial acc (rows padded by a
+    head_dim] f32; each warp's row maxima, partial acc (rows padded by a
     float) and l of an m-tile; the m-tile's m and alpha; the merging flag;
-    rounded up to 16 bytes."""
+    rounded up to 16 bytes. The head dims are B13's (int8) and B15's (int4)."""
     if payload not in PAYLOADS:
         raise ValueError(f"payload {payload!r} is not one of {PAYLOADS}")
+    check_head_dim("B13" if payload == "int8" else "B15", head_dim)
     warps = THREADS // 32
     src = 2 * CHUNK if payload == "int4" else 0
-    stage = 2 * CHUNK * HEAD_DIM + src + 4 * 2 * CHUNK
-    floats = warps * M_ROWS * (1 + (HEAD_DIM + 1) + 1) + 2 * M_ROWS
-    return -(-(2 * stage + 4 * (M_ROWS * HEAD_DIM + floats) + 4) // 16) * 16
+    stage = 2 * CHUNK * head_dim + src + 4 * 2 * CHUNK
+    floats = warps * M_ROWS * (1 + (head_dim + 1) + 1) + 2 * M_ROWS
+    return -(-(2 * stage + 4 * (M_ROWS * head_dim + floats) + 4) // 16) * 16

@@ -240,7 +240,7 @@ def decode_attention(q, cache: QuantizedKVCache, sm_scale=None, return_lse=False
     GQA: n_q_heads a multiple of the cache's kv heads, q head kv_head * group
     + g. Returns O [b, n_q_heads, d] f32, and with return_lse=True also the
     exp2-domain lse [b, n_q_heads] (-inf for rows with no live tokens).
-    CUDA tensors launch the kernel (head_dim 64) or raise; CPU tensors take
+    CUDA tensors launch the kernel (head_dim 64 or 128) or raise; CPU tensors take
     `decode_attention_plain`. `decode_attention.launches` counts launches.
     """
     if q.device.type == "cpu":

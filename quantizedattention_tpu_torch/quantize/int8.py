@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from quantizedattention_tpu_torch._build import load_kernel
+from quantizedattention_tpu_torch.ops.common import check_head_dim
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 INT8_MAX = 127.0
@@ -149,10 +150,10 @@ def _launch_args(jobs, dtypes=(torch.float32,)) -> torch.device:
         raise ValueError(f"the kernel takes 1 to {_MAX_JOBS} jobs, got {len(jobs)}")
     for job in jobs:
         _check_job(job)
-        if job.x.shape[-1] != _HEAD_DIM or job.x.dtype not in dtypes \
-                or job.x.dtype != jobs[0].x.dtype:
-            raise ValueError(f"kernel takes rows of width (head_dim) {_HEAD_DIM} and one type "
-                             f"among {list(dtypes)}; got {job.x.dtype} width {job.x.shape[-1]}")
+        check_head_dim("B4", job.x.shape[-1])
+        if job.x.dtype not in dtypes or job.x.dtype != jobs[0].x.dtype:
+            raise ValueError(f"kernel takes one type among {list(dtypes)} for all jobs; got "
+                             f"{job.x.dtype}")
         if job.sub is not None and job.sub.dtype != torch.float32:
             raise ValueError("sub must be float32")
     # the kernel's geometry (imported here: the ops package imports this module)

@@ -29,6 +29,8 @@ Checked here, on the CPU, for both payloads:
     at length len - spec + 1 + j;
 (d) the emulation on the paged pools' shuffled pages equal, bit for bit, to
     the slotted caches' on the same token values (B14 to B13, B16 to B15).
+The grid, scratch and shared bytes are held at both head dims of the int8
+instance (B13 takes 64 and 128: one block an SM at 128).
 """
 
 import math
@@ -123,33 +125,41 @@ def test_live_chunks_tiles_and_merged_chunks_cover_the_live_tokens(length):
             assert dt.row_chunks(lim) * dt.CHUNK >= max(lim, 0)
 
 
+@pytest.mark.parametrize("d", dt.HEAD_DIMS_INT8)
 @pytest.mark.parametrize("n_kv,n_seqs,capacity", [(16, 8, 1280), (4, 8, 1280), (4, 8, 1408),
                                                    (16, 1, 512), (2, 9, 1280), (16, 64, 256)])
 @pytest.mark.parametrize("length", [0, 1, 255, 256, 304, 1000, 1280])
-def test_blocks_take_every_live_chunk_once(n_kv, n_seqs, capacity, length):
-    _, _, z = dt.grid(n_kv, n_seqs, capacity)
+def test_blocks_take_every_live_chunk_once(n_kv, n_seqs, capacity, length, d):
+    _, _, z = dt.grid(n_kv, n_seqs, capacity, head_dim=d)
     assert 1 <= z <= dt.n_chunks(capacity)
-    assert n_kv * n_seqs * z <= max(dt.RESIDENT * dt.H100_SMS, n_kv * n_seqs)
+    assert n_kv * n_seqs * z <= max(dt.resident(d) * dt.H100_SMS, n_kv * n_seqs)
     taken = [c for b in range(z) for c in dt.block_chunks(b, z, length, capacity)]
     assert sorted(taken) == list(range(dt.live_chunks(length, capacity)))
 
 
-def test_grid_and_scratch_follow_the_capacity():
-    assert dt.grid(16, 8, 1280) == (16, 8, 2)  # the serving decode: 256 blocks, none idle
-    assert dt.grid(4, 8, 1280) == (4, 8, 5)
-    assert dt.grid(4, 8, 11 * 128) == (4, 8, 6)
-    assert dt.grid(16, 64, 1280) == (16, 64, 1)
-    acc, ml = dt.scratch_shapes(8, 16, 5, 1280)
-    assert acc == (8, 16, 5, 5, 64) and ml == (8, 16, 5, 5, 2)
+@pytest.mark.parametrize("d", dt.HEAD_DIMS_INT8)
+def test_grid_and_scratch_follow_the_capacity(d):
+    # 256 blocks at 64 (two an SM), 128 at 128 (one an SM): none idle at the serving decode
+    assert dt.grid(16, 8, 1280, head_dim=d) == (16, 8, 2 if d == 64 else 1)
+    assert dt.grid(4, 8, 1280, head_dim=d) == (4, 8, 5 if d == 64 else 4)
+    assert dt.grid(4, 8, 11 * 128, head_dim=d) == (4, 8, 6 if d == 64 else 4)
+    assert dt.grid(16, 64, 1280, head_dim=d) == (16, 64, 1)
+    acc, ml = dt.scratch_shapes(8, 16, 5, 1280, d)
+    assert acc == (8, 16, 5, 5, d) and ml == (8, 16, 5, 5, 2)
     for bad in ((16, 0, 1280), (16, 70000, 1280), (16, 8, 0), (0, 8, 1280)):
         with pytest.raises(ValueError):
-            dt.grid(*bad)
-    for payload in dt.PAYLOADS:  # two blocks an SM, each under the 227 KB a block may take
-        assert dt.shared_bytes(payload) % 16 == 0
-        assert 2 * (dt.shared_bytes(payload) + 1024) <= 228 * 1024
-    assert dt.shared_bytes("int8") < dt.shared_bytes("int4")  # no slot sources
+            dt.grid(*bad, head_dim=d)
+    payloads = dt.PAYLOADS if d == 64 else ("int8",)
+    for payload in payloads:  # resident(d) blocks an SM, each under the 227 KB a block may take
+        assert dt.shared_bytes(payload, d) % 16 == 0
+        assert dt.resident(d) * (dt.shared_bytes(payload, d) + 1024) <= 228 * 1024
+        assert dt.shared_bytes(payload, d) <= 232_448
+    assert dt.resident(d) == (2 if d == 64 else 1)
+    assert dt.shared_bytes("int8", 64) < dt.shared_bytes("int4", 64)  # no slot sources
     with pytest.raises(ValueError):
-        dt.shared_bytes("int2")
+        dt.shared_bytes("int2", d)
+    with pytest.raises(ValueError):  # the int4 kernels (B15/B16) take head dim 64 only
+        dt.shared_bytes("int4", 128)
 
 
 # --------------------------------------------------------------------------
@@ -249,7 +259,8 @@ def test_wrappers_launch_decode_tilings_grid(monkeypatch, layout, sms):
     name, args = _launch_args(monkeypatch, t4._launch if layout == "slotted" else tp4._launch,
                               q, cache, sms)
     assert name == ("qa_decode4" if layout == "slotted" else "qa_paged4_decode")
-    assert args[-3] == dt.grid(N_KV, len(lengths), CAP, sms)[2]  # z, before qk_scale, stream
+    # z, before qk_scale and the stream
+    assert args[-3] == dt.grid(N_KV, len(lengths), CAP, q.shape[-1], sms)[2]
 
 
 # --------------------------------------------------------------------------
@@ -585,7 +596,7 @@ def test_int8_wrappers_launch_decode_tilings_grid(monkeypatch, layout, sms):
     name, args = _launch_args(monkeypatch, tkv._launch if layout == "slotted" else tpc._launch,
                               q, cache, sms)
     assert name == ("qa_decode" if layout == "slotted" else "qa_paged_decode")
-    assert args[-3] == dt.grid(N_KV, len(lengths), _capacity(cache), sms)[2]
+    assert args[-3] == dt.grid(N_KV, len(lengths), _capacity(cache), q.shape[-1], sms)[2]
     assert args[0] == q.data_ptr() and args[len(cache) + 6] == 1  # q's own f32, q_f32 = 1
 
 

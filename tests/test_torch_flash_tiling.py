@@ -20,7 +20,9 @@ position) once and walk the key tiles up to the last key one of their rows
 sees, the lse/D row stride
 starts each row on 16 bytes, each block's shared memory fits an H100, and
 the grids' limits raise (the wrappers check them before asking for CUDA
-tensors).
+tensors). Shared bytes, refusals and the largest launch are held at both
+head dims the kernels take, 64 and 128 (and other head dims refused), and
+the Q rounding rule at sm_scale = 1/sqrt(64) and 1/sqrt(128).
 """
 
 import jax.numpy as jnp
@@ -43,7 +45,7 @@ def _grid_rows(rep, t):
     the kernel maps them: grid row y starts at q0 = (n_qt - 1 - y) * bq, and
     its row r holds group r // bq at position q0 + r % bq, live when r < rep *
     bq and the position is below t."""
-    bq, (_, n_qt) = tiling.grid(1, rep, t)
+    bq, (_, n_qt) = tiling.grid(1, rep, t, 64)  # the same rows at every head dim
     q0 = (n_qt - 1 - np.arange(n_qt)) * bq
     r = np.arange(tiling.BLOCK_ROWS)
     pos = q0[:, None] + r % bq
@@ -66,21 +68,30 @@ def test_grid_for_every_length(t):
     """One grid row per kv head, q tiles of bq = BLOCK_ROWS // rep positions,
     none of them empty, the first tile (the last grid row) at position 0."""
     for rep in REPS:
-        bq, (x, n_qt) = tiling.grid(3, rep, t)
+        bq, (x, n_qt) = tiling.grid(3, rep, t, 64)
+        assert all(tiling.grid(3, rep, t, d) == (bq, (x, n_qt)) for d in tiling.HEAD_DIMS)
         assert x == 3 and bq == tiling.BLOCK_ROWS // rep
         assert (n_qt - 1) * bq < t <= n_qt * bq, (rep, t)
 
 
-def test_shared_memory_fits_one_block():
-    n = tiling.shared_bytes()
+HEAD_DIMS = pytest.mark.parametrize("d", tiling.HEAD_DIMS)
+
+
+@HEAD_DIMS
+def test_shared_memory_fits_one_block(d):
+    n = tiling.shared_bytes(d)
     assert n <= tiling.SMEM_LIMIT
     # Q, the K/V ring and the f32 O staging tile alone
-    floor = (tiling.BLOCK_ROWS * 64 * 2 + tiling.KV_STAGES * 2 * tiling.KV_TILE * 64 * 2
-             + tiling.BLOCK_ROWS * tiling.O_LD * 4)
+    floor = (tiling.BLOCK_ROWS * d * 2 + tiling.KV_STAGES * 2 * tiling.kv_tile(d) * d * 2
+             + tiling.BLOCK_ROWS * tiling.o_ld(d) * 4)
     assert floor < n <= floor + 4096
     assert tiling.KV_STAGES >= 3 and tiling.BLOCK_ROWS == 2 * 64
+    # 128 keys a tile at 64; at 128 a tile of 64 keys keeps the same bytes
+    assert tiling.kv_tile(d) * d == 128 * 64
+    assert (n, tiling.kv_tile(d)) == ((153_728, 128) if d == 64 else (202_880, 64))
 
 
+@HEAD_DIMS
 @pytest.mark.parametrize("bh_kv, rep, t, match", [
     (1, 129, 64, "rep <= 128"),
     (1, 0, 64, "rep <= 128"),
@@ -88,13 +99,23 @@ def test_shared_memory_fits_one_block():
     (0, 1, 64, "b\\*h_kv"),
     (1, 128, 65536, "q tiles"),
 ])
-def test_geometry_refusals(bh_kv, rep, t, match):
+def test_geometry_refusals(bh_kv, rep, t, match, d):
     with pytest.raises(ValueError, match=match):
-        tiling.grid(bh_kv, rep, t)
+        tiling.grid(bh_kv, rep, t, d)
 
 
-def test_largest_launch_accepted():
-    assert tiling.grid(65535, 128, 65535) == (1, (65535, 65535))
+@pytest.mark.parametrize("d", [32, 96, 256, 0])
+def test_geometry_refuses_other_head_dims(d):
+    for fn in (lambda: tiling.grid(1, 1, 64, d), lambda: tiling.bwd_grids(1, 1, 64, 64, d),
+               lambda: tiling.shared_bytes(d), lambda: tiling.dkv_shared_bytes(d),
+               lambda: tiling.dq_shared_bytes(d), lambda: tiling.kv_tile(d)):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn()
+
+
+@HEAD_DIMS
+def test_largest_launch_accepted(d):
+    assert tiling.grid(65535, 128, 65535, d) == (1, (65535, 65535))
 
 
 def _bf16_rne(x32: np.ndarray) -> np.ndarray:
@@ -104,15 +125,16 @@ def _bf16_rne(x32: np.ndarray) -> np.ndarray:
     return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
 
 
+@pytest.mark.parametrize("head_dim", [64, 128])  # sm_scale None: 1/sqrt(head_dim)
 @pytest.mark.parametrize("sm_scale", [None, 0.3, 0.125, 1.0, 2.5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_q_rounding_rule_matches_jax(dtype, sm_scale):
+def test_q_rounding_rule_matches_jax(dtype, sm_scale, head_dim):
     rng = np.random.default_rng(11)
     x = (rng.standard_normal((4, 333)) * np.exp2(rng.integers(-20, 20, (4, 333)))).astype(np.float32)
     x[0, :6] = [0.0, -0.0, 1.0, -3.5, 65504.0, 1e-20]
     xj = jnp.asarray(x, dtype=jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
-    qk_scale = qk_scales(64, sm_scale)[1]
-    assert qk_scale == jax_qk_scales(64, sm_scale)[1]
+    qk_scale = qk_scales(head_dim, sm_scale)[1]
+    assert qk_scale == jax_qk_scales(head_dim, sm_scale)[1]
     want = np.asarray((xj.astype(jnp.float32) * qk_scale).astype(jnp.bfloat16)).view(np.uint16)
     # the kernel: the element widened to f32 exactly, one f32 product, rounded
     # to nearest even
@@ -140,7 +162,7 @@ def _visible(t, s, causal):
 
 
 def _check_bwd_geometry(rep, t, s, causal):
-    bq, dkv, dq = tiling.bwd_grids(5, rep, t, s)
+    bq, dkv, dq = tiling.bwd_grids(5, rep, t, s, 64)  # the same walks at every head dim
     tile = tiling.BWD_TILE
     assert dkv == (5, -(-s // tiling.DKV_KEYS)) and dq == (5, -(-t // bq))
     # B2: each block's q tiles (causal, from the tile holding position k0 on,
@@ -211,10 +233,11 @@ def test_lse_row_stride_starts_rows_on_16_bytes(t):
     assert t <= ld < t + 4 and ld * 4 % 16 == 0
 
 
-def test_bwd_shared_memory_fits_one_block():
-    dkv, dq = tiling.dkv_shared_bytes(), tiling.dq_shared_bytes()
+@HEAD_DIMS
+def test_bwd_shared_memory_fits_one_block(d):
+    dkv, dq = tiling.dkv_shared_bytes(d), tiling.dq_shared_bytes(d)
     assert max(dkv, dq) <= tiling.SMEM_LIMIT
-    tile = tiling.BWD_TILE * 64 * 2
+    tile = tiling.BWD_TILE * d * 2
     # B2: K, V and the q_s / dO_s ring with each tile's lse and D; B3: Q and
     # the K / V ring
     dkv_floor = 4 * tile + tiling.DKV_STAGES * (2 * tile + 2 * tiling.BWD_TILE * 4)
@@ -234,7 +257,7 @@ def test_bwd_shared_memory_fits_one_block():
 ])
 def test_bwd_geometry_refusals(bh_kv, rep, t, s, match):
     with pytest.raises(ValueError, match=match):
-        tiling.bwd_grids(bh_kv, rep, t, s)
+        tiling.bwd_grids(bh_kv, rep, t, s, 64)
 
 
 def test_bwd_wrappers_check_the_geometry_first():

@@ -1,0 +1,116 @@
+"""The head dims the port's kernels take on the card (ops/common.py's
+KERNEL_HEAD_DIMS and check_head_dim).
+
+B1 bf16, fast B2/B3 and B13 take head dim 64 or 128; every other kernel and
+mode takes 64 only and refuses 128 naming ROADMAP B-f3; nothing takes
+another head dim. Pure Python: the check itself, then each wrapper's CUDA
+branch on meta tensors (neither CPU nor CUDA, so a wrapper takes its kernel
+path and must raise before it asks for a CUDA tensor), which shows that no
+wrapper outside the slice falls back to its plain version at 128.
+"""
+
+import pytest
+import torch
+
+from quantizedattention_tpu_torch.ops import (
+    attention_jvp_fwd,
+    flash_attention_bwd,
+    flash_attention_fwd,
+    quantize_qkv,
+    sage_attention_int8,
+    sage_attention_int8_inference,
+)
+from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
+from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd_fp32, kv_split_tf32
+from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep
+from quantizedattention_tpu_torch.parallel import decode_launch, kv4_cache, kv_cache
+
+SLICE = {"B1 bf16", "B2/B3 fast", "B13"}  # the kernels that take head dim 128
+META = torch.device("meta")
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_HEAD_DIMS))
+def test_head_dim_128_only_in_the_slice(kernel):
+    check_head_dim(kernel, 64)
+    if kernel in SLICE:
+        check_head_dim(kernel, 128)
+        assert KERNEL_HEAD_DIMS[kernel] == (64, 128)
+    else:
+        with pytest.raises(ValueError, match="B-f3"):
+            check_head_dim(kernel, 128)
+        assert KERNEL_HEAD_DIMS[kernel] == (64,)
+
+
+@pytest.mark.parametrize("d", [0, 32, 80, 96, 112, 256])
+@pytest.mark.parametrize("kernel", sorted(KERNEL_HEAD_DIMS))
+def test_other_head_dims_refused_everywhere(kernel, d):
+    with pytest.raises(ValueError, match="head_dim"):
+        check_head_dim(kernel, d)
+
+
+def test_every_kernel_has_an_entry():
+    assert set(KERNEL_HEAD_DIMS) == {"B1 bf16", "B1 fp32", "B2/B3 fast", "B2/B3 exact", "B4",
+                                     "B5", "B6", "B7/B8", "B9-B12", "B13", "B14", "B15", "B16"}
+
+
+def _qkv(d, h=4, h_kv=4, t=64):
+    return [torch.empty((1, n, t, d), device=META) for n in (h, h_kv, h_kv)]
+
+
+def _outside_the_slice(d):
+    """Calls that reach the kernel path of a wrapper outside the slice."""
+    q, k, v = _qkv(d)
+    o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=META)
+    return {
+        "B1 fp32": lambda: flash_attention_fwd_fp32(q, k, v),
+        "B1 fp32 prep": lambda: kv_split_tf32(k, v),
+        "B2/B3 exact": lambda: flash_attention_bwd(q, k, v, o, lse, o, fast=False),
+        "B4": lambda: quantize_qkv(q, k, v),
+        "B4 via sage_attention_int8": lambda: sage_attention_int8(q, k, v),
+        "B6": lambda: sage_attention_int8_inference(q, k, v),
+        "B9 fast": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=True),
+        "B9 exact": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=False),
+        "B10 exact prep": lambda: tangent_prep(k, v, k, v),
+        "B15": lambda: kv4_cache.decode_attention_int4(
+            torch.empty((2, 4, d), device=META), kv4_cache.init_kv4_cache(2, 2, 256, d, META)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_outside_the_slice(128)))
+def test_wrappers_outside_the_slice_raise_at_128(name):
+    with pytest.raises(ValueError, match="B-f3"):
+        _outside_the_slice(128)[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_outside_the_slice(96)))
+def test_wrappers_raise_at_other_head_dims(name):
+    with pytest.raises(ValueError, match="head_dim"):
+        _outside_the_slice(96)[name]()
+
+
+@pytest.mark.parametrize("d", [128, 96])
+def test_slice_wrappers_check_the_head_dim_first(d):
+    """B1 bf16, fast B2/B3 and B13 pass the check at 128 and then want CUDA
+    tensors; at 96 the check refuses first."""
+    q, k, v = _qkv(d)
+    o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=META)
+    cache = kv_cache.init_kv_cache(2, 2, 256, d, META)
+    match = "CUDA" if d == 128 else "head_dim"
+    for call in (lambda: flash_attention_fwd(q, k, v),
+                 lambda: flash_attention_bwd(q, k, v, o, lse, o, fast=True),
+                 lambda: kv_cache.decode_attention(torch.empty((2, 4, d), device=META), cache)):
+        with pytest.raises(ValueError, match=match):
+            call()
+
+
+@pytest.mark.parametrize("entry,kernel", sorted(decode_launch.KERNEL_OF.items()))
+def test_decode_launch_check(entry, kernel):
+    """decode_launch's shared check lets 128 through for B13 only."""
+    decode_launch.check_kernel_rows(64, 8, 2, 2, entry)
+    if kernel == "B13":
+        decode_launch.check_kernel_rows(128, 8, 2, 2, entry)
+    else:
+        with pytest.raises(ValueError, match="B-f3"):
+            decode_launch.check_kernel_rows(128, 8, 2, 2, entry)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_launch.check_kernel_rows(96, 8, 2, 2, entry)

@@ -43,24 +43,32 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize(
-    "b,h,h_kv,t,s,causal",
-    [
-        (1, 2, 2, 128, 128, True),    # rep 1
-        (1, 4, 2, 128, 128, True),    # GQA rep 2
-        (2, 4, 1, 96, 96, True),      # GQA rep 4, ragged t
-        (1, 4, 2, 77, 201, False),    # odd cross length
-        (1, 2, 1, 77, 77, True),      # ragged causal
-    ],
-)
-def test_flash_fwd_plain_matches_jax(b, h, h_kv, t, s, causal):
+def _ids(cases):
+    """pytest's own ids for the head-dim-64 cases; the others end in -d<d>."""
+    return ["-".join(map(str, c[:-1])) + ("" if c[-1] == 64 else f"-d{c[-1]}") for c in cases]
+
+
+FWD_CASES = [  # (b, h, h_kv, t, s, causal, head_dim)
+    (1, 2, 2, 128, 128, True, 64),    # rep 1
+    (1, 4, 2, 128, 128, True, 64),    # GQA rep 2
+    (2, 4, 1, 96, 96, True, 64),      # GQA rep 4, ragged t
+    (1, 4, 2, 77, 201, False, 64),    # odd cross length
+    (1, 2, 1, 77, 77, True, 64),      # ragged causal
+    (1, 2, 2, 128, 128, True, 128),   # head dim 128: rep 1
+    (2, 4, 1, 96, 96, True, 128),     # GQA rep 4, ragged t
+    (1, 4, 2, 77, 201, False, 128),   # odd cross length
+]
+
+
+@pytest.mark.parametrize("b,h,h_kv,t,s,causal,d", FWD_CASES, ids=_ids(FWD_CASES))
+def test_flash_fwd_plain_matches_jax(b, h, h_kv, t, s, causal, d):
     rng = np.random.default_rng(1000 * t + s + h)
-    q = rng.standard_normal((b, h, t, 64), np.float32)
-    k = rng.standard_normal((b, h_kv, s, 64), np.float32)
-    v = rng.standard_normal((b, h_kv, s, 64), np.float32)
+    q = rng.standard_normal((b, h, t, d), np.float32)
+    k = rng.standard_normal((b, h_kv, s, d), np.float32)
+    v = rng.standard_normal((b, h_kv, s, d), np.float32)
     o_j, lse_j = jax_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
     o_t, lse_t = flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal)
-    assert o_t.dtype == torch.float32 and o_t.shape == (b, h, t, 64)
+    assert o_t.dtype == torch.float32 and o_t.shape == (b, h, t, d)
     assert np.abs(o_t.numpy() - np.asarray(o_j)).max() <= O_TOL
     assert np.abs(lse_t.numpy() - np.asarray(lse_j)).max() <= LSE_TOL
 
@@ -121,12 +129,16 @@ def _random_cache(rng, b, h_kv, max_len, d, lengths):
     return jc, tc
 
 
-@pytest.mark.parametrize("n_q,h_kv", [(2, 2), (4, 2), (8, 2)])
-def test_decode_plain_matches_jax(n_q, h_kv):
-    rng = np.random.default_rng(n_q)
+DECODE_CASES = [(2, 2, 64), (4, 2, 64), (8, 2, 64),
+                (4, 2, 128)]  # head dim 128 with GQA, as the JAX package's test_kv_cache.py
+
+
+@pytest.mark.parametrize("n_q,h_kv,d", DECODE_CASES, ids=_ids(DECODE_CASES))
+def test_decode_plain_matches_jax(n_q, h_kv, d):
+    rng = np.random.default_rng(n_q + d - 64)
     lengths = [0, 1, 127, 256]
-    jc, tc = _random_cache(rng, 4, h_kv, 256, 64, lengths)
-    q = rng.standard_normal((4, n_q, 64), np.float32)
+    jc, tc = _random_cache(rng, 4, h_kv, 256, d, lengths)
+    q = rng.standard_normal((4, n_q, d), np.float32)
     o_j, lse_j = jkv.decode_attention(jnp.asarray(q), jc, return_lse=True)
     o_t, lse_t = tkv.decode_attention(_t(q), tc, return_lse=True)
     assert np.abs(o_t.numpy() - np.asarray(o_j)).max() <= DECODE_TOL

@@ -286,6 +286,64 @@ def test_engine_batched_admission_and_bf16(lm):
     assert sum(d for _, _, d in streamed) == 3
 
 
+# --------------------------------------------------------------------------
+# Head dim 128: a JAX LM with 2 heads x 128 carried across unchanged, and its
+# engine's tokens against the JAX package's generate
+# --------------------------------------------------------------------------
+
+CFG128 = dict(vocab_size=64, d_model=256, n_heads=2, n_kv_heads=2, head_dim=128,
+              n_layers=2, max_seq=128)
+
+
+@pytest.fixture(scope="module")
+def lm128():
+    jcfg = jtr.TransformerConfig(**CFG128)
+    jparams = jtr.init_transformer(jax.random.key(1), jcfg)
+    return jcfg, jparams, TransformerConfig(**CFG128), params_from_jax(jparams, "cpu")
+
+
+def _leaves(params):
+    flat = [params["embed"], params["unembed"], params["final_norm"]]
+    return flat + [layer[k] for layer in params["layers"] for k in layer]
+
+
+def test_params_from_jax_carries_head_dim_128(lm128):
+    """Every leaf of a head-dim-128 JAX LM arrives with its shape and its
+    values, bit for bit, and the port's own init draws the same shapes."""
+    _, jparams, cfg, tparams = lm128
+    for t, j in zip(_leaves(tparams), _leaves(jparams)):
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j, np.float32))
+    assert tparams["layers"][0]["wq"].shape == (256, 2 * 128)
+    own = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert [tuple(x.shape) for x in _leaves(own)] == [tuple(x.shape) for x in _leaves(tparams)]
+
+
+def test_engine_head_dim_128_matches_jax_generate(lm128):
+    """Three requests on 2 slots: each request's tokens equal the JAX
+    package's generate on the same prompt, up to the first position where
+    JAX's top-2 logit gap (teacher-forced on its own tokens) is below GAP,
+    a near-tie that the two packages' rounding may flip."""
+    jcfg, jparams, cfg, tparams = lm128
+    prompts = np.random.default_rng(5).integers(1, 64, (3, 10), dtype=np.int32)
+    budget = 8
+    want = np.asarray(jtr.generate(jparams, jnp.asarray(prompts), jcfg, max_new_tokens=budget))
+    logits = np.asarray(jtr.transformer_forward(jparams, jnp.asarray(want), jcfg), np.float32)
+    eng = ServingEngine(tparams, cfg, "cpu", n_slots=2, decode_horizon=2)
+    rids = [eng.submit(p.tolist(), budget) for p in prompts]
+    results = eng.run()
+    compared = 0
+    for i, rid in enumerate(rids):
+        got, ref = results[rid].tokens, want[i, 10:].tolist()
+        for j in range(budget):
+            if got[j] != ref[j]:
+                top2 = np.sort(logits[i, 10 + j - 1])[-2:]
+                assert top2[1] - top2[0] < GAP, (i, j, got, ref)
+                break
+            compared += 1
+    assert compared >= budget * len(prompts) // 2  # not vacuous
+
+
 def test_engine_eos_stops_early(lm):
     _, _, cfg, tparams = lm
     prompt = [1, 2, 3, 4]

@@ -39,7 +39,7 @@ from quantizedattention_tpu_torch.ops import (
     flash_bwd_dkv,
     flash_bwd_dq,
 )
-from quantizedattention_tpu_torch.ops.flash_bwd import _launch_args
+from quantizedattention_tpu_torch.ops.flash_bwd import _launch_args, bwd_prep_plain
 from quantizedattention_tpu_torch.reference import reference_attention_vjp
 from quantizedattention_tpu_torch.utils.testing import mismatch_report
 
@@ -61,18 +61,23 @@ CASES = [  # (b, h, h_kv, t, s, causal): test_torch_kernels.py's forward cases
     (1, 4, 2, 77, 201, False),    # odd cross length
     (1, 2, 1, 77, 77, True),      # ragged causal
 ]
+# (b, h, h_kv, t, s, causal, head_dim): CASES at 64, and at head dim 128 rep
+# 1, GQA rep 4 with a ragged t and the odd cross length; head dims the
+# kernels do not take (96: 12 partials of 8 dims, 80: 10) on the plain path
+BWD_CASES = ([c + (64,) for c in CASES] + [c + (128,) for c in (CASES[0], CASES[2], CASES[3])]
+             + [CASES[3] + (96,), CASES[2] + (80,)])
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _inputs(b, h, h_kv, t, s):
+def _inputs(b, h, h_kv, t, s, d=64):
     rng = np.random.default_rng(1000 * t + s + h)
-    q = rng.standard_normal((b, h, t, 64), np.float32)
-    k = rng.standard_normal((b, h_kv, s, 64), np.float32)
-    v = rng.standard_normal((b, h_kv, s, 64), np.float32)
-    do = rng.standard_normal((b, h, t, 64), np.float32)
+    q = rng.standard_normal((b, h, t, d), np.float32)
+    k = rng.standard_normal((b, h_kv, s, d), np.float32)
+    v = rng.standard_normal((b, h_kv, s, d), np.float32)
+    do = rng.standard_normal((b, h, t, d), np.float32)
     return q, k, v, do
 
 
@@ -81,12 +86,12 @@ def _rel_l2(got, want):
     return np.linalg.norm(got - want) / np.linalg.norm(want)
 
 
-@pytest.fixture(scope="module", params=CASES, ids=lambda c: "b{}h{}kv{}t{}s{}{}".format(
-    *c[:5], "c" if c[5] else ""))
+@pytest.fixture(scope="module", params=BWD_CASES, ids=lambda c: "b{}h{}kv{}t{}s{}{}{}".format(
+    *c[:5], "c" if c[5] else "", "" if c[6] == 64 else f"d{c[6]}"))
 def bwd_case(request):
     """Inputs, the JAX forward's (O, lse) and the JAX backward's grads."""
-    b, h, h_kv, t, s, causal = request.param
-    q, k, v, do = _inputs(b, h, h_kv, t, s)
+    b, h, h_kv, t, s, causal, d = request.param
+    q, k, v, do = _inputs(b, h, h_kv, t, s, d)
     o, lse = jax_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
     grads = jax_flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse,
                           jnp.asarray(do), causal=causal)
@@ -112,9 +117,14 @@ def test_flash_bwd_plain_fast_matches_jax(bwd_case):
     assert (got[0] - exact[0]).abs().max() > 0
 
 
-@pytest.mark.parametrize("b,h,h_kv,t,s,causal", [CASES[1], CASES[3], CASES[4]])
-def test_autograd_matches_jax_grad(b, h, h_kv, t, s, causal):
-    q, k, v, do = _inputs(b, h, h_kv, t, s)
+AUTOGRAD_CASES = [CASES[1] + (64,), CASES[3] + (64,), CASES[4] + (64,), CASES[1] + (128,)]
+
+
+@pytest.mark.parametrize("b,h,h_kv,t,s,causal,d", AUTOGRAD_CASES,
+                         ids=["-".join(map(str, c[:6])) + ("" if c[6] == 64 else f"-d{c[6]}")
+                              for c in AUTOGRAD_CASES])
+def test_autograd_matches_jax_grad(b, h, h_kv, t, s, causal, d):
+    q, k, v, do = _inputs(b, h, h_kv, t, s, d)
 
     def jax_loss(q_, k_, v_):
         return jnp.sum(jax_flash_bf16(q_, k_, v_, causal=causal, bwd_exact=True) * do)
@@ -205,6 +215,23 @@ def test_bwd_operands_layout_and_rounding():
     torch.testing.assert_close(fast.di, exact.di)
 
 
+@pytest.mark.parametrize("d", [24, 64, 80, 96, 128])
+def test_bwd_prep_plain_row_term_matches_float64(d):
+    """The fast prep's D (summed in the kernel's order, padded where d is
+    not 8 times a power of two) against a float64 rowsum, within the
+    worst-case bound of an f32 sum of d terms: d * 2^-24 * rowsum |terms|."""
+    q, _, _, do = _inputs(2, 3, 3, 37, 37, d)
+    o = np.random.default_rng(d).standard_normal(q.shape, np.float32)
+    lse = np.zeros(q.shape[:3], np.float32)
+    sm_scale = d ** -0.5
+    di = bwd_prep_plain(_t(q), _t(o), _t(do), _t(lse), 1.0, sm_scale)[3]
+    terms = (do.astype(np.float64) * np.float32(sm_scale)).astype(np.float32).astype(
+        np.float64) * o
+    assert di.dtype == torch.float32 and di.shape == q.shape[:3]
+    err = np.abs(di.numpy() - terms.sum(-1))
+    assert (err <= d * 2.0 ** -24 * np.abs(terms).sum(-1)).all()
+
+
 def test_noncontiguous_v_and_do_are_accepted():
     """The model hands in a transposed-view v and gets a non-contiguous dO back."""
     q, k, v, do = (_t(x) for x in _inputs(1, 4, 2, 48, 48))
@@ -279,6 +306,9 @@ def test_exact_bwd_one_token_matches_float64(seed):
 
 LM_CFG = dict(vocab_size=64, d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
               n_layers=2, max_seq=128)
+# a head-dim-128 LM at the same depth: 2 heads x 128
+LM128_CFG = dict(vocab_size=64, d_model=256, n_heads=2, n_kv_heads=2, head_dim=128,
+                 n_layers=2, max_seq=128)
 # The loss is a mean of O(4) cross entropies; both sides run the same bf16
 # forward rounding and the backward in fast mode, the JAX side in f32 on the
 # CPU: the loss agrees to ~1e-6 relative, each param's gradient to ~1e-2
@@ -296,14 +326,16 @@ UPDATE_REL_L2 = 0.1
 FAR, FAR_SHARE = 1e-4, 1e-2
 
 
-@pytest.fixture(scope="module")
-def lm():
-    jcfg = jtr.TransformerConfig(**LM_CFG)
+@pytest.fixture(scope="module", params=[LM_CFG, LM128_CFG],
+                ids=lambda c: f"d{c['head_dim']}")
+def lm(request):
+    cfg = request.param
+    jcfg = jtr.TransformerConfig(**cfg)
     jparams = jtr.init_transformer(jax.random.key(0), jcfg)
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, LM_CFG["vocab_size"], (2, 128)).astype(np.int32)
+    tokens = rng.integers(0, cfg["vocab_size"], (2, 128)).astype(np.int32)
     targets = np.roll(tokens, -1, axis=1)
-    return jcfg, jparams, TransformerConfig(**LM_CFG), tokens, targets
+    return jcfg, jparams, TransformerConfig(**cfg), tokens, targets
 
 
 def _flat_jax(tree):
