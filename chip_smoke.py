@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py pipeline   # phases 1, 2 and 29 alone (e.g. on four cards)
     python3 chip_smoke.py head128    # phases 1, 2 and 30 alone
+    python3 chip_smoke.py sp_model   # the SP cost model's constants (four cards)
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
@@ -250,12 +251,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      enable_gqa; the dense-mask time beside it). Then
      make_sharded_train_step at TRAIN_CFG's full width on 4 ranks (RankPool,
      as phase 26; models/sharded_jobs.py): ring (bf16 3 steps, int8 2),
-     all-gather, zigzag (bf16, int8) on (data 1, model 2, context 2) and
-     Ulysses (bf16, int8) on (2, 1, 2). Every rank's first loss equals rank
+     all-gather, zigzag (bf16, int8) on (data 1, model 2, context 2),
+     Ulysses (bf16, int8) on (2, 1, 2), and the default attention_sp="auto"
+     (bf16, int8) on (1, 2, 2), which must pick and run the resolver's
+     strategy for that mesh (models/sharded_train.py:resolve_attention_sp,
+     under parallel/scaling_model.py's H100 constants) with the named run's
+     launches a step. Every rank's first loss equals rank
      0's, every kernel of the path launches, and each run's first loss and
      gradients hold against the one-device make_train_step of its attention
      kind (bf16: SP_LOSS_REL, SP_GRAD_REL_L2; int8: SP_INT8_LOSS_REL,
-     SP_INT8_GRAD_REL_L2); a witness reads the one-device gradient from the
+     SP_INT8_GRAD_REL_L2 of the strategy run); a witness reads the one-device gradient from the
      batch in two halves against the whole batch's; step times, and one
      profiled ring step's device busy share on rank 0. Then the training half of the JAX dryrun_multichip
      (sharded_jobs.dryrun_training) must give finite losses. B5, B7 and B8
@@ -313,6 +318,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      ServingEngine at SERVE128_CFG (16 q / 4 kv heads x 128, max_seq 1280,
      phase 5's traffic; f32 params: tokens equal `generate`'s; bf16:
      tokens/s; B1 4 launches, B13 as counted).
+`python3 chip_smoke.py sp_model` (four cards, NCCL; refused on fewer) runs
+phases 1 and 2, then measures parallel/scaling_model.py's constants:
+`nvidia-smi topo -m` and `nvlink --status` (printed, whatever they exit
+with) and peer access; the kernels' rates at (4, 16, 4096, 64) causal by
+utils/profiling.py (bf16: B1; prep + B2 + B3; int8: B4 + B5; B7 + B8); the
+port's hop, all_gather, psum_scatter and all_to_all at a K/V shard pair and
+at 1 KB (models/sharded_jobs.py:link_bench); the steady step of each
+strategy at TRAIN_CFG on (1, 1, 4), max_seq 2048 and 8192, bf16 and int8 (2
+warm-up and 5 timed steps, CUDA events on rank 0, one torch.profiler step
+on the last rank: attention and NCCL kernels' device time and their
+overlap); then the model under those constants beside the card.
 Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
@@ -3874,6 +3890,9 @@ SP_RUNS = [  # (label, mesh shape, attention, attention_sp, steps)
     ("ulysses", SP_ULYSSES_SHAPE, "bf16", "ulysses", 1),
     ("ulysses_int8", SP_ULYSSES_SHAPE, "int8", "ulysses", 1),
     ("allgather_int8", SP_SHAPE, "int8", "allgather", 1),
+    # the default: the strategy parallel/scaling_model.py predicts fastest
+    ("auto", SP_SHAPE, "bf16", "auto", 1),
+    ("auto_int8", SP_SHAPE, "int8", "auto", 1),
 ]
 # the sharded step's first loss and gradients against the one-device
 # make_train_step of the same attention kind on the same batch and params.
@@ -4288,6 +4307,27 @@ def _split_batch_witness(params, tokens, targets, cfg, ref: dict, dev) -> None:
         f"{'the same bits as' if kernels_equal else 'other bits than'} at the whole batch")
 
 
+def _check_auto(label, outs, cfg, shape, attention, count, per_step) -> str:
+    """An attention_sp="auto" run of phase 27: every rank picked and ran the
+    resolver's strategy for this mesh (resolve_attention_sp), and its
+    launches a step equal the run that named that strategy on the same mesh,
+    where SP_RUNS has one. Returns the strategy."""
+    from quantizedattention_tpu_torch.models.sharded_train import resolve_attention_sp
+
+    want = resolve_attention_sp(cfg, shape[1], shape[2], attention)
+    got = {(o["attention_sp"], *o["ran"]) for o in outs}
+    named = per_step.get((shape, attention, want))
+    steps = len(outs[0]["ran"])
+    log(f"[sp] {label}: the resolver's pick at mesh {shape} ({attention}) is {want!r}; the "
+        f"ranks picked and ran {sorted(got)}; launches a step {count}"
+        + (f", the named {want!r} run's {named}" if named else ""))
+    if got != {(want,) + (want,) * steps}:
+        raise AssertionError(f"[sp] {label}: the step ran {got}, not the resolver's {want!r}")
+    if named is not None and {k: n / steps for k, n in count.items()} != named:
+        raise AssertionError(f"[sp] {label}: launches a step differ from the named {want!r} run")
+    return want
+
+
 def phase_sp_training(dev, smi) -> tuple[dict, object]:
     """Phase 27: B1-B3 with the global offsets at the SP shard shapes (card
     0), then make_sharded_train_step at TRAIN_CFG's full width (f32 params,
@@ -4333,7 +4373,7 @@ def phase_sp_training(dev, smi) -> tuple[dict, object]:
         f"{TRAIN_BATCH} x {cfg.max_seq} tokens): {SP_RANKS} ranks "
         + (f"sharing {min(cards, SP_RANKS)} card(s) over gloo (CUDA tensors)" if sharing else
            "one a card over NCCL") + f"; {pool.backend} chosen from {cards} visible card(s)")
-    launches = {}
+    launches, per_step = {}, {}
     try:
         for label, shape, attention, sp, steps in SP_RUNS:
             outs = pool.run(sharded_jobs.train, cfg, shape, None, tokens, targets, steps,
@@ -4348,6 +4388,10 @@ def phase_sp_training(dev, smi) -> tuple[dict, object]:
             missing = [k for k in SP_PATH_KERNELS[attention] if not count.get(k)]
             if missing:
                 raise AssertionError(f"[sp] {label}: the run launched {count}, none of {missing}")
+            if sp == "auto":
+                sp = _check_auto(label, outs, cfg, shape, attention, count, per_step)
+            else:
+                per_step[shape, attention, sp] = {k: n / steps for k, n in count.items()}
             step_ms = outs[0]["step_ms"]
             note = "ranks share one card: not a scaling number" if sharing else "4 cards"
             log(f"[sp] {label} ({attention}, attention_sp={sp!r}, mesh {shape}) on {smi}: losses "
@@ -5074,6 +5118,221 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+# --------------------------------------------------------------------------
+# The SP cost model's constants on four cards (`python3 chip_smoke.py sp_model`)
+# --------------------------------------------------------------------------
+
+# context 4 over the ranks: TRAIN_CFG's 16 heads divide it, so every strategy
+# runs (Ulysses, and zigzag's 2 x 4 chunks of 256 and 1024 tokens); max_seq
+# 2048 and 8192 (t_local 512 and 2048) on both sides of the ring/all-gather
+# crossover the model predicts
+SP_MODEL_SHAPE, SP_MODEL_SEQS = (1, 1, SP_RANKS), (2048, 8192)
+SP_MODEL_WARMUP, SP_MODEL_STEPS = 2, 5
+# the JAX module's rate anchor: (b, h, t, d), causal
+SP_MODEL_ANCHOR = (4, 16, 4096, 64)
+
+
+def _sp_model_rates(dev) -> dict:
+    """The kernels' rates at SP_MODEL_ANCHOR, as the JAX module's
+    MEASURED_RATES are taken: attention_flops over the time of a forward
+    (bf16: B1, `flash_attention_bf16`; int8: `sage_attention_int8`, its K
+    mean, B4 and B5) and of a backward (bf16: the fast
+    `flash_attention_bwd`, its prep, B2 and B3; int8: B7 + B8), the
+    backward's rate as 2.5 x the forward's FLOPs over its time. q and dO in
+    f32 as the model hands them, K and V in bf16 as they ride the ring
+    (f32 for int8, which quantizes them). CUDA-graph replays
+    (utils/profiling.py)."""
+    from quantizedattention_tpu_torch.parallel.scaling_model import _BWD_FLOPS_FACTOR
+    from quantizedattention_tpu_torch.utils.profiling import (attention_flops, graph_seconds,
+                                                              time_attention)
+
+    b, h, t, d = SP_MODEL_ANCHOR
+    g = torch.Generator(device=dev).manual_seed(24)
+    q, k, v, do = (torch.randn((b, h, t, d), generator=g, device=dev) for _ in range(4))
+    k16, v16 = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    flops = attention_flops(b, h, t, t, d, True)
+    with torch.no_grad():
+        fwd = {"bf16": time_attention(lambda q, k, v: flash_attention_bf16(q, k, v, causal=True),
+                                      q, k16, v16, True, "bf16"),
+               "int8": time_attention(lambda q, k, v: sage_attention_int8(q, k, v, causal=True),
+                                      q, k, v, True, "int8")}
+        o, lse = flash_attention_fwd(q, k16, v16, causal=True)
+        bwd = {"bf16": graph_seconds(
+            lambda *x: flash_attention_bwd(*x, causal=True, fast=True), q, k16, v16, o, lse, do)}
+        k_mean = k.mean(dim=-2, keepdim=True)
+        res = quantize_qkv(q, k, v, k_sub=k_mean)
+        dims = (b, h, t, t, d)
+        o8, lse8 = int8_attention_fwd_from_quantized(res, dims, causal=True)
+        ops = int8_bwd_operands(res, k_mean, o8, lse8, do, dims, causal=True)
+        bwd["int8"] = graph_seconds(lambda x: (int8_bwd_dkv(ops), int8_bwd_dq(ops)), ops.do)
+    rates = {}
+    for kind in ("bf16", "int8"):
+        rates[kind, "fwd"] = flops / fwd[kind].seconds
+        rates[kind, "bwd"] = _BWD_FLOPS_FACTOR * flops / bwd[kind]
+        log(f"[sp_model] {kind} at {SP_MODEL_ANCHOR} causal: forward {fwd[kind]} -> "
+            f"{rates[kind, 'fwd']:.4e} FLOP/s; backward {bwd[kind] * 1e3:.4f} ms -> "
+            f"{rates[kind, 'bwd']:.4e} FLOP/s (2.5 x {flops:.4e} FLOPs)")
+    del q, k, v, do, k16, v16, o, lse, res, o8, lse8, ops
+    torch.cuda.empty_cache()
+    return rates
+
+
+def _sp_model_link(pool) -> tuple[dict, dict]:
+    """models/sharded_jobs.py:link_bench on the pool (a K/V shard pair of
+    TRAIN_CFG at each SP_MODEL_SEQS length, and 1 KB). Returns (its rows,
+    the model's link constants: the hop's bytes a second on the longest
+    shard, the hop's time at 1 KB, the mean of the blocking collectives'
+    times at 1 KB)."""
+    from quantizedattention_tpu_torch.models import sharded_jobs
+
+    shards = [(TRAIN_BATCH, TRAIN_CFG.n_kv_heads, seq // SP_RANKS, TRAIN_CFG.head_dim)
+              for seq in SP_MODEL_SEQS]
+    link = pool.run(sharded_jobs.link_bench, shards)[0]
+    for key, r in link.items():
+        log(f"[sp_model] link {key}: {r['ms'] * 1e3:.2f} us a call, payload "
+            f"{r['payload_bytes']} B, {r['bytes']:.0f} B sent a device, "
+            f"{r['bytes_per_s']:.4e} B/s")
+    consts = {"link_bytes_per_s": link[f"hop_t{shards[-1][2]}"]["bytes_per_s"],
+              "hop_latency_s": link["hop_latency"]["ms"] / 1e3,
+              "collective_latency_s": statistics.mean(
+                  link[f"{op}_latency"]["ms"] for op in ("all_gather", "psum_scatter",
+                                                         "all_to_all")) / 1e3}
+    return link, consts
+
+
+def _sp_model_steps(pool, smi) -> dict:
+    """The steady step (models/sharded_jobs.py:steady_train) of every
+    strategy at TRAIN_CFG on SP_MODEL_SHAPE, at each SP_MODEL_SEQS length,
+    bf16 and int8. Returns {(seq, kind): {strategy: rank 0's result}}."""
+    from quantizedattention_tpu_torch.models import sharded_jobs
+    from quantizedattention_tpu_torch.models.sharded_train import STRATEGIES
+
+    out = {}
+    for seq in SP_MODEL_SEQS:
+        rng = np.random.default_rng(seq)
+        tokens = torch.from_numpy(rng.integers(0, TRAIN_CFG.vocab_size, (TRAIN_BATCH, seq)))
+        targets = torch.roll(tokens, -1, dims=1)
+        for kind in ("bf16", "int8"):
+            cfg = dataclasses.replace(TRAIN_CFG, max_seq=seq, attention=kind)
+            for sp in STRATEGIES:
+                outs = pool.run(sharded_jobs.steady_train, cfg, SP_MODEL_SHAPE, tokens,
+                                targets, kind, sp, SP_MODEL_WARMUP, SP_MODEL_STEPS, "cuda")
+                r = {**outs[0], "profile": outs[-1]["profile"]}
+                if set(r["ran"]) != {sp} or not np.isfinite(r["losses"]).all():
+                    raise AssertionError(f"[sp_model] {sp} {kind} at {seq}: ran {r['ran']}, "
+                                         f"losses {r['losses']}")
+                p = r["profile"]
+                log(f"[sp_model] {sp} {kind}, max_seq {seq}, mesh {SP_MODEL_SHAPE} on {smi} "
+                    f"({r['backend']}): steps (rank 0, CUDA events) "
+                    f"{[round(x, 3) for x in r['step_ms']]} ms, median {r['median_ms']:.3f}; "
+                    f"one profiled step on the last rank: wall {p['wall_ms']:.2f}, device "
+                    f"{p['device_ms']:.2f} "
+                    f"ms (busy {p['busy_share']:.1%}); attention kernels "
+                    f"{p['attention_ms']:.3f} ms, NCCL kernels {p['nccl_ms']:.3f} ms, of which "
+                    f"{p['nccl_under_attention_ms']:.3f} ms under an attention kernel; top "
+                    f"{[(n, round(ms, 3), c) for n, ms, c in p['top_device'][:5]]}")
+                out[seq, kind, sp] = r
+    return out
+
+
+def _sp_model_report(rates, consts, steps) -> list:
+    """The model under the measured constants against the card at each
+    (max_seq, kind): each strategy's predicted attention time a step
+    (predict_step x n_layers) beside its measured median step and attention
+    kernels' device time, the differences from the ring on both sides, the
+    model's pick (best_sp_variant on auto_sp_arguments) and the measured
+    fastest. Reported, not gated: a step is mostly fp32 GEMMs, so the
+    strategies' differences in step time are what the model's differences
+    in attention time should predict."""
+    from quantizedattention_tpu_torch.models.sharded_train import STRATEGIES, auto_sp_arguments
+    from quantizedattention_tpu_torch.parallel.scaling_model import (SPWorkload,
+                                                                     best_sp_variant,
+                                                                     predict_step)
+
+    points = []
+    for seq in SP_MODEL_SEQS:
+        for kind in ("bf16", "int8"):
+            cfg = dataclasses.replace(TRAIN_CFG, max_seq=seq, attention=kind)
+            args = auto_sp_arguments(cfg, SP_MODEL_SHAPE[1], SP_MODEL_SHAPE[2], kind)
+            w = SPWorkload(b=TRAIN_BATCH, h=args["h"], h_kv=args["h_kv"], t_local=seq // SP_RANKS,
+                           d=args["d"], n=args["n"], kind=kind)
+            rows = {}
+            for sp in STRATEGIES:
+                pred = predict_step(w, sp, rates=rates, **consts)
+                r = steps[seq, kind, sp]
+                rows[sp] = {"model_ms": pred.t_step_s * cfg.n_layers * 1e3,
+                            "model_comp_ms": pred.t_comp_s * cfg.n_layers * 1e3,
+                            "model_comm_ms": pred.t_comm_s * cfg.n_layers * 1e3,
+                            "step_ms": r["median_ms"],
+                            "attention_ms": r["profile"]["attention_ms"],
+                            "nccl_ms": r["profile"]["nccl_ms"],
+                            "nccl_under_attention_ms": r["profile"]["nccl_under_attention_ms"]}
+            pick = best_sp_variant(**args, rates=rates, **consts)
+            fastest = min(rows, key=lambda sp: rows[sp]["step_ms"])
+            for sp, row in rows.items():
+                row["model_vs_ring_ms"] = row["model_ms"] - rows["ring"]["model_ms"]
+                row["step_vs_ring_ms"] = row["step_ms"] - rows["ring"]["step_ms"]
+                log(f"[sp_model] max_seq {seq} {kind} {sp:9s}: model {row['model_ms']:8.3f} ms "
+                    f"of attention a step (compute {row['model_comp_ms']:.3f}, link "
+                    f"{row['model_comm_ms']:.3f}; {row['model_vs_ring_ms']:+.3f} vs the ring) | "
+                    f"card: step {row['step_ms']:8.3f} ms ({row['step_vs_ring_ms']:+.3f} vs the "
+                    f"ring), attention kernels {row['attention_ms']:.3f} ms, NCCL "
+                    f"{row['nccl_ms']:.3f} ms ({row['nccl_under_attention_ms']:.3f} under "
+                    f"attention)")
+            gap = rows[pick]["step_ms"] - rows[fastest]["step_ms"]
+            log(f"[sp_model] max_seq {seq} {kind}: the model picks {pick!r}, the card's fastest "
+                f"is {fastest!r}; the pick's step is {gap:.3f} ms slower than the fastest's")
+            points.append({"max_seq": seq, "kind": kind, "pick": pick, "fastest": fastest,
+                           "pick_minus_fastest_ms": gap, "strategies": rows})
+    return points
+
+
+def main_sp_model() -> None:
+    """`python3 chip_smoke.py sp_model`: phases 1 and 2, then the SP cost
+    model's constants on four cards, one rank a card over NCCL (refused on
+    fewer: ranks sharing a card over gloo time the host, not the links):
+    `nvidia-smi topo -m`, `nvlink --status` and peer access; the kernels'
+    rates at the JAX module's anchor; the port's hop and collectives
+    (link_bench); the steady step of every
+    strategy at TRAIN_CFG on (1, 1, 4), max_seq 2048 and 8192, bf16 and
+    int8, with one profiled step each; then the model under the measured
+    constants against the card. The last line but one holds the constants,
+    the link rows and every point."""
+    from quantizedattention_tpu_torch.parallel.launch import RankPool
+
+    name, smi = phase_device()
+    cards = torch.cuda.device_count()
+    if cards < SP_RANKS:
+        sys.exit(f"chip_smoke sp_model: needs {SP_RANKS} visible cards (one rank a card over "
+                 f"NCCL); {cards} visible, and ranks sharing a card time the host, not links")
+    phase_build()
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "--status"]):
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        log(f"[sp_model] {' '.join(cmd)} (exit {r.returncode}):\n{r.stdout}{r.stderr}")
+    peers = [[int(i == j or torch.cuda.can_device_access_peer(i, j)) for j in range(cards)]
+             for i in range(cards)]
+    log(f"[sp_model] peer access (torch.cuda.can_device_access_peer), card by card: {peers}")
+    rates = _sp_model_rates(torch.device("cuda", 0))
+    pool = RankPool(SP_RANKS, "cuda", timeout_s=900)
+    try:
+        if pool.backend != "nccl":
+            raise AssertionError(f"[sp_model] the ranks run {pool.backend}, not NCCL")
+        link, consts = _sp_model_link(pool)
+        steps = _sp_model_steps(pool, smi)
+    finally:
+        pool.close()
+    log(f"[sp_model] constants on {smi}: LINK_BYTES_PER_S {consts['link_bytes_per_s']:.4e}, "
+        f"HOP_LATENCY_S {consts['hop_latency_s']:.4e}, COLLECTIVE_LATENCY_S "
+        f"{consts['collective_latency_s']:.4e}, MEASURED_RATES "
+        f"{ {f'{k[0]},{k[1]}': float(f'{r:.4e}') for k, r in rates.items()} }")
+    points = _sp_model_report(rates, consts, steps)
+    print(json.dumps({"sp_model": {"card": smi, "constants": consts,
+                                   "rates": {f"{k[0]},{k[1]}": r for k, r in rates.items()},
+                                   "link": link, "points": points}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 HEAD128_ROWS = {  # phase 30's kernels: source and the TPU kernel each replaces
     "flash_fwd": ("flash_fwd.cu", "quantizedattention_tpu/ops/flash_fwd.py:47"),
     "flash_bwd_dkv": ("flash_bwd.cu", "quantizedattention_tpu/ops/flash_bwd.py:66"),
@@ -5124,7 +5383,10 @@ if __name__ == "__main__":
         main_pipeline()
     elif sys.argv[1:] == ["head128"]:
         main_head128()
+    elif sys.argv[1:] == ["sp_model"]:
+        main_sp_model()
     elif sys.argv[1:]:
-        sys.exit(f"usage: python3 chip_smoke.py [pipeline | head128]; got {sys.argv[1:]}")
+        sys.exit(f"usage: python3 chip_smoke.py [pipeline | head128 | sp_model]; "
+                 f"got {sys.argv[1:]}")
     else:
         main()

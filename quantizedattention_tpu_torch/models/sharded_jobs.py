@@ -19,6 +19,7 @@ the card unless given device_type="cpu".
 from __future__ import annotations
 
 import hashlib
+import statistics
 import time
 
 import torch
@@ -56,8 +57,11 @@ from quantizedattention_tpu_torch.parallel.collective import (
 )
 from quantizedattention_tpu_torch.parallel.mesh import (
     all_gather,
+    all_to_all,
     axis_size,
     make_pipeline_mesh,
+    ppermute_start,
+    psum_scatter,
     shard_tensor,
 )
 from quantizedattention_tpu_torch.parallel.ring import ring_attention_jvp
@@ -82,6 +86,10 @@ TRAIN_KERNELS = {
     "jvp_bwd_dkv": jvp_bwd_dkv, "jvp_bwd_dq": jvp_bwd_dq, "jvp_bwd_prep": jvp_bwd_prep,
 }
 BLOCK = ("data", "model", "context", None)  # q, k, v, dO: batch, heads, tokens
+# the device functions of the SP steps' attention (B1-B3 and the fast
+# backward's prep; B4, B5, B7, B8), by the names the profiler gives them
+ATTENTION_KERNELS = ("flash_fwd_kernel", "dkv_kernel_bf16", "dq_kernel_bf16", "bwd_prep_kernel",
+                     "quant_int8_kernel", "int8_attn_kernel", "int8_dkv_kernel", "int8_dq_kernel")
 
 
 def launch_counts() -> dict:
@@ -227,14 +235,16 @@ def _full_grads(params, cfg: TransformerConfig, m) -> dict | None:
 
 
 def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1,
-          attention: str = "bf16", attention_sp: str = "ring", device_type: str = "cuda",
+          attention: str = "bf16", attention_sp: str = "auto", device_type: str = "cuda",
           grads: bool = True, profile: bool = False, resume_dir: str | None = None) -> dict:
     """`steps` steps of make_sharded_train_step on this rank's shards of the
     full `params` (None: init_transformer's from seed 0 on the CPU, the same
     on every rank) and its (data, context) block of the full tokens/targets
     [B, T]. Returns the losses, the step times (ms, each synchronised; the
     first includes the first call's set-up), this rank's kernel launches
-    over the steps (the counts set to 0 just before them), with `grads` the
+    over the steps (the counts set to 0 just before them), the step's
+    strategy (`attention_sp`: "auto"'s pick) and the one each step ran
+    (`ran`: the ring where a step's length does not shard), with `grads` the
     first step's gradients (rank 0: whole tensors by name; others None), and
     with `profile` one more step under torch.profiler on rank 0 (wall, device
     time, its busy share and the top device kernels). With `resume_dir` (and
@@ -257,7 +267,7 @@ def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1
         return local, _flat(local), opt, step
 
     local, named, opt, step = build(params)
-    losses, times, first, snap = [], [], None, None
+    losses, times, ran, first, snap = [], [], [], None, None
     _sync(dev)
     reset_counts()
     for i in range(steps):
@@ -265,13 +275,15 @@ def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1
         losses.append(step(tok, tgt))
         _sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
+        ran.append(step.last_attention_sp)
         if i == 0 and grads:
             first = _full_grads(local, cfg, m)
         if i == 0 and resume_dir is not None:
             save_checkpoint(resume_dir, train_state(named, opt, m, specs))
             snap = _snapshot(named, opt)
     out = {"losses": [float(x) for x in losses], "step_ms": times, "launches": launch_counts(),
-           "grads": first, "backend": dist.get_backend()}
+           "grads": first, "backend": dist.get_backend(), "attention_sp": step.attention_sp,
+           "ran": ran}
     if profile:
         out["profile"] = _profile_step(step, tok, tgt, dev)
     if resume_dir is not None:
@@ -279,6 +291,101 @@ def train(cfg: TransformerConfig, shape, params, tokens, targets, steps: int = 1
         _, named2, opt2, step2 = build(fresh)
         out.update(_resume(resume_dir, snap, named2, opt2, step2, tok, tgt, m, specs))
     return out
+
+
+def _elapsed_ms(dev, fn, calls: int = 1) -> float:
+    """ms per call of `calls` calls of fn(): CUDA events around them on the
+    card (then a synchronise), the host clock on the CPU."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / calls
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / calls
+
+
+def steady_train(cfg: TransformerConfig, shape, tokens, targets, attention: str,
+                 attention_sp: str, warmup: int, steps: int,
+                 device_type: str = "cuda") -> dict | None:
+    """The steady step of make_sharded_train_step on init_transformer's
+    params (seed 0) and this rank's block of the full tokens/targets: `warmup`
+    steps, a barrier, then `steps` steps each timed on rank 0 by CUDA events
+    around it (host clock on the CPU), then one step under torch.profiler on
+    the last rank, the last context shard: the contiguous ring's and the
+    all-gather's busiest (`_profile_step`). Rank 0 returns the step times,
+    their median, the losses, the strategy picked and the ones the steps
+    ran; the last rank {"profile": ...}; the others None."""
+    m = mesh(shape, device_type)
+    dev = local_device(device_type)
+    params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    local = _to(shard_params(params, cfg, m), dev)
+    del params
+    tok = shard_tensor(tokens, ("data", "context"), m).to(dev)
+    tgt = shard_tensor(targets, ("data", "context"), m).to(dev)
+    _, step = make_sharded_train_step(m, cfg, local, attention=attention,
+                                      attention_sp=attention_sp)
+    losses, ran = [], []
+    for _ in range(warmup):
+        losses.append(step(tok, tgt))
+    _sync(dev)
+    dist.barrier()
+    times = []
+    for _ in range(steps):
+        times.append(_elapsed_ms(dev, lambda: losses.append(step(tok, tgt))))
+        ran.append(step.last_attention_sp)
+    last = dist.get_world_size() - 1
+    prof = _profile_step(step, tok, tgt, dev, rank=last)
+    if dist.get_rank() == last:
+        return {"profile": prof}
+    if dist.get_rank() != 0:
+        return None
+    return {"step_ms": times, "median_ms": statistics.median(times),
+            "losses": [float(x) for x in losses], "attention_sp": step.attention_sp,
+            "ran": ran, "backend": dist.get_backend()}
+
+
+def link_bench(shards, calls: int = 20, reps: int = 5, device_type: str = "cuda") -> dict | None:
+    """The port's collectives over the context axis of a (1, 1, world) mesh:
+    the ring's hop (`ppermute_start(...).wait()` of a K and a V shard, one
+    batch_isend_irecv), `all_gather`, `psum_scatter` and `all_to_all`, each
+    on the payload of a K/V pair of each shard (b, h_kv, t_local, d) of
+    `shards` in bf16 (labelled "t{t_local}") and on 1 KB of bf16
+    ("latency"). Every rank runs `reps` spans of `calls` calls after a
+    barrier; rank 0 returns, per "{op}_{label}", the median ms a call (CUDA
+    events) and the bytes a device sends a call (hop: the pair; all_gather
+    and psum_scatter, as a ring moves them: (n - 1) / n of the gathered or
+    the summed tensor; all_to_all: (n - 1) / n of its input), the others
+    None."""
+    n = dist.get_world_size()
+    m = mesh((1, 1, n), device_type)
+    dev = local_device(device_type)
+    g = torch.Generator(device=dev).manual_seed(dist.get_rank())
+    out = {}
+    payloads = [(f"t{s[2]}", 2 * int(torch.Size(s).numel())) for s in shards]
+    for label, numel in payloads + [("latency", 512)]:
+        x = torch.randn((n, numel // n), generator=g, device=dev).to(torch.bfloat16)
+        k, v = x.reshape(-1).chunk(2)
+        pair = x.numel() * x.element_size()
+        ops = {
+            "hop": (lambda: ppermute_start([k, v], m, "context").wait(), pair),
+            "all_gather": (lambda: all_gather(x, m, "context", 0), (n - 1) * pair),
+            "psum_scatter": (lambda: psum_scatter(x, m, "context", 0), (n - 1) * pair / n),
+            "all_to_all": (lambda: all_to_all(x, m, "context", 0, 0), (n - 1) * pair / n),
+        }
+        for op, (fn, sent) in ops.items():
+            fn()
+            _sync(dev)
+            dist.barrier()
+            ms = statistics.median(_elapsed_ms(dev, fn, calls) for _ in range(reps))
+            out[f"{op}_{label}"] = {"ms": ms, "bytes": sent, "payload_bytes": pair,
+                                    "bytes_per_s": sent / (ms / 1e3)}
+    return out if dist.get_rank() == 0 else None
 
 
 def _snapshot(named: dict, optimizer) -> dict:
@@ -316,15 +423,16 @@ def _to(tree, dev):
     return tree.to(dev, copy=True)
 
 
-def _profile_step(step, tok, tgt, dev) -> dict | None:
-    """One step with torch.profiler on rank 0 (every rank runs it, after a
+def _profile_step(step, tok, tgt, dev, rank: int = 0) -> dict | None:
+    """One step with torch.profiler on `rank` (every rank runs it, after a
     barrier): its wall time, the device time summed over kernels, their
-    share of the wall and the top device events."""
+    share of the wall, the device time covered by the attention kernels, by
+    NCCL's and by both at once (a hop running under a kernel), and the top
+    device events. The other ranks return None."""
     from torch.profiler import ProfilerActivity, profile
 
-    rank0 = dist.get_rank() == 0
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    if not rank0:
+    if dist.get_rank() != rank:
         dist.barrier()
         step(tok, tgt)
         _sync(dev)
@@ -338,9 +446,39 @@ def _profile_step(step, tok, tgt, dev) -> dict | None:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
               and not getattr(e, "is_user_annotation", False)]
     device = sum(e.self_device_time_total for e in events) / 1e3
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+    attn = [(a, b) for name, a, b in spans if any(k in name for k in ATTENTION_KERNELS)]
+    nccl = [(a, b) for name, a, b in spans if "nccl" in name.lower()]
     return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
+            "attention_ms": _covered(attn) / 1e3, "nccl_ms": _covered(nccl) / 1e3,
+            "nccl_under_attention_ms": _covered(attn, nccl) / 1e3,
             "top_device": sorted(((e.key[:60], e.self_device_time_total / 1e3, e.count)
                                   for e in events), key=lambda x: -x[1])[:8]}
+
+
+def _union(spans) -> list:
+    """The spans (start, end) merged where they touch or overlap, in order."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(spans, other=None) -> float:
+    """The time covered by `spans` (the union of their (start, end)), or,
+    with `other`, the time covered by both a span of each."""
+    u = _union(spans)
+    if other is None:
+        return float(sum(b - a for a, b in u))
+    total, v = 0.0, _union(other)
+    for a, b in u:
+        for c, d in v:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
 
 
 _PIPE_MESHES: dict = {}
@@ -415,8 +553,8 @@ def dryrun_training(device_type: str = "cuda") -> dict:
     """The training half of the JAX package's dryrun_multichip
     (__graft_entry__.py:48-135) on the pool's ranks, at its own shapes: the
     mesh from its `_factor_mesh` (4 ranks: data 1, model 2, context 2); a
-    bf16 step with attention_sp="ring" (the dryrun takes the default "auto",
-    which the port does not have), the int8 + GQA step on the ring, a Ulysses
+    bf16 step and the int8 + GQA step with the default attention_sp="auto",
+    as the dryrun's (`make_sharded_train_step(mesh, cfg)`), a Ulysses
     step on (data x model, 1, context), a zigzag step, an all-gather step
     and the int8 all-gather step (of the JAX package's strategies, the one
     that also quantizes); then the rCM half (__graft_entry__.py:226-240):
@@ -448,11 +586,11 @@ def dryrun_training(device_type: str = "cuda") -> dict:
         return train(c, shape, params, toks, tgts, 1, attention, sp, device_type,
                      grads=False)["losses"][0]
 
-    out["ring"] = loss(cfg, "ring")
+    out["auto"] = loss(cfg, "auto")
     gcfg = TransformerConfig(vocab_size=128, d_model=128, n_heads=2 * max(2, model),
                              n_kv_heads=max(2, model), head_dim=64, n_layers=1, max_seq=seq,
                              attention="int8")
-    out["int8_gqa_ring"] = loss(gcfg, "ring", "int8", seed=4)
+    out["int8_gqa_auto"] = loss(gcfg, "auto", "int8", seed=4)
     if context > 1:
         ucfg = TransformerConfig(vocab_size=128, d_model=128, n_heads=context,
                                  n_kv_heads=context, head_dim=64, n_layers=1, max_seq=seq)

@@ -51,12 +51,14 @@ from quantizedattention_tpu_torch.parallel.mesh import (
     psum,
     shard_tensor,
 )
+from quantizedattention_tpu_torch.parallel.scaling_model import best_sp_variant
 from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
     quantize_lm_specs,
     quantize_lm_weights,
 )
+from quantizedattention_tpu_torch.tune.config import int8_shard_grain
 
 
 def param_specs(cfg: TransformerConfig) -> dict:
@@ -130,6 +132,46 @@ def shard_params(params: dict, cfg: TransformerConfig, mesh, weight_quant: str |
 # --------------------------------------------------------------------------
 
 STRATEGIES = ("ring", "allgather", "ulysses", "zigzag")
+
+
+def auto_sp_arguments(cfg: TransformerConfig, n_model: int, n_ctx: int, attention: str) -> dict:
+    """The arguments attention_sp="auto" hands `best_sp_variant` for `cfg` on
+    a mesh with `n_model` model and `n_ctx` context ranks (JAX
+    sharded_train.py:166-181): one shard's heads, t_local from cfg.max_seq
+    (at least 128), Ulysses where both head counts divide the context axis,
+    zigzag where max_seq splits into 2 n_ctx chunks of a multiple of 128."""
+    h_loc, kv_loc = cfg.n_heads // n_model, cfg.n_kv_heads // n_model
+    return dict(h=h_loc, h_kv=kv_loc, t_local=max(128, cfg.max_seq // max(1, n_ctx)),
+                d=cfg.head_dim, n=n_ctx, kind=attention,
+                allow_ulysses=(h_loc % n_ctx == 0 and kv_loc % n_ctx == 0),
+                allow_zigzag=(cfg.max_seq % (2 * n_ctx) == 0
+                              and (cfg.max_seq // (2 * n_ctx)) % 128 == 0))
+
+
+def resolve_attention_sp(cfg: TransformerConfig, n_model: int, n_ctx: int,
+                         attention: str) -> str:
+    """attention_sp="auto"'s pick: parallel/scaling_model.py's predicted-best
+    strategy under its H100 constants, "ring" where there is no context
+    axis."""
+    if n_ctx == 1:
+        return "ring"
+    return best_sp_variant(**auto_sp_arguments(cfg, n_model, n_ctx, attention))
+
+
+def check_shardable(attention_sp: str, attention: str, t_local: int, n_ctx: int,
+                    rep: int) -> None:
+    """Raise ValueError if `attention_sp` cannot run a step of t_local tokens
+    a context rank: zigzag needs the sequence in 2 n_ctx equal chunks, the
+    int8 all-gather 128-token shards on the shard's int8 kv block
+    (tune/config.py:int8_shard_grain, stricter than JAX's rule)."""
+    t = t_local * n_ctx
+    if attention_sp == "zigzag" and t % (2 * n_ctx):
+        raise ValueError(
+            f"attention_sp='zigzag' cannot shard sequence length {t} over "
+            f"context={n_ctx} (zigzag needs t % {2 * n_ctx} == 0) — pick a "
+            f"compatible length or another strategy")
+    if attention_sp == "allgather" and attention == "int8":
+        int8_shard_grain(t_local, rep)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -240,17 +282,23 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None
     betas (0.9, 0.999), eps 1e-8, weight decay 1e-4), as optax.adamw(3e-4);
     a caller's must be built over `param_leaves(params)`.
 
-    attention: "bf16" or "int8". attention_sp: "ring" (contiguous shards,
-    ring hops), "allgather" (K/V all-gathered, dK/dV reduce-scattered home;
-    int8 gathers the payloads and scale tables and needs T / context a
-    multiple of 128 and of the shard's int8 kv block: ValueError from the
-    step otherwise), "ulysses" (all-to-all
-    head <-> sequence; heads and kv heads per model shard divisible by the
-    context axis) or "zigzag" (the load-balanced causal ring; the step
-    gathers the sequence's tokens over context, permutes them by
-    `zigzag_perm` and takes this rank's block; the mean loss is
-    permutation-invariant). "auto" (the JAX default) raises
-    NotImplementedError: it needs parallel/scaling_model.py (ROADMAP A11).
+    attention: "bf16" or "int8". attention_sp: "auto" (the default, as in
+    JAX: `resolve_attention_sp` picks, once, the strategy that
+    parallel/scaling_model.py predicts fastest for this cfg and mesh, from
+    `auto_sp_arguments`; "ring" without a context axis), "ring" (contiguous
+    shards, ring hops posted before each step's kernel), "allgather" (K/V
+    all-gathered, dK/dV reduce-scattered home; int8 gathers the payloads and
+    scale tables and needs T / context a multiple of 128 and of the shard's
+    int8 kv block), "ulysses" (all-to-all head <-> sequence; heads and kv
+    heads per model shard divisible by the context axis) or "zigzag" (the
+    load-balanced causal ring, T a multiple of 2 x context; the step gathers
+    the sequence's tokens over context, permutes them by `zigzag_perm` and
+    takes this rank's block; the mean loss is permutation-invariant). The
+    pick is made from cfg.max_seq, but a step's own length may not shard
+    under it (`check_shardable`): under "auto" that step runs the ring; a
+    strategy named explicitly raises ValueError from the step.
+    `step.attention_sp` is the pick, `step.last_attention_sp` what the last
+    call ran.
     """
     n_model, n_ctx = axis_size(mesh, "model"), axis_size(mesh, "context")
     if cfg.n_heads % n_model != 0:
@@ -261,17 +309,16 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None
         raise ValueError("n_heads must be a multiple of n_kv_heads")
     if attention not in ("bf16", "int8"):
         raise ValueError(f"unknown attention kind {attention!r}")
-    if attention_sp == "auto":
-        raise NotImplementedError(
-            "attention_sp='auto' picks a strategy by parallel/scaling_model.py, which is not "
-            "ported (ROADMAP A11); pass 'ring', 'allgather', 'ulysses' or 'zigzag'")
-    if attention_sp not in STRATEGIES:
+    if attention_sp not in ("auto",) + STRATEGIES:
         raise ValueError(f"unknown attention_sp {attention_sp!r}")
     h_loc, kv_loc = cfg.n_heads // n_model, cfg.n_kv_heads // n_model
     if attention_sp == "ulysses" and (h_loc % n_ctx or kv_loc % n_ctx):
         raise ValueError(
             f"attention_sp='ulysses' needs per-shard head counts divisible "
             f"by the context axis ({h_loc}/{kv_loc} heads, context={n_ctx})")
+    was_auto = attention_sp == "auto"
+    if was_auto:
+        attention_sp = resolve_attention_sp(cfg, n_model, n_ctx, attention)
     leaves = param_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -282,12 +329,15 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None
     def step(tokens, targets):
         b_loc, t_loc = tokens.shape
         t = t_loc * n_ctx
-        if attention_sp == "zigzag":
-            if t % (2 * n_ctx):
-                raise ValueError(
-                    f"attention_sp='zigzag' cannot shard sequence length {t} over "
-                    f"context={n_ctx} (zigzag needs t % {2 * n_ctx} == 0) — pick a "
-                    f"compatible length or another strategy")
+        sp = attention_sp
+        try:
+            check_shardable(sp, attention, t_loc, n_ctx, h_loc // kv_loc)
+        except ValueError:
+            if not was_auto:
+                raise
+            sp = "ring"  # the always-shardable ring, for this call only
+        step.last_attention_sp = sp
+        if sp == "zigzag":
             from quantizedattention_tpu_torch.parallel.zigzag import zigzag_perm
 
             # the global sequence re-ordered so that contiguous context
@@ -298,7 +348,7 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None
             tokens = all_gather(tokens.contiguous(), mesh, "context", 1)[:, mine]
             targets = all_gather(targets.contiguous(), mesh, "context", 1)[:, mine]
         optimizer.zero_grad(set_to_none=True)
-        logits = _sharded_forward(params, tokens, cfg, mesh, attention, attention_sp)
+        logits = _sharded_forward(params, tokens, cfg, mesh, attention, sp)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(-1, targets.long()[..., None]).sum()
         count = b_loc * t_loc * axis_size(mesh, "data") * n_ctx
@@ -311,4 +361,5 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, params, optimizer=None
             psum(total, mesh, a)
         return total[0]
 
+    step.attention_sp, step.last_attention_sp = attention_sp, None
     return optimizer, step

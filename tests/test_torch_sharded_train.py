@@ -22,6 +22,7 @@ Tolerances: tests/test_torch_train.py's and tests/test_torch_int8.py's.
 """
 
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,10 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from quantizedattention_tpu.models import transformer as jtr
+from quantizedattention_tpu.models.sharded_train import (
+    make_sharded_train_step as j_make_sharded_train_step,
+)
+from quantizedattention_tpu.parallel import scaling_model as j_scaling_model
 from quantizedattention_tpu.models.sharded_train import _sharded_forward as j_sharded_forward
 from quantizedattention_tpu.models.sharded_train import param_specs as j_param_specs
 from quantizedattention_tpu.parallel import make_attention_mesh as j_mesh
@@ -42,6 +47,11 @@ from quantizedattention_tpu_torch.models import (
     shard_params,
 )
 from quantizedattention_tpu_torch.models import sharded_jobs
+from quantizedattention_tpu_torch.models.sharded_train import (
+    STRATEGIES,
+    auto_sp_arguments,
+    resolve_attention_sp,
+)
 from quantizedattention_tpu_torch.parallel.launch import RankPool
 
 torch.set_num_threads(2)
@@ -201,8 +211,10 @@ def _local(n_kv, shape, **kw):
 
 def test_step_refusals():
     cfg, params = _local(4, (1, 2, 2))
-    with pytest.raises(NotImplementedError, match="scaling_model"):
-        make_sharded_train_step(_Mesh((1, 2, 2)), cfg, params)
+    # the default "auto" resolves, at construction, to the model's pick
+    _, step = make_sharded_train_step(_Mesh((1, 2, 2)), cfg, params)
+    assert step.attention_sp == resolve_attention_sp(cfg, 2, 2, "bf16")
+    assert step.attention_sp in STRATEGIES and step.last_attention_sp is None
     # the int8 all-gather's refusal (JAX collective.py:153-154), from the
     # step, before any collective: 100 tokens a shard
     _, step = make_sharded_train_step(_Mesh((1, 2, 2)), cfg, params, attention="int8",
@@ -220,3 +232,107 @@ def test_step_refusals():
     tokens = torch.zeros((B, 127), dtype=torch.long)  # 254 tokens: not a multiple of 4
     with pytest.raises(ValueError, match="cannot shard sequence length 254"):
         step(tokens, tokens)
+
+
+# --------------------------------------------------------------------------
+# attention_sp="auto": the JAX default (sharded_train.py:166-181, :205-233)
+# --------------------------------------------------------------------------
+
+def test_auto_step_matches_jax_auto_step(pool, batch):
+    """JAX's test_train_step_attention_sp_auto_resolves
+    (tests/test_distributed.py:597) on the file's params and batch: the
+    port's default step and JAX's, each under its own constants (their picks
+    may differ: ROADMAP.md §C), give the same first loss within the bf16 SP
+    tolerance, and the port's gradients hold against one device's."""
+    n_kv, shape = 4, (1, 2, 2)
+    loss, grads = _run(pool, n_kv, "bf16", "auto", shape, batch)
+    jcfg = jtr.TransformerConfig(**_cfg(n_kv))
+    optimizer, step = j_make_sharded_train_step(j_mesh(*shape), jcfg)  # auto
+    params = _jax_params(n_kv)
+    _, _, want_loss = step(params, optimizer.init(params), *(jnp.asarray(x) for x in batch))
+    _, want = _one_device(n_kv, "bf16", tuple(x.tobytes() for x in batch))
+    _hold(loss, grads, float(want_loss), want, LOSS_REL, GRAD_REL_L2)
+    bad = TransformerConfig(vocab_size=64, d_model=96, n_heads=3, n_kv_heads=3, head_dim=32,
+                            n_layers=1, max_seq=256)
+    with pytest.raises(ValueError, match="divisible"):
+        make_sharded_train_step(_Mesh((2, 1, 2)), bad, {}, attention_sp="ulysses")
+
+
+class _Recorded(Exception):
+    pass
+
+
+class _JaxMeshShape:
+    """What JAX's make_sharded_train_step reads of its mesh before it asks
+    the model."""
+
+    def __init__(self, shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("attention", ["bf16", "int8"])
+def test_resolver_hands_jax_arguments_to_the_model(monkeypatch, attention):
+    """auto_sp_arguments gives best_sp_variant what JAX's step gives it (JAX's
+    call recorded, then stopped), over head counts, GQA, head dims, lengths
+    and meshes; without a context axis both take the ring without asking
+    (JAX's branch is read, not run: its step would need a real mesh)."""
+    seen = []
+
+    def record(**kw):
+        seen.append(kw)
+        raise _Recorded
+
+    monkeypatch.setattr(j_scaling_model, "best_sp_variant", record)
+    for (h, h_kv), d, max_seq, (model, context) in itertools.product(
+            [(4, 4), (4, 2), (16, 4), (8, 8)], (32, 64, 128), (100, 256, 1000, 2048, 8192),
+            [(1, 2), (2, 2), (1, 4), (2, 4), (1, 8), (2, 1)]):
+        if h % model or h_kv % model:
+            continue
+        kw = dict(vocab_size=64, d_model=h * d, n_heads=h, n_kv_heads=h_kv, head_dim=d,
+                  n_layers=1, max_seq=max_seq)
+        cfg = TransformerConfig(**kw)
+        if context == 1:  # JAX: `... if n_ctx > 1 else "ring"`
+            assert resolve_attention_sp(cfg, model, context, attention) == "ring"
+            continue
+        mesh = _JaxMeshShape({"data": 1, "model": model, "context": context})
+        seen.clear()
+        with pytest.raises(_Recorded):
+            j_make_sharded_train_step(mesh, jtr.TransformerConfig(**kw), attention=attention)
+        assert seen == [auto_sp_arguments(cfg, model, context, attention)], kw
+
+
+# a length the pick cannot shard runs the ring under "auto" and raises when
+# the strategy is named; (attention, max_seq, the step's tokens) on (1, 1,
+# 4) with 2 kv heads (no Ulysses). Zigzag: the pick at a max_seq long enough
+# that compute dominates, where the striped ring's balanced FLOPs beat the
+# contiguous ring and the all-gather under any constants; 252 tokens are not
+# a multiple of 2 x 4. The int8 all-gather: the pick at 128-token shards
+# under the port's H100 constants (latency-bound); 200 tokens give shards
+# of 50
+FALLBACK = {"zigzag": ("bf16", 1 << 20, 252), "allgather": ("int8", 256, 200)}
+
+
+@pytest.mark.parametrize("pick", sorted(FALLBACK))
+def test_auto_falls_back_to_the_ring_on_a_length_its_pick_cannot_shard(pool, pick):
+    attention, max_seq, t = FALLBACK[pick]
+    shape = (1, 1, 4)
+    cfg = TransformerConfig(**{**_cfg(2, attention), "max_seq": max_seq})
+    assert resolve_attention_sp(cfg, 1, 4, attention) == pick
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, 64, (B, t)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    params = params_from_jax(_jax_params(2), "cpu")
+    runs = {sp: pool.run(sharded_jobs.train, cfg, shape, params, torch.from_numpy(tokens),
+                         torch.from_numpy(targets), 1, attention, sp, "cpu")
+            for sp in ("auto", "ring")}
+    assert {(o["attention_sp"], *o["ran"]) for o in runs["auto"]} == {(pick, "ring")}
+    assert runs["auto"][0]["losses"] == runs["ring"][0]["losses"]
+    for name, g in runs["auto"][0]["grads"].items():
+        assert torch.equal(g, runs["ring"][0]["grads"][name]), name
+    # named, the same strategy raises from the step, before any collective
+    local = shard_params(params_from_jax(_jax_params(2), "cpu"), cfg, _Mesh(shape))
+    _, step = make_sharded_train_step(_Mesh(shape), cfg, local, attention=attention,
+                                      attention_sp=pick)
+    block = torch.zeros((B, t // 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="cannot shard|t_local % 128|multiple of the kv block"):
+        step(block, block)
