@@ -11,15 +11,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
      holds the flash forward's (bf16 and fp32 modes; bf16 at head dims 64
      and 128) and backward's (fast at 64 and 128), B11 fast's, B10 exact's,
-     the int8 forward's and backward's, the decode kernel's (its int8
-     instances, B13/B14 at 64 and B13 at 128, and its int4 one, B15/B16)
-     and the weight matmuls' shared bytes against their launch geometry (ops/flash_tiling.py,
-     ops/jvp_tiling.py, ops/int8_tiling.py, parallel/decode_tiling.py,
-     ops/linear_tiling.py), and fails if ptxas spills or serializes wgmma (a
-     C75xx note) in the flash forward (both modes) or backward, in B9, B11
-     and B12 fast and their preps, in B10 exact, its prep and its merge, or
-     spills in any decode instance or in B4 (whose cluster geometry is
-     held against ops/int8_tiling.py);
+     B4's, the int8 forward's and backward's (at 64 and 128), the decode
+     kernel's (its int8 instances, B13/B14 at 64 and 128, and its int4 one,
+     B15/B16) and the weight matmuls' shared bytes against their launch
+     geometry (ops/flash_tiling.py, ops/jvp_tiling.py, ops/int8_tiling.py,
+     parallel/decode_tiling.py, ops/linear_tiling.py), and fails if ptxas
+     spills or serializes wgmma (a C75xx note) in the flash forward (both
+     modes) or backward, in B5, B7 and B8 (both head dims), in B9, B11 and
+     B12 fast and their preps, in B10 exact, its prep and its merge, or
+     spills in any decode instance or in B4 (whose cluster geometry is held
+     against ops/int8_tiling.py);
   3. flash_fwd kernel vs its plain PyTorch version (O and lse) on f32 and on
      bf16 inputs, at the forward's cases and its tile edges (t and s off a
      multiple of 128, causal t < s and t > s, rep 3, 5, 8 and 128, one token,
@@ -69,8 +70,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      int8 serving prefill's shape (8, 16, 256, 64) and an odd cross length, with B8's K-smoothing term held on its own where
      the K mean is large, and the forward's tile edges (t and s off a
      multiple of 128, causal t < s, rep 3 and 5, one 128-key tile, rows with
-     no visible key in a tile); B7 and B8 called twice on each case's
-     operands for the same bits; then each timed at (4, 16, 2048, 64) causal
+     no visible key in a tile); B4, B5, B7 and B8 called twice on each
+     case's operands for the same bits; then each timed at (4, 16, 2048, 64) causal
      beside its plain version (B4 also on the model's f32 views and on
      bf16, as B6 launches it), and B7 and B8 also at GQA rep 4 (2, 16 q / 4
      kv, 2048, 64), each with its bound and TFLOP/s (bf16-equivalent
@@ -317,7 +318,29 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      steps, exactly 4 launches a step of B1, B2, B3 and the prep) and
      ServingEngine at SERVE128_CFG (16 q / 4 kv heads x 128, max_seq 1280,
      phase 5's traffic; f32 params: tokens equal `generate`'s; bf16:
-     tokens/s; B1 4 launches, B13 as counted).
+     tokens/s; B1 4 launches, B13 as counted). The int8 family at d=128:
+     B4 byte-equal on f32 and bf16 views at every grain; B4, B5, B7 and B8
+     against their plain versions at phase 8's tolerances on
+     HEAD128_INT8_CASES (t and s off a multiple of 128, causal t < s and t >
+     s, GQA rep 4 and 8, rep 3, one token, a ragged length whose padded K
+     rows set the last scale, more key tiles than stages, and the shapes the
+     d=128 paths give the kernels: the int8 train step's, GQA rep 4 at
+     2048, the serving prefill's) and with global offsets, each kernel
+     twice for the same bits (B7's and B8's worst error printed with its
+     case); B6 equal to B4 -> B5 and within phase
+     12's tolerance of its plain version; B14 against its plain version and
+     bit-equal to B13 at spec 1 and on the verify staircase; BASELINE
+     config 4 at (4, 16, 2048, 128) (phase 9's criteria) and config 3 at
+     (4, 16, {2048, 4096, 8192}, 128), GQA (4, 16q/4kv, 4096, 128) and K +
+     8 non-causal at 2048 (phase 13's gate) against the fp32 oracle; B4,
+     B5, B7, B8 timed at config 4's shape and GQA, B6 at config 3's, B4 +
+     B5 at the serving prefill, B14 at the serving decode and capacity, each beside its
+     plain version, bound and SDPA's d=128 calls; make_train_step at
+     TRAIN128_CFG with attention="int8" (exactly 4 launches a step of B4,
+     B5, B7, B8; the int8/bf16 gradient-norm ratio under GRAD_NORM_RATIO at
+     every step) and ServingEngine at SERVE128_CFG with int8 prefill (B4 +
+     B5, 4 launches each) on the slotted (B13) and paged (B14) caches, f32
+     params' tokens equal `generate`'s, bf16 params' tokens/s.
 `python3 chip_smoke.py sp_model` (four cards, NCCL; refused on fewer) runs
 phases 1 and 2, then measures parallel/scaling_model.py's constants:
 `nvidia-smi topo -m` and `nvlink --status` (printed, whatever they exit
@@ -333,9 +356,11 @@ Then one JSON line with per-kernel launches, errors, times and bounds, and,
 last, {"ok": true, "device": {...}}. Weights and inputs are random from fixed
 seeds. Kernel times are device times per call (wrapper included: casts and
 allocation), from CUDA events around CUDA-graph replays (SDPA's backward
-too); the port's forward + backward calls are device time summed by
-torch.profiler; serving and train step times are CUDA events or host wall
-clock around synchronised work. They are records, not claims.
+too); the port's forward + backward calls are CUDA events around eager
+calls queued behind a device sleep (queued_ms: the host has queued the last
+call before the card starts the first, else "not measured"); serving and
+train step times are CUDA events or host wall clock around synchronised
+work. They are records, not claims.
 """
 
 from __future__ import annotations
@@ -417,8 +442,6 @@ from quantizedattention_tpu_torch.ops import (
     sage_attention_int8,
 )
 from quantizedattention_tpu_torch.ops.int8_fwd import _attend, _fused_launch_args
-from quantizedattention_tpu_torch.ops.int8_tiling import dkv_shared_bytes, dq_shared_bytes
-from quantizedattention_tpu_torch.ops.int8_tiling import shared_bytes as int8_fwd_shared_bytes
 from quantizedattention_tpu_torch.ops.linear_tiling import STREAM_MAX_M, plan_int4, plan_int8
 from quantizedattention_tpu_torch.ops.flash_fwd import (
     flash_attention_fwd,
@@ -680,7 +703,6 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     secs = _build.build_all()
     log(f"[build] kernels + scheduler built/loaded in {secs:.1f} s")
-    int8_bwd = _build.load_kernel("int8_bwd")
     flash_bwd_lib = _build.load_kernel("flash_bwd")
     head_dims = [(f"{name} d={d}", getattr(lib, entry)(d), want(d))
                  for d in flash_tiling.HEAD_DIMS for name, lib, entry, want in (
@@ -693,6 +715,15 @@ def phase_build() -> None:
     head_dims += [(f"cache_decode int8 d={d}",
                    _build.load_kernel("cache_decode").qa_decode_smem_bytes(8, d),
                    decode_tiling.shared_bytes("int8", d)) for d in decode_tiling.HEAD_DIMS_INT8]
+    head_dims += [(f"{name} d={d}", getattr(_build.load_kernel(lib), entry)(d), want(d))
+                  for d in int8_tiling.HEAD_DIMS for name, lib, entry, want in (
+                      ("quant_int8", "quant_int8", "qa_quant_int8_smem_bytes",
+                       int8_tiling.quant_shared_bytes),
+                      ("int8_fwd", "int8_fwd", "qa_int8_fwd_smem_bytes", int8_tiling.shared_bytes),
+                      ("int8_bwd dK/dV", "int8_bwd", "qa_int8_bwd_dkv_smem_bytes",
+                       int8_tiling.dkv_shared_bytes),
+                      ("int8_bwd dQ", "int8_bwd", "qa_int8_bwd_dq_smem_bytes",
+                       int8_tiling.dq_shared_bytes))]
     for name, got, want in (
             *head_dims,
             ("flash_fwd fp32", _build.load_kernel("flash_fwd").qa_flash_fwd_f32_smem_bytes(),
@@ -705,12 +736,6 @@ def phase_build() -> None:
              jvp_tiling.fwd_shared_bytes()),
             ("jvp tangent exact", _build.load_kernel("jvp").qa_jvp_tangent_smem_bytes(),
              jvp_tiling.tangent_shared_bytes()),
-            ("quant_int8", _build.load_kernel("quant_int8").qa_quant_int8_smem_bytes(),
-             int8_tiling.quant_shared_bytes()),
-            ("int8_fwd", _build.load_kernel("int8_fwd").qa_int8_fwd_smem_bytes(),
-             int8_fwd_shared_bytes()),
-            ("int8_bwd dK/dV", int8_bwd.qa_int8_bwd_dkv_smem_bytes(), dkv_shared_bytes()),
-            ("int8_bwd dQ", int8_bwd.qa_int8_bwd_dq_smem_bytes(), dq_shared_bytes()),
             ("cache_decode int4", _build.load_kernel("cache_decode").qa_decode_smem_bytes(4, 64),
              decode_tiling.shared_bytes("int4", 64))):
         if got != want:
@@ -736,11 +761,13 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # the flash forward (both modes) and backward, B9, B11 and B12 fast and
-    # B10 exact keep every wgmma asynchronous (no C75xx note) and spill
-    # nothing; the decode kernel's instances (two blocks an SM at head dim
-    # 64: at most 128 registers; one at 128) and B4 spill nothing
-    for name, only in (("flash_fwd", None), ("flash_bwd", None),
+    # the flash forward (both modes) and backward, B5, B7 and B8 (both head
+    # dims), B9, B11 and B12 fast and B10 exact keep every wgmma asynchronous
+    # (no C75xx note) and spill nothing; the decode kernel's instances (two
+    # blocks an SM at head dim 64: at most 128 registers; one at 128, B13's
+    # and B14's) and B4 spill nothing
+    for name, only in (("flash_fwd", None), ("flash_bwd", None), ("int8_fwd", None),
+                       ("int8_bwd", None),
                        ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
                                 "jvp_dq_wgmma", "jvp_bwd_prep_kernel", "jvp_tangent_tf32",
                                 "tangent_prep_kernel", "tangent_merge_kernel")),
@@ -1140,22 +1167,30 @@ def _to_pages(dense, scales, table, n_pages, gen):
     return pool, pool_s
 
 
+def _paged8_case(dev, gen, n_q, n_kv, lengths, stale, d=64):
+    """q, the slotted int8 cache of `_decode_case` and its paged twin through
+    shuffled pages (junk pages; stale: NaN/inf scales), with the page table
+    and the pool's pages."""
+    q, dense8 = _decode_case(dev, gen, n_q, n_kv, lengths, stale, d=d)
+    n_pages = 1 + len(lengths) * MAX_PAGES
+    table = _page_table(lengths, n_pages, seed=len(lengths) + n_kv).to(dev)
+    k_pages, sk_pages = _to_pages(dense8.k_i8, dense8.sk, table, n_pages, gen)
+    v_pages, sv_pages = _to_pages(dense8.v_i8, dense8.sv, table, n_pages, gen)
+    if stale:
+        sv_pages = torch.where(torch.isnan(sv_pages), torch.inf, sv_pages)
+    paged8 = PagedKVCache(k_pages, sk_pages, v_pages, sv_pages, table, dense8.length)
+    return q, dense8, paged8, table, n_pages
+
+
 def _cache_kinds(dev, gen, n_q, n_kv, lengths, stale):
     """The same attention problem in all four cache kinds: q, the slotted
     int8 cache of `_decode_case`, its paged twin through shuffled pages, a
     slotted int4 cache of random nibbles (stale: NaN/inf scales past each
     length, in both halves of a half-live byte row) and its paged int4 twin
     (the same token values repacked split-half per page)."""
-    q, dense8 = _decode_case(dev, gen, n_q, n_kv, lengths, stale)
+    q, dense8, paged8, table, n_pages = _paged8_case(dev, gen, n_q, n_kv, lengths, stale)
     n, max_len = len(lengths), BENCH_CFG.max_seq
     length = dense8.length
-    n_pages = 1 + n * MAX_PAGES
-    table = _page_table(lengths, n_pages, seed=len(lengths) + n_kv).to(dev)
-    k_pages, sk_pages = _to_pages(dense8.k_i8, dense8.sk, table, n_pages, gen)
-    v_pages, sv_pages = _to_pages(dense8.v_i8, dense8.sv, table, n_pages, gen)
-    if stale:
-        sv_pages = torch.where(torch.isnan(sv_pages), torch.inf, sv_pages)
-    paged8 = PagedKVCache(k_pages, sk_pages, v_pages, sv_pages, table, length)
 
     shape4 = (n, n_kv, max_len // 2, 64)
     k4 = torch.randint(-128, 128, shape4, generator=gen, device=dev, dtype=torch.int8)
@@ -2276,7 +2311,7 @@ def phase_train_timing(dev, gen) -> tuple[dict, dict]:
     del k_b, v_b, q_b
     sdpa_fwd_ms = device_ms(sdpa_fwd)
     sdpa_bwd_ms = _sdpa_bwd_ms(q, k, v, do)
-    ours_fb_ms = profiled_ms(ours_fwd_bwd)
+    ours_fb_ms = queued_ms(ours_fwd_bwd)
     out["flash_fwd"]["library_ms"] = sdpa_fwd_ms
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
         out[name]["library_ms"] = sdpa_bwd_ms
@@ -2300,7 +2335,7 @@ def phase_train_timing(dev, gen) -> tuple[dict, dict]:
     pair_ms = out["flash_bwd_dkv"]["ms"] + out["flash_bwd_dq"]["ms"]
     log(f"[timing] sdpa bf16 forward {sdpa_fwd_ms:.4f} ms, backward {sdpa_bwd_ms:.4f} ms (B2 + B3 "
         f"{pair_ms:.4f} ms, ratio {pair_ms / sdpa_bwd_ms:.3f}); flash_attention_bf16 forward + "
-        f"backward {ours_fb_ms:.4f} ms (device time, torch.profiler)")
+        f"backward {_queued_str(ours_fb_ms)}")
     out["flash_fwd"]["fwd_bwd_ms"] = ours_fb_ms
     return out, errs
 
@@ -2417,33 +2452,47 @@ def phase_train(dev, smi, cfg) -> tuple[dict, dict]:
     return launches, {"median_ms": med, "max_memory_gib": mem, "grad_norms": norms}
 
 
-# the CUDA functions of the train step's attention (B1-B3; B4, B5, B7, B8)
-ATTENTION_KERNELS = ("flash_fwd_kernel", "dkv_kernel_bf16", "dq_kernel_bf16", "quant_int8_kernel",
-                     "int8_attn_kernel", "int8_dkv_kernel", "int8_dq_kernel")
+# the CUDA functions of the train step's attention (B1-B3; B4, B5, B7, B8),
+# by the launch counter of each
+ATTENTION_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dkv": "dkv_kernel_bf16",
+                     "flash_bwd_dq": "dq_kernel_bf16", "quant_int8": "quant_int8_kernel",
+                     "int8_fwd": "int8_attn_kernel", "int8_bwd_dkv": "int8_dkv_kernel",
+                     "int8_bwd_dq": "int8_dq_kernel"}
 
 
 def _profile_step(cfg, params, tokens, targets):
-    """torch.profiler over one train step: device time by kernel, and busy share."""
+    """torch.profiler over one train step: device time by kernel, and busy
+    share. Not measured where the profile holds fewer attention launches
+    than the counters counted in the step: in a process that has run many
+    phases, torch.profiler may lose records (not explained)."""
     from torch.profiler import ProfilerActivity, profile
 
     _, step = make_train_step(cfg, params)
     step(tokens, targets)
     torch.cuda.synchronize()
+    before = _launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(tokens, targets)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = sum(n - before[k] for k, n in _launch_counts().items() if k in ATTENTION_KERNELS)
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    attn = [e for e in events if any(f"{name}{end}" in e.key for name in ATTENTION_KERNELS.values()
+                                     for end in "(<")]  # B1-B3 are templates on the head dim
+    recorded = sum(e.count for e in attn)
     total_us = sum(e.self_device_time_total for e in events)
+    if total_us <= 0 or recorded != counted:
+        log(f"[profile] one train step: wall {wall_ms:.2f} ms (profiled); device time not "
+            f"measured (torch.profiler recorded {recorded} of the step's {counted} attention "
+            f"launches)")
+        return
     log(f"[profile] one train step: wall {wall_ms:.2f} ms (profiled), device busy "
         f"{total_us / 1e3:.2f} ms ({total_us / 1e3 / wall_ms:.1%} of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} calls  "
             f"{e.self_device_time_total / total_us:6.1%}  {e.key[:90]}")
-    attn_us = sum(e.self_device_time_total for e in events
-                  if any(f"{name}{end}" in e.key for name in ATTENTION_KERNELS
-                         for end in "(<"))  # B1-B3 are templates on the head dim
+    attn_us = sum(e.self_device_time_total for e in attn)
     log(f"[profile] attention kernels ({cfg.attention}): {attn_us / 1e3:.3f} ms, "
         f"{attn_us / total_us:.1%} of device time")
 
@@ -2500,23 +2549,39 @@ INT8_CASES = [(4, 16, 16, 2048, 2048, True, 0.0), (2, 16, 16, 1000, 1000, True, 
               (1, 3, 1, 1, 1, True, 0.0), *EDGE_CASES]
 
 
-def _check_int8(q, k, v, do, causal, label) -> dict:
+def _check_int8(q, k, v, do, causal, label, q_offset=0, k_offset=0) -> tuple[dict, dict]:
     """B4 (byte for byte), B5, B7 and B8 against their plain versions on one
-    case, raising outside the tolerances; returns each kernel's max|diff|."""
+    case (causal on global positions q_offset + i, k_offset + j), raising
+    outside the tolerances; each kernel called twice for the same bits.
+    Returns (each kernel's max|diff|, dq's, dk's and dv's max|diff| /
+    max|plain|)."""
     k_mean = k.mean(dim=-2, keepdim=True)
     res = quantize_qkv(q, k, v, k_sub=k_mean)
+    res2 = quantize_qkv(q, k, v, k_sub=k_mean)
     torch.cuda.synchronize()
     res_p = quantize_qkv_plain(q, k, v, k_sub=k_mean)
-    if not all(torch.equal(a, b) for pair, pair_p in zip(res, res_p) for a, b in zip(pair, pair_p)):
-        raise AssertionError(f"quant_int8 is not byte-equal to its plain version at {label}")
+    if not all(torch.equal(a, b) and torch.equal(a, c) for pair, pair_p, pair2
+               in zip(res, res_p, res2) for a, b, c in zip(pair, pair_p, pair2)):
+        raise AssertionError(f"quant_int8 is not byte-equal to its plain version (or to its "
+                             f"second call) at {label}")
+    del res2
     dims = (*q.shape[:3], k.shape[2], q.shape[3])
-    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=causal)
+    offsets = {"q_offset": q_offset, "k_offset": k_offset}
+    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=causal, **offsets)
+    o2, lse2 = int8_attention_fwd_from_quantized(res, dims, causal=causal, **offsets)
     torch.cuda.synchronize()
-    o_p, lse_p = int8_attention_fwd_from_quantized_plain(res, dims, causal=causal)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"int8_fwd gives other bits on a second call at {label}")
+    del o2, lse2
+    o_p, lse_p = int8_attention_fwd_from_quantized_plain(res, dims, causal=causal, **offsets)
     err = {"quant_int8": 0.0, "int8_fwd": (o - o_p).abs().max().item()}
-    err_l = (lse - lse_p).abs().max().item()
+    seen = torch.isfinite(lse_p)
+    err_l = (lse[seen] - lse_p[seen]).abs().max().item() if seen.any() else 0.0
+    if not torch.equal(seen, torch.isfinite(lse)):
+        raise AssertionError(f"int8_fwd's rows that see no key differ from the plain version's "
+                             f"at {label}")
     del o_p, lse_p
-    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=causal)
+    ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=causal, **offsets)
     dk, dv = int8_bwd_dkv(ops)
     dq = int8_bwd_dq(ops)
     again = (*int8_bwd_dkv(ops), int8_bwd_dq(ops))
@@ -2544,7 +2609,7 @@ def _check_int8(q, k, v, do, causal, label) -> dict:
         raise AssertionError("int8 backward kernels disagree with their plain versions")
     if k_mean.abs().max().item() > 1.0:
         _check_k_mean_term(ops, label)
-    return err
+    return err, rel
 
 
 def _check_k_mean_term(ops, label) -> None:
@@ -2571,24 +2636,24 @@ QUANT_GRAINS = [(128, 3 * 128 - 37), (256, 3 * 256 - 37), (512, 3 * 512 - 37),
                 (1024, 2 * 1024 - 37)]
 
 
-def _check_quant(gen, dev) -> None:
+def _check_quant(gen, dev, d=64) -> None:
     """B4 byte-equal to its plain version (payloads and scales) on [b, h, t,
-    64] f32 views of [b, t, h, 64] tensors (through `quant_int8`) and on bf16
+    d] f32 views of [b, t, h, d] tensors (through `quant_int8`) and on bf16
     (through `quant_int8_uncounted`, as B6 launches it), Q, K (with its
     smoothing shift) and V of one launch at each of QUANT_GRAINS, then one
     launch of three jobs at three grains."""
     cases = []
     for grain, t in QUANT_GRAINS:
         pad = -(-t // grain) * grain
-        q, k, v = _strided(*(torch.randn((2, 4, t, 64), generator=gen, device=dev)
+        q, k, v = _strided(*(torch.randn((2, 4, t, d), generator=gen, device=dev)
                              for _ in range(3)))
-        sub = k.mean(-2).reshape(8, 64).contiguous()
+        sub = k.mean(-2).reshape(8, d).contiguous()
         cases.append((f"grain {grain}, t {t}",
                       [QuantJob(q, pad, grain), QuantJob(k, pad, grain, sub),
                        QuantJob(v, pad, grain)]))
-    x = _strided(torch.randn((2, 4, 1500, 64), generator=gen, device=dev))[0]
+    x = _strided(torch.randn((2, 4, 1500, d), generator=gen, device=dev))[0]
     cases.append(("grains 1024, 128, 512 in one launch, t 1500",
-                  [QuantJob(x, 2048, 1024), QuantJob(x, 1536, 128, x.mean(-2).reshape(8, 64)),
+                  [QuantJob(x, 2048, 1024), QuantJob(x, 1536, 128, x.mean(-2).reshape(8, d)),
                    QuantJob(x, 1536, 512)]))
     for label, jobs in cases:
         for dtype, fn in ((torch.float32, quant_int8), (torch.bfloat16, quant_int8_uncounted)):
@@ -2600,8 +2665,8 @@ def _check_quant(gen, dev) -> None:
             if not all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w)):
                 raise AssertionError(f"quant_int8 is not byte-equal to its plain version on "
                                      f"{dtype} views, {label}")
-    log("[int8] quant_int8 byte-equal to its plain version on f32 and bf16 [b, h, t, 64] views "
-        "of [b, t, h, 64] tensors: " + "; ".join(label for label, _ in cases))
+    log(f"[int8] quant_int8 byte-equal to its plain version on f32 and bf16 [b, h, t, {d}] views "
+        f"of [b, t, h, {d}] tensors: " + "; ".join(label for label, _ in cases))
 
 
 def phase_int8_kernels(dev, gen) -> dict:
@@ -2610,7 +2675,7 @@ def phase_int8_kernels(dev, gen) -> dict:
     for b, h, h_kv, t, s, causal, shift in INT8_CASES:
         q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s)
         errs.append(_check_int8(q, k + shift, v, do, causal, f"b={b} h={h} h_kv={h_kv} t={t} "
-                                f"s={s} causal={causal} K mean {shift}"))
+                                f"s={s} causal={causal} K mean {shift}")[0])
     return _worst(*errs)
 
 
@@ -2618,21 +2683,31 @@ def phase_int8_kernels(dev, gen) -> dict:
 INT8_BWD_GQA = (2, 16, 4, 2048)
 
 
-def profiled_ms(fn, calls: int = 10) -> float:
-    """Device time of one `fn()` call: its kernels' device time summed by
-    torch.profiler over `calls` eager calls, after one warm-up call. For work
-    whose host dispatch outruns its device time in an eager loop (the
-    port's autograd calls)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def queued_ms(fn, calls: int = 10, sleep_cycles: int = 400_000_000) -> float | None:
+    """Device time of one `fn()` call: CUDA events around `calls` eager
+    calls, after one warm-up call, queued behind a torch.cuda._sleep of
+    `sleep_cycles` (about 0.2 s) so that the card starts the first call only
+    once the host has queued the last. For work whose host dispatch
+    outruns its device time in an eager loop (the port's autograd calls),
+    which then does not show in the span. None when the card reached the
+    first event before the host had queued the last call (a call waited on
+    the card, or the sleep was too short): the span would hold host time."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / calls / 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls if queued else None
+
+
+def _queued_str(ms: float | None) -> str:
+    return (f"{ms:.4f} ms (CUDA events over calls queued behind a device sleep)" if ms is not None
+            else "not measured (the card caught up with the host's queue)")
 
 
 def device_kernels(fn) -> dict:
@@ -2671,18 +2746,18 @@ def _sdpa_bwd_ms(q, k, v, do) -> float:
 
 
 def _int8_bwd_times(q, k, v, do, sdpa_bwd_ms=None) -> tuple[dict, object]:
-    """B7 and B8 on q/do [b, h, t, 64], k/v [b, h_kv, t, 64], causal: device
+    """B7 and B8 on q/do [b, h, t, d], k/v [b, h_kv, t, d], causal: device
     time, bound and TFLOP/s of each, beside SDPA's bf16 backward (measured
     here unless given). Returns (the times, the kernels' operands)."""
-    (b, h, t, _), h_kv = q.shape, k.shape[1]
+    (b, h, t, d), h_kv = q.shape, k.shape[1]
     k_mean = k.mean(dim=-2, keepdim=True)
     res = quantize_qkv(q, k, v, k_sub=k_mean)
-    dims = (b, h, t, t, 64)
+    dims = (b, h, t, t, d)
     o, lse = int8_attention_fwd_from_quantized(res, dims, causal=True)
     ops = int8_bwd_operands(res, k_mean, o, lse, do, dims, causal=True)
     dk, dv = int8_bwd_dkv(ops)
     dq = int8_bwd_dq(ops)
-    prod = 2 * b * h * visible_pairs(t, t, True) * 64  # one product over the visible pairs
+    prod = 2 * b * h * visible_pairs(t, t, True) * d  # one product over the visible pairs
     payload = nbytes(*(x for pair in res for x in pair))
     rows_in = nbytes(ops.do, ops.lse, ops.di)
     lib_ms = _sdpa_bwd_ms(q, k, v, do) if sdpa_bwd_ms is None else sdpa_bwd_ms
@@ -2695,7 +2770,7 @@ def _int8_bwd_times(q, k, v, do, sdpa_bwd_ms=None) -> tuple[dict, object]:
                                 (2 * prod, PEAK_BF16))},
     }
     pair_ms = out["int8_bwd_dkv"]["ms"] + out["int8_bwd_dq"]["ms"]
-    shape = f"({b},{h}q/{h_kv}kv,{t},64)" if h != h_kv else f"({b},{h},{t},64)"
+    shape = f"({b},{h}q/{h_kv}kv,{t},{d})" if h != h_kv else f"({b},{h},{t},{d})"
     for name, r in out.items():
         r["tflops"] = r.pop("products") * prod / r["ms"] / 1e9
         r["library_ms"] = lib_ms
@@ -2706,13 +2781,16 @@ def _int8_bwd_times(q, k, v, do, sdpa_bwd_ms=None) -> tuple[dict, object]:
     return out, ops
 
 
-def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
-    """Device time per call of B4, B5, B7 and B8 at the training shape,
-    causal, beside their plain versions and their bounds; B7 and B8 also at
-    GQA rep 4. No single PyTorch call computes int8 attention; SDPA's bf16
-    times ride along for scale (its backward is B7 + B8's library_ms)."""
-    b, h, t, d = TRAIN_BATCH, 16, TRAIN_CFG.max_seq, 64
-    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t)
+def phase_int8_timing(dev, gen, sdpa: dict, d: int = 64, census: bool = True) -> dict:
+    """Device time per call of B4, B5, B7 and B8 at the training shape at
+    head dim d (BASELINE config 4's shape at 128), causal, beside their
+    plain versions and their bounds; B7 and B8 also at GQA rep 4. No single
+    PyTorch call computes int8 attention; SDPA's bf16 times at the same head
+    dim ride along for scale (its backward is B7 + B8's library_ms). B4 on
+    the model's views must launch once and copy nothing; with `census`, the
+    profile that shows it must not be empty."""
+    b, h, t = TRAIN_BATCH, 16, TRAIN_CFG.max_seq
+    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t, d)
     k_mean = k.mean(dim=-2, keepdim=True)
     res = quantize_qkv(q, k, v, k_sub=k_mean)
     dims = (b, h, t, t, d)
@@ -2746,15 +2824,25 @@ def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
         log(f"[timing] {name} at ({b},{h},{t},{d}) causal: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     r = out["quant_int8"]
-    # on the model's views the kernel reads Q, K and V in place: one launch, no copy
+    # on the model's views the kernel reads Q, K and V in place: one launch, no
+    # copy (B4's jobs are the caller's tensors, and the profile holds one B4
+    # launch alone). In a process that has run the phases before 30,
+    # torch.profiler may record nothing for so small a profile (not
+    # explained): `census` makes an empty profile fail, as in phase 8 and in
+    # `python3 chip_smoke.py head128`, where it records
+    before = quant_int8.launches
     launched = device_kernels(lambda: quantize_qkv(*views, k_sub=k_mean))
-    log(f"[int8] quantize_qkv on the model's f32 views launches {launched}")
-    if len(launched) != 1 or "quant_int8_kernel" not in next(iter(launched)) \
-            or sum(launched.values()) != 1:
-        raise AssertionError(f"quantize_qkv on [b, h, t, 64] views launched {launched}, want one "
-                             "B4 launch and no copy")
-    r["ms_of"] = ("quantize_qkv on contiguous f32; views_ms on the model's [b, h, t, 64] views of "
-                  "[b, t, h, 64] f32 tensors; bf16_ms one launch on bf16 views, as B6's")
+    in_place = all(j.x.data_ptr() == x.data_ptr() for j, x in zip(_qkv_jobs(*views, k_mean), views))
+    log(f"[int8] quantize_qkv on the model's f32 views launches {launched or 'not recorded'}; "
+        f"B4 counted {quant_int8.launches - before} in 2 calls; jobs on the caller's storage: "
+        f"{in_place}")
+    one_b4 = (len(launched) == 1 and "quant_int8_kernel" in next(iter(launched))
+              and sum(launched.values()) == 1)
+    if not in_place or quant_int8.launches - before != 2 or (not one_b4 and (launched or census)):
+        raise AssertionError(f"quantize_qkv on [b, h, t, {d}] views launched {launched}, want "
+                             "one B4 launch and no copy")
+    r["ms_of"] = (f"quantize_qkv on contiguous f32; views_ms on the model's [b, h, t, {d}] views "
+                  f"of [b, t, h, {d}] f32 tensors; bf16_ms one launch on bf16 views, as B6's")
     log(f"[timing] quant_int8 on the model's f32 views {r['views_ms']:.4f} ms; on bf16 "
         f"{r['bf16_ms']:.4f} ms (bound {r['bf16_bound_ms']:.4f} ms)")
     bwd, ops = _int8_bwd_times(q, k, v, do, sdpa["bwd"])
@@ -2764,13 +2852,13 @@ def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
     # the GQA shape's inputs from a generator of their own (the phases after
     # this one draw what they drew before it timed a second shape)
     gqa, _ = _int8_bwd_times(*_qkvdo(torch.Generator(device=dev).manual_seed(8), dev,
-                                     *INT8_BWD_GQA[:3], INT8_BWD_GQA[3], INT8_BWD_GQA[3]))
+                                     *INT8_BWD_GQA[:3], INT8_BWD_GQA[3], INT8_BWD_GQA[3], d))
     for name, r in bwd.items():
         r["library_call"] = ("backward of F.scaled_dot_product_attention(is_causal=True), bf16: "
                              "dq, dk, dv together")
         r.update({f"gqa_{key}": gqa[name][key] for key in ("ms", "bound_ms", "tflops",
                                                              "library_ms")})
-        r["gqa_shape"] = "(2, 16 q / 4 kv heads, 2048, 64) causal"
+        r["gqa_shape"] = f"(2, 16 q / 4 kv heads, 2048, {d}) causal"
         log(f"[timing] {name} plain {r['plain_ms']:.4f} ms")
     out.update(bwd)
 
@@ -2778,19 +2866,19 @@ def phase_int8_timing(dev, gen, sdpa: dict) -> dict:
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         torch.autograd.grad(sage_attention_int8(*leaves, causal=True), leaves, do)
 
-    fb_ms = profiled_ms(fwd_bwd)
-    log(f"[timing] sage_attention_int8 forward + backward {fb_ms:.4f} ms (device time, "
-        f"torch.profiler); "
-        f"sdpa bf16 forward {sdpa['fwd']:.4f} ms, backward {sdpa['bwd']:.4f} ms")
+    fb_ms = queued_ms(fwd_bwd)
+    log(f"[timing] sage_attention_int8 forward + backward {_queued_str(fb_ms)}; sdpa bf16 forward "
+        f"{sdpa['fwd']:.4f} ms, backward {sdpa['bwd']:.4f} ms")
     out["int8_fwd"]["fwd_bwd_ms"] = fb_ms
     return out
 
 
-def phase_int8_oracle(dev, gen) -> None:
-    """sage_attention_int8 at the training shape against the fp32 oracle, by
-    the JAX package's own criteria (tests/test_int8_attention.py)."""
-    b, h, t, d = TRAIN_BATCH, 16, TRAIN_CFG.max_seq, 64
-    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t)
+def phase_int8_oracle(dev, gen, d: int = 64) -> None:
+    """sage_attention_int8 at the training shape (BASELINE config 4; head
+    dim d) against the fp32 oracle, by the JAX package's own criteria
+    (tests/test_int8_attention.py)."""
+    b, h, t = TRAIN_BATCH, 16, TRAIN_CFG.max_seq
+    q, k, v, do = _qkvdo(gen, dev, b, h, h, t, t, d)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     o = sage_attention_int8(*leaves, causal=True)
     got = torch.autograd.grad(o, leaves, do)
@@ -2839,10 +2927,10 @@ FUSED_CASES = [(4, 16, 16, 2048, 2048, True, 0.0, torch.bfloat16),
 CONFIG3_SEQS = (2048, 4096, 8192)
 
 
-def _qkv(gen, dev, b, h, h_kv, t, s, dtype=torch.float32, shift=0.0):
-    q = torch.randn((b, h, t, 64), generator=gen, device=dev)
-    k = torch.randn((b, h_kv, s, 64), generator=gen, device=dev) + shift
-    v = torch.randn((b, h_kv, s, 64), generator=gen, device=dev)
+def _qkv(gen, dev, b, h, h_kv, t, s, dtype=torch.float32, shift=0.0, d=64):
+    q = torch.randn((b, h, t, d), generator=gen, device=dev)
+    k = torch.randn((b, h_kv, s, d), generator=gen, device=dev) + shift
+    v = torch.randn((b, h_kv, s, d), generator=gen, device=dev)
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
@@ -2854,7 +2942,8 @@ def _check_fused(q, k, v, causal, label, plain=True) -> float:
     k_sub = k.float().mean(-2, keepdim=True).to(k.dtype)
     o, lse = int8_attention_fwd_fused(q, k, v, causal=causal, k_sub=k_sub)
     res = quantize_qkv(q, k, v, k_sub=k_sub)
-    o_m, lse_m = int8_attention_fwd_from_quantized(res, (*q.shape[:3], k.shape[2], 64), causal)
+    o_m, lse_m = int8_attention_fwd_from_quantized(res, (*q.shape[:3], k.shape[2], q.shape[3]),
+                                                   causal)
     torch.cuda.synchronize()
     d_o, d_l = (o - o_m).abs().max().item(), (lse - lse_m).abs().max().item()
     del res, o_m, lse_m
@@ -2888,20 +2977,36 @@ def phase_int8_fused(dev, gen) -> float:
     return worst
 
 
-def phase_int8_infer_oracle(dev, gen) -> None:
-    """Phase 13: sage_attention_int8_inference against the fp32 oracle with
-    bench.py's gate (f32 inputs), and with a common K offset of 8."""
-    b, h, t = 4, 16, CONFIG3_SEQS[0]
-    q, k, v = _qkv(gen, dev, b, h, h, t, t)
-    rep = mismatch_report("int8 inference fwd", sage_attention_int8_inference(q, k, v, True),
-                          reference_attention(q, k, v, causal=True), INT8_ATOL)
-    k8 = k + 8.0
-    rep8 = mismatch_report("int8 inference fwd, K + 8", sage_attention_int8_inference(q, k8, v),
-                           reference_attention(q, k8, v), INT8_ATOL)
-    log(f"[int8_fused] sage_attention_int8_inference vs fp32 oracle ({b},{h},{t},64) causal: "
-        f"{rep}; non-causal {rep8} (gate: rate <= {INT8_FWD_RATE} at atol {INT8_ATOL})")
-    if not (rep.mismatch_rate <= INT8_FWD_RATE and rep8.mismatch_rate <= INT8_FWD_RATE):
-        raise AssertionError("sage_attention_int8_inference outside bench.py's gate")
+def _oracle_by_batch(q, k, v, causal):
+    """reference_attention one batch element at a time (its f32 scores at
+    (16, 8192, 8192) are 4 GiB an element)."""
+    return torch.cat([reference_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal)
+                      for i in range(q.shape[0])])
+
+
+def phase_int8_infer_oracle(dev, gen, d: int = 64, shapes=((16, CONFIG3_SEQS[0]),)) -> None:
+    """Phase 13 (and phase 30 at d = 128): sage_attention_int8_inference
+    against the fp32 oracle with bench.py's gate (f32 inputs), causal at 4 x
+    16 q heads and each (h_kv, t) of `shapes`, and non-causal with a common
+    K offset of 8 at the first."""
+    reps = []
+    for i, (h_kv, t) in enumerate(shapes):
+        q, k, v = _qkv(gen, dev, 4, 16, h_kv, t, t, d=d)
+        reps.append(mismatch_report(f"int8 inference fwd (4,16q/{h_kv}kv,{t},{d}) causal",
+                                    sage_attention_int8_inference(q, k, v, True),
+                                    _oracle_by_batch(q, k, v, True), INT8_ATOL))
+        if i == 0:
+            k8 = k + 8.0
+            reps.append(mismatch_report(f"int8 inference fwd (4,16q/{h_kv}kv,{t},{d}), K + 8",
+                                        sage_attention_int8_inference(q, k8, v),
+                                        _oracle_by_batch(q, k8, v, False), INT8_ATOL))
+            del k8
+        del q, k, v
+    log(f"[int8_fused] sage_attention_int8_inference vs fp32 oracle: " + "; ".join(map(str, reps))
+        + f" (gate: rate <= {INT8_FWD_RATE} at atol {INT8_ATOL})")
+    if max(r.mismatch_rate for r in reps) > INT8_FWD_RATE:
+        raise AssertionError(f"sage_attention_int8_inference at head dim {d} outside bench.py's "
+                             "gate")
 
 
 def _b1_bound_ms(q, k, v, pairs) -> float:
@@ -2911,13 +3016,14 @@ def _b1_bound_ms(q, k, v, pairs) -> float:
     return bound(nbytes(q, k, v) + out_bytes, (2 * 2 * pairs * q.shape[-1], PEAK_BF16))["bound_ms"]
 
 
-def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
-    """Phase 14, BASELINE config 3. The path run: sage_attention_int8_inference
-    once at each sequence length on bf16 inputs, counts from 0. Then device
-    time per call of B6 (with the K shift precomputed), SDPA bf16, B4 -> B5
-    (`int8_attention_fwd`, which also casts to f32) and B1 on the same
-    inputs. Returns (B6's numbers at (4,16,2048,64), the path's launches)."""
-    inputs = {t: _qkv(gen, dev, 4, 16, 16, t, t, torch.bfloat16) for t in CONFIG3_SEQS}
+def phase_int8_infer_timing(dev, gen, d: int = 64) -> tuple[dict, dict]:
+    """Phase 14, BASELINE config 3 (at head dim d). The path run:
+    sage_attention_int8_inference once at each sequence length on bf16
+    inputs, counts from 0. Then device time per call of B6 (with the K shift
+    precomputed), SDPA bf16, B4 -> B5 (`int8_attention_fwd`, which also
+    casts to f32) and B1 on the same inputs. Returns (B6's numbers at
+    (4,16,2048,d), the path's launches)."""
+    inputs = {t: _qkv(gen, dev, 4, 16, 16, t, t, torch.bfloat16, d=d) for t in CONFIG3_SEQS}
     _reset_counts()
     for t, (q, k, v) in inputs.items():
         o = sage_attention_int8_inference(q, k, v, causal=True)
@@ -2935,7 +3041,7 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
         k_sub = k.float().mean(-2, keepdim=True).to(k.dtype)
         o, lse = int8_attention_fwd_fused(q, k, v, causal=True, k_sub=k_sub)
         pairs = 4 * 16 * visible_pairs(t, t, True)
-        flops = 4 * 4 * 16 * t * t * 64 * 0.5  # bench.py's count
+        flops = 4 * 4 * 16 * t * t * d * 0.5  # bench.py's count
         dims, jobs = _fused_launch_args(q, k, v, k_sub)
         scratch = quant_int8_uncounted(jobs)
         r = {"ms": device_ms(lambda: int8_attention_fwd_fused(q, k, v, True, k_sub=k_sub)),
@@ -2946,8 +3052,8 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
              "b4_b5_ms": device_ms(lambda: int8_attention_fwd(q, k, v, True, k_sub=k_sub)),
              "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
              "b1_bound_ms": _b1_bound_ms(q, k, v, pairs),
-             **bound(nbytes(q, k, v, k_sub, o, lse), (2 * pairs * 64, PEAK_INT8),
-                     (2 * pairs * 64, PEAK_BF16), (2 * (q.numel() + 2 * k.numel()), PEAK_FP32))}
+             **bound(nbytes(q, k, v, k_sub, o, lse), (2 * pairs * d, PEAK_INT8),
+                     (2 * pairs * d, PEAK_BF16), (2 * (q.numel() + 2 * k.numel()), PEAK_FP32))}
         r["tflops"] = {name: flops / (r[key] * 1e-3) / 1e12 for name, key in (
             ("int8_fused", "ms"), ("sdpa", "sdpa_ms"), ("b4_b5", "b4_b5_ms"), ("b1", "b1_ms"))}
         if t == CONFIG3_SEQS[0]:
@@ -2956,7 +3062,7 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
             out = r
         rows[t] = r
         del scratch
-        log(f"[timing] config 3 (4,16,{t},64) causal bf16: B6 {r['ms']:.4f} ms "
+        log(f"[timing] config 3 (4,16,{t},{d}) causal bf16: B6 {r['ms']:.4f} ms "
             f"({r['tflops']['int8_fused']:.1f} TFLOP/s; Q/K/V quantize launch "
             f"{r['quantize_ms']:.4f} ms + mainloop {r['mainloop_ms']:.4f} ms; entry point "
             f"{r['entry_ms']:.4f} ms), "
@@ -2968,7 +3074,7 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
     del inputs
     # the GQA A/B shape (bench.py:250)
     t = CONFIG3_SEQS[1]
-    q, k, v = _qkv(gen, dev, 4, 16, 4, t, t, torch.bfloat16)
+    q, k, v = _qkv(gen, dev, 4, 16, 4, t, t, torch.bfloat16, d=d)
     k_sub = k.float().mean(-2, keepdim=True).to(k.dtype)
     gqa = {"ms": device_ms(lambda: int8_attention_fwd_fused(q, k, v, True, k_sub=k_sub)),
            "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
@@ -2976,7 +3082,7 @@ def phase_int8_infer_timing(dev, gen) -> tuple[dict, dict]:
            "b4_b5_ms": device_ms(lambda: int8_attention_fwd(q, k, v, True, k_sub=k_sub)),
            "b1_ms": device_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
            "b1_bound_ms": _b1_bound_ms(q, k, v, 4 * 16 * visible_pairs(t, t, True))}
-    log(f"[timing] GQA (4,16q/4kv,{t},64) causal bf16: B6 {gqa['ms']:.4f} ms, sdpa "
+    log(f"[timing] GQA (4,16q/4kv,{t},{d}) causal bf16: B6 {gqa['ms']:.4f} ms, sdpa "
         f"{gqa['sdpa_ms']:.4f} ms, B4 -> B5 {gqa['b4_b5_ms']:.4f} ms, B1 {gqa['b1_ms']:.4f} ms "
         f"(bound {gqa['b1_bound_ms']:.4f} ms)")
     out.update(library_ms=out["sdpa_ms"],
@@ -4686,7 +4792,7 @@ def phase_pipeline(dev, smi, pool) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Phase 30: head dim 128 (B1 bf16, fast B2/B3 and B13)
+# Phase 30: head dim 128 (B1 bf16, fast B2/B3 and B13; B4-B8 and B14)
 # --------------------------------------------------------------------------
 
 HEAD128 = 128
@@ -4886,19 +4992,230 @@ def _head128_timing(dev) -> dict:
     return out
 
 
-def phase_head128(dev, smi) -> dict:
-    """Phase 30: head dim 128 on the main paths. The kernels at their tile
-    edges, BASELINE config 2 against the fp32 oracle, the timings, then
-    make_train_step at TRAIN128_CFG (phase 10's parity, steps and exact
-    launches) and ServingEngine at SERVE128_CFG (f32 params: tokens equal
-    `generate`'s; bf16 params: tokens/s). Returns {kernel: its d=128 entry}
-    with the launches of both paths."""
+# the int8 family's tile edges at 128 (B5 walks 64-key tiles through 3
+# stages, B7 128-key blocks over 64-row q tiles through 3, B8 128-row blocks
+# over 64-key tiles): t and s off a multiple of 128, causal t < s and t > s,
+# GQA rep 4 and 8, rep 3, one token, a ragged length whose padded K rows
+# (smoothed to -k_mean) set the last K grain's scale, and more key tiles
+# than stages; then the shapes the d=128 paths give the kernels, as
+# INT8_CASES holds them at 64: the int8 train step's (BASELINE config 4),
+# GQA rep 4 at 2048 and the int8 serving prefill's; (b, h, h_kv, t, s,
+# causal, K offset)
+HEAD128_INT8_CASES = [(1, 8, 8, 200, 330, True, 4.0), (1, 8, 8, 330, 200, True, 0.0),
+                      (1, 16, 4, 300, 300, True, 4.0), (1, 16, 2, 257, 257, True, 0.0),
+                      (1, 4, 2, 77, 201, False, 4.0), (1, 3, 1, 1, 1, True, 0.0),
+                      (2, 6, 2, 33, 130, True, 4.0), (2, 16, 16, 1000, 1000, True, 4.0),
+                      (1, 4, 4, 1280, 1280, False, 0.0),
+                      (TRAIN_BATCH, 16, 16, TRAIN128_CFG.max_seq, TRAIN128_CFG.max_seq, True, 0.0),
+                      (2, 16, 4, 2048, 2048, True, 0.0),
+                      (N_SLOTS, SERVE128_CFG.n_heads, SERVE128_CFG.n_kv_heads, PROMPT_LEN,
+                       PROMPT_LEN, True, 0.0)]
+# nonzero global offsets, causal: the q shard after the k shard, and before
+# it (rows that see no key); (b, h, h_kv, t, s, q_offset, k_offset)
+HEAD128_INT8_OFFSETS = [(1, 8, 2, 256, 256, 256, 0), (1, 8, 2, 200, 330, 256, 384)]
+# B6 at 128: (b, h, h_kv, t, s, causal, K offset, dtype)
+HEAD128_FUSED_CASES = [(2, 16, 16, 1000, 1000, True, 4.0, torch.bfloat16),
+                       (1, 16, 4, 300, 300, True, 0.0, torch.float32),
+                       (1, 4, 2, 77, 201, False, 4.0, torch.bfloat16),
+                       (1, 3, 1, 1, 1, True, 0.0, torch.float32),
+                       (4, 16, 16, 2048, 2048, True, 0.0, torch.bfloat16)]
+# BASELINE config 3 at 128 against the oracle: (h_kv, t) at 4 x 16 q heads
+HEAD128_CONFIG3 = [(16, 2048), (16, 4096), (16, 8192), (4, 4096)]
+# the d=128 serving model's prefill through B4 + B5: (b, h, h_kv, t), causal
+SERVE128_PREFILL = (N_SLOTS, 16, 4, PROMPT_LEN)
+INT8_TRAIN128_CFG = dataclasses.replace(TRAIN128_CFG, attention="int8")
+INT8_SERVE128_CFG = dataclasses.replace(SERVE128_CFG, attention="int8")
+
+
+def _head128_int8_kernels(dev) -> tuple[dict, dict]:
+    """B4, B5, B6, B7/B8 and B14 at head dim 128 against their plain
+    versions at the tolerances of their head-dim-64 phases (8, 12, 21, 23):
+    B4 byte-equal on f32 and bf16 views at every grain, and within each
+    case; B5, B7 and B8 at HEAD128_INT8_CASES and with global offsets, each
+    kernel called twice for the same bits; B6 against B4 -> B5 (lse equal)
+    and its plain version; B14 against its plain version and against B13 bit
+    for bit, at spec 1 and on the verify staircase. Returns (each kernel's
+    max|diff|, B7's and B8's worst max|diff| / max|plain| with its case)."""
+    gen = torch.Generator(device=dev).manual_seed(33)
+    _check_quant(gen, dev, HEAD128)
+    errs, worst = [], {"dq": (0.0, ""), "dk": (0.0, ""), "dv": (0.0, "")}
+
+    def case(q, k, v, do, causal, label, **offsets):
+        err, rel = _check_int8(q, k, v, do, causal, label, **offsets)
+        errs.append(err)
+        worst.update({n: (r, label) for n, r in rel.items() if r > worst[n][0]})
+
+    for b, h, h_kv, t, s, causal, shift in HEAD128_INT8_CASES:
+        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s, HEAD128)
+        case(q, k + shift, v, do, causal, f"d=128 b={b} h={h} h_kv={h_kv} t={t} s={s} "
+             f"causal={causal} K mean {shift}")
+    for b, h, h_kv, t, s, qo, ko in HEAD128_INT8_OFFSETS:
+        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s, HEAD128)
+        case(q, k, v, do, True, f"d=128 b={b} h={h} h_kv={h_kv} t={t} s={s} causal, q_offset "
+             f"{qo} k_offset {ko}", q_offset=qo, k_offset=ko)
+    err = _worst(*errs)
+    err["int8_fused"] = max(
+        _check_fused(*_qkv(gen, dev, b, h, h_kv, t, s, dtype, shift, HEAD128), causal,
+                     f"d=128 b={b} h={h} h_kv={h_kv} t={t} s={s} causal={causal} K mean {shift} "
+                     f"{dtype}") for b, h, h_kv, t, s, causal, shift, dtype in HEAD128_FUSED_CASES)
+    err["paged_decode"] = 0.0
+    for n_q, n_kv in ((16, 16), (16, 4)):
+        q, dense8, paged8, _, _ = _paged8_case(dev, gen, n_q, n_kv, CACHE_LENGTHS, True, HEAD128)
+        label = (f"d=128, 8 seqs, {n_q} q / {n_kv} kv heads, page {PAGE} x {MAX_PAGES}, lengths "
+                 f"{CACHE_LENGTHS}, shuffled pages, junk pages, non-finite stale scales")
+        err["paged_decode"] = max(err["paged_decode"], _check_decode_kernel(
+            "paged_decode", paged_decode_attention, paged_decode_attention_plain, q, paged8,
+            label))
+        b14 = paged_decode_attention(q, paged8, return_lse=True)
+        again = paged_decode_attention(q, paged8, return_lse=True)
+        if not all(torch.equal(a, b) for a, b in zip(b14, again)):
+            raise AssertionError(f"paged_decode gives other bits on a second call at {label}")
+        _check_twins("paged_decode", b14, decode_attention(q, dense8, return_lse=True),
+                     f"d=128 B14 on shuffled pages vs B13 dense, {n_q}/{n_kv} heads", exact=True)
+        _, vdense, vpaged, _, _ = _paged8_case(dev, gen, n_q, n_kv, SPEC_LENGTHS, True, HEAD128)
+        for spec in SPECS:
+            qv = torch.randn((len(SPEC_LENGTHS), n_q, spec, HEAD128), generator=gen, device=dev)
+            err["paged_decode"] = max(err["paged_decode"], _check_verify(
+                "paged_decode", qv, vpaged, f"d=128, 8 seqs, {n_q} q / {n_kv} kv heads, lengths "
+                f"{SPEC_LENGTHS}, shuffled pages, non-finite stale scales"))
+            if not torch.equal(paged_verify_attention(qv, vpaged),
+                               verify_decode_attention(qv, vdense)):
+                raise AssertionError(f"d=128 B14's verify staircase differs from B13's at spec "
+                                     f"{spec}, {n_q}/{n_kv} heads")
+    log("[head128] B7/B8 worst max|diff|/max|plain| at d=128 (INT8_BWD_TOL "
+        f"{INT8_BWD_TOL}): " + "; ".join(f"{n} {r:.3e} at {where}" for n, (r, where)
+                                         in worst.items()))
+    return err, {n: {"rel": r, "case": where} for n, (r, where) in worst.items()}
+
+
+def _head128_int8_timing(dev, sdpa: dict, census: bool) -> tuple[dict, dict]:
+    """Config 4's shape (phase 8's timing at 128: B4, B5, B7, B8 beside their
+    plain versions, bounds and SDPA's d=128 bf16 forward and backward; B7/B8
+    at GQA rep 4), config 3's (phase 14 at 128: the inference path once at
+    each length, then B6 at 2048-8192 and GQA), B4 + B5 at the d=128 serving
+    model's prefill, and B14 at its decode shape and at capacity. Returns
+    ({kernel: times}, the config 3 path's launches)."""
+    gen = torch.Generator(device=dev).manual_seed(35)
+    out = phase_int8_timing(dev, gen, sdpa, HEAD128, census)
+    out["int8_fused"], infer_launches = phase_int8_infer_timing(dev, gen, HEAD128)
+    b, h, h_kv, t = SERVE128_PREFILL
+    q, k, v = _qkv(gen, dev, b, h, h_kv, t, t, torch.bfloat16, d=HEAD128)
+    k_mean = k.float().mean(-2, keepdim=True)
+    res = quantize_qkv(q, k, v, k_sub=k_mean)
+    dims = (b, h, t, t, HEAD128)
+    o, lse = int8_attention_fwd_from_quantized(res, dims, causal=True)
+    pairs = b * h * visible_pairs(t, t, True)
+    prefill = {
+        "quant_int8_ms": device_ms(lambda: quantize_qkv(q, k, v, k_sub=k_mean)),
+        "int8_fwd_ms": device_ms(lambda: int8_attention_fwd_from_quantized(res, dims, True)),
+        "int8_fwd_plain_ms": device_ms(lambda: int8_attention_fwd_from_quantized_plain(
+            res, dims, True), calls=4, replays=5),
+        "int8_fwd_bound_ms": bound(nbytes(*(x for pair in res for x in pair), o, lse),
+                                   (2 * pairs * HEAD128, PEAK_INT8),
+                                   (2 * pairs * HEAD128, PEAK_BF16))["bound_ms"],
+        "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                     enable_gqa=True)),
+        "shape": f"{SERVE128_PREFILL} x 128 causal, bf16 in"}
+    log(f"[head128] serving prefill {SERVE128_PREFILL} x 128 causal: B4 "
+        f"{prefill['quant_int8_ms']:.4f} ms, B5 {prefill['int8_fwd_ms']:.4f} ms (plain "
+        f"{prefill['int8_fwd_plain_ms']:.4f} ms, bound {prefill['int8_fwd_bound_ms']:.4f} ms), "
+        f"sdpa bf16 {prefill['sdpa_ms']:.4f} ms")
+    out["int8_fwd"]["serve128_prefill"] = prefill
+    del res, o, lse
+    # B14 at the serving decode shape of SERVE128_CFG (beside B13 on the same
+    # K/V) and at capacity
+    length = PROMPT_LEN + NEW_TOKENS // 2
+    q, dense8, paged8, _, _ = _paged8_case(dev, gen, 16, 4, [length] * N_SLOTS, False, HEAD128)
+    o = paged_decode_attention(q, paged8)
+    n_tok = length * N_SLOTS
+    live_pages = N_SLOTS * -(-length // PAGE)
+    dec = {"ms": device_ms(lambda: paged_decode_attention(q, paged8)),
+           "plain_ms": device_ms(lambda: paged_decode_attention_plain(q, paged8)),
+           "decode_ms_beside": device_ms(lambda: decode_attention(q, dense8)),
+           **bound(n_tok * 4 * 2 * (HEAD128 + 4) + 4 * live_pages + nbytes(q, o, paged8.lengths),
+                   (2 * 2 * n_tok * q.shape[1] * HEAD128, PEAK_BF16)),
+           "library_ms": None}
+    log(f"[head128] paged_decode d=128, 8 seqs x 16 q / 4 kv heads, length {length} of "
+        f"{BENCH_CFG.max_seq}: kernel {dec['ms']:.4f} ms (B13 {dec['decode_ms_beside']:.4f} ms), "
+        f"plain {dec['plain_ms']:.4f} ms, bound {dec['bound_ms']:.4f} ms ({dec['bound_by']})")
+    dec.update(_capacity_times("paged_decode", dev, lambda g, n_kv: _paged8_case(
+        dev, g, 16, n_kv, [BENCH_CFG.max_seq] * N_SLOTS, False, HEAD128)[::2][:2]))
+    out["paged_decode"] = dec
+    shapes = {"quant_int8": "(4, 16, 2048, 128) causal", "int8_fwd": "(4, 16, 2048, 128) causal",
+              "int8_bwd_dkv": "(4, 16, 2048, 128) causal",
+              "int8_bwd_dq": "(4, 16, 2048, 128) causal",
+              "int8_fused": "(4, 16, 2048, 128) causal, bf16 in",
+              "paged_decode": f"8 seqs x 16 q / 4 kv heads x 128, length {length} of 1280"}
+    for name, r in out.items():
+        r["shape"] = shapes[name]
+    return out, infer_launches
+
+
+def _head128_int8_paths(dev, smi, bf16_norms) -> dict:
+    """make_train_step at INT8_TRAIN128_CFG (phase 10's parity and exact
+    launches: B4, B5, B7, B8 n_layers times a step; config 4's gradient-norm
+    ratio against the bf16 run at TRAIN128_CFG under GRAD_NORM_RATIO), then
+    ServingEngine at INT8_SERVE128_CFG on the slotted cache (B13) and on
+    cache="paged" (B14): prefill through B4 + B5 (rep 4), f32 params' tokens
+    equal `generate`'s, bf16 params' tokens/s. Returns the launches by path,
+    the train step and the tokens/s."""
+    launches, run = phase_train(dev, smi, INT8_TRAIN128_CFG)
+    ratios = [a / b for a, b in zip(run["grad_norms"], bf16_norms)]
+    log(f"[head128] int8 train step at TRAIN128_CFG: global grad norm int8 / bf16 per step "
+        f"{[round(r, 4) for r in ratios]} (limit {GRAD_NORM_RATIO})")
+    if not all(np.isfinite(ratios)) or max(ratios) >= GRAD_NORM_RATIO:
+        raise AssertionError("int8 gradient norms at head dim 128 left 2x the bf16 run's "
+                             "(BASELINE config 4)")
+    paths = {"train128_int8": launches}
+    speed = {}
+    n_layers = INT8_SERVE128_CFG.n_layers
+    for path, decode, kw in (("serve128_int8", "decode", {}),
+                             ("serve128_int8_paged", "paged_decode", {"cache": "paged"})):
+        for dtype in (torch.float32, torch.bfloat16):
+            _, counts, tok_s, _ = _serve(dev, smi, INT8_SERVE128_CFG, param_dtype=dtype, **kw)
+            used = {k: v for k, v in counts.items() if v}
+            if set(used) != {"quant_int8", "int8_fwd", decode} or \
+                    used["quant_int8"] != n_layers or used["int8_fwd"] != n_layers:
+                raise AssertionError(f"{path}: the d=128 int8 served run launched {used}, want "
+                                     f"quant_int8 and int8_fwd {n_layers} times (one batched "
+                                     f"prefill) and {decode}")
+        paths[path] = used
+        speed[path] = tok_s
+    log(f"[head128] int8 serving at SERVE128_CFG, bf16 params: "
+        + ", ".join(f"{p} {s:.1f} tokens/s" for p, s in speed.items()))
+    return {"launches": paths, "train": {"median_step_ms": run["median_ms"],
+                                         "max_memory_gib": run["max_memory_gib"],
+                                         "grad_norm_ratios": ratios},
+            "tokens_per_s": speed}
+
+
+def phase_head128(dev, smi, alone: bool = False) -> dict:
+    """Phase 30: head dim 128 on the main paths. The bf16 kernels (B1-B3,
+    B13) and the int8 family (B4-B8, B14) at their tile edges, BASELINE
+    configs 2, 3 and 4 against the fp32 oracle, the timings, then
+    make_train_step at TRAIN128_CFG in bf16 and int8 (phase 10's parity,
+    steps and exact launches; the int8/bf16 gradient-norm ratio) and
+    ServingEngine at SERVE128_CFG in bf16 and with int8 prefill on the
+    slotted and paged caches (f32 params: tokens equal `generate`'s; bf16
+    params: tokens/s). Returns {kernel: its d=128 entry} with the launches
+    of every path. `alone`: the process runs no other phase, so B4's profile
+    census must record (phase_int8_timing)."""
     errs = _head128_kernels(dev)
+    int8_errs, bwd_rel = _head128_int8_kernels(dev)
     _head128_oracle(dev)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    phase_int8_oracle(dev, gen, HEAD128)
+    phase_int8_infer_oracle(dev, gen, HEAD128, HEAD128_CONFIG3)
     out = _head128_timing(dev)
-    for name, e in errs.items():
-        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+    sdpa = {"fwd": out["flash_fwd"]["library_ms"], "bwd": out["flash_bwd_dq"]["library_ms"]}
+    timing, infer_launches = _head128_int8_timing(dev, sdpa, census=alone)
+    out.update(timing)
+    for name, e in {**errs, **int8_errs}.items():
+        out[name]["max_abs_err"] = max(out[name].get("max_abs_err", 0.0), e)
+    for name, key in (("int8_bwd_dq", "dq"), ("int8_bwd_dkv", "dk"), ("int8_bwd_dkv", "dv")):
+        out[name][f"worst_rel_{key}"] = bwd_rel[key]
     train_launches, run = phase_train(dev, smi, TRAIN128_CFG)
+    int8 = _head128_int8_paths(dev, smi, run["grad_norms"])
     serve = {}
     for dtype in (torch.float32, torch.bfloat16):
         _, launches, tok_s, _ = _serve(dev, smi, SERVE128_CFG, param_dtype=dtype)
@@ -4910,21 +5227,24 @@ def phase_head128(dev, smi) -> dict:
     log(f"[head128] train step at TRAIN128_CFG: median {run['median_ms']:.2f} ms, "
         f"max_memory_allocated {run['max_memory_gib']:.2f} GiB, launches {train_launches}; "
         f"serving at SERVE128_CFG: {serve}")
-    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode"):
-        by_path = {"train128": train_launches.get(name, 0),
-                   "serve128": serve["bfloat16"]["launches"].get(name, 0)}
+    paths = {"train128": train_launches, "serve128": serve["bfloat16"]["launches"],
+             **int8["launches"], "infer128_int8": infer_launches}
+    for name in HEAD128_ROWS:
+        by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         out[name]["launches_by_path"] = {p: n for p, n in by_path.items() if n}
     out["flash_bwd_dkv"]["prep_launches_by_path"] = {"train128": train_launches["flash_bwd_prep"]}
     out["train128"] = {"median_step_ms": run["median_ms"], "max_memory_gib": run["max_memory_gib"]}
-    out["serve128_tokens_per_s"] = serve["bfloat16"]["tokens_per_s"]
+    out["train128_int8"] = int8["train"]
+    out["serve128_tokens_per_s"] = {"serve128": serve["bfloat16"]["tokens_per_s"],
+                                    **int8["tokens_per_s"]}
     return out
 
 
 def _head128_rows(kernels: list, head128: dict) -> None:
-    """Phase 30's numbers into the `kernels` line: each of B1, B2, B3 and B13
+    """Phase 30's numbers into the `kernels` line: each of B1-B8, B13 and B14
     gains its d=128 entry and its paths' launches."""
     for k in kernels:
-        if k["name"] in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode"):
+        if k["name"] in HEAD128_ROWS:
             row = dict(head128[k["name"]])
             k["launches_by_path"].update(row.pop("launches_by_path"))
             if "prep_launches_by_path" in row:
@@ -5338,15 +5658,21 @@ HEAD128_ROWS = {  # phase 30's kernels: source and the TPU kernel each replaces
     "flash_bwd_dkv": ("flash_bwd.cu", "quantizedattention_tpu/ops/flash_bwd.py:66"),
     "flash_bwd_dq": ("flash_bwd.cu", "quantizedattention_tpu/ops/flash_bwd.py:132"),
     "decode": ("cache_decode.cu", "quantizedattention_tpu/parallel/kv_cache.py:172"),
+    "quant_int8": ("quant_int8.cu", "quantizedattention_tpu/quantize/int8.py:66"),
+    "int8_fwd": ("int8_fwd.cu", "quantizedattention_tpu/ops/int8_fwd.py:68"),
+    "int8_bwd_dkv": ("int8_bwd.cu", "quantizedattention_tpu/ops/int8_bwd.py:62"),
+    "int8_bwd_dq": ("int8_bwd.cu", "quantizedattention_tpu/ops/int8_bwd.py:123"),
+    "int8_fused": ("int8_fwd.cu", "quantizedattention_tpu/ops/int8_fwd.py:197"),
+    "paged_decode": ("cache_decode.cu", "quantizedattention_tpu/parallel/paged_cache.py:252"),
 }
 
 
 def main_head128() -> None:
     """`python3 chip_smoke.py head128`: phases 1, 2 and 30 alone; the
-    `kernels` line holds the four kernels at head dim 128."""
+    `kernels` line holds the ten kernels at head dim 128 (B1-B8, B13, B14)."""
     name, smi = phase_device()
     phase_build()
-    head128 = phase_head128(torch.device("cuda", 0), smi)
+    head128 = phase_head128(torch.device("cuda", 0), smi, alone=True)
     kernels = []
     for kname, (source, replaces) in HEAD128_ROWS.items():
         row = dict(head128[kname])

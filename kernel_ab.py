@@ -439,7 +439,7 @@ def _quant_rows(torch, gen, dev) -> dict:
     def on_views():
         return quantize_qkv(*views, k_sub=k_mean)
 
-    kernel_ms, rest_ms = _kernel_split_ms(torch, on_views, ("quant_int8_kernel<float>",))
+    kernel_ms, rest_ms = _kernel_split_ms(torch, on_views, ("quant_int8_kernel",))
     return {f"quant b={b} h={h} t={t}": {
         "f32_contiguous_ms": _device_ms(torch, lambda: quantize_qkv(*dense, k_sub=k_mean)),
         "f32_views_ms": _device_ms(torch, on_views), "f32_views_kernel_ms": kernel_ms,

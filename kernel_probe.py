@@ -6,15 +6,16 @@ the JVP family's fast kernels (B9, B11, B12, csrc/jvp.cu) and the decode
 kernels (B13-B16, one body in csrc/cache_decode.cu, its int4 instance in
 decode4 and its int8 one in decode8), the Q/K/V quantizer (B4, quant) and
 the tangent's exact mode (B10, jvp_tangent, also a numerics witness); and
-four numerics witnesses, bwd_exact, fwd_fp32, flash_digest (B1-B3's
+five numerics witnesses, bwd_exact, fwd_fp32, flash_digest (B1-B3's
 outputs at zero offsets and head dim 64 hashed here and in a parent
-checkout, then at head dim 128 here) and
-int8_digest (B4-B8's, the same way).
+checkout, then at head dim 128 here), int8_digest (B4-B8's, the same way)
+and decode_digest (B13-B16's at head dim 64, decode8's last step alone).
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                             [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
-                            [quant] [jvp_tangent] [flash_digest] [int8_digest] [sass]
-                            [PARENT_CHECKOUT]  (all parts without arguments)
+                            [quant] [jvp_tangent] [flash_digest] [int8_digest]
+                            [decode_digest] [sass] [PARENT_CHECKOUT]  (all parts without
+                            arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -368,8 +369,8 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
         lib.qa_flash_fwd_f32.restype = ctypes.c_int
     elif name.startswith("bwd"):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 11 + [f32, f32, ptr]
-        lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 12 + [f32, f32, ptr]
+        lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 11 + [f32, f32, i32, ptr]
+        lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 12 + [f32, f32, i32, ptr]
         lib.qa_int8_bwd_dkv.restype = lib.qa_int8_bwd_dq.restype = ctypes.c_int
     elif name.startswith("b18"):
         lib.qa_int4_linear.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -479,9 +480,9 @@ _B7_COMPUTE = "    if (q0 + TILE > t || kw0 + 64 > s"
 _B8_COMPUTE = "    if (k0 + TILE > s || (causal && k0 + TILE - 1 > q0 + diag))"
 _B7_LATE = "    {  // dV += P^T dO"
 _B8_LATE = "    {  // dQ_seg += dS K"
-_B7_WIDEN = "    widen_tile_64x64(smem + DKV_OFF_Q + st * I8_TILE"
-_B8_WIDEN = ("      widen_tile_64x64(smem + DQ_OFF_K + sn * I8_TILE,",
-             "      widen_tile_64x64(smem + DQ_OFF_V + sn * I8_TILE,")
+_B7_WIDEN = "    widen_tile<D>(smem + G::DKV_OFF_Q + st * I8_TILE"
+_B8_WIDEN = ("      widen_tile<D>(smem + G::DQ_OFF_K + sn * I8_TILE,",
+             "      widen_tile<D>(smem + G::DQ_OFF_V + sn * I8_TILE,")
 _SKIP = "    if (n_tiles < 0)\n"  # a condition that never holds, before the anchor
 # the late products with A from a shared tile of the stage (K-major) instead
 # of the P^T / dS fragments in registers
@@ -511,15 +512,18 @@ BWD_VARIANTS = {
                      *((a, "  " + _SKIP + a) for a in _B8_WIDEN)],
     "bwd_late_a_from_smem": [
         ('#include "hopper.cuh"\n', _SS_HELPER),
-        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, pa[kk], desc_dot + 128 * kk, 1)",
-         "wgmma_ss_probe(dv_acc, desc_kmajor_sw128(base + DKV_OFF_DO + st * BF_TILE) + 2 * kk, "
-         "desc_dot + 128 * kk)"),
-        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_seg, da[kk], desc_qw + 128 * kk, 1)",
-         "wgmma_ss_probe(dk_seg, desc_kmajor_sw128(base + DKV_OFF_DO + st * BF_TILE) + 2 * kk, "
-         "desc_qw + 128 * kk)"),
-        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_seg, dsa[kk], desc_kw + 128 * kk, 1)",
-         "wgmma_ss_probe(dq_seg, desc_kmajor_sw128(base + DQ_OFF_VW + (j % 2) * BF_TILE) + 2 * kk, "
-         "desc_kw + 128 * kk)")],
+        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc[p], pa[kk],\n"
+         "                                             desc_dot + p * PANEL_DESC + 128 * kk, 1)",
+         "wgmma_ss_probe(dv_acc[p], desc_kmajor_sw128(base + G::DKV_OFF_DO + st * BF_TILE) "
+         "+ 2 * kk, desc_dot + p * PANEL_DESC + 128 * kk)"),
+        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_seg[p], da[kk],\n"
+         "                                             desc_qw + p * PANEL_DESC + 128 * kk, 1)",
+         "wgmma_ss_probe(dk_seg[p], desc_kmajor_sw128(base + G::DKV_OFF_DO + st * BF_TILE) "
+         "+ 2 * kk, desc_qw + p * PANEL_DESC + 128 * kk)"),
+        ("wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_seg[p], dsa[kk],\n"
+         "                                             desc_kw + p * PANEL_DESC + 128 * kk, 1)",
+         "wgmma_ss_probe(dq_seg[p], desc_kmajor_sw128(base + G::DQ_OFF_VW + (j % 2) * BF_TILE) "
+         "+ 2 * kk, desc_kw + p * PANEL_DESC + 128 * kk)")],
 }
 # (anchor, phase ended there, insert before the anchor?) of each kernel's mainloop
 B7_PHASES = [("    const float next_rows = fetch_rows(i + 1);\n", "refill + rows", False),
@@ -603,12 +607,12 @@ def _bwd_call(lib, ops, kernel):
         dv = torch.empty_like(dk)
         status = lib.qa_int8_bwd_dkv(*tbwd._inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints,
                                      int(ops.causal), ops.q_offset, ops.k_offset, ops.qk_scale,
-                                     ops.sm_scale, stream)
+                                     ops.sm_scale, d, stream)
     else:
         dq = torch.empty((ops.k_i8.shape[0], ops.rep, t, d), dtype=torch.float32, device=dev)
         status = lib.qa_int8_bwd_dq(*tbwd._inputs(ops), ops.k_mean.data_ptr(), dq.data_ptr(),
                                     *ints, bq, int(ops.causal), ops.q_offset, ops.k_offset,
-                                    ops.qk_scale, ops.sm_scale, stream)
+                                    ops.qk_scale, ops.sm_scale, d, stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
 
@@ -1762,6 +1766,15 @@ def probe_int8_digest(smi, parent=None) -> None:
     _digest(_INT8_DIGEST, "B4-B8", smi, parent)
 
 
+def probe_decode_digest(smi, parent=None) -> None:
+    """decode8's last step alone: B13's and B14's max|dO| against their plain
+    versions and the digests of their outputs (and of B15's and B16's) at
+    head dim 64, in the parent checkout (if given) and here."""
+    for tree in ([parent] if parent else []) + ["."]:
+        print(f"[error] B13/B14 max|dO| vs plain (DECODE_TOL 5e-3), {os.path.abspath(tree)}: "
+              + _d8_errors(tree) + f" ({smi})", flush=True)
+
+
 def probe_decode8(smi, parent=None) -> None:
     """B13's knock-outs and its 128-token-chunk variant (on bf16 q), B13 on
     f32 q (rounded in the kernel), B14, and the whole wrapper call, timed at
@@ -1793,9 +1806,7 @@ def probe_decode8(smi, parent=None) -> None:
               + f" us ({smi})", flush=True)
         print(f"[split] B13 d={d} {label}: " + _d4_split(libs["d8_stamped"], label, qb, slotted,
                                                          outs, arrived, n_kv, spec, 8), flush=True)
-    for tree in ([parent] if parent else []) + ["."]:
-        print(f"[error] B13/B14 max|dO| vs plain (DECODE_TOL 5e-3), {os.path.abspath(tree)}: "
-              + _d8_errors(tree) + f" ({smi})", flush=True)
+    probe_decode_digest(smi, parent)
 
 
 # --------------------------------------------------------------------------
@@ -1849,7 +1860,7 @@ def _quant_call(lib, jobs, out):
         (ctypes.c_void_p * n)(*(sc.data_ptr() for _, sc in out)),
         (ctypes.c_int * n)(*(v[0] for v in views)), (ctypes.c_int * n)(*(v[2] for v in views)),
         (ctypes.c_int * n)(*(j.pad for j in jobs)), (ctypes.c_int * n)(*(j.grain for j in jobs)),
-        n, tq.IN_TYPES[jobs[0].x.dtype], torch.cuda.current_stream().cuda_stream)
+        n, tq.IN_TYPES[jobs[0].x.dtype], jobs[0].x.shape[-1], torch.cuda.current_stream().cuda_stream)
     if status:
         raise SystemExit(f"kernel_probe: quant launch failed with status {status}")
 
@@ -2046,7 +2057,7 @@ def main() -> None:
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
              "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent", "flash_digest",
-             "int8_digest", "sass"]
+             "int8_digest", "decode_digest", "sass"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -2084,6 +2095,8 @@ def main() -> None:
         probe_flash_digest(smi, dirs[0] if dirs else None)
     if "int8_digest" in parts:
         probe_int8_digest(smi, dirs[0] if dirs else None)
+    if "decode_digest" in parts and "decode8" not in parts:
+        probe_decode_digest(smi, dirs[0] if dirs else None)
     if "sass" in parts:
         probe_sass(smi, dirs[0] if dirs else None)
 

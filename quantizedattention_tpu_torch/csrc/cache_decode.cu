@@ -82,8 +82,8 @@
 //   after tile 0 (m0) and after tile 1 (m1): tile 0 takes p against m0, tile
 //   1 against m1, and the block sums tile 0's warps * 2^(m0 - m1) + tile 1's,
 //   in warp order.
-// - Head dim 128 (B13 only: decode_kernel<false, 256, 128>, chosen by
-//   qa_decode's d): a token's int8 row is 128 bytes, walked as two 64-byte
+// - Head dim 128 (B13 and B14: decode_kernel<false, 256, 128>, chosen by
+//   qa_decode's and qa_paged_decode's d): a token's int8 row is 128 bytes, walked as two 64-byte
 //   halves each as a row of 64 is (S's k-steps 4-7 and PV's n-tiles 8-15
 //   on the second half). row8<128> swaps 64-byte halves every other row and
 //   permutes 32-byte quarters by (slot / 2) % 4, so S's and PV's fragment
@@ -741,8 +741,8 @@ int launch(const void* q, int q_f32, const Pool& pool, void* part_acc, void* par
 // in f32 (q_f32 = 1, rounded to bf16 in the kernel) or bf16, the partials'
 // scratch (decode_tiling.scratch_shapes), `arrived`: n_seqs * n_kv ints that
 // are 0 (the last block of each pair merges and leaves them 0), the head dim
-// d (64; B13 also 128) and the grid's z (decode_tiling.grid). qa_decode_init
-// must have run once on the device first.
+// d (64; B13 and B14 also 128) and the grid's z (decode_tiling.grid).
+// qa_decode_init must have run once on the device first.
 
 // Slotted int8 (B13): payload [b, n_kv, max_len, d], scales [b, n_kv,
 // max_len]; a row is one page of max_len tokens.
@@ -771,19 +771,22 @@ extern "C" int qa_decode(const void* q, const void* k, const void* sk, const voi
              qk_scale, stream);
 }
 
-// Paged int8 (B14): pool [n_kv, n_pages, page_size, 64], scales [n_pages,
-// n_kv, page_size], table [n_seqs, max_pages]; any positive page size.
+// Paged int8 (B14): pool [n_kv, n_pages, page_size, d], scales [n_pages,
+// n_kv, page_size], table [n_seqs, max_pages]; any positive page size; d 64
+// or 128 (B13's instance at that head dim, its rows reached through the
+// table).
 extern "C" int qa_paged_decode(const void* q, const void* k_pages, const void* sk,
                                const void* v_pages, const void* sv, const void* table,
                                const void* lengths, void* o, void* lse, void* part_acc,
                                void* part_ml, void* arrived, int q_f32, int n_seqs, int n_kv,
                                int group, int spec, int n_pages, int page_size, int max_pages,
                                int d, int grid_z, float qk_scale, void* stream) {
-  if (page_size <= 0 || d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (page_size <= 0 || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_pages, sk, v_pages, sv, table, lengths, n_kv, n_pages,
                                page_size, max_pages, page_size, d);
-  return launch<false, CHUNK8, 64>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs,
-                                   n_kv, group, spec, grid_z, qk_scale, stream);
+  auto* run = d == 64 ? &launch<false, CHUNK8, 64> : &launch<false, CHUNK8, 128>;
+  return run(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv, group, spec,
+             grid_z, qk_scale, stream);
 }
 
 // Paged int4 (B16): pool [n_kv, n_pages, page_size / 2, 64] byte rows, split
@@ -831,7 +834,7 @@ extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const 
 }
 
 // A block's dynamic shared memory (decode_tiling.shared_bytes) for the int8
-// (bits 8: B13 at head dim 64 or 128, B14 at 64) or int4 (bits 4: B15/B16,
+// (bits 8: B13 and B14 at head dim 64 or 128) or int4 (bits 4: B15/B16,
 // 64) payload; -1 for other bits or head dims.
 extern "C" int qa_decode_smem_bytes(int bits, int d) {
   if (bits == 8 && d == 64) return static_cast<int>(smem_bytes<false, CHUNK8, 64>());

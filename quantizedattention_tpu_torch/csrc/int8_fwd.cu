@@ -74,6 +74,17 @@
 //     block that sees no key still runs its first tile, wholly masked (the
 //     pipeline's products are not under a branch), and the epilogue gives its
 //     rows O = 0 and lse = -inf by select.
+//
+// Head dim 128 (FwdGeom<128>, chosen by the entry's d): the same body. An
+// int8 row is then 128 bytes, so Q and K take the 128-byte swizzle (the TMA
+// map's and the threads' own writes of Q) and S is four k32 steps; K/V tiles
+// hold 64 keys, so S is m64n64 (32 registers) beside O's and the tile's PV
+// accumulators (64 each) and P's two fragment sets (32). A 64-key tile still
+// lies inside one kv grain (a multiple of 128), so the per-tile sv fold
+// holds. The widened V rows are 256 bytes, stored as two 64-dim panels in the
+// 128-byte swizzle, and PV is one m64n64 product a panel and k-step. At
+// (4,16,2048,128) causal the products are 34.4 G int8 and 34.4 G bf16
+// operations (0.052 ms on the tensor cores) against ~50 MB of payloads.
 
 #include <math.h>
 
@@ -81,25 +92,42 @@
 
 namespace {
 
-constexpr int D = 64;               // head dim (bytes of an int8 row)
-constexpr int BM = 128;             // rows per block: two warpgroups of 64
-constexpr int BN = 128;             // keys per K/V tile
-constexpr int KV_STAGES = 3;        // int8 K/V tiles in flight
-constexpr int VB_STAGES = 2;        // widened bf16 V tiles
-constexpr int THREADS = 256;        // two warpgroups, 8 warps: up to 255 registers a thread
-constexpr int TILE_I8 = BN * D;     // bytes of an int8 K or V tile
-constexpr int VB_ROW = D * 2;       // bytes of a bf16 V row
-constexpr int TILE_BF16 = BN * VB_ROW;
-constexpr int OFF_K = BM * D;       // Q tile first
-constexpr int OFF_V = OFF_K + KV_STAGES * TILE_I8;
-constexpr int OFF_VB = OFF_V + KV_STAGES * TILE_I8;
-constexpr int OFF_BAR = OFF_VB + VB_STAGES * TILE_BF16;
-constexpr int N_BARS = KV_STAGES;
-constexpr int OFF_ONES = OFF_BAR + 128;  // bf16 ones: the B operand of P's row sums
+constexpr int BM = 128;          // rows per block: two warpgroups of 64
+constexpr int THREADS = 256;     // two warpgroups, 8 warps: up to 255 registers a thread
+constexpr int PANEL_ROW = 128;   // bytes of a widened V panel's row: 64 bf16, the 128-byte swizzle's span
 constexpr int ONES_BYTES = 1024;
-constexpr int SMEM_BYTES = OFF_ONES + ONES_BYTES + 1024;  // + slack to align the base to 1024
-static_assert(N_BARS * 8 <= 128, "the barriers fit before the ones");
 constexpr float EPS_BIAS = 1.0f / 256.0f;
+
+// One kernel body for head dims 64 and 128 (ops/int8_tiling.py mirrors
+// FwdGeom). An int8 row of D bytes: the 64-byte swizzle at 64, the 128-byte
+// one at 128 (S's k-steps 0 .. D / 32 - 1, each 32 bytes on). The widened
+// bf16 V rows are D / 64 panels of [BN, 64] in the 128-byte swizzle, and PV
+// is one m64n64 product a panel and k-step into one half of O. At D = 128 a
+// K/V tile holds 64 keys: S (m64n64, 32 registers), O and the tile's PV (64
+// each) and P's two fragment sets (32) fit a thread; at 128 keys S and P
+// alone would take 128.
+template <int D>
+struct FwdGeom {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int PANELS = D / 64;             // 64-column panels of a widened V row
+  static constexpr int BN = D == 64 ? 128 : 64;     // keys per K/V tile
+  static constexpr int NS = BN / 2;                 // S's accumulator registers a thread
+  static constexpr int KV_STAGES = 3;               // int8 K/V tiles in flight
+  static constexpr int VB_STAGES = 2;               // widened bf16 V tiles
+  static constexpr int TILE_I8 = BN * D;            // bytes of an int8 K or V tile
+  static constexpr int PANEL = BN * PANEL_ROW;      // bytes of a widened V panel
+  static constexpr int TILE_BF16 = PANELS * PANEL;  // bytes of a widened V tile
+  static constexpr int OFF_K = BM * D;              // Q tile first
+  static constexpr int OFF_V = OFF_K + KV_STAGES * TILE_I8;
+  static constexpr int OFF_VB = OFF_V + KV_STAGES * TILE_I8;
+  static constexpr int OFF_BAR = OFF_VB + VB_STAGES * TILE_BF16;
+  static constexpr int OFF_ONES = OFF_BAR + 128;  // bf16 ones: the B operand of P's row sums
+  static constexpr int SMEM_BYTES = OFF_ONES + ONES_BYTES + 1024;  // + slack to align the base
+  static_assert(KV_STAGES * 8 <= 128, "the barriers fit before the ones");
+  static_assert(OFF_K % 1024 == 0 && TILE_I8 % 1024 == 0 && OFF_VB % 1024 == 0,
+                "swizzled tiles start on 1024 bytes");
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory fits an H100 SM");
+};
 
 // d[64 x 128] (+)= A[64 x 32] B[128 x 32]^T, s8 x s8 -> s32, both from shared
 // memory; accumulate = 0 zeroes d first.
@@ -130,17 +158,31 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// S = Q_i8 K_i8^T of one tile, by its width: two k32 steps of m64n128 in
+// the 64-byte swizzle at head dim 64, four of m64n64 in the 128-byte one at
+// 128 (a step is 32 bytes on, +2, in both).
+__device__ __forceinline__ void wgmma_s(int (&d)[64], uint64_t dq, uint64_t dk) {
+  wgmma_s8_m64n128k32(d, dq, dk, 0);
+  wgmma_s8_m64n128k32(d, dq + 2, dk + 2, 1);  // the next 32 bytes of d
+}
+__device__ __forceinline__ void wgmma_s(int (&d)[32], uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_s8_m64n64k32(d, dq + 2 * kk, dk + 2 * kk, kk > 0);
+}
+
 // Masks one tile's raw S (only where the tile reaches past s or past the
 // block's first position) and converts it to f32; updates the running max m
 // (scaled, +EPS_BIAS) and gives each row's alpha; writes P = bf16(exp2(raw *
 // c - m)) as PV's A fragments (key tiles 2kk and 2kk + 1 of 8 keys are k-step
 // kk). si[4 n + e]: row h = e / 2, key k0 + 8 n + cq + (e & 1); lim[h]: row h's
-// last visible key under causal masking (its position + diag).
-__device__ __forceinline__ void softmax_tile(const int (&si)[64], uint32_t (&p)[8][4],
+// last visible key under causal masking (its position + diag). NS: the
+// tile's keys / 2.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(const int (&si)[NS], uint32_t (&p)[NS / 8][4],
                                              float (&m)[2], float (&alpha)[2],
                                              const float (&c)[2], bool edge, int k0, int cq,
                                              const int (&lim)[2], int s, int causal) {
-  float sc[64];
+  float sc[NS];
   float mx[2] = {-INFINITY, -INFINITY};
   float sentinel[2] = {0.f, 0.f};  // the masked raw logit 30000 / -c, on edge tiles only
   if (edge) {
@@ -148,9 +190,9 @@ __device__ __forceinline__ void softmax_tile(const int (&si)[64], uint32_t (&p)[
     for (int h = 0; h < 2; ++h) sentinel[h] = __fdiv_rn(30000.f, -c[h]);
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int h = (i % 4) / 2;
-    sc[i] = small_int_to_float(si[i]);  // |S| <= 64 * 128^2 = 2^20
+    sc[i] = small_int_to_float(si[i]);  // |S| <= 128 * 128^2 = 2^21
     if (edge) {
       const int col = k0 + (i / 4) * 8 + cq + (i & 1);
       if (!(col < s && (!causal || col <= lim[h]))) sc[i] = sentinel[h];
@@ -167,7 +209,7 @@ __device__ __forceinline__ void softmax_tile(const int (&si)[64], uint32_t (&p)[
   }
   // raw * c - m with one rounding (fma), then exp2 and the bf16 rounding
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < NS / 4; ++n) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       p[n / 2][(n % 2) * 2 + h] =
@@ -176,10 +218,17 @@ __device__ __forceinline__ void softmax_tile(const int (&si)[64], uint32_t (&p)[
   }
 }
 
+template <int P>
+__device__ __forceinline__ void fence_all(float (&x)[P][32]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) reg_fence(x[p]);
+}
+
 // Q, K and V are B4's payloads: q read directly, K and V ([bh_kv * kv_pad,
-// 64] int8) through the TMA maps.
+// D] int8) through the TMA maps.
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
+int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle (128 at D = 128)
                  const __grid_constant__ CUtensorMap v_map,  // no swizzle
                  const int8_t* __restrict__ q,               // [bh_kv * rep, q_pad, D]
                  const float* __restrict__ sq,               // [bh_kv * rep, nq]
@@ -189,11 +238,15 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
                  float* __restrict__ lse,                    // [bh_kv * rep, t]
                  int rep, int t, int s, int q_pad, int kv_pad, int nq, int nk, int q_grain,
                  int kv_grain, int bq, int causal, int diag, float qk_scale) {
+  using G = FwdGeom<D>;
+  constexpr int BN = G::BN, NS = G::NS, PANELS = G::PANELS, KV_STAGES = G::KV_STAGES;
+  constexpr int VB_STAGES = G::VB_STAGES, TILE_I8 = G::TILE_I8, TILE_BF16 = G::TILE_BF16;
+  constexpr uint64_t PANEL_DESC = G::PANEL >> 4;  // a descriptor's step from panel to panel
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + OFF_BAR;
+  const uint32_t bars = base + G::OFF_BAR;
   auto kv_full = [&](int i) { return bars + 8 * i; };
 
   const int tid = threadIdx.x;
@@ -221,8 +274,8 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
       const int st = j % KV_STAGES;
       mbar_expect_tx(kv_full(st), 2 * TILE_I8);
       const int row = static_cast<int>(bh) * kv_pad + j * BN;
-      tma_load_2d(base + OFF_K + st * TILE_I8, &k_map, kv_full(st), 0, row);
-      tma_load_2d(base + OFF_V + st * TILE_I8, &v_map, kv_full(st), 0, row);
+      tma_load_2d(base + G::OFF_K + st * TILE_I8, &k_map, kv_full(st), 0, row);
+      tma_load_2d(base + G::OFF_V + st * TILE_I8, &v_map, kv_full(st), 0, row);
     }
   };
   for (int j = 0; j < KV_STAGES; ++j) load_kv(j);
@@ -234,9 +287,10 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
   const int cq = (lane % 4) * 2;  // accumulator column pair
   const int rows = rep * bq;      // live rows of the block (<= BM)
 
-  // This warpgroup's Q rows -> shared, int8, K-major with the 64-byte
-  // swizzle (16-byte chunk c of row r at c ^ ((r >> 1) & 3)); zeros for dead
-  // rows and positions past t. Then the ones that sum each row of P.
+  // This warpgroup's Q rows -> shared, int8, K-major: the 64-byte swizzle at
+  // D = 64 (16-byte chunk c of row r at c ^ ((r >> 1) & 3)), the 128-byte one
+  // at 128 (at c ^ (r & 7)); zeros for dead rows and positions past t. Then
+  // the ones that sum each row of P.
   for (int c = tid % 128; c < 64 * (D / 16); c += 128) {
     const int r = wg * 64 + c / (D / 16), c16 = c % (D / 16);
     const int p = q0 + r % bq;
@@ -245,10 +299,11 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
       const size_t qrow = bh * rep + r / bq;
       val = *reinterpret_cast<const uint4*>(q + (qrow * q_pad + p) * D + c16 * 16);
     }
-    *reinterpret_cast<uint4*>(smem + r * D + ((c16 ^ ((r >> 1) & 3)) << 4)) = val;
+    const int sw = D == 64 ? (r >> 1) & 3 : r & 7;
+    *reinterpret_cast<uint4*>(smem + r * D + ((c16 ^ sw) << 4)) = val;
   }
   for (int c = tid; c < ONES_BYTES / 16; c += THREADS)
-    reinterpret_cast<uint4*>(smem + OFF_ONES)[c] =
+    reinterpret_cast<uint4*>(smem + G::OFF_ONES)[c] =
         make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);  // bf16 1.0
   fence_proxy_async();
   named_barrier(1, THREADS);
@@ -281,60 +336,77 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
     return j * BN + BN > s || (causal && j * BN + BN - 1 > q0 + diag);
   };
 
-  const uint64_t desc_q = desc_kmajor_sw64(base + wg * 64 * D);
-  const uint64_t desc_ones = desc_interleave(base + OFF_ONES);
+  const uint32_t q_at = base + wg * 64 * D;
+  const uint64_t desc_q = D == 64 ? desc_kmajor_sw64(q_at) : desc_kmajor_sw128(q_at);
+  const uint64_t desc_ones = desc_interleave(base + G::OFF_ONES);
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  float acc[32];
+  float acc[PANELS][32];  // O, panel p: head dims 64 p ..
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
 
   // S of tile j, once its K/V stage has landed: issued and committed as one group.
-  auto issue_s = [&](int j, int (&si)[64]) {
+  auto issue_s = [&](int j, int (&si)[NS]) {
     const int st = j % KV_STAGES;
     mbar_wait(kv_full(st), (j / KV_STAGES) & 1);
-    const uint64_t desc_k = desc_kmajor_sw64(base + OFF_K + st * TILE_I8);
+    const uint32_t k_at = base + G::OFF_K + st * TILE_I8;
+    const uint64_t desc_k = D == 64 ? desc_kmajor_sw64(k_at) : desc_kmajor_sw128(k_at);
     wgmma_fence();
-    wgmma_s8_m64n128k32(si, desc_q, desc_k, 0);
-    wgmma_s8_m64n128k32(si, desc_q + 2, desc_k + 2, 1);  // the next 32 bytes of d
+    wgmma_s(si, desc_q, desc_k);
     wgmma_commit();
   };
   // This thread's share of tile j's V, widened int8 -> bf16 into buffer j %
-  // 2 with the 128-byte swizzle (16-byte chunk c of key row r at c ^ (r & 7)).
+  // 2: the 16 bytes of key row r at head dims 16 c16 .. become two 16-byte
+  // chunks of panel c16 / 4 in the 128-byte swizzle (chunk c of a panel's
+  // row r at c ^ (r & 7)).
   auto widen_v = [&](int j) {
-    const uint8_t* vi = smem + OFF_V + (j % KV_STAGES) * TILE_I8;
-    uint8_t* vb = smem + OFF_VB + (j % VB_STAGES) * TILE_BF16;
+    const uint8_t* vi = smem + G::OFF_V + (j % KV_STAGES) * TILE_I8;
+    uint8_t* vb = smem + G::OFF_VB + (j % VB_STAGES) * TILE_BF16;
 #pragma unroll
     for (int i = 0; i < BN * (D / 16) / THREADS; ++i) {
       const int c = tid + i * THREADS;
       const int r = c / (D / 16), c16 = c % (D / 16);
       const uint4 x = *reinterpret_cast<const uint4*>(vi + r * D + c16 * 16);
-      *reinterpret_cast<uint4*>(vb + r * VB_ROW + (((2 * c16) ^ (r & 7)) << 4)) = widen8(x.x, x.y);
-      *reinterpret_cast<uint4*>(vb + r * VB_ROW + (((2 * c16 + 1) ^ (r & 7)) << 4)) =
-          widen8(x.z, x.w);
+      uint8_t* row = vb + (c16 / 4) * G::PANEL + r * PANEL_ROW;
+      const int c8 = 2 * (c16 % 4);
+      *reinterpret_cast<uint4*>(row + ((c8 ^ (r & 7)) << 4)) = widen8(x.x, x.y);
+      *reinterpret_cast<uint4*>(row + (((c8 + 1) ^ (r & 7)) << 4)) = widen8(x.z, x.w);
     }
   };
-  // PV of tile j: 8 k-steps of 16 keys (32 bytes of P's rows, 16 rows =
-  // 2048 bytes of V), and the row sums; issued and committed as one group.
-  auto issue_pv = [&](int j, const uint32_t (&pa)[8][4], float (&pv)[32], float (&ls)[4]) {
-    const uint64_t desc_v = desc_mnmajor_sw128(base + OFF_VB + (j % VB_STAGES) * TILE_BF16);
+  // PV of tile j: BN / 16 k-steps of 16 keys (32 bytes of P's rows, 16 rows
+  // = 2048 bytes of each V panel), one n64 product a panel, and the row sums;
+  // issued and committed as one group.
+  auto issue_pv = [&](int j, const uint32_t (&pa)[NS / 8][4], float (&pv)[PANELS][32],
+                      float (&ls)[4]) {
+    const uint64_t desc_v =
+        desc_mnmajor_sw128(base + G::OFF_VB + (j % VB_STAGES) * TILE_BF16);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(pv, pa[kk], desc_v + kk * (16 * VB_ROW >> 4), kk > 0);
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p)
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(pv[p], pa[kk],
+                                           desc_v + p * PANEL_DESC + kk * (16 * PANEL_ROW >> 4),
+                                           kk > 0);
       wgmma_bf16_m64n8k16_rs(ls, pa[kk], desc_ones, kk > 0);
     }
     wgmma_commit();
   };
   // Once tile j's PV is done: acc = acc * alpha + (P V_i8) * sv, l = l *
-  // alpha + rowsum(P); pv[4 n + e]: row e / 2, column 8 n + cq + (e & 1);
-  // ls[2 h]: row h.
-  auto fold_pv = [&](float (&pv)[32], float (&ls)[4], const float (&alpha_j)[2], float sv_j) {
-    reg_fence(pv);
+  // alpha + rowsum(P); pv[p][4 n + e]: row e / 2, column 64 p + 8 n + cq +
+  // (e & 1); ls[2 h]: row h.
+  auto fold_pv = [&](float (&pv)[PANELS][32], float (&ls)[4], const float (&alpha_j)[2],
+                     float sv_j) {
+    fence_all(pv);
     reg_fence(ls);
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha_j[(i % 4) / 2]), __fmul_rn(pv[i], sv_j));
+    for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[p][i] =
+            __fadd_rn(__fmul_rn(acc[p][i], alpha_j[(i % 4) / 2]), __fmul_rn(pv[p][i], sv_j));
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha_j[h] + ls[2 * h];
   };
@@ -343,16 +415,16 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
   // 1's PV is in flight. One barrier of both warpgroups a tile publishes
   // tile j's widened V and P (and retires tile j - 1's buffers).
   float alpha[2], c[2];
-  uint32_t pa[8][4];
+  uint32_t pa[NS / 8][4];
   float sk_next = scale_at(sk, 1), sv_prev = scale_at(sv, 0);
   {
-    int si[64];
+    int si[NS];
     tile_scales(scale_at(sk, 0), c);
     issue_s(0, si);
     widen_v(0);
     wgmma_wait<0>();
     reg_fence(si);
-    softmax_tile(si, pa, m, alpha, c, edge(0), 0, cq, lim, s, causal);
+    softmax_tile<NS>(si, pa, m, alpha, c, edge(0), 0, cq, lim, s, causal);
     fence_proxy_async();
     named_barrier(1, THREADS);
   }
@@ -361,29 +433,29 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
     const float sv_j = scale_at(sv, j);
     tile_scales(sk_next, c);
     sk_next = scale_at(sk, j + 1);
-    int si[64];
-    float pv[32], ls[4];
+    int si[NS];
+    float pv[PANELS][32], ls[4];
     issue_s(j, si);
     issue_pv(j - 1, pa, pv, ls);
     widen_v(j);
     const float alpha_prev[2] = {alpha[0], alpha[1]};
     wgmma_wait<1>();  // S of tile j is done; PV of tile j - 1 may still run
     reg_fence(si);
-    uint32_t pb[8][4];
-    softmax_tile(si, pb, m, alpha, c, edge(j), j * BN, cq, lim, s, causal);
+    uint32_t pb[NS / 8][4];
+    softmax_tile<NS>(si, pb, m, alpha, c, edge(j), j * BN, cq, lim, s, causal);
     fence_proxy_async();
     wgmma_wait<0>();
     reg_fence(pa);
     fold_pv(pv, ls, alpha_prev, sv_prev);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < NS / 8; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pa[kk][e] = pb[kk][e];
     sv_prev = sv_j;
     named_barrier(1, THREADS);
   }
   {
-    float pv[32], ls[4];
+    float pv[PANELS][32], ls[4];
     issue_pv(n_tiles - 1, pa, pv, ls);
     wgmma_wait<0>();
     fold_pv(pv, ls, alpha, sv_prev);
@@ -400,58 +472,80 @@ int8_attn_kernel(const __grid_constant__ CUtensorMap k_map,  // 64-byte swizzle
     const float l_safe = l[h] == 0.f ? 1.f : l[h];
     const size_t row = (bh * rep + r / bq) * t + q0 + r % bq;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float2 val = empty ? make_float2(0.f, 0.f)
-                               : make_float2(acc[4 * n + 2 * h] / l_safe,
-                                             acc[4 * n + 2 * h + 1] / l_safe);
-      *reinterpret_cast<float2*>(o + row * D + n * 8 + cq) = val;
-    }
+    for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 val = empty ? make_float2(0.f, 0.f)
+                                 : make_float2(acc[p][4 * n + 2 * h] / l_safe,
+                                               acc[p][4 * n + 2 * h + 1] / l_safe);
+        *reinterpret_cast<float2*>(o + row * D + 64 * p + n * 8 + cq) = val;
+      }
     if (lane % 4 == 0) lse[row] = empty ? -INFINITY : m[h] + log2f(l_safe);
   }
 }
 
-// A 2-D map over rows of 64 int8 bytes, boxes of 128 rows.
+// A 2-D map over rows of D int8 bytes, boxes of BN rows.
+template <int D>
 bool payload_map(CUtensorMap* map, const void* ptr, int rows, CUtensorMapSwizzle swizzle) {
-  return tensor_map_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, D, BN, D, swizzle);
+  return tensor_map_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, D, FwdGeom<D>::BN, D,
+                       swizzle);
 }
 
-}  // namespace
-
-// Shared bytes one block asks for (ops/int8_tiling.py's shared_bytes mirrors it).
-extern "C" int qa_int8_fwd_smem_bytes() { return SMEM_BYTES; }
-
-// B5: q [bh_kv * rep, q_pad, 64], k/v [bh_kv, kv_pad, 64] int8 payloads with
-// their scale tables sq [bh_kv * rep, q_pad / q_grain], sk/sv [bh_kv,
-// kv_pad / kv_grain] -> O [bh_kv * rep, t, 64], lse [bh_kv * rep, t] (f32).
-// bq query positions a block (rep * bq <= 128); kv_grain a multiple of 128.
-// Causal masking is on global positions: query i sits at q_offset + i, key j
-// at k_offset + j (both >= 0; a sequence shard's first token).
-extern "C" int qa_int8_fwd(const void* q, const void* k, const void* v, const void* sq,
-                           const void* sk, const void* sv, void* o, void* lse, int bh_kv, int rep,
-                           int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain, int bq,
-                           int causal, int q_offset, int k_offset, float qk_scale, void* stream) {
-  if (bq < 1 || rep < 1 || rep * bq > BM || t < 1 || t > q_pad || s < 1 || s > kv_pad ||
-      q_offset < 0 || k_offset < 0 ||
-      kv_pad % BN || kv_grain % BN || kv_pad % kv_grain || q_pad % q_grain || bh_kv < 1 ||
-      bh_kv > 65535 ||
-      static_cast<long long>(bh_kv) * kv_pad > 0x7fffffffLL)  // TMA row coordinates are int32
-    return static_cast<int>(cudaErrorInvalidValue);
+// The maps, the shared-memory attribute (once an instance) and the launch
+// at head dim D.
+template <int D>
+int int8_fwd(const void* q, const void* k, const void* v, const void* sq, const void* sk,
+             const void* sv, void* o, void* lse, int bh_kv, int rep, int t, int s, int q_pad,
+             int kv_pad, int q_grain, int kv_grain, int bq, int causal, int diag, float qk_scale,
+             cudaStream_t stream) {
+  constexpr int SMEM = FwdGeom<D>::SMEM_BYTES;
   CUtensorMap k_map, v_map;
-  if (!payload_map(&k_map, k, bh_kv * kv_pad, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !payload_map(&v_map, v, bh_kv * kv_pad, CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (!payload_map<D>(&k_map, k, bh_kv * kv_pad,
+                      D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !payload_map<D>(&v_map, v, bh_kv * kv_pad, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorNotSupported);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        int8_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        int8_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((t + bq - 1) / bq, bh_kv);
-  int8_attn_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  int8_attn_kernel<D><<<grid, THREADS, SMEM, stream>>>(
       k_map, v_map, static_cast<const int8_t*>(q), static_cast<const float*>(sq),
       static_cast<const float*>(sk), static_cast<const float*>(sv), static_cast<float*>(o),
       static_cast<float*>(lse), rep, t, s, q_pad, kv_pad, q_pad / q_grain, kv_pad / kv_grain,
-      q_grain, kv_grain, bq, causal, q_offset - k_offset, qk_scale);
+      q_grain, kv_grain, bq, causal, diag, qk_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shared bytes one block asks for at head dim d, 64 or 128
+// (ops/int8_tiling.py's shared_bytes mirrors it); -1 for another d.
+extern "C" int qa_int8_fwd_smem_bytes(int d) {
+  return d == 64 ? FwdGeom<64>::SMEM_BYTES : d == 128 ? FwdGeom<128>::SMEM_BYTES : -1;
+}
+
+// B5: q [bh_kv * rep, q_pad, d], k/v [bh_kv, kv_pad, d] int8 payloads, d 64
+// or 128, with their scale tables sq [bh_kv * rep, q_pad / q_grain], sk/sv
+// [bh_kv, kv_pad / kv_grain] -> O [bh_kv * rep, t, d], lse [bh_kv * rep, t]
+// (f32). bq query positions a block (rep * bq <= 128); kv_grain a multiple
+// of 128. Causal masking is on global positions: query i sits at q_offset +
+// i, key j at k_offset + j (both >= 0; a sequence shard's first token).
+extern "C" int qa_int8_fwd(const void* q, const void* k, const void* v, const void* sq,
+                           const void* sk, const void* sv, void* o, void* lse, int bh_kv, int rep,
+                           int t, int s, int q_pad, int kv_pad, int q_grain, int kv_grain, int bq,
+                           int causal, int q_offset, int k_offset, float qk_scale, int d,
+                           void* stream) {
+  if (bq < 1 || rep < 1 || rep * bq > BM || t < 1 || t > q_pad || s < 1 || s > kv_pad ||
+      q_offset < 0 || k_offset < 0 || (d != 64 && d != 128) ||
+      kv_pad % 128 || kv_grain % 128 || kv_pad % kv_grain || q_pad % q_grain || bh_kv < 1 ||
+      bh_kv > 65535 ||
+      static_cast<long long>(bh_kv) * kv_pad > 0x7fffffffLL)  // TMA row coordinates are int32
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = d == 64 ? &int8_fwd<64> : &int8_fwd<128>;
+  return launch(q, k, v, sq, sk, sv, o, lse, bh_kv, rep, t, s, q_pad, kv_pad, q_grain, kv_grain,
+                bq, causal, q_offset - k_offset, qk_scale, static_cast<cudaStream_t>(stream));
 }

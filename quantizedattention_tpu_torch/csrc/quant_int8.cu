@@ -13,21 +13,24 @@
 // package's zero-padded, then smoothed, K does.
 //
 // One launch covers up to three tensors (Q, K and V of one attention call),
-// each with its own rows, length, padded length, grain and optional sub row.
-// A tensor is read through its strides: row r is (batch r / heads, head r %
-// heads) of a [batch, heads, t, D] view whose token rows are contiguous and
-// start on 16 bytes (the model's [b, h, t, 64] views of [b, t, h, 64]
-// activations need no copy). The input is f32 or bf16 (widened exactly).
+// each with its own rows, length, padded length, grain and optional sub row,
+// all at one head dim D, 64 or 128 (one instance each, chosen by the
+// entry's d). A tensor is read through its strides: row r is (batch r /
+// heads, head r % heads) of a [batch, heads, t, D] view whose token rows are
+// contiguous and start on 16 bytes (the model's [b, h, t, D] views of [b, t,
+// h, D] activations need no copy). The input is f32 or bf16 (widened
+// exactly).
 //
 // What bounds it on this card: bytes. It reads each input once and writes a
 // quarter-width (f32) or half-width (bf16) payload; the whole work is a max
 // and a division per element. Design: each (tensor, row, grain) is one
 // thread-block cluster of CLUSTER blocks of 128 threads; block `rank` takes
 // the grain's tokens rank * grain / CLUSTER .. (16 to 128 tokens, 4 to 32
-// KB of f32). It copies its share into shared memory with 16-byte cp.async
-// copies, all in flight at once (up to 16 a thread; tokens past t arrive as
-// zeros), so an SM holds 6 blocks' shares (192 KB) and keeps them in
-// flight together. It reduces its absmax (warp shuffles, then shared memory),
+// KB of f32 at D = 64, twice that at 128). It copies its share into shared
+// memory with 16-byte cp.async copies, all in flight at once (up to 16 a
+// thread, 32 at D = 128; tokens past t arrive as zeros), so an SM holds 6
+// blocks' shares (192 KB; 3 of 64 KB at D = 128) and keeps them in flight
+// together. It reduces its absmax (warp shuffles, then shared memory),
 // publishes it in its shared memory behind a cluster barrier and reads the
 // other blocks' seven through distributed shared memory. Each block then
 // takes the grain's max and writes its payload share from shared memory (a
@@ -45,7 +48,6 @@
 
 namespace {
 
-constexpr int D = 64;  // head dim
 constexpr int THREADS = 128;
 constexpr int CLUSTER = 8;      // blocks a grain (the portable cluster size)
 constexpr int MAX_GRAIN = 1024;  // a block's share at most MAX_GRAIN / CLUSTER tokens
@@ -100,7 +102,12 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-constexpr int SMEM_BYTES = MAX_GRAIN / CLUSTER * D * 4;  // a block's largest share in f32
+// A block's largest share in f32 at head dim D.
+template <int D>
+constexpr int smem_bytes() {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  return MAX_GRAIN / CLUSTER * D * 4;
+}
 
 // The payload byte of v (the low byte of the result): clamp(rint(v / s),
 // -128, 127) with an IEEE division. q + 1.5 * 2^23 holds the integer q in
@@ -115,7 +122,7 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, ui
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) quant_int8_kernel(Jobs jobs) {
   constexpr int VEC = Vec<T>::N;
   constexpr int CPR = D / VEC;  // 16-byte chunks a token row
@@ -201,12 +208,21 @@ __global__ void __launch_bounds__(THREADS) quant_int8_kernel(Jobs jobs) {
   cluster_wait();
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const Jobs& jobs, cudaStream_t stream) {
+  if (smem_bytes<D>() > 48 * 1024) {  // above the default limit: raised once an instance
+    static bool configured = false;
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          quant_int8_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(jobs.start[jobs.n] * CLUSTER);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.dynamicSmemBytes = smem_bytes<D>();
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -215,22 +231,24 @@ cudaError_t launch(const Jobs& jobs, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, quant_int8_kernel<T>, jobs);
+  return cudaLaunchKernelEx(&cfg, quant_int8_kernel<T, D>, jobs);
 }
 
 }  // namespace
 
-// Quantize n_jobs (1..3) tensors in one launch. Job i: x of in_type (0 f32,
-// 1 bf16), row r at x + (r / heads) * sb + (r % heads) * sh, token tok of it
-// tok * st further (strides in elements; the D elements of a token
-// contiguous; pointer and strides 16-byte aligned), sub [rows, D] f32 or
-// null, out [rows, pad, D] int8, scale [rows, pad / grain] f32; pad is a
-// multiple of grain, grain a multiple of 16 up to 1024, pad >= t.
+// Quantize n_jobs (1..3) tensors of head dim d (64 or 128) in one launch.
+// Job i: x of in_type (0 f32, 1 bf16), row r at x + (r / heads) * sb + (r %
+// heads) * sh, token tok of it tok * st further (strides in elements; the d
+// elements of a token contiguous; pointer and strides 16-byte aligned), sub
+// [rows, d] f32 or null, out [rows, pad, d] int8, scale [rows, pad / grain]
+// f32; pad is a multiple of grain, grain a multiple of 16 up to 1024, pad >=
+// t.
 extern "C" int qa_quant_int8(const void* const* x, const long long* strides, const int* heads,
                              const void* const* sub, void* const* out, void* const* scale,
                              const int* rows, const int* t, const int* pad, const int* grain,
-                             int n_jobs, int in_type, void* stream) {
-  if (n_jobs < 1 || n_jobs > MAX_JOBS || in_type < IN_F32 || in_type > IN_BF16)
+                             int n_jobs, int in_type, int d, void* stream) {
+  if (n_jobs < 1 || n_jobs > MAX_JOBS || in_type < IN_F32 || in_type > IN_BF16 ||
+      (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long elem = in_type == IN_F32 ? 4 : 2;
   Jobs jobs;
@@ -252,8 +270,10 @@ extern "C" int qa_quant_int8(const void* const* x, const long long* strides, con
   }
   for (int i = n_jobs; i < MAX_JOBS; ++i) jobs.job[i] = jobs.job[0];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      in_type == IN_F32 ? launch<float>(jobs, st) : launch<__nv_bfloat16>(jobs, st);
+  auto* run = in_type == IN_F32 ? (d == 64 ? &launch<float, 64> : &launch<float, 128>)
+                                 : (d == 64 ? &launch<__nv_bfloat16, 64>
+                                            : &launch<__nv_bfloat16, 128>);
+  const cudaError_t err = run(jobs, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -267,6 +287,8 @@ extern "C" int qa_quant_int8_geometry(int* cluster, int* threads, int* max_grain
   return 0;
 }
 
-// Dynamic shared bytes a block asks for (ops/int8_tiling.py's
-// quant_shared_bytes mirrors it).
-extern "C" int qa_quant_int8_smem_bytes() { return SMEM_BYTES; }
+// Dynamic shared bytes a block asks for at head dim d, 64 or 128
+// (ops/int8_tiling.py's quant_shared_bytes mirrors it); -1 for another d.
+extern "C" int qa_quant_int8_smem_bytes(int d) {
+  return d == 64 ? smem_bytes<64>() : d == 128 ? smem_bytes<128>() : -1;
+}

@@ -44,7 +44,7 @@ from quantizedattention_tpu_torch.ops.common import (
     tile_mask,
 )
 from quantizedattention_tpu_torch.ops.int8_fwd import _layout, raw_logits_and_scale
-from quantizedattention_tpu_torch.ops.int8_tiling import HEAD_DIM, bwd_grids, check_bwd_grains
+from quantizedattention_tpu_torch.ops.int8_tiling import bwd_grids, check_bwd_grains
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 
@@ -169,8 +169,8 @@ def int8_bwd_dq_plain(ops: Int8BwdOperands):
 def _kernels():
     lib = load_kernel("int8_bwd")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 11 + [f32, f32, ptr]
-    lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 12 + [f32, f32, ptr]
+    lib.qa_int8_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 11 + [f32, f32, i32, ptr]
+    lib.qa_int8_bwd_dq.argtypes = [ptr] * 11 + [i32] * 12 + [f32, f32, i32, ptr]
     lib.qa_int8_bwd_dkv.restype = lib.qa_int8_bwd_dq.restype = ctypes.c_int
     return lib
 
@@ -206,12 +206,12 @@ def int8_bwd_dkv(ops: Int8BwdOperands):
     if ops.q_i8.device.type == "cpu":
         return int8_bwd_dkv_plain(ops)
     dev, ints, _ = _launch_args(ops)
-    s = ops.dims[3]
-    dk = torch.empty((ops.k_i8.shape[0], s, HEAD_DIM), dtype=torch.float32, device=dev)
+    s, d = ops.dims[3], ops.dims[4]
+    dk = torch.empty((ops.k_i8.shape[0], s, d), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     status = _kernels().qa_int8_bwd_dkv(
         *_inputs(ops), dk.data_ptr(), dv.data_ptr(), *ints, int(ops.causal), ops.q_offset,
-        ops.k_offset, ops.qk_scale, ops.sm_scale, torch.cuda.current_stream(dev).cuda_stream,
+        ops.k_offset, ops.qk_scale, ops.sm_scale, d, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_bwd_dkv")
     int8_bwd_dkv.launches += 1
@@ -224,12 +224,11 @@ def int8_bwd_dq(ops: Int8BwdOperands):
     if ops.q_i8.device.type == "cpu":
         return int8_bwd_dq_plain(ops)
     dev, ints, bq = _launch_args(ops)
-    t = ops.dims[2]
-    dq = torch.empty((ops.k_i8.shape[0], ops.rep, t, HEAD_DIM), dtype=torch.float32,
-                     device=dev)
+    t, d = ops.dims[2], ops.dims[4]
+    dq = torch.empty((ops.k_i8.shape[0], ops.rep, t, d), dtype=torch.float32, device=dev)
     status = _kernels().qa_int8_bwd_dq(
         *_inputs(ops), ops.k_mean.data_ptr(), dq.data_ptr(), *ints, bq, int(ops.causal),
-        ops.q_offset, ops.k_offset, ops.qk_scale, ops.sm_scale,
+        ops.q_offset, ops.k_offset, ops.qk_scale, ops.sm_scale, d,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_bwd_dq")

@@ -169,7 +169,8 @@ def int8_attention_fwd_from_quantized_plain(residuals, dims, causal=False, sm_sc
 @functools.cache
 def _kernel():
     fn = load_kernel("int8_fwd").qa_int8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_int,
+                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -200,7 +201,7 @@ def _attend(residuals, dims, causal, sm_scale, q_offset=0, k_offset=0):
     status = _kernel()(
         q_i8.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), sq.data_ptr(), sk.data_ptr(),
         sv.data_ptr(), o.data_ptr(), lse.data_ptr(), bh_kv, rep, t, s, q_i8.shape[1],
-        k_i8.shape[1], q_grain, kv_grain, bq, int(causal), q_offset, k_offset, qk_scale,
+        k_i8.shape[1], q_grain, kv_grain, bq, int(causal), q_offset, k_offset, qk_scale, d,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "int8_fwd")
@@ -214,8 +215,8 @@ def int8_attention_fwd_from_quantized(residuals, dims, causal=False, sm_scale=No
 
     q_offset/k_offset (host ints >= 0): the global positions of the first
     query and key, for causal masking across sequence shards. CUDA residuals
-    launch the kernel (head_dim 64, rep <= 128, kv grain a multiple of 128)
-    or raise; CPU residuals take the plain version. Returns (o [b, h, t, d]
+    launch the kernel (head_dim 64 or 128, rep <= 128, kv grain a multiple of
+    128) or raise; CPU residuals take the plain version. Returns (o [b, h, t, d]
     f32, lse [b, h, t]). `.launches` counts kernel launches.
     """
     if residuals[0][0].device.type == "cpu":
@@ -292,7 +293,7 @@ def int8_attention_fwd_fused(q, k, v, causal=False, sm_scale=None, k_sub=None):
     k_sub: optional [b, h_kv, 1, d] K-smoothing shift. Numerics of
     `int8_attention_fwd` on the same inputs (the same grain, payloads and
     scales), with no residuals kept. CUDA tensors launch the kernels (head_dim
-    64, rep <= 128) or raise; CPU tensors take `int8_attention_fwd_fused_plain`.
+    64 or 128, rep <= 128) or raise; CPU tensors take `int8_attention_fwd_fused_plain`.
     Returns (o [b, h, t, d] f32, lse [b, h, t]). `.launches` counts calls on
     the kernel path: B4's launch and B5's together count one.
     """

@@ -7,12 +7,19 @@ grain. A block has BLOCK_ROWS query rows, which hold one kv head's whole GQA
 group: bq = BLOCK_ROWS // rep query positions a block, which the wrappers
 pass to the kernel (it maps row r to q head kv_head * rep + r // bq at
 position q0 + r % bq and launches cdiv(t, bq) x (b * h_kv) blocks). Keys are
-walked in tiles of KV_TILE; each tile takes one kv grain's sk and sv, so a kv
-grain must be a multiple of KV_TILE (the JAX grain always is: a multiple of
-128). K/V tiles arrive by TMA through a ring of KV_STAGES int8 stages; V is
+walked in tiles of `kv_tile`; each tile takes one kv grain's sk and sv, so a
+kv grain must be a multiple of GRAIN_UNIT (the JAX grain always is: a
+multiple of 128). K/V tiles arrive by TMA through a ring of KV_STAGES int8 stages; V is
 widened into a ring of V_STAGES bf16 stages. The constants mirror the
 kernel's, and `shared_bytes` is held against the kernel's own count on the
 card.
+
+Head dims (HEAD_DIMS): 64 and 128, one kernel body each. At 128 an int8
+row is 128 bytes (the 128-byte swizzle in place of the 64-byte one), the
+forward walks keys in tiles of 64 (`kv_tile`), every tile's bytes double,
+B7 keeps the widened V in shared memory (the A of dP^T) and B8 sums dQ in
+shared memory, and B7's ring holds 3 stages (`dkv_stages`); the rows, q
+tiles, grains and walks are the same.
 
 The backward (the second section) streams 64-token tiles through both
 kernels. B7 takes 128 keys a block (two warpgroups of 64), so a kv grain must
@@ -31,22 +38,31 @@ launch (`quant_items`), cluster c taking item c.
 
 from __future__ import annotations
 
-HEAD_DIM = 64
+from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
+
+HEAD_DIMS = KERNEL_HEAD_DIMS["B5"]  # and B4's, B6's, B7/B8's
 BLOCK_ROWS = 128  # two warpgroups of 64
-KV_TILE = 128  # keys a tile
+GRAIN_UNIT = 128  # a kv grain is a multiple of it: B5's widest key tile, B7's key block
 KV_STAGES = 3  # int8 K/V tiles in flight
 V_STAGES = 2  # bf16 V tiles
 SMEM_LIMIT = 232_448  # shared bytes an H100 block may use (227 KB)
 MAX_KV_BLOCKS = 65535  # the grid's y extent
 
 
-def shared_bytes() -> int:
+def kv_tile(head_dim: int) -> int:
+    """Keys a K/V tile of the forward: 128 at head dim 64, 64 at 128 (S then
+    takes 32 registers a thread, beside O's and the tile's PV's 64 each)."""
+    check_head_dim("B5", head_dim)
+    return 128 if head_dim == 64 else 64
+
+
+def shared_bytes(head_dim: int) -> int:
     """Dynamic shared memory of one block: the int8 Q tile, the K/V ring, the
     bf16 V ring, 128 bytes of mbarriers, 1024 bytes of bf16 ones (the B
     operand of P's row sums) and 1024 bytes to align the swizzled tiles."""
-    q = BLOCK_ROWS * HEAD_DIM
-    kv = KV_STAGES * 2 * KV_TILE * HEAD_DIM
-    vb = V_STAGES * KV_TILE * HEAD_DIM * 2
+    q = BLOCK_ROWS * head_dim
+    kv = KV_STAGES * 2 * kv_tile(head_dim) * head_dim
+    vb = V_STAGES * kv_tile(head_dim) * head_dim * 2
     return q + kv + vb + 128 + 1024 + 1024
 
 
@@ -62,10 +78,11 @@ def block_positions(bh_kv: int, rep: int) -> int:
 
 
 def check_grain(kv_grain: int, kv_pad: int) -> None:
-    """Raise unless every key tile lies inside one kv grain and the padding."""
-    if kv_grain % KV_TILE or kv_pad % kv_grain:
-        raise ValueError(f"kernel takes a kv grain that is a multiple of {KV_TILE} and divides "
-                         f"the padded length; got grain {kv_grain}, padded {kv_pad}")
+    """Raise unless every key tile (of either head dim) lies inside one kv
+    grain and the padding."""
+    if kv_grain % GRAIN_UNIT or kv_pad % kv_grain:
+        raise ValueError(f"kernel takes a kv grain that is a multiple of {GRAIN_UNIT} and "
+                         f"divides the padded length; got grain {kv_grain}, padded {kv_pad}")
 
 
 # --------------------------------------------------------------------------
@@ -74,7 +91,6 @@ def check_grain(kv_grain: int, kv_pad: int) -> None:
 
 BWD_TILE = 64  # q positions a B7 tile, keys a B8 tile
 DKV_KEYS = 128  # keys a B7 block: two warpgroups of 64
-DKV_STAGES = 4  # int8 Q / bf16 dO tiles in flight (B7)
 DQ_STAGES = 3  # int8 K / V tiles in flight (B8)
 DQ_WIDE_K = 3  # widened K tiles (B8): one being written, one read, one draining
 MAX_GRID_Y = 65535  # the grid's y extent: key tiles (B7) or row blocks (B8)
@@ -82,23 +98,40 @@ MAX_TMA_ROW = 2**31 - 1  # TMA row coordinates are int32
 _ACC = 32  # f32 accumulator registers a thread
 
 
-def dkv_shared_bytes() -> int:
-    """B7's dynamic shared memory: K [128, 64] int8, the ring of int8 Q and
-    bf16 dO tiles, two widened Q tiles, dK's f32 sums (32 a thread), two row
-    buffers (lse, D and sq of a q tile: 132 floats), 64 bytes of mbarriers and
-    1024 bytes to align the swizzled tiles."""
-    tile_i8 = BWD_TILE * HEAD_DIM
-    return (DKV_KEYS * HEAD_DIM + DKV_STAGES * 3 * tile_i8 + 2 * 2 * tile_i8
-            + _ACC * 256 * 4 + 2 * (2 * BWD_TILE + 4) * 4 + 64 + 1024)
+def dkv_stages(head_dim: int) -> int:
+    """B7's ring of int8 Q and bf16 dO tiles: 4 stages at head dim 64, 3 at
+    128 (four would pass the SM's shared memory)."""
+    check_head_dim("B7/B8", head_dim)
+    return 4 if head_dim == 64 else 3
 
 
-def dq_shared_bytes() -> int:
-    """B8's dynamic shared memory: Q [128, 64] int8, the ring of int8 K and V
-    tiles, the widened K and V tiles (bf16), 64 bytes of mbarriers and 1024
-    bytes of alignment."""
-    tile_i8 = BWD_TILE * HEAD_DIM
-    return (BLOCK_ROWS * HEAD_DIM + DQ_STAGES * 2 * tile_i8 + (DQ_WIDE_K + 2) * 2 * tile_i8
-            + 64 + 1024)
+def _sums(head_dim: int) -> int:
+    """Bytes of an f32 sum of 64 rows x head_dim a warpgroup, each thread its
+    own slots (B7's dK, B8's dQ at 128)."""
+    return head_dim // 64 * _ACC * 256 * 4
+
+
+def dkv_shared_bytes(head_dim: int) -> int:
+    """B7's dynamic shared memory: K [128, d] int8, at d = 128 the widened V
+    [128, d] bf16, the ring of int8 Q and bf16 dO tiles, two widened Q
+    tiles, dK's f32 sums, two row buffers (lse, D and sq of a q tile: 132
+    floats), 64 bytes of mbarriers and 1024 bytes to align the swizzled
+    tiles."""
+    tile_i8 = BWD_TILE * head_dim
+    vw = 0 if head_dim == 64 else DKV_KEYS * head_dim * 2
+    return (DKV_KEYS * head_dim + vw + dkv_stages(head_dim) * 3 * tile_i8 + 2 * 2 * tile_i8
+            + _sums(head_dim) + 2 * (2 * BWD_TILE + 4) * 4 + 64 + 1024)
+
+
+def dq_shared_bytes(head_dim: int) -> int:
+    """B8's dynamic shared memory: Q [128, d] int8, the ring of int8 K and V
+    tiles, the widened K and V tiles (bf16), at d = 128 dQ's f32 sums, 64
+    bytes of mbarriers and 1024 bytes of alignment."""
+    check_head_dim("B7/B8", head_dim)
+    tile_i8 = BWD_TILE * head_dim
+    sums = 0 if head_dim == 64 else _sums(head_dim)
+    return (BLOCK_ROWS * head_dim + DQ_STAGES * 2 * tile_i8 + (DQ_WIDE_K + 2) * 2 * tile_i8
+            + sums + 64 + 1024)
 
 
 def check_bwd_grains(q_grain: int, kv_grain: int, q_pad: int, kv_pad: int) -> None:
@@ -147,7 +180,7 @@ def bwd_grids(bh_kv: int, rep: int, t: int, s: int, q_pad: int,
 
 QUANT_CLUSTER = 8  # blocks a grain (the portable cluster size)
 QUANT_THREADS = 128
-QUANT_MAX_GRAIN = 1024  # a block's share at most 128 tokens: 32 KB of f32, in shared memory
+QUANT_MAX_GRAIN = 1024  # a block's share at most 128 tokens: 32 KB of f32 at d 64, in shared memory
 QUANT_MAX_JOBS = 3  # Q, K and V of one call
 QUANT_MAX_ITEMS = (2**31 - 1) // QUANT_CLUSTER  # (row, grain) items a launch: the grid's x
 
@@ -184,7 +217,9 @@ def quant_items(jobs) -> list[int]:
     return starts
 
 
-def quant_shared_bytes() -> int:
+def quant_shared_bytes(head_dim: int) -> int:
     """B4's dynamic shared memory: a block's largest share (QUANT_MAX_GRAIN /
-    QUANT_CLUSTER tokens) in f32 rows, staged there by its copies."""
-    return QUANT_MAX_GRAIN // QUANT_CLUSTER * HEAD_DIM * 4
+    QUANT_CLUSTER tokens) in f32 rows of head_dim, staged there by its
+    copies."""
+    check_head_dim("B4", head_dim)
+    return QUANT_MAX_GRAIN // QUANT_CLUSTER * head_dim * 4

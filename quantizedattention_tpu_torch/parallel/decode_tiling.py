@@ -37,8 +37,9 @@ computes what B13 computes, and B16 what B15 computes, on the same K/V,
 bit for bit.
 
 Head dim: the kernels' entries of `ops/common.KERNEL_HEAD_DIMS`: 64 for
-all four, and 128 for B13 (int8 payload rows of 128 bytes, two 64-byte
-halves each walked as a row of 64 is). A block at head dim 128 asks for
+all four, and 128 for B13 and B14 (int8 payload rows of 128 bytes, two
+64-byte halves each walked as a row of 64 is; B14's rows reached through the
+page table at d bytes a token). A block at head dim 128 asks for
 twice the stage and partial-sum bytes, so an SM holds one (`resident`), and
 the grid's z doubles to fill the card as before.
 """
@@ -47,7 +48,7 @@ from __future__ import annotations
 
 from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
 
-HEAD_DIMS_INT8 = KERNEL_HEAD_DIMS["B13"]  # the int8 body's widest entry (B14: 64 only)
+HEAD_DIMS_INT8 = KERNEL_HEAD_DIMS["B13"]  # the int8 body's entries (B13 and B14 alike)
 PACK = 256  # tokens of a slotted int4 pack block: the slotted cache's "page"
 PAYLOADS = ("int8", "int4")
 CHUNK = 256  # tokens a block: a pack block, or whole pages of 128 or 256

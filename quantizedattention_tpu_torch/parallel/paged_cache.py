@@ -272,7 +272,7 @@ def paged_decode_attention(q, cache: PagedKVCache, sm_scale=None, return_lse=Fal
 
     GQA as in kv_cache.decode_attention. Returns O [n_seqs, H, d] f32, and
     with return_lse=True the exp2-domain lse [n_seqs, H] (-inf for empty
-    rows). CUDA tensors launch B14 (head_dim 64) or raise; CPU tensors take
+    rows). CUDA tensors launch B14 (head_dim 64 or 128) or raise; CPU tensors take
     `paged_decode_attention_plain`. `.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, cache, sm_scale, return_lse)

@@ -42,7 +42,6 @@ INV_INT8_MAX = 1.0 / INT8_MAX
 # Floor for scales so an all-zero block quantizes to zeros instead of NaN.
 _EPS = 1e-12
 
-_HEAD_DIM = 64  # the kernel's compiled row width
 _MAX_JOBS = 3
 # input dtype -> the kernel's type code
 IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -137,7 +136,7 @@ def _kernel():
     fn = load_kernel("quant_int8").qa_quant_int8
     ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [ptrs, ctypes.POINTER(ctypes.c_longlong), ints] + [ptrs] * 3 + [ints] * 4 \
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -151,6 +150,9 @@ def _launch_args(jobs, dtypes=(torch.float32,)) -> torch.device:
     for job in jobs:
         _check_job(job)
         check_head_dim("B4", job.x.shape[-1])
+        if job.x.shape[-1] != jobs[0].x.shape[-1]:
+            raise ValueError(f"kernel takes one head dim for all jobs; got "
+                             f"{[j.x.shape[-1] for j in jobs]}")
         if job.x.dtype not in dtypes or job.x.dtype != jobs[0].x.dtype:
             raise ValueError(f"kernel takes one type among {list(dtypes)} for all jobs; got "
                              f"{job.x.dtype}")
@@ -195,7 +197,8 @@ def _launch(jobs, out, dev) -> None:
         ptrs(s.data_ptr() for _, s in out),
         ints(rows for rows, _, _, _ in views), ints(t for _, _, t, _ in views),
         ints(j.pad for j in jobs), ints(j.grain for j in jobs),
-        n, IN_TYPES[jobs[0].x.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        n, IN_TYPES[jobs[0].x.dtype], jobs[0].x.shape[-1],
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "quant_int8")
 
@@ -203,7 +206,8 @@ def _launch(jobs, out, dev) -> None:
 def _quant(jobs, dtypes):
     """One launch over `jobs` of one of `dtypes`: each job's (payload, scales)."""
     dev = _launch_args(jobs, dtypes)
-    out = [(torch.empty((_rows_view(j.x)[0], j.pad, _HEAD_DIM), dtype=torch.int8, device=dev),
+    out = [(torch.empty((_rows_view(j.x)[0], j.pad, j.x.shape[-1]), dtype=torch.int8,
+                        device=dev),
             torch.empty((_rows_view(j.x)[0], j.pad // j.grain), dtype=torch.float32, device=dev))
            for j in jobs]
     _launch(jobs, out, dev)
@@ -213,8 +217,9 @@ def _quant(jobs, dtypes):
 def quant_int8(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """B4: quantize 1 to 3 `QuantJob`s in one kernel launch.
 
-    CUDA tensors (f32, head_dim 64, read through their strides) launch the
-    kernel or raise; CPU tensors take `quant_int8_plain`. `quant_int8.launches` counts kernel launches.
+    CUDA tensors (f32, head_dim 64 or 128, one for all jobs, read through their
+    strides) launch the kernel or raise; CPU tensors take `quant_int8_plain`.
+    `quant_int8.launches` counts kernel launches.
     """
     jobs = list(jobs)
     if not 1 <= len(jobs) <= _MAX_JOBS:
@@ -231,8 +236,8 @@ quant_int8.launches = 0
 
 def quant_int8_uncounted(jobs) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """B4 as part of the fused inference forward: one launch over 1 to 3
-    `QuantJob`s (f32 or bf16 CUDA rows, head_dim 64, through their strides) that writes
-    each job's payload [rows, pad, 64] int8 and scale table [rows, pad //
+    `QuantJob`s (f32 or bf16 CUDA rows, head_dim 64 or 128, through their strides) that
+    writes each job's payload [rows, pad, d] int8 and scale table [rows, pad //
     grain] f32, byte-equal to what `quant_int8` gives for the same rows in
     f32. Not counted here: the fused forward's wrapper counts its call; CPU
     tensors raise (B6's plain version quantizes with `quant_int8_plain`)."""

@@ -1,12 +1,14 @@
 """The head dims the port's kernels take on the card (ops/common.py's
 KERNEL_HEAD_DIMS and check_head_dim).
 
-B1 bf16, fast B2/B3 and B13 take head dim 64 or 128; every other kernel and
-mode takes 64 only and refuses 128 naming ROADMAP B-f3; nothing takes
-another head dim. Pure Python: the check itself, then each wrapper's CUDA
-branch on meta tensors (neither CPU nor CUDA, so a wrapper takes its kernel
-path and must raise before it asks for a CUDA tensor), which shows that no
-wrapper outside the slice falls back to its plain version at 128.
+B1 bf16, fast B2/B3, B13 and the int8 family (B4, B5, B6, B7/B8, B14) take
+head dim 64 or 128; every other kernel and mode takes 64 only and refuses
+128 naming ROADMAP B-f3; nothing takes another head dim. Pure Python: the
+check itself, then each wrapper's CUDA branch on meta tensors (neither CPU
+nor CUDA, so a wrapper takes its kernel path and must raise before it asks
+for a CUDA tensor), which shows that no wrapper outside the slice falls back
+to its plain version at 128, and that the slice's wrappers pass the check
+at 128 and then ask for CUDA tensors.
 """
 
 import pytest
@@ -16,6 +18,10 @@ from quantizedattention_tpu_torch.ops import (
     attention_jvp_fwd,
     flash_attention_bwd,
     flash_attention_fwd,
+    int8_attention_fwd_from_quantized,
+    int8_bwd_dkv,
+    int8_bwd_dq,
+    int8_bwd_operands,
     quantize_qkv,
     sage_attention_int8,
     sage_attention_int8_inference,
@@ -23,9 +29,10 @@ from quantizedattention_tpu_torch.ops import (
 from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
 from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd_fp32, kv_split_tf32
 from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep
-from quantizedattention_tpu_torch.parallel import decode_launch, kv4_cache, kv_cache
+from quantizedattention_tpu_torch.parallel import decode_launch, kv4_cache, kv_cache, paged_cache
 
-SLICE = {"B1 bf16", "B2/B3 fast", "B13"}  # the kernels that take head dim 128
+# the kernels that take head dim 128
+SLICE = {"B1 bf16", "B2/B3 fast", "B13", "B4", "B5", "B6", "B7/B8", "B14"}
 META = torch.device("meta")
 
 
@@ -65,14 +72,43 @@ def _outside_the_slice(d):
         "B1 fp32": lambda: flash_attention_fwd_fp32(q, k, v),
         "B1 fp32 prep": lambda: kv_split_tf32(k, v),
         "B2/B3 exact": lambda: flash_attention_bwd(q, k, v, o, lse, o, fast=False),
-        "B4": lambda: quantize_qkv(q, k, v),
-        "B4 via sage_attention_int8": lambda: sage_attention_int8(q, k, v),
-        "B6": lambda: sage_attention_int8_inference(q, k, v),
         "B9 fast": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=True),
         "B9 exact": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=False),
         "B10 exact prep": lambda: tangent_prep(k, v, k, v),
         "B15": lambda: kv4_cache.decode_attention_int4(
             torch.empty((2, 4, d), device=META), kv4_cache.init_kv4_cache(2, 2, 256, d, META)),
+    }
+
+
+def _int8_residuals(b, h, h_kv, t, d):
+    """B4's residuals at the JAX grain, on meta tensors."""
+    from quantizedattention_tpu_torch.tune.config import int8_grain
+
+    q_grain, kv_grain, q_pad, kv_pad = int8_grain(t, t, h // h_kv)
+    return tuple((torch.empty((rows, pad, d), dtype=torch.int8, device=META),
+                  torch.empty((rows, pad // grain), device=META))
+                 for rows, pad, grain in ((b * h, q_pad, q_grain), (b * h_kv, kv_pad, kv_grain),
+                                          (b * h_kv, kv_pad, kv_grain)))
+
+
+def _int8_slice(d):
+    """Calls that reach the kernel path of the int8 family's wrappers (B4,
+    B5, B6, B7/B8 and B14), which take head dim 128 since B-f3's int8 slice."""
+    q, k, v = _qkv(d, h_kv=2)
+    dims = (1, 4, 64, 64, d)
+    res = _int8_residuals(1, 4, 2, 64, d)
+    o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=META)
+    ops = int8_bwd_operands(res, torch.empty((1, 2, 1, d), device=META), o, lse, o, dims)
+    pool = paged_cache.init_paged_cache(2, 5, 2, 2, d, device=META)
+    return {
+        "B4": lambda: quantize_qkv(q, k, v),
+        "B4 via sage_attention_int8": lambda: sage_attention_int8(q, k, v),
+        "B5": lambda: int8_attention_fwd_from_quantized(res, dims),
+        "B6": lambda: sage_attention_int8_inference(q, k, v),
+        "B7": lambda: int8_bwd_dkv(ops),
+        "B8": lambda: int8_bwd_dq(ops),
+        "B14": lambda: paged_cache.paged_decode_attention(
+            torch.empty((2, 4, d), device=META), pool),
     }
 
 
@@ -82,10 +118,23 @@ def test_wrappers_outside_the_slice_raise_at_128(name):
         _outside_the_slice(128)[name]()
 
 
-@pytest.mark.parametrize("name", sorted(_outside_the_slice(96)))
+def _every_wrapper(d):
+    return {**_outside_the_slice(d), **_int8_slice(d)}
+
+
+@pytest.mark.parametrize("name", sorted(_every_wrapper(96)))
 def test_wrappers_raise_at_other_head_dims(name):
     with pytest.raises(ValueError, match="head_dim"):
-        _outside_the_slice(96)[name]()
+        _every_wrapper(96)[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_int8_slice(128)))
+def test_int8_wrappers_take_128_then_want_cuda(name):
+    """The int8 family's wrappers pass the head-dim check at 128 (and the
+    launch geometry there) and then ask for CUDA tensors: no refusal and no
+    fallback to the plain version."""
+    with pytest.raises(ValueError, match="CUDA"):
+        _int8_slice(128)[name]()
 
 
 @pytest.mark.parametrize("d", [128, 96])
@@ -105,9 +154,10 @@ def test_slice_wrappers_check_the_head_dim_first(d):
 
 @pytest.mark.parametrize("entry,kernel", sorted(decode_launch.KERNEL_OF.items()))
 def test_decode_launch_check(entry, kernel):
-    """decode_launch's shared check lets 128 through for B13 only."""
+    """decode_launch's shared check lets 128 through for the int8 payload's
+    entries, B13 and B14."""
     decode_launch.check_kernel_rows(64, 8, 2, 2, entry)
-    if kernel == "B13":
+    if kernel in ("B13", "B14"):
         decode_launch.check_kernel_rows(128, 8, 2, 2, entry)
     else:
         with pytest.raises(ValueError, match="B-f3"):

@@ -53,22 +53,49 @@ def test_key_tiles_stay_inside_one_jax_grain(rep):
         q_grain, kv_grain, q_pad, kv_pad = int8_grain(t, s, rep)
         assert (q_grain, kv_grain, q_pad, kv_pad) == _jax_grain(t, s, rep)
         tiling.check_grain(kv_grain, kv_pad)
-        # the tiles [k0, k0 + 128) up to the last key each lie in one grain
-        # and inside the padded payload
-        for k0 in range(0, s, tiling.KV_TILE):
-            k1 = k0 + tiling.KV_TILE
-            assert k1 <= kv_pad and k0 // kv_grain == (k1 - 1) // kv_grain, (t, s, rep, k0)
+        # at either head dim, the tiles [k0, k0 + kv_tile) up to the last key
+        # each lie in one grain and inside the padded payload
+        for d in tiling.HEAD_DIMS:
+            tile = tiling.kv_tile(d)
+            for k0 in range(0, s, tile):
+                k1 = k0 + tile
+                assert k1 <= kv_pad and k0 // kv_grain == (k1 - 1) // kv_grain, (t, s, rep, k0, d)
         assert q_pad >= t and q_pad % q_grain == 0
 
 
+def _fwd_floor(d):
+    """Q, the K/V ring and the bf16 V ring alone."""
+    tile = tiling.kv_tile(d)
+    return (tiling.BLOCK_ROWS * d + tiling.KV_STAGES * 2 * tile * d
+            + tiling.V_STAGES * tile * d * 2)
+
+
 def test_shared_memory_fits_one_block():
-    n = tiling.shared_bytes()
+    n = tiling.shared_bytes(64)
     assert n <= tiling.SMEM_LIMIT
-    # Q, the K/V ring and the bf16 V ring alone
-    floor = (tiling.BLOCK_ROWS * 64 + tiling.KV_STAGES * 2 * tiling.KV_TILE * 64
-             + tiling.V_STAGES * tiling.KV_TILE * 64 * 2)
+    floor = _fwd_floor(64)
     assert floor < n <= floor + 4096
     assert tiling.KV_STAGES >= 2 and tiling.V_STAGES >= 2 and tiling.BLOCK_ROWS == 2 * 64
+
+
+def test_shared_memory_fits_one_block_at_128():
+    """At head dim 128 the forward walks 64-key tiles: its Q tile, K/V ring
+    and bf16 V ring (int8 rows of 128 bytes, bf16 rows two panels of 128)
+    fit one block, and so would a second block's."""
+    assert tiling.kv_tile(128) == 64 and tiling.kv_tile(64) == 128
+    n = tiling.shared_bytes(128)
+    floor = _fwd_floor(128)
+    assert floor < n <= floor + 4096
+    assert floor == 128 * 128 + 3 * 2 * 64 * 128 + 2 * 64 * 128 * 2
+    assert 2 * (n + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("d", [0, 32, 80, 96, 256])
+def test_geometry_refuses_other_head_dims(d):
+    for fn in (tiling.kv_tile, tiling.shared_bytes, tiling.dkv_stages, tiling.dkv_shared_bytes,
+               tiling.dq_shared_bytes, tiling.quant_shared_bytes):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(d)
 
 
 @pytest.mark.parametrize("rep", [1, 2, 3, 5, 16, 64, 128])
@@ -160,17 +187,38 @@ def test_bwd_geometry_on_the_jax_grain_table(rep):
             _check_bwd_geometry(1, rep, 1, t, s, causal)
 
 
+def _bwd_floors(d):
+    """B7: K (and at 128 the widened V), the Q/dO ring and two widened Q
+    tiles; B8: Q, the K/V ring and the widened K and V tiles."""
+    tile_i8 = tiling.BWD_TILE * d
+    vw = 0 if d == 64 else 128 * d * 2
+    dkv = 128 * d + vw + tiling.dkv_stages(d) * 3 * tile_i8 + 2 * 2 * tile_i8
+    dq = 128 * d + tiling.DQ_STAGES * 2 * tile_i8 + (tiling.DQ_WIDE_K + 2) * 2 * tile_i8
+    return dkv, dq
+
+
 def test_bwd_shared_memory_fits_one_block():
-    dkv, dq = tiling.dkv_shared_bytes(), tiling.dq_shared_bytes()
+    dkv, dq = tiling.dkv_shared_bytes(64), tiling.dq_shared_bytes(64)
     assert max(dkv, dq) <= tiling.SMEM_LIMIT
-    tile_i8 = tiling.BWD_TILE * 64
-    # B7: K, the Q/dO ring and two widened Q tiles; B8: Q, the K/V ring and
-    # the widened K and V tiles
-    dkv_floor = 128 * 64 + tiling.DKV_STAGES * 3 * tile_i8 + 2 * 2 * tile_i8
-    dq_floor = 128 * 64 + tiling.DQ_STAGES * 2 * tile_i8 + (tiling.DQ_WIDE_K + 2) * 2 * tile_i8
+    dkv_floor, dq_floor = _bwd_floors(64)
     assert dkv_floor < dkv <= dkv_floor + 32 * 1024 + 4096
     assert dq_floor < dq <= dq_floor + 4096
-    assert tiling.DKV_STAGES >= 3 and tiling.DQ_STAGES >= 3
+    assert tiling.dkv_stages(64) >= 3 and tiling.DQ_STAGES >= 3
+
+
+def test_bwd_shared_memory_fits_one_block_at_128():
+    """At head dim 128, B7 keeps the widened V (the A of dP^T) and dK's f32
+    sums (64 a thread) in shared memory beside a 3-stage ring, and B8 sums
+    dQ there (64 a thread): both under an H100 block's 227 KB, where B7's
+    ring of 4 stages would not be."""
+    dkv, dq = tiling.dkv_shared_bytes(128), tiling.dq_shared_bytes(128)
+    assert max(dkv, dq) <= tiling.SMEM_LIMIT
+    dkv_floor, dq_floor = _bwd_floors(128)
+    sums = 64 * 256 * 4
+    assert dkv_floor + sums < dkv <= dkv_floor + sums + 4096
+    assert dq_floor + sums < dq <= dq_floor + sums + 4096
+    assert tiling.dkv_stages(128) == 3
+    assert dkv + 3 * tiling.BWD_TILE * 128 > tiling.SMEM_LIMIT  # a fourth stage passes the SM
 
 
 def test_bwd_geometry_refusals():
@@ -256,9 +304,19 @@ def test_quant_geometry_takes_the_jax_grain(t, s, rep):
 def test_quant_shared_bytes_fit():
     """A block's largest share in f32 (128 tokens x 64), six blocks an SM
     (each with its static bytes and the 1 KB the card reserves a block)."""
-    assert tiling.quant_shared_bytes() == 128 * 64 * 4 <= 48 * 1024
+    assert tiling.quant_shared_bytes(64) == 128 * 64 * 4 <= 48 * 1024
     static = 4 * (tiling.QUANT_THREADS // 32 + 1)
-    assert 6 * (tiling.quant_shared_bytes() + static + 1024) <= 228 * 1024
+    assert 6 * (tiling.quant_shared_bytes(64) + static + 1024) <= 228 * 1024
+
+
+def test_quant_shared_bytes_fit_at_128():
+    """At head dim 128 a block's largest share is 128 tokens x 128 in f32,
+    64 KB (over the 48 KB a launch gets without raising its limit, which
+    the kernel raises): three blocks an SM."""
+    n = tiling.quant_shared_bytes(128)
+    assert n == 128 * 128 * 4 == 2 * tiling.quant_shared_bytes(64) > 48 * 1024
+    static = 4 * (tiling.QUANT_THREADS // 32 + 1)
+    assert 3 * (n + static + 1024) <= 228 * 1024 < 4 * (n + static + 1024)
 
 
 def test_quant_grid_limits_raise():
