@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py pipeline   # phases 1, 2 and 29 alone (e.g. on four cards)
     python3 chip_smoke.py head128    # phases 1, 2 and 30 alone
+    python3 chip_smoke.py options    # phases 1, 2 and 31 alone
     python3 chip_smoke.py sp_model   # the SP cost model's constants (four cards)
 
 Phases, one line each; any failure raises and the exit code is non-zero:
@@ -341,6 +342,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      every step) and ServingEngine at SERVE128_CFG with int8 prefill (B4 +
      B5, 4 launches each) on the slotted (B13) and paged (B14) caches, f32
      params' tokens equal `generate`'s, bf16 params' tokens/s.
+ 31. options (run after phase 30): B1's correction="beta" and "none" against
+     their plain versions (O and lse, twice for the same bits) at the train
+     shapes (4, 16, 2048, 64/128) causal on f32 and bf16 inputs, GQA (2,
+     16q/4kv, 2048, 64/128), t and s off a multiple of 128, s within one
+     key group, over three and four groups (an odd group of key tiles), on
+     keys duplicated so that "beta" fires (its share of rows printed; a
+     second call with tol = -inf says where), with offsets, and at JAX's
+     extreme tied logits (O = 0, lse ~200 above eps's); the fp32 mode's
+     rules at (4, 4, 4096, 64), GQA and causal edges;
+     flash_attention_bf16(correction="beta"/"none") forward and backward at
+     the train shape and flash_attention_fwd_fp32(correction=) at the DiT's
+     as paths (counts from 0) against the plain forward and backward; both
+     rules timed against "eps" beside SDPA and the bound; B18 at groups 8,
+     32, 48 and 96 against its plain version at decode (m = 8) and prefill
+     (m = 2048) rows of 1024 x 4096 and 4096 x 1024, each timed beside
+     groups 64 and 128 (the bound counts the scale bytes); the bench LM with
+     quantize_lm_weights(bits=4, group=32, include_embed=False): a prefill
+     and 4 decode steps through `generate` (B18 must launch) and its logits
+     against the plain path on the CPU. Phase 2 also holds B18's geometry at
+     those groups and fails on a spill or C75xx note in its ANY instances.
+`python3 chip_smoke.py options` runs phases 1, 2 and 31 alone.
 `python3 chip_smoke.py sp_model` (four cards, NCCL; refused on fewer) runs
 phases 1 and 2, then measures parallel/scaling_model.py's constants:
 `nvidia-smi topo -m` and `nvlink --status` (printed, whatever they exit
@@ -452,6 +474,7 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     kv_to_bf16,
 )
 from quantizedattention_tpu_torch.ops import flash_tiling, int8_tiling, jvp_tiling
+from quantizedattention_tpu_torch.ops.common import LOG2_E
 from quantizedattention_tpu_torch.ops.int8_fwd import _qkv_jobs
 from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep, tangent_prep_plain
 from quantizedattention_tpu_torch.models.transformer import (
@@ -506,6 +529,7 @@ from quantizedattention_tpu_torch.quantize.weights import (
     QuantizedWeight,
     QuantizedWeight4,
     mm,
+    quantize_lm_weights,
     quantize_weight,
     quantize_weight_int4,
 )
@@ -748,11 +772,13 @@ def phase_build() -> None:
     if tuple(g.value for g in geometry) != want:
         raise AssertionError(f"quant_int8.cu's cluster, threads and largest grain "
                              f"{[g.value for g in geometry]} differ from ops/int8_tiling.py's {want}")
-    for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phase 15 makes
-        half = -(-k // 256) * 128  # quantize_weight_int4's packed rows at group 128
-        for name, plan in (("int8_linear", plan_int8(m, k, n)),
-                           ("int4_linear", plan_int4(m, half, n, 128))):
-            smem = getattr(_build.load_kernel(name), f"qa_{name}_smem_bytes")(m, plan.bn)
+    for m, k, n in WEIGHT_SHAPES + [WEIGHT_ODD]:  # B17/B18: every launch phases 15 and 31 make
+        # quantize_weight_int4's packed rows at group 128 and at phase 31's groups
+        plans = [(f"int4_linear group {g}", plan_int4(m, -(-k // (2 * g)) * g, n, g))
+                 for g in (128,) + ANY_GROUPS]
+        for name, plan in [("int8_linear", plan_int8(m, k, n))] + plans:
+            lib = name.split()[0]
+            smem = getattr(_build.load_kernel(lib), f"qa_{lib}_smem_bytes")(m, plan.bn)
             if smem != plan.shared_bytes:
                 raise AssertionError(f"{name}.cu asks for {smem} shared bytes a block at m={m} "
                                      f"bn={plan.bn}, ops/linear_tiling.py says "
@@ -775,6 +801,12 @@ def phase_build() -> None:
         bad = _ptxas_faults(_build.build_log(name), only)
         if bad:
             raise AssertionError(f"{name}'s ptxas notes: {bad}")
+    # B18's ANY instances (bool template argument true, "Lb1E"): no spill and
+    # no C75xx note; its first instances keep int4_tc_kernel's known C7517 at
+    # the epilogue stores
+    bad = [line for line in _ptxas_faults(_build.build_log("int4_linear")) if "Lb1E" in line]
+    if bad:
+        raise AssertionError(f"int4_linear's ANY instances' ptxas notes: {bad}")
 
 
 def _ptxas_faults(log_text: str, only=None) -> list:
@@ -5253,6 +5285,360 @@ def _head128_rows(kernels: list, head128: dict) -> None:
             k["head_dim_128"] = row
 
 
+# --------------------------------------------------------------------------
+# Phase 31: B1's "beta" and "none" corrections, B18 at any scale group
+# (`python3 chip_smoke.py options` runs phases 1, 2 and 31 alone)
+# --------------------------------------------------------------------------
+
+RULE_TRAIN = (4, 16, 2048)  # (b, h, t): BASELINE config 2's attention shape
+RULE_DIT = (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len)  # the DiT's, non-causal
+# B1's rules at the train shapes, GQA and the edges: (b, h, h_kv, t, s,
+# causal, d). t and s off a multiple of 128; s within one key group (grain
+# 256); three groups of 384 (s = 1152); four groups of 640 = 5 key tiles at
+# d=64, 10 at d=128 (s = 2500)
+RULE_CASES = [(4, 16, 16, 2048, 2048, True, 64), (4, 16, 16, 2048, 2048, True, HEAD128),
+              (2, 16, 4, 2048, 2048, True, 64), (2, 16, 4, 2048, 2048, True, HEAD128),
+              (1, 4, 4, 200, 330, True, 64), (1, 4, 2, 77, 201, False, 64),
+              (1, 4, 2, 300, 1152, False, 64), (1, 6, 2, 1152, 1152, True, HEAD128),
+              (1, 4, 4, 2500, 2500, True, 64), (1, 2, 2, 2500, 2500, False, HEAD128)]
+# the fp32 mode's: the DiT's attention shape, GQA and causal edges (d = 64)
+RULE_FP32_CASES = [(RULE_DIT[0], RULE_DIT[1], RULE_DIT[1], RULE_DIT[2], RULE_DIT[2], False),
+                   (1, 8, 2, 1152, 1152, True), (1, 2, 2, 330, 200, True)]
+# B18's groups that are not multiples of 64, at decode and prefill rows of
+# the bench widths' w1 and w2
+ANY_GROUPS = (8, 32, 48, 96)
+ANY_SHAPES = [(m, k, n) for m in (N_SLOTS, N_SLOTS * PROMPT_LEN)
+              for k, n in ((1024, 4096), (4096, 1024))]
+ANY_GROUP = 32  # the row's group: its times, and the quantized LM's
+LM_G32_NEW = 4  # decode steps of the group-32 LM path
+
+
+def _tied(gen, dev, b, h, h_kv, t, s, d):
+    """Unit-normal q, k, v whose keys 3 and 9, and s - 5 and s - 2, are
+    duplicated and large: the rows whose maximum they are tie, and "beta"
+    fires there."""
+    q = torch.randn((b, h, t, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, h_kv, s, d), generator=gen, device=dev) for _ in range(2))
+    u = torch.randn((b, h_kv, 2, d), generator=gen, device=dev) * 2.0
+    k[:, :, 3] = k[:, :, min(9, s - 1)] = u[:, :, 0]
+    k[:, :, max(s - 5, 0)] = k[:, :, s - 2] = 1.2 * u[:, :, 1]
+    return q, k, v
+
+
+def _check_rule(fwd, plain, q, k, v, rule, label, tol_o, tol_l, rel=False, **kw):
+    """A rule's kernel against its plain version (O, lse), and the same bits
+    from a second call. Returns (max|dO| or, rel, its share of max|O|, the
+    kernel's O and lse)."""
+    o, lse = fwd(q, k, v, correction=rule, **kw)
+    o2, lse2 = fwd(q, k, v, correction=rule, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{rule} gave other bits on a second call at {label}")
+    o_p, lse_p = plain(q, k, v, correction=rule, **kw)
+    err_o = (o - o_p).abs().max().item() / (o_p.abs().max().item() if rel else 1.0)
+    seen = torch.isfinite(lse_p)
+    err_l = (lse - lse_p)[seen].abs().max().item() if seen.any() else 0.0
+    if not torch.equal(seen, torch.isfinite(lse)):
+        raise AssertionError(f"{rule}: the rows that see no key differ at {label}")
+    log(f"[options] {rule} {label}: max|dO|{'/max|O|' if rel else ''}={err_o:.3e} (tol {tol_o}) "
+        f"max|dlse|={err_l:.3e} (tol {tol_l})")
+    if not (torch.isfinite(o).all() and err_o <= tol_o and err_l <= tol_l):
+        raise AssertionError(f"flash_fwd correction={rule!r} disagrees with its plain version")
+    return err_o, o, lse
+
+
+def _options_b1(dev) -> dict:
+    """B1 bf16 under "beta" and "none" against its plain version at
+    RULE_CASES (f32 and bf16 inputs at the first), with duplicated keys so
+    that "beta" fires (its share of rows printed), offsets, JAX's
+    extreme-logit row; the fp32 mode at RULE_FP32_CASES. Returns each
+    instance's max|dO|."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    errs = {"flash_fwd_beta": 0.0, "flash_fwd_none": 0.0, "flash_fwd_fp32_beta": 0.0,
+            "flash_fwd_fp32_none": 0.0}
+    for b, h, h_kv, t, s, causal, d in RULE_CASES:
+        q, k, v = _tied(gen, dev, b, h, h_kv, t, s, d)
+        label = f"({b},{h}q/{h_kv}kv,{t},{s},{d}) causal={causal}"
+        inputs = [(q, k, v, "f32 in")]
+        if (b, h, t) == RULE_TRAIN:
+            inputs.append((*(x.to(torch.bfloat16) for x in (q, k, v)), "bf16 in"))
+        for qq, kk, vv, kind in inputs:
+            for rule in ("beta", "none"):
+                e, o, _ = _check_rule(flash_attention_fwd, flash_attention_fwd_plain, qq, kk, vv,
+                                      rule, f"{label}, {kind}", FLASH_O_TOL, FLASH_LSE_TOL,
+                                      causal=causal)
+                errs[f"flash_fwd_{rule}"] = max(errs[f"flash_fwd_{rule}"], e)
+                if rule == "beta":  # where the rule fired: the output differs from tol=-inf's
+                    off, _ = flash_attention_fwd(qq, kk, vv, causal=causal, correction="beta",
+                                                 tol=-math.inf)
+                    share = (o != off).any(-1).float().mean().item()
+                    log(f"[options] beta {label}, {kind}: the rule fired on {share:.3f} of the "
+                        f"rows")
+                    if not share > 0.0:
+                        raise AssertionError(f"beta never fired at {label}")
+    # offsets under "beta": a later shard's queries, and rows that see no key
+    for qo, ko in ((256, 0), (0, 128)):
+        q, k, v = _tied(gen, dev, 1, 4, 2, 256, 512, 64)
+        e, _, _ = _check_rule(flash_attention_fwd, flash_attention_fwd_plain, q, k, v, "beta",
+                              f"(1,4q/2kv,256,512,64) causal q_offset={qo} k_offset={ko}",
+                              FLASH_O_TOL, FLASH_LSE_TOL, causal=True, q_offset=qo, k_offset=ko)
+        errs["flash_fwd_beta"] = max(errs["flash_fwd_beta"], e)
+    # JAX's extreme-logit row (tests/test_bf16_attention.py:101-127): 8 exactly
+    # tied keys at exp2-domain logit ~200; beta amplifies to ~400 and every P
+    # of the row underflows: O = 0, lse finite and ~200 above eps's
+    q, k, v = (torch.randn((1, 1, 128, 64), generator=gen, device=dev) for _ in range(3))
+    u = torch.full((64,), 64 ** -0.5, device=dev) * math.sqrt(200.0 * 8.0 / LOG2_E)
+    q[0, 0, -1] = u
+    k[0, 0, :8] = u
+    e, o_b, lse_b = _check_rule(flash_attention_fwd, flash_attention_fwd_plain, q, k, v, "beta",
+                                "(1,1,128,128,64) extreme tied logits", FLASH_O_TOL,
+                                FLASH_LSE_TOL)
+    errs["flash_fwd_beta"] = max(errs["flash_fwd_beta"], e)
+    _, lse_e = flash_attention_fwd(q, k, v)
+    gap = (lse_b[0, 0, -1] - lse_e[0, 0, -1]).item()
+    log(f"[options] beta extreme row: max|O| {o_b[0, 0, -1].abs().max().item():.3e}, lse - "
+        f"lse_eps {gap:.2f} (JAX: O = 0, gap > 50)")
+    if not (o_b[0, 0, -1].abs().max().item() == 0.0 and gap > 50.0
+            and torch.isfinite(lse_b).all()):
+        raise AssertionError("beta at extreme tied logits: want O = 0 and a finite lse ~200 up")
+    for b, h, h_kv, t, s, causal in RULE_FP32_CASES:
+        q, k, v = _tied(gen, dev, b, h, h_kv, t, s, 64)
+        label = f"fp32 ({b},{h}q/{h_kv}kv,{t},{s},64) causal={causal}"
+        for rule in ("beta", "none"):
+            e, o, _ = _check_rule(flash_attention_fwd_fp32,
+                                  lambda *a, **kw: flash_attention_fwd_plain(*a, precision="fp32",
+                                                                             **kw),
+                                  q, k, v, rule, label, JVP_EXACT_TOL, JVP_EXACT_TOL, rel=True,
+                                  causal=causal)
+            errs[f"flash_fwd_fp32_{rule}"] = max(errs[f"flash_fwd_fp32_{rule}"], e)
+    return errs
+
+
+def _options_b1_paths(dev) -> tuple[dict, dict]:
+    """The entry points a user calls with the rules: flash_attention_bf16
+    (correction="beta" and "none") forward and backward at the train shape,
+    against the plain forward and backward; flash_attention_fwd_fp32 under
+    each rule at the DiT's shape. Each runs with every count at 0 first.
+    Returns (the launches of each run, the gradients' max|diff|/max|plain|)."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    launches, grad_rel = {}, 0.0
+    b, h, t = RULE_TRAIN
+    for rule in ("beta", "none"):
+        q, k, v = _tied(gen, dev, b, h, h, t, t, 64)
+        do = torch.randn_like(q)
+        leaves = [x.requires_grad_(True) for x in (q, k, v)]
+        _reset_counts()
+        o = flash_attention_bf16(*leaves, causal=True, correction=rule)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        launches[f"train_{rule}"] = {n: c for n, c in _launch_counts().items() if c}
+        with torch.no_grad():
+            o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=True, correction=rule)
+            want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=True, fast=True)
+        err_o = (o - o_p).abs().max().item()
+        rel = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(grads, want))
+        grad_rel = max(grad_rel, rel)
+        log(f"[options] flash_attention_bf16(correction={rule!r}) ({b},{h},{t},64) causal: O "
+            f"max|diff| {err_o:.3e} (tol {FLASH_O_TOL}), gradients max|diff|/max|plain| "
+            f"{rel:.3e} (tol {BWD_FAST_TOL}), launches {launches[f'train_{rule}']}")
+        if not (err_o <= FLASH_O_TOL and rel <= BWD_FAST_TOL):
+            raise AssertionError(f"flash_attention_bf16(correction={rule!r}) disagrees with the "
+                                 "plain forward and backward")
+        if launches[f"train_{rule}"].get("flash_fwd") != 1:
+            raise AssertionError(f"flash_attention_bf16(correction={rule!r}) launched "
+                                 f"{launches[f'train_{rule}']}")
+        del q, k, v, do, leaves, o, grads, o_p, lse_p, want
+        q, k, v = _tied(gen, dev, RULE_DIT[0], RULE_DIT[1], RULE_DIT[1], RULE_DIT[2],
+                        RULE_DIT[2], 64)
+        _reset_counts()
+        flash_attention_fwd_fp32(q, k, v, correction=rule)
+        torch.cuda.synchronize()
+        launches[f"dit_{rule}"] = {n: c for n, c in _launch_counts().items() if c}
+        if launches[f"dit_{rule}"].get("flash_fwd_fp32") != 1:
+            raise AssertionError(f"flash_attention_fwd_fp32(correction={rule!r}) launched "
+                                 f"{launches[f'dit_{rule}']}")
+    return launches, grad_rel
+
+
+def _options_b1_timing(dev) -> dict:
+    """The rules against "eps" at the train shapes (bf16 inputs, the kernel
+    alone) beside their plain version and SDPA, and the fp32 mode's at the
+    DiT's shape (whole calls, prep included) beside its plain version and
+    SDPA on f32 inputs. The bounds are the rule's function's: the same bytes
+    and products as "eps" (the pre-pass's second QK^T is the kernel's
+    choice)."""
+    gen = torch.Generator(device=dev).manual_seed(33)
+    out = {f"flash_fwd{m}_{r}": {} for m in ("", "_fp32") for r in ("beta", "none")}
+    for d in (64, HEAD128):
+        b, h, t = RULE_TRAIN
+        q, k, v = (x.to(torch.bfloat16) for x in _tied(gen, dev, b, h, h, t, t, d))
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        flops = 2 * 2 * b * h * visible_pairs(t, t, True) * d
+        bnd = bound(nbytes(q, k, v, o, lse), (flops, PEAK_BF16))
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        eps_ms = device_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+        line = []
+        for rule in ("beta", "none"):
+            ms = device_ms(lambda: flash_attention_fwd(q, k, v, causal=True, correction=rule))
+            plain_ms = device_ms(lambda: flash_attention_fwd_plain(q, k, v, causal=True,
+                                                                   correction=rule), 2, 3)
+            r = {"ms": ms, "plain_ms": plain_ms, "eps_ms": eps_ms, "library_ms": lib_ms, **bnd}
+            tag = f"flash_fwd_{rule}"
+            if d == 64:
+                out[tag].update(r, shape=f"({b},{h},{t},{d}) causal, bf16 in")
+            else:
+                out[tag]["head_dim_128"] = r
+            line.append(f"{rule} {ms:.4f} ms ({ms / eps_ms:.2f}x eps), plain {plain_ms:.4f} ms")
+        log(f"[timing] flash_fwd rules ({b},{h},{t},{d}) causal, bf16 in: eps {eps_ms:.4f} ms, "
+            + ", ".join(line) + f", sdpa {lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
+        del q, k, v, o, lse
+    b, h, t = RULE_DIT
+    q, k, v = _tied(gen, dev, b, h, h, t, t, 64)
+    o, lse = flash_attention_fwd_fp32(q, k, v)
+    bnd = bound(nbytes(q, k, v, o, lse), (6 * 2 * b * h * t * t * 64, PEAK_TF32))
+
+    def few(fn):  # one call a graph, two replays, as phase 19 times B1 fp32
+        return device_ms(fn, calls=1, replays=2)
+
+    lib_ms = few(lambda: F.scaled_dot_product_attention(q, k, v))
+    eps_ms = few(lambda: flash_attention_fwd_fp32(q, k, v))
+    line = []
+    for rule in ("beta", "none"):
+        ms = few(lambda: flash_attention_fwd_fp32(q, k, v, correction=rule))
+        plain_ms = few(lambda: flash_attention_fwd_plain(q, k, v, correction=rule,
+                                                         precision="fp32"))
+        out[f"flash_fwd_fp32_{rule}"].update(
+            ms=ms, plain_ms=plain_ms, eps_ms=eps_ms, library_ms=lib_ms, **bnd,
+            shape=f"({b},{h},{t},64), the call with its prep launch")
+        line.append(f"{rule} {ms:.4f} ms ({ms / eps_ms:.2f}x eps), plain {plain_ms:.4f} ms")
+    log(f"[timing] flash_fwd_fp32 rules ({b},{h},{t},64): eps {eps_ms:.4f} ms, " + ", ".join(line)
+        + f", sdpa f32 {lib_ms:.4f} ms, bound 3xTF32 {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    for name, r in out.items():
+        r["library_call"] = "F.scaled_dot_product_attention" + (
+            ", f32 inputs" if "fp32" in name else "(is_causal=True), bf16")
+    return out
+
+
+def _options_b18(dev) -> tuple[float, dict]:
+    """B18 at ANY_GROUPS against its plain version at ANY_SHAPES (f32 and
+    bf16 outputs, twice for the same bits), then timed at each group beside
+    group 128 and 64, the plain version and torch.matmul of the bf16 weight;
+    the bound counts the scale bytes (4x group 128's at group 32). Returns
+    (max|diff|, the row's numbers at ANY_GROUP with every shape's)."""
+    gen = torch.Generator(device=dev).manual_seed(34)
+    err, row = 0.0, {"by_shape": {}}
+    for m, k, n in ANY_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        wb = w.to(torch.bfloat16)
+        lib_ms = device_ms(lambda: torch.matmul(x, wb))
+        y = torch.matmul(x, wb)
+        times = {}
+        for group in ANY_GROUPS + (64, 128):
+            q4 = quantize_weight_int4(w, group=group)
+            x4 = F.pad(x, (0, 2 * q4.packed.shape[0] - k))
+            label = f"m={m} k={k} n={n} group={group}"
+            if group in ANY_GROUPS:
+                err = max(err, _check_weight(
+                    "int4_linear",
+                    lambda dt: int4_weight_matmul(x4, q4.packed, q4.scale, group, out_dtype=dt),
+                    lambda dt: int4_weight_matmul_plain(x4, q4.packed, q4.scale, group, dt),
+                    label))
+            times[group] = device_ms(lambda: int4_weight_matmul(x4, q4.packed, q4.scale, group))
+            if group == ANY_GROUP:
+                n_bytes = nbytes(x, y, q4.packed, q4.scale)
+                r = {"ms": times[group], "library_ms": lib_ms,
+                     "plain_ms": device_ms(lambda: int4_weight_matmul_plain(
+                         x4, q4.packed, q4.scale, group), calls=2, replays=3),
+                     **bound(n_bytes, (2 * m * k * n, PEAK_BF16)),
+                     "scale_bytes": nbytes(q4.scale), "packed_bytes": nbytes(q4.packed)}
+        r["ms_by_group"] = times
+        row["by_shape"][f"m={m} k={k} n={n}"] = r
+        log(f"[timing] int4_linear m={m} k={k} n={n}: " + ", ".join(
+            f"group {g} {ms:.4f} ms" for g, ms in times.items())
+            + f"; group {ANY_GROUP}: plain {r['plain_ms']:.4f} ms, bf16 torch.matmul "
+            f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; scales "
+            f"{r['scale_bytes']} B beside {r['packed_bytes']} B of nibbles)")
+    head = "m={} k={} n={}".format(*WEIGHT_HEADLINE)
+    row.update(row["by_shape"][head], headline_shape=head, group=ANY_GROUP,
+               library_call="torch.matmul(x, w) with the weight in bf16")
+    return err, row
+
+
+def _options_lm(dev, smi) -> dict:
+    """The bench LM with quantize_lm_weights(bits=4, group=32,
+    include_embed=False): one batched prefill of N_SLOTS prompts and
+    LM_G32_NEW greedy decode steps through `generate` with every count at 0
+    first (B18 must launch, at group 32), then the logits of prompt and
+    continuation on the card against the plain path on the CPU. Returns the
+    run's launches."""
+    cfg = BENCH_CFG
+    params = init_transformer(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    qp = quantize_lm_weights(params, include_embed=False, bits=4, group=ANY_GROUP)
+    if isinstance(qp["embed"], QuantizedWeight) or qp["layers"][0]["w1"].group != ANY_GROUP:
+        raise AssertionError("quantize_lm_weights ignored include_embed or group")
+    rng = np.random.default_rng(31)
+    prompts = torch.tensor(rng.integers(1, cfg.vocab_size, (N_SLOTS, 64)), device=dev)
+    _reset_counts()
+    with torch.no_grad():
+        seq = generate(qp, prompts, cfg, LM_G32_NEW)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in _launch_counts().items() if c}
+    with torch.no_grad():
+        logits = transformer_forward(qp, seq, cfg).float().cpu()
+        ref = transformer_forward(_to(qp, "cpu"), seq.cpu(), cfg).float()
+    rel = ((logits - ref).norm() / ref.norm()).item()
+    log(f"[options] bench LM, int4 weights at group {ANY_GROUP}, float embedding: "
+        f"{N_SLOTS} x 64-token prefill + {LM_G32_NEW} decode steps on {smi}, launches {launches}; "
+        f"logits vs CPU plain path rel L2 {rel:.3e} (tol {LOGITS_REL_TOL})")
+    if not (torch.isfinite(logits).all() and rel <= LOGITS_REL_TOL):
+        raise AssertionError("the group-32 LM's logits disagree with the plain CPU path")
+    if not all(launches.get(n) for n in ("int4_linear", "flash_fwd", "decode")):
+        raise AssertionError(f"the group-32 LM path launched {launches}")
+    return launches
+
+
+OPTION_ROWS = {  # phase 31's instances: the kernel each is a mode of
+    "flash_fwd_beta": ("flash_fwd.cu", "correction='beta' of the B1 bf16 kernel (d 64 and 128)"),
+    "flash_fwd_none": ("flash_fwd.cu", "correction='none' of the B1 bf16 kernel (d 64 and 128)"),
+    "flash_fwd_fp32_beta": ("flash_fwd.cu", "correction='beta' of the B1 fp32 kernel"),
+    "flash_fwd_fp32_none": ("flash_fwd.cu", "correction='none' of the B1 fp32 kernel"),
+    "int4_linear_any": ("int4_linear.cu", "B18's ANY instances: groups that are not multiples "
+                                          "of 64"),
+}
+
+
+def phase_options(dev, smi) -> list:
+    """Phase 31: B1's "beta" and "none" rules (bf16 at head dims 64 and 128,
+    fp32 at 64) and B18 at groups that are not multiples of 64, each against
+    its plain version, on the paths a user calls them through, and timed.
+    Returns the `kernels` line's rows of these instances."""
+    errs = _options_b1(dev)
+    launches, grad_rel = _options_b1_paths(dev)
+    timing = _options_b1_timing(dev)
+    b18_err, b18 = _options_b18(dev)
+    lm = _options_lm(dev, smi)
+    errs["int4_linear_any"] = b18_err
+    timing["int4_linear_any"] = b18
+    timing["flash_fwd_beta"]["grad_rel_vs_plain"] = grad_rel
+    by_path = {"flash_fwd_beta": {"train_beta": launches["train_beta"]["flash_fwd"]},
+               "flash_fwd_none": {"train_none": launches["train_none"]["flash_fwd"]},
+               "flash_fwd_fp32_beta": {"dit_beta": launches["dit_beta"]["flash_fwd_fp32"]},
+               "flash_fwd_fp32_none": {"dit_none": launches["dit_none"]["flash_fwd_fp32"]},
+               "int4_linear_any": {"lm_w4_g32": lm["int4_linear"]}}
+    rows = []
+    for name, (source, mode) in OPTION_ROWS.items():
+        replaces = ("quantizedattention_tpu/ops/int4_linear.py:64" if name.startswith("int4")
+                    else "quantizedattention_tpu/ops/flash_fwd.py:47")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"quantizedattention_tpu_torch/csrc/{source}",
+                     "replaces": replaces, "mode_of": mode, "launches_by_path": by_path[name],
+                     "launches": sum(by_path[name].values()), "max_abs_err": errs[name],
+                     **timing[name]})
+    return rows
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -5296,6 +5682,7 @@ def main() -> None:
     mesh_launches = {k: v for k, v in mesh_runs.items() if k.startswith("mesh_")
                      and k not in ("mesh_profile", "mesh_tokens_per_s", "mesh_local")}
     head128 = phase_head128(dev, smi)
+    options = phase_options(dev, smi)
     sp, pool = phase_sp_training(dev, smi)
     try:
         rcm = phase_sp_rcm(dev, smi, pool)
@@ -5433,6 +5820,7 @@ def main() -> None:
     _head128_rows(kernels, head128)  # B1-B3 and B13 at head dim 128 (phase 30)
     for k in kernels:  # launches: every path's run together
         k["launches"] = sum(k["launches_by_path"].values())
+    kernels += options  # B1's rules and B18's ANY instances (phase 31)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -5686,6 +6074,18 @@ def main_head128() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+def main_options() -> None:
+    """`python3 chip_smoke.py options`: phases 1, 2 and 31 alone; the
+    `kernels` line holds B1's "beta" and "none" instances (both modes) and
+    B18's ANY instances."""
+    name, smi = phase_device()
+    phase_build()
+    kernels = phase_options(torch.device("cuda", 0), smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main_pipeline() -> None:
     """`python3 chip_smoke.py pipeline`: phases 1, 2 and 29 alone, phase 29
     on a pool of its own (on four visible cards, one rank a card over
@@ -5711,8 +6111,10 @@ if __name__ == "__main__":
         main_head128()
     elif sys.argv[1:] == ["sp_model"]:
         main_sp_model()
+    elif sys.argv[1:] == ["options"]:
+        main_options()
     elif sys.argv[1:]:
-        sys.exit(f"usage: python3 chip_smoke.py [pipeline | head128 | sp_model]; "
+        sys.exit(f"usage: python3 chip_smoke.py [pipeline | head128 | sp_model | options]; "
                  f"got {sys.argv[1:]}")
     else:
         main()

@@ -8,13 +8,14 @@ decode4 and its int8 one in decode8), the Q/K/V quantizer (B4, quant) and
 the tangent's exact mode (B10, jvp_tangent, also a numerics witness); and
 five numerics witnesses, bwd_exact, fwd_fp32, flash_digest (B1-B3's
 outputs at zero offsets and head dim 64 hashed here and in a parent
-checkout, then at head dim 128 here), int8_digest (B4-B8's, the same way)
-and decode_digest (B13-B16's at head dim 64, decode8's last step alone).
+checkout, then at head dim 128 here), int8_digest (B4-B8's, the same way),
+int4_digest (B18's at groups 64 and 128, the same way) and decode_digest
+(B13-B16's at head dim 64, decode8's last step alone).
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                             [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
                             [quant] [jvp_tangent] [flash_digest] [int8_digest]
-                            [decode_digest] [sass] [PARENT_CHECKOUT]  (all parts without
+                            [int4_digest] [decode_digest] [sass] [PARENT_CHECKOUT]  (all parts without
                             arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
@@ -92,16 +93,17 @@ the inputs phase 6 drew when phase 3's edge cases took their inputs from the
 shared generator (its draws replayed), then, in each mode, the worst over
 256 seeds of the case and the seeds over the gate and over half of it.
 
-fwd_fp32 times nothing: it holds B1's fp32 mode (3xTF32, csrc/flash_fwd.cu)
-against float64 on the same inputs (q scaled by qk_scale in f32, as the
-kernels scale it) over 256 seeds at (1,3,300,64), causal and not, and prints
-the worst max|dO| / max|O| and max|dlse|. Given a parent checkout (a
-directory among the arguments) whose csrc/flash_fwd.cu holds the FFMA
-design's fp32 kernel, it builds that too (build/probe/) and holds it on the
-same inputs, with the ratio of the two designs' worst errors. Then B1
-fp32's kernel alone (on the K/V prep's outputs) at the DiT's (4,4,4096,64)
-and bench_jvp's (4,16,4096,64) shapes, non-causal, beside its knock-outs
-(each build's ptxas registers and C75xx notes printed):
+fwd_fp32 holds B1's fp32 mode (3xTF32, csrc/flash_fwd.cu) against float64
+on the same inputs (q scaled by qk_scale in f32, as the kernel scales it),
+causal and not, at FP32_CASES: (1,3,300,64) over 256 seeds and the DiT's
+(4,4,4096,64) over 16, and prints the worst max|dO| / max|O| and max|dlse|
+of each (the ROADMAP §C watch on P V summed in place on the tensor cores:
+does the error grow with the key count?). Given a parent checkout (a
+directory among the arguments), the same script runs there on its own
+package first, with the ratio of the two readings. Then B1 fp32's kernel
+alone (on the K/V prep's outputs) at the DiT's (4,4,4096,64) and
+bench_jvp's (4,16,4096,64) shapes, non-causal, beside its knock-outs (each
+build's ptxas registers and C75xx notes printed):
 - 1xtf32: only the big.big products (16 of the 48 a tile);
 - no_exp: P takes its exponent's argument (no MUFU.EX2);
 - no_softmax: no softmax at all (P V runs on stale P);
@@ -199,7 +201,9 @@ from __future__ import annotations
 
 import ctypes
 import difflib
+import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -214,9 +218,9 @@ from quantizedattention_tpu_torch.ops import flash_tiling
 from quantizedattention_tpu_torch.ops import int8_bwd as tbwd
 from quantizedattention_tpu_torch.ops import (int8_attention_fwd_from_quantized, int8_bwd_operands,
                                               quantize_qkv)
-from quantizedattention_tpu_torch.ops.common import LOG2_E, MASK_VALUE, tile_mask
+from quantizedattention_tpu_torch.ops.common import LOG2_E
 from quantizedattention_tpu_torch.ops.linear_tiling import plan_int4, plan_int8
-from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
+from quantizedattention_tpu_torch.quantize.bf16_correction import APPROX_MAX_TOL, BETA
 from quantizedattention_tpu_torch.quantize.weights import quantize_weight, quantize_weight_int4
 
 SRC = os.path.join(_build.CSRC_DIR, "int8_linear.cu")
@@ -484,6 +488,14 @@ _B7_WIDEN = "    widen_tile<D>(smem + G::DKV_OFF_Q + st * I8_TILE"
 _B8_WIDEN = ("      widen_tile<D>(smem + G::DQ_OFF_K + sn * I8_TILE,",
              "      widen_tile<D>(smem + G::DQ_OFF_V + sn * I8_TILE,")
 _SKIP = "    if (n_tiles < 0)\n"  # a condition that never holds, before the anchor
+
+
+def _nested(text: str) -> str:
+    """`text` two spaces deeper, as B1's mainloops sit in an `if constexpr` on
+    the correction rule (preprocessor lines stay at column 0)."""
+    return "".join("  " + line if line.startswith(" ") else line
+                   for line in text.splitlines(True))
+
 # the late products with A from a shared tile of the stage (K-major) instead
 # of the P^T / dS fragments in registers
 _SS_HELPER = """#include "hopper.cuh"
@@ -656,7 +668,7 @@ FWD_SHAPES = [(4, 16, 2048, 64), (8, 16, 256, 64), (4, 16, 8192, 64), (4, 16, 20
               (8, 16, 256, 128)]
 _FWD_EXP = ("      const __nv_bfloat162 pr = __floats2bfloat162_rn(exp2_ftz(s[4 * n + 2 * h] - next_m[h]),\n"
             "                                                      exp2_ftz(s[4 * n + 2 * h + 1] - next_m[h]));")
-_FWD_PV = "    mma_pv(dv, p_prev);\n    wgmma_commit();\n    wgmma_wait<1>();"
+_FWD_PV = "      mma_pv(dv, p_prev);\n      wgmma_commit();\n      wgmma_wait<1>();"
 FWD_VARIANTS = {
     "fwd_as_is": [],
     # 5 stages at head dim 64 (at 128 they would not fit a block's shared memory)
@@ -667,14 +679,14 @@ FWD_VARIANTS = {
     "fwd_no_pv": [(_FWD_PV, "    wgmma_commit();\n    wgmma_wait<1>();")],
 }
 # (anchor, phase ended there, insert before the anchor?) in the mainloop's step
-FWD_PHASES = [("    uint64_t dk = desc_k(jc);\n", "TMA wait", True),
+FWD_PHASES = [(_nested(anchor), name, before) for anchor, name, before in [("    uint64_t dk = desc_k(jc);\n", "TMA wait", True),
               ("    wgmma_wait<1>();  // S of tile j is done\n", "issue S, PV", True),
               ("    float alpha[2] = {1.f, 1.f};\n", "wait S", True),
               ("    wgmma_wait<0>();\n    fence_acc();\n    reg_fence(ls);\n    reg_fence(p_prev);",
                "softmax", True),
               ("    if (j > 0) release(j - 1);", "wait PV", True),
               ("  };\n\n  uint32_t p_a[BN / 16][4], p_b[BN / 16][4] = {};", "release, rescale",
-               True)]
+               True)]]
 
 
 def _fwd_split_source() -> str:
@@ -707,8 +719,8 @@ def _fwd_call(lib, q, k, v, o, lse):
     bq, _ = flash_tiling.grid(b * h_kv, h // h_kv, t, d)
     status = lib.qa_flash_fwd(q.data_ptr(), *tfwd._strides(q), 0, k.data_ptr(), *tfwd._strides(k),
                               v.data_ptr(), *tfwd._strides(v), o.data_ptr(), lse.data_ptr(), b,
-                              h_kv, h // h_kv, t, s, bq, 1, 0, 0, d ** -0.5 * LOG2_E, d,
-                              torch.cuda.current_stream().cuda_stream)
+                              h_kv, h // h_kv, t, s, bq, 1, 0, 0, d ** -0.5 * LOG2_E, d, 0, 128,
+                              BETA, APPROX_MAX_TOL, torch.cuda.current_stream().cuda_stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
 
@@ -948,37 +960,44 @@ def probe_bwd_exact(smi) -> None:
               f"half of it on {half}; worst {_fmt(worst)}", flush=True)
 
 
-FP32_CASE = (1, 3, 300)  # (b, h = h_kv, t = s), head_dim 64
-FP32_SEEDS = 256
+# (b, h = h_kv, t = s) at head_dim 64 and the seeds of each: a short case, the DiT's
+FP32_CASES = [((1, 3, 300), 256), ((4, 4, 4096), 16)]
 JVP_SHAPES = [(4, 4, 4096), (4, 16, 4096)]  # (b, h, t = s), non-causal: the DiT's, bench_jvp's
 # B1 fp32's knock-outs (each computes wrong results on purpose)
 _F32_S_SMALL = ("""    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage + 2 * F_BLK, 0));  // Q big . K small
 #pragma unroll
-    for (int kk = 1; kk < D / 8; ++kk)
+    for (int kk = 1; kk < F_D / 8; ++kk)
       wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage + 2 * F_BLK, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+    for (int kk = 0; kk < F_D / 8; ++kk)  // Q small . K big
       wgmma_tf32_m64n64k8_ss(sacc, desc_f32(qs_base, kk), desc_f32(stage, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk)  // Q big . K big
+    for (int kk = 0; kk < F_D / 8; ++kk)  // Q big . K big
       wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
 """, """    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage, 0));
 #pragma unroll
-    for (int kk = 1; kk < D / 8; ++kk)
+    for (int kk = 1; kk < F_D / 8; ++kk)
       wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
 """)
-_F32_PV_SMALL = """#pragma unroll
-    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P small . V big
-      wgmma_tf32_m64n64k8_rs(oacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+_F32_PV_SMALL = """    wgmma_tf32_m64n64k8_rs_zero(pacc, ps[0], desc_f32(stage + 4 * F_BLK, 0));  // P small . V big
+#pragma unroll
+    for (int kk = 1; kk < F_KEYS / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(pacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V small
-      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
 """
 _F32_PV_BIG = """#pragma unroll
     for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V big
-      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
 """
-_F32_SOFTMAX = "    if (edge(j))\n      softmax_tf32<true>"
+# the big-big products alone, the first zeroing the fresh accumulator
+_F32_PV_1X = """    wgmma_tf32_m64n64k8_rs_zero(pacc, pb[0], desc_f32(stage + 4 * F_BLK, 0));
+#pragma unroll
+    for (int kk = 1; kk < F_KEYS / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+"""
+_F32_SOFTMAX = _nested("    if (edge(j))\n      softmax_tf32<RULE, true>")
 # warpgroup turns: each warpgroup issues its products only after the other
 # issued its last ones (bar.sync on its own barrier, bar.arrive on the
 # other's), so one's elementwise work could run under the other's products
@@ -993,21 +1012,19 @@ def _turns(first):
             f"  auto pass_turn = [&]() {{ named_barrier_arrive({first + 1} - wg, 256); }};\n")
 
 
-_F32_TURNS = [
-    _ARRIVE,
+_F32_TURNS = [_ARRIVE] + [(_nested(old), _nested(new)) for old, new in [
     ("  mbar_wait(full(0), 0);\n  reg_fence(sacc);\n  wgmma_fence();\n  issue_s(stage_of(0));\n",
      _turns(3) + "  if (wg == 1) pass_turn();\n  mbar_wait(full(0), 0);\n  reg_fence(sacc);\n"
      "  take_turn();\n  wgmma_fence();\n  issue_s(stage_of(0));\n  pass_turn();\n"),
-    ("    reg_fence(ps);\n    wgmma_fence();\n#pragma unroll\n    for (int kk = 0; kk < F_KEYS / 8;",
-     "    reg_fence(ps);\n    take_turn();\n    wgmma_fence();\n#pragma unroll\n"
-     "    for (int kk = 0; kk < F_KEYS / 8;"),
+    ("    reg_fence(ps);\n    wgmma_fence();\n    issue_pv(stage_of(j));",
+     "    reg_fence(ps);\n    take_turn();\n    wgmma_fence();\n    issue_pv(stage_of(j));"),
     ("    issue_s(stage_of(jn));\n    wgmma_wait<0>();\n",
      "    issue_s(stage_of(jn));\n    if (wg == 0 || j + 1 < n_tiles) pass_turn();\n"
      "    wgmma_wait<0>();\n"),
-]
+]]
 F32_VARIANTS = {
     "f32v_as_is": [],
-    "f32v_1xtf32": [_F32_S_SMALL, (_F32_PV_SMALL, "")],
+    "f32v_1xtf32": [_F32_S_SMALL, (_F32_PV_SMALL + _F32_PV_BIG, _F32_PV_1X)],
     "f32v_no_exp": [("const float p = MASK && !visible(i) ? 0.f : exp2f(s[i] - m[h]);",
                      "const float p = MASK && !visible(i) ? 0.f : (s[i] - m[h]);")],
     "f32v_no_softmax": [(_F32_SOFTMAX, _SKIP + _F32_SOFTMAX)],
@@ -1052,32 +1069,36 @@ def _dkv_source(name) -> str:
     return src
 
 
-def _fp32_f64(q, k, v, causal, qk_scale):
-    """B1 fp32's function in float64 on the same inputs, q scaled by qk_scale
-    in f32 first (as both designs scale it): (O, lse)."""
-    t, s = q.shape[2], k.shape[2]
-    scores = (q * qk_scale).double() @ k.double().transpose(-1, -2)
-    mask = tile_mask(0, 0, t, s, s, causal, device=q.device)
-    scores = torch.where(mask, scores, MASK_VALUE)
-    m = scores.amax(-1, keepdim=True) + EPS_BIAS
-    p = torch.where(mask, torch.exp2(scores - m), 0.0)
-    l = p.sum(-1, keepdim=True)
-    return (p @ v.double()) / l, (m + torch.log2(l))[..., 0]
-
-
-def _ffma_fp32(lib, q, k, v, causal, qk_scale):
-    """The FFMA design's fp32 kernel (a parent checkout's csrc/flash_fwd.cu),
-    launched as its wrapper launched it: q pre-scaled in f32, all contiguous."""
-    b, h, t, d = q.shape
-    qs = (q * qk_scale).contiguous()
-    o = torch.empty_like(qs)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    status = lib.qa_flash_fwd_f32(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  lse.data_ptr(), b * h, 1, t, k.shape[2], int(causal),
-                                  torch.cuda.current_stream().cuda_stream)
-    if status:
-        raise SystemExit(f"kernel_probe: the FFMA fp32 launch failed with status {status}")
-    return o, lse
+# run in a checkout's root: B1 fp32 (`flash_attention_fwd_fp32`) against
+# float64 at each of FP32_CASES, causal and not; prints one JSON object
+# {case: [worst max|dO| / max|O|, worst max|dlse|]}
+_FP32_F64 = r"""
+import json, torch
+from quantizedattention_tpu_torch.ops.common import LOG2_E, MASK_VALUE, tile_mask
+from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd_fp32
+from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
+torch.backends.cuda.matmul.allow_tf32 = False
+out = {}
+for (b, h, t), seeds in %r:
+    for causal in (False, True):
+        worst = [0.0, 0.0]
+        for seed in range(seeds):
+            gen = torch.Generator(device="cuda").manual_seed(2000 + seed)
+            q, k, v = (torch.randn((b, h, t, 64), generator=gen, device="cuda") for _ in range(3))
+            o, lse = flash_attention_fwd_fp32(q, k, v, causal=causal)
+            qs = (q * (0.125 * LOG2_E)).double()
+            scores = torch.where(tile_mask(0, 0, t, t, t, causal, device=q.device),
+                                 qs @ k.double().transpose(-1, -2), MASK_VALUE)
+            m = scores.amax(-1, keepdim=True) + EPS_BIAS
+            p = torch.exp2(scores - m)
+            l = p.sum(-1, keepdim=True)
+            o64, lse64 = (p @ v.double()) / l, (m + torch.log2(l))[..., 0]
+            worst[0] = max(worst[0], ((o.double() - o64).abs().max() / o64.abs().max()).item())
+            worst[1] = max(worst[1], (lse.double() - lse64).abs().max().item())
+            del scores, p
+        out[f"({b},{h},{t},64) causal={causal}, {seeds} seeds"] = worst
+print(json.dumps(out))
+""" % (FP32_CASES,)
 
 
 def _f32_call(lib, q, prep, o, lse):
@@ -1086,42 +1107,33 @@ def _f32_call(lib, q, prep, o, lse):
     s = prep[0].shape[1]
     status = lib.qa_flash_fwd_f32(q.data_ptr(), *tfwd._strides(q), *(x.data_ptr() for x in prep),
                                   o.data_ptr(), lse.data_ptr(), b, h, h, t, s, 0, 0.125 * LOG2_E,
+                                  0, 128, BETA, APPROX_MAX_TOL,
                                   torch.cuda.current_stream().cuda_stream)
     if status:
-        raise SystemExit(f"kernel_probe: launch failed with status {status}")
+        raise SystemExit(f"kernel_probe: {os.path.basename(lib._name)}'s launch failed with "
+                         f"status {status}")
 
 
 def probe_fwd_fp32(smi, parent=None) -> None:
-    """B1 fp32 against float64 over FP32_SEEDS seeds at FP32_CASE, causal and
-    not: this checkout's kernel (3xTF32) and, given a parent checkout, its
-    FFMA kernel, on the same inputs; then the kernel's knock-outs timed."""
-    designs = {"3xTF32": lambda q, k, v, c: tfwd.flash_attention_fwd_fp32(q, k, v, causal=c)}
+    """B1 fp32 against float64 at FP32_CASES, causal and not, in the parent
+    checkout (if given) and here, each on its own package; then the kernel's
+    knock-outs timed."""
+    readings = {}
+    for tree in ([parent] if parent else []) + ["."]:
+        proc = subprocess.run([sys.executable, "-c", _FP32_F64], cwd=os.path.abspath(tree),
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise SystemExit(f"kernel_probe: the fp32 check failed in {tree} (exit "
+                             f"{proc.returncode}):\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        readings[tree] = json.loads(proc.stdout.strip().splitlines()[-1])
+        for case, (o_err, l_err) in readings[tree].items():
+            print(f"[fwd_fp32] {os.path.abspath(tree)}: {case}, worst against float64 "
+                  f"max|dO| / max|O| {o_err:.3e}, max|dlse| {l_err:.3e} ({smi})", flush=True)
     if parent:
-        csrc = os.path.join(parent, "quantizedattention_tpu_torch", "csrc")
-        with open(os.path.join(csrc, "flash_fwd.cu")) as f:
-            lib = _build_lib("ffma_parent", f.read(), csrc)
-        designs["FFMA"] = lambda q, k, v, c: _ffma_fp32(lib, q, k, v, c, 0.125 * LOG2_E)
-    b, h, t = FP32_CASE
-    for causal in (False, True):
-        worst = {name: [0.0, 0.0] for name in designs}
-        for seed in range(FP32_SEEDS):
-            gen = torch.Generator(device="cuda").manual_seed(2000 + seed)
-            q, k, v = (torch.randn((b, h, t, 64), generator=gen, device="cuda") for _ in range(3))
-            o64, lse64 = _fp32_f64(q, k, v, causal, 0.125 * LOG2_E)
-            for name, fn in designs.items():
-                o, lse = fn(q, k, v, causal)
-                torch.cuda.synchronize()
-                worst[name][0] = max(worst[name][0],
-                                     ((o.double() - o64).abs().max() / o64.abs().max()).item())
-                worst[name][1] = max(worst[name][1], (lse.double() - lse64).abs().max().item())
-        ratio = ""
-        if "FFMA" in worst:
-            ratio = (f"; 3xTF32 / FFMA: O {worst['3xTF32'][0] / worst['FFMA'][0]:.2f}x, lse "
-                     f"{worst['3xTF32'][1] / worst['FFMA'][1]:.2f}x (the design's gate: 4x)")
-        print(f"[fwd_fp32] ({b},{h},{t},64) causal={causal}, {FP32_SEEDS} seeds, worst against "
-              "float64, max|dO| / max|O| and max|dlse|: "
-              + "; ".join(f"{n} {o_:.3e}, {l_:.3e}" for n, (o_, l_) in worst.items())
-              + ratio + f" ({smi})", flush=True)
+        for case, (o_err, l_err) in readings["."].items():
+            o_par, l_par = readings[parent][case]
+            print(f"[fwd_fp32] {case}: this checkout / parent: O {o_err / o_par:.2f}x, lse "
+                  f"{l_err / l_par:.2f}x", flush=True)
     jobs = {name: _altered(edits, SRC_FWD) for name, edits in F32_VARIANTS.items()}
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda item: _build_lib(*item), jobs.items())))
@@ -1674,6 +1686,31 @@ print(f"{n} cases (B4, B5, B7, B8, B6 f32 and bf16), sha256 {h.hexdigest()}")
 """
 
 
+# run in a checkout's root: one SHA-256 over B18's f32 and bf16 outputs at
+# groups 64 and 128 (the kernel's first instances) on every shape of
+# chip_smoke.py phase 15, each shape's inputs from its own seed
+_INT4_DIGEST = r"""
+import hashlib, torch
+import torch.nn.functional as F
+import chip_smoke as cs
+from quantizedattention_tpu_torch.ops import int4_weight_matmul
+from quantizedattention_tpu_torch.quantize.weights import quantize_weight_int4
+h = hashlib.sha256()
+shapes = cs.WEIGHT_SHAPES + [cs.WEIGHT_ODD]
+for i, (m, k, n) in enumerate(shapes):
+    g = torch.Generator(device="cuda").manual_seed(4000 + i)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+    for group in (64, 128):
+        q4 = quantize_weight_int4(w, group=group)
+        x4 = F.pad(x, (0, 2 * q4.packed.shape[0] - k))
+        for dt in (torch.float32, None):
+            y = int4_weight_matmul(x4, q4.packed, q4.scale, group, out_dtype=dt)
+            h.update(y.float().cpu().numpy().tobytes())
+print(f"{len(shapes)} shapes at groups 64 and 128, sha256 {h.hexdigest()}")
+"""
+
+
 def _digest(script, what, smi, parent=None) -> None:
     """Runs `script` in the parent checkout (if given) and here and prints
     each digest: equal digests are the same bits."""
@@ -1698,7 +1735,8 @@ def _digest(script, what, smi, parent=None) -> None:
 
 SASS_LIBS = ("flash_fwd", "flash_bwd", "cache_decode")
 # a kernel's mangled name -> its key: the kernel's name, the decode kernel's
-# payload (PACKED), and no head dim (a template's 64 instance; 128 skipped)
+# payload (PACKED), and no head dim (a template's 64 instance; 128 skipped);
+# of B1's instances only the "eps" rule's (template argument 0 last)
 _KERNEL_NAMES = ("flash_fwd_f32_kernel", "flash_fwd_kernel", "kv_to_bf16_kernel",
                  "kv_split_tf32_kernel", "dkv_kernel_bf16", "dq_kernel_bf16", "bwd_prep_kernel",
                  "dkv_kernel_f32", "dq_kernel_f32", "decode_kernel")
@@ -1716,7 +1754,9 @@ def _sass(lib_path) -> dict:
             name = line.split("Function :")[1].strip()
             base = next((k for k in _KERNEL_NAMES if k in name), name)
             packed = "ILb1E" in name if base == "decode_kernel" else ""
-            key = None if "Li128E" in name else (base, packed)
+            other_rule = re.search(r"flash_fwd_kernelILi\d+ELi[12]EE|flash_fwd_f32_kernelILi[12]EE",
+                                   name)
+            key = None if "Li128E" in name or other_rule else (base, packed)
             if key:
                 out[key] = []
         elif key and "/*" in line and ";" in line:
@@ -1758,6 +1798,12 @@ def probe_flash_digest(smi, parent=None) -> None:
     and here; then one over phase 30's head-dim-128 cases, here."""
     _digest(_FLASH_DIGEST, "B1-B3", smi, parent)
     _digest(_FLASH128_DIGEST, "B1-B3 at head dim 128", smi)
+
+
+def probe_int4_digest(smi, parent=None) -> None:
+    """One digest of B18's outputs at groups 64 and 128 over chip_smoke.py
+    phase 15's shapes, in the parent checkout (if given) and here."""
+    _digest(_INT4_DIGEST, "B18 at groups 64 and 128", smi, parent)
 
 
 def probe_int8_digest(smi, parent=None) -> None:
@@ -2057,7 +2103,7 @@ def main() -> None:
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
              "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent", "flash_digest",
-             "int8_digest", "decode_digest", "sass"]
+             "int8_digest", "int4_digest", "decode_digest", "sass"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -2095,6 +2141,8 @@ def main() -> None:
         probe_flash_digest(smi, dirs[0] if dirs else None)
     if "int8_digest" in parts:
         probe_int8_digest(smi, dirs[0] if dirs else None)
+    if "int4_digest" in parts:
+        probe_int4_digest(smi, dirs[0] if dirs else None)
     if "decode_digest" in parts and "decode8" not in parts:
         probe_decode_digest(smi, dirs[0] if dirs else None)
     if "sass" in parts:

@@ -103,9 +103,11 @@
 //     registers against K small and K big, Q small from shared memory against
 //     K big; the small terms first), the online softmax in registers (row
 //     sums in f32 from the unrounded P), P split into big and small A
-//     fragments, then O += P V as 24 more (P small . V^T big, P big . V^T
-//     small, P big . V^T big). The next tile's S is issued while this tile's
-//     P V runs; the two warpgroups' softmaxes overlap each other's products.
+//     fragments, then the tile's P V as 24 more (P small . V^T big, P big .
+//     V^T small, P big . V^T big) into a fresh accumulator, added to O in
+//     f32 once done (the tensor cores' accumulation truncates). The next
+//     tile's S is issued while this tile's P V runs; the two warpgroups'
+//     softmaxes overlap each other's products.
 //   - Causal blocks stop at their last visible tile; only tiles that reach
 //     past s or the warpgroup's first position take the mask.
 
@@ -117,6 +119,50 @@ namespace {
 
 constexpr float MASK_VALUE = -30000.0f;
 constexpr float EPS_BIAS = 1.0f / 256.0f;
+// The correction rules (ops/flash_fwd.py RULES), each kernel's template
+// argument: "eps" biases the row max by EPS_BIAS, "none" does not, "beta"
+// amplifies a tied max once per group of keys (quantize/bf16_correction.py).
+constexpr int RULE_EPS = 0, RULE_NONE = 1, RULE_BETA = 2;
+
+// A row's two largest logits t1 >= t2 (a multiset: a tie gives t2 == t1),
+// merged over the quad of threads that holds the row.
+__device__ __forceinline__ void quad_top2(float& t1, float& t2) {
+#pragma unroll
+  for (int lane = 1; lane <= 2; lane *= 2) {
+    const float o1 = __shfl_xor_sync(0xffffffffu, t1, lane);
+    const float o2 = __shfl_xor_sync(0xffffffffu, t2, lane);
+    t2 = fmaxf(fmaxf(t2, o2), fminf(t1, o1));
+    t1 = fmaxf(t1, o1);
+  }
+}
+
+// "beta" over one group of keys whose two largest logits are t1 >= t2
+// (masked ones MASK_VALUE), against the running max m: next = max(m, t1),
+// and where a second logit of the group lies within tol of it (more than
+// one logit >= next - tol, JAX amplify_tied_max), beta * next or 0.
+__device__ __forceinline__ float tied_max(float m, float t1, float t2, float beta, float tol) {
+  const float next = fmaxf(m, t1);
+  return t2 >= next - tol ? (next > 0.f ? beta * next : 0.f) : next;
+}
+
+// The two largest logits of each of this thread's rows, over one tile's S
+// (masked where MASK, as softmax_tile masks). Layout as softmax_tile's.
+template <bool MASK, int NS>
+__device__ __forceinline__ void top2_tile(const float (&s)[NS], float (&t1)[2], float (&t2)[2],
+                                          int k0, int cq, const int (&pos)[2], int s_len,
+                                          int causal, int diag) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int h = (i % 4) / 2;
+    float x = s[i];
+    if (MASK) {
+      const int col = k0 + (i / 4) * 8 + cq + (i & 1);
+      if (!(col < s_len && (!causal || col <= pos[h] + diag))) x = MASK_VALUE;
+    }
+    t2[h] = fmaxf(t2[h], fminf(t1[h], x));
+    t1[h] = fmaxf(t1[h], x);
+  }
+}
 
 // --- bf16 mode: TMA ring + wgmma ---
 //
@@ -169,10 +215,11 @@ __device__ __forceinline__ void wgmma_s(float (&d)[32], uint64_t da, uint64_t db
 // One tile's S (f32; Q is pre-scaled, so the logits are in the exp2 domain)
 // -> P = bf16(exp2(S - m)) as PV's A fragments (key tiles 2kk and 2kk + 1 of
 // 8 keys are k-step kk). Masks where MASK (the tile reaches past s or past
-// the block's first position), updates the running max m (+EPS_BIAS) and
-// gives each row's alpha. s[4 n + e]: row h = e / 2, key k0 + 8 n + cq + (e
-// & 1). NS: the tile's keys / 2.
-template <bool MASK, int NS>
+// the block's first position), updates the running max m (+EPS_BIAS under
+// "eps") and gives each row's alpha; under "beta" m is the group's, fixed by
+// its pre-pass, and alpha is 1. s[4 n + e]: row h = e / 2, key k0 + 8 n + cq +
+// (e & 1). NS: the tile's keys / 2.
+template <int RULE, bool MASK, int NS>
 __device__ __forceinline__ void softmax_tile(float (&s)[NS], uint32_t (&p)[NS / 8][4],
                                              float (&m)[2], float (&alpha)[2], int k0, int cq,
                                              const int (&pos)[2], int s_len, int causal,
@@ -190,9 +237,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], uint32_t (&p)[NS / 
   float next_m[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    next_m[h] = fmaxf(m[h], quad_max(mx[h]) + EPS_BIAS);
-    alpha[h] = exp2_ftz(m[h] - next_m[h]);  // 0 while m is -inf
-    m[h] = next_m[h];
+    if constexpr (RULE == RULE_BETA) {
+      next_m[h] = m[h];
+      alpha[h] = 1.f;
+    } else {
+      float mq = quad_max(mx[h]);
+      if constexpr (RULE == RULE_EPS) mq += EPS_BIAS;
+      next_m[h] = fmaxf(m[h], mq);
+      alpha[h] = exp2_ftz(m[h] - next_m[h]);  // 0 while m is -inf
+      m[h] = next_m[h];
+    }
   }
 #pragma unroll
   for (int n = 0; n < NS / 4; ++n) {
@@ -215,7 +269,7 @@ __device__ __forceinline__ uint4 scale_pack8(const float (&x)[8], float qk_scale
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <int D>
+template <int D, int RULE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] bf16, 128B swizzle
                  const __grid_constant__ CUtensorMap v_map,  // the same for V
@@ -224,7 +278,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
                  float* __restrict__ o,    // [b, h, t, D]
                  float* __restrict__ lse,  // [b, h, t]
                  int h_kv, int rep, int t, int s, int bq, int causal, int diag,
-                 float qk_scale) {
+                 float qk_scale,
+                 int gt, float beta, float tol) {  // "beta": gt key tiles a group
   using G = FwdGeom<D>;
   constexpr int BM = G::BM, BN = G::BN, KV_STAGES = G::KV_STAGES, TILE = G::TILE;
   constexpr int PANELS = G::PANELS, O_LD = G::O_LD;
@@ -274,8 +329,30 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
       tma_load_4d(dst + TILE + p * BN * PANEL_ROW, &v_map, full(st), 64 * p, j * BN, kvh, batch);
     }
   };
-  if (tid == 0)
-    for (int j = 0; j < min(KV_STAGES, n_tiles); ++j) load_kv(j);
+  // "beta" streams each group of gt key tiles twice, K alone for its
+  // pre-pass and then K and V: the ring's u-th load is group g = u / (2 gt)'s
+  // (every earlier group is whole), its K-only tiles first.
+  auto load_u = [&](int u) {
+    const int j0 = u / (2 * gt) * gt, ng = min(gt, n_tiles - j0), r = u - 2 * j0;
+    const bool pre = r < ng;
+    const int j = j0 + (pre ? r : r - ng), st = u % KV_STAGES;
+    mbar_expect_tx(full(st), pre ? TILE : 2 * TILE);
+    const uint32_t dst = base + G::OFF_KV + st * 2 * TILE;
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      tma_load_4d(dst + p * BN * PANEL_ROW, &k_map, full(st), 64 * p, j * BN, kvh, batch);
+      if (!pre)
+        tma_load_4d(dst + TILE + p * BN * PANEL_ROW, &v_map, full(st), 64 * p, j * BN, kvh,
+                    batch);
+    }
+  };
+  if constexpr (RULE == RULE_BETA) {
+    if (tid == 0)
+      for (int u = 0; u < min(KV_STAGES, 2 * n_tiles); ++u) load_u(u);
+  } else {
+    if (tid == 0)
+      for (int j = 0; j < min(KV_STAGES, n_tiles); ++j) load_kv(j);
+  }
   // Once this warpgroup's products of tile j are done: the second release
   // refills the stage (its counter goes back to 0 for the stage's next tile).
   auto release = [&](int j) {
@@ -284,6 +361,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
       if (j + KV_STAGES < n_tiles) {
         fence_proxy_async();
         load_kv(j + KV_STAGES);
+      }
+    }
+  };
+  auto release_u = [&](int u) {  // the same over "beta"'s loads
+    if (tid % 128 == 0 && atomicAdd(&released[u % KV_STAGES], 1) == 1) {
+      atomicExch(&released[u % KV_STAGES], 0);
+      if (u + KV_STAGES < 2 * n_tiles) {
+        fence_proxy_async();
+        load_u(u + KV_STAGES);
       }
     }
   };
@@ -422,58 +508,160 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,  // [b, h_kv, s, D] 
   // between two sets, two tiles an iteration: copying them between steps
   // would write a product's input inside its stage (C7513). Then O and l are
   // rescaled by alpha for tile j's PV.
-  float sc[NS];  // tile j's S
-  auto step = [&](int j, bool live, uint32_t (&p_prev)[BN / 16][4],
-                  uint32_t (&p_cur)[BN / 16][4]) {
-    uint64_t dv = desc_v(max(j - 1, 0));
-    const int jc = min(j, n_tiles - 1);
-    wait_kv(jc);
-    uint64_t dk = desc_k(jc);
-    fence_operands(p_prev, dk, dv);
-    mma_s(dk, sc);
-    wgmma_commit();
-    mma_pv(dv, p_prev);
-    wgmma_commit();
-    wgmma_wait<1>();  // S of tile j is done
-    reg_fence(sc);
-    float alpha[2] = {1.f, 1.f};
-    if (!live) {
+  if constexpr (RULE != RULE_BETA) {
+    float sc[NS];  // tile j's S
+    auto step = [&](int j, bool live, uint32_t (&p_prev)[BN / 16][4],
+                    uint32_t (&p_cur)[BN / 16][4]) {
+      uint64_t dv = desc_v(max(j - 1, 0));
+      const int jc = min(j, n_tiles - 1);
+      wait_kv(jc);
+      uint64_t dk = desc_k(jc);
+      fence_operands(p_prev, dk, dv);
+      mma_s(dk, sc);
+      wgmma_commit();
+      mma_pv(dv, p_prev);
+      wgmma_commit();
+      wgmma_wait<1>();  // S of tile j is done
+      reg_fence(sc);
+      float alpha[2] = {1.f, 1.f};
+      if (!live) {
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
+        for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) p_cur[kk][e] = 0u;
-    } else if (edge(j)) {
-      softmax_tile<true>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
-    } else {
-      softmax_tile<false>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
+          for (int e = 0; e < 4; ++e) p_cur[kk][e] = 0u;
+      } else if (edge(j)) {
+        softmax_tile<RULE, true>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
+      } else {
+        softmax_tile<RULE, false>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
+      }
+      wgmma_wait<0>();
+      fence_acc();
+      reg_fence(ls);
+      reg_fence(p_prev);
+      if (j > 0) release(j - 1);  // this warpgroup reads tile j - 1 no more
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i % 4) / 2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ls[i] *= alpha[i / 2];
+    };
+
+    uint32_t p_a[BN / 16][4], p_b[BN / 16][4] = {};
+    for (int j = 0; j < n_tiles; j += 2) {
+      step(j, true, p_b, p_a);
+      step(j + 1, j + 1 < n_tiles, p_a, p_b);
+    }
+    {  // tile n_tiles - 1's PV (or, n_tiles odd or 0, P = 0)
+      uint64_t dk = 0, dv = desc_v(max(n_tiles - 1, 0));
+      fence_operands(p_b, dk, dv);
+      mma_pv(dv, p_b);
+      wgmma_commit();
     }
     wgmma_wait<0>();
     fence_acc();
     reg_fence(ls);
-    reg_fence(p_prev);
-    if (j > 0) release(j - 1);  // this warpgroup reads tile j - 1 no more
+  } else {
+    // "beta", group by group of gt key tiles (JAX's subtile): a pre-pass of
+    // S alone gives each row's two largest logits, hence the group's max
+    // (amplified where tied); alpha rescales O and l once; then the same
+    // pipeline as above with that max fixed, the group's last PV drained
+    // before the next group's pre-pass. The ring's u-th load (load_u): tile
+    // j of the group [j0, j1) is load j0 + j in the pre-pass, j + j1 after.
+    auto wait_u = [&](int u) { mbar_wait(full(u % KV_STAGES), (u / KV_STAGES) & 1); };
+    auto desc_k_u = [&](int u) {
+      return desc_kmajor_sw128(base + G::OFF_KV + (u % KV_STAGES) * 2 * TILE);
+    };
+    auto desc_v_u = [&](int u) {
+      return desc_mnmajor_sw128(base + G::OFF_KV + (u % KV_STAGES) * 2 * TILE + TILE);
+    };
+    float sc[NS];
+    // Step j of the group: tile j's S with tile j - 1's PV (P = 0 at j0),
+    // tile j's softmax against the group's max while the PV runs.
+    auto step = [&](int j, int j0, int j1, bool live, uint32_t (&p_prev)[BN / 16][4],
+                    uint32_t (&p_cur)[BN / 16][4]) {
+      uint64_t dv = desc_v_u(max(j - 1, j0) + j1);
+      const int jc = min(j, j1 - 1);
+      wait_u(jc + j1);
+      uint64_t dk = desc_k_u(jc + j1);
+      fence_operands(p_prev, dk, dv);
+      mma_s(dk, sc);
+      wgmma_commit();
+      mma_pv(dv, p_prev);
+      wgmma_commit();
+      wgmma_wait<1>();  // S of tile j is done
+      reg_fence(sc);
+      float alpha[2];
+      if (!live) {
 #pragma unroll
-    for (int p = 0; p < PANELS; ++p)
+        for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i % 4) / 2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ls[i] *= alpha[i / 2];
-  };
+          for (int e = 0; e < 4; ++e) p_cur[kk][e] = 0u;
+      } else if (edge(j)) {
+        softmax_tile<RULE, true>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
+      } else {
+        softmax_tile<RULE, false>(sc, p_cur, m, alpha, j * BN, cq, pos, s, causal, diag);
+      }
+      wgmma_wait<0>();
+      fence_acc();
+      reg_fence(ls);
+      reg_fence(p_prev);
+      if (j > j0 && j < j1) release_u(j - 1 + j1);  // the last tile's after the drain
+    };
 
-  uint32_t p_a[BN / 16][4], p_b[BN / 16][4] = {};
-  for (int j = 0; j < n_tiles; j += 2) {
-    step(j, true, p_b, p_a);
-    step(j + 1, j + 1 < n_tiles, p_a, p_b);
+    uint32_t p_a[BN / 16][4], p_b[BN / 16][4];
+    for (int j0 = 0; j0 < n_tiles; j0 += gt) {
+      const int j1 = min(j0 + gt, n_tiles);
+      float t1[2] = {-INFINITY, -INFINITY}, t2[2] = {-INFINITY, -INFINITY};
+      for (int j = j0; j < j1; ++j) {  // the pre-pass
+        wait_u(j0 + j);
+        uint64_t dk = desc_k_u(j0 + j);
+        asm volatile("" : "+l"(dk)::"memory");
+        wgmma_fence();
+        mma_s(dk, sc);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        release_u(j0 + j);
+        if (edge(j))
+          top2_tile<true>(sc, t1, t2, j * BN, cq, pos, s, causal, diag);
+        else
+          top2_tile<false>(sc, t1, t2, j * BN, cq, pos, s, causal, diag);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        quad_top2(t1[h], t2[h]);
+        const float next = tied_max(m[h], t1[h], t2[h], beta, tol);
+        alpha[h] = exp2_ftz(m[h] - next);  // 0 while m is -inf
+        m[h] = next;
+      }
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[p][i] *= alpha[(i % 4) / 2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ls[i] *= alpha[i / 2];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p_b[kk][e] = 0u;
+      for (int j = j0; j < j1; j += 2) {
+        step(j, j0, j1, true, p_b, p_a);
+        step(j + 1, j0, j1, j + 1 < j1, p_a, p_b);
+      }
+      {  // tile j1 - 1's PV (or, the group's tiles odd, P = 0)
+        uint64_t dk = 0, dv = desc_v_u(2 * j1 - 1);
+        fence_operands(p_b, dk, dv);
+        mma_pv(dv, p_b);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_acc();
+      reg_fence(ls);
+      release_u(2 * j1 - 1);
+    }
   }
-  {  // tile n_tiles - 1's PV (or, n_tiles odd or 0, P = 0)
-    uint64_t dk = 0, dv = desc_v(max(n_tiles - 1, 0));
-    fence_operands(p_b, dk, dv);
-    mma_pv(dv, p_b);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_acc();
-  reg_fence(ls);
 
   // Epilogue: O = acc / l (l == 0 -> 1) staged in shared memory by rows, then
   // 16-byte stores; lse = m + log2(l). A row that sees no key (causal, its
@@ -621,8 +809,9 @@ __device__ __forceinline__ uint64_t desc_f32(uint32_t addr, int kk) {
 // 8n + 7, in tf32_a_column order). Masks where MASK (the tile reaches past s
 // or past the warpgroup's first position), updates the running max m
 // (+EPS_BIAS), this thread's partial row sums l and each row's alpha. s[4 n +
-// e]: row h = e / 2, key k0 + 8 n + c2 + (e & 1).
-template <bool MASK>
+// e]: row h = e / 2, key k0 + 8 n + c2 + (e & 1). Under "none" m takes no
+// EPS_BIAS; under "beta" m is the group's, fixed by its pre-pass (alpha 1).
+template <int RULE, bool MASK>
 __device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb)[8][4],
                                              uint32_t (&ps)[8][4], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int k0, int c2, const int (&pos)[2],
@@ -631,17 +820,23 @@ __device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb
     const int col = k0 + (i / 4) * 8 + c2 + (i & 1);
     return col < s_len && (!causal || col <= pos[(i % 4) / 2]);
   };
-  float mx[2] = {-INFINITY, -INFINITY};
+  if constexpr (RULE == RULE_BETA) {
+    alpha[0] = alpha[1] = 1.f;
+  } else {
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int h = (i % 4) / 2;
-    mx[h] = fmaxf(mx[h], MASK && !visible(i) ? MASK_VALUE : s[i]);
-  }
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i % 4) / 2;
+      mx[h] = fmaxf(mx[h], MASK && !visible(i) ? MASK_VALUE : s[i]);
+    }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float next = fmaxf(m[h], quad_max(mx[h]) + EPS_BIAS);
-    alpha[h] = exp2f(m[h] - next);  // 0 while m is -inf
-    m[h] = next;
+    for (int h = 0; h < 2; ++h) {
+      float mq = quad_max(mx[h]);
+      if constexpr (RULE == RULE_EPS) mq += EPS_BIAS;
+      const float next = fmaxf(m[h], mq);
+      alpha[h] = exp2f(m[h] - next);  // 0 while m is -inf
+      m[h] = next;
+    }
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -660,6 +855,7 @@ __device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb
 
 // One block of two warpgroups (256 threads) per (q head, 128 positions);
 // warpgroup wg owns positions q0 + 64 wg .. + 63. See the file's head.
+template <int RULE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s, 64] K big
                      const __grid_constant__ CUtensorMap ks_map,   // K small
@@ -669,7 +865,8 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
                      long long q_sb, long long q_sh, long long q_st,
                      float* __restrict__ o,    // [b, h, t, 64]
                      float* __restrict__ lse,  // [b, h, t]
-                     int h, int rep, int t, int s, int causal, float qk_scale) {
+                     int h, int rep, int t, int s, int causal, float qk_scale,
+                     int gt, float beta, float tol) {  // "beta": gt key tiles a group
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
@@ -698,8 +895,32 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
       tma_load_3d(dst + (6 + half) * F_BLK, &vst_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
     }
   };
-  if (tid == 0)
-    for (int j = 0; j < min(F_STAGES, n_tiles); ++j) load_kv(j);
+  // "beta" streams each group of gt key tiles twice, K big and small alone
+  // for its pre-pass and then all four: the ring's u-th load is group g = u /
+  // (2 gt)'s (every earlier group is whole), its K-only tiles first.
+  auto load_u = [&](int u) {
+    const int j0 = u / (2 * gt) * gt, ng = min(gt, n_tiles - j0), r = u - 2 * j0;
+    const bool pre = r < ng;
+    const int j = j0 + (pre ? r : r - ng), st = u % F_STAGES;
+    const uint32_t dst = base + F_OFF_RING + st * F_STAGE;
+    mbar_expect_tx(full(st), pre ? F_STAGE / 2 : F_STAGE);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      tma_load_3d(dst + half * F_BLK, &kb_map, full(st), 32 * half, j * F_KEYS, kvh);
+      tma_load_3d(dst + (2 + half) * F_BLK, &ks_map, full(st), 32 * half, j * F_KEYS, kvh);
+      if (!pre) {
+        tma_load_3d(dst + (4 + half) * F_BLK, &vbt_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
+        tma_load_3d(dst + (6 + half) * F_BLK, &vst_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
+      }
+    }
+  };
+  if constexpr (RULE == RULE_BETA) {
+    if (tid == 0)
+      for (int u = 0; u < min(F_STAGES, 2 * n_tiles); ++u) load_u(u);
+  } else {
+    if (tid == 0)
+      for (int j = 0; j < min(F_STAGES, n_tiles); ++j) load_kv(j);
+  }
 
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
@@ -766,52 +987,124 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
     wgmma_commit();
   };
   auto stage_of = [&](int j) { return base + F_OFF_RING + (j % F_STAGES) * F_STAGE; };
-
-  // Tile j: the softmax of its S, then its P V and the next tile's S issued
-  // together (the last tile's S again at the end: a wgmma under a branch
-  // would serialize them all) and both waited for, so no product is in
-  // flight across the loop's back edge (that too serializes them, C7515)
-  // or while a ring wait's trap path is live (C7517); then the stage is
-  // released.
-  mbar_wait(full(0), 0);
-  reg_fence(sacc);
-  wgmma_fence();
-  issue_s(stage_of(0));
-  wgmma_wait<0>();
-  reg_fence(sacc);
-  for (int j = 0; j < n_tiles; ++j) {
-    float alpha[2];
-    if (edge(j))
-      softmax_tf32<true>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
-    else
-      softmax_tf32<false>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+  // P V of the tile in `stage`: 24 products into the fresh accumulator
+  // pacc, the small terms first, the big-big term last; once done it is
+  // added to oacc in f32 (round to nearest). The tensor cores' accumulation
+  // truncates: every tile's products summed into oacc in place biased O
+  // toward 0, 5.214e-5 of max|O| against float64 at the DiT's 4096 keys and
+  // 6.200e-6 at 300 (kernel_probe.py fwd_fp32 on an H100; B10 exact's
+  // recipe, csrc/jvp.cu).
+  float pacc[32];
+  auto issue_pv = [&](uint32_t stage) {
+    wgmma_tf32_m64n64k8_rs_zero(pacc, ps[0], desc_f32(stage + 4 * F_BLK, 0));  // P small . V big
 #pragma unroll
-    for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i % 4) / 2];
-    const int jn = min(j + 1, n_tiles - 1);
-    if (j + 1 < n_tiles) mbar_wait(full(jn % F_STAGES), (jn / F_STAGES) & 1);
-    const uint32_t stage = stage_of(j);
-    reg_fence(sacc);
-    reg_fence(oacc);
-    reg_fence(pb);
-    reg_fence(ps);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P small . V big
-      wgmma_tf32_m64n64k8_rs(oacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+    for (int kk = 1; kk < F_KEYS / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(pacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V small
-      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V big
-      wgmma_tf32_m64n64k8_rs(oacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
     wgmma_commit();
-    issue_s(stage_of(jn));
+  };
+
+  if constexpr (RULE != RULE_BETA) {
+    // Tile j: the softmax of its S, then its P V and the next tile's S issued
+    // together (the last tile's S again at the end: a wgmma under a branch
+    // would serialize them all) and both waited for, so no product is in
+    // flight across the loop's back edge (that too serializes them, C7515)
+    // or while a ring wait's trap path is live (C7517); then the stage is
+    // released.
+    mbar_wait(full(0), 0);
+    reg_fence(sacc);
+    wgmma_fence();
+    issue_s(stage_of(0));
     wgmma_wait<0>();
     reg_fence(sacc);
-    reg_fence(oacc);
-    reg_fence(pb);
-    reg_fence(ps);
-    release_stage(released, j, F_STAGES, n_tiles, load_kv);
+    for (int j = 0; j < n_tiles; ++j) {
+      float alpha[2];
+      if (edge(j))
+        softmax_tf32<RULE, true>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+      else
+        softmax_tf32<RULE, false>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i % 4) / 2];
+      const int jn = min(j + 1, n_tiles - 1);
+      if (j + 1 < n_tiles) mbar_wait(full(jn % F_STAGES), (jn / F_STAGES) & 1);
+      reg_fence(sacc);
+      reg_fence(pb);
+      reg_fence(ps);
+      wgmma_fence();
+      issue_pv(stage_of(j));
+      issue_s(stage_of(jn));
+      wgmma_wait<0>();
+      reg_fence(sacc);
+      reg_fence(pacc);
+      reg_fence(pb);
+      reg_fence(ps);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[i] += pacc[i];
+      release_stage(released, j, F_STAGES, n_tiles, load_kv);
+    }
+  } else {
+    // "beta", group by group of gt key tiles (JAX's subtile): a pre-pass of
+    // S alone gives each row's two largest logits, hence the group's max
+    // (amplified where tied); alpha rescales O and l once; then each tile's
+    // S, its softmax against that max and its P V, each drained before the
+    // next (no product is in flight at a ring wait or across a back edge).
+    // Tile j of the group [j0, j1) is the ring's load j0 + j in the
+    // pre-pass and j + j1 after.
+    auto s_of = [&](int u) {
+      mbar_wait(full(u % F_STAGES), (u / F_STAGES) & 1);
+      reg_fence(sacc);
+      wgmma_fence();
+      issue_s(stage_of(u));
+      wgmma_wait<0>();
+      reg_fence(sacc);
+    };
+    for (int j0 = 0; j0 < n_tiles; j0 += gt) {
+      const int j1 = min(j0 + gt, n_tiles);
+      float t1[2] = {-INFINITY, -INFINITY}, t2[2] = {-INFINITY, -INFINITY};
+      for (int j = j0; j < j1; ++j) {
+        s_of(j0 + j);
+        release_stage(released, j0 + j, F_STAGES, 2 * n_tiles, load_u);
+        if (edge(j))
+          top2_tile<true>(sacc, t1, t2, j * F_KEYS, 2 * c, pos, s, causal, 0);
+        else
+          top2_tile<false>(sacc, t1, t2, j * F_KEYS, 2 * c, pos, s, causal, 0);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        quad_top2(t1[h2], t2[h2]);
+        const float next = tied_max(m[h2], t1[h2], t2[h2], beta, tol);
+        alpha[h2] = exp2f(m[h2] - next);  // 0 while m is -inf
+        m[h2] = next;
+        l[h2] *= alpha[h2];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i % 4) / 2];
+      for (int j = j0; j < j1; ++j) {
+        s_of(j + j1);
+        if (edge(j))
+          softmax_tf32<RULE, true>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+        else
+          softmax_tf32<RULE, false>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s,
+                                    causal);
+        reg_fence(pb);
+        reg_fence(ps);
+        wgmma_fence();
+        issue_pv(stage_of(j + j1));
+        wgmma_wait<0>();
+        reg_fence(pacc);
+        reg_fence(pb);
+        reg_fence(ps);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) oacc[i] += pacc[i];
+        release_stage(released, j + j1, F_STAGES, 2 * n_tiles, load_u);
+      }
+    }
   }
 
   // O = acc / l (l == 0 -> 1), lse = m + log2(l); rows past t store nothing.
@@ -863,18 +1156,17 @@ extern "C" int qa_flash_kv_split_tf32(const void* k, long long k_sb, long long k
   return static_cast<int>(cudaGetLastError());
 }
 
-// precision="fp32": q [b, h, t, 64] f32 (strides in elements, rows
-// contiguous), the prep's kb, ks, vbt, vst (h = h_kv * rep) -> O [b, h, t,
-// 64], lse [b, h, t] f32 (contiguous); Q is scaled by qk_scale in the kernel.
-extern "C" int qa_flash_fwd_f32(const void* q, long long q_sb, long long q_sh, long long q_st,
-                                const void* kb, const void* ks, const void* vbt, const void* vst,
-                                void* o, void* lse, int b, int h, int h_kv, int t, int s,
-                                int causal, float qk_scale, void* stream) {
+// precision="fp32" under correction RULE: the maps, the shared-memory
+// attribute (once an instance) and the launch. The host templates are static:
+// their `configured` flags stay this library's even where a process loads
+// altered copies of it (kernel_probe.py), which a flag of vague linkage
+// would not.
+template <int RULE>
+static int flash_fwd_f32(const void* q, long long q_sb, long long q_sh, long long q_st,
+                         const void* kb, const void* ks, const void* vbt, const void* vst, void* o,
+                         void* lse, int b, int h, int h_kv, int t, int s, int causal,
+                         float qk_scale, int grain, float beta, float tol, cudaStream_t stream) {
   const int n_qt = (t + F_ROWS - 1) / F_ROWS;
-  if (b < 1 || h_kv < 1 || h < h_kv || h % h_kv || static_cast<long long>(b) * h > 65535 ||
-      t < 1 || s < 1 || s > (1 << 27) || n_qt > 65535 || !aligned16(kb) || !aligned16(ks) ||
-      !aligned16(vbt) || !aligned16(vst))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int s8 = (s + 7) / 8 * 8;
   CUtensorMap kb_map, ks_map, vbt_map, vst_map;
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
@@ -887,24 +1179,47 @@ extern "C" int qa_flash_fwd_f32(const void* q, long long q_sb, long long q_sh, l
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+        flash_fwd_f32_kernel<RULE>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(b * h, n_qt);
-  flash_fwd_f32_kernel<<<grid, THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_f32_kernel<RULE><<<grid, THREADS, F_SMEM, stream>>>(
       kb_map, ks_map, vbt_map, vst_map, static_cast<const float*>(q), q_sb, q_sh, q_st,
-      static_cast<float*>(o), static_cast<float*>(lse), h, h / h_kv, t, s, causal, qk_scale);
+      static_cast<float*>(o), static_cast<float*>(lse), h, h / h_kv, t, s, causal, qk_scale,
+      grain / F_KEYS, beta, tol);
   return static_cast<int>(cudaGetLastError());
+}
+
+// precision="fp32": q [b, h, t, 64] f32 (strides in elements, rows
+// contiguous), the prep's kb, ks, vbt, vst (h = h_kv * rep) -> O [b, h, t,
+// 64], lse [b, h, t] f32 (contiguous); Q is scaled by qk_scale in the kernel.
+// rule, grain, beta and tol as qa_flash_fwd's.
+extern "C" int qa_flash_fwd_f32(const void* q, long long q_sb, long long q_sh, long long q_st,
+                                const void* kb, const void* ks, const void* vbt, const void* vst,
+                                void* o, void* lse, int b, int h, int h_kv, int t, int s,
+                                int causal, float qk_scale, int rule, int grain, float beta,
+                                float tol, void* stream) {
+  const int n_qt = (t + F_ROWS - 1) / F_ROWS;
+  if (b < 1 || h_kv < 1 || h < h_kv || h % h_kv || static_cast<long long>(b) * h > 65535 ||
+      t < 1 || s < 1 || s > (1 << 27) || n_qt > 65535 || !aligned16(kb) || !aligned16(ks) ||
+      !aligned16(vbt) || !aligned16(vst) || rule < RULE_EPS || rule > RULE_BETA ||
+      (rule == RULE_BETA && (grain < 128 || grain % 128)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* launch = rule == RULE_EPS    ? &flash_fwd_f32<RULE_EPS>
+                 : rule == RULE_NONE ? &flash_fwd_f32<RULE_NONE>
+                                     : &flash_fwd_f32<RULE_BETA>;
+  return launch(q, q_sb, q_sh, q_st, kb, ks, vbt, vst, o, lse, b, h, h_kv, t, s, causal, qk_scale,
+                grain, beta, tol, static_cast<cudaStream_t>(stream));
 }
 
 // The K/V prep of f32 inputs: k/v [b, h_kv, s, d] f32, d 64 or 128 (strides
 // in elements, rows contiguous; pointers and strides 16-byte aligned) ->
 // kb/vb contiguous bf16 [b, h_kv, s, d], in one launch.
 template <int D>
-int kv_to_bf16(const void* k, long long k_sb, long long k_sh, long long k_st, const void* v,
-               long long v_sb, long long v_sh, long long v_st, void* kb, void* vb, int b, int h_kv,
-               int s, cudaStream_t stream) {
+static int kv_to_bf16(const void* k, long long k_sb, long long k_sh, long long k_st,
+                      const void* v, long long v_sb, long long v_sh, long long v_st, void* kb,
+                      void* vb, int b, int h_kv, int s, cudaStream_t stream) {
   const dim3 grid((s + cast_rows(D) - 1) / cast_rows(D), b * h_kv, 2);
   kv_to_bf16_kernel<D><<<grid, 256, 0, stream>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), k_sb, k_sh, k_st, v_sb, v_sh,
@@ -926,14 +1241,14 @@ extern "C" int qa_flash_kv_to_bf16(const void* k, long long k_sb, long long k_sh
                 static_cast<cudaStream_t>(stream));
 }
 
-// bf16 mode at head dim D: the maps, the shared-memory attribute (once an
-// instance) and the launch.
-template <int D>
-int flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st, int q_f32,
-              const void* k, long long k_sb, long long k_sh, long long k_st, const void* v,
-              long long v_sb, long long v_sh, long long v_st, void* o, void* lse, int b, int h_kv,
-              int rep, int t, int s, int bq, int causal, int diag, float qk_scale,
-              cudaStream_t stream) {
+// bf16 mode at head dim D under correction RULE: the maps, the
+// shared-memory attribute (once an instance) and the launch.
+template <int D, int RULE>
+static int flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st, int q_f32,
+                     const void* k, long long k_sb, long long k_sh, long long k_st, const void* v,
+                     long long v_sb, long long v_sh, long long v_st, void* o, void* lse, int b,
+                     int h_kv, int rep, int t, int s, int bq, int causal, int diag, float qk_scale,
+                     int grain, float beta, float tol, cudaStream_t stream) {
   constexpr int SMEM = FwdGeom<D>::SMEM_BYTES;
   CUtensorMap k_map, v_map;
   if (!kv_map<D>(&k_map, k, b, h_kv, s, k_sb, k_sh, k_st) ||
@@ -942,14 +1257,14 @@ int flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st, int
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        flash_fwd_kernel<D, RULE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(b * h_kv, (t + bq - 1) / bq);
-  flash_fwd_kernel<D><<<grid, THREADS, SMEM, stream>>>(
+  flash_fwd_kernel<D, RULE><<<grid, THREADS, SMEM, stream>>>(
       k_map, v_map, q, q_sb, q_sh, q_st, q_f32, static_cast<float*>(o), static_cast<float*>(lse),
-      h_kv, rep, t, s, bq, causal, diag, qk_scale);
+      h_kv, rep, t, s, bq, causal, diag, qk_scale, grain / FwdGeom<D>::BN, beta, tol);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -958,22 +1273,30 @@ int flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st, int
 // and strides 16-byte aligned) -> O [b, h, t, d], lse [b, h, t] f32
 // (contiguous); h = h_kv * rep, bq query positions a block (rep * bq <=
 // 128). Causal masking is on global positions: query i sits at q_offset + i,
-// key j at k_offset + j (both >= 0; a sequence shard's first token).
+// key j at k_offset + j (both >= 0; a sequence shard's first token). rule:
+// RULE_EPS, RULE_NONE or RULE_BETA, the last with its group of `grain` keys
+// (a multiple of 128), beta and tol.
 extern "C" int qa_flash_fwd(const void* q, long long q_sb, long long q_sh, long long q_st,
                             int q_f32, const void* k, long long k_sb, long long k_sh,
                             long long k_st, const void* v, long long v_sb, long long v_sh,
                             long long v_st, void* o, void* lse, int b, int h_kv, int rep, int t,
                             int s, int bq, int causal, int q_offset, int k_offset,
-                            float qk_scale, int d, void* stream) {
+                            float qk_scale, int d, int rule, int grain, float beta, float tol,
+                            void* stream) {
   const int n_qt = bq < 1 ? 0 : (t + bq - 1) / bq;
   if (bq < 1 || rep < 1 || rep * bq > 128 || t < 1 || s < 1 || b < 1 || h_kv < 1 ||
       q_offset < 0 || k_offset < 0 || (d != 64 && d != 128) ||
       static_cast<long long>(b) * h_kv > 65535 || n_qt > 65535 || !aligned16(q) ||
       !strides16(q_f32 ? 4 : 2, q_sb, q_sh, q_st) || !aligned16(k) || !aligned16(v) ||
-      !strides16(2, k_sb, k_sh, k_st) || !strides16(2, v_sb, v_sh, v_st))
+      !strides16(2, k_sb, k_sh, k_st) || !strides16(2, v_sb, v_sh, v_st) || rule < RULE_EPS ||
+      rule > RULE_BETA || (rule == RULE_BETA && (grain < 128 || grain % 128)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* launch = d == 64 ? &flash_fwd<64> : &flash_fwd<128>;
-  return launch(q, q_sb, q_sh, q_st, q_f32, k, k_sb, k_sh, k_st, v, v_sb, v_sh, v_st, o, lse, b,
-                h_kv, rep, t, s, bq, causal, q_offset - k_offset, qk_scale,
-                static_cast<cudaStream_t>(stream));
+  using Launch = decltype(&flash_fwd<64, RULE_EPS>);
+  constexpr Launch launches[2][3] = {
+      {&flash_fwd<64, RULE_EPS>, &flash_fwd<64, RULE_NONE>, &flash_fwd<64, RULE_BETA>},
+      {&flash_fwd<128, RULE_EPS>, &flash_fwd<128, RULE_NONE>, &flash_fwd<128, RULE_BETA>}};
+  return launches[d == 128][rule](q, q_sb, q_sh, q_st, q_f32, k, k_sb, k_sh, k_st, v, v_sb, v_sh,
+                                  v_st, o, lse, b, h_kv, rep, t, s, bq, causal,
+                                  q_offset - k_offset, qk_scale, grain, beta, tol,
+                                  static_cast<cudaStream_t>(stream));
 }

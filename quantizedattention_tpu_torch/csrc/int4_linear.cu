@@ -45,10 +45,19 @@
 //    folded in as acc += sub * s: JAX's order within a group, with one
 //    sub-accumulator.
 //
-// group is a multiple of 64 and divides Kp/2. TMA needs 16-byte row strides
-// and bases (n % 16 == 0 for the packed rows); where a shape does not give
-// them, the same kernels fill the same shared layout with plain loads,
-// masked element by element.
+// group divides Kp/2 (JAX's rule: any positive divisor). A group that is a
+// multiple of 64 runs the instances above. Any other group runs a second
+// instance of each kernel (ANY): a 64-row chunk (the last one cut at Kp/2)
+// meets one or more groups, and each piece (chunk and group) is a sub-dot of
+// its own, scaled on its own and added; where a group is not a multiple of
+// 16 one k16 step meets two groups, and each product sees only its group's
+// rows of the widened A fragment (the others' are zeroed), so the step is
+// issued once per group. The tensor-core instance drains each piece's
+// products before it folds them: a slow path (PERF.md has its time).
+//
+// TMA needs 16-byte row strides and bases (n % 16 == 0 for the packed rows,
+// Kp/2 % 4 == 0 for x's); where a shape does not give them, the same kernels
+// fill the same shared layout with plain loads, masked element by element.
 
 #include "hopper.cuh"
 
@@ -86,7 +95,7 @@ constexpr int stream_smem(int nt, int bn) {
 // --- streaming regime ---
 
 // As int8_linear.cu, the weights are the mma's A operand and x its B.
-template <int NT, int BN>
+template <int NT, int BN, bool ANY>
 __global__ void __launch_bounds__(S_THREADS, 1)
 int4_stream_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, box [8 NT, 64]
                    const __grid_constant__ CUtensorMap w_map,  // [half, n] packed, box [64, BN]
@@ -116,7 +125,7 @@ int4_stream_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf
   const int n0 = blockIdx.y * BN;
   const int kp = 2 * half;
   const int n_groups = half / group;
-  const int chunks = half / CHUNK;
+  const int chunks = ANY ? (half + CHUNK - 1) / CHUNK : half / CHUNK;
   const int c_lo = rank * chunks / split;
   const int n_local = (rank + 1) * chunks / split - c_lo;
 
@@ -146,14 +155,24 @@ int4_stream_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf
     for (int c = tid; c < 2 * m * 8; c += S_THREADS) {
       const int hz = c / (m * 8), r = (c / 8) % m, p = c % 8;
       const size_t src = (size_t)r * kp + hz * half + rb + p * 8;
-      *reinterpret_cast<uint4*>(xs + hz * XB + r * 128 + ((p ^ (r & 7)) << 4)) =
-          *reinterpret_cast<const uint4*>(x + src);  // 16-byte aligned: kp % 128 == 0
+      uint4* dst = reinterpret_cast<uint4*>(xs + hz * XB + r * 128 + ((p ^ (r & 7)) << 4));
+      if constexpr (ANY) {  // columns past the half are 0
+        uint16_t e[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          e[u] = rb + p * 8 + u < half ? reinterpret_cast<const uint16_t*>(x)[src + u] : 0;
+        *dst = *reinterpret_cast<const uint4*>(e);
+      } else {
+        *dst = *reinterpret_cast<const uint4*>(x + src);  // 16-byte aligned: kp % 128 == 0
+      }
     }
     for (int c = tid; c < CHUNK * (BN / 16); c += S_THREADS) {
       const int r = c / (BN / 16), p = c % (BN / 16), gn = n0 + p * 16;
+      const bool row = !ANY || rb + r < half;
       int8_t e[16];
 #pragma unroll
-      for (int u = 0; u < 16; ++u) e[u] = gn + u < n ? packed[(size_t)(rb + r) * n + gn + u] : 0;
+      for (int u = 0; u < 16; ++u)
+        e[u] = row && gn + u < n ? packed[(size_t)(rb + r) * n + gn + u] : 0;
       *reinterpret_cast<uint4*>(xs + 2 * XB + r * BN + (w_piece(r, p) << 4)) =
           *reinterpret_cast<const uint4*>(e);
     }
@@ -171,61 +190,134 @@ int4_stream_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
 
+  // ANY: the chunk of packed rows rb .. rb + 63 (cut at half) in stage st,
+  // one piece a group it meets and a half: the piece's rows of each
+  // fragment only (a warp skips a k16 step outside the piece), its sub-dot
+  // scaled by the group's row and added.
+  auto any_chunk = [&](int st, int rb) {
+    const uint8_t* ws = smem + st * STAGE + 2 * XB;
+    const int r_end = min(rb + CHUNK, half);
+#pragma unroll 1
+    for (int hz = 0; hz < 2; ++hz) {  // lower half, then upper
+      const uint8_t* xs = smem + st * STAGE + hz * XB;
+      for (int tg = rb / group; tg * group < r_end; ++tg) {
+        const int lo = max(rb, tg * group) - rb, hi = min(r_end, (tg + 1) * group) - rb;
+        float sg[4];  // the group's scale row of this half at columns C .. C + 3
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sg[c] = n0 + C + c < n ? scale[(size_t)(hz * n_groups + tg) * n + n0 + C + c] : 0.f;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sub[t][nt][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < CHUNK / 16 / WK; ++ks) {
+          const int kk = (ks * WK + wk) * 16;
+          if (kk + 16 <= lo || kk >= hi) continue;
+          uint32_t b[NT][2];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint8_t* xr = xs + (nt * 8 + g) * 128 + 4 * q;
+            b[nt][0] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8) ^ g) << 4));
+            b[nt][1] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8 + 1) ^ g) << 4));
+          }
+          uint32_t p[4];  // packed rows kk + 2q, + 1, + 8, + 9: this half's nibbles
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            const int r = kk + 2 * q + (d & 1) + 8 * (d / 2);
+            const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                ws + r * BN + (w_piece(r, C >> 4) << 4) + (C & 15));
+            p[d] = hz ? high_nibbles(v) : low_nibbles(v);
+          }
+          // a fragment's low bf16 is row kk + 2q (+ 8), its high one the next row
+          auto in = [&](int r) { return lo <= r && r < hi; };
+          const int r0 = kk + 2 * q;
+          const uint32_t m01 = (in(r0) ? 0xFFFFu : 0u) | (in(r0 + 1) ? 0xFFFF0000u : 0u);
+          const uint32_t m89 = (in(r0 + 8) ? 0xFFFFu : 0u) | (in(r0 + 9) ? 0xFFFF0000u : 0u);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const uint32_t a[4] = {nibble_pair(p[0], p[1], 2 * t) & m01,
+                                   nibble_pair(p[0], p[1], 2 * t + 1) & m01,
+                                   nibble_pair(p[2], p[3], 2 * t) & m89,
+                                   nibble_pair(p[2], p[3], 2 * t + 1) & m89};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(sub[t][nt], a, b[nt][0], b[nt][1]);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[t][nt][e] =
+                  __fadd_rn(acc[t][nt][e], __fmul_rn(sub[t][nt][e], sg[2 * t + e / 2]));
+      }
+    }
+  };
+
   for (int i = 0; i < S_STAGES; ++i) load(i);
   for (int i = 0; i < n_local; ++i) {
     const int st = i % S_STAGES;
-    const int tg = (c_lo + i) * CHUNK / group;
-    mbar_wait(full(st), (i / S_STAGES) & 1);
-    const uint8_t* ws = smem + st * STAGE + 2 * XB;
+    if constexpr (ANY) {
+      mbar_wait(full(st), (i / S_STAGES) & 1);
+      any_chunk(st, (c_lo + i) * CHUNK);
+    } else {
+      const int tg = (c_lo + i) * CHUNK / group;
+      mbar_wait(full(st), (i / S_STAGES) & 1);
+      const uint8_t* ws = smem + st * STAGE + 2 * XB;
 #pragma unroll(NT < 8 ? 2 : 1)  // at NT 8 both halves at once would spill
-    for (int hz = 0; hz < 2; ++hz) {  // lower half, then upper
-      const uint8_t* xs = smem + st * STAGE + hz * XB;
-      float s[4];  // the group's scale row of this half at columns C .. C + 3
+      for (int hz = 0; hz < 2; ++hz) {  // lower half, then upper
+        const uint8_t* xs = smem + st * STAGE + hz * XB;
+        float s[4];  // the group's scale row of this half at columns C .. C + 3
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        s[c] = n0 + C + c < n ? scale[(size_t)(hz * n_groups + tg) * n + n0 + C + c] : 0.f;
+        for (int c = 0; c < 4; ++c)
+          s[c] = n0 + C + c < n ? scale[(size_t)(hz * n_groups + tg) * n + n0 + C + c] : 0.f;
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
+        for (int t = 0; t < 2; ++t)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+          for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sub[t][nt][e] = 0.f;
+            for (int e = 0; e < 4; ++e) sub[t][nt][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < CHUNK / 16 / WK; ++ks) {
-        const int kk = (ks * WK + wk) * 16;
-        uint32_t b[NT][2];
+        for (int ks = 0; ks < CHUNK / 16 / WK; ++ks) {
+          const int kk = (ks * WK + wk) * 16;
+          uint32_t b[NT][2];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint8_t* xr = xs + (nt * 8 + g) * 128 + 4 * q;
-          b[nt][0] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8) ^ g) << 4));
-          b[nt][1] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8 + 1) ^ g) << 4));
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint8_t* xr = xs + (nt * 8 + g) * 128 + 4 * q;
+            b[nt][0] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8) ^ g) << 4));
+            b[nt][1] = *reinterpret_cast<const uint32_t*>(xr + (((kk / 8 + 1) ^ g) << 4));
+          }
+          uint32_t p[4];  // packed rows kk + 2q, + 1, + 8, + 9: this half's nibbles
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            const int r = kk + 2 * q + (d & 1) + 8 * (d / 2);
+            const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                ws + r * BN + (w_piece(r, C >> 4) << 4) + (C & 15));
+            p[d] = hz ? high_nibbles(v) : low_nibbles(v);
+          }
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const uint32_t a[4] = {
+                nibble_pair(p[0], p[1], 2 * t), nibble_pair(p[0], p[1], 2 * t + 1),
+                nibble_pair(p[2], p[3], 2 * t), nibble_pair(p[2], p[3], 2 * t + 1)};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(sub[t][nt], a, b[nt][0], b[nt][1]);
+          }
         }
-        uint32_t p[4];  // packed rows kk + 2q, + 1, + 8, + 9: this half's nibbles
+        // acc += sub * s, the scale in f32
 #pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          const int r = kk + 2 * q + (d & 1) + 8 * (d / 2);
-          const uint32_t v = *reinterpret_cast<const uint32_t*>(
-              ws + r * BN + (w_piece(r, C >> 4) << 4) + (C & 15));
-          p[d] = hz ? high_nibbles(v) : low_nibbles(v);
-        }
+        for (int t = 0; t < 2; ++t)
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const uint32_t a[4] = {
-              nibble_pair(p[0], p[1], 2 * t), nibble_pair(p[0], p[1], 2 * t + 1),
-              nibble_pair(p[2], p[3], 2 * t), nibble_pair(p[2], p[3], 2 * t + 1)};
+          for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16(sub[t][nt], a, b[nt][0], b[nt][1]);
-        }
+            for (int e = 0; e < 4; ++e)
+              acc[t][nt][e] =
+                  __fadd_rn(acc[t][nt][e], __fmul_rn(sub[t][nt][e], s[2 * t + e / 2]));
       }
-      // acc += sub * s, the scale in f32
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[t][nt][e] =
-                __fadd_rn(acc[t][nt][e], __fmul_rn(sub[t][nt][e], s[2 * t + e / 2]));
     }
     __syncthreads();  // every warp is done with stage st
     load(i + S_STAGES);
@@ -258,6 +350,7 @@ int4_stream_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf
 // One thread's A fragments of a chunk, one m16n8k16 fragment a k16 step.
 using AFrag = uint32_t[CHUNK / 16][4];
 
+template <bool ANY>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 int4_tc_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, box [128, 64]
                const __grid_constant__ CUtensorMap w_map,  // [half, n] packed, box [64, 128]
@@ -276,13 +369,23 @@ int4_tc_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, 
   const int kp = 2 * half;
   const int n_groups = half / group;
   const int cpg = group / CHUNK;    // chunks of a group's half: a run
-  const int nk = 2 * half / CHUNK;  // every packed chunk once per half
-  // chunk j: run j / cpg = 2 t + h (group t's half h), chunk j % cpg of it
+  const int nk = ANY ? 2 * ((half + CHUNK - 1) / CHUNK) : 2 * half / CHUNK;  // each chunk twice
+  // chunk j: run j / cpg = 2 t + h (group t's half h), chunk j % cpg of it;
+  // ANY: packed chunk j / 2 (the last one cut at half), half j % 2
   auto x_col = [&](int j) {
-    const int run = j / cpg;
-    return (run % 2) * half + (run / 2) * group + (j % cpg) * CHUNK;
+    if constexpr (ANY) {
+      return (j % 2) * half + (j / 2) * CHUNK;
+    } else {
+      const int run = j / cpg;
+      return (run % 2) * half + (run / 2) * group + (j % cpg) * CHUNK;
+    }
   };
-  auto packed_row = [&](int j) { return (j / cpg / 2) * group + (j % cpg) * CHUNK; };
+  auto packed_row = [&](int j) {
+    if constexpr (ANY)
+      return (j / 2) * CHUNK;
+    else
+      return (j / cpg / 2) * group + (j % cpg) * CHUNK;
+  };
 
   if (tid == 0) {
 #pragma unroll
@@ -308,14 +411,25 @@ int4_tc_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, 
     for (int c = tid; c < TC_BM * 8; c += TC_THREADS) {
       const int r = c / 8, p = c % 8, gr = m0 + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < m) v = *reinterpret_cast<const uint4*>(x + (size_t)gr * kp + xc + p * 8);
+      if constexpr (ANY) {  // element by element, columns past the half 0
+        uint16_t e[8] = {};
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (gr < m && pr + p * 8 + u < half)
+            e[u] = reinterpret_cast<const uint16_t*>(x)[(size_t)gr * kp + xc + p * 8 + u];
+        v = *reinterpret_cast<const uint4*>(e);
+      } else {
+        if (gr < m) v = *reinterpret_cast<const uint4*>(x + (size_t)gr * kp + xc + p * 8);
+      }
       *reinterpret_cast<uint4*>(xs + r * 128 + ((p ^ (r & 7)) << 4)) = v;
     }
     for (int c = tid; c < CHUNK * (TC_BN / 16); c += TC_THREADS) {
       const int r = c / (TC_BN / 16), p = c % (TC_BN / 16), gn = n0 + p * 16;
+      const bool row = !ANY || pr + r < half;
       int8_t e[16];
 #pragma unroll
-      for (int u = 0; u < 16; ++u) e[u] = gn + u < n ? packed[(size_t)(pr + r) * n + gn + u] : 0;
+      for (int u = 0; u < 16; ++u)
+        e[u] = row && gn + u < n ? packed[(size_t)(pr + r) * n + gn + u] : 0;
       *reinterpret_cast<uint4*>(xs + TC_X + r * TC_BN + ((p ^ (r & 7)) << 4)) =
           *reinterpret_cast<const uint4*>(e);
     }
@@ -329,7 +443,7 @@ int4_tc_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, 
   const int C = 64 * wg + 16 * warp + 2 * g;
   auto widen = [&](int j, AFrag& a) {
     const int st = j % TC_STAGES;
-    const bool upper = (j / cpg) % 2;
+    const bool upper = ANY ? j % 2 : (j / cpg) % 2;
     mbar_wait(full(st), (j / TC_STAGES) & 1);
     const uint8_t* wt = smem + st * TC_STAGE + TC_X;
 #pragma unroll
@@ -389,11 +503,53 @@ int4_tc_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, 
     if (j >= 1) load(j - 1 + TC_STAGES);
   };
   for (int j = 0; j < TC_STAGES; ++j) load(j);
-  AFrag a0, a1;
-  widen(0, a0);
-  for (int j = 0; j < nk; j += 2) {
-    step(j, a0, a1);
-    if (j + 1 < nk) step(j + 1, a1, a0);
+  if constexpr (ANY) {
+    // Chunk j (packed rows rb .. rb + 63 cut at half, half j % 2) widened,
+    // then one piece a group it meets: the piece's rows of the fragments
+    // (the others zeroed), four products into sub, drained and folded with
+    // the group's scale row. Then the stage is refilled.
+    AFrag a0, am;
+    for (int j = 0; j < nk; ++j) {
+      widen(j, a0);
+      const int rb = packed_row(j), r_end = min(rb + CHUNK, half), hz = j % 2;
+      for (int tg = rb / group; tg * group < r_end; ++tg) {
+        const int lo = max(rb, tg * group) - rb, hi = min(r_end, (tg + 1) * group) - rb;
+        auto in = [&](int r) { return lo <= r && r < hi; };
+#pragma unroll
+        for (int ks = 0; ks < CHUNK / 16; ++ks) {
+          const int r0 = ks * 16 + 2 * q;  // a fragment's low bf16 (+ 8), its high one the next row
+          const uint32_t m01 = (in(r0) ? 0xFFFFu : 0u) | (in(r0 + 1) ? 0xFFFF0000u : 0u);
+          const uint32_t m89 = (in(r0 + 8) ? 0xFFFFu : 0u) | (in(r0 + 9) ? 0xFFFF0000u : 0u);
+          am[ks][0] = a0[ks][0] & m01;
+          am[ks][1] = a0[ks][1] & m01;
+          am[ks][2] = a0[ks][2] & m89;
+          am[ks][3] = a0[ks][3] & m89;
+        }
+        const float* srow = scale + (size_t)(hz * n_groups + tg) * n;
+        const float s0 = gc < n ? srow[gc] : 0.f, s1 = gc + 1 < n ? srow[gc + 1] : 0.f;
+        const uint64_t db = desc_kmajor_sw128(base + (j % TC_STAGES) * TC_STAGE);
+        reg_fence(am);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < CHUNK / 16; ++ks)
+          wgmma_bf16_m64n128k16_rs(sub, am[ks], db + 2 * ks, ks != 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sub);
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(sub[i], (i % 4) / 2 ? s1 : s0));
+      }
+      named_barrier(1, TC_THREADS);
+      load(j + TC_STAGES);
+    }
+  } else {
+    AFrag a0, a1;
+    widen(0, a0);
+    for (int j = 0; j < nk; j += 2) {
+      step(j, a0, a1);
+      if (j + 1 < nk) step(j + 1, a1, a0);
+    }
   }
 
   // Epilogue: cast once, masked. acc[4 nn + 2 h + b]: column C + h, x row
@@ -415,11 +571,11 @@ int4_tc_kernel(const __grid_constant__ CUtensorMap x_map,  // [m, 2 half] bf16, 
     }
 }
 
-template <int NT, int BN>
+template <int NT, int BN, bool ANY>
 int launch_stream(const void* x, const void* packed, const void* scale, void* out, int m, int n,
                   int half, int group, int out_type, int split, cudaStream_t stream) {
   constexpr int smem = stream_smem(NT, BN);
-  const int tma = n % 16 == 0 && aligned16(x) && aligned16(packed);
+  const int tma = n % 16 == 0 && half % 4 == 0 && aligned16(x) && aligned16(packed);
   CUtensorMap x_map = {}, w_map = {};
   if (tma && (!tensor_map_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m, 2 * half, NT * 8,
                              CHUNK, CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -429,7 +585,7 @@ int launch_stream(const void* x, const void* packed, const void* scale, void* ou
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        int4_stream_kernel<NT, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        int4_stream_kernel<NT, BN, ANY>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -446,17 +602,17 @@ int launch_stream(const void* x, const void* packed, const void* scale, void* ou
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, int4_stream_kernel<NT, BN>, x_map, w_map, static_cast<const __nv_bfloat16*>(x),
+      &cfg, int4_stream_kernel<NT, BN, ANY>, x_map, w_map, static_cast<const __nv_bfloat16*>(x),
       static_cast<const int8_t*>(packed), static_cast<const float*>(scale), out, m, n, half,
       group, out_type, tma);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int BN>
+template <int BN, bool ANY>
 int launch_stream_m(const void* x, const void* packed, const void* scale, void* out, int m, int n,
                     int half, int group, int out_type, int split, cudaStream_t st) {
 #define QA_LAUNCH(NT) \
-  return launch_stream<NT, BN>(x, packed, scale, out, m, n, half, group, out_type, split, st)
+  return launch_stream<NT, BN, ANY>(x, packed, scale, out, m, n, half, group, out_type, split, st)
   switch ((m + 7) / 8) {
     case 1: QA_LAUNCH(1);
     case 2: QA_LAUNCH(2);
@@ -470,9 +626,10 @@ int launch_stream_m(const void* x, const void* packed, const void* scale, void* 
 #undef QA_LAUNCH
 }
 
+template <bool ANY>
 int launch_tc(const void* x, const void* packed, const void* scale, void* out, int m, int n,
               int half, int group, int out_type, cudaStream_t stream) {
-  const int tma = n % 16 == 0 && aligned16(x) && aligned16(packed);
+  const int tma = n % 16 == 0 && half % 4 == 0 && aligned16(x) && aligned16(packed);
   CUtensorMap x_map = {}, w_map = {};
   if (tma && (!tensor_map_2d(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m, 2 * half, TC_BM,
                              CHUNK, CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -482,12 +639,12 @@ int launch_tc(const void* x, const void* packed, const void* scale, void* out, i
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        int4_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+        int4_tc_kernel<ANY>, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM);
-  int4_tc_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+  int4_tc_kernel<ANY><<<grid, TC_THREADS, TC_SMEM, stream>>>(
       x_map, w_map, static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
       static_cast<const float*>(scale), out, m, n, half, group, out_type, tma);
   return static_cast<int>(cudaGetLastError());
@@ -502,25 +659,28 @@ extern "C" int qa_int4_linear_smem_bytes(int m, int bn) {
 }
 
 // x [m, 2 * half] bf16, packed [half, n] int8, scale [2 * half / group, n]
-// f32 -> out [m, n] of out_type (0 f32, 1 bf16). group is a multiple of 64
-// and divides half. bn and split come from ops/linear_tiling.py, as for
-// qa_int8_linear (the k chunks are 64-row chunks of the packed rows).
+// f32 -> out [m, n] of out_type (0 f32, 1 bf16). group divides half (a
+// multiple of 64 takes the first instances, any other the ANY ones). bn and
+// split come from ops/linear_tiling.py, as for qa_int8_linear (the k chunks
+// are 64-row chunks of the packed rows, the last one cut at half).
 extern "C" int qa_int4_linear(const void* x, const void* packed, const void* scale, void* out,
                               int m, int n, int half, int group, int out_type, int bn, int split,
                               void* stream) {
   if (out_type < OUT_F32 || out_type > OUT_BF16 || m < 1 || n < 1 || group <= 0 ||
-      group % CHUNK != 0 || half < group || half % group != 0)
+      half < group || half % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool any = group % CHUNK != 0;
   if (m <= STREAM_MAX_M) {
-    if ((bn != 64 && bn != 128) || split < 1 || split > MAX_SPLIT || split > half / CHUNK ||
-        (n + bn - 1) / bn > 65535)
+    if ((bn != 64 && bn != 128) || split < 1 || split > MAX_SPLIT ||
+        split > (half + CHUNK - 1) / CHUNK || (n + bn - 1) / bn > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
-    return bn == 128
-               ? launch_stream_m<128>(x, packed, scale, out, m, n, half, group, out_type, split, st)
-               : launch_stream_m<64>(x, packed, scale, out, m, n, half, group, out_type, split, st);
+    auto* launch = bn == 128 ? (any ? &launch_stream_m<128, true> : &launch_stream_m<128, false>)
+                             : (any ? &launch_stream_m<64, true> : &launch_stream_m<64, false>);
+    return launch(x, packed, scale, out, m, n, half, group, out_type, split, st);
   }
   if (bn != TC_BN || split != 1 || (m + TC_BM - 1) / TC_BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_tc(x, packed, scale, out, m, n, half, group, out_type, st);
+  return any ? launch_tc<true>(x, packed, scale, out, m, n, half, group, out_type, st)
+             : launch_tc<false>(x, packed, scale, out, m, n, half, group, out_type, st);
 }

@@ -14,6 +14,19 @@ product and the row sum; rows with l == 0 give 0. The kernel runs the online
 softmax over 128-key tiles and the plain version over whole rows, so the two
 differ only in where P is rounded and in summation order.
 
+`correction` picks the rule (quantize/bf16_correction.py): "eps" as above,
+"none" the same without EPS_BIAS, "beta" the reference's tied-max rule. JAX
+applies "beta" once per kv subtile of `correction_grain(t, s, rep,
+precision)` keys (384 or 1024 at the usual lengths, from key 0): where more
+than one logit of the subtile lies within `tol` of max(running max,
+subtile max), that max becomes beta * max (or 0 where it is not positive),
+and P, l and alpha are taken against it. Both versions do the same per
+group of that many keys: the plain version group by group, the kernel with
+a pre-pass over each group's key tiles that finds each row's two largest
+logits (tied exactly when the second is within tol of the max). At large
+tied logits every P of a row may underflow: O = 0 and a finite lse (the JAX
+package's own test of the rule, tests/test_bf16_attention.py:101-127).
+
 Causal masking is on global positions (flash_fwd.py:228-229, the TPU
 kernel's q_offset/k_offset): query i sits at q_offset + i and key j at
 k_offset + j, and a key is visible where k_offset + j <= q_offset + i (and j
@@ -64,8 +77,18 @@ from quantizedattention_tpu_torch.ops.common import (
     qk_scales,
     tile_mask,
 )
-from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
+from quantizedattention_tpu_torch.quantize.bf16_correction import (
+    APPROX_MAX_TOL,
+    BETA,
+    EPS_BIAS,
+    amplify_tied_max,
+)
+from quantizedattention_tpu_torch.tune.config import correction_grain
 from quantizedattention_tpu_torch.utils.runtime import check_status
+
+# the correction rules and the kernels' numbering of them (csrc/flash_fwd.cu RULE_*)
+RULES = {"eps": 0, "none": 1, "beta": 2}
+
 
 def _check_args(q, k, v, correction, precision="bf16"):
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
@@ -78,17 +101,19 @@ def _check_args(q, k, v, correction, precision="bf16"):
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({k.shape[1]})")
     if k.shape[2] == 0:
         raise ValueError("kv length must be positive")
-    if correction != "eps":
-        raise NotImplementedError(f"correction={correction!r}: only 'eps' is ported")
+    if correction not in RULES:
+        raise ValueError(f"unknown correction {correction!r}: want one of {list(RULES)}")
     if precision not in ("bf16", "fp32"):
         raise ValueError(f"unknown precision {precision!r}")
 
 
 def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="eps",
-                              precision="bf16", q_offset=0, k_offset=0):
-    """The forward's arithmetic in plain PyTorch, one softmax over whole rows;
-    `precision="fp32"` rounds nothing. Rows that see no key give O = 0 and
-    lse = -inf."""
+                              precision="bf16", q_offset=0, k_offset=0, beta=BETA,
+                              tol=APPROX_MAX_TOL):
+    """The forward's arithmetic in plain PyTorch; `precision="fp32"` rounds
+    nothing. "eps" and "none" take one softmax over whole rows; "beta" runs
+    the online softmax over groups of `correction_grain` keys, as the JAX
+    kernel does. Rows that see no key give O = 0 and lse = -inf."""
     _check_args(q, k, v, correction, precision)
     q_offset, k_offset = check_offsets(q_offset, k_offset)
     b, h, t, d = q.shape
@@ -105,12 +130,27 @@ def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="
     scores = qs @ kf.transpose(-1, -2)  # [b, h_kv, rep, t, s] f32
     mask = tile_mask(q_offset, k_offset, t, s, s, causal, k_local_start=0, device=q.device)
     scores = torch.where(mask, scores, MASK_VALUE)
-    m = scores.amax(-1, keepdim=True) + EPS_BIAS
-    p = rnd(torch.exp2(scores - m))
-    l = p.sum(-1, keepdim=True)
+    if correction == "beta":
+        grain = correction_grain(t, s, h // h_kv, precision)
+        m = torch.full(scores.shape[:-1] + (1,), -torch.inf, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(scores.shape[:-1] + (d,), device=q.device)
+        for lo in range(0, s, grain):
+            sg = scores[..., lo:lo + grain]
+            next_m = amplify_tied_max(sg, torch.maximum(m, sg.amax(-1, keepdim=True)), beta, tol)
+            p = rnd(torch.exp2(sg - next_m))
+            alpha = torch.exp2(m - next_m)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ vf[..., lo:lo + grain, :]
+            m = next_m
+    else:
+        m = scores.amax(-1, keepdim=True) + (EPS_BIAS if correction == "eps" else 0.0)
+        p = rnd(torch.exp2(scores - m))
+        l = p.sum(-1, keepdim=True)
+        acc = p @ vf
     l_safe = torch.where(l == 0.0, 1.0, l)
     seen = mask.any(-1, keepdim=True)  # [t, 1]: the row sees a key
-    o = torch.where(seen, (p @ vf) / l_safe, 0.0)
+    o = torch.where(seen, acc / l_safe, 0.0)
     lse = torch.where(seen, m + torch.log2(l_safe), -torch.inf)
     return o.reshape(b, h, t, d), lse[..., 0].reshape(b, h, t)
 
@@ -118,11 +158,11 @@ def flash_attention_fwd_plain(q, k, v, causal=False, sm_scale=None, correction="
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 ARGTYPES = {  # the C entries of csrc/flash_fwd.cu
     "qa_flash_fwd": [_PTR, _I64, _I64, _I64, _I32] + [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR]
-                    + [_I32] * 9 + [ctypes.c_float, _I32, _PTR],
+                    + [_I32] * 9 + [ctypes.c_float] + [_I32] * 3 + [ctypes.c_float] * 2 + [_PTR],
     "qa_flash_kv_to_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR] + [_I32] * 4 + [_PTR],
     "qa_flash_kv_split_tf32": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 4 + [_I32] * 3 + [_PTR],
     "qa_flash_fwd_f32": [_PTR, _I64, _I64, _I64] + [_PTR] * 6 + [_I32] * 6
-                        + [ctypes.c_float, _PTR],
+                        + [ctypes.c_float] + [_I32] * 2 + [ctypes.c_float] * 2 + [_PTR],
 }
 
 
@@ -172,7 +212,7 @@ def kv_to_bf16(k, v):
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", q_offset=0,
-                        k_offset=0):
+                        k_offset=0, beta=BETA, tol=APPROX_MAX_TOL):
     """Corrected-bf16 flash-attention forward. q [b, h, t, d]; k/v [b, h_kv, s, d].
 
     CUDA tensors launch the kernel (head_dim 64 or 128, rep <= 128, b*h_kv <=
@@ -180,12 +220,14 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", 
     f32 or bf16 with any strides (rows contiguous) and is scaled in the kernel; bf16
     k/v are read in place, f32 k/v are cast by one `kv_to_bf16` launch.
     q_offset/k_offset (host ints >= 0): the global positions of the first
-    query and key, for causal masking across sequence shards.
+    query and key, for causal masking across sequence shards. correction:
+    "eps" (default), "beta" (ties within `tol` of the max amplify it by
+    `beta`, once per `correction_grain` keys) or "none".
     `flash_attention_fwd.launches` counts kernel launches (one a call).
     """
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction,
-                                         q_offset=q_offset, k_offset=k_offset)
+                                         q_offset=q_offset, k_offset=k_offset, beta=beta, tol=tol)
     _check_args(q, k, v, correction)
     q_offset, k_offset = check_offsets(q_offset, k_offset)
     b, h, t, d = q.shape
@@ -205,7 +247,8 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, correction="eps", 
     status = _kernel()(
         qk.data_ptr(), *_strides(qk), int(qk.dtype == torch.float32), kb.data_ptr(),
         *_strides(kb), vb.data_ptr(), *_strides(vb), o.data_ptr(), lse.data_ptr(), b, h_kv,
-        h // h_kv, t, s, bq, int(causal), q_offset, k_offset, qk_scale, d,
+        h // h_kv, t, s, bq, int(causal), q_offset, k_offset, qk_scale, d, RULES[correction],
+        correction_grain(t, s, h // h_kv), beta, tol,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_status(status, "flash_fwd")
@@ -263,15 +306,18 @@ def kv_split_tf32(k, v):
     return kb, ks, vbt, vst
 
 
-def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="eps"):
+def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="eps", beta=BETA,
+                             tol=APPROX_MAX_TOL):
     """The fp32 flash-attention forward: for CUDA tensors one `kv_split_tf32`
     launch and the 3xTF32 kernel (head_dim 64, any rep, b*h <= 65535; q, k, v
     read through their strides, rows contiguous), or
-    `flash_attention_fwd_plain(precision="fp32")` for CPU tensors. Returns
-    (O f32 [b, h, t, d], lse f32 [b, h, t]); `flash_attention_fwd_fp32.launches`
-    counts kernel launches (the prep's are `kv_split_tf32.launches`)."""
+    `flash_attention_fwd_plain(precision="fp32")` for CPU tensors; correction,
+    beta and tol as `flash_attention_fwd`'s. Returns (O f32 [b, h, t, d], lse
+    f32 [b, h, t]); `flash_attention_fwd_fp32.launches` counts kernel launches
+    (the prep's are `kv_split_tf32.launches`)."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction, "fp32")
+        return flash_attention_fwd_plain(q, k, v, causal, sm_scale, correction, "fp32",
+                                         beta=beta, tol=tol)
     _check_args(q, k, v, correction)
     b, h, t, d = q.shape
     h_kv, s = k.shape[1], k.shape[2]
@@ -288,6 +334,7 @@ def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="e
     status = _kernel("qa_flash_fwd_f32")(
         qf.data_ptr(), *_strides(qf), kb.data_ptr(), ks.data_ptr(), vbt.data_ptr(),
         vst.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, h_kv, t, s, int(causal), qk_scale,
+        RULES[correction], correction_grain(t, s, h // h_kv, "fp32"), beta, tol,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "flash_fwd_fp32")

@@ -13,7 +13,12 @@ own scale row and added to the accumulator; the result is cast to
 (csrc/int4_linear.cu) for CUDA tensors, with the launch geometry of
 `ops.linear_tiling.plan_int4`, and runs `int4_weight_matmul_plain` for CPU
 tensors; the two differ only in the order of the f32 sums (the kernel scales
-a group's sub-dot in pieces of 64 rows where it streams).
+a group's sub-dot in pieces of 64 rows where it streams, and any group that
+is not a multiple of 64 in pieces cut at its 64-row chunks).
+
+The group is any positive divisor of Kp/2, as in the JAX package
+(ops/int4_linear.py:113-118): a multiple of 64 runs the kernels' first
+instances, any other group their ANY instances (csrc/int4_linear.cu).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 
 from quantizedattention_tpu_torch._build import load_kernel
 from quantizedattention_tpu_torch.ops.int8_linear import OUT_TYPES
-from quantizedattention_tpu_torch.ops.linear_tiling import CHUNK, plan_int4
+from quantizedattention_tpu_torch.ops.linear_tiling import plan_int4
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
 
@@ -84,10 +89,9 @@ def _kernel():
 
 def _launch_args(x, packed, scale, group, out_dtype):
     """Check what the kernel takes; returns (device, bf16 x, f32 scale)."""
-    if packed.dtype != torch.int8 or out_dtype not in OUT_TYPES or group % CHUNK != 0:
-        raise ValueError(f"kernel takes int8 packed weights, a group that is a multiple of "
-                         f"{CHUNK} and an output in {list(OUT_TYPES)}; got {packed.dtype}, "
-                         f"group {group}, {out_dtype}")
+    if packed.dtype != torch.int8 or out_dtype not in OUT_TYPES:
+        raise ValueError(f"kernel takes int8 packed weights and an output in "
+                         f"{list(OUT_TYPES)}; got {packed.dtype}, {out_dtype}")
     xb = x.to(torch.bfloat16).contiguous()
     sf = scale.float().contiguous()
     return require_cuda(xb, packed, sf), xb, sf
@@ -98,7 +102,7 @@ def int4_weight_matmul(x, packed, scale, group: int = 128, out_dtype=None):
     packed int4 weight [Kp/2, n] with group scales [Kp/group, n] f32; Kp
     must be a multiple of 2 * group and x already padded to it
     (`quantize.weights.mm` does both). Returns [m, n] in `out_dtype` (default
-    x.dtype). CUDA tensors launch the kernel (group a multiple of 64) or
+    x.dtype). CUDA tensors launch the kernel (any group dividing Kp/2) or
     raise; CPU tensors take `int4_weight_matmul_plain`. `.launches` counts
     kernel launches."""
     _check_args(x, packed, scale, group)

@@ -3,8 +3,9 @@ B18 (csrc/int4_linear.cu).
 
 Pure Python, so the CPU tests can check it. Both kernels walk the
 contraction in chunks of CHUNK rows: k rows of the int8 weight, or rows of
-the packed int4 weight (each of which holds one row of both halves). The
-regime follows m:
+the packed int4 weight (each of which holds one row of both halves; the last
+chunk is cut at the packed rows where a scale group that is not a multiple
+of CHUNK leaves them ragged). The regime follows m:
 
 - streaming (m <= STREAM_MAX_M: decode, spec verify): a block of
   `stream_threads` threads takes `bn` (64 or 128) columns and a contiguous
@@ -128,8 +129,9 @@ def plan_int8(m: int, k: int, n: int) -> Plan:
 @functools.lru_cache(maxsize=1024)
 def plan_int4(m: int, half: int, n: int, group: int) -> Plan:
     """B18's launch for x [m, 2 half] and packed [half, n] with `group`-row
-    scale groups (a multiple of CHUNK that divides half)."""
-    if group <= 0 or group % CHUNK or half % group:
-        raise ValueError(f"kernel takes a group that is a multiple of {CHUNK} and divides the "
-                         f"packed rows; got group {group}, {half} packed rows")
+    scale groups (any positive divisor of half; the geometry does not depend
+    on it)."""
+    if group <= 0 or half % group:
+        raise ValueError(f"kernel takes a group that divides the packed rows; got group "
+                         f"{group}, {half} packed rows")
     return _plan(m, half, n, 2)

@@ -1,4 +1,9 @@
-from quantizedattention_tpu_torch.quantize.bf16_correction import EPS_BIAS
+from quantizedattention_tpu_torch.quantize.bf16_correction import (
+    APPROX_MAX_TOL,
+    BETA,
+    EPS_BIAS,
+    amplify_tied_max,
+)
 from quantizedattention_tpu_torch.quantize.int8 import (
     QuantJob,
     absmax_scale,
@@ -21,11 +26,14 @@ from quantizedattention_tpu_torch.quantize.weights import (
 )
 
 __all__ = [
+    "APPROX_MAX_TOL",
+    "BETA",
     "EPS_BIAS",
     "QuantJob",
     "QuantizedWeight",
     "QuantizedWeight4",
     "absmax_scale",
+    "amplify_tied_max",
     "dequantize_int8",
     "embedding_lookup",
     "k_smooth",

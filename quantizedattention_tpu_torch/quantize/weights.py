@@ -104,25 +104,28 @@ def quantize_weight_int4(w: torch.Tensor, group: int = 128) -> QuantizedWeight4:
 _LINEAR_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
-def quantize_lm_weights(params: dict, bits: int = 8) -> dict:
+def quantize_lm_weights(params: dict, include_embed: bool = True, bits: int = 8,
+                        group: int = 128) -> dict:
     """A models.transformer params dict with its matmul weights quantized to
-    int8 (bits=8, per output column) or int4 (bits=4, 128-row group scales).
-    Norm gains stay as they are; the embedding table is per-row int8 at
-    either width. Every prefill and decode path takes the result: matmuls go
-    through `mm`, gathers through `embedding_lookup`."""
+    int8 (bits=8, per output column) or int4 (bits=4, `group`-row group
+    scales; JAX weights.py:139-175 without `via`). Norm gains stay as they
+    are; the embedding table is per-row int8 at either width, or stays as it
+    is with include_embed=False. Every prefill and decode path takes the
+    result: matmuls go through `mm`, gathers through `embedding_lookup`."""
     if bits == 8:
         def quant(w):
             return quantize_weight(w, axis=1)
     elif bits == 4:
         def quant(w):
-            return quantize_weight_int4(w)
+            return quantize_weight_int4(w, group=group)
     else:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     out = dict(params)
     out["layers"] = [{key: quant(leaf) if key in _LINEAR_KEYS else leaf
                       for key, leaf in layer.items()} for layer in params["layers"]]
     out["unembed"] = quant(params["unembed"])
-    out["embed"] = quantize_weight(params["embed"], axis=0)
+    if include_embed:
+        out["embed"] = quantize_weight(params["embed"], axis=0)
     return out
 
 
@@ -161,15 +164,17 @@ def embedding_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
     return embed.w_i8[tokens].to(bf16) * embed.scale[tokens][..., None].to(bf16)
 
 
-def quantize_lm_specs(specs: dict) -> dict:
+def quantize_lm_specs(specs: dict, include_embed: bool = True) -> dict:
     """The spec-tree twin of `quantize_lm_weights(bits=8)` (JAX
     weights.py:177-208): each quantized leaf's spec becomes a QuantizedWeight
     whose `w_i8` holds the weight's own spec and whose `scale` holds its
     output-axis entry, so a column scale shards with the columns it scales
     and a contraction-sharded weight (wo, w2) keeps a replicated scale,
     applied after the local product (scaling commutes with the psum). The
-    embedding's per-row scale follows its row axis. int8 only: int4's
-    split-half packing does not split along the contraction."""
+    embedding's per-row scale follows its row axis; include_embed=False
+    leaves the embedding's spec as it is, as quantize_lm_weights leaves the
+    table. int8 only: int4's split-half packing does not split along the
+    contraction."""
 
     def q(spec):
         return QuantizedWeight(w_i8=spec, scale=(spec[1] if len(spec) > 1 else None,), axis=1)
@@ -178,6 +183,7 @@ def quantize_lm_specs(specs: dict) -> dict:
     out["layers"] = [{key: q(leaf) if key in _LINEAR_KEYS else leaf for key, leaf in layer.items()}
                      for layer in specs["layers"]]
     out["unembed"] = q(specs["unembed"])
-    e = specs["embed"]
-    out["embed"] = QuantizedWeight(w_i8=e, scale=(e[0] if len(e) > 0 else None,), axis=0)
+    if include_embed:
+        e = specs["embed"]
+        out["embed"] = QuantizedWeight(w_i8=e, scale=(e[0] if len(e) > 0 else None,), axis=0)
     return out

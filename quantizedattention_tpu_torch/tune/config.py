@@ -1,4 +1,4 @@
-"""The int8 attention's scale grain, as the JAX package's block config fixes it.
+"""The grains that the JAX package's block config fixes in the numerics.
 
 Counterpart of the part of quantizedattention_tpu/tune/config.py that the
 int8 path's numerics depend on. In the JAX package one BlockConfig both tiles
@@ -9,10 +9,15 @@ different grain gives different payloads and scales, hence different
 outputs. So the port reproduces the rule exactly (`int8_grain`), while the
 Hopper kernels tile at their own 64-token tiles inside it.
 
+The bf16 forward's "beta" correction has a grain of the same kind
+(`correction_grain`): the JAX kernel decides whether a row's maximum is tied,
+and amplifies it, once per kv subtile of min(kv_compute, block_kv) keys, so
+the subtile's width enters the result.
+
 Carried over: the BlockConfig fields, `kv_compute`, `clamp` (fit to short
-sequences), `clamp_rep` (the GQA shrink), the pinned "int8" default and the
-int8 all-gather's shard rule (`int8_shard_grain`). Left out: the autotune
-JSON cache and the other kinds' defaults.
+sequences), `clamp_rep` (the GQA shrink), the pinned "int8", "bf16" and
+"fp32" defaults and the int8 all-gather's shard rule (`int8_shard_grain`).
+Left out: the autotune JSON cache and the other kinds' defaults.
 """
 
 from __future__ import annotations
@@ -106,9 +111,12 @@ class BlockConfig:
         )
 
 
-# The JAX package's pinned "int8" default (tune/config.py:166).
+# The JAX package's pinned "int8", "bf16" and "fp32" defaults (tune/config.py:164-180).
 INT8_DEFAULT = BlockConfig(block_q=1024, block_kv=8192, block_q_bwd=1024, block_kv_bwd=1024,
                            block_kv_compute=1024)
+BF16_DEFAULT = BlockConfig(block_q=1024, block_kv=8192, block_q_bwd=1024, block_kv_bwd=1024,
+                           block_kv_compute=1024)
+FP32_DEFAULT = BlockConfig(block_q=256, block_kv=512, block_q_bwd=512, block_kv_bwd=512)
 
 
 def int8_grain(t: int, s: int, rep: int = 1) -> tuple[int, int, int, int]:
@@ -139,3 +147,17 @@ def int8_shard_grain(t_local: int, rep: int = 1) -> tuple[int, int, int, int]:
         raise ValueError(f"int8 all-gather: t_local={t_local} must be a multiple of the kv block "
                          f"({cfg.block_kv}) and grain ({cfg.kv_compute})")
     return int8_grain(t_local, t_local, rep)
+
+
+def correction_grain(t: int, s: int, rep: int = 1, precision: str = "bf16") -> int:
+    """Keys of one subtile of the JAX forward on t queries and s keys with
+    GQA rep, in `precision` "bf16" or "fp32": min(kv_compute, block_kv) of
+    the pinned default fitted to the lengths and shrunk for the group (JAX
+    ops/flash_fwd.py:255-257,289). The "beta" rule counts ties and amplifies
+    the running max once per such group of keys, from key 0. Always a
+    multiple of 128."""
+    if precision not in ("bf16", "fp32"):
+        raise ValueError(f"unknown precision {precision!r}")
+    default = BF16_DEFAULT if precision == "bf16" else FP32_DEFAULT
+    cfg = default.clamp(t, s).clamp_rep(rep)
+    return min(cfg.kv_compute, cfg.block_kv)

@@ -80,8 +80,8 @@ def test_flash_wrapper_cpu_uses_plain_and_counts_nothing():
     o = flash_attention_bf16(q, k, v, causal=True)
     assert torch.isfinite(o).all()
     assert flash_attention_fwd.launches == before
-    with pytest.raises(NotImplementedError):
-        flash_attention_fwd(q, k, v, correction="beta")
+    with pytest.raises(ValueError, match="correction"):
+        flash_attention_fwd(q, k, v, correction="gamma")
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_fwd(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
 

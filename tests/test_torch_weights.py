@@ -382,8 +382,8 @@ def test_weight_kernel_paths_check_their_arguments_and_never_fall_back():
         t4._launch_args(x, q4.packed, q4.scale, 128, torch.bfloat16)
     with pytest.raises(ValueError, match="output"):
         t8._launch_args(x, qw.w_i8, qw.scale, torch.int32)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        t4._launch_args(x, q4.packed, q4.scale, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="int8 packed"):
+        t4._launch_args(x, q4.packed.to(torch.int16), q4.scale, 128, torch.bfloat16)
     with pytest.raises(ValueError, match="shape mismatch"):
         int8_weight_matmul(x[:, :100], qw.w_i8, qw.scale)
     with pytest.raises(ValueError, match="shape mismatch"):
