@@ -10,11 +10,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels and the native scheduler from this
      checkout's sources, all at once (quantizedattention_tpu_torch/_build.py),
-     holds the flash forward's (bf16 and fp32 modes; bf16 at head dims 64
-     and 128) and backward's (fast at 64 and 128), B11 fast's, B10 exact's,
-     B4's, the int8 forward's and backward's (at 64 and 128), the decode
-     kernel's (its int8 instances, B13/B14 at 64 and 128, and its int4 one,
-     B15/B16) and the weight matmuls' shared bytes against their launch
+     holds the flash forward's (bf16 and fp32 modes at head dims 64 and
+     128) and backward's (fast at 64 and 128), B10 exact's,
+     B4's, the int8 forward's and backward's (at 64 and 128), B1 fp32's and
+     B9, B11 and B12 fast's (at 64 and 128), the decode kernel's (its int8
+     instances, B13/B14, and its int4 ones, B15/B16, at 64 and 128) and the
+     weight matmuls' shared bytes against their launch
      geometry (ops/flash_tiling.py, ops/jvp_tiling.py, ops/int8_tiling.py,
      parallel/decode_tiling.py, ops/linear_tiling.py), and fails if ptxas
      spills or serializes wgmma (a C75xx note) in the flash forward (both
@@ -341,7 +342,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      B5, B7, B8; the int8/bf16 gradient-norm ratio under GRAD_NORM_RATIO at
      every step) and ServingEngine at SERVE128_CFG with int8 prefill (B4 +
      B5, 4 launches each) on the slotted (B13) and paged (B14) caches, f32
-     params' tokens equal `generate`'s, bf16 params' tokens/s.
+     params' tokens equal `generate`'s, bf16 params' tokens/s. The int4
+     decode kernels and the rCM step's kernels at d=128: B15 and B16 against
+     their plain versions (phase 21's lengths: one token, off the 256-token
+     chunk and the 128-row pack half, full capacity; shuffled and junk
+     pages, non-finite stale scales; GQA rep 1 and 4), B16 bit-equal to B15,
+     the verify staircase at spec 2 and 5 (rows bit-equal to spec = 1); B1
+     fp32 and B9, B11 and B12 fast at HEAD128_JVP_CASES (t and s off 64 and
+     32, causal and not, one token, the DiT's (4, 4, 4096, 128)) on the
+     DiT's strided views, twice for the same bits, their preps byte-equal
+     (phase 17's checks), and B1 fp32 at its tile edges under GQA; all six
+     timed (the JVP family at (4, 4, 4096, 128) beside their plain versions,
+     bounds and, for B1 fp32, SDPA f32; B15/B16 at SERVE128_CFG's decode
+     shape and at capacity); ServingEngine(kv_quant="int4") at SERVE128_CFG
+     on the slotted and paged caches (B1 4 launches, then only B15 or B16;
+     paged tokens == slotted tokens; tokens/s); make_dit_rcm_step(fast=True)
+     at DIT128_CFG (d_model 512, 4 heads x 128, 2 layers, seq 4096, batch 4:
+     phase 20's card-vs-CPU parity at seq 512 and central differences,
+     torch.func.jvp(dit_forward) refused naming B-f3, 1 + 5 steps with
+     losses falling and exactly 2 launches a step of B1 fp32, B9, B11, B12
+     and their preps; median step and max_memory_allocated).
  31. options (run after phase 30): B1's correction="beta" and "none" against
      their plain versions (O and lse, twice for the same bits) at the train
      shapes (4, 16, 2048, 64/128) causal on f32 and bf16 inputs, GQA (2,
@@ -474,7 +494,7 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     kv_to_bf16,
 )
 from quantizedattention_tpu_torch.ops import flash_tiling, int8_tiling, jvp_tiling
-from quantizedattention_tpu_torch.ops.common import LOG2_E
+from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, LOG2_E
 from quantizedattention_tpu_torch.ops.int8_fwd import _qkv_jobs
 from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep, tangent_prep_plain
 from quantizedattention_tpu_torch.models.transformer import (
@@ -736,9 +756,23 @@ def phase_build() -> None:
                       flash_tiling.dkv_shared_bytes),
                      ("flash_bwd dQ", flash_bwd_lib, "qa_flash_bwd_dq_smem_bytes",
                       flash_tiling.dq_shared_bytes))]
-    head_dims += [(f"cache_decode int8 d={d}",
-                   _build.load_kernel("cache_decode").qa_decode_smem_bytes(8, d),
-                   decode_tiling.shared_bytes("int8", d)) for d in decode_tiling.HEAD_DIMS_INT8]
+    head_dims += [(f"cache_decode {payload} d={d}",
+                   _build.load_kernel("cache_decode").qa_decode_smem_bytes(bits, d),
+                   decode_tiling.shared_bytes(payload, d))
+                  for payload, bits, dims in (("int8", 8, decode_tiling.HEAD_DIMS_INT8),
+                                              ("int4", 4, decode_tiling.HEAD_DIMS_INT4))
+                  for d in dims]
+    head_dims += [(f"flash_fwd fp32 d={d}",
+                   _build.load_kernel("flash_fwd").qa_flash_fwd_f32_smem_bytes(d),
+                   flash_tiling.fp32_shared_bytes(d)) for d in flash_tiling.FP32_HEAD_DIMS]
+    head_dims += [(f"{name} d={d}", getattr(_build.load_kernel(lib), entry)(d), want(d))
+                  for d in jvp_tiling.HEAD_DIMS for name, lib, entry, want in (
+                      ("jvp dK/dV fast", "jvp", "qa_jvp_bwd_dkv_smem_bytes",
+                       jvp_tiling.dkv_shared_bytes),
+                      ("jvp dQ fast", "jvp", "qa_jvp_bwd_dq_smem_bytes",
+                       jvp_tiling.dq_shared_bytes),
+                      ("jvp fwd fast", "jvp", "qa_jvp_fwd_smem_bytes",
+                       jvp_tiling.fwd_shared_bytes))]
     head_dims += [(f"{name} d={d}", getattr(_build.load_kernel(lib), entry)(d), want(d))
                   for d in int8_tiling.HEAD_DIMS for name, lib, entry, want in (
                       ("quant_int8", "quant_int8", "qa_quant_int8_smem_bytes",
@@ -750,18 +784,8 @@ def phase_build() -> None:
                        int8_tiling.dq_shared_bytes))]
     for name, got, want in (
             *head_dims,
-            ("flash_fwd fp32", _build.load_kernel("flash_fwd").qa_flash_fwd_f32_smem_bytes(),
-             flash_tiling.fp32_shared_bytes()),
-            ("jvp dK/dV fast", _build.load_kernel("jvp").qa_jvp_bwd_dkv_smem_bytes(),
-             jvp_tiling.dkv_shared_bytes()),
-            ("jvp dQ fast", _build.load_kernel("jvp").qa_jvp_bwd_dq_smem_bytes(),
-             jvp_tiling.dq_shared_bytes()),
-            ("jvp fwd fast", _build.load_kernel("jvp").qa_jvp_fwd_smem_bytes(),
-             jvp_tiling.fwd_shared_bytes()),
             ("jvp tangent exact", _build.load_kernel("jvp").qa_jvp_tangent_smem_bytes(),
-             jvp_tiling.tangent_shared_bytes()),
-            ("cache_decode int4", _build.load_kernel("cache_decode").qa_decode_smem_bytes(4, 64),
-             decode_tiling.shared_bytes("int4", 64))):
+             jvp_tiling.tangent_shared_bytes())):
         if got != want:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
                                  f"geometry (ops/flash_tiling.py, ops/int8_tiling.py, "
@@ -787,11 +811,11 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # the flash forward (both modes) and backward, B5, B7 and B8 (both head
-    # dims), B9, B11 and B12 fast and B10 exact keep every wgmma asynchronous
-    # (no C75xx note) and spill nothing; the decode kernel's instances (two
-    # blocks an SM at head dim 64: at most 128 registers; one at 128, B13's
-    # and B14's) and B4 spill nothing
+    # the flash forward (both modes) and backward, B5, B7 and B8, B9, B11 and
+    # B12 fast (every head dim's instance) and B10 exact keep every wgmma
+    # asynchronous (no C75xx note) and spill nothing; the decode kernel's
+    # instances (two blocks an SM at head dim 64: at most 128 registers; one
+    # at 128, both payloads) and B4 spill nothing
     for name, only in (("flash_fwd", None), ("flash_bwd", None), ("int8_fwd", None),
                        ("int8_bwd", None),
                        ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
@@ -1214,17 +1238,17 @@ def _paged8_case(dev, gen, n_q, n_kv, lengths, stale, d=64):
     return q, dense8, paged8, table, n_pages
 
 
-def _cache_kinds(dev, gen, n_q, n_kv, lengths, stale):
-    """The same attention problem in all four cache kinds: q, the slotted
-    int8 cache of `_decode_case`, its paged twin through shuffled pages, a
-    slotted int4 cache of random nibbles (stale: NaN/inf scales past each
-    length, in both halves of a half-live byte row) and its paged int4 twin
-    (the same token values repacked split-half per page)."""
-    q, dense8, paged8, table, n_pages = _paged8_case(dev, gen, n_q, n_kv, lengths, stale)
+def _cache_kinds(dev, gen, n_q, n_kv, lengths, stale, d=64):
+    """The same attention problem in all four cache kinds at head dim d: q,
+    the slotted int8 cache of `_decode_case`, its paged twin through shuffled
+    pages, a slotted int4 cache of random nibbles (stale: NaN/inf scales past
+    each length, in both halves of a half-live byte row) and its paged int4
+    twin (the same token values repacked split-half per page)."""
+    q, dense8, paged8, table, n_pages = _paged8_case(dev, gen, n_q, n_kv, lengths, stale, d=d)
     n, max_len = len(lengths), BENCH_CFG.max_seq
     length = dense8.length
 
-    shape4 = (n, n_kv, max_len // 2, 64)
+    shape4 = (n, n_kv, max_len // 2, d)
     k4 = torch.randint(-128, 128, shape4, generator=gen, device=dev, dtype=torch.int8)
     v4 = torch.randint(-128, 128, shape4, generator=gen, device=dev, dtype=torch.int8)
     sk4 = torch.rand(shape4[:2] + (max_len,), generator=gen, device=dev) * 0.28 + 0.02
@@ -3241,10 +3265,10 @@ FP32_EDGE_CASES = [(1, 2, 2, 330, 200, True), (1, 2, 2, 200, 330, True), (1, 6, 
                    (1, 2, 2, 1, 300, False), (1, 2, 2, 300, 1, True), (2, 4, 4, 128, 64, True)]
 
 
-def _jvp_inputs(gen, dev, b, h, t, s):
-    """q, k, v, tq, tk, tv, do, dto: unit normal f32."""
-    q, tq, do, dto = (torch.randn((b, h, t, 64), generator=gen, device=dev) for _ in range(4))
-    k, v, tk, tv = (torch.randn((b, h, s, 64), generator=gen, device=dev) for _ in range(4))
+def _jvp_inputs(gen, dev, b, h, t, s, d=64):
+    """q, k, v, tq, tk, tv, do, dto: unit normal f32 at head dim d."""
+    q, tq, do, dto = (torch.randn((b, h, t, d), generator=gen, device=dev) for _ in range(4))
+    k, v, tk, tv = (torch.randn((b, h, s, d), generator=gen, device=dev) for _ in range(4))
     return q, k, v, tq, tk, tv, do, dto
 
 
@@ -3273,14 +3297,14 @@ def _check_jvp_preps(k, v, tk, tv, ops, label) -> None:
         raise AssertionError(f"[jvp] {label}: a prep launch differs from its plain version")
 
 
-def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
-    """B1 fp32 and B9-B12 in both modes against their plain versions on one
-    case, by max|diff| / max|plain| per tensor (lse, and the gradients that
-    vanish at one key: max|diff|), raising outside the tolerances; B1 fp32
-    and B9, B11 and B12 fast called twice for the same bits (B9 the second
-    time on [b, t, h, d] views, B12 on a prep of its own), and their prep
-    launches held byte for byte against the plain preps. Returns each
-    kernel's max|diff|."""
+def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label, modes=(False, True)) -> dict:
+    """B1 fp32 and B9-B12 in `modes` (exact False, fast True; B10 only at a
+    head dim it takes) against their plain versions on one case, by
+    max|diff| / max|plain| per tensor (lse, and the gradients that vanish at
+    one key: max|diff|), raising outside the tolerances; B1 fp32 and B9, B11
+    and B12 fast called twice for the same bits (B9 the second time on [b,
+    t, h, d] views, B12 on a prep of its own), and their prep launches held
+    byte for byte against the plain preps. Returns each kernel's max|diff|."""
     err, msgs = dict.fromkeys(JVP_KERNELS, 0.0), []
     absolute = {"lse"} | ({"dk", "dtk", "dq", "dtq"} if k.shape[2] == 1 else set())
 
@@ -3302,7 +3326,8 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
     hold("flash_fwd_fp32", "fp32", JVP_EXACT_TOL, ("o", "lse"), b1,
          flash_attention_fwd_plain(q, k, v, causal=causal, precision="fp32"))
     _same_bits("flash_fwd_fp32", b1, flash_attention_fwd_fp32(q, k, v, causal=causal), label)
-    for fast in (False, True):
+    tangent = q.shape[-1] in KERNEL_HEAD_DIMS["B10"]
+    for fast in modes:
         mode, tol = ("fast", BWD_FAST_TOL) if fast else ("exact", JVP_EXACT_TOL)
         fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, causal=causal, fast=fast)
         hold("jvp_fwd", mode, JVP_FWD_FAST_TOL if fast else JVP_EXACT_TOL,
@@ -3312,9 +3337,11 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label) -> dict:
             _same_bits("jvp_fwd", fwd, attention_jvp_fwd(*_strided(q, k, v, tq, tk, tv),
                                                          causal=causal, fast=True), label)
         o, to, lse, mu = fwd  # the kernel's residuals, as the entry points hand them on
-        hold("jvp_tangent", mode, tol, ("to",),
-             [attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)],
-             [attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)])
+        if tangent:
+            hold("jvp_tangent", mode, tol, ("to",),
+                 [attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)],
+                 [attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv, causal=causal,
+                                              fast=fast)])
         ops = jvp_bwd_operands(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal=causal,
                                fast=fast)
         dkv = jvp_bwd_dkv(ops)
@@ -3465,30 +3492,35 @@ def phase_jvp_oracle(dev, gen) -> dict:
     return launches
 
 
-def phase_jvp_timing(dev, gen) -> dict:
-    """Phase 19: device time per call of B1 fp32 and B9-B12 (both modes) at
-    the DiT's attention shape beside their plain versions, and at bench.py's
-    bench_jvp shape, on [b, h, t, d] views of [b, t, h, d] tensors as the DiT
-    hands them; B1 fp32 beside SDPA on the same f32 inputs. The row's `ms`,
-    `plain_ms` and `bound_ms` are at the DiT shape in the mode its main path
-    runs (B9, B11, B12 fast as the rCM step; B10 exact as attention_jvp;
-    B1 fp32); `other_ms` is the other mode's. B1 fp32's, B9's and B11's `ms`
-    are whole calls (`prep_ms` + `kernel_ms`); B12's is its kernel on B11's
-    prep, as the rCM step runs it (`call_ms`: a call that runs its own prep).
-    B10 exact is also timed at the dit_jvp path's shape (`dit_jvp_ms`)."""
-    out = {k: {} for k in JVP_KERNELS}
+def phase_jvp_timing(dev, gen, d=64) -> dict:
+    """Phase 19 (phase 30 at d=128): device time per call of B1 fp32 and
+    B9-B12 (both modes) at the DiT's attention shape beside their plain
+    versions, and at bench.py's bench_jvp shape, on [b, h, t, d] views of
+    [b, t, h, d] tensors as the DiT hands them; B1 fp32 beside SDPA on the
+    same f32 inputs. The row's `ms`, `plain_ms` and `bound_ms` are at the DiT
+    shape in the mode its main path runs (B9, B11, B12 fast as the rCM step;
+    B10 exact as attention_jvp; B1 fp32); `other_ms` is the other mode's. B1
+    fp32's, B9's and B11's `ms` are whole calls (`prep_ms` + `kernel_ms`);
+    B12's is its kernel on B11's prep, as the rCM step runs it (`call_ms`: a
+    call that runs its own prep). B10 exact is also timed at the dit_jvp
+    path's shape (`dit_jvp_ms`). At a head dim the exact modes refuse
+    (KERNEL_HEAD_DIMS), the DiT's shape alone in fast mode: no `other_`,
+    `bench_` or B10 entries."""
+    exact = d in KERNEL_HEAD_DIMS["B9/B11/B12 exact"]
+    modes = (True, False) if exact else (True,)
+    dit = {64: (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len), HEAD128: DIT128_SHAPE}[d]
+    shapes = (("", dit), ("bench_", JVP_BENCH_SHAPE)) if exact else (("", dit),)
+    out = {k: {} for k in JVP_KERNELS if exact or k != "jvp_tangent"}
 
-    def few(fn):  # exact-mode calls take tens of ms: one call a graph, two replays
+    def few(fn):  # calls of milliseconds and more: one call a graph, two replays
         return device_ms(fn, calls=1, replays=2)
 
-    for tag, (b, h, t) in (("", (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len)),
-                           ("bench_", JVP_BENCH_SHAPE)):
-        q, k, v, tq, tk, tv, do, dto = _strided(*_jvp_inputs(gen, dev, b, h, t, t))
-        prod = 2 * b * h * t * t * 64  # one product over every (q, k) pair
+    for tag, (b, h, t) in shapes:
+        q, k, v, tq, tk, tv, do, dto = _strided(*_jvp_inputs(gen, dev, b, h, t, t, d))
+        prod = 2 * b * h * t * t * d  # one product over every (q, k) pair
         o, lse = flash_attention_fwd_fp32(q, k, v)
-        fwd = {m: attention_jvp_fwd(q, k, v, tq, tk, tv, fast=m) for m in (True, False)}
-        ops = {m: jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd[m], do, dto, fast=m)
-               for m in (True, False)}
+        fwd = {m: attention_jvp_fwd(q, k, v, tq, tk, tv, fast=m) for m in modes}
+        ops = {m: jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd[m], do, dto, fast=m) for m in modes}
         dkv, dq = jvp_bwd_dkv(ops[True]), jvp_bwd_dq(ops[True])
         io = {"jvp_fwd": nbytes(q, k, v, tq, tk, tv, *fwd[True]),
               "jvp_tangent": nbytes(q, k, v, tq, tk, tv, o, lse, fwd[True][1]),
@@ -3523,17 +3555,17 @@ def phase_jvp_timing(dev, gen) -> dict:
         out["jvp_fwd"][f"{tag}prep_ms"] = few(lambda: jvp_fwd_prep(k, v, tk, tv))
         out["jvp_bwd_dkv"][f"{tag}prep_ms"] = few(lambda: jvp_bwd_prep(ops[True]))
         out["jvp_bwd_dq"][f"{tag}call_ms"] = few(lambda: jvp_bwd_dq(ops[True]))
-        for name in dots:
+        for name in (n for n in dots if n in out):
             main = name != "jvp_tangent"  # fast for the rCM step's kernels
             r = out[name]
             r[f"{tag}ms"] = few(lambda: calls[name](main))
             if name in ("jvp_fwd", "jvp_bwd_dkv"):
                 r[f"{tag}kernel_ms"] = r[f"{tag}ms"] - r[f"{tag}prep_ms"]
-            r[f"{tag}other_ms"] = few(lambda: calls[name](not main))
-            for mode, peak in ((main, PEAK_BF16 if main else PEAK_FP32),
-                               (not main, PEAK_BF16 if not main else PEAK_FP32)):
-                key = "" if mode == main else "other_"
-                bnd = bound(io[name], (dots[name] * prod, peak))
+            if exact:
+                r[f"{tag}other_ms"] = few(lambda: calls[name](not main))
+            for fast in modes:
+                key = "" if fast == main else "other_"
+                bnd = bound(io[name], (dots[name] * prod, PEAK_BF16 if fast else PEAK_FP32))
                 r[f"{tag}{key}bound_ms"] = bnd["bound_ms"]
                 r[f"{tag}{key}bound_by"] = bnd["bound_by"]
             if name == "jvp_tangent":  # exact runs 3xTF32: 15 TF32 products
@@ -3543,54 +3575,53 @@ def phase_jvp_timing(dev, gen) -> dict:
             if not tag:
                 r["plain_ms"] = few(lambda: plains[name](main))
         del q, k, v, tq, tk, tv, do, dto, o, lse, fwd, ops, dkv, dq, prep
-    # B10 exact at the dit_jvp path's shape: torch.func.jvp(dit_forward) at
-    # seq DIT_PARITY_LEN, batch 2 (phase 20)
-    b, h, t = 2, DIT_CFG.n_heads, DIT_PARITY_LEN
-    q, k, v, tq, tk, tv, _, _ = _strided(*_jvp_inputs(gen, dev, b, h, t, t))
-    o, lse = flash_attention_fwd_fp32(q, k, v)
-    r = out["jvp_tangent"]
-    r["dit_jvp_shape"] = f"({b},{h},{t},64)"
-    r["dit_jvp_ms"] = device_ms(lambda: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv))
-    to = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
-    io, prod = nbytes(q, k, v, tq, tk, tv, o, lse, to), 2 * b * h * t * t * 64
-    bnd = bound(io, (15 * prod, PEAK_TF32))
-    r["dit_jvp_bound_ms"], r["dit_jvp_bound_by"] = bnd["bound_ms"], bnd["bound_by"]
-    r["dit_jvp_fp32_bound_ms"] = bound(io, (5 * prod, PEAK_FP32))["bound_ms"]
-    r["bound_kind"] = ("exact: 3xTF32 on the tensor cores (15 TF32 products); fp32_bound_ms: 5 fp32 "
-                       "products on FFMA; other (fast): 5 bf16 products")
+    if exact:
+        # B10 exact at the dit_jvp path's shape: torch.func.jvp(dit_forward)
+        # at seq DIT_PARITY_LEN, batch 2 (phase 20)
+        b, h, t = 2, DIT_CFG.n_heads, DIT_PARITY_LEN
+        q, k, v, tq, tk, tv, _, _ = _strided(*_jvp_inputs(gen, dev, b, h, t, t, d))
+        o, lse = flash_attention_fwd_fp32(q, k, v)
+        r = out["jvp_tangent"]
+        r["dit_jvp_shape"] = f"({b},{h},{t},{d})"
+        r["dit_jvp_ms"] = device_ms(lambda: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv))
+        to = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
+        io, prod = nbytes(q, k, v, tq, tk, tv, o, lse, to), 2 * b * h * t * t * d
+        bnd = bound(io, (15 * prod, PEAK_TF32))
+        r["dit_jvp_bound_ms"], r["dit_jvp_bound_by"] = bnd["bound_ms"], bnd["bound_by"]
+        r["dit_jvp_fp32_bound_ms"] = bound(io, (5 * prod, PEAK_FP32))["bound_ms"]
+        r["bound_kind"] = ("exact: 3xTF32 on the tensor cores (15 TF32 products); fp32_bound_ms: 5 "
+                           "fp32 products on FFMA; other (fast): 5 bf16 products")
+
+    def at(text, r):  # the DiT's shape, then bench_jvp's where it was timed
+        return text.format(p="").format(**r) + (
+            f"; {r['bench_shape']}: " + text.format(p="bench_").format(**r) if exact else "")
+
     for name, r in out.items():
         r["mode"] = {"flash_fwd_fp32": "fp32", "jvp_tangent": "exact"}.get(name, "fast")
-        r["shape"] = f"({DIT_BATCH},{DIT_CFG.n_heads},{DIT_CFG.seq_len},64)"
-        r["bench_shape"] = "({},{},{},64)".format(*JVP_BENCH_SHAPE)
+        r["shape"] = "({},{},{},{}) DiT views, non-causal".format(*dit, d)
+        if exact:
+            r["bench_shape"] = "({},{},{},{})".format(*JVP_BENCH_SHAPE, d)
         if name == "flash_fwd_fp32":
             r["library_call"] = "F.scaled_dot_product_attention, f32 inputs"
             r["bound_kind"] = "3xTF32 on the tensor cores; fp32_bound_ms: 2 fp32 products on FFMA"
-            log(f"[timing] flash_fwd_fp32 {r['shape']}: call {r['ms']:.4f} ms = prep "
-                f"{r['prep_ms']:.4f} + kernel {r['kernel_ms']:.4f}, plain {r['plain_ms']:.4f} ms, "
-                f"sdpa f32 {r['library_ms']:.4f} ms, bound 3xTF32 {r['bound_ms']:.4f} ms, fp32 "
-                f"CUDA cores {r['fp32_bound_ms']:.4f} ms; {r['bench_shape']}: call "
-                f"{r['bench_ms']:.4f} ms = prep {r['bench_prep_ms']:.4f} + kernel "
-                f"{r['bench_kernel_ms']:.4f}, sdpa f32 {r['bench_library_ms']:.4f} ms, bound "
-                f"3xTF32 {r['bench_bound_ms']:.4f} ms, fp32 CUDA cores "
-                f"{r['bench_fp32_bound_ms']:.4f} ms")
+            log(f"[timing] flash_fwd_fp32, plain {r['plain_ms']:.4f} ms; {r['shape']}: " + at(
+                "call {{{p}ms:.4f}} ms = prep {{{p}prep_ms:.4f}} + kernel {{{p}kernel_ms:.4f}}, "
+                "sdpa f32 {{{p}library_ms:.4f}} ms, bound 3xTF32 {{{p}bound_ms:.4f}} ms, fp32 "
+                "CUDA cores {{{p}fp32_bound_ms:.4f}} ms", r))
             continue
         r["library_ms"] = None
         r["library_call"] = "none (no single call)"
-        other = "fast" if r["mode"] == "exact" else "exact"
-        log(f"[timing] {name} {r['shape']}: {r['mode']} {r['ms']:.4f} ms (bound "
-            f"{r['bound_ms']:.4f}), {other} {r['other_ms']:.4f} ms (bound "
-            f"{r['other_bound_ms']:.4f}), plain {r['mode']} {r['plain_ms']:.4f} ms; {r['bench_shape']}: "
-            f"{r['mode']} {r['bench_ms']:.4f} ms (bound {r['bench_bound_ms']:.4f}), {other} "
-            f"{r['bench_other_ms']:.4f} ms (bound {r['bench_other_bound_ms']:.4f})")
+        other = ", other mode {{{p}other_ms:.4f}} ms (bound {{{p}other_bound_ms:.4f}})"
+        log(f"[timing] {name} {r['mode']}, plain {r['plain_ms']:.4f} ms; {r['shape']}: " + at(
+            "{{{p}ms:.4f}} ms (bound {{{p}bound_ms:.4f}})" + (other if exact else ""), r))
         if name in ("jvp_fwd", "jvp_bwd_dkv"):
-            log(f"[timing] {name} fast call = prep + kernel: {r['shape']} {r['prep_ms']:.4f} "
-                f"+ {r['kernel_ms']:.4f} ms; {r['bench_shape']} {r['bench_prep_ms']:.4f} + "
-                f"{r['bench_kernel_ms']:.4f} ms")
+            log(f"[timing] {name} fast call = prep + kernel: {r['shape']}: "
+                + at("{{{p}prep_ms:.4f}} + {{{p}kernel_ms:.4f}} ms", r))
         elif name == "jvp_bwd_dq":
             r["ms_of"] = "the kernel on B11's prep, as the rCM step launches it"
-            log(f"[timing] jvp_bwd_dq fast: kernel on B11's prep {r['ms']:.4f} ms, a call with "
-                f"its own prep {r['call_ms']:.4f} ms; {r['bench_shape']} "
-                f"{r['bench_ms']:.4f}, {r['bench_call_ms']:.4f} ms")
+            log(f"[timing] jvp_bwd_dq fast: {r['shape']}: " + at(
+                "kernel on B11's prep {{{p}ms:.4f}} ms, a call with its own prep "
+                "{{{p}call_ms:.4f}}", r))
         elif name == "jvp_tangent":
             log(f"[timing] jvp_tangent exact at the dit_jvp shape {r['dit_jvp_shape']}: "
                 f"{r['dit_jvp_ms']:.4f} ms (bound 3xTF32 {r['dit_jvp_bound_ms']:.4f}, fp32 CUDA "
@@ -3623,12 +3654,14 @@ def _dit_copy(params, device):
     return out
 
 
-def _dit_checks(dev, params, x, t) -> dict:
+def _dit_checks(dev, params, x, t, cfg=DIT_CFG) -> dict:
     """At seq DIT_PARITY_LEN: the rCM loss and every gradient on the card
     against the CPU plain path (both fast), (u, du/dt) against finite
-    differences (central), and torch.func.jvp of dit_forward (default attention) through
-    B10 once a layer. Returns that jvp run's launches."""
-    cfg = dataclasses.replace(DIT_CFG, seq_len=DIT_PARITY_LEN)
+    differences (central), and torch.func.jvp of dit_forward (default
+    attention) through B10 once a layer, or, at a head dim B10 does not take
+    on the card, refused with a ValueError naming B-f3. Returns that jvp
+    run's launches ({} where it is refused)."""
+    cfg = dataclasses.replace(cfg, seq_len=DIT_PARITY_LEN)
     xs, ts = x[:2, :DIT_PARITY_LEN].contiguous(), t[:2].contiguous()
     res = {}
     for device in (dev, "cpu"):
@@ -3655,6 +3688,20 @@ def _dit_checks(dev, params, x, t) -> dict:
         fd = (dit_forward(p, xs + eps * v, ts + eps, cfg)
               - dit_forward(p, xs - eps * v, ts - eps, cfg)) / (2 * eps)
         rel_fd = ((fd - du).norm() / du.norm()).item()
+        if cfg.head_dim not in KERNEL_HEAD_DIMS["B10"]:
+            try:
+                torch.func.jvp(lambda x_, t_: dit_forward(p, x_, t_, cfg), (xs, ts),
+                               (v, torch.ones_like(ts)))
+            except ValueError as e:
+                if "B-f3" not in str(e):
+                    raise
+                log(f"[dit] head_dim {cfg.head_dim}: du/dt vs central differences rel L2 "
+                    f"{rel_fd:.3e} (tol 0.05); torch.func.jvp(dit_forward) refused: {e}")
+                if not rel_fd < 0.05:
+                    raise AssertionError("dit_jvp_step disagrees with finite differences")
+                return {}
+            raise AssertionError(f"torch.func.jvp(dit_forward) ran at head_dim {cfg.head_dim}, "
+                                 "which B10 does not take on the card")
         _reset_counts()
         _, du_j = torch.func.jvp(lambda x_, t_: dit_forward(p, x_, t_, cfg), (xs, ts),
                                  (v, torch.ones_like(ts)))
@@ -3680,15 +3727,15 @@ DIT_STEP_KERNELS = ("flash_fwd_fp32", "flash_fwd_fp32_prep", "jvp_fwd", "jvp_fwd
                     "jvp_bwd_prep", "jvp_bwd_dkv", "jvp_bwd_dq")
 
 
-def phase_dit(dev, smi) -> tuple[dict, dict, dict]:
-    """Phase 20, BASELINE config 5. Returns (the 5 timed steps' launches of
-    the JVP kernels, the seq-512 jvp run's, step numbers)."""
-    cfg = DIT_CFG
+def phase_dit(dev, smi, cfg=DIT_CFG, profile=True) -> tuple[dict, dict, dict]:
+    """Phase 20, BASELINE config 5 (phase 30 at DIT128_CFG). Returns (the 5
+    timed steps' launches of the JVP kernels, the seq-512 jvp run's, step
+    numbers)."""
     params = _dit_params(dev, cfg)
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((DIT_BATCH, cfg.seq_len, cfg.d_model), generator=gen, device=dev)
     t = torch.rand((DIT_BATCH,), generator=gen, device=dev)
-    jvp_launches = _dit_checks(dev, params, x, t)
+    jvp_launches = _dit_checks(dev, params, x, t, cfg)
 
     _, step = make_dit_rcm_step(cfg, params, fast=True)
     losses = [step(x, t)]
@@ -3710,17 +3757,20 @@ def phase_dit(dev, smi) -> tuple[dict, dict, dict]:
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"rCM losses not finite and falling: {losses}")
     want = {k: cfg.n_layers if k in DIT_STEP_KERNELS else 0 for k in _COUNTED}
+    want["jvp_bwd_dkv"] *= jvp_tiling.dkv_parts(cfg.head_dim)  # B11's grid launches a call
     if any(c != want for c in per_step):
         raise AssertionError(f"kernel launches per rCM step {per_step}, want {want}")
     med = statistics.median(step_ms)
     mem = torch.cuda.max_memory_allocated(dev) / 2**30
     tokens = DIT_BATCH * cfg.seq_len
-    log(f"[dit] rCM step, fast, DiT d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_layers} "
+    log(f"[dit] rCM step, fast, DiT d_model {cfg.d_model}, {cfg.n_heads} heads x "
+        f"{cfg.head_dim}, {cfg.n_layers} "
         f"layers, {DIT_BATCH} x {cfg.seq_len} tokens on {smi}: median step {med:.2f} ms (min "
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}; CUDA events), {tokens / med * 1e3:.0f} "
         f"tokens/s, max_memory_allocated {mem:.2f} GiB, launches per step "
         f"{ {k: n for k, n in per_step[0].items() if n} }; losses {[round(v, 6) for v in losses]}")
-    _profile_dit_step(step, x, t)
+    if profile:
+        _profile_dit_step(step, x, t)
     launches = {k: sum(c[k] for c in per_step) for k in (*JVP_KERNELS, *JVP_PREPS)}
     return launches, jvp_launches, {"median_ms": med, "max_memory_gib": mem,
                                     "tokens_per_s": tokens / med * 1e3, "losses": losses}
@@ -4824,7 +4874,8 @@ def phase_pipeline(dev, smi, pool) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Phase 30: head dim 128 (B1 bf16, fast B2/B3 and B13; B4-B8 and B14)
+# Phase 30: head dim 128 (B1 bf16, fast B2/B3 and B13; B4-B8 and B14; B15/B16,
+# B1 fp32 and fast B9, B11 and B12)
 # --------------------------------------------------------------------------
 
 HEAD128 = 128
@@ -5221,6 +5272,152 @@ def _head128_int8_paths(dev, smi, bf16_norms) -> dict:
             "tokens_per_s": speed}
 
 
+# the rCM DiT at Wan 2.1's head dim: config 5's sequence, 4 heads x 128 =
+# d_model 512 (heads x head_dim = d_model, as in DIT_CFG); its attention is
+# (DIT_BATCH, 4, 4096, 128), non-causal
+DIT128_CFG = DiTConfig(d_model=512, n_heads=4, head_dim=HEAD128, n_layers=2, seq_len=4096)
+DIT128_SHAPE = (DIT_BATCH, DIT128_CFG.n_heads, DIT128_CFG.seq_len)
+# B9 fast walks 32-key tiles at 128 and B12 32-key tiles, B11 128-key blocks
+# over 32-row q tiles, B1 fp32 32-key tiles: t and s off 64 and 32, causal t
+# < s and t > s, one token, the DiT's shape; (b, h, t, s, causal)
+HEAD128_JVP_CASES = [(1, 4, 200, 330, True), (1, 4, 330, 200, False), (1, 3, 77, 201, True),
+                     (1, 3, 33, 130, False), (2, 4, 1024, 1024, True), (1, 2, 1, 1, True),
+                     (DIT_BATCH, DIT128_CFG.n_heads, DIT128_CFG.seq_len, DIT128_CFG.seq_len,
+                      False)]
+# B1 fp32's tile edges at 128 with GQA and rep 3 (b, h, h_kv, t, s, causal)
+HEAD128_FP32_CASES = [(1, 2, 2, 330, 200, True), (1, 6, 2, 129, 65, False),
+                      (1, 8, 2, 300, 300, True), (1, 2, 2, 1, 300, False),
+                      (1, 2, 2, 300, 1, True)]
+HEAD128_INT4_ROWS = ("flash_fwd_fp32", "jvp_fwd", "jvp_bwd_dkv", "jvp_bwd_dq", "decode4",
+                     "paged4_decode")
+
+
+def _head128_rcm_int4_kernels(dev) -> dict:
+    """B15/B16 and the rCM step's kernels (B1 fp32, B9, B11, B12 fast) at
+    head dim 128 against their plain versions, at the tolerances of their
+    head-dim-64 phases (21, 23, 17). B15/B16: phase 21's lengths (one token,
+    off the 256-token chunk and the 128-row pack half, full capacity) with
+    shuffled and junk pages and non-finite stale scales, 16/16 and 16/4
+    heads, B16 bit-equal to B15; phase 23's verify staircase at spec 2 and 5,
+    each row bit-equal to its spec = 1 launch. B1 fp32, B9, B11 and B12 fast
+    at HEAD128_JVP_CASES on the DiT's [b, h, t, d] views of [b, t, h, d]
+    tensors, each called twice for the same bits, their preps byte-equal to
+    the plain preps (phase 17's `_check_jvp`); B1 fp32 also at its tile
+    edges under GQA. Returns each kernel's max|diff|."""
+    gen = torch.Generator(device=dev).manual_seed(35)
+    err = dict.fromkeys(HEAD128_INT4_ROWS, 0.0)
+    kernels = {"decode4": (decode_attention_int4, decode_attention_int4_plain),
+               "paged4_decode": (paged4_decode_attention, paged4_decode_attention_plain)}
+    for n_q, n_kv in ((16, 16), (16, 4)):
+        q, _, _, dense4, paged4 = _cache_kinds(dev, gen, n_q, n_kv, CACHE_LENGTHS, True, HEAD128)
+        label = (f"d=128, 8 seqs, {n_q} q / {n_kv} kv heads, lengths {CACHE_LENGTHS}, shuffled "
+                 f"pages, junk pages, non-finite stale scales")
+        for name, cache in (("decode4", dense4), ("paged4_decode", paged4)):
+            err[name] = max(err[name], _check_decode_kernel(name, *kernels[name], q, cache, label))
+            _same_bits(name, kernels[name][0](q, cache, return_lse=True),
+                       kernels[name][0](q, cache, return_lse=True), label)
+        _check_twins("paged4_decode", paged4_decode_attention(q, paged4, return_lse=True),
+                     decode_attention_int4(q, dense4, return_lse=True),
+                     f"d=128 B16 on shuffled pages vs B15 dense, {n_q}/{n_kv} heads", exact=True)
+        _, _, _, dense4, paged4 = _cache_kinds(dev, gen, n_q, n_kv, SPEC_LENGTHS, True, HEAD128)
+        for spec in SPECS:
+            qv = torch.randn((len(SPEC_LENGTHS), n_q, spec, HEAD128), generator=gen, device=dev)
+            for name, cache in (("decode4", dense4), ("paged4_decode", paged4)):
+                err[name] = max(err[name], _check_verify(
+                    name, qv, cache, f"d=128, 8 seqs, {n_q} q / {n_kv} kv heads, lengths "
+                    f"{SPEC_LENGTHS}, non-finite stale scales"))
+    for b, h, t, s, causal in HEAD128_JVP_CASES:
+        inputs = _strided(*_jvp_inputs(gen, dev, b, h, t, s, HEAD128))
+        got = _check_jvp(*inputs, causal, f"d=128 ({b},{h},{t},{s}) DiT views causal={causal}",
+                         modes=(True,))
+        err.update({k: max(err[k], got[k]) for k in err if k in got})
+        del inputs
+    msgs = []
+    for b, h, h_kv, t, s, causal in HEAD128_FP32_CASES:
+        label = f"({b},{h}q/{h_kv}kv,{t}x{s},128) causal={causal}"
+        q, k, v, _ = _qkvdo(gen, dev, b, h, h_kv, t, s, HEAD128)
+        got = flash_attention_fwd_fp32(q, k, v, causal=causal)
+        _same_bits("flash_fwd_fp32", got, flash_attention_fwd_fp32(q, k, v, causal=causal), label)
+        o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal=causal, precision="fp32")
+        e = (got[0] - o_p).abs().max().item()
+        rel, e_l = e / o_p.abs().max().item(), (got[1] - lse_p).abs().max().item()
+        msgs.append(f"{label} O {rel:.2e} lse {e_l:.2e}")
+        if max(rel, e_l) > JVP_EXACT_TOL or not torch.isfinite(got[0]).all():
+            raise AssertionError(f"flash_fwd_fp32 disagrees with its plain version at {label}")
+        err["flash_fwd_fp32"] = max(err["flash_fwd_fp32"], e)
+    log(f"[head128] flash_fwd_fp32 tile edges at 128 (tol {JVP_EXACT_TOL}; each bit-equal on a "
+        "second call): " + "; ".join(msgs))
+    return err
+
+
+def _head128_int4_timing(dev) -> dict:
+    """Device time of B15 and B16 at the serving decode shape of
+    SERVE128_CFG (8 slots x 16 q / 4 kv heads, length 304 of 1280) beside
+    their plain versions, and at capacity. Returns {kernel: times}."""
+    d = HEAD128
+    gen = torch.Generator(device=dev).manual_seed(36)
+    out = {}
+    length = PROMPT_LEN + NEW_TOKENS // 2
+    q, _, _, dense4, paged4 = _cache_kinds(dev, gen, 16, 4, [length] * N_SLOTS, False, d)
+    n_tok = length * N_SLOTS
+    live_pages = N_SLOTS * -(-length // PAGE)
+    for name, cache, table_bytes, at in (("decode4", dense4, 0, 3),
+                                         ("paged4_decode", paged4, 4 * live_pages, 4)):
+        fn = {"decode4": decode_attention_int4, "paged4_decode": paged4_decode_attention}[name]
+        plain = {"decode4": decode_attention_int4_plain,
+                 "paged4_decode": paged4_decode_attention_plain}[name]
+        o = fn(q, cache)
+        # the live tokens' int4 K/V (d / 2 bytes each) and scales per kv head
+        n_bytes = n_tok * 4 * 2 * (d // 2 + 4) + table_bytes + nbytes(q, o, cache[-1])
+        row = {"ms": device_ms(lambda: fn(q, cache)),
+               "plain_ms": device_ms(lambda: plain(q, cache), calls=4, replays=5),
+               **bound(n_bytes, (2 * 2 * n_tok * q.shape[1] * d, PEAK_BF16)),
+               "library_ms": None,
+               "shape": f"8 slots x 16 q / 4 kv heads x 128, length {length} of 1280"}
+        log(f"[head128] {name} d=128, {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+        def case(g, n_kv, at=at):
+            kinds = _cache_kinds(dev, g, 16, n_kv, [BENCH_CFG.max_seq] * N_SLOTS, False, d)
+            return kinds[0], kinds[at]
+        row.update(_capacity_times(name, dev, case))
+        out[name] = row
+    return out
+
+
+def _head128_rcm_int4_paths(dev, smi) -> tuple[dict, dict]:
+    """ServingEngine(kv_quant="int4") at SERVE128_CFG (bf16 params) on the
+    slotted (B15) and paged (B16) caches: each run launches only B1 (one
+    batched prefill, n_layers times) and its cache's int4 decode kernel, and
+    the paged run's tokens equal the slotted run's; then the rCM step at
+    DIT128_CFG (phase 20 at 128: card-vs-CPU parity at seq DIT_PARITY_LEN,
+    central differences, torch.func.jvp of dit_forward refused naming B-f3,
+    1 + 5 steps with losses finite and falling and exact launches a step).
+    Returns (launches by path, step and serving numbers)."""
+    n_layers = SERVE128_CFG.n_layers
+    paths, speed, tokens = {}, {}, {}
+    for path, decode, kw in (("serve128_kv4", "decode4", {}),
+                             ("serve128_paged4", "paged4_decode", {"cache": "paged"})):
+        tokens[path], counts, tok_s, _ = _serve(dev, smi, SERVE128_CFG, kv_quant="int4", **kw)
+        used = {k: v for k, v in counts.items() if v}
+        if set(used) != {"flash_fwd", decode} or used["flash_fwd"] != n_layers:
+            raise AssertionError(f"{path}: the d=128 int4 served run launched {used}, want "
+                                 f"flash_fwd {n_layers} times (one batched prefill) and {decode}")
+        paths[path], speed[path] = used, tok_s
+    same = tokens["serve128_paged4"] == tokens["serve128_kv4"]
+    log(f"[head128] int4 serving at SERVE128_CFG, bf16 params: "
+        + ", ".join(f"{p} {s:.1f} tokens/s" for p, s in speed.items())
+        + f"; paged int4 tokens == slotted int4 tokens: {same}")
+    if not same:
+        raise AssertionError("the paged int4 cache served other tokens than the slotted one at "
+                             "head dim 128")
+    dit_launches, _, dit = phase_dit(dev, smi, DIT128_CFG, profile=False)
+    paths["dit_rcm128"] = {k: n for k, n in dit_launches.items() if n}
+    return paths, {"serve128_int4_tokens_per_s": speed,
+                   "dit_rcm128": {k: dit[k] for k in ("median_ms", "max_memory_gib",
+                                                      "tokens_per_s", "losses")}}
+
+
 def phase_head128(dev, smi, alone: bool = False) -> dict:
     """Phase 30: head dim 128 on the main paths. The bf16 kernels (B1-B3,
     B13) and the int8 family (B4-B8, B14) at their tile edges, BASELINE
@@ -5229,9 +5426,12 @@ def phase_head128(dev, smi, alone: bool = False) -> dict:
     steps and exact launches; the int8/bf16 gradient-norm ratio) and
     ServingEngine at SERVE128_CFG in bf16 and with int8 prefill on the
     slotted and paged caches (f32 params: tokens equal `generate`'s; bf16
-    params: tokens/s). Returns {kernel: its d=128 entry} with the launches
-    of every path. `alone`: the process runs no other phase, so B4's profile
-    census must record (phase_int8_timing)."""
+    params: tokens/s). Then B15/B16 and the rCM step's kernels (B1 fp32, B9,
+    B11, B12 fast) at their tile edges and timed, ServingEngine(kv_quant=
+    "int4") at SERVE128_CFG on both caches and the rCM step at DIT128_CFG.
+    Returns {kernel: its d=128 entry} with the launches of every path.
+    `alone`: the process runs no other phase, so B4's profile census must
+    record (phase_int8_timing)."""
     errs = _head128_kernels(dev)
     int8_errs, bwd_rel = _head128_int8_kernels(dev)
     _head128_oracle(dev)
@@ -5259,12 +5459,21 @@ def phase_head128(dev, smi, alone: bool = False) -> dict:
     log(f"[head128] train step at TRAIN128_CFG: median {run['median_ms']:.2f} ms, "
         f"max_memory_allocated {run['max_memory_gib']:.2f} GiB, launches {train_launches}; "
         f"serving at SERVE128_CFG: {serve}")
+    rcm_errs = _head128_rcm_int4_kernels(dev)
+    rcm_timing = phase_jvp_timing(dev, torch.Generator(device=dev).manual_seed(37), HEAD128)
+    for name, row in {**rcm_timing, **_head128_int4_timing(dev)}.items():
+        out[name] = {**row, "max_abs_err": rcm_errs[name]}
+    rcm_paths, rcm_runs = _head128_rcm_int4_paths(dev, smi)
     paths = {"train128": train_launches, "serve128": serve["bfloat16"]["launches"],
-             **int8["launches"], "infer128_int8": infer_launches}
+             **int8["launches"], "infer128_int8": infer_launches, **rcm_paths}
     for name in HEAD128_ROWS:
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         out[name]["launches_by_path"] = {p: n for p, n in by_path.items() if n}
     out["flash_bwd_dkv"]["prep_launches_by_path"] = {"train128": train_launches["flash_bwd_prep"]}
+    for name, prep in (("flash_fwd_fp32", "flash_fwd_fp32_prep"), ("jvp_fwd", "jvp_fwd_prep"),
+                       ("jvp_bwd_dkv", "jvp_bwd_prep")):
+        out[name]["prep_launches_by_path"] = {"dit_rcm128": rcm_paths["dit_rcm128"][prep]}
+    out.update(rcm_runs)
     out["train128"] = {"median_step_ms": run["median_ms"], "max_memory_gib": run["max_memory_gib"]}
     out["train128_int8"] = int8["train"]
     out["serve128_tokens_per_s"] = {"serve128": serve["bfloat16"]["tokens_per_s"],
@@ -5273,8 +5482,8 @@ def phase_head128(dev, smi, alone: bool = False) -> dict:
 
 
 def _head128_rows(kernels: list, head128: dict) -> None:
-    """Phase 30's numbers into the `kernels` line: each of B1-B8, B13 and B14
-    gains its d=128 entry and its paths' launches."""
+    """Phase 30's numbers into the `kernels` line: each kernel of
+    HEAD128_ROWS gains its d=128 entry and its paths' launches."""
     for k in kernels:
         if k["name"] in HEAD128_ROWS:
             row = dict(head128[k["name"]])
@@ -5301,9 +5510,15 @@ RULE_CASES = [(4, 16, 16, 2048, 2048, True, 64), (4, 16, 16, 2048, 2048, True, H
               (1, 4, 4, 200, 330, True, 64), (1, 4, 2, 77, 201, False, 64),
               (1, 4, 2, 300, 1152, False, 64), (1, 6, 2, 1152, 1152, True, HEAD128),
               (1, 4, 4, 2500, 2500, True, 64), (1, 2, 2, 2500, 2500, False, HEAD128)]
-# the fp32 mode's: the DiT's attention shape, GQA and causal edges (d = 64)
-RULE_FP32_CASES = [(RULE_DIT[0], RULE_DIT[1], RULE_DIT[1], RULE_DIT[2], RULE_DIT[2], False),
-                   (1, 8, 2, 1152, 1152, True), (1, 2, 2, 330, 200, True)]
+# the fp32 mode's: (b, h, h_kv, t, s, causal, d), the DiT's attention shape
+# (8 key groups of 512), GQA rep 4 over three groups (the last of 128 keys),
+# causal and not within one group (grain 256: s = 200, 201) and over two
+# (900 = 512 + 388), at both head dims (32-key tiles at 128)
+RULE_FP32_CASES = [(*RULE_DIT[:2], RULE_DIT[1], RULE_DIT[2], RULE_DIT[2], False, d)
+                   for d in (64, HEAD128)] + [
+    (1, 8, 2, 1152, 1152, True, 64), (1, 2, 2, 330, 200, True, 64),
+    (1, 8, 2, 1152, 1152, True, HEAD128), (1, 2, 2, 330, 200, True, HEAD128),
+    (1, 2, 2, 77, 201, False, HEAD128), (1, 2, 1, 600, 900, False, HEAD128)]
 # B18's groups that are not multiples of 64, at decode and prefill rows of
 # the bench widths' w1 and w2
 ANY_GROUPS = (8, 32, 48, 96)
@@ -5351,8 +5566,8 @@ def _options_b1(dev) -> dict:
     """B1 bf16 under "beta" and "none" against its plain version at
     RULE_CASES (f32 and bf16 inputs at the first), with duplicated keys so
     that "beta" fires (its share of rows printed), offsets, JAX's
-    extreme-logit row; the fp32 mode at RULE_FP32_CASES. Returns each
-    instance's max|dO|."""
+    extreme-logit row; the fp32 mode at RULE_FP32_CASES, where "beta" must
+    fire too. Returns each instance's max|dO|."""
     gen = torch.Generator(device=dev).manual_seed(31)
     errs = {"flash_fwd_beta": 0.0, "flash_fwd_none": 0.0, "flash_fwd_fp32_beta": 0.0,
             "flash_fwd_fp32_none": 0.0}
@@ -5401,9 +5616,9 @@ def _options_b1(dev) -> dict:
     if not (o_b[0, 0, -1].abs().max().item() == 0.0 and gap > 50.0
             and torch.isfinite(lse_b).all()):
         raise AssertionError("beta at extreme tied logits: want O = 0 and a finite lse ~200 up")
-    for b, h, h_kv, t, s, causal in RULE_FP32_CASES:
-        q, k, v = _tied(gen, dev, b, h, h_kv, t, s, 64)
-        label = f"fp32 ({b},{h}q/{h_kv}kv,{t},{s},64) causal={causal}"
+    for b, h, h_kv, t, s, causal, d in RULE_FP32_CASES:
+        q, k, v = _tied(gen, dev, b, h, h_kv, t, s, d)
+        label = f"fp32 ({b},{h}q/{h_kv}kv,{t},{s},{d}) causal={causal}"
         for rule in ("beta", "none"):
             e, o, _ = _check_rule(flash_attention_fwd_fp32,
                                   lambda *a, **kw: flash_attention_fwd_plain(*a, precision="fp32",
@@ -5411,6 +5626,13 @@ def _options_b1(dev) -> dict:
                                   q, k, v, rule, label, JVP_EXACT_TOL, JVP_EXACT_TOL, rel=True,
                                   causal=causal)
             errs[f"flash_fwd_fp32_{rule}"] = max(errs[f"flash_fwd_fp32_{rule}"], e)
+            if rule == "beta":
+                off, _ = flash_attention_fwd_fp32(q, k, v, causal=causal, correction="beta",
+                                                  tol=-math.inf)
+                share = (o != off).any(-1).float().mean().item()
+                log(f"[options] beta {label}: the rule fired on {share:.3f} of the rows")
+                if not share > 0.0:
+                    raise AssertionError(f"beta never fired at {label}")
     return errs
 
 
@@ -5418,7 +5640,8 @@ def _options_b1_paths(dev) -> tuple[dict, dict]:
     """The entry points a user calls with the rules: flash_attention_bf16
     (correction="beta" and "none") forward and backward at the train shape,
     against the plain forward and backward; flash_attention_fwd_fp32 under
-    each rule at the DiT's shape. Each runs with every count at 0 first.
+    each rule at the DiT's shape at head dims 64 and 128. Each runs with
+    every count at 0 first.
     Returns (the launches of each run, the gradients' max|diff|/max|plain|)."""
     gen = torch.Generator(device=dev).manual_seed(32)
     launches, grad_rel = {}, 0.0
@@ -5448,23 +5671,24 @@ def _options_b1_paths(dev) -> tuple[dict, dict]:
             raise AssertionError(f"flash_attention_bf16(correction={rule!r}) launched "
                                  f"{launches[f'train_{rule}']}")
         del q, k, v, do, leaves, o, grads, o_p, lse_p, want
-        q, k, v = _tied(gen, dev, RULE_DIT[0], RULE_DIT[1], RULE_DIT[1], RULE_DIT[2],
-                        RULE_DIT[2], 64)
-        _reset_counts()
-        flash_attention_fwd_fp32(q, k, v, correction=rule)
-        torch.cuda.synchronize()
-        launches[f"dit_{rule}"] = {n: c for n, c in _launch_counts().items() if c}
-        if launches[f"dit_{rule}"].get("flash_fwd_fp32") != 1:
-            raise AssertionError(f"flash_attention_fwd_fp32(correction={rule!r}) launched "
-                                 f"{launches[f'dit_{rule}']}")
+        for d, path in ((64, f"dit_{rule}"), (HEAD128, f"dit128_{rule}")):
+            q, k, v = _tied(gen, dev, RULE_DIT[0], RULE_DIT[1], RULE_DIT[1], RULE_DIT[2],
+                            RULE_DIT[2], d)
+            _reset_counts()
+            flash_attention_fwd_fp32(q, k, v, correction=rule)
+            torch.cuda.synchronize()
+            launches[path] = {n: c for n, c in _launch_counts().items() if c}
+            if launches[path].get("flash_fwd_fp32") != 1:
+                raise AssertionError(f"flash_attention_fwd_fp32(correction={rule!r}) at d={d} "
+                                     f"launched {launches[path]}")
     return launches, grad_rel
 
 
 def _options_b1_timing(dev) -> dict:
     """The rules against "eps" at the train shapes (bf16 inputs, the kernel
     alone) beside their plain version and SDPA, and the fp32 mode's at the
-    DiT's shape (whole calls, prep included) beside its plain version and
-    SDPA on f32 inputs. The bounds are the rule's function's: the same bytes
+    DiT's shape at head dims 64 and 128 (whole calls, prep included) beside
+    its plain version and SDPA on f32 inputs. The bounds are the rule's function's: the same bytes
     and products as "eps" (the pre-pass's second QK^T is the kernel's
     choice)."""
     gen = torch.Generator(device=dev).manual_seed(33)
@@ -5493,27 +5717,33 @@ def _options_b1_timing(dev) -> dict:
             + ", ".join(line) + f", sdpa {lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']})")
         del q, k, v, o, lse
-    b, h, t = RULE_DIT
-    q, k, v = _tied(gen, dev, b, h, h, t, t, 64)
-    o, lse = flash_attention_fwd_fp32(q, k, v)
-    bnd = bound(nbytes(q, k, v, o, lse), (6 * 2 * b * h * t * t * 64, PEAK_TF32))
 
     def few(fn):  # one call a graph, two replays, as phase 19 times B1 fp32
         return device_ms(fn, calls=1, replays=2)
 
-    lib_ms = few(lambda: F.scaled_dot_product_attention(q, k, v))
-    eps_ms = few(lambda: flash_attention_fwd_fp32(q, k, v))
-    line = []
-    for rule in ("beta", "none"):
-        ms = few(lambda: flash_attention_fwd_fp32(q, k, v, correction=rule))
-        plain_ms = few(lambda: flash_attention_fwd_plain(q, k, v, correction=rule,
-                                                         precision="fp32"))
-        out[f"flash_fwd_fp32_{rule}"].update(
-            ms=ms, plain_ms=plain_ms, eps_ms=eps_ms, library_ms=lib_ms, **bnd,
-            shape=f"({b},{h},{t},64), the call with its prep launch")
-        line.append(f"{rule} {ms:.4f} ms ({ms / eps_ms:.2f}x eps), plain {plain_ms:.4f} ms")
-    log(f"[timing] flash_fwd_fp32 rules ({b},{h},{t},64): eps {eps_ms:.4f} ms, " + ", ".join(line)
-        + f", sdpa f32 {lib_ms:.4f} ms, bound 3xTF32 {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    b, h, t = RULE_DIT
+    for d in (64, HEAD128):
+        q, k, v = _tied(gen, dev, b, h, h, t, t, d)
+        o, lse = flash_attention_fwd_fp32(q, k, v)
+        bnd = bound(nbytes(q, k, v, o, lse), (6 * 2 * b * h * t * t * d, PEAK_TF32))
+        lib_ms = few(lambda: F.scaled_dot_product_attention(q, k, v))
+        eps_ms = few(lambda: flash_attention_fwd_fp32(q, k, v))
+        line = []
+        for rule in ("beta", "none"):
+            ms = few(lambda: flash_attention_fwd_fp32(q, k, v, correction=rule))
+            plain_ms = few(lambda: flash_attention_fwd_plain(q, k, v, correction=rule,
+                                                             precision="fp32"))
+            r = {"ms": ms, "plain_ms": plain_ms, "eps_ms": eps_ms, "library_ms": lib_ms, **bnd,
+                 "shape": f"({b},{h},{t},{d}), the call with its prep launch"}
+            if d == 64:
+                out[f"flash_fwd_fp32_{rule}"].update(r)
+            else:
+                out[f"flash_fwd_fp32_{rule}"]["head_dim_128"] = r
+            line.append(f"{rule} {ms:.4f} ms ({ms / eps_ms:.2f}x eps), plain {plain_ms:.4f} ms")
+        log(f"[timing] flash_fwd_fp32 rules ({b},{h},{t},{d}): eps {eps_ms:.4f} ms, "
+            + ", ".join(line) + f", sdpa f32 {lib_ms:.4f} ms, bound 3xTF32 "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        del q, k, v, o, lse
     for name, r in out.items():
         r["library_call"] = "F.scaled_dot_product_attention" + (
             ", f32 inputs" if "fp32" in name else "(is_causal=True), bf16")
@@ -5602,16 +5832,18 @@ def _options_lm(dev, smi) -> dict:
 OPTION_ROWS = {  # phase 31's instances: the kernel each is a mode of
     "flash_fwd_beta": ("flash_fwd.cu", "correction='beta' of the B1 bf16 kernel (d 64 and 128)"),
     "flash_fwd_none": ("flash_fwd.cu", "correction='none' of the B1 bf16 kernel (d 64 and 128)"),
-    "flash_fwd_fp32_beta": ("flash_fwd.cu", "correction='beta' of the B1 fp32 kernel"),
-    "flash_fwd_fp32_none": ("flash_fwd.cu", "correction='none' of the B1 fp32 kernel"),
+    "flash_fwd_fp32_beta": ("flash_fwd.cu", "correction='beta' of the B1 fp32 kernel (d 64 and "
+                                            "128)"),
+    "flash_fwd_fp32_none": ("flash_fwd.cu", "correction='none' of the B1 fp32 kernel (d 64 and "
+                                            "128)"),
     "int4_linear_any": ("int4_linear.cu", "B18's ANY instances: groups that are not multiples "
                                           "of 64"),
 }
 
 
 def phase_options(dev, smi) -> list:
-    """Phase 31: B1's "beta" and "none" rules (bf16 at head dims 64 and 128,
-    fp32 at 64) and B18 at groups that are not multiples of 64, each against
+    """Phase 31: B1's "beta" and "none" rules (bf16 and fp32 at head dims 64
+    and 128) and B18 at groups that are not multiples of 64, each against
     its plain version, on the paths a user calls them through, and timed.
     Returns the `kernels` line's rows of these instances."""
     errs = _options_b1(dev)
@@ -5624,8 +5856,10 @@ def phase_options(dev, smi) -> list:
     timing["flash_fwd_beta"]["grad_rel_vs_plain"] = grad_rel
     by_path = {"flash_fwd_beta": {"train_beta": launches["train_beta"]["flash_fwd"]},
                "flash_fwd_none": {"train_none": launches["train_none"]["flash_fwd"]},
-               "flash_fwd_fp32_beta": {"dit_beta": launches["dit_beta"]["flash_fwd_fp32"]},
-               "flash_fwd_fp32_none": {"dit_none": launches["dit_none"]["flash_fwd_fp32"]},
+               "flash_fwd_fp32_beta": {p: launches[p]["flash_fwd_fp32"]
+                                       for p in ("dit_beta", "dit128_beta")},
+               "flash_fwd_fp32_none": {p: launches[p]["flash_fwd_fp32"]
+                                       for p in ("dit_none", "dit128_none")},
                "int4_linear_any": {"lm_w4_g32": lm["int4_linear"]}}
     rows = []
     for name, (source, mode) in OPTION_ROWS.items():
@@ -6052,12 +6286,19 @@ HEAD128_ROWS = {  # phase 30's kernels: source and the TPU kernel each replaces
     "int8_bwd_dq": ("int8_bwd.cu", "quantizedattention_tpu/ops/int8_bwd.py:123"),
     "int8_fused": ("int8_fwd.cu", "quantizedattention_tpu/ops/int8_fwd.py:197"),
     "paged_decode": ("cache_decode.cu", "quantizedattention_tpu/parallel/paged_cache.py:252"),
+    "flash_fwd_fp32": ("flash_fwd.cu", "quantizedattention_tpu/ops/flash_fwd.py:47"),
+    "jvp_fwd": ("jvp.cu", "quantizedattention_tpu/ops/jvp_fwd.py:39"),
+    "jvp_bwd_dkv": ("jvp.cu", "quantizedattention_tpu/ops/jvp_bwd.py:105"),
+    "jvp_bwd_dq": ("jvp.cu", "quantizedattention_tpu/ops/jvp_bwd.py:155"),
+    "decode4": ("cache_decode.cu", "quantizedattention_tpu/parallel/kv4_cache.py:341"),
+    "paged4_decode": ("cache_decode.cu", "quantizedattention_tpu/parallel/paged4_cache.py:246"),
 }
 
 
 def main_head128() -> None:
     """`python3 chip_smoke.py head128`: phases 1, 2 and 30 alone; the
-    `kernels` line holds the ten kernels at head dim 128 (B1-B8, B13, B14)."""
+    `kernels` line holds the sixteen kernels and modes at head dim 128 (B1
+    in both modes, B2-B9, B11-B16)."""
     name, smi = phase_device()
     phase_build()
     head128 = phase_head128(torch.device("cuda", 0), smi, alone=True)

@@ -9,14 +9,15 @@ the tangent's exact mode (B10, jvp_tangent, also a numerics witness); and
 five numerics witnesses, bwd_exact, fwd_fp32, flash_digest (B1-B3's
 outputs at zero offsets and head dim 64 hashed here and in a parent
 checkout, then at head dim 128 here), int8_digest (B4-B8's, the same way),
-int4_digest (B18's at groups 64 and 128, the same way) and decode_digest
-(B13-B16's at head dim 64, decode8's last step alone).
+int4_digest (B18's at groups 64 and 128, the same way), decode_digest
+(B13-B16's at head dim 64, decode8's last step alone) and jvp_digest (B1
+fp32's and B9, B11 and B12 fast's at head dim 64, the same way).
 
     python3 kernel_probe.py [weights] [int8_bwd] [flash_fwd] [flash_bwd] [bwd_exact]
                             [fwd_fp32] [jvp_bwd] [jvp_fwd] [jvp_dq] [decode4] [decode8]
                             [quant] [jvp_tangent] [flash_digest] [int8_digest]
-                            [int4_digest] [decode_digest] [sass] [PARENT_CHECKOUT]  (all parts without
-                            arguments)
+                            [int4_digest] [decode_digest] [jvp_digest] [sass] [PARENT_CHECKOUT]
+                            (all parts without arguments)
 
 Builds altered copies of a kernel source into build/probe/ (the checkout's
 csrc/ is not touched) and times each beside the unaltered build, as
@@ -191,9 +192,9 @@ key range, on its prep's outputs) at the DiT, bench_jvp and dit_jvp
 (2,4,512,64) shapes beside in_place and no_exp (p takes its exponent's
 argument), with each build's ptxas registers and spills.
 sass (given PARENT_CHECKOUT): builds both checkouts' kernels and compares
-each of the parent's kernels in flash_fwd.cu, flash_bwd.cu and
-cache_decode.cu, by cuobjdump's SASS, with this checkout's head-dim-64
-instance of it: identical instructions, or how many differ.
+each of the parent's kernels in flash_fwd.cu, flash_bwd.cu, cache_decode.cu
+and jvp.cu, by cuobjdump's SASS, with this checkout's head-dim-64 instance
+of it: identical instructions, or how many differ.
 Exits non-zero without a GPU.
 """
 
@@ -964,38 +965,39 @@ def probe_bwd_exact(smi) -> None:
 FP32_CASES = [((1, 3, 300), 256), ((4, 4, 4096), 16)]
 JVP_SHAPES = [(4, 4, 4096), (4, 16, 4096)]  # (b, h, t = s), non-causal: the DiT's, bench_jvp's
 # B1 fp32's knock-outs (each computes wrong results on purpose)
-_F32_S_SMALL = ("""    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage + 2 * F_BLK, 0));  // Q big . K small
+_F32_S_SMALL = ("""    s_rs_first(sacc, qa[0], desc_f32(stage + G::OFF_KS, 0, G::KBLK));  // Q big . K small
 #pragma unroll
-    for (int kk = 1; kk < F_D / 8; ++kk)
-      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage + 2 * F_BLK, kk), 1);
+    for (int kk = 1; kk < QREG; ++kk) s_rs(sacc, qa[kk], desc_f32(stage + G::OFF_KS, kk, G::KBLK));
 #pragma unroll
-    for (int kk = 0; kk < F_D / 8; ++kk)  // Q small . K big
-      wgmma_tf32_m64n64k8_ss(sacc, desc_f32(qs_base, kk), desc_f32(stage, kk), 1);
+    for (int kk = QREG; kk < D / 8; ++kk)
+      s_ss(sacc, desc_f32(qb_base, kk - QREG, G::QBLK), desc_f32(stage + G::OFF_KS, kk, G::KBLK));
 #pragma unroll
-    for (int kk = 0; kk < F_D / 8; ++kk)  // Q big . K big
-      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
-""", """    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage, 0));
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+      s_ss(sacc, desc_f32(qs_base, kk, G::QBLK), desc_f32(stage, kk, G::KBLK));
 #pragma unroll
-    for (int kk = 1; kk < F_D / 8; ++kk)
-      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
+    for (int kk = 0; kk < QREG; ++kk)  // Q big . K big
+      s_rs(sacc, qa[kk], desc_f32(stage, kk, G::KBLK));
+""", """    s_rs_first(sacc, qa[0], desc_f32(stage, 0, G::KBLK));
+#pragma unroll
+    for (int kk = 1; kk < QREG; ++kk) s_rs(sacc, qa[kk], desc_f32(stage, kk, G::KBLK));
 """)
-_F32_PV_SMALL = """    wgmma_tf32_m64n64k8_rs_zero(pacc, ps[0], desc_f32(stage + 4 * F_BLK, 0));  // P small . V big
+_F32_PV_SMALL = """    wgmma_tf32_m64n64k8_rs_zero(pacc, ps[0], desc_f32(vb, 0, G::VBLK));  // P small . V big
 #pragma unroll
-    for (int kk = 1; kk < F_KEYS / 8; ++kk)
-      wgmma_tf32_m64n64k8_rs(pacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+    for (int kk = 1; kk < KEYS / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(pacc, ps[kk], desc_f32(vb, kk, G::VBLK), 1);
 #pragma unroll
-    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V small
-      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
+    for (int kk = 0; kk < KEYS / 8; ++kk)  // P big . V small
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(vs, kk, G::VBLK), 1);
 """
 _F32_PV_BIG = """#pragma unroll
-    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V big
-      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+    for (int kk = 0; kk < KEYS / 8; ++kk)  // P big . V big
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(vb, kk, G::VBLK), 1);
 """
 # the big-big products alone, the first zeroing the fresh accumulator
-_F32_PV_1X = """    wgmma_tf32_m64n64k8_rs_zero(pacc, pb[0], desc_f32(stage + 4 * F_BLK, 0));
+_F32_PV_1X = """    wgmma_tf32_m64n64k8_rs_zero(pacc, pb[0], desc_f32(vb, 0, G::VBLK));
 #pragma unroll
-    for (int kk = 1; kk < F_KEYS / 8; ++kk)
-      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+    for (int kk = 1; kk < KEYS / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(vb, kk, G::VBLK), 1);
 """
 _F32_SOFTMAX = _nested("    if (edge(j))\n      softmax_tf32<RULE, true>")
 # warpgroup turns: each warpgroup issues its products only after the other
@@ -1016,8 +1018,8 @@ _F32_TURNS = [_ARRIVE] + [(_nested(old), _nested(new)) for old, new in [
     ("  mbar_wait(full(0), 0);\n  reg_fence(sacc);\n  wgmma_fence();\n  issue_s(stage_of(0));\n",
      _turns(3) + "  if (wg == 1) pass_turn();\n  mbar_wait(full(0), 0);\n  reg_fence(sacc);\n"
      "  take_turn();\n  wgmma_fence();\n  issue_s(stage_of(0));\n  pass_turn();\n"),
-    ("    reg_fence(ps);\n    wgmma_fence();\n    issue_pv(stage_of(j));",
-     "    reg_fence(ps);\n    take_turn();\n    wgmma_fence();\n    issue_pv(stage_of(j));"),
+    ("    reg_fence(ps);\n    wgmma_fence();\n    issue_pv(stage_of(j), 0);",
+     "    reg_fence(ps);\n    take_turn();\n    wgmma_fence();\n    issue_pv(stage_of(j), 0);"),
     ("    issue_s(stage_of(jn));\n    wgmma_wait<0>();\n",
      "    issue_s(stage_of(jn));\n    if (wg == 0 || j + 1 < n_tiles) pass_turn();\n"
      "    wgmma_wait<0>();\n"),
@@ -1032,7 +1034,8 @@ F32_VARIANTS = {
     "f32v_turns": _F32_TURNS,
 }
 # B11 fast's knock-outs
-_DKV_TERMS = "    if (q0 + JD_ROWS > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))\n      dkv_terms<true>"
+_DKV_TERMS = ("    if (q0 + JD_ROWS > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))\n"
+              "      dkv_terms<true, PART>")
 DKV_VARIANTS = {
     "dkvv_as_is": [],
     "dkvv_no_exp": [("float pe = exp2_ftz(st[i] * qk_scale - (odd ? lse2.y : lse2.x));",
@@ -1044,20 +1047,20 @@ DKV_VARIANTS = {
         ("  if (n_tiles > 0) mbar_wait(kv_bar, 0);\n",
          _turns(1) + "  if (n_tiles > 0) mbar_wait(kv_bar, 0);\n"
          "  if (n_tiles > 0 && wg == 1) pass_turn();\n"),
-        ("    mbar_wait(full(st), (i / JD_STAGES) & 1);\n",
-         "    mbar_wait(full(st), (i / JD_STAGES) & 1);\n    if (i == 0) take_turn();\n"),
+        ("    mbar_wait(full(st), (i / STAGES) & 1);\n",
+         "    mbar_wait(full(st), (i / STAGES) & 1);\n    if (i == 0) take_turn();\n"),
         ("      wgmma_commit();\n    }\n    // the last tile's second products are done",
          "      wgmma_commit();\n    }\n    pass_turn();\n"
          "    // the last tile's second products are done"),
-        ("      const uint64_t ddto = desc_mnmajor_sw128(tiles + 3 * JD_TILE);\n      wgmma_fence();\n",
-         "      const uint64_t ddto = desc_mnmajor_sw128(tiles + 3 * JD_TILE);\n      take_turn();\n"
-         "      wgmma_fence();\n"),
-        ("  wgmma_wait<0>();\n  reg_fence(dk_acc);\n",
-         "  if (n_tiles > 0 && wg == 0) pass_turn();\n  wgmma_wait<0>();\n  reg_fence(dk_acc);\n"),
+        ("    // 2048 bytes a k-step), panel p into the outputs' panel p\n    wgmma_fence();\n",
+         "    // 2048 bytes a k-step), panel p into the outputs' panel p\n    take_turn();\n"
+         "    wgmma_fence();\n"),
+        ("  wgmma_wait<0>();\n  fence_outs();\n",
+         "  if (n_tiles > 0 && wg == 0) pass_turn();\n  wgmma_wait<0>();\n  fence_outs();\n"),
     ],
 }
-_DKV_SECOND = ("#pragma unroll\n      for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dV += p^T dO",
-               "      wgmma_commit();\n    }\n  }\n  wgmma_wait<0>();\n  reg_fence(dk_acc);")
+_DKV_SECOND = ("    // the second products, B = the same tiles read MN-major (16 q rows =",
+               "  }\n  wgmma_wait<0>();\n  fence_outs();")
 
 
 def _dkv_source(name) -> str:
@@ -1107,7 +1110,7 @@ def _f32_call(lib, q, prep, o, lse):
     s = prep[0].shape[1]
     status = lib.qa_flash_fwd_f32(q.data_ptr(), *tfwd._strides(q), *(x.data_ptr() for x in prep),
                                   o.data_ptr(), lse.data_ptr(), b, h, h, t, s, 0, 0.125 * LOG2_E,
-                                  0, 128, BETA, APPROX_MAX_TOL,
+                                  64, 0, 128, BETA, APPROX_MAX_TOL,
                                   torch.cuda.current_stream().cuda_stream)
     if status:
         raise SystemExit(f"kernel_probe: {os.path.basename(lib._name)}'s launch failed with "
@@ -1159,7 +1162,7 @@ def _dkv_call(lib, prep, outs, causal=False):
     s = ops8[1].shape[1]
     status = lib.qa_jvp_bwd_dkv_bf16(*(x.data_ptr() for x in ops8), rows.data_ptr(),
                                      *(x.data_ptr() for x in outs), bh, t, s, rows.stride(1),
-                                     int(causal), 0.125, 0.125 * LOG2_E,
+                                     int(causal), 64, 0.125, 0.125 * LOG2_E,
                                      torch.cuda.current_stream().cuda_stream)
     if status:
         raise SystemExit(f"kernel_probe: launch failed with status {status}")
@@ -1194,10 +1197,11 @@ B9_VARIANTS = {
     "b9v_as_is": [],
     "b9v_no_exp": [("p[e] = MASK && !visible(i) ? 0.f : exp2_ftz(sc[i] - m[h]);",
                     "p[e] = MASK && !visible(i) ? 0.f : (sc[i] - m[h]);")],
-    "b9v_no_elementwise": [("    if (edge(j))\n      fwd_terms<true>",
-                            _SKIP + "    if (edge(j))\n      fwd_terms<true>")],
+    "b9v_no_elementwise": [("    if (edge(j))\n      fwd_terms<true, KEYS>",
+                            _SKIP + "    if (edge(j))\n      fwd_terms<true, KEYS>")],
     "b9v_no_second": [("    issue_out(stage(j));\n", "")],
-    "b9v_keys32": [("constexpr int JF_KEYS = 64;", "constexpr int JF_KEYS = 32;")],
+    "b9v_keys32": [("static constexpr int KEYS = HD == 64 ? 64 : 32;",
+                    "static constexpr int KEYS = 32;")],
 }
 _DQ_TERMS = "    if (k0 + JQ_KEYS > s || (causal && k0 + JQ_KEYS - 1 > qw0))\n      dq_terms<true>"
 B12_VARIANTS = {
@@ -1206,11 +1210,13 @@ B12_VARIANTS = {
                      "float p = (sc[i] * qk_scale - lse[h]);")],
     "b12v_no_elementwise": [(_DQ_TERMS, _SKIP + _DQ_TERMS)],
     "b12v_no_second": [],  # the second products cut out: _b12_source
-    "b12v_keys64": [("constexpr int JQ_KEYS = 32;", "constexpr int JQ_KEYS = 64;")],
+    "b12v_keys64": [("constexpr int JQ_KEYS = 32;", "constexpr int JQ_KEYS = 64;"),
+                    # the head-dim-128 instance, not probed, one stage to fit
+                    ("static constexpr int STAGES = HD == 64 ? 256 / JQ_KEYS : 3;",
+                     "static constexpr int STAGES = HD == 64 ? 256 / JQ_KEYS : 1;")],
 }
-_DQ_SECOND = ("#pragma unroll\n      for (int kk = 0; kk < JQ_KEYS / 16; ++kk) {\n"
-              "        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc",
-              "      wgmma_commit();\n    }\n  }\n  wgmma_wait<0>();\n  reg_fence(dq_acc);")
+_DQ_SECOND = ("    // dQ += dS K + tSb tK, dtQ += tSb K (B = the same K and tK tiles read",
+              "    if constexpr (!OVERLAP) {  // drained here")
 
 
 def _variant_source(variants, name) -> str:
@@ -1261,7 +1267,7 @@ def probe_jvp_fwd(smi) -> None:
             status = lib.qa_jvp_fwd_bf16(
                 q.data_ptr(), *tfwd._strides(q), tq.data_ptr(), *tfwd._strides(tq),
                 *(x.data_ptr() for x in kv), o.data_ptr(), to.data_ptr(), lse.data_ptr(),
-                mu.data_ptr(), b, h, t, t, 0, 0.125, 0.125 * LOG2_E,
+                mu.data_ptr(), b, h, t, t, 0, 64, 0.125, 0.125 * LOG2_E,
                 torch.cuda.current_stream().cuda_stream)
             if status:
                 raise SystemExit(f"kernel_probe: launch failed with status {status}")
@@ -1293,7 +1299,7 @@ def probe_jvp_dq(smi) -> None:
         def call(lib):
             status = lib.qa_jvp_bwd_dq_bf16(
                 *(x.data_ptr() for x in ops8), rows.data_ptr(), dq.data_ptr(), dtq.data_ptr(),
-                b * h, t, t, rows.stride(1), 0, 0.125, 0.125 * LOG2_E,
+                b * h, t, t, rows.stride(1), 0, 64, 0.125, 0.125 * LOG2_E,
                 torch.cuda.current_stream().cuda_stream)
             if status:
                 raise SystemExit(f"kernel_probe: launch failed with status {status}")
@@ -1711,6 +1717,33 @@ print(f"{len(shapes)} shapes at groups 64 and 128, sha256 {h.hexdigest()}")
 """
 
 
+# run in a checkout's root: one SHA-256 over B1 fp32's O and lse and B9,
+# B11 and B12 fast's outputs (O, tO, lse, mu; dK, dV, dtK, dtV; dQ, dtQ) at
+# chip_smoke.py phase 17's cases (JVP_CASES, the DiT's shape among them) on
+# [b, h, t, d] views of [b, t, h, d] tensors, as the DiT hands them in, each
+# case's inputs from its own seed; only calls both a parent and this
+# checkout have
+_JVP_DIGEST = r"""
+import hashlib, torch
+import chip_smoke as cs
+from quantizedattention_tpu_torch.ops import (attention_jvp_fwd, jvp_bwd_dkv, jvp_bwd_dq,
+                                              jvp_bwd_operands)
+from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd_fp32
+h = hashlib.sha256()
+for i, (b, hq, t, s, causal) in enumerate(cs.JVP_CASES):
+    g = torch.Generator(device="cuda").manual_seed(4000 + i)
+    q, k, v, tq, tk, tv, do, dto = cs._strided(*cs._jvp_inputs(g, torch.device("cuda"), b, hq, t,
+                                                               s))
+    fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, causal=causal, fast=True)
+    ops = jvp_bwd_operands(q, k, v, tq, tk, tv, *fwd, do, dto, causal=causal, fast=True)
+    outs = [*flash_attention_fwd_fp32(q, k, v, causal=causal), *fwd, *jvp_bwd_dkv(ops),
+            *jvp_bwd_dq(ops)]
+    for x in outs:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+print(f"{len(cs.JVP_CASES)} cases, sha256 {h.hexdigest()}")
+"""
+
+
 def _digest(script, what, smi, parent=None) -> None:
     """Runs `script` in the parent checkout (if given) and here and prints
     each digest: equal digests are the same bits."""
@@ -1733,13 +1766,16 @@ def _digest(script, what, smi, parent=None) -> None:
 # The head-dim-64 instances' machine code against a parent checkout's
 # --------------------------------------------------------------------------
 
-SASS_LIBS = ("flash_fwd", "flash_bwd", "cache_decode")
+SASS_LIBS = ("flash_fwd", "flash_bwd", "cache_decode", "jvp")
 # a kernel's mangled name -> its key: the kernel's name, the decode kernel's
 # payload (PACKED), and no head dim (a template's 64 instance; 128 skipped);
-# of B1's instances only the "eps" rule's (template argument 0 last)
+# of B1's instances only the "eps" rule's (template argument 0 last); the
+# JVP kernels that gained a head-dim template (the rest keep their names)
 _KERNEL_NAMES = ("flash_fwd_f32_kernel", "flash_fwd_kernel", "kv_to_bf16_kernel",
-                 "kv_split_tf32_kernel", "dkv_kernel_bf16", "dq_kernel_bf16", "bwd_prep_kernel",
-                 "dkv_kernel_f32", "dq_kernel_f32", "decode_kernel")
+                 "kv_split_tf32_kernel", "dkv_kernel_bf16", "dq_kernel_bf16",
+                 "jvp_fwd_prep_kernel", "jvp_bwd_prep_kernel", "bwd_prep_kernel", "dkv_kernel_f32",
+                 "dq_kernel_f32", "decode_kernel", "jvp_fwd_wgmma", "jvp_dkv_wgmma",
+                 "jvp_dq_wgmma")
 
 
 def _sass(lib_path) -> dict:
@@ -1751,11 +1787,13 @@ def _sass(lib_path) -> dict:
     out, key = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            name = line.split("Function :")[1].strip()
+            # a kernel in an anonymous namespace carries a hash of its file
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_",
+                          line.split("Function :")[1].strip())
             base = next((k for k in _KERNEL_NAMES if k in name), name)
             packed = "ILb1E" in name if base == "decode_kernel" else ""
-            other_rule = re.search(r"flash_fwd_kernelILi\d+ELi[12]EE|flash_fwd_f32_kernelILi[12]EE",
-                                   name)
+            other_rule = re.search(
+                r"flash_fwd_kernelILi\d+ELi[12]EE|flash_fwd_f32_kernelI(Li\d+E)?Li[12]EE", name)
             key = None if "Li128E" in name or other_rule else (base, packed)
             if key:
                 out[key] = []
@@ -1798,6 +1836,13 @@ def probe_flash_digest(smi, parent=None) -> None:
     and here; then one over phase 30's head-dim-128 cases, here."""
     _digest(_FLASH_DIGEST, "B1-B3", smi, parent)
     _digest(_FLASH128_DIGEST, "B1-B3 at head dim 128", smi)
+
+
+def probe_jvp_digest(smi, parent=None) -> None:
+    """One digest of B1 fp32's and B9, B11 and B12 fast's outputs at head
+    dim 64 over chip_smoke.py phase 17's cases, in the parent checkout (if
+    given) and here."""
+    _digest(_JVP_DIGEST, "B1 fp32 and B9/B11/B12 fast", smi, parent)
 
 
 def probe_int4_digest(smi, parent=None) -> None:
@@ -2103,7 +2148,7 @@ def main() -> None:
         sys.exit("kernel_probe: no CUDA device")
     every = ["weights", "int8_bwd", "flash_fwd", "flash_bwd", "bwd_exact", "fwd_fp32", "jvp_bwd",
              "jvp_fwd", "jvp_dq", "decode4", "decode8", "quant", "jvp_tangent", "flash_digest",
-             "int8_digest", "int4_digest", "decode_digest", "sass"]
+             "int8_digest", "int4_digest", "decode_digest", "jvp_digest", "sass"]
     dirs = [a for a in sys.argv[1:] if os.path.isdir(a)]
     parts = [a for a in sys.argv[1:] if a not in dirs] or every
     if set(parts) - set(every) or len(dirs) > 1:
@@ -2145,6 +2190,8 @@ def main() -> None:
         probe_int4_digest(smi, dirs[0] if dirs else None)
     if "decode_digest" in parts and "decode8" not in parts:
         probe_decode_digest(smi, dirs[0] if dirs else None)
+    if "jvp_digest" in parts:
+        probe_jvp_digest(smi, dirs[0] if dirs else None)
     if "sass" in parts:
         probe_sass(smi, dirs[0] if dirs else None)
 

@@ -82,15 +82,17 @@
 //   after tile 0 (m0) and after tile 1 (m1): tile 0 takes p against m0, tile
 //   1 against m1, and the block sums tile 0's warps * 2^(m0 - m1) + tile 1's,
 //   in warp order.
-// - Head dim 128 (B13 and B14: decode_kernel<false, 256, 128>, chosen by
-//   qa_decode's and qa_paged_decode's d): a token's int8 row is 128 bytes, walked as two 64-byte
-//   halves each as a row of 64 is (S's k-steps 4-7 and PV's n-tiles 8-15
-//   on the second half). row8<128> swaps 64-byte halves every other row and
-//   permutes 32-byte quarters by (slot / 2) % 4, so S's and PV's fragment
-//   reads stay free of bank conflicts. A block asks for 206 KB (stages and
-//   partial sums twice d=64's) and about 210 registers a thread: one block
-//   an SM (decode_tiling.resident), and the grid's z follows. Each live
-//   token streams 2 * (128 + 4) bytes.
+// - Head dim 128 (decode_kernel<PACKED, 256, 128>, chosen by each entry's
+//   d): a token's int8 row, or an int4 byte row, is 128 bytes, walked as
+//   two 64-byte halves each as a row of 64 is (S's k-steps 4-7 and PV's
+//   n-tiles 8-15 on the second half). row8<128> swaps 64-byte halves every
+//   other row and permutes 32-byte quarters by (slot / 2) % 4, so S's and
+//   PV's fragment reads stay free of bank conflicts. The int4 byte rows stay
+//   at s * D unswizzled, as at 64. A block asks for 206 KB (int8) or 211 KB
+//   (int4: stages and partial sums twice d=64's) and about 210 registers a
+//   thread: one block an SM (decode_tiling.resident), and the grid's z
+//   follows. Each live token streams 2 * (128 + 4) bytes (int8) or 2 * (64
+//   + 4) (int4).
 // - Bits do not depend on the layout, on the other rows or on the block
 //   that computes a chunk: a token's slot, and so its place in every
 //   fragment and sum, is its index in the chunk, so B14 equals B13 and B16
@@ -490,7 +492,7 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
             uint4 x;
             if constexpr (PACKED) {
               const int at = st.src[base + 8 * n + g];
-              x = *reinterpret_cast<const uint4*>(k_bytes + (at & ~63) + 16 * j);
+              x = *reinterpret_cast<const uint4*>(k_bytes + (at & ~63) + 64 * hh + 16 * j);
               sh[n] = at & 4;
             } else {
               x = *reinterpret_cast<const uint4*>(k_bytes +
@@ -553,7 +555,8 @@ decode_kernel(const void* __restrict__ q,  // [n_seqs, n_kv * rows, D], f32 or b
               const uint32_t at[4] = {at01 & 0xFFFF, at01 >> 16, at89 & 0xFFFF, at89 >> 16};
 #pragma unroll
               for (int u = 0; u < 4; ++u) {
-                const uint2 x = *reinterpret_cast<const uint2*>(v_bytes + (at[u] & ~63u) + 8 * g);
+                const uint2 x =
+                    *reinterpret_cast<const uint2*>(v_bytes + (at[u] & ~63u) + 64 * hh + 8 * g);
                 vw[hh][kk][u][0] = x.x >> (at[u] & 4);
                 vw[hh][kk][u][1] = x.y >> (at[u] & 4);
               }
@@ -741,7 +744,7 @@ int launch(const void* q, int q_f32, const Pool& pool, void* part_acc, void* par
 // in f32 (q_f32 = 1, rounded to bf16 in the kernel) or bf16, the partials'
 // scratch (decode_tiling.scratch_shapes), `arrived`: n_seqs * n_kv ints that
 // are 0 (the last block of each pair merges and leaves them 0), the head dim
-// d (64; B13 and B14 also 128) and the grid's z (decode_tiling.grid).
+// d (64 or 128) and the grid's z (decode_tiling.grid).
 // qa_decode_init must have run once on the device first.
 
 // Slotted int8 (B13): payload [b, n_kv, max_len, d], scales [b, n_kv,
@@ -789,30 +792,33 @@ extern "C" int qa_paged_decode(const void* q, const void* k_pages, const void* s
              grid_z, qk_scale, stream);
 }
 
-// Paged int4 (B16): pool [n_kv, n_pages, page_size / 2, 64] byte rows, split
-// half per page; an even page size.
+// Paged int4 (B16): pool [n_kv, n_pages, page_size / 2, d] byte rows, split
+// half per page; an even page size; d 64 or 128 (B15's instance at that head
+// dim, its rows reached through the table).
 extern "C" int qa_paged4_decode(const void* q, const void* k_p, const void* sk, const void* v_p,
                                 const void* sv, const void* table, const void* lengths, void* o,
                                 void* lse, void* part_acc, void* part_ml, void* arrived,
                                 int q_f32, int n_seqs, int n_kv, int group, int spec, int n_pages,
                                 int page_size, int max_pages, int d, int grid_z, float qk_scale,
                                 void* stream) {
-  if (page_size <= 0 || page_size % 2 != 0 || d != 64)
+  if (page_size <= 0 || page_size % 2 != 0 || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const Pool pool = paged_pool(k_p, sk, v_p, sv, table, lengths, n_kv, n_pages, page_size,
                                max_pages, page_size / 2, d);
-  return launch<true, CHUNK4, 64>(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs,
-                                  n_kv, group, spec, grid_z, qk_scale, stream);
+  auto* run = d == 64 ? &launch<true, CHUNK4, 64> : &launch<true, CHUNK4, 128>;
+  return run(q, q_f32, pool, part_acc, part_ml, arrived, o, lse, n_seqs, n_kv, group, spec,
+             grid_z, qk_scale, stream);
 }
 
-// Slotted int4 (B15): payload [b, n_kv, max_len/2, 64], scales [b, n_kv,
-// max_len]; the pages are the row's 256-token pack blocks, in order.
+// Slotted int4 (B15): payload [b, n_kv, max_len/2, d], scales [b, n_kv,
+// max_len]; the pages are the row's 256-token pack blocks, in order; d 64 or
+// 128.
 extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const void* v_p,
                           const void* sv, const void* length, void* o, void* lse, void* part_acc,
                           void* part_ml, void* arrived, int q_f32, int batch, int n_kv, int group,
                           int spec, int max_len, int d, int grid_z, float qk_scale, void* stream) {
   constexpr int PACK = 256;
-  if (max_len <= 0 || max_len % PACK != 0 || d != 64)
+  if (max_len <= 0 || max_len % PACK != 0 || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   Pool p;
   p.k = static_cast<const int8_t*>(k_p);
@@ -829,17 +835,19 @@ extern "C" int qa_decode4(const void* q, const void* k_p, const void* sk, const 
   p.sc_head = max_len;
   p.sc_seq = static_cast<long long>(max_len) * n_kv;
   p.sc_page = PACK;
-  return launch<true, CHUNK4, 64>(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv,
-                                  group, spec, grid_z, qk_scale, stream);
+  auto* run = d == 64 ? &launch<true, CHUNK4, 64> : &launch<true, CHUNK4, 128>;
+  return run(q, q_f32, p, part_acc, part_ml, arrived, o, lse, batch, n_kv, group, spec, grid_z,
+             qk_scale, stream);
 }
 
 // A block's dynamic shared memory (decode_tiling.shared_bytes) for the int8
-// (bits 8: B13 and B14 at head dim 64 or 128) or int4 (bits 4: B15/B16,
-// 64) payload; -1 for other bits or head dims.
+// (bits 8: B13 and B14) or int4 (bits 4: B15 and B16) payload at head dim 64
+// or 128; -1 for other bits or head dims.
 extern "C" int qa_decode_smem_bytes(int bits, int d) {
   if (bits == 8 && d == 64) return static_cast<int>(smem_bytes<false, CHUNK8, 64>());
   if (bits == 8 && d == 128) return static_cast<int>(smem_bytes<false, CHUNK8, 128>());
   if (bits == 4 && d == 64) return static_cast<int>(smem_bytes<true, CHUNK4, 64>());
+  if (bits == 4 && d == 128) return static_cast<int>(smem_bytes<true, CHUNK4, 128>());
   return -1;
 }
 
@@ -857,5 +865,9 @@ extern "C" int qa_decode_init() {
     err = cudaFuncSetAttribute(decode_kernel<true, CHUNK4, 64>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_bytes<true, CHUNK4, 64>()));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(decode_kernel<true, CHUNK4, 128>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes<true, CHUNK4, 128>()));
   return static_cast<int>(err);
 }

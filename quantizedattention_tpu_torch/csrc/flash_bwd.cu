@@ -897,16 +897,6 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Raise a kernel's dynamic shared memory limit once.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
 // A [n, rows, D] bf16 map (contiguous), boxes of 64 rows x 64 head dims (a
 // panel) with the 128-byte swizzle; rows past `rows` arrive as zeros.
 template <int D>

@@ -758,50 +758,100 @@ bool strides16(long long elem_bytes, long long sb, long long sh, long long st) {
 // ---------------------------------------------------------------------------
 // precision="fp32": 3xTF32 on wgmma
 // ---------------------------------------------------------------------------
+//
+// Head dim 128 (F32Geom<128>): O takes 64 registers, so S walks 32-key
+// tiles (16 registers, P's big and small fragments 32), Q big keeps its
+// first 64 dims as register fragments (32 registers; with all 128, 255
+// registers and a spill) and the rest in shared memory beside Q small, and
+// each tile's P V runs as two m64n64 products, one a 64-dim half of O, each
+// into the fresh accumulator and added to its half of O once done (the
+// second after the first). A stage (K big and small, V^T big and small of 32
+// keys) is 64 KB, as at 64; Q small and Q big's second half take 96 KB: a
+// ring of 2 stages.
 
-constexpr int F_D = 64;             // head dim (the fp32 mode takes 64 only)
+// Geometry of the fp32 mode at head dim D (ops/flash_tiling.py's fp32
+// section mirrors it). Every operand is stored as 128-byte rows of 32 f32
+// (the swizzle's span): K big and small in D / 32 blocks of [KEYS keys x 32
+// dims], V^T big and small in KEYS / 32 blocks of [D dims x 32 keys], Q
+// small in D / 32 blocks of [64 rows x 32 dims] a warpgroup.
+template <int D>
+struct F32Geom {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int KEYS = D == 64 ? 64 : 32;  // keys a K/V tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;  // tiles in flight
+  static constexpr int HALVES = D / 64;           // O's 64-dim halves, a P V product each
+  static constexpr int QREG = 8;                  // Q big's k-steps in registers: dims 0-63
+  static constexpr int QBLK = 64 * 128;           // a [64 x 32] block of Q small or Q big
+  static constexpr int KBLK = KEYS * 128;         // a [KEYS x 32] block of K big or small
+  static constexpr int VBLK = D * 128;            // a [D x 32] block of V^T big or small
+  // a stage: K big, K small, V^T big, V^T small
+  static constexpr int OFF_KS = (D / 32) * KBLK;
+  static constexpr int OFF_VB = 2 * OFF_KS;
+  static constexpr int OFF_VS = OFF_VB + (KEYS / 32) * VBLK;
+  static constexpr int STAGE = OFF_VS + (KEYS / 32) * VBLK;
+  static constexpr int OFF_QS = 0;                // Q small, D / 32 blocks a warpgroup
+  static constexpr int OFF_QB = 2 * (D / 32) * QBLK;  // Q big past QREG, (D - 64) / 32 blocks
+  static constexpr int OFF_RING = OFF_QB + 2 * ((D - 64) / 32) * QBLK;
+  static constexpr int OFF_BAR = OFF_RING + STAGES * STAGE;
+  static constexpr int SMEM = OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
+  static_assert(STAGES * 8 <= 64 && 64 + STAGES * 4 <= 128, "barriers fit");
+  static_assert(SMEM <= 232448, "a block's shared memory fits an H100 SM");
+};
 constexpr int F_ROWS = 128;         // q positions a block (one q head): two warpgroups of 64
-constexpr int F_KEYS = 64;          // keys a K/V tile
-constexpr int F_STAGES = 3;         // tiles in flight
-constexpr int F_BLK = 64 * 128;     // bytes of a [64 x 32] f32 block: rows of 128 bytes (the swizzle)
-// A stage: K big, K small (two blocks each: head dims 0-31, 32-63), V^T big,
-// V^T small (two blocks each: keys 0-31, 32-63).
-constexpr int F_STAGE = 8 * F_BLK;
-constexpr int F_OFF_QS = 0;                    // Q small, two blocks a warpgroup
-constexpr int F_OFF_RING = 2 * 2 * F_BLK;
-constexpr int F_OFF_BAR = F_OFF_RING + F_STAGES * F_STAGE;
 constexpr int F_COUNTERS = 64;      // byte offset of the release counters in the barrier area
-constexpr int F_SMEM = F_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
-static_assert(F_STAGES * 8 <= F_COUNTERS && F_COUNTERS + F_STAGES * 4 <= 128, "barriers fit");
-static_assert(F_SMEM <= 232448, "a block's shared memory fits an H100 SM");
 
-// The K/V prep of the fp32 mode, one launch: K [b, h_kv, s, 64] f32 (any
-// strides, rows contiguous) -> K big and K small [b * h_kv, s, 64]; V -> V^T
-// big and V^T small [b * h_kv, 64, s8] (s8 = s rounded up to 8), column 8g +
+// The K/V prep of the fp32 mode, one launch: K [b, h_kv, s, D] f32 (any
+// strides, rows contiguous) -> K big and K small [b * h_kv, s, D]; V -> V^T
+// big and V^T small [b * h_kv, D, s8] (s8 = s rounded up to 8), column 8g +
 // j holding key 8g + tf32_a_column(j), keys past s 0: the K-major B of P V
 // for a P whose fragments come from S's accumulator. Grid (s / 64 rounded
 // up, b * h_kv); a block takes 64 keys, V through shared memory, every load
 // issued before the first store.
+template <int D>
 __global__ void __launch_bounds__(256)
 kv_split_tf32_kernel(const float* __restrict__ k, long long k_sb, long long k_sh, long long k_st,
                      const float* __restrict__ v, long long v_sb, long long v_sh, long long v_st,
                      float* __restrict__ kb, float* __restrict__ ks, float* __restrict__ vbt,
                      float* __restrict__ vst, int h_kv, int s, int s8) {
-  static_assert(SPLIT_KEYS == F_KEYS, "a prep block takes one 64-key tile");
-  __shared__ float v_s[F_KEYS][F_D + 1];
+  __shared__ float v_s[SPLIT_KEYS][D + 1];
   const int bh = blockIdx.y;
   const long long batch = bh / h_kv, head = bh % h_kv;
-  const size_t kv_at = static_cast<size_t>(bh) * s * F_D;
-  const size_t vt_at = static_cast<size_t>(bh) * F_D * s8;
-  kv_split_tf32_tile(k + batch * k_sb + head * k_sh, k_st, v + batch * v_sb + head * v_sh, v_st,
-                     kb + kv_at, ks + kv_at, vbt + vt_at, vst + vt_at, blockIdx.x * F_KEYS, s, s8,
-                     v_s);
+  const size_t kv_at = static_cast<size_t>(bh) * s * D;
+  const size_t vt_at = static_cast<size_t>(bh) * D * s8;
+  kv_split_tf32_tile<D>(k + batch * k_sb + head * k_sh, k_st, v + batch * v_sb + head * v_sh,
+                        v_st, kb + kv_at, ks + kv_at, vbt + vt_at, vst + vt_at,
+                        blockIdx.x * SPLIT_KEYS, s, s8, v_s);
 }
 
 // The descriptor of k-step kk (8 columns, 32 bytes of a row) of a K-major
-// f32 operand stored as 128-byte blocks of 32 columns, `F_BLK` bytes apart.
-__device__ __forceinline__ uint64_t desc_f32(uint32_t addr, int kk) {
-  return desc_kmajor_sw128(addr + (kk / 4) * F_BLK) + 2 * (kk % 4);
+// f32 operand stored as 128-byte blocks of 32 columns, `blk` bytes apart.
+__device__ __forceinline__ uint64_t desc_f32(uint32_t addr, int kk, int blk) {
+  return desc_kmajor_sw128(addr + (kk / 4) * blk) + 2 * (kk % 4);
+}
+
+// S's TF32 k-steps into an m64 x 64 (N = 32 registers) or m64 x 32 (16)
+// accumulator: A from registers (the first one into d, whose old values it
+// neither reads nor keeps alive, and the next ones) or from shared memory.
+template <int N>
+__device__ __forceinline__ void s_rs_first(float (&d)[N], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32)
+    wgmma_tf32_m64n64k8_rs_zero(d, a, db);
+  else
+    wgmma_tf32_m64n32k8_rs_zero(d, a, db);
+}
+template <int N>
+__device__ __forceinline__ void s_rs(float (&d)[N], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32)
+    wgmma_tf32_m64n64k8_rs(d, a, db, 1);
+  else
+    wgmma_tf32_m64n32k8_rs(d, a, db, 1);
+}
+template <int N>
+__device__ __forceinline__ void s_ss(float (&d)[N], uint64_t da, uint64_t db) {
+  if constexpr (N == 32)
+    wgmma_tf32_m64n64k8_ss(d, da, db, 1);
+  else
+    wgmma_tf32_m64n32k8_ss(d, da, db, 1);
 }
 
 // One tile's S (f32, exp2 domain: Q is pre-scaled) -> P = exp2(S - m), 0
@@ -811,9 +861,9 @@ __device__ __forceinline__ uint64_t desc_f32(uint32_t addr, int kk) {
 // (+EPS_BIAS), this thread's partial row sums l and each row's alpha. s[4 n +
 // e]: row h = e / 2, key k0 + 8 n + c2 + (e & 1). Under "none" m takes no
 // EPS_BIAS; under "beta" m is the group's, fixed by its pre-pass (alpha 1).
-template <int RULE, bool MASK>
-__device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb)[8][4],
-                                             uint32_t (&ps)[8][4], float (&m)[2], float (&l)[2],
+template <int RULE, bool MASK, int N>
+__device__ __forceinline__ void softmax_tf32(const float (&s)[N], uint32_t (&pb)[N / 4][4],
+                                             uint32_t (&ps)[N / 4][4], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int k0, int c2, const int (&pos)[2],
                                              int s_len, int causal) {
   auto visible = [&](int i) {
@@ -825,7 +875,7 @@ __device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb
   } else {
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < N; ++i) {
       const int h = (i % 4) / 2;
       mx[h] = fmaxf(mx[h], MASK && !visible(i) ? MASK_VALUE : s[i]);
     }
@@ -840,7 +890,7 @@ __device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int h = (i % 4) / 2;
     const float p = MASK && !visible(i) ? 0.f : exp2f(s[i] - m[h]);
     sum[h] += p;
@@ -855,45 +905,55 @@ __device__ __forceinline__ void softmax_tf32(const float (&s)[32], uint32_t (&pb
 
 // One block of two warpgroups (256 threads) per (q head, 128 positions);
 // warpgroup wg owns positions q0 + 64 wg .. + 63. See the file's head.
-template <int RULE>
+template <int D, int RULE>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s, 64] K big
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s, D] K big
                      const __grid_constant__ CUtensorMap ks_map,   // K small
-                     const __grid_constant__ CUtensorMap vbt_map,  // [b*h_kv, 64, s8] V^T big
+                     const __grid_constant__ CUtensorMap vbt_map,  // [b*h_kv, D, s8] V^T big
                      const __grid_constant__ CUtensorMap vst_map,  // V^T small
-                     const float* __restrict__ q,  // [b, h, t, 64] f32, strides in elements
+                     const float* __restrict__ q,  // [b, h, t, D] f32, strides in elements
                      long long q_sb, long long q_sh, long long q_st,
-                     float* __restrict__ o,    // [b, h, t, 64]
+                     float* __restrict__ o,    // [b, h, t, D]
                      float* __restrict__ lse,  // [b, h, t]
                      int h, int rep, int t, int s, int causal, float qk_scale,
                      int gt, float beta, float tol) {  // "beta": gt key tiles a group
+  using G = F32Geom<D>;
+  constexpr int KEYS = G::KEYS, STAGES = G::STAGES, HALVES = G::HALVES;
+  constexpr int SN = KEYS / 2;  // S's accumulator registers a thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + F_OFF_BAR;
+  const uint32_t bars = base + G::OFF_BAR;
   auto full = [&](int st) { return bars + 8 * st; };
-  int* released = reinterpret_cast<int*>(smem + F_OFF_BAR + F_COUNTERS);
+  int* released = reinterpret_cast<int*>(smem + G::OFF_BAR + F_COUNTERS);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, batch = bh / h, head = bh % h;
   const int kvh = batch * (h / rep) + head / rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * F_ROWS;  // the last positions (most tiles) first
   const int kv_hi = causal ? min(s, min(t, q0 + F_ROWS)) : s;
-  const int n_tiles = (kv_hi + F_KEYS - 1) / F_KEYS;
+  const int n_tiles = (kv_hi + KEYS - 1) / KEYS;
 
-  init_ring(bars, released, F_STAGES);
-  auto load_kv = [&](int j) {  // tile j into stage j % F_STAGES; keys past s arrive as zeros
-    const int st = j % F_STAGES;
-    const uint32_t dst = base + F_OFF_RING + st * F_STAGE;
-    mbar_expect_tx(full(st), F_STAGE);
+  init_ring(bars, released, STAGES);
+  // tile j's K big and small (and, unless `k_only`, V^T big and small) into
+  // `dst`, block by block (K's loads grouped apart reorder the d=64 SASS);
+  // keys past s arrive as zeros
+  auto load_tile = [&](uint32_t dst, uint32_t bar, int j, bool k_only) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      tma_load_3d(dst + half * F_BLK, &kb_map, full(st), 32 * half, j * F_KEYS, kvh);
-      tma_load_3d(dst + (2 + half) * F_BLK, &ks_map, full(st), 32 * half, j * F_KEYS, kvh);
-      tma_load_3d(dst + (4 + half) * F_BLK, &vbt_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
-      tma_load_3d(dst + (6 + half) * F_BLK, &vst_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
+    for (int blk = 0; blk < D / 32; ++blk) {
+      tma_load_3d(dst + blk * G::KBLK, &kb_map, bar, 32 * blk, j * KEYS, kvh);
+      tma_load_3d(dst + G::OFF_KS + blk * G::KBLK, &ks_map, bar, 32 * blk, j * KEYS, kvh);
+      if (!k_only && blk < KEYS / 32) {
+        tma_load_3d(dst + G::OFF_VB + blk * G::VBLK, &vbt_map, bar, j * KEYS + 32 * blk, 0, kvh);
+        tma_load_3d(dst + G::OFF_VS + blk * G::VBLK, &vst_map, bar, j * KEYS + 32 * blk, 0, kvh);
+      }
     }
+  };
+  auto load_kv = [&](int j) {  // tile j into stage j % STAGES
+    const int st = j % STAGES;
+    mbar_expect_tx(full(st), G::STAGE);
+    load_tile(base + G::OFF_RING + st * G::STAGE, full(st), j, false);
   };
   // "beta" streams each group of gt key tiles twice, K big and small alone
   // for its pre-pass and then all four: the ring's u-th load is group g = u /
@@ -901,25 +961,16 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
   auto load_u = [&](int u) {
     const int j0 = u / (2 * gt) * gt, ng = min(gt, n_tiles - j0), r = u - 2 * j0;
     const bool pre = r < ng;
-    const int j = j0 + (pre ? r : r - ng), st = u % F_STAGES;
-    const uint32_t dst = base + F_OFF_RING + st * F_STAGE;
-    mbar_expect_tx(full(st), pre ? F_STAGE / 2 : F_STAGE);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      tma_load_3d(dst + half * F_BLK, &kb_map, full(st), 32 * half, j * F_KEYS, kvh);
-      tma_load_3d(dst + (2 + half) * F_BLK, &ks_map, full(st), 32 * half, j * F_KEYS, kvh);
-      if (!pre) {
-        tma_load_3d(dst + (4 + half) * F_BLK, &vbt_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
-        tma_load_3d(dst + (6 + half) * F_BLK, &vst_map, full(st), j * F_KEYS + 32 * half, 0, kvh);
-      }
-    }
+    const int st = u % STAGES;
+    mbar_expect_tx(full(st), pre ? G::STAGE / 2 : G::STAGE);
+    load_tile(base + G::OFF_RING + st * G::STAGE, full(st), j0 + (pre ? r : r - ng), pre);
   };
   if constexpr (RULE == RULE_BETA) {
     if (tid == 0)
-      for (int u = 0; u < min(F_STAGES, 2 * n_tiles); ++u) load_u(u);
+      for (int u = 0; u < min(STAGES, 2 * n_tiles); ++u) load_u(u);
   } else {
     if (tid == 0)
-      for (int j = 0; j < min(F_STAGES, n_tiles); ++j) load_kv(j);
+      for (int j = 0; j < min(STAGES, n_tiles); ++j) load_kv(j);
   }
 
   const int wg = tid / 128;
@@ -932,89 +983,132 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
   for (int h2 = 0; h2 < 2; ++h2) pos[h2] = q0 + 64 * wg + ra + 8 * h2;
 
   // Q * qk_scale (f32, PyTorch's bits), split: big as the A fragments of the
-  // 8 k-steps in registers, small K-major into shared memory (128-byte
-  // swizzle: 16-byte chunk ch of row r at ch ^ (r & 7)). Positions past t
-  // are 0. Every load is issued before the first conversion.
-  uint32_t qa[8][4];
-  const uint32_t qs_base = base + F_OFF_QS + wg * 2 * F_BLK;
+  // first QREG k-steps in registers (the rest K-major into shared memory),
+  // small K-major into shared memory (128-byte swizzle: 16-byte chunk ch of
+  // row r at ch ^ (r & 7)). Positions past t are 0. Every load is issued
+  // before the first conversion. Each store's address is written out whole:
+  // a shared row offset reorders the d=64 SASS, a few % slower.
+  constexpr int QREG = G::QREG, QB_BLKS = (D - 64) / 32;
+  uint32_t qa[QREG][4];
+  const uint32_t qs_base = base + G::OFF_QS + wg * (D / 32) * G::QBLK;
+  const uint32_t qb_base = base + G::OFF_QB + wg * QB_BLKS * G::QBLK;
   {
-    float x[2][16];
+    float x[2][D / 4];
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const float* row = q + batch * q_sb + head * q_sh + static_cast<long long>(pos[h2]) * q_st;
 #pragma unroll
-      for (int i = 0; i < 16; ++i)  // head dim 8 (i / 2) + c + 4 (i % 2)
+      for (int i = 0; i < D / 4; ++i)  // head dim 8 (i / 2) + c + 4 (i % 2)
         x[h2][i] = pos[h2] < t ? row[8 * (i / 2) + c + 4 * (i % 2)] : 0.f;
     }
-    float* qs_s = reinterpret_cast<float*>(smem + F_OFF_QS + wg * 2 * F_BLK);
+    float* qs_s = reinterpret_cast<float*>(smem + G::OFF_QS + wg * (D / 32) * G::QBLK);
+    float* qb_s = reinterpret_cast<float*>(smem + G::OFF_QB + wg * QB_BLKS * G::QBLK);
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int r = ra + 8 * h2;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < D / 4; ++i) {
         const float xs = __fmul_rn(x[h2][i], qk_scale);
         const float big = tf32_big(xs);
-        qa[i / 2][h2 + 2 * (i % 2)] = __float_as_uint(big);
         const int d = 8 * (i / 2) + c + 4 * (i % 2), w = d % 32;
-        qs_s[(d / 32) * (F_BLK / 4) + r * 32 + (((w / 4) ^ (r & 7)) << 2) + w % 4] = xs - big;
+        if (i / 2 < QREG)
+          qa[(i / 2) % QREG][h2 + 2 * (i % 2)] = __float_as_uint(big);
+        else
+          qb_s[(d / 32 - QREG / 4) * (G::QBLK / 4) + r * 32 + (((w / 4) ^ (r & 7)) << 2) + w % 4] =
+              big;
+        qs_s[(d / 32) * (G::QBLK / 4) + r * 32 + (((w / 4) ^ (r & 7)) << 2) + w % 4] = xs - big;
       }
     }
   }
   fence_proxy_async();  // Q small, for wgmma
   named_barrier(1 + wg, 128);
 
-  float sacc[32], oacc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  uint32_t pb[8][4] = {}, ps[8][4] = {};  // P big and small: the A of P V
+  float sacc[SN], oacc[HALVES][32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t pb[KEYS / 8][4] = {}, ps[KEYS / 8][4] = {};  // P big and small: the A of P V
 #pragma unroll
-  for (int i = 0; i < 32; ++i) sacc[i] = oacc[i] = 0.f;
+  for (int i = 0; i < SN; ++i) sacc[i] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[hh][i] = 0.f;
   auto edge = [&](int j) {
-    return j * F_KEYS + F_KEYS > s || (causal && j * F_KEYS + F_KEYS - 1 > q0 + 64 * wg);
+    return j * KEYS + KEYS > s || (causal && j * KEYS + KEYS - 1 > q0 + 64 * wg);
+  };
+  auto scale_o = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[hh][i] *= alpha[(i % 4) / 2];
   };
 
-  // S = Q K^T of the tile in `stage`: 24 products, the small terms first
-  // into the accumulator, the big-big term last.
+  // S = Q K^T of the tile in `stage`: 3 D / 8 products, the small terms
+  // first into the accumulator, the big-big term last.
   auto issue_s = [&](uint32_t stage) {
-    wgmma_tf32_m64n64k8_rs_zero(sacc, qa[0], desc_f32(stage + 2 * F_BLK, 0));  // Q big . K small
+    s_rs_first(sacc, qa[0], desc_f32(stage + G::OFF_KS, 0, G::KBLK));  // Q big . K small
 #pragma unroll
-    for (int kk = 1; kk < F_D / 8; ++kk)
-      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage + 2 * F_BLK, kk), 1);
+    for (int kk = 1; kk < QREG; ++kk) s_rs(sacc, qa[kk], desc_f32(stage + G::OFF_KS, kk, G::KBLK));
 #pragma unroll
-    for (int kk = 0; kk < F_D / 8; ++kk)  // Q small . K big
-      wgmma_tf32_m64n64k8_ss(sacc, desc_f32(qs_base, kk), desc_f32(stage, kk), 1);
+    for (int kk = QREG; kk < D / 8; ++kk)
+      s_ss(sacc, desc_f32(qb_base, kk - QREG, G::QBLK), desc_f32(stage + G::OFF_KS, kk, G::KBLK));
 #pragma unroll
-    for (int kk = 0; kk < F_D / 8; ++kk)  // Q big . K big
-      wgmma_tf32_m64n64k8_rs(sacc, qa[kk], desc_f32(stage, kk), 1);
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+      s_ss(sacc, desc_f32(qs_base, kk, G::QBLK), desc_f32(stage, kk, G::KBLK));
+#pragma unroll
+    for (int kk = 0; kk < QREG; ++kk)  // Q big . K big
+      s_rs(sacc, qa[kk], desc_f32(stage, kk, G::KBLK));
+#pragma unroll
+    for (int kk = QREG; kk < D / 8; ++kk)
+      s_ss(sacc, desc_f32(qb_base, kk - QREG, G::QBLK), desc_f32(stage, kk, G::KBLK));
     wgmma_commit();
   };
-  auto stage_of = [&](int j) { return base + F_OFF_RING + (j % F_STAGES) * F_STAGE; };
-  // P V of the tile in `stage`: 24 products into the fresh accumulator
-  // pacc, the small terms first, the big-big term last; once done it is
-  // added to oacc in f32 (round to nearest). The tensor cores' accumulation
+  auto stage_of = [&](int j) { return base + G::OFF_RING + (j % STAGES) * G::STAGE; };
+  // P V of the tile in `stage` for O's half hh (head dims 64 hh ..: rows 64
+  // hh .. of V^T): 3 KEYS / 8 products into the fresh accumulator pacc, the
+  // small terms first, the big-big term last; once done it is added to that
+  // half of oacc in f32 (round to nearest). The tensor cores' accumulation
   // truncates: every tile's products summed into oacc in place biased O
   // toward 0, 5.214e-5 of max|O| against float64 at the DiT's 4096 keys and
   // 6.200e-6 at 300 (kernel_probe.py fwd_fp32 on an H100; B10 exact's
   // recipe, csrc/jvp.cu).
   float pacc[32];
-  auto issue_pv = [&](uint32_t stage) {
-    wgmma_tf32_m64n64k8_rs_zero(pacc, ps[0], desc_f32(stage + 4 * F_BLK, 0));  // P small . V big
+  auto issue_pv = [&](uint32_t stage, int hh) {
+    const uint32_t vb = stage + G::OFF_VB + hh * 64 * 128, vs = stage + G::OFF_VS + hh * 64 * 128;
+    wgmma_tf32_m64n64k8_rs_zero(pacc, ps[0], desc_f32(vb, 0, G::VBLK));  // P small . V big
 #pragma unroll
-    for (int kk = 1; kk < F_KEYS / 8; ++kk)
-      wgmma_tf32_m64n64k8_rs(pacc, ps[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+    for (int kk = 1; kk < KEYS / 8; ++kk)
+      wgmma_tf32_m64n64k8_rs(pacc, ps[kk], desc_f32(vb, kk, G::VBLK), 1);
 #pragma unroll
-    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V small
-      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 6 * F_BLK, kk), 1);
+    for (int kk = 0; kk < KEYS / 8; ++kk)  // P big . V small
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(vs, kk, G::VBLK), 1);
 #pragma unroll
-    for (int kk = 0; kk < F_KEYS / 8; ++kk)  // P big . V big
-      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(stage + 4 * F_BLK, kk), 1);
+    for (int kk = 0; kk < KEYS / 8; ++kk)  // P big . V big
+      wgmma_tf32_m64n64k8_rs(pacc, pb[kk], desc_f32(vb, kk, G::VBLK), 1);
     wgmma_commit();
+  };
+  auto add_pv = [&](int hh) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[hh][i] += pacc[i];
+  };
+  // Half hh of the tile in `stage`, issued alone, drained and added.
+  auto drain_pv = [&](uint32_t stage, int hh) {
+    reg_fence(pb);
+    reg_fence(ps);
+    wgmma_fence();
+    issue_pv(stage, hh);
+    wgmma_wait<0>();
+    reg_fence(pacc);
+    reg_fence(pb);
+    reg_fence(ps);
+    add_pv(hh);
   };
 
   if constexpr (RULE != RULE_BETA) {
-    // Tile j: the softmax of its S, then its P V and the next tile's S issued
-    // together (the last tile's S again at the end: a wgmma under a branch
-    // would serialize them all) and both waited for, so no product is in
-    // flight across the loop's back edge (that too serializes them, C7515)
-    // or while a ring wait's trap path is live (C7517); then the stage is
+    // Tile j: the softmax of its S, then its P V (O's first half) and the
+    // next tile's S issued together (the last tile's S again at the end: a
+    // wgmma under a branch would serialize them all) and both waited for, so
+    // no product is in flight across the loop's back edge (that too
+    // serializes them, C7515) or while a ring wait's trap path is live
+    // (C7517); then O's other half (head dim 128); then the stage is
     // released.
     mbar_wait(full(0), 0);
     reg_fence(sacc);
@@ -1025,27 +1119,27 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
     for (int j = 0; j < n_tiles; ++j) {
       float alpha[2];
       if (edge(j))
-        softmax_tf32<RULE, true>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+        softmax_tf32<RULE, true>(sacc, pb, ps, m, l, alpha, j * KEYS, 2 * c, pos, s, causal);
       else
-        softmax_tf32<RULE, false>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i % 4) / 2];
+        softmax_tf32<RULE, false>(sacc, pb, ps, m, l, alpha, j * KEYS, 2 * c, pos, s, causal);
+      scale_o(alpha);
       const int jn = min(j + 1, n_tiles - 1);
-      if (j + 1 < n_tiles) mbar_wait(full(jn % F_STAGES), (jn / F_STAGES) & 1);
+      if (j + 1 < n_tiles) mbar_wait(full(jn % STAGES), (jn / STAGES) & 1);
       reg_fence(sacc);
       reg_fence(pb);
       reg_fence(ps);
       wgmma_fence();
-      issue_pv(stage_of(j));
+      issue_pv(stage_of(j), 0);
       issue_s(stage_of(jn));
       wgmma_wait<0>();
       reg_fence(sacc);
       reg_fence(pacc);
       reg_fence(pb);
       reg_fence(ps);
+      add_pv(0);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) oacc[i] += pacc[i];
-      release_stage(released, j, F_STAGES, n_tiles, load_kv);
+      for (int hh = 1; hh < HALVES; ++hh) drain_pv(stage_of(j), hh);
+      release_stage(released, j, STAGES, n_tiles, load_kv);
     }
   } else {
     // "beta", group by group of gt key tiles (JAX's subtile): a pre-pass of
@@ -1056,7 +1150,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
     // Tile j of the group [j0, j1) is the ring's load j0 + j in the
     // pre-pass and j + j1 after.
     auto s_of = [&](int u) {
-      mbar_wait(full(u % F_STAGES), (u / F_STAGES) & 1);
+      mbar_wait(full(u % STAGES), (u / STAGES) & 1);
       reg_fence(sacc);
       wgmma_fence();
       issue_s(stage_of(u));
@@ -1068,11 +1162,11 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
       float t1[2] = {-INFINITY, -INFINITY}, t2[2] = {-INFINITY, -INFINITY};
       for (int j = j0; j < j1; ++j) {
         s_of(j0 + j);
-        release_stage(released, j0 + j, F_STAGES, 2 * n_tiles, load_u);
+        release_stage(released, j0 + j, STAGES, 2 * n_tiles, load_u);
         if (edge(j))
-          top2_tile<true>(sacc, t1, t2, j * F_KEYS, 2 * c, pos, s, causal, 0);
+          top2_tile<true>(sacc, t1, t2, j * KEYS, 2 * c, pos, s, causal, 0);
         else
-          top2_tile<false>(sacc, t1, t2, j * F_KEYS, 2 * c, pos, s, causal, 0);
+          top2_tile<false>(sacc, t1, t2, j * KEYS, 2 * c, pos, s, causal, 0);
       }
       float alpha[2];
 #pragma unroll
@@ -1083,26 +1177,16 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
         m[h2] = next;
         l[h2] *= alpha[h2];
       }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i % 4) / 2];
+      scale_o(alpha);
       for (int j = j0; j < j1; ++j) {
         s_of(j + j1);
         if (edge(j))
-          softmax_tf32<RULE, true>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s, causal);
+          softmax_tf32<RULE, true>(sacc, pb, ps, m, l, alpha, j * KEYS, 2 * c, pos, s, causal);
         else
-          softmax_tf32<RULE, false>(sacc, pb, ps, m, l, alpha, j * F_KEYS, 2 * c, pos, s,
-                                    causal);
-        reg_fence(pb);
-        reg_fence(ps);
-        wgmma_fence();
-        issue_pv(stage_of(j + j1));
-        wgmma_wait<0>();
-        reg_fence(pacc);
-        reg_fence(pb);
-        reg_fence(ps);
+          softmax_tf32<RULE, false>(sacc, pb, ps, m, l, alpha, j * KEYS, 2 * c, pos, s, causal);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) oacc[i] += pacc[i];
-        release_stage(released, j + j1, F_STAGES, 2 * n_tiles, load_u);
+        for (int hh = 0; hh < HALVES; ++hh) drain_pv(stage_of(j + j1), hh);
+        release_stage(released, j + j1, STAGES, 2 * n_tiles, load_u);
       }
     }
   }
@@ -1115,9 +1199,11 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap kb_map,   // [b*h_kv, s
     if (pos[h2] >= t) continue;
     const size_t row = static_cast<size_t>(bh) * t + pos[h2];
 #pragma unroll
-    for (int n = 0; n < F_D / 8; ++n)
-      *reinterpret_cast<float2*>(o + row * F_D + 8 * n + 2 * c) =
-          make_float2(oacc[4 * n + 2 * h2] / l_safe, oacc[4 * n + 2 * h2 + 1] / l_safe);
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<float2*>(o + row * D + 64 * hh + 8 * n + 2 * c) = make_float2(
+            oacc[hh][4 * n + 2 * h2] / l_safe, oacc[hh][4 * n + 2 * h2 + 1] / l_safe);
     if (c == 0) lse[row] = m[h2] + log2f(l_safe);
   }
 }
@@ -1130,87 +1216,94 @@ extern "C" int qa_flash_fwd_smem_bytes(int d) {
   return d == 64 ? FwdGeom<64>::SMEM_BYTES : d == 128 ? FwdGeom<128>::SMEM_BYTES : -1;
 }
 
-// Shared bytes one fp32-mode block asks for (ops/flash_tiling.py's
-// fp32_shared_bytes mirrors it).
-extern "C" int qa_flash_fwd_f32_smem_bytes() { return F_SMEM; }
+// Shared bytes one fp32-mode block asks for at head dim d, 64 or 128
+// (ops/flash_tiling.py's fp32_shared_bytes mirrors it); -1 for another d.
+extern "C" int qa_flash_fwd_f32_smem_bytes(int d) {
+  return d == 64 ? F32Geom<64>::SMEM : d == 128 ? F32Geom<128>::SMEM : -1;
+}
 
-// The fp32 mode's K/V prep: k/v [b, h_kv, s, 64] f32 (strides in elements,
-// rows contiguous; pointers and strides 16-byte aligned) -> kb, ks [b * h_kv,
-// s, 64] and vbt, vst [b * h_kv, 64, s8] f32 (s8 = s rounded up to 8), in one
-// launch.
+// The fp32 mode's K/V prep: k/v [b, h_kv, s, d] f32, d 64 or 128 (strides in
+// elements, rows contiguous; pointers and strides 16-byte aligned) -> kb, ks
+// [b * h_kv, s, d] and vbt, vst [b * h_kv, d, s8] f32 (s8 = s rounded up to
+// 8), in one launch.
 extern "C" int qa_flash_kv_split_tf32(const void* k, long long k_sb, long long k_sh,
                                       long long k_st, const void* v, long long v_sb,
                                       long long v_sh, long long v_st, void* kb, void* ks,
-                                      void* vbt, void* vst, int b, int h_kv, int s,
+                                      void* vbt, void* vst, int b, int h_kv, int s, int d,
                                       void* stream) {
   if (b < 1 || h_kv < 1 || static_cast<long long>(b) * h_kv > 65535 || s < 1 ||
-      s > (1 << 27) || !aligned16(k) || !aligned16(v) || !aligned16(kb) || !aligned16(ks) ||
-      !aligned16(vbt) || !aligned16(vst) || !strides16(4, k_sb, k_sh, k_st) ||
-      !strides16(4, v_sb, v_sh, v_st))
+      s > (1 << 27) || (d != 64 && d != 128) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(kb) || !aligned16(ks) || !aligned16(vbt) || !aligned16(vst) ||
+      !strides16(4, k_sb, k_sh, k_st) || !strides16(4, v_sb, v_sh, v_st))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((s + F_KEYS - 1) / F_KEYS, b * h_kv);
-  kv_split_tf32_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((s + SPLIT_KEYS - 1) / SPLIT_KEYS, b * h_kv);
+  auto* kernel = d == 64 ? &kv_split_tf32_kernel<64> : &kv_split_tf32_kernel<128>;
+  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(k), k_sb, k_sh, k_st, static_cast<const float*>(v), v_sb, v_sh,
       v_st, static_cast<float*>(kb), static_cast<float*>(ks), static_cast<float*>(vbt),
       static_cast<float*>(vst), h_kv, s, (s + 7) / 8 * 8);
   return static_cast<int>(cudaGetLastError());
 }
 
-// precision="fp32" under correction RULE: the maps, the shared-memory
-// attribute (once an instance) and the launch. The host templates are static:
-// their `configured` flags stay this library's even where a process loads
-// altered copies of it (kernel_probe.py), which a flag of vague linkage
-// would not.
-template <int RULE>
+// precision="fp32" at head dim D under correction RULE: the maps, the
+// shared-memory attribute (once an instance) and the launch. The host
+// templates are static: their `configured` flags stay this library's even
+// where a process loads altered copies of it (kernel_probe.py), which a flag
+// of vague linkage would not.
+template <int D, int RULE>
 static int flash_fwd_f32(const void* q, long long q_sb, long long q_sh, long long q_st,
                          const void* kb, const void* ks, const void* vbt, const void* vst, void* o,
                          void* lse, int b, int h, int h_kv, int t, int s, int causal,
                          float qk_scale, int grain, float beta, float tol, cudaStream_t stream) {
+  using G = F32Geom<D>;
   const int n_qt = (t + F_ROWS - 1) / F_ROWS;
   const int s8 = (s + 7) / 8 * 8;
   CUtensorMap kb_map, ks_map, vbt_map, vst_map;
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!tensor_map_3d(&kb_map, kb, f32, 4, b * h_kv, s, F_D, F_KEYS, 32, sw) ||
-      !tensor_map_3d(&ks_map, ks, f32, 4, b * h_kv, s, F_D, F_KEYS, 32, sw) ||
-      !tensor_map_3d(&vbt_map, vbt, f32, 4, b * h_kv, F_D, s8, F_D, 32, sw) ||
-      !tensor_map_3d(&vst_map, vst, f32, 4, b * h_kv, F_D, s8, F_D, 32, sw))
+  if (!tensor_map_3d(&kb_map, kb, f32, 4, b * h_kv, s, D, G::KEYS, 32, sw) ||
+      !tensor_map_3d(&ks_map, ks, f32, 4, b * h_kv, s, D, G::KEYS, 32, sw) ||
+      !tensor_map_3d(&vbt_map, vbt, f32, 4, b * h_kv, D, s8, D, 32, sw) ||
+      !tensor_map_3d(&vst_map, vst, f32, 4, b * h_kv, D, s8, D, 32, sw))
     return static_cast<int>(cudaErrorNotSupported);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel<RULE>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+        flash_fwd_f32_kernel<D, RULE>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(b * h, n_qt);
-  flash_fwd_f32_kernel<RULE><<<grid, THREADS, F_SMEM, stream>>>(
+  flash_fwd_f32_kernel<D, RULE><<<grid, THREADS, G::SMEM, stream>>>(
       kb_map, ks_map, vbt_map, vst_map, static_cast<const float*>(q), q_sb, q_sh, q_st,
       static_cast<float*>(o), static_cast<float*>(lse), h, h / h_kv, t, s, causal, qk_scale,
-      grain / F_KEYS, beta, tol);
+      grain / G::KEYS, beta, tol);
   return static_cast<int>(cudaGetLastError());
 }
 
-// precision="fp32": q [b, h, t, 64] f32 (strides in elements, rows
-// contiguous), the prep's kb, ks, vbt, vst (h = h_kv * rep) -> O [b, h, t,
-// 64], lse [b, h, t] f32 (contiguous); Q is scaled by qk_scale in the kernel.
-// rule, grain, beta and tol as qa_flash_fwd's.
+// precision="fp32": q [b, h, t, d] f32, d 64 or 128 (strides in elements,
+// rows contiguous), the prep's kb, ks, vbt, vst (h = h_kv * rep) -> O [b, h,
+// t, d], lse [b, h, t] f32 (contiguous); Q is scaled by qk_scale in the
+// kernel. rule, grain, beta and tol as qa_flash_fwd's.
 extern "C" int qa_flash_fwd_f32(const void* q, long long q_sb, long long q_sh, long long q_st,
                                 const void* kb, const void* ks, const void* vbt, const void* vst,
                                 void* o, void* lse, int b, int h, int h_kv, int t, int s,
-                                int causal, float qk_scale, int rule, int grain, float beta,
-                                float tol, void* stream) {
+                                int causal, float qk_scale, int d, int rule, int grain,
+                                float beta, float tol, void* stream) {
   const int n_qt = (t + F_ROWS - 1) / F_ROWS;
   if (b < 1 || h_kv < 1 || h < h_kv || h % h_kv || static_cast<long long>(b) * h > 65535 ||
-      t < 1 || s < 1 || s > (1 << 27) || n_qt > 65535 || !aligned16(kb) || !aligned16(ks) ||
-      !aligned16(vbt) || !aligned16(vst) || rule < RULE_EPS || rule > RULE_BETA ||
-      (rule == RULE_BETA && (grain < 128 || grain % 128)))
+      t < 1 || s < 1 || s > (1 << 27) || n_qt > 65535 || (d != 64 && d != 128) ||
+      !aligned16(kb) || !aligned16(ks) || !aligned16(vbt) || !aligned16(vst) ||
+      rule < RULE_EPS || rule > RULE_BETA || (rule == RULE_BETA && (grain < 128 || grain % 128)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* launch = rule == RULE_EPS    ? &flash_fwd_f32<RULE_EPS>
-                 : rule == RULE_NONE ? &flash_fwd_f32<RULE_NONE>
-                                     : &flash_fwd_f32<RULE_BETA>;
-  return launch(q, q_sb, q_sh, q_st, kb, ks, vbt, vst, o, lse, b, h, h_kv, t, s, causal, qk_scale,
-                grain, beta, tol, static_cast<cudaStream_t>(stream));
+  using Launch = decltype(&flash_fwd_f32<64, RULE_EPS>);
+  constexpr Launch launches[2][3] = {
+      {&flash_fwd_f32<64, RULE_EPS>, &flash_fwd_f32<64, RULE_NONE>, &flash_fwd_f32<64, RULE_BETA>},
+      {&flash_fwd_f32<128, RULE_EPS>, &flash_fwd_f32<128, RULE_NONE>,
+       &flash_fwd_f32<128, RULE_BETA>}};
+  return launches[d == 128][rule](q, q_sb, q_sh, q_st, kb, ks, vbt, vst, o, lse, b, h, h_kv, t, s,
+                                  causal, qk_scale, grain, beta, tol,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // The K/V prep of f32 inputs: k/v [b, h_kv, s, d] f32, d 64 or 128 (strides

@@ -687,22 +687,22 @@ __device__ __forceinline__ void wgmma_tf32_m64n32k8_ss(float (&d)[16], uint64_t 
 }
 
 // The 3xTF32 prep of one pair of key-side operands, 64 keys of one (batch,
-// head) by a block of 256 threads: K [s, 64] f32 (rows `k_st` floats apart,
-// contiguous, 16-byte aligned) -> K big and K small at kb, ks [s, 64]; V ->
-// V^T big and V^T small at vbt, vst [64, s8] (s8 = s rounded up to 8),
-// column 8g + j holding key 8g + tf32_a_column(j), keys past s 0: the
-// K-major B of a product whose A fragments come from an accumulator whose
-// columns are keys. Keys k0 .. k0 + 63; V passes through v_s. Every load is
-// issued before the first store.
+// head) by a block of 256 threads, at head dim HD (64 or 128): K [s, HD] f32
+// (rows `k_st` floats apart, contiguous, 16-byte aligned) -> K big and K
+// small at kb, ks [s, HD]; V -> V^T big and V^T small at vbt, vst [HD, s8]
+// (s8 = s rounded up to 8), column 8g + j holding key 8g + tf32_a_column(j),
+// keys past s 0: the K-major B of a product whose A fragments come from an
+// accumulator whose columns are keys. Keys k0 .. k0 + 63; V passes through
+// v_s. Every load is issued before the first store.
 constexpr int SPLIT_KEYS = 64;
 
+template <int HD = 64>
 __device__ __forceinline__ void kv_split_tf32_tile(const float* __restrict__ kp, long long k_st,
                                                    const float* __restrict__ vp, long long v_st,
                                                    float* __restrict__ kb, float* __restrict__ ks,
                                                    float* __restrict__ vbt,
                                                    float* __restrict__ vst, int k0, int s, int s8,
-                                                   float (&v_s)[SPLIT_KEYS][65]) {
-  constexpr int HD = 64;
+                                                   float (&v_s)[SPLIT_KEYS][HD + 1]) {
   const int tid = threadIdx.x;
   constexpr int PASSES = SPLIT_KEYS * (HD / 4) / 256;
   float4 kx[PASSES], vx[PASSES];
@@ -973,5 +973,15 @@ bool tensor_map_4d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, 
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Raise a kernel's dynamic shared memory limit once.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
 
 }  // namespace

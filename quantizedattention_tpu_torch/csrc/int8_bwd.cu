@@ -828,16 +828,6 @@ int8_dq_kernel(const __grid_constant__ CUtensorMap k_map,  // [bh_kv * kv_pad, D
   }
 }
 
-// Raise a kernel's dynamic shared memory limit once.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
 // What both kernels take (ops/int8_tiling.py checks the same before a launch).
 bool bad_shape(int bh_kv, int rep, int t, int s, int q_pad, int kv_pad, int q_grain,
                int kv_grain, int q_offset, int k_offset, int d) {

@@ -545,6 +545,24 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // and P and H (32) stay live: 232 registers. B1 bf16's pipeline (tile j's
 // softmax under tile j - 1's products) needs two sets of fragments: at
 // 64-key tiles it spilled, and at 32 keys it ran slower than this design.
+//
+// Head dim 128 (the HD = 128 instances of B9, B11, B12 and their preps; the
+// exact kernels and B10 take 64 only). Every bf16 tile is two 64-dim panels,
+// each its own TMA box (below), and a product whose N is the head dim is two
+// m64n64 products into two accumulators; an m64 x 128 f32 accumulator takes
+// 64 registers a thread and every tile twice the shared bytes, so:
+//   B11 would hold dK, dtK, dV and dtV (256 registers): its outputs split
+//     over two launches of the same body, one of dV and dtV (the first
+//     products S^T and tS^T only; K and tK resident), one of dK and dtK (all
+//     four first products); each holds two m64 x 128 sums (128 registers),
+//     K, tK, V, tV resident (128 KB) and a ring of 3 q-side stages. The
+//     first products run twice (6 + 3 of the 12 products of a tile pair,
+//     against 6): 15 / 12 of B11's work at 64.
+//   B12 keeps its design: dQ and dtQ (128 registers), 32-key tiles, Q, tQ,
+//     dO, dtO resident (128 KB) and a ring of 3 K-side stages.
+//   B9 walks 32-key tiles (S and tS: 32 registers) and sums tO's two parts
+//     (P tV and H V) in one accumulator, so O and that sum take 128
+//     registers; a ring of 4 stages (32 KB each).
 
 constexpr int MMA_THREADS = 128;   // 4 warps
 constexpr int BM = 64;             // rows a block owns: 4 warps x 16
@@ -746,28 +764,82 @@ jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The fast kernels at head dim HD (64 or 128): bf16 panels
+// ---------------------------------------------------------------------------
+//
+// A bf16 tile of HD head dims is HD / 64 panels of [rows, 64] in the 128-byte
+// swizzle (a row of 128 dims is twice its span), each its own TMA box, as
+// flash_bwd.cu's at 128: a product contracted over the head dim takes HD / 16
+// k-steps, those from 4 on in the next panel, and a product whose N is the
+// head dim is one m64n64 product a panel, into an accumulator a panel. At 64
+// every layout, product and sum is the 64-only kernels'.
+
+// The descriptor of k-step kk (16 head dims) of a K-major bf16 tile whose
+// panels lie `panel` bytes apart.
+__device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk, int panel) {
+  return desc + (kk / 4) * static_cast<uint64_t>(panel >> 4) + 2 * (kk % 4);
+}
+
+template <int P>
+__device__ __forceinline__ void zero_all(float (&x)[P][32]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[p][i] = 0.f;
+}
+
+template <int P>
+__device__ __forceinline__ void fence_all(float (&x)[P][32]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) reg_fence(x[p]);
+}
+
+// A [n, rows, HD] bf16 map (contiguous), boxes of box_rows rows x 64 head
+// dims (a panel) with the 128-byte swizzle; rows past `rows` arrive as zeros.
+bool panel_map(CUtensorMap* map, const void* ptr, int n, int rows, int hd, int box_rows) {
+  return tensor_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, rows, hd, box_rows, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// ---------------------------------------------------------------------------
 // B11 fast: TMA ring + wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int JD_THREADS = 256;               // two warpgroups
 constexpr int JD_KEYS = 128;                  // keys a block: 64 a warpgroup
 constexpr int JD_ROWS = 32;                   // q rows a streamed tile
-constexpr int JD_STAGES = 6;                  // q-side tiles in flight
-constexpr int JD_TILE = JD_ROWS * D * 2;      // bytes of a bf16 q-side tile
-constexpr int JD_HALF = 64 * D * 2;           // bytes of a warpgroup's 64 keys of K, tK, V or tV
 constexpr int JD_ROW_BYTES = JD_ROWS * 4;     // a tile's lse, mu, c or dhat
-// K, tK, V, tV at 2 JD_HALF each; stage st: Q, tQ, dO, dtO at JD_OFF_RING +
-// 4 st JD_TILE and lse, mu, c, dhat at JD_OFF_ROWS + 4 st JD_ROW_BYTES; then
-// the mbarriers (full[stage], then K/V's) and the release counters.
-constexpr int JD_OFF_RING = 8 * JD_HALF;
-constexpr int JD_OFF_ROWS = JD_OFF_RING + JD_STAGES * 4 * JD_TILE;
-constexpr int JD_OFF_BAR = JD_OFF_ROWS + JD_STAGES * 4 * JD_ROW_BYTES;
 constexpr int JD_COUNTERS = 64;
-constexpr int JD_SMEM = JD_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
-static_assert((JD_STAGES + 1) * 8 <= JD_COUNTERS && JD_COUNTERS + JD_STAGES * 4 <= 128,
-              "the barriers and counters fit");
-static_assert(JD_OFF_RING % 1024 == 0 && JD_OFF_ROWS % 1024 == 0,
-              "swizzled tiles start on 1024 bytes");
+// The outputs a block computes: all four at head dim 64; at 128, where four
+// m64 x 128 accumulators would take 256 registers a thread, dV and dtV
+// (DKV_V: the first products S^T and tS^T only, K and tK resident) or dK and
+// dtK (DKV_K), a launch each.
+enum DkvPart { DKV_ALL = 0, DKV_V = 1, DKV_K = 2 };
+
+// B11's geometry at head dim HD (ops/jvp_tiling.py mirrors it). Shared
+// layout from a 1024-byte aligned base: K, tK, V, tV at 2 HALF each
+// (warpgroup w's 64 keys at w HALF, panels HALF_PANEL apart); stage st: Q,
+// tQ, dO, dtO at OFF_RING + 4 st TILE (panels TILE_PANEL apart) and lse, mu,
+// c, dhat at OFF_ROWS + 4 st JD_ROW_BYTES; then the mbarriers (full[stage],
+// then K/V's) and the release counters.
+template <int HD>
+struct JdGeom {
+  static constexpr int PANELS = HD / 64;
+  static constexpr int STAGES = HD == 64 ? 6 : 3;   // q-side tiles in flight
+  static constexpr int TILE = JD_ROWS * HD * 2;     // bytes of a bf16 q-side tile
+  static constexpr int TILE_PANEL = JD_ROWS * 128;  // bytes of one of its panels
+  static constexpr int HALF = 64 * HD * 2;          // a warpgroup's 64 keys of K, tK, V or tV
+  static constexpr int HALF_PANEL = 64 * 128;
+  static constexpr int OFF_RING = 8 * HALF;
+  static constexpr int OFF_ROWS = OFF_RING + STAGES * 4 * TILE;
+  static constexpr int OFF_BAR = OFF_ROWS + STAGES * 4 * JD_ROW_BYTES;
+  static constexpr int SMEM = OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
+  static_assert((STAGES + 1) * 8 <= JD_COUNTERS && JD_COUNTERS + STAGES * 4 <= 128,
+                "the barriers and counters fit");
+  static_assert(OFF_RING % 1024 == 0 && OFF_ROWS % 1024 == 0,
+                "swizzled tiles start on 1024 bytes");
+  static_assert(SMEM <= 232448, "a block's shared memory fits an H100 SM");
+};
 
 // Four f32 values of two accumulator columns (rows r, r + 8) -> the bf16 A
 // fragment words of k-step n / 2 (as flash_bwd.cu's pack_a).
@@ -778,11 +850,12 @@ __device__ __forceinline__ void pack_frag(uint32_t (&a)[K][4], int n, const floa
 }
 
 // One tile's p^T, tP^T, dS^T and tSb^T as the bf16 A fragments of the second
-// products (tile_terms' arithmetic). x[4 n + e]: key key[e / 2], q row q0 +
-// 8 n + cq + (e & 1), whose lse, mu, c and dhat are rw[col], rw[32 + col],
-// rw[64 + col], rw[96 + col]. MASK: the tile reaches past t or s or the
-// causal diagonal.
-template <bool MASK>
+// products (tile_terms' arithmetic): all four for DKV_ALL, p^T and tP^T for
+// DKV_V (tpbt and pbt unread), dS^T and tSb^T for DKV_K. x[4 n + e]: key
+// key[e / 2], q row q0 + 8 n + cq + (e & 1), whose lse, mu, c and dhat are
+// rw[col], rw[32 + col], rw[64 + col], rw[96 + col]. MASK: the tile reaches
+// past t or s or the causal diagonal.
+template <bool MASK, int PART>
 __device__ __forceinline__ void dkv_terms(const float (&st)[16], const float (&tst)[16],
                                           const float (&tpbt)[16], const float (&pbt)[16],
                                           const float* rw, int q0, int cq, const int (&key)[2],
@@ -794,8 +867,11 @@ __device__ __forceinline__ void dkv_terms(const float (&st)[16], const float (&t
   for (int n = 0; n < JD_ROWS / 8; ++n) {
     const float2 lse2 = *reinterpret_cast<const float2*>(rw + 8 * n + cq);
     const float2 mu2 = *reinterpret_cast<const float2*>(rw + JD_ROWS + 8 * n + cq);
-    const float2 c2 = *reinterpret_cast<const float2*>(rw + 2 * JD_ROWS + 8 * n + cq);
-    const float2 dh2 = *reinterpret_cast<const float2*>(rw + 3 * JD_ROWS + 8 * n + cq);
+    float2 c2 = make_float2(0.f, 0.f), dh2 = c2;
+    if constexpr (PART != DKV_V) {
+      c2 = *reinterpret_cast<const float2*>(rw + 2 * JD_ROWS + 8 * n + cq);
+      dh2 = *reinterpret_cast<const float2*>(rw + 3 * JD_ROWS + 8 * n + cq);
+    }
     float p[4], tp[4], ds[4], tsb[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -805,19 +881,25 @@ __device__ __forceinline__ void dkv_terms(const float (&st)[16], const float (&t
         const int pos = q0 + 8 * n + cq + odd, k = key[e / 2];
         pe = k < s && pos < t && (!causal || k <= pos) ? pe : 0.f;
       }
-      const float cr = odd ? c2.y : c2.x;
       const float ts = tst[i] * sm_scale;
       const float tsmu = ts - (odd ? mu2.y : mu2.x);
-      const float pbar = pbt[i] + tpbt[i] * tsmu - cr * ts;
       p[e] = pe;
-      ds[e] = pe * (pbar - (odd ? dh2.y : dh2.x));
-      tsb[e] = pe * (tpbt[i] - cr);
       tp[e] = pe * tsmu;
+      if constexpr (PART != DKV_V) {
+        const float cr = odd ? c2.y : c2.x;
+        const float pbar = pbt[i] + tpbt[i] * tsmu - cr * ts;
+        ds[e] = pe * (pbar - (odd ? dh2.y : dh2.x));
+        tsb[e] = pe * (tpbt[i] - cr);
+      }
     }
-    pack_frag(pa, n, p);
-    pack_frag(tpa, n, tp);
-    pack_frag(dsa, n, ds);
-    pack_frag(tsba, n, tsb);
+    if constexpr (PART != DKV_K) {
+      pack_frag(pa, n, p);
+      pack_frag(tpa, n, tp);
+    }
+    if constexpr (PART != DKV_V) {
+      pack_frag(dsa, n, ds);
+      pack_frag(tsba, n, tsb);
+    }
   }
 }
 
@@ -827,27 +909,32 @@ __device__ __forceinline__ void zero(float (&x)[N]) {
   for (int i = 0; i < N; ++i) x[i] = 0.f;
 }
 
+template <int HD, int PART>
 __global__ void __launch_bounds__(JD_THREADS, 1)
-jvp_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
+jvp_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, HD] bf16 q
               const __grid_constant__ CUtensorMap tq_map,   // the same for tq
               const __grid_constant__ CUtensorMap do_map,   // dO
               const __grid_constant__ CUtensorMap dto_map,  // dtO
-              const __grid_constant__ CUtensorMap k_map,    // [bh, s, 64] bf16 k
+              const __grid_constant__ CUtensorMap k_map,    // [bh, s, HD] bf16 k
               const __grid_constant__ CUtensorMap tk_map,
               const __grid_constant__ CUtensorMap v_map,
               const __grid_constant__ CUtensorMap tv_map,
               const __grid_constant__ CUtensorMap row_map,  // [4, bh, ld] f32 lse, mu, c, dhat
               float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dtk,
-              float* __restrict__ dtv,  // [bh, s, D]
+              float* __restrict__ dtv,  // [bh, s, HD]
               int t, int s, int causal, float sm_scale, float qk_scale) {
+  using G = JdGeom<HD>;
+  constexpr int P = G::PANELS, STAGES = G::STAGES, TILE = G::TILE;
+  constexpr int TP = G::TILE_PANEL, HALF = G::HALF, HP = G::HALF_PANEL;
+  constexpr bool V_OUT = PART != DKV_K, K_OUT = PART != DKV_V;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + JD_OFF_BAR;
+  const uint32_t bars = base + G::OFF_BAR;
   auto full = [&](int st) { return bars + 8 * st; };
-  const uint32_t kv_bar = full(JD_STAGES);
-  int* released = reinterpret_cast<int*>(smem + JD_OFF_BAR + JD_COUNTERS);
+  const uint32_t kv_bar = full(STAGES);
+  int* released = reinterpret_cast<int*>(smem + G::OFF_BAR + JD_COUNTERS);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -857,36 +944,45 @@ jvp_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 
   const int j0 = causal ? min(k0 / JD_ROWS, n_qt) : 0;
   const int n_tiles = n_qt - j0;
 
-  init_ring(bars, released, JD_STAGES + 1);
+  init_ring(bars, released, STAGES + 1);
 
-  // Tile i of the walk (q rows (j0 + i) 32 ..) into stage i % JD_STAGES.
+  // Tile i of the walk (q rows (j0 + i) 32 ..) into stage i % STAGES.
   auto load_tile = [&](int i) {
-    const int st = i % JD_STAGES;
+    const int st = i % STAGES;
     const int q0 = (j0 + i) * JD_ROWS;
-    const uint32_t tiles = base + JD_OFF_RING + st * 4 * JD_TILE;
-    const uint32_t rows = base + JD_OFF_ROWS + st * 4 * JD_ROW_BYTES;
-    mbar_expect_tx(full(st), 4 * JD_TILE + 4 * JD_ROW_BYTES);
-    tma_load_3d(tiles, &q_map, full(st), 0, q0, bh);
-    tma_load_3d(tiles + JD_TILE, &tq_map, full(st), 0, q0, bh);
-    tma_load_3d(tiles + 2 * JD_TILE, &do_map, full(st), 0, q0, bh);
-    tma_load_3d(tiles + 3 * JD_TILE, &dto_map, full(st), 0, q0, bh);
+    const uint32_t tiles = base + G::OFF_RING + st * 4 * TILE;
+    const uint32_t rows = base + G::OFF_ROWS + st * 4 * JD_ROW_BYTES;
+    mbar_expect_tx(full(st), 4 * TILE + 4 * JD_ROW_BYTES);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      tma_load_3d(tiles + p * TP, &q_map, full(st), 64 * p, q0, bh);
+      tma_load_3d(tiles + TILE + p * TP, &tq_map, full(st), 64 * p, q0, bh);
+      tma_load_3d(tiles + 2 * TILE + p * TP, &do_map, full(st), 64 * p, q0, bh);
+      tma_load_3d(tiles + 3 * TILE + p * TP, &dto_map, full(st), 64 * p, q0, bh);
+    }
 #pragma unroll
     for (int term = 0; term < 4; ++term)
       tma_load_4d(rows + term * JD_ROW_BYTES, &row_map, full(st), q0, 0, bh, term);
   };
   // The block's K, tK, V, tV (keys past s arrive as zeros; a half wholly
-  // past s is not loaded: its keys' rows are never stored), then the first
-  // stages. A block that no q tile sees loads nothing and stores zeros.
+  // past s is not loaded: its keys' rows are never stored; DKV_V reads no V
+  // or tV), then the first stages. A block that no q tile sees loads
+  // nothing and stores zeros.
   if (tid == 0 && n_tiles > 0) {
     const int halves = k0 + 64 < s ? 2 : 1;
-    mbar_expect_tx(kv_bar, halves * 4 * JD_HALF);
+    mbar_expect_tx(kv_bar, halves * (K_OUT ? 4 : 2) * HALF);
     for (int h = 0; h < halves; ++h) {
-      tma_load_3d(base + h * JD_HALF, &k_map, kv_bar, 0, k0 + 64 * h, bh);
-      tma_load_3d(base + (2 + h) * JD_HALF, &tk_map, kv_bar, 0, k0 + 64 * h, bh);
-      tma_load_3d(base + (4 + h) * JD_HALF, &v_map, kv_bar, 0, k0 + 64 * h, bh);
-      tma_load_3d(base + (6 + h) * JD_HALF, &tv_map, kv_bar, 0, k0 + 64 * h, bh);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        tma_load_3d(base + h * HALF + p * HP, &k_map, kv_bar, 64 * p, k0 + 64 * h, bh);
+        tma_load_3d(base + (2 + h) * HALF + p * HP, &tk_map, kv_bar, 64 * p, k0 + 64 * h, bh);
+        if constexpr (K_OUT) {
+          tma_load_3d(base + (4 + h) * HALF + p * HP, &v_map, kv_bar, 64 * p, k0 + 64 * h, bh);
+          tma_load_3d(base + (6 + h) * HALF + p * HP, &tv_map, kv_bar, 64 * p, k0 + 64 * h, bh);
+        }
+      }
     }
-    for (int i = 0; i < min(JD_STAGES, n_tiles); ++i) load_tile(i);
+    for (int i = 0; i < min(STAGES, n_tiles); ++i) load_tile(i);
   }
 
   // wg owns keys k0 + 64 wg .. k0 + 64 wg + 63.
@@ -896,184 +992,217 @@ jvp_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 
   const int cq = (lane % 4) * 2;  // accumulator column pair
   const int kw0 = k0 + 64 * wg;
   const int key[2] = {kw0 + 16 * warp + lane / 4, kw0 + 16 * warp + lane / 4 + 8};
-  const uint64_t desc_k = desc_kmajor_sw128(base + wg * JD_HALF);
-  const uint64_t desc_tk = desc_kmajor_sw128(base + (2 + wg) * JD_HALF);
-  const uint64_t desc_v = desc_kmajor_sw128(base + (4 + wg) * JD_HALF);
-  const uint64_t desc_tv = desc_kmajor_sw128(base + (6 + wg) * JD_HALF);
+  const uint64_t desc_k = desc_kmajor_sw128(base + wg * HALF);
+  const uint64_t desc_tk = desc_kmajor_sw128(base + (2 + wg) * HALF);
+  const uint64_t desc_v = desc_kmajor_sw128(base + (4 + wg) * HALF);
+  const uint64_t desc_tv = desc_kmajor_sw128(base + (6 + wg) * HALF);
 
-  float dk_acc[32], dv_acc[32], dtk_acc[32], dtv_acc[32];
+  float dk_acc[P][32], dv_acc[P][32], dtk_acc[P][32], dtv_acc[P][32];  // panel p: dims 64 p ..
   float st_acc[16], ts_acc[16], tpb_acc[16], pb_acc[16];  // S^T, tS^T, tpb^T, pbar^T's products
   uint32_t pa[2][4] = {}, tpa[2][4] = {}, dsa[2][4] = {}, tsba[2][4] = {};
-  zero(dk_acc);
-  zero(dv_acc);
-  zero(dtk_acc);
-  zero(dtv_acc);
+  // The registers the products read or write: their last writes stay before
+  // wgmma.fence (C7513), and their reads after the wait.
+  auto fence_firsts = [&]() {
+    reg_fence(st_acc);
+    reg_fence(ts_acc);
+    if constexpr (K_OUT) {
+      reg_fence(tpb_acc);
+      reg_fence(pb_acc);
+    }
+  };
+  auto fence_frags = [&]() {
+    if constexpr (V_OUT) {
+      reg_fence(pa);
+      reg_fence(tpa);
+    }
+    if constexpr (K_OUT) {
+      reg_fence(dsa);
+      reg_fence(tsba);
+    }
+  };
+  auto fence_outs = [&]() {
+    if constexpr (K_OUT) {
+      fence_all(dk_acc);
+      fence_all(dtk_acc);
+    }
+    if constexpr (V_OUT) {
+      fence_all(dv_acc);
+      fence_all(dtv_acc);
+    }
+  };
+  if constexpr (K_OUT) {
+    zero_all(dk_acc);
+    zero_all(dtk_acc);
+    zero(tpb_acc);
+    zero(pb_acc);
+  }
+  if constexpr (V_OUT) {
+    zero_all(dv_acc);
+    zero_all(dtv_acc);
+  }
   zero(st_acc);
   zero(ts_acc);
-  zero(tpb_acc);
-  zero(pb_acc);
   if (n_tiles > 0) mbar_wait(kv_bar, 0);
 
   for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % JD_STAGES;
+    const int st = i % STAGES;
     const int q0 = (j0 + i) * JD_ROWS;
-    const uint32_t tiles = base + JD_OFF_RING + st * 4 * JD_TILE;
-    mbar_wait(full(st), (i / JD_STAGES) & 1);
+    const uint32_t tiles = base + G::OFF_RING + st * 4 * TILE;
+    mbar_wait(full(st), (i / STAGES) & 1);
     {  // the first products, A = the block's keys, B = the q-side tiles (K-major)
-      const uint64_t dq = desc_kmajor_sw128(tiles), dtq = desc_kmajor_sw128(tiles + JD_TILE);
-      const uint64_t ddo = desc_kmajor_sw128(tiles + 2 * JD_TILE);
-      const uint64_t ddto = desc_kmajor_sw128(tiles + 3 * JD_TILE);
-      reg_fence(st_acc);
-      reg_fence(ts_acc);
-      reg_fence(tpb_acc);
-      reg_fence(pb_acc);
+      const uint64_t dq = desc_kmajor_sw128(tiles), dtq = desc_kmajor_sw128(tiles + TILE);
+      const uint64_t ddo = desc_kmajor_sw128(tiles + 2 * TILE);
+      const uint64_t ddto = desc_kmajor_sw128(tiles + 3 * TILE);
+      fence_firsts();
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
-        wgmma_bf16_m64n32k16_ss(st_acc, desc_k + 2 * kk, dq + 2 * kk, kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)  // S^T = K Q^T
+        wgmma_bf16_m64n32k16_ss(st_acc, kstep(desc_k, kk, HP), kstep(dq, kk, TP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // tS^T = K tQ^T + tK Q^T
-        wgmma_bf16_m64n32k16_ss(ts_acc, desc_k + 2 * kk, dtq + 2 * kk, kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)  // tS^T = K tQ^T + tK Q^T
+        wgmma_bf16_m64n32k16_ss(ts_acc, kstep(desc_k, kk, HP), kstep(dtq, kk, TP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_bf16_m64n32k16_ss(ts_acc, desc_tk + 2 * kk, dq + 2 * kk, 1);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_bf16_m64n32k16_ss(ts_acc, kstep(desc_tk, kk, HP), kstep(dq, kk, TP), 1);
+      if constexpr (K_OUT) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // tpb^T = V dtO^T
-        wgmma_bf16_m64n32k16_ss(tpb_acc, desc_v + 2 * kk, ddto + 2 * kk, kk > 0);
+        for (int kk = 0; kk < HD / 16; ++kk)  // tpb^T = V dtO^T
+          wgmma_bf16_m64n32k16_ss(tpb_acc, kstep(desc_v, kk, HP), kstep(ddto, kk, TP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // V dO^T + tV dtO^T
-        wgmma_bf16_m64n32k16_ss(pb_acc, desc_v + 2 * kk, ddo + 2 * kk, kk > 0);
+        for (int kk = 0; kk < HD / 16; ++kk)  // V dO^T + tV dtO^T
+          wgmma_bf16_m64n32k16_ss(pb_acc, kstep(desc_v, kk, HP), kstep(ddo, kk, TP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_bf16_m64n32k16_ss(pb_acc, desc_tv + 2 * kk, ddto + 2 * kk, 1);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_bf16_m64n32k16_ss(pb_acc, kstep(desc_tv, kk, HP), kstep(ddto, kk, TP), 1);
+      }
       wgmma_commit();
     }
     // the last tile's second products are done (all but the newest group):
     // its stage is released while this tile's first products run
     wgmma_wait<1>();
-    if (i > 0) release_stage(released, i - 1, JD_STAGES, n_tiles, load_tile);
+    if (i > 0) release_stage(released, i - 1, STAGES, n_tiles, load_tile);
     wgmma_wait<0>();
-    reg_fence(st_acc);
-    reg_fence(ts_acc);
-    reg_fence(tpb_acc);
-    reg_fence(pb_acc);
-    reg_fence(pa);
-    reg_fence(tpa);
-    reg_fence(dsa);
-    reg_fence(tsba);
-    reg_fence(dk_acc);
-    reg_fence(dv_acc);
-    reg_fence(dtk_acc);
-    reg_fence(dtv_acc);
+    fence_firsts();
+    fence_frags();
+    fence_outs();
     const float* rw =
-        reinterpret_cast<const float*>(smem + JD_OFF_ROWS + st * 4 * JD_ROW_BYTES);
+        reinterpret_cast<const float*>(smem + G::OFF_ROWS + st * 4 * JD_ROW_BYTES);
     if (q0 + JD_ROWS > t || kw0 + 64 > s || (causal && q0 < kw0 + 63))
-      dkv_terms<true>(st_acc, ts_acc, tpb_acc, pb_acc, rw, q0, cq, key, s, t, causal, sm_scale,
-                      qk_scale, pa, tpa, dsa, tsba);
+      dkv_terms<true, PART>(st_acc, ts_acc, tpb_acc, pb_acc, rw, q0, cq, key, s, t, causal,
+                            sm_scale, qk_scale, pa, tpa, dsa, tsba);
     else
-      dkv_terms<false>(st_acc, ts_acc, tpb_acc, pb_acc, rw, q0, cq, key, s, t, causal, sm_scale,
-                       qk_scale, pa, tpa, dsa, tsba);
-    reg_fence(pa);
-    reg_fence(tpa);
-    reg_fence(dsa);
-    reg_fence(tsba);
-    {  // the second products, B = the same tiles read MN-major (16 q rows = 2048 bytes a k-step)
-      const uint64_t dq = desc_mnmajor_sw128(tiles), dtq = desc_mnmajor_sw128(tiles + JD_TILE);
-      const uint64_t ddo = desc_mnmajor_sw128(tiles + 2 * JD_TILE);
-      const uint64_t ddto = desc_mnmajor_sw128(tiles + 3 * JD_TILE);
-      wgmma_fence();
+      dkv_terms<false, PART>(st_acc, ts_acc, tpb_acc, pb_acc, rw, q0, cq, key, s, t, causal,
+                             sm_scale, qk_scale, pa, tpa, dsa, tsba);
+    fence_frags();
+    // the second products, B = the same tiles read MN-major (16 q rows =
+    // 2048 bytes a k-step), panel p into the outputs' panel p
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dV += p^T dO + tP^T dtO
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, pa[kk], ddo + 128 * kk, 1);
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc, tpa[kk], ddto + 128 * kk, 1);
+    for (int p = 0; p < P; ++p) {
+      const uint64_t dq = desc_mnmajor_sw128(tiles + p * TP);
+      const uint64_t dtq = desc_mnmajor_sw128(tiles + TILE + p * TP);
+      const uint64_t ddo = desc_mnmajor_sw128(tiles + 2 * TILE + p * TP);
+      const uint64_t ddto = desc_mnmajor_sw128(tiles + 3 * TILE + p * TP);
+      if constexpr (V_OUT) {
+#pragma unroll
+        for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dV += p^T dO + tP^T dtO
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc[p], pa[kk], ddo + 128 * kk, 1);
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dv_acc[p], tpa[kk], ddto + 128 * kk, 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < JD_ROWS / 16; ++kk)  // dtV += p^T dtO
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtv_acc[p], pa[kk], ddto + 128 * kk, 1);
       }
+      if constexpr (K_OUT) {
 #pragma unroll
-      for (int kk = 0; kk < JD_ROWS / 16; ++kk)  // dtV += p^T dtO
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtv_acc, pa[kk], ddto + 128 * kk, 1);
+        for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dK += dS^T Q + tSb^T tQ
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc[p], dsa[kk], dq + 128 * kk, 1);
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc[p], tsba[kk], dtq + 128 * kk, 1);
+        }
 #pragma unroll
-      for (int kk = 0; kk < JD_ROWS / 16; ++kk) {  // dK += dS^T Q + tSb^T tQ
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc, dsa[kk], dq + 128 * kk, 1);
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dk_acc, tsba[kk], dtq + 128 * kk, 1);
+        for (int kk = 0; kk < JD_ROWS / 16; ++kk)  // dtK += tSb^T Q
+          wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtk_acc[p], tsba[kk], dq + 128 * kk, 1);
       }
-#pragma unroll
-      for (int kk = 0; kk < JD_ROWS / 16; ++kk)  // dtK += tSb^T Q
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtk_acc, tsba[kk], dq + 128 * kk, 1);
-      wgmma_commit();
     }
+    wgmma_commit();
   }
   wgmma_wait<0>();
-  reg_fence(dk_acc);
-  reg_fence(dv_acc);
-  reg_fence(dtk_acc);
-  reg_fence(dtv_acc);
-  reg_fence(pa);
-  reg_fence(tpa);
-  reg_fence(dsa);
-  reg_fence(tsba);
+  fence_outs();
+  fence_frags();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= s) continue;
-    const size_t off = (static_cast<size_t>(bh) * s + key[h]) * D + cq;
+    const size_t off = (static_cast<size_t>(bh) * s + key[h]) * HD + cq;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int i = 4 * n + 2 * h;
-      *reinterpret_cast<float2*>(dk + off + 8 * n) =
-          make_float2(dk_acc[i] * sm_scale, dk_acc[i + 1] * sm_scale);
-      *reinterpret_cast<float2*>(dv + off + 8 * n) = make_float2(dv_acc[i], dv_acc[i + 1]);
-      *reinterpret_cast<float2*>(dtk + off + 8 * n) =
-          make_float2(dtk_acc[i] * sm_scale, dtk_acc[i + 1] * sm_scale);
-      *reinterpret_cast<float2*>(dtv + off + 8 * n) = make_float2(dtv_acc[i], dtv_acc[i + 1]);
-    }
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int i = 4 * n + 2 * h;
+        const size_t at = off + 64 * p + 8 * n;
+        if constexpr (K_OUT) {
+          *reinterpret_cast<float2*>(dk + at) =
+              make_float2(dk_acc[p][i] * sm_scale, dk_acc[p][i + 1] * sm_scale);
+          *reinterpret_cast<float2*>(dtk + at) =
+              make_float2(dtk_acc[p][i] * sm_scale, dtk_acc[p][i + 1] * sm_scale);
+        }
+        if constexpr (V_OUT) {
+          *reinterpret_cast<float2*>(dv + at) = make_float2(dv_acc[p][i], dv_acc[p][i + 1]);
+          *reinterpret_cast<float2*>(dtv + at) = make_float2(dtv_acc[p][i], dtv_acc[p][i + 1]);
+        }
+      }
   }
 }
 
 // B11's prep, one launch: the eight contiguous f32 operands (q, k, v, tq,
-// tk, tv, dO, dtO: [bh, t, 64] or [bh, s, 64]) -> bf16 (round to nearest
-// even), and the row terms lse, mu, c, dhat ([bh, t] each) -> [4, bh, ld]. Grid (rows /
-// PREP_ROWS rounded up, bh, 9): z < 8 converts operand z, eight elements a
-// thread in PREP_PASSES rows, every load issued before the first store; z ==
-// 8 copies the row terms.
+// tk, tv, dO, dtO: [bh, t, HD] or [bh, s, HD]) -> bf16 (round to nearest
+// even), and the row terms lse, mu, c, dhat ([bh, t] each) -> [4, bh, ld].
+// Grid (rows / prep_rows(HD) rounded up, bh, 9): z < 8 converts operand z,
+// eight elements a thread in PREP_PASSES rows, every load issued before the
+// first store; z == 8 copies the row terms.
 struct PrepArgs {
   const float* src[8];
   __nv_bfloat16* dst[8];
   const float* rows[4];
 };
 constexpr int PREP_PASSES = 4;
-constexpr int PREP_ROWS = PREP_PASSES * 256 / 8;
 constexpr int Q_SIDE = 0xC9;  // the operands of t rows: q, tq, dO, dtO (bits 0, 3, 6, 7)
+// rows a prep block takes: HD / 8 threads a row
+__host__ __device__ constexpr int prep_rows(int hd) { return PREP_PASSES * 256 / (hd / 8); }
 
+template <int HD>
 __global__ void __launch_bounds__(256)
 jvp_bwd_prep_kernel(PrepArgs args, float* __restrict__ rows_out, int bh_n, int t, int s, int ld) {
+  constexpr int CH = HD / 8, ROWS = prep_rows(HD);
   const int z = blockIdx.z, bh = blockIdx.y, tid = threadIdx.x;
-  const int tok0 = blockIdx.x * PREP_ROWS;
+  const int tok0 = blockIdx.x * ROWS;
   if (z == 8) {
-    for (int i = tid; i < 4 * PREP_ROWS; i += 256) {
-      const int term = i / PREP_ROWS, tok = tok0 + i % PREP_ROWS;
+    for (int i = tid; i < 4 * ROWS; i += 256) {
+      const int term = i / ROWS, tok = tok0 + i % ROWS;
       if (tok < t)
         rows_out[(static_cast<size_t>(term) * bh_n + bh) * ld + tok] =
             args.rows[term][static_cast<size_t>(bh) * t + tok];
     }
     return;
   }
-  const int n = (Q_SIDE >> z) & 1 ? t : s, c8 = tid % 8;
-  const float* src = args.src[z] + static_cast<size_t>(bh) * n * D;
-  uint4* dst = reinterpret_cast<uint4*>(args.dst[z] + static_cast<size_t>(bh) * n * D);
+  const int n = (Q_SIDE >> z) & 1 ? t : s, c8 = tid % CH;
+  const float* src = args.src[z] + static_cast<size_t>(bh) * n * HD;
+  uint4* dst = reinterpret_cast<uint4*>(args.dst[z] + static_cast<size_t>(bh) * n * HD);
   float4 x[PREP_PASSES][2] = {};
 #pragma unroll
   for (int i = 0; i < PREP_PASSES; ++i) {
-    const int tok = tok0 + tid / 8 + 32 * i;
+    const int tok = tok0 + tid / CH + (256 / CH) * i;
     if (tok < n) {
-      const float4* row = reinterpret_cast<const float4*>(src + static_cast<size_t>(tok) * D);
+      const float4* row = reinterpret_cast<const float4*>(src + static_cast<size_t>(tok) * HD);
       x[i][0] = row[2 * c8];
       x[i][1] = row[2 * c8 + 1];
     }
   }
 #pragma unroll
   for (int i = 0; i < PREP_PASSES; ++i) {
-    const int tok = tok0 + tid / 8 + 32 * i;
+    const int tok = tok0 + tid / CH + (256 / CH) * i;
     if (tok < n)
-      dst[static_cast<size_t>(tok) * (D / 8) + c8] =
+      dst[static_cast<size_t>(tok) * CH + c8] =
           make_uint4(pack_bf16(x[i][0].x, x[i][0].y), pack_bf16(x[i][0].z, x[i][0].w),
                      pack_bf16(x[i][1].x, x[i][1].y), pack_bf16(x[i][1].z, x[i][1].w));
   }
@@ -1104,21 +1233,30 @@ __device__ __forceinline__ void ss_step(float (&d)[N], uint64_t da, uint64_t db,
 constexpr int JQ_THREADS = 256;            // two warpgroups
 constexpr int JQ_ROWS = 128;               // q rows a block: 64 a warpgroup
 constexpr int JQ_KEYS = 32;                // keys a streamed tile
-constexpr int JQ_STAGES = 256 / JQ_KEYS;   // K-side tiles in flight: 256 keys
 constexpr int JQ_ACC = JQ_KEYS / 2;        // f32 registers of an m64 x JQ_KEYS accumulator
 constexpr int JQ_KS = JQ_KEYS / 16;        // its k-steps as the A of a second product
-constexpr int JQ_QTILE = JQ_ROWS * D * 2;  // bytes of the block's bf16 Q, tQ, dO or dtO
-constexpr int JQ_TILE = JQ_KEYS * D * 2;   // bytes of a bf16 K, tK, V or tV tile
-// Q, tQ, dO, dtO at JQ_QTILE each; stage st: K, tK, V, tV at JQ_OFF_RING + 4 st
-// JQ_TILE; then a 256-byte barrier area: the mbarriers (full[stage], then the
-// q side's) and, RING_COUNTERS bytes on, the release counters.
-constexpr int JQ_OFF_RING = 4 * JQ_QTILE;
-constexpr int JQ_OFF_BAR = JQ_OFF_RING + JQ_STAGES * 4 * JQ_TILE;
 constexpr int RING_COUNTERS = 128;
-constexpr int JQ_SMEM = JQ_OFF_BAR + 256 + 1024;  // + slack to align the base to 1024
-static_assert((JQ_STAGES + 1) * 8 <= RING_COUNTERS && RING_COUNTERS + (JQ_STAGES + 1) * 4 <= 256,
-              "the barriers and counters fit");
-static_assert(JQ_SMEM <= 232448, "a block's shared memory fits an H100 SM");
+
+// B12's geometry at head dim HD (ops/jvp_tiling.py mirrors it): Q, tQ, dO,
+// dtO at QTILE each (panels Q_PANEL apart; warpgroup w's 64 rows at 64 w
+// 128 bytes within each panel); stage st: K, tK, V, tV at OFF_RING + 4 st
+// TILE (panels K_PANEL apart); then a 256-byte barrier area: the mbarriers
+// (full[stage], then the q side's) and, RING_COUNTERS bytes on, the release
+// counters.
+template <int HD>
+struct JqGeom {
+  static constexpr int STAGES = HD == 64 ? 256 / JQ_KEYS : 3;  // K-side tiles in flight
+  static constexpr int QTILE = JQ_ROWS * HD * 2;  // bytes of the block's bf16 Q, tQ, dO or dtO
+  static constexpr int Q_PANEL = JQ_ROWS * 128;
+  static constexpr int TILE = JQ_KEYS * HD * 2;   // bytes of a bf16 K, tK, V or tV tile
+  static constexpr int K_PANEL = JQ_KEYS * 128;
+  static constexpr int OFF_RING = 4 * QTILE;
+  static constexpr int OFF_BAR = OFF_RING + STAGES * 4 * TILE;
+  static constexpr int SMEM = OFF_BAR + 256 + 1024;  // + slack to align the base to 1024
+  static_assert((STAGES + 1) * 8 <= RING_COUNTERS && RING_COUNTERS + (STAGES + 1) * 4 <= 256,
+                "the barriers and counters fit");
+  static_assert(SMEM <= 232448, "a block's shared memory fits an H100 SM");
+};
 
 // One tile's dS and tSb as the bf16 A fragments of dQ and dtQ (tile_terms'
 // arithmetic; tS and dO V^T + dtO tV^T arrive summed). x[4 n + e]: row pos[e
@@ -1154,26 +1292,35 @@ __device__ __forceinline__ void dq_terms(const float (&sc)[JQ_ACC], const float 
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(JQ_THREADS, 1)
-jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q, boxes of 128 rows
+jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, HD] bf16 q, boxes of 128 rows
              const __grid_constant__ CUtensorMap tq_map,   // the same for tq
              const __grid_constant__ CUtensorMap do_map,   // dO
              const __grid_constant__ CUtensorMap dto_map,  // dtO
-             const __grid_constant__ CUtensorMap k_map,    // [bh, s, 64] bf16 k, boxes of 32 keys
+             const __grid_constant__ CUtensorMap k_map,    // [bh, s, HD] bf16 k, boxes of 32 keys
              const __grid_constant__ CUtensorMap tk_map,
              const __grid_constant__ CUtensorMap v_map,
              const __grid_constant__ CUtensorMap tv_map,
              const float* __restrict__ rows,  // [4, bh, ld] f32 lse, mu, c, dhat
-             float* __restrict__ dq, float* __restrict__ dtq,  // [bh, t, D]
+             float* __restrict__ dq, float* __restrict__ dtq,  // [bh, t, HD]
              int t, int s, int ld, int causal, float sm_scale, float qk_scale) {
+  using G = JqGeom<HD>;
+  constexpr int P = HD / 64, STAGES = G::STAGES, TILE = G::TILE, QTILE = G::QTILE;
+  constexpr int QP = G::Q_PANEL, KP = G::K_PANEL;
+  // At 64 a tile's second products run under the next tile's first ones; at
+  // 128 they are drained at the tile's end, so that dS and tSb (16
+  // registers) are dead while the next first products' 64 are written
+  // (with them live, the 128 registers of dQ and dtQ left too few).
+  constexpr bool OVERLAP = HD == 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + JQ_OFF_BAR;
+  const uint32_t bars = base + G::OFF_BAR;
   auto full = [&](int st) { return bars + 8 * st; };
-  const uint32_t q_bar = full(JQ_STAGES);
-  int* released = reinterpret_cast<int*>(smem + JQ_OFF_BAR + RING_COUNTERS);
+  const uint32_t q_bar = full(STAGES);
+  int* released = reinterpret_cast<int*>(smem + G::OFF_BAR + RING_COUNTERS);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -1182,27 +1329,33 @@ jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
   const int kv_hi = causal ? min(s, min(t, q0 + JQ_ROWS)) : s;
   const int n_tiles = (kv_hi + JQ_KEYS - 1) / JQ_KEYS;
 
-  init_ring(bars, released, JQ_STAGES + 1);
+  init_ring(bars, released, STAGES + 1);
 
-  // Key tile j into stage j % JQ_STAGES (keys past s arrive as zeros).
+  // Key tile j into stage j % STAGES (keys past s arrive as zeros).
   auto load_tile = [&](int j) {
-    const int st = j % JQ_STAGES;
-    const uint32_t tiles = base + JQ_OFF_RING + st * 4 * JQ_TILE;
-    mbar_expect_tx(full(st), 4 * JQ_TILE);
-    tma_load_3d(tiles, &k_map, full(st), 0, j * JQ_KEYS, bh);
-    tma_load_3d(tiles + JQ_TILE, &tk_map, full(st), 0, j * JQ_KEYS, bh);
-    tma_load_3d(tiles + 2 * JQ_TILE, &v_map, full(st), 0, j * JQ_KEYS, bh);
-    tma_load_3d(tiles + 3 * JQ_TILE, &tv_map, full(st), 0, j * JQ_KEYS, bh);
+    const int st = j % STAGES;
+    const uint32_t tiles = base + G::OFF_RING + st * 4 * TILE;
+    mbar_expect_tx(full(st), 4 * TILE);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      tma_load_3d(tiles + p * KP, &k_map, full(st), 64 * p, j * JQ_KEYS, bh);
+      tma_load_3d(tiles + TILE + p * KP, &tk_map, full(st), 64 * p, j * JQ_KEYS, bh);
+      tma_load_3d(tiles + 2 * TILE + p * KP, &v_map, full(st), 64 * p, j * JQ_KEYS, bh);
+      tma_load_3d(tiles + 3 * TILE + p * KP, &tv_map, full(st), 64 * p, j * JQ_KEYS, bh);
+    }
   };
   // The block's Q, tQ, dO and dtO (rows past t arrive as zeros), then the
   // first stages.
   if (tid == 0) {
-    mbar_expect_tx(q_bar, 4 * JQ_QTILE);
-    tma_load_3d(base, &q_map, q_bar, 0, q0, bh);
-    tma_load_3d(base + JQ_QTILE, &tq_map, q_bar, 0, q0, bh);
-    tma_load_3d(base + 2 * JQ_QTILE, &do_map, q_bar, 0, q0, bh);
-    tma_load_3d(base + 3 * JQ_QTILE, &dto_map, q_bar, 0, q0, bh);
-    for (int j = 0; j < min(JQ_STAGES, n_tiles); ++j) load_tile(j);
+    mbar_expect_tx(q_bar, 4 * QTILE);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      tma_load_3d(base + p * QP, &q_map, q_bar, 64 * p, q0, bh);
+      tma_load_3d(base + QTILE + p * QP, &tq_map, q_bar, 64 * p, q0, bh);
+      tma_load_3d(base + 2 * QTILE + p * QP, &do_map, q_bar, 64 * p, q0, bh);
+      tma_load_3d(base + 3 * QTILE + p * QP, &dto_map, q_bar, 64 * p, q0, bh);
+    }
+    for (int j = 0; j < min(STAGES, n_tiles); ++j) load_tile(j);
   }
 
   // wg owns rows q0 + 64 wg .. + 63; this thread rows pos[0], pos[1] and
@@ -1224,17 +1377,19 @@ jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
     c_r[h] = live ? rw[2 * term] : 0.f;
     dh_r[h] = live ? rw[3 * term] : 0.f;
   }
-  const uint32_t qs = base + wg * 64 * (D * 2);  // the warpgroup's rows of the q-side tiles
-  const uint64_t desc_q = desc_kmajor_sw128(qs), desc_tq = desc_kmajor_sw128(qs + JQ_QTILE);
-  const uint64_t desc_do = desc_kmajor_sw128(qs + 2 * JQ_QTILE);
-  const uint64_t desc_dto = desc_kmajor_sw128(qs + 3 * JQ_QTILE);
+  // the warpgroup's rows of the q-side tiles, a descriptor each (stepping
+  // tQ's, dO's and dtO's from Q's reorders the d=64 SASS, a few % slower)
+  const uint32_t qs = base + wg * 64 * 128;
+  const uint64_t desc_q = desc_kmajor_sw128(qs), desc_tq = desc_kmajor_sw128(qs + QTILE);
+  const uint64_t desc_do = desc_kmajor_sw128(qs + 2 * QTILE);
+  const uint64_t desc_dto = desc_kmajor_sw128(qs + 3 * QTILE);
 
-  float dq_acc[32], dtq_acc[32];
+  float dq_acc[P][32], dtq_acc[P][32];  // panel p: head dims 64 p ..
   // S, tS, tpb and dO V^T + dtO tV^T
   float s_acc[JQ_ACC], ts_acc[JQ_ACC], tpb_acc[JQ_ACC], pb_acc[JQ_ACC];
   uint32_t dsa[JQ_KS][4] = {}, tsba[JQ_KS][4] = {};  // bf16 dS and tSb: the A of dQ and dtQ
-  zero(dq_acc);
-  zero(dtq_acc);
+  zero_all(dq_acc);
+  zero_all(dtq_acc);
   zero(s_acc);
   zero(ts_acc);
   zero(tpb_acc);
@@ -1242,43 +1397,45 @@ jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
   mbar_wait(q_bar, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % JQ_STAGES;
+    const int st = j % STAGES;
     const int k0 = j * JQ_KEYS;
-    const uint32_t tiles = base + JQ_OFF_RING + st * 4 * JQ_TILE;
-    mbar_wait(full(st), (j / JQ_STAGES) & 1);
+    const uint32_t tiles = base + G::OFF_RING + st * 4 * TILE;
+    mbar_wait(full(st), (j / STAGES) & 1);
     {  // the first products, A = the block's q-side rows, B = the key tiles (K-major)
-      const uint64_t dk = desc_kmajor_sw128(tiles), dtk = desc_kmajor_sw128(tiles + JQ_TILE);
-      const uint64_t dv = desc_kmajor_sw128(tiles + 2 * JQ_TILE);
-      const uint64_t dtv = desc_kmajor_sw128(tiles + 3 * JQ_TILE);
+      const uint64_t dk = desc_kmajor_sw128(tiles), dtk = desc_kmajor_sw128(tiles + TILE);
+      const uint64_t dv = desc_kmajor_sw128(tiles + 2 * TILE);
+      const uint64_t dtv = desc_kmajor_sw128(tiles + 3 * TILE);
       reg_fence(s_acc);
       reg_fence(ts_acc);
       reg_fence(tpb_acc);
       reg_fence(pb_acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T
-        ss_step(s_acc, desc_q + 2 * kk, dk + 2 * kk, kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)  // S = Q K^T
+        ss_step(s_acc, kstep(desc_q, kk, QP), kstep(dk, kk, KP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // tS = tQ K^T + Q tK^T
-        ss_step(ts_acc, desc_tq + 2 * kk, dk + 2 * kk, kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)  // tS = tQ K^T + Q tK^T
+        ss_step(ts_acc, kstep(desc_tq, kk, QP), kstep(dk, kk, KP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ss_step(ts_acc, desc_q + 2 * kk, dtk + 2 * kk, 1);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ss_step(ts_acc, kstep(desc_q, kk, QP), kstep(dtk, kk, KP), 1);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // tpb = dtO V^T
-        ss_step(tpb_acc, desc_dto + 2 * kk, dv + 2 * kk, kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)  // tpb = dtO V^T
+        ss_step(tpb_acc, kstep(desc_dto, kk, QP), kstep(dv, kk, KP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // dO V^T + dtO tV^T
-        ss_step(pb_acc, desc_do + 2 * kk, dv + 2 * kk, kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)  // dO V^T + dtO tV^T
+        ss_step(pb_acc, kstep(desc_do, kk, QP), kstep(dv, kk, KP), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ss_step(pb_acc, desc_dto + 2 * kk, dtv + 2 * kk, 1);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ss_step(pb_acc, kstep(desc_dto, kk, QP), kstep(dtv, kk, KP), 1);
       wgmma_commit();
     }
-    // the last tile's second products are done (all but the newest group):
-    // its stage is released while this tile's first products run
-    wgmma_wait<1>();
-    if (j > 0) release_stage(released, j - 1, JQ_STAGES, n_tiles, load_tile);
+    if constexpr (OVERLAP) {
+      // the last tile's second products are done (all but the newest group):
+      // its stage is released while this tile's first products run
+      wgmma_wait<1>();
+      if (j > 0) release_stage(released, j - 1, STAGES, n_tiles, load_tile);
+    }
     wgmma_wait<0>();
     reg_fence(s_acc);
     reg_fence(ts_acc);
@@ -1286,8 +1443,8 @@ jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
     reg_fence(pb_acc);
     reg_fence(dsa);
     reg_fence(tsba);
-    reg_fence(dq_acc);
-    reg_fence(dtq_acc);
+    fence_all(dq_acc);
+    fence_all(dtq_acc);
     // masking only where the tile reaches past s or the warpgroup's diagonal
     if (k0 + JQ_KEYS > s || (causal && k0 + JQ_KEYS - 1 > qw0))
       dq_terms<true>(s_acc, ts_acc, tpb_acc, pb_acc, lse_r, mu_r, c_r, dh_r, k0, cq, pos, s,
@@ -1297,39 +1454,53 @@ jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
                       causal, sm_scale, qk_scale, dsa, tsba);
     reg_fence(dsa);
     reg_fence(tsba);
-    {  // dQ += dS K + tSb tK, dtQ += tSb K (B = the same K and tK tiles read
-       // MN-major: 16 keys = 2048 bytes a k-step)
-      const uint64_t dk = desc_mnmajor_sw128(tiles), dtk = desc_mnmajor_sw128(tiles + JQ_TILE);
-      wgmma_fence();
+    // dQ += dS K + tSb tK, dtQ += tSb K (B = the same K and tK tiles read
+    // MN-major: 16 keys = 2048 bytes a k-step), panel p into the outputs'
+    // panel p
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const uint64_t dk = desc_mnmajor_sw128(tiles + p * KP);
+      const uint64_t dtk = desc_mnmajor_sw128(tiles + TILE + p * KP);
 #pragma unroll
       for (int kk = 0; kk < JQ_KEYS / 16; ++kk) {
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc, dsa[kk], dk + 128 * kk, 1);
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc, tsba[kk], dtk + 128 * kk, 1);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc[p], dsa[kk], dk + 128 * kk, 1);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dq_acc[p], tsba[kk], dtk + 128 * kk, 1);
       }
 #pragma unroll
       for (int kk = 0; kk < JQ_KEYS / 16; ++kk)
-        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtq_acc, tsba[kk], dk + 128 * kk, 1);
-      wgmma_commit();
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(dtq_acc[p], tsba[kk], dk + 128 * kk, 1);
+    }
+    wgmma_commit();
+    if constexpr (!OVERLAP) {  // drained here: dS and tSb die with the tile
+      wgmma_wait<0>();
+      fence_all(dq_acc);
+      fence_all(dtq_acc);
+      reg_fence(dsa);
+      reg_fence(tsba);
+      release_stage(released, j, STAGES, n_tiles, load_tile);
     }
   }
   wgmma_wait<0>();
-  reg_fence(dq_acc);
-  reg_fence(dtq_acc);
+  fence_all(dq_acc);
+  fence_all(dtq_acc);
   reg_fence(dsa);
   reg_fence(tsba);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (pos[h] >= t) continue;
-    const size_t off = (static_cast<size_t>(bh) * t + pos[h]) * D + cq;
+    const size_t off = (static_cast<size_t>(bh) * t + pos[h]) * HD + cq;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int i = 4 * n + 2 * h;
-      *reinterpret_cast<float2*>(dq + off + 8 * n) =
-          make_float2(dq_acc[i] * sm_scale, dq_acc[i + 1] * sm_scale);
-      *reinterpret_cast<float2*>(dtq + off + 8 * n) =
-          make_float2(dtq_acc[i] * sm_scale, dtq_acc[i + 1] * sm_scale);
-    }
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int i = 4 * n + 2 * h;
+        *reinterpret_cast<float2*>(dq + off + 64 * p + 8 * n) =
+            make_float2(dq_acc[p][i] * sm_scale, dq_acc[p][i + 1] * sm_scale);
+        *reinterpret_cast<float2*>(dtq + off + 64 * p + 8 * n) =
+            make_float2(dtq_acc[p][i] * sm_scale, dtq_acc[p][i + 1] * sm_scale);
+      }
   }
 }
 
@@ -1339,20 +1510,31 @@ jvp_dq_wgmma(const __grid_constant__ CUtensorMap q_map,    // [bh, t, 64] bf16 q
 
 constexpr int JF_THREADS = 256;            // two warpgroups
 constexpr int JF_ROWS = 128;               // q rows a block: 64 a warpgroup
-constexpr int JF_KEYS = 64;                // keys a K-side tile
-constexpr int JF_STAGES = 256 / JF_KEYS;   // tiles in flight: 256 keys (32 KB a stage)
-constexpr int JF_QTILE = JF_ROWS * D * 2;  // bytes of the block's bf16 Q or tQ
-constexpr int JF_TILE = JF_KEYS * D * 2;   // bytes of a bf16 K, tK, V or tV tile
-constexpr int JF_ACC = JF_KEYS / 2;        // f32 registers of an m64 x JF_KEYS accumulator
-constexpr int JF_KS = JF_KEYS / 16;        // its k-steps as the A of a second product
-// Q, tQ at JF_QTILE each; stage st: K, tK, V, tV at JF_OFF_RING + 4 st
-// JF_TILE; then the 256-byte barrier area (full[stage]; release counters
-// RING_COUNTERS bytes on).
-constexpr int JF_OFF_RING = 2 * JF_QTILE;
-constexpr int JF_OFF_BAR = JF_OFF_RING + JF_STAGES * 4 * JF_TILE;
-constexpr int JF_SMEM = JF_OFF_BAR + 256 + 1024;  // + slack to align the base to 1024
-static_assert(JF_STAGES * 8 <= RING_COUNTERS, "the barriers fit");
-static_assert(JF_SMEM <= 232448, "a block's shared memory fits an H100 SM");
+
+// B9's geometry at head dim HD (ops/jvp_tiling.py mirrors it): Q, tQ at
+// QTILE each (panels Q_PANEL apart, warpgroup w's rows at 64 w 128 bytes in
+// each); stage st: K, tK, V, tV at OFF_RING + 4 st TILE (panels K_PANEL
+// apart); then the 256-byte barrier area (full[stage]; release counters
+// RING_COUNTERS bytes on). At 128, O and tO's sum take 128 registers a
+// thread: 32-key tiles, and tO's two parts (A = P tV, B = H V) sum in one
+// accumulator (NT = 1; two at 64, added at the end).
+template <int HD>
+struct JfGeom {
+  static constexpr int KEYS = HD == 64 ? 64 : 32;  // keys a K-side tile
+  static constexpr int STAGES = 4;                 // tiles in flight: 256 keys at 64, 128 at 128
+  static constexpr int NT = HD == 64 ? 2 : 1;      // tO's accumulators
+  static constexpr int ACC = KEYS / 2;             // f32 registers of an m64 x KEYS accumulator
+  static constexpr int KS = KEYS / 16;             // its k-steps as the A of a second product
+  static constexpr int QTILE = JF_ROWS * HD * 2;   // bytes of the block's bf16 Q or tQ
+  static constexpr int Q_PANEL = JF_ROWS * 128;
+  static constexpr int TILE = KEYS * HD * 2;       // bytes of a bf16 K, tK, V or tV tile
+  static constexpr int K_PANEL = KEYS * 128;
+  static constexpr int OFF_RING = 2 * QTILE;
+  static constexpr int OFF_BAR = OFF_RING + STAGES * 4 * TILE;
+  static constexpr int SMEM = OFF_BAR + 256 + 1024;  // + slack to align the base to 1024
+  static_assert(STAGES * 8 <= RING_COUNTERS, "the barriers fit");
+  static_assert(SMEM <= 232448, "a block's shared memory fits an H100 SM");
+};
 
 // One tile's online-softmax step (the exact kernel's arithmetic): S (f32 Q K^T) -> S
 // qk_scale, MASK_VALUE where masked (MASK: the tile reaches past s or past the
@@ -1361,19 +1543,20 @@ static_assert(JF_SMEM <= 232448, "a block's shared memory fits an H100 SM");
 // fragments of the second products; l and r, this thread's partial row sums of
 // the unrounded p and h, rescaled by alpha. x[4 n + e]: row pos[e / 2], key k0
 // + 8 n + cq + (e & 1).
-template <bool MASK>
-__device__ __forceinline__ void fwd_terms(float (&sc)[JF_ACC], const float (&tc)[JF_ACC],
-                                          uint32_t (&pa)[JF_KS][4], uint32_t (&ha)[JF_KS][4],
-                                          float (&m)[2], float (&l)[2], float (&r)[2],
-                                          float (&alpha)[2], int k0, int cq, const int (&pos)[2],
-                                          int s, int causal, float sm_scale, float qk_scale) {
+template <bool MASK, int KEYS>
+__device__ __forceinline__ void fwd_terms(float (&sc)[KEYS / 2], const float (&tc)[KEYS / 2],
+                                          uint32_t (&pa)[KEYS / 16][4],
+                                          uint32_t (&ha)[KEYS / 16][4], float (&m)[2],
+                                          float (&l)[2], float (&r)[2], float (&alpha)[2], int k0,
+                                          int cq, const int (&pos)[2], int s, int causal,
+                                          float sm_scale, float qk_scale) {
   auto visible = [&](int i) {
     const int col = k0 + (i / 4) * 8 + cq + (i & 1);
     return col < s && (!causal || col <= pos[(i % 4) / 2]);
   };
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < JF_ACC; ++i) {
+  for (int i = 0; i < KEYS / 2; ++i) {
     sc[i] = MASK && !visible(i) ? MASK_VALUE : sc[i] * qk_scale;
     mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sc[i]);
   }
@@ -1385,7 +1568,7 @@ __device__ __forceinline__ void fwd_terms(float (&sc)[JF_ACC], const float (&tc)
   }
   float lsum[2] = {0.f, 0.f}, rsum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < JF_KEYS / 8; ++n) {
+  for (int n = 0; n < KEYS / 8; ++n) {
     float p[4], hp[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -1405,47 +1588,54 @@ __device__ __forceinline__ void fwd_terms(float (&sc)[JF_ACC], const float (&tc)
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(JF_THREADS, 1)
-jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, 64] bf16 k, boxes of JF_KEYS
+jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, HD] bf16 k, boxes of KEYS
               const __grid_constant__ CUtensorMap v_map,   // the same for v
               const __grid_constant__ CUtensorMap tk_map,  // tk
               const __grid_constant__ CUtensorMap tv_map,  // tv
-              const float* __restrict__ q,  // [b, h, t, D] f32, strides in elements
+              const float* __restrict__ q,  // [b, h, t, HD] f32, strides in elements
               long long q_sb, long long q_sh, long long q_st,
               const float* __restrict__ tq, long long tq_sb, long long tq_sh, long long tq_st,
-              float* __restrict__ o, float* __restrict__ to,    // [bh, t, D]
+              float* __restrict__ o, float* __restrict__ to,    // [bh, t, HD]
               float* __restrict__ lse, float* __restrict__ mu,  // [bh, t]
               int heads, int t, int s, int causal, float sm_scale, float qk_scale) {
+  using G = JfGeom<HD>;
+  constexpr int P = HD / 64, KEYS = G::KEYS, STAGES = G::STAGES, NT = G::NT;
+  constexpr int TILE = G::TILE, QP = G::Q_PANEL, KP = G::K_PANEL;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + JF_OFF_BAR;
+  const uint32_t bars = base + G::OFF_BAR;
   auto full = [&](int st) { return bars + 8 * st; };
-  int* released = reinterpret_cast<int*>(smem + JF_OFF_BAR + RING_COUNTERS);
+  int* released = reinterpret_cast<int*>(smem + G::OFF_BAR + RING_COUNTERS);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const long long batch = bh / heads, head = bh % heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * JF_ROWS;  // the last rows (the most key tiles) first
   const int kv_hi = causal ? min(s, min(t, q0 + JF_ROWS)) : s;
-  const int n_tiles = (kv_hi + JF_KEYS - 1) / JF_KEYS;
+  const int n_tiles = (kv_hi + KEYS - 1) / KEYS;
 
-  init_ring(bars, released, JF_STAGES);
-  // Tile j into stage j % JF_STAGES: K, tK, V, tV (keys past s arrive as
+  init_ring(bars, released, STAGES);
+  // Tile j into stage j % STAGES: K, tK, V, tV (keys past s arrive as
   // zeros). Thread 0 loads the first stages; the second warpgroup to release
   // a stage refills it.
   auto load_kv = [&](int j) {
-    const int st = j % JF_STAGES;
-    const uint32_t dst = base + JF_OFF_RING + st * 4 * JF_TILE;
-    mbar_expect_tx(full(st), 4 * JF_TILE);
-    tma_load_3d(dst, &k_map, full(st), 0, j * JF_KEYS, bh);
-    tma_load_3d(dst + JF_TILE, &tk_map, full(st), 0, j * JF_KEYS, bh);
-    tma_load_3d(dst + 2 * JF_TILE, &v_map, full(st), 0, j * JF_KEYS, bh);
-    tma_load_3d(dst + 3 * JF_TILE, &tv_map, full(st), 0, j * JF_KEYS, bh);
+    const int st = j % STAGES;
+    const uint32_t dst = base + G::OFF_RING + st * 4 * TILE;
+    mbar_expect_tx(full(st), 4 * TILE);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      tma_load_3d(dst + p * KP, &k_map, full(st), 64 * p, j * KEYS, bh);
+      tma_load_3d(dst + TILE + p * KP, &tk_map, full(st), 64 * p, j * KEYS, bh);
+      tma_load_3d(dst + 2 * TILE + p * KP, &v_map, full(st), 64 * p, j * KEYS, bh);
+      tma_load_3d(dst + 3 * TILE + p * KP, &tv_map, full(st), 64 * p, j * KEYS, bh);
+    }
   };
   if (tid == 0)
-    for (int j = 0; j < min(JF_STAGES, n_tiles); ++j) load_kv(j);
+    for (int j = 0; j < min(STAGES, n_tiles); ++j) load_kv(j);
 
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
@@ -1455,88 +1645,100 @@ jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, 64] bf16 k
 
   // This warpgroup's Q and tQ rows -> shared memory in bf16 (round to nearest
   // even, as .to(bfloat16)), K-major with the 128-byte swizzle (16-byte chunk
-  // c of row r at c ^ (r & 7)); zeros past t. Every load is issued before the
-  // first conversion.
-  constexpr int Q_PASSES = 64 * (D / 8) / 128;  // chunks of 8 a thread, each of Q and tQ
-  uint4 qraw[2][Q_PASSES][2];
+  // c of a panel's row r at c ^ (r & 7)); zeros past t. Every load of a pass
+  // (both at 64; Q, then tQ at 128) is issued before its first conversion.
+  constexpr int CH = HD / 8;                    // 16-byte chunks of 8 a row
+  constexpr int Q_PASSES = 64 * CH / 128;       // chunks of 8 a thread, each of Q and tQ
+  constexpr int XB = HD == 64 ? 2 : 1;          // of Q and tQ a pass
 #pragma unroll
-  for (int x = 0; x < 2; ++x)
+  for (int x0 = 0; x0 < 2; x0 += XB) {
+    uint4 qraw[XB][Q_PASSES][2];
 #pragma unroll
-    for (int i = 0; i < Q_PASSES; ++i) {
-      const int c = tid % 128 + 128 * i, p = qw0 + c / (D / 8), c8 = c % (D / 8);
-      qraw[x][i][0] = qraw[x][i][1] = make_uint4(0u, 0u, 0u, 0u);
-      if (p < t) {
-        const float* row = x ? tq + batch * tq_sb + head * tq_sh + p * tq_st
-                             : q + batch * q_sb + head * q_sh + p * q_st;
-        const uint4* src = reinterpret_cast<const uint4*>(row + c8 * 8);
-        qraw[x][i][0] = src[0];
-        qraw[x][i][1] = src[1];
+    for (int xi = 0; xi < XB; ++xi)
+#pragma unroll
+      for (int i = 0; i < Q_PASSES; ++i) {
+        const int c = tid % 128 + 128 * i, p = qw0 + c / CH, c8 = c % CH;
+        qraw[xi][i][0] = qraw[xi][i][1] = make_uint4(0u, 0u, 0u, 0u);
+        if (p < t) {
+          const float* row = x0 + xi ? tq + batch * tq_sb + head * tq_sh + p * tq_st
+                                     : q + batch * q_sb + head * q_sh + p * q_st;
+          const uint4* src = reinterpret_cast<const uint4*>(row + c8 * 8);
+          qraw[xi][i][0] = src[0];
+          qraw[xi][i][1] = src[1];
+        }
       }
-    }
 #pragma unroll
-  for (int x = 0; x < 2; ++x)
+    for (int xi = 0; xi < XB; ++xi)
 #pragma unroll
-    for (int i = 0; i < Q_PASSES; ++i) {
-      const int c = tid % 128 + 128 * i, r = wg * 64 + c / (D / 8), c8 = c % (D / 8);
-      const uint4 a = qraw[x][i][0], b = qraw[x][i][1];
-      *reinterpret_cast<uint4*>(smem + x * JF_QTILE + r * (D * 2) + ((c8 ^ (r & 7)) << 4)) =
-          make_uint4(pack_bf16(__uint_as_float(a.x), __uint_as_float(a.y)),
-                     pack_bf16(__uint_as_float(a.z), __uint_as_float(a.w)),
-                     pack_bf16(__uint_as_float(b.x), __uint_as_float(b.y)),
-                     pack_bf16(__uint_as_float(b.z), __uint_as_float(b.w)));
-    }
+      for (int i = 0; i < Q_PASSES; ++i) {
+        const int c = tid % 128 + 128 * i, r = wg * 64 + c / CH, c8 = c % CH;
+        const uint4 a = qraw[xi][i][0], b = qraw[xi][i][1];
+        *reinterpret_cast<uint4*>(smem + (x0 + xi) * G::QTILE + (c8 / 8) * QP + r * 128 +
+                                  (((c8 % 8) ^ (r & 7)) << 4)) =
+            make_uint4(pack_bf16(__uint_as_float(a.x), __uint_as_float(a.y)),
+                       pack_bf16(__uint_as_float(a.z), __uint_as_float(a.w)),
+                       pack_bf16(__uint_as_float(b.x), __uint_as_float(b.y)),
+                       pack_bf16(__uint_as_float(b.z), __uint_as_float(b.w)));
+      }
+  }
   fence_proxy_async();  // Q and tQ, for wgmma
   named_barrier(1 + wg, 128);
 
   const int pos[2] = {qw0 + 16 * warp + lane / 4, qw0 + 16 * warp + lane / 4 + 8};
   auto edge = [&](int j) {
-    return j * JF_KEYS + JF_KEYS > s || (causal && j * JF_KEYS + JF_KEYS - 1 > qw0);
+    return j * KEYS + KEYS > s || (causal && j * KEYS + KEYS - 1 > qw0);
   };
-  const uint32_t qs = base + wg * 64 * (D * 2);
-  const uint64_t desc_q = desc_kmajor_sw128(qs), desc_tq = desc_kmajor_sw128(qs + JF_QTILE);
+  const uint32_t qs = base + wg * 64 * 128;
+  const uint64_t desc_q = desc_kmajor_sw128(qs), desc_tq = desc_kmajor_sw128(qs + G::QTILE);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
-  float oacc[32], aacc[32], bacc[32];  // O, A = P tV, B = H V, each rescaled by alpha
-  zero(oacc);
-  zero(aacc);
-  zero(bacc);
+  // O and tO's parts (panel p: head dims 64 p ..), each rescaled by alpha:
+  // tacc[0] = A = P tV and tacc[NT - 1] = B = H V
+  float oacc[P][32], tacc[NT][P][32];
+  zero_all(oacc);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) zero_all(tacc[nt]);
 
-  auto stage = [&](int j) { return base + JF_OFF_RING + (j % JF_STAGES) * 4 * JF_TILE; };
-  float sc[JF_ACC], tc[JF_ACC];                   // a tile's S and tS
-  uint32_t pa[JF_KS][4] = {}, ha[JF_KS][4] = {};  // its bf16 P and H: the A of the second products
+  auto stage = [&](int j) { return base + G::OFF_RING + (j % STAGES) * 4 * TILE; };
+  float sc[G::ACC], tc[G::ACC];                     // a tile's S and tS
+  uint32_t pa[G::KS][4] = {}, ha[G::KS][4] = {};  // its bf16 P and H: the A of the second products
   // The registers the products read or write: their last writes stay
   // before wgmma.fence (C7513), and their reads after the wait.
   auto fence_regs = [&]() {
     reg_fence(sc);
     reg_fence(tc);
-    reg_fence(oacc);
-    reg_fence(aacc);
-    reg_fence(bacc);
+    fence_all(oacc);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) fence_all(tacc[nt]);
     reg_fence(pa);
     reg_fence(ha);
   };
   // S = Q K^T and tS = tQ K^T + Q tK^T of the tile in stage `st`.
   auto issue_s = [&](uint32_t st) {
-    const uint64_t dk = desc_kmajor_sw128(st), dtk = desc_kmajor_sw128(st + JF_TILE);
+    const uint64_t dk = desc_kmajor_sw128(st), dtk = desc_kmajor_sw128(st + TILE);
     ss_first(sc, desc_q, dk);
 #pragma unroll
-    for (int kk = 1; kk < D / 16; ++kk) ss_step(sc, desc_q + 2 * kk, dk + 2 * kk, 1);
+    for (int kk = 1; kk < HD / 16; ++kk) ss_step(sc, kstep(desc_q, kk, QP), kstep(dk, kk, KP), 1);
     ss_first(tc, desc_tq, dk);
 #pragma unroll
-    for (int kk = 1; kk < D / 16; ++kk) ss_step(tc, desc_tq + 2 * kk, dk + 2 * kk, 1);
+    for (int kk = 1; kk < HD / 16; ++kk)
+      ss_step(tc, kstep(desc_tq, kk, QP), kstep(dk, kk, KP), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ss_step(tc, desc_q + 2 * kk, dtk + 2 * kk, 1);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ss_step(tc, kstep(desc_q, kk, QP), kstep(dtk, kk, KP), 1);
   };
   // O += P V, A += P tV, B += H V of the tile in stage `st`: k-steps of 16
-  // keys (2048 bytes of the V and tV tiles, read MN-major).
+  // keys (2048 bytes of the V and tV tiles' panels, read MN-major).
   auto issue_out = [&](uint32_t st) {
-    const uint64_t dv = desc_mnmajor_sw128(st + 2 * JF_TILE);
-    const uint64_t dtv = desc_mnmajor_sw128(st + 3 * JF_TILE);
 #pragma unroll
-    for (int kk = 0; kk < JF_KS; ++kk) {
-      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(oacc, pa[kk], dv + 128 * kk, 1);
-      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(aacc, pa[kk], dtv + 128 * kk, 1);
-      wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(bacc, ha[kk], dv + 128 * kk, 1);
-    }
+    for (int kk = 0; kk < G::KS; ++kk)
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const uint64_t dv = desc_mnmajor_sw128(st + 2 * TILE + p * KP);
+        const uint64_t dtv = desc_mnmajor_sw128(st + 3 * TILE + p * KP);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(oacc[p], pa[kk], dv + 128 * kk, 1);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(tacc[0][p], pa[kk], dtv + 128 * kk, 1);
+        wgmma_bf16_m64n64k16_rs<B_MNMAJOR>(tacc[NT - 1][p], ha[kk], dv + 128 * kk, 1);
+      }
   };
 
   // The mainloop, B1 fp32's (csrc/flash_fwd.cu): tile j's softmax, then its
@@ -1556,20 +1758,22 @@ jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, 64] bf16 k
   for (int j = 0; j < n_tiles; ++j) {
     float alpha[2];
     if (edge(j))
-      fwd_terms<true>(sc, tc, pa, ha, m, l, rs, alpha, j * JF_KEYS, cq, pos, s, causal, sm_scale,
-                      qk_scale);
+      fwd_terms<true, KEYS>(sc, tc, pa, ha, m, l, rs, alpha, j * KEYS, cq, pos, s, causal,
+                            sm_scale, qk_scale);
     else
-      fwd_terms<false>(sc, tc, pa, ha, m, l, rs, alpha, j * JF_KEYS, cq, pos, s, causal, sm_scale,
-                       qk_scale);
+      fwd_terms<false, KEYS>(sc, tc, pa, ha, m, l, rs, alpha, j * KEYS, cq, pos, s, causal,
+                             sm_scale, qk_scale);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float a = alpha[(i % 4) / 2];
-      oacc[i] *= a;
-      aacc[i] *= a;
-      bacc[i] *= a;
-    }
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float a = alpha[(i % 4) / 2];
+        oacc[p][i] *= a;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) tacc[nt][p][i] *= a;
+      }
     const int jn = min(j + 1, n_tiles - 1);
-    if (j + 1 < n_tiles) mbar_wait(full(jn % JF_STAGES), (jn / JF_STAGES) & 1);
+    if (j + 1 < n_tiles) mbar_wait(full(jn % STAGES), (jn / STAGES) & 1);
     fence_regs();
     wgmma_fence();
     issue_out(stage(j));
@@ -1577,7 +1781,7 @@ jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, 64] bf16 k
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs();
-    release_stage(released, j, JF_STAGES, n_tiles, load_kv);
+    release_stage(released, j, STAGES, n_tiles, load_kv);
   }
 
   // O = acc / l, tO = (A + B - r O) / l (l == 0 -> 1), lse = m + log2(l), mu
@@ -1589,14 +1793,18 @@ jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, 64] bf16 k
     if (pos[h] >= t) continue;
     const size_t row = static_cast<size_t>(bh) * t + pos[h];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int i = 4 * n + 2 * h;
-      const float o0 = oacc[i] / l_safe, o1 = oacc[i + 1] / l_safe;
-      *reinterpret_cast<float2*>(o + row * D + 8 * n + cq) = make_float2(o0, o1);
-      *reinterpret_cast<float2*>(to + row * D + 8 * n + cq) =
-          make_float2((aacc[i] + bacc[i] - rsum * o0) / l_safe,
-                      (aacc[i + 1] + bacc[i + 1] - rsum * o1) / l_safe);
-    }
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int i = 4 * n + 2 * h;
+        const float o0 = oacc[p][i] / l_safe, o1 = oacc[p][i + 1] / l_safe;
+        const float t0 = NT == 2 ? tacc[0][p][i] + tacc[NT - 1][p][i] : tacc[0][p][i];
+        const float t1 = NT == 2 ? tacc[0][p][i + 1] + tacc[NT - 1][p][i + 1] : tacc[0][p][i + 1];
+        const size_t at = row * HD + 64 * p + 8 * n + cq;
+        *reinterpret_cast<float2*>(o + at) = make_float2(o0, o1);
+        *reinterpret_cast<float2*>(to + at) =
+            make_float2((t0 - rsum * o0) / l_safe, (t1 - rsum * o1) / l_safe);
+      }
     if (lane % 4 == 0) {
       lse[row] = m[h] + log2f(l_safe);
       mu[row] = rsum / l_safe;
@@ -1604,31 +1812,34 @@ jvp_fwd_wgmma(const __grid_constant__ CUtensorMap k_map,   // [bh, s, 64] bf16 k
   }
 }
 
-// B9 fast's K-side prep, one launch: k, v, tk, tv ([b, h, s, 64] f32, any
-// strides, rows contiguous) -> contiguous bf16 [b * h, s, 64] (round to
-// nearest even). Grid (s / FP_ROWS rounded up, b * h, 4): z is the operand; a
-// thread converts 8 elements of a row in each of FP_ROWS / 32 rows, every
+// B9 fast's K-side prep, one launch: k, v, tk, tv ([b, h, s, HD] f32, any
+// strides, rows contiguous) -> contiguous bf16 [b * h, s, HD] (round to
+// nearest even). Grid (s / fwd_prep_rows(HD) rounded up, b * h, 4): z is the
+// operand; a thread converts 8 elements of a row in each of 8 rows, every
 // load issued before its first store.
 struct FwdPrepArgs {
   const float* src[4];
   long long stride[4][3];  // batch, head, token strides in elements
   __nv_bfloat16* dst[4];
 };
-constexpr int FP_ROWS = 256;
+constexpr int FP_PASSES = 8;
+// rows of each operand a prep block converts: HD / 8 threads a row
+__host__ __device__ constexpr int fwd_prep_rows(int hd) { return FP_PASSES * 256 / (hd / 8); }
 
+template <int HD>
 __global__ void __launch_bounds__(256)
 jvp_fwd_prep_kernel(FwdPrepArgs args, int heads, int s) {
-  const int z = blockIdx.z, bh = blockIdx.y, c8 = threadIdx.x % 8;
-  const int tok0 = blockIdx.x * FP_ROWS + threadIdx.x / 8;
+  constexpr int CH = HD / 8;
+  const int z = blockIdx.z, bh = blockIdx.y, c8 = threadIdx.x % CH;
+  const int tok0 = blockIdx.x * fwd_prep_rows(HD) + threadIdx.x / CH;
   const float* src = args.src[z] + (bh / heads) * args.stride[z][0] +
                      (bh % heads) * args.stride[z][1];
   const long long st = args.stride[z][2];
-  uint4* dst = reinterpret_cast<uint4*>(args.dst[z] + static_cast<size_t>(bh) * s * D);
-  constexpr int PASSES = FP_ROWS / 32;
-  float4 x[PASSES][2] = {};
+  uint4* dst = reinterpret_cast<uint4*>(args.dst[z] + static_cast<size_t>(bh) * s * HD);
+  float4 x[FP_PASSES][2] = {};
 #pragma unroll
-  for (int i = 0; i < PASSES; ++i) {
-    const int tok = tok0 + 32 * i;
+  for (int i = 0; i < FP_PASSES; ++i) {
+    const int tok = tok0 + (256 / CH) * i;
     if (tok < s) {
       const float4* row = reinterpret_cast<const float4*>(src + tok * st + c8 * 8);
       x[i][0] = row[0];
@@ -1636,10 +1847,10 @@ jvp_fwd_prep_kernel(FwdPrepArgs args, int heads, int s) {
     }
   }
 #pragma unroll
-  for (int i = 0; i < PASSES; ++i) {
-    const int tok = tok0 + 32 * i;
+  for (int i = 0; i < FP_PASSES; ++i) {
+    const int tok = tok0 + (256 / CH) * i;
     if (tok < s)
-      dst[static_cast<size_t>(tok) * (D / 8) + c8] =
+      dst[static_cast<size_t>(tok) * CH + c8] =
           make_uint4(pack_bf16(x[i][0].x, x[i][0].y), pack_bf16(x[i][0].z, x[i][0].w),
                      pack_bf16(x[i][1].x, x[i][1].y), pack_bf16(x[i][1].z, x[i][1].w));
   }
@@ -2029,6 +2240,113 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, Arg
 
 using cf = const float*;
 
+// Fast mode's launches at head dim HD: the maps, the shared-memory attribute
+// (once an instance) and the kernels.
+template <int HD>
+int fwd_prep(const FwdPrepArgs& args, int b, int h, int s, cudaStream_t stream) {
+  const dim3 grid((s + fwd_prep_rows(HD) - 1) / fwd_prep_rows(HD), b * h, 4);
+  jvp_fwd_prep_kernel<HD><<<grid, 256, 0, stream>>>(args, h, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int fwd_fast(const void* q, const long long (&q_st)[3], const void* tq, const long long (&tq_st)[3],
+             const void* k, const void* v, const void* tk, const void* tv, void* o, void* to,
+             void* lse, void* mu, int b, int h, int t, int s, int causal, float sm_scale,
+             float qk_scale, cudaStream_t stream) {
+  using G = JfGeom<HD>;
+  CUtensorMap k_map, v_map, tk_map, tv_map;
+  if (!panel_map(&k_map, k, b * h, s, HD, G::KEYS) || !panel_map(&v_map, v, b * h, s, HD, G::KEYS) ||
+      !panel_map(&tk_map, tk, b * h, s, HD, G::KEYS) ||
+      !panel_map(&tv_map, tv, b * h, s, HD, G::KEYS))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  const cudaError_t err = allow_smem(jvp_fwd_wgmma<HD>, G::SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(b * h, (t + JF_ROWS - 1) / JF_ROWS);
+  jvp_fwd_wgmma<HD><<<grid, JF_THREADS, G::SMEM, stream>>>(
+      k_map, v_map, tk_map, tv_map, static_cast<const float*>(q), q_st[0], q_st[1], q_st[2],
+      static_cast<const float*>(tq), tq_st[0], tq_st[1], tq_st[2], static_cast<float*>(o),
+      static_cast<float*>(to), static_cast<float*>(lse), static_cast<float*>(mu), h, t, s, causal,
+      sm_scale, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int bwd_prep(const PrepArgs& args, void* rows_out, int bh, int t, int s, int ld,
+             cudaStream_t stream) {
+  const dim3 grid(((t > s ? t : s) + prep_rows(HD) - 1) / prep_rows(HD), bh, 9);
+  jvp_bwd_prep_kernel<HD><<<grid, 256, 0, stream>>>(args, static_cast<float*>(rows_out), bh, t, s,
+                                                    ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The q-side and key-side maps of B11 (boxes of JD_ROWS and 64 rows) or B12
+// (JQ_ROWS and JQ_KEYS rows), 64-dim panels: q, tq, dO, dtO, then k, tk, v, tv.
+bool bwd_maps(CUtensorMap (&maps)[8], const void* const (&ops)[8], int bh, int t, int s, int hd,
+              int q_rows, int k_rows) {
+  for (int i = 0; i < 8; ++i)
+    if (!panel_map(&maps[i], ops[i], bh, i < 4 ? t : s, hd, i < 4 ? q_rows : k_rows))
+      return false;
+  return true;
+}
+
+template <int HD, int PART>
+int dkv_part(const CUtensorMap (&m)[8], const CUtensorMap& row_map, void* dk, void* dv, void* dtk,
+             void* dtv, int bh, int n_kt, int t, int s, int causal, float sm_scale,
+             float qk_scale, cudaStream_t stream) {
+  static bool configured = false;
+  const cudaError_t err = allow_smem(jvp_dkv_wgmma<HD, PART>, JdGeom<HD>::SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  jvp_dkv_wgmma<HD, PART><<<dim3(bh, n_kt), JD_THREADS, JdGeom<HD>::SMEM, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], row_map, static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<float*>(dtk), static_cast<float*>(dtv), t, s, causal,
+      sm_scale, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B11 fast at HD: one launch of all four outputs at 64; at 128 a launch of
+// dV and dtV, then one of dK and dtK.
+template <int HD>
+int dkv_fast(const void* const (&ops)[8], const void* rows, void* dk, void* dv, void* dtk,
+             void* dtv, int bh, int t, int s, int ld, int causal, float sm_scale, float qk_scale,
+             cudaStream_t stream) {
+  CUtensorMap maps[8], row_map;
+  const long long rb = 4LL * ld;
+  const long long row_stride[3] = {rb, rb, rb * bh};
+  if (!bwd_maps(maps, ops, bh, t, s, HD, JD_ROWS, 64) ||
+      !tensor_map_4d(&row_map, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bh, 1, t, row_stride, 1,
+                     JD_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorNotSupported);
+  const int n_kt = (s + JD_KEYS - 1) / JD_KEYS;
+  if constexpr (HD == 64) {
+    return dkv_part<64, DKV_ALL>(maps, row_map, dk, dv, dtk, dtv, bh, n_kt, t, s, causal,
+                                 sm_scale, qk_scale, stream);
+  } else {
+    const int err = dkv_part<HD, DKV_V>(maps, row_map, dk, dv, dtk, dtv, bh, n_kt, t, s, causal,
+                                        sm_scale, qk_scale, stream);
+    if (err) return err;
+    return dkv_part<HD, DKV_K>(maps, row_map, dk, dv, dtk, dtv, bh, n_kt, t, s, causal,
+                               sm_scale, qk_scale, stream);
+  }
+}
+
+template <int HD>
+int dq_fast(const void* const (&ops)[8], const void* rows, void* dq, void* dtq, int bh, int t,
+            int s, int ld, int causal, float sm_scale, float qk_scale, cudaStream_t stream) {
+  CUtensorMap m[8];
+  if (!bwd_maps(m, ops, bh, t, s, HD, JQ_ROWS, JQ_KEYS))
+    return static_cast<int>(cudaErrorNotSupported);
+  static bool configured = false;
+  const cudaError_t err = allow_smem(jvp_dq_wgmma<HD>, JqGeom<HD>::SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  jvp_dq_wgmma<HD><<<dim3(bh, (t + JQ_ROWS - 1) / JQ_ROWS), JQ_THREADS, JqGeom<HD>::SMEM,
+                     stream>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+                               static_cast<const float*>(rows), static_cast<float*>(dq),
+                               static_cast<float*>(dtq), t, s, ld, causal, sm_scale, qk_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The exact entries: every tensor is f32 and contiguous: q-side [bh, t, D],
@@ -2047,16 +2365,19 @@ extern "C" int qa_jvp_fwd(const void* q, const void* k, const void* v, const voi
                 qk_scale);
 }
 
-// Shared bytes one B9 fast block asks for (ops/jvp_tiling.py mirrors it).
-extern "C" int qa_jvp_fwd_smem_bytes() { return JF_SMEM; }
+// Shared bytes one B9 fast block asks for at head dim d, 64 or 128
+// (ops/jvp_tiling.py mirrors it); -1 for another d.
+extern "C" int qa_jvp_fwd_smem_bytes(int d) {
+  return d == 64 ? JfGeom<64>::SMEM : d == 128 ? JfGeom<128>::SMEM : -1;
+}
 
-// B9 fast's K-side prep: src = k, v, tk, tv [b, h, s, 64] f32 with
-// strides[4][3] (batch, head, token, in elements; rows contiguous; pointers
-// and strides 16-byte aligned) -> dst, the same four as contiguous bf16 [b *
-// h, s, 64], in one launch.
+// B9 fast's K-side prep: src = k, v, tk, tv [b, h, s, d] f32, d 64 or 128,
+// with strides[4][3] (batch, head, token, in elements; rows contiguous;
+// pointers and strides 16-byte aligned) -> dst, the same four as contiguous
+// bf16 [b * h, s, d], in one launch.
 extern "C" int qa_jvp_fwd_prep(const void* const* src, const long long* strides,
-                               void* const* dst, int b, int h, int s, void* stream) {
-  if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || s < 1)
+                               void* const* dst, int b, int h, int s, int d, void* stream) {
+  if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || s < 1 || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   FwdPrepArgs args;
   for (int i = 0; i < 4; ++i) {
@@ -2068,48 +2389,29 @@ extern "C" int qa_jvp_fwd_prep(const void* const* src, const long long* strides,
       args.stride[i][j] = strides[3 * i + j];
     }
   }
-  const dim3 grid((s + FP_ROWS - 1) / FP_ROWS, b * h, 4);
-  jvp_fwd_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(args, h, s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d == 64 ? fwd_prep<64>(args, b, h, s, st) : fwd_prep<128>(args, b, h, s, st);
 }
 
-// B9 fast: q, tq [b, h, t, 64] f32 (strides in elements, rows contiguous;
-// pointers and strides 16-byte aligned) and the prep's k, v, tk, tv (bf16,
-// contiguous [b * h, s, 64]) -> O, tO [b * h, t, 64] and lse, mu [b * h, t]
-// f32.
+// B9 fast: q, tq [b, h, t, d] f32, d 64 or 128 (strides in elements, rows
+// contiguous; pointers and strides 16-byte aligned) and the prep's k, v,
+// tk, tv (bf16, contiguous [b * h, s, d]) -> O, tO [b * h, t, d] and lse, mu
+// [b * h, t] f32.
 extern "C" int qa_jvp_fwd_bf16(const void* q, long long q_sb, long long q_sh, long long q_st,
                                const void* tq, long long tq_sb, long long tq_sh, long long tq_st,
                                const void* k, const void* v, const void* tk, const void* tv,
                                void* o, void* to, void* lse, void* mu, int b, int h, int t, int s,
-                               int causal, float sm_scale, float qk_scale, void* stream) {
+                               int causal, int d, float sm_scale, float qk_scale, void* stream) {
   const int n_qt = (t + JF_ROWS - 1) / JF_ROWS;
-  const long long st[6] = {q_sb, q_sh, q_st, tq_sb, tq_sh, tq_st};
+  const long long qs[3] = {q_sb, q_sh, q_st}, tqs[3] = {tq_sb, tq_sh, tq_st};
   bool strided16 = aligned16(q) && aligned16(tq);
-  for (long long x : st) strided16 = strided16 && x % 4 == 0;
+  for (int i = 0; i < 3; ++i) strided16 = strided16 && qs[i] % 4 == 0 && tqs[i] % 4 == 0;
   if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || t < 1 || s < 1 ||
-      n_qt > 65535 || !strided16)
+      n_qt > 65535 || !strided16 || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  CUtensorMap k_map, v_map, tk_map, tv_map;
-  if (!tensor_map_3d(&k_map, k, b16, 2, b * h, s, D, JF_KEYS, D, sw) ||
-      !tensor_map_3d(&v_map, v, b16, 2, b * h, s, D, JF_KEYS, D, sw) ||
-      !tensor_map_3d(&tk_map, tk, b16, 2, b * h, s, D, JF_KEYS, D, sw) ||
-      !tensor_map_3d(&tv_map, tv, b16, 2, b * h, s, D, JF_KEYS, D, sw))
-    return static_cast<int>(cudaErrorNotSupported);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(jvp_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, JF_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  jvp_fwd_wgmma<<<dim3(b * h, n_qt), JF_THREADS, JF_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      k_map, v_map, tk_map, tv_map, static_cast<const float*>(q), q_sb, q_sh, q_st,
-      static_cast<const float*>(tq), tq_sb, tq_sh, tq_st, static_cast<float*>(o),
-      static_cast<float*>(to), static_cast<float*>(lse), static_cast<float*>(mu), h, t, s, causal,
-      sm_scale, qk_scale);
-  return static_cast<int>(cudaGetLastError());
+  auto* run = d == 64 ? &fwd_fast<64> : &fwd_fast<128>;
+  return run(q, qs, tq, tqs, k, v, tk, tv, o, to, lse, mu, b, h, t, s, causal, sm_scale, qk_scale,
+             static_cast<cudaStream_t>(stream));
 }
 
 // B10 fast: tO [bh, t, D] from O [bh, t, D] and lse [bh, t], all contiguous
@@ -2223,16 +2525,20 @@ extern "C" int qa_jvp_bwd_dkv(const void* q, const void* k, const void* v, const
                 static_cast<float*>(dtv), t, s, causal, sm_scale, qk_scale);
 }
 
-// Shared bytes one B11 fast block asks for (ops/jvp_tiling.py mirrors it).
-extern "C" int qa_jvp_bwd_dkv_smem_bytes() { return JD_SMEM; }
+// Shared bytes one B11 fast block asks for at head dim d, 64 or 128
+// (ops/jvp_tiling.py mirrors it); -1 for another d.
+extern "C" int qa_jvp_bwd_dkv_smem_bytes(int d) {
+  return d == 64 ? JdGeom<64>::SMEM : d == 128 ? JdGeom<128>::SMEM : -1;
+}
 
-// B11 fast's prep: src = q, k, v, tq, tk, tv, dO, dtO (q-side [bh, t, 64],
-// kv-side [bh, s, 64]) f32, rows = lse, mu, c, dhat [bh, t] f32, all contiguous and 16-byte
-// aligned -> dst (the same eight in bf16) and rows_out [4, bh, ld] (ld >= t,
-// a multiple of 4), in one launch.
+// B11 fast's prep: src = q, k, v, tq, tk, tv, dO, dtO (q-side [bh, t, d],
+// kv-side [bh, s, d], d 64 or 128) f32, rows = lse, mu, c, dhat [bh, t] f32,
+// all contiguous and 16-byte aligned -> dst (the same eight in bf16) and
+// rows_out [4, bh, ld] (ld >= t, a multiple of 4), in one launch.
 extern "C" int qa_jvp_bwd_prep(const void* const* src, void* const* dst, const void* const* rows,
-                               void* rows_out, int bh, int t, int s, int ld, void* stream) {
-  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4)
+                               void* rows_out, int bh, int t, int s, int ld, int d,
+                               void* stream) {
+  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4 || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   PrepArgs args;
   for (int i = 0; i < 8; ++i) {
@@ -2241,50 +2547,27 @@ extern "C" int qa_jvp_bwd_prep(const void* const* src, void* const* dst, const v
     args.dst[i] = static_cast<__nv_bfloat16*>(dst[i]);
   }
   for (int i = 0; i < 4; ++i) args.rows[i] = static_cast<const float*>(rows[i]);
-  const dim3 grid(((t > s ? t : s) + PREP_ROWS - 1) / PREP_ROWS, bh, 9);
-  jvp_bwd_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      args, static_cast<float*>(rows_out), bh, t, s, ld);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d == 64 ? bwd_prep<64>(args, rows_out, bh, t, s, ld, st)
+                 : bwd_prep<128>(args, rows_out, bh, t, s, ld, st);
 }
 
-// B11 fast: the prep's q, k, v, tq, tk, tv, dO, dtO (bf16, contiguous) and
-// rows [4, bh, ld] -> dK, dV, dtK, dtV [bh, s, D] f32.
+// B11 fast: the prep's q, k, v, tq, tk, tv, dO, dtO (bf16, contiguous; d 64
+// or 128) and rows [4, bh, ld] -> dK, dV, dtK, dtV [bh, s, d] f32 (at 128 in
+// two launches: dV and dtV, then dK and dtK).
 extern "C" int qa_jvp_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* tq,
                                    const void* tk, const void* tv, const void* dout,
                                    const void* dtout, const void* rows, void* dk, void* dv,
                                    void* dtk, void* dtv, int bh, int t, int s, int ld, int causal,
-                                   float sm_scale, float qk_scale, void* stream) {
+                                   int d, float sm_scale, float qk_scale, void* stream) {
   const int n_kt = (s + JD_KEYS - 1) / JD_KEYS;
-  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4 || n_kt > 65535)
+  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4 || n_kt > 65535 ||
+      (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  CUtensorMap q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map, row_map;
-  const long long rb = 4LL * ld;
-  const long long row_stride[3] = {rb, rb, rb * bh};
-  if (!tensor_map_3d(&q_map, q, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
-      !tensor_map_3d(&tq_map, tq, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
-      !tensor_map_3d(&do_map, dout, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
-      !tensor_map_3d(&dto_map, dtout, b16, 2, bh, t, D, JD_ROWS, D, sw) ||
-      !tensor_map_3d(&k_map, k, b16, 2, bh, s, D, 64, D, sw) ||
-      !tensor_map_3d(&tk_map, tk, b16, 2, bh, s, D, 64, D, sw) ||
-      !tensor_map_3d(&v_map, v, b16, 2, bh, s, D, 64, D, sw) ||
-      !tensor_map_3d(&tv_map, tv, b16, 2, bh, s, D, 64, D, sw) ||
-      !tensor_map_4d(&row_map, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bh, 1, t, row_stride, 1,
-                     JD_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE))
-    return static_cast<int>(cudaErrorNotSupported);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(jvp_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, JD_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  jvp_dkv_wgmma<<<dim3(bh, n_kt), JD_THREADS, JD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map, row_map,
-      static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dtk),
-      static_cast<float*>(dtv), t, s, causal, sm_scale, qk_scale);
-  return static_cast<int>(cudaGetLastError());
+  const void* const ops[8] = {q, tq, dout, dtout, k, tk, v, tv};
+  auto* run = d == 64 ? &dkv_fast<64> : &dkv_fast<128>;
+  return run(ops, rows, dk, dv, dtk, dtv, bh, t, s, ld, causal, sm_scale, qk_scale,
+             static_cast<cudaStream_t>(stream));
 }
 
 // B12 exact: dQ, dtQ [bh, t, D] (fast mode: qa_jvp_bwd_dq_bf16).
@@ -2301,42 +2584,25 @@ extern "C" int qa_jvp_bwd_dq(const void* q, const void* k, const void* v, const 
                 qk_scale);
 }
 
-// Shared bytes one B12 fast block asks for (ops/jvp_tiling.py mirrors it).
-extern "C" int qa_jvp_bwd_dq_smem_bytes() { return JQ_SMEM; }
+// Shared bytes one B12 fast block asks for at head dim d, 64 or 128
+// (ops/jvp_tiling.py mirrors it); -1 for another d.
+extern "C" int qa_jvp_bwd_dq_smem_bytes(int d) {
+  return d == 64 ? JqGeom<64>::SMEM : d == 128 ? JqGeom<128>::SMEM : -1;
+}
 
-// B12 fast: B11's prep's q, k, v, tq, tk, tv, dO, dtO (bf16, contiguous) and
-// rows [4, bh, ld] -> dQ, dtQ [bh, t, D] f32.
+// B12 fast: B11's prep's q, k, v, tq, tk, tv, dO, dtO (bf16, contiguous; d
+// 64 or 128) and rows [4, bh, ld] -> dQ, dtQ [bh, t, d] f32.
 extern "C" int qa_jvp_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* tq,
                                   const void* tk, const void* tv, const void* dout,
                                   const void* dtout, const void* rows, void* dq, void* dtq, int bh,
-                                  int t, int s, int ld, int causal, float sm_scale,
+                                  int t, int s, int ld, int causal, int d, float sm_scale,
                                   float qk_scale, void* stream) {
   const int n_qt = (t + JQ_ROWS - 1) / JQ_ROWS;
   if (bh < 1 || bh > 65535 || t < 1 || s < 1 || ld < t || ld % 4 || n_qt > 65535 ||
-      !aligned16(rows))
+      !aligned16(rows) || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  CUtensorMap q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map;
-  if (!tensor_map_3d(&q_map, q, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
-      !tensor_map_3d(&tq_map, tq, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
-      !tensor_map_3d(&do_map, dout, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
-      !tensor_map_3d(&dto_map, dtout, b16, 2, bh, t, D, JQ_ROWS, D, sw) ||
-      !tensor_map_3d(&k_map, k, b16, 2, bh, s, D, JQ_KEYS, D, sw) ||
-      !tensor_map_3d(&tk_map, tk, b16, 2, bh, s, D, JQ_KEYS, D, sw) ||
-      !tensor_map_3d(&v_map, v, b16, 2, bh, s, D, JQ_KEYS, D, sw) ||
-      !tensor_map_3d(&tv_map, tv, b16, 2, bh, s, D, JQ_KEYS, D, sw))
-    return static_cast<int>(cudaErrorNotSupported);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(jvp_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, JQ_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  jvp_dq_wgmma<<<dim3(bh, n_qt), JQ_THREADS, JQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      q_map, tq_map, do_map, dto_map, k_map, tk_map, v_map, tv_map,
-      static_cast<const float*>(rows), static_cast<float*>(dq), static_cast<float*>(dtq), t, s,
-      ld, causal, sm_scale, qk_scale);
-  return static_cast<int>(cudaGetLastError());
+  const void* const ops[8] = {q, tq, dout, dtout, k, tk, v, tv};
+  auto* run = d == 64 ? &dq_fast<64> : &dq_fast<128>;
+  return run(ops, rows, dq, dtq, bh, t, s, ld, causal, sm_scale, qk_scale,
+             static_cast<cudaStream_t>(stream));
 }

@@ -563,8 +563,8 @@ def dryrun_training(device_type: str = "cuda") -> dict:
     (__graft_entry__.py:242-260): one make_pipeline_train_step step over the
     ranks as a pipe mesh (n_layers = stages, d_model 128, 2 heads x 64,
     max_seq 128, batch 4, 2 microbatches). The Ulysses arm runs head_dim 64
-    where the dryrun takes 32: the kernels have head_dim 64 only (queue B,
-    B-f3). Returns each step's loss."""
+    where the dryrun takes 32: no kernel takes head_dim 32 (queue B, B-f3).
+    Returns each step's loss."""
     n = dist.get_world_size()
     data, model, context = n, 1, 1
     if data % 2 == 0:

@@ -26,21 +26,24 @@ def qk_scales(head_dim: int, sm_scale: float | None):
 # The head dims each kernel (or mode) takes on the card. CPU tensors take the
 # plain versions at any head dim; on CUDA tensors a wrapper checks its
 # kernel's entry here and raises, never falling back to the plain version.
-# ROADMAP B-f3 brings the rest to 128 (B15/B16, B9-B12, B1 fp32, B2/B3 exact).
+# ROADMAP B-f3 brings the rest to 128 (B10 in both modes, the exact modes of
+# B9, B11 and B12, and B2/B3 exact).
 KERNEL_HEAD_DIMS = {
     "B1 bf16": (64, 128),
-    "B1 fp32": (64,),
+    "B1 fp32": (64, 128),
     "B2/B3 fast": (64, 128),
     "B2/B3 exact": (64,),
     "B4": (64, 128),
     "B5": (64, 128),
     "B6": (64, 128),
     "B7/B8": (64, 128),
-    "B9-B12": (64,),
+    "B9/B11/B12 fast": (64, 128),
+    "B9/B11/B12 exact": (64,),
+    "B10": (64,),
     "B13": (64, 128),
     "B14": (64, 128),
-    "B15": (64,),
-    "B16": (64,),
+    "B15": (64, 128),
+    "B16": (64, 128),
 }
 
 

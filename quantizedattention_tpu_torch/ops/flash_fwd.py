@@ -45,8 +45,9 @@ geometry is ops/flash_tiling.py's.
 GQA is native: k/v carry h_kv heads with h_kv dividing h, and q head
 h = kv_head * rep + g reads kv head `kv_head`.
 
-On the card the bf16 mode takes head dim 64 or 128 (BASELINE config 2's
-two), the fp32 mode 64; ops/common.py:check_head_dim refuses the rest.
+On the card both modes take head dim 64 or 128 (BASELINE config 2's two;
+the fp32 mode's 128 is the rCM DiT's at DIT128_CFG); ops/common.py:
+check_head_dim refuses the rest.
 
 The fp32 mode (flash_fwd.py:255-260, `precision="fp32"`; the primal of
 `attention_jvp` and the rCM prepass) is a second kernel of the same file with
@@ -160,9 +161,9 @@ ARGTYPES = {  # the C entries of csrc/flash_fwd.cu
     "qa_flash_fwd": [_PTR, _I64, _I64, _I64, _I32] + [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR]
                     + [_I32] * 9 + [ctypes.c_float] + [_I32] * 3 + [ctypes.c_float] * 2 + [_PTR],
     "qa_flash_kv_to_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR, _PTR] + [_I32] * 4 + [_PTR],
-    "qa_flash_kv_split_tf32": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 4 + [_I32] * 3 + [_PTR],
+    "qa_flash_kv_split_tf32": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 4 + [_I32] * 4 + [_PTR],
     "qa_flash_fwd_f32": [_PTR, _I64, _I64, _I64] + [_PTR] * 6 + [_I32] * 6
-                        + [ctypes.c_float] + [_I32] * 2 + [ctypes.c_float] * 2 + [_PTR],
+                        + [ctypes.c_float] + [_I32] * 3 + [ctypes.c_float] * 2 + [_PTR],
 }
 
 
@@ -283,13 +284,15 @@ def kv_split_tf32_plain(k, v):
 
 def kv_split_tf32(k, v):
     """`kv_split_tf32_plain`'s result, byte for byte, from one kernel launch
-    for CUDA tensors (f32 k, v [b, h_kv, s, 64], rows contiguous, 16-byte
-    aligned); CPU tensors take the plain version. `kv_split_tf32.launches`
+    for CUDA tensors (f32 k, v [b, h_kv, s, d], d 64 or 128, rows contiguous,
+    16-byte aligned); CPU tensors take the plain version. `kv_split_tf32.launches`
     counts kernel launches."""
     if k.device.type == "cpu":
         return kv_split_tf32_plain(k, v)
     b, h_kv, s, d = k.shape
     check_head_dim("B1 fp32", d)
+    if k.device.type != "cuda" or v.device != k.device:
+        raise ValueError(f"expected CUDA tensors on one device, got {k.device} and {v.device}")
     if (k.dtype, v.dtype, v.shape) != (torch.float32, torch.float32, k.shape) \
             or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"kernel takes f32 k, v [b, h_kv, s, {d}] with rows contiguous")
@@ -300,7 +303,8 @@ def kv_split_tf32(k, v):
     vst = torch.empty_like(vbt)
     status = _kernel("qa_flash_kv_split_tf32")(
         k.data_ptr(), *_strides(k), v.data_ptr(), *_strides(v), kb.data_ptr(), ks.data_ptr(),
-        vbt.data_ptr(), vst.data_ptr(), b, h_kv, s, torch.cuda.current_stream(k.device).cuda_stream)
+        vbt.data_ptr(), vst.data_ptr(), b, h_kv, s, d,
+        torch.cuda.current_stream(k.device).cuda_stream)
     check_status(status, "flash_fwd kv_split_tf32")
     kv_split_tf32.launches += 1
     return kb, ks, vbt, vst
@@ -309,7 +313,7 @@ def kv_split_tf32(k, v):
 def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="eps", beta=BETA,
                              tol=APPROX_MAX_TOL):
     """The fp32 flash-attention forward: for CUDA tensors one `kv_split_tf32`
-    launch and the 3xTF32 kernel (head_dim 64, any rep, b*h <= 65535; q, k, v
+    launch and the 3xTF32 kernel (head_dim 64 or 128, any rep, b*h <= 65535; q, k, v
     read through their strides, rows contiguous), or
     `flash_attention_fwd_plain(precision="fp32")` for CPU tensors; correction,
     beta and tol as `flash_attention_fwd`'s. Returns (O f32 [b, h, t, d], lse
@@ -333,7 +337,7 @@ def flash_attention_fwd_fp32(q, k, v, causal=False, sm_scale=None, correction="e
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     status = _kernel("qa_flash_fwd_f32")(
         qf.data_ptr(), *_strides(qf), kb.data_ptr(), ks.data_ptr(), vbt.data_ptr(),
-        vst.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, h_kv, t, s, int(causal), qk_scale,
+        vst.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, h_kv, t, s, int(causal), qk_scale, d,
         RULES[correction], correction_grain(t, s, h // h_kv, "fp32"), beta, tol,
         torch.cuda.current_stream(dev).cuda_stream,
     )

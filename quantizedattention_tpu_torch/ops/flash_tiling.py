@@ -13,10 +13,11 @@ stages (K and V of one tile a stage). The constants mirror the kernel's,
 and `shared_bytes` is held against the kernel's own count on the card.
 
 The fp32 mode (the third section) takes FP32_ROWS positions of one q head a
-block, two warpgroups of 64, and walks 64-key tiles of K big and small and
-V^T big and small through a ring of FP32_STAGES TMA stages; its K/V prep
-writes V^T with FP32_KV_COLS-aligned rows and the keys of each group of 8 in
-the order TF32_A_COLUMNS.
+block, two warpgroups of 64, and walks tiles of `fp32_keys(d)` keys (64 at
+head dim 64, 32 at 128) of K big and small and V^T big and small through a
+ring of `fp32_stages(d)` TMA stages (64 KB each at either head dim); its
+K/V prep writes V^T with FP32_KV_COLS-aligned rows and the keys of each
+group of 8 in the order TF32_A_COLUMNS.
 
 The backward (the second section) streams 64-row tiles through rings of TMA
 stages in both kernels. B2 takes 128 keys a block (two warpgroups of 64) and
@@ -30,7 +31,7 @@ B1 bf16 and the backward's fast mode take head dim 64 or 128 (HEAD_DIMS):
 a bf16 row of 128 dims is two 64-column panels, each its own 128-byte
 swizzled tile. At 128 the forward walks keys in tiles of 64 (`kv_tile`),
 and every tile's bytes double; the rows, q tiles and walks are the same.
-The fp32 mode takes 64 only.
+So does the fp32 mode (FP32_HEAD_DIMS).
 """
 
 from __future__ import annotations
@@ -163,22 +164,37 @@ def bwd_grids(bh_kv: int, rep: int, t: int, s: int,
 # The forward's fp32 mode (3xTF32)
 # --------------------------------------------------------------------------
 
+FP32_HEAD_DIMS = KERNEL_HEAD_DIMS["B1 fp32"]
 FP32_ROWS = 128  # q positions a block, one q head: two warpgroups of 64
-FP32_KEYS = 64  # keys a tile
-FP32_STAGES = 3  # tiles in flight (each K big, K small, V^T big, V^T small: 64 KB)
 FP32_KV_COLS = 8  # V^T rows are padded to a multiple of this many keys
 # Column j of each group of 8 keys of V^T holds key TF32_A_COLUMNS[j]: a
 # TF32 A fragment built from an accumulator holds its columns 2c and 2c + 1
 # as fragment columns c and c + 4 (hopper.cuh's tf32_a_column).
 TF32_A_COLUMNS = (0, 2, 4, 6, 1, 3, 5, 7)
-_F32_BLOCK = 64 * 128  # bytes of a [64 x 32] f32 block
 
 
-def fp32_shared_bytes() -> int:
+def fp32_keys(head_dim: int) -> int:
+    """Keys a tile of the fp32 mode: 64 at head dim 64; 32 at 128, where Q
+    big's fragments and O take 64 registers a thread each."""
+    check_head_dim("B1 fp32", head_dim)
+    return 64 if head_dim == 64 else 32
+
+
+def fp32_stages(head_dim: int) -> int:
+    """Tiles in flight: 3 at head dim 64, 2 at 128 (Q small is 64 KB)."""
+    check_head_dim("B1 fp32", head_dim)
+    return 3 if head_dim == 64 else 2
+
+
+def fp32_shared_bytes(head_dim: int) -> int:
     """The fp32 kernel's dynamic shared memory: Q small of both warpgroups
-    (two [64 x 32] f32 blocks each), the ring (eight blocks a stage), 128
-    bytes of mbarriers and release counters, 1024 bytes of alignment."""
-    return 4 * _F32_BLOCK + FP32_STAGES * 8 * _F32_BLOCK + 128 + 1024
+    ([64, head_dim] f32 each) and Q big's dims past 64 (at 128: the first 64
+    are register fragments), the ring (a stage: K big, K small, V^T big, V^T
+    small of one tile, f32), 128 bytes of mbarriers and release counters,
+    1024 bytes of alignment."""
+    stage = 4 * fp32_keys(head_dim) * head_dim * 4
+    q = 2 * 64 * (2 * head_dim - 64) * 4
+    return q + fp32_stages(head_dim) * stage + 128 + 1024
 
 
 def fp32_kv_cols(s: int) -> int:

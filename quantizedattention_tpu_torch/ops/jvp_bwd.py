@@ -11,7 +11,9 @@ the VJP of (q, k, v, tq, tk, tv) -> (O, tO): from the forward's residuals
                 row stride; `attention_jvp_bwd` runs it once a fast call and
                 hands it to both kernels;
   jvp_bwd_dkv   B11, dK, dV, dtK, dtV per key tile (32 keys exact, 128 fast)
-                over all q tiles;
+                over all q tiles (fast at head dim 128: one call launches the
+                kernel twice, for dV and dtV, then for dK and dtK, and counts
+                both launches);
   jvp_bwd_dq    B12, dQ, dtQ per q tile (32 rows exact, 128 fast) over all
                 kv tiles;
 
@@ -161,6 +163,7 @@ def jvp_bwd_prep(ops: JvpBwdOperands):
     if ops.q.device.type == "cpu":
         return jvp_bwd_prep_plain(ops)
     dev, bh, t, s, _ = _launch_args(ops)
+    d = ops.q.shape[2]
     ld = jvp_tiling.row_stride(t)
     outs = [torch.empty(x.shape, dtype=torch.bfloat16, device=dev) for x in ops[:8]]
     rows = torch.empty((4, bh, ld), dtype=torch.float32, device=dev)
@@ -168,7 +171,7 @@ def jvp_bwd_prep(ops: JvpBwdOperands):
     status = _kernels().qa_jvp_bwd_prep(
         arr(*(x.data_ptr() for x in ops[:8])), arr(*(x.data_ptr() for x in outs)),
         (ctypes.c_void_p * 4)(*(x.data_ptr() for x in ops[8:12])), rows.data_ptr(), bh, t, s,
-        ld, torch.cuda.current_stream(dev).cuda_stream)
+        ld, d, torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "jvp_bwd prep")
     jvp_bwd_prep.launches += 1
     return tuple(outs), rows[..., :t]
@@ -188,10 +191,10 @@ def _kernels():
     lib = load_kernel("jvp")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.qa_jvp_bwd_dkv.argtypes = [ptr] * 16 + [i32] * 5 + [f32, f32, ptr]
-    lib.qa_jvp_bwd_dkv_bf16.argtypes = [ptr] * 13 + [i32] * 5 + [f32, f32, ptr]
-    lib.qa_jvp_bwd_prep.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.qa_jvp_bwd_dkv_bf16.argtypes = [ptr] * 13 + [i32] * 6 + [f32, f32, ptr]
+    lib.qa_jvp_bwd_prep.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.qa_jvp_bwd_dq.argtypes = [ptr] * 14 + [i32] * 5 + [f32, f32, ptr]
-    lib.qa_jvp_bwd_dq_bf16.argtypes = [ptr] * 11 + [i32] * 5 + [f32, f32, ptr]
+    lib.qa_jvp_bwd_dq_bf16.argtypes = [ptr] * 11 + [i32] * 6 + [f32, f32, ptr]
     for fn in (lib.qa_jvp_bwd_dkv, lib.qa_jvp_bwd_dkv_bf16, lib.qa_jvp_bwd_prep,
                lib.qa_jvp_bwd_dq, lib.qa_jvp_bwd_dq_bf16):
         fn.restype = ctypes.c_int
@@ -205,7 +208,8 @@ def _launch_args(ops: JvpBwdOperands):
     s = ops.k.shape[1]
     if any(x.dtype != torch.float32 for x in ops[:12]):
         raise ValueError("the JVP backward kernels take float32 operands (see jvp_bwd_operands)")
-    _, dev = kernel_args(1, bh, d, *ops[:12])
+    _, dev = kernel_args("B9/B11/B12 fast" if ops.fast else "B9/B11/B12 exact", 1, bh, d,
+                         *ops[:12])
     tail = (bh, t, s, int(ops.causal), int(ops.fast), ops.sm_scale, ops.qk_scale,
             torch.cuda.current_stream(dev).cuda_stream)
     return dev, bh, t, s, tail
@@ -235,13 +239,13 @@ def jvp_bwd_dkv(ops: JvpBwdOperands, prep=None):
         jvp_tiling.dkv_grid(bh, t, s)
         ptrs, sizes = _fast_args(ops, prep)
         status = _kernels().qa_jvp_bwd_dkv_bf16(*ptrs, *(x.data_ptr() for x in outs), *sizes,
-                                                int(ops.causal), ops.sm_scale, ops.qk_scale,
-                                                tail[-1])
+                                                int(ops.causal), ops.q.shape[2], ops.sm_scale,
+                                                ops.qk_scale, tail[-1])
     else:
         status = _kernels().qa_jvp_bwd_dkv(*(x.data_ptr() for x in ops[:12]),
                                            *(x.data_ptr() for x in outs), *tail)
     check_status(status, "jvp_bwd_dkv")
-    jvp_bwd_dkv.launches += 1
+    jvp_bwd_dkv.launches += jvp_tiling.dkv_parts(ops.q.shape[2]) if ops.fast else 1
     return tuple(outs)
 
 
@@ -257,8 +261,8 @@ def jvp_bwd_dq(ops: JvpBwdOperands, prep=None):
         jvp_tiling.q_blocks(bh, t)
         ptrs, sizes = _fast_args(ops, prep)
         status = _kernels().qa_jvp_bwd_dq_bf16(*ptrs, *(x.data_ptr() for x in outs), *sizes,
-                                               int(ops.causal), ops.sm_scale, ops.qk_scale,
-                                               tail[-1])
+                                               int(ops.causal), ops.q.shape[2], ops.sm_scale,
+                                               ops.qk_scale, tail[-1])
     else:
         status = _kernels().qa_jvp_bwd_dq(*(x.data_ptr() for x in ops[:12]),
                                           *(x.data_ptr() for x in outs), *tail)
@@ -276,9 +280,9 @@ def attention_jvp_bwd(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal=False
                       sm_scale=None, fast=False):
     """VJP of (q, k, v, tq, tk, tv) -> (O, tO). Returns
     (dq, dk, dv, dtq, dtk, dtv) f32 in the inputs' shapes. CUDA tensors run
-    B11 and B12 (head_dim 64; fast mode on one `jvp_bwd_prep` launch shared
-    by both); CPU tensors their plain versions (fast mode on the plain prep's
-    operands)."""
+    B11 and B12 (head_dim 64 or 128 in fast mode, on one `jvp_bwd_prep`
+    launch shared by both; 64 in exact mode); CPU tensors their plain
+    versions (fast mode on the plain prep's operands)."""
     ops = jvp_bwd_operands(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal, sm_scale, fast)
     prep = jvp_bwd_prep(ops) if fast else None  # one prep for both fast kernels
     dk, dv, dtk, dtv = jvp_bwd_dkv(ops, prep)

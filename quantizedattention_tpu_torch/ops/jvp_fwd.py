@@ -40,8 +40,6 @@ from quantizedattention_tpu_torch.ops.common import (
 from quantizedattention_tpu_torch.ops.flash_fwd import _kernel_ready, _strides
 from quantizedattention_tpu_torch.utils.runtime import check_status, require_cuda
 
-HEAD_DIM = 64  # the JVP kernels' compiled head dim
-
 
 def check_jvp_args(q, k, v, tq, tk, tv) -> None:
     """The JVP family's shapes: q/tq [b, h, t, d], k/v/tk/tv [b, h, s, d]."""
@@ -67,11 +65,11 @@ def rounder(fast: bool):
     return lambda x: x
 
 
-def kernel_args(b: int, h: int, d: int, *tensors):
+def kernel_args(kernel: str, b: int, h: int, d: int, *tensors):
     """Check what the JVP kernels' contiguous entries take (B9, B11 and B12
-    exact, B10 fast); returns the tensors as contiguous f32 and their
-    device."""
-    check_head_dim("B9-B12", d)
+    in either mode, B10 fast; `kernel` the entry of KERNEL_HEAD_DIMS);
+    returns the tensors as contiguous f32 and their device."""
+    check_head_dim(kernel, d)
     if b * h > 65535:
         raise ValueError(f"the JVP kernels take b*h <= 65535; got b*h={b * h}")
     out = [x.float().contiguous() for x in tensors]
@@ -102,8 +100,8 @@ def attention_jvp_fwd_plain(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fa
 _PTR, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # the C entries of csrc/jvp.cu this module calls
     "qa_jvp_fwd": [_PTR] * 10 + [_I32] * 5 + [_F32] * 2 + [_PTR],
-    "qa_jvp_fwd_prep": [_PTR] * 3 + [_I32] * 3 + [_PTR],
-    "qa_jvp_fwd_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 8 + [_I32] * 5 + [_F32] * 2
+    "qa_jvp_fwd_prep": [_PTR] * 3 + [_I32] * 4 + [_PTR],
+    "qa_jvp_fwd_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 8 + [_I32] * 6 + [_F32] * 2
                        + [_PTR],
 }
 
@@ -139,18 +137,18 @@ def jvp_fwd_prep(k, v, tk, tv):
     if k.device.type == "cpu":
         return jvp_fwd_prep_plain(k, v, tk, tv)
     b, h, s, d = k.shape
-    check_head_dim("B9-B12", d)
+    check_head_dim("B9/B11/B12 fast", d)
     if any(x.shape != k.shape for x in (v, tk, tv)):
-        raise ValueError(f"kernel takes k, v, tk, tv of one shape [b, h, s, {HEAD_DIM}]; got "
+        raise ValueError(f"kernel takes k, v, tk, tv of one shape [b, h, s, {d}]; got "
                          f"{[tuple(x.shape) for x in (k, v, tk, tv)]}")
-    jvp_tiling.fwd_prep_grid(b * h, s)
+    jvp_tiling.fwd_prep_grid(b * h, s, d)
     ins = [_kernel_ready(x, (torch.float32,)) for x in (k, v, tk, tv)]
     dev = _one_device(ins)
     outs = [torch.empty((b * h, s, d), dtype=torch.bfloat16, device=dev) for _ in range(4)]
     status = _kernel("qa_jvp_fwd_prep")(
         (ctypes.c_void_p * 4)(*(x.data_ptr() for x in ins)),
         (ctypes.c_longlong * 12)(*(st for x in ins for st in _strides(x))),
-        (ctypes.c_void_p * 4)(*(x.data_ptr() for x in outs)), b, h, s,
+        (ctypes.c_void_p * 4)(*(x.data_ptr() for x in outs)), b, h, s, d,
         torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "jvp_fwd prep")
     jvp_fwd_prep.launches += 1
@@ -160,7 +158,8 @@ def jvp_fwd_prep(k, v, tk, tv):
 def attention_jvp_fwd(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fast=False):
     """B9: (O, tO f32 [b, h, t, d], lse, mu f32 [b, h, t]).
 
-    CUDA tensors launch the kernel (head_dim 64) or raise: fast mode reads q
+    CUDA tensors launch the kernel (head_dim 64 or 128 in fast mode, 64 in
+    exact mode) or raise: fast mode reads q
     and tq through their strides (rows contiguous) after one `jvp_fwd_prep`
     launch for k, v, tk and tv; exact mode takes contiguous f32 copies. CPU
     tensors take `attention_jvp_fwd_plain`. `attention_jvp_fwd.launches`
@@ -173,13 +172,13 @@ def attention_jvp_fwd(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fast=Fal
     s = k.shape[2]
     sm_scale, qk_scale = qk_scales(d, sm_scale)
     if fast:
-        check_head_dim("B9-B12", d)
+        check_head_dim("B9/B11/B12 fast", d)
         jvp_tiling.q_blocks(b * h, t)
         qf, tqf = _kernel_ready(q, (torch.float32,)), _kernel_ready(tq, (torch.float32,))
         kv = jvp_fwd_prep(k, v, tk, tv)
         dev = _one_device([qf, tqf, *kv])
     else:
-        ins, dev = kernel_args(b, h, d, q, k, v, tq, tk, tv)
+        ins, dev = kernel_args("B9/B11/B12 exact", b, h, d, q, k, v, tq, tk, tv)
     o = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
     to = torch.empty_like(o)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
@@ -189,7 +188,7 @@ def attention_jvp_fwd(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fast=Fal
     if fast:
         status = _kernel("qa_jvp_fwd_bf16")(
             qf.data_ptr(), *_strides(qf), tqf.data_ptr(), *_strides(tqf),
-            *(x.data_ptr() for x in kv), *outs, b, h, t, s, int(causal), sm_scale, qk_scale,
+            *(x.data_ptr() for x in kv), *outs, b, h, t, s, int(causal), d, sm_scale, qk_scale,
             stream)
     else:
         status = _kernel()(*(x.data_ptr() for x in ins), *outs, b * h, t, s, int(causal), 0,

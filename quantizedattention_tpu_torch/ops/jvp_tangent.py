@@ -31,7 +31,6 @@ from quantizedattention_tpu_torch.ops.flash_fwd import _kernel_ready, _strides, 
 from quantizedattention_tpu_torch.ops.jvp_fwd import check_jvp_args, kernel_args, rounder
 from quantizedattention_tpu_torch.utils.runtime import check_status
 
-HEAD_DIM = jvp_tiling.HEAD_DIM  # the kernels' compiled head dim
 
 
 def _check_residuals(q, o, lse):
@@ -90,9 +89,9 @@ def tangent_prep(k, v, tk, tv):
     if k.device.type == "cpu":
         return tangent_prep_plain(k, v, tk, tv)
     b, h, s, d = k.shape
-    check_head_dim("B9-B12", d)
+    check_head_dim("B10", d)
     if any(x.shape != k.shape for x in (v, tk, tv)):
-        raise ValueError(f"kernel takes k, v, tk, tv [b, h, s, {HEAD_DIM}] of one shape")
+        raise ValueError(f"kernel takes k, v, tk, tv [b, h, s, {d}] of one shape")
     ins = [_kernel_ready(x, (torch.float32,)) for x in (k, v, tk, tv)]
     dev = ins[0].device
     if any(x.device != dev for x in ins):
@@ -114,7 +113,7 @@ def _launch_exact(q, k, v, o, lse, tq, tk, tv, causal, sm_scale):
     split, the merge launch."""
     b, h, t, d = q.shape
     s = k.shape[2]
-    check_head_dim("B9-B12", d)
+    check_head_dim("B10", d)
     sm_scale, qk_scale = qk_scales(d, sm_scale)
     qf, tqf, of = (_kernel_ready(x, (torch.float32,)) for x in (q, tq, o))
     dev = qf.device
@@ -144,7 +143,7 @@ def _launch_fast(q, k, v, o, lse, tq, tk, tv, causal, sm_scale):
     b, h, t, d = q.shape
     s = k.shape[2]
     sm_scale, qk_scale = qk_scales(d, sm_scale)
-    ins, dev = kernel_args(b, h, d, q, k, v, tq, tk, tv, o, lse)
+    ins, dev = kernel_args("B10", b, h, d, q, k, v, tq, tk, tv, o, lse)
     to = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
     status = _kernel()(
         *(x.data_ptr() for x in ins), to.data_ptr(), b * h, t, s, int(causal), 1, sm_scale,

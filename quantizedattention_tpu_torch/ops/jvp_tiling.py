@@ -7,55 +7,82 @@ prep (`jvp_fwd_prep_kernel`), and the tangent's exact mode (B10 exact,
 Pure Python, so the CPU tests can hold it. A B11 block takes DKV_KEYS keys
 of one (batch * head), two warpgroups of 64, with K, tK, V and tV resident
 in shared memory, and walks the Q_ROWS-row q tiles that see its keys
-(causal: from `first_q_tile` on) through a ring of DKV_STAGES TMA stages,
-each the bf16 Q, tQ, dO and dtO tiles and the tile's four row terms (lse,
-mu, c, dhat). The prep writes the row terms `row_stride(t)` floats apart
-(TMA wants 16-byte row starts). The grid is (b * h, key tiles); grid row y
-holds keys y * DKV_KEYS .., so key tile 0 (the most q tiles) starts first.
+(causal: from `first_q_tile` on) through a ring of `dkv_stages(d)` TMA
+stages, each the bf16 Q, tQ, dO and dtO tiles and the tile's four row terms
+(lse, mu, c, dhat). The prep writes the row terms `row_stride(t)` floats
+apart (TMA wants 16-byte row starts). The grid is (b * h, key tiles); grid
+row y holds keys y * DKV_KEYS .., so key tile 0 (the most q tiles) starts
+first. At head dim 128 the four outputs take more registers than a thread
+has: a call launches the grid `dkv_parts(d)` times, once for dV and dtV and
+once for dK and dtK.
 
 B9 and B12 walk the other way: a block takes Q_BLOCK q rows of one (batch *
 head), two warpgroups of 64, and walks the key tiles its rows see (causal:
-up to its last row below t; `key_tiles`), FWD_KEYS keys a tile for B9 and
-DQ_KEYS for B12, K, tK, V and tV a stage, through rings of FWD_STAGES and
-DQ_STAGES stages. B12 keeps the block's Q,
-tQ, dO and dtO resident (B11's prep writes them, and the row terms, for
-both kernels); B9 keeps Q and tQ, rounded in the kernel, and reads K, tK, V
-and tV from its prep's contiguous bf16 copies ([b * h, s, 64] each, one
-launch for the four, FWD_PREP_ROWS keys a block). Their grids are (b * h, q
-blocks); grid row y holds rows (n - 1 - y) * Q_BLOCK .., so the blocks with
-the most key tiles start first. The constants mirror the kernels', and
-every shared-byte count is held against the kernel's own on the card.
+up to its last row below t; `key_tiles`), `fwd_keys(d)` keys a tile for B9
+and DQ_KEYS for B12, K, tK, V and tV a stage, through rings of FWD_STAGES
+and `dq_stages(d)` stages. B12 keeps the block's Q, tQ, dO and dtO resident
+(B11's prep writes them, and the row terms, for both kernels); B9 keeps Q
+and tQ, rounded in the kernel, and reads K, tK, V and tV from its prep's
+contiguous bf16 copies ([b * h, s, d] each, one launch for the four,
+`fwd_prep_rows(d)` keys a block). Their grids are (b * h, q blocks); grid
+row y holds rows (n - 1 - y) * Q_BLOCK .., so the blocks with the most key
+tiles start first. The constants mirror the kernels', and every shared-byte
+count is held against the kernel's own on the card.
 
-B10 exact (the last section) takes TANGENT_ROWS q rows of one (batch *
-head) a block, as B9, and walks TANGENT_KEYS-key tiles. With lse given its
-sums over keys need no rescaling, so the key tiles may be split into z
-ranges of `per` tiles (`tangent_grid`: enough blocks to fill the card once,
-where the q blocks alone do not), each range a block of its own; a second
-launch adds the ranges' sums in range order. Its grid is (q blocks, b * h,
-z); grid column x holds rows (n - 1 - x) * TANGENT_ROWS .., the blocks with
-the most key tiles first.
+Head dim: the fast kernels take 64 or 128 (HEAD_DIMS); at 128 a bf16 row is
+two 64-dim panels, each its own 128-byte swizzled TMA box, and every tile's
+bytes double, so the rings hold fewer stages; the rows, tiles and walks are
+the same but for B9's 32-key tiles. B10 exact (the last section) takes 64
+only.
+
+B10 exact takes TANGENT_ROWS q rows of one (batch * head) a block, as B9,
+and walks TANGENT_KEYS-key tiles. With lse given its sums over keys need no
+rescaling, so the key tiles may be split into z ranges of `per` tiles
+(`tangent_grid`: enough blocks to fill the card once, where the q blocks
+alone do not), each range a block of its own; a second launch adds the
+ranges' sums in range order. Its grid is (q blocks, b * h, z); grid column
+x holds rows (n - 1 - x) * TANGENT_ROWS .., the blocks with the most key
+tiles first.
 """
 
 from __future__ import annotations
 
+from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
 from quantizedattention_tpu_torch.ops.flash_tiling import MAX_Q_TILES, lse_row_stride
 
-HEAD_DIM = 64
+HEAD_DIMS = KERNEL_HEAD_DIMS["B9/B11/B12 fast"]
 DKV_KEYS = 128  # keys a block: two warpgroups of 64
 Q_ROWS = 32  # q rows a streamed tile
-DKV_STAGES = 6  # q-side tiles in flight
 ROW_TERMS = 4  # lse, mu, c, dhat
 MAX_HEADS = 65535  # b * h, the grid's x extent
-_TILE = Q_ROWS * HEAD_DIM * 2  # bytes of a bf16 q-side tile
 
 
-def dkv_shared_bytes() -> int:
-    """B11 fast's dynamic shared memory: K, tK, V, tV [128, 64] bf16, the
-    ring (four bf16 tiles and four rows of Q_ROWS floats a stage), 128 bytes
-    of mbarriers and release counters, 1024 bytes to align the swizzled
-    tiles."""
-    resident = 4 * DKV_KEYS * HEAD_DIM * 2
-    return resident + DKV_STAGES * (4 * _TILE + ROW_TERMS * Q_ROWS * 4) + 128 + 1024
+def _fast(head_dim: int) -> int:
+    check_head_dim("B9/B11/B12 fast", head_dim)
+    return head_dim
+
+
+def dkv_stages(head_dim: int) -> int:
+    """B11's q-side tiles in flight: 6 at head dim 64, 3 at 128 (K, tK, V,
+    tV resident take 128 KB there)."""
+    return 6 if _fast(head_dim) == 64 else 3
+
+
+def dkv_parts(head_dim: int) -> int:
+    """Launches of B11's grid a call: 1 at head dim 64 (all four outputs), 2
+    at 128 (dV and dtV, then dK and dtK: four m64 x 128 f32 sums would take
+    256 registers a thread)."""
+    return 1 if _fast(head_dim) == 64 else 2
+
+
+def dkv_shared_bytes(head_dim: int) -> int:
+    """B11 fast's dynamic shared memory: K, tK, V, tV [128, d] bf16, the ring
+    (four bf16 tiles [Q_ROWS, d] and four rows of Q_ROWS floats a stage), 128
+    bytes of mbarriers and release counters, 1024 bytes to align the
+    swizzled tiles."""
+    resident = 4 * DKV_KEYS * _fast(head_dim) * 2
+    tile = Q_ROWS * head_dim * 2
+    return resident + dkv_stages(head_dim) * (4 * tile + ROW_TERMS * Q_ROWS * 4) + 128 + 1024
 
 
 def row_stride(t: int) -> int:
@@ -85,27 +112,43 @@ def dkv_grid(bh: int, t: int, s: int) -> tuple[int, int]:
 # --------------------------------------------------------------------------
 
 Q_BLOCK = 128  # q rows a B9 or B12 block: two warpgroups of 64
-FWD_KEYS = 64  # keys a B9 tile (K, tK, V, tV)
 DQ_KEYS = 32  # keys a B12 tile
-FWD_STAGES = 256 // FWD_KEYS  # B9's tiles in flight
-DQ_STAGES = 256 // DQ_KEYS  # B12's tiles in flight
-FWD_PREP_ROWS = 256  # keys of each operand a B9 prep block converts
+FWD_STAGES = 4  # B9's tiles in flight
 _BAR_AREA = 256  # mbarriers and release counters
-_Q_TILE = Q_BLOCK * HEAD_DIM * 2  # bytes of a block's bf16 Q (tQ, dO, dtO)
 
 
-def fwd_shared_bytes() -> int:
+def fwd_keys(head_dim: int) -> int:
+    """Keys a B9 tile (K, tK, V, tV): 64 at head dim 64, 32 at 128 (O and
+    tO's sum take 128 registers a thread there)."""
+    return 64 if _fast(head_dim) == 64 else 32
+
+
+def dq_stages(head_dim: int) -> int:
+    """B12's tiles in flight: 8 (256 keys) at head dim 64, 3 at 128 (its
+    resident Q, tQ, dO, dtO take 128 KB there)."""
+    return 256 // DQ_KEYS if _fast(head_dim) == 64 else 3
+
+
+def fwd_prep_rows(head_dim: int) -> int:
+    """Keys of each operand a B9 prep block converts: 256 at head dim 64,
+    128 at 128 (head_dim / 8 threads a row)."""
+    return 8 * 256 // (_fast(head_dim) // 8)
+
+
+def fwd_shared_bytes(head_dim: int) -> int:
     """B9 fast's dynamic shared memory: the block's bf16 Q and tQ, the ring
     (bf16 K, tK, V, tV tiles a stage), the barrier area, 1024 bytes to align
     the swizzled tiles."""
-    return 2 * _Q_TILE + FWD_STAGES * 4 * FWD_KEYS * HEAD_DIM * 2 + _BAR_AREA + 1024
+    q_tile = Q_BLOCK * _fast(head_dim) * 2
+    return 2 * q_tile + FWD_STAGES * 4 * fwd_keys(head_dim) * head_dim * 2 + _BAR_AREA + 1024
 
 
-def dq_shared_bytes() -> int:
+def dq_shared_bytes(head_dim: int) -> int:
     """B12 fast's dynamic shared memory: the block's bf16 Q, tQ, dO and dtO,
     the ring (bf16 K, tK, V, tV tiles a stage), the barrier area, 1024 bytes
     of alignment."""
-    return 4 * _Q_TILE + DQ_STAGES * 4 * DQ_KEYS * HEAD_DIM * 2 + _BAR_AREA + 1024
+    q_tile = Q_BLOCK * _fast(head_dim) * 2
+    return (4 * q_tile + dq_stages(head_dim) * 4 * DQ_KEYS * head_dim * 2 + _BAR_AREA + 1024)
 
 
 def q_blocks(bh: int, t: int) -> tuple[int, int]:
@@ -124,30 +167,32 @@ def block_rows(y: int, n_qb: int) -> int:
 
 
 def key_tiles(q0: int, t: int, s: int, causal: bool, keys: int) -> int:
-    """The tiles of `keys` keys (FWD_KEYS or DQ_KEYS) a block whose rows
-    start at q0 walks: causal keys past its last row below t are never
+    """The tiles of `keys` keys (`fwd_keys(d)` or DQ_KEYS) a block whose
+    rows start at q0 walks: causal keys past its last row below t are never
     visible."""
     hi = min(s, t, q0 + Q_BLOCK) if causal else s
     return -(-hi // keys)
 
 
-def fwd_prep_grid(bh: int, s: int) -> tuple[int, int, int]:
+def fwd_prep_grid(bh: int, s: int, head_dim: int) -> tuple[int, int, int]:
     """B9's K-side prep grid (key blocks, b * h, the four operands)."""
+    rows = fwd_prep_rows(head_dim)
     if not 1 <= bh <= MAX_HEADS or s < 1:
         raise ValueError(f"kernel takes 1 to {MAX_HEADS} heads (b*h) and s >= 1; got b*h={bh}, "
                          f"s={s}")
-    return -(-s // FWD_PREP_ROWS), bh, 4
+    return -(-s // rows), bh, 4
 
 
 # --------------------------------------------------------------------------
 # B10 exact: 3xTF32 q blocks over ranges of key tiles
 # --------------------------------------------------------------------------
 
+TANGENT_HEAD_DIM = 64  # B10's compiled head dim (KERNEL_HEAD_DIMS["B10"])
 TANGENT_ROWS = 128  # q rows a block: two warpgroups of 64
 TANGENT_KEYS = 32  # keys a tile
 TANGENT_STAGES = 3  # tiles in flight
 _KBLK = TANGENT_KEYS * 128  # bytes of a [32 keys x 32 dims] f32 block
-_VBLK = HEAD_DIM * 128  # bytes of a [64 dims x 32 keys] f32 block (V^T)
+_VBLK = TANGENT_HEAD_DIM * 128  # bytes of a [64 dims x 32 keys] f32 block (V^T)
 
 
 def tangent_shared_bytes() -> int:
@@ -155,7 +200,8 @@ def tangent_shared_bytes() -> int:
     f32, the ring (K, tK big and small, V^T, tV^T big and small: 64 KB a
     stage), 128 bytes of mbarriers and release counters, 1024 bytes to align
     the swizzled tiles."""
-    return 2 * 64 * HEAD_DIM * 4 + TANGENT_STAGES * (8 * _KBLK + 4 * _VBLK) + 128 + 1024
+    return (2 * 64 * TANGENT_HEAD_DIM * 4 + TANGENT_STAGES * (8 * _KBLK + 4 * _VBLK) + 128
+            + 1024)
 
 
 def tangent_grid(bh: int, t: int, s: int, sms: int) -> tuple[int, int, int]:

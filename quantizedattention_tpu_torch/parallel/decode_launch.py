@@ -32,9 +32,9 @@ KERNEL_OF = {"qa_decode": "B13", "qa_paged_decode": "B14", "qa_decode4": "B15",
 
 
 def check_kernel_rows(d: int, rows: int, n_kv: int, n: int, entry: str) -> None:
-    """The decode kernels' limits: the entry's head dims (64; B13 and B14
-    also 128), at most MAX_ROWS q rows (GQA group times spec) per kv head,
-    grid dims within 65535."""
+    """The decode kernels' limits: the entry's head dims (64 or 128), at
+    most MAX_ROWS q rows (GQA group times spec) per kv head, grid dims within
+    65535."""
     check_head_dim(KERNEL_OF[entry], d)
     if rows > decode_tiling.MAX_ROWS or n_kv > 65535 or n > 65535:
         raise ValueError(f"kernel takes group * spec <= {decode_tiling.MAX_ROWS} and grid dims "

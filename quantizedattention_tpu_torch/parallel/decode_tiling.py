@@ -36,12 +36,13 @@ does not depend on the layout or on which block computes the chunk: B14
 computes what B13 computes, and B16 what B15 computes, on the same K/V,
 bit for bit.
 
-Head dim: the kernels' entries of `ops/common.KERNEL_HEAD_DIMS`: 64 for
-all four, and 128 for B13 and B14 (int8 payload rows of 128 bytes, two
-64-byte halves each walked as a row of 64 is; B14's rows reached through the
-page table at d bytes a token). A block at head dim 128 asks for
-twice the stage and partial-sum bytes, so an SM holds one (`resident`), and
-the grid's z doubles to fill the card as before.
+Head dim: the kernels' entries of `ops/common.KERNEL_HEAD_DIMS`: 64 or 128
+for all four. At 128 an int8 payload row, and an int4 byte row, is 128
+bytes, two 64-byte halves each walked as a row of 64 is (the paged kernels'
+rows reached through the page table at d bytes a token, or d bytes a byte
+row). A block at head dim 128 asks for twice the stage and partial-sum
+bytes, so an SM holds one (`resident`), and the grid's z doubles to fill the
+card as before.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from __future__ import annotations
 from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
 
 HEAD_DIMS_INT8 = KERNEL_HEAD_DIMS["B13"]  # the int8 body's entries (B13 and B14 alike)
+HEAD_DIMS_INT4 = KERNEL_HEAD_DIMS["B15"]  # the int4 body's entries (B15 and B16 alike)
 PACK = 256  # tokens of a slotted int4 pack block: the slotted cache's "page"
 PAYLOADS = ("int8", "int4")
 CHUNK = 256  # tokens a block: a pack block, or whole pages of 128 or 256
@@ -63,11 +65,12 @@ MAX_RESIDENT = 2  # registers: two blocks of THREADS at the kernel's 128-registe
 
 
 def resident(head_dim: int) -> int:
-    """Blocks an SM holds, as the kernel's `resident(D)` declares them: as
-    many as its shared memory takes (int8's shared_bytes(); int4's at 64
-    fits as many), at most MAX_RESIDENT: two at head dim 64, one at 128 (a
-    block asks for 206 KB)."""
-    return min(MAX_RESIDENT, SM_SHARED // (shared_bytes("int8", head_dim) + 1024))
+    """Blocks an SM holds, as the kernel's `resident(D)` declares them for
+    both payloads: as many as the larger of their shared_bytes() takes, at
+    most MAX_RESIDENT: two at head dim 64, one at 128 (a block asks for 206
+    KB of int8 or 211 KB of int4)."""
+    most = max(shared_bytes(payload, head_dim) for payload in PAYLOADS)
+    return min(MAX_RESIDENT, SM_SHARED // (most + 1024))
 
 
 def n_chunks(capacity: int) -> int:

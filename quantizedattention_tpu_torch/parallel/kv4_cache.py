@@ -275,7 +275,7 @@ def _launch(q, cache: Int4KVCache, sm_scale, return_lse, spec: int):
 def decode_attention_int4(q, cache: Int4KVCache, sm_scale=None, return_lse=False):
     """Single-token decode against the int4 cache: q [b, H, d], GQA as in
     kv_cache.decode_attention. Returns O [b, H, d] f32 (and the exp2 lse
-    [b, H] with return_lse=True). CUDA tensors launch B15 (head_dim 64) or
+    [b, H] with return_lse=True). CUDA tensors launch B15 (head_dim 64 or 128) or
     raise; CPU tensors take `decode_attention_int4_plain`. `.launches`
     counts kernel launches."""
     if q.device.type == "cpu":

@@ -202,7 +202,7 @@ def _launch(q, cache: Paged4KVCache, sm_scale, return_lse, spec: int = 1):
 def paged4_decode_attention(q, cache: Paged4KVCache, sm_scale=None, return_lse=False):
     """Single-token decode against the paged int4 cache: q [n_seqs, H, d],
     as paged_cache.paged_decode_attention. CUDA tensors launch B16
-    (head_dim 64) or raise; CPU tensors take the plain version.
+    (head_dim 64 or 128) or raise; CPU tensors take the plain version.
     `.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return paged4_decode_attention_plain(q, cache, sm_scale, return_lse)

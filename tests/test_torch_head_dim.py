@@ -1,14 +1,15 @@
 """The head dims the port's kernels take on the card (ops/common.py's
 KERNEL_HEAD_DIMS and check_head_dim).
 
-B1 bf16, fast B2/B3, B13 and the int8 family (B4, B5, B6, B7/B8, B14) take
-head dim 64 or 128; every other kernel and mode takes 64 only and refuses
-128 naming ROADMAP B-f3; nothing takes another head dim. Pure Python: the
-check itself, then each wrapper's CUDA branch on meta tensors (neither CPU
-nor CUDA, so a wrapper takes its kernel path and must raise before it asks
-for a CUDA tensor), which shows that no wrapper outside the slice falls back
-to its plain version at 128, and that the slice's wrappers pass the check
-at 128 and then ask for CUDA tensors.
+B1 in both modes, fast B2/B3, the int8 family (B4, B5, B6, B7/B8), the four
+decode kernels (B13-B16) and the fast modes of B9, B11 and B12 take head dim
+64 or 128; B10 (both modes), the exact modes of B9, B11 and B12 and B2/B3
+exact take 64 only and refuse 128 naming ROADMAP B-f3; nothing takes
+another head dim. Pure Python: the check itself, then each wrapper's CUDA
+branch on meta tensors (neither CPU nor CUDA, so a wrapper takes its kernel
+path and must raise before it asks for a CUDA tensor), which shows that no
+wrapper outside the slice falls back to its plain version at 128, and that
+the slice's wrappers pass the check at 128 and then ask for CUDA tensors.
 """
 
 import pytest
@@ -28,11 +29,21 @@ from quantizedattention_tpu_torch.ops import (
 )
 from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head_dim
 from quantizedattention_tpu_torch.ops.flash_fwd import flash_attention_fwd_fp32, kv_split_tf32
+from quantizedattention_tpu_torch.ops.jvp_bwd import jvp_bwd_dkv, jvp_bwd_dq, jvp_bwd_operands
+from quantizedattention_tpu_torch.ops.jvp_fwd import jvp_fwd_prep
+from quantizedattention_tpu_torch.ops.jvp_tangent import _launch as tangent_launch
 from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep
-from quantizedattention_tpu_torch.parallel import decode_launch, kv4_cache, kv_cache, paged_cache
+from quantizedattention_tpu_torch.parallel import (
+    decode_launch,
+    kv4_cache,
+    kv_cache,
+    paged4_cache,
+    paged_cache,
+)
 
 # the kernels that take head dim 128
-SLICE = {"B1 bf16", "B2/B3 fast", "B13", "B4", "B5", "B6", "B7/B8", "B14"}
+SLICE = {"B1 bf16", "B1 fp32", "B2/B3 fast", "B13", "B4", "B5", "B6", "B7/B8", "B14", "B15",
+         "B16", "B9/B11/B12 fast"}
 META = torch.device("meta")
 
 
@@ -57,11 +68,19 @@ def test_other_head_dims_refused_everywhere(kernel, d):
 
 def test_every_kernel_has_an_entry():
     assert set(KERNEL_HEAD_DIMS) == {"B1 bf16", "B1 fp32", "B2/B3 fast", "B2/B3 exact", "B4",
-                                     "B5", "B6", "B7/B8", "B9-B12", "B13", "B14", "B15", "B16"}
+                                     "B5", "B6", "B7/B8", "B9/B11/B12 fast",
+                                     "B9/B11/B12 exact", "B10", "B13", "B14", "B15", "B16"}
 
 
 def _qkv(d, h=4, h_kv=4, t=64):
     return [torch.empty((1, n, t, d), device=META) for n in (h, h_kv, h_kv)]
+
+
+def _jvp_ops(d, fast):
+    """B11/B12's operands on meta tensors (one head count)."""
+    q, k, v = _qkv(d)
+    o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=META)
+    return jvp_bwd_operands(q, k, v, q, k, v, o, o, lse, lse, o, o, fast=fast)
 
 
 def _outside_the_slice(d):
@@ -69,14 +88,14 @@ def _outside_the_slice(d):
     q, k, v = _qkv(d)
     o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=META)
     return {
-        "B1 fp32": lambda: flash_attention_fwd_fp32(q, k, v),
-        "B1 fp32 prep": lambda: kv_split_tf32(k, v),
         "B2/B3 exact": lambda: flash_attention_bwd(q, k, v, o, lse, o, fast=False),
-        "B9 fast": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=True),
         "B9 exact": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=False),
         "B10 exact prep": lambda: tangent_prep(k, v, k, v),
-        "B15": lambda: kv4_cache.decode_attention_int4(
-            torch.empty((2, 4, d), device=META), kv4_cache.init_kv4_cache(2, 2, 256, d, META)),
+        # the launch under attention_tangent_fwd's dispatcher op, which meta
+        # tensors would send to its fake implementation
+        "B10 fast": lambda: tangent_launch(q, k, v, o, lse, q, k, v, False, None, True),
+        "B11 exact": lambda: jvp_bwd_dkv(_jvp_ops(d, fast=False)),
+        "B12 exact": lambda: jvp_bwd_dq(_jvp_ops(d, fast=False)),
     }
 
 
@@ -112,6 +131,26 @@ def _int8_slice(d):
     }
 
 
+def _rcm_and_int4_slice(d):
+    """Calls that reach the kernel path of the wrappers B-f3's rCM and int4
+    slice brought to 128: B1 fp32 and its prep, B9 fast and its prep, B11
+    and B12 fast, B15 and B16."""
+    q, k, v = _qkv(d)
+    pool = paged4_cache.init_paged4_cache(2, 5, 2, 2, d, device=META)
+    return {
+        "B1 fp32": lambda: flash_attention_fwd_fp32(q, k, v),
+        "B1 fp32 prep": lambda: kv_split_tf32(k, v),
+        "B9 fast": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=True),
+        "B9 fast prep": lambda: jvp_fwd_prep(k, v, k, v),
+        "B11 fast": lambda: jvp_bwd_dkv(_jvp_ops(d, fast=True)),
+        "B12 fast": lambda: jvp_bwd_dq(_jvp_ops(d, fast=True)),
+        "B15": lambda: kv4_cache.decode_attention_int4(
+            torch.empty((2, 4, d), device=META), kv4_cache.init_kv4_cache(2, 2, 256, d, META)),
+        "B16": lambda: paged4_cache.paged4_decode_attention(
+            torch.empty((2, 4, d), device=META), pool),
+    }
+
+
 @pytest.mark.parametrize("name", sorted(_outside_the_slice(128)))
 def test_wrappers_outside_the_slice_raise_at_128(name):
     with pytest.raises(ValueError, match="B-f3"):
@@ -119,7 +158,7 @@ def test_wrappers_outside_the_slice_raise_at_128(name):
 
 
 def _every_wrapper(d):
-    return {**_outside_the_slice(d), **_int8_slice(d)}
+    return {**_outside_the_slice(d), **_int8_slice(d), **_rcm_and_int4_slice(d)}
 
 
 @pytest.mark.parametrize("name", sorted(_every_wrapper(96)))
@@ -135,6 +174,15 @@ def test_int8_wrappers_take_128_then_want_cuda(name):
     fallback to the plain version."""
     with pytest.raises(ValueError, match="CUDA"):
         _int8_slice(128)[name]()
+
+
+@pytest.mark.parametrize("name", sorted(_rcm_and_int4_slice(128)))
+def test_rcm_and_int4_wrappers_take_128_then_want_cuda(name):
+    """B1 fp32, fast B9/B11/B12, B15 and B16 (and their preps) pass the
+    head-dim check at 128 and then ask for CUDA tensors: no refusal and no
+    fallback to the plain version."""
+    with pytest.raises(ValueError, match="CUDA"):
+        _rcm_and_int4_slice(128)[name]()
 
 
 @pytest.mark.parametrize("d", [128, 96])
@@ -154,13 +202,10 @@ def test_slice_wrappers_check_the_head_dim_first(d):
 
 @pytest.mark.parametrize("entry,kernel", sorted(decode_launch.KERNEL_OF.items()))
 def test_decode_launch_check(entry, kernel):
-    """decode_launch's shared check lets 128 through for the int8 payload's
-    entries, B13 and B14."""
+    """decode_launch's shared check lets 128 through for all four entries
+    (B13-B16) and refuses other head dims."""
     decode_launch.check_kernel_rows(64, 8, 2, 2, entry)
-    if kernel in ("B13", "B14"):
-        decode_launch.check_kernel_rows(128, 8, 2, 2, entry)
-    else:
-        with pytest.raises(ValueError, match="B-f3"):
-            decode_launch.check_kernel_rows(128, 8, 2, 2, entry)
+    decode_launch.check_kernel_rows(128, 8, 2, 2, entry)
+    assert KERNEL_HEAD_DIMS[kernel] == (64, 128)
     with pytest.raises(ValueError, match="head_dim"):
         decode_launch.check_kernel_rows(96, 8, 2, 2, entry)

@@ -330,4 +330,4 @@ def test_cpu_wrappers_use_plain_and_count_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         _launch_args(ops)
     with pytest.raises(ValueError, match="head_dim"):
-        kernel_args(1, 2, 32, q[..., :32])
+        kernel_args("B9/B11/B12 exact", 1, 2, 32, q[..., :32])

@@ -84,10 +84,10 @@ def test_fp32_blocks_cover_every_position_once(t):
 
 
 def test_fp32_shared_memory_fits_one_block():
-    n = flash_tiling.fp32_shared_bytes()
+    n = flash_tiling.fp32_shared_bytes(64)
     assert n <= flash_tiling.SMEM_LIMIT
     # Q small of two warpgroups and the ring of K big/small, V^T big/small alone
-    floor = 128 * 64 * 4 + flash_tiling.FP32_STAGES * 4 * flash_tiling.FP32_KEYS * 64 * 4
+    floor = 128 * 64 * 4 + flash_tiling.fp32_stages(64) * 4 * flash_tiling.fp32_keys(64) * 64 * 4
     assert floor < n <= floor + 2048
 
 
@@ -248,10 +248,10 @@ def test_dkv_walk_covers_every_visible_pair_once(t, s, causal):
 
 
 def test_dkv_shared_memory_fits_one_block():
-    n = jvp_tiling.dkv_shared_bytes()
+    n = jvp_tiling.dkv_shared_bytes(64)
     assert n <= flash_tiling.SMEM_LIMIT
-    floor = 4 * 128 * 64 * 2 + jvp_tiling.DKV_STAGES * 4 * jvp_tiling.Q_ROWS * 64 * 2
-    assert floor < n <= floor + jvp_tiling.DKV_STAGES * 512 + 2048
+    floor = 4 * 128 * 64 * 2 + jvp_tiling.dkv_stages(64) * 4 * jvp_tiling.Q_ROWS * 64 * 2
+    assert floor < n <= floor + jvp_tiling.dkv_stages(64) * 512 + 2048
 
 
 @pytest.mark.parametrize("t", TS)
@@ -326,9 +326,9 @@ def _q_block_walk(t, s, causal, width):
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("t, s", QB_SHAPES)
-@pytest.mark.parametrize("width", [jvp_tiling.FWD_KEYS, jvp_tiling.DQ_KEYS], ids=["b9", "b12"])
+@pytest.mark.parametrize("width", [jvp_tiling.fwd_keys(64), jvp_tiling.DQ_KEYS], ids=["b9", "b12"])
 def test_q_block_walk_covers_every_visible_pair_once(width, t, s, causal):
-    """B9 fast (FWD_KEYS-key tiles) and B12 fast (DQ_KEYS) walk every
+    """B9 fast (fwd_keys(64)-key tiles) and B12 fast (DQ_KEYS) walk every
     visible pair once, the blocks with the most key tiles first."""
     pairs = _q_block_walk(t, s, causal, width)
     walked = [tuple(x) for x in pairs]
@@ -343,10 +343,10 @@ def test_q_block_walk_covers_every_visible_pair_once(width, t, s, causal):
 
 @pytest.mark.parametrize("shared_bytes, resident", [
     (jvp_tiling.fwd_shared_bytes, 2 * 128 * 64 * 2 + jvp_tiling.FWD_STAGES * 4 * 64 * 64 * 2),
-    (jvp_tiling.dq_shared_bytes, 4 * 128 * 64 * 2 + jvp_tiling.DQ_STAGES * 4 * 32 * 64 * 2)],
+    (jvp_tiling.dq_shared_bytes, 4 * 128 * 64 * 2 + jvp_tiling.dq_stages(64) * 4 * 32 * 64 * 2)],
     ids=["b9", "b12"])
 def test_q_block_shared_memory_fits_one_block(shared_bytes, resident):
-    n = shared_bytes()
+    n = shared_bytes(64)
     assert resident < n <= resident + 2048
     assert n <= flash_tiling.SMEM_LIMIT
 
@@ -360,7 +360,7 @@ def test_q_blocks_limits_raise(bh, t):
 @pytest.mark.parametrize("bh, s", [(0, 8), (65536, 8), (1, 0)])
 def test_fwd_prep_grid_limits_raise(bh, s):
     with pytest.raises(ValueError, match="kernel takes"):
-        jvp_tiling.fwd_prep_grid(bh, s)
+        jvp_tiling.fwd_prep_grid(bh, s, 64)
 
 
 @pytest.mark.parametrize("s", [1, 31, 257])
@@ -374,7 +374,7 @@ def test_fwd_prep_plain_is_bf16_of_the_views(s):
     before = jvp_fwd_prep.launches
     got = jvp_fwd_prep(*views)
     assert jvp_fwd_prep.launches == before
-    assert jvp_tiling.fwd_prep_grid(6, s) == (-(-s // 256), 6, 4)
+    assert jvp_tiling.fwd_prep_grid(6, s, 64) == (-(-s // 256), 6, 4)
     for g, x, w in zip(got, views, jvp_fwd_prep_plain(*views)):
         assert g.dtype == torch.bfloat16 and g.shape == (6, s, 64) and g.is_contiguous()
         want = x.to(torch.bfloat16).reshape(6, s, 64)
@@ -467,7 +467,7 @@ B9_CASES = [(1, 2, 77, 201, False), (1, 2, 77, 201, True), (1, 2, 300, 300, True
             (1, 2, 1, 1, True)]
 
 
-@pytest.mark.parametrize("keys", [jvp_tiling.FWD_KEYS, 32])
+@pytest.mark.parametrize("keys", [jvp_tiling.fwd_keys(64), 32])
 @pytest.mark.parametrize("b, h, t, s, causal", B9_CASES)
 def test_b9_fast_tiled_rounding_within_gate(b, h, t, s, causal, keys):
     """Rounding P and H against the running max of each key tile moves an
