@@ -358,10 +358,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      on the slotted and paged caches (B1 4 launches, then only B15 or B16;
      paged tokens == slotted tokens; tokens/s); make_dit_rcm_step(fast=True)
      at DIT128_CFG (d_model 512, 4 heads x 128, 2 layers, seq 4096, batch 4:
-     phase 20's card-vs-CPU parity at seq 512 and central differences,
-     torch.func.jvp(dit_forward) refused naming B-f3, 1 + 5 steps with
-     losses falling and exactly 2 launches a step of B1 fp32, B9, B11, B12
-     and their preps; median step and max_memory_allocated).
+     phase 20's card-vs-CPU parity at seq 512 in both modes and central
+     differences, torch.func.jvp(dit_forward) through B10 once a layer, 1 +
+     5 steps with losses falling and exactly 2 launches a step of B1 fp32,
+     B9, B11, B12 and their preps; median step and max_memory_allocated).
+     The exact modes at d=128: B10 (both modes) and B9, B11, B12 exact at
+     HEAD128_JVP_CASES (each bit-equal on a second call), B10 exact at the
+     dit_jvp shape (2, 4, 512, 128) with its keys split and its prep
+     byte-equal, B2/B3 exact at phase 6's tile and edge cases (bit-equal on
+     a second call) and timed at (4, 16, 2048, 128) beside SDPA's f32
+     backward, the exact modes timed at (4, 4, 4096, 128), BASELINE config
+     5's gate at (1, 2, 4096, 128) (phase 18 at 128), torch.func.jvp(
+     dit_forward) at full size (median of 5, launches exactly B1 fp32, its
+     prep and B10 once a layer a call) and make_dit_rcm_step(fast=False)
+     for 1 + 3 steps (losses finite, launches a step exactly B1 fp32, its
+     prep, B9, B11 and B12 exact once a layer; median step and
+     max_memory_allocated).
  31. options (run after phase 30): B1's correction="beta" and "none" against
      their plain versions (O and lse, twice for the same bits) at the train
      shapes (4, 16, 2048, 64/128) causal on f32 and bf16 inputs, GQA (2,
@@ -407,6 +419,7 @@ work. They are records, not claims.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -494,7 +507,7 @@ from quantizedattention_tpu_torch.ops.flash_fwd import (
     kv_to_bf16,
 )
 from quantizedattention_tpu_torch.ops import flash_tiling, int8_tiling, jvp_tiling
-from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, LOG2_E
+from quantizedattention_tpu_torch.ops.common import LOG2_E
 from quantizedattention_tpu_torch.ops.int8_fwd import _qkv_jobs
 from quantizedattention_tpu_torch.ops.jvp_tangent import tangent_prep, tangent_prep_plain
 from quantizedattention_tpu_torch.models.transformer import (
@@ -782,10 +795,21 @@ def phase_build() -> None:
                        int8_tiling.dkv_shared_bytes),
                       ("int8_bwd dQ", "int8_bwd", "qa_int8_bwd_dq_smem_bytes",
                        int8_tiling.dq_shared_bytes))]
-    for name, got, want in (
-            *head_dims,
-            ("jvp tangent exact", _build.load_kernel("jvp").qa_jvp_tangent_smem_bytes(),
-             jvp_tiling.tangent_shared_bytes())):
+    # B10 in both modes, the exact modes' FFMA kernels and B2/B3 exact
+    jvp_lib = _build.load_kernel("jvp")
+    head_dims += [(f"jvp tangent {mode} d={d}", getattr(jvp_lib, entry)(d), want(d))
+                  for d in jvp_tiling.HEAD_DIMS for mode, entry, want in (
+                      ("exact", "qa_jvp_tangent_smem_bytes", jvp_tiling.tangent_shared_bytes),
+                      ("fast", "qa_jvp_tangent_fast_smem_bytes",
+                       jvp_tiling.tangent_fast_shared_bytes))]
+    head_dims += [(f"jvp {kernel} exact d={d}", jvp_lib.qa_jvp_exact_smem_bytes(i, d),
+                   jvp_tiling.exact_shared_bytes(kernel, d))
+                  for d in jvp_tiling.HEAD_DIMS for i, kernel in enumerate(("fwd", "dkv", "dq"))]
+    head_dims += [(f"flash_bwd {kernel} exact d={d}",
+                   flash_bwd_lib.qa_flash_bwd_exact_smem_bytes(i, d),
+                   flash_tiling.bwd_exact_shared_bytes(kernel, d))
+                  for d in flash_tiling.HEAD_DIMS for i, kernel in enumerate(("dkv", "dq"))]
+    for name, got, want in head_dims:
         if got != want:
             raise AssertionError(f"{name} asks for {got} shared bytes a block, its launch "
                                  f"geometry (ops/flash_tiling.py, ops/int8_tiling.py, "
@@ -811,16 +835,19 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # the flash forward (both modes) and backward, B5, B7 and B8, B9, B11 and
-    # B12 fast (every head dim's instance) and B10 exact keep every wgmma
-    # asynchronous (no C75xx note) and spill nothing; the decode kernel's
-    # instances (two blocks an SM at head dim 64: at most 128 registers; one
-    # at 128, both payloads) and B4 spill nothing
+    # the flash forward (both modes) and backward (both modes), B5, B7 and
+    # B8, B9, B11 and B12 fast (every head dim's instance), B10 exact (both
+    # head dims) and the d=128 instances of B10 fast and of B9, B11 and B12
+    # exact keep every wgmma asynchronous (no C75xx note) and spill nothing;
+    # the decode kernel's instances (two blocks an SM at head dim 64: at most
+    # 128 registers; one at 128, both payloads) and B4 spill nothing
     for name, only in (("flash_fwd", None), ("flash_bwd", None), ("int8_fwd", None),
                        ("int8_bwd", None),
                        ("jvp", ("jvp_fwd_wgmma", "jvp_fwd_prep_kernel", "jvp_dkv_wgmma",
                                 "jvp_dq_wgmma", "jvp_bwd_prep_kernel", "jvp_tangent_tf32",
-                                "tangent_prep_kernel", "tangent_merge_kernel")),
+                                "tangent_prep_kernel", "tangent_merge_kernel",
+                                "jvp_tangent_mmaILi128E", "jvp_fwd_kernelILi128E",
+                                "jvp_dkv_kernelILi128E", "jvp_dq_kernelILi128E")),
                        ("cache_decode", ("decode_kernel",)), ("quant_int8", None)):
         bad = _ptxas_faults(_build.build_log(name), only)
         if bad:
@@ -2779,26 +2806,33 @@ def device_kernels(fn) -> dict:
     return {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
-def _sdpa_bwd_ms(q, k, v, do) -> float:
-    """SDPA's backward alone on bf16 copies, causal, K/V repeated over the GQA
-    group: (forward + backward) - forward, each by CUDA-graph replays after
-    eager warm-up calls (phases 7 and 8)."""
+def _sdpa_bwd_ms(q, k, v, do, dtype=torch.bfloat16, backends=None, **replays) -> float:
+    """SDPA's backward alone on `dtype` copies, causal, K/V repeated over the
+    GQA group: (forward + backward) - forward, each by CUDA-graph replays
+    (`device_ms` with `replays`) after eager warm-up calls (phases 7 and 8;
+    phase 30 on f32 with `backends`, SDPA's fused backends that take it)."""
+    from torch.nn.attention import sdpa_kernel
+
     rep = q.shape[1] // k.shape[1]
-    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_(True)
+    qb, kb, vb = (x.to(dtype).requires_grad_(True)
                   for x in (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
-    dob = do.to(torch.bfloat16)
+    dob = do.to(dtype)
+
+    def pick():  # SDPA's own choice unless `backends` is given
+        return sdpa_kernel(backends) if backends else contextlib.nullcontext()
 
     def fwd():
-        with torch.no_grad():
+        with torch.no_grad(), pick():
             return F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
 
     def fwd_bwd():
-        torch.autograd.grad(F.scaled_dot_product_attention(qb, kb, vb, is_causal=True),
-                            (qb, kb, vb), dob)
+        with pick():
+            torch.autograd.grad(F.scaled_dot_product_attention(qb, kb, vb, is_causal=True),
+                                (qb, kb, vb), dob)
 
     for _ in range(3):
         fwd_bwd()
-    return device_ms(fwd_bwd) - device_ms(fwd)
+    return device_ms(fwd_bwd, **replays) - device_ms(fwd, **replays)
 
 
 def _int8_bwd_times(q, k, v, do, sdpa_bwd_ms=None) -> tuple[dict, object]:
@@ -3297,14 +3331,16 @@ def _check_jvp_preps(k, v, tk, tv, ops, label) -> None:
         raise AssertionError(f"[jvp] {label}: a prep launch differs from its plain version")
 
 
-def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label, modes=(False, True)) -> dict:
-    """B1 fp32 and B9-B12 in `modes` (exact False, fast True; B10 only at a
-    head dim it takes) against their plain versions on one case, by
-    max|diff| / max|plain| per tensor (lse, and the gradients that vanish at
-    one key: max|diff|), raising outside the tolerances; B1 fp32 and B9, B11
-    and B12 fast called twice for the same bits (B9 the second time on [b,
-    t, h, d] views, B12 on a prep of its own), and their prep launches held
-    byte for byte against the plain preps. Returns each kernel's max|diff|."""
+def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label, modes=(False, True),
+               every_bit=False) -> dict:
+    """B1 fp32 and B9-B12 in `modes` (exact False, fast True) against their
+    plain versions on one case, by max|diff| / max|plain| per tensor (lse,
+    and the gradients that vanish at one key: max|diff|), raising outside
+    the tolerances; B1 fp32 and B9, B11 and B12 fast called twice for the
+    same bits (B9 the second time on [b, t, h, d] views, B12 on a prep of
+    its own), and their prep launches held byte for byte against the plain
+    preps. `every_bit`: B10 (both modes) and B9, B11 and B12 exact called
+    twice for the same bits too. Returns each kernel's max|diff|."""
     err, msgs = dict.fromkeys(JVP_KERNELS, 0.0), []
     absolute = {"lse"} | ({"dk", "dtk", "dq", "dtq"} if k.shape[2] == 1 else set())
 
@@ -3326,7 +3362,6 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label, modes=(False, True))
     hold("flash_fwd_fp32", "fp32", JVP_EXACT_TOL, ("o", "lse"), b1,
          flash_attention_fwd_plain(q, k, v, causal=causal, precision="fp32"))
     _same_bits("flash_fwd_fp32", b1, flash_attention_fwd_fp32(q, k, v, causal=causal), label)
-    tangent = q.shape[-1] in KERNEL_HEAD_DIMS["B10"]
     for fast in modes:
         mode, tol = ("fast", BWD_FAST_TOL) if fast else ("exact", JVP_EXACT_TOL)
         fwd = attention_jvp_fwd(q, k, v, tq, tk, tv, causal=causal, fast=fast)
@@ -3336,26 +3371,34 @@ def _check_jvp(q, k, v, tq, tk, tv, do, dto, causal, label, modes=(False, True))
         if fast:  # B9 reads q and tq through their strides, its prep k, v, tk and tv
             _same_bits("jvp_fwd", fwd, attention_jvp_fwd(*_strided(q, k, v, tq, tk, tv),
                                                          causal=causal, fast=True), label)
+        elif every_bit:
+            _same_bits("jvp_fwd", fwd, attention_jvp_fwd(q, k, v, tq, tk, tv, causal=causal),
+                       label)
         o, to, lse, mu = fwd  # the kernel's residuals, as the entry points hand them on
-        if tangent:
-            hold("jvp_tangent", mode, tol, ("to",),
-                 [attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)],
-                 [attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv, causal=causal,
-                                              fast=fast)])
+        tangent = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)
+        hold("jvp_tangent", mode, tol, ("to",), [tangent],
+             [attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast)])
+        if every_bit:
+            _same_bits("jvp_tangent", (tangent,), (attention_tangent_fwd(
+                q, k, v, o, lse, tq, tk, tv, causal=causal, fast=fast),), label)
         ops = jvp_bwd_operands(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal=causal,
                                fast=fast)
         dkv = jvp_bwd_dkv(ops)
         hold("jvp_bwd_dkv", mode, tol, ("dk", "dv", "dtk", "dtv"), dkv, jvp_bwd_dkv_plain(ops))
-        if fast:
+        if fast or every_bit:
             _same_bits("jvp_bwd_dkv", dkv, jvp_bwd_dkv(ops), label)
+        if fast:
             _check_jvp_preps(k, v, tk, tv, ops, label)
         dq = jvp_bwd_dq(ops)
         hold("jvp_bwd_dq", mode, tol, ("dq", "dtq"), dq, jvp_bwd_dq_plain(ops))
         if fast:  # on a prep handed in, as attention_jvp_bwd shares B11's
             _same_bits("jvp_bwd_dq", dq, jvp_bwd_dq(ops, jvp_bwd_prep(ops)), label)
+        elif every_bit:
+            _same_bits("jvp_bwd_dq", dq, jvp_bwd_dq(ops), label)
     log(f"[jvp] {label} (tol exact {JVP_EXACT_TOL}, fast B9 {JVP_FWD_FAST_TOL}, fast B10-B12 "
-        f"{BWD_FAST_TOL}; B1 fp32, B9, B11 and B12 fast bit-equal on a second call, their "
-        f"preps byte-equal): " + "; ".join(msgs))
+        f"{BWD_FAST_TOL}; B1 fp32, B9, B11 and B12 fast bit-equal on a second call"
+        f"{', and B10 and the exact modes' if every_bit else ''}, the fast preps byte-equal): "
+        + "; ".join(msgs))
     return err
 
 
@@ -3384,7 +3427,7 @@ def phase_jvp_kernels(dev, gen) -> dict:
         prep_ok = all(torch.equal(_bits(a), _bits(w_)) for a, w_ in
                       zip(tangent_prep(k, v, tk, tv), tangent_prep_plain(k, v, tk, tv)))
         _, z, per = jvp_tiling.tangent_grid(b * h, t, t, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+            dev).multi_processor_count, 64)
         msgs.append(f"{label}: tO {rel:.2e} ({z} key ranges of {per} tiles)")
         if rel > JVP_EXACT_TOL or not torch.isfinite(got).all() or not prep_ok:
             raise AssertionError(f"[jvp] {label}: jvp_tangent exact {rel:.2e} (tol "
@@ -3439,13 +3482,14 @@ def _within(got, want, tol) -> tuple[bool, float]:
     return bool((diff <= tol + tol * want.abs()).all()), diff.max().item()
 
 
-def phase_jvp_oracle(dev, gen) -> dict:
+def phase_jvp_oracle(dev, gen, d: int = 64) -> dict:
     """Phase 18, BASELINE config 5's gate and the JVP family's AD against the
-    fp32 oracle. The path run: every launch count from 0; returns the JVP
-    kernels' (and B2/B3's) launches over the phase."""
+    fp32 oracle (phase 30 at head dim 128). The path run: every launch count
+    from 0; returns the JVP kernels' (and B2/B3's) launches over the
+    phase."""
     _reset_counts()
     b, h, t = 1, 2, DIT_CFG.seq_len
-    q, k, v, tq, tk, tv, _, _ = _jvp_inputs(gen, dev, b, h, t, t)
+    q, k, v, tq, tk, tv, _, _ = _jvp_inputs(gen, dev, b, h, t, t, d)
     o_w, to_w = reference_attention_jvp((q, k, v), (tq, tk, tv))
     o, to = attention_value_and_jvp(q, k, v, tq, tk, tv)
     o_j, to_j = torch.func.jvp(attention_jvp, (q, k, v), (tq, tk, tv))
@@ -3455,7 +3499,7 @@ def phase_jvp_oracle(dev, gen) -> dict:
         ("func.jvp(attention_jvp) O", o_j, o_w), ("func.jvp(attention_jvp) tO", to_j, to_w))]
     fast_ok_o, fast_o = _within(o_f, o, JVP_FAST_O)
     fast_ok_t, fast_t = _within(to_f, to, JVP_FAST_TO)
-    log(f"[jvp_oracle] config 5 ({b},{h},{t},64) vs the fp32 oracle: " + "; ".join(map(str, reps))
+    log(f"[jvp_oracle] config 5 ({b},{h},{t},{d}) vs the fp32 oracle: " + "; ".join(map(str, reps))
         + f"; fast vs exact max|dO| {fast_o:.3e} (tol {JVP_FAST_O}), max|dtO| {fast_t:.3e} "
         f"(tol {JVP_FAST_TO})")
     if any(r.mismatches for r in reps) or not (fast_ok_o and fast_ok_t):
@@ -3463,7 +3507,7 @@ def phase_jvp_oracle(dev, gen) -> dict:
     del q, k, v, tq, tk, tv, o_w, to_w, o, to, o_j, to_j, o_f, to_f
 
     for causal in (False, True):
-        q, k, v, tq, tk, tv, wo, wt = _jvp_inputs(gen, dev, 1, 2, 256, 256)
+        q, k, v, tq, tk, tv, wo, wt = _jvp_inputs(gen, dev, 1, 2, 256, 256, d)
 
         def loss(pair):
             return (torch.sin(pair[0]) * wo).sum() + (pair[1] * wt).sum() + pair[1].square().sum()
@@ -3477,7 +3521,7 @@ def phase_jvp_oracle(dev, gen) -> dict:
         got_j = torch.autograd.grad(attention_jvp(*leaves, causal=causal), leaves, wo)
         want_j = reference_attention_vjp(q, k, v, wo, causal=causal)
         res_j = [_within(g, w, JVP_GRAD_TOL) for g, w in zip(got_j, want_j)]
-        log(f"[jvp_oracle] (1,2,256,64) causal={causal}: value_and_jvp grads vs autograd through "
+        log(f"[jvp_oracle] (1,2,256,{d}) causal={causal}: value_and_jvp grads vs autograd through "
             "torch.func.jvp of the oracle, max|diff| "
             + " ".join(f"d{n} {r[1]:.2e}" for n, r in zip(("q", "k", "v", "tq", "tk", "tv"), res))
             + "; attention_jvp grads vs the oracle's "
@@ -3503,14 +3547,13 @@ def phase_jvp_timing(dev, gen, d=64) -> dict:
     fp32's, B9's and B11's `ms` are whole calls (`prep_ms` + `kernel_ms`);
     B12's is its kernel on B11's prep, as the rCM step runs it (`call_ms`: a
     call that runs its own prep). B10 exact is also timed at the dit_jvp
-    path's shape (`dit_jvp_ms`). At a head dim the exact modes refuse
-    (KERNEL_HEAD_DIMS), the DiT's shape alone in fast mode: no `other_`,
-    `bench_` or B10 entries."""
-    exact = d in KERNEL_HEAD_DIMS["B9/B11/B12 exact"]
-    modes = (True, False) if exact else (True,)
+    path's shape (`dit_jvp_ms`). At head dim 128 (phase 30) the DiT's
+    shape alone: no `bench_` entries."""
+    modes = (True, False)
     dit = {64: (DIT_BATCH, DIT_CFG.n_heads, DIT_CFG.seq_len), HEAD128: DIT128_SHAPE}[d]
-    shapes = (("", dit), ("bench_", JVP_BENCH_SHAPE)) if exact else (("", dit),)
-    out = {k: {} for k in JVP_KERNELS if exact or k != "jvp_tangent"}
+    bench = d == 64
+    shapes = (("", dit), ("bench_", JVP_BENCH_SHAPE)) if bench else (("", dit),)
+    out = {k: {} for k in JVP_KERNELS}
 
     def few(fn):  # calls of milliseconds and more: one call a graph, two replays
         return device_ms(fn, calls=1, replays=2)
@@ -3561,8 +3604,7 @@ def phase_jvp_timing(dev, gen, d=64) -> dict:
             r[f"{tag}ms"] = few(lambda: calls[name](main))
             if name in ("jvp_fwd", "jvp_bwd_dkv"):
                 r[f"{tag}kernel_ms"] = r[f"{tag}ms"] - r[f"{tag}prep_ms"]
-            if exact:
-                r[f"{tag}other_ms"] = few(lambda: calls[name](not main))
+            r[f"{tag}other_ms"] = few(lambda: calls[name](not main))
             for fast in modes:
                 key = "" if fast == main else "other_"
                 bnd = bound(io[name], (dots[name] * prod, PEAK_BF16 if fast else PEAK_FP32))
@@ -3575,31 +3617,30 @@ def phase_jvp_timing(dev, gen, d=64) -> dict:
             if not tag:
                 r["plain_ms"] = few(lambda: plains[name](main))
         del q, k, v, tq, tk, tv, do, dto, o, lse, fwd, ops, dkv, dq, prep
-    if exact:
-        # B10 exact at the dit_jvp path's shape: torch.func.jvp(dit_forward)
-        # at seq DIT_PARITY_LEN, batch 2 (phase 20)
-        b, h, t = 2, DIT_CFG.n_heads, DIT_PARITY_LEN
-        q, k, v, tq, tk, tv, _, _ = _strided(*_jvp_inputs(gen, dev, b, h, t, t, d))
-        o, lse = flash_attention_fwd_fp32(q, k, v)
-        r = out["jvp_tangent"]
-        r["dit_jvp_shape"] = f"({b},{h},{t},{d})"
-        r["dit_jvp_ms"] = device_ms(lambda: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv))
-        to = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
-        io, prod = nbytes(q, k, v, tq, tk, tv, o, lse, to), 2 * b * h * t * t * d
-        bnd = bound(io, (15 * prod, PEAK_TF32))
-        r["dit_jvp_bound_ms"], r["dit_jvp_bound_by"] = bnd["bound_ms"], bnd["bound_by"]
-        r["dit_jvp_fp32_bound_ms"] = bound(io, (5 * prod, PEAK_FP32))["bound_ms"]
-        r["bound_kind"] = ("exact: 3xTF32 on the tensor cores (15 TF32 products); fp32_bound_ms: 5 "
-                           "fp32 products on FFMA; other (fast): 5 bf16 products")
+    # B10 exact at the dit_jvp path's shape: torch.func.jvp(dit_forward) at
+    # seq DIT_PARITY_LEN, batch 2 (phase 20; phase 30 at DIT128_CFG)
+    b, h, t = 2, DIT_CFG.n_heads, DIT_PARITY_LEN
+    q, k, v, tq, tk, tv, _, _ = _strided(*_jvp_inputs(gen, dev, b, h, t, t, d))
+    o, lse = flash_attention_fwd_fp32(q, k, v)
+    r = out["jvp_tangent"]
+    r["dit_jvp_shape"] = f"({b},{h},{t},{d})"
+    r["dit_jvp_ms"] = device_ms(lambda: attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv))
+    to = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
+    io, prod = nbytes(q, k, v, tq, tk, tv, o, lse, to), 2 * b * h * t * t * d
+    bnd = bound(io, (15 * prod, PEAK_TF32))
+    r["dit_jvp_bound_ms"], r["dit_jvp_bound_by"] = bnd["bound_ms"], bnd["bound_by"]
+    r["dit_jvp_fp32_bound_ms"] = bound(io, (5 * prod, PEAK_FP32))["bound_ms"]
+    r["bound_kind"] = ("exact: 3xTF32 on the tensor cores (15 TF32 products); fp32_bound_ms: 5 "
+                       "fp32 products on FFMA; other (fast): 5 bf16 products")
 
     def at(text, r):  # the DiT's shape, then bench_jvp's where it was timed
         return text.format(p="").format(**r) + (
-            f"; {r['bench_shape']}: " + text.format(p="bench_").format(**r) if exact else "")
+            f"; {r['bench_shape']}: " + text.format(p="bench_").format(**r) if bench else "")
 
     for name, r in out.items():
         r["mode"] = {"flash_fwd_fp32": "fp32", "jvp_tangent": "exact"}.get(name, "fast")
         r["shape"] = "({},{},{},{}) DiT views, non-causal".format(*dit, d)
-        if exact:
+        if bench:
             r["bench_shape"] = "({},{},{},{})".format(*JVP_BENCH_SHAPE, d)
         if name == "flash_fwd_fp32":
             r["library_call"] = "F.scaled_dot_product_attention, f32 inputs"
@@ -3613,7 +3654,7 @@ def phase_jvp_timing(dev, gen, d=64) -> dict:
         r["library_call"] = "none (no single call)"
         other = ", other mode {{{p}other_ms:.4f}} ms (bound {{{p}other_bound_ms:.4f}})"
         log(f"[timing] {name} {r['mode']}, plain {r['plain_ms']:.4f} ms; {r['shape']}: " + at(
-            "{{{p}ms:.4f}} ms (bound {{{p}bound_ms:.4f}})" + (other if exact else ""), r))
+            "{{{p}ms:.4f}} ms (bound {{{p}bound_ms:.4f}})" + other, r))
         if name in ("jvp_fwd", "jvp_bwd_dkv"):
             log(f"[timing] {name} fast call = prep + kernel: {r['shape']}: "
                 + at("{{{p}prep_ms:.4f}} + {{{p}kernel_ms:.4f}} ms", r))
@@ -3626,7 +3667,8 @@ def phase_jvp_timing(dev, gen, d=64) -> dict:
             log(f"[timing] jvp_tangent exact at the dit_jvp shape {r['dit_jvp_shape']}: "
                 f"{r['dit_jvp_ms']:.4f} ms (bound 3xTF32 {r['dit_jvp_bound_ms']:.4f}, fp32 CUDA "
                 f"cores {r['dit_jvp_fp32_bound_ms']:.4f}); fp32 CUDA-core bounds: DiT "
-                f"{r['fp32_bound_ms']:.4f}, bench {r['bench_fp32_bound_ms']:.4f} ms")
+                f"{r['fp32_bound_ms']:.4f}"
+                + (f", bench {r['bench_fp32_bound_ms']:.4f}" if bench else "") + " ms")
     return out
 
 
@@ -3654,30 +3696,31 @@ def _dit_copy(params, device):
     return out
 
 
-def _dit_checks(dev, params, x, t, cfg=DIT_CFG) -> dict:
+def _dit_checks(dev, params, x, t, cfg=DIT_CFG, modes=(True,)) -> dict:
     """At seq DIT_PARITY_LEN: the rCM loss and every gradient on the card
-    against the CPU plain path (both fast), (u, du/dt) against finite
-    differences (central), and torch.func.jvp of dit_forward (default
-    attention) through B10 once a layer, or, at a head dim B10 does not take
-    on the card, refused with a ValueError naming B-f3. Returns that jvp
-    run's launches ({} where it is refused)."""
+    against the CPU plain path in each of `modes` (fast True, exact False),
+    (u, du/dt) against finite differences (central), and torch.func.jvp of
+    dit_forward (default attention) through B10 once a layer, every launch
+    count from 0. Returns that jvp run's launches."""
     cfg = dataclasses.replace(cfg, seq_len=DIT_PARITY_LEN)
     xs, ts = x[:2, :DIT_PARITY_LEN].contiguous(), t[:2].contiguous()
-    res = {}
-    for device in (dev, "cpu"):
-        copy = _dit_copy(params, device)
-        loss = rcm_loss(copy, xs.to(device), ts.to(device), cfg, fast=True)
-        res[str(device)] = (loss.item(), torch.autograd.grad(loss, dit_param_leaves(copy)))
-    (loss_c, grads_c), (loss_p, grads_p) = res[str(dev)], res["cpu"]
-    rels = [((g.cpu() - w).norm() / w.norm()).item() for g, w in zip(grads_c, grads_p)]
-    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
-    zero = [i for i, g in enumerate(grads_c) if not g.abs().max() > 0]
-    log(f"[dit] rCM loss on the card vs CPU plain path (2 x {DIT_PARITY_LEN} tokens, fast): "
-        f"{loss_c:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}); grad rel L2 max {max(rels):.3e} "
-        f"median {statistics.median(rels):.3e} over {len(rels)} tensors (tol {DIT_GRAD_REL_L2}); "
-        f"zero gradients: {zero}")
-    if not (loss_rel <= DIT_GRAD_REL_L2 and max(rels) <= DIT_GRAD_REL_L2 and not zero):
-        raise AssertionError("rCM gradients on the card disagree with the CPU plain path")
+    for fast in modes:
+        res = {}
+        for device in (dev, "cpu"):
+            copy = _dit_copy(params, device)
+            loss = rcm_loss(copy, xs.to(device), ts.to(device), cfg, fast=fast)
+            res[str(device)] = (loss.item(), torch.autograd.grad(loss, dit_param_leaves(copy)))
+        (loss_c, grads_c), (loss_p, grads_p) = res[str(dev)], res["cpu"]
+        rels = [((g.cpu() - w).norm() / w.norm()).item() for g, w in zip(grads_c, grads_p)]
+        loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+        zero = [i for i, g in enumerate(grads_c) if not g.abs().max() > 0]
+        log(f"[dit] head_dim {cfg.head_dim}: rCM loss on the card vs CPU plain path (2 x "
+            f"{DIT_PARITY_LEN} tokens, {'fast' if fast else 'exact'}): {loss_c:.6f} vs "
+            f"{loss_p:.6f} (rel {loss_rel:.2e}); grad rel L2 max {max(rels):.3e} median "
+            f"{statistics.median(rels):.3e} over {len(rels)} tensors (tol {DIT_GRAD_REL_L2}); "
+            f"zero gradients: {zero}")
+        if not (loss_rel <= DIT_GRAD_REL_L2 and max(rels) <= DIT_GRAD_REL_L2 and not zero):
+            raise AssertionError("rCM gradients on the card disagree with the CPU plain path")
 
     with torch.no_grad():
         p = _dit_copy(params, dev)
@@ -3688,27 +3731,14 @@ def _dit_checks(dev, params, x, t, cfg=DIT_CFG) -> dict:
         fd = (dit_forward(p, xs + eps * v, ts + eps, cfg)
               - dit_forward(p, xs - eps * v, ts - eps, cfg)) / (2 * eps)
         rel_fd = ((fd - du).norm() / du.norm()).item()
-        if cfg.head_dim not in KERNEL_HEAD_DIMS["B10"]:
-            try:
-                torch.func.jvp(lambda x_, t_: dit_forward(p, x_, t_, cfg), (xs, ts),
-                               (v, torch.ones_like(ts)))
-            except ValueError as e:
-                if "B-f3" not in str(e):
-                    raise
-                log(f"[dit] head_dim {cfg.head_dim}: du/dt vs central differences rel L2 "
-                    f"{rel_fd:.3e} (tol 0.05); torch.func.jvp(dit_forward) refused: {e}")
-                if not rel_fd < 0.05:
-                    raise AssertionError("dit_jvp_step disagrees with finite differences")
-                return {}
-            raise AssertionError(f"torch.func.jvp(dit_forward) ran at head_dim {cfg.head_dim}, "
-                                 "which B10 does not take on the card")
         _reset_counts()
         _, du_j = torch.func.jvp(lambda x_, t_: dit_forward(p, x_, t_, cfg), (xs, ts),
                                  (v, torch.ones_like(ts)))
         torch.cuda.synchronize()
         launches = _jvp_launches()
     rel_j = ((du_j - du).norm() / du_j.norm()).item()
-    log(f"[dit] (u, du/dt) at seq {DIT_PARITY_LEN}: du/dt vs central differences rel L2 "
+    log(f"[dit] head_dim {cfg.head_dim}, (u, du/dt) at seq {DIT_PARITY_LEN}: du/dt vs central "
+        f"differences rel L2 "
         f"{rel_fd:.3e} (tol 0.05); torch.func.jvp(dit_forward) (exact, B10) vs the fast pair "
         f"path rel L2 {rel_j:.3e} (tol {DIT_JVP_REL_L2}); its launches {launches}")
     want = {k: 0 for k in launches}
@@ -3727,15 +3757,15 @@ DIT_STEP_KERNELS = ("flash_fwd_fp32", "flash_fwd_fp32_prep", "jvp_fwd", "jvp_fwd
                     "jvp_bwd_prep", "jvp_bwd_dkv", "jvp_bwd_dq")
 
 
-def phase_dit(dev, smi, cfg=DIT_CFG, profile=True) -> tuple[dict, dict, dict]:
-    """Phase 20, BASELINE config 5 (phase 30 at DIT128_CFG). Returns (the 5
-    timed steps' launches of the JVP kernels, the seq-512 jvp run's, step
-    numbers)."""
+def phase_dit(dev, smi, cfg=DIT_CFG, profile=True, modes=(True,)) -> tuple[dict, dict, dict]:
+    """Phase 20, BASELINE config 5 (phase 30 at DIT128_CFG, with the
+    card-vs-CPU parity in both `modes`). Returns (the 5 timed steps' launches
+    of the JVP kernels, the seq-512 jvp run's, step numbers)."""
     params = _dit_params(dev, cfg)
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((DIT_BATCH, cfg.seq_len, cfg.d_model), generator=gen, device=dev)
     t = torch.rand((DIT_BATCH,), generator=gen, device=dev)
-    jvp_launches = _dit_checks(dev, params, x, t, cfg)
+    jvp_launches = _dit_checks(dev, params, x, t, cfg, modes)
 
     _, step = make_dit_rcm_step(cfg, params, fast=True)
     losses = [step(x, t)]
@@ -3774,6 +3804,102 @@ def phase_dit(dev, smi, cfg=DIT_CFG, profile=True) -> tuple[dict, dict, dict]:
     launches = {k: sum(c[k] for c in per_step) for k in (*JVP_KERNELS, *JVP_PREPS)}
     return launches, jvp_launches, {"median_ms": med, "max_memory_gib": mem,
                                     "tokens_per_s": tokens / med * 1e3, "losses": losses}
+
+
+DIT_EXACT_STEPS = 3  # timed exact rCM steps at DIT128_CFG, after one untimed
+DIT_JVP_CALLS = 5  # timed torch.func.jvp(dit_forward) calls at full size
+# each exact rCM step runs the fp32 prepass (B1 fp32 and its prep), B9
+# exact forward and B11 + B12 exact backward, and no prep of the fast modes
+DIT_EXACT_STEP_KERNELS = ("flash_fwd_fp32", "flash_fwd_fp32_prep", "jvp_fwd", "jvp_bwd_dkv",
+                          "jvp_bwd_dq")
+
+
+def _dit_exact(dev, smi, cfg) -> tuple[dict, dict]:
+    """Phase 30's DiT in exact mode at full size (batch DIT_BATCH, seq
+    cfg.seq_len): torch.func.jvp of dit_forward (B1 fp32 with its prep, then
+    B10 exact, once a layer a call) timed by CUDA events, median of
+    DIT_JVP_CALLS, with its launches; then make_dit_rcm_step(fast=False) for
+    1 + DIT_EXACT_STEPS steps: losses finite, launches a step exactly those
+    of DIT_EXACT_STEP_KERNELS n_layers times each, median step and peak
+    memory. Every count from 0 before each run. Returns (launches by path,
+    numbers)."""
+    params = _dit_params(dev, cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((DIT_BATCH, cfg.seq_len, cfg.d_model), generator=gen, device=dev)
+    t = torch.rand((DIT_BATCH,), generator=gen, device=dev)
+    n = cfg.n_layers
+
+    def events(fn, calls):
+        out, times = [], []
+        for _ in range(calls):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out.append(fn())
+            end.record()
+            times.append((start, end))
+        torch.cuda.synchronize()
+        return out, [a.elapsed_time(b) for a, b in times]
+
+    with torch.no_grad():
+        v = dit_forward(params, x, t, cfg)
+        one = torch.ones_like(t)
+
+        def fwd_jvp():
+            return torch.func.jvp(lambda x_, t_: dit_forward(params, x_, t_, cfg), (x, t),
+                                  (v, one))[1]
+
+        fwd_jvp()  # warm-up: the kernels' first calls set their attributes
+        torch.cuda.synchronize()
+        _reset_counts()
+        outs, jvp_ms = events(fwd_jvp, DIT_JVP_CALLS)
+        jvp_launches = {k: c for k, c in _launch_counts().items() if c}
+    want = {"flash_fwd_fp32": DIT_JVP_CALLS * n, "flash_fwd_fp32_prep": DIT_JVP_CALLS * n,
+            "jvp_tangent": DIT_JVP_CALLS * n}
+    finite = all(torch.isfinite(du).all() for du in outs)
+    same = all(torch.equal(du, outs[0]) for du in outs)
+    log(f"[dit] head_dim {cfg.head_dim}: torch.func.jvp(dit_forward), {DIT_BATCH} x "
+        f"{cfg.seq_len} tokens, {n} layers, on {smi}: median {statistics.median(jvp_ms):.2f} ms "
+        f"(min {min(jvp_ms):.2f}, max {max(jvp_ms):.2f}; CUDA events, {DIT_JVP_CALLS} calls); "
+        f"launches {jvp_launches}; du/dt finite {finite}, the same bits every call {same}")
+    if jvp_launches != want or not finite:
+        raise AssertionError(f"torch.func.jvp(dit_forward) at head_dim {cfg.head_dim} launched "
+                             f"{jvp_launches}, want {want}, or its du/dt is not finite")
+    del outs, v
+
+    _, step = make_dit_rcm_step(cfg, params, fast=False)
+    losses = [step(x, t)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    per_step = []
+
+    def one_step():
+        before = _launch_counts()
+        loss = step(x, t)
+        per_step.append({k: c - before[k] for k, c in _launch_counts().items()})
+        return loss
+
+    more, step_ms = events(one_step, DIT_EXACT_STEPS)
+    losses = torch.stack(losses + more).tolist()
+    mem = torch.cuda.max_memory_allocated(dev) / 2**30
+    want_step = {k: n if k in DIT_EXACT_STEP_KERNELS else 0 for k in _COUNTED}
+    med = statistics.median(step_ms)
+    tokens = DIT_BATCH * cfg.seq_len
+    log(f"[dit] rCM step, exact, DiT d_model {cfg.d_model}, {cfg.n_heads} heads x "
+        f"{cfg.head_dim}, {n} layers, {DIT_BATCH} x {cfg.seq_len} tokens on {smi}: median step "
+        f"{med:.2f} ms (min {min(step_ms):.2f}, max {max(step_ms):.2f}; CUDA events), "
+        f"{tokens / med * 1e3:.0f} tokens/s, max_memory_allocated {mem:.2f} GiB, launches per "
+        f"step { {k: c for k, c in per_step[0].items() if c} }; losses "
+        f"{[round(x_, 6) for x_ in losses]}")
+    if not all(np.isfinite(losses)) or any(c != want_step for c in per_step):
+        raise AssertionError(f"exact rCM steps: losses {losses}, launches per step {per_step}, "
+                             f"want {want_step}")
+    steps = {k: sum(c[k] for c in per_step) for k in DIT_EXACT_STEP_KERNELS}
+    return ({"dit_jvp128": jvp_launches, "dit_rcm128_exact": {k: c for k, c in steps.items() if c}},
+            {"dit_jvp128_ms": statistics.median(jvp_ms), "dit_jvp128_calls_ms": jvp_ms,
+             "dit_rcm128_exact": {"median_ms": med, "max_memory_gib": mem,
+                                  "tokens_per_s": tokens / med * 1e3, "losses": losses,
+                                  "steps_ms": step_ms}})
 
 
 def _profile_dit_step(step, x, t):
@@ -5299,13 +5425,13 @@ def _head128_rcm_int4_kernels(dev) -> dict:
     off the 256-token chunk and the 128-row pack half, full capacity) with
     shuffled and junk pages and non-finite stale scales, 16/16 and 16/4
     heads, B16 bit-equal to B15; phase 23's verify staircase at spec 2 and 5,
-    each row bit-equal to its spec = 1 launch. B1 fp32, B9, B11 and B12 fast
-    at HEAD128_JVP_CASES on the DiT's [b, h, t, d] views of [b, t, h, d]
-    tensors, each called twice for the same bits, their preps byte-equal to
-    the plain preps (phase 17's `_check_jvp`); B1 fp32 also at its tile
-    edges under GQA. Returns each kernel's max|diff|."""
+    each row bit-equal to its spec = 1 launch. B1 fp32 and B9-B12 in both
+    modes at HEAD128_JVP_CASES on the DiT's [b, h, t, d] views of [b, t, h,
+    d] tensors, each called twice for the same bits, the fast preps
+    byte-equal to the plain preps (phase 17's `_check_jvp`); B1 fp32 also at
+    its tile edges under GQA. Returns each kernel's max|diff|."""
     gen = torch.Generator(device=dev).manual_seed(35)
-    err = dict.fromkeys(HEAD128_INT4_ROWS, 0.0)
+    err = dict.fromkeys((*HEAD128_INT4_ROWS, "jvp_tangent"), 0.0)
     kernels = {"decode4": (decode_attention_int4, decode_attention_int4_plain),
                "paged4_decode": (paged4_decode_attention, paged4_decode_attention_plain)}
     for n_q, n_kv in ((16, 16), (16, 4)):
@@ -5329,7 +5455,7 @@ def _head128_rcm_int4_kernels(dev) -> dict:
     for b, h, t, s, causal in HEAD128_JVP_CASES:
         inputs = _strided(*_jvp_inputs(gen, dev, b, h, t, s, HEAD128))
         got = _check_jvp(*inputs, causal, f"d=128 ({b},{h},{t},{s}) DiT views causal={causal}",
-                         modes=(True,))
+                         modes=(True, False), every_bit=True)
         err.update({k: max(err[k], got[k]) for k in err if k in got})
         del inputs
     msgs = []
@@ -5390,9 +5516,10 @@ def _head128_rcm_int4_paths(dev, smi) -> tuple[dict, dict]:
     slotted (B15) and paged (B16) caches: each run launches only B1 (one
     batched prefill, n_layers times) and its cache's int4 decode kernel, and
     the paged run's tokens equal the slotted run's; then the rCM step at
-    DIT128_CFG (phase 20 at 128: card-vs-CPU parity at seq DIT_PARITY_LEN,
-    central differences, torch.func.jvp of dit_forward refused naming B-f3,
-    1 + 5 steps with losses finite and falling and exact launches a step).
+    DIT128_CFG (phase 20 at 128: card-vs-CPU parity at seq DIT_PARITY_LEN in
+    both modes, central differences, torch.func.jvp of dit_forward through
+    B10 once a layer, 1 + 5 steps with losses finite and falling and exact
+    launches a step).
     Returns (launches by path, step and serving numbers)."""
     n_layers = SERVE128_CFG.n_layers
     paths, speed, tokens = {}, {}, {}
@@ -5411,11 +5538,91 @@ def _head128_rcm_int4_paths(dev, smi) -> tuple[dict, dict]:
     if not same:
         raise AssertionError("the paged int4 cache served other tokens than the slotted one at "
                              "head dim 128")
-    dit_launches, _, dit = phase_dit(dev, smi, DIT128_CFG, profile=False)
+    dit_launches, dit_jvp, dit = phase_dit(dev, smi, DIT128_CFG, profile=False,
+                                           modes=(True, False))
     paths["dit_rcm128"] = {k: n for k, n in dit_launches.items() if n}
+    paths["dit_jvp128_seq512"] = {k: n for k, n in dit_jvp.items() if n}
     return paths, {"serve128_int4_tokens_per_s": speed,
                    "dit_rcm128": {k: dit[k] for k in ("median_ms", "max_memory_gib",
                                                       "tokens_per_s", "losses")}}
+
+
+# B2/B3 exact timed at config 2's batch and heads at 128 (b, h, t), causal
+EXACT_BWD128 = (4, 16, 2048)
+
+
+def _head128_exact_kernels(dev) -> dict:
+    """B10 exact on the dit_jvp path's [b, h, t, d] views at (2, 4, 512,
+    128), whose keys it splits into ranges (z > 1): its plain version at
+    JVP_EXACT_TOL, the same bits on a second call, its prep byte-equal to
+    the plain prep; then B2/B3 exact at phase 6's tile and edge cases at
+    head dim 128 (BWD_EXACT_TOL, the same bits on a second call) on B1
+    fp32's residuals, as attention_jvp hands them on. Returns each kernel's
+    max|diff|."""
+    gen = torch.Generator(device=dev).manual_seed(39)
+    b, h, t = 2, DIT128_CFG.n_heads, DIT_PARITY_LEN
+    label = f"({b},{h},{t},128) DiT views"
+    q, k, v, tq, tk, tv = _strided(*_jvp_inputs(gen, dev, b, h, t, t, HEAD128)[:6])
+    o, lse = flash_attention_fwd_fp32(q, k, v)
+    got = attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv)
+    _same_bits("jvp_tangent", (got,), (attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv),), label)
+    want = attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv)
+    err = {"jvp_tangent": (got - want).abs().max().item()}
+    rel = err["jvp_tangent"] / want.abs().max().item()
+    prep_ok = all(torch.equal(_bits(a), _bits(w_)) for a, w_ in
+                  zip(tangent_prep(k, v, tk, tv), tangent_prep_plain(k, v, tk, tv)))
+    _, z, per = jvp_tiling.tangent_grid(b * h, t, t, torch.cuda.get_device_properties(
+        dev).multi_processor_count, HEAD128)
+    log(f"[head128] jvp_tangent exact (3xTF32) {label}: tO max|diff|/max|plain| {rel:.2e} (tol "
+        f"{JVP_EXACT_TOL}; {z} key ranges of {per} tiles; bit-equal on a second call; prep "
+        f"byte-equal {prep_ok})")
+    if rel > JVP_EXACT_TOL or z < 2 or not torch.isfinite(got).all() or not prep_ok:
+        raise AssertionError(f"[head128] jvp_tangent exact at {label}: {rel:.2e}, z={z}, prep "
+                             f"byte-equal {prep_ok}")
+    del q, k, v, tq, tk, tv, o, lse, got, want
+    err.update(flash_bwd_dkv=0.0, flash_bwd_dq=0.0)
+    for b, h, h_kv, t, s_, causal in BWD_TILE_CASES + BWD_EDGE_CASES:
+        q, k, v, do = _qkvdo(gen, dev, b, h, h_kv, t, s_, HEAD128)
+        o, lse = flash_attention_fwd_fp32(q, k, v, causal=causal)
+        e = _check_bwd(bwd_operands(q, k, v, o, lse, do, causal=causal, fast=False),
+                       f"d=128 b={b} h={h} h_kv={h_kv} t={t} s={s_} causal={causal}")
+        err.update({name: max(err[name], x) for name, x in e.items()})
+    return err
+
+
+def _head128_exact_bwd_timing(dev) -> dict:
+    """B2 and B3 exact at EXACT_BWD128 x 128, causal, on B1 fp32's
+    residuals: device time (CUDA-graph replays) beside their bounds at the
+    fp32 CUDA-core peak and SDPA's f32 backward. Returns {kernel: exact_*
+    entries}."""
+    b, h, t = EXACT_BWD128
+    d = HEAD128
+    q, k, v, do = _qkvdo(torch.Generator(device=dev).manual_seed(40), dev, b, h, h, t, t, d)
+    o, lse = flash_attention_fwd_fp32(q, k, v, causal=True)
+    ops = bwd_operands(q, k, v, o, lse, do, causal=True, fast=False)
+    dk, dv = flash_bwd_dkv(ops)
+    dq = flash_bwd_dq(ops)
+    pairs = b * h * visible_pairs(t, t, True)
+    from torch.nn.attention import SDPBackend
+
+    sdpa = _sdpa_bwd_ms(q, k, v, do, torch.float32, [SDPBackend.EFFICIENT_ATTENTION], calls=2,
+                        replays=3)
+    call = ("backward of F.scaled_dot_product_attention(is_causal=True), f32, memory-efficient "
+            "backend: dq, dk, dv together")
+    shape = f"({b},{h},{t},{d}) causal, exact"
+    out = {}
+    for name, fn, outs, dots in (("flash_bwd_dkv", lambda: flash_bwd_dkv(ops), (dk, dv), 4),
+                                 ("flash_bwd_dq", lambda: flash_bwd_dq(ops), (dq,), 3)):
+        bnd = bound(nbytes(*ops[:6], *outs), (dots * 2 * pairs * d, PEAK_FP32))
+        out[name] = {"exact_ms": device_ms(fn, calls=1, replays=3),
+                     "exact_bound_ms": bnd["bound_ms"], "exact_bound_by": bnd["bound_by"],
+                     "exact_library_ms": sdpa, "exact_library_call": call,
+                     "exact_shape": shape}
+        r = out[name]
+        log(f"[head128] {name} {shape}: {r['exact_ms']:.4f} ms, bound {r['exact_bound_ms']:.4f} "
+            f"ms at the fp32 CUDA-core peak ({r['exact_bound_by']}), "
+            f"{r['exact_ms'] / r['exact_bound_ms']:.2f}x; sdpa f32 backward {sdpa:.4f} ms")
+    return out
 
 
 def phase_head128(dev, smi, alone: bool = False) -> dict:
@@ -5429,7 +5636,13 @@ def phase_head128(dev, smi, alone: bool = False) -> dict:
     params: tokens/s). Then B15/B16 and the rCM step's kernels (B1 fp32, B9,
     B11, B12 fast) at their tile edges and timed, ServingEngine(kv_quant=
     "int4") at SERVE128_CFG on both caches and the rCM step at DIT128_CFG.
-    Returns {kernel: its d=128 entry} with the launches of every path.
+    Then the exact modes: B10 (both modes) and the exact B9, B11 and B12 at
+    the same edges (in _head128_rcm_int4_kernels) and timed, B10 exact with
+    its keys split, B2/B3 exact at phase 6's edges and timed beside SDPA's
+    f32 backward, BASELINE config 5's gate at 128, torch.func.jvp of
+    dit_forward at full size and make_dit_rcm_step(fast=False) at
+    DIT128_CFG. Returns {kernel: its d=128 entry} with the launches of every
+    path.
     `alone`: the process runs no other phase, so B4's profile census must
     record (phase_int8_timing)."""
     errs = _head128_kernels(dev)
@@ -5464,16 +5677,30 @@ def phase_head128(dev, smi, alone: bool = False) -> dict:
     for name, row in {**rcm_timing, **_head128_int4_timing(dev)}.items():
         out[name] = {**row, "max_abs_err": rcm_errs[name]}
     rcm_paths, rcm_runs = _head128_rcm_int4_paths(dev, smi)
+    # the exact modes at 128: B10 (split keys), B2/B3 exact at their edges
+    # and timed, config 5's gate, the forward-mode DiT and the exact rCM step
+    exact_errs = _head128_exact_kernels(dev)
+    for name, e in exact_errs.items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+    for name, row in _head128_exact_bwd_timing(dev).items():
+        out[name].update(row)
+    oracle128 = phase_jvp_oracle(dev, torch.Generator(device=dev).manual_seed(38), HEAD128)
+    dit_exact_paths, dit_exact = _dit_exact(dev, smi, DIT128_CFG)
     paths = {"train128": train_launches, "serve128": serve["bfloat16"]["launches"],
-             **int8["launches"], "infer128_int8": infer_launches, **rcm_paths}
+             **int8["launches"], "infer128_int8": infer_launches, **rcm_paths,
+             "jvp_oracle128": oracle128, **dit_exact_paths}
     for name in HEAD128_ROWS:
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         out[name]["launches_by_path"] = {p: n for p, n in by_path.items() if n}
     out["flash_bwd_dkv"]["prep_launches_by_path"] = {"train128": train_launches["flash_bwd_prep"]}
     for name, prep in (("flash_fwd_fp32", "flash_fwd_fp32_prep"), ("jvp_fwd", "jvp_fwd_prep"),
                        ("jvp_bwd_dkv", "jvp_bwd_prep")):
-        out[name]["prep_launches_by_path"] = {"dit_rcm128": rcm_paths["dit_rcm128"][prep]}
+        out[name]["prep_launches_by_path"] = {
+            p: paths[p].get(prep, 0) for p in ("dit_rcm128", "dit_rcm128_exact", "dit_jvp128",
+                                               "dit_jvp128_seq512", "jvp_oracle128")
+            if paths[p].get(prep, 0)}
     out.update(rcm_runs)
+    out.update(dit_exact)
     out["train128"] = {"median_step_ms": run["median_ms"], "max_memory_gib": run["max_memory_gib"]}
     out["train128_int8"] = int8["train"]
     out["serve128_tokens_per_s"] = {"serve128": serve["bfloat16"]["tokens_per_s"],
@@ -6288,6 +6515,7 @@ HEAD128_ROWS = {  # phase 30's kernels: source and the TPU kernel each replaces
     "paged_decode": ("cache_decode.cu", "quantizedattention_tpu/parallel/paged_cache.py:252"),
     "flash_fwd_fp32": ("flash_fwd.cu", "quantizedattention_tpu/ops/flash_fwd.py:47"),
     "jvp_fwd": ("jvp.cu", "quantizedattention_tpu/ops/jvp_fwd.py:39"),
+    "jvp_tangent": ("jvp.cu", "quantizedattention_tpu/ops/jvp_tangent.py:44"),
     "jvp_bwd_dkv": ("jvp.cu", "quantizedattention_tpu/ops/jvp_bwd.py:105"),
     "jvp_bwd_dq": ("jvp.cu", "quantizedattention_tpu/ops/jvp_bwd.py:155"),
     "decode4": ("cache_decode.cu", "quantizedattention_tpu/parallel/kv4_cache.py:341"),
@@ -6297,8 +6525,9 @@ HEAD128_ROWS = {  # phase 30's kernels: source and the TPU kernel each replaces
 
 def main_head128() -> None:
     """`python3 chip_smoke.py head128`: phases 1, 2 and 30 alone; the
-    `kernels` line holds the sixteen kernels and modes at head dim 128 (B1
-    in both modes, B2-B9, B11-B16)."""
+    `kernels` line holds the seventeen kernels and modes at head dim 128 (B1
+    in both modes, B2-B16; the exact modes of B2/B3 and B9-B12 inside their
+    kernels' rows)."""
     name, smi = phase_device()
     phase_build()
     head128 = phase_head128(torch.device("cuda", 0), smi, alone=True)

@@ -365,9 +365,9 @@ def _build_lib(name: str, src: str, include: str = _build.CSRC_DIR) -> ctypes.CD
         from quantizedattention_tpu_torch.ops import jvp_tangent as tjt
         lib.qa_jvp_tangent_tf32.argtypes = tjt._ARGTYPES["qa_jvp_tangent_tf32"]
         lib.qa_jvp_tangent_tf32.restype = ctypes.c_int
-    elif name.startswith("tgffma"):  # the FFMA design's B10 entry (all contiguous f32)
-        from quantizedattention_tpu_torch.ops import jvp_tangent as tjt
-        lib.qa_jvp_tangent.argtypes = tjt._ARGTYPES["qa_jvp_tangent"]
+    elif name.startswith("tgffma"):  # the FFMA design's B10 entry (all contiguous f32, no d)
+        lib.qa_jvp_tangent.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.qa_jvp_tangent.restype = ctypes.c_int
     elif name.startswith("ffma"):  # the FFMA design's fp32 entry (q pre-scaled, all contiguous)
         lib.qa_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -1770,12 +1770,14 @@ SASS_LIBS = ("flash_fwd", "flash_bwd", "cache_decode", "jvp")
 # a kernel's mangled name -> its key: the kernel's name, the decode kernel's
 # payload (PACKED), and no head dim (a template's 64 instance; 128 skipped);
 # of B1's instances only the "eps" rule's (template argument 0 last); the
-# JVP kernels that gained a head-dim template (the rest keep their names)
+# JVP kernels that gained a head-dim template (the rest keep their names;
+# B10 exact's head-dim-128 kernel, jvp_tangent_tf32_128, is new)
 _KERNEL_NAMES = ("flash_fwd_f32_kernel", "flash_fwd_kernel", "kv_to_bf16_kernel",
                  "kv_split_tf32_kernel", "dkv_kernel_bf16", "dq_kernel_bf16",
                  "jvp_fwd_prep_kernel", "jvp_bwd_prep_kernel", "bwd_prep_kernel", "dkv_kernel_f32",
                  "dq_kernel_f32", "decode_kernel", "jvp_fwd_wgmma", "jvp_dkv_wgmma",
-                 "jvp_dq_wgmma")
+                 "jvp_dq_wgmma", "jvp_fwd_kernel", "jvp_dkv_kernel", "jvp_dq_kernel",
+                 "jvp_tangent_mma", "tangent_prep_kernel", "tangent_merge_kernel")
 
 
 def _sass(lib_path) -> dict:
@@ -2056,7 +2058,7 @@ def _tangent_call(lib, q, o, lse, tq, prep, to, sm_scale, qk_scale, entry="qa_jv
     status = getattr(lib, entry)(
         q.data_ptr(), st(q), tq.data_ptr(), st(tq), o.data_ptr(), st(o), lse.data_ptr(), st(lse),
         (ctypes.c_void_p * 8)(*(x.data_ptr() for x in prep)), to.data_ptr(), None, b, h, t, s, 0,
-        1, per, sm_scale, qk_scale, torch.cuda.current_stream().cuda_stream)
+        1, per, q.shape[-1], sm_scale, qk_scale, torch.cuda.current_stream().cuda_stream)
     if status:
         raise SystemExit(f"kernel_probe: B10 launch failed with status {status}")
 

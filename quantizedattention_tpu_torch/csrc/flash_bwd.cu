@@ -26,7 +26,9 @@
 //           cancels (one visible key: O is bf16(V), so dP - D is dO . (V -
 //           bf16(V)), about 2^-9 of dP), an f32 sum's rounding would be
 //           amplified ~500x and differ with the summation order; in float64
-//           the kernel and the plain version agree to f32 rounding.
+//           the kernel and the plain version agree to f32 rounding. Head
+//           dim 64 or 128, an instance each (static shared arrays at 64,
+//           dynamic shared memory at 128: 73 and 69 KB).
 //
 // What bounds the fast kernels on this card: at (4,16,2048,64), causal, B2
 // runs four bf16 products (S^T, dP^T, dV, dK) and B3 three (S, dP, dQ) over
@@ -68,7 +70,7 @@
 // Each block owns its output rows: no atomics in global memory, the same bits
 // every run.
 //
-// Head dim 128 (fast mode only; BwdGeom<128>, chosen by the entry's d): the
+// Head dim 128 in fast mode (BwdGeom<128>, chosen by the entry's d): the
 // same bodies. Every bf16 tile is two 64-dim panels in the 128-byte swizzle
 // (a row of 128 dims is twice its span), each its own TMA box: S, S^T, dP
 // and dP^T take 8 k-steps, the second four on the second panels, and dV,
@@ -692,15 +694,23 @@ bwd_prep_kernel(Rows q, Rows dout, Rows o, const float* __restrict__ lse,  // ls
 // exact: fp32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int E_D = 64;         // head dim (exact mode takes 64 only)
 constexpr int TE = 32;          // rows and keys per tile (exact)
-constexpr int FROW = E_D + 1;     // padded shared row (f32)
 constexpr int PROW = TE + 1;    // padded shared row of a P / dS tile (f32)
 constexpr int THREADS_E = 256;  // exact kernels: thread = (row tid / 8, lane tid % 8)
 
+// The exact kernels' shared floats at head dim d (E_D + 1 a padded operand
+// row): B2 K, V, Q, dO tiles, P^T and dS^T, lse and D; B3 Q, dO, K, V tiles
+// and dS. Static arrays at 64 (under 48 KB), dynamic shared memory at 128.
+__host__ __device__ constexpr int dkv_f32_floats(int d) {
+  return 4 * TE * (d + 1) + 2 * TE * PROW + 2 * TE;
+}
+__host__ __device__ constexpr int dq_f32_floats(int d) { return 4 * TE * (d + 1) + TE * PROW; }
+
 // Rows row0 .. row0+TE-1 of a row-major [n, E_D] f32 matrix into a padded
 // shared tile; rows at or past n are zero.
+template <int E_D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0, int n) {
+  constexpr int FROW = E_D + 1;
   for (int c = threadIdx.x; c < TE * (E_D / 4); c += THREADS_E) {
     const int r = c / (E_D / 4);
     const int col = (c % (E_D / 4)) * 4;
@@ -720,23 +730,40 @@ __device__ __forceinline__ float exact_ds(float p, double dp, float d) {
   return p * static_cast<float>(dp - static_cast<double>(d));
 }
 
-// B2 exact: one block per (batch*kv_head, TE-key tile). Thread (r, c) =
-// (tid / 8, tid % 8) owns key r of the tile: columns c + 8i of its dK/dV
-// rows and of its P^T/dS^T rows.
+// B2 exact at head dim E_D (64 or 128): one block per (batch*kv_head,
+// TE-key tile). Thread (r, c) = (tid / 8, tid % 8) owns key r of the tile:
+// columns c + 8i of its dK/dV rows and of its P^T/dS^T rows.
+template <int E_D>
 __global__ void __launch_bounds__(THREADS_E)
 dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ di,
                float* __restrict__ dk, float* __restrict__ dv,
                int rep, int t, int s, int causal, float dk_scale, float dv_scale) {
-  __shared__ float k_s[TE * FROW];
-  __shared__ float v_s[TE * FROW];
-  __shared__ float q_s[TE * FROW];
-  __shared__ float do_s[TE * FROW];
-  __shared__ float p_s[TE * PROW];
-  __shared__ float ds_s[TE * PROW];
-  __shared__ float lse_s[TE];
-  __shared__ float di_s[TE];
+  constexpr int FROW = E_D + 1;
+  float *k_s, *v_s, *q_s, *do_s, *p_s, *ds_s, *lse_s, *di_s;
+  if constexpr (E_D == 64) {
+    __shared__ float k_a[TE * FROW];
+    __shared__ float v_a[TE * FROW];
+    __shared__ float q_a[TE * FROW];
+    __shared__ float do_a[TE * FROW];
+    __shared__ float p_a[TE * PROW];
+    __shared__ float ds_a[TE * PROW];
+    __shared__ float lse_a[TE];
+    __shared__ float di_a[TE];
+    k_s = k_a, v_s = v_a, q_s = q_a, do_s = do_a, p_s = p_a, ds_s = ds_a, lse_s = lse_a,
+    di_s = di_a;
+  } else {
+    extern __shared__ float smem_f32[];
+    k_s = smem_f32;
+    v_s = k_s + TE * FROW;
+    q_s = v_s + TE * FROW;
+    do_s = q_s + TE * FROW;
+    p_s = do_s + TE * FROW;
+    ds_s = p_s + TE * PROW;
+    lse_s = ds_s + TE * PROW;
+    di_s = lse_s + TE;
+  }
 
   const int tid = threadIdx.x;
   const int r = tid / 8;
@@ -745,8 +772,8 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * TE;
   const int key = k0 + r;
 
-  load_tile_f32(k_s, k + bh * s * E_D, k0, s);
-  load_tile_f32(v_s, v + bh * s * E_D, k0, s);
+  load_tile_f32<E_D>(k_s, k + bh * s * E_D, k0, s);
+  load_tile_f32<E_D>(v_s, v + bh * s * E_D, k0, s);
 
   float dk_acc[E_D / 8], dv_acc[E_D / 8];
 #pragma unroll
@@ -759,8 +786,8 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = j0; j < n_qt; ++j) {
       const int q0 = j * TE;
       __syncthreads();
-      load_tile_f32(q_s, q + row0 * E_D, q0, t);
-      load_tile_f32(do_s, dout + row0 * E_D, q0, t);
+      load_tile_f32<E_D>(q_s, q + row0 * E_D, q0, t);
+      load_tile_f32<E_D>(do_s, dout + row0 * E_D, q0, t);
       if (tid < TE) {
         const bool live = q0 + tid < t;
         lse_s[tid] = live ? lse[row0 + q0 + tid] : 0.f;
@@ -817,19 +844,33 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B3 exact: one block per (q head, TE-row q tile); blockIdx.y indexes the
-// [bh_kv, rep] q heads, so the kv head is blockIdx.y / rep. Thread (r, c)
-// owns row r: columns c + 8i of its dQ row and of its dS row.
+// B3 exact at head dim E_D (64 or 128): one block per (q head, TE-row q
+// tile); blockIdx.y indexes the [bh_kv, rep] q heads, so the kv head is
+// blockIdx.y / rep. Thread (r, c) owns row r: columns c + 8i of its dQ row
+// and of its dS row.
+template <int E_D>
 __global__ void __launch_bounds__(THREADS_E)
 dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ di,
               float* __restrict__ dq, int rep, int t, int s, int causal) {
-  __shared__ float q_s[TE * FROW];
-  __shared__ float do_s[TE * FROW];
-  __shared__ float k_s[TE * FROW];
-  __shared__ float v_s[TE * FROW];
-  __shared__ float ds_s[TE * PROW];
+  constexpr int FROW = E_D + 1;
+  float *q_s, *do_s, *k_s, *v_s, *ds_s;
+  if constexpr (E_D == 64) {
+    __shared__ float q_a[TE * FROW];
+    __shared__ float do_a[TE * FROW];
+    __shared__ float k_a[TE * FROW];
+    __shared__ float v_a[TE * FROW];
+    __shared__ float ds_a[TE * PROW];
+    q_s = q_a, do_s = do_a, k_s = k_a, v_s = v_a, ds_s = ds_a;
+  } else {
+    extern __shared__ float smem_f32[];
+    q_s = smem_f32;
+    do_s = q_s + TE * FROW;
+    k_s = do_s + TE * FROW;
+    v_s = k_s + TE * FROW;
+    ds_s = v_s + TE * FROW;
+  }
 
   const int tid = threadIdx.x;
   const int r = tid / 8;
@@ -840,8 +881,8 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int pos = q0 + r;
   const bool live = pos < t;
 
-  load_tile_f32(q_s, q + head * t * E_D, q0, t);
-  load_tile_f32(do_s, dout + head * t * E_D, q0, t);
+  load_tile_f32<E_D>(q_s, q + head * t * E_D, q0, t);
+  load_tile_f32<E_D>(do_s, dout + head * t * E_D, q0, t);
   const float lse_r = live ? lse[head * t + pos] : 0.f;
   const float di_r = live ? di[head * t + pos] : 0.f;
 
@@ -854,8 +895,8 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * TE;
     __syncthreads();
-    load_tile_f32(k_s, k + bh * s * E_D, k0, s);
-    load_tile_f32(v_s, v + bh * s * E_D, k0, s);
+    load_tile_f32<E_D>(k_s, k + bh * s * E_D, k0, s);
+    load_tile_f32<E_D>(v_s, v + bh * s * E_D, k0, s);
     __syncthreads();
 
     float sc[TE / 8];
@@ -951,6 +992,45 @@ int dkv_fast(const void* q, const void* k, const void* v, const void* dout, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// Exact mode at head dim D: B2's and B3's launches, static shared memory at
+// 64 and the attribute once an instance at 128.
+template <int D>
+int dkv_exact(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* di, void* dk, void* dv, int bh_kv, int rep, int t, int s, int causal,
+              float dk_scale, float dv_scale, cudaStream_t st) {
+  const int smem = D == 64 ? 0 : dkv_f32_floats(D) * static_cast<int>(sizeof(float));
+  if constexpr (D != 64) {
+    static bool configured = false;
+    const cudaError_t err = allow_smem(dkv_kernel_f32<D>, smem, configured);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((s + TE - 1) / TE, bh_kv);
+  dkv_kernel_f32<D><<<grid, THREADS_E, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), rep, t, s,
+      causal, dk_scale, dv_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dq_exact(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* di, void* dq, int bh_kv, int rep, int t, int s, int causal,
+             cudaStream_t st) {
+  const int smem = D == 64 ? 0 : dq_f32_floats(D) * static_cast<int>(sizeof(float));
+  if constexpr (D != 64) {
+    static bool configured = false;
+    const cudaError_t err = allow_smem(dq_kernel_f32<D>, smem, configured);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((t + TE - 1) / TE, bh_kv * rep);
+  dq_kernel_f32<D><<<grid, THREADS_E, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<float*>(dq), rep, t, s, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int dq_fast(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* di, void* dq, int bh_kv, int rep, int t, int s, int ld, int bq,
@@ -981,6 +1061,14 @@ extern "C" int qa_flash_bwd_dq_smem_bytes(int d) {
   return d == 64 ? BwdGeom<64>::DQ_SMEM : d == 128 ? BwdGeom<128>::DQ_SMEM : -1;
 }
 
+// Shared bytes one exact block uses at head dim d, 64 or 128 (static at 64,
+// dynamic at 128; ops/flash_tiling.py mirrors them): B2 (dq 0) or B3 (dq 1);
+// -1 for another d.
+extern "C" int qa_flash_bwd_exact_smem_bytes(int dq, int d) {
+  if (d != 64 && d != 128) return -1;
+  return (dq ? dq_f32_floats(d) : dkv_f32_floats(d)) * static_cast<int>(sizeof(float));
+}
+
 // Fast mode's prep: q, dout, o [b, h, t, d] (each f32 or bf16, strides in
 // elements, rows contiguous, pointers and strides 16-byte aligned; d 64 or
 // 128), lse [b * h, t] f32 -> qs, dos [b, h, t, d] bf16 and lse_out, di [b *
@@ -1005,7 +1093,7 @@ extern "C" int qa_flash_bwd_prep(const void* q, long long q_sb, long long q_sh, 
 }
 
 // B2: dK, dV [bh_kv, s, d] f32. q/dout [bh_kv, rep, t, d], k/v [bh_kv, s, d]
-// (contiguous): bf16 when fast (d 64 or 128), else f32 (d 64); lse/di [bh_kv
+// (contiguous, d 64 or 128): bf16 when fast, else f32; lse/di [bh_kv
 // * rep, ld] f32 (fast: ld a multiple of 4, at least t; exact: ld == t).
 // Causal masking on global positions q_offset + i, k_offset + j (fast mode;
 // exact mode only with q_offset == k_offset).
@@ -1016,18 +1104,14 @@ extern "C" int qa_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0 ||
-      (d != 64 && (d != 128 || !fast)))
+      (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!fast) {  // exact mode takes no offsets
     if (ld != t || (causal && q_offset != k_offset))
       return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((s + TE - 1) / TE, bh_kv);
-    dkv_kernel_f32<<<grid, THREADS_E, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), rep, t, s,
-        causal, dk_scale, dv_scale);
-    return static_cast<int>(cudaGetLastError());
+    auto* launch = d == 64 ? &dkv_exact<64> : &dkv_exact<128>;
+    return launch(q, k, v, dout, lse, di, dk, dv, bh_kv, rep, t, s, causal, dk_scale, dv_scale,
+                  st);
   }
   const int n_kt = (s + 127) / 128;
   if (n_kt > 65535 || ld % 4 || static_cast<long long>(bh_kv) * rep > 0x7fffffffLL)
@@ -1045,18 +1129,14 @@ extern "C" int qa_flash_bwd_dq(const void* q, const void* k, const void* v, cons
                                int k_offset, int fast, int d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bh_kv < 1 || rep < 1 || t < 1 || s < 1 || ld < t || q_offset < 0 || k_offset < 0 ||
-      (d != 64 && (d != 128 || !fast)))
+      (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!fast) {  // exact mode takes no offsets
     if (ld != t || static_cast<long long>(bh_kv) * rep > 65535 ||
         (causal && q_offset != k_offset))
       return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((t + TE - 1) / TE, bh_kv * rep);
-    dq_kernel_f32<<<grid, THREADS_E, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(di), static_cast<float*>(dq), rep, t, s, causal);
-    return static_cast<int>(cudaGetLastError());
+    auto* launch = d == 64 ? &dq_exact<64> : &dq_exact<128>;
+    return launch(q, k, v, dout, lse, di, dq, bh_kv, rep, t, s, causal, st);
   }
   const int n_qb = bq < 1 ? 0 : (t + bq - 1) / bq;
   if (bq < 1 || rep * bq > 128 || n_qb > 65535) return static_cast<int>(cudaErrorInvalidValue);

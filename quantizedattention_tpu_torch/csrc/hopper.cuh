@@ -686,6 +686,56 @@ __device__ __forceinline__ void wgmma_tf32_m64n32k8_ss(float (&d)[16], uint64_t 
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 16] (+)= A[64 x 8] B[8 x 16], tf32 -> f32, A from registers (the
+// fragment above), B K-major from shared memory. d[4 n + e]: row 16 * warp +
+// lane / 4 + 8 * (e / 2), column 8 n + 2 * (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_tf32_m64n16k8_rs(float (&d)[8], const uint32_t (&a)[4],
+                                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 16] = A[64 x 8] B[8 x 16]: the first k-step of a product into d,
+// whose old values it neither reads nor keeps alive ("=f"), as
+// wgmma_tf32_m64n64k8_rs_zero.
+__device__ __forceinline__ void wgmma_tf32_m64n16k8_rs_zero(float (&d)[8],
+                                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+// d[64 x 16] (+)= A[64 x 8] B[8 x 16], tf32 -> f32; A and B K-major from
+// shared memory. d's layout as wgmma_tf32_m64n16k8_rs's.
+__device__ __forceinline__ void wgmma_tf32_m64n16k8_ss(float (&d)[8], uint64_t da, uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // The 3xTF32 prep of one pair of key-side operands, 64 keys of one (batch,
 // head) by a block of 256 threads, at head dim HD (64 or 128): K [s, HD] f32
 // (rows `k_st` floats apart, contiguous, 16-byte aligned) -> K big and K

@@ -39,7 +39,12 @@
 //           of attention_value_and_jvp, and the JVP ring's mode. B9, B11 and
 //           B12 in fp32 on the CUDA cores (FFMA); B10 (what
 //           torch.func.jvp of attention_jvp runs) in 3xTF32 on wgmma,
-//           jvp_tangent_tf32 after tangent_prep_kernel.
+//           jvp_tangent_tf32 (jvp_tangent_tf32_128 at head dim 128) after
+//           tangent_prep_kernel.
+//
+// Head dims: every kernel takes 64 and 128, an instance each (a template on
+// the head dim; B10 exact a kernel of its own at 128, below); the entries
+// take d and dispatch.
 //
 // What bounds them on this card: operations. Per visible (q, k) pair and
 // head_dim column, B9 runs 6 products, B10 5, B11 12 and B12 9 (2 flops
@@ -48,8 +53,9 @@
 // TFLOP/s) at ~25 ms.
 //
 // Ownership, both modes: B9, B10 and B12 own a q tile (32 rows exact, 64
-// for B10 fast, 128 for B9 and B12 fast and B10 exact) and loop over key
-// tiles (32 keys; 64 for B9 fast) up to the causal diagonal; B11 owns a key
+// for B10 fast and for B10 exact at 128, 128 for B9 and B12 fast and B10
+// exact at 64) and loop over key tiles (32 keys; 64 for B9 fast at 64) up
+// to the causal diagonal; B11 owns a key
 // tile (its rows are keys: 32 exact, 128 fast) and loops over the 32-row q
 // tiles that can see it, computing the transposed tile quantities. Each
 // output tile has one owner (B10 exact may split a tile's keys into ranges,
@@ -58,11 +64,12 @@
 //
 // Exact design of B9, B11 and B12 (simple first): one block of 256 threads
 // per (b*h, 32-row tile); thread (r, c) = (tid / 8, tid % 8) owns tile row r and output
-// columns c + 8i. A row's eight owners sit in one warp: row max and sums
-// reduce by shuffles, and the probability tiles pass to the second products
-// through padded shared rows behind a __syncwarp. Operand tiles live in
-// padded f32 rows (conflict-free column reads) in dynamic shared memory
-// (57-82 KB). No register blocking and no pipelining yet.
+// columns c + 8i (8 of them at head dim 64, 16 at 128). A row's eight owners sit in one
+// warp: row max and sums reduce by shuffles, and the probability tiles pass to the second
+// products through padded shared rows behind a __syncwarp. Operand tiles live in padded
+// f32 rows (d + 1 floats: conflict-free column reads) in dynamic shared memory (57-82 KB
+// at 64, 105-146 KB at 128; qa_jvp_exact_smem_bytes). No register blocking and no
+// pipelining yet.
 // B10 exact's design and the fast designs: below, beside their kernels.
 
 #include <math.h>
@@ -71,13 +78,12 @@
 
 namespace {
 
-constexpr int D = 64;          // head dim
 constexpr int T = 32;          // rows and keys per tile
-constexpr int FROW = D + 1;    // padded shared row of an operand tile
 constexpr int PROW = T + 1;    // padded shared row of a probability tile
 constexpr int THREADS = 256;   // thread = (row tid / 8, column lane tid % 8)
-constexpr int TILE = T * FROW;
 constexpr int PTILE = T * PROW;
+// An operand tile at head dim D: T padded f32 rows of D + 1 floats.
+__host__ __device__ constexpr int ftile(int d) { return T * (d + 1); }
 constexpr float MASK_VALUE = -30000.0f;
 
 __device__ __forceinline__ float row_max8(float x) {
@@ -94,7 +100,9 @@ __device__ __forceinline__ float row_sum8(float x) {
 
 // Rows row0 .. row0+T-1 of a row-major [n, D] f32 matrix into a padded
 // shared tile; rows at or past n are zero.
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n) {
+  constexpr int FROW = D + 1;
   for (int c = threadIdx.x; c < T * (D / 4); c += THREADS) {
     const int r = c / (D / 4);
     const int col = (c % (D / 4)) * 4;
@@ -110,9 +118,11 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0
 
 // S, tQ K^T and Q tK^T of one row (a_*: row `ra` of tiles a, ta) against
 // eight columns c + 8i of tiles b, tb: s = a.b, x = ta.b, y = a.tb.
+template <int D>
 __device__ __forceinline__ void logits(float s[T / 8], float x[T / 8], float y[T / 8],
                                        const float* a, const float* ta, const float* b,
                                        const float* tb, int ra, int c) {
+  constexpr int FROW = D + 1;
 #pragma unroll
   for (int i = 0; i < T / 8; ++i) s[i] = x[i] = y[i] = 0.f;
   for (int d = 0; d < D; ++d) {
@@ -132,6 +142,7 @@ __device__ __forceinline__ void logits(float s[T / 8], float x[T / 8], float y[T
 // B9: (O, tO, lse, mu) in one online-softmax pass
 // ---------------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 jvp_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ tq,
@@ -139,6 +150,7 @@ jvp_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                float* __restrict__ o, float* __restrict__ to, float* __restrict__ lse,
                float* __restrict__ mu, int t, int s, int causal, float sm_scale,
                float qk_scale) {
+  constexpr int FROW = D + 1, TILE = ftile(D);
   extern __shared__ float smem[];
   float* q_s = smem;
   float* tq_s = q_s + TILE;
@@ -160,8 +172,8 @@ jvp_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + bh * s * D;
   const float* tvb = tv + bh * s * D;
 
-  load_tile(q_s, q + bh * t * D, q0, t);
-  load_tile(tq_s, tq + bh * t * D, q0, t);
+  load_tile<D>(q_s, q + bh * t * D, q0, t);
+  load_tile<D>(tq_s, tq + bh * t * D, q0, t);
 
   float m = -INFINITY, l = 0.f, rs = 0.f;
   float oacc[D / 8], aacc[D / 8], bacc[D / 8];
@@ -173,14 +185,14 @@ jvp_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * T;
     __syncthreads();  // every thread is done with the previous tiles
-    load_tile(k_s, kb, k0, s);
-    load_tile(tk_s, tkb, k0, s);
-    load_tile(v_s, vb, k0, s);
-    load_tile(tv_s, tvb, k0, s);
+    load_tile<D>(k_s, kb, k0, s);
+    load_tile<D>(tk_s, tkb, k0, s);
+    load_tile<D>(v_s, vb, k0, s);
+    load_tile<D>(tv_s, tvb, k0, s);
     __syncthreads();
 
     float sc[T / 8], ta[T / 8], tb[T / 8];
-    logits(sc, ta, tb, q_s, tq_s, k_s, tk_s, r, c);
+    logits<D>(sc, ta, tb, q_s, tq_s, k_s, tk_s, r, c);
     bool valid[T / 8];
     float mx = -INFINITY;
 #pragma unroll
@@ -270,6 +282,7 @@ __device__ __forceinline__ Terms tile_terms(bool valid, float s, float ta, float
 // B11: dK, dV, dtK, dtV per 32-key tile
 // ---------------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 jvp_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ tq,
@@ -280,6 +293,7 @@ jvp_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dtk,
                float* __restrict__ dtv, int t, int s, int causal, float sm_scale,
                float qk_scale) {
+  constexpr int FROW = D + 1, TILE = ftile(D);
   extern __shared__ float smem[];
   float* k_s = smem;
   float* tk_s = k_s + TILE;
@@ -305,10 +319,10 @@ jvp_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * T;
   const int key = k0 + r;
 
-  load_tile(k_s, k + bh * s * D, k0, s);
-  load_tile(tk_s, tk + bh * s * D, k0, s);
-  load_tile(v_s, v + bh * s * D, k0, s);
-  load_tile(tv_s, tv + bh * s * D, k0, s);
+  load_tile<D>(k_s, k + bh * s * D, k0, s);
+  load_tile<D>(tk_s, tk + bh * s * D, k0, s);
+  load_tile<D>(v_s, v + bh * s * D, k0, s);
+  load_tile<D>(tv_s, tv + bh * s * D, k0, s);
 
   float dk_acc[D / 8], dv_acc[D / 8], dtk_acc[D / 8], dtv_acc[D / 8];
 #pragma unroll
@@ -321,10 +335,10 @@ jvp_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = j0; j < n_qt; ++j) {
     const int q0 = j * T;
     __syncthreads();
-    load_tile(q_s, q + qrow0 * D, q0, t);
-    load_tile(tq_s, tq + qrow0 * D, q0, t);
-    load_tile(do_s, dout + qrow0 * D, q0, t);
-    load_tile(dto_s, dtout + qrow0 * D, q0, t);
+    load_tile<D>(q_s, q + qrow0 * D, q0, t);
+    load_tile<D>(tq_s, tq + qrow0 * D, q0, t);
+    load_tile<D>(do_s, dout + qrow0 * D, q0, t);
+    load_tile<D>(dto_s, dtout + qrow0 * D, q0, t);
     if (tid < T) {
       const bool live = q0 + tid < t;
       const size_t rw = qrow0 + q0 + tid;
@@ -338,8 +352,8 @@ jvp_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // this thread's key against q rows c + 8i: S^T, (tQ K^T)^T, (Q tK^T)^T
     // and (dtO V^T)^T, (dO V^T)^T, (dtO tV^T)^T
     float sc[T / 8], ta[T / 8], tb[T / 8], tpb[T / 8], dov[T / 8], dtotv[T / 8];
-    logits(sc, tb, ta, k_s, tk_s, q_s, tq_s, r, c);
-    logits(tpb, dtotv, dov, v_s, tv_s, dto_s, do_s, r, c);
+    logits<D>(sc, tb, ta, k_s, tk_s, q_s, tq_s, r, c);
+    logits<D>(tpb, dtotv, dov, v_s, tv_s, dto_s, do_s, r, c);
 #pragma unroll
     for (int i = 0; i < T / 8; ++i) {
       const int col = c + 8 * i;
@@ -387,6 +401,7 @@ jvp_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // B12: dQ, dtQ per 32-row q tile
 // ---------------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ tq,
@@ -396,6 +411,7 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ crow, const float* __restrict__ dhat,
               float* __restrict__ dq, float* __restrict__ dtq, int t, int s, int causal,
               float sm_scale, float qk_scale) {
+  constexpr int FROW = D + 1, TILE = ftile(D);
   extern __shared__ float smem[];
   float* q_s = smem;
   float* tq_s = q_s + TILE;
@@ -425,10 +441,10 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + bh * s * D;
   const float* tvb = tv + bh * s * D;
 
-  load_tile(q_s, q + bh * t * D, q0, t);
-  load_tile(tq_s, tq + bh * t * D, q0, t);
-  load_tile(do_s, dout + bh * t * D, q0, t);
-  load_tile(dto_s, dtout + bh * t * D, q0, t);
+  load_tile<D>(q_s, q + bh * t * D, q0, t);
+  load_tile<D>(tq_s, tq + bh * t * D, q0, t);
+  load_tile<D>(do_s, dout + bh * t * D, q0, t);
+  load_tile<D>(dto_s, dtout + bh * t * D, q0, t);
 
   float dq_acc[D / 8], dtq_acc[D / 8];
 #pragma unroll
@@ -439,15 +455,15 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * T;
     __syncthreads();
-    load_tile(k_s, kb, k0, s);
-    load_tile(tk_s, tkb, k0, s);
-    load_tile(v_s, vb, k0, s);
-    load_tile(tv_s, tvb, k0, s);
+    load_tile<D>(k_s, kb, k0, s);
+    load_tile<D>(tk_s, tkb, k0, s);
+    load_tile<D>(v_s, vb, k0, s);
+    load_tile<D>(tv_s, tvb, k0, s);
     __syncthreads();
 
     float sc[T / 8], ta[T / 8], tb[T / 8], tpb[T / 8], dov[T / 8], dtotv[T / 8];
-    logits(sc, ta, tb, q_s, tq_s, k_s, tk_s, r, c);
-    logits(tpb, dov, dtotv, dto_s, do_s, v_s, tv_s, r, c);
+    logits<D>(sc, ta, tb, q_s, tq_s, k_s, tk_s, r, c);
+    logits<D>(tpb, dov, dtotv, dto_s, do_s, v_s, tv_s, r, c);
 #pragma unroll
     for (int i = 0; i < T / 8; ++i) {
       const int col = k0 + c + 8 * i;
@@ -546,8 +562,8 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // softmax under tile j - 1's products) needs two sets of fragments: at
 // 64-key tiles it spilled, and at 32 keys it ran slower than this design.
 //
-// Head dim 128 (the HD = 128 instances of B9, B11, B12 and their preps; the
-// exact kernels and B10 take 64 only). Every bf16 tile is two 64-dim panels,
+// Head dim 128 (the HD = 128 instances of B9, B11, B12 fast and their
+// preps). Every bf16 tile is two 64-dim panels,
 // each its own TMA box (below), and a product whose N is the head dim is two
 // m64n64 products into two accumulators; an m64 x 128 f32 accumulator takes
 // 64 registers a thread and every tile twice the shared bytes, so:
@@ -567,7 +583,8 @@ jvp_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int MMA_THREADS = 128;   // 4 warps
 constexpr int BM = 64;             // rows a block owns: 4 warps x 16
 constexpr int BT = 32;             // rows of the streamed tile (keys, or q rows for B11)
-constexpr int SROW = D + 8;        // padded bf16 row: conflict-free fragment loads
+// A padded bf16 row at head dim d: conflict-free fragment loads.
+__host__ __device__ constexpr int srow(int d) { return d + 8; }
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
@@ -599,8 +616,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
 
 // Rows row0 .. row0+ROWS-1 of a row-major [n, D] f32 matrix into a padded
 // bf16 shared tile (rounded to nearest even); rows at or past n are zero.
-template <int ROWS>
+template <int D, int ROWS>
 __device__ __forceinline__ void load_bf16(bf16* dst, const float* src, int row0, int n) {
+  constexpr int SROW = srow(D);
   for (int c = threadIdx.x; c < ROWS * (D / 4); c += MMA_THREADS) {
     const int r = c / (D / 4);
     const int col = (c % (D / 4)) * 4;
@@ -620,9 +638,10 @@ __device__ __forceinline__ void zero(float (&x)[NT][4]) {
 
 // acc[16 x 8NT] += A B^T: A = rows ra, ra + 8 of tile a, B = rows 0 .. 8NT-1
 // of tile b (the n axis), both [*, D] padded bf16, contracted over D.
-template <int NT>
+template <int D, int NT>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a, const bf16* b,
                                         int ra, int lane) {
+  constexpr int SROW = srow(D);
   const int cq = (lane % 4) * 2;
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
@@ -650,9 +669,10 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[NT / 2][4], const float (
 
 // acc[16 x D] += A[16 x 16KS] * tile, tile = 16KS rows (the k axis) of D
 // columns, read transposed through ldmatrix.
-template <int KS>
+template <int D, int KS>
 __device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KS][4],
                                        const bf16* tile, int lane) {
+  constexpr int SROW = srow(D);
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int lcol = (lane >> 4) * 8;
 #pragma unroll
@@ -670,7 +690,8 @@ __device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&
 constexpr int NT = BT / 8;  // n-tiles of a streamed tile
 constexpr int KS = BT / 16;  // its k-steps as the A operand of a second product
 
-// B10, fast.
+// B10, fast, at head dim D (64 or 128: a warp's tO takes D / 2 registers).
+template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ tq,
@@ -678,6 +699,7 @@ jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ o, const float* __restrict__ lse,
                 float* __restrict__ to, int t, int s, int causal, float sm_scale,
                 float qk_scale) {
+  constexpr int SROW = srow(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* tq_s = q_s + BM * SROW;
@@ -705,8 +727,8 @@ jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + bh * s * D;
   const float* tvb = tv + bh * s * D;
 
-  load_bf16<BM>(q_s, q + bh * t * D, q0, t);
-  load_bf16<BM>(tq_s, tq + bh * t * D, q0, t);
+  load_bf16<D, BM>(q_s, q + bh * t * D, q0, t);
+  load_bf16<D, BM>(tq_s, tq + bh * t * D, q0, t);
 
   float hsum[2] = {0.f, 0.f};
   float acc[D / 8][4];
@@ -717,18 +739,18 @@ jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BT;
     __syncthreads();
-    load_bf16<BT>(k_s, kb, k0, s);
-    load_bf16<BT>(tk_s, tkb, k0, s);
-    load_bf16<BT>(v_s, vb, k0, s);
-    load_bf16<BT>(tv_s, tvb, k0, s);
+    load_bf16<D, BT>(k_s, kb, k0, s);
+    load_bf16<D, BT>(tk_s, tkb, k0, s);
+    load_bf16<D, BT>(v_s, vb, k0, s);
+    load_bf16<D, BT>(tv_s, tvb, k0, s);
     __syncthreads();
 
     float sc[NT][4], ts[NT][4];
     zero(sc);
     zero(ts);
-    mma_abt(sc, q_s, k_s, ra, lane);
-    mma_abt(ts, tq_s, k_s, ra, lane);
-    mma_abt(ts, q_s, tk_s, ra, lane);
+    mma_abt<D>(sc, q_s, k_s, ra, lane);
+    mma_abt<D>(ts, tq_s, k_s, ra, lane);
+    mma_abt<D>(ts, q_s, tk_s, ra, lane);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -745,8 +767,8 @@ jvp_tangent_mma(const float* __restrict__ q, const float* __restrict__ k,
     uint32_t pa[KS][4], ha[KS][4];
     acc_to_a(pa, sc);
     acc_to_a(ha, ts);
-    mma_ab(acc, ha, v_s, lane);   // acc += H V
-    mma_ab(acc, pa, tv_s, lane);  // acc += P tV
+    mma_ab<D>(acc, ha, v_s, lane);   // acc += H V
+    mma_ab<D>(acc, pa, tv_s, lane);  // acc += P tV
   }
 
 #pragma unroll
@@ -1893,7 +1915,7 @@ constexpr int TG_ROWS = 128;               // q rows a block: 64 a warpgroup
 constexpr int TG_KEYS = 32;                // keys a tile
 constexpr int TG_STAGES = 3;               // tiles in flight
 constexpr int TG_KBLK = TG_KEYS * 128;     // a [32 keys x 32 dims] f32 block: rows of 128 bytes
-constexpr int TG_VBLK = D * 128;           // a [64 dims x 32 keys] f32 block
+constexpr int TG_VBLK = 64 * 128;          // a [64 dims x 32 keys] f32 block
 constexpr int TG_QBLK = 64 * 128;          // a [64 rows x 32 dims] f32 block of tQ small
 // A stage: K big, K small, tK big, tK small (two K blocks each: dims 0-31,
 // 32-63), then V^T big, V^T small, tV^T big, tV^T small (a V block each).
@@ -1921,14 +1943,16 @@ bool strides16(const long long (&st)[3]) {
   return st[0] % 4 == 0 && st[1] % 4 == 0 && st[2] % 4 == 0;
 }
 
-// Grid (s / 64 rounded up, bh, 2): a block takes 64 keys of one pair.
+// Grid (s / 64 rounded up, bh, 2): a block takes 64 keys of one pair, at
+// head dim D (64 or 128).
+template <int D>
 __global__ void __launch_bounds__(256)
 tangent_prep_kernel(SplitArgs a, int heads, int s, int s8) {
   __shared__ float v_s[SPLIT_KEYS][D + 1];
   const int z = blockIdx.z, bh = blockIdx.y;
   const long long batch = bh / heads, head = bh % heads;
   const size_t kv_at = static_cast<size_t>(bh) * s * D, vt_at = static_cast<size_t>(bh) * D * s8;
-  kv_split_tf32_tile(a.k[z] + batch * a.k_st[z][0] + head * a.k_st[z][1], a.k_st[z][2],
+  kv_split_tf32_tile<D>(a.k[z] + batch * a.k_st[z][0] + head * a.k_st[z][1], a.k_st[z][2],
                      a.v[z] + batch * a.v_st[z][0] + head * a.v_st[z][1], a.v_st[z][2],
                      a.out[z][0] + kv_at, a.out[z][1] + kv_at, a.out[z][2] + vt_at,
                      a.out[z][3] + vt_at, blockIdx.x * SPLIT_KEYS, s, s8, v_s);
@@ -1944,16 +1968,17 @@ __device__ __forceinline__ uint64_t desc_tf32(uint32_t addr, int kk, int blk) {
 // row ra + 8 ((i % 4) / 2), key k0 + 8 (i / 4) + 2c + (i & 1)), split into
 // the TF32 A fragments of h V and p tV (k-step n = keys 8n .. 8n + 7 in
 // tf32_a_column order); hsum gathers this thread's part of r. MASK: the
-// tile reaches past s or, causal, past the warpgroup's first row.
-template <bool MASK>
-__device__ __forceinline__ void tangent_terms(const float (&sacc)[16], const float (&tsacc)[16],
-                                              uint32_t (&pb)[4][4], uint32_t (&ps)[4][4],
-                                              uint32_t (&hb)[4][4], uint32_t (&hs)[4][4],
+// tile reaches past s or, causal, past the warpgroup's first row. N = 16
+// (m64n32, 32 keys) or 8 (m64n16, 16 keys: the head-dim-128 kernel).
+template <bool MASK, int N>
+__device__ __forceinline__ void tangent_terms(const float (&sacc)[N], const float (&tsacc)[N],
+                                              uint32_t (&pb)[N / 4][4], uint32_t (&ps)[N / 4][4],
+                                              uint32_t (&hb)[N / 4][4], uint32_t (&hs)[N / 4][4],
                                               float (&hsum)[2], const float (&lse)[2],
                                               const int (&pos)[2], int k0, int c2, int s,
                                               int causal, float sm_scale, float qk_scale) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int h2 = (i % 4) / 2, col = k0 + (i / 4) * 8 + c2 + (i & 1);
     const bool visible = !MASK || (col < s && (!causal || col <= pos[h2]));
     const float p = visible ? exp2f(sacc[i] * qk_scale - lse[h2]) : 0.f;
@@ -1984,6 +2009,7 @@ jvp_tangent_tf32(const __grid_constant__ CUtensorMap kb_map,    // [bh, s, 64] K
                  float* __restrict__ to,    // [bh, t, 64], or with z > 1 the ranges' acc
                  float* __restrict__ rpart,  // [z, bh, t] the ranges' r (z > 1)
                  int h, int t, int s, int causal, int per, float sm_scale, float qk_scale) {
+  constexpr int D = 64;  // this kernel's head dim (jvp_tangent_tf32_128 takes 128)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
@@ -2197,7 +2223,8 @@ jvp_tangent_tf32(const __grid_constant__ CUtensorMap kb_map,    // [bh, s, 64] K
 }
 
 // The key ranges' sums, added in range order: tO = (acc_0 + acc_1 + ...) -
-// (r_0 + r_1 + ...) O. A thread takes 4 columns of one row.
+// (r_0 + r_1 + ...) O, at head dim D. A thread takes 4 columns of one row.
+template <int D>
 __global__ void __launch_bounds__(256)
 tangent_merge_kernel(const float* __restrict__ part, const float* __restrict__ rpart,
                      const float* __restrict__ o, long long o_sb, long long o_sh, long long o_st,
@@ -2223,8 +2250,362 @@ tangent_merge_kernel(const float* __restrict__ part, const float* __restrict__ r
       make_float4(a.x - r * ov.x, a.y - r * ov.y, a.z - r * ov.z, a.w - r * ov.w);
 }
 
-constexpr size_t TILE16 = BT * SROW * sizeof(bf16);   // a streamed bf16 tile
-constexpr size_t BLOCK16 = BM * SROW * sizeof(bf16);  // a block's own bf16 tile
+// ---------------------------------------------------------------------------
+// B10 exact at head dim 128: both warpgroups on one block's 64 rows
+// ---------------------------------------------------------------------------
+//
+// At 128 the layout above doubles past what an SM holds: Q big, Q small and
+// tQ big as fragments would take 192 registers beside tO's 64, and a stage
+// 128 KB. So a block holds 64 q rows, shared by its two warpgroups, and
+// warpgroup w takes keys 32 j + 16 w .. + 15 of every 32-key tile j of the
+// range: each product runs once. Q big sits in registers as the A fragments
+// of its 16 k-steps (64 registers); Q small, tQ big and tQ small sit in
+// shared memory once for both warpgroups (96 KB; their products SS). Each
+// warpgroup streams its keys through a ring of its own, refilled by its
+// first thread: a K part (K big, K small, tK big, tK small: [16 keys x 128
+// dims], 32 KB) and a V part (V^T, tV^T big and small: [128 dims x 16 keys],
+// rows of 64 bytes in the 64-byte swizzle, 32 KB). The next K part loads
+// under the tile's h V + p tV, the next V part under the next tile's S and
+// tS. A tile: S and tS (144 wgmma m64n16k8, one group), p and h split into
+// TF32 A fragments, then h V + p tV as four 32-dim quarters, each 12 wgmma
+// m64n32k8 into a fresh accumulator added to its quarter of acc (64
+// registers) once done (B1 fp32's drain at 128, F32Geom<128>, in quarters:
+// halves spilled at 255 registers). At the end warpgroup 1
+// hands its acc and r to warpgroup 0 through its own ring, and warpgroup 0
+// adds them to its own (a fixed order: bit-repeatable) and writes tO = acc -
+// r O, or, with the keys split (z > 1), the range's acc and r for the merge.
+constexpr int TW_THREADS = 256;             // two warpgroups
+constexpr int TW_ROWS = 64;                 // q rows a block, shared by both warpgroups
+constexpr int TW_KEYS = 16;                 // keys a warpgroup takes of each 32-key tile
+constexpr int TW_QBLK = 64 * 128;           // a [64 rows x 32 dims] f32 block (128-byte rows)
+constexpr int TW_KBLK = TW_KEYS * 128;      // a [16 keys x 32 dims] f32 block
+constexpr int TW_KOP = 4 * TW_KBLK;         // an operand of a K part: 128 dims
+constexpr int TW_VOP = 128 * TW_KEYS * 4;   // an operand of a V part: [128 dims x 16 keys]
+constexpr int TW_PART = 4 * TW_KOP;         // a K part or a V part
+constexpr int TW_OFF_TQB = 4 * TW_QBLK;     // Q small at 0, then tQ big and tQ small
+constexpr int TW_OFF_TQS = 8 * TW_QBLK;
+constexpr int TW_OFF_RING = 12 * TW_QBLK;   // warpgroup w's K part, then its V part
+constexpr int TW_OFF_BAR = TW_OFF_RING + 4 * TW_PART;
+constexpr int TW_SMEM = TW_OFF_BAR + 128 + 1024;  // + slack to align the base to 1024
+static_assert(TW_PART == 4 * TW_VOP, "a V part holds as many bytes as a K part");
+static_assert(TW_SMEM <= 232448, "a block's shared memory fits an H100 SM");
+
+__global__ void __launch_bounds__(TW_THREADS, 1)
+jvp_tangent_tf32_128(const __grid_constant__ CUtensorMap kb_map,    // [bh, s, 128] K big
+                     const __grid_constant__ CUtensorMap ks_map,    // K small
+                     const __grid_constant__ CUtensorMap tkb_map,   // tK big
+                     const __grid_constant__ CUtensorMap tks_map,   // tK small
+                     const __grid_constant__ CUtensorMap vb_map,    // [bh, 128, s8] V^T big
+                     const __grid_constant__ CUtensorMap vs_map,    // V^T small
+                     const __grid_constant__ CUtensorMap tvb_map,   // tV^T big
+                     const __grid_constant__ CUtensorMap tvs_map,   // tV^T small
+                     const float* __restrict__ q, long long q_sb, long long q_sh, long long q_st,
+                     const float* __restrict__ tq, long long tq_sb, long long tq_sh,
+                     long long tq_st, const float* __restrict__ o, long long o_sb, long long o_sh,
+                     long long o_st, const float* __restrict__ lse, long long l_sb,
+                     long long l_sh, long long l_st,
+                     float* __restrict__ to,     // [bh, t, 128], or with z > 1 the ranges' acc
+                     float* __restrict__ rpart,  // [z, bh, t] the ranges' r (z > 1)
+                     int h, int t, int s, int causal, int per, float sm_scale, float qk_scale) {
+  constexpr int D = 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + TW_OFF_BAR;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, ltid = tid % 128;
+  const int bh = blockIdx.y, batch = bh / h, head = bh % h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TW_ROWS;  // the last rows (most tiles) first
+  const int kv_hi = causal ? min(s, min(t, q0 + TW_ROWS)) : s;
+  const int j0 = blockIdx.z * per;
+  const int j1 = min(j0 + per, (kv_hi + 31) / 32);
+  const int n_tiles = max(j1 - j0, 0);
+
+  if (tid == 0) {  // each warpgroup's K and V parts: one "full" barrier each
+    for (int i = 0; i < 4; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint32_t kpart = base + TW_OFF_RING + 2 * wg * TW_PART, vpart = kpart + TW_PART;
+  const uint32_t kfull = bars + 16 * wg, vfull = kfull + 8;
+  // This warpgroup's keys of tile j0 + i; a half wholly past s (masked
+  // whole) loads keys 0 .. instead, so that no box lies wholly outside.
+  auto key_of = [&](int i) {
+    const int key0 = (j0 + i) * 32 + TW_KEYS * wg;
+    return key0 < s ? key0 : 0;
+  };
+  // (the destinations opaque to the compiler a call, as the descriptors below)
+  auto load_k = [&](int i) {
+    const int key0 = key_of(i);
+    uint32_t dst;
+    asm volatile("mov.b32 %0, %1;" : "=r"(dst) : "r"(kpart));
+    mbar_expect_tx(kfull, TW_PART);
+#pragma unroll
+    for (int blk = 0; blk < D / 32; ++blk) {
+      tma_load_3d(dst + blk * TW_KBLK, &kb_map, kfull, 32 * blk, key0, bh);
+      tma_load_3d(dst + TW_KOP + blk * TW_KBLK, &ks_map, kfull, 32 * blk, key0, bh);
+      tma_load_3d(dst + 2 * TW_KOP + blk * TW_KBLK, &tkb_map, kfull, 32 * blk, key0, bh);
+      tma_load_3d(dst + 3 * TW_KOP + blk * TW_KBLK, &tks_map, kfull, 32 * blk, key0, bh);
+    }
+  };
+  auto load_v = [&](int i) {
+    const int key0 = key_of(i);
+    uint32_t dst;
+    asm volatile("mov.b32 %0, %1;" : "=r"(dst) : "r"(vpart));
+    mbar_expect_tx(vfull, TW_PART);
+    tma_load_3d(dst, &vb_map, vfull, key0, 0, bh);
+    tma_load_3d(dst + TW_VOP, &vs_map, vfull, key0, 0, bh);
+    tma_load_3d(dst + 2 * TW_VOP, &tvb_map, vfull, key0, 0, bh);
+    tma_load_3d(dst + 3 * TW_VOP, &tvs_map, vfull, key0, 0, bh);
+  };
+  const bool leader = ltid == 0;
+  if (leader && n_tiles > 0) {
+    load_k(0);
+    load_v(0);
+  }
+
+  const int warp = ltid / 32;
+  const int lane = tid % 32;
+  const int c = lane % 4;
+  const int ra = 16 * warp + lane / 4;  // this thread's rows ra, ra + 8 of the block's 64
+  int pos[2];
+  float lse_r[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    pos[h2] = q0 + ra + 8 * h2;
+    lse_r[h2] = pos[h2] < t ? lse[batch * l_sb + head * l_sh + pos[h2] * l_st] : 0.f;
+  }
+
+  // Q big (f32 through Q's strides; rows past t are 0): the A fragments of
+  // the 16 k-steps, every load issued before the first split.
+  uint32_t qb[D / 8][4];
+  {
+    float x[2][D / 4];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const float* row = q + batch * q_sb + head * q_sh + static_cast<long long>(pos[h2]) * q_st;
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i)  // head dim 8 (i / 2) + c + 4 (i % 2)
+        x[h2][i] = pos[h2] < t ? row[8 * (i / 2) + c + 4 * (i % 2)] : 0.f;
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) qb[i / 2][h2 + 2 * (i % 2)] = __float_as_uint(tf32_big(x[h2][i]));
+  }
+  // Q small, tQ big and tQ small K-major into shared memory by all 256
+  // threads (128-byte swizzle: 16-byte chunk ch of row r at ch ^ (r & 7)),
+  // a float4 of each row a thread and pass.
+  {
+    constexpr int PASSES = TW_ROWS * (D / 4) / TW_THREADS;
+    float4 xq[PASSES], xt[PASSES];
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      const int idx = tid + TW_THREADS * i, r = idx / (D / 4), ch = idx % (D / 4);
+      xq[i] = xt[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < t) {
+        const long long at = static_cast<long long>(q0 + r);
+        xq[i] = *reinterpret_cast<const float4*>(q + batch * q_sb + head * q_sh + at * q_st + 4 * ch);
+        xt[i] = *reinterpret_cast<const float4*>(tq + batch * tq_sb + head * tq_sh + at * tq_st +
+                                                 4 * ch);
+      }
+    }
+    float* qs_s = reinterpret_cast<float*>(smem);
+    float* tqb_s = reinterpret_cast<float*>(smem + TW_OFF_TQB);
+    float* tqs_s = reinterpret_cast<float*>(smem + TW_OFF_TQS);
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      const int idx = tid + TW_THREADS * i, r = idx / (D / 4), ch = idx % (D / 4);
+      const int at = (ch / 8) * (TW_QBLK / 4) + r * 32 + (((ch % 8) ^ (r & 7)) << 2);
+      const float a[4] = {xq[i].x, xq[i].y, xq[i].z, xq[i].w};
+      const float b[4] = {xt[i].x, xt[i].y, xt[i].z, xt[i].w};
+      float qs4[4], tb4[4], ts4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        qs4[e] = a[e] - tf32_big(a[e]);
+        tb4[e] = tf32_big(b[e]);
+        ts4[e] = b[e] - tb4[e];
+      }
+      *reinterpret_cast<float4*>(qs_s + at) = make_float4(qs4[0], qs4[1], qs4[2], qs4[3]);
+      *reinterpret_cast<float4*>(tqb_s + at) = make_float4(tb4[0], tb4[1], tb4[2], tb4[3]);
+      *reinterpret_cast<float4*>(tqs_s + at) = make_float4(ts4[0], ts4[1], ts4[2], ts4[3]);
+    }
+  }
+  fence_proxy_async();  // Q small, tQ big and small, for wgmma
+  __syncthreads();
+
+  float acc[2][32], hsum[2] = {0.f, 0.f};  // acc[hf]: head dims 64 hf .. 64 hf + 63
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[hf][e] = 0.f;
+  uint32_t pb[2][4], ps[2][4], hb[2][4], hs[2][4];  // p, h big and small: the A of h V, p tV
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (j0 + i) * 32 + TW_KEYS * wg;
+    // The shared addresses, opaque to the compiler a tile: the descriptors
+    // (loop-invariant here, unlike a ring's) are rebuilt from them, not
+    // hoisted out of the loop into registers (spilled at 255 registers).
+    uint32_t qs_base, kp, vp;
+    asm volatile("mov.b32 %0, %1;" : "=r"(qs_base) : "r"(base));
+    asm volatile("mov.b32 %0, %1;" : "=r"(kp) : "r"(kpart));
+    asm volatile("mov.b32 %0, %1;" : "=r"(vp) : "r"(vpart));
+    const uint32_t tqb_base = qs_base + TW_OFF_TQB, tqs_base = qs_base + TW_OFF_TQS;
+    float sacc[8], tsacc[8];
+    mbar_wait(kfull, i & 1);
+    // S = Q K^T and tS = tQ K^T + Q tK^T, the small terms first, the
+    // big-big terms last: 144 products in one group.
+    wgmma_fence();
+    wgmma_tf32_m64n16k8_rs_zero(sacc, qb[0], desc_tf32(kp + TW_KOP, 0, TW_KBLK));
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)  // Q big . K small
+      wgmma_tf32_m64n16k8_rs(sacc, qb[kk], desc_tf32(kp + TW_KOP, kk, TW_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . K big
+      wgmma_tf32_m64n16k8_ss(sacc, desc_tf32(qs_base, kk, TW_QBLK), desc_tf32(kp, kk, TW_KBLK),
+                             1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q big . K big
+      wgmma_tf32_m64n16k8_rs(sacc, qb[kk], desc_tf32(kp, kk, TW_KBLK), 1);
+    wgmma_tf32_m64n16k8_rs_zero(tsacc, qb[0], desc_tf32(kp + 3 * TW_KOP, 0, TW_KBLK));
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)  // Q big . tK small
+      wgmma_tf32_m64n16k8_rs(tsacc, qb[kk], desc_tf32(kp + 3 * TW_KOP, kk, TW_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // tQ big . K small
+      wgmma_tf32_m64n16k8_ss(tsacc, desc_tf32(tqb_base, kk, TW_QBLK),
+                             desc_tf32(kp + TW_KOP, kk, TW_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // tQ small . K big
+      wgmma_tf32_m64n16k8_ss(tsacc, desc_tf32(tqs_base, kk, TW_QBLK),
+                             desc_tf32(kp, kk, TW_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q small . tK big
+      wgmma_tf32_m64n16k8_ss(tsacc, desc_tf32(qs_base, kk, TW_QBLK),
+                             desc_tf32(kp + 2 * TW_KOP, kk, TW_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // tQ big . K big
+      wgmma_tf32_m64n16k8_ss(tsacc, desc_tf32(tqb_base, kk, TW_QBLK),
+                             desc_tf32(kp, kk, TW_KBLK), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)  // Q big . tK big
+      wgmma_tf32_m64n16k8_rs(tsacc, qb[kk], desc_tf32(kp + 2 * TW_KOP, kk, TW_KBLK), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sacc);
+    reg_fence(tsacc);
+    named_barrier(1 + wg, 128);  // the warpgroup reads this K part no more
+    if (leader && i + 1 < n_tiles) load_k(i + 1);
+    if (k0 + TW_KEYS > s || (causal && k0 + TW_KEYS - 1 > q0))
+      tangent_terms<true>(sacc, tsacc, pb, ps, hb, hs, hsum, lse_r, pos, k0, 2 * c, s, causal,
+                          sm_scale, qk_scale);
+    else
+      tangent_terms<false>(sacc, tsacc, pb, ps, hb, hs, hsum, lse_r, pos, k0, 2 * c, s, causal,
+                           sm_scale, qk_scale);
+    mbar_wait(vfull, i & 1);
+    // The tile's h V + p tV a 32-dim quarter at a time (a 64-dim half's
+    // fresh accumulator spilled at 255 registers): 12 products into a fresh
+    // accumulator, the big-big terms last, then added to its quarter of acc
+    // in f32 (see the 64-dim kernel). Quarter qq holds acc[qq / 2]'s
+    // elements 16 (qq % 2) .. + 15.
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const uint32_t vq = vp + qq * 32 * (TW_KEYS * 4);  // V^T rows (head dims) 32 qq ..
+      float hpv[16];
+      reg_fence(pb);
+      reg_fence(ps);
+      reg_fence(hb);
+      reg_fence(hs);
+      wgmma_fence();
+      wgmma_tf32_m64n32k8_rs_zero(hpv, hs[0], desc_kmajor_sw64(vq));
+      wgmma_tf32_m64n32k8_rs(hpv, hs[1], desc_kmajor_sw64(vq) + 2, 1);  // h small . V big
+#pragma unroll
+      for (int kk = 0; kk < TW_KEYS / 8; ++kk)  // h big . V small
+        wgmma_tf32_m64n32k8_rs(hpv, hb[kk], desc_kmajor_sw64(vq + TW_VOP) + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < TW_KEYS / 8; ++kk)  // p small . tV big
+        wgmma_tf32_m64n32k8_rs(hpv, ps[kk], desc_kmajor_sw64(vq + 2 * TW_VOP) + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < TW_KEYS / 8; ++kk)  // p big . tV small
+        wgmma_tf32_m64n32k8_rs(hpv, pb[kk], desc_kmajor_sw64(vq + 3 * TW_VOP) + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < TW_KEYS / 8; ++kk)  // h big . V big
+        wgmma_tf32_m64n32k8_rs(hpv, hb[kk], desc_kmajor_sw64(vq) + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < TW_KEYS / 8; ++kk)  // p big . tV big
+        wgmma_tf32_m64n32k8_rs(hpv, pb[kk], desc_kmajor_sw64(vq + 2 * TW_VOP) + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(hpv);
+      reg_fence(pb);
+      reg_fence(ps);
+      reg_fence(hb);
+      reg_fence(hs);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[qq / 2][16 * (qq % 2) + e] += hpv[e];
+    }
+    named_barrier(1 + wg, 128);  // the warpgroup reads this V part no more
+    if (leader && i + 1 < n_tiles) load_v(i + 1);
+  }
+
+  // Warpgroup 1's acc and r (its thread's partial) to warpgroup 0 through
+  // warpgroup 1's ring, which no load fills any more; warpgroup 0 adds them
+  // to its own.
+  float* xbuf = reinterpret_cast<float*>(smem + TW_OFF_RING + 2 * TW_PART);
+  if (wg == 1) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) xbuf[(32 * hf + e) * 128 + ltid] = acc[hf][e];
+    xbuf[64 * 128 + ltid] = hsum[0];
+    xbuf[65 * 128 + ltid] = hsum[1];
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[hf][e] += xbuf[(32 * hf + e) * 128 + ltid];
+  hsum[0] += xbuf[64 * 128 + ltid];
+  hsum[1] += xbuf[65 * 128 + ltid];
+
+  // tO = acc - r O, or the range's acc and r (z > 1); rows past t store nothing.
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const float r = quad_sum(hsum[h2]);
+    if (pos[h2] >= t) continue;
+    const size_t row = static_cast<size_t>(bh) * t + pos[h2];
+    if (gridDim.z > 1) {
+      const size_t at = static_cast<size_t>(blockIdx.z) * gridDim.y * t + row;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(to + at * D + 64 * hf + 8 * n + 2 * c) =
+              make_float2(acc[hf][4 * n + 2 * h2], acc[hf][4 * n + 2 * h2 + 1]);
+      if (c == 0) rpart[at] = r;
+      continue;
+    }
+    const float* orow = o + batch * o_sb + head * o_sh + static_cast<long long>(pos[h2]) * o_st;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 64 * hf + 8 * n + 2 * c;
+        const float2 ov = *reinterpret_cast<const float2*>(orow + col);
+        *reinterpret_cast<float2*>(to + row * D + col) =
+            make_float2(acc[hf][4 * n + 2 * h2] - r * ov.x, acc[hf][4 * n + 2 * h2 + 1] - r * ov.y);
+      }
+  }
+}
+
+// B10 fast's shared bytes at head dim d: the block's Q and tQ and the
+// streamed K, tK, V and tV, padded bf16 rows.
+__host__ __device__ constexpr int mma_smem(int d) {
+  return (2 * BM + 4 * BT) * srow(d) * static_cast<int>(sizeof(bf16));
+}
 
 // Launch `kernel` with `threads` threads and `smem` bytes of dynamic shared
 // memory (the limit is raised first: some need more than the 48 KB
@@ -2349,17 +2730,27 @@ int dq_fast(const void* const (&ops)[8], const void* rows, void* dq, void* dtq, 
 
 }  // namespace
 
-// The exact entries: every tensor is f32 and contiguous: q-side [bh, t, D],
-// kv-side [bh, s, D], row terms [bh, t].
+// The exact entries: every tensor is f32 and contiguous: q-side [bh, t, d],
+// kv-side [bh, s, d], row terms [bh, t]; d 64 or 128, each its own instance.
 
-// B9 exact: O, tO [bh, t, D]; lse, mu [bh, t] (fast mode: qa_jvp_fwd_bf16).
+// Shared bytes one block of the exact FFMA kernels asks for at head dim d
+// (ops/jvp_tiling.py's exact_shared_bytes mirrors them): B9 (kernel 0), B11
+// (1) or B12 (2); -1 for another kernel or d.
+extern "C" int qa_jvp_exact_smem_bytes(int kernel, int d) {
+  if (d != 64 && d != 128) return -1;
+  const int tiles[3] = {6 * ftile(d) + 2 * PTILE, 8 * ftile(d) + 4 * PTILE + 4 * T,
+                        8 * ftile(d) + 2 * PTILE};
+  return kernel >= 0 && kernel < 3 ? tiles[kernel] * static_cast<int>(sizeof(float)) : -1;
+}
+
+// B9 exact: O, tO [bh, t, d]; lse, mu [bh, t] (fast mode: qa_jvp_fwd_bf16).
 extern "C" int qa_jvp_fwd(const void* q, const void* k, const void* v, const void* tq,
                           const void* tk, const void* tv, void* o, void* to, void* lse, void* mu,
-                          int bh, int t, int s, int causal, int fast, float sm_scale,
+                          int bh, int t, int s, int causal, int fast, int d, float sm_scale,
                           float qk_scale, void* stream) {
-  if (fast) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(jvp_fwd_kernel, dim3((t + T - 1) / T, bh), THREADS,
-                (6 * TILE + 2 * PTILE) * sizeof(float), stream, cf(q), cf(k), cf(v), cf(tq),
+  if (fast || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(d == 64 ? jvp_fwd_kernel<64> : jvp_fwd_kernel<128>, dim3((t + T - 1) / T, bh),
+                THREADS, qa_jvp_exact_smem_bytes(0, d), stream, cf(q), cf(k), cf(v), cf(tq),
                 cf(tk), cf(tv), static_cast<float*>(o), static_cast<float*>(to),
                 static_cast<float*>(lse), static_cast<float*>(mu), t, s, causal, sm_scale,
                 qk_scale);
@@ -2414,25 +2805,33 @@ extern "C" int qa_jvp_fwd_bf16(const void* q, long long q_sb, long long q_sh, lo
              static_cast<cudaStream_t>(stream));
 }
 
-// B10 fast: tO [bh, t, D] from O [bh, t, D] and lse [bh, t], all contiguous
-// f32 (exact mode: qa_jvp_tangent_tf32).
+// B10 fast: tO [bh, t, d] from O [bh, t, d] and lse [bh, t], all contiguous
+// f32, d 64 or 128 (exact mode: qa_jvp_tangent_tf32).
 extern "C" int qa_jvp_tangent(const void* q, const void* k, const void* v, const void* tq,
                               const void* tk, const void* tv, const void* o, const void* lse,
-                              void* to, int bh, int t, int s, int causal, int fast,
+                              void* to, int bh, int t, int s, int causal, int fast, int d,
                               float sm_scale, float qk_scale, void* stream) {
-  if (!fast) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(jvp_tangent_mma, dim3((t + BM - 1) / BM, bh), MMA_THREADS,
-                2 * BLOCK16 + 4 * TILE16, stream, cf(q), cf(k), cf(v), cf(tq), cf(tk), cf(tv),
+  if (!fast || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(d == 64 ? jvp_tangent_mma<64> : jvp_tangent_mma<128>, dim3((t + BM - 1) / BM, bh),
+                MMA_THREADS, mma_smem(d), stream, cf(q), cf(k), cf(v), cf(tq), cf(tk), cf(tv),
                 cf(o), cf(lse), static_cast<float*>(to), t, s, causal, sm_scale, qk_scale);
 }
 
-// B10 exact's prep, one launch: k, v, tk, tv [b, h, s, 64] f32 (strides in
-// elements, rows contiguous; pointers and strides 16-byte aligned) -> out[0
-// .. 3] K big, K small [bh, s, 64], V^T big, V^T small [bh, 64, s8] and
-// out[4 .. 7] the same of tK, tV (s8 = s rounded up to 8; 16-byte aligned).
+// Shared bytes one B10 fast block asks for at head dim d, 64 or 128
+// (ops/jvp_tiling.py mirrors it); -1 for another d.
+extern "C" int qa_jvp_tangent_fast_smem_bytes(int d) {
+  return d == 64 || d == 128 ? mma_smem(d) : -1;
+}
+
+// B10 exact's prep, one launch: k, v, tk, tv [b, h, s, d] f32, d 64 or 128
+// (strides in elements, rows contiguous; pointers and strides 16-byte
+// aligned) -> out[0 .. 3] K big, K small [bh, s, d], V^T big, V^T small
+// [bh, d, s8] and out[4 .. 7] the same of tK, tV (s8 = s rounded up to 8;
+// 16-byte aligned).
 extern "C" int qa_jvp_tangent_prep(const void* const* kv, const long long* strides,
-                                   void* const* out, int b, int h, int s, void* stream) {
-  if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || s < 1 || s > (1 << 27))
+                                   void* const* out, int b, int h, int s, int d, void* stream) {
+  if (b < 1 || h < 1 || static_cast<long long>(b) * h > 65535 || s < 1 || s > (1 << 27) ||
+      (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   SplitArgs a;
   for (int z = 0; z < 2; ++z) {
@@ -2452,28 +2851,80 @@ extern "C" int qa_jvp_tangent_prep(const void* const* kv, const long long* strid
   }
   const int s8 = (s + 7) / 8 * 8;
   const dim3 grid((s + SPLIT_KEYS - 1) / SPLIT_KEYS, b * h, 2);
-  tangent_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a, h, s, s8);
+  auto* kernel = d == 64 ? tangent_prep_kernel<64> : tangent_prep_kernel<128>;
+  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a, h, s, s8);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B10 exact: tO [bh, t, D] f32 from q, tq, o [b, h, t, 64] and lse [b, h, t]
-// (f32, strides in elements; q, tq, o rows contiguous and 8-byte aligned)
-// and the prep's eight operands. The keys are split into z ranges of `per`
-// 32-key tiles (z * per covers s); with z > 1 `part` holds z * (bh * t *
-// 65) floats for the ranges' sums, which a second launch adds in order.
+namespace {
+
+// B10 exact at head dim 128 (jvp_tangent_tf32_128): the maps, the
+// shared-memory attribute once, the kernel and, with z > 1, the merge.
+int tangent_tf32_128(const void* q, const long long* q_st, const void* tq, const long long* tq_st,
+                     const void* o, const long long* o_st, const void* lse, const long long* l_st,
+                     const void* const* prep, void* to, void* part, int h, long long bh, int t,
+                     int s, int causal, int z, int per, float sm_scale, float qk_scale,
+                     cudaStream_t st) {
+  constexpr int D = 128;
+  bool strided16 = aligned16(q) && aligned16(tq);
+  for (int i = 0; i < 3; ++i) strided16 = strided16 && q_st[i] % 4 == 0 && tq_st[i] % 4 == 0;
+  if (!strided16) return static_cast<int>(cudaErrorInvalidValue);
+  const int s8 = (s + 7) / 8 * 8;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap maps[8];  // K big, K small, tK big, tK small, then V^T big, small, tV^T big, small
+  const int order[8] = {0, 1, 4, 5, 2, 3, 6, 7};  // the prep's: K, V pair then tK, tV pair
+  for (int i = 0; i < 8; ++i) {
+    const bool kside = i < 4;
+    if (!(kside ? tensor_map_3d(&maps[i], prep[order[i]], f32, 4, bh, s, D, TW_KEYS, 32,
+                                CU_TENSOR_MAP_SWIZZLE_128B)
+                : tensor_map_3d(&maps[i], prep[order[i]], f32, 4, bh, D, s8, D, TW_KEYS,
+                                CU_TENSOR_MAP_SWIZZLE_64B)))
+      return static_cast<int>(cudaErrorNotSupported);
+  }
+  static bool configured = false;
+  cudaError_t err = allow_smem(jvp_tangent_tf32_128, TW_SMEM, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* sums = z > 1 ? static_cast<float*>(part) : static_cast<float*>(to);
+  float* rsums = z > 1 ? sums + static_cast<size_t>(z) * bh * t * D : nullptr;
+  const int n_qb = (t + TW_ROWS - 1) / TW_ROWS;
+  jvp_tangent_tf32_128<<<dim3(n_qb, bh, z), TW_THREADS, TW_SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], cf(q), q_st[0],
+      q_st[1], q_st[2], cf(tq), tq_st[0], tq_st[1], tq_st[2], cf(o), o_st[0], o_st[1], o_st[2],
+      cf(lse), l_st[0], l_st[1], l_st[2], sums, rsums, h, t, s, causal, per, sm_scale, qk_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || z == 1) return static_cast<int>(err);
+  const long long rows = bh * t;
+  tangent_merge_kernel<D><<<static_cast<unsigned>((rows * (D / 4) + 255) / 256), 256, 0, st>>>(
+      sums, rsums, cf(o), o_st[0], o_st[1], o_st[2], static_cast<float*>(to), h, t, rows, z);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// B10 exact: tO [bh, t, d] f32 from q, tq, o [b, h, t, d] and lse [b, h, t]
+// (f32, strides in elements; q, tq, o rows contiguous and 8-byte aligned; at
+// d = 128 q and tq 16-byte aligned with strides of whole 16 bytes) and the
+// prep's eight operands, d 64 or 128. The keys are split into z ranges of
+// `per` 32-key tiles (z * per covers s); with z > 1 `part` holds z * (bh *
+// t * (d + 1)) floats for the ranges' sums, which a second launch adds in
+// order.
 extern "C" int qa_jvp_tangent_tf32(const void* q, const long long* q_st, const void* tq,
                                    const long long* tq_st, const void* o, const long long* o_st,
                                    const void* lse, const long long* l_st,
                                    const void* const* prep, void* to, void* part, int b, int h,
-                                   int t, int s, int causal, int z, int per, float sm_scale,
-                                   float qk_scale, void* stream) {
+                                   int t, int s, int causal, int z, int per, int d,
+                                   float sm_scale, float qk_scale, void* stream) {
+  constexpr int D = 64;  // the instance below; 128 goes to tangent_tf32_128
   const long long bh = static_cast<long long>(b) * h;
   const int n_qb = (t + TG_ROWS - 1) / TG_ROWS;
   if (b < 1 || h < 1 || bh > 65535 || t < 1 || s < 1 || z < 1 || z > 65535 || per < 1 ||
-      static_cast<long long>(z) * per * TG_KEYS < s || (z > 1 && !part))
+      static_cast<long long>(z) * per * TG_KEYS < s || (z > 1 && !part) || (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 8; ++i)
     if (!aligned16(prep[i])) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 128)
+    return tangent_tf32_128(q, q_st, tq, tq_st, o, o_st, lse, l_st, prep, to, part, h, bh, t, s,
+                            causal, z, per, sm_scale, qk_scale, static_cast<cudaStream_t>(stream));
   const int s8 = (s + 7) / 8 * 8;
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
@@ -2502,24 +2953,27 @@ extern "C" int qa_jvp_tangent_tf32(const void* q, const long long* q_st, const v
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || z == 1) return static_cast<int>(err);
   const long long rows = bh * t;
-  tangent_merge_kernel<<<static_cast<unsigned>((rows * (D / 4) + 255) / 256), 256, 0, st>>>(
+  tangent_merge_kernel<D><<<static_cast<unsigned>((rows * (D / 4) + 255) / 256), 256, 0, st>>>(
       sums, rsums, cf(o), o_st[0], o_st[1], o_st[2], static_cast<float*>(to), h, t, rows, z);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared bytes one B10 exact block asks for (ops/jvp_tiling.py mirrors it).
-extern "C" int qa_jvp_tangent_smem_bytes() { return TG_SMEM; }
+// Shared bytes one B10 exact block asks for at head dim d, 64 or 128
+// (ops/jvp_tiling.py mirrors it); -1 for another d.
+extern "C" int qa_jvp_tangent_smem_bytes(int d) {
+  return d == 64 ? TG_SMEM : d == 128 ? TW_SMEM : -1;
+}
 
-// B11 exact: dK, dV, dtK, dtV [bh, s, D] (fast mode: qa_jvp_bwd_dkv_bf16).
+// B11 exact: dK, dV, dtK, dtV [bh, s, d] (fast mode: qa_jvp_bwd_dkv_bf16).
 extern "C" int qa_jvp_bwd_dkv(const void* q, const void* k, const void* v, const void* tq,
                               const void* tk, const void* tv, const void* dout, const void* dtout,
                               const void* lse, const void* mu, const void* crow,
                               const void* dhat, void* dk, void* dv, void* dtk, void* dtv, int bh,
-                              int t, int s, int causal, int fast, float sm_scale, float qk_scale,
-                              void* stream) {
-  if (fast) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(jvp_dkv_kernel, dim3((s + T - 1) / T, bh), THREADS,
-                (8 * TILE + 4 * PTILE + 4 * T) * sizeof(float), stream, cf(q), cf(k), cf(v),
+                              int t, int s, int causal, int fast, int d, float sm_scale,
+                              float qk_scale, void* stream) {
+  if (fast || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(d == 64 ? jvp_dkv_kernel<64> : jvp_dkv_kernel<128>, dim3((s + T - 1) / T, bh),
+                THREADS, qa_jvp_exact_smem_bytes(1, d), stream, cf(q), cf(k), cf(v),
                 cf(tq), cf(tk), cf(tv), cf(dout), cf(dtout), cf(lse), cf(mu), cf(crow), cf(dhat),
                 static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dtk),
                 static_cast<float*>(dtv), t, s, causal, sm_scale, qk_scale);
@@ -2570,15 +3024,15 @@ extern "C" int qa_jvp_bwd_dkv_bf16(const void* q, const void* k, const void* v, 
              static_cast<cudaStream_t>(stream));
 }
 
-// B12 exact: dQ, dtQ [bh, t, D] (fast mode: qa_jvp_bwd_dq_bf16).
+// B12 exact: dQ, dtQ [bh, t, d] (fast mode: qa_jvp_bwd_dq_bf16).
 extern "C" int qa_jvp_bwd_dq(const void* q, const void* k, const void* v, const void* tq,
                              const void* tk, const void* tv, const void* dout, const void* dtout,
                              const void* lse, const void* mu, const void* crow, const void* dhat,
                              void* dq, void* dtq, int bh, int t, int s, int causal, int fast,
-                             float sm_scale, float qk_scale, void* stream) {
-  if (fast) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(jvp_dq_kernel, dim3((t + T - 1) / T, bh), THREADS,
-                (8 * TILE + 2 * PTILE) * sizeof(float), stream, cf(q), cf(k), cf(v), cf(tq),
+                             int d, float sm_scale, float qk_scale, void* stream) {
+  if (fast || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(d == 64 ? jvp_dq_kernel<64> : jvp_dq_kernel<128>, dim3((t + T - 1) / T, bh),
+                THREADS, qa_jvp_exact_smem_bytes(2, d), stream, cf(q), cf(k), cf(v), cf(tq),
                 cf(tk), cf(tv), cf(dout), cf(dtout), cf(lse), cf(mu), cf(crow), cf(dhat),
                 static_cast<float*>(dq), static_cast<float*>(dtq), t, s, causal, sm_scale,
                 qk_scale);

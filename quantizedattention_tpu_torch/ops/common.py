@@ -26,20 +26,19 @@ def qk_scales(head_dim: int, sm_scale: float | None):
 # The head dims each kernel (or mode) takes on the card. CPU tensors take the
 # plain versions at any head dim; on CUDA tensors a wrapper checks its
 # kernel's entry here and raises, never falling back to the plain version.
-# ROADMAP B-f3 brings the rest to 128 (B10 in both modes, the exact modes of
-# B9, B11 and B12, and B2/B3 exact).
+# Every kernel takes 64 and 128; ROADMAP B-f3 brings them to head dim 32.
 KERNEL_HEAD_DIMS = {
     "B1 bf16": (64, 128),
     "B1 fp32": (64, 128),
     "B2/B3 fast": (64, 128),
-    "B2/B3 exact": (64,),
+    "B2/B3 exact": (64, 128),
     "B4": (64, 128),
     "B5": (64, 128),
     "B6": (64, 128),
     "B7/B8": (64, 128),
     "B9/B11/B12 fast": (64, 128),
-    "B9/B11/B12 exact": (64,),
-    "B10": (64,),
+    "B9/B11/B12 exact": (64, 128),
+    "B10": (64, 128),
     "B13": (64, 128),
     "B14": (64, 128),
     "B15": (64, 128),
@@ -52,7 +51,7 @@ def check_head_dim(kernel: str, d: int) -> None:
     head dim d on the card."""
     dims = KERNEL_HEAD_DIMS[kernel]
     if d not in dims:
-        todo = " (ROADMAP B-f3: head_dim 128 for this kernel is not ported yet)" if d == 128 else ""
+        todo = " (ROADMAP B-f3: head_dim 32 is not ported yet)" if d == 32 else ""
         raise ValueError(f"the {kernel} kernel takes head_dim {' or '.join(map(str, dims))}; "
                          f"got d={d}{todo}")
 

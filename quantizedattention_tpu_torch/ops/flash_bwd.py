@@ -42,8 +42,8 @@ whose offsets differ (the plain versions take them in both modes).
 The fast kernels read lse and D as rows `flash_tiling.lse_row_stride(t)`
 floats apart (a 16-byte row start for TMA): `bwd_prep` writes them so, and
 the operands hand the plain versions [b*h_kv, rep, t] views of them. The
-launch geometry is ops/flash_tiling.py's. On the card fast mode takes head
-dim 64 or 128, exact mode 64 (ops/common.py:check_head_dim).
+launch geometry is ops/flash_tiling.py's. On the card both modes take head
+dim 64 or 128 (ops/common.py:check_head_dim).
 """
 
 from __future__ import annotations
@@ -362,7 +362,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None, fast=F
 
     q/o/do [b, h, t, d], k/v [b, h_kv, s, d], lse [b, h, t] (exp2 domain).
     Returns (dq [b, h, t, d], dk, dv [b, h_kv, s, d]) in f32. CUDA tensors run
-    the two kernels (head_dim 64, or 128 in fast mode); CPU tensors their
+    the two kernels (head_dim 64 or 128, either mode); CPU tensors their
     plain versions.
     q_offset/k_offset: the forward's global positions (fast mode on CUDA).
     """

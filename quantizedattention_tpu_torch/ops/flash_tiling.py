@@ -31,7 +31,8 @@ B1 bf16 and the backward's fast mode take head dim 64 or 128 (HEAD_DIMS):
 a bf16 row of 128 dims is two 64-column panels, each its own 128-byte
 swizzled tile. At 128 the forward walks keys in tiles of 64 (`kv_tile`),
 and every tile's bytes double; the rows, q tiles and walks are the same.
-So does the fp32 mode (FP32_HEAD_DIMS).
+So does the fp32 mode (FP32_HEAD_DIMS), and so do the backward's exact
+kernels (FFMA on 32-row tiles of padded f32 rows, `bwd_exact_shared_bytes`).
 """
 
 from __future__ import annotations
@@ -158,6 +159,20 @@ def bwd_grids(bh_kv: int, rep: int, t: int, s: int,
         raise ValueError(f"kernels take 1 to {MAX_Q_TILES} key tiles of {DKV_KEYS} and row "
                          f"blocks of {bq}; got t={t}, s={s}")
     return bq, dkv, dq
+
+
+EXACT_TILE = 32  # keys a B2 exact block, rows a B3 exact block, and their streamed tiles
+
+
+def bwd_exact_shared_bytes(kernel: str, head_dim: int) -> int:
+    """Shared memory of an exact block ("dkv" B2: K, V, Q, dO tiles of
+    EXACT_TILE rows of d + 1 floats, P^T and dS^T [32, 33], lse and D; "dq"
+    B3: Q, dO, K, V tiles and dS): static arrays at head dim 64, dynamic
+    shared memory at 128."""
+    check_head_dim("B2/B3 exact", head_dim)
+    tile, ptile = EXACT_TILE * (head_dim + 1), EXACT_TILE * (EXACT_TILE + 1)
+    floats = {"dkv": 4 * tile + 2 * ptile + 2 * EXACT_TILE, "dq": 4 * tile + ptile}[kernel]
+    return 4 * floats
 
 
 # --------------------------------------------------------------------------

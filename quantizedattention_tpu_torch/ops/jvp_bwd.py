@@ -190,10 +190,10 @@ def _from_prep(ops: JvpBwdOperands, prep) -> JvpBwdOperands:
 def _kernels():
     lib = load_kernel("jvp")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.qa_jvp_bwd_dkv.argtypes = [ptr] * 16 + [i32] * 5 + [f32, f32, ptr]
+    lib.qa_jvp_bwd_dkv.argtypes = [ptr] * 16 + [i32] * 6 + [f32, f32, ptr]
     lib.qa_jvp_bwd_dkv_bf16.argtypes = [ptr] * 13 + [i32] * 6 + [f32, f32, ptr]
     lib.qa_jvp_bwd_prep.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-    lib.qa_jvp_bwd_dq.argtypes = [ptr] * 14 + [i32] * 5 + [f32, f32, ptr]
+    lib.qa_jvp_bwd_dq.argtypes = [ptr] * 14 + [i32] * 6 + [f32, f32, ptr]
     lib.qa_jvp_bwd_dq_bf16.argtypes = [ptr] * 11 + [i32] * 6 + [f32, f32, ptr]
     for fn in (lib.qa_jvp_bwd_dkv, lib.qa_jvp_bwd_dkv_bf16, lib.qa_jvp_bwd_prep,
                lib.qa_jvp_bwd_dq, lib.qa_jvp_bwd_dq_bf16):
@@ -210,7 +210,7 @@ def _launch_args(ops: JvpBwdOperands):
         raise ValueError("the JVP backward kernels take float32 operands (see jvp_bwd_operands)")
     _, dev = kernel_args("B9/B11/B12 fast" if ops.fast else "B9/B11/B12 exact", 1, bh, d,
                          *ops[:12])
-    tail = (bh, t, s, int(ops.causal), int(ops.fast), ops.sm_scale, ops.qk_scale,
+    tail = (bh, t, s, int(ops.causal), int(ops.fast), d, ops.sm_scale, ops.qk_scale,
             torch.cuda.current_stream(dev).cuda_stream)
     return dev, bh, t, s, tail
 
@@ -280,9 +280,9 @@ def attention_jvp_bwd(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal=False
                       sm_scale=None, fast=False):
     """VJP of (q, k, v, tq, tk, tv) -> (O, tO). Returns
     (dq, dk, dv, dtq, dtk, dtv) f32 in the inputs' shapes. CUDA tensors run
-    B11 and B12 (head_dim 64 or 128 in fast mode, on one `jvp_bwd_prep`
-    launch shared by both; 64 in exact mode); CPU tensors their plain
-    versions (fast mode on the plain prep's operands)."""
+    B11 and B12 (head_dim 64 or 128; fast mode on one `jvp_bwd_prep` launch
+    shared by both); CPU tensors their plain versions (fast mode on the
+    plain prep's operands)."""
     ops = jvp_bwd_operands(q, k, v, tq, tk, tv, o, to, lse, mu, do, dto, causal, sm_scale, fast)
     prep = jvp_bwd_prep(ops) if fast else None  # one prep for both fast kernels
     dk, dv, dtk, dtv = jvp_bwd_dkv(ops, prep)

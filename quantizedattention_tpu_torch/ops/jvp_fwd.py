@@ -99,7 +99,7 @@ def attention_jvp_fwd_plain(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fa
 
 _PTR, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # the C entries of csrc/jvp.cu this module calls
-    "qa_jvp_fwd": [_PTR] * 10 + [_I32] * 5 + [_F32] * 2 + [_PTR],
+    "qa_jvp_fwd": [_PTR] * 10 + [_I32] * 6 + [_F32] * 2 + [_PTR],
     "qa_jvp_fwd_prep": [_PTR] * 3 + [_I32] * 4 + [_PTR],
     "qa_jvp_fwd_bf16": [_PTR, _I64, _I64, _I64] * 2 + [_PTR] * 8 + [_I32] * 6 + [_F32] * 2
                        + [_PTR],
@@ -158,8 +158,8 @@ def jvp_fwd_prep(k, v, tk, tv):
 def attention_jvp_fwd(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fast=False):
     """B9: (O, tO f32 [b, h, t, d], lse, mu f32 [b, h, t]).
 
-    CUDA tensors launch the kernel (head_dim 64 or 128 in fast mode, 64 in
-    exact mode) or raise: fast mode reads q
+    CUDA tensors launch the kernel (head_dim 64 or 128, either mode) or
+    raise: fast mode reads q
     and tq through their strides (rows contiguous) after one `jvp_fwd_prep`
     launch for k, v, tk and tv; exact mode takes contiguous f32 copies. CPU
     tensors take `attention_jvp_fwd_plain`. `attention_jvp_fwd.launches`
@@ -191,7 +191,7 @@ def attention_jvp_fwd(q, k, v, tq, tk, tv, causal=False, sm_scale=None, fast=Fal
             *(x.data_ptr() for x in kv), *outs, b, h, t, s, int(causal), d, sm_scale, qk_scale,
             stream)
     else:
-        status = _kernel()(*(x.data_ptr() for x in ins), *outs, b * h, t, s, int(causal), 0,
+        status = _kernel()(*(x.data_ptr() for x in ins), *outs, b * h, t, s, int(causal), 0, d,
                            sm_scale, qk_scale, stream)
     check_status(status, "jvp_fwd")
     attention_jvp_fwd.launches += 1

@@ -59,9 +59,9 @@ def attention_tangent_fwd_plain(q, k, v, o, lse, tq, tk, tv, causal=False, sm_sc
 _PTR, _PTRS = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
 _I64S, _I32, _F32 = ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # the C entries of csrc/jvp.cu this module calls
-    "qa_jvp_tangent": [_PTR] * 9 + [_I32] * 5 + [_F32] * 2 + [_PTR],
-    "qa_jvp_tangent_prep": [_PTRS, _I64S, _PTRS] + [_I32] * 3 + [_PTR],
-    "qa_jvp_tangent_tf32": [_PTR, _I64S] * 4 + [_PTRS, _PTR, _PTR] + [_I32] * 7 + [_F32] * 2
+    "qa_jvp_tangent": [_PTR] * 9 + [_I32] * 6 + [_F32] * 2 + [_PTR],
+    "qa_jvp_tangent_prep": [_PTRS, _I64S, _PTRS] + [_I32] * 4 + [_PTR],
+    "qa_jvp_tangent_tf32": [_PTR, _I64S] * 4 + [_PTRS, _PTR, _PTR] + [_I32] * 8 + [_F32] * 2
                            + [_PTR],
 }
 
@@ -83,9 +83,9 @@ def tangent_prep_plain(k, v, tk, tv):
 
 def tangent_prep(k, v, tk, tv):
     """`tangent_prep_plain`'s result, byte for byte, from one kernel launch
-    for CUDA tensors (f32 [b, h, s, 64] read through their strides, rows
-    contiguous; others are copied first); CPU tensors take the plain
-    version."""
+    for CUDA tensors (f32 [b, h, s, d], d 64 or 128, read through their
+    strides, rows contiguous; others are copied first); CPU tensors take the
+    plain version."""
     if k.device.type == "cpu":
         return tangent_prep_plain(k, v, tk, tv)
     b, h, s, d = k.shape
@@ -102,7 +102,7 @@ def tangent_prep(k, v, tk, tv):
     status = _kernel("qa_jvp_tangent_prep")(
         (ctypes.c_void_p * 4)(*(x.data_ptr() for x in ins)),
         (ctypes.c_longlong * 12)(*(st for x in ins for st in _strides(x))),
-        (ctypes.c_void_p * 8)(*(x.data_ptr() for x in out)), b, h, s,
+        (ctypes.c_void_p * 8)(*(x.data_ptr() for x in out)), b, h, s, d,
         torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "jvp_tangent prep")
     return tuple(out)
@@ -120,8 +120,8 @@ def _launch_exact(q, k, v, o, lse, tq, tk, tv, causal, sm_scale):
     lsef = lse.float()
     if lsef.device != dev or tqf.device != dev or of.device != dev:
         raise ValueError("q, tq, o and lse must lie on one device")
-    _, z, per = jvp_tiling.tangent_grid(b * h, t, s,
-                                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    _, z, per = jvp_tiling.tangent_grid(
+        b * h, t, s, torch.cuda.get_device_properties(dev).multi_processor_count, d)
     prep = tangent_prep(k, v, tk, tv)
     to = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
     part = torch.empty(z * b * h * t * (d + 1), dtype=torch.float32, device=dev) if z > 1 else None
@@ -133,7 +133,7 @@ def _launch_exact(q, k, v, o, lse, tq, tk, tv, causal, sm_scale):
         qf.data_ptr(), strides(qf), tqf.data_ptr(), strides(tqf), of.data_ptr(), strides(of),
         lsef.data_ptr(), strides(lsef), (ctypes.c_void_p * 8)(*(x.data_ptr() for x in prep)),
         to.data_ptr(), None if part is None else part.data_ptr(), b, h, t, s, int(causal), z,
-        per, sm_scale, qk_scale, torch.cuda.current_stream(dev).cuda_stream)
+        per, d, sm_scale, qk_scale, torch.cuda.current_stream(dev).cuda_stream)
     check_status(status, "jvp_tangent exact")
     return to
 
@@ -146,7 +146,7 @@ def _launch_fast(q, k, v, o, lse, tq, tk, tv, causal, sm_scale):
     ins, dev = kernel_args("B10", b, h, d, q, k, v, tq, tk, tv, o, lse)
     to = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
     status = _kernel()(
-        *(x.data_ptr() for x in ins), to.data_ptr(), b * h, t, s, int(causal), 1, sm_scale,
+        *(x.data_ptr() for x in ins), to.data_ptr(), b * h, t, s, int(causal), 1, d, sm_scale,
         qk_scale, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status(status, "jvp_tangent")
@@ -184,8 +184,9 @@ def attention_tangent_fwd(q, k, v, o, lse, tq, tk, tv, causal=False, sm_scale=No
     """B10: tO f32 [b, h, t, d] for tangents (tq, tk, tv) at (q, k, v), given
     the forward's O [b, h, t, d] and exp2-domain lse [b, h, t].
 
-    CUDA tensors launch the kernels (head_dim 64; exact mode: the prep, the
-    3xTF32 kernel and, with the keys split, the merge) or raise; CPU tensors
+    CUDA tensors launch the kernels (head_dim 64 or 128; exact mode: the
+    prep, the 3xTF32 kernel and, with the keys split, the merge) or raise;
+    CPU tensors
     take `attention_tangent_fwd_plain`. Both go through a dispatcher op, which
     torch.func transforms see through. `attention_tangent_fwd.launches`
     counts launches.

@@ -1,8 +1,10 @@
-"""Launch geometry of the JVP family's tensor-core kernels (csrc/jvp.cu): the
+"""Launch geometry of the JVP family's kernels (csrc/jvp.cu): the
 second-order backward's dK/dV (B11 fast, `jvp_dkv_wgmma`) and dQ (B12 fast,
 `jvp_dq_wgmma`), the forward (B9 fast, `jvp_fwd_wgmma`) with its K-side
-prep (`jvp_fwd_prep_kernel`), and the tangent's exact mode (B10 exact,
-`jvp_tangent_tf32`, 3xTF32).
+prep (`jvp_fwd_prep_kernel`), the tangent's exact mode (B10 exact,
+`jvp_tangent_tf32` at head dim 64 and `jvp_tangent_tf32_128` at 128,
+3xTF32), and the shared bytes of B10 fast (`jvp_tangent_mma`) and of the
+exact modes' FFMA kernels (B9, B11, B12 exact).
 
 Pure Python, so the CPU tests can hold it. A B11 block takes DKV_KEYS keys
 of one (batch * head), two warpgroups of 64, with K, tK, V and tV resident
@@ -29,20 +31,24 @@ row y holds rows (n - 1 - y) * Q_BLOCK .., so the blocks with the most key
 tiles start first. The constants mirror the kernels', and every shared-byte
 count is held against the kernel's own on the card.
 
-Head dim: the fast kernels take 64 or 128 (HEAD_DIMS); at 128 a bf16 row is
+Head dim: every kernel takes 64 or 128 (HEAD_DIMS); at 128 a bf16 row is
 two 64-dim panels, each its own 128-byte swizzled TMA box, and every tile's
 bytes double, so the rings hold fewer stages; the rows, tiles and walks are
-the same but for B9's 32-key tiles. B10 exact (the last section) takes 64
-only.
+the same but for B9's 32-key tiles and B10 exact's rows.
 
-B10 exact takes TANGENT_ROWS q rows of one (batch * head) a block, as B9,
-and walks TANGENT_KEYS-key tiles. With lse given its sums over keys need no
-rescaling, so the key tiles may be split into z ranges of `per` tiles
-(`tangent_grid`: enough blocks to fill the card once, where the q blocks
-alone do not), each range a block of its own; a second launch adds the
-ranges' sums in range order. Its grid is (q blocks, b * h, z); grid column
-x holds rows (n - 1 - x) * TANGENT_ROWS .., the blocks with the most key
-tiles first.
+B10 exact takes `tangent_rows(d)` q rows of one (batch * head) a block (128
+at head dim 64, two warpgroups of 64; 64 at 128, both warpgroups on the
+same rows, each 16 keys of every tile) and walks TANGENT_KEYS-key tiles.
+With lse given its sums over keys need no rescaling, so the key tiles may
+be split into z ranges of `per` tiles (`tangent_grid`: enough blocks to
+fill the card once, where the q blocks alone do not), each range a block of
+its own; a second launch adds the ranges' sums in range order. Its grid is
+(q blocks, b * h, z); grid column x holds rows (n - 1 - x) *
+tangent_rows(d) .., the blocks with the most key tiles first.
+
+The exact FFMA kernels (B9, B11, B12 exact) take 32-row or 32-key tiles of
+padded f32 rows (d + 1 floats) in dynamic shared memory (`exact_shared_bytes`);
+B10 fast takes 64 q rows and 32-key tiles of padded bf16 rows (d + 8).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from quantizedattention_tpu_torch.ops.common import KERNEL_HEAD_DIMS, check_head
 from quantizedattention_tpu_torch.ops.flash_tiling import MAX_Q_TILES, lse_row_stride
 
 HEAD_DIMS = KERNEL_HEAD_DIMS["B9/B11/B12 fast"]
+assert all(KERNEL_HEAD_DIMS[k] == HEAD_DIMS for k in ("B9/B11/B12 exact", "B10"))
 DKV_KEYS = 128  # keys a block: two warpgroups of 64
 Q_ROWS = 32  # q rows a streamed tile
 ROW_TERMS = 4  # lse, mu, c, dhat
@@ -187,29 +194,50 @@ def fwd_prep_grid(bh: int, s: int, head_dim: int) -> tuple[int, int, int]:
 # B10 exact: 3xTF32 q blocks over ranges of key tiles
 # --------------------------------------------------------------------------
 
-TANGENT_HEAD_DIM = 64  # B10's compiled head dim (KERNEL_HEAD_DIMS["B10"])
-TANGENT_ROWS = 128  # q rows a block: two warpgroups of 64
 TANGENT_KEYS = 32  # keys a tile
-TANGENT_STAGES = 3  # tiles in flight
 _KBLK = TANGENT_KEYS * 128  # bytes of a [32 keys x 32 dims] f32 block
-_VBLK = TANGENT_HEAD_DIM * 128  # bytes of a [64 dims x 32 keys] f32 block (V^T)
+_QBLK = 64 * 128  # bytes of a [64 rows x 32 dims] f32 block
 
 
-def tangent_shared_bytes() -> int:
-    """B10 exact's dynamic shared memory: each warpgroup's tQ small [64, 64]
-    f32, the ring (K, tK big and small, V^T, tV^T big and small: 64 KB a
-    stage), 128 bytes of mbarriers and release counters, 1024 bytes to align
-    the swizzled tiles."""
-    return (2 * 64 * TANGENT_HEAD_DIM * 4 + TANGENT_STAGES * (8 * _KBLK + 4 * _VBLK) + 128
-            + 1024)
+def _tangent(head_dim: int) -> int:
+    check_head_dim("B10", head_dim)
+    return head_dim
 
 
-def tangent_grid(bh: int, t: int, s: int, sms: int) -> tuple[int, int, int]:
+def tangent_rows(head_dim: int) -> int:
+    """B10 exact's q rows a block: 128 at head dim 64 (a warpgroup's 64
+    each), 64 at 128 (shared by both warpgroups, each 16 keys of a tile:
+    Q's three TF32 parts beside tO would take more registers than a thread
+    has)."""
+    return 128 if _tangent(head_dim) == 64 else 64
+
+
+def tangent_shared_bytes(head_dim: int) -> int:
+    """B10 exact's dynamic shared memory, 128 bytes of mbarriers (and
+    release counters) and 1024 bytes to align the swizzled tiles. At head
+    dim 64 each warpgroup's tQ small [64, 64] f32 and a ring of 3 stages (K,
+    tK big and small [32, 64], V^T, tV^T big and small [64, 32]: 64 KB a
+    stage); at 128 Q small, tQ big and tQ small [64, 128] for both
+    warpgroups (96 KB) and each warpgroup's K part (K, tK big and small [16,
+    128]) and V part (V^T, tV^T big and small [128, 16]), 32 KB each."""
+    if _tangent(head_dim) == 64:
+        return 2 * 64 * 64 * 4 + 3 * (8 * _KBLK + 4 * 64 * 128) + 128 + 1024
+    part = 4 * 16 * head_dim * 4
+    return 3 * 64 * head_dim * 4 + 2 * 2 * part + 128 + 1024
+
+
+def tangent_fast_shared_bytes(head_dim: int) -> int:
+    """B10 fast's dynamic shared memory: the block's 64 rows of bf16 Q and
+    tQ and the 32-key bf16 K, tK, V and tV tiles, rows padded to d + 8."""
+    return (2 * 64 + 4 * 32) * (_tangent(head_dim) + 8) * 2
+
+
+def tangent_grid(bh: int, t: int, s: int, sms: int, head_dim: int) -> tuple[int, int, int]:
     """(q blocks, z, per): B10 exact's grid is (q blocks, b * h, z), range z
     taking key tiles z * per .. z * per + per - 1. z > 1 only where the q
     blocks alone fill fewer than `sms` SMs; raises where the kernel takes no
     launch."""
-    n_qb, n_kt = -(-t // TANGENT_ROWS), -(-s // TANGENT_KEYS)
+    n_qb, n_kt = -(-t // tangent_rows(head_dim)), -(-s // TANGENT_KEYS)
     if not 1 <= bh <= MAX_HEADS or t < 1 or s < 1:
         raise ValueError(f"kernel takes 1 to {MAX_HEADS} heads (b*h), t >= 1 and s >= 1; got "
                          f"b*h={bh}, t={t}, s={s}")
@@ -218,13 +246,34 @@ def tangent_grid(bh: int, t: int, s: int, sms: int) -> tuple[int, int, int]:
     return n_qb, -(-n_kt // per), per
 
 
-def tangent_key_tiles(q0: int, t: int, s: int, causal: bool) -> int:
+def tangent_key_tiles(q0: int, t: int, s: int, causal: bool, head_dim: int) -> int:
     """The key tiles a block whose rows start at q0 sees (causal: up to its
     last row below t)."""
-    hi = min(s, t, q0 + TANGENT_ROWS) if causal else s
+    hi = min(s, t, q0 + tangent_rows(head_dim)) if causal else s
     return -(-hi // TANGENT_KEYS)
 
 
-def tangent_range(q0: int, z: int, per: int, t: int, s: int, causal: bool) -> range:
+def tangent_range(q0: int, z: int, per: int, t: int, s: int, causal: bool,
+                  head_dim: int) -> range:
     """The key tiles range z of a block at q0 walks (empty past its last)."""
-    return range(z * per, min(z * per + per, tangent_key_tiles(q0, t, s, causal)))
+    return range(z * per, min(z * per + per, tangent_key_tiles(q0, t, s, causal, head_dim)))
+
+
+# --------------------------------------------------------------------------
+# B9, B11 and B12 exact: FFMA on padded f32 tiles
+# --------------------------------------------------------------------------
+
+EXACT_TILE = 32  # rows (B9, B12) or keys (B11) a block, and the streamed tiles'
+_PTILE = EXACT_TILE * (EXACT_TILE + 1)  # floats of a padded probability tile
+
+
+def exact_shared_bytes(kernel: str, head_dim: int) -> int:
+    """Dynamic shared memory of an exact FFMA block ("fwd" B9: six operand
+    tiles and P, H; "dkv" B11: eight operand tiles, four probability tiles
+    and four rows of row terms; "dq" B12: eight operand tiles and dS, tSb),
+    operand tiles of EXACT_TILE rows of d + 1 floats."""
+    check_head_dim("B9/B11/B12 exact", head_dim)
+    tile = EXACT_TILE * (head_dim + 1)
+    floats = {"fwd": 6 * tile + 2 * _PTILE, "dkv": 8 * tile + 4 * _PTILE + 4 * EXACT_TILE,
+              "dq": 8 * tile + 2 * _PTILE}[kernel]
+    return 4 * floats

@@ -1,15 +1,15 @@
 """The head dims the port's kernels take on the card (ops/common.py's
 KERNEL_HEAD_DIMS and check_head_dim).
 
-B1 in both modes, fast B2/B3, the int8 family (B4, B5, B6, B7/B8), the four
-decode kernels (B13-B16) and the fast modes of B9, B11 and B12 take head dim
-64 or 128; B10 (both modes), the exact modes of B9, B11 and B12 and B2/B3
-exact take 64 only and refuse 128 naming ROADMAP B-f3; nothing takes
+Every kernel in every mode takes head dim 64 or 128: B1 in both modes,
+B2/B3 in both, the int8 family (B4, B5, B6, B7/B8), the four decode kernels
+(B13-B16), B9, B11 and B12 in both modes and B10 in both. Head dim 32 is
+refused naming ROADMAP B-f3 (what it still lacks), and nothing takes
 another head dim. Pure Python: the check itself, then each wrapper's CUDA
 branch on meta tensors (neither CPU nor CUDA, so a wrapper takes its kernel
-path and must raise before it asks for a CUDA tensor), which shows that no
-wrapper outside the slice falls back to its plain version at 128, and that
-the slice's wrappers pass the check at 128 and then ask for CUDA tensors.
+path and must raise before it asks for a CUDA tensor), which shows that
+every wrapper passes the check at 128 and then asks for CUDA tensors: none
+refuses and none falls back to its plain version.
 """
 
 import pytest
@@ -41,22 +41,21 @@ from quantizedattention_tpu_torch.parallel import (
     paged_cache,
 )
 
-# the kernels that take head dim 128
-SLICE = {"B1 bf16", "B1 fp32", "B2/B3 fast", "B13", "B4", "B5", "B6", "B7/B8", "B14", "B15",
-         "B16", "B9/B11/B12 fast"}
+# the kernels that take head dim 128: every one
+SLICE = set(KERNEL_HEAD_DIMS)
 META = torch.device("meta")
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNEL_HEAD_DIMS))
 def test_head_dim_128_only_in_the_slice(kernel):
+    """Every kernel is in the slice: 64 and 128 pass, 32 is refused naming
+    ROADMAP B-f3."""
     check_head_dim(kernel, 64)
-    if kernel in SLICE:
-        check_head_dim(kernel, 128)
-        assert KERNEL_HEAD_DIMS[kernel] == (64, 128)
-    else:
-        with pytest.raises(ValueError, match="B-f3"):
-            check_head_dim(kernel, 128)
-        assert KERNEL_HEAD_DIMS[kernel] == (64,)
+    assert kernel in SLICE
+    check_head_dim(kernel, 128)
+    assert KERNEL_HEAD_DIMS[kernel] == (64, 128)
+    with pytest.raises(ValueError, match="B-f3"):
+        check_head_dim(kernel, 32)
 
 
 @pytest.mark.parametrize("d", [0, 32, 80, 96, 112, 256])
@@ -83,17 +82,20 @@ def _jvp_ops(d, fast):
     return jvp_bwd_operands(q, k, v, q, k, v, o, o, lse, lse, o, o, fast=fast)
 
 
-def _outside_the_slice(d):
-    """Calls that reach the kernel path of a wrapper outside the slice."""
+def _jvp_exact_slice(d):
+    """Calls that reach the kernel path of the wrappers the last slice
+    brought to 128: B2/B3 exact, B9, B11 and B12 exact, B10 in both modes
+    and B10 exact's prep."""
     q, k, v = _qkv(d)
     o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=META)
     return {
         "B2/B3 exact": lambda: flash_attention_bwd(q, k, v, o, lse, o, fast=False),
         "B9 exact": lambda: attention_jvp_fwd(q, k, v, q, k, v, fast=False),
         "B10 exact prep": lambda: tangent_prep(k, v, k, v),
-        # the launch under attention_tangent_fwd's dispatcher op, which meta
-        # tensors would send to its fake implementation
+        # the launches under attention_tangent_fwd's dispatcher op, which
+        # meta tensors would send to its fake implementation
         "B10 fast": lambda: tangent_launch(q, k, v, o, lse, q, k, v, False, None, True),
+        "B10 exact": lambda: tangent_launch(q, k, v, o, lse, q, k, v, False, None, False),
         "B11 exact": lambda: jvp_bwd_dkv(_jvp_ops(d, fast=False)),
         "B12 exact": lambda: jvp_bwd_dq(_jvp_ops(d, fast=False)),
     }
@@ -151,14 +153,18 @@ def _rcm_and_int4_slice(d):
     }
 
 
-@pytest.mark.parametrize("name", sorted(_outside_the_slice(128)))
-def test_wrappers_outside_the_slice_raise_at_128(name):
-    with pytest.raises(ValueError, match="B-f3"):
-        _outside_the_slice(128)[name]()
+@pytest.mark.parametrize("name", sorted(_jvp_exact_slice(128)))
+def test_jvp_exact_wrappers_take_128_then_want_cuda(name):
+    """B2/B3 exact, B9, B11 and B12 exact, B10 in both modes and B10 exact's
+    prep pass the head-dim check at 128 (and the launch geometry there) and
+    then ask for CUDA tensors: no refusal and no fallback to the plain
+    version."""
+    with pytest.raises(ValueError, match="CUDA"):
+        _jvp_exact_slice(128)[name]()
 
 
 def _every_wrapper(d):
-    return {**_outside_the_slice(d), **_int8_slice(d), **_rcm_and_int4_slice(d)}
+    return {**_jvp_exact_slice(d), **_int8_slice(d), **_rcm_and_int4_slice(d)}
 
 
 @pytest.mark.parametrize("name", sorted(_every_wrapper(96)))

@@ -503,14 +503,14 @@ def _tangent_walk(bh, t, s, causal, sms):
     """(position, key) pairs every B10 exact block computes, as the kernel
     walks: grid column x holds rows (n - 1 - x) * 128 .., range z the key
     tiles `tangent_range` gives, every visible key of each."""
-    n_qb, z, per = jvp_tiling.tangent_grid(bh, t, s, sms)
+    n_qb, z, per = jvp_tiling.tangent_grid(bh, t, s, sms, 64)
     assert z * per * jvp_tiling.TANGENT_KEYS >= s and (z - 1) * per * jvp_tiling.TANGENT_KEYS < s
     seen = []
     for x in range(n_qb):
-        q0 = (n_qb - 1 - x) * jvp_tiling.TANGENT_ROWS
+        q0 = (n_qb - 1 - x) * jvp_tiling.tangent_rows(64)
         for zi in range(z):
-            for tile in jvp_tiling.tangent_range(q0, zi, per, t, s, causal):
-                for pos in range(q0, min(q0 + jvp_tiling.TANGENT_ROWS, t)):
+            for tile in jvp_tiling.tangent_range(q0, zi, per, t, s, causal, 64):
+                for pos in range(q0, min(q0 + jvp_tiling.tangent_rows(64), t)):
                     seen += [(pos, key) for key in range(tile * 32, min(tile * 32 + 32, s))
                              if not causal or key <= pos]
     return seen
@@ -535,11 +535,11 @@ def test_tangent_walk_covers_every_visible_pair_once(t, s, causal, sms):
     (1, 1, 1, (1, 1, 1)),
 ])
 def test_tangent_grid_splits_keys_only_to_fill_the_card(bh, t, s, want):
-    assert jvp_tiling.tangent_grid(bh, t, s, 132) == want
+    assert jvp_tiling.tangent_grid(bh, t, s, 132, 64) == want
 
 
 def test_tangent_shared_memory_fits_one_block():
-    smem = jvp_tiling.tangent_shared_bytes()
+    smem = jvp_tiling.tangent_shared_bytes(64)
     # tQ small of both warpgroups (32 KB), three 64 KB stages of eight f32 operands
     assert smem == 2 * 16384 + 3 * 65536 + 128 + 1024
     assert smem <= flash_tiling.SMEM_LIMIT
@@ -548,7 +548,7 @@ def test_tangent_shared_memory_fits_one_block():
 @pytest.mark.parametrize("bh,t,s", [(0, 1, 1), (65536, 1, 1), (1, 0, 1), (1, 1, 0)])
 def test_tangent_grid_limits_raise(bh, t, s):
     with pytest.raises(ValueError, match="kernel takes"):
-        jvp_tiling.tangent_grid(bh, t, s, 132)
+        jvp_tiling.tangent_grid(bh, t, s, 132, 64)
 
 
 def test_tangent_prep_plain_is_the_split_of_both_pairs():
